@@ -1,0 +1,130 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with ``ctypes``; all
+sources build in parallel, one ``nvcc`` each.  Builds go to
+``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
+named by a hash of the sources and flags, so a changed source is
+rebuilt and an unchanged one is reused.  Nothing here runs at import
+time: the first kernel launch builds what it needs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+SOURCES = ("fused_layer.cu", "fused_layer_last.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas=-v",  # registers, shared memory and spills per kernel
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "fused_layer.cu": {
+        "recblr_layer_fwd": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
+    },
+    "fused_layer_last.cu": {
+        "recblr_layer_last_fwd": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    },
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(source: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in (source, *HEADERS):
+        h.update((SRC_DIR / name).read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(sources=SOURCES) -> dict[str, float]:
+    """Compile every source whose library is missing, all at once.
+    Returns the build seconds of each source built (0.0 if reused); the
+    compiler's output is kept in ``BUILD_LOGS``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    seconds = {}
+    t0 = time.perf_counter()
+    for src in sources:
+        out = _lib_path(src)
+        if out.exists():
+            seconds[src] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp), str(SRC_DIR / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), tmp, out)
+    failed = []
+    for src, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[src] = time.perf_counter() - t0
+        BUILD_LOGS[src] = log
+        if proc.returncode != 0:
+            failed.append(f"{src}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed."""
+    lib = _loaded.get(source)
+    if lib is not None:
+        return lib
+    path = _lib_path(source)
+    if not path.exists():
+        build((source,))
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES[source].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.recblr_error_string.argtypes = [ctypes.c_int]
+    lib.recblr_error_string.restype = ctypes.c_char_p
+    _loaded[source] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.recblr_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def pointer_array(tensors) -> ctypes.Array:
+    """A C array of device pointers (null for None)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors]
+    )
