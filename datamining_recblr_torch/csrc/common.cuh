@@ -1,5 +1,6 @@
-// Shared device code of the RecBLR recurrent-layer forward kernels
-// (fused_layer.cu, fused_layer_last.cu).
+// Shared device code of the RecBLR recurrent-layer kernels
+// (fused_layer.cu, fused_layer_last.cu and, through common_bwd.cuh,
+// their backwards).
 //
 // Each layer forward runs in three hand-written phases, all fp32 inside:
 //   A  per (row, time tile): [prologue LN] -> xb = x @ W_in[:, :C] ->
@@ -11,6 +12,12 @@
 // agree with the plain fp32 versions to rounding.  The work outside
 // the scan is per time step apart from the conv's (K-1)-step halo,
 // which phase A recomputes from x at the tile's left edge.
+//
+// Dropout masks are counter-based Philox4x32-10 draws (ops/philox.py is
+// the plain version): the key is the call's 64-bit seed and the counter
+// is (channel / 4, position, row, mask id), so a mask element depends on
+// (seed, mask, row, position, channel) alone.  A halo row, a recomputing
+// backward and the plain PyTorch version all see the same bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,6 +52,53 @@ inline LayerParams unpack_params(const void* const* p) {
   return q;
 }
 
+// Mask ids of the Philox counter: m0 prologue, m1 after W_out, m2 FFN
+// inner, m3 FFN out (the order of the TPU kernel's draws).
+enum MaskId { M0 = 0, M1 = 1, M2 = 2, M3 = 3 };
+
+struct Dropout {
+  unsigned k0, k1;  // Philox key: low and high words of the call's seed
+  unsigned thresh;  // keep iff bits < thresh = min(keep * 2^32, 2^32 - 1)
+  float scale;      // 1 / keep
+  int on;           // 0: no masks at all (dropout p = 0)
+};
+
+inline Dropout make_dropout(int on, unsigned long long seed, unsigned thresh, float scale) {
+  Dropout d;
+  d.k0 = (unsigned)(seed & 0xffffffffull);
+  d.k1 = (unsigned)(seed >> 32);
+  d.thresh = thresh;
+  d.scale = scale;
+  d.on = on;
+  return d;
+}
+
+// Philox4x32 with 10 rounds (Salmon et al., SC'11; Random123's constants).
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// Scaled keep-mask element (0 or 1/keep) of mask m at (row b, position
+// t, channel ch); 1 when dropout is off.
+__device__ __forceinline__ float drop_mask(const Dropout& dr, int m, int b, int t, int ch) {
+  if (!dr.on) return 1.f;
+  const uint4 w = philox4x32_10(make_uint4((unsigned)ch >> 2, (unsigned)t, (unsigned)b,
+                                           (unsigned)m), dr.k0, dr.k1);
+  const int q = ch & 3;
+  const unsigned bits = q == 0 ? w.x : q == 1 ? w.y : q == 2 ? w.z : w.w;
+  return bits < dr.thresh ? dr.scale : 0.f;
+}
+
 __device__ __forceinline__ float load_act(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load_act(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);
@@ -74,11 +128,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// out[m, n] = sum_k a[m, k] * w[k, n] (+ bias[n]) for m < M, n < N.
-// a lives in shared memory with row stride lda and must have
-// ceil(M / RM) * RM readable rows; w is global with row stride ldw.
-// Each thread keeps RM accumulators for one column, so a warp reads one
-// broadcast value of `a` and 32 consecutive weights per step.
+// out[m, n] = sum_k a[m, k] * w[k, n] (+ bias[n]) for m < M, n < N
+// (ACC: out[m, n] += that sum).  a lives in shared memory with row
+// stride lda and must have ceil(M / RM) * RM readable rows; w is global
+// with row stride ldw.  Each thread keeps RM accumulators for one
+// column, so a warp reads one broadcast value of `a` and 32 consecutive
+// weights per step.
+template <bool ACC = false>
 __device__ void block_matmul(const float* __restrict__ a, int lda, int M, int K,
                              const float* __restrict__ w, int ldw, int N,
                              const float* __restrict__ bias,
@@ -97,8 +153,13 @@ __device__ void block_matmul(const float* __restrict__ a, int lda, int M, int K,
     }
     const float b = bias ? __ldg(bias + n) : 0.f;
 #pragma unroll
-    for (int r = 0; r < RM; ++r)
-      if (m0 + r < M) out[(m0 + r) * ldo + n] = acc[r] + b;
+    for (int r = 0; r < RM; ++r) {
+      if (m0 + r >= M) continue;
+      if (ACC)
+        out[(m0 + r) * ldo + n] += acc[r] + b;
+      else
+        out[(m0 + r) * ldo + n] = acc[r] + b;
+    }
   }
 }
 
@@ -133,7 +194,7 @@ inline size_t phase_a_smem_bytes(int D, int C) {
 template <typename Tin>
 __global__ void __launch_bounds__(THREADS)
 phase_a_kernel(const Tin* __restrict__ x, const int* __restrict__ lens, LayerParams p,
-               float* __restrict__ alpha_out, float* __restrict__ bx_out,
+               Dropout dr, float* __restrict__ alpha_out, float* __restrict__ bx_out,
                int T, int D, int C, int K, int use_conv, int prologue) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
@@ -152,7 +213,12 @@ phase_a_kernel(const Tin* __restrict__ x, const int* __restrict__ lens, LayerPar
   for (int i = threadIdx.x; i < rows_h * D; i += blockDim.x) {
     const int r = i / D, d = i % D;
     const int t = t0 - H + r;
-    xs[i] = t >= 0 ? load_act(x, ((size_t)b * T + t) * D + d) : 0.f;
+    float v = 0.f;
+    if (t >= 0) {
+      v = load_act(x, ((size_t)b * T + t) * D + d);
+      if (prologue) v *= drop_mask(dr, M0, b, t, d);
+    }
+    xs[i] = v;
   }
   __syncthreads();
   if (prologue) {
@@ -206,7 +272,7 @@ inline size_t tail_smem_bytes(int D, int C, int F) {
 template <typename Tin, bool LAST>
 __global__ void __launch_bounds__(THREADS)
 tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
-            const float* __restrict__ h, Tin* __restrict__ out, LayerParams p,
+            const float* __restrict__ h, Tin* __restrict__ out, LayerParams p, Dropout dr,
             int B, int T, int D, int C, int F, int use_ffn, int prologue) {
   extern __shared__ float smem[];
   float* xs = smem;            // [TT, D]  layer input (post-prologue); later f2
@@ -230,6 +296,7 @@ tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
       v = n > 0 ? load_act(x, ((size_t)(t0 + r) * T + n - 1) * D + d) : 0.f;
     } else {
       v = load_act(x, ((size_t)b * T + t0 + r) * D + d);
+      if (prologue) v *= drop_mask(dr, M0, b, t0 + r, d);
     }
     xs[i] = v;
   }
@@ -248,7 +315,12 @@ tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
   __syncthreads();
   block_matmul(zs, C, rows, C, p.w_out, D, D, nullptr, ys, D);
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) ys[i] += xs[i];
+  // the masks of the last-position layer are [B, 1, .]: row t0 + r, position 0
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    const int r = i / D, d = i % D;
+    const float m = LAST ? drop_mask(dr, M1, t0 + r, 0, d) : drop_mask(dr, M1, b, t0 + r, d);
+    ys[i] = ys[i] * m + xs[i];
+  }
   __syncthreads();
   block_layernorm(ys, D, rows, D, p.ln1_s, p.ln1_b);
   __syncthreads();
@@ -256,11 +328,19 @@ tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
   if (use_ffn) {
     block_matmul(ys, D, rows, D, p.w1, F, F, p.b1, a1, F);
     __syncthreads();
-    for (int i = threadIdx.x; i < rows * F; i += blockDim.x) a1[i] = silu_t(a1[i]);
+    for (int i = threadIdx.x; i < rows * F; i += blockDim.x) {
+      const int r = i / F, f = i % F;
+      const float m = LAST ? drop_mask(dr, M2, t0 + r, 0, f) : drop_mask(dr, M2, b, t0 + r, f);
+      a1[i] = silu_t(a1[i]) * m;
+    }
     __syncthreads();
     block_matmul(a1, F, rows, F, p.w2, D, D, p.b2, xs, D);
     __syncthreads();
-    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) xs[i] += ys[i];
+    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+      const int r = i / D, d = i % D;
+      const float m = LAST ? drop_mask(dr, M3, t0 + r, 0, d) : drop_mask(dr, M3, b, t0 + r, d);
+      xs[i] = xs[i] * m + ys[i];
+    }
     __syncthreads();
     block_layernorm(xs, D, rows, D, p.ln2_s, p.ln2_b);
     __syncthreads();
@@ -271,6 +351,41 @@ tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
     const size_t o = LAST ? (size_t)(t0 + r) * D + d : ((size_t)b * T + t0 + r) * D + d;
     store_act(out, o, res[i]);
   }
+}
+
+// Forward scan of the full layer, in place: bx_h holds beta*xc on entry
+// and h on exit.  One thread per (row, channel), serial over T.
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_kernel(const float* __restrict__ alpha, float* __restrict__ bx_h, int B, int T, int C) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * C) return;
+  const int b = i / C, c = i % C;
+  size_t o = (size_t)b * T * C + c;
+  float h = 0.f;
+  for (int t = 0; t < T; ++t, o += C) {
+    h = alpha[o] * h + bx_h[o];
+    bx_h[o] = h;
+  }
+}
+
+// Forward scan of the last-position layer: stops at each row's valid
+// length and writes the state there to h_last; with `stash`, also h over
+// bx at the positions below the length (the others are left as they are).
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_last_kernel(const float* __restrict__ alpha, float* __restrict__ bx,
+                 const int* __restrict__ lens, float* __restrict__ h_last, int B, int T,
+                 int C, int stash) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * C) return;
+  const int b = i / C, c = i % C;
+  const int n = valid_len(lens[b], T);
+  size_t o = (size_t)b * T * C + c;
+  float h = 0.f;
+  for (int t = 0; t < n; ++t, o += C) {
+    h = alpha[o] * h + bx[o];
+    if (stash) bx[o] = h;
+  }
+  h_last[i] = h;
 }
 
 }  // namespace recblr

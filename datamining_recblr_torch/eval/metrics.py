@@ -1,9 +1,55 @@
-"""Score masking for full-catalog ranking (counterpart of
-``datamining_recblr_tpu/eval/metrics.py:mask_scores``)."""
+"""Top-k ranking metrics for leave-one-out evaluation and score masking
+(counterpart of ``datamining_recblr_tpu/eval/metrics.py``).
+
+Metrics come from the *rank* of the single ground-truth item.  Ties
+break as ``torch.topk(sorted=True)`` does, as RecBole uses it: among
+equal scores the smaller item index ranks first.  With one relevant
+item per user, Recall@k == Hit@k and MAP@k == MRR@k.
+"""
 
 from __future__ import annotations
 
 import torch
+
+
+def target_ranks(scores, targets):
+    """1-based rank of ``targets[b]`` in descending ``scores[b]``:
+    (# strictly greater) + (# equal with a smaller index) + 1.
+    scores: [B, V] float; targets: [B] int."""
+    scores = scores.float()
+    idx = torch.arange(scores.shape[-1], device=scores.device)[None, :]
+    tgt = targets.long()[:, None]
+    tgt_score = scores.gather(-1, tgt)
+    greater = (scores > tgt_score).sum(-1)
+    eq_before = ((scores == tgt_score) & (idx < tgt)).sum(-1)
+    return greater + eq_before + 1
+
+
+_METRIC_FNS = {
+    "hit": lambda rank, k: (rank <= k).float(),
+    "recall": lambda rank, k: (rank <= k).float(),
+    "ndcg": lambda rank, k: torch.where(
+        rank <= k, 1.0 / torch.log2(rank.float() + 1.0), torch.zeros((), device=rank.device)),
+    "mrr": lambda rank, k: torch.where(
+        rank <= k, 1.0 / rank.float(), torch.zeros((), device=rank.device)),
+    "map": lambda rank, k: torch.where(
+        rank <= k, 1.0 / rank.float(), torch.zeros((), device=rank.device)),
+    "precision": lambda rank, k: (rank <= k).float() / k,
+}
+
+
+def rank_metrics(ranks, metrics, topk, weights=None):
+    """{"<metric>@<k>": (weighted sum, weight sum)} from 1-based ranks,
+    as fp32 scalar tensors: callers accumulate across batches and
+    divide."""
+    w = torch.ones(ranks.shape, device=ranks.device) if weights is None else weights.float()
+    wsum = w.sum()
+    out = {}
+    for name in metrics:
+        fn = _METRIC_FNS[name.lower()]
+        for k in topk:
+            out[f"{name}@{k}"] = ((fn(ranks, k) * w).sum(), wsum)
+    return out
 
 
 def mask_scores(scores, pad_value=float("-inf"), history=None):

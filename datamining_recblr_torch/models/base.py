@@ -1,8 +1,9 @@
-"""Sequential-recommender model contract (counterpart of
+"""Sequential-recommender model contract and its loss (counterpart of
 ``datamining_recblr_tpu/models/base.py``): ``forward(item_seq,
-item_seq_len) -> [B, H]``, the item embedding lookup, the vocab-padding
-rule and full-catalog scoring, as an ``nn.Module`` that holds its
-parameters under the JAX parameter tree's names.
+item_seq_len, step) -> [B, H]``, the item embedding lookup, the
+vocab-padding rule, full-catalog scoring and the CE training loss, as an
+``nn.Module`` that holds its parameters under the JAX parameter tree's
+names.  The BPR loss is not ported yet.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 _DTYPES = {
@@ -46,6 +48,20 @@ def dtype_of(name) -> torch.dtype:
     return _DTYPES[str(name)]
 
 
+def ce_loss(logits, targets, weights=None):
+    """Full-catalog softmax cross-entropy, mean over (weighted) rows
+    (``nn.CrossEntropyLoss`` with mean reduction): logits over every item
+    id including PAD = 0; a weighted mean divides by max(sum w, 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets.long()[:, None])[:, 0]
+    nll = logz - tgt
+    if weights is None:
+        return nll.mean()
+    w = weights.float()
+    return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
 class SequentialModel(nn.Module):
     """Base class: static hyperparameters plus the item embedding;
     subclasses register their parameters and implement ``forward``."""
@@ -58,6 +74,8 @@ class SequentialModel(nn.Module):
         self.compute_dtype = dtype_of(config.get("compute_dtype", "float32"))
         self.param_dtype = dtype_of(config.get("param_dtype", "float32"))
         self.device = resolve_device(device)
+        self.loss_type = str(config.get("loss_type", "CE"))
+        self.seed = int(config.get("seed", 0) or 0)
         mesh_shape = config.get("mesh_shape") or {}
         self._vocab_mult = int(
             config.get("vocab_multiple") or mesh_shape.get("model", 1) or 1
@@ -71,17 +89,23 @@ class SequentialModel(nn.Module):
         m = self._vocab_mult
         return -(-n // m) * m
 
-    def forward(self, item_seq, item_seq_len):
+    def forward(self, item_seq, item_seq_len, step=None):
+        """[B, H] sequence representation; dropout is on only in training
+        mode with a global ``step``, which seeds its masks."""
         raise NotImplementedError
 
     def embed(self, ids):
         """Item-embedding lookup; under bf16 compute it gathers from a
         bf16 copy of the table (``ops/embedding.py:41-53`` of the JAX
-        package), which rounds exactly as casting after the gather."""
+        package), which rounds exactly as casting after the gather.
+        ``F.embedding`` and not ``table[ids]``: on the card its backward
+        sums the rows of repeated ids (PAD fills about half a training
+        batch) in parallel segments, where indexing's backward
+        serializes them."""
         table = self.item_embedding
         if self.compute_dtype == torch.bfloat16:
             table = table.to(torch.bfloat16)
-        return table[ids]
+        return F.embedding(ids, table)
 
     def _mask_padded_vocab(self, logits, value=float("-inf")):
         if self.n_items_padded == self.n_items:
@@ -96,9 +120,27 @@ class SequentialModel(nn.Module):
         compute dtype and multiplied in fp32, as the JAX package's
         ``preferred_element_type=f32`` product."""
         seq_output = self.forward(item_seq, item_seq_len)
+        return self._mask_padded_vocab(self._logits(seq_output))
+
+    def _logits(self, seq_output):
         table = self.item_embedding.to(seq_output.dtype)
-        logits = seq_output.float() @ table.float().T
-        return self._mask_padded_vocab(logits)
+        return seq_output.float() @ table.float().T
+
+    def item_scores(self, seq_output, item_ids):
+        """Dot-product score of seq_output[b] with item ids [B]."""
+        emb = self.item_embedding[item_ids].to(seq_output.dtype)
+        return (seq_output * emb).sum(-1)
+
+    def calculate_loss(self, batch, step=None):
+        """batch: item_seq [B, T], item_seq_len [B], pos_item [B] and an
+        optional weight [B] (0 for padded rows).  CE over the whole
+        catalog, padded vocab columns at -1e30; dropout on in training
+        mode with the global ``step``."""
+        if self.loss_type != "CE":
+            raise NotImplementedError(f"loss_type {self.loss_type!r} is not ported; CE is")
+        seq_output = self.forward(batch["item_seq"], batch["item_seq_len"], step=step)
+        logits = self._mask_padded_vocab(self._logits(seq_output), value=-1e30)
+        return ce_loss(logits, batch["pos_item"], batch.get("weight"))
 
 
 def get_model(name: str):

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from datamining_recblr_torch.ops import philox
+
 LN_EPS = 1e-12
 INIT_STD = 0.02
 
@@ -44,6 +46,19 @@ def layer_norm(p, x, eps=LN_EPS):
     var = (x - mean).square().mean(-1, keepdim=True)
     y = (x - mean) * torch.rsqrt(var + eps)
     return (y * p["scale"] + p["bias"]).to(dtype)
+
+
+def dropout(x, rate, seed, mask_id=philox.M0):
+    """Inverted dropout (torch semantics: kept units scaled by 1/(1-p))
+    with the Philox mask of (seed, mask_id) over x's [B, T, W] (or
+    [B, W]) coordinates, the masks the fused kernels draw
+    (``ops/philox.py``); the identity at rate 0."""
+    if not rate:
+        return x
+    b, w = x.shape[0], x.shape[-1]
+    t = x[0].numel() // w if b else 0
+    m = philox.dropout_mask(seed, mask_id, b, t, w, rate, x.device)
+    return (x * m.reshape(x.shape)).to(x.dtype)
 
 
 def gather_last(x, seq_len):

@@ -1,25 +1,32 @@
 """RecBLR: Behavior-Dependent Linear Recurrent Unit recommender, as an
 ``nn.Module`` (counterpart of ``datamining_recblr_tpu/models/recblr.py``).
 
-item embedding -> LayerNorm -> N x (gated BD-LRU recurrent block
-[+ FFN]) -> last-position output [B, D].  This slice serves: forward
-only, dropout 0.
+item embedding -> dropout -> LayerNorm -> N x (gated BD-LRU recurrent
+block [+ FFN]) -> last-position output [B, D].
 
 Parameters carry the names and layouts of the JAX ``init_params``
 (``[in, out]`` weights, ``x @ w``, [B, T, C] activations), so
 ``interop.params_from_jax`` is a dtype and device move.
 
+Dropout (``dropout_prob``) is on in training mode when ``forward`` gets
+the global step: the masks are Philox draws whose seeds are a function
+of (config seed, step, layer) alone (``ops/philox.py:step_seeds``), one
+per layer plus one for the input dropout, as the JAX model draws one
+seed per layer plus one for the prologue (``recblr.py:303-311``).
+
 Two compositions, chosen by configuration as in the JAX package:
 
 * fused (D <= 128, C <= 128, T <= 512, ``use_pallas_scan`` not
   "never"): layer 0 .. N-2 run ``fused_recurrent_layer`` (layer 0 with
-  the input LN folded in), the top layer runs
-  ``fused_recurrent_layer_last``.  A one-layer model applies the input LN
+  the input dropout and LN folded in), the top layer runs
+  ``fused_recurrent_layer_last``; both are differentiable through their
+  backward kernels.  A one-layer model applies the input dropout and LN
   in plain PyTorch first, where the JAX package calls its standalone
   ``fused_dropout_ln`` kernel (not ported yet).
 * unfused (everything else, including T > 512, where the JAX package
   runs its sequence-chunked kernel, not ported yet): the per-op
-  composition of ``_gated_recurrent`` and ``_ffn``.
+  composition of ``_gated_recurrent`` and ``_ffn``, differentiated by
+  autograd.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from datamining_recblr_torch.models import layers as L
 from datamining_recblr_torch.models.base import SequentialModel
 from datamining_recblr_torch.ops.conv import causal_depthwise_conv
 from datamining_recblr_torch.ops.fused_bdlru import softplus
+from datamining_recblr_torch.ops import philox
 from datamining_recblr_torch.ops.fused_layer import (
     fused_recurrent_layer,
     fused_recurrent_layer_last,
@@ -73,6 +81,7 @@ class RecBLR(SequentialModel):
         super().__init__(config, n_items, max_seq_len, device=device)
         self.hidden_size = config["hidden_size"]
         self.num_layers = config["num_layers"]
+        self.dropout_prob = float(config["dropout_prob"] or 0.0)
         self.expand = config["expand"]
         self.d_conv = config["d_conv"]
         self.bd_lru_only = bool(config["bd_lru_only"])
@@ -133,9 +142,11 @@ class RecBLR(SequentialModel):
 
     @staticmethod
     def flat_layer_params(layer, use_ffn):
-        """One layer's parameters under the fused kernels' names, fp32."""
+        """One layer's parameters under the fused kernels' names, fp32
+        (the parameters themselves where they are fp32 already, so the
+        kernels' gradients reach them)."""
         grl = layer["grl"]
-        f32 = lambda a: a.detach().float().contiguous()  # noqa: E731
+        f32 = lambda a: a.float().contiguous()  # noqa: E731
         flat = {
             "w_in": f32(grl["w_in"]),
             "wc": f32(grl["conv_w"]),
@@ -158,8 +169,8 @@ class RecBLR(SequentialModel):
 
     def prologue_params(self):
         return {
-            "pl_s": self.input_ln["scale"].detach().float().contiguous(),
-            "pl_b": self.input_ln["bias"].detach().float().contiguous(),
+            "pl_s": self.input_ln["scale"].float().contiguous(),
+            "pl_b": self.input_ln["bias"].float().contiguous(),
         }
 
     # ------------------------------------------------------------------
@@ -187,32 +198,43 @@ class RecBLR(SequentialModel):
             z = z[rows, idx][:, None]
         return (F.silu(z) * h) @ p["w_out"].to(x.dtype)
 
-    def _ffn(self, p, x):
+    def _ffn(self, p, x, p_drop, seed):
         y = F.silu(L.dense(p["w1"], x))
-        y = L.dense(p["w2"], y)
+        y = L.dropout(y, p_drop, seed, philox.M2)
+        y = L.dropout(L.dense(p["w2"], y), p_drop, seed, philox.M3)
         return L.layer_norm(p["ln"], y + x)
 
-    def forward(self, item_seq, item_seq_len):
+    def dropout_seeds(self, step):
+        """(p, seeds): the dropout rate and one seed per layer plus one
+        for the input dropout; p = 0 outside training with a step."""
+        n = len(self.layers) + 1
+        if not (self.training and step is not None and self.dropout_prob):
+            return 0.0, [0] * n
+        return self.dropout_prob, philox.step_seeds(self.seed, step, n)
+
+    def forward(self, item_seq, item_seq_len, step=None):
         x = self.embed(item_seq).to(self.compute_dtype)
         n_layers = len(self.layers)
+        p_drop, seeds = self.dropout_seeds(step)
         if self.use_fused_layer():
             use_conv = not self.disable_conv1d
             use_ffn = not self.disable_ffn
             if n_layers < 2:
-                x = L.layer_norm(self.input_ln, x)
+                x = L.layer_norm(self.input_ln, L.dropout(x, p_drop, seeds[-1]))
             for li, layer in enumerate(self.layers):
                 flat = self.flat_layer_params(layer, use_ffn)
                 if li == n_layers - 1:
                     return fused_recurrent_layer_last(
-                        x, item_seq_len, flat, use_conv, use_ffn
+                        x, item_seq_len, flat, use_conv, use_ffn, p_drop, seeds[li]
                     )
                 pro = li == 0
                 if pro:
                     flat.update(self.prologue_params())
-                x = fused_recurrent_layer(x, flat, use_conv, use_ffn, pro)
+                x = fused_recurrent_layer(x, flat, use_conv, use_ffn, pro, p_drop,
+                                          seeds[li])
             return L.gather_last(x, item_seq_len)
 
-        x = L.layer_norm(self.input_ln, x)
+        x = L.layer_norm(self.input_ln, L.dropout(x, p_drop, seeds[-1]))
         for li, layer in enumerate(self.layers):
             last = li == n_layers - 1
             h = self._gated_recurrent(
@@ -221,7 +243,8 @@ class RecBLR(SequentialModel):
             if last:
                 rows = torch.arange(x.shape[0], device=x.device)
                 x = x[rows, _last_index(item_seq_len, x.shape[1])][:, None]
+            h = L.dropout(h, p_drop, seeds[li], philox.M1)
             x = L.layer_norm(layer["ln"], h + x)
             if not self.disable_ffn:
-                x = self._ffn(layer["ffn"], x)
+                x = self._ffn(layer["ffn"], x, p_drop, seeds[li])
         return x[:, 0] if n_layers else L.gather_last(x, item_seq_len)

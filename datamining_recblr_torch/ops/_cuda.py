@@ -22,8 +22,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("fused_layer.cu", "fused_layer_last.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("fused_layer.cu", "fused_layer_last.cu", "fused_layer_bwd.cu",
+           "fused_layer_last_bwd.cu")
+HEADERS = ("common.cuh", "common_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -36,12 +37,21 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the dropout arguments (csrc/common.cuh Dropout), then the card and stream
+_DROP = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float, _I, _P]
 _SIGNATURES = {
     "fused_layer.cu": {
-        "recblr_layer_fwd": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
+        "recblr_layer_fwd": [_P] * 5 + [_I] * 11 + _DROP,
     },
     "fused_layer_last.cu": {
-        "recblr_layer_last_fwd": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+        "recblr_layer_last_fwd": [_P] * 7 + [_I] * 11 + _DROP,
+    },
+    "fused_layer_bwd.cu": {
+        "recblr_layer_bwd": [_P] * 5 + [_I] + [_P] * 4 + [_I] + [_P] * 2 + [_I] * 11 + _DROP,
+    },
+    "fused_layer_last_bwd.cu": {
+        "recblr_layer_last_bwd": [_P] * 6 + [_I] + [_P] * 4 + [_I] + [_P] * 2 + [_I] * 10
+        + _DROP,
     },
 }
 

@@ -1,38 +1,52 @@
-"""Whole-layer forwards of the RecBLR RecurrentLayer: hand-written CUDA
-kernels for Hopper, each beside its plain PyTorch version.
+"""Whole-layer RecBLR RecurrentLayer, forward and backward: hand-written
+CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-Counterpart of ``datamining_recblr_tpu/ops/fused_layer.py``, forward
-only with dropout 0 (serving):
+Counterpart of ``datamining_recblr_tpu/ops/fused_layer.py``:
 
-    x    = LN(x; pl_s, pl_b)                 [prologue]
+    x    = LN(dropout_m0(x); pl_s, pl_b)     [prologue]
     xz   = x @ W_in ;  xb, z = split(xz)
     xc   = silu(causal_conv(xb))             [use_conv]
     h    = BD-LRU scan of xc                 (gates matmul + decay math)
     y    = (silu(z) * h) @ W_out
-    r1   = LN1(y + x)
-    out  = LN2(silu(r1 @ W1 + b1) @ W2 + b2 + r1)   [use_ffn; else r1]
+    r1   = LN1(dropout_m1(y) + x)
+    out  = LN2(dropout_m3(dropout_m2(silu(r1 @ W1 + b1)) @ W2 + b2) + r1)
+                                             [use_ffn; else r1]
 
-``fused_recurrent_layer`` replaces the TPU kernel ``_fwd_kernel``
-(``fused_layer.py:245``, via ``_layer_fwd``); its CUDA source is
-``csrc/fused_layer.cu``.  ``fused_recurrent_layer_last`` replaces
-``_last_fwd_kernel`` (``fused_layer.py:826``, via ``_layer_last_fwd``):
-the same layer with everything after the scan at each row's last
-position only, returning [B, D]; its CUDA source is
-``csrc/fused_layer_last.cu``.  Both are bound by fp32 operations at the
-serving shape (~180 and ~82 kFLOP per position against a few hundred
-bytes); the sources' head comments say what the design does about it.
+Four kernels:
 
-On a CPU tensor a wrapper computes its plain version; on a CUDA tensor
-it launches its kernel or raises.  ``launches`` on each wrapper counts
-its kernel launches.  Params are fp32; x is fp32 or bf16 and the
-output has x's dtype, with fp32 math inside.
+* ``fused_recurrent_layer`` forward replaces ``_fwd_kernel``
+  (``fused_layer.py:245``, via ``_layer_fwd``); ``csrc/fused_layer.cu``.
+* its backward, ``fused_recurrent_layer_bwd``, replaces ``_bwd_kernel``
+  and ``_bwd_kernel_multi`` (``:419``, ``:462``, via ``_layer_bwd``);
+  ``csrc/fused_layer_bwd.cu``.
+* ``fused_recurrent_layer_last`` forward replaces ``_last_fwd_kernel``
+  (``:826``, via ``_layer_last_fwd``): the same layer with everything
+  after the scan at each row's last position only, returning [B, D];
+  ``csrc/fused_layer_last.cu``.
+* its backward, ``fused_recurrent_layer_last_bwd``, replaces
+  ``_last_bwd_kernel`` (``:844``, via ``_layer_last_bwd``);
+  ``csrc/fused_layer_last_bwd.cu``.
+
+All four are bound by fp32 operations at the bench shape; the sources'
+head comments say what each design does about it.  Dropout masks are
+Philox draws keyed by the call's seed (``ops/philox.py``), the same bits
+in a kernel, its backward and the plain versions.  A training forward
+keeps alpha and h [B, T, C] fp32 for the backward while the stash policy
+of the JAX package allows (T <= 256, at most 1 GiB a call); beyond it the
+backward recomputes them.
+
+On a CPU tensor a wrapper computes its plain version (autograd gives
+the plain backward); on a CUDA tensor it launches its kernel or raises.
+``launches`` on each of the four public functions counts its kernel
+launches.  Params are fp32; x is fp32 or bf16 and the output (and dx)
+has x's dtype, with fp32 math inside.
 """
 
 from __future__ import annotations
 
 import torch
 
-from datamining_recblr_torch.ops import _cuda, fastmath
+from datamining_recblr_torch.ops import _cuda, fastmath, philox
 from datamining_recblr_torch.ops.conv import causal_depthwise_conv
 from datamining_recblr_torch.ops.fused_bdlru import _gate_math
 from datamining_recblr_torch.ops.scan import linear_scan_serial
@@ -40,11 +54,14 @@ from datamining_recblr_torch.ops.scan import linear_scan_serial
 LN_EPS = 1e-12
 
 # the order of the kernels' parameter array (csrc/common.cuh LayerParams)
+# and of their flat weight-grad output (csrc/common_bwd.cuh GradLayout)
 PARAM_ORDER = (
     "w_in", "wc", "bc", "wg", "bg", "lam", "w_out", "ln1_s", "ln1_b",
     "w1", "b1", "w2", "b2", "ln2_s", "ln2_b", "pl_s", "pl_b",
 )
 _FFN_NAMES = ("w1", "b1", "w2", "b2", "ln2_s", "ln2_b")
+# weights the backward kernels read transposed (common_bwd.cuh LayerParamsT)
+_TRANSPOSED = ("w_in", "w_out", "w1", "w2", "wg")
 
 MAX_D = 128
 MAX_C = 128
@@ -52,10 +69,24 @@ MAX_K = 8      # conv halo rows the kernels hold (csrc/common.cuh MAX_K)
 MAX_FFN = 512  # FFN width the kernels' shared memory holds
 MAX_B = 65535  # grid dimension that carries the batch
 
+# stash policy of the JAX package (fused_layer.py:700-712): keep the
+# forward's intermediates for the backward iff T <= 256 and they take at
+# most this many bytes in one call; the port keeps alpha and h
+STASH_MAX_T = 256
+STASH_BUDGET_BYTES = 1024**3
+
 
 def supports(d: int, c: int) -> bool:
     return d <= MAX_D and c <= MAX_C
 
+
+def stash_policy(b: int, t: int, c: int) -> bool:
+    return t <= STASH_MAX_T and 2 * b * t * c * 4 <= STASH_BUDGET_BYTES
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 def _ln(v, scale, bias):
     mu = v.mean(-1, keepdim=True)
@@ -63,9 +94,29 @@ def _ln(v, scale, bias):
     return (v - mu) * torch.rsqrt(var + LN_EPS) * scale + bias
 
 
-def _ffn_tail(r1, p):
-    f1 = r1 @ p["w1"] + p["b1"]
-    f2 = fastmath.silu(f1) @ p["w2"] + p["b2"]
+def _masks(p, seed, b, t, d, f, use_ffn, prologue, device):
+    """The layer's scaled keep-masks {m0 [B,T,D], m1, m2 [B,T,F], m3};
+    empty at p = 0.  The last-position layer passes t = 1."""
+    if not p:
+        return {}
+    m = {}
+    if prologue:
+        m["m0"] = philox.dropout_mask(seed, philox.M0, b, t, d, p, device)
+    m["m1"] = philox.dropout_mask(seed, philox.M1, b, t, d, p, device)
+    if use_ffn:
+        m["m2"] = philox.dropout_mask(seed, philox.M2, b, t, f, p, device)
+        m["m3"] = philox.dropout_mask(seed, philox.M3, b, t, d, p, device)
+    return m
+
+
+def _drop(v, masks, name):
+    return v * masks[name].reshape(v.shape) if name in masks else v
+
+
+def _ffn_tail(r1, p, masks=None):
+    masks = masks or {}
+    a1 = _drop(fastmath.silu(r1 @ p["w1"] + p["b1"]), masks, "m2")
+    f2 = _drop(a1 @ p["w2"] + p["b2"], masks, "m3")
     return _ln(f2 + r1, p["ln2_s"], p["ln2_b"])
 
 
@@ -75,45 +126,70 @@ def _bdlru(xb, p, use_conv):
     return linear_scan_serial(alpha, beta * xc)
 
 
+def _ffn_width(params, use_ffn):
+    return params["w1"].shape[1] if use_ffn else 0
+
+
 def fused_recurrent_layer_plain(x, params, use_conv=True, use_ffn=True,
-                                prologue=False):
-    """Plain PyTorch version of ``fused_recurrent_layer`` (any device)."""
+                                prologue=False, dropout_p=0.0, seed=0):
+    """Plain PyTorch version of ``fused_recurrent_layer`` (any device;
+    differentiable, and its autograd gradient is the plain version of
+    ``fused_recurrent_layer_bwd``)."""
     p = params
     xf = x.float()
+    b, t, d = xf.shape
+    m = _masks(dropout_p, seed, b, t, d, _ffn_width(p, use_ffn), use_ffn, prologue,
+               x.device)
     if prologue:
-        xf = _ln(xf, p["pl_s"], p["pl_b"])
+        xf = _ln(_drop(xf, m, "m0"), p["pl_s"], p["pl_b"])
     c = p["w_in"].shape[1] // 2
     xz = xf @ p["w_in"]
     xb, z = xz[..., :c], xz[..., c:]
     h = _bdlru(xb, p, use_conv)
-    y = (fastmath.silu(z) * h) @ p["w_out"]
+    y = _drop((fastmath.silu(z) * h) @ p["w_out"], m, "m1")
     out = _ln(y + xf, p["ln1_s"], p["ln1_b"])
     if use_ffn:
-        out = _ffn_tail(out, p)
+        out = _ffn_tail(out, p, m)
     return out.to(x.dtype)
 
 
 def fused_recurrent_layer_last_plain(x, lens, params, use_conv=True,
-                                     use_ffn=True):
+                                     use_ffn=True, dropout_p=0.0, seed=0):
     """Plain PyTorch version of ``fused_recurrent_layer_last``.  The row
     is chosen by a one-hot of ``pos == lens - 1``, so a length of 0 (or
-    above T) selects nothing and the tail runs on zeros."""
+    above T) selects nothing and the tail runs on zeros.  The masks are
+    [B, 1, .]: row b, position 0."""
     p = params
     xf = x.float()
-    t = xf.shape[1]
+    b, t, d = xf.shape
+    m = _masks(dropout_p, seed, b, 1, d, _ffn_width(p, use_ffn), use_ffn, False,
+               x.device)
     c = p["w_in"].shape[1] // 2
     h = _bdlru(xf @ p["w_in"][:, :c], p, use_conv)
     pos = torch.arange(t, device=x.device)[None, :]
-    m = (pos == lens.to(device=x.device, dtype=torch.long)[:, None] - 1)
-    m = m.to(torch.float32)[:, :, None]
-    xl = (m * xf).sum(1)
-    hl = (m * h).sum(1)
+    sel = (pos == lens.to(device=x.device, dtype=torch.long)[:, None] - 1)
+    sel = sel.to(torch.float32)[:, :, None]
+    xl = (sel * xf).sum(1)
+    hl = (sel * h).sum(1)
     zl = xl @ p["w_in"][:, c:]
-    yl = (fastmath.silu(zl) * hl) @ p["w_out"]
+    yl = _drop((fastmath.silu(zl) * hl) @ p["w_out"], m, "m1")
     out = _ln(yl + xl, p["ln1_s"], p["ln1_b"])
     if use_ffn:
-        out = _ffn_tail(out, p)
+        out = _ffn_tail(out, p, m)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# argument checks shared by the kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _shapes(d, c, k, f):
+    return {
+        "w_in": (d, 2 * c), "wc": (k, c), "bc": (c,), "wg": (c, 2 * c),
+        "bg": (2 * c,), "lam": (c,), "w_out": (c, d), "ln1_s": (d,),
+        "ln1_b": (d,), "w1": (d, f), "b1": (f,), "w2": (f, d), "b2": (d,),
+        "ln2_s": (d,), "ln2_b": (d,), "pl_s": (d,), "pl_b": (d,),
+    }
 
 
 def _param_list(x, params, use_ffn, prologue):
@@ -129,7 +205,7 @@ def _param_list(x, params, use_ffn, prologue):
     b, t, d = x.shape
     c = params["w_out"].shape[0]
     k = params["wc"].shape[0]
-    f = params["w1"].shape[1] if use_ffn else 0
+    f = _ffn_width(params, use_ffn)
     if not supports(d, c) or not 1 <= k <= min(t, MAX_K) or f > MAX_FFN \
             or not 1 <= b <= MAX_B:
         raise ValueError(
@@ -137,12 +213,7 @@ def _param_list(x, params, use_ffn, prologue):
             f"kernels take D, C <= 128, 1 <= K <= min(T, {MAX_K}), "
             f"F <= {MAX_FFN}, 1 <= B <= {MAX_B}"
         )
-    want = {
-        "w_in": (d, 2 * c), "wc": (k, c), "bc": (c,), "wg": (c, 2 * c),
-        "bg": (2 * c,), "lam": (c,), "w_out": (c, d), "ln1_s": (d,),
-        "ln1_b": (d,), "w1": (d, f), "b1": (f,), "w2": (f, d), "b2": (d,),
-        "ln2_s": (d,), "ln2_b": (d,), "pl_s": (d,), "pl_b": (d,),
-    }
+    want = _shapes(d, c, k, f)
     used = set(PARAM_ORDER[:9])
     if use_ffn:
         used |= set(_FFN_NAMES)
@@ -164,73 +235,340 @@ def _param_list(x, params, use_ffn, prologue):
     return plist, (b, t, d, c, k, f)
 
 
+def _lens32(lens, x):
+    b = x.shape[0]
+    if lens.shape != (b,) or lens.device != x.device:
+        raise ValueError(f"lens must be [{b}] on {x.device}")
+    if lens.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"lens must be an integer tensor, got {lens.dtype}")
+    return lens.to(torch.int32).contiguous()
+
+
 def _require_cuda(x):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}; use cpu or cuda")
 
 
-def fused_recurrent_layer(x, params, use_conv=True, use_ffn=True,
-                          prologue=False):
-    """Complete RecurrentLayer forward (dropout 0).  x: [B, T, D];
-    params: w_in [D,2C], wc [K,C], bc [C], wg [C,2C], bg [2C], lam [C],
-    w_out [C,D], ln1_s/ln1_b [D], with use_ffn w1 [D,F], b1 [F],
-    w2 [F,D], b2 [D], ln2_s/ln2_b [D], with prologue pl_s/pl_b [D] (x is
-    then the raw embedding block).  Returns [B, T, D] in x's dtype."""
-    if x.device.type == "cpu":
-        return fused_recurrent_layer_plain(x, params, use_conv, use_ffn, prologue)
-    _require_cuda(x)
-    plist, (b, t, d, c, k, f) = _param_list(x, params, use_ffn, prologue)
+def _dropout_args(p, seed):
+    """(on, seed, threshold, scale) of the kernels' Dropout struct."""
+    p = float(p)
+    if p == 0.0:
+        return 0, 0, 0, 1.0
+    if not 0.0 < p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {p}")
+    return 1, int(seed) & 0xFFFFFFFFFFFFFFFF, philox.keep_threshold(p), 1.0 / (1.0 - p)
+
+
+def _check_dout(dout, shape, x):
+    if tuple(dout.shape) != tuple(shape) or dout.dtype != x.dtype \
+            or dout.device != x.device:
+        raise ValueError(
+            f"dout must be {x.dtype} {tuple(shape)} on {x.device}, got "
+            f"{dout.dtype} {tuple(dout.shape)} on {dout.device}"
+        )
+    return dout.contiguous()
+
+
+def _check_saved(saved, b, t, c, x):
+    for v in saved:
+        if v.dtype != torch.float32 or tuple(v.shape) != (b, t, c) \
+                or v.device != x.device or not v.is_contiguous():
+            raise ValueError(f"saved alpha/h must be contiguous float32 "
+                             f"{(b, t, c)} on {x.device}")
+    return saved
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _launch_fwd(x, plist, dims, use_conv, use_ffn, prologue, dropout_p, seed):
+    """K1 forward; returns (out, alpha, h): the scratch holds alpha and h
+    [B, T, C] fp32 on return."""
+    b, t, d, c, k, f = dims
     lib = _cuda.library("fused_layer.cu")
     out = torch.empty_like(x)
     alpha = torch.empty((b, t, c), device=x.device, dtype=torch.float32)
-    bxh = torch.empty_like(alpha)
+    h = torch.empty_like(alpha)
     ptrs = _cuda.pointer_array(plist)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.recblr_layer_fwd(
-            x.data_ptr(), out.data_ptr(), ptrs, alpha.data_ptr(), bxh.data_ptr(),
+            x.data_ptr(), out.data_ptr(), ptrs, alpha.data_ptr(), h.data_ptr(),
             b, t, d, c, k, f, int(use_conv), int(use_ffn), int(prologue),
-            int(x.dtype == torch.bfloat16), x.device.index, stream,
+            int(x.dtype == torch.bfloat16), *_dropout_args(dropout_p, seed),
+            x.device.index, _stream(x),
         )
     _cuda.check(lib, err, "fused_recurrent_layer")
     fused_recurrent_layer.launches += 1
+    return out, alpha, h
+
+
+def _launch_last_fwd(x, lens32, plist, dims, use_conv, use_ffn, dropout_p, seed,
+                     stash):
+    """K2 forward; returns (out, alpha, h) where with ``stash`` the
+    scratch holds alpha and h below each row's length on return."""
+    b, t, d, c, k, f = dims
+    lib = _cuda.library("fused_layer_last.cu")
+    out = torch.empty((b, d), device=x.device, dtype=x.dtype)
+    alpha = torch.empty((b, t, c), device=x.device, dtype=torch.float32)
+    h = torch.empty_like(alpha)
+    h_last = torch.empty((b, c), device=x.device, dtype=torch.float32)
+    ptrs = _cuda.pointer_array(plist)
+    with torch.cuda.device(x.device):
+        err = lib.recblr_layer_last_fwd(
+            x.data_ptr(), lens32.data_ptr(), out.data_ptr(), ptrs,
+            alpha.data_ptr(), h.data_ptr(), h_last.data_ptr(),
+            b, t, d, c, k, f, int(use_conv), int(use_ffn),
+            int(x.dtype == torch.bfloat16), int(stash),
+            *_dropout_args(dropout_p, seed), x.device.index, _stream(x),
+        )
+    _cuda.check(lib, err, "fused_recurrent_layer_last")
+    fused_recurrent_layer_last.launches += 1
+    return out, alpha, h
+
+
+def _grad_blocks(device) -> int:
+    """Rows of the backward's weight-grad partials: the blocks of its
+    grid-stride phases, two per SM."""
+    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _bwd_buffers(x, plist, dims):
+    """Pointer array with the transposed weights appended, the zeroed
+    [G, P] partials, the [P] grads and G."""
+    b, t, d, c, k, f = dims
+    named = dict(zip(PARAM_ORDER, plist))
+    tlist = [None if named[n] is None else named[n].t().contiguous() for n in _TRANSPOSED]
+    ptrs = _cuda.pointer_array(plist + tlist)
+    size = sum(int(torch.Size(s).numel()) for s in _shapes(d, c, k, f).values())
+    g = _grad_blocks(x.device)
+    partial = torch.zeros((g, size), device=x.device, dtype=torch.float32)
+    grads = torch.empty((size,), device=x.device, dtype=torch.float32)
+    return ptrs, tlist, partial, grads, g
+
+
+def _unflatten_grads(grads, plist, dims):
+    """The flat [P] grads (GradLayout order) -> {name: grad} of the
+    params in use."""
+    b, t, d, c, k, f = dims
+    shapes = _shapes(d, c, k, f)
+    out = {}
+    o = 0
+    for name, v in zip(PARAM_ORDER, plist):
+        n = int(torch.Size(shapes[name]).numel())
+        if v is not None:
+            out[name] = grads[o:o + n].view(shapes[name])
+        o += n
+    return out
+
+
+def fused_recurrent_layer_bwd(x, dout, params, use_conv=True, use_ffn=True,
+                              prologue=False, dropout_p=0.0, seed=0, saved=None):
+    """Backward of ``fused_recurrent_layer`` on the card: (dx in x's
+    dtype, {param name: fp32 grad}).  ``saved``: (alpha, h) kept by a
+    training forward (``fused_recurrent_layer_train``), or None to
+    recompute them."""
+    _require_cuda(x)
+    plist, dims = _param_list(x, params, use_ffn, prologue)
+    b, t, d, c, k, f = dims
+    dout = _check_dout(dout, (b, t, d), x)
+    if saved is None:
+        alpha = torch.empty((b, t, c), device=x.device, dtype=torch.float32)
+        h = torch.empty_like(alpha)
+    else:
+        alpha, h = _check_saved(saved, b, t, c, x)
+    ds = torch.empty((b, t, c), device=x.device, dtype=torch.float32)
+    dz = torch.empty_like(ds)
+    dxr = torch.empty((b, t, d), device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    ptrs, _keep, partial, grads, g = _bwd_buffers(x, plist, dims)
+    lib = _cuda.library("fused_layer_bwd.cu")
+    with torch.cuda.device(x.device):
+        err = lib.recblr_layer_bwd(
+            x.data_ptr(), dout.data_ptr(), ptrs, alpha.data_ptr(), h.data_ptr(),
+            int(saved is None), ds.data_ptr(), dz.data_ptr(), dxr.data_ptr(),
+            partial.data_ptr(), g, grads.data_ptr(), dx.data_ptr(),
+            b, t, d, c, k, f, int(use_conv), int(use_ffn), int(prologue),
+            int(x.dtype == torch.bfloat16), *_dropout_args(dropout_p, seed),
+            x.device.index, _stream(x),
+        )
+    _cuda.check(lib, err, "fused_recurrent_layer_bwd")
+    fused_recurrent_layer_bwd.launches += 1
+    return dx, _unflatten_grads(grads, plist, dims)
+
+
+def fused_recurrent_layer_last_bwd(x, lens, dout, params, use_conv=True,
+                                   use_ffn=True, dropout_p=0.0, seed=0, saved=None):
+    """Backward of ``fused_recurrent_layer_last`` on the card: (dx
+    [B, T, D] in x's dtype, 0 at and beyond each row's length; {param
+    name: fp32 grad}).  ``saved``: (alpha, h) kept by a training forward,
+    or None to recompute them."""
+    _require_cuda(x)
+    plist, dims = _param_list(x, params, use_ffn, False)
+    b, t, d, c, k, f = dims
+    lens32 = _lens32(lens, x)
+    dout = _check_dout(dout, (b, d), x)
+    if saved is None:
+        alpha = torch.empty((b, t, c), device=x.device, dtype=torch.float32)
+        h = torch.empty_like(alpha)
+    else:
+        alpha, h = _check_saved(saved, b, t, c, x)
+    ds = torch.empty((b, t, c), device=x.device, dtype=torch.float32)
+    dhl = torch.empty((b, c), device=x.device, dtype=torch.float32)
+    dxr = torch.empty((b, d), device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    ptrs, _keep, partial, grads, g = _bwd_buffers(x, plist, dims)
+    lib = _cuda.library("fused_layer_last_bwd.cu")
+    with torch.cuda.device(x.device):
+        err = lib.recblr_layer_last_bwd(
+            x.data_ptr(), lens32.data_ptr(), dout.data_ptr(), ptrs, alpha.data_ptr(),
+            h.data_ptr(), int(saved is None), ds.data_ptr(), dhl.data_ptr(),
+            dxr.data_ptr(), partial.data_ptr(), g, grads.data_ptr(), dx.data_ptr(),
+            b, t, d, c, k, f, int(use_conv), int(use_ffn),
+            int(x.dtype == torch.bfloat16), *_dropout_args(dropout_p, seed),
+            x.device.index, _stream(x),
+        )
+    _cuda.check(lib, err, "fused_recurrent_layer_last_bwd")
+    fused_recurrent_layer_last_bwd.launches += 1
+    return dx, _unflatten_grads(grads, plist, dims)
+
+
+fused_recurrent_layer_bwd.launches = 0
+fused_recurrent_layer_last_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training forwards and autograd
+# ---------------------------------------------------------------------------
+
+def fused_recurrent_layer_train(x, params, use_conv=True, use_ffn=True,
+                                prologue=False, dropout_p=0.0, seed=0):
+    """K1 forward on the card that keeps what the backward reads: (out,
+    (alpha, h)), or (out, None) beyond the stash policy."""
+    _require_cuda(x)
+    plist, dims = _param_list(x, params, use_ffn, prologue)
+    out, alpha, h = _launch_fwd(x, plist, dims, use_conv, use_ffn, prologue,
+                                dropout_p, seed)
+    b, t, _, c, _, _ = dims
+    return out, ((alpha, h) if stash_policy(b, t, c) else None)
+
+
+def fused_recurrent_layer_last_train(x, lens, params, use_conv=True, use_ffn=True,
+                                     dropout_p=0.0, seed=0):
+    """K2 forward on the card that keeps what the backward reads: (out,
+    (alpha, h)), or (out, None) beyond the stash policy."""
+    _require_cuda(x)
+    plist, dims = _param_list(x, params, use_ffn, False)
+    b, t, _, c, _, _ = dims
+    stash = stash_policy(b, t, c)
+    out, alpha, h = _launch_last_fwd(x, _lens32(lens, x), plist, dims, use_conv,
+                                     use_ffn, dropout_p, seed, stash)
+    return out, ((alpha, h) if stash else None)
+
+
+def _param_dict(plist):
+    return {n: v for n, v in zip(PARAM_ORDER, plist) if v is not None}
+
+
+def _grad_tuple(grads):
+    return tuple(grads.get(n) for n in PARAM_ORDER)
+
+
+class _Layer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, opts, *plist):
+        use_conv, use_ffn, prologue, p, seed = opts
+        out, saved = fused_recurrent_layer_train(x, _param_dict(plist), use_conv,
+                                                 use_ffn, prologue, p, seed)
+        ctx.opts = opts
+        ctx.stashed = saved is not None
+        ctx.save_for_backward(x, *(saved or ()), *plist)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, *rest = ctx.saved_tensors
+        saved, plist = (rest[:2], rest[2:]) if ctx.stashed else (None, rest)
+        dx, grads = fused_recurrent_layer_bwd(x, dout, _param_dict(plist), *ctx.opts,
+                                              saved=saved)
+        return (dx, None, *_grad_tuple(grads))
+
+
+class _LayerLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lens, opts, *plist):
+        use_conv, use_ffn, p, seed = opts
+        out, saved = fused_recurrent_layer_last_train(x, lens, _param_dict(plist),
+                                                      use_conv, use_ffn, p, seed)
+        ctx.opts = opts
+        ctx.stashed = saved is not None
+        ctx.save_for_backward(x, lens, *(saved or ()), *plist)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, lens, *rest = ctx.saved_tensors
+        saved, plist = (rest[:2], rest[2:]) if ctx.stashed else (None, rest)
+        dx, grads = fused_recurrent_layer_last_bwd(x, lens, dout, _param_dict(plist),
+                                                   *ctx.opts, saved=saved)
+        return (dx, None, None, *_grad_tuple(grads))
+
+
+def _needs_grad(x, plist):
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(v is not None and v.requires_grad for v in plist))
+
+
+# ---------------------------------------------------------------------------
+# public forwards
+# ---------------------------------------------------------------------------
+
+def fused_recurrent_layer(x, params, use_conv=True, use_ffn=True,
+                          prologue=False, dropout_p=0.0, seed=0):
+    """Complete RecurrentLayer forward, differentiable in x and every
+    param.  x: [B, T, D]; params: w_in [D,2C], wc [K,C], bc [C],
+    wg [C,2C], bg [2C], lam [C], w_out [C,D], ln1_s/ln1_b [D], with
+    use_ffn w1 [D,F], b1 [F], w2 [F,D], b2 [D], ln2_s/ln2_b [D], with
+    prologue pl_s/pl_b [D] (x is then the raw embedding block);
+    dropout_p and the 64-bit seed of its masks (0: no masks).  Returns
+    [B, T, D] in x's dtype."""
+    if x.device.type == "cpu":
+        return fused_recurrent_layer_plain(x, params, use_conv, use_ffn, prologue,
+                                           dropout_p, seed)
+    _require_cuda(x)
+    plist, dims = _param_list(x, params, use_ffn, prologue)
+    if _needs_grad(x, plist):
+        opts = (use_conv, use_ffn, prologue, float(dropout_p), int(seed))
+        return _Layer.apply(x, opts, *plist)
+    out, _, _ = _launch_fwd(x, plist, dims, use_conv, use_ffn, prologue, dropout_p,
+                            seed)
+    return out
+
+
+def fused_recurrent_layer_last(x, lens, params, use_conv=True, use_ffn=True,
+                               dropout_p=0.0, seed=0):
+    """Top RecurrentLayer forward at each row's last valid position only,
+    differentiable in x and every param.  x: [B, T, D]; lens: int [B]
+    1-based valid lengths (0 or above T selects nothing); params as for
+    ``fused_recurrent_layer`` without the prologue.  Returns [B, D] in
+    x's dtype."""
+    if x.device.type == "cpu":
+        return fused_recurrent_layer_last_plain(x, lens, params, use_conv, use_ffn,
+                                                dropout_p, seed)
+    _require_cuda(x)
+    plist, dims = _param_list(x, params, use_ffn, False)
+    lens32 = _lens32(lens, x)
+    if _needs_grad(x, plist):
+        opts = (use_conv, use_ffn, float(dropout_p), int(seed))
+        return _LayerLast.apply(x, lens32, opts, *plist)
+    out, _, _ = _launch_last_fwd(x, lens32, plist, dims, use_conv, use_ffn, dropout_p,
+                                 seed, False)
     return out
 
 
 fused_recurrent_layer.launches = 0
-
-
-def fused_recurrent_layer_last(x, lens, params, use_conv=True, use_ffn=True):
-    """Top RecurrentLayer forward at each row's last valid position only
-    (dropout 0).  x: [B, T, D]; lens: int [B] 1-based valid lengths (0
-    selects nothing); params as for ``fused_recurrent_layer`` without
-    the prologue.  Returns [B, D] in x's dtype."""
-    if x.device.type == "cpu":
-        return fused_recurrent_layer_last_plain(x, lens, params, use_conv, use_ffn)
-    _require_cuda(x)
-    plist, (b, t, d, c, k, f) = _param_list(x, params, use_ffn, False)
-    if lens.shape != (b,) or lens.device != x.device:
-        raise ValueError(f"lens must be [{b}] on {x.device}")
-    if lens.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"lens must be an integer tensor, got {lens.dtype}")
-    lens32 = lens.to(torch.int32).contiguous()
-    lib = _cuda.library("fused_layer_last.cu")
-    out = torch.empty((b, d), device=x.device, dtype=x.dtype)
-    alpha = torch.empty((b, t, c), device=x.device, dtype=torch.float32)
-    bx = torch.empty_like(alpha)
-    h_last = torch.empty((b, c), device=x.device, dtype=torch.float32)
-    ptrs = _cuda.pointer_array(plist)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.recblr_layer_last_fwd(
-            x.data_ptr(), lens32.data_ptr(), out.data_ptr(), ptrs,
-            alpha.data_ptr(), bx.data_ptr(), h_last.data_ptr(),
-            b, t, d, c, k, f, int(use_conv), int(use_ffn),
-            int(x.dtype == torch.bfloat16), x.device.index, stream,
-        )
-    _cuda.check(lib, err, "fused_recurrent_layer_last")
-    fused_recurrent_layer_last.launches += 1
-    return out
-
-
 fused_recurrent_layer_last.launches = 0

@@ -13,10 +13,11 @@ import torch
 
 
 def linear_scan_serial(gates, tokens):
-    """gates, tokens: [B, T, C] -> h [B, T, C] in the tokens' dtype."""
-    out = torch.empty_like(tokens)
+    """gates, tokens: [B, T, C] -> h [B, T, C] in the tokens' dtype
+    (out of place, so autograd differentiates it)."""
     h = torch.zeros_like(tokens[:, 0])
+    out = []
     for t in range(tokens.shape[1]):
         h = gates[:, t] * h + tokens[:, t]
-        out[:, t] = h
-    return out
+        out.append(h)
+    return torch.stack(out, dim=1)

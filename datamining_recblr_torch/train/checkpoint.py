@@ -1,7 +1,8 @@
-"""Checkpoints of the port: the parameters' state_dict plus the epoch,
-written with ``torch.save`` (counterpart of
-``datamining_recblr_tpu/train/checkpoint.py``; reading the JAX
-package's orbax checkpoints is not ported yet)."""
+"""Checkpoints of the port, written with ``torch.save`` (counterpart of
+``datamining_recblr_tpu/train/checkpoint.py``): the parameters'
+state_dict and, from the trainer, the optimizer state, the epoch and
+the best score, as the JAX trainer's ``_checkpoint_state``.  Reading the
+JAX package's orbax checkpoints is not ported yet."""
 
 from __future__ import annotations
 
@@ -10,14 +11,23 @@ import os
 import torch
 
 
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
 def save_checkpoint(path: str, state: dict) -> str:
-    """Save ``{"params": state_dict, "epoch": int, ...}``; returns the
-    path written (``path`` + ``.pt``)."""
+    """Save ``{"params": state_dict, "epoch": int, ...}`` (tensors moved
+    to the CPU); returns the path written (``path`` + ``.pt``)."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     out = path if path.endswith(".pt") else path + ".pt"
-    params = {k: v.detach().cpu() for k, v in state["params"].items()}
-    torch.save(dict(state, params=params), out)
+    torch.save(_to_cpu(state), out)
     return out
 
 

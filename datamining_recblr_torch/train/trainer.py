@@ -1,0 +1,222 @@
+"""Training loop of the port (counterpart of the CE path of
+``datamining_recblr_tpu/train/trainer.py`` on one device): per-epoch
+validation, early stopping, best-checkpoint retention and reload.
+
+* The whole training split lives on the device; each step gathers its
+  batch there from an index vector (a COMPACT split assembles its
+  windows on the device), runs forward, backward and Adam, and keeps
+  the loss on the device.
+* The epoch's permutation comes from ``np.random.default_rng((seed,
+  epoch))``; the last batch is padded with row 0 at weight 0; the epoch
+  loss is the sum of per-batch mean losses; dropout masks are seeded by
+  (seed, global step, layer).  A resumed run replays the same
+  trajectory.
+* The JAX trainer's epoch-scan super-steps and host-batch streaming
+  exist only for a remote TPU's dispatch latency and are left out; the
+  semantics above are theirs.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from datamining_recblr_torch.data.batching import batch_count
+from datamining_recblr_torch.eval.evaluator import (
+    Evaluator,
+    format_result,
+    history_fn_from_data,
+)
+from datamining_recblr_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from datamining_recblr_torch.train.optim import build_optimizer
+from datamining_recblr_torch.utils.logging import MetricsLogger, init_logger
+
+
+class Trainer:
+    def __init__(self, config, model, params=None, metrics_logger=None):
+        """``params``: a state_dict to start from (e.g.
+        ``interop.params_from_jax``); None keeps the model's own."""
+        if model.loss_type != "CE":
+            raise NotImplementedError(f"loss_type {model.loss_type!r} is not ported; CE is")
+        if config.get("mesh_shape"):
+            raise NotImplementedError("multi-device training is not ported")
+        self.config = config
+        self.model = model
+        self.device = model.device
+        if params is not None:
+            model.load_state_dict(params)
+        self.logger = init_logger()
+        self.metrics = metrics_logger or MetricsLogger(config.get("metrics_file"))
+        self.optimizer = build_optimizer(config, model.parameters())
+        self.evaluator = Evaluator(model, config)
+
+        self.batch_size = int(config["train_batch_size"])
+        self.valid_metric = str(config["valid_metric"]).lower()
+        self.bigger = bool(config.get("valid_metric_bigger", True))
+        self.stopping_step = int(config["stopping_step"])
+        self.eval_step = int(config.get("eval_step", 1))
+        self.epochs = int(config["epochs"])
+        self.ckpt_path = None
+        self.start_epoch = 0
+        self.best_score = -np.inf if self.bigger else np.inf
+        self.best_epoch = -1
+        self.best_result: dict = {}
+
+    # ------------------------------------------------------------------
+    def _is_better(self, score):
+        return score > self.best_score if self.bigger else score < self.best_score
+
+    def _checkpoint_state(self, epoch):
+        return {
+            "params": self.model.state_dict(),
+            "opt_state": self.optimizer.state_dict(),
+            "epoch": epoch,
+            "best_score": float(self.best_score),
+            "best_epoch": self.best_epoch,
+        }
+
+    def resume_from(self, path):
+        """Restore params, optimizer and progress from a checkpoint and
+        continue training at the following epoch."""
+        state = restore_checkpoint(path)
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["opt_state"])
+        self.start_epoch = int(state["epoch"]) + 1
+        self.best_score = float(state["best_score"])
+        self.best_epoch = int(state["best_epoch"])
+        self.ckpt_path = path
+        self.logger.info(f"resumed from {path} at epoch {self.start_epoch}")
+
+    def device_split(self, train):
+        """The training split as device tensors (dense or compact)."""
+        names = (("flat_items", "flat_start", "item_seq_len", "pos_item") if train.compact
+                 else ("item_seq", "item_seq_len", "pos_item"))
+        return {k: torch.from_numpy(np.ascontiguousarray(getattr(train, k))).to(self.device)
+                for k in names}
+
+    def gather_batch(self, data, idx, weight):
+        """The batch of rows ``idx`` (a device index vector) of a
+        ``device_split``, assembled on the device."""
+        if "flat_items" in data:
+            t = int(self.model.max_seq_len)
+            start = data["flat_start"][idx].long()
+            lens = data["item_seq_len"][idx]
+            valid = torch.arange(t, device=idx.device)[None, :] < lens[:, None]
+            flat = data["flat_items"]
+            cols = (start[:, None] + torch.arange(t, device=idx.device)[None, :]).clamp_max(
+                flat.shape[0] - 1)
+            seq = torch.where(valid, flat[cols], torch.zeros((), dtype=flat.dtype,
+                                                             device=flat.device))
+        else:
+            seq = data["item_seq"][idx]
+            lens = data["item_seq_len"][idx]
+        return {"item_seq": seq, "item_seq_len": lens, "pos_item": data["pos_item"][idx],
+                "weight": weight}
+
+    def train_step(self, batch, step):
+        """One forward, backward and Adam update; returns the loss as a
+        device scalar."""
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.model.calculate_loss(batch, step=step)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def fit(self, data, valid_split=None, checkpoint_path=None):
+        """data: SeqData (train on data.train, validate on data.valid
+        unless valid_split is given).  Returns (best_score, best_result)."""
+        train = data.train
+        valid = valid_split if valid_split is not None else data.valid
+        history_fn = history_fn_from_data(data) if self.config.get("mask_history") else None
+        n = len(train)
+        steps_per_epoch = batch_count(n, self.batch_size)
+        seed = int(self.config["seed"])
+        dev_data = self.device_split(train)
+        if checkpoint_path is None:
+            checkpoint_path = (f"{self.config['checkpoint_dir']}/"
+                               f"{self.config['model']}-{self.config.get('dataset') or 'data'}")
+
+        global_step = self.start_epoch * steps_per_epoch
+        cur_step = 0
+        for epoch in range(self.start_epoch, self.epochs):
+            t0 = time.time()
+            perm = np.random.default_rng((seed, epoch)).permutation(n)
+            losses = []
+            for s in range(steps_per_epoch):
+                chunk = perm[s * self.batch_size : (s + 1) * self.batch_size]
+                pad = self.batch_size - len(chunk)
+                weight = np.ones(self.batch_size, np.float32)
+                if pad:
+                    chunk = np.concatenate([chunk, np.zeros(pad, np.int64)])
+                    weight[self.batch_size - pad :] = 0.0
+                idx = torch.from_numpy(chunk.astype(np.int64)).to(self.device)
+                batch = self.gather_batch(dev_data, idx,
+                                          torch.from_numpy(weight).to(self.device))
+                losses.append(self.train_step(batch, global_step))
+                global_step += 1
+            # epoch loss = sum of per-batch mean losses (one device sync)
+            epoch_loss = float(torch.stack(losses).sum())
+            train_time = time.time() - t0
+            record = {"epoch": epoch, "train_loss": epoch_loss, "train_time": train_time}
+            if self.device.type == "cuda":
+                record["device_mem_gb"] = round(
+                    torch.cuda.max_memory_allocated(self.device) / 2**30, 3)
+            line = (f"epoch {epoch} training [time: {train_time:.2f}s, "
+                    f"train loss: {epoch_loss:.4f}]")
+
+            if valid is not None and len(valid) and (epoch + 1) % self.eval_step == 0:
+                t1 = time.time()
+                result = self.evaluator.evaluate(valid, history_fn)
+                eval_time = time.time() - t1
+                score = result.get(self.valid_metric, 0.0)
+                record.update(valid_score=score, eval_time=eval_time,
+                              **{f"valid_{k}": v for k, v in result.items()})
+                line += f" | valid [time: {eval_time:.2f}s, {self.valid_metric}: {score:.4f}]"
+                if self._is_better(score):
+                    self.best_score = score
+                    self.best_epoch = epoch
+                    self.best_result = result
+                    cur_step = 0
+                    self.ckpt_path = save_checkpoint(checkpoint_path,
+                                                     self._checkpoint_state(epoch))
+                    line += " *best*"
+                else:
+                    cur_step += 1
+            self.logger.info(line)
+            self.metrics.log("epoch", **record)
+            if valid is not None and len(valid) and cur_step > self.stopping_step:
+                self.logger.info(
+                    f"early stop at epoch {epoch} (best {self.valid_metric}="
+                    f"{self.best_score:.4f} @ epoch {self.best_epoch})")
+                break
+
+        if valid is None or not len(valid):
+            # no validation: keep the final params as "best"
+            self.ckpt_path = save_checkpoint(checkpoint_path,
+                                             self._checkpoint_state(self.epochs - 1))
+        self.metrics.log(
+            "fit_done", best_epoch=self.best_epoch,
+            best_score=float(self.best_score) if np.isfinite(self.best_score) else None,
+            **{f"best_{k}": v for k, v in self.best_result.items()},
+        )
+        return self.best_score, self.best_result
+
+    # ------------------------------------------------------------------
+    def evaluate(self, split, load_best=True, history_fn=None):
+        """Full-sort evaluation; with ``load_best`` on the best
+        checkpoint's parameters (the trainer's own are put back after)."""
+        current = None
+        if load_best and self.ckpt_path:
+            current = {k: v.clone() for k, v in self.model.state_dict().items()}
+            self.model.load_state_dict(restore_checkpoint(self.ckpt_path)["params"])
+        try:
+            result = self.evaluator.evaluate(split, history_fn)
+        finally:
+            if current is not None:
+                self.model.load_state_dict(current)
+        self.logger.info("test result: " + format_result(result))
+        self.metrics.log("test", **result)
+        return result

@@ -6,7 +6,10 @@ file imports no JAX, so it runs where JAX is not installed:
 
 Tolerances: fp32 atol 1e-4 / rtol 1e-4 (fp32 FMA matmuls summed in
 another order than cuBLAS); bf16 atol 1e-4 / rtol 2^-7, one bf16 ulp of
-the output, since both sides compute in fp32 and round once."""
+the output, since both sides compute in fp32 and round once.  Gradients
+(the backward kernels against autograd of the plain versions): every
+weight grad, and an fp32 dx, within 1e-4 * max|plain|; a bf16 dx within
+one bf16 ulp of the value on top of that."""
 
 import numpy as np
 import pytest
@@ -124,3 +127,164 @@ def test_serving_on_card_matches_cpu(dev):
     for i, j in zip(*np.nonzero(ids != want_ids)):
         row = dict(zip(want_ids[i].tolist(), want_vals[i].tolist()))
         assert abs(row.get(int(ids[i, j]), want_vals[i, -1]) - want_vals[i, j]) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# backward kernels
+# ---------------------------------------------------------------------------
+
+GRAD_RTOL = 1e-4
+
+
+def _plain_vjp(fn, x, p, dout):
+    xl = x.detach().clone().requires_grad_()
+    pl = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    out = fn(xl, pl)
+    names = list(pl)
+    g = torch.autograd.grad(out, [xl] + [pl[n] for n in names], dout, allow_unused=True)
+    grads = {n: (v if v is not None else torch.zeros_like(pl[n])) for n, v in zip(names, g[1:])}
+    return out.detach(), g[0], grads
+
+
+def _assert_grads(got, want, dtype):
+    (out, dx, grads), (wout, wdx, wgrads) = got, want
+    torch.testing.assert_close(out.float(), wout.float(), **TOL[dtype])
+    scale = float(wdx.float().abs().max())
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    assert bool(((dx.float() - wdx.float()).abs()
+                 <= rtol * wdx.float().abs() + GRAD_RTOL * scale).all()), "dx"
+    assert set(grads) == set(wgrads)
+    for k, g in grads.items():
+        w = wgrads[k]
+        assert float((g - w).abs().max()) <= GRAD_RTOL * float(w.abs().max()), k
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,c,use_conv,use_ffn,prologue", FLAGS)
+def test_layer_bwd_kernel_matches_plain(dev, dtype, p_drop, d, c, use_conv, use_ffn,
+                                        prologue):
+    rng = np.random.default_rng(5)
+    p = _params(rng, d, c, dev, use_ffn, prologue)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((5, 45, d)).astype(np.float32)).to(dev, dt)
+    dout = torch.from_numpy(rng.standard_normal((5, 45, d)).astype(np.float32)).to(dev, dt)
+    flags = (use_conv, use_ffn, prologue, p_drop, 99)
+    before = FL.fused_recurrent_layer_bwd.launches
+    out, saved = FL.fused_recurrent_layer_train(x, p, *flags)
+    dx, grads = FL.fused_recurrent_layer_bwd(x, dout, p, *flags, saved=saved)
+    assert FL.fused_recurrent_layer_bwd.launches == before + 1
+    assert dx.dtype == dt and dx.shape == x.shape
+    want = _plain_vjp(lambda a, q: FL.fused_recurrent_layer_plain(a, q, *flags), x, p, dout)
+    _assert_grads((out, dx, grads), want, dtype)
+    # without the stash the backward recomputes alpha and h: same result
+    dx2, grads2 = FL.fused_recurrent_layer_bwd(x, dout, p, *flags)
+    torch.testing.assert_close(dx2, dx, atol=0, rtol=0)
+    for k in grads:
+        torch.testing.assert_close(grads2[k], grads[k], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,c,use_conv,use_ffn", [f[:4] for f in FLAGS[1:]])
+def test_layer_last_bwd_kernel_matches_plain(dev, dtype, p_drop, d, c, use_conv, use_ffn):
+    rng = np.random.default_rng(6)
+    p = _params(rng, d, c, dev, use_ffn)
+    t = 45
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((6, t, d)).astype(np.float32)).to(dev, dt)
+    dout = torch.from_numpy(rng.standard_normal((6, d)).astype(np.float32)).to(dev, dt)
+    lens = torch.tensor([0, 1, t, 17, 32, t + 3], device=dev)  # 0, t + 3 select nothing
+    flags = (use_conv, use_ffn, p_drop, 99)
+    before = FL.fused_recurrent_layer_last_bwd.launches
+    out, saved = FL.fused_recurrent_layer_last_train(x, lens, p, *flags)
+    dx, grads = FL.fused_recurrent_layer_last_bwd(x, lens, dout, p, *flags, saved=saved)
+    assert FL.fused_recurrent_layer_last_bwd.launches == before + 1
+    want = _plain_vjp(lambda a, q: FL.fused_recurrent_layer_last_plain(a, lens, q, *flags),
+                      x, p, dout)
+    _assert_grads((out, dx, grads), want, dtype)
+    # dx is 0 on rows that select nothing and at and beyond each length
+    assert not dx[0].any() and not dx[5].any()
+    assert not dx[1, 1:].any() and not dx[3, 17:].any()
+    dx2, _ = FL.fused_recurrent_layer_last_bwd(x, lens, dout, p, *flags)
+    torch.testing.assert_close(dx2, dx, atol=0, rtol=0)
+
+
+def test_dropout_mask_bits_match_plain(dev):
+    """W_in = 0, FFN off: K1's dx is LN_pl'(dv1) * m0, zero exactly where
+    the prologue mask drops."""
+    from datamining_recblr_torch.ops import philox
+
+    rng = np.random.default_rng(7)
+    p = _params(rng, 64, 128, dev, use_ffn=False, prologue=True)
+    p["w_in"] = torch.zeros_like(p["w_in"])
+    x = torch.from_numpy(rng.standard_normal((7, 50, 64)).astype(np.float32)).to(dev)
+    dout = torch.from_numpy(rng.standard_normal((7, 50, 64)).astype(np.float32)).to(dev)
+    dx, _ = FL.fused_recurrent_layer_bwd(x, dout, p, True, False, True, 0.2, 31337)
+    want = philox.dropout_mask(31337, philox.M0, 7, 50, 64, 0.2, dev) > 0
+    assert torch.equal(dx != 0, want)
+
+
+def test_backward_wrappers_reject_what_they_do_not_take(dev):
+    rng = np.random.default_rng(8)
+    p = _params(rng, 64, 128, dev)
+    x = torch.zeros((2, 16, 64), device=dev)
+    dout = torch.zeros_like(x)
+    with pytest.raises(ValueError, match="dout"):
+        FL.fused_recurrent_layer_bwd(x, dout[:, :8], p)
+    with pytest.raises(ValueError, match="dout"):
+        FL.fused_recurrent_layer_bwd(x, dout.to(torch.bfloat16), p)
+    with pytest.raises(ValueError, match="saved"):
+        FL.fused_recurrent_layer_bwd(x, dout, p, saved=(torch.zeros((2, 16, 64), device=dev),) * 2)
+    with pytest.raises(ValueError, match="dropout_p"):
+        FL.fused_recurrent_layer_bwd(x, dout, p, dropout_p=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        FL.fused_recurrent_layer_bwd(x.transpose(0, 1), dout, p)
+    with pytest.raises(ValueError, match="dout"):
+        FL.fused_recurrent_layer_last_bwd(x, torch.tensor([1, 2], device=dev), dout, p)
+    with pytest.raises(ValueError, match="lens"):
+        FL.fused_recurrent_layer_last_bwd(x, torch.tensor([1, 2]), dout[:, 0], p)
+    with pytest.raises(ValueError, match="no kernel"):
+        FL.fused_recurrent_layer_bwd(x.cpu(), dout.cpu(), p)
+
+
+def test_train_step_through_kernels_matches_plain(dev):
+    """One CE step of RecBLR (dropout 0.2) through the four kernels: one
+    launch of each, and the loss and every parameter gradient as the
+    same step through the plain versions."""
+    cfg = Config(model="RecBLR", config_dict={"hidden_size": 64, "num_layers": 2,
+                                               "MAX_ITEM_LIST_LENGTH": 40})
+    model = get_model("RecBLR")(cfg, 300, 40, device=dev)
+    rng = np.random.default_rng(9)
+    lens = torch.from_numpy(rng.integers(1, 41, 64).astype(np.int32)).to(dev)
+    seq = torch.from_numpy(rng.integers(1, 300, (64, 40))).to(dev)
+    seq = torch.where(torch.arange(40, device=dev)[None] < lens[:, None], seq, 0)
+    batch = {"item_seq": seq, "item_seq_len": lens,
+             "pos_item": torch.from_numpy(rng.integers(1, 300, 64)).to(dev)}
+    model.train()
+    counted = (FL.fused_recurrent_layer, FL.fused_recurrent_layer_last,
+               FL.fused_recurrent_layer_bwd, FL.fused_recurrent_layer_last_bwd)
+    before = [f.launches for f in counted]
+    loss = model.calculate_loss(batch, step=11)
+    loss.backward()
+    assert [f.launches - b for f, b in zip(counted, before)] == [1, 1, 1, 1]
+    got = {k: v.grad.clone() for k, v in model.named_parameters()}
+    model.zero_grad()
+    # the same model through the plain versions: same seeds, same masks
+    p_drop, seeds = model.dropout_seeds(11)
+    x = model.embed(seq)
+    for li, layer in enumerate(model.layers):
+        flat = model.flat_layer_params(layer, True)
+        if li == 1:
+            x = FL.fused_recurrent_layer_last_plain(x, lens, flat, True, True, p_drop, seeds[1])
+        else:
+            flat.update(model.prologue_params())
+            x = FL.fused_recurrent_layer_plain(x, flat, True, True, True, p_drop, seeds[0])
+    from datamining_recblr_torch.models.base import ce_loss
+
+    want = ce_loss(model._mask_padded_vocab(model._logits(x), value=-1e30),
+                   batch["pos_item"])
+    want.backward()
+    assert abs(float(loss.detach()) - float(want.detach())) <= 1e-4 * abs(float(want.detach()))
+    for k, v in model.named_parameters():
+        assert float((got[k] - v.grad).abs().max()) <= GRAD_RTOL * float(v.grad.abs().max()), k

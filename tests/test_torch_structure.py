@@ -1,6 +1,6 @@
 """Structure of the port: it imports no JAX and nothing of the JAX
-package, its entry points default to the card, and a CPU run launches
-no kernel."""
+package, nor pandas or PyYAML (the card's machine has neither), its
+entry points default to the card, and a CPU run launches no kernel."""
 
 import os
 import subprocess
@@ -24,24 +24,57 @@ MODULES = [
     "datamining_recblr_torch.models.recblr",
     "datamining_recblr_torch.ops._cuda",
     "datamining_recblr_torch.ops.fused_layer",
+    "datamining_recblr_torch.ops.philox",
     "datamining_recblr_torch.ops.topk",
+    "datamining_recblr_torch.models.base",
+    "datamining_recblr_torch.data.atomic",
+    "datamining_recblr_torch.data.batching",
+    "datamining_recblr_torch.data.dataset",
+    "datamining_recblr_torch.data.synthetic",
     "datamining_recblr_torch.eval.metrics",
+    "datamining_recblr_torch.eval.evaluator",
     "datamining_recblr_torch.train.checkpoint",
+    "datamining_recblr_torch.train.optim",
+    "datamining_recblr_torch.train.trainer",
+    "datamining_recblr_torch.utils.logging",
 ]
+FORBIDDEN = ("jax", "jaxlib", "datamining_recblr_tpu", "pandas", "yaml")
 
 
-@pytest.mark.parametrize("module", MODULES + ["chip_smoke"])
-def test_imports_no_jax(module):
-    code = (
-        "import importlib, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-        "'datamining_recblr_tpu')]\n"
+def _run_clean(code):
+    """Run ``code`` in a fresh interpreter, then fail if it imported any
+    FORBIDDEN package."""
+    code += (
+        "\nimport sys\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("module", MODULES + ["chip_smoke"])
+def test_imports_no_jax(module):
+    _run_clean(f"import importlib\nimportlib.import_module({module!r})")
+
+
+def test_training_on_the_cpu_imports_no_pandas_or_yaml(tmp_path):
+    """Data build, one epoch of Trainer.fit and evaluation, end to end."""
+    _run_clean(
+        "from datamining_recblr_torch.config import Config\n"
+        "from datamining_recblr_torch.data.dataset import build_from_dataframe\n"
+        "from datamining_recblr_torch.data.synthetic import generate_synthetic_interactions\n"
+        "from datamining_recblr_torch.models import get_model\n"
+        "from datamining_recblr_torch.train.trainer import Trainer\n"
+        "data = build_from_dataframe(generate_synthetic_interactions(n_users=20, "
+        "n_items=15), max_seq_len=8)\n"
+        "cfg = Config(model='RecBLR', config_dict={'hidden_size': 8, 'epochs': 1, "
+        f"'MAX_ITEM_LIST_LENGTH': 8, 'checkpoint_dir': {str(tmp_path)!r}}})\n"
+        "t = Trainer(cfg, get_model('RecBLR')(cfg, data.n_items, 8, device='cpu'))\n"
+        "t.fit(data)\n"
+        "t.evaluate(data.test)\n"
+    )
 
 
 def _cfg():
