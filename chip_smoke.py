@@ -3,23 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``datamining_recblr_torch/csrc``
-(both fused recurrent layers, forward and backward) and, phase by phase:
+Builds the port's seven CUDA kernels from ``datamining_recblr_torch/csrc``
+(both fused recurrent layers of RecBLR, forward and backward; the
+attention baselines' LN prologue and both transformer-layer forwards)
+and, phase by phase:
 
 * holds each kernel against its plain PyTorch version at B 256, T 200:
-  the forwards at dropout 0 (serving), then every kernel's output and
-  gradients against autograd of the plain versions, fp32 and bf16, at
-  dropout 0 and 0.2, and the kernels' dropout mask bit for bit;
-* serves RecBLR at full width (hidden 64, 2 layers, T 200, V 3,417)
-  through ``Recommender.recommend`` against the plain model, with one
-  launch of each forward per call, and times it;
-* trains it at the bench.py shape (batch 2,048, dropout 0.2, CE, Adam,
-  fp32 and bf16 compute): one launch of each of the four kernels per
-  step, one step against the same step through the plain versions, the
-  step time and a profile;
+  the RecBLR forwards at dropout 0 (serving), then every RecBLR kernel's
+  output and gradients against autograd of the plain versions, fp32 and
+  bf16, at dropout 0 and 0.2, and the kernels' dropout mask bit for bit;
+  then the three attention kernels, fp32 and bf16, causal and
+  bidirectional, two activations, lengths 0, 1 and T;
+* serves RecBLR, SASRec and BERT4Rec at full width (hidden 64, 2 layers,
+  T 200, V 3,417; 2 heads and an FFN of 256 for the baselines) through
+  ``Recommender.recommend`` against the same model through the plain
+  versions, with one launch of each of the model's kernels per call,
+  and times it;
+* trains RecBLR at the bench.py shape (batch 2,048, dropout 0.2, CE,
+  Adam, fp32 and bf16 compute): one launch of each of the four kernels
+  per step, one step against the same step through the plain versions,
+  the step time and a profile;
 * runs ``Trainer.fit`` and ``evaluate(load_best=True)`` on a small
   Markov dataset: the loss falls and valid NDCG@10 is above 0;
-* times every kernel beside its bound and its plain version.
+* times every kernel beside its bound, its plain version and, where one
+  PyTorch call computes the same function, that call.
 
 Each phase prints one line; any failure exits non-zero.  The line before
 the last is the kernels' JSON record, the last line the device JSON.
@@ -36,15 +43,19 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from datamining_recblr_torch.config import Config
 from datamining_recblr_torch.models import get_model
+from datamining_recblr_torch.models import layers as L
 from datamining_recblr_torch.ops import _cuda
+from datamining_recblr_torch.ops import fused_block as FB
 from datamining_recblr_torch.ops import fused_layer as FL
 from datamining_recblr_torch.serve import Recommender
 
 SEED = 0
 B, T, D, C, K, FF = 256, 200, 64, 128, 4, 256  # serving shape
+HEADS, INNER = 2, 256  # the attention baselines' serving shape (bench.py)
 N_ITEMS, TOP_K = 3417, 10
 # H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor
 # cores and HBM3 bandwidth
@@ -52,6 +63,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_RTOL = 2.0 ** -7  # one bf16 ulp of the value, at most
+# the transformer-layer kernels in bf16: one bf16 ulp of the value plus
+# 2^-9 of the largest value (an operand rounded to the other bf16
+# neighbour after an fp32 sum in another order, times a weight)
+ATTN_BF16_ABS = 2.0 ** -9
 # gradients: max |kernel - plain| over max |plain|; fp32 FMA sums in
 # another order than cuBLAS and autograd, over up to B*T = 409,600 terms
 GRAD_RTOL = 1e-4
@@ -62,6 +77,10 @@ FIT_EPOCHS = 3
 # the kernels of the training step, whose launches it counts
 LAUNCH_COUNTED = (FL.fused_recurrent_layer, FL.fused_recurrent_layer_last,
                   FL.fused_recurrent_layer_bwd, FL.fused_recurrent_layer_last_bwd)
+# the kernels of the attention baselines' serving path, one launch each
+# per recommend()
+ATTN_COUNTED = (FL.fused_ln_dropout, FB.fused_transformer_layer,
+                FB.fused_transformer_layer_last)
 
 
 class SmokeFailure(RuntimeError):
@@ -95,6 +114,20 @@ def layer_params(gen, dev, prologue):
     }
     if prologue:
         p.update(pl_s=1 + r(D), pl_b=r(D))
+    return p
+
+
+def block_params(gen, dev):
+    """One transformer layer's weights (fused_block PARAM_NAMES); Q and K
+    wider than the rest so that attention is far from uniform."""
+    def r(*s, std=0.05):
+        return (std * torch.randn(s, generator=gen)).to(dev)
+
+    p = {}
+    for n in "qkvo":
+        p[f"w_{n}"], p[f"b_{n}"] = r(D, D, std=0.2 if n in "qk" else 0.05), r(D)
+    p.update(ln1_s=1 + r(D), ln1_b=r(D), w1=r(D, INNER), b1=r(INNER), w2=r(INNER, D),
+             b2=r(D), ln2_s=1 + r(D), ln2_b=r(D))
     return p
 
 
@@ -136,6 +169,47 @@ def k2_bound_ms(lens, p, act_bytes):
     per_row = 2 * D * C + 2 * C * D + 4 * D * FF
     flops = positions * per_pos + b * per_row
     nbytes = positions * D * act_bytes + b * 4 + b * D * act_bytes + _params_bytes(p)
+    return _bound(flops, nbytes)
+
+
+def ln_bound_ms(b, act_bytes):
+    # x read and out written once, pos [T, D] and scale, bias [D]; about 8
+    # operations per element (add, mean, centre, square-sum, scale, shift)
+    nbytes = 2 * b * T * D * act_bytes + T * D * 4 + 2 * D * 4
+    return _bound(8 * b * T * D, nbytes)
+
+
+def _kept_keys(lens, t):
+    """Per row, the keys a query can weigh: those below the length (all T
+    where the length is 0, since an all-masked row averages every key)."""
+    n = lens.clamp(0, t)
+    return torch.where(n == 0, torch.full_like(n, t), n)
+
+
+def block_bound_ms(lens, t, causal, p, act_bytes):
+    # QKV, W_o and the FFN at every position; QK^T and P.V (4D per pair
+    # over all heads) only for the query-key pairs whose probability this
+    # data can make non-zero: keys below the length, and not after the
+    # query when causal
+    n = _kept_keys(lens, t).double()
+    if causal:
+        pairs = torch.where(lens.clamp(0, t) == 0, n * t, n * (n + 1) / 2 + (t - n) * n)
+    else:
+        pairs = n * t
+    b = lens.numel()
+    flops = b * t * (8 * D * D + 4 * D * INNER) + 4 * D * float(pairs.sum())
+    nbytes = 2 * b * t * D * act_bytes + b * 4 + _params_bytes(p)
+    return _bound(flops, nbytes)
+
+
+def block_last_bound_ms(lens, t, p, act_bytes):
+    # per row: the query, W_o and the FFN once; K and V projections and
+    # QK^T, P.V at the positions its one query weighs (lengths above T
+    # select no query and weigh every key)
+    n = torch.where((lens >= 1) & (lens <= t), lens, torch.full_like(lens, t)).double()
+    b = lens.numel()
+    flops = b * (4 * D * D + 4 * D * INNER) + float(n.sum()) * (4 * D * D + 4 * D)
+    nbytes = float(n.sum()) * D * act_bytes + b * D * act_bytes + b * 4 + _params_bytes(p)
     return _bound(flops, nbytes)
 
 
@@ -343,6 +417,60 @@ def mask_bits(dev):
     return flips
 
 
+def _attn_ok(got, want, dtype):
+    """(max |kernel - plain|, ok): fp32 within 1e-4 of the largest plain
+    value; bf16 within one bf16 ulp of the value plus ATTN_BF16_ABS of it."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    err = float((g - w).abs().max())
+    if dtype == torch.float32:
+        return err, err <= 1e-4 * scale
+    return err, bool(((g - w).abs() <= BF16_RTOL * w.abs() + ATTN_BF16_ABS * scale).all())
+
+
+def attn_kernels_vs_plain(dev):
+    """The attention baselines' three kernels against their plain versions
+    at B = 256, T = 200, fp32 and bf16, lengths with 0, 1 and T; the layer
+    causal and bidirectional, two activations.  Returns the largest fp32
+    |kernel - plain| of each."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    p = block_params(gen, dev)
+    x = torch.randn((B, T, D), generator=gen).to(dev)
+    pos = (0.5 * torch.randn((T, D), generator=gen)).to(dev)
+    lens = serving_lens(gen, B).to(dev)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        args = (xd, pos, p["ln1_s"], p["ln1_b"])
+        cases = [("fused_ln_dropout", "", FL.fused_ln_dropout(*args),
+                  FL.fused_ln_dropout_plain(*args))]
+        for act in ("gelu", "relu"):
+            for causal in (True, False):
+                cases.append((
+                    "fused_transformer_layer", f"causal={causal} act={act}",
+                    FB.fused_transformer_layer(xd, lens, p, causal, HEADS, act),
+                    FB.fused_transformer_layer_plain(xd, lens, p, causal, HEADS, act)))
+            cases.append((
+                "fused_transformer_layer_last", f"act={act}",
+                FB.fused_transformer_layer_last(xd, lens, p, HEADS, act),
+                FB.fused_transformer_layer_last_plain(xd, lens, p, HEADS, act)))
+        torch.cuda.synchronize()
+        for name, tag, got, want in cases:
+            check(got.dtype == dt and got.shape == want.shape, f"{name} {dt}: shape/dtype")
+            check(bool(torch.isfinite(got).all()), f"{name} {dt} {tag}: non-finite output")
+            err, ok = _attn_ok(got, want, dt)
+            if dt == torch.float32:
+                errs[name] = max(errs.get(name, 0.0), err)
+            tol = ("max|err| <= 1e-4*max|plain|" if dt == torch.float32 else
+                   f"|err| <= 2^-7*|plain| + 2^-9*max|plain|")
+            phase("attn-kernel-vs-plain", kernel=name, case=repr(tag),
+                  dtype=str(dt).split(".")[-1], shape=f"B{B}xT{T}xD{D}", heads=HEADS,
+                  max_abs_err=f"{err:.3e}", max_abs_plain=f"{float(want.float().abs().max()):.3f}",
+                  tol=repr(tol), ok=ok)
+            check(ok, f"{name} {dt} {tag}: kernel disagrees with its plain version")
+    return errs
+
+
 def plain_seq_output(model, seq, lens, step=None):
     """The model's fused composition through the plain layer versions,
     with the dropout rate and seeds the model draws for ``step``."""
@@ -359,8 +487,28 @@ def plain_seq_output(model, seq, lens, step=None):
         x = FL.fused_recurrent_layer_plain(x, flat, True, True, li == 0, p_drop, seeds[li])
 
 
-def plain_full_sort_scores(model, seq, lens):
-    return model._mask_padded_vocab(model._logits(plain_seq_output(model, seq, lens)))
+def plain_baseline_output(model, seq, seq_len):
+    """SASRec's or BERT4Rec's fused composition through the plain versions
+    of its three kernels (BERT4Rec: mask token appended, output head)."""
+    bert = hasattr(model, "output_head")
+    if bert:
+        seq = model.reconstruct_test_seq(seq, seq_len)
+    t = seq.shape[1]
+    x = FL.fused_ln_dropout_plain(model.embed(seq).to(model.compute_dtype),
+                                  model.position_embedding[:t].float(),
+                                  model.input_ln["scale"].float(),
+                                  model.input_ln["bias"].float())
+    lens = (seq != 0).sum(1, dtype=torch.int32)
+    n = len(model.encoder)
+    for li, layer in enumerate(model.encoder):
+        flat = L.flat_block_params(layer)
+        if li == n - 1:
+            x = FB.fused_transformer_layer_last_plain(x, lens, flat, model.n_heads,
+                                                      model.hidden_act)
+        else:
+            x = FB.fused_transformer_layer_plain(x, lens, flat, model.causal, model.n_heads,
+                                                 model.hidden_act)
+    return model.output_head(x) if bert else x
 
 
 # ---------------------------------------------------------------------------
@@ -619,28 +767,47 @@ def requests(rng, b):
     return seqs
 
 
-def serving(dev, dtype_name):
+# per served model: its phases' prefix, the kernels one recommend()
+# launches, and its scores' reference through the plain versions
+SERVED = {
+    "RecBLR": ("serve", (FL.fused_recurrent_layer, FL.fused_recurrent_layer_last),
+               plain_seq_output),
+    "SASRec": ("serve-sasrec", ATTN_COUNTED, plain_baseline_output),
+    "BERT4Rec": ("serve-bert4rec", ATTN_COUNTED, plain_baseline_output),
+}
+
+
+def _at_full_width(model):
+    if hasattr(model, "encoder"):
+        return L._use_fused_attention() and (
+            model.hidden_size, model.n_heads, model.inner_size, len(model.encoder),
+            model.hidden_act) == (D, HEADS, INNER, 2, "gelu")
+    return model.use_fused_layer() and (
+        model.hidden_size, model.inner_hidden, len(model.layers)) == (D, C, 2)
+
+
+def serving(dev, name, dtype_name):
     from datamining_recblr_torch.eval.metrics import mask_scores
     from datamining_recblr_torch.ops.topk import topk_scores
 
-    cfg = Config(model="RecBLR", config_dict={"MAX_ITEM_LIST_LENGTH": T,
-                                               "compute_dtype": dtype_name})
-    model = get_model("RecBLR")(cfg, N_ITEMS, T,
-                                generator=torch.Generator().manual_seed(SEED))
-    check(model.device.type == "cuda" and model.use_fused_layer(), "model not on the fused path")
-    check((model.hidden_size, model.inner_hidden, len(model.layers)) == (D, C, 2),
-          "model is not at full width")
+    prefix, counted, plain_output = SERVED[name]
+    cfg = Config(model=name, config_dict={"MAX_ITEM_LIST_LENGTH": T,
+                                          "compute_dtype": dtype_name})
+    model = get_model(name)(cfg, N_ITEMS, T, generator=torch.Generator().manual_seed(SEED))
+    check(model.device.type == "cuda", f"{name}: model not on the card")
+    check(_at_full_width(model), f"{name}: model is not at full width on the fused path")
     rec = Recommender(model, top_k=TOP_K)
     rng = np.random.default_rng(SEED)
     seqs = requests(rng, B)
 
-    FL.fused_recurrent_layer.launches = 0
-    FL.fused_recurrent_layer_last.launches = 0
+    for fn in counted:
+        fn.launches = 0
     ids, vals = rec.recommend(seqs)
-    launches = (FL.fused_recurrent_layer.launches, FL.fused_recurrent_layer_last.launches)
-    phase("serve-launches", dtype=dtype_name, calls=1,
-          fused_recurrent_layer=launches[0], fused_recurrent_layer_last=launches[1])
-    check(launches == (1, 1), f"expected one launch of each kernel, got {launches}")
+    launches = tuple(fn.launches for fn in counted)
+    phase(f"{prefix}-launches", dtype=dtype_name, calls=1,
+          **{fn.__name__: n for fn, n in zip(counted, launches)})
+    check(launches == (1,) * len(counted),
+          f"{name}: expected one launch of each kernel, got {launches}")
 
     # reference: the same model through the plain versions on the card
     seq = np.zeros((B, T), np.int64)
@@ -653,28 +820,29 @@ def serving(dev, dtype_name):
         if len(items):
             hist[i, np.asarray(items, np.int64)] = True
     with torch.inference_mode():
-        ref = plain_full_sort_scores(model, torch.from_numpy(seq).to(dev),
-                                     torch.from_numpy(lens).to(dev))
-        ref = mask_scores(ref, history=torch.from_numpy(hist).to(dev))
+        out = plain_output(model, torch.from_numpy(seq).to(dev), torch.from_numpy(lens).to(dev))
+        ref = model._mask_padded_vocab(model._logits(out))
+        ref = mask_scores(ref, history=torch.from_numpy(hist[:, : ref.shape[-1]]).to(dev))
         ref_vals, ref_ids = topk_scores(ref, TOP_K)
     ref = ref.cpu().numpy()
     ref_vals = ref_vals.cpu().numpy()
     ref_ids = ref_ids.cpu().numpy()
     scale = float(np.abs(ref_vals).max())
     tol = 1e-4 if dtype_name == "float32" else scale / 32
-    check(ids.shape == (B, TOP_K) and np.isfinite(vals).all(), "bad serving output")
+    check(ids.shape == (B, TOP_K) and np.isfinite(vals).all(), f"{name}: bad serving output")
     err = float(np.abs(vals - ref_vals).max())
     ties = 0
     for i, j in zip(*np.nonzero(ids != ref_ids)):
         ties += 1
         check(abs(ref[i, ids[i, j]] - ref_vals[i, j]) <= tol,
-              f"row {i}: id {ids[i, j]} is not a near-tie of the reference")
+              f"{name} row {i}: id {ids[i, j]} is not a near-tie of the reference")
     excluded = all(not set(ids[i].tolist()) & set(map(int, s)) for i, s in enumerate(seqs))
-    phase("serve-vs-plain", dtype=dtype_name, users=B, top_k=TOP_K,
+    phase(f"{prefix}-vs-plain", dtype=dtype_name, users=B, top_k=TOP_K,
           max_abs_score_err=f"{err:.3e}", tol=f"{tol:.3e}", id_mismatches_near_ties=ties,
           history_excluded=excluded)
-    check(err <= tol, "serving scores disagree with the plain model")
-    check(excluded and (ids != 0).all(), "history or PAD recommended")
+    check(err <= tol, f"{name}: serving scores disagree with the plain model")
+    check(excluded and (ids != 0).all() and (ids < N_ITEMS).all(),
+          f"{name}: history, PAD or a padded id recommended")
 
     # timings as bench.py's serve_main takes them: host clock around
     # recommend(), median over repeats, after a first call
@@ -689,13 +857,13 @@ def serving(dev, dtype_name):
             times.append(time.perf_counter() - t0)
         med = float(np.median(times))
         out[b] = med
-        serve_profile(rec, batch, dtype_name)
-    phase("serve-time", dtype=dtype_name, p50_ms_1_user=f"{out[1] * 1e3:.3f}",
+        serve_profile(rec, batch, prefix, dtype_name)
+    phase(f"{prefix}-time", dtype=dtype_name, p50_ms_1_user=f"{out[1] * 1e3:.3f}",
           users_per_s_batch256=f"{B / out[B]:.1f}", median_ms_batch256=f"{out[B] * 1e3:.3f}")
     return out
 
 
-def serve_profile(rec, batch, dtype_name, calls=5):
+def serve_profile(rec, batch, prefix, dtype_name, calls=5):
     """Device time by kernel over a few recommend() calls (torch.profiler,
     CUPTI), and the device's busy share of the profiled wall time (the
     profiler's own host overhead is inside that wall time)."""
@@ -711,7 +879,7 @@ def serve_profile(rec, batch, dtype_name, calls=5):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    phase("serve-profile", dtype=dtype_name, users=len(batch), calls=calls,
+    phase(f"{prefix}-profile", dtype=dtype_name, users=len(batch), calls=calls,
           wall_ms_per_call=f"{wall_us / calls / 1e3:.3f}",
           device_ms_per_call=f"{busy_us / calls / 1e3:.3f}" if kernels else "not measured",
           device_busy_share=f"{busy_us / wall_us:.3f}" if kernels else "not measured",
@@ -739,6 +907,92 @@ def kernel_times(dev, p1, p2, lens):
     return rows
 
 
+def _attn_mask(lens, t, causal):
+    """[B * HEADS, T, T] additive float mask, -10000 where a key is dropped
+    (the layout torch.nn.MultiheadAttention adds to its scores)."""
+    col = torch.arange(t, device=lens.device)
+    keep = (col[None, None, :] < lens[:, None, None]).expand(-1, t, t)
+    if causal:
+        keep = keep & (col[None, :] <= col[:, None])[None]
+    return torch.where(keep, 0.0, FB.MASK_VALUE).repeat_interleave(HEADS, dim=0)
+
+
+def library_layer(p, dev):
+    """torch.nn.TransformerEncoderLayer with the kernel's weights: post-LN,
+    tanh GELU, eps 1e-12, dropout 0.  A yardstick of time only: the port
+    never calls it."""
+    layer = torch.nn.TransformerEncoderLayer(
+        D, HEADS, INNER, dropout=0.0, activation=lambda v: F.gelu(v, approximate="tanh"),
+        layer_norm_eps=1e-12, batch_first=True, norm_first=False, device=dev)
+    with torch.no_grad():
+        attn = layer.self_attn
+        attn.in_proj_weight.copy_(torch.cat([p["w_q"], p["w_k"], p["w_v"]], 1).T)
+        attn.in_proj_bias.copy_(torch.cat([p["b_q"], p["b_k"], p["b_v"]]))
+        attn.out_proj.weight.copy_(p["w_o"].T)
+        attn.out_proj.bias.copy_(p["b_o"])
+        for lin, w, b in ((layer.linear1, "w1", "b1"), (layer.linear2, "w2", "b2")):
+            lin.weight.copy_(p[w].T)
+            lin.bias.copy_(p[b])
+        for norm, n in ((layer.norm1, "ln1"), (layer.norm2, "ln2")):
+            norm.weight.copy_(p[f"{n}_s"])
+            norm.bias.copy_(p[f"{n}_b"])
+    return layer.eval()
+
+
+def attn_kernel_times(dev):
+    """The attention baselines' three kernels at B = 256 and 1, fp32,
+    each beside its bound, its plain version and, where one exists, one
+    PyTorch call of the same function (row 10: TransformerEncoderLayer,
+    first checked against the plain version; row 6: add + layer_norm)."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    p = block_params(gen, dev)
+    pos = (0.5 * torch.randn((T, D), generator=gen)).to(dev)
+    s, bias = p["ln1_s"], p["ln1_b"]
+    layer = library_layer(p, dev)
+    rows = {}
+    for b in (B, 1):
+        x = torch.randn((b, T, D), generator=gen).to(dev)
+        lens = serving_lens(gen, b).to(dev) if b > 1 else torch.tensor([T], device=dev)
+        mask = _attn_mask(lens, T, causal=True)
+        with torch.no_grad():
+            lib_out = layer(x, src_mask=mask)
+            want = FB.fused_transformer_layer_plain(x, lens, p, True, HEADS)
+            lib_err = float((lib_out - want).abs().max())
+            lib_ok = lib_err <= 1e-4 * float(want.abs().max())
+            phase("library-vs-plain", call="torch.nn.TransformerEncoderLayer", B=b, T=T,
+                  causal=True, max_abs_err=f"{lib_err:.3e}", tol="1e-4*max|plain|", ok=lib_ok)
+            check(lib_ok, "TransformerEncoderLayer does not compute the plain layer's function")
+            lib_ms = {
+                "fused_ln_dropout": time_ms(
+                    lambda: F.layer_norm(x + pos, (D,), s, bias, L.LN_EPS)),
+                "fused_transformer_layer": time_ms(lambda: layer(x, src_mask=mask)),
+                "fused_transformer_layer_last": None,
+            }
+        cases = (
+            ("fused_ln_dropout", lambda: FL.fused_ln_dropout(x, pos, s, bias),
+             lambda: FL.fused_ln_dropout_plain(x, pos, s, bias), ln_bound_ms(b, 4)),
+            ("fused_transformer_layer",
+             lambda: FB.fused_transformer_layer(x, lens, p, True, HEADS),
+             lambda: FB.fused_transformer_layer_plain(x, lens, p, True, HEADS),
+             block_bound_ms(lens.cpu(), T, True, p, 4)),
+            ("fused_transformer_layer_last",
+             lambda: FB.fused_transformer_layer_last(x, lens, p, HEADS),
+             lambda: FB.fused_transformer_layer_last_plain(x, lens, p, HEADS),
+             block_last_bound_ms(lens.cpu(), T, p, 4)),
+        )
+        for name, kernel, plain, (bound, flops, by) in cases:
+            ms = time_ms(kernel)
+            plain_ms = time_ms(plain, reps=10)
+            lib = lib_ms[name]
+            phase("kernel-time", kernel=name, B=b, T=T, dtype="float32", ms=f"{ms:.4f}",
+                  plain_ms=f"{plain_ms:.4f}",
+                  library_ms=f"{lib:.4f}" if lib is not None else "none",
+                  bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}", bound_by=by,
+                  share_of_bound=f"{bound / ms:.4f}")
+            rows[(name, b)] = (ms, plain_ms, bound, by, lib)
+    return rows
+
+
 KERNELS = (
     ("fused_recurrent_layer", "datamining_recblr_torch/csrc/fused_layer.cu",
      "datamining_recblr_tpu/ops/fused_layer.py:245"),
@@ -748,6 +1002,15 @@ KERNELS = (
      "datamining_recblr_tpu/ops/fused_layer.py:419"),
     ("fused_recurrent_layer_last_bwd", "datamining_recblr_torch/csrc/fused_layer_last_bwd.cu",
      "datamining_recblr_tpu/ops/fused_layer.py:844"),
+)
+SHORT_DTYPE = {"float32": "fp32", "bfloat16": "bf16"}
+ATTN_KERNELS = (
+    ("fused_ln_dropout", "datamining_recblr_torch/csrc/ln_dropout.cu",
+     "datamining_recblr_tpu/ops/fused_layer.py:1292"),
+    ("fused_transformer_layer", "datamining_recblr_torch/csrc/fused_block.cu",
+     "datamining_recblr_tpu/ops/fused_block.py:260"),
+    ("fused_transformer_layer_last", "datamining_recblr_torch/csrc/fused_block_last.cu",
+     "datamining_recblr_tpu/ops/fused_block.py:637"),
 )
 
 
@@ -760,13 +1023,17 @@ def main():
     p1, p2, lens, errs = kernels_vs_plain(dev)
     mask_bits(dev)
     train_errs = training_kernels_vs_plain(dev)
-    serve = {dt: serving(dev, dt) for dt in ("float32", "bfloat16")}
+    attn_errs = attn_kernels_vs_plain(dev)
+    serve = {(name, dt): serving(dev, name, dt)
+             for name in SERVED for dt in ("float32", "bfloat16")}
     train = {dt: train_step_phase(dev, dt) for dt in ("float32", "bfloat16")}
     fit_phase(dev)
     kernel_times(dev, p1, p2, lens)
     rows = training_kernel_times(dev)
-    # launches: one training step of the main path (fp32); the forwards'
-    # launches per recommend() beside them
+    attn_rows = attn_kernel_times(dev)
+    # launches: RecBLR's kernels in one training step of its main path
+    # (fp32), their forwards' launches per recommend() beside them; the
+    # attention kernels in one SASRec recommend() (fp32), BERT4Rec's beside
     launches = dict(zip((k[0] for k in KERNELS), train["float32"]["launches"]))
     kernels = []
     for name, src, tpu in KERNELS:
@@ -779,12 +1046,25 @@ def main():
             "library_ms": None,
         }
         if name in errs:
-            entry["launches_per_recommend"] = serve["float32"]["launches"][len(kernels)]
+            entry["launches_per_recommend"] = serve["RecBLR", "float32"]["launches"][len(kernels)]
         kernels.append(entry)
-    phase("summary", card=repr(smi), serve_p50_ms_fp32=f"{serve['float32'][1] * 1e3:.3f}",
-          serve_users_per_s_fp32=f"{B / serve['float32'][B]:.1f}",
-          serve_p50_ms_bf16=f"{serve['bfloat16'][1] * 1e3:.3f}",
-          serve_users_per_s_bf16=f"{B / serve['bfloat16'][B]:.1f}",
+    for i, (name, src, tpu) in enumerate(ATTN_KERNELS):
+        ms, plain, bound, by, lib = attn_rows[(name, B)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": serve["SASRec", "float32"]["launches"][i],
+            "max_abs_err": attn_errs[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib,
+            "launches_per_recommend": {m: serve[m, "float32"]["launches"][i]
+                                       for m in ("SASRec", "BERT4Rec")},
+        })
+    serve_summary = {}
+    for (name, dt), out in serve.items():
+        tag = ("" if name == "RecBLR" else name.lower() + "_") + SHORT_DTYPE[dt]
+        serve_summary[f"serve_p50_ms_{tag}"] = f"{out[1] * 1e3:.3f}"
+        serve_summary[f"serve_users_per_s_{tag}"] = f"{B / out[B]:.1f}"
+    phase("summary", card=repr(smi), **serve_summary,
           train_ms_per_step_fp32=f"{train['float32']['ms']:.3f}",
           train_examples_per_s_fp32=f"{TRAIN_B / train['float32']['ms'] * 1e3:.1f}",
           train_ms_per_step_bf16=f"{train['bfloat16']['ms']:.3f}",

@@ -1,0 +1,147 @@
+// Top transformer encoder layer forward for Hopper, output at each row's
+// last valid position only ([B, D]).
+//
+// Replaces the TPU kernel datamining_recblr_tpu/ops/fused_block.py:
+// _last_fwd_kernel (_block_last_fwd_core; reached through
+// _block_last_fwd / fused_transformer_layer_last) at dropout 0.  The
+// query is one row per batch row, chosen by the one-hot `pos == lens-1`
+// (lens 0 or above T selects nothing: the query and the residual come
+// from zeros), and the keys are masked by padding alone (`col < lens`),
+// which on the last row is also the causal mask.  The K and V
+// projections over all T positions are most of the work (2 x 2TD^2 of
+// ~3.4 MFLOP per row at the serving shape), so the kernel is bound by
+// fp32 operations.  The design:
+//   A  per (row, 32 positions): x @ [W_k | W_v] + b into a [B, T, 2D]
+//      fp32 scratch the wrapper allocates (proj_kernel);
+//   B  per LR = 4 batch rows: the selected input row, its query, per
+//      head the [1, T] scores against the row's keys, the masked softmax
+//      and P.V, then W_o, LN1, the FFN in 256-column chunks and LN2 on
+//      the LR rows together, so each weight read serves LR rows.
+// Matmuls are fp32 FMA (no tensor cores), so the kernel agrees with the
+// plain fp32 version to rounding.  One call is one launch of the wrapper.
+//
+// C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
+#include "attn_common.cuh"
+
+using namespace recblr;
+
+namespace {
+
+constexpr int LR = 4;  // batch rows per block of phase B
+
+inline size_t last_smem_bytes(int T, int D) {
+  return sizeof(float) * (size_t)LR * (5 * D + T + FC);
+}
+
+template <typename Tin>
+__global__ void __launch_bounds__(ATT_THREADS)
+last_attn_tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
+                      const float* __restrict__ kv, Tin* __restrict__ out, BlockParams p, int B,
+                      int T, int D, int H, int I, int act, float scale) {
+  extern __shared__ float smem[];
+  constexpr bool RB = IS_BF16<Tin>;
+  const int b0 = blockIdx.x * LR;
+  const int rows = min(LR, B - b0);
+  const int dh = D / H;
+  const int ld = 2 * D;
+  float* xs = smem;           // [LR, D]  selected input rows (0 where none)
+  float* qs = xs + LR * D;    // [LR, D]  queries
+  float* cs = qs + LR * D;    // [LR, D]  attention context, all heads
+  float* ys = cs + LR * D;    // [LR, D]  W_o output, then r1
+  float* fs = ys + LR * D;    // [LR, D]  FFN output, then the layer output
+  float* ss = fs + LR * D;    // [LR, T]  one head's scores, then probabilities
+  float* as = ss + LR * T;    // [LR, FC] FFN chunk
+
+  for (int i = threadIdx.x; i < LR * D; i += blockDim.x) {
+    const int r = i / D, d = i % D;
+    float v = 0.f;
+    if (r < rows) {
+      const int n = valid_len(lens[b0 + r], T);
+      if (n > 0) v = load_act(x, ((size_t)(b0 + r) * T + n - 1) * D + d);
+    }
+    xs[i] = v;
+  }
+  __syncthreads();
+  tile_mm<LR, false, RB, false>(xs, D, rows, D, p.w_q, D, D, p.b_q, qs, D);
+  __syncthreads();
+  for (int h = 0; h < H; ++h) {
+    // scores of row r: q_r,h . k_j,h of the row's own keys
+    for (int i = threadIdx.x; i < rows * T; i += blockDim.x) {
+      const int r = i / T, j = i % T;
+      const float* k = kv + ((size_t)(b0 + r) * T + j) * ld + h * dh;
+      const float* q = qs + r * D + h * dh;
+      float acc = 0.f;
+      for (int d = 0; d < dh; ++d) acc = fmaf(mm_op<RB>(q[d]), mm_op<RB>(__ldg(k + d)), acc);
+      ss[i] = acc;
+    }
+    __syncthreads();
+    {
+      const int r = threadIdx.x / 32;  // one warp per row (LR <= the block's warps)
+      if (r < rows) softmax_row(ss + r * T, T, lens[b0 + r], 0, 0, scale);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * dh; i += blockDim.x) {
+      const int r = i / dh, d = i % dh;
+      const float* v = kv + (size_t)(b0 + r) * T * ld + D + h * dh + d;
+      const float* pr = ss + r * T;
+      float acc = 0.f;
+      for (int j = 0; j < T; ++j) acc = fmaf(mm_op<RB>(pr[j]), mm_op<RB>(__ldg(v + (size_t)j * ld)), acc);
+      cs[r * D + h * dh + d] = acc;
+    }
+    __syncthreads();
+  }
+  block_tail<LR, RB>(cs, xs, ys, as, fs, rows, D, I, act, p);
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x)
+    store_act(out, (size_t)b0 * D + i, fs[i]);
+}
+
+template <typename Tin>
+cudaError_t block_last_fwd(const Tin* x, const int* lens, Tin* out, BlockParams p, float* kv,
+                           int B, int T, int D, int H, int I, int act, float scale,
+                           cudaStream_t stream) {
+  const size_t sa = proj_smem_bytes(D);
+  ProjParams pp = {{p.w_k, p.w_v, nullptr}, {p.b_k, p.b_v, nullptr}};
+  proj_kernel<Tin><<<dim3(B, (T + PROJ_ROWS - 1) / PROJ_ROWS), ATT_THREADS, sa, stream>>>(
+      x, pp, 2, kv, T, D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  const size_t sb = last_smem_bytes(T, D);
+  e = cudaFuncSetAttribute(last_attn_tail_kernel<Tin>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sb);
+  if (e != cudaSuccess) return e;
+  last_attn_tail_kernel<Tin><<<(B + LR - 1) / LR, ATT_THREADS, sb, stream>>>(
+      x, lens, kv, out, p, B, T, D, H, I, act, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// x: [B, T, D] fp32 (bf16 == 0) or bf16; lens: [B] int32 non-PAD counts;
+// out: [B, D] in x's type; params: 16 device pointers (BlockParams
+// order); kv: [B, T, 2D] fp32 scratch; act: attn_common.cuh act_fwd id;
+// scale: 1 / sqrt(D / H); device: the card that holds them.
+int recblr_block_last_fwd(const void* x, const void* lens, void* out,
+                          const void* const* params, void* kv, int B, int T, int D, int H,
+                          int I, int act, float scale, int bf16, int device, void* stream) {
+  // this library has its own (static) CUDA runtime: select the tensors' card
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const BlockParams p = unpack_block_params(params);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* l = static_cast<const int*>(lens);
+  float* k = static_cast<float*>(kv);
+  if (bf16)
+    return block_last_fwd(static_cast<const __nv_bfloat16*>(x), l,
+                          static_cast<__nv_bfloat16*>(out), p, k, B, T, D, H, I, act, scale, s);
+  return block_last_fwd(static_cast<const float*>(x), l, static_cast<float*>(out), p, k, B, T,
+                        D, H, I, act, scale, s);
+}
+
+const char* recblr_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

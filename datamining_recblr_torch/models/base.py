@@ -115,8 +115,8 @@ class SequentialModel(nn.Module):
                            torch.full((), value, dtype=logits.dtype, device=logits.device))
 
     def full_sort_scores(self, item_seq, item_seq_len):
-        """[B, n_items_padded] fp32 scores against the whole catalog;
-        padded vocab columns are -inf.  The operands are rounded to the
+        """[B, n_items_padded] fp32 scores against the whole catalog
+        (BERT4Rec's ``_logits``: [B, n_items]); padded vocab columns are -inf.  The operands are rounded to the
         compute dtype and multiplied in fp32, as the JAX package's
         ``preferred_element_type=f32`` product."""
         seq_output = self.forward(item_seq, item_seq_len)
@@ -145,9 +145,12 @@ class SequentialModel(nn.Module):
 
 def get_model(name: str):
     """Registry lookup by full name or the entry scripts' one-letter alias."""
+    from datamining_recblr_torch.models.bert4rec import BERT4Rec
     from datamining_recblr_torch.models.recblr import RecBLR
+    from datamining_recblr_torch.models.sasrec import SASRec
 
-    registry = {"RecBLR": RecBLR, "R": RecBLR}
+    registry = {"RecBLR": RecBLR, "R": RecBLR, "SASRec": SASRec, "S": SASRec,
+                "BERT4Rec": BERT4Rec, "B": BERT4Rec}
     if name not in registry:
         raise KeyError(f"Model {name!r} is not ported; known: {sorted(registry)}")
     return registry[name]

@@ -1,5 +1,7 @@
-"""Shared building blocks of the RecBLR model (counterparts of the RecBLR
-pieces of ``datamining_recblr_tpu/models/layers.py``).
+"""Shared building blocks of the models (counterpart of
+``datamining_recblr_tpu/models/layers.py``): init helpers, dense, LN,
+dropout and the last-position gather, and the post-LN transformer
+encoder of SASRec and BERT4Rec with its two compositions.
 
 Weights are ``[in, out]`` and applied as ``x @ w``; linear and embedding
 weights ~ N(0, 0.02), biases zero, LayerNorm scale 1 and bias 0.
@@ -7,9 +9,19 @@ weights ~ N(0, 0.02), biases zero, LayerNorm scale 1 and bias 0.
 
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from datamining_recblr_torch.ops import fused_block as FB
 from datamining_recblr_torch.ops import philox
+from datamining_recblr_torch.ops.fused_layer import (
+    MAX_LN_D,
+    fused_ln_dropout,
+    no_attention_dropout,
+)
 
 LN_EPS = 1e-12
 INIT_STD = 0.02
@@ -66,3 +78,166 @@ def gather_last(x, seq_len):
     to [0, T-1] (RecBole's ``gather_indexes``)."""
     idx = (seq_len.long() - 1).clamp(0, x.shape[1] - 1)
     return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+def param_tree(tree):
+    """Nested dict of tensors -> ParameterDict / ModuleDict (a list of
+    such dicts -> ModuleList), so that state_dict keys are the JAX tree's
+    paths."""
+    if isinstance(tree, (list, tuple)):
+        return nn.ModuleList([param_tree(v) for v in tree])
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
+    return nn.ModuleDict({k: param_tree(v) for k, v in tree.items()})
+
+
+# ---------------------------------------------------------------------------
+# Transformer encoder (RecBole's TransformerEncoder, which both attention
+# baselines delegate to): post-LN blocks, additive -10000 attention mask.
+# ---------------------------------------------------------------------------
+
+_ACTIVATIONS = {
+    # jax.nn.gelu defaults to the tanh form; torch's to erf
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+}
+
+
+def activation(name):
+    return _ACTIVATIONS[name]
+
+
+def transformer_encoder_init(generator, n_layers, n_heads, hidden_size, inner_size,
+                             dtype=torch.float32):
+    del n_heads  # the head count only shapes the forward
+    return [
+        {
+            "q": dense_init(generator, hidden_size, hidden_size, dtype),
+            "k": dense_init(generator, hidden_size, hidden_size, dtype),
+            "v": dense_init(generator, hidden_size, hidden_size, dtype),
+            "attn_out": dense_init(generator, hidden_size, hidden_size, dtype),
+            "attn_ln": layer_norm_init(hidden_size, dtype),
+            "ffn_1": dense_init(generator, hidden_size, inner_size, dtype),
+            "ffn_2": dense_init(generator, inner_size, hidden_size, dtype),
+            "ffn_ln": layer_norm_init(hidden_size, dtype),
+        }
+        for _ in range(n_layers)
+    ]
+
+
+# None: the fused composition wherever fused_block.supports passes, on any
+# device (on the CPU through the kernels' plain versions); tests set False
+# for the unfused composition, which the JAX package runs off the TPU
+FORCE_FUSED_ATTENTION = None
+
+
+def _use_fused_attention():
+    return True if FORCE_FUSED_ATTENTION is None else bool(FORCE_FUSED_ATTENTION)
+
+
+def prologue_ln_dropout(ln_params, x, dropout_p=0.0, pos=None):
+    """LN(x + pos), the attention baselines' embedding prologue (``pos``
+    the [T, D] positional table), at dropout 0.  The fused composition
+    (D <= 512) runs ``fused_ln_dropout`` and adds pos in fp32; the unfused
+    one adds ``pos`` in x's dtype first, as the JAX package does."""
+    no_attention_dropout(dropout_p)
+    if _use_fused_attention() and x.shape[-1] <= MAX_LN_D:
+        if pos is None:
+            pos = torch.zeros(x.shape[1:], device=x.device)
+        return fused_ln_dropout(x, pos.float().contiguous(),
+                                ln_params["scale"].float().contiguous(),
+                                ln_params["bias"].float().contiguous())
+    if pos is not None:
+        x = x + pos.to(x.dtype)
+    return layer_norm(ln_params, x)
+
+
+def _multi_head_attention(p, x, attn_mask, n_heads):
+    """Unfused attention block: LN(attn(x) W_o + b_o + x)."""
+    b, t, h = x.shape
+    dh = h // n_heads
+
+    def split_heads(y):
+        return y.reshape(b, t, n_heads, dh).transpose(1, 2)
+
+    q, k, v = (split_heads(dense(p[n], x)) for n in ("q", "k", "v"))
+    scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(dh) + attn_mask
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    dt = torch.promote_types(probs.dtype, v.dtype)
+    ctx = (probs.to(dt) @ v.to(dt)).to(x.dtype).transpose(1, 2).reshape(b, t, h)
+    return layer_norm(p["attn_ln"], dense(p["attn_out"], ctx) + x)
+
+
+def flat_block_params(layer):
+    """One encoder layer's parameters under the fused kernels' names, fp32
+    (the parameters themselves where they are fp32 already)."""
+    f32 = lambda a: a.float().contiguous()  # noqa: E731
+    names = {"q": "q", "k": "k", "v": "v", "o": "attn_out"}
+    flat = {}
+    for short, name in names.items():
+        flat[f"w_{short}"] = f32(layer[name]["w"])
+        flat[f"b_{short}"] = f32(layer[name]["b"])
+    flat.update(
+        ln1_s=f32(layer["attn_ln"]["scale"]), ln1_b=f32(layer["attn_ln"]["bias"]),
+        w1=f32(layer["ffn_1"]["w"]), b1=f32(layer["ffn_1"]["b"]),
+        w2=f32(layer["ffn_2"]["w"]), b2=f32(layer["ffn_2"]["b"]),
+        ln2_s=f32(layer["ffn_ln"]["scale"]), ln2_b=f32(layer["ffn_ln"]["bias"]),
+    )
+    return flat
+
+
+def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu",
+                              dropout_p=0.0, lens=None, causal=None, last_only=False):
+    """The post-LN transformer stack at dropout 0.
+
+    With ``lens`` (non-PAD counts) and ``causal`` given and the fused
+    composition chosen (``FORCE_FUSED_ATTENTION``), each layer runs
+    ``fused_transformer_layer`` where ``fused_block.supports`` passes;
+    with ``last_only`` the top layer runs ``fused_transformer_layer_last``
+    and [B, D] comes back, which the caller must not gather again.  On a
+    CUDA tensor a shape that ``supports`` rejects raises: the JAX package
+    runs its fused attention kernel there (queue B row 15, not ported).
+    Otherwise the unfused composition runs and returns [B, T, D];
+    ``attn_mask`` is its [B, 1, T, T] additive mask, or a function that
+    builds it (called only then)."""
+    no_attention_dropout(dropout_p)
+    if lens is not None and causal is not None and _use_fused_attention():
+        b, t, h = x.shape
+        inner = layers[0]["ffn_1"]["w"].shape[1]
+        if FB.supports(h, n_heads, inner, t, hidden_act):
+            for li, p in enumerate(layers):
+                fp = flat_block_params(p)
+                if last_only and li == len(layers) - 1:
+                    return FB.fused_transformer_layer_last(x, lens, fp, n_heads, hidden_act)
+                x = FB.fused_transformer_layer(x, lens, fp, bool(causal), n_heads, hidden_act)
+            return x
+        if x.device.type == "cuda":
+            raise NotImplementedError(
+                f"the fused transformer layer does not take D={h}, heads={n_heads}, "
+                f"inner={inner}, T={t}, act={hidden_act}; the JAX package runs its "
+                "fused_attention kernel there, which is not ported yet (ROADMAP.md "
+                "queue B row 15)")
+    if callable(attn_mask):
+        attn_mask = attn_mask()
+    act = activation(hidden_act)
+    for p in layers:
+        x = _multi_head_attention(p, x, attn_mask, n_heads)
+        y = dense(p["ffn_2"], act(dense(p["ffn_1"], x)))
+        x = layer_norm(p["ffn_ln"], y + x)
+    return x
+
+
+def attention_mask(item_seq, bidirectional=False):
+    """Additive attention mask [B, 1, T, T]: 0 to attend, -10000 where the
+    key is PAD or, unless bidirectional, in the future."""
+    t = item_seq.shape[1]
+    keep = (item_seq != 0)[:, None, None, :]
+    if not bidirectional:
+        keep = keep & torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                            device=item_seq.device))[None, None]
+    keep = keep.expand(item_seq.shape[0], 1, t, t)
+    return torch.where(keep, 0.0, -10000.0).to(torch.float32)

@@ -62,13 +62,6 @@ def lambda_init(hidden: int, r_min: float = 0.9, r_max: float = 0.999):
     return torch.linspace(lo, hi, hidden, dtype=torch.float32)
 
 
-def _params(tree):
-    """Nested dict of tensors -> ParameterDict / ModuleDict."""
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
-    return nn.ModuleDict({k: _params(v) for k, v in tree.items()})
-
-
 def _last_index(lens, t):
     # JAX's take_along_axis wraps a negative index, so length 0 reads
     # position T-1 on the unfused path
@@ -103,7 +96,7 @@ class RecBLR(SequentialModel):
         emb = L.normal_init(gen, (self.n_items_padded, d), dtype=dt)
         emb[0] = 0.0  # padding_idx = 0
         self.item_embedding = nn.Parameter(emb)
-        self.input_ln = _params(L.layer_norm_init(d, dt))
+        self.input_ln = L.param_tree(L.layer_norm_init(d, dt))
         conv_bound = 1.0 / math.sqrt(k)
 
         def uniform(shape):
@@ -129,7 +122,7 @@ class RecBLR(SequentialModel):
                     "w2": L.dense_init(gen, 4 * d, d, dtype=dt),
                     "ln": L.layer_norm_init(d, dt),
                 }
-            layers.append(_params(layer))
+            layers.append(L.param_tree(layer))
         self.layers = nn.ModuleList(layers)
 
     # ------------------------------------------------------------------

@@ -27,7 +27,11 @@ Four kernels:
   ``_last_bwd_kernel`` (``:844``, via ``_layer_last_bwd``);
   ``csrc/fused_layer_last_bwd.cu``.
 
-All four are bound by fp32 operations at the bench shape; the sources'
+Beside them, ``fused_ln_dropout`` (LN(x + pos), the attention baselines'
+embedding prologue, at dropout 0) replaces ``_ln_dropout_fwd_kernel``
+(``:1292``, via ``_ln_dropout_fwd`` :1332); ``csrc/ln_dropout.cu``.
+
+The four layer kernels are bound by fp32 operations at the bench shape; the sources'
 head comments say what each design does about it.  Dropout masks are
 Philox draws keyed by the call's seed (``ops/philox.py``), the same bits
 in a kernel, its backward and the plain versions.  A training forward
@@ -572,3 +576,64 @@ def fused_recurrent_layer_last(x, lens, params, use_conv=True, use_ffn=True,
 
 fused_recurrent_layer.launches = 0
 fused_recurrent_layer_last.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# LN(x + pos): the attention baselines' embedding prologue
+# ---------------------------------------------------------------------------
+
+MAX_LN_D = 512  # the prologue is fused for D <= 512 (models/layers.py)
+
+
+def no_attention_dropout(dropout_p):
+    """The attention baselines' kernels and their plain versions take
+    dropout 0 only, until their backwards are ported."""
+    if dropout_p:
+        raise NotImplementedError(
+            "dropout in the attention baselines' prologue and transformer layers is "
+            "not ported yet; it lands with their backwards (ROADMAP.md queue A item 3)")
+
+
+def fused_ln_dropout_plain(x, pos, scale, bias, dropout_p=0.0):
+    """Plain PyTorch version of ``fused_ln_dropout``: LN(x + pos) over D,
+    pos [T, D] added in fp32, returned in x's dtype."""
+    no_attention_dropout(dropout_p)
+    return _ln(x.float() + pos.float(), scale, bias).to(x.dtype)
+
+
+def fused_ln_dropout(x, pos, scale, bias, dropout_p=0.0):
+    """LN(x + pos) with eps 1e-12, the embedding prologue of SASRec and
+    BERT4Rec (``fused_layer.py:fused_ln_dropout`` of the JAX package at
+    dropout 0).  x: [B, T, D] fp32 or bf16; pos [T, D], scale and bias [D]
+    fp32.  Returns [B, T, D] in x's dtype."""
+    if x.device.type == "cpu":
+        return fused_ln_dropout_plain(x, pos, scale, bias, dropout_p)
+    _require_cuda(x)
+    no_attention_dropout(dropout_p)
+    if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16) \
+            or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous float32 or bfloat16 [B, T, D], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    b, t, d = x.shape
+    if d > MAX_LN_D:
+        raise ValueError(f"unsupported shape D={d}: the kernel takes D <= {MAX_LN_D}")
+    for name, v, shape in (("pos", pos, (t, d)), ("scale", scale, (d,)),
+                           ("bias", bias, (d,))):
+        if v.dtype != torch.float32 or not v.is_contiguous() \
+                or v.device != x.device or tuple(v.shape) != shape:
+            raise ValueError(f"{name}: want contiguous float32 {shape} on {x.device}, "
+                             f"got {v.dtype} {tuple(v.shape)} on {v.device}")
+    lib = _cuda.library("ln_dropout.cu")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.recblr_ln_pos_fwd(
+            x.data_ptr(), pos.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, t, d, int(x.dtype == torch.bfloat16), x.device.index,
+            _stream(x),
+        )
+    _cuda.check(lib, err, "fused_ln_dropout")
+    fused_ln_dropout.launches += 1
+    return out
+
+
+fused_ln_dropout.launches = 0

@@ -2,9 +2,11 @@
 of ``datamining_recblr_tpu/serve.py``).
 
 One ``recommend`` call builds the [B, T] window batch on the host, runs
-``full_sort_scores`` (on the card: one launch of each fused layer
-kernel, then the fp32 scoring product), masks PAD, padded vocab and
-each user's history to -inf, and takes the top k."""
+``full_sort_scores`` (on the card: one launch of each of the model's
+fused kernels, then the fp32 scoring product), masks PAD, padded vocab
+and each user's history to -inf, and takes the top k.  The history mask
+is cut to the scores' width: BERT4Rec scores [B, n_items], the others
+[B, n_items_padded]."""
 
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ class Recommender:
             scores = model.full_sort_scores(
                 torch.from_numpy(seq).to(dev), torch.from_numpy(lens).to(dev)
             )
-            scores = mask_scores(scores, history=torch.from_numpy(hist).to(dev))
+            history = torch.from_numpy(hist[:, : scores.shape[-1]]).to(dev)
+            scores = mask_scores(scores, history=history)
             vals, ids = topk_scores(scores, self.top_k)
         return ids.to(torch.int32).cpu().numpy(), vals.cpu().numpy()

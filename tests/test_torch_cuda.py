@@ -288,3 +288,165 @@ def test_train_step_through_kernels_matches_plain(dev):
     assert abs(float(loss.detach()) - float(want.detach())) <= 1e-4 * abs(float(want.detach()))
     for k, v in model.named_parameters():
         assert float((got[k] - v.grad).abs().max()) <= GRAD_RTOL * float(v.grad.abs().max()), k
+
+
+# ---------------------------------------------------------------------------
+# the attention baselines' kernels: LN prologue and transformer layers
+# ---------------------------------------------------------------------------
+
+def _assert_attn_close(got, want, dtype):
+    """fp32 as TOL.  bf16: one bf16 ulp of the value plus 2^-9 of the
+    largest value.  Both sides round every matmul operand to bf16, and an
+    fp32 sum taken in another order can send an operand to the other bf16
+    neighbour: one FFN activation near 1 moves by 2^-7, times a weight,
+    which shifts an output by a share of the layer's scale, not of the
+    output's own size (7.5e-4 of the largest value on an H100)."""
+    if dtype == "float32":
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+        return
+    atol = 2.0 ** -9 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=2.0 ** -7)
+
+
+def _block_params(rng, d, inner, dev):
+    def r(*s, std=0.1):
+        return torch.from_numpy((std * rng.standard_normal(s)).astype(np.float32)).to(dev)
+
+    p = {}
+    for n in "qkvo":
+        p[f"w_{n}"], p[f"b_{n}"] = r(d, d), r(d)
+    p.update(ln1_s=1.0 + r(d), ln1_b=r(d), w1=r(d, inner), b1=r(inner), w2=r(inner, d),
+             b2=r(d), ln2_s=1.0 + r(d), ln2_b=r(d))
+    return p
+
+
+# (D, heads, inner): the serving widths, then a narrow one with 3 heads of
+# 16 and an FFN of more than one 256-column chunk
+BLOCK_SHAPES = [(64, 2, 256), (48, 3, 320)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,heads,inner", BLOCK_SHAPES)
+def test_block_kernel_matches_plain(dev, d, heads, inner, causal, act, dtype):
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(10)
+    p = _block_params(rng, d, inner, dev)
+    t = 45
+    x = torch.from_numpy(rng.standard_normal((6, t, d)).astype(np.float32))
+    x = x.to(dev, getattr(torch, dtype))
+    lens = torch.tensor([0, 1, t, 17, 32, 40], device=dev)
+    before = FB.fused_transformer_layer.launches
+    got = FB.fused_transformer_layer(x, lens, p, causal, heads, act)
+    assert FB.fused_transformer_layer.launches == before + 1
+    want = FB.fused_transformer_layer_plain(x, lens, p, causal, heads, act)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["gelu", "silu"])
+@pytest.mark.parametrize("d,heads,inner", BLOCK_SHAPES)
+def test_block_last_kernel_matches_plain(dev, d, heads, inner, act, dtype):
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(11)
+    p = _block_params(rng, d, inner, dev)
+    t = 45
+    x = torch.from_numpy(rng.standard_normal((6, t, d)).astype(np.float32))
+    x = x.to(dev, getattr(torch, dtype))
+    lens = torch.tensor([0, 1, t, 17, 32, t + 3], device=dev)  # 0, t + 3 select nothing
+    before = FB.fused_transformer_layer_last.launches
+    got = FB.fused_transformer_layer_last(x, lens, p, heads, act)
+    assert FB.fused_transformer_layer_last.launches == before + 1
+    want = FB.fused_transformer_layer_last_plain(x, lens, p, heads, act)
+    assert got.dtype == x.dtype and got.shape == (6, d)
+    _assert_attn_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_kernels_at_the_largest_supported_shape(dev, dtype):
+    """D 128, 4 heads, FFN 2048 (eight 256-column chunks), T 1024: the
+    layer's query tile shrinks to 16 rows to fit shared memory."""
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(15)
+    d, heads, inner, t = 128, 4, 2048, 1024
+    p = _block_params(rng, d, inner, dev)
+    x = torch.from_numpy(rng.standard_normal((2, t, d)).astype(np.float32))
+    x = x.to(dev, getattr(torch, dtype))
+    lens = torch.tensor([0, 1000], device=dev)
+    for causal in (True, False):
+        got = FB.fused_transformer_layer(x, lens, p, causal, heads)
+        _assert_attn_close(got, FB.fused_transformer_layer_plain(x, lens, p, causal, heads),
+                           dtype)
+    got = FB.fused_transformer_layer_last(x, lens, p, heads)
+    _assert_attn_close(got, FB.fused_transformer_layer_last_plain(x, lens, p, heads), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 48, 512])
+def test_ln_prologue_kernel_matches_plain(dev, d, dtype):
+    rng = np.random.default_rng(12)
+    t = 45
+    x = torch.from_numpy((2 * rng.standard_normal((6, t, d)) + 1).astype(np.float32))
+    x = x.to(dev, getattr(torch, dtype))
+    pos, s, b = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                 for shape in ((t, d), (d,), (d,)))
+    before = FL.fused_ln_dropout.launches
+    got = FL.fused_ln_dropout(x, pos, s, b)
+    assert FL.fused_ln_dropout.launches == before + 1
+    want = FL.fused_ln_dropout_plain(x, pos, s, b)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    _assert_attn_close(got, want, dtype)
+
+
+def test_attention_wrappers_reject_what_they_do_not_take(dev):
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(13)
+    p = _block_params(rng, 64, 256, dev)
+    x = torch.zeros((2, 16, 64), device=dev)
+    lens = torch.tensor([3, 16], device=dev)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        FB.fused_transformer_layer(x, lens, p, True, 2, dropout_p=0.2)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        FB.fused_transformer_layer_last(x, lens, p, 2, dropout_p=0.2)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        FL.fused_ln_dropout(x, x[0], p["ln1_s"], p["ln1_b"], dropout_p=0.2)
+    with pytest.raises(ValueError, match="row 15"):
+        FB.fused_transformer_layer(x, lens, p, True, 3)  # D % heads != 0
+    with pytest.raises(ValueError, match="row 15"):
+        FB.fused_transformer_layer_last(x, lens, p, 2, act="mish")
+    with pytest.raises(ValueError, match="contiguous"):
+        FB.fused_transformer_layer(x.transpose(0, 1), lens, p, True, 2)
+    with pytest.raises(ValueError, match="param w_q"):
+        FB.fused_transformer_layer(x, lens, dict(p, w_q=p["w_q"].cpu()), True, 2)
+    with pytest.raises(ValueError, match="lens"):
+        FB.fused_transformer_layer_last(x, lens.cpu(), p, 2)
+    with pytest.raises(ValueError, match="pos"):
+        FL.fused_ln_dropout(x, x[0, :8], p["ln1_s"], p["ln1_b"])
+
+
+@pytest.mark.parametrize("name", ["SASRec", "BERT4Rec"])
+def test_baseline_serving_on_card_matches_cpu(dev, name):
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    cfg = Config(model=name, config_dict={"MAX_ITEM_LIST_LENGTH": 40})
+    cpu = get_model(name)(cfg, 300, 40, device="cpu")
+    card = get_model(name)(cfg, 300, 40, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(14)
+    seqs = [[], [7], list(rng.integers(1, 300, 55)), list(rng.integers(1, 300, 12))]
+    counted = (FL.fused_ln_dropout, FB.fused_transformer_layer,
+               FB.fused_transformer_layer_last)
+    before = [f.launches for f in counted]
+    ids, vals = Recommender(card, top_k=10).recommend(seqs)
+    assert [f.launches - n for f, n in zip(counted, before)] == [1, 1, 1]
+    want_ids, want_vals = Recommender(cpu, top_k=10).recommend(seqs)
+    np.testing.assert_allclose(vals, want_vals, atol=1e-4, rtol=1e-4)
+    for i, j in zip(*np.nonzero(ids != want_ids)):
+        row = dict(zip(want_ids[i].tolist(), want_vals[i].tolist()))
+        assert abs(row.get(int(ids[i, j]), want_vals[i, -1]) - want_vals[i, j]) <= 1e-4

@@ -22,8 +22,12 @@ MODULES = [
     "datamining_recblr_torch.interop",
     "datamining_recblr_torch.serve",
     "datamining_recblr_torch.models.recblr",
+    "datamining_recblr_torch.models.sasrec",
+    "datamining_recblr_torch.models.bert4rec",
+    "datamining_recblr_torch.models.layers",
     "datamining_recblr_torch.ops._cuda",
     "datamining_recblr_torch.ops.fused_layer",
+    "datamining_recblr_torch.ops.fused_block",
     "datamining_recblr_torch.ops.philox",
     "datamining_recblr_torch.ops.topk",
     "datamining_recblr_torch.models.base",
@@ -102,9 +106,24 @@ def test_cpu_serving_launches_no_kernel():
     assert before == after
 
 
+@pytest.mark.parametrize("name", ["SASRec", "BERT4Rec"])
+def test_cpu_baseline_serving_launches_no_kernel(name):
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    counted = (FL.fused_ln_dropout, FB.fused_transformer_layer,
+               FB.fused_transformer_layer_last)
+    before = [f.launches for f in counted]
+    cfg = Config(model=name, config_dict={"hidden_size": 16, "inner_size": 32,
+                                          "MAX_ITEM_LIST_LENGTH": 8})
+    model = get_model(name)(cfg, 20, 8, device="cpu")
+    ids, vals = Recommender(model, top_k=3).recommend([[1, 2], [], list(range(1, 15))])
+    assert ids.shape == (3, 3) and torch.isfinite(torch.from_numpy(vals)).all()
+    assert [f.launches for f in counted] == before
+
+
 def test_unknown_model_is_not_ported():
     with pytest.raises(KeyError, match="not ported"):
-        get_model("SASRec")
+        get_model("GRU4Rec")
 
 
 def test_kernel_sources_ship_with_the_package():
