@@ -3,28 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's seven CUDA kernels from ``datamining_recblr_torch/csrc``
+Builds the port's ten CUDA kernels from ``datamining_recblr_torch/csrc``
 (both fused recurrent layers of RecBLR, forward and backward; the
-attention baselines' LN prologue and both transformer-layer forwards)
-and, phase by phase:
+attention baselines' LN prologue and both transformer layers, forward
+and backward) and, phase by phase:
 
 * holds each kernel against its plain PyTorch version at B 256, T 200:
   the RecBLR forwards at dropout 0 (serving), then every RecBLR kernel's
   output and gradients against autograd of the plain versions, fp32 and
   bf16, at dropout 0 and 0.2, and the kernels' dropout mask bit for bit;
-  then the three attention kernels, fp32 and bf16, causal and
-  bidirectional, two activations, lengths 0, 1 and T;
+  then the three attention forwards, fp32 and bf16, causal and
+  bidirectional, two activations, lengths 0, 1 and T; then their
+  outputs, dx, dpos and every weight grad against autograd of the plain
+  versions at dropout 0 and 0.5, and each of their masks bit for bit;
 * serves RecBLR, SASRec and BERT4Rec at full width (hidden 64, 2 layers,
   T 200, V 3,417; 2 heads and an FFN of 256 for the baselines) through
   ``Recommender.recommend`` against the same model through the plain
   versions, with one launch of each of the model's kernels per call,
   and times it;
-* trains RecBLR at the bench.py shape (batch 2,048, dropout 0.2, CE,
-  Adam, fp32 and bf16 compute): one launch of each of the four kernels
-  per step, one step against the same step through the plain versions,
-  the step time and a profile;
-* runs ``Trainer.fit`` and ``evaluate(load_best=True)`` on a small
-  Markov dataset: the loss falls and valid NDCG@10 is above 0;
+* trains RecBLR (dropout 0.2) and SASRec (dropout 0.5 / 0.5) at the
+  bench.py shape (batch 2,048, CE, Adam, fp32 and bf16 compute): one
+  launch of each of the model's kernels per step, one step against the
+  same step through the plain versions, the step time and a profile;
+* runs ``Trainer.fit`` and ``evaluate(load_best=True)`` for both on a
+  small Markov dataset: the loss falls and valid NDCG@10 is above 0;
 * times every kernel beside its bound, its plain version and, where one
   PyTorch call computes the same function, that call.
 
@@ -81,6 +83,10 @@ LAUNCH_COUNTED = (FL.fused_recurrent_layer, FL.fused_recurrent_layer_last,
 # per recommend()
 ATTN_COUNTED = (FL.fused_ln_dropout, FB.fused_transformer_layer,
                 FB.fused_transformer_layer_last)
+# SASRec's training step: those three and their backwards
+SAS_COUNTED = ATTN_COUNTED + (FL.fused_ln_dropout_bwd, FB.fused_transformer_layer_bwd,
+                              FB.fused_transformer_layer_last_bwd)
+SAS_DROPOUT = 0.5  # SASRec's hidden_dropout_prob and attn_dropout_prob
 
 
 class SmokeFailure(RuntimeError):
@@ -186,11 +192,12 @@ def _kept_keys(lens, t):
     return torch.where(n == 0, torch.full_like(n, t), n)
 
 
-def block_bound_ms(lens, t, causal, p, act_bytes):
+def block_bound_ms(lens, t, causal, p, act_bytes, stash=False):
     # QKV, W_o and the FFN at every position; QK^T and P.V (4D per pair
     # over all heads) only for the query-key pairs whose probability this
     # data can make non-zero: keys below the length, and not after the
-    # query when causal
+    # query when causal.  A training forward also writes q/k/v and the
+    # context (4D fp32 per position).
     n = _kept_keys(lens, t).double()
     if causal:
         pairs = torch.where(lens.clamp(0, t) == 0, n * t, n * (n + 1) / 2 + (t - n) * n)
@@ -198,19 +205,56 @@ def block_bound_ms(lens, t, causal, p, act_bytes):
         pairs = n * t
     b = lens.numel()
     flops = b * t * (8 * D * D + 4 * D * INNER) + 4 * D * float(pairs.sum())
-    nbytes = 2 * b * t * D * act_bytes + b * 4 + _params_bytes(p)
+    nbytes = b * t * D * (2 * act_bytes + (16 if stash else 0)) + b * 4 + _params_bytes(p)
     return _bound(flops, nbytes)
 
 
-def block_last_bound_ms(lens, t, p, act_bytes):
-    # per row: the query, W_o and the FFN once; K and V projections and
-    # QK^T, P.V at the positions its one query weighs (lengths above T
-    # select no query and weigh every key)
-    n = torch.where((lens >= 1) & (lens <= t), lens, torch.full_like(lens, t)).double()
+def block_bwd_bound_ms(lens, t, causal, p, act_bytes):
+    # about twice the forward's products (two gradient products per
+    # forward product); x, dout and dx, the kept q/k/v and context read
+    # once, the params read and their grads written
+    flops = 2 * block_bound_ms(lens, t, causal, p, act_bytes)[1]
     b = lens.numel()
-    flops = b * (4 * D * D + 4 * D * INNER) + float(n.sum()) * (4 * D * D + 4 * D)
-    nbytes = float(n.sum()) * D * act_bytes + b * D * act_bytes + b * 4 + _params_bytes(p)
+    nbytes = b * t * D * (3 * act_bytes + 16) + b * 4 + 2 * _params_bytes(p)
     return _bound(flops, nbytes)
+
+
+def _last_positions(lens, t):
+    # the positions a last-query row weighs (lengths 0 or above T select no
+    # query and weigh every key)
+    return torch.where((lens >= 1) & (lens <= t), lens, torch.full_like(lens, t)).double()
+
+
+def block_last_bound_ms(lens, t, p, act_bytes, stash=False):
+    # per row: the query, W_o and the FFN once; K and V projections and
+    # QK^T, P.V at the positions its one query weighs.  A training forward
+    # also writes k/v there (2D fp32) and the [B, D] context.
+    n = float(_last_positions(lens, t).sum())
+    b = lens.numel()
+    flops = b * (4 * D * D + 4 * D * INNER) + n * (4 * D * D + 4 * D)
+    nbytes = n * D * act_bytes + b * D * act_bytes + b * 4 + _params_bytes(p)
+    if stash:
+        nbytes += n * 2 * D * 4 + b * D * 4
+    return _bound(flops, nbytes)
+
+
+def block_last_bwd_bound_ms(lens, t, p, act_bytes):
+    # twice the forward's products; x and the kept k/v at the weighed
+    # positions, dout and the context per row read, dx [B, T, D] written
+    # in full, the params read and their grads written
+    flops = 2 * block_last_bound_ms(lens, t, p, act_bytes)[1]
+    n = float(_last_positions(lens, t).sum())
+    b = lens.numel()
+    nbytes = (n * D * (act_bytes + 8) + b * t * D * act_bytes + b * D * (act_bytes + 4)
+              + b * 4 + 2 * _params_bytes(p))
+    return _bound(flops, nbytes)
+
+
+def ln_bwd_bound_ms(b, act_bytes):
+    # x, dout read and dx written once; pos read and dpos written; about
+    # 16 operations per element (the LN recomputed and its backward)
+    nbytes = 3 * b * T * D * act_bytes + 2 * T * D * 4 + 4 * D * 4
+    return _bound(16 * b * T * D, nbytes)
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -417,15 +461,20 @@ def mask_bits(dev):
     return flips
 
 
-def _attn_ok(got, want, dtype):
-    """(max |kernel - plain|, ok): fp32 within 1e-4 of the largest plain
-    value; bf16 within one bf16 ulp of the value plus ATTN_BF16_ABS of it."""
+def _attn_ok(got, want, dtype, floor=0.0):
+    """(max |kernel - plain|, ok) of an attention kernel's output or
+    gradient: fp32 within GRAD_RTOL (1e-4) of the largest plain value;
+    bf16 within one bf16 ulp of the value plus ATTN_BF16_ABS of the
+    largest (an operand rounded to the other bf16 neighbour).  The
+    absolute tolerance is at least ``floor`` (b_k's gradient is zero up
+    to rounding: the softmax ignores a shift that every key shares)."""
     g, w = got.float(), want.float()
     scale = float(w.abs().max())
-    err = float((g - w).abs().max())
+    diff = (g - w).abs()
+    err = float(diff.max())
     if dtype == torch.float32:
-        return err, err <= 1e-4 * scale
-    return err, bool(((g - w).abs() <= BF16_RTOL * w.abs() + ATTN_BF16_ABS * scale).all())
+        return err, err <= max(GRAD_RTOL * scale, floor)
+    return err, bool((diff <= BF16_RTOL * w.abs() + max(ATTN_BF16_ABS * scale, floor)).all())
 
 
 def attn_kernels_vs_plain(dev):
@@ -471,6 +520,146 @@ def attn_kernels_vs_plain(dev):
     return errs
 
 
+def attn_train_kernels_vs_plain(dev):
+    """The attention kernels' training forwards and backwards against
+    autograd of their plain versions at B = 256, T = 200, fp32 and bf16,
+    p = 0 and 0.5, lengths with 0, 1 and T: the prologue (dx, dpos,
+    dscale, dbias), the layer causal and bidirectional, the last-query
+    layer.  Returns the largest fp32 |kernel - plain| of each forward
+    (output) and backward (dx and every grad)."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    p = block_params(gen, dev)
+    x = torch.randn((B, T, D), generator=gen).to(dev)
+    pos = (0.5 * torch.randn((T, D), generator=gen)).to(dev)
+    lens = serving_lens(gen, B).to(dev)
+    d3 = torch.randn((B, T, D), generator=gen).to(dev)
+    d2 = torch.randn((B, D), generator=gen).to(dev)
+    lp = {"pos": pos, "scale": p["ln1_s"], "bias": p["ln1_b"]}
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for pd in (0.0, SAS_DROPOUT):
+            xd, dout3, dout2 = x.to(dt), d3.to(dt), d2.to(dt)
+            seed = 7654321 + int(pd * 10)
+            drop = (pd, pd, seed)
+            cases = []
+            xl = xd.clone().requires_grad_()
+            ql = {k: v.clone().requires_grad_() for k, v in lp.items()}
+            out = FL.fused_ln_dropout(xl, ql["pos"], ql["scale"], ql["bias"], pd, seed)
+            out.backward(dout3)
+            cases.append(("fused_ln_dropout", "", out.detach(), xl.grad,
+                          {k: v.grad for k, v in ql.items()},
+                          _plain_vjp(lambda a, q: FL.fused_ln_dropout_plain(
+                              a, q["pos"], q["scale"], q["bias"], pd, seed), xd, lp, dout3)))
+            for causal in (True, False):
+                out, saved = FB.fused_transformer_layer_train(xd, lens, p, causal, HEADS,
+                                                               "gelu", *drop)
+                dx, g = FB.fused_transformer_layer_bwd(xd, lens, dout3, p, causal, HEADS,
+                                                       "gelu", *drop, saved=saved)
+                cases.append(("fused_transformer_layer", f"causal={causal}", out, dx, g,
+                              _plain_vjp(lambda a, q: FB.fused_transformer_layer_plain(
+                                  a, lens, q, causal, HEADS, "gelu", *drop), xd, p, dout3)))
+            out, saved = FB.fused_transformer_layer_last_train(xd, lens, p, HEADS, "gelu", *drop)
+            dx, g = FB.fused_transformer_layer_last_bwd(xd, lens, dout2, p, HEADS, "gelu", *drop,
+                                                        saved=saved)
+            cases.append(("fused_transformer_layer_last", "", out, dx, g,
+                          _plain_vjp(lambda a, q: FB.fused_transformer_layer_last_plain(
+                              a, lens, q, HEADS, "gelu", *drop), xd, p, dout2)))
+            torch.cuda.synchronize()
+            tag = dict(dtype=str(dt).split(".")[-1], p=pd)
+            for name, case, out, dx, grads, (wout, wdx, wgrads) in cases:
+                check(bool(torch.isfinite(dx).all()), f"{name} bwd {tag}: non-finite dx")
+                pairs = {"out": (out, wout), "dx": (dx, wdx)}
+                pairs.update({k: (v, wgrads[k]) for k, v in grads.items()})
+                top = max(float(w.float().abs().max()) for _, w in pairs.values())
+                rows = {}
+                for k, (v, w) in pairs.items():
+                    err, ok_k = _attn_ok(v, w, dt, 1e-6 * top)
+                    rows[k] = (err / (float(w.float().abs().max()) or 1.0), ok_k)
+                ok = all(o for _, o in rows.values())
+                worst = max(rows, key=lambda k: rows[k][0] if k != "b_k" else 0.0)
+                phase("attn-train-kernel-vs-plain", kernel=name + "_bwd", case=repr(case), **tag,
+                      shape=f"B{B}xT{T}xD{D}", worst=worst, worst_rel_err=f"{rows[worst][0]:.3e}",
+                      rel_err=repr({k: float(f"{e:.2e}") for k, (e, _) in rows.items()}),
+                      tol=("max|err| <= 1e-4*max|plain|" if dt == torch.float32 else
+                           "|err| <= 2^-7*|plain| + 2^-9*max|plain|")
+                      + ", at least 1e-6*max over all grads", ok=ok)
+                check(ok, f"{name} bwd {tag} {case}: kernel disagrees with its plain version")
+                if dt == torch.float32:
+                    fwd = float((out.float() - wout.float()).abs().max())
+                    bwd = max(float((v.float() - w.float()).abs().max())
+                              for k, (v, w) in pairs.items() if k != "out")
+                    errs[name] = max(errs.get(name, 0.0), fwd)
+                    errs[name + "_bwd"] = max(errs.get(name + "_bwd", 0.0), bwd)
+    return errs
+
+
+def attn_mask_bits(dev):
+    """Each attention mask as a kernel draws it, bit for bit against the
+    plain Philox mask (``philox.dropout_mask``): the prologue's M0 from
+    its output with scale 0 and bias 1 (the output is the mask); M1
+    (after W_o) and M3 (after the FFN) from the sign of a layer output
+    whose only signal is that mask (x = 0, every weight 0, b_o or b2 one);
+    each head's probability mask from the context a training forward
+    keeps, with x[j] = e_j and v_h the identity on T = dh = 32 keys; the
+    last-query layer's at each row's position lens - 1."""
+    from datamining_recblr_torch.ops import philox
+
+    zeros = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    seed, pd = 135792468, SAS_DROPOUT
+    gen = torch.Generator().manual_seed(SEED + 9)
+    results = []
+    out = FL.fused_ln_dropout(torch.randn((B, T, D), generator=gen).to(dev), zeros(T, D),
+                              zeros(D), torch.ones(D, device=dev), pd, seed)
+    results.append(("m0 (prologue)", out != 0,
+                    philox.dropout_mask(seed, philox.M0, B, T, D, pd, dev) > 0))
+    base = {n: zeros(D, D) for n in ("w_q", "w_k", "w_v", "w_o")}
+    base.update({n: zeros(D) for n in ("b_q", "b_k", "b_v", "b_o", "ln1_b", "b2", "ln2_b")},
+                ln1_s=torch.ones(D, device=dev), ln2_s=torch.ones(D, device=dev),
+                w1=zeros(D, INNER), b1=zeros(INNER), w2=zeros(INNER, D))
+    lens = torch.full((B,), T, device=dev)
+    lens_last = serving_lens(gen, B).to(dev)
+    qpos = FB.last_positions(lens_last, T)
+    for mask_id, label, name in ((philox.M1, "m1 (after W_o)", "b_o"),
+                                 (philox.M3, "m3 (after the FFN)", "b2")):
+        pm = dict(base, **{name: torch.ones(D, device=dev)})
+        out = FB.fused_transformer_layer(zeros(B, T, D), lens, pm, True, HEADS, "gelu", pd, 0.0,
+                                         seed)
+        results.append((label, out > 0,
+                        philox.dropout_mask(seed, mask_id, B, T, D, pd, dev) > 0))
+        out = FB.fused_transformer_layer_last(zeros(B, T, D), lens_last, pm, HEADS, "gelu", pd,
+                                              0.0, seed)
+        results.append((label + " last", out > 0,
+                        philox.dropout_mask_at(seed, mask_id, qpos, D, pd) > 0))
+    dh = D // HEADS
+    tp = dh  # keys = the head width, so v_h can be the identity
+    x = torch.eye(tp, D, device=dev).expand(B, tp, D).contiguous()
+    w_v = zeros(D, D)
+    for h in range(HEADS):
+        w_v[:dh, h * dh:(h + 1) * dh] = torch.eye(dh, device=dev)
+    pm = dict(base, w_v=w_v, w_q=(0.3 * torch.randn((D, D), generator=gen)).to(dev),
+              w_k=(0.3 * torch.randn((D, D), generator=gen)).to(dev))
+    lens_p = torch.full((B,), tp, device=dev)
+    lens_pl = torch.randint(1, tp + 1, (B,), generator=gen).to(dev)
+    _, (_, ctx) = FB.fused_transformer_layer_train(x, lens_p, pm, False, HEADS, "gelu", 0.0, pd,
+                                                   seed)
+    _, (_, ctx_last) = FB.fused_transformer_layer_last_train(x, lens_pl, pm, HEADS, "gelu", 0.0,
+                                                             pd, seed)
+    valid = torch.arange(tp, device=dev)[None, :] < lens_pl[:, None]
+    qpos_p = FB.last_positions(lens_pl, tp)
+    for h in range(HEADS):
+        mid = philox.prob_mask_id(h)
+        results.append((f"probabilities head {h}", ctx[..., h * dh:(h + 1) * dh] != 0,
+                        philox.dropout_mask(seed, mid, B, tp, tp, pd, dev) > 0))
+        results.append((f"probabilities head {h} last", ctx_last[:, h * dh:(h + 1) * dh] != 0,
+                        (philox.dropout_mask_at(seed, mid, qpos_p, tp, pd) > 0) & valid))
+    torch.cuda.synchronize()
+    for label, got, want in results:
+        flips = int((got != want).sum())
+        phase("attn-mask-bits", mask=repr(label), elements=want.numel(),
+              keep_fraction=f"{float(want.float().mean()):.5f}", mismatches=flips)
+        check(flips == 0, f"{label}: {flips} mask bits differ from the plain Philox mask")
+
+
 def plain_seq_output(model, seq, lens, step=None):
     """The model's fused composition through the plain layer versions,
     with the dropout rate and seeds the model draws for ``step``."""
@@ -487,60 +676,70 @@ def plain_seq_output(model, seq, lens, step=None):
         x = FL.fused_recurrent_layer_plain(x, flat, True, True, li == 0, p_drop, seeds[li])
 
 
-def plain_baseline_output(model, seq, seq_len):
+def plain_baseline_output(model, seq, seq_len, step=None):
     """SASRec's or BERT4Rec's fused composition through the plain versions
-    of its three kernels (BERT4Rec: mask token appended, output head)."""
+    of its three kernels (BERT4Rec: mask token appended, output head),
+    with the dropout rates and seeds the model draws for ``step``."""
     bert = hasattr(model, "output_head")
     if bert:
         seq = model.reconstruct_test_seq(seq, seq_len)
     t = seq.shape[1]
+    p_hidden, p_attn, seeds = model.dropout_seeds(step)
     x = FL.fused_ln_dropout_plain(model.embed(seq).to(model.compute_dtype),
                                   model.position_embedding[:t].float(),
                                   model.input_ln["scale"].float(),
-                                  model.input_ln["bias"].float())
+                                  model.input_ln["bias"].float(), p_hidden, seeds[-1])
     lens = (seq != 0).sum(1, dtype=torch.int32)
     n = len(model.encoder)
     for li, layer in enumerate(model.encoder):
         flat = L.flat_block_params(layer)
+        drop = (p_hidden, p_attn, seeds[li])
         if li == n - 1:
             x = FB.fused_transformer_layer_last_plain(x, lens, flat, model.n_heads,
-                                                      model.hidden_act)
+                                                      model.hidden_act, *drop)
         else:
             x = FB.fused_transformer_layer_plain(x, lens, flat, model.causal, model.n_heads,
-                                                 model.hidden_act)
+                                                 model.hidden_act, *drop)
     return model.output_head(x) if bert else x
 
 
 # ---------------------------------------------------------------------------
-# training: the bench.py shape (batch 2,048, dropout 0.2, CE, Adam)
+# training: the bench.py shape (batch 2,048, CE, Adam)
 # ---------------------------------------------------------------------------
 
-def _train_config(dtype_name, **extra):
-    return Config(model="RecBLR", config_dict={
-        "MAX_ITEM_LIST_LENGTH": T, "compute_dtype": dtype_name, "dropout_prob": DROPOUT,
-        "train_batch_size": TRAIN_B, "seed": SEED, **extra})
+# per trained model: its phases' prefix, the kernels one step launches,
+# its dropout, the step's reference through the plain versions, and the
+# floor of each gradient's tolerance as a share of the largest gradient
+# (SASRec's b_k gradient is zero up to rounding)
+TRAINED = {
+    "RecBLR": ("train", LAUNCH_COUNTED, {"dropout_prob": DROPOUT}, plain_seq_output, 0.0),
+    "SASRec": ("sasrec-train", SAS_COUNTED,
+               {"hidden_dropout_prob": SAS_DROPOUT, "attn_dropout_prob": SAS_DROPOUT},
+               plain_baseline_output, 1e-6),
+}
 
 
-def _reset_launches():
-    for fn in LAUNCH_COUNTED:
-        fn.launches = 0
+def _train_config(name, dtype_name, **extra):
+    return Config(model=name, config_dict={
+        "MAX_ITEM_LIST_LENGTH": T, "compute_dtype": dtype_name, "train_batch_size": TRAIN_B,
+        "seed": SEED, **TRAINED[name][2], **extra})
 
 
-def _launches():
-    return tuple(fn.launches for fn in LAUNCH_COUNTED)
-
-
-def train_step_phase(dev, dtype_name, steps=TRAIN_STEPS):
-    """RecBLR at full width on the bench data: launches per step, one
+def train_step_phase(dev, dtype_name, name="RecBLR", steps=TRAIN_STEPS):
+    """A model at full width on the bench data: launches per step, one
     step against the same step through the plain versions, and the step
     time."""
     from datamining_recblr_torch.data.synthetic import synthetic_splits
     from datamining_recblr_torch.models.base import ce_loss
     from datamining_recblr_torch.train.trainer import Trainer
 
-    cfg = _train_config(dtype_name)
-    model = get_model("RecBLR")(cfg, N_ITEMS, T, generator=torch.Generator().manual_seed(SEED))
-    check(model.use_fused_layer() and model.dropout_prob == DROPOUT, "not the fused path")
+    prefix, counted, _, plain_output, floor = TRAINED[name]
+    cfg = _train_config(name, dtype_name)
+    model = get_model(name)(cfg, N_ITEMS, T, generator=torch.Generator().manual_seed(SEED))
+    check(_at_full_width(model), f"{name}: not the fused path at full width")
+    rates = ((model.dropout_prob,) if name == "RecBLR"
+             else (model.hidden_dropout_prob, model.attn_dropout_prob))
+    check(rates == tuple(TRAINED[name][2].values()), f"{name}: dropout {rates}")
     trainer = Trainer(cfg, model)
     train, _ = synthetic_splits(6040, N_ITEMS, T, 8192, seed=SEED)
     data = trainer.device_split(train)
@@ -556,41 +755,51 @@ def train_step_phase(dev, dtype_name, steps=TRAIN_STEPS):
     batch = batch_of(0)
     model.train()
     model.zero_grad(set_to_none=True)
-    _reset_launches()
+    for fn in counted:
+        fn.launches = 0
     loss = model.calculate_loss(batch, step=7)
     loss.backward()
     torch.cuda.synchronize()
-    launches = _launches()
+    launches = tuple(fn.launches for fn in counted)
     got = {k: v.grad.detach().clone() for k, v in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    out = plain_seq_output(model, batch["item_seq"], batch["item_seq_len"], step=7)
+    out = plain_output(model, batch["item_seq"], batch["item_seq_len"], step=7)
     want_loss = ce_loss(model._mask_padded_vocab(model._logits(out), value=-1e30),
                         batch["pos_item"], batch["weight"])
     want_loss.backward()
     want = {k: v.grad.detach() for k, v in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     tol = GRAD_RTOL if dtype_name == "float32" else BF16_RTOL
-    errs = {k: float((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-30))
+    # max |kernel - plain| over the larger of max |plain| and floor * (the
+    # largest gradient) / tol, so that ok <=> within tol of max |plain| or
+    # within floor of the largest gradient
+    top = max(float(w.abs().max()) for w in want.values())
+    errs = {k: float((got[k] - want[k]).abs().max()
+                     / max(float(want[k].abs().max()), floor * top / tol, 1e-30))
             for k in got}
     loss, want_loss = float(loss.detach()), float(want_loss.detach())
     loss_err = abs(loss - want_loss) / abs(want_loss)
     worst = max(errs, key=errs.get)
-    phase("train-step-vs-plain", dtype=dtype_name, batch=TRAIN_B, T=T, p=DROPOUT,
+    phase(f"{prefix}-step-vs-plain", dtype=dtype_name, batch=TRAIN_B, T=T,
+          p=repr(rates),
           loss=f"{loss:.6f}", plain_loss=f"{want_loss:.6f}",
           loss_rel_err=f"{loss_err:.3e}", loss_tol="1e-4",
           grad_rel_err_max=f"{errs[worst]:.3e}", worst_param=worst,
-          grad_tol=f"max|err|/max|plain| <= {tol}", params=len(errs))
-    check(np.isfinite(loss), "train loss is not finite")
-    check(loss_err <= 1e-4, "train loss disagrees with the plain step")
-    check(all(e <= tol for e in errs.values()), "gradients disagree with the plain step")
-    phase("train-launches", dtype=dtype_name, steps=1,
-          **{fn.__name__: n for fn, n in zip(LAUNCH_COUNTED, launches)})
-    check(launches == (1, 1, 1, 1), f"expected one launch of each kernel, got {launches}")
+          grad_tol=f"max|err|/max|plain| <= {tol}"
+          + (f" (at least {floor}*max over all grads)" if floor else ""), params=len(errs))
+    check(np.isfinite(loss), f"{name}: train loss is not finite")
+    check(loss_err <= 1e-4, f"{name}: train loss disagrees with the plain step")
+    check(all(e <= tol for e in errs.values()), f"{name}: gradients disagree with the plain step")
+    phase(f"{prefix}-launches", dtype=dtype_name, steps=1,
+          **{fn.__name__: n for fn, n in zip(counted, launches)})
+    check(launches == (1,) * len(counted),
+          f"{name}: expected one launch of each kernel, got {launches}")
 
     # step time: CUDA events around trainer.train_step (batch gather,
     # forward, backward, Adam), median over `steps` after a warm-up
     for s in range(3):
         trainer.train_step(batch_of(s), s)
+    torch.cuda.reset_peak_memory_stats(dev)
     times, losses = [], []
     for s in range(steps):
         b = batch_of(s + 3)
@@ -603,14 +812,15 @@ def train_step_phase(dev, dtype_name, steps=TRAIN_STEPS):
         times.append(start.elapsed_time(end))
     med = float(np.median(times))
     check(bool(torch.isfinite(torch.stack(losses)).all()), "non-finite loss in the timed steps")
-    phase("train-time", dtype=dtype_name, batch=TRAIN_B, T=T, steps=steps,
+    phase(f"{prefix}-time", dtype=dtype_name, batch=TRAIN_B, T=T, steps=steps,
           median_ms_per_step=f"{med:.3f}", examples_per_s=f"{TRAIN_B / med * 1e3:.1f}",
-          min_ms=f"{min(times):.3f}", max_ms=f"{max(times):.3f}")
-    train_profile(trainer, batch_of, dtype_name)
+          min_ms=f"{min(times):.3f}", max_ms=f"{max(times):.3f}",
+          peak_device_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f}")
+    train_profile(trainer, batch_of, dtype_name, prefix)
     return {"launches": launches, "ms": med, "loss_err": loss_err, "grad_err": errs[worst]}
 
 
-def train_profile(trainer, batch_of, dtype_name, steps=5):
+def train_profile(trainer, batch_of, dtype_name, prefix, steps=5):
     """Device time by kernel over a few train steps (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -625,15 +835,15 @@ def train_profile(trainer, batch_of, dtype_name, steps=5):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    phase("train-profile", dtype=dtype_name, steps=steps,
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    phase(f"{prefix}-profile", dtype=dtype_name, steps=steps,
           wall_ms_per_step=f"{wall_us / steps / 1e3:.3f}",
           device_ms_per_step=f"{busy_us / steps / 1e3:.3f}" if kernels else "not measured",
           device_busy_share=f"{busy_us / wall_us:.3f}" if kernels else "not measured",
           top=repr([(e.key[:48], round(e.self_device_time_total / steps, 1)) for e in top]))
 
 
-def fit_phase(dev):
+def fit_phase(dev, name="RecBLR"):
     """Trainer.fit and evaluate(load_best=True) at full model width on a
     small Markov dataset: the loss falls and valid NDCG@10 is above 0."""
     import tempfile
@@ -642,16 +852,17 @@ def fit_phase(dev):
     from datamining_recblr_torch.data.synthetic import generate_synthetic_interactions
     from datamining_recblr_torch.train.trainer import Trainer
 
+    prefix = "fit" if name == "RecBLR" else f"{name.lower()}-fit"
     t0 = time.perf_counter()
     frame = generate_synthetic_interactions(n_users=1500, n_items=400, min_len=10,
                                             max_len=60, markov_weight=0.9, n_clusters=20,
                                             seed=SEED)
     data = build_from_dataframe(frame, max_seq_len=T)
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = _train_config("float32", epochs=FIT_EPOCHS, train_batch_size=512,
+        cfg = _train_config(name, "float32", epochs=FIT_EPOCHS, train_batch_size=512,
                             checkpoint_dir=tmp, dataset="markov", stopping_step=10)
-        model = get_model("RecBLR")(cfg, data.n_items, T,
-                                    generator=torch.Generator().manual_seed(SEED))
+        model = get_model(name)(cfg, data.n_items, T,
+                                generator=torch.Generator().manual_seed(SEED))
         trainer = Trainer(cfg, model)
         best, _ = trainer.fit(data)
         test = trainer.evaluate(data.test, load_best=True)
@@ -659,14 +870,14 @@ def fit_phase(dev):
     epochs = trainer.metrics.epoch_records()
     losses = [r["train_loss"] for r in epochs]
     ndcg = [r.get("valid_ndcg@10") for r in epochs]
-    phase("fit", data=repr(data.summary()), epochs=len(epochs), batch=512,
+    phase(prefix, data=repr(data.summary()), epochs=len(epochs), batch=512,
           train_loss=repr([round(v, 4) for v in losses]), valid_ndcg10=repr(ndcg),
           best_epoch=trainer.best_epoch, test_ndcg10=f"{test['ndcg@10']:.4f}",
           checkpoint_reloaded=reloaded, seconds=f"{time.perf_counter() - t0:.1f}")
-    check(len(epochs) == FIT_EPOCHS and all(v is not None for v in ndcg), "fit: epochs")
-    check(losses[-1] < losses[0], "fit: the epoch loss did not fall")
-    check(best > 0 and test["ndcg@10"] > 0, "fit: NDCG@10 is not above 0")
-    check(reloaded, "fit: no best checkpoint was written")
+    check(len(epochs) == FIT_EPOCHS and all(v is not None for v in ndcg), f"{prefix}: epochs")
+    check(losses[-1] < losses[0], f"{prefix}: the epoch loss did not fall")
+    check(best > 0 and test["ndcg@10"] > 0, f"{prefix}: NDCG@10 is not above 0")
+    check(reloaded, f"{prefix}: no best checkpoint was written")
 
 
 def _bwd_flops_k1(b, t):
@@ -993,6 +1204,115 @@ def attn_kernel_times(dev):
     return rows
 
 
+def attn_training_kernel_times(dev):
+    """The six kernels of SASRec's training step at B = 2,048, T = 200,
+    fp32, p = 0.5 (the forwards keeping what the backwards read), each
+    beside its bound, its plain version (a backward's: autograd's
+    backward of the plain forward, its graph built once) and, where one
+    exists, one PyTorch call of the same function: row 10
+    torch.nn.TransformerEncoderLayer (its forward; for the backward
+    ``autograd.grad`` through it, checked first to give the plain dx),
+    row 6 add + layer_norm (the same), both at dropout 0."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    p = block_params(gen, dev)
+    b = TRAIN_B
+    x = torch.randn((b, T, D), generator=gen).to(dev)
+    pos = (0.5 * torch.randn((T, D), generator=gen)).to(dev)
+    s, bias = p["ln1_s"], p["ln1_b"]
+    lens = torch.randint(2, T + 1, (b,), generator=gen).to(dev)
+    d3 = torch.randn((b, T, D), generator=gen).to(dev)
+    d2 = torch.randn((b, D), generator=gen).to(dev)
+    seed = 4242
+    drop = (SAS_DROPOUT, SAS_DROPOUT, seed)
+    _, s10 = FB.fused_transformer_layer_train(x, lens, p, True, HEADS, "gelu", *drop)
+    _, s11 = FB.fused_transformer_layer_last_train(x, lens, p, HEADS, "gelu", *drop)
+    times = {
+        "fused_ln_dropout": time_ms(lambda: FL.fused_ln_dropout(x, pos, s, bias, SAS_DROPOUT,
+                                                                seed)),
+        "fused_transformer_layer": time_ms(lambda: FB.fused_transformer_layer_train(
+            x, lens, p, True, HEADS, "gelu", *drop)),
+        "fused_transformer_layer_last": time_ms(lambda: FB.fused_transformer_layer_last_train(
+            x, lens, p, HEADS, "gelu", *drop)),
+        "fused_ln_dropout_bwd": time_ms(lambda: FL.fused_ln_dropout_bwd(
+            x, pos, d3, s, bias, SAS_DROPOUT, seed)),
+        "fused_transformer_layer_bwd": time_ms(lambda: FB.fused_transformer_layer_bwd(
+            x, lens, d3, p, True, HEADS, "gelu", *drop, saved=s10)),
+        "fused_transformer_layer_last_bwd": time_ms(lambda: FB.fused_transformer_layer_last_bwd(
+            x, lens, d2, p, HEADS, "gelu", *drop, saved=s11)),
+    }
+    del s10, s11
+    lp = {"pos": pos, "s": s, "b": bias}
+    plain = {}
+    for name, fn, pp, dout in (
+        ("fused_ln_dropout", lambda a, q: FL.fused_ln_dropout_plain(
+            a, q["pos"], q["s"], q["b"], SAS_DROPOUT, seed), lp, d3),
+        ("fused_transformer_layer", lambda a, q: FB.fused_transformer_layer_plain(
+            a, lens, q, True, HEADS, "gelu", *drop), p, d3),
+        ("fused_transformer_layer_last", lambda a, q: FB.fused_transformer_layer_last_plain(
+            a, lens, q, HEADS, "gelu", *drop), p, d2),
+    ):
+        with torch.no_grad():
+            plain[name] = time_ms(lambda: fn(x, pp), reps=5, warmup=1)
+        xl = x.clone().requires_grad_()
+        ql = {k: v.clone().requires_grad_() for k, v in pp.items()}
+        out = fn(xl, ql)
+        inputs = [xl, *ql.values()]
+        plain[name + "_bwd"] = time_ms(lambda: torch.autograd.grad(out, inputs, dout,
+                                                                   retain_graph=True),
+                                       reps=5, warmup=1)
+        del out, inputs, xl, ql
+    # the library yardsticks at dropout 0, each checked against the plain
+    # version first
+    layer = library_layer(p, dev).train()
+    mask = _attn_mask(lens, T, causal=True)
+    xl = x.clone().requires_grad_()
+    lib_out = layer(xl, src_mask=mask)
+    lib_dx, = torch.autograd.grad(lib_out, [xl], d3, retain_graph=True)
+    _, want_dx, _ = _plain_vjp(lambda a, q: FB.fused_transformer_layer_plain(
+        a, lens, q, True, HEADS), x, p, d3)
+    lib_err = float((lib_dx - want_dx).abs().max())
+    lib_ok = lib_err <= 1e-4 * float(want_dx.abs().max())
+    phase("library-vs-plain", call="torch.nn.TransformerEncoderLayer backward", B=b, T=T,
+          causal=True, max_abs_dx_err=f"{lib_err:.3e}", tol="1e-4*max|plain dx|", ok=lib_ok)
+    check(lib_ok, "TransformerEncoderLayer's backward does not give the plain layer's dx")
+    lib_params = [xl, *layer.parameters()]
+    ql = {k: v.clone().requires_grad_() for k, v in lp.items()}
+    xln = x.clone().requires_grad_()
+    ln_out = F.layer_norm(xln + ql["pos"], (D,), ql["s"], ql["b"], L.LN_EPS)
+    with torch.no_grad():
+        lib = {
+            "fused_ln_dropout": time_ms(lambda: F.layer_norm(x + pos, (D,), s, bias, L.LN_EPS)),
+            "fused_transformer_layer": time_ms(lambda: layer(x, src_mask=mask)),
+            "fused_transformer_layer_last": None,
+            "fused_transformer_layer_last_bwd": None,
+        }
+    lib["fused_transformer_layer_bwd"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, lib_params, d3, retain_graph=True))
+    lib["fused_ln_dropout_bwd"] = time_ms(lambda: torch.autograd.grad(
+        ln_out, [xln, *ql.values()], d3, retain_graph=True))
+    del lib_out, ln_out
+    lc = lens.cpu()
+    bounds = {
+        "fused_ln_dropout": ln_bound_ms(b, 4),
+        "fused_transformer_layer": block_bound_ms(lc, T, True, p, 4, stash=True),
+        "fused_transformer_layer_last": block_last_bound_ms(lc, T, p, 4, stash=True),
+        "fused_ln_dropout_bwd": ln_bwd_bound_ms(b, 4),
+        "fused_transformer_layer_bwd": block_bwd_bound_ms(lc, T, True, p, 4),
+        "fused_transformer_layer_last_bwd": block_last_bwd_bound_ms(lc, T, p, 4),
+    }
+    rows = {}
+    for name, ms in times.items():
+        bound, flops, by = bounds[name]
+        lib_ms = lib[name]
+        phase("kernel-time", kernel=name, B=b, T=T, dtype="float32", p=SAS_DROPOUT,
+              ms=f"{ms:.4f}", plain_ms=f"{plain[name]:.4f}",
+              library_ms=f"{lib_ms:.4f}" if lib_ms is not None else "none",
+              bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}", bound_by=by,
+              share_of_bound=f"{bound / ms:.4f}")
+        rows[name] = (ms, plain[name], bound, by, lib_ms)
+    return rows
+
+
 KERNELS = (
     ("fused_recurrent_layer", "datamining_recblr_torch/csrc/fused_layer.cu",
      "datamining_recblr_tpu/ops/fused_layer.py:245"),
@@ -1011,6 +1331,12 @@ ATTN_KERNELS = (
      "datamining_recblr_tpu/ops/fused_block.py:260"),
     ("fused_transformer_layer_last", "datamining_recblr_torch/csrc/fused_block_last.cu",
      "datamining_recblr_tpu/ops/fused_block.py:637"),
+    ("fused_ln_dropout_bwd", "datamining_recblr_torch/csrc/ln_dropout.cu",
+     "datamining_recblr_tpu/ops/fused_layer.py:1303"),
+    ("fused_transformer_layer_bwd", "datamining_recblr_torch/csrc/fused_block_bwd.cu",
+     "datamining_recblr_tpu/ops/fused_block.py:284"),
+    ("fused_transformer_layer_last_bwd", "datamining_recblr_torch/csrc/fused_block_last_bwd.cu",
+     "datamining_recblr_tpu/ops/fused_block.py:655"),
 )
 
 
@@ -1024,17 +1350,22 @@ def main():
     mask_bits(dev)
     train_errs = training_kernels_vs_plain(dev)
     attn_errs = attn_kernels_vs_plain(dev)
+    attn_train_errs = attn_train_kernels_vs_plain(dev)
+    attn_mask_bits(dev)
     serve = {(name, dt): serving(dev, name, dt)
              for name in SERVED for dt in ("float32", "bfloat16")}
-    train = {dt: train_step_phase(dev, dt) for dt in ("float32", "bfloat16")}
-    fit_phase(dev)
+    train = {(name, dt): train_step_phase(dev, dt, name)
+             for name in TRAINED for dt in ("float32", "bfloat16")}
+    for name in TRAINED:
+        fit_phase(dev, name)
     kernel_times(dev, p1, p2, lens)
     rows = training_kernel_times(dev)
-    attn_rows = attn_kernel_times(dev)
-    # launches: RecBLR's kernels in one training step of its main path
-    # (fp32), their forwards' launches per recommend() beside them; the
-    # attention kernels in one SASRec recommend() (fp32), BERT4Rec's beside
-    launches = dict(zip((k[0] for k in KERNELS), train["float32"]["launches"]))
+    attn_kernel_times(dev)
+    sas_rows = attn_training_kernel_times(dev)
+    # launches: each model's kernels in one training step of its main path
+    # (fp32), the forwards' launches per recommend() beside them (RecBLR's;
+    # the attention kernels' in SASRec's and BERT4Rec's)
+    launches = dict(zip((k[0] for k in KERNELS), train["RecBLR", "float32"]["launches"]))
     kernels = []
     for name, src, tpu in KERNELS:
         ms, plain, bound, by = rows[(name, TRAIN_B)]
@@ -1048,27 +1379,33 @@ def main():
         if name in errs:
             entry["launches_per_recommend"] = serve["RecBLR", "float32"]["launches"][len(kernels)]
         kernels.append(entry)
+    sas_launches = dict(zip((fn.__name__ for fn in SAS_COUNTED),
+                            train["SASRec", "float32"]["launches"]))
     for i, (name, src, tpu) in enumerate(ATTN_KERNELS):
-        ms, plain, bound, by, lib = attn_rows[(name, B)]
-        kernels.append({
+        ms, plain, bound, by, lib = sas_rows[name]
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "launches": serve["SASRec", "float32"]["launches"][i],
-            "max_abs_err": attn_errs[name],
+            "launches": sas_launches[name],
+            "max_abs_err": max(attn_errs.get(name, 0.0), attn_train_errs[name]),
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": lib,
-            "launches_per_recommend": {m: serve[m, "float32"]["launches"][i]
-                                       for m in ("SASRec", "BERT4Rec")},
-        })
+        }
+        if i < len(ATTN_COUNTED):
+            entry["launches_per_recommend"] = {m: serve[m, "float32"]["launches"][i]
+                                               for m in ("SASRec", "BERT4Rec")}
+        kernels.append(entry)
     serve_summary = {}
     for (name, dt), out in serve.items():
         tag = ("" if name == "RecBLR" else name.lower() + "_") + SHORT_DTYPE[dt]
         serve_summary[f"serve_p50_ms_{tag}"] = f"{out[1] * 1e3:.3f}"
         serve_summary[f"serve_users_per_s_{tag}"] = f"{B / out[B]:.1f}"
-    phase("summary", card=repr(smi), **serve_summary,
-          train_ms_per_step_fp32=f"{train['float32']['ms']:.3f}",
-          train_examples_per_s_fp32=f"{TRAIN_B / train['float32']['ms'] * 1e3:.1f}",
-          train_ms_per_step_bf16=f"{train['bfloat16']['ms']:.3f}",
-          train_examples_per_s_bf16=f"{TRAIN_B / train['bfloat16']['ms'] * 1e3:.1f}")
+    train_summary = {}
+    for (name, dt), out in train.items():
+        tag = ("" if name == "RecBLR" else name.lower() + "_") + "train"
+        train_summary[f"{tag}_ms_per_step_{SHORT_DTYPE[dt]}"] = f"{out['ms']:.3f}"
+        train_summary[f"{tag}_examples_per_s_{SHORT_DTYPE[dt]}"] = (
+            f"{TRAIN_B / out['ms'] * 1e3:.1f}")
+    phase("summary", card=repr(smi), **serve_summary, **train_summary)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

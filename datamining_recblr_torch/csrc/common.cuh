@@ -52,9 +52,12 @@ inline LayerParams unpack_params(const void* const* p) {
   return q;
 }
 
-// Mask ids of the Philox counter: m0 prologue, m1 after W_out, m2 FFN
-// inner, m3 FFN out (the order of the TPU kernel's draws).
-enum MaskId { M0 = 0, M1 = 1, M2 = 2, M3 = 3 };
+// Mask ids of the Philox counter: m0 prologue, m1 after W_out (the
+// transformer layer's W_o), m2 FFN inner (RecBLR only), m3 FFN out (the
+// order of the TPU kernel's draws); ATTN_PROB + h the transformer layer's
+// probabilities of head h, with the key index as the channel and the
+// query position as t (ops/philox.py documents the same ids).
+enum MaskId { M0 = 0, M1 = 1, M2 = 2, M3 = 3, ATTN_PROB = 4 };
 
 struct Dropout {
   unsigned k0, k1;  // Philox key: low and high words of the call's seed
@@ -106,6 +109,13 @@ __device__ __forceinline__ float load_act(const __nv_bfloat16* p, size_t i) {
 __device__ __forceinline__ void store_act(float* p, size_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void store_act(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// A matmul operand: rounded to bf16 (and back) when RB.
+template <bool RB>
+__device__ __forceinline__ float mm_op(float v) {
+  if (RB) return __bfloat162float(__float2bfloat16(v));
+  return v;
 }
 
 __device__ __forceinline__ float sigmoid_t(float x) { return 0.5f * tanhf(0.5f * x) + 0.5f; }

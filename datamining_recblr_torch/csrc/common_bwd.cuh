@@ -67,15 +67,19 @@ inline GradLayout grad_layout(int D, int C, int K, int F) {
 }
 
 // g[k * ldg + n] += sum_{m < M} a[m * lda + k] * b[m * ldb + n] for
-// k < K, n < N: a weight grad over the item's rows.  a and b live in
-// shared memory; g is the block's own slice of the partials.
+// k < K, n < N: a weight grad over the item's rows, a / b rounded to bf16
+// as they are read when RA / RB (the transformer layers' bf16 backward).
+// a and b live in shared memory; g is the block's own slice of the
+// partials, or memory only this block writes.
+template <bool RA = false, bool RB = false>
 __device__ void block_grad_matmul(const float* __restrict__ a, int lda,
                                   const float* __restrict__ b, int ldb, int M, int K, int N,
                                   float* __restrict__ g, int ldg) {
   for (int idx = threadIdx.x; idx < K * N; idx += blockDim.x) {
     const int k = idx / N, n = idx % N;
     float acc = 0.f;
-    for (int m = 0; m < M; ++m) acc = fmaf(a[m * lda + k], b[m * ldb + n], acc);
+    for (int m = 0; m < M; ++m)
+      acc = fmaf(mm_op<RA>(a[m * lda + k]), mm_op<RB>(b[m * ldb + n]), acc);
     g[(size_t)k * ldg + n] += acc;
   }
 }

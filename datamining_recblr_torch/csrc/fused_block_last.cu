@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernel datamining_recblr_tpu/ops/fused_block.py:
 // _last_fwd_kernel (_block_last_fwd_core; reached through
-// _block_last_fwd / fused_transformer_layer_last) at dropout 0.  The
+// _block_last_fwd / fused_transformer_layer_last), dropout included.  The
 // query is one row per batch row, chosen by the one-hot `pos == lens-1`
 // (lens 0 or above T selects nothing: the query and the residual come
 // from zeros), and the keys are masked by padding alone (`col < lens`),
@@ -19,6 +19,10 @@
 //      the LR rows together, so each weight read serves LR rows.
 // Matmuls are fp32 FMA (no tensor cores), so the kernel agrees with the
 // plain fp32 version to rounding.  One call is one launch of the wrapper.
+// Dropout masks are keyed by each row's query position lens - 1 (0 where
+// nothing is selected: attn_common.cuh last_pos), so they are the bits the
+// full layer draws at that position.  A training call (ctx != null) also
+// writes the [B, D] fp32 context for fused_block_last_bwd.cu.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "attn_common.cuh"
@@ -36,7 +40,8 @@ inline size_t last_smem_bytes(int T, int D) {
 template <typename Tin>
 __global__ void __launch_bounds__(ATT_THREADS)
 last_attn_tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
-                      const float* __restrict__ kv, Tin* __restrict__ out, BlockParams p, int B,
+                      const float* __restrict__ kv, Tin* __restrict__ out,
+                      float* __restrict__ ctx, BlockParams p, Dropout drh, Dropout dra, int B,
                       int T, int D, int H, int I, int act, float scale) {
   extern __shared__ float smem[];
   constexpr bool RB = IS_BF16<Tin>;
@@ -51,6 +56,10 @@ last_attn_tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
   float* fs = ys + LR * D;    // [LR, D]  FFN output, then the layer output
   float* ss = fs + LR * D;    // [LR, T]  one head's scores, then probabilities
   float* as = ss + LR * T;    // [LR, FC] FFN chunk
+  auto coord = [&](int r, int& rb, int& rt) {
+    rb = b0 + r;
+    rt = last_pos(lens[b0 + r], T);
+  };
 
   for (int i = threadIdx.x; i < LR * D; i += blockDim.x) {
     const int r = i / D, d = i % D;
@@ -80,6 +89,8 @@ last_attn_tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
       if (r < rows) softmax_row(ss + r * T, T, lens[b0 + r], 0, 0, scale);
     }
     __syncthreads();
+    drop_probs(ss, T, rows, T, dra, h, coord);
+    __syncthreads();
     for (int i = threadIdx.x; i < rows * dh; i += blockDim.x) {
       const int r = i / dh, d = i % dh;
       const float* v = kv + (size_t)(b0 + r) * T * ld + D + h * dh + d;
@@ -90,15 +101,17 @@ last_attn_tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
     }
     __syncthreads();
   }
-  block_tail<LR, RB>(cs, xs, ys, as, fs, rows, D, I, act, p);
+  if (ctx != nullptr)
+    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) ctx[(size_t)b0 * D + i] = cs[i];
+  block_tail<LR, RB>(cs, xs, ys, as, fs, rows, D, I, act, p, drh, coord);
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x)
     store_act(out, (size_t)b0 * D + i, fs[i]);
 }
 
 template <typename Tin>
 cudaError_t block_last_fwd(const Tin* x, const int* lens, Tin* out, BlockParams p, float* kv,
-                           int B, int T, int D, int H, int I, int act, float scale,
-                           cudaStream_t stream) {
+                           float* ctx, Dropout drh, Dropout dra, int B, int T, int D, int H,
+                           int I, int act, float scale, cudaStream_t stream) {
   const size_t sa = proj_smem_bytes(D);
   ProjParams pp = {{p.w_k, p.w_v, nullptr}, {p.b_k, p.b_v, nullptr}};
   proj_kernel<Tin><<<dim3(B, (T + PROJ_ROWS - 1) / PROJ_ROWS), ATT_THREADS, sa, stream>>>(
@@ -111,7 +124,7 @@ cudaError_t block_last_fwd(const Tin* x, const int* lens, Tin* out, BlockParams 
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sb);
   if (e != cudaSuccess) return e;
   last_attn_tail_kernel<Tin><<<(B + LR - 1) / LR, ATT_THREADS, sb, stream>>>(
-      x, lens, kv, out, p, B, T, D, H, I, act, scale);
+      x, lens, kv, out, ctx, p, drh, dra, B, T, D, H, I, act, scale);
   return cudaGetLastError();
 }
 
@@ -121,11 +134,16 @@ extern "C" {
 
 // x: [B, T, D] fp32 (bf16 == 0) or bf16; lens: [B] int32 non-PAD counts;
 // out: [B, D] in x's type; params: 16 device pointers (BlockParams
-// order); kv: [B, T, 2D] fp32 scratch; act: attn_common.cuh act_fwd id;
-// scale: 1 / sqrt(D / H); device: the card that holds them.
+// order); kv: [B, T, 2D] fp32 scratch; ctx: [B, D] fp32 context out, or
+// null (serving); act: attn_common.cuh act_fwd id; scale: 1 / sqrt(D / H);
+// then the hidden and the attention dropout (common.cuh Dropout);
+// device: the card that holds them.
 int recblr_block_last_fwd(const void* x, const void* lens, void* out,
-                          const void* const* params, void* kv, int B, int T, int D, int H,
-                          int I, int act, float scale, int bf16, int device, void* stream) {
+                          const void* const* params, void* kv, void* ctx, int B, int T, int D,
+                          int H, int I, int act, float scale, int bf16, int drop_h,
+                          unsigned long long seed_h, unsigned thresh_h, float scale_h,
+                          int drop_a, unsigned long long seed_a, unsigned thresh_a,
+                          float scale_a, int device, void* stream) {
   // this library has its own (static) CUDA runtime: select the tensors' card
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
@@ -133,11 +151,15 @@ int recblr_block_last_fwd(const void* x, const void* lens, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* l = static_cast<const int*>(lens);
   float* k = static_cast<float*>(kv);
+  float* c = static_cast<float*>(ctx);
+  const Dropout drh = make_dropout(drop_h, seed_h, thresh_h, scale_h);
+  const Dropout dra = make_dropout(drop_a, seed_a, thresh_a, scale_a);
   if (bf16)
     return block_last_fwd(static_cast<const __nv_bfloat16*>(x), l,
-                          static_cast<__nv_bfloat16*>(out), p, k, B, T, D, H, I, act, scale, s);
-  return block_last_fwd(static_cast<const float*>(x), l, static_cast<float*>(out), p, k, B, T,
-                        D, H, I, act, scale, s);
+                          static_cast<__nv_bfloat16*>(out), p, k, c, drh, dra, B, T, D, H, I,
+                          act, scale, s);
+  return block_last_fwd(static_cast<const float*>(x), l, static_cast<float*>(out), p, k, c, drh,
+                        dra, B, T, D, H, I, act, scale, s);
 }
 
 const char* recblr_error_string(int err) {

@@ -10,7 +10,9 @@ layer at the last position only), then the output head
 LN(gelu(x W + b)), and scores against ``item_embedding[:n_items]`` plus
 ``output_bias[:n_items]``: [B, n_items].  An empty history leaves an
 all-PAD row (lens 0).  The cloze training is not ported yet (ROADMAP.md
-queue A item 3).
+queue A item 3.2: the selected-positions layer and fused CE, queue B rows
+12 and 13): ``calculate_loss``, and ``forward`` in training mode with a
+step, raise.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ from torch import nn
 
 from datamining_recblr_torch.models import layers as L
 from datamining_recblr_torch.models.sasrec import SASRec
+
+_NOT_PORTED = ("BERT4Rec's cloze training is not ported yet; it is the next slice of "
+               "the port (ROADMAP.md queue A item 3.2: queue B rows 12 and 13)")
 
 
 class BERT4Rec(SASRec):
@@ -61,10 +66,14 @@ class BERT4Rec(SASRec):
         return self.output_head(x), x.dim() == 2
 
     def forward(self, item_seq, item_seq_len, step=None):
-        self._check_serving(step)
+        if self.training and step is not None:
+            raise NotImplementedError(_NOT_PORTED)
         out, selected = self.encode(self.reconstruct_test_seq(item_seq, item_seq_len),
                                     last_only=True)
         return out if selected else L.gather_last(out, item_seq_len)
+
+    def calculate_loss(self, batch, step=None):
+        raise NotImplementedError(_NOT_PORTED)
 
     def output_head(self, x):
         """LN(gelu(x W + b)), GELU in its tanh form as ``jax.nn.gelu``."""

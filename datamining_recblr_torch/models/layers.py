@@ -17,11 +17,7 @@ from torch import nn
 
 from datamining_recblr_torch.ops import fused_block as FB
 from datamining_recblr_torch.ops import philox
-from datamining_recblr_torch.ops.fused_layer import (
-    MAX_LN_D,
-    fused_ln_dropout,
-    no_attention_dropout,
-)
+from datamining_recblr_torch.ops.fused_layer import MAX_LN_D, fused_ln_dropout
 
 LN_EPS = 1e-12
 INIT_STD = 0.02
@@ -139,25 +135,26 @@ def _use_fused_attention():
     return True if FORCE_FUSED_ATTENTION is None else bool(FORCE_FUSED_ATTENTION)
 
 
-def prologue_ln_dropout(ln_params, x, dropout_p=0.0, pos=None):
-    """LN(x + pos), the attention baselines' embedding prologue (``pos``
-    the [T, D] positional table), at dropout 0.  The fused composition
-    (D <= 512) runs ``fused_ln_dropout`` and adds pos in fp32; the unfused
-    one adds ``pos`` in x's dtype first, as the JAX package does."""
-    no_attention_dropout(dropout_p)
+def prologue_ln_dropout(ln_params, x, dropout_p=0.0, pos=None, seed=0):
+    """dropout(LN(x + pos)), the attention baselines' embedding prologue
+    (``pos`` the [T, D] positional table), with the M0 mask of ``seed``.
+    The fused composition (D <= 512) runs ``fused_ln_dropout`` and adds pos
+    in fp32; the unfused one adds ``pos`` in x's dtype first, as the JAX
+    package does."""
     if _use_fused_attention() and x.shape[-1] <= MAX_LN_D:
         if pos is None:
             pos = torch.zeros(x.shape[1:], device=x.device)
         return fused_ln_dropout(x, pos.float().contiguous(),
                                 ln_params["scale"].float().contiguous(),
-                                ln_params["bias"].float().contiguous())
+                                ln_params["bias"].float().contiguous(), dropout_p, seed)
     if pos is not None:
         x = x + pos.to(x.dtype)
-    return layer_norm(ln_params, x)
+    return dropout(layer_norm(ln_params, x), dropout_p, seed, philox.M0)
 
 
-def _multi_head_attention(p, x, attn_mask, n_heads):
-    """Unfused attention block: LN(attn(x) W_o + b_o + x)."""
+def _multi_head_attention(p, x, attn_mask, n_heads, hidden_dropout, attn_dropout, seed):
+    """Unfused attention block: LN(dropout_m1(attn(x) W_o + b_o) + x), each
+    head's probabilities under the mask ``philox.prob_mask_id(h)``."""
     b, t, h = x.shape
     dh = h // n_heads
 
@@ -167,9 +164,15 @@ def _multi_head_attention(p, x, attn_mask, n_heads):
     q, k, v = (split_heads(dense(p[n], x)) for n in ("q", "k", "v"))
     scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(dh) + attn_mask
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    if attn_dropout:
+        m = torch.stack([philox.dropout_mask(seed, philox.prob_mask_id(i), b, t, t,
+                                             attn_dropout, x.device)
+                         for i in range(n_heads)], dim=1)
+        probs = (probs * m).to(x.dtype)
     dt = torch.promote_types(probs.dtype, v.dtype)
     ctx = (probs.to(dt) @ v.to(dt)).to(x.dtype).transpose(1, 2).reshape(b, t, h)
-    return layer_norm(p["attn_ln"], dense(p["attn_out"], ctx) + x)
+    out = dropout(dense(p["attn_out"], ctx), hidden_dropout, seed, philox.M1)
+    return layer_norm(p["attn_ln"], out + x)
 
 
 def flat_block_params(layer):
@@ -191,8 +194,10 @@ def flat_block_params(layer):
 
 
 def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu",
-                              dropout_p=0.0, lens=None, causal=None, last_only=False):
-    """The post-LN transformer stack at dropout 0.
+                              hidden_dropout=0.0, attn_dropout=0.0, seeds=None, lens=None,
+                              causal=None, last_only=False):
+    """The post-LN transformer stack; ``seeds`` holds one dropout seed per
+    layer (None: dropout off).
 
     With ``lens`` (non-PAD counts) and ``causal`` given and the fused
     composition chosen (``FORCE_FUSED_ATTENTION``), each layer runs
@@ -203,17 +208,24 @@ def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu
     runs its fused attention kernel there (queue B row 15, not ported).
     Otherwise the unfused composition runs and returns [B, T, D];
     ``attn_mask`` is its [B, 1, T, T] additive mask, or a function that
-    builds it (called only then)."""
-    no_attention_dropout(dropout_p)
+    builds it (called only then).  Both compositions draw the same Philox
+    masks at the same coordinates, in the JAX package's order (the
+    probabilities, after W_o, after the FFN)."""
+    if seeds is None:
+        hidden_dropout = attn_dropout = 0.0
+        seeds = [0] * len(layers)
     if lens is not None and causal is not None and _use_fused_attention():
         b, t, h = x.shape
         inner = layers[0]["ffn_1"]["w"].shape[1]
         if FB.supports(h, n_heads, inner, t, hidden_act):
             for li, p in enumerate(layers):
                 fp = flat_block_params(p)
+                drop = (hidden_dropout, attn_dropout, seeds[li])
                 if last_only and li == len(layers) - 1:
-                    return FB.fused_transformer_layer_last(x, lens, fp, n_heads, hidden_act)
-                x = FB.fused_transformer_layer(x, lens, fp, bool(causal), n_heads, hidden_act)
+                    return FB.fused_transformer_layer_last(x, lens, fp, n_heads, hidden_act,
+                                                           *drop)
+                x = FB.fused_transformer_layer(x, lens, fp, bool(causal), n_heads, hidden_act,
+                                               *drop)
             return x
         if x.device.type == "cuda":
             raise NotImplementedError(
@@ -224,9 +236,11 @@ def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu
     if callable(attn_mask):
         attn_mask = attn_mask()
     act = activation(hidden_act)
-    for p in layers:
-        x = _multi_head_attention(p, x, attn_mask, n_heads)
-        y = dense(p["ffn_2"], act(dense(p["ffn_1"], x)))
+    for p, seed in zip(layers, seeds):
+        x = _multi_head_attention(p, x, attn_mask, n_heads, hidden_dropout, attn_dropout,
+                                  seed)
+        y = dropout(dense(p["ffn_2"], act(dense(p["ffn_1"], x))), hidden_dropout, seed,
+                    philox.M3)
         x = layer_norm(p["ffn_ln"], y + x)
     return x
 

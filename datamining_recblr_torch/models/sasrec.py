@@ -1,19 +1,24 @@
-"""SASRec baseline, serving: unidirectional self-attention tower, as an
+"""SASRec baseline: unidirectional self-attention tower, as an
 ``nn.Module`` (counterpart of ``datamining_recblr_tpu/models/sasrec.py``).
 
-item embedding + positional embedding -> LayerNorm -> causal post-LN
-transformer stack (additive -10000 mask over PAD and future keys) ->
-last-position output [B, D].  On the fused composition the prologue runs
-``fused_ln_dropout``, every layer below the top ``fused_transformer_layer``
-and the top layer ``fused_transformer_layer_last``, which computes the
-last position only.
+item embedding + positional embedding -> LayerNorm -> dropout -> causal
+post-LN transformer stack (additive -10000 mask over PAD and future keys)
+-> last-position output [B, D], trained with the base CE loss.  On the
+fused composition the prologue runs ``fused_ln_dropout``, every layer
+below the top ``fused_transformer_layer`` and the top layer
+``fused_transformer_layer_last``, which computes the last position only;
+with grad enabled each runs its backward kernel.
+
+Dropout (``hidden_dropout_prob`` after the prologue, W_o and the FFN;
+``attn_dropout_prob`` on the probabilities) is on in training mode when
+``forward`` gets the global step: the masks are Philox draws whose seeds
+are a function of (config seed, step, layer) alone
+(``ops/philox.py:step_seeds``), one per layer plus one for the prologue.
 
 Parameters carry the names and layouts of the JAX ``init_params``
 (``item_embedding``, ``position_embedding``, ``input_ln``,
 ``encoder.<i>.{q,k,v,attn_out,attn_ln,ffn_1,ffn_2,ffn_ln}``), so
-``interop.params_from_jax`` is a dtype and device move.  Training is not
-ported yet (ROADMAP.md queue A item 3): ``calculate_loss``, and
-``forward`` in training mode with a step, raise.
+``interop.params_from_jax`` is a dtype and device move.
 """
 
 from __future__ import annotations
@@ -23,9 +28,7 @@ from torch import nn
 
 from datamining_recblr_torch.models import layers as L
 from datamining_recblr_torch.models.base import SequentialModel
-
-_NOT_PORTED = ("training {} is not ported yet; it is the next slice of the port "
-               "(ROADMAP.md queue A item 3)")
+from datamining_recblr_torch.ops import philox
 
 
 class SASRec(SequentialModel):
@@ -37,8 +40,8 @@ class SASRec(SequentialModel):
         self.n_heads = config["n_heads"]
         self.hidden_size = config["hidden_size"]
         self.inner_size = config["inner_size"]
-        self.hidden_dropout_prob = config["hidden_dropout_prob"]
-        self.attn_dropout_prob = config["attn_dropout_prob"]
+        self.hidden_dropout_prob = float(config["hidden_dropout_prob"] or 0.0)
+        self.attn_dropout_prob = float(config["attn_dropout_prob"] or 0.0)
         self.hidden_act = config["hidden_act"]
         if generator is None:
             generator = torch.Generator().manual_seed(self.seed)
@@ -61,28 +64,33 @@ class SASRec(SequentialModel):
         self.encoder = L.param_tree(L.transformer_encoder_init(
             gen, self.n_layers, self.n_heads, d, self.inner_size, dt))
 
-    def _check_serving(self, step):
-        if self.training and step is not None:
-            raise NotImplementedError(_NOT_PORTED.format(type(self).__name__))
+    def dropout_seeds(self, step):
+        """(hidden p, attention p, seeds): one seed per layer plus one for
+        the prologue (the last); both rates 0 outside training with a
+        step."""
+        n = len(self.encoder) + 1
+        p = (self.hidden_dropout_prob, self.attn_dropout_prob)
+        if not (self.training and step is not None and any(p)):
+            return 0.0, 0.0, [0] * n
+        return (*p, philox.step_seeds(self.seed, step, n))
 
-    def _encode(self, item_seq, last_only):
+    def _encode(self, item_seq, last_only, step=None):
         """Embedding, prologue and encoder: [B, D] when the fused top layer
         computed the last position only, else [B, T, D]."""
         t = item_seq.shape[1]
+        p_hidden, p_attn, seeds = self.dropout_seeds(step)
         x = self.embed(item_seq).to(self.compute_dtype)
-        x = L.prologue_ln_dropout(self.input_ln, x, pos=self.position_embedding[:t])
+        x = L.prologue_ln_dropout(self.input_ln, x, p_hidden,
+                                  pos=self.position_embedding[:t], seed=seeds[-1])
         lens = (item_seq != 0).sum(1, dtype=torch.int32)
         return L.transformer_encoder_apply(
             self.encoder, x,
             lambda: L.attention_mask(item_seq, bidirectional=not self.causal),
-            n_heads=self.n_heads, hidden_act=self.hidden_act, lens=lens,
-            causal=self.causal, last_only=last_only,
+            n_heads=self.n_heads, hidden_act=self.hidden_act, hidden_dropout=p_hidden,
+            attn_dropout=p_attn, seeds=seeds[:-1], lens=lens, causal=self.causal,
+            last_only=last_only,
         )
 
     def forward(self, item_seq, item_seq_len, step=None):
-        self._check_serving(step)
-        x = self._encode(item_seq, last_only=True)
+        x = self._encode(item_seq, last_only=True, step=step)
         return x if x.dim() == 2 else L.gather_last(x, item_seq_len)
-
-    def calculate_loss(self, batch, step=None):
-        raise NotImplementedError(_NOT_PORTED.format(type(self).__name__))

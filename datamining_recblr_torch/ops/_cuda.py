@@ -24,8 +24,8 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("fused_layer.cu", "fused_layer_last.cu", "fused_layer_bwd.cu",
            "fused_layer_last_bwd.cu", "ln_dropout.cu", "fused_block.cu",
-           "fused_block_last.cu")
-HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh")
+           "fused_block_last.cu", "fused_block_bwd.cu", "fused_block_last_bwd.cu")
+HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -39,30 +39,41 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# the dropout arguments (csrc/common.cuh Dropout), then the card and stream
-_DROP = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float, _I, _P]
+# one whole Dropout (csrc/common.cuh: on, seed, thresh, scale); every entry
+# point ends with the card and the stream
+_D1 = [_I, ctypes.c_uint64, ctypes.c_uint32, _F]
 _SIGNATURES = {
     "fused_layer.cu": {
-        "recblr_layer_fwd": [_P] * 5 + [_I] * 11 + _DROP,
+        "recblr_layer_fwd": [_P] * 5 + [_I] * 10 + _D1 + [_I, _P],
     },
     "fused_layer_last.cu": {
-        "recblr_layer_last_fwd": [_P] * 7 + [_I] * 11 + _DROP,
+        "recblr_layer_last_fwd": [_P] * 7 + [_I] * 10 + _D1 + [_I, _P],
     },
     "fused_layer_bwd.cu": {
-        "recblr_layer_bwd": [_P] * 5 + [_I] + [_P] * 4 + [_I] + [_P] * 2 + [_I] * 11 + _DROP,
+        "recblr_layer_bwd": [_P] * 5 + [_I] + [_P] * 4 + [_I] + [_P] * 2 + [_I] * 10 + _D1
+        + [_I, _P],
     },
     "fused_layer_last_bwd.cu": {
-        "recblr_layer_last_bwd": [_P] * 6 + [_I] + [_P] * 4 + [_I] + [_P] * 2 + [_I] * 10
-        + _DROP,
+        "recblr_layer_last_bwd": [_P] * 6 + [_I] + [_P] * 4 + [_I] + [_P] * 2 + [_I] * 9
+        + _D1 + [_I, _P],
     },
     "ln_dropout.cu": {
-        "recblr_ln_pos_fwd": [_P] * 5 + [_I] * 5 + [_P],
+        "recblr_ln_pos_fwd": [_P] * 5 + [_I] * 4 + _D1 + [_I, _P],
+        "recblr_ln_pos_bwd": [_P] * 10 + [_I] * 5 + _D1 + [_I, _P],
     },
     "fused_block.cu": {
-        "recblr_block_fwd": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
+        "recblr_block_fwd": [_P] * 6 + [_I] * 7 + [_F, _I] + _D1 * 2 + [_I, _P],
     },
     "fused_block_last.cu": {
-        "recblr_block_last_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+        "recblr_block_last_fwd": [_P] * 6 + [_I] * 6 + [_F, _I] + _D1 * 2 + [_I, _P],
+    },
+    "fused_block_bwd.cu": {
+        "recblr_block_bwd": [_P] * 10 + [_I] + [_P] * 2 + [_I] * 7 + [_F, _I] + _D1 * 2
+        + [_I, _P],
+    },
+    "fused_block_last_bwd.cu": {
+        "recblr_block_last_bwd": [_P] * 10 + [_I] + [_P] * 2 + [_I] * 6 + [_F, _I]
+        + _D1 * 2 + [_I, _P],
     },
 }
 

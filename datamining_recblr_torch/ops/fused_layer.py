@@ -27,9 +27,11 @@ Four kernels:
   ``_last_bwd_kernel`` (``:844``, via ``_layer_last_bwd``);
   ``csrc/fused_layer_last_bwd.cu``.
 
-Beside them, ``fused_ln_dropout`` (LN(x + pos), the attention baselines'
-embedding prologue, at dropout 0) replaces ``_ln_dropout_fwd_kernel``
-(``:1292``, via ``_ln_dropout_fwd`` :1332); ``csrc/ln_dropout.cu``.
+Beside them, ``fused_ln_dropout`` (dropout(LN(x + pos)), the attention
+baselines' embedding prologue) replaces ``_ln_dropout_fwd_kernel``
+(``:1292``, via ``_ln_dropout_fwd`` :1332) and its backward,
+``fused_ln_dropout_bwd``, ``_ln_dropout_bwd_kernel`` (``:1303``, via
+``_ln_dropout_bwd`` :1357); both in ``csrc/ln_dropout.cu``.
 
 The four layer kernels are bound by fp32 operations at the bench shape; the sources'
 head comments say what each design does about it.  Dropout masks are
@@ -579,61 +581,118 @@ fused_recurrent_layer_last.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# LN(x + pos): the attention baselines' embedding prologue
+# dropout(LN(x + pos)): the attention baselines' embedding prologue
 # ---------------------------------------------------------------------------
 
 MAX_LN_D = 512  # the prologue is fused for D <= 512 (models/layers.py)
 
 
-def no_attention_dropout(dropout_p):
-    """The attention baselines' kernels and their plain versions take
-    dropout 0 only, until their backwards are ported."""
-    if dropout_p:
-        raise NotImplementedError(
-            "dropout in the attention baselines' prologue and transformer layers is "
-            "not ported yet; it lands with their backwards (ROADMAP.md queue A item 3)")
-
-
-def fused_ln_dropout_plain(x, pos, scale, bias, dropout_p=0.0):
+def fused_ln_dropout_plain(x, pos, scale, bias, dropout_p=0.0, seed=0):
     """Plain PyTorch version of ``fused_ln_dropout``: LN(x + pos) over D,
-    pos [T, D] added in fp32, returned in x's dtype."""
-    no_attention_dropout(dropout_p)
-    return _ln(x.float() + pos.float(), scale, bias).to(x.dtype)
+    pos [T, D] added in fp32, times the M0 mask, returned in x's dtype
+    (differentiable; its autograd gradient is the plain version of
+    ``fused_ln_dropout_bwd``)."""
+    out = _ln(x.float() + pos.float(), scale, bias)
+    if dropout_p:
+        b, t, d = x.shape
+        out = out * philox.dropout_mask(seed, philox.M0, b, t, d, dropout_p, x.device)
+    return out.to(x.dtype)
 
 
-def fused_ln_dropout(x, pos, scale, bias, dropout_p=0.0):
-    """LN(x + pos) with eps 1e-12, the embedding prologue of SASRec and
-    BERT4Rec (``fused_layer.py:fused_ln_dropout`` of the JAX package at
-    dropout 0).  x: [B, T, D] fp32 or bf16; pos [T, D], scale and bias [D]
-    fp32.  Returns [B, T, D] in x's dtype."""
-    if x.device.type == "cpu":
-        return fused_ln_dropout_plain(x, pos, scale, bias, dropout_p)
-    _require_cuda(x)
-    no_attention_dropout(dropout_p)
+def _ln_checks(x, pos, scale, bias):
     if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16) \
             or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous float32 or bfloat16 [B, T, D], got "
                          f"{x.dtype} {tuple(x.shape)}")
     b, t, d = x.shape
-    if d > MAX_LN_D:
-        raise ValueError(f"unsupported shape D={d}: the kernel takes D <= {MAX_LN_D}")
+    if d > MAX_LN_D or b < 1:
+        raise ValueError(f"unsupported shape B={b} D={d}: the kernels take B >= 1, "
+                         f"D <= {MAX_LN_D}")
     for name, v, shape in (("pos", pos, (t, d)), ("scale", scale, (d,)),
                            ("bias", bias, (d,))):
         if v.dtype != torch.float32 or not v.is_contiguous() \
                 or v.device != x.device or tuple(v.shape) != shape:
             raise ValueError(f"{name}: want contiguous float32 {shape} on {x.device}, "
                              f"got {v.dtype} {tuple(v.shape)} on {v.device}")
+    return b, t, d
+
+
+def _launch_ln_fwd(x, pos, scale, bias, dropout_p, seed):
+    b, t, d = _ln_checks(x, pos, scale, bias)
     lib = _cuda.library("ln_dropout.cu")
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.recblr_ln_pos_fwd(
             x.data_ptr(), pos.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, t, d, int(x.dtype == torch.bfloat16), x.device.index,
-            _stream(x),
+            out.data_ptr(), b, t, d, int(x.dtype == torch.bfloat16),
+            *_dropout_args(dropout_p, seed), x.device.index, _stream(x),
         )
     _cuda.check(lib, err, "fused_ln_dropout")
     fused_ln_dropout.launches += 1
     return out
 
 
+def _ln_bwd_chunks(b: int) -> int:
+    """Batch chunks of the prologue backward's grid: each block sums dpos
+    over the rows of one chunk at one position."""
+    return max(1, min(16, b // 128))
+
+
+def fused_ln_dropout_bwd(x, pos, dout, scale, bias, dropout_p=0.0, seed=0):
+    """Backward of ``fused_ln_dropout`` on the card: (dx in x's dtype,
+    dpos [T, D], dscale [D], dbias [D]; fp32), dpos the batch sum of the
+    LN input's gradient, every sum in a fixed order."""
+    _require_cuda(x)
+    b, t, d = _ln_checks(x, pos, scale, bias)
+    dout = _check_dout(dout, (b, t, d), x)
+    chunks = _ln_bwd_chunks(b)
+    dx = torch.empty_like(x)
+    pos_part = torch.empty((chunks, t, d), device=x.device, dtype=torch.float32)
+    sb_part = torch.empty((chunks * t, 2 * d), device=x.device, dtype=torch.float32)
+    dpos = torch.empty((t, d), device=x.device, dtype=torch.float32)
+    dsb = torch.empty((2 * d,), device=x.device, dtype=torch.float32)
+    lib = _cuda.library("ln_dropout.cu")
+    with torch.cuda.device(x.device):
+        err = lib.recblr_ln_pos_bwd(
+            x.data_ptr(), pos.data_ptr(), dout.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), dx.data_ptr(), pos_part.data_ptr(), sb_part.data_ptr(),
+            dpos.data_ptr(), dsb.data_ptr(), b, t, d, chunks,
+            int(x.dtype == torch.bfloat16), *_dropout_args(dropout_p, seed),
+            x.device.index, _stream(x),
+        )
+    _cuda.check(lib, err, "fused_ln_dropout_bwd")
+    fused_ln_dropout_bwd.launches += 1
+    return dx, dpos, dsb[:d], dsb[d:]
+
+
+class _LnDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pos, scale, bias, opts):
+        ctx.opts = opts
+        ctx.save_for_backward(x, pos, scale, bias)
+        return _launch_ln_fwd(x, pos, scale, bias, *opts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, pos, scale, bias = ctx.saved_tensors
+        dx, dpos, dscale, dbias = fused_ln_dropout_bwd(x, pos, dout, scale, bias, *ctx.opts)
+        return dx, dpos, dscale, dbias, None
+
+
+def fused_ln_dropout(x, pos, scale, bias, dropout_p=0.0, seed=0):
+    """dropout(LN(x + pos)) with eps 1e-12, the embedding prologue of SASRec
+    and BERT4Rec (``fused_layer.py:fused_ln_dropout`` of the JAX package),
+    differentiable in x, pos, scale and bias.  x: [B, T, D] fp32 or bf16;
+    pos [T, D], scale and bias [D] fp32; the M0 mask of ``seed`` at rate
+    ``dropout_p``.  Returns [B, T, D] in x's dtype."""
+    if x.device.type == "cpu":
+        return fused_ln_dropout_plain(x, pos, scale, bias, dropout_p, seed)
+    _require_cuda(x)
+    opts = (float(dropout_p), int(seed))
+    if _needs_grad(x, [pos, scale, bias]):
+        return _LnDropout.apply(x, pos, scale, bias, opts)
+    return _launch_ln_fwd(x, pos, scale, bias, *opts)
+
+
 fused_ln_dropout.launches = 0
+fused_ln_dropout_bwd.launches = 0

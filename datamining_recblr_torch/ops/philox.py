@@ -14,8 +14,20 @@ the order of draws; here a mask element is a pure function of
 so a forward and its backward replay the same mask by construction,
 and the CUDA kernels (``csrc/common.cuh`` ``drop_mask``) draw the same
 bits as this module.  The arithmetic is int64 tensor arithmetic on
-32-bit values, on any device.  Mask ids: m0 prologue (input dropout),
-m1 after W_out, m2 FFN inner, m3 FFN out.
+32-bit values, on any device.  Mask ids:
+
+    M0      prologue (RecBLR's input dropout; the attention baselines'
+            dropout after LN(x + pos), under the prologue's own seed)
+    M1      after the output projection (RecBLR's W_out, the transformer
+            layer's W_o)
+    M2      RecBLR's FFN inner activation (the transformer layer has none)
+    M3      after the FFN's output projection
+    4 + h   the transformer layer's softmax probabilities of head h, with
+            the key index as the channel and the query position as t
+
+The last-position kernels key their masks by each row's real position
+``lens - 1`` (position 0 where the length selects nothing), so a fused
+top layer and the unfused composition draw the same bits there.
 """
 
 from __future__ import annotations
@@ -23,6 +35,11 @@ from __future__ import annotations
 import torch
 
 M0, M1, M2, M3 = 0, 1, 2, 3
+ATTN_PROB = 4  # mask id of head h's probabilities: ATTN_PROB + h
+
+
+def prob_mask_id(head: int) -> int:
+    return ATTN_PROB + int(head)
 
 _MUL0, _MUL1 = 0xD2511F53, 0xCD9E8D57   # Random123's Philox4x32 multipliers
 _BUMP0, _BUMP1 = 0x9E3779B9, 0xBB67AE85  # its Weyl key increments
@@ -77,7 +94,24 @@ def dropout_bits(seed: int, mask_id: int, b: int, t: int, width: int,
 def dropout_mask(seed: int, mask_id: int, b: int, t: int, width: int, p: float,
                  device=None):
     """Scaled keep-mask [b, t, width] fp32: 1/(1-p) where kept, else 0."""
-    bits = dropout_bits(seed, mask_id, b, t, width, device)
+    return _scaled(dropout_bits(seed, mask_id, b, t, width, device), p, device)
+
+
+def dropout_mask_at(seed: int, mask_id: int, pos, width: int, p: float):
+    """Scaled keep-mask [B, width] of row b at position ``pos[b]`` (an
+    integer tensor [B]): row b of ``dropout_mask(...)[b, pos[b]]``."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    kw = dict(device=pos.device, dtype=torch.int64)
+    groups = -(-width // 4)
+    words = philox4x32_10(
+        torch.arange(groups, **kw)[None, :], pos.to(torch.int64)[:, None],
+        torch.arange(pos.shape[0], **kw)[:, None],
+        torch.full((1, 1), int(mask_id), **kw), seed & _MASK32, seed >> 32)
+    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    return _scaled(bits.reshape(pos.shape[0], 4 * groups)[:, :width], p, pos.device)
+
+
+def _scaled(bits, p, device):
     scale = torch.tensor(1.0 / (1.0 - float(p)), dtype=torch.float32, device=device)
     return torch.where(bits < keep_threshold(p), scale, torch.zeros_like(scale))
 

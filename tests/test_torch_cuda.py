@@ -9,7 +9,11 @@ another order than cuBLAS); bf16 atol 1e-4 / rtol 2^-7, one bf16 ulp of
 the output, since both sides compute in fp32 and round once.  Gradients
 (the backward kernels against autograd of the plain versions): every
 weight grad, and an fp32 dx, within 1e-4 * max|plain|; a bf16 dx within
-one bf16 ulp of the value on top of that."""
+one bf16 ulp of the value on top of that.  The transformer layers in
+bf16 round every matmul operand, so an fp32 sum in another order can
+send an operand to the other bf16 neighbour: their bf16 outputs and
+gradients are held within one bf16 ulp of the value plus 2^-9 of the
+largest value (``_assert_attn_close``)."""
 
 import numpy as np
 import pytest
@@ -410,12 +414,17 @@ def test_attention_wrappers_reject_what_they_do_not_take(dev):
     p = _block_params(rng, 64, 256, dev)
     x = torch.zeros((2, 16, 64), device=dev)
     lens = torch.tensor([3, 16], device=dev)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        FB.fused_transformer_layer(x, lens, p, True, 2, dropout_p=0.2)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        FB.fused_transformer_layer_last(x, lens, p, 2, dropout_p=0.2)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        FL.fused_ln_dropout(x, x[0], p["ln1_s"], p["ln1_b"], dropout_p=0.2)
+    # dropout: the kernels apply the Philox masks the plain versions draw
+    xr = torch.from_numpy(rng.standard_normal((2, 16, 64)).astype(np.float32)).to(dev)
+    for got, want in (
+        (FB.fused_transformer_layer(xr, lens, p, True, 2, "gelu", 0.2, 0.2, 5),
+         FB.fused_transformer_layer_plain(xr, lens, p, True, 2, "gelu", 0.2, 0.2, 5)),
+        (FB.fused_transformer_layer_last(xr, lens, p, 2, "gelu", 0.2, 0.2, 5),
+         FB.fused_transformer_layer_last_plain(xr, lens, p, 2, "gelu", 0.2, 0.2, 5)),
+        (FL.fused_ln_dropout(xr, xr[0], p["ln1_s"], p["ln1_b"], 0.2, 5),
+         FL.fused_ln_dropout_plain(xr, xr[0], p["ln1_s"], p["ln1_b"], 0.2, 5)),
+    ):
+        torch.testing.assert_close(got, want, **TOL["float32"])
     with pytest.raises(ValueError, match="row 15"):
         FB.fused_transformer_layer(x, lens, p, True, 3)  # D % heads != 0
     with pytest.raises(ValueError, match="row 15"):
@@ -450,3 +459,224 @@ def test_baseline_serving_on_card_matches_cpu(dev, name):
     for i, j in zip(*np.nonzero(ids != want_ids)):
         row = dict(zip(want_ids[i].tolist(), want_vals[i].tolist()))
         assert abs(row.get(int(ids[i, j]), want_vals[i, -1]) - want_vals[i, j]) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the attention baselines' backward kernels and SASRec training
+# ---------------------------------------------------------------------------
+
+def _assert_attn_grads(got, want, dtype):
+    """Output, dx and every weight grad: fp32 within GRAD_RTOL of the
+    largest plain value, as chip_smoke.py holds them (elementwise TOL is
+    too tight for a row of lens 0: its scores sit at -10000, where an fp32
+    ulp is 2^-10, so a last-bit difference in a dot product can move a
+    score by 2^-10); bf16 as ``_assert_attn_close``.  Each absolute
+    tolerance is at least 1e-6 of the largest gradient of the call: b_k's
+    is zero up to rounding (the softmax ignores a shift that every key
+    shares)."""
+    (out, dx, grads), (wout, wdx, wgrads) = got, want
+    assert set(grads) == set(wgrads)
+    pairs = [("out", out, wout), ("dx", dx, wdx)] + [(k, v, wgrads[k])
+                                                     for k, v in grads.items()]
+    top = max(float(w.float().abs().max()) for _, _, w in pairs)
+    for name, g, w in pairs:
+        assert bool(torch.isfinite(g).all()), name
+        g, w = g.float(), w.float()
+        floor = 1e-6 * top
+        if dtype == "float32":
+            assert float((g - w).abs().max()) \
+                <= max(GRAD_RTOL * float(w.abs().max()), floor), name
+        else:
+            atol = max(2.0 ** -9 * float(w.abs().max()), floor)
+            assert bool(((g - w).abs() <= 2.0 ** -7 * w.abs() + atol).all()), name
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,heads,inner", BLOCK_SHAPES)
+def test_block_bwd_kernel_matches_plain(dev, d, heads, inner, causal, dtype, p_drop):
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(16)
+    p = _block_params(rng, d, inner, dev)
+    t = 45
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((6, t, d)).astype(np.float32)).to(dev, dt)
+    dout = torch.from_numpy(rng.standard_normal((6, t, d)).astype(np.float32)).to(dev, dt)
+    lens = torch.tensor([0, 1, t, 17, 32, 40], device=dev)
+    flags = (causal, heads, "gelu", p_drop, p_drop, 4321)
+    before = FB.fused_transformer_layer_bwd.launches
+    out, saved = FB.fused_transformer_layer_train(x, lens, p, *flags)
+    dx, grads = FB.fused_transformer_layer_bwd(x, lens, dout, p, *flags, saved=saved)
+    assert FB.fused_transformer_layer_bwd.launches == before + 1
+    assert dx.dtype == dt and dx.shape == x.shape
+    want = _plain_vjp(lambda a, q: FB.fused_transformer_layer_plain(a, lens, q, *flags),
+                      x, p, dout)
+    _assert_attn_grads((out, dx, grads), want, dtype)
+    # deterministic: the same call gives the same bits
+    dx2, grads2 = FB.fused_transformer_layer_bwd(x, lens, dout, p, *flags, saved=saved)
+    assert torch.equal(dx2, dx) and all(torch.equal(grads2[k], grads[k]) for k in grads)
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,heads,inner", BLOCK_SHAPES)
+def test_block_last_bwd_kernel_matches_plain(dev, d, heads, inner, dtype, p_drop):
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(17)
+    p = _block_params(rng, d, inner, dev)
+    t = 45
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((6, t, d)).astype(np.float32)).to(dev, dt)
+    dout = torch.from_numpy(rng.standard_normal((6, d)).astype(np.float32)).to(dev, dt)
+    lens = torch.tensor([0, 1, t, 17, 32, t + 3], device=dev)  # 0, t + 3 select nothing
+    flags = (heads, "gelu", p_drop, p_drop, 4321)
+    before = FB.fused_transformer_layer_last_bwd.launches
+    out, saved = FB.fused_transformer_layer_last_train(x, lens, p, *flags)
+    dx, grads = FB.fused_transformer_layer_last_bwd(x, lens, dout, p, *flags, saved=saved)
+    assert FB.fused_transformer_layer_last_bwd.launches == before + 1
+    want = _plain_vjp(lambda a, q: FB.fused_transformer_layer_last_plain(a, lens, q, *flags),
+                      x, p, dout)
+    _assert_attn_grads((out, dx, grads), want, dtype)
+    # rows that select nothing still attend to every key: dx is not 0 there
+    assert dx[0].abs().sum() > 0 and dx[5].abs().sum() > 0
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 48, 512])
+def test_ln_prologue_bwd_kernel_matches_plain(dev, d, dtype, p_drop):
+    rng = np.random.default_rng(18)
+    t = 45
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy((2 * rng.standard_normal((300, t, d)) + 1).astype(np.float32))
+    x = x.to(dev, dt)
+    dout = torch.from_numpy(rng.standard_normal((300, t, d)).astype(np.float32)).to(dev, dt)
+    p = {name: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+         for name, shape in (("pos", (t, d)), ("s", (d,)), ("b", (d,)))}
+    before = FL.fused_ln_dropout_bwd.launches
+    dx, dpos, ds, db = FL.fused_ln_dropout_bwd(x, p["pos"], dout, p["s"], p["b"], p_drop, 7)
+    assert FL.fused_ln_dropout_bwd.launches == before + 1
+    out = FL.fused_ln_dropout(x, p["pos"], p["s"], p["b"], p_drop, 7)
+    want = _plain_vjp(lambda a, q: FL.fused_ln_dropout_plain(a, q["pos"], q["s"], q["b"],
+                                                             p_drop, 7), x, p, dout)
+    _assert_grads((out, dx, {"pos": dpos, "s": ds, "b": db}), want, dtype)
+
+
+def test_attention_mask_bits_match_plain(dev):
+    """Each new mask as a kernel draws it, bit for bit against the plain
+    Philox mask: M0 from the prologue with scale 0 and bias 1 (its output
+    is the mask); M1 and M3 from the sign of a layer output whose only
+    signal is that mask; each head's probability mask from the context a
+    training forward keeps, with v_h the identity on T = dh keys."""
+    from datamining_recblr_torch.ops import fused_block as FB
+    from datamining_recblr_torch.ops import philox
+
+    b, t, d, heads, p_drop, seed = 5, 32, 64, 2, 0.5, 2024
+    zeros = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    out = FL.fused_ln_dropout(torch.randn((b, t, d), device=dev), zeros(t, d), zeros(d),
+                              torch.ones(d, device=dev), p_drop, seed)
+    assert torch.equal(out != 0, philox.dropout_mask(seed, philox.M0, b, t, d, p_drop, dev) > 0)
+    lens = torch.full((b,), t, device=dev)
+    base = {n: zeros(d, d) for n in ("w_q", "w_k", "w_v", "w_o")}
+    base.update({n: zeros(d) for n in ("b_q", "b_k", "b_v", "b_o", "ln1_b", "b2", "ln2_b")},
+                ln1_s=torch.ones(d, device=dev), ln2_s=torch.ones(d, device=dev),
+                w1=zeros(d, 256), b1=zeros(256), w2=zeros(256, d))
+    lens_last = torch.tensor([t, 1, 7, 20, t], device=dev)
+    qpos = FB.last_positions(lens_last, t)
+    for mask_id, name in ((philox.M1, "b_o"), (philox.M3, "b2")):
+        p = dict(base, **{name: torch.ones(d, device=dev)})
+        out = FB.fused_transformer_layer(zeros(b, t, d), lens, p, True, heads, "gelu",
+                                         p_drop, 0.0, seed)
+        assert torch.equal(out > 0, philox.dropout_mask(seed, mask_id, b, t, d, p_drop, dev) > 0)
+        out = FB.fused_transformer_layer_last(zeros(b, t, d), lens_last, p, heads, "gelu",
+                                              p_drop, 0.0, seed)
+        assert torch.equal(out > 0, philox.dropout_mask_at(seed, mask_id, qpos, d, p_drop) > 0)
+    # probabilities: x[j] = e_j and W_v the identity on each head's columns
+    dh = d // heads
+    x = torch.eye(t, d, device=dev).expand(b, t, d).contiguous()
+    w_v = torch.zeros((d, d), device=dev)
+    for h in range(heads):
+        w_v[:dh, h * dh:(h + 1) * dh] = torch.eye(dh, device=dev)
+    p = dict(base, w_v=w_v, w_q=0.3 * torch.randn((d, d), device=dev),
+             w_k=0.3 * torch.randn((d, d), device=dev))
+    _, (_, ctx) = FB.fused_transformer_layer_train(x, lens, p, False, heads, "gelu", 0.0,
+                                                   p_drop, seed)
+    _, (_, ctx_last) = FB.fused_transformer_layer_last_train(x, lens_last, p, heads, "gelu",
+                                                             0.0, p_drop, seed)
+    for h in range(heads):
+        want = philox.dropout_mask(seed, philox.prob_mask_id(h), b, t, t, p_drop, dev) > 0
+        assert torch.equal(ctx[..., h * dh:(h + 1) * dh] != 0, want), h
+        want = philox.dropout_mask_at(seed, philox.prob_mask_id(h), qpos, t, p_drop) > 0
+        valid = torch.arange(t, device=dev)[None, :] < lens_last[:, None]
+        assert torch.equal(ctx_last[:, h * dh:(h + 1) * dh] != 0, want & valid), h
+
+
+def test_training_wrappers_return_a_gradient_path(dev):
+    """With grad enabled, a kernel wrapper's output carries its backward
+    (it used to come back without a grad_fn, dropping every gradient)."""
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(19)
+    p = {k: v.requires_grad_() for k, v in _block_params(rng, 64, 256, dev).items()}
+    x = torch.from_numpy(rng.standard_normal((3, 20, 64)).astype(np.float32)).to(dev)
+    x.requires_grad_()
+    lens = torch.tensor([0, 5, 20], device=dev)
+    pos = torch.zeros((20, 64), device=dev, requires_grad=True)
+    for out in (FB.fused_transformer_layer(x, lens, p, True, 2),
+                FB.fused_transformer_layer_last(x, lens, p, 2),
+                FL.fused_ln_dropout(x, pos, p["ln1_s"], p["ln1_b"])):
+        assert out.grad_fn is not None
+        x.grad = None
+        out.float().square().sum().backward()
+        assert x.grad is not None and x.grad.abs().sum() > 0
+    assert pos.grad is not None and p["w_q"].grad is not None
+
+
+def test_sasrec_train_step_through_kernels_matches_plain(dev):
+    """One CE step of SASRec (dropout 0.5 / 0.5) through the six kernels:
+    one launch of each, and the loss and every parameter gradient as the
+    same step through the plain versions (loss rtol 1e-4, gradients
+    within GRAD_RTOL of each gradient's largest value, at least 1e-6 of
+    the largest gradient of all: b_k's is zero up to rounding)."""
+    from datamining_recblr_torch.models import layers as ML
+    from datamining_recblr_torch.models.base import ce_loss
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    cfg = Config(model="SASRec", config_dict={"MAX_ITEM_LIST_LENGTH": 40})
+    model = get_model("SASRec")(cfg, 300, 40, device=dev)
+    rng = np.random.default_rng(20)
+    lens = torch.from_numpy(rng.integers(1, 41, 64).astype(np.int32)).to(dev)
+    seq = torch.from_numpy(rng.integers(1, 300, (64, 40))).to(dev)
+    seq = torch.where(torch.arange(40, device=dev)[None] < lens[:, None], seq, 0)
+    batch = {"item_seq": seq, "item_seq_len": lens,
+             "pos_item": torch.from_numpy(rng.integers(1, 300, 64)).to(dev)}
+    model.train()
+    counted = (FL.fused_ln_dropout, FB.fused_transformer_layer, FB.fused_transformer_layer_last,
+               FL.fused_ln_dropout_bwd, FB.fused_transformer_layer_bwd,
+               FB.fused_transformer_layer_last_bwd)
+    before = [f.launches for f in counted]
+    loss = model.calculate_loss(batch, step=11)
+    loss.backward()
+    assert [f.launches - n for f, n in zip(counted, before)] == [1] * 6
+    got = {k: v.grad.clone() for k, v in model.named_parameters()}
+    model.zero_grad()
+    p_hidden, p_attn, seeds = model.dropout_seeds(11)
+    assert (p_hidden, p_attn) == (0.5, 0.5)
+    x = FL.fused_ln_dropout_plain(model.embed(seq), model.position_embedding[:40],
+                                  model.input_ln["scale"], model.input_ln["bias"], p_hidden,
+                                  seeds[-1])
+    n = (seq != 0).sum(1)
+    x = FB.fused_transformer_layer_plain(x, n, ML.flat_block_params(model.encoder[0]), True, 2,
+                                         "gelu", p_hidden, p_attn, seeds[0])
+    x = FB.fused_transformer_layer_last_plain(x, n, ML.flat_block_params(model.encoder[1]), 2,
+                                              "gelu", p_hidden, p_attn, seeds[1])
+    want = ce_loss(model._mask_padded_vocab(model._logits(x), value=-1e30), batch["pos_item"])
+    want.backward()
+    assert abs(float(loss.detach()) - float(want.detach())) <= 1e-4 * abs(float(want.detach()))
+    top = max(float(v.grad.abs().max()) for v in model.parameters())
+    for k, v in model.named_parameters():
+        tol = max(GRAD_RTOL * float(v.grad.abs().max()), 1e-6 * top)
+        assert float((got[k] - v.grad).abs().max()) <= tol, k

@@ -8,6 +8,7 @@ Tolerance atol 2e-5 in fp32, the JAX package's own
 top of it, since every matmul operand is rounded on both sides and fp32
 sums in another order can round a value to the neighbouring bf16."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -165,14 +166,30 @@ def test_cpu_calls_do_not_count_launches():
 
 
 def test_wrappers_refuse_dropout_and_other_devices():
+    """The wrappers take dropout now: the prologue multiplies by the M0
+    mask of its seed, and each layer draws the masks the unfused
+    composition of ``models/layers.py`` draws at the same coordinates
+    (the last-query layer at each row's position lens - 1).  A device
+    without kernels still raises."""
+    from datamining_recblr_torch.ops import philox
+
     p, x, _ = _inputs(19)
     lens = torch.from_numpy(LENS)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        FB.fused_transformer_layer(x, lens, _torch(p), True, HEADS, dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        FB.fused_transformer_layer_last(x, lens, _torch(p), HEADS, dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        FL.fused_ln_dropout(x, torch.zeros((T, D)), torch.ones(D), torch.zeros(D), 0.1)
+    pos, s, b = torch.zeros((T, D)), torch.ones(D), torch.zeros(D)
+    got = FL.fused_ln_dropout(x, pos, s, b, 0.1, 77)
+    mask = philox.dropout_mask(77, philox.M0, B, T, D, 0.1)
+    torch.testing.assert_close(got, FL.fused_ln_dropout(x, pos, s, b) * mask, atol=1e-6,
+                               rtol=0)
+    layer = _layer_tree(_torch(p))
+    drop = (0.3, 0.4, 123)
+    got = FB.fused_transformer_layer(x, lens, _torch(p), True, HEADS, "gelu", *drop)
+    want = _unfused_layer(layer, x, lens, True, drop)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert (got - FB.fused_transformer_layer(x, lens, _torch(p), True, HEADS)).abs().max() > 0.1
+    last = FB.fused_transformer_layer_last(x, lens, _torch(p), HEADS, "gelu", *drop)
+    rows = [i for i, n in enumerate(LENS) if 1 <= n <= T]
+    idx = torch.from_numpy(LENS[rows]).long() - 1
+    torch.testing.assert_close(last[rows], want[rows, idx], atol=1e-5, rtol=1e-5)
     meta = torch.zeros((B, T, D), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         FB.fused_transformer_layer(meta, lens, _torch(p), True, HEADS)
@@ -180,3 +197,106 @@ def test_wrappers_refuse_dropout_and_other_devices():
         FB.fused_transformer_layer_last(meta, lens, _torch(p), HEADS)
     with pytest.raises(ValueError, match="no kernel"):
         FL.fused_ln_dropout(meta, torch.zeros((T, D)), torch.ones(D), torch.zeros(D))
+
+
+def _layer_tree(p):
+    """Flat kernel parameters -> one encoder layer of models/layers.py."""
+    return {n: {"w": p[f"w_{k}"], "b": p[f"b_{k}"]}
+            for k, n in (("q", "q"), ("k", "k"), ("v", "v"), ("o", "attn_out"))} | {
+        "attn_ln": {"scale": p["ln1_s"], "bias": p["ln1_b"]},
+        "ffn_1": {"w": p["w1"], "b": p["b1"]}, "ffn_2": {"w": p["w2"], "b": p["b2"]},
+        "ffn_ln": {"scale": p["ln2_s"], "bias": p["ln2_b"]}}
+
+
+def _unfused_layer(layer, x, lens, causal, drop):
+    from datamining_recblr_torch.models import layers as ML
+
+    seq = (torch.arange(T)[None, :] < lens[:, None]).long()
+    mask = ML.attention_mask(seq, bidirectional=not causal)
+    hidden, attn, seed = drop
+    return ML.transformer_encoder_apply([layer], x, mask, n_heads=HEADS,
+                                        hidden_dropout=hidden, attn_dropout=attn,
+                                        seeds=[seed])
+
+
+# ---------------------------------------------------------------------------
+# gradients: autograd of the plain versions against jax.grad of the JAX
+# package's kernels (their backward kernels in interpret mode), fp32,
+# dropout 0; rtol 1e-4 and atol 1e-5 of each gradient's largest value
+# (fp32 sums in another order), at least 1e-6 of the call's largest
+# gradient (b_k's is zero up to rounding: the softmax ignores a shift
+# that every key shares, and what is left is fp32 cancellation noise)
+# ---------------------------------------------------------------------------
+
+def _check_grads(got, want):
+    top = max(float(np.abs(np.asarray(w)).max()) for w in want.values())
+    for name, g in got.items():
+        w = np.asarray(want[name])
+        atol = max(1e-5 * float(np.abs(w).max()), 1e-6 * top)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=atol, err_msg=name)
+
+
+def _torch_grads(fn, x, p, dout):
+    xl = x.clone().requires_grad_()
+    pl = {k: v.clone().requires_grad_() for k, v in p.items()}
+    (fn(xl, pl) * dout).sum().backward()
+    return {"x": xl.grad, **{k: v.grad for k, v in pl.items()}}
+
+
+def _jax_grads(fn, jx, jp, dout):
+    gx, gp = jax.grad(lambda a, q: jnp.sum(fn(a, q) * dout), argnums=(0, 1))(jx, jp)
+    return {"x": gx, **gp}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_layer_grads_match_jax(causal):
+    p, x, jx = _inputs(23 + causal)
+    dout = np.random.default_rng(5).standard_normal((B, T, D)).astype(np.float32)
+    lens = torch.from_numpy(LENS)
+    got = _torch_grads(lambda a, q: FB.fused_transformer_layer(a, lens, q, causal, HEADS),
+                       x, _torch(p), torch.from_numpy(dout))
+    want = _jax_grads(lambda a, q: JFB.fused_transformer_layer(
+        a, jnp.asarray(LENS), SEED, q, causal, HEADS, 0.0, 0.0, "gelu"), jx, _jax(p), dout)
+    _check_grads(got, want)
+
+
+def test_layer_last_grads_match_jax():
+    """lens 0 selects no query: its K/V gradient is still there (uniform
+    attention over every key), its query and residual gradient is not."""
+    p, x, jx = _inputs(29)
+    dout = np.random.default_rng(6).standard_normal((B, D)).astype(np.float32)
+    lens = torch.from_numpy(LENS)
+    got = _torch_grads(lambda a, q: FB.fused_transformer_layer_last(a, lens, q, HEADS),
+                       x, _torch(p), torch.from_numpy(dout))
+    want = _jax_grads(lambda a, q: JFB.fused_transformer_layer_last(
+        a, jnp.asarray(LENS), SEED, q, HEADS, 0.0, 0.0, "gelu"), jx, _jax(p), dout)
+    _check_grads(got, want)
+    assert got["x"][0].abs().sum() > 0  # lens 0: K/V reach every position
+
+
+@pytest.mark.parametrize("d", [16, 48])
+def test_ln_prologue_grads_match_jax(d):
+    rng = np.random.default_rng(31 + d)
+    x = (2.0 * rng.standard_normal((4, 9, d)) + 0.5).astype(np.float32)
+    pos = rng.standard_normal((9, d)).astype(np.float32)
+    s = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    dout = rng.standard_normal((4, 9, d)).astype(np.float32)
+    args = [torch.from_numpy(a).requires_grad_() for a in (x, pos, s, b)]
+    (FL.fused_ln_dropout(*args) * torch.from_numpy(dout)).sum().backward()
+    want = jax.grad(lambda *a: jnp.sum(j_ln_dropout(a[0], a[1], SEED, a[2], a[3], 0.0) * dout),
+                    argnums=(0, 1, 2, 3))(*map(jnp.asarray, (x, pos, s, b)))
+    _check_grads({n: a.grad for n, a in zip(("x", "pos", "s", "b"), args)},
+                 dict(zip(("x", "pos", "s", "b"), want)))
+
+
+def test_bf16_rounding_passes_gradients_unrounded():
+    """In bf16 the plain versions round each matmul operand, and the
+    gradient passes through the rounding unrounded: the kernels round the
+    forward's operands as they read them and keep gradients fp32."""
+    a = torch.tensor([1.0 + 2.0 ** -10, 3.0], requires_grad=True)
+    r = FB._RoundBF16.apply(a)
+    assert r.tolist() == [1.0, 3.0]
+    (r * torch.tensor([0.1, 0.2])).sum().backward()
+    assert a.grad.dtype == torch.float32
+    torch.testing.assert_close(a.grad, torch.tensor([0.1, 0.2]), atol=0, rtol=0)

@@ -68,3 +68,13 @@ def test_layers_dropout():
     # a [B, W] input draws the masks of position 0
     y2 = L.dropout(torch.ones((4, 8)), 0.25, 5, philox.M1)
     assert torch.equal(y2, philox.dropout_mask(5, philox.M1, 4, 1, 8, 0.25)[:, 0])
+
+
+def test_mask_at_positions_is_the_full_mask_gathered():
+    """The last-query layer's masks: row b at position pos[b] of the
+    [B, T, W] mask, bit for bit."""
+    pos = torch.tensor([0, 5, 2, 7])
+    full = philox.dropout_mask(99, philox.prob_mask_id(1), 4, 8, 13, 0.3)
+    at = philox.dropout_mask_at(99, philox.prob_mask_id(1), pos, 13, 0.3)
+    torch.testing.assert_close(at, full[torch.arange(4), pos], atol=0, rtol=0)
+    assert philox.prob_mask_id(0) == philox.ATTN_PROB == 4 > philox.M3

@@ -252,3 +252,83 @@ def test_compact_split_trains_as_the_dense_one(tmp_path, monkeypatch):
     np.testing.assert_allclose([r["train_loss"] for r in compact.metrics.epoch_records()],
                                [r["train_loss"] for r in dense.metrics.epoch_records()],
                                rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# SASRec: both compositions against the JAX SASRec at dropout 0.  Fused:
+# the JAX package's prologue and transformer-layer kernels, forward and
+# backward, in interpret mode, against the plain versions' autograd.
+# Tolerances: loss rtol 1e-5; gradients rtol 1e-4 and atol 1e-5 of each
+# gradient's largest value, at least 1e-6 of the largest gradient of all
+# (the key biases' is zero up to rounding); trajectory as above.
+# ---------------------------------------------------------------------------
+
+SAS_CFG = {"MAX_ITEM_LIST_LENGTH": T, "hidden_size": 16, "inner_size": 32, "n_layers": 2,
+           "n_heads": 2, "hidden_dropout_prob": 0.0, "attn_dropout_prob": 0.0}
+
+
+@pytest.fixture(params=[True, False], ids=["fused", "unfused"])
+def sas_dispatch(request, monkeypatch):
+    from datamining_recblr_tpu.models import layers as JL
+    from datamining_recblr_torch.models import layers as L
+
+    monkeypatch.setattr(JL, "_use_fused_attention", lambda: request.param)
+    monkeypatch.setattr(L, "FORCE_FUSED_ATTENTION", request.param)
+    return request.param
+
+
+def test_sasrec_loss_and_grads_match_jax(sas_dispatch):
+    jmodel = j_get_model("SASRec")(JConfig(model="SASRec", config_dict=SAS_CFG), N_ITEMS, T)
+    jparams = jmodel.init_params(jax.random.PRNGKey(2))
+    rng = np.random.default_rng(2)
+    # weights well away from the N(0, 0.02) init, so that attention and
+    # the FFN shape the gradients
+    jparams = jax.tree.map(
+        lambda a: a + (0.15 * rng.standard_normal(a.shape)).astype(np.float32), jparams)
+    model = get_model("SASRec")(Config(model="SASRec", config_dict=SAS_CFG), N_ITEMS, T,
+                                device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams)))
+    batch = _batch(3)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    want, jgrads = jax.value_and_grad(
+        lambda p: jmodel.calculate_loss(p, jbatch, jax.random.PRNGKey(1)))(jparams)
+    model.train()
+    loss = model.calculate_loss({k: torch.from_numpy(v) for k, v in batch.items()}, step=0)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-5)
+    want_grads = params_from_jax(jax.tree.map(np.asarray, jgrads))
+    got = dict(model.named_parameters())
+    assert set(got) == set(want_grads)
+    top = max(float(v.abs().max()) for v in want_grads.values())
+    for name, p in got.items():
+        w = want_grads[name].numpy()
+        atol = max(1e-5 * float(np.abs(w).max()), 1e-6 * top)
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=1e-4, atol=atol, err_msg=name)
+
+
+def test_sasrec_fit_trajectory_matches_jax(sas_dispatch, tmp_path):
+    gen = dict(n_users=60, n_items=30, min_len=5, max_len=14, markov_weight=0.9,
+               n_clusters=4, seed=5)
+    jdata = j_build(j_generate(**gen), max_seq_len=T)
+    data = build_from_dataframe(generate_synthetic_interactions(**gen), max_seq_len=T)
+    cfg = dict(SAS_CFG, epochs=2, train_batch_size=64, eval_batch_size=64, stopping_step=10,
+               checkpoint_dir=str(tmp_path / "saved"), dataset="syn")
+    jmodel = j_get_model("SASRec")(JConfig(model="SASRec", config_dict=cfg), jdata.n_items, T)
+    jparams = jmodel.init_params(jax.random.PRNGKey(3))
+    start = params_from_jax(jax.tree.map(np.asarray, jparams))  # the JAX step donates
+    jtrainer = JTrainer(JConfig(model="SASRec", config_dict=cfg), jmodel, params=jparams)
+    jbest, jresult = jtrainer.fit(jdata)
+
+    model = get_model("SASRec")(Config(model="SASRec", config_dict=cfg), data.n_items, T,
+                                device="cpu")
+    trainer = Trainer(Config(model="SASRec", config_dict=cfg), model, params=start)
+    best, result = trainer.fit(data)
+
+    want = [r["train_loss"] for r in jtrainer.metrics.epoch_records()]
+    got = [r["train_loss"] for r in trainer.metrics.epoch_records()]
+    assert len(got) == len(want) == 2
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=5e-5)
+    assert trainer.best_epoch == jtrainer.best_epoch
+    for k in jresult:
+        assert abs(result[k] - jresult[k]) <= 1e-3, k
+    assert abs(best - jbest) <= 1e-3
