@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's ten CUDA kernels from ``datamining_recblr_torch/csrc``
+Builds the port's fourteen CUDA kernels from ``datamining_recblr_torch/csrc``
 (both fused recurrent layers of RecBLR, forward and backward; the
 attention baselines' LN prologue and both transformer layers, forward
-and backward) and, phase by phase:
+and backward; BERT4Rec's selected-positions top layer and the whole-table
+softmax CE, forward and backward) and, phase by phase:
 
 * holds each kernel against its plain PyTorch version at B 256, T 200:
   the RecBLR forwards at dropout 0 (serving), then every RecBLR kernel's
@@ -16,17 +17,22 @@ and backward) and, phase by phase:
   bidirectional, two activations, lengths 0, 1 and T; then their
   outputs, dx, dpos and every weight grad against autograd of the plain
   versions at dropout 0 and 0.5, and each of their masks bit for bit;
+  then BERT4Rec's two new kernels, forward and backward, fp32 and bf16
+  (the selected-positions layer at B 256, S 40, dropout 0 and 0.2, with
+  repeated positions; the CE at N 81,920, V 3,417), and the selected
+  layer's masks bit for bit;
 * serves RecBLR, SASRec and BERT4Rec at full width (hidden 64, 2 layers,
   T 200, V 3,417; 2 heads and an FFN of 256 for the baselines) through
   ``Recommender.recommend`` against the same model through the plain
   versions, with one launch of each of the model's kernels per call,
   and times it;
-* trains RecBLR (dropout 0.2) and SASRec (dropout 0.5 / 0.5) at the
-  bench.py shape (batch 2,048, CE, Adam, fp32 and bf16 compute): one
-  launch of each of the model's kernels per step, one step against the
-  same step through the plain versions, the step time and a profile;
-* runs ``Trainer.fit`` and ``evaluate(load_best=True)`` for both on a
-  small Markov dataset: the loss falls and valid NDCG@10 is above 0;
+* trains RecBLR (dropout 0.2), SASRec (dropout 0.5 / 0.5) and BERT4Rec
+  (cloze, mask_ratio 0.2, dropout 0.2 / 0.2) at the bench.py shape (batch
+  2,048, CE, Adam, fp32 and bf16 compute): one launch of each of the
+  model's kernels per step, one step against the same step through the
+  plain versions, the step time and a profile;
+* runs ``Trainer.fit`` and ``evaluate(load_best=True)`` for the three on
+  a small Markov dataset: the loss falls and valid NDCG@10 is above 0;
 * times every kernel beside its bound, its plain version and, where one
   PyTorch call computes the same function, that call.
 
@@ -52,6 +58,7 @@ from datamining_recblr_torch.models import get_model
 from datamining_recblr_torch.models import layers as L
 from datamining_recblr_torch.ops import _cuda
 from datamining_recblr_torch.ops import fused_block as FB
+from datamining_recblr_torch.ops import fused_ce as FCE
 from datamining_recblr_torch.ops import fused_layer as FL
 from datamining_recblr_torch.serve import Recommender
 
@@ -87,6 +94,13 @@ ATTN_COUNTED = (FL.fused_ln_dropout, FB.fused_transformer_layer,
 SAS_COUNTED = ATTN_COUNTED + (FL.fused_ln_dropout_bwd, FB.fused_transformer_layer_bwd,
                               FB.fused_transformer_layer_last_bwd)
 SAS_DROPOUT = 0.5  # SASRec's hidden_dropout_prob and attn_dropout_prob
+# BERT4Rec's training step: the prologue and the layer with their
+# backwards, the selected-positions top layer and the whole-table CE
+B4R_COUNTED = (FL.fused_ln_dropout, FB.fused_transformer_layer, FB.fused_transformer_layer_sel,
+               FCE.fused_softmax_ce, FL.fused_ln_dropout_bwd, FB.fused_transformer_layer_bwd,
+               FB.fused_transformer_layer_sel_bwd, FCE.fused_softmax_ce_bwd)
+B4R_DROPOUT = 0.2  # BERT4Rec's hidden_dropout_prob and attn_dropout_prob
+MASK_LEN = 40      # BERT4Rec's cloze budget at T 200: int(mask_ratio 0.2 * 200)
 
 
 class SmokeFailure(RuntimeError):
@@ -255,6 +269,48 @@ def ln_bwd_bound_ms(b, act_bytes):
     # 16 operations per element (the LN recomputed and its backward)
     nbytes = 3 * b * T * D * act_bytes + 2 * T * D * 4 + 4 * D * 4
     return _bound(16 * b * T * D, nbytes)
+
+
+def sel_bound_ms(lens, s, p, act_bytes, stash=False):
+    # per row: K and V at the keys its queries can weigh (below the length;
+    # all T at length 0); per selected query its projection, QK^T and P.V
+    # over those keys (4D per key over all heads), W_o and the FFN.  x read
+    # at the weighed keys, the [B, S, D] output written; a training forward
+    # also writes k/v there and the [B, S, D] fp32 queries and context.
+    n = _kept_keys(lens, T).double()
+    keys = float(n.sum())
+    b = lens.numel()
+    flops = keys * 4 * D * D + b * s * (4 * D * D + 4 * D * INNER) + s * 4 * D * keys
+    nbytes = keys * D * act_bytes + b * s * (D * act_bytes + 4) + b * 4 + _params_bytes(p)
+    if stash:
+        nbytes += keys * 2 * D * 4 + 2 * b * s * D * 4
+    return _bound(flops, nbytes)
+
+
+def sel_bwd_bound_ms(lens, s, p, act_bytes):
+    # twice the forward's products; x and the kept k/v at the weighed keys,
+    # dout and the kept queries and context read, dx [B, T, D] written in
+    # full, the params read and their grads written
+    flops = 2 * sel_bound_ms(lens, s, p, act_bytes)[1]
+    keys = float(_kept_keys(lens, T).double().sum())
+    b = lens.numel()
+    nbytes = (keys * D * (act_bytes + 8) + b * T * D * act_bytes
+              + b * s * (D * (act_bytes + 8) + 4) + b * 4 + 2 * _params_bytes(p))
+    return _bound(flops, nbytes)
+
+
+def ce_bound_ms(n, v, act_bytes, train=False):
+    # the [N, V] logits (2NVD); x, the table, the bias and the targets read
+    # once, nll (and in training lse) written
+    nbytes = n * D * act_bytes + v * (D + 1) * 4 + n * 4 * (3 if train else 2)
+    return _bound(2 * n * v * D, nbytes)
+
+
+def ce_bwd_bound_ms(n, v, act_bytes):
+    # the logits, dx = g table and dtable = g^T x (3 x 2NVD); x, targets,
+    # dnll, lse, the table and the bias read, dx, dtable and dbias written
+    nbytes = 2 * n * D * act_bytes + 3 * n * 4 + 2 * v * (D + 1) * 4
+    return _bound(3 * 2 * n * v * D, nbytes)
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -660,6 +716,148 @@ def attn_mask_bits(dev):
         check(flips == 0, f"{label}: {flips} mask bits differ from the plain Philox mask")
 
 
+def b4r_sel_idx(gen, b, t, s):
+    """[B, S] cloze-like positions: ascending in a row, the last slots at
+    position 0 (BERT4Rec's padded cloze slots), one repeat."""
+    idx = torch.sort(torch.randint(0, t, (b, s), generator=gen), dim=1).values
+    idx[:, -8:] = 0
+    idx[:, 1] = idx[:, 2]
+    return idx
+
+
+def b4r_kernels_vs_plain(dev):
+    """Rows 12 and 13 against autograd of their plain versions, fp32 and
+    bf16: the selected-positions layer at B 256, T 200, S 40 (lengths 0, 1
+    and T, repeated positions), p = 0 and 0.2 (output, dx, every weight
+    grad); the CE at BERT4Rec's shape (N 81,920, V 3,417, D 64, with a
+    bias; bf16 x with bf16 products): nll, dx, dtable and dbias.  Returns
+    the largest fp32 |kernel - plain| of each forward and backward."""
+    gen = torch.Generator().manual_seed(SEED + 10)
+    p = block_params(gen, dev)
+    x = torch.randn((B, T, D), generator=gen).to(dev)
+    lens = serving_lens(gen, B).to(dev)
+    sel = b4r_sel_idx(gen, B, T, MASK_LEN).to(dev)
+    d3 = torch.randn((B, MASK_LEN, D), generator=gen).to(dev)
+    n = TRAIN_B * MASK_LEN
+    xc = torch.randn((n, D), generator=gen).to(dev)
+    table = (0.3 * torch.randn((N_ITEMS, D), generator=gen)).to(dev)
+    bias = (0.1 * torch.randn((N_ITEMS,), generator=gen)).to(dev)
+    tgt = torch.randint(1, N_ITEMS, (n,), generator=gen).to(dev)
+    dnll = torch.rand((n,), generator=gen).to(dev)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        for pd in (0.0, B4R_DROPOUT):
+            drop = (pd, pd, 2468 + int(pd * 10))
+            xd, dd = x.to(dt), d3.to(dt)
+            out, saved = FB.fused_transformer_layer_sel_train(xd, lens, sel, p, HEADS, "gelu",
+                                                              *drop)
+            dx, g = FB.fused_transformer_layer_sel_bwd(xd, lens, sel, dd, p, HEADS, "gelu",
+                                                       *drop, saved=saved)
+            wout, wdx, wg = _plain_vjp(lambda a, q: FB.fused_transformer_layer_sel_plain(
+                a, lens, sel, q, HEADS, "gelu", *drop), xd, p, dd)
+            torch.cuda.synchronize()
+            pairs = {"out": (out, wout), "dx": (dx, wdx)}
+            pairs.update({k: (v, wg[k]) for k, v in g.items()})
+            top = max(float(w.float().abs().max()) for _, w in pairs.values())
+            rows = {}
+            for k, (v, w) in pairs.items():
+                err, ok_k = _attn_ok(v, w, dt, 1e-6 * top)
+                rows[k] = (err / (float(w.float().abs().max()) or 1.0), ok_k)
+            ok = all(o for _, o in rows.values())
+            worst = max(rows, key=lambda k: rows[k][0] if k != "b_k" else 0.0)
+            phase("b4r-kernel-vs-plain", kernel="fused_transformer_layer_sel_bwd", dtype=dname,
+                  p=pd, shape=f"B{B}xT{T}xS{MASK_LEN}xD{D}", worst=worst,
+                  worst_rel_err=f"{rows[worst][0]:.3e}",
+                  rel_err=repr({k: float(f"{e:.2e}") for k, (e, _) in rows.items()}),
+                  tol=("max|err| <= 1e-4*max|plain|" if dt == torch.float32 else
+                       "|err| <= 2^-7*|plain| + 2^-9*max|plain|")
+                  + ", at least 1e-6*max over all grads", ok=ok)
+            check(ok, f"fused_transformer_layer_sel {dname} p={pd}: kernel disagrees with its "
+                      "plain version")
+            if dt == torch.float32:
+                bwd = max(float((v.float() - w.float()).abs().max())
+                          for k, (v, w) in pairs.items() if k != "out")
+                errs["fused_transformer_layer_sel"] = max(
+                    errs.get("fused_transformer_layer_sel", 0.0),
+                    float((out - wout).abs().max()))
+                errs["fused_transformer_layer_sel_bwd"] = max(
+                    errs.get("fused_transformer_layer_sel_bwd", 0.0), bwd)
+        mm = dt == torch.bfloat16
+        xd = xc.to(dt)
+        nll, lse = FCE.fused_softmax_ce_train(xd, table, tgt, bias, None, mm)
+        dx, dtab, dbias = FCE.fused_softmax_ce_bwd(xd, table, tgt, dnll, bias, None, mm, lse=lse)
+        xl, tl, bl = (a.detach().clone().requires_grad_() for a in (xd, table, bias))
+        want = FCE.fused_softmax_ce_plain(xl, tl, tgt, bl, None, mm)
+        gx, gt, gb = torch.autograd.grad(want, [xl, tl, bl], dnll)
+        torch.cuda.synchronize()
+        nll_err = float((nll - want.detach()).abs().max())
+        ok_nll = bool(((nll - want.detach()).abs() <= 1e-4 + 1e-5 * want.detach().abs()).all())
+        rows = {"dx": _grad_err_ok(dx, gx, dt, True), "dtable": _grad_err_ok(dtab, gt, dt, False),
+                "dbias": _grad_err_ok(dbias, gb, dt, False)}
+        ok = ok_nll and all(o for _, o in rows.values())
+        phase("b4r-kernel-vs-plain", kernel="fused_softmax_ce_bwd", dtype=dname, mm_bf16=mm,
+              shape=f"N{n}xV{N_ITEMS}xD{D}", nll_max_abs_err=f"{nll_err:.3e}",
+              nll_tol="1e-4 + 1e-5*|plain|",
+              rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
+              tol=f"max|err|/max|plain| <= {GRAD_RTOL}"
+                  + (" (bf16 dx: + 2^-7*|plain|)" if mm else ""), ok=ok)
+        check(ok, f"fused_softmax_ce {dname}: kernel disagrees with its plain version")
+        if dt == torch.float32:
+            errs["fused_softmax_ce"] = nll_err
+            errs["fused_softmax_ce_bwd"] = max(float((a - w).abs().max())
+                                               for a, w in ((dx, gx), (dtab, gt), (dbias, gb)))
+        del want, gx, gt, gb, xl, tl, bl
+    return errs
+
+
+def b4r_mask_bits(dev):
+    """The selected-positions layer's masks as its kernel draws them, bit
+    for bit against ``philox.dropout_mask_at`` at the [B, S] positions:
+    M1 and M3 from the sign of an output whose only signal is that mask
+    (x = 0, every weight 0, b_o or b2 one), each head's probability mask
+    from the context a training forward keeps (x[j] = e_j, v_h the
+    identity on T = dh = 32 keys)."""
+    from datamining_recblr_torch.ops import philox
+
+    zeros = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+    seed, pd = 97531, B4R_DROPOUT
+    gen = torch.Generator().manual_seed(SEED + 11)
+    base = {n: zeros(D, D) for n in ("w_q", "w_k", "w_v", "w_o")}
+    base.update({n: zeros(D) for n in ("b_q", "b_k", "b_v", "b_o", "ln1_b", "b2", "ln2_b")},
+                ln1_s=torch.ones(D, device=dev), ln2_s=torch.ones(D, device=dev),
+                w1=zeros(D, INNER), b1=zeros(INNER), w2=zeros(INNER, D))
+    lens = serving_lens(gen, B).to(dev)
+    sel = b4r_sel_idx(gen, B, T, MASK_LEN).to(dev)
+    results = []
+    for mask_id, label, name in ((philox.M1, "m1 (after W_o) sel", "b_o"),
+                                 (philox.M3, "m3 (after the FFN) sel", "b2")):
+        pm = dict(base, **{name: torch.ones(D, device=dev)})
+        out = FB.fused_transformer_layer_sel(zeros(B, T, D), lens, sel, pm, HEADS, "gelu", pd,
+                                             0.0, seed)
+        results.append((label, out > 0, philox.dropout_mask_at(seed, mask_id, sel, D, pd) > 0))
+    dh = D // HEADS
+    tp = dh
+    x = torch.eye(tp, D, device=dev).expand(B, tp, D).contiguous()
+    w_v = zeros(D, D)
+    for h in range(HEADS):
+        w_v[:dh, h * dh:(h + 1) * dh] = torch.eye(dh, device=dev)
+    pm = dict(base, w_v=w_v, w_q=(0.3 * torch.randn((D, D), generator=gen)).to(dev),
+              w_k=(0.3 * torch.randn((D, D), generator=gen)).to(dev))
+    sel_p = b4r_sel_idx(gen, B, tp, MASK_LEN).to(dev)
+    _, (_, _, ctx) = FB.fused_transformer_layer_sel_train(
+        x, torch.full((B,), tp, device=dev), sel_p, pm, HEADS, "gelu", 0.0, pd, seed)
+    for h in range(HEADS):
+        results.append((f"probabilities head {h} sel", ctx[..., h * dh:(h + 1) * dh] != 0,
+                        philox.dropout_mask_at(seed, philox.prob_mask_id(h), sel_p, tp, pd) > 0))
+    torch.cuda.synchronize()
+    for label, got, want in results:
+        flips = int((got != want).sum())
+        phase("b4r-mask-bits", mask=repr(label), elements=want.numel(),
+              keep_fraction=f"{float(want.float().mean()):.5f}", mismatches=flips)
+        check(flips == 0, f"{label}: {flips} mask bits differ from the plain Philox mask")
+
+
 def plain_seq_output(model, seq, lens, step=None):
     """The model's fused composition through the plain layer versions,
     with the dropout rate and seeds the model draws for ``step``."""
@@ -703,19 +901,63 @@ def plain_baseline_output(model, seq, seq_len, step=None):
     return model.output_head(x) if bert else x
 
 
+def plain_ce_loss(plain_output):
+    """The CE loss of a model whose output comes from ``plain_output``."""
+    from datamining_recblr_torch.models.base import ce_loss
+
+    def loss(model, batch, step):
+        out = plain_output(model, batch["item_seq"], batch["item_seq_len"], step=step)
+        return ce_loss(model._mask_padded_vocab(model._logits(out), value=-1e30),
+                       batch["pos_item"], batch["weight"])
+    return loss
+
+
+def plain_cloze_loss(model, batch, step):
+    """BERT4Rec's cloze loss of ``step``'s draw through the plain versions
+    of its kernels (the prologue, the layer, the selected-positions top
+    layer, the whole-table CE), with the seeds the model draws."""
+    seq, order, tgt, valid = model.cloze_draw(batch["item_seq"], batch["item_seq_len"], step)
+    t = seq.shape[1]
+    p_hidden, p_attn, seeds = model.dropout_seeds(step)
+    x = FL.fused_ln_dropout_plain(model.embed(seq).to(model.compute_dtype),
+                                  model.position_embedding[:t].float(),
+                                  model.input_ln["scale"].float(),
+                                  model.input_ln["bias"].float(), p_hidden, seeds[-1])
+    lens = (seq != 0).sum(1, dtype=torch.int32)
+    n = len(model.encoder)
+    for li, layer in enumerate(model.encoder):
+        flat = L.flat_block_params(layer)
+        drop = (model.hidden_act, p_hidden, p_attn, seeds[li])
+        if li == n - 1:
+            x = FB.fused_transformer_layer_sel_plain(x, lens, order, flat, model.n_heads, *drop)
+        else:
+            x = FB.fused_transformer_layer_plain(x, lens, flat, False, model.n_heads, *drop)
+    out = model.output_head(x)
+    nll = FCE.fused_softmax_ce_plain(out.reshape(-1, out.shape[-1]),
+                                     model.item_embedding[: model.n_items], tgt.reshape(-1),
+                                     model.output_bias[: model.n_items],
+                                     mm_bf16=model.compute_dtype == torch.bfloat16)
+    w = valid.float() * batch["weight"].float()[:, None]
+    return (nll.reshape(valid.shape) * w).sum() / w.sum().clamp_min(1.0)
+
+
 # ---------------------------------------------------------------------------
 # training: the bench.py shape (batch 2,048, CE, Adam)
 # ---------------------------------------------------------------------------
 
 # per trained model: its phases' prefix, the kernels one step launches,
-# its dropout, the step's reference through the plain versions, and the
-# floor of each gradient's tolerance as a share of the largest gradient
-# (SASRec's b_k gradient is zero up to rounding)
+# its dropout, the step's loss through the plain versions, and the floor
+# of each gradient's tolerance as a share of the largest gradient (the
+# attention baselines' b_k gradient is zero up to rounding)
 TRAINED = {
-    "RecBLR": ("train", LAUNCH_COUNTED, {"dropout_prob": DROPOUT}, plain_seq_output, 0.0),
+    "RecBLR": ("train", LAUNCH_COUNTED, {"dropout_prob": DROPOUT},
+               plain_ce_loss(plain_seq_output), 0.0),
     "SASRec": ("sasrec-train", SAS_COUNTED,
                {"hidden_dropout_prob": SAS_DROPOUT, "attn_dropout_prob": SAS_DROPOUT},
-               plain_baseline_output, 1e-6),
+               plain_ce_loss(plain_baseline_output), 1e-6),
+    "BERT4Rec": ("bert4rec-train", B4R_COUNTED,
+                 {"hidden_dropout_prob": B4R_DROPOUT, "attn_dropout_prob": B4R_DROPOUT},
+                 plain_cloze_loss, 1e-6),
 }
 
 
@@ -730,10 +972,9 @@ def train_step_phase(dev, dtype_name, name="RecBLR", steps=TRAIN_STEPS):
     step against the same step through the plain versions, and the step
     time."""
     from datamining_recblr_torch.data.synthetic import synthetic_splits
-    from datamining_recblr_torch.models.base import ce_loss
     from datamining_recblr_torch.train.trainer import Trainer
 
-    prefix, counted, _, plain_output, floor = TRAINED[name]
+    prefix, counted, _, plain_loss, floor = TRAINED[name]
     cfg = _train_config(name, dtype_name)
     model = get_model(name)(cfg, N_ITEMS, T, generator=torch.Generator().manual_seed(SEED))
     check(_at_full_width(model), f"{name}: not the fused path at full width")
@@ -763,9 +1004,7 @@ def train_step_phase(dev, dtype_name, name="RecBLR", steps=TRAIN_STEPS):
     launches = tuple(fn.launches for fn in counted)
     got = {k: v.grad.detach().clone() for k, v in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    out = plain_output(model, batch["item_seq"], batch["item_seq_len"], step=7)
-    want_loss = ce_loss(model._mask_padded_vocab(model._logits(out), value=-1e30),
-                        batch["pos_item"], batch["weight"])
+    want_loss = plain_loss(model, batch, 7)
     want_loss.backward()
     want = {k: v.grad.detach() for k, v in model.named_parameters()}
     model.zero_grad(set_to_none=True)
@@ -1313,6 +1552,97 @@ def attn_training_kernel_times(dev):
     return rows
 
 
+def b4r_training_kernel_times(dev):
+    """The four new kernels of BERT4Rec's training step at its shapes, fp32:
+    the selected-positions layer at B 2,048, T 200, S 40, p = 0.2 (the
+    forward keeping what the backward reads) and the CE at N 81,920, V
+    3,417, D 64 with a bias, each beside its bound, its plain version (a
+    backward's: autograd's backward of the plain forward, its graph built
+    once) and, for the CE, one PyTorch call of the same function:
+    ``F.cross_entropy(x @ table.T + bias, tgt, reduction="none")`` and
+    ``autograd.grad`` through it, checked first against the plain version.
+    No single call computes row 12."""
+    gen = torch.Generator().manual_seed(SEED + 12)
+    p = block_params(gen, dev)
+    b, n = TRAIN_B, TRAIN_B * MASK_LEN
+    x = torch.randn((b, T, D), generator=gen).to(dev)
+    lens = torch.randint(2, T + 1, (b,), generator=gen).to(dev)
+    sel = b4r_sel_idx(gen, b, T, MASK_LEN).to(dev)
+    d3 = torch.randn((b, MASK_LEN, D), generator=gen).to(dev)
+    xc = torch.randn((n, D), generator=gen).to(dev)
+    table = (0.3 * torch.randn((N_ITEMS, D), generator=gen)).to(dev)
+    bias = (0.1 * torch.randn((N_ITEMS,), generator=gen)).to(dev)
+    tgt = torch.randint(1, N_ITEMS, (n,), generator=gen).to(dev)
+    dnll = torch.rand((n,), generator=gen).to(dev)
+    drop = (B4R_DROPOUT, B4R_DROPOUT, 4242)
+    _, s12 = FB.fused_transformer_layer_sel_train(x, lens, sel, p, HEADS, "gelu", *drop)
+    _, lse = FCE.fused_softmax_ce_train(xc, table, tgt, bias)
+    times = {
+        "fused_transformer_layer_sel": time_ms(lambda: FB.fused_transformer_layer_sel_train(
+            x, lens, sel, p, HEADS, "gelu", *drop)),
+        "fused_transformer_layer_sel_bwd": time_ms(lambda: FB.fused_transformer_layer_sel_bwd(
+            x, lens, sel, d3, p, HEADS, "gelu", *drop, saved=s12)),
+        "fused_softmax_ce": time_ms(lambda: FCE.fused_softmax_ce_train(xc, table, tgt, bias)),
+        "fused_softmax_ce_bwd": time_ms(lambda: FCE.fused_softmax_ce_bwd(
+            xc, table, tgt, dnll, bias, lse=lse)),
+    }
+    del s12
+    plain = {}
+    cp = {"table": table, "bias": bias}
+    for name, fn, pp, inp, dout in (
+        ("fused_transformer_layer_sel", lambda a, q: FB.fused_transformer_layer_sel_plain(
+            a, lens, sel, q, HEADS, "gelu", *drop), p, x, d3),
+        ("fused_softmax_ce", lambda a, q: FCE.fused_softmax_ce_plain(
+            a, q["table"], tgt, q["bias"]), cp, xc, dnll),
+    ):
+        with torch.no_grad():
+            plain[name] = time_ms(lambda: fn(inp, pp), reps=5, warmup=1)
+        xl = inp.clone().requires_grad_()
+        ql = {k: v.clone().requires_grad_() for k, v in pp.items()}
+        out = fn(xl, ql)
+        inputs = [xl, *ql.values()]
+        plain[name + "_bwd"] = time_ms(lambda: torch.autograd.grad(out, inputs, dout,
+                                                                   retain_graph=True),
+                                       reps=5, warmup=1)
+        del out, inputs, xl, ql
+    # the library yardstick, checked against the plain version first
+    xl, tl, bl = (a.clone().requires_grad_() for a in (xc, table, bias))
+    lib_out = F.cross_entropy(xl @ tl.T + bl, tgt, reduction="none")
+    with torch.no_grad():
+        want = FCE.fused_softmax_ce_plain(xc, table, tgt, bias)
+    lib_err = float((lib_out.detach() - want).abs().max())
+    lib_ok = lib_err <= 1e-4 * float(want.abs().max())
+    phase("library-vs-plain", call="F.cross_entropy(x @ table.T + bias)", N=n, V=N_ITEMS,
+          max_abs_err=f"{lib_err:.3e}", tol="1e-4*max|plain|", ok=lib_ok)
+    check(lib_ok, "F.cross_entropy does not compute the plain CE's function")
+    with torch.no_grad():
+        lib = {"fused_softmax_ce": time_ms(lambda: F.cross_entropy(xc @ table.T + bias, tgt,
+                                                                   reduction="none")),
+               "fused_transformer_layer_sel": None, "fused_transformer_layer_sel_bwd": None}
+    lib["fused_softmax_ce_bwd"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, [xl, tl, bl], dnll, retain_graph=True))
+    del lib_out
+    lc = lens.cpu()
+    bounds = {
+        "fused_transformer_layer_sel": sel_bound_ms(lc, MASK_LEN, p, 4, stash=True),
+        "fused_transformer_layer_sel_bwd": sel_bwd_bound_ms(lc, MASK_LEN, p, 4),
+        "fused_softmax_ce": ce_bound_ms(n, N_ITEMS, 4, train=True),
+        "fused_softmax_ce_bwd": ce_bwd_bound_ms(n, N_ITEMS, 4),
+    }
+    rows = {}
+    for name, ms in times.items():
+        bound, flops, by = bounds[name]
+        lib_ms = lib[name]
+        phase("kernel-time", kernel=name, B=b, T=T, S=MASK_LEN, N=n, V=N_ITEMS, dtype="float32",
+              p=B4R_DROPOUT if "sel" in name else 0.0, ms=f"{ms:.4f}",
+              plain_ms=f"{plain[name]:.4f}",
+              library_ms=f"{lib_ms:.4f}" if lib_ms is not None else "none",
+              bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}", bound_by=by,
+              share_of_bound=f"{bound / ms:.4f}")
+        rows[name] = (ms, plain[name], bound, by, lib_ms)
+    return rows
+
+
 KERNELS = (
     ("fused_recurrent_layer", "datamining_recblr_torch/csrc/fused_layer.cu",
      "datamining_recblr_tpu/ops/fused_layer.py:245"),
@@ -1338,6 +1668,16 @@ ATTN_KERNELS = (
     ("fused_transformer_layer_last_bwd", "datamining_recblr_torch/csrc/fused_block_last_bwd.cu",
      "datamining_recblr_tpu/ops/fused_block.py:655"),
 )
+B4R_KERNELS = (
+    ("fused_transformer_layer_sel", "datamining_recblr_torch/csrc/fused_block_sel.cu",
+     "datamining_recblr_tpu/ops/fused_block.py:968"),
+    ("fused_softmax_ce", "datamining_recblr_torch/csrc/fused_ce.cu",
+     "datamining_recblr_tpu/ops/fused_ce.py:84"),
+    ("fused_transformer_layer_sel_bwd", "datamining_recblr_torch/csrc/fused_block_sel_bwd.cu",
+     "datamining_recblr_tpu/ops/fused_block.py:995"),
+    ("fused_softmax_ce_bwd", "datamining_recblr_torch/csrc/fused_ce.cu",
+     "datamining_recblr_tpu/ops/fused_ce.py:99"),
+)
 
 
 def main():
@@ -1352,6 +1692,8 @@ def main():
     attn_errs = attn_kernels_vs_plain(dev)
     attn_train_errs = attn_train_kernels_vs_plain(dev)
     attn_mask_bits(dev)
+    b4r_errs = b4r_kernels_vs_plain(dev)
+    b4r_mask_bits(dev)
     serve = {(name, dt): serving(dev, name, dt)
              for name in SERVED for dt in ("float32", "bfloat16")}
     train = {(name, dt): train_step_phase(dev, dt, name)
@@ -1362,6 +1704,7 @@ def main():
     rows = training_kernel_times(dev)
     attn_kernel_times(dev)
     sas_rows = attn_training_kernel_times(dev)
+    b4r_rows = b4r_training_kernel_times(dev)
     # launches: each model's kernels in one training step of its main path
     # (fp32), the forwards' launches per recommend() beside them (RecBLR's;
     # the attention kernels' in SASRec's and BERT4Rec's)
@@ -1394,6 +1737,15 @@ def main():
             entry["launches_per_recommend"] = {m: serve[m, "float32"]["launches"][i]
                                                for m in ("SASRec", "BERT4Rec")}
         kernels.append(entry)
+    b4r_launches = dict(zip((fn.__name__ for fn in B4R_COUNTED),
+                            train["BERT4Rec", "float32"]["launches"]))
+    for name, src, tpu in B4R_KERNELS:
+        ms, plain, bound, by, lib = b4r_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": b4r_launches[name], "max_abs_err": b4r_errs[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
+        })
     serve_summary = {}
     for (name, dt), out in serve.items():
         tag = ("" if name == "RecBLR" else name.lower() + "_") + SHORT_DTYPE[dt]

@@ -1,5 +1,5 @@
 // Shared device code of the transformer-layer backward kernels
-// (fused_block_bwd.cu, fused_block_last_bwd.cu).
+// (fused_block_bwd.cu, fused_block_last_bwd.cu, fused_block_sel_bwd.cu).
 //
 // A layer's backward reads what its training forward kept: the fp32
 // q/k/v (last-query layer: k/v) projections and the attention context.
@@ -31,6 +31,12 @@ namespace recblr {
 
 constexpr int TR = 32;  // rows per T' item
 constexpr int PR = 32;  // positions per P' item
+
+// Which rows a T' or P' pass walks, and where each row's query sits:
+// every position of every row (the full layer), each batch row at its
+// position lens - 1 (the last-query layer), or each batch row at its S
+// selected positions sel[b, s] (the selected-positions layer).
+enum RowMode { ROWS_ALL = 0, ROWS_LAST = 1, ROWS_SEL = 2 };
 
 // Offsets of each parameter's gradient in a flat row of P floats, in
 // BlockParams order.
@@ -65,17 +71,18 @@ inline size_t attn_tail_bwd_smem_bytes(int D) {
   return sizeof(float) * ((size_t)TR * (8 * D + 2 * FC) + 2 * TR);
 }
 
-// LAST = false: row n of N = B*T is (b, t) = (n / T, n % T); x, ctx, dout,
-// dxr and dctx are [N, D].  LAST = true: row n of N = B is batch row n at
+// ROWS_ALL: row n of N = B*T is (b, t) = (n / T, n % T); x, ctx, dout,
+// dxr and dctx are [N, D].  ROWS_LAST: row n of N = B is batch row n at
 // its query position, x the selected row (zeros where none); ctx, dout,
-// dxr and dctx are [B, D].
-template <typename Tin, bool LAST>
+// dxr and dctx are [B, D].  ROWS_SEL: row n of N = B*S is batch row n / S
+// at position sel[n], x that row; ctx, dout, dxr and dctx are [B*S, D].
+template <typename Tin, int MODE>
 __global__ void __launch_bounds__(ATT_THREADS)
 attn_tail_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
                      const float* __restrict__ ctx, const Tin* __restrict__ dout, BlockParams p,
                      Dropout drh, float* __restrict__ dxr, float* __restrict__ dctx,
                      float* __restrict__ partial, BlockGradLayout gl, int N, int T, int D,
-                     int I, int act) {
+                     int I, int act, const int* __restrict__ sel, int S) {
   extern __shared__ float smem[];
   constexpr bool RB = IS_BF16<Tin>;
   float* xs = smem;            // [TR, D]  the residual input
@@ -97,9 +104,12 @@ attn_tail_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
     const int M = min(TR, N - n0);
     // mask coordinates of row r
     auto coord = [&](int r, int& rb, int& rt) {
-      if (LAST) {
+      if (MODE == ROWS_LAST) {
         rb = n0 + r;
         rt = last_pos(lens[n0 + r], T);
+      } else if (MODE == ROWS_SEL) {
+        rb = (n0 + r) / S;
+        rt = sel_pos(sel[n0 + r], T);
       } else {
         rb = (n0 + r) / T;
         rt = (n0 + r) % T;
@@ -111,9 +121,12 @@ attn_tail_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
       float xv = 0.f, cv = 0.f, gv = 0.f;
       if (r < M) {
         const size_t o = (size_t)(n0 + r) * D + d;
-        if (LAST) {
+        if (MODE == ROWS_LAST) {
           const int nv = valid_len(lens[n0 + r], T);
           if (nv > 0) xv = load_act(x, ((size_t)(n0 + r) * T + nv - 1) * D + d);
+        } else if (MODE == ROWS_SEL) {
+          const int bb = (n0 + r) / S;
+          xv = load_act(x, ((size_t)bb * T + sel_pos(sel[n0 + r], T)) * D + d);
         } else {
           xv = load_act(x, o);
         }
@@ -233,22 +246,26 @@ inline size_t proj_bwd_smem_bytes(int D, int nproj) {
   return sizeof(float) * (size_t)PR * (2 * D + nproj * D);
 }
 
-// Items are tiles of PR of the B*T positions (row-major).  LAST = false:
+// Items are tiles of PR of the B*T positions (row-major).  ROWS_ALL:
 // dproj [B*T, 3D] holds dq, dk, dv and dx = dxr + dproj @ [W_q W_k W_v]^T
-// with dxr [B*T, D].  LAST = true: dproj [B*T, 2D] holds dk, dv and dx =
-// dproj @ [W_k W_v]^T, plus dxr[b] [B, D] at each row's position lens - 1.
-template <typename Tin, bool LAST>
+// with dxr [B*T, D].  ROWS_LAST and ROWS_SEL: dproj [B*T, 2D] holds dk, dv
+// and dx = dproj @ [W_k W_v]^T, plus dxr[b] [B, D] at each row's position
+// lens - 1 (ROWS_LAST), or plus the sum over s, in order, of dxr[b, s]
+// [B, S, D] at the positions sel[b, s] (ROWS_SEL: repeated positions add
+// up, one writer per element).
+template <typename Tin, int MODE>
 __global__ void __launch_bounds__(ATT_THREADS)
 proj_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
                 const float* __restrict__ dproj, const float* __restrict__ dxr,
                 Tin* __restrict__ dx, BlockParams p, float* __restrict__ partial,
-                BlockGradLayout gl, int N, int T, int D) {
+                BlockGradLayout gl, int N, int T, int D, const int* __restrict__ sel, int S) {
   extern __shared__ float smem[];
   constexpr bool RB = IS_BF16<Tin>;
-  constexpr int NP = LAST ? 2 : 3;
-  const float* w[3] = {LAST ? p.w_k : p.w_q, LAST ? p.w_v : p.w_k, p.w_v};
-  const int gw[3] = {LAST ? BG_W_K : BG_W_Q, LAST ? BG_W_V : BG_W_K, BG_W_V};
-  const int gb[3] = {LAST ? BG_B_K : BG_B_Q, LAST ? BG_B_V : BG_B_K, BG_B_V};
+  constexpr bool KV = MODE != ROWS_ALL;  // dproj holds dk, dv only
+  constexpr int NP = KV ? 2 : 3;
+  const float* w[3] = {KV ? p.w_k : p.w_q, KV ? p.w_v : p.w_k, p.w_v};
+  const int gw[3] = {KV ? BG_W_K : BG_W_Q, KV ? BG_W_V : BG_W_K, BG_W_V};
+  const int gb[3] = {KV ? BG_B_K : BG_B_Q, KV ? BG_B_V : BG_B_K, BG_B_V};
   float* xs = smem;           // [PR, D]   x rows
   float* ds = xs + PR * D;    // [PR, NP*D] their projection grads
   float* dxs = ds + PR * NP * D;  // [PR, D]
@@ -275,11 +292,16 @@ proj_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
       const int r = i / D, d = i % D;
       const int n = w0 + r;
       float v = dxs[i];
-      if (!LAST) {
+      if (MODE == ROWS_ALL) {
         v += dxr[(size_t)n * D + d];
-      } else {
+      } else if (MODE == ROWS_LAST) {
         const int b = n / T;
         if (n % T == valid_len(lens[b], T) - 1) v += dxr[(size_t)b * D + d];
+      } else {
+        const int b = n / T, t = n % T;
+        for (int s = 0; s < S; ++s)
+          if (sel_pos(__ldg(sel + (size_t)b * S + s), T) == t)
+            v += dxr[((size_t)b * S + s) * D + d];
       }
       store_act(dx, (size_t)n * D + d, v);
     }

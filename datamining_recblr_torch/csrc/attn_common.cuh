@@ -1,7 +1,7 @@
 // Shared device code of the transformer-layer kernels (fused_block.cu,
-// fused_block_last.cu and, through attn_bwd.cuh, their backwards): the
-// parameter struct, a small shared-memory matmul, the masked softmax,
-// the activations and the layer's tail after attention.
+// fused_block_last.cu, fused_block_sel.cu and, through attn_bwd.cuh, their
+// backwards): the parameter struct, a small shared-memory matmul, the
+// masked softmax, the activations and the layer's tail after attention.
 //
 // All math is fp32.  With bf16 input (RB = true) every matmul operand of
 // the forward is rounded to bf16 as it is read and the products are
@@ -175,6 +175,18 @@ __device__ __forceinline__ float act_bwd(int act, float x) {
 __device__ __forceinline__ int last_pos(int len, int T) {
   const int n = valid_len(len, T);
   return n > 0 ? n - 1 : 0;
+}
+
+// A selected position of the selected-positions layer, clamped into
+// [0, T - 1] (ops/fused_block.py sel_positions): its query row and the
+// coordinates of its masks.
+__device__ __forceinline__ int sel_pos(int v, int T) { return min(max(v, 0), T - 1); }
+
+// The selected-positions layer's query tile: its S queries in the fewest
+// tiles of at most 32 rows, each a multiple of 8 (S 40: 24 and 16).
+inline int sel_tile(int S) {
+  const int n = (S + 31) / 32;
+  return ((S + n - 1) / n + 7) / 8 * 8;
 }
 
 // probs[i, j] *= the mask of head h at (row, query qpos(i), key j) for

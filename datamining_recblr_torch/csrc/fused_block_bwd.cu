@@ -138,9 +138,9 @@ cudaError_t block_bwd(const Tin* x, const int* lens, const Tin* dout, BlockParam
   const int N = B * T;
 
   const size_t s1 = attn_tail_bwd_smem_bytes(D);
-  if ((e = set_smem(attn_tail_bwd_kernel<Tin, false>, s1)) != cudaSuccess) return e;
-  attn_tail_bwd_kernel<Tin, false><<<min(G, (N + TR - 1) / TR), ATT_THREADS, s1, stream>>>(
-      x, nullptr, ctx, dout, p, drh, dxr, dctx, partial, gl, N, T, D, I, act);
+  if ((e = set_smem(attn_tail_bwd_kernel<Tin, ROWS_ALL>, s1)) != cudaSuccess) return e;
+  attn_tail_bwd_kernel<Tin, ROWS_ALL><<<min(G, (N + TR - 1) / TR), ATT_THREADS, s1, stream>>>(
+      x, nullptr, ctx, dout, p, drh, dxr, dctx, partial, gl, N, T, D, I, act, nullptr, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   // the query tile: dk and dv in shared memory while two blocks fit an
@@ -156,9 +156,9 @@ cudaError_t block_bwd(const Tin* x, const int* lens, const Tin* dout, BlockParam
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const size_t s3 = proj_bwd_smem_bytes(D, 3);
-  if ((e = set_smem(proj_bwd_kernel<Tin, false>, s3)) != cudaSuccess) return e;
-  proj_bwd_kernel<Tin, false><<<min(G, (N + PR - 1) / PR), ATT_THREADS, s3, stream>>>(
-      x, nullptr, dqkv, dxr, dx, p, partial, gl, N, T, D);
+  if ((e = set_smem(proj_bwd_kernel<Tin, ROWS_ALL>, s3)) != cudaSuccess) return e;
+  proj_bwd_kernel<Tin, ROWS_ALL><<<min(G, (N + PR - 1) / PR), ATT_THREADS, s3, stream>>>(
+      x, nullptr, dqkv, dxr, dx, p, partial, gl, N, T, D, nullptr, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   reduce_partials_kernel<<<(gl.total + 255) / 256, 256, 0, stream>>>(partial, G, gl.total,

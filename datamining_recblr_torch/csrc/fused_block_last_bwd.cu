@@ -136,9 +136,9 @@ cudaError_t block_last_bwd(const Tin* x, const int* lens, const Tin* dout, Block
   const BlockGradLayout gl = block_grad_layout(D, I);
 
   const size_t s1 = attn_tail_bwd_smem_bytes(D);
-  if ((e = set_smem(attn_tail_bwd_kernel<Tin, true>, s1)) != cudaSuccess) return e;
-  attn_tail_bwd_kernel<Tin, true><<<min(G, (B + TR - 1) / TR), ATT_THREADS, s1, stream>>>(
-      x, lens, ctx, dout, p, drh, dxr, dctx, partial, gl, B, T, D, I, act);
+  if ((e = set_smem(attn_tail_bwd_kernel<Tin, ROWS_LAST>, s1)) != cudaSuccess) return e;
+  attn_tail_bwd_kernel<Tin, ROWS_LAST><<<min(G, (B + TR - 1) / TR), ATT_THREADS, s1, stream>>>(
+      x, lens, ctx, dout, p, drh, dxr, dctx, partial, gl, B, T, D, I, act, nullptr, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const size_t s2 = last_attn_bwd_smem_bytes(T, D);
@@ -149,9 +149,9 @@ cudaError_t block_last_bwd(const Tin* x, const int* lens, const Tin* dout, Block
 
   const int N = B * T;
   const size_t s3 = proj_bwd_smem_bytes(D, 2);
-  if ((e = set_smem(proj_bwd_kernel<Tin, true>, s3)) != cudaSuccess) return e;
-  proj_bwd_kernel<Tin, true><<<min(G, (N + PR - 1) / PR), ATT_THREADS, s3, stream>>>(
-      x, lens, dkv, dxr, dx, p, partial, gl, N, T, D);
+  if ((e = set_smem(proj_bwd_kernel<Tin, ROWS_LAST>, s3)) != cudaSuccess) return e;
+  proj_bwd_kernel<Tin, ROWS_LAST><<<min(G, (N + PR - 1) / PR), ATT_THREADS, s3, stream>>>(
+      x, lens, dkv, dxr, dx, p, partial, gl, N, T, D, nullptr, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   reduce_partials_kernel<<<(gl.total + 255) / 256, 256, 0, stream>>>(partial, G, gl.total,

@@ -1,9 +1,10 @@
 """Sequential-recommender model contract and its loss (counterpart of
 ``datamining_recblr_tpu/models/base.py``): ``forward(item_seq,
 item_seq_len, step) -> [B, H]``, the item embedding lookup, the
-vocab-padding rule, full-catalog scoring and the CE training loss, as an
-``nn.Module`` that holds its parameters under the JAX parameter tree's
-names.  The BPR loss is not ported yet.
+vocab-padding rule, full-catalog scoring and the CE training loss (the
+whole-table CE kernel from 8,192 rows on the card, as the JAX package's
+gate), as an ``nn.Module`` that holds its parameters under the JAX
+parameter tree's names.  The BPR loss is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from datamining_recblr_torch.ops import fused_ce as FCE
 
 _DTYPES = {
     "float32": torch.float32,
@@ -24,11 +27,6 @@ _DTYPES = {
 # block width (ops/fused_ce.py:65-66, 244).  The port keeps the same rule
 # so that padded shapes, and so interop, match.
 _CE_BV = 2048
-
-
-def _ce_supports(v: int, d: int) -> bool:
-    """Whether the [V, D] table fits the whole-table CE kernel."""
-    return v * d * 4 <= 32 * 1024 * 1024 and d <= 512
 
 
 def resolve_device(device=None) -> torch.device:
@@ -55,7 +53,12 @@ def ce_loss(logits, targets, weights=None):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets.long()[:, None])[:, 0]
-    nll = logz - tgt
+    return weighted_mean(logz - tgt, weights)
+
+
+def weighted_mean(nll, weights=None):
+    """The mean of per-row losses, or with weights sum(nll w) / max(sum w,
+    1)."""
     if weights is None:
         return nll.mean()
     w = weights.float()
@@ -81,7 +84,7 @@ class SequentialModel(nn.Module):
             config.get("vocab_multiple") or mesh_shape.get("model", 1) or 1
         )
         hidden = int(config.get("hidden_size", 64) or 64)
-        if not _ce_supports(self.n_items, hidden):
+        if not FCE.supports(self.n_items, hidden):
             self._vocab_mult = math.lcm(self._vocab_mult, _CE_BV)
         self.n_items_padded = self.pad_vocab_rows(self.n_items)
 
@@ -131,16 +134,32 @@ class SequentialModel(nn.Module):
         emb = self.item_embedding[item_ids].to(seq_output.dtype)
         return (seq_output * emb).sum(-1)
 
+    def _use_fused_ce(self, v: int, d: int, rows: int) -> bool:
+        """The whole-table CE kernel's gate (the JAX package's
+        ``_use_fused_ce`` on one device): on the card, when the [V, D]
+        table fits the kernel and the loss has at least ``MIN_ROWS`` rows,
+        below which the JAX package keeps its XLA CE."""
+        return self.device.type == "cuda" and FCE.supports(v, d) and rows >= FCE.MIN_ROWS
+
     def calculate_loss(self, batch, step=None):
         """batch: item_seq [B, T], item_seq_len [B], pos_item [B] and an
         optional weight [B] (0 for padded rows).  CE over the whole
-        catalog, padded vocab columns at -1e30; dropout on in training
-        mode with the global ``step``."""
+        catalog, padded vocab columns at -1e30 (the fused CE kernel from
+        ``MIN_ROWS`` rows on the card); dropout on in training mode with
+        the global ``step``."""
         if self.loss_type != "CE":
-            raise NotImplementedError(f"loss_type {self.loss_type!r} is not ported; CE is")
+            raise NotImplementedError(f"loss_type {self.loss_type!r} is not ported; CE is "
+                                      "(BPR: ROADMAP.md queue A item 8)")
         seq_output = self.forward(batch["item_seq"], batch["item_seq_len"], step=step)
+        weights = batch.get("weight")
+        table = self.item_embedding
+        if self._use_fused_ce(*table.shape, rows=seq_output.shape[0]):
+            nll = FCE.fused_softmax_ce(seq_output, table, batch["pos_item"],
+                                       valid_v=self.n_items,
+                                       mm_bf16=self.compute_dtype == torch.bfloat16)
+            return weighted_mean(nll, weights)
         logits = self._mask_padded_vocab(self._logits(seq_output), value=-1e30)
-        return ce_loss(logits, batch["pos_item"], batch.get("weight"))
+        return ce_loss(logits, batch["pos_item"], weights)
 
 
 def get_model(name: str):

@@ -195,7 +195,7 @@ def flat_block_params(layer):
 
 def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu",
                               hidden_dropout=0.0, attn_dropout=0.0, seeds=None, lens=None,
-                              causal=None, last_only=False):
+                              causal=None, last_only=False, select=None):
     """The post-LN transformer stack; ``seeds`` holds one dropout seed per
     layer (None: dropout off).
 
@@ -203,7 +203,10 @@ def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu
     composition chosen (``FORCE_FUSED_ATTENTION``), each layer runs
     ``fused_transformer_layer`` where ``fused_block.supports`` passes;
     with ``last_only`` the top layer runs ``fused_transformer_layer_last``
-    and [B, D] comes back, which the caller must not gather again.  On a
+    and [B, D] comes back, with ``select`` (int [B, S] positions) the top
+    layer runs ``fused_transformer_layer_sel`` and [B, S, D] comes back;
+    the caller must not gather again.  ``select`` needs a bidirectional
+    stack (the selected-positions layer has no causal mask).  On a
     CUDA tensor a shape that ``supports`` rejects raises: the JAX package
     runs its fused attention kernel there (queue B row 15, not ported).
     Otherwise the unfused composition runs and returns [B, T, D];
@@ -214,6 +217,9 @@ def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu
     if seeds is None:
         hidden_dropout = attn_dropout = 0.0
         seeds = [0] * len(layers)
+    if select is not None and causal:
+        raise ValueError("select= requires a bidirectional stack; the selected-positions "
+                         "layer has no causal mask")
     if lens is not None and causal is not None and _use_fused_attention():
         b, t, h = x.shape
         inner = layers[0]["ffn_1"]["w"].shape[1]
@@ -224,6 +230,9 @@ def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu
                 if last_only and li == len(layers) - 1:
                     return FB.fused_transformer_layer_last(x, lens, fp, n_heads, hidden_act,
                                                            *drop)
+                if select is not None and li == len(layers) - 1:
+                    return FB.fused_transformer_layer_sel(x, lens, select, fp, n_heads,
+                                                          hidden_act, *drop)
                 x = FB.fused_transformer_layer(x, lens, fp, bool(causal), n_heads, hidden_act,
                                                *drop)
             return x

@@ -74,9 +74,10 @@ class SASRec(SequentialModel):
             return 0.0, 0.0, [0] * n
         return (*p, philox.step_seeds(self.seed, step, n))
 
-    def _encode(self, item_seq, last_only, step=None):
+    def _encode(self, item_seq, last_only, step=None, select=None):
         """Embedding, prologue and encoder: [B, D] when the fused top layer
-        computed the last position only, else [B, T, D]."""
+        computed the last position only, [B, S, D] when it computed the
+        positions ``select`` [B, S] only, else [B, T, D]."""
         t = item_seq.shape[1]
         p_hidden, p_attn, seeds = self.dropout_seeds(step)
         x = self.embed(item_seq).to(self.compute_dtype)
@@ -88,7 +89,7 @@ class SASRec(SequentialModel):
             lambda: L.attention_mask(item_seq, bidirectional=not self.causal),
             n_heads=self.n_heads, hidden_act=self.hidden_act, hidden_dropout=p_hidden,
             attn_dropout=p_attn, seeds=seeds[:-1], lens=lens, causal=self.causal,
-            last_only=last_only,
+            last_only=last_only, select=select,
         )
 
     def forward(self, item_seq, item_seq_len, step=None):

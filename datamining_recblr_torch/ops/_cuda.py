@@ -24,7 +24,8 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("fused_layer.cu", "fused_layer_last.cu", "fused_layer_bwd.cu",
            "fused_layer_last_bwd.cu", "ln_dropout.cu", "fused_block.cu",
-           "fused_block_last.cu", "fused_block_bwd.cu", "fused_block_last_bwd.cu")
+           "fused_block_last.cu", "fused_block_bwd.cu", "fused_block_last_bwd.cu",
+           "fused_block_sel.cu", "fused_block_sel_bwd.cu", "fused_ce.cu")
 HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -74,6 +75,17 @@ _SIGNATURES = {
     "fused_block_last_bwd.cu": {
         "recblr_block_last_bwd": [_P] * 10 + [_I] + [_P] * 2 + [_I] * 6 + [_F, _I]
         + _D1 * 2 + [_I, _P],
+    },
+    "fused_block_sel.cu": {
+        "recblr_block_sel_fwd": [_P] * 8 + [_I] * 7 + [_F, _I] + _D1 * 2 + [_I, _P],
+    },
+    "fused_block_sel_bwd.cu": {
+        "recblr_block_sel_bwd": [_P] * 13 + [_I] + [_P] * 2 + [_I] * 7 + [_F, _I] + _D1 * 2
+        + [_I, _P],
+    },
+    "fused_ce.cu": {
+        "recblr_ce_fwd": [_P] * 6 + [_I] * 6 + [_I, _P],
+        "recblr_ce_bwd": [_P] * 7 + [_I] + [_P] * 2 + [_I] * 6 + [_I, _P],
     },
 }
 

@@ -11,7 +11,7 @@ both attention baselines (SASRec causal, BERT4Rec bidirectional) run:
     r1    = LN1(dropout_m1(sum_h (p_h v_h) W_o[h] + b_o) + x)
     out   = LN2(dropout_m3(act(r1 W_1 + b_1) W_2 + b_2) + r1)
 
-Four kernels:
+Six kernels:
 
 * ``fused_transformer_layer`` replaces ``_fwd_kernel`` (``fused_block.py:260``,
   via ``_block_fwd`` :404); ``csrc/fused_block.cu``.
@@ -26,6 +26,14 @@ Four kernels:
 * its backward, ``fused_transformer_layer_last_bwd``, replaces
   ``_last_bwd_kernel`` (:655, via ``_block_last_bwd`` :803);
   ``csrc/fused_block_last_bwd.cu``.
+* ``fused_transformer_layer_sel`` replaces ``_sel_fwd_kernel`` (:968, via
+  ``_block_sel_fwd`` :1125): the bidirectional layer with queries at the
+  positions ``sel_idx [B, S]`` only (BERT4Rec's cloze positions; repeats
+  allowed), returning [B, S, D]; ``csrc/fused_block_sel.cu``.
+* its backward, ``fused_transformer_layer_sel_bwd``, replaces
+  ``_sel_bwd_kernel`` (:995, via ``_block_sel_bwd`` :1184), with the
+  query and residual cotangents of repeated positions added into dx;
+  ``csrc/fused_block_sel_bwd.cu``.
 
 The mask is additive -10000, never -inf: a row whose keys are all masked
 (lens 0) softmaxes over all T keys.  ``lens`` is each row's count of
@@ -43,17 +51,18 @@ output (M3), ``attn_dropout_p`` on each head's probabilities (mask
 keyed by the call's ``seed`` (``ops/philox.py``).  The softmax backward
 uses the undropped probabilities, ``ds = p (dp - sum dp p)`` with
 ``dp = dpd m``.  The last-query layer keys its masks by each row's
-position ``lens - 1`` (0 where nothing is selected).
+position ``lens - 1`` (0 where nothing is selected), the
+selected-positions layer by each selected position.
 
-A training forward keeps the [B, T, 3D] (last: [B, T, 2D]) fp32
+A training forward keeps the [B, T, 3D] (last, sel: [B, T, 2D]) fp32
 projections it computes anyway and the attention context [B, T, D]
-(last: [B, D]) fp32 for the backward, which recomputes the scores and
-the layer's tail from them.
+(last: [B, D]; sel: [B, S, D], with the [B, S, D] queries) fp32 for the
+backward, which recomputes the scores and the layer's tail from them.
 
 On a CPU tensor a wrapper computes its plain version (autograd gives
 the plain backward); on a CUDA tensor it launches its kernel or raises,
 and with grad enabled it runs a ``torch.autograd.Function`` whose
-backward is the backward kernel.  ``launches`` on each of the four
+backward is the backward kernel.  ``launches`` on each of the six
 public functions counts its kernel launches.
 """
 
@@ -176,11 +185,13 @@ def _layer_masks(hidden_p, attn_p, seed, n_heads, b, t, d, device, pos=None):
     """(m1, m3, prob masks) of one layer, None where the rate is 0.
     Without ``pos``: m1, m3 [B, T, D] and prob masks [B, T, T]; with
     ``pos`` [B] (the last-query layer): row b at position pos[b], m1, m3
-    [B, 1, D] and prob masks [B, 1, T]."""
+    [B, 1, D] and prob masks [B, 1, T]; with ``pos`` [B, S] (the
+    selected-positions layer): [B, S, D] and [B, S, T]."""
     def mask(mask_id, p, width):
         if pos is None:
             return philox.dropout_mask(seed, mask_id, b, t, width, p, device)
-        return philox.dropout_mask_at(seed, mask_id, pos, width, p)[:, None, :]
+        m = philox.dropout_mask_at(seed, mask_id, pos, width, p)
+        return m[:, None, :] if pos.dim() == 1 else m
 
     m1 = m3 = probs = None
     if hidden_p:
@@ -217,6 +228,35 @@ def fused_transformer_layer_plain(x, lens, params, causal, n_heads, act="gelu",
                                                  MASK_VALUE)[None])
     ctx = _attention(q, k, v, amask, n_heads, rb, probs)
     return _tail(ctx, xf, p, act, rb, m1, m3).to(x.dtype)
+
+
+def sel_positions(sel_idx, t):
+    """[B, S] long: the selected positions, clamped into [0, T - 1] (the
+    kernels never read outside the row); the coordinates of the
+    selected-positions layer's queries and masks."""
+    return sel_idx.long().clamp(0, t - 1)
+
+
+def fused_transformer_layer_sel_plain(x, lens, sel_idx, params, n_heads, act="gelu",
+                                      hidden_dropout_p=0.0, attn_dropout_p=0.0, seed=0):
+    """Plain PyTorch version of ``fused_transformer_layer_sel``: queries and
+    the residual at the positions ``sel_idx [B, S]`` (repeats allowed),
+    keys and values over all T, masked by padding alone (bidirectional);
+    masks keyed by each selected position.  Differentiable; its autograd
+    gradient (the gather's backward adds the cotangents of repeated
+    positions) is the plain version of ``fused_transformer_layer_sel_bwd``."""
+    p = params
+    xf = x.float()
+    rb = x.dtype == torch.bfloat16
+    b, t, d = x.shape
+    pos = sel_positions(sel_idx, t).to(x.device)
+    m1, m3, probs = _layer_masks(hidden_dropout_p, attn_dropout_p, seed, n_heads, b, t, d,
+                                 x.device, pos=pos)
+    xq = torch.gather(xf, 1, pos[..., None].expand(-1, -1, d))  # [B, S, D]
+    q = _mm(xq, p["w_q"], rb) + p["b_q"]
+    k, v = (_mm(xf, p[f"w_{n}"], rb) + p[f"b_{n}"] for n in "kv")
+    ctx = _attention(q, k, v, _pad_mask(lens, t, x.device), n_heads, rb, probs)
+    return _tail(ctx, xq, p, act, rb, m1, m3).to(x.dtype)
 
 
 def fused_transformer_layer_last_plain(x, lens, params, n_heads, act="gelu",
@@ -366,6 +406,52 @@ def _launch_last_fwd(x, lens32, plist, dims, n_heads, act, hidden_p, attn_p, see
     return out, kv, ctx
 
 
+def _sel32(sel_idx, x):
+    b = x.shape[0]
+    if sel_idx.dim() != 2 or sel_idx.shape[0] != b or sel_idx.shape[1] < 1 \
+            or sel_idx.device != x.device:
+        raise ValueError(f"sel_idx must be [{b}, S >= 1] on {x.device}")
+    if sel_idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"sel_idx must be an integer tensor, got {sel_idx.dtype}")
+    return sel_idx.to(torch.int32).contiguous()
+
+
+def _launch_sel_fwd(x, lens32, sel32, plist, dims, n_heads, act, hidden_p, attn_p, seed,
+                    train):
+    """The selected-positions layer forward; returns (out, kv, q, ctx):
+    the [B, T, 2D] fp32 K and V projections and, when ``train``, the
+    [B, S, D] fp32 queries and context."""
+    b, t, d, inner = dims
+    s = sel32.shape[1]
+    lib = _cuda.library("fused_block_sel.cu")
+    out = torch.empty((b, s, d), device=x.device, dtype=x.dtype)
+    kv = torch.empty((b, t, 2 * d), device=x.device, dtype=torch.float32)
+    q = torch.empty((b, s, d), device=x.device, dtype=torch.float32) if train else None
+    ctx = torch.empty_like(q) if train else None
+    with torch.cuda.device(x.device):
+        err = lib.recblr_block_sel_fwd(
+            x.data_ptr(), lens32.data_ptr(), sel32.data_ptr(), out.data_ptr(),
+            _cuda.pointer_array(plist), kv.data_ptr(), None if q is None else q.data_ptr(),
+            None if ctx is None else ctx.data_ptr(), b, t, d, s, n_heads, inner, _ACT_IDS[act],
+            1.0 / math.sqrt(d // n_heads), int(x.dtype == torch.bfloat16),
+            *_drop_args(hidden_p, attn_p, seed), x.device.index, _stream(x),
+        )
+    _cuda.check(lib, err, "fused_transformer_layer_sel")
+    fused_transformer_layer_sel.launches += 1
+    return out, kv, q, ctx
+
+
+def fused_transformer_layer_sel_train(x, lens, sel_idx, params, n_heads, act="gelu",
+                                      hidden_dropout_p=0.0, attn_dropout_p=0.0, seed=0):
+    """Selected-positions layer forward on the card that keeps what the
+    backward reads: (out, (kv [B, T, 2D], q [B, S, D], ctx [B, S, D]) fp32)."""
+    _require_cuda(x)
+    plist, dims = _param_list(x, params, n_heads, act)
+    out, kv, q, ctx = _launch_sel_fwd(x, _lens32(lens, x), _sel32(sel_idx, x), plist, dims,
+                                      n_heads, act, hidden_dropout_p, attn_dropout_p, seed, True)
+    return out, (kv, q, ctx)
+
+
 def fused_transformer_layer_train(x, lens, params, causal, n_heads, act="gelu",
                                   hidden_dropout_p=0.0, attn_dropout_p=0.0, seed=0):
     """Layer forward on the card that keeps what the backward reads:
@@ -453,8 +539,46 @@ def fused_transformer_layer_last_bwd(x, lens, dout, params, n_heads, act="gelu",
     return dx, _unflatten_grads(grads, dims)
 
 
+def fused_transformer_layer_sel_bwd(x, lens, sel_idx, dout, params, n_heads, act="gelu",
+                                    hidden_dropout_p=0.0, attn_dropout_p=0.0, seed=0, *,
+                                    saved):
+    """Backward of ``fused_transformer_layer_sel`` on the card: (dx
+    [B, T, D] in x's dtype, dense: K and V reach every position, the query
+    and the residual only the selected ones, the cotangents of repeated
+    positions added; {param name: fp32 grad}).  ``saved``: (kv, q, ctx)
+    kept by ``fused_transformer_layer_sel_train`` with the same arguments."""
+    _require_cuda(x)
+    plist, dims = _param_list(x, params, n_heads, act)
+    b, t, d, inner = dims
+    lens32 = _lens32(lens, x)
+    sel32 = _sel32(sel_idx, x)
+    s = sel32.shape[1]
+    dout = _check_dout(dout, (b, s, d), x)
+    kv, q, ctx = _check_saved(saved, ((b, t, 2 * d), (b, s, d), (b, s, d)), x)
+    dctx = torch.empty((b, s, d), device=x.device, dtype=torch.float32)
+    dxq = torch.empty_like(dctx)
+    dq = torch.empty_like(dctx)
+    dkv = torch.empty_like(kv)
+    dx = torch.empty_like(x)
+    partial, grads, g = _grad_buffers(x, dims)
+    lib = _cuda.library("fused_block_sel_bwd.cu")
+    with torch.cuda.device(x.device):
+        err = lib.recblr_block_sel_bwd(
+            x.data_ptr(), lens32.data_ptr(), sel32.data_ptr(), dout.data_ptr(),
+            _cuda.pointer_array(plist), kv.data_ptr(), q.data_ptr(), ctx.data_ptr(),
+            dctx.data_ptr(), dxq.data_ptr(), dq.data_ptr(), dkv.data_ptr(), partial.data_ptr(),
+            g, grads.data_ptr(), dx.data_ptr(), b, t, d, s, n_heads, inner, _ACT_IDS[act],
+            1.0 / math.sqrt(d // n_heads), int(x.dtype == torch.bfloat16),
+            *_drop_args(hidden_dropout_p, attn_dropout_p, seed), x.device.index, _stream(x),
+        )
+    _cuda.check(lib, err, "fused_transformer_layer_sel_bwd")
+    fused_transformer_layer_sel_bwd.launches += 1
+    return dx, _unflatten_grads(grads, dims)
+
+
 fused_transformer_layer_bwd.launches = 0
 fused_transformer_layer_last_bwd.launches = 0
+fused_transformer_layer_sel_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -495,6 +619,23 @@ class _BlockLast(torch.autograd.Function):
         dx, grads = fused_transformer_layer_last_bwd(x, lens, dout, _param_dict(plist),
                                                      *ctx.opts, saved=(kv, attn))
         return (dx, None, None, *(grads[n] for n in PARAM_NAMES))
+
+
+class _BlockSel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lens, sel_idx, opts, *plist):
+        out, saved = fused_transformer_layer_sel_train(x, lens, sel_idx, _param_dict(plist),
+                                                       *opts)
+        ctx.opts = opts
+        ctx.save_for_backward(x, lens, sel_idx, *saved, *plist)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, lens, sel_idx, kv, q, attn, *plist = ctx.saved_tensors
+        dx, grads = fused_transformer_layer_sel_bwd(x, lens, sel_idx, dout, _param_dict(plist),
+                                                    *ctx.opts, saved=(kv, q, attn))
+        return (dx, None, None, None, *(grads[n] for n in PARAM_NAMES))
 
 
 # ---------------------------------------------------------------------------
@@ -547,5 +688,31 @@ def fused_transformer_layer_last(x, lens, params, n_heads, act="gelu",
     return out
 
 
+def fused_transformer_layer_sel(x, lens, sel_idx, params, n_heads, act="gelu",
+                                hidden_dropout_p=0.0, attn_dropout_p=0.0, seed=0):
+    """Top BIDIRECTIONAL transformer layer forward at the selected
+    positions only (BERT4Rec's cloze positions), differentiable in x and
+    every param.  x: [B, T, D]; lens: int [B] (keys at col >= lens are
+    masked); sel_idx: int [B, S] positions, repeats allowed (clamped into
+    [0, T - 1]); params and dropout as for ``fused_transformer_layer``, the
+    masks keyed by each selected position.  Returns [B, S, D] in x's
+    dtype: row [b, s] is the full bidirectional layer's output at
+    position sel_idx[b, s].  Valid only as the top layer of a stack."""
+    if x.device.type == "cpu":
+        return fused_transformer_layer_sel_plain(x, lens, sel_idx, params, n_heads, act,
+                                                 hidden_dropout_p, attn_dropout_p, seed)
+    _require_cuda(x)
+    plist, dims = _param_list(x, params, n_heads, act)
+    lens32 = _lens32(lens, x)
+    sel32 = _sel32(sel_idx, x)
+    if _needs_grad(x, plist):
+        opts = (n_heads, act, float(hidden_dropout_p), float(attn_dropout_p), int(seed))
+        return _BlockSel.apply(x, lens32, sel32, opts, *plist)
+    out, _, _, _ = _launch_sel_fwd(x, lens32, sel32, plist, dims, n_heads, act,
+                                   hidden_dropout_p, attn_dropout_p, seed, False)
+    return out
+
+
 fused_transformer_layer.launches = 0
 fused_transformer_layer_last.launches = 0
+fused_transformer_layer_sel.launches = 0

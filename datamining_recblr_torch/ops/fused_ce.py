@@ -1,0 +1,258 @@
+"""Whole-table softmax cross-entropy, forward and backward: hand-written
+CUDA kernels for Hopper, each beside its plain PyTorch version.
+
+Counterpart of the whole-table path of
+``datamining_recblr_tpu/ops/fused_ce.py`` (``_ce_fwd_kernel`` via
+``_ce_fwd`` :127 and ``_ce_bwd_kernel`` via ``_ce_bwd`` :149), which the
+JAX package takes for a loss of ``MIN_ROWS`` rows or more (BERT4Rec's
+cloze loss: batch x mask budget = 81,920 rows at the bench shape):
+
+    l     = x table^T + bias            fp32; columns >= valid_v at -1e30
+    nll   = logsumexp(l) - l[target]    exp as fastmath.exp
+    g     = (softmax(l) - onehot(target)) dnll
+    dx    = g table,  dtable = g^T x,  dbias = sum_rows g
+
+With ``mm_bf16`` the logits take x and the table rounded to bf16 (fp32
+sums), dx takes g and the table rounded, dtable takes g and x unrounded
+(``fused_ce.py:114-122``).  The kernels (``csrc/fused_ce.cu``) compute the
+logits in their own bodies and never write the [N, V] logits to device
+memory; the forward keeps the per-row logsumexp for the backward.  The
+vocab-chunked path for tables beyond ``supports`` (queue B row 14) is not
+ported: the wrappers raise there on the card.
+
+On a CPU tensor ``fused_softmax_ce`` computes its plain version (its
+autograd runs the plain backward); on a CUDA tensor it launches its
+kernel or raises, and with grad enabled it runs a
+``torch.autograd.Function`` whose backward is the backward kernel.
+``launches`` on ``fused_softmax_ce`` and ``fused_softmax_ce_bwd`` counts
+their kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from datamining_recblr_torch.ops import _cuda, fastmath
+from datamining_recblr_torch.ops.fused_layer import _require_cuda, _stream
+
+NEG = -1e30
+# the JAX package's crossover below which its XLA CE is used (fused_ce.py:62)
+MIN_ROWS = 8192
+
+
+def supports(v: int, d: int) -> bool:
+    """Whether the [V, D] table takes the whole-table kernel (the JAX
+    package's VMEM-resident rule, ``fused_ce.py:65-66``)."""
+    return v * d * 4 <= 32 * 1024 * 1024 and d <= 512
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _round(a, rb):
+    return a.to(torch.bfloat16).float() if rb else a
+
+
+def _logits(x, table, bias, valid_v, mm_bf16):
+    """[N, V] fp32 logits, columns >= valid_v at -1e30."""
+    logits = _round(x.float(), mm_bf16) @ _round(table.float(), mm_bf16).t() + bias.float()
+    v = table.shape[0]
+    if valid_v < v:
+        col = torch.arange(v, device=x.device)[None, :]
+        logits = torch.where(col < valid_v, logits, torch.full((), NEG, device=x.device))
+    return logits
+
+
+def _onehot(targets, v):
+    return targets.long()[:, None] == torch.arange(v, device=targets.device)[None, :]
+
+
+def _plain_fwd(x, table, bias, targets, valid_v, mm_bf16):
+    """(nll, lse) [N] fp32."""
+    logits = _logits(x, table, bias, valid_v, mm_bf16)
+    m = logits.amax(-1, keepdim=True)
+    lse = m[:, 0] + torch.log(fastmath.exp(logits - m).sum(-1))
+    tgt = torch.where(_onehot(targets, table.shape[0]), logits, 0.0).sum(-1)
+    return lse - tgt, lse
+
+
+def fused_softmax_ce_bwd_plain(x, table, targets, dnll, bias=None, valid_v=None,
+                               mm_bf16=False):
+    """Plain PyTorch version of ``fused_softmax_ce_bwd``: (dx in x's
+    dtype, dtable fp32 [V, D], dbias fp32 [V])."""
+    v = table.shape[0]
+    bias = _bias(bias, v, x.device)
+    logits = _logits(x, table, bias, v if valid_v is None else int(valid_v), mm_bf16)
+    e = fastmath.exp(logits - logits.amax(-1, keepdim=True))
+    g = (e / e.sum(-1, keepdim=True) - _onehot(targets, v).float()) * dnll.float()[:, None]
+    dx = (_round(g, mm_bf16) @ _round(table.float(), mm_bf16)).to(x.dtype)
+    return dx, g.t() @ x.float(), g.sum(0)
+
+
+class _PlainCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, table, bias, targets, valid_v, mm_bf16):
+        ctx.save_for_backward(x, table, bias, targets)
+        ctx.opts = (valid_v, mm_bf16)
+        return _plain_fwd(x, table, bias, targets, valid_v, mm_bf16)[0]
+
+    @staticmethod
+    def backward(ctx, dnll):
+        x, table, bias, targets = ctx.saved_tensors
+        dx, dtab, dbias = fused_softmax_ce_bwd_plain(x, table, targets, dnll, bias, *ctx.opts)
+        return dx, dtab.to(table.dtype), dbias.to(bias.dtype), None, None, None
+
+
+def _bias(bias, v, device):
+    return torch.zeros((v,), device=device) if bias is None else bias
+
+
+def fused_softmax_ce_plain(x, table, targets, bias=None, valid_v=None, mm_bf16=False):
+    """Plain PyTorch version of ``fused_softmax_ce`` (any device):
+    per-row nll [N] fp32, differentiable in x, table and bias; its
+    backward is ``fused_softmax_ce_bwd_plain``, which rounds where the
+    kernel rounds."""
+    v = table.shape[0]
+    return _PlainCE.apply(x, table, _bias(bias, v, x.device), targets,
+                          v if valid_v is None else int(valid_v), bool(mm_bf16))
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _check(x, table, targets, bias, valid_v):
+    """Check the inputs against what the kernels take; return (targets
+    int32, bias, valid_v)."""
+    if x.dim() != 2 or table.dim() != 2 or x.shape[1] != table.shape[1] or x.shape[0] < 1:
+        raise ValueError(f"x must be [N >= 1, D] and table [V, D], got {tuple(x.shape)} and "
+                         f"{tuple(table.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    n, d = x.shape
+    v = table.shape[0]
+    if not supports(v, d):
+        raise ValueError(
+            f"table [{v}, {d}] is beyond the whole-table kernel (V*D*4 <= 32 MiB, D <= 512); "
+            "the JAX package runs its vocab-chunked kernel there (ROADMAP.md queue B row 14, "
+            "not ported)")
+    bias = _bias(bias, v, x.device)
+    for name, t, shape in (("table", table, (v, d)), ("bias", bias, (v,))):
+        if t.dtype != torch.float32 or t.device != x.device or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not x.is_contiguous() or not table.is_contiguous() or not bias.is_contiguous():
+        raise ValueError("x, table and bias must be contiguous")
+    if targets.shape != (n,) or targets.device != x.device:
+        raise ValueError(f"targets must be [{n}] on {x.device}")
+    if targets.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"targets must be an integer tensor, got {targets.dtype}")
+    valid_v = v if valid_v is None else int(valid_v)
+    if not 0 <= valid_v <= v:
+        raise ValueError(f"valid_v must be in [0, {v}], got {valid_v}")
+    return targets.to(torch.int32).contiguous(), bias, valid_v
+
+
+def _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
+    """(nll, lse) [N] fp32; lse only when ``train``."""
+    n, d = x.shape
+    lib = _cuda.library("fused_ce.cu")
+    nll = torch.empty((n,), device=x.device, dtype=torch.float32)
+    lse = torch.empty_like(nll) if train else None
+    with torch.cuda.device(x.device):
+        err = lib.recblr_ce_fwd(
+            x.data_ptr(), table.data_ptr(), bias.data_ptr(), tgt32.data_ptr(), nll.data_ptr(),
+            None if lse is None else lse.data_ptr(), n, table.shape[0], d, valid_v,
+            int(x.dtype == torch.bfloat16), int(bool(mm_bf16)), x.device.index, _stream(x),
+        )
+    _cuda.check(lib, err, "fused_softmax_ce")
+    fused_softmax_ce.launches += 1
+    return nll, lse
+
+
+def fused_softmax_ce_train(x, table, targets, bias=None, valid_v=None, mm_bf16=False):
+    """Forward on the card that keeps what the backward reads: (nll,
+    lse) [N] fp32."""
+    _require_cuda(x)
+    tgt32, bias, valid_v = _check(x, table, targets, bias, valid_v)
+    return _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, True)
+
+
+def _row_splits(n, v, d, device):
+    """The dtable pass's row splits: about four blocks per SM over the
+    vocab tiles (64 columns for D <= 128, else 16), at most one per
+    row block."""
+    tile = 64 if d <= 128 else 16
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-n // tile), -(-4 * sms // -(-v // tile))))
+
+
+def fused_softmax_ce_bwd(x, table, targets, dnll, bias=None, valid_v=None, mm_bf16=False, *,
+                         lse):
+    """Backward of ``fused_softmax_ce`` on the card: (dx in x's dtype,
+    dtable [V, D] fp32, dbias [V] fp32).  ``dnll``: [N] cotangent; ``lse``:
+    [N] fp32 kept by ``fused_softmax_ce_train`` with the same arguments.
+    dtable and dbias are summed in a fixed order: the same bits from run
+    to run."""
+    _require_cuda(x)
+    tgt32, bias, valid_v = _check(x, table, targets, bias, valid_v)
+    n, d = x.shape
+    v = table.shape[0]
+    for name, t in (("dnll", dnll), ("lse", lse)):
+        if t is None or t.shape != (n,) or t.device != x.device:
+            raise ValueError(f"{name} must be [{n}] on {x.device}")
+    dnll = dnll.float().contiguous()
+    lse = lse.float().contiguous()
+    r = _row_splits(n, v, d, x.device)
+    dx = torch.empty_like(x)
+    partial = torch.empty((r, v * d + v), device=x.device, dtype=torch.float32)
+    grads = torch.empty((v * d + v,), device=x.device, dtype=torch.float32)
+    lib = _cuda.library("fused_ce.cu")
+    with torch.cuda.device(x.device):
+        err = lib.recblr_ce_bwd(
+            x.data_ptr(), table.data_ptr(), bias.data_ptr(), tgt32.data_ptr(), dnll.data_ptr(),
+            lse.data_ptr(), dx.data_ptr(), r, partial.data_ptr(), grads.data_ptr(), n, v, d,
+            valid_v, int(x.dtype == torch.bfloat16), int(bool(mm_bf16)), x.device.index,
+            _stream(x),
+        )
+    _cuda.check(lib, err, "fused_softmax_ce_bwd")
+    fused_softmax_ce_bwd.launches += 1
+    return dx, grads[: v * d].view(v, d), grads[v * d:]
+
+
+fused_softmax_ce_bwd.launches = 0
+
+
+class _CE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, table, bias, tgt32, valid_v, mm_bf16):
+        nll, lse = _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, True)
+        ctx.opts = (valid_v, mm_bf16)
+        ctx.save_for_backward(x, table, bias, tgt32, lse)
+        return nll
+
+    @staticmethod
+    def backward(ctx, dnll):
+        x, table, bias, tgt32, lse = ctx.saved_tensors
+        dx, dtab, dbias = fused_softmax_ce_bwd(x, table, tgt32, dnll, bias, *ctx.opts, lse=lse)
+        return dx, dtab, dbias, None, None, None
+
+
+def fused_softmax_ce(x, table, targets, bias=None, valid_v=None, mm_bf16=False):
+    """Per-row softmax cross-entropy nll [N] fp32 of ``x [N, D]`` (fp32 or
+    bf16) against the whole catalog ``table [V, D]`` (fp32) plus ``bias
+    [V]`` (fp32; zeros when None), columns >= ``valid_v`` (default V)
+    masked; differentiable in x, table and bias.  ``mm_bf16`` rounds the
+    products' operands to bf16."""
+    if x.device.type == "cpu":
+        return fused_softmax_ce_plain(x, table, targets, bias, valid_v, mm_bf16)
+    _require_cuda(x)
+    tgt32, bias, valid_v = _check(x, table, targets, bias, valid_v)
+    if torch.is_grad_enabled() and (x.requires_grad or table.requires_grad
+                                    or bias.requires_grad):
+        return _CE.apply(x, table, bias, tgt32, valid_v, bool(mm_bf16))
+    return _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, False)[0]
+
+
+fused_softmax_ce.launches = 0

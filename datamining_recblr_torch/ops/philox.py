@@ -26,8 +26,9 @@ bits as this module.  The arithmetic is int64 tensor arithmetic on
             the key index as the channel and the query position as t
 
 The last-position kernels key their masks by each row's real position
-``lens - 1`` (position 0 where the length selects nothing), so a fused
-top layer and the unfused composition draw the same bits there.
+``lens - 1`` (position 0 where the length selects nothing), and the
+selected-positions layer by each selected position, so a fused top layer
+and the unfused composition draw the same bits there.
 """
 
 from __future__ import annotations
@@ -98,17 +99,36 @@ def dropout_mask(seed: int, mask_id: int, b: int, t: int, width: int, p: float,
 
 
 def dropout_mask_at(seed: int, mask_id: int, pos, width: int, p: float):
-    """Scaled keep-mask [B, width] of row b at position ``pos[b]`` (an
-    integer tensor [B]): row b of ``dropout_mask(...)[b, pos[b]]``."""
+    """Scaled keep-mask of row b at the positions ``pos[b]``: ``pos`` an
+    integer tensor [B] (the last-query layer) -> [B, width], or [B, S]
+    (the selected-positions layer) -> [B, S, width]; element [b, s] is
+    ``dropout_mask(...)[b, pos[b, s]]``."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     kw = dict(device=pos.device, dtype=torch.int64)
     groups = -(-width // 4)
+    rows = torch.arange(pos.shape[0], **kw).reshape((-1,) + (1,) * pos.dim())
     words = philox4x32_10(
-        torch.arange(groups, **kw)[None, :], pos.to(torch.int64)[:, None],
-        torch.arange(pos.shape[0], **kw)[:, None],
-        torch.full((1, 1), int(mask_id), **kw), seed & _MASK32, seed >> 32)
+        torch.arange(groups, **kw), pos.to(torch.int64)[..., None], rows,
+        torch.full((1,), int(mask_id), **kw), seed & _MASK32, seed >> 32)
     bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
-    return _scaled(bits.reshape(pos.shape[0], 4 * groups)[:, :width], p, pos.device)
+    return _scaled(bits.reshape(*pos.shape, 4 * groups)[..., :width], p, pos.device)
+
+
+def cloze_draw(seed: int, b: int, t: int, ratio: float, device=None):
+    """BERT4Rec's cloze draw: bool [b, t], True with probability ``ratio``
+    at each (row, position), from word (position & 3) of Philox4x32-10 at
+    counter (position >> 2, row, 0, 0) under its own 64-bit ``seed`` (one
+    of ``step_seeds``, apart from every dropout seed), so it needs no mask
+    id and a resumed run replays it."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    kw = dict(device=device, dtype=torch.int64)
+    groups = -(-t // 4)
+    zero = torch.zeros((1, 1), **kw)
+    words = philox4x32_10(torch.arange(groups, **kw)[None, :],
+                          torch.arange(b, **kw)[:, None], zero, zero,
+                          seed & _MASK32, seed >> 32)
+    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(b, 4 * groups)[:, :t]
+    return bits < min(int(float(ratio) * 4294967296.0), 4294967295)
 
 
 def _scaled(bits, p, device):

@@ -1,5 +1,5 @@
-"""SASRec and BERT4Rec serving in the port against the JAX package, on
-the CPU, in both compositions.
+"""SASRec and BERT4Rec serving, and BERT4Rec's cloze training, in the
+port against the JAX package, on the CPU, in both compositions.
 
 The fused composition (the port's default) is held against the JAX
 models with ``layers._use_fused_attention`` forced on (the Pallas
@@ -195,26 +195,28 @@ def _train_batch():
 
 @pytest.mark.parametrize("alias,name", [("S", "SASRec"), ("B", "BERT4Rec")])
 def test_training_is_not_ported_yet(alias, name):
-    """SASRec trains (its loss reaches every parameter); BERT4Rec's cloze
-    training is still the next slice and raises, naming queue A 3.2."""
+    """Both baselines train now: SASRec's CE and BERT4Rec's cloze loss
+    reach every parameter, and ``forward`` in training mode with a step
+    runs with dropout; BPR is not ported for any model (queue A item 8)."""
     model = get_model(alias)(Config(model=name, config_dict=CFG), N_ITEMS, T, device="cpu")
     assert type(model).__name__ == name
     batch = _train_batch()
     model.train()
-    if name == "SASRec":
-        loss = model.calculate_loss(batch, step=0)
-        loss.backward()
-        assert torch.isfinite(loss)
-        for pname, prm in model.named_parameters():
-            assert prm.grad is not None and torch.isfinite(prm.grad).all(), pname
-        assert model.item_embedding.grad.abs().sum() > 0
-        assert model.position_embedding.grad.abs().sum() > 0
-        assert model(batch["item_seq"], batch["item_seq_len"], step=3).shape == (6, 16)
-    else:
-        with pytest.raises(NotImplementedError, match="queue A item 3.2"):
-            model.calculate_loss(batch, step=0)
-        with pytest.raises(NotImplementedError, match="queue A item 3.2"):
-            model(batch["item_seq"], batch["item_seq_len"], step=3)
+    loss = model.calculate_loss(batch, step=0)
+    loss.backward()
+    assert torch.isfinite(loss)
+    for pname, prm in model.named_parameters():
+        assert prm.grad is not None and torch.isfinite(prm.grad).all(), pname
+    assert model.item_embedding.grad.abs().sum() > 0
+    assert model.position_embedding.grad.abs().sum() > 0
+    with torch.no_grad():
+        out = model(batch["item_seq"], batch["item_seq_len"], step=3)
+        assert out.shape == (6, 16)
+        assert (out - model(batch["item_seq"], batch["item_seq_len"])).abs().max() > 1e-3
+    bpr = get_model(alias)(Config(model=name, config_dict=dict(CFG, loss_type="BPR")), N_ITEMS,
+                           T, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        bpr.calculate_loss(batch, step=0)
     model.train(False)
     assert model(batch["item_seq"], batch["item_seq_len"]).shape == (6, 16)
 
@@ -268,3 +270,207 @@ def test_step_seeds_the_masks(fused, monkeypatch):
     p_hidden, p_attn, seeds = model.dropout_seeds(5)
     assert (p_hidden, p_attn, len(seeds)) == (0.3, 0.3, 3)
     assert seeds == model.dropout_seeds(5)[2] != model.dropout_seeds(6)[2]
+
+
+# ---------------------------------------------------------------------------
+# BERT4Rec's cloze training.  Against the JAX package at dropout 0 the
+# JAX model's on-device draw is replayed host-side and injected
+# (``tests/test_trajectory_parity.py:373-393``); the port's own draw is a
+# Philox draw of (config seed, step).  Tolerances as for SASRec
+# (tests/test_torch_train.py): loss rtol 1e-5; gradients rtol 1e-4 and
+# atol 1e-5 of each gradient's largest value, at least 1e-6 of the largest
+# gradient of all; a 10-step trajectory rtol 2e-4 / atol 5e-5.
+# ---------------------------------------------------------------------------
+
+B4R_CFG = dict(CFG, mask_ratio=0.4, hidden_dropout_prob=0.0, attn_dropout_prob=0.0)
+
+
+def _replay_cloze(jmodel, key, seq, lens):
+    """The JAX model's cloze draw of ``calculate_loss(params, batch, key)``
+    (split(key, 4) -> bernoulli(k_mask); with cloze_last_only each row's
+    last real position), capped by rank and compacted: the port's
+    ``(masked_seq, order, sel_tgt, sel_valid)``."""
+    b, t = seq.shape
+    mask_len = max(1, int(jmodel.mask_ratio * t))
+    real = seq != 0
+    if jmodel.config.get("cloze_last_only"):
+        want = (np.arange(t)[None, :] == lens[:, None] - 1) & real
+    else:
+        _, k_mask, _, _ = jax.random.split(key, 4)
+        want = np.asarray(jax.random.bernoulli(k_mask, jmodel.mask_ratio, seq.shape)) & real
+    cloze = want & (np.cumsum(want, axis=1) <= mask_len)
+    order = np.zeros((b, mask_len), np.int64)
+    tgt = np.zeros((b, mask_len), np.int64)
+    for i in range(b):
+        pos = np.nonzero(cloze[i])[0]
+        order[i, : len(pos)] = pos
+        tgt[i, : len(pos)] = seq[i, pos]
+    valid = np.arange(mask_len)[None, :] < cloze.sum(1)[:, None]
+    masked = np.where(cloze, jmodel.mask_token, seq).astype(np.int64)
+    return tuple(torch.from_numpy(a) for a in (masked, order, tgt, valid))
+
+
+def _check_model_grads(model, jgrads):
+    want = params_from_jax(jax.tree.map(np.asarray, jgrads))
+    got = dict(model.named_parameters())
+    assert set(got) == set(want)
+    top = max(float(v.abs().max()) for v in want.values())
+    for name, p in got.items():
+        w = want[name].numpy()
+        atol = max(1e-5 * float(np.abs(w).max()), 1e-6 * top)
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=1e-4, atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("last_only", [False, True], ids=["cloze", "cloze_last_only"])
+def test_bert4rec_cloze_loss_and_grads_match_jax(last_only, dispatch):
+    cfg = dict(B4R_CFG, cloze_last_only=last_only)
+    jmodel, jparams = _jax_side("BERT4Rec", cfg, seed=8)
+    model = _port("BERT4Rec", jparams, cfg)
+    seq, lens = _batch(9)
+    weight = np.array([1, 1, 1, 1, 1, 0], np.float32)  # a padded row
+    jbatch = {"item_seq": jnp.asarray(seq), "item_seq_len": jnp.asarray(lens),
+              "weight": jnp.asarray(weight)}
+    key = jax.random.PRNGKey(5)
+    want, jgrads = jax.value_and_grad(lambda p: jmodel.calculate_loss(p, jbatch, key))(jparams)
+    cloze = _replay_cloze(jmodel, key, seq, lens)
+    assert int(cloze[3].sum()) > 3  # masked positions on several rows
+    if last_only:  # a deterministic draw: the port draws the same
+        mine = model.cloze_draw(torch.from_numpy(seq).long(), torch.from_numpy(lens), 0)
+        for a, b in zip(mine, cloze):
+            assert torch.equal(a, b)
+    model.train()
+    loss = model.cloze_loss({"weight": torch.from_numpy(weight)}, cloze, step=0)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-5)
+    _check_model_grads(model, jgrads)
+
+
+def test_bert4rec_trajectory_matches_jax(dispatch):
+    """Ten Adam steps of the cloze loss from the same parameters, each with
+    the JAX model's draw injected; then the item table agrees too."""
+    from datamining_recblr_tpu.train.optim import build_optimizer as j_build_optimizer
+    from datamining_recblr_torch.train.optim import build_optimizer
+
+    jmodel, jparams = _jax_side("BERT4Rec", B4R_CFG, seed=10)
+    model = _port("BERT4Rec", jparams, B4R_CFG)
+    jopt = j_build_optimizer(JConfig(model="BERT4Rec", config_dict=B4R_CFG))
+    opt = build_optimizer(Config(model="BERT4Rec", config_dict=B4R_CFG), model.parameters())
+    jstate = jopt.init(jparams)
+
+    @jax.jit
+    def step(params, state, seq, lens, key):
+        batch = {"item_seq": seq, "item_seq_len": lens, "weight": jnp.ones(seq.shape[0])}
+        loss, grads = jax.value_and_grad(lambda p: jmodel.calculate_loss(p, batch, key))(params)
+        updates, state = jopt.update(grads, state, params)
+        return jax.tree.map(lambda p, u: p + u, params, updates), state, loss
+
+    seq, lens = _batch(12)
+    theirs, ours = [], []
+    model.train()
+    for s in range(10):
+        key = jax.random.PRNGKey(100 + s)
+        jparams, jstate, jl = step(jparams, jstate, jnp.asarray(seq), jnp.asarray(lens), key)
+        theirs.append(float(jl))
+        opt.zero_grad(set_to_none=True)
+        loss = model.cloze_loss({"weight": torch.ones(6)}, _replay_cloze(jmodel, key, seq, lens),
+                                step=s)
+        loss.backward()
+        opt.step()
+        ours.append(float(loss.detach()))
+    np.testing.assert_allclose(ours, theirs, rtol=2e-4, atol=5e-5)
+    np.testing.assert_allclose(model.item_embedding.detach().numpy(),
+                               np.asarray(jparams["item_embedding"]), rtol=1e-3, atol=2e-4)
+
+
+def test_bert4rec_cloze_draw():
+    """Only real positions are masked, at most mask_len a row, listed in
+    ascending order with their items as targets; the draw is a function of
+    (seed, step)."""
+    cfg = dict(CFG, mask_ratio=0.4)
+    model = get_model("BERT4Rec")(Config(model="BERT4Rec", config_dict=cfg), N_ITEMS, T,
+                                  device="cpu")
+    rng = np.random.default_rng(14)
+    lens = rng.integers(0, T + 1, 64).astype(np.int32)
+    seq = np.where(np.arange(T)[None] < lens[:, None], rng.integers(1, N_ITEMS, (64, T)), 0)
+    tseq, tlens = torch.from_numpy(seq), torch.from_numpy(lens)
+    masked, order, tgt, valid = model.cloze_draw(tseq, tlens, 7)
+    mask_len = model.mask_len(T)
+    assert mask_len == 4 and order.shape == tgt.shape == valid.shape == (64, mask_len)
+    drawn = masked == model.mask_token
+    assert not (drawn & (tseq == 0)).any()
+    assert torch.equal(drawn.sum(1), valid.sum(1)) and int(valid.sum(1).max()) == mask_len
+    assert torch.equal(torch.where(drawn, tseq, masked), tseq)
+    for i in range(64):
+        n = int(valid[i].sum())
+        pos = torch.nonzero(drawn[i])[:, 0]
+        assert torch.equal(order[i, :n], pos) and bool((order[i, n:] == 0).all())
+        assert torch.equal(tgt[i, :n], tseq[i, pos]) and bool((tgt[i, n:] == 0).all())
+        assert bool(valid[i, :n].all()) and not valid[i, n:].any()
+    again = model.cloze_draw(tseq, tlens, 7)
+    other = model.cloze_draw(tseq, tlens, 8)
+    assert all(torch.equal(a, b) for a, b in zip(again, (masked, order, tgt, valid)))
+    assert not torch.equal(other[0], masked)
+    # before the budget's cap, about mask_ratio of the real positions
+    wide = get_model("BERT4Rec")(Config(model="BERT4Rec", config_dict=dict(cfg, mask_ratio=1.0)),
+                                 N_ITEMS, T, device="cpu")
+    wide.mask_ratio = 0.4
+    share = float((wide.cloze_draw(tseq, tlens, 7)[0] == N_ITEMS).sum()) / float(lens.sum())
+    assert abs(share - 0.4) < 0.06
+
+
+def test_bert4rec_compositions_agree_at_dropout():
+    """At dropout 0.2 / 0.2 the fused composition (the selected-positions
+    top layer) and the unfused one (the full layer, then a gather) give
+    the same cloze loss and gradients: the same masks at the same
+    coordinates (loss atol 1e-5; gradients 1e-5 of each one's largest
+    value, at least 1e-6 of the largest of all: b_k's is zero up to
+    rounding)."""
+    cfg = dict(CFG, mask_ratio=0.4, hidden_dropout_prob=0.2, attn_dropout_prob=0.2)
+    _, jparams = _jax_side("BERT4Rec", cfg, seed=15)
+    model = _port("BERT4Rec", jparams, cfg)
+    batch = _train_batch()
+    model.train()
+    got = {}
+    for fused in (True, False):
+        L.FORCE_FUSED_ATTENTION = fused
+        try:
+            model.zero_grad(set_to_none=True)
+            loss = model.calculate_loss(batch, step=21)
+            loss.backward()
+        finally:
+            L.FORCE_FUSED_ATTENTION = None
+        got[fused] = (float(loss.detach()), {k: v.grad.clone() for k, v in
+                                             model.named_parameters()})
+    assert abs(got[True][0] - got[False][0]) <= 1e-5
+    top = max(float(w.abs().max()) for w in got[False][1].values())
+    for name, g in got[True][1].items():
+        w = got[False][1][name]
+        atol = max(1e-5 * float(w.abs().max()), 1e-6 * top)
+        assert float((g - w).abs().max()) <= atol, name
+    model.eval()
+    with torch.no_grad():
+        off = model.calculate_loss(batch, step=21)
+    assert abs(float(off) - got[True][0]) > 1e-3
+
+
+def test_bert4rec_fit_on_the_cpu(tmp_path):
+    """Trainer.fit of BERT4Rec: the epoch loss falls and the test metrics
+    come from the best checkpoint."""
+    from datamining_recblr_torch.data.dataset import build_from_dataframe
+    from datamining_recblr_torch.data.synthetic import generate_synthetic_interactions
+    from datamining_recblr_torch.train.trainer import Trainer
+
+    data = build_from_dataframe(generate_synthetic_interactions(
+        n_users=60, n_items=30, min_len=5, max_len=14, markov_weight=0.9, n_clusters=4, seed=5),
+        max_seq_len=T)
+    cfg = Config(model="BERT4Rec", config_dict=dict(
+        CFG, epochs=3, train_batch_size=64, eval_batch_size=64, learning_rate=0.005,
+        stopping_step=10, checkpoint_dir=str(tmp_path), dataset="syn"))
+    model = get_model("BERT4Rec")(cfg, data.n_items, T, device="cpu")
+    trainer = Trainer(cfg, model)
+    best, _ = trainer.fit(data)
+    losses = [r["train_loss"] for r in trainer.metrics.epoch_records()]
+    assert len(losses) == 3 and losses[-1] < losses[0]
+    assert trainer.ckpt_path is not None and trainer.best_epoch >= 0
+    test = trainer.evaluate(data.test, load_best=True)
+    assert set(test) >= {"ndcg@10", "hit@10"} and best >= 0.0

@@ -680,3 +680,254 @@ def test_sasrec_train_step_through_kernels_matches_plain(dev):
     for k, v in model.named_parameters():
         tol = max(GRAD_RTOL * float(v.grad.abs().max()), 1e-6 * top)
         assert float((got[k] - v.grad).abs().max()) <= tol, k
+
+
+# ---------------------------------------------------------------------------
+# BERT4Rec training: the selected-positions layer and the whole-table CE
+# ---------------------------------------------------------------------------
+
+def _sel_idx(rng, b, t, s, dev):
+    """[B, S] positions with repeats: each row's last slots all 0 (the
+    padded cloze slots), some positions twice, some beyond the length."""
+    idx = np.sort(rng.integers(0, t, (b, s)), axis=1)
+    idx[:, -3:] = 0
+    idx[:, 1] = idx[:, 2]
+    return torch.from_numpy(idx).to(dev)
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,heads,inner", BLOCK_SHAPES)
+def test_block_sel_kernels_match_plain(dev, d, heads, inner, dtype, p_drop):
+    """Forward and backward of the selected-positions layer against the
+    plain version by autograd, lengths 0, 1 and T, repeated positions; the
+    backward gives the same bits on a rerun."""
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(21)
+    p = _block_params(rng, d, inner, dev)
+    t, s = 45, 12
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((6, t, d)).astype(np.float32)).to(dev, dt)
+    dout = torch.from_numpy(rng.standard_normal((6, s, d)).astype(np.float32)).to(dev, dt)
+    lens = torch.tensor([0, 1, t, 17, 32, 40], device=dev)
+    sel = _sel_idx(rng, 6, t, s, dev)
+    flags = (heads, "gelu", p_drop, p_drop, 987)
+    before = (FB.fused_transformer_layer_sel.launches, FB.fused_transformer_layer_sel_bwd.launches)
+    got = FB.fused_transformer_layer_sel(x, lens, sel, p, *flags)
+    out, saved = FB.fused_transformer_layer_sel_train(x, lens, sel, p, *flags)
+    dx, grads = FB.fused_transformer_layer_sel_bwd(x, lens, sel, dout, p, *flags, saved=saved)
+    assert (FB.fused_transformer_layer_sel.launches - before[0],
+            FB.fused_transformer_layer_sel_bwd.launches - before[1]) == (2, 1)
+    assert got.dtype == dt and got.shape == (6, s, d) and dx.shape == x.shape
+    assert torch.equal(got, out)
+    want = _plain_vjp(lambda a, q: FB.fused_transformer_layer_sel_plain(a, lens, sel, q, *flags),
+                      x, p, dout)
+    _assert_attn_grads((out, dx, grads), want, dtype)
+    dx2, grads2 = FB.fused_transformer_layer_sel_bwd(x, lens, sel, dout, p, *flags, saved=saved)
+    assert torch.equal(dx2, dx) and all(torch.equal(grads2[k], grads[k]) for k in grads)
+
+
+def test_block_sel_equals_the_full_layer_gathered(dev):
+    """At dropout 0.2 the selected-positions layer is the full
+    bidirectional layer at the selected positions, masks included."""
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(22)
+    p = _block_params(rng, 64, 256, dev)
+    x = torch.from_numpy(rng.standard_normal((4, 40, 64)).astype(np.float32)).to(dev)
+    lens = torch.tensor([3, 40, 1, 25], device=dev)
+    sel = _sel_idx(rng, 4, 40, 8, dev)
+    drop = ("gelu", 0.2, 0.2, 31)
+    got = FB.fused_transformer_layer_sel(x, lens, sel, p, 2, *drop)
+    full = FB.fused_transformer_layer(x, lens, p, False, 2, *drop)
+    want = torch.gather(full, 1, sel[..., None].expand(-1, -1, 64))
+    torch.testing.assert_close(got, want, **TOL["float32"])
+
+
+# (N, V, valid_v, D): BERT4Rec's width with N no multiple of the 64-row
+# block and masked columns, a narrow D no multiple of 16, a wide D that
+# takes the 16 x 16 tiles, and a catalog smaller than one tile
+CE_SHAPES = [(1000, 300, 290, 64), (517, 211, 211, 48), (300, 97, 90, 200), (70, 40, 40, 64)]
+
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,v,valid_v,d", CE_SHAPES)
+def test_ce_kernels_match_plain(dev, n, v, valid_v, d, dtype, mm_bf16):
+    """nll, dx, dtable and dbias against the plain version by autograd
+    (nll atol 1e-4 + rtol 1e-5: an fp32 logsumexp in another order;
+    gradients within GRAD_RTOL of the largest value, a bf16 dx one bf16
+    ulp on top); the backward gives the same bits on a rerun."""
+    from datamining_recblr_torch.ops import fused_ce as FCE
+
+    rng = np.random.default_rng(23)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev, dt)
+    table = torch.from_numpy((0.3 * rng.standard_normal((v, d))).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(v).astype(np.float32)).to(dev)
+    tgt = torch.from_numpy(rng.integers(0, valid_v, n)).to(dev)
+    dnll = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
+    args = (tgt, bias, valid_v, mm_bf16)
+    before = (FCE.fused_softmax_ce.launches, FCE.fused_softmax_ce_bwd.launches)
+    nll, lse = FCE.fused_softmax_ce_train(x, table, *args)
+    dx, dtab, dbias = FCE.fused_softmax_ce_bwd(x, table, tgt, dnll, bias, valid_v, mm_bf16,
+                                               lse=lse)
+    assert (FCE.fused_softmax_ce.launches - before[0],
+            FCE.fused_softmax_ce_bwd.launches - before[1]) == (1, 1)
+    assert nll.shape == (n,) and dx.dtype == dt and dtab.shape == (v, d)
+    xl, tl, bl = (a.detach().clone().requires_grad_() for a in (x, table, bias))
+    want = FCE.fused_softmax_ce_plain(xl, tl, tgt, bl, valid_v, mm_bf16)
+    want.backward(dnll)
+    torch.testing.assert_close(nll, want.detach(), atol=1e-4, rtol=1e-5)
+    scale = float(xl.grad.float().abs().max())
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    assert bool(((dx.float() - xl.grad.float()).abs()
+                 <= rtol * xl.grad.float().abs() + GRAD_RTOL * scale).all()), "dx"
+    for name, g, w in (("dtable", dtab, tl.grad), ("dbias", dbias, bl.grad)):
+        assert float((g - w).abs().max()) <= GRAD_RTOL * float(w.abs().max()), name
+    dx2, dtab2, dbias2 = FCE.fused_softmax_ce_bwd(x, table, tgt, dnll, bias, valid_v, mm_bf16,
+                                                  lse=lse)
+    assert torch.equal(dx2, dx) and torch.equal(dtab2, dtab) and torch.equal(dbias2, dbias)
+
+
+def test_ce_wrapper_rejects_what_it_does_not_take(dev):
+    from datamining_recblr_torch.ops import fused_ce as FCE
+
+    x = torch.zeros((8, 64), device=dev)
+    table = torch.zeros((20, 64), device=dev)
+    tgt = torch.zeros(8, dtype=torch.long, device=dev)
+    with pytest.raises(ValueError, match="row 14"):
+        FCE.fused_softmax_ce(torch.zeros((8, 1024), device=dev),
+                             torch.zeros((20, 1024), device=dev), tgt)
+    with pytest.raises(ValueError, match="table"):
+        FCE.fused_softmax_ce(x, table.double(), tgt)
+    with pytest.raises(ValueError, match="targets"):
+        FCE.fused_softmax_ce(x, table, tgt[:4])
+    with pytest.raises(ValueError, match="valid_v"):
+        FCE.fused_softmax_ce(x, table, tgt, valid_v=21)
+    with pytest.raises(ValueError, match="lse"):
+        FCE.fused_softmax_ce_bwd(x, table, tgt, torch.ones(8, device=dev), lse=None)
+
+
+def test_bert4rec_wrappers_return_a_gradient_path(dev):
+    """With grad enabled, the selected-positions layer and the CE return a
+    tensor whose backward runs their backward kernels."""
+    from datamining_recblr_torch.ops import fused_block as FB
+    from datamining_recblr_torch.ops import fused_ce as FCE
+
+    rng = np.random.default_rng(24)
+    p = {k: v.requires_grad_() for k, v in _block_params(rng, 64, 256, dev).items()}
+    x = torch.from_numpy(rng.standard_normal((3, 20, 64)).astype(np.float32)).to(dev)
+    x.requires_grad_()
+    out = FB.fused_transformer_layer_sel(x, torch.tensor([0, 5, 20], device=dev),
+                                         _sel_idx(rng, 3, 20, 6, dev), p, 2)
+    assert out.grad_fn is not None
+    table = torch.randn((30, 64), device=dev, requires_grad=True)
+    nll = FCE.fused_softmax_ce(out.reshape(-1, 64), table,
+                               torch.arange(18, device=dev) % 30)
+    assert nll.grad_fn is not None
+    before = (FB.fused_transformer_layer_sel_bwd.launches, FCE.fused_softmax_ce_bwd.launches)
+    nll.sum().backward()
+    assert (FB.fused_transformer_layer_sel_bwd.launches - before[0],
+            FCE.fused_softmax_ce_bwd.launches - before[1]) == (1, 1)
+    assert x.grad.abs().sum() > 0 and table.grad.abs().sum() > 0 and p["w_q"].grad is not None
+
+
+def _plain_cloze_loss(model, batch, step):
+    """BERT4Rec's cloze loss of ``step``'s draw through the plain versions
+    of its kernels (the same seeds, so the same masks)."""
+    from datamining_recblr_torch.models import layers as ML
+    from datamining_recblr_torch.ops import fused_block as FB
+    from datamining_recblr_torch.ops import fused_ce as FCE
+
+    seq, order, tgt, valid = model.cloze_draw(batch["item_seq"], batch["item_seq_len"], step)
+    p_hidden, p_attn, seeds = model.dropout_seeds(step)
+    t = seq.shape[1]
+    x = FL.fused_ln_dropout_plain(model.embed(seq).to(model.compute_dtype),
+                                  model.position_embedding[:t].float(),
+                                  model.input_ln["scale"], model.input_ln["bias"], p_hidden,
+                                  seeds[-1])
+    lens = (seq != 0).sum(1)
+    drop = (model.hidden_act, p_hidden, p_attn)
+    for li, layer in enumerate(model.encoder):
+        flat = ML.flat_block_params(layer)
+        if li == len(model.encoder) - 1:
+            x = FB.fused_transformer_layer_sel_plain(x, lens, order, flat, model.n_heads, *drop,
+                                                     seeds[li])
+        else:
+            x = FB.fused_transformer_layer_plain(x, lens, flat, False, model.n_heads, *drop,
+                                                 seeds[li])
+    out = model.output_head(x)
+    nll = FCE.fused_softmax_ce_plain(out.reshape(-1, out.shape[-1]),
+                                     model.item_embedding[: model.n_items],
+                                     tgt.reshape(-1), model.output_bias[: model.n_items],
+                                     mm_bf16=model.compute_dtype == torch.bfloat16)
+    w = valid.float() * batch["weight"].float()[:, None]
+    return (nll.reshape(valid.shape) * w).sum() / w.sum().clamp_min(1.0)
+
+
+def test_bert4rec_train_step_through_kernels_matches_plain(dev):
+    """One cloze step of BERT4Rec (dropout 0.2 / 0.2, 256 rows of T 200:
+    10,240 CE rows, so the CE kernel runs) through its eight kernel entry
+    points, one call each, against the same step through the plain
+    versions (loss rtol 1e-4, gradients within GRAD_RTOL of each
+    gradient's largest value, at least 1e-6 of the largest of all)."""
+    from datamining_recblr_torch.ops import fused_block as FB
+    from datamining_recblr_torch.ops import fused_ce as FCE
+
+    t = 200
+    model = get_model("BERT4Rec")(Config(model="BERT4Rec", config_dict={
+        "MAX_ITEM_LIST_LENGTH": t}), 300, t, device=dev)
+    rng = np.random.default_rng(25)
+    lens = torch.from_numpy(rng.integers(1, t + 1, 256).astype(np.int32)).to(dev)
+    seq = torch.from_numpy(rng.integers(1, 300, (256, t))).to(dev)
+    seq = torch.where(torch.arange(t, device=dev)[None] < lens[:, None], seq, 0)
+    weight = torch.ones(256, device=dev)
+    weight[-5:] = 0.0
+    batch = {"item_seq": seq, "item_seq_len": lens, "weight": weight}
+    model.train()
+    counted = (FL.fused_ln_dropout, FB.fused_transformer_layer, FB.fused_transformer_layer_sel,
+               FCE.fused_softmax_ce, FL.fused_ln_dropout_bwd, FB.fused_transformer_layer_bwd,
+               FB.fused_transformer_layer_sel_bwd, FCE.fused_softmax_ce_bwd)
+    before = [f.launches for f in counted]
+    loss = model.calculate_loss(batch, step=13)
+    loss.backward()
+    assert [f.launches - n for f, n in zip(counted, before)] == [1] * 8
+    got = {k: v.grad.clone() for k, v in model.named_parameters()}
+    model.zero_grad()
+    want = _plain_cloze_loss(model, batch, 13)
+    want.backward()
+    assert abs(float(loss.detach()) - float(want.detach())) <= 1e-4 * abs(float(want.detach()))
+    top = max(float(v.grad.abs().max()) for v in model.parameters())
+    for k, v in model.named_parameters():
+        tol = max(GRAD_RTOL * float(v.grad.abs().max()), 1e-6 * top)
+        assert float((got[k] - v.grad).abs().max()) <= tol, k
+
+
+def test_base_ce_takes_the_kernel_from_min_rows(dev):
+    """RecBLR's CE at 8,192 rows goes through the CE kernel with the
+    padded vocab columns masked (valid_v = n_items), as the plain CE."""
+    from datamining_recblr_torch.models.base import ce_loss
+    from datamining_recblr_torch.ops import fused_ce as FCE
+
+    cfg = Config(model="RecBLR", config_dict={"hidden_size": 64, "num_layers": 1,
+                                               "MAX_ITEM_LIST_LENGTH": 8, "dropout_prob": 0.0,
+                                               "vocab_multiple": 64})
+    model = get_model("RecBLR")(cfg, 300, 8, device=dev)
+    assert model.n_items_padded == 320
+    rng = np.random.default_rng(26)
+    n = FCE.MIN_ROWS
+    lens = torch.from_numpy(rng.integers(1, 9, n).astype(np.int32)).to(dev)
+    seq = torch.from_numpy(rng.integers(1, 300, (n, 8))).to(dev)
+    seq = torch.where(torch.arange(8, device=dev)[None] < lens[:, None], seq, 0)
+    batch = {"item_seq": seq, "item_seq_len": lens,
+             "pos_item": torch.from_numpy(rng.integers(1, 300, n)).to(dev)}
+    before = FCE.fused_softmax_ce.launches
+    loss = model.calculate_loss(batch)
+    assert FCE.fused_softmax_ce.launches == before + 1
+    with torch.no_grad():
+        out = model(seq, lens)
+        want = ce_loss(model._mask_padded_vocab(model._logits(out), value=-1e30),
+                       batch["pos_item"])
+    assert abs(float(loss.detach()) - float(want)) <= 1e-5 * abs(float(want))

@@ -300,3 +300,91 @@ def test_bf16_rounding_passes_gradients_unrounded():
     (r * torch.tensor([0.1, 0.2])).sum().backward()
     assert a.grad.dtype == torch.float32
     torch.testing.assert_close(a.grad, torch.tensor([0.1, 0.2]), atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the selected-positions layer (BERT4Rec's cloze positions): repeated
+# positions (the padded cloze slots all select position 0) and a lens-0 row
+# ---------------------------------------------------------------------------
+
+S = 6
+SEL = np.array([[0, 0, 0, 0, 0, 0],      # lens 0: every slot at position 0
+                [0, 0, 3, 0, 0, 0],      # lens 1: a position beyond the length
+                [1, 4, 4, 9, 11, 0],     # a repeat
+                [2, 3, 5, 6, 0, 0],
+                [0, 1, 2, 3, 3, 3]], np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_layer_sel_matches_jax(act, dtype):
+    p, x, jx = _inputs(37, dtype)
+    want = JFB.fused_transformer_layer_sel(jx, jnp.asarray(LENS), jnp.asarray(SEL), SEED, _jax(p),
+                                           HEADS, 0.0, 0.0, act, dtype == "bfloat16")
+    got = FB.fused_transformer_layer_sel(x, torch.from_numpy(LENS), torch.from_numpy(SEL),
+                                         _torch(p), HEADS, act)
+    assert got.dtype == x.dtype and got.shape == (B, S, D)
+    _check(got, want, dtype)
+
+
+def test_layer_sel_grads_match_jax():
+    """dx adds the query and residual cotangents of repeated positions;
+    K and V reach every position, also on the lens-0 row."""
+    p, x, jx = _inputs(41)
+    dout = np.random.default_rng(7).standard_normal((B, S, D)).astype(np.float32)
+    lens, sel = torch.from_numpy(LENS), torch.from_numpy(SEL)
+    got = _torch_grads(lambda a, q: FB.fused_transformer_layer_sel(a, lens, sel, q, HEADS),
+                       x, _torch(p), torch.from_numpy(dout))
+    want = _jax_grads(lambda a, q: JFB.fused_transformer_layer_sel(
+        a, jnp.asarray(LENS), jnp.asarray(SEL), SEED, q, HEADS, 0.0, 0.0, "gelu"), jx, _jax(p),
+        dout)
+    _check_grads(got, want)
+    assert got["x"][0].abs().sum() > 0
+
+
+def test_layer_sel_is_the_full_layer_gathered():
+    """At dropout 0.3 / 0.4 the selected-positions layer draws the masks
+    the full bidirectional layer draws at the selected positions, so it is
+    that layer followed by a gather (atol 1e-5: fp32 sums in another
+    order); its gradient is the gathered full layer's."""
+    p, x, _ = _inputs(43)
+    lens, sel = torch.from_numpy(LENS), torch.from_numpy(SEL).long()
+    drop = ("gelu", 0.3, 0.4, 321)
+    dout = torch.from_numpy(np.random.default_rng(8).standard_normal((B, S, D)).astype(
+        np.float32))
+    got = _torch_grads(lambda a, q: FB.fused_transformer_layer_sel(a, lens, sel, q, HEADS,
+                                                                   *drop), x, _torch(p), dout)
+    want = _torch_grads(lambda a, q: torch.gather(
+        FB.fused_transformer_layer(a, lens, q, False, HEADS, *drop), 1,
+        sel[..., None].expand(-1, -1, D)), x, _torch(p), dout)
+    for name in got:
+        torch.testing.assert_close(got[name], want[name], atol=1e-5, rtol=1e-5, msg=name)
+    out = FB.fused_transformer_layer_sel(x, lens, sel, _torch(p), HEADS, *drop)
+    full = FB.fused_transformer_layer(x, lens, _torch(p), False, HEADS, *drop)
+    torch.testing.assert_close(out, torch.gather(full, 1, sel[..., None].expand(-1, -1, D)),
+                               atol=1e-5, rtol=1e-5)
+    assert (out - FB.fused_transformer_layer_sel(x, lens, sel, _torch(p), HEADS)).abs().max() \
+        > 0.1
+
+
+def test_layer_sel_cpu_calls_do_not_count_and_refuse_other_devices():
+    p, x, _ = _inputs(47)
+    lens, sel = torch.from_numpy(LENS), torch.from_numpy(SEL)
+    before = (FB.fused_transformer_layer_sel.launches, FB.fused_transformer_layer_sel_bwd.launches)
+    xl = x.clone().requires_grad_()
+    FB.fused_transformer_layer_sel(xl, lens, sel, _torch(p), HEADS).sum().backward()
+    assert before == (FB.fused_transformer_layer_sel.launches,
+                      FB.fused_transformer_layer_sel_bwd.launches) == (0, 0)
+    with pytest.raises(ValueError, match="no kernel"):
+        FB.fused_transformer_layer_sel(torch.zeros((B, T, D), device="meta"), lens, sel,
+                                       _torch(p), HEADS)
+
+
+def test_encoder_select_refuses_a_causal_stack():
+    from datamining_recblr_torch.models import layers as ML
+
+    p, x, _ = _inputs(53)
+    with pytest.raises(ValueError, match="bidirectional"):
+        ML.transformer_encoder_apply([_layer_tree(_torch(p))], x, None, n_heads=HEADS,
+                                     lens=torch.from_numpy(LENS), causal=True,
+                                     select=torch.from_numpy(SEL))

@@ -1,0 +1,111 @@
+"""The port's whole-table softmax cross-entropy (``ops/fused_ce.py``)
+against the JAX package's ``fused_softmax_ce``, whose Pallas kernels run
+in interpret mode on the CPU: nll, dx, dtable and dbias, with a bias and
+masked vocab columns, in fp32 and with bf16 products.
+
+Tolerances: nll atol 1e-5 (values up to ~13; fp32 sums in another
+order); every gradient within 1e-5 of its largest value in fp32 and 4e-5
+with ``mm_bf16``, where both sides round the same operands to bf16 and
+sum in fp32, and a g near a bf16 rounding boundary may round the other
+way in dx."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from datamining_recblr_tpu.ops import fused_ce as JCE
+from datamining_recblr_torch.ops import fused_ce as FCE
+
+
+def _case(seed, n=37, v=53, d=24, x_scale=1.0):
+    rng = np.random.default_rng(seed)
+    x = (x_scale * rng.standard_normal((n, d))).astype(np.float32)
+    table = (0.5 * rng.standard_normal((v, d))).astype(np.float32)
+    bias = rng.standard_normal(v).astype(np.float32)
+    dnll = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    return rng, x, table, bias, dnll
+
+
+def _close(got, want, rel):
+    want = np.asarray(want, np.float32)
+    got = got.detach().float().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("with_bias,valid", [(False, None), (True, None), (True, 45)],
+                         ids=["plain", "bias", "bias_masked"])
+def test_ce_matches_jax(with_bias, valid, mm_bf16):
+    rng, x, table, bias, dnll = _case(3 + 2 * mm_bf16 + (valid or 0))
+    v = table.shape[0]
+    tgt = rng.integers(0, valid or v, x.shape[0]).astype(np.int32)
+
+    def jloss(a, t, b):
+        nll = JCE.fused_softmax_ce(a, t, jnp.asarray(tgt), bias=b if with_bias else None,
+                                   valid_v=valid,
+                                   mm_bf16=mm_bf16)
+        return jnp.sum(nll * dnll), nll
+
+    (_, want), grads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(table), jnp.asarray(bias))
+    tx, tt, tb = (torch.from_numpy(a).requires_grad_() for a in (x, table, bias))
+    got = FCE.fused_softmax_ce(tx, tt, torch.from_numpy(tgt).long(),
+                               bias=tb if with_bias else None, valid_v=valid, mm_bf16=mm_bf16)
+    assert got.dtype == torch.float32 and got.shape == (x.shape[0],)
+    (got * torch.from_numpy(dnll)).sum().backward()
+    tol = 4e-5 if mm_bf16 else 1e-5
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    _close(tx.grad, grads[0], tol)
+    _close(tt.grad, grads[1], tol)
+    if with_bias:
+        _close(tb.grad, grads[2], tol)
+    else:
+        assert tb.grad is None
+
+
+def test_ce_bf16_input_and_the_rounding_of_each_product():
+    """A bf16 x gives a bf16 dx.  With mm_bf16 the logits and dx round
+    their operands (dx: g and the table) and dtable does not round g or
+    x: the plain backward rounds exactly there."""
+    rng, x, table, bias, dnll = _case(11, x_scale=3.0)
+    tgt = torch.from_numpy(rng.integers(0, table.shape[0], x.shape[0]))
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    dx, dtab, dbias = FCE.fused_softmax_ce_bwd_plain(xb, torch.from_numpy(table), tgt,
+                                                     torch.from_numpy(dnll),
+                                                     torch.from_numpy(bias), mm_bf16=True)
+    assert dx.dtype == torch.bfloat16 and dtab.dtype == dbias.dtype == torch.float32
+    xf = torch.from_numpy(x)
+    rb = lambda a: a.to(torch.bfloat16).float()  # noqa: E731
+    logits = rb(xf) @ rb(torch.from_numpy(table)).t() + torch.from_numpy(bias)
+    g = (torch.softmax(logits, -1) - torch.nn.functional.one_hot(tgt, table.shape[0]).float()) \
+        * torch.from_numpy(dnll)[:, None]
+    _, dtab32, _ = FCE.fused_softmax_ce_bwd_plain(xf, torch.from_numpy(table), tgt,
+                                                   torch.from_numpy(dnll),
+                                                   torch.from_numpy(bias), mm_bf16=True)
+    torch.testing.assert_close(dtab32, g.t() @ xf, atol=1e-5, rtol=1e-5)
+    dx32, _, _ = FCE.fused_softmax_ce_bwd_plain(xf, torch.from_numpy(table), tgt,
+                                                torch.from_numpy(dnll), torch.from_numpy(bias),
+                                                mm_bf16=True)
+    torch.testing.assert_close(dx32, rb(g) @ rb(torch.from_numpy(table)), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(3417, 64), (131072, 64), (131073, 64), (1000, 512),
+                                   (1000, 513)])
+def test_supports_and_min_rows_match_jax(shape):
+    assert FCE.supports(*shape) == JCE.supports(*shape)
+    assert FCE.MIN_ROWS == JCE.MIN_ROWS == 8192
+
+
+def test_cpu_calls_do_not_count_launches_and_other_devices_raise():
+    _, x, table, bias, _ = _case(13)
+    tgt = torch.zeros(x.shape[0], dtype=torch.long)
+    before = (FCE.fused_softmax_ce.launches, FCE.fused_softmax_ce_bwd.launches)
+    tx = torch.from_numpy(x).requires_grad_()
+    FCE.fused_softmax_ce(tx, torch.from_numpy(table), tgt).sum().backward()
+    assert (FCE.fused_softmax_ce.launches, FCE.fused_softmax_ce_bwd.launches) == before == (0, 0)
+    with pytest.raises(ValueError, match="no kernel"):
+        FCE.fused_softmax_ce(torch.zeros((4, 24), device="meta"), torch.from_numpy(table),
+                             tgt[:4])

@@ -78,3 +78,29 @@ def test_mask_at_positions_is_the_full_mask_gathered():
     at = philox.dropout_mask_at(99, philox.prob_mask_id(1), pos, 13, 0.3)
     torch.testing.assert_close(at, full[torch.arange(4), pos], atol=0, rtol=0)
     assert philox.prob_mask_id(0) == philox.ATTN_PROB == 4 > philox.M3
+
+
+def test_mask_at_selected_positions_is_the_full_mask_gathered():
+    """The selected-positions layer's masks: element [b, s] is the full
+    mask's row b at position pos[b, s], repeats included, bit for bit."""
+    pos = torch.tensor([[0, 5, 5, 0], [7, 1, 0, 0], [2, 2, 2, 6]])
+    full = philox.dropout_mask(77, philox.M3, 3, 8, 10, 0.25)
+    at = philox.dropout_mask_at(77, philox.M3, pos, 10, 0.25)
+    assert at.shape == (3, 4, 10)
+    torch.testing.assert_close(at, full[torch.arange(3)[:, None], pos], atol=0, rtol=0)
+
+
+def test_cloze_draw_is_a_function_of_its_seed_and_coordinates():
+    """Word (position & 3) of the Philox block at counter (position >> 2,
+    row, 0, 0) under the cloze seed, below ratio * 2^32; about ``ratio``
+    of the draws are True."""
+    seed = 0x0123_4567_89AB_CDEF
+    big = philox.cloze_draw(seed, 300, 200, 0.2)
+    assert big.dtype == torch.bool and big.shape == (300, 200)
+    assert torch.equal(philox.cloze_draw(seed, 5, 13, 0.2), big[:5, :13])
+    b, t = 4, 11
+    words = _words((t >> 2, b, 0, 0), (seed & 0xFFFFFFFF, seed >> 32))
+    assert bool(big[b, t]) == (words[t & 3] < int(0.2 * 2**32))
+    assert abs(float(big.float().mean()) - 0.2) < 0.01
+    assert not torch.equal(big, philox.cloze_draw(seed + 1, 300, 200, 0.2))
+    assert not philox.cloze_draw(seed, 3, 7, 0.0).any()

@@ -28,6 +28,7 @@ MODULES = [
     "datamining_recblr_torch.ops._cuda",
     "datamining_recblr_torch.ops.fused_layer",
     "datamining_recblr_torch.ops.fused_block",
+    "datamining_recblr_torch.ops.fused_ce",
     "datamining_recblr_torch.ops.philox",
     "datamining_recblr_torch.ops.topk",
     "datamining_recblr_torch.models.base",
