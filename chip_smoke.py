@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's fourteen CUDA kernels from ``datamining_recblr_torch/csrc``
-(both fused recurrent layers of RecBLR, forward and backward; the
-attention baselines' LN prologue and both transformer layers, forward
-and backward; BERT4Rec's selected-positions top layer and the whole-table
-softmax CE, forward and backward) and, phase by phase:
+Builds the port's nineteen CUDA kernels from the sixteen sources of
+``datamining_recblr_torch/csrc`` (both fused recurrent layers of RecBLR,
+forward and backward; the attention baselines' LN prologue and both
+transformer layers, forward and backward; BERT4Rec's selected-positions
+top layer and the whole-table softmax CE, forward and backward; the
+sequence-chunked recurrent layer and the vocab-chunked CE, forward and
+backward, and the embedding-table gradient) and, phase by phase:
 
 * holds each kernel against its plain PyTorch version at B 256, T 200:
   the RecBLR forwards at dropout 0 (serving), then every RecBLR kernel's
@@ -20,17 +22,26 @@ softmax CE, forward and backward) and, phase by phase:
   then BERT4Rec's two new kernels, forward and backward, fp32 and bf16
   (the selected-positions layer at B 256, S 40, dropout 0 and 0.2, with
   repeated positions; the CE at N 81,920, V 3,417), and the selected
-  layer's masks bit for bit;
+  layer's masks bit for bit; then the XLong configuration's kernels
+  (``xlong-kernel-vs-plain``: the chunked layer, and K1 and K2 on their
+  recompute branch, at B 512, T 1,024; the chunked CE at N 512, V 329,728;
+  the table gradient at N 524,288; a bf16 table and bias through both CE
+  paths) and the chunked layer's mask across chunk edges
+  (``xlong-mask-bits``);
 * serves RecBLR, SASRec and BERT4Rec at full width (hidden 64, 2 layers,
   T 200, V 3,417; 2 heads and an FFN of 256 for the baselines) through
   ``Recommender.recommend`` against the same model through the plain
   versions, with one launch of each of the model's kernels per call,
-  and times it;
+  and times it; then RecBLR at XLong (T 1,024, V 329,722, bf16:
+  ``serve-xlong-*``);
 * trains RecBLR (dropout 0.2), SASRec (dropout 0.5 / 0.5) and BERT4Rec
   (cloze, mask_ratio 0.2, dropout 0.2 / 0.2) at the bench.py shape (batch
   2,048, CE, Adam, fp32 and bf16 compute): one launch of each of the
-  model's kernels per step, one step against the same step through the
-  plain versions, the step time and a profile;
+  model's kernels per step (and of the table gradient under bf16), one
+  step against the same step through the plain versions, the step time
+  and a profile; then RecBLR at XLong (``xlong-train-*``: batch 512, T
+  1,024, V 329,722, fp32 and bf16; the step against the plain step at
+  that batch);
 * runs ``Trainer.fit`` and ``evaluate(load_best=True)`` for the three on
   a small Markov dataset: the loss falls and valid NDCG@10 is above 0;
 * times every kernel beside its bound, its plain version and, where one
@@ -56,10 +67,12 @@ import torch.nn.functional as F
 from datamining_recblr_torch.config import Config
 from datamining_recblr_torch.models import get_model
 from datamining_recblr_torch.models import layers as L
-from datamining_recblr_torch.ops import _cuda
+from datamining_recblr_torch.ops import _cuda, philox
+from datamining_recblr_torch.ops import embedding as E
 from datamining_recblr_torch.ops import fused_block as FB
 from datamining_recblr_torch.ops import fused_ce as FCE
 from datamining_recblr_torch.ops import fused_layer as FL
+from datamining_recblr_torch.ops import fused_layer_chunked as FLC
 from datamining_recblr_torch.serve import Recommender
 
 SEED = 0
@@ -67,8 +80,9 @@ B, T, D, C, K, FF = 256, 200, 64, 128, 4, 256  # serving shape
 HEADS, INNER = 2, 256  # the attention baselines' serving shape (bench.py)
 N_ITEMS, TOP_K = 3417, 10
 # H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor
-# cores and HBM3 bandwidth
+# cores, bf16 on the tensor cores (dense) and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_RTOL = 2.0 ** -7  # one bf16 ulp of the value, at most
@@ -101,6 +115,15 @@ B4R_COUNTED = (FL.fused_ln_dropout, FB.fused_transformer_layer, FB.fused_transfo
                FB.fused_transformer_layer_sel_bwd, FCE.fused_softmax_ce_bwd)
 B4R_DROPOUT = 0.2  # BERT4Rec's hidden_dropout_prob and attn_dropout_prob
 MASK_LEN = 40      # BERT4Rec's cloze budget at T 200: int(mask_ratio 0.2 * 200)
+# the XLong configuration (configs/paper/config_xlong_paper.yaml): T 1,024,
+# 329,722 items (xlong-synth), train batch 512, histories of 2 .. 1,000
+XT, XV, XB, XMAX_LEN = 1024, 329_722, 512, 1000
+XTRAIN_STEPS = 10
+# RecBLR's long-context training step: row 9 and K2 forward, row 14 forward
+# and backward, K2 and row 9 backward (and, under bf16, row 16)
+XLONG_COUNTED = (FLC.fused_recurrent_layer_chunked, FL.fused_recurrent_layer_last,
+                 FCE.fused_softmax_ce_chunked, FCE.fused_softmax_ce_chunked_bwd,
+                 FL.fused_recurrent_layer_last_bwd, FLC.fused_recurrent_layer_chunked_bwd)
 
 
 class SmokeFailure(RuntimeError):
@@ -158,18 +181,22 @@ def serving_lens(gen, b):
 
 
 # ---------------------------------------------------------------------------
-# bounds: fp32 matmul, conv and scan operations (2 per multiply-add) over
-# the fp32 peak, and bytes read once / written once over HBM bandwidth
+# bounds: matmul, conv and scan operations (2 per multiply-add) over the
+# fp32 peak, those of products with both operands in bf16 over the bf16
+# tensor-core peak, and bytes read once / written once over HBM bandwidth
 # ---------------------------------------------------------------------------
 
 def _params_bytes(p):
     return sum(v.numel() * v.element_size() for v in p.values())
 
 
-def _bound(flops, nbytes):
-    """(bound ms, FLOPs, what bounds it)."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, flops, "operations" if t_ops >= t_bytes else "bytes"
+def _bound(flops, nbytes, bf16_flops=0):
+    """(bound ms, FLOPs, what bounds it); ``flops`` at the fp32 peak,
+    ``bf16_flops`` (products of bf16 operands) at the bf16 peak."""
+    t_ops = flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, flops + bf16_flops,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def k1_bound_ms(b, t, p, act_bytes):
@@ -179,10 +206,10 @@ def k1_bound_ms(b, t, p, act_bytes):
     return _bound(flops, nbytes)
 
 
-def k2_bound_ms(lens, p, act_bytes):
+def k2_bound_ms(lens, p, act_bytes, t=T):
     # the output reads the scan at position len-1 only, so positions at
     # or beyond a row's length are work this data does not need
-    n = lens.clamp(0, T).where((lens >= 1) & (lens <= T), torch.zeros_like(lens))
+    n = lens.clamp(0, t).where((lens >= 1) & (lens <= t), torch.zeros_like(lens))
     positions = int(n.sum())
     b = lens.numel()
     per_pos = 2 * D * C + 2 * K * C + 2 * C * 2 * C + 2 * C
@@ -299,18 +326,22 @@ def sel_bwd_bound_ms(lens, s, p, act_bytes):
     return _bound(flops, nbytes)
 
 
-def ce_bound_ms(n, v, act_bytes, train=False):
-    # the [N, V] logits (2NVD); x, the table, the bias and the targets read
-    # once, nll (and in training lse) written
+def ce_bound_ms(n, v, act_bytes, train=False, mm_bf16=False):
+    # the [N, V] logits (2NVD; bf16 operands with mm_bf16); x, the table,
+    # the bias and the targets read once, nll (and in training lse) written
     nbytes = n * D * act_bytes + v * (D + 1) * 4 + n * 4 * (3 if train else 2)
-    return _bound(2 * n * v * D, nbytes)
+    mm = 2 * n * v * D
+    return _bound(0, nbytes, mm) if mm_bf16 else _bound(mm, nbytes)
 
 
-def ce_bwd_bound_ms(n, v, act_bytes):
-    # the logits, dx = g table and dtable = g^T x (3 x 2NVD); x, targets,
-    # dnll, lse, the table and the bias read, dx, dtable and dbias written
+def ce_bwd_bound_ms(n, v, act_bytes, mm_bf16=False):
+    # the logits, dx = g table and dtable = g^T x (3 x 2NVD; with mm_bf16
+    # the logits and dx take bf16 operands, dtable fp32 x and g); x,
+    # targets, dnll, lse, the table and the bias read, dx, dtable and dbias
+    # written
     nbytes = 2 * n * D * act_bytes + 3 * n * 4 + 2 * v * (D + 1) * 4
-    return _bound(3 * 2 * n * v * D, nbytes)
+    mm = 2 * n * v * D
+    return _bound(mm, nbytes, 2 * mm) if mm_bf16 else _bound(3 * mm, nbytes)
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -496,8 +527,6 @@ def mask_bits(dev):
     both layers enter every value the train-kernel-vs-plain phase
     compares at p = 0.2, where one flipped bit moves a value by far more
     than its tolerance."""
-    from datamining_recblr_torch.ops import philox
-
     gen = torch.Generator().manual_seed(SEED + 3)
     p1 = layer_params(gen, dev, prologue=True)
     p1 = {k: v for k, v in p1.items() if k not in ("w1", "b1", "w2", "b2", "ln2_s", "ln2_b")}
@@ -658,8 +687,6 @@ def attn_mask_bits(dev):
     each head's probability mask from the context a training forward
     keeps, with x[j] = e_j and v_h the identity on T = dh = 32 keys; the
     last-query layer's at each row's position lens - 1."""
-    from datamining_recblr_torch.ops import philox
-
     zeros = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
     seed, pd = 135792468, SAS_DROPOUT
     gen = torch.Generator().manual_seed(SEED + 9)
@@ -818,8 +845,6 @@ def b4r_mask_bits(dev):
     (x = 0, every weight 0, b_o or b2 one), each head's probability mask
     from the context a training forward keeps (x[j] = e_j, v_h the
     identity on T = dh = 32 keys)."""
-    from datamining_recblr_torch.ops import philox
-
     zeros = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
     seed, pd = 97531, B4R_DROPOUT
     gen = torch.Generator().manual_seed(SEED + 11)
@@ -858,11 +883,19 @@ def b4r_mask_bits(dev):
         check(flips == 0, f"{label}: {flips} mask bits differ from the plain Philox mask")
 
 
+def plain_embed(model, seq):
+    """The item embedding as a plain gather, cast to the compute dtype
+    after it (the same values as ``embed``; its table gradient is autograd's
+    fp32 sum, where ``embed``'s bf16 one is the ``embedding_grad`` kernel)."""
+    return F.embedding(seq, model.item_embedding).to(model.compute_dtype)
+
+
 def plain_seq_output(model, seq, lens, step=None):
-    """The model's fused composition through the plain layer versions,
-    with the dropout rate and seeds the model draws for ``step``."""
+    """RecBLR's fused composition (the chunked one beyond T = 512) through
+    the plain layer versions, with the dropout rate and seeds the model
+    draws for ``step``."""
     p_drop, seeds = model.dropout_seeds(step)
-    x = model.embed(seq).to(model.compute_dtype)
+    x = plain_embed(model, seq)
     n = len(model.layers)
     for li, layer in enumerate(model.layers):
         flat = model.flat_layer_params(layer, True)
@@ -871,7 +904,11 @@ def plain_seq_output(model, seq, lens, step=None):
                                                        seeds[li])
         if li == 0:
             flat.update(model.prologue_params())
-        x = FL.fused_recurrent_layer_plain(x, flat, True, True, li == 0, p_drop, seeds[li])
+        if model.use_chunked_layer():
+            x = FLC.fused_recurrent_layer_chunked_plain(x, flat, True, True, li == 0, p_drop,
+                                                        seeds[li])[0]
+        else:
+            x = FL.fused_recurrent_layer_plain(x, flat, True, True, li == 0, p_drop, seeds[li])
 
 
 def plain_baseline_output(model, seq, seq_len, step=None):
@@ -883,7 +920,7 @@ def plain_baseline_output(model, seq, seq_len, step=None):
         seq = model.reconstruct_test_seq(seq, seq_len)
     t = seq.shape[1]
     p_hidden, p_attn, seeds = model.dropout_seeds(step)
-    x = FL.fused_ln_dropout_plain(model.embed(seq).to(model.compute_dtype),
+    x = FL.fused_ln_dropout_plain(plain_embed(model, seq),
                                   model.position_embedding[:t].float(),
                                   model.input_ln["scale"].float(),
                                   model.input_ln["bias"].float(), p_hidden, seeds[-1])
@@ -919,7 +956,7 @@ def plain_cloze_loss(model, batch, step):
     seq, order, tgt, valid = model.cloze_draw(batch["item_seq"], batch["item_seq_len"], step)
     t = seq.shape[1]
     p_hidden, p_attn, seeds = model.dropout_seeds(step)
-    x = FL.fused_ln_dropout_plain(model.embed(seq).to(model.compute_dtype),
+    x = FL.fused_ln_dropout_plain(plain_embed(model, seq),
                                   model.position_embedding[:t].float(),
                                   model.input_ln["scale"].float(),
                                   model.input_ln["bias"].float(), p_hidden, seeds[-1])
@@ -967,6 +1004,57 @@ def _train_config(name, dtype_name, **extra):
         "seed": SEED, **TRAINED[name][2], **extra})
 
 
+def step_vs_plain(model, batch, counted, plain_loss, floor, tol, step=7):
+    """One step through the kernels and the same step through the plain
+    versions (same seeds, so the same masks), gradients before Adam:
+    (launches, loss, plain loss, loss rel err, {param: rel err})."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    for fn in counted:
+        fn.launches = 0
+    loss = model.calculate_loss(batch, step=step)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = tuple(fn.launches for fn in counted)
+    got = {k: v.grad.detach().clone() for k, v in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    want_loss = plain_loss(model, batch, step)
+    want_loss.backward()
+    want = {k: v.grad.detach() for k, v in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    # max |kernel - plain| over the larger of max |plain| and floor * (the
+    # largest gradient) / tol, so that ok <=> within tol of max |plain| or
+    # within floor of the largest gradient
+    top = max(float(w.abs().max()) for w in want.values())
+    errs = {k: float((got[k] - want[k]).abs().max()
+                     / max(float(want[k].abs().max()), floor * top / tol, 1e-30))
+            for k in got}
+    loss, want_loss = float(loss.detach()), float(want_loss.detach())
+    return launches, loss, want_loss, abs(loss - want_loss) / abs(want_loss), errs
+
+
+def time_steps(trainer, batch_of, steps, warmup=3):
+    """CUDA events around trainer.train_step (batch gather, forward,
+    backward, Adam) after a warm-up: (median ms, min, max, peak GB)."""
+    dev = trainer.model.device
+    for s in range(warmup):
+        trainer.train_step(batch_of(s), s)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], []
+    for s in range(steps):
+        b = batch_of(s + warmup)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_step(b, s + warmup))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    check(bool(torch.isfinite(torch.stack(losses)).all()), "non-finite loss in the timed steps")
+    return (float(np.median(times)), min(times), max(times),
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
 def train_step_phase(dev, dtype_name, name="RecBLR", steps=TRAIN_STEPS):
     """A model at full width on the bench data: launches per step, one
     step against the same step through the plain versions, and the step
@@ -981,6 +1069,8 @@ def train_step_phase(dev, dtype_name, name="RecBLR", steps=TRAIN_STEPS):
     rates = ((model.dropout_prob,) if name == "RecBLR"
              else (model.hidden_dropout_prob, model.attn_dropout_prob))
     check(rates == tuple(TRAINED[name][2].values()), f"{name}: dropout {rates}")
+    if dtype_name == "bfloat16":
+        counted = counted + (E.embedding_grad,)
     trainer = Trainer(cfg, model)
     train, _ = synthetic_splits(6040, N_ITEMS, T, 8192, seed=SEED)
     data = trainer.device_split(train)
@@ -991,33 +1081,9 @@ def train_step_phase(dev, dtype_name, name="RecBLR", steps=TRAIN_STEPS):
         idx = perm[(s * TRAIN_B) % len(train):][:TRAIN_B]
         return trainer.gather_batch(data, torch.from_numpy(idx).to(dev), weight)
 
-    # one step through the kernels and the same step through the plain
-    # versions (same seeds, so the same masks), gradients before Adam
-    batch = batch_of(0)
-    model.train()
-    model.zero_grad(set_to_none=True)
-    for fn in counted:
-        fn.launches = 0
-    loss = model.calculate_loss(batch, step=7)
-    loss.backward()
-    torch.cuda.synchronize()
-    launches = tuple(fn.launches for fn in counted)
-    got = {k: v.grad.detach().clone() for k, v in model.named_parameters()}
-    model.zero_grad(set_to_none=True)
-    want_loss = plain_loss(model, batch, 7)
-    want_loss.backward()
-    want = {k: v.grad.detach() for k, v in model.named_parameters()}
-    model.zero_grad(set_to_none=True)
     tol = GRAD_RTOL if dtype_name == "float32" else BF16_RTOL
-    # max |kernel - plain| over the larger of max |plain| and floor * (the
-    # largest gradient) / tol, so that ok <=> within tol of max |plain| or
-    # within floor of the largest gradient
-    top = max(float(w.abs().max()) for w in want.values())
-    errs = {k: float((got[k] - want[k]).abs().max()
-                     / max(float(want[k].abs().max()), floor * top / tol, 1e-30))
-            for k in got}
-    loss, want_loss = float(loss.detach()), float(want_loss.detach())
-    loss_err = abs(loss - want_loss) / abs(want_loss)
+    launches, loss, want_loss, loss_err, errs = step_vs_plain(model, batch_of(0), counted,
+                                                              plain_loss, floor, tol)
     worst = max(errs, key=errs.get)
     phase(f"{prefix}-step-vs-plain", dtype=dtype_name, batch=TRAIN_B, T=T,
           p=repr(rates),
@@ -1034,29 +1100,13 @@ def train_step_phase(dev, dtype_name, name="RecBLR", steps=TRAIN_STEPS):
     check(launches == (1,) * len(counted),
           f"{name}: expected one launch of each kernel, got {launches}")
 
-    # step time: CUDA events around trainer.train_step (batch gather,
-    # forward, backward, Adam), median over `steps` after a warm-up
-    for s in range(3):
-        trainer.train_step(batch_of(s), s)
-    torch.cuda.reset_peak_memory_stats(dev)
-    times, losses = [], []
-    for s in range(steps):
-        b = batch_of(s + 3)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses.append(trainer.train_step(b, s + 3))
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    med = float(np.median(times))
-    check(bool(torch.isfinite(torch.stack(losses)).all()), "non-finite loss in the timed steps")
+    med, lo, hi, peak = time_steps(trainer, batch_of, steps)
     phase(f"{prefix}-time", dtype=dtype_name, batch=TRAIN_B, T=T, steps=steps,
           median_ms_per_step=f"{med:.3f}", examples_per_s=f"{TRAIN_B / med * 1e3:.1f}",
-          min_ms=f"{min(times):.3f}", max_ms=f"{max(times):.3f}",
-          peak_device_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f}")
+          min_ms=f"{lo:.3f}", max_ms=f"{hi:.3f}", peak_device_gb=f"{peak:.3f}")
     train_profile(trainer, batch_of, dtype_name, prefix)
-    return {"launches": launches, "ms": med, "loss_err": loss_err, "grad_err": errs[worst]}
+    return {"launches": launches[:len(TRAINED[name][1])], "ms": med, "loss_err": loss_err,
+            "grad_err": errs[worst]}
 
 
 def train_profile(trainer, batch_of, dtype_name, prefix, steps=5):
@@ -1208,12 +1258,12 @@ def training_kernel_times(dev):
     return rows
 
 
-def requests(rng, b):
-    seqs = [list(rng.integers(1, N_ITEMS, size=rng.integers(2, T))) for _ in range(b)]
+def requests(rng, b, t=T, n_items=N_ITEMS):
+    seqs = [list(rng.integers(1, n_items, size=rng.integers(2, t))) for _ in range(b)]
     if b >= 4:
         seqs[0] = []                                     # empty history
-        seqs[1] = [int(rng.integers(1, N_ITEMS))]        # one item
-        seqs[2] = list(rng.integers(1, N_ITEMS, T + 37))  # longer than T
+        seqs[1] = [int(rng.integers(1, n_items))]        # one item
+        seqs[2] = list(rng.integers(1, n_items, t + 37))  # longer than T
     return seqs
 
 
@@ -1225,6 +1275,8 @@ SERVED = {
     "SASRec": ("serve-sasrec", ATTN_COUNTED, plain_baseline_output),
     "BERT4Rec": ("serve-bert4rec", ATTN_COUNTED, plain_baseline_output),
 }
+SERVED_XLONG = ("serve-xlong", (FLC.fused_recurrent_layer_chunked,
+                                FL.fused_recurrent_layer_last), plain_seq_output)
 
 
 def _at_full_width(model):
@@ -1232,23 +1284,30 @@ def _at_full_width(model):
         return L._use_fused_attention() and (
             model.hidden_size, model.n_heads, model.inner_size, len(model.encoder),
             model.hidden_act) == (D, HEADS, INNER, 2, "gelu")
-    return model.use_fused_layer() and (
+    return (model.use_fused_layer() or model.use_chunked_layer()) and (
         model.hidden_size, model.inner_hidden, len(model.layers)) == (D, C, 2)
 
 
-def serving(dev, name, dtype_name):
+def serving(dev, name, dtype_name, xlong=False):
+    """``Recommender.recommend`` at B users against the same model through
+    the plain versions, with one launch of each of the model's kernels per
+    call, and its time; with ``xlong`` RecBLR at the XLong shape (T 1,024,
+    V 329,722: the chunked layer and the last-position layer)."""
     from datamining_recblr_torch.eval.metrics import mask_scores
     from datamining_recblr_torch.ops.topk import topk_scores
 
-    prefix, counted, plain_output = SERVED[name]
-    cfg = Config(model=name, config_dict={"MAX_ITEM_LIST_LENGTH": T,
+    prefix, counted, plain_output = SERVED_XLONG if xlong else SERVED[name]
+    t, n_items = (XT, XV) if xlong else (T, N_ITEMS)
+    cfg = Config(model=name, config_dict={"MAX_ITEM_LIST_LENGTH": t,
                                           "compute_dtype": dtype_name})
-    model = get_model(name)(cfg, N_ITEMS, T, generator=torch.Generator().manual_seed(SEED))
+    model = get_model(name)(cfg, n_items, t, generator=torch.Generator().manual_seed(SEED))
     check(model.device.type == "cuda", f"{name}: model not on the card")
     check(_at_full_width(model), f"{name}: model is not at full width on the fused path")
+    check(not xlong or (model.use_chunked_layer() and model.use_last_layer_kernel()),
+          f"{name}: not the chunked composition at T {t}")
     rec = Recommender(model, top_k=TOP_K)
     rng = np.random.default_rng(SEED)
-    seqs = requests(rng, B)
+    seqs = requests(rng, B, t, n_items)
 
     for fn in counted:
         fn.launches = 0
@@ -1260,11 +1319,11 @@ def serving(dev, name, dtype_name):
           f"{name}: expected one launch of each kernel, got {launches}")
 
     # reference: the same model through the plain versions on the card
-    seq = np.zeros((B, T), np.int64)
+    seq = np.zeros((B, t), np.int64)
     lens = np.zeros((B,), np.int32)
     hist = np.zeros((B, model.n_items_padded), bool)
     for i, items in enumerate(seqs):
-        w = np.asarray(items, np.int64)[-T:]
+        w = np.asarray(items, np.int64)[-t:]
         seq[i, : len(w)] = w
         lens[i] = len(w)
         if len(items):
@@ -1291,14 +1350,15 @@ def serving(dev, name, dtype_name):
           max_abs_score_err=f"{err:.3e}", tol=f"{tol:.3e}", id_mismatches_near_ties=ties,
           history_excluded=excluded)
     check(err <= tol, f"{name}: serving scores disagree with the plain model")
-    check(excluded and (ids != 0).all() and (ids < N_ITEMS).all(),
+    check(excluded and (ids != 0).all() and (ids < n_items).all(),
           f"{name}: history, PAD or a padded id recommended")
+    del ref
 
     # timings as bench.py's serve_main takes them: host clock around
     # recommend(), median over repeats, after a first call
     out = {"launches": launches}
     for b, reps in ((1, 50), (B, 20)):
-        batch = requests(rng, b)
+        batch = requests(rng, b, t, n_items)
         rec.recommend(batch)
         times = []
         for _ in range(reps):
@@ -1643,6 +1703,450 @@ def b4r_training_kernel_times(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the XLong configuration: the chunked layer, the vocab-chunked CE and the
+# table gradient
+# ---------------------------------------------------------------------------
+
+def _xlong_ce_inputs(gen, dev, n=XB):
+    """Row 14's inputs at the XLong loss: x [512, 64], the 329,728-row
+    padded table (329,722 valid), no bias (RecBLR's loss), targets."""
+    vp = -(-XV // 2048) * 2048
+    x = torch.randn((n, D), generator=gen).to(dev)
+    table = (0.05 * torch.randn((vp, D), generator=gen)).to(dev)
+    tgt = torch.randint(1, XV, (n,), generator=gen).to(dev)
+    dnll = torch.rand((n,), generator=gen).to(dev)
+    return x, table, tgt, dnll
+
+
+def _xlong_emb_inputs(gen, dev):
+    """Row 16's inputs at the XLong step: 512 x 1,024 ids with the lengths
+    of ``synthetic_splits`` (uniform in 2 .. 1,000, PAD after them) and
+    bf16 cotangents."""
+    vp = -(-XV // 2048) * 2048
+    lens = torch.randint(2, XMAX_LEN + 1, (XB, 1), generator=gen)
+    ids = torch.randint(1, XV, (XB, XT), generator=gen)
+    ids = torch.where(torch.arange(XT)[None] < lens, ids, 0).to(dev)
+    g = torch.randn((XB, XT, D), generator=gen).to(dev, torch.bfloat16)
+    return ids, g, vp
+
+
+def xlong_kernels_vs_plain(dev):
+    """The new kernels against their plain versions at the XLong shapes:
+    row 9 (forward: output and record; backward: dx and every grad against
+    autograd of the plain version) at the step's B 512, T 1,024, full width
+    with the prologue, p = 0 and 0.2, fp32 and bf16, and K1 and its
+    backward on the recompute branch against the same plain version; K2
+    and its backward on the recompute branch at the same shape; row 14 at
+    N 512, V 329,728 (valid 329,722), fp32 products and bf16 x with bf16
+    products; row 16 at N 524,288, V 329,728, bf16 cotangents, the same
+    bits on a rerun; both CE paths with a bf16 table and bias.  Returns the
+    largest fp32 |kernel - plain| of each new kernel."""
+    gen = torch.Generator().manual_seed(SEED + 20)
+    p1 = layer_params(gen, dev, prologue=True)
+    p2 = layer_params(gen, dev, prologue=False)
+    x = torch.randn((XB, XT, D), generator=gen).to(dev)
+    d1 = torch.randn((XB, XT, D), generator=gen).to(dev)
+    d2 = torch.randn((XB, D), generator=gen).to(dev)
+    lens = torch.randint(1, XT + 1, (XB,), generator=gen)
+    lens[:3] = torch.tensor([0, 1, XT])
+    lens = lens.to(dev)
+    errs = {}
+    shape = f"B{XB}xT{XT}xD{D}"
+    for dt in (torch.float32, torch.bfloat16):
+        for pd in (0.0, DROPOUT):
+            xd, dout1, dout2 = x.to(dt), d1.to(dt), d2.to(dt)
+            seed = 13579 + int(pd * 10)
+            args = (True, True, True, pd, seed)
+            out, rec = FLC.fused_recurrent_layer_chunked_train(xd, p1, *args)
+            dx, grads = FLC.fused_recurrent_layer_chunked_bwd(xd, dout1, rec, p1, *args)
+            k1, k1_saved = FL.fused_recurrent_layer_train(xd, p1, *args)
+            k1dx, k1g = FL.fused_recurrent_layer_bwd(xd, dout1, p1, *args, saved=None)
+            k2, k2_saved = FL.fused_recurrent_layer_last_train(xd, lens, p2, True, True, pd,
+                                                               seed)
+            k2dx, k2g = FL.fused_recurrent_layer_last_bwd(xd, lens, dout2, p2, True, True, pd,
+                                                          seed, saved=None)
+            check(k1_saved is None and k2_saved is None,
+                  "the stash policy kept K1's or K2's scratch at T 1,024")
+            _, wrec = FLC.fused_recurrent_layer_chunked_plain(xd, p1, *args)
+            want1 = _plain_vjp(lambda a, q: FLC.fused_recurrent_layer_chunked_plain(
+                a, q, *args)[0], xd, p1, dout1)
+            want2 = _plain_vjp(lambda a, q: FL.fused_recurrent_layer_last_plain(
+                a, lens, q, True, True, pd, seed), xd, p2, dout2)
+            torch.cuda.synchronize()
+            tag = dict(dtype=str(dt).split(".")[-1], p=pd)
+            rec_err = float((rec - wrec).abs().max())
+            rec_ok = rec_err <= 1e-4 * float(wrec.abs().max())
+            for name, o, g_dx, g, (wout, wdx, wgrads) in (
+                ("fused_recurrent_layer_chunked", out, dx, grads, want1),
+                ("fused_recurrent_layer", k1, k1dx, k1g, want1),
+                ("fused_recurrent_layer_last", k2, k2dx, k2g, want2),
+            ):
+                ok_out = (torch.allclose(o, wout, **FP32_TOL) if dt == torch.float32
+                          else _bf16_ok(o, wout))
+                check(bool(torch.isfinite(g_dx).all()), f"{name} bwd {tag}: non-finite dx")
+                rows = {"dx": _grad_err_ok(g_dx, wdx, dt, True)}
+                rows.update({k: _grad_err_ok(v, wgrads[k], dt, False) for k, v in g.items()})
+                ok = ok_out and all(o_ for _, o_ in rows.values())
+                extra = {}
+                if name == "fused_recurrent_layer_chunked":
+                    ok = ok and rec_ok
+                    extra = dict(record_max_abs_err=f"{rec_err:.3e}",
+                                 record_tol="1e-4*max|plain|")
+                phase("xlong-kernel-vs-plain", kernel=name + "_bwd", **tag, shape=shape,
+                      branch="record" if name.endswith("chunked") else "recompute",
+                      out_max_abs_err=f"{(o.float() - wout.float()).abs().max().item():.3e}",
+                      rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
+                      tol=f"max|err|/max|plain| <= {GRAD_RTOL}"
+                          + (" (bf16 dx: + 2^-7*|plain|)" if dt == torch.bfloat16 else ""),
+                      **extra, ok=ok)
+                check(ok, f"{name} bwd {tag}: kernel disagrees with its plain version at T {XT}")
+                if dt == torch.float32 and name == "fused_recurrent_layer_chunked":
+                    errs[name] = max(errs.get(name, 0.0), float((o - wout).abs().max()),
+                                     rec_err)
+                    errs[name + "_bwd"] = max(
+                        [errs.get(name + "_bwd", 0.0), float((g_dx - wdx).abs().max())]
+                        + [float((v - wgrads[k]).abs().max()) for k, v in g.items()])
+            del want1, want2, wrec, out, rec, dx, grads, k1, k1dx, k1g, k2, k2dx, k2g
+
+    # row 14 at the XLong loss
+    xc, table, tgt, dnll = _xlong_ce_inputs(gen, dev)
+    for dt, mm in ((torch.float32, False), (torch.bfloat16, True)):
+        dname = str(dt).split(".")[-1]
+        xd = xc.to(dt)
+        nll, lse = FCE.fused_softmax_ce_chunked_train(xd, table, tgt, None, XV, mm)
+        dx, dtab, dbias = FCE.fused_softmax_ce_chunked_bwd(xd, table, tgt, dnll, None, XV, mm,
+                                                           lse=lse)
+        bias = torch.zeros((table.shape[0],), device=dev)
+        xl, tl, bl = (a.detach().clone().requires_grad_() for a in (xd, table, bias))
+        want = FCE.fused_softmax_ce_chunked_plain(xl, tl, tgt, bl, XV, mm)
+        gx, gt, gb = torch.autograd.grad(want, [xl, tl, bl], dnll)
+        torch.cuda.synchronize()
+        nll_err = float((nll - want.detach()).abs().max())
+        ok_nll = bool(((nll - want.detach()).abs() <= 1e-4 + 1e-5 * want.detach().abs()).all())
+        rows = {"dx": _grad_err_ok(dx, gx, dt, True), "dtable": _grad_err_ok(dtab, gt, dt, False),
+                "dbias": _grad_err_ok(dbias, gb, dt, False)}
+        ok = ok_nll and all(o for _, o in rows.values())
+        phase("xlong-kernel-vs-plain", kernel="fused_softmax_ce_chunked_bwd", dtype=dname,
+              mm_bf16=mm, shape=f"N{XB}xV{table.shape[0]}xD{D}", valid_v=XV,
+              nll_max_abs_err=f"{nll_err:.3e}", nll_tol="1e-4 + 1e-5*|plain|",
+              rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
+              tol=f"max|err|/max|plain| <= {GRAD_RTOL}"
+                  + (" (bf16 dx: + 2^-7*|plain|)" if mm else ""), ok=ok)
+        check(ok, f"fused_softmax_ce_chunked {dname}: kernel disagrees with its plain version")
+        if dt == torch.float32:
+            errs["fused_softmax_ce_chunked"] = nll_err
+            errs["fused_softmax_ce_chunked_bwd"] = max(
+                float((a - w).abs().max()) for a, w in ((dx, gx), (dtab, gt), (dbias, gb)))
+        del want, gx, gt, gb, xl, tl, bl, dx, dtab, dbias
+
+    # C2: a bf16 table and bias through both CE paths (autograd)
+    for name, tab in (("whole-table", table[:N_ITEMS]), ("chunked", table)):
+        tab16 = tab.to(torch.bfloat16)
+        b16 = (0.1 * torch.randn((tab.shape[0],), generator=gen)).to(dev, torch.bfloat16)
+        res = []
+        for fn in (FCE.fused_softmax_ce, FCE.fused_softmax_ce_chunked_plain
+                   if name == "chunked" else FCE.fused_softmax_ce_plain):
+            tl, bl = tab16.clone().requires_grad_(), b16.clone().requires_grad_()
+            out = fn(xc, tl, tgt % tab.shape[0], bl)
+            out.backward(dnll)
+            res.append((out.detach(), tl.grad, bl.grad))
+        (nll, gt, gb), (wnll, wgt, wgb) = res
+        torch.cuda.synchronize()
+        ok = (gt.dtype == gb.dtype == torch.bfloat16
+              and bool(((nll - wnll).abs() <= 1e-4 + 1e-5 * wnll.abs()).all())
+              and all(bool(((g.float() - w.float()).abs()
+                            <= BF16_RTOL * w.float().abs()
+                            + GRAD_RTOL * float(w.float().abs().max())).all())
+                      for g, w in ((gt, wgt), (gb, wgb))))
+        phase("xlong-kernel-vs-plain", kernel="fused_softmax_ce (bf16 table and bias)",
+              path=name, shape=f"N{XB}xV{tab.shape[0]}xD{D}", grad_dtype=str(gt.dtype),
+              nll_max_abs_err=f"{float((nll - wnll).abs().max()):.3e}",
+              tol="nll 1e-4 + 1e-5*|plain|; grads 2^-7*|plain| + 1e-4*max|plain|", ok=ok)
+        check(ok, f"fused_softmax_ce {name}: a bf16 table or bias disagrees with the plain CE")
+
+    # row 16 at the XLong step
+    ids, g, vp = _xlong_emb_inputs(gen, dev)
+    got = E.embedding_grad(ids, g, vp)
+    again = E.embedding_grad(ids, g, vp)
+    want = E.embedding_grad_plain(ids, g, vp)
+    exact = torch.zeros((vp, D), device=dev, dtype=torch.float64).index_add_(
+        0, ids.reshape(-1), g.reshape(-1, D).double())
+    torch.cuda.synchronize()
+    scale = float(exact.abs().max())
+    err = float((got - want).abs().max())
+    err_exact = float((got.double() - exact).abs().max())
+    plain_exact = float((want.double() - exact).abs().max())
+    same = torch.equal(got, again)
+    ok = err_exact <= 1e-6 * scale and err <= 1e-4 * scale and same
+    phase("xlong-kernel-vs-plain", kernel="embedding_grad", shape=f"N{ids.numel()}xV{vp}xD{D}",
+          g_dtype="bfloat16", pad_share=f"{float((ids == 0).float().mean()):.3f}",
+          max_abs_err=f"{err:.3e}", max_abs_err_vs_fp64=f"{err_exact:.3e}",
+          plain_max_abs_err_vs_fp64=f"{plain_exact:.3e}", max_abs_fp64=f"{scale:.3f}",
+          tol="1e-6*max|fp64| against the fp64 sum, 1e-4*max against the plain (fp32 atomic) one",
+          same_bits_on_rerun=same, ok=ok)
+    check(ok, "embedding_grad disagrees with the exact sum, its plain version or itself")
+    errs["embedding_grad"] = err
+    return errs
+
+
+def xlong_mask_bits(dev):
+    """Row 9's prologue mask bit for bit against the plain Philox mask over
+    T = 1,024 (eight chunks), and at each chunk's first and last position
+    against ``philox.dropout_mask_at``: with W_in = 0 and the FFN off, the
+    backward's dx is LN_pl'(dv1) * m0, 0 exactly where m0 drops.  The masks
+    m1-m3 enter every value that xlong-kernel-vs-plain compares at p = 0.2."""
+    gen = torch.Generator().manual_seed(SEED + 21)
+    p1 = layer_params(gen, dev, prologue=True)
+    p1 = {k: v for k, v in p1.items() if k not in ("w1", "b1", "w2", "b2", "ln2_s", "ln2_b")}
+    p1["w_in"] = torch.zeros_like(p1["w_in"])
+    x = torch.randn((XB, XT, D), generator=gen).to(dev)
+    dout = torch.randn((XB, XT, D), generator=gen).to(dev)
+    seed = 24680
+    _, rec = FLC.fused_recurrent_layer_chunked_train(x, p1, True, False, True, DROPOUT, seed)
+    dx, _ = FLC.fused_recurrent_layer_chunked_bwd(x, dout, rec, p1, True, False, True, DROPOUT,
+                                                  seed)
+    want = philox.dropout_mask(seed, philox.M0, XB, XT, D, DROPOUT, dev) > 0
+    got = dx != 0
+    tc = FLC.pick_chunk(XT)
+    edges = torch.tensor([e for s in range(tc, XT, tc) for e in (s - 1, s)], device=dev)
+    pos = edges[None].expand(XB, -1)
+    want_at = philox.dropout_mask_at(seed, philox.M0, pos, D, DROPOUT) > 0
+    got_at = got[torch.arange(XB, device=dev)[:, None], pos]
+    flips = int((got != want).sum())
+    flips_at = int((got_at != want_at).sum())
+    phase("xlong-mask-bits", mask="m0 (row 9 prologue)", elements=want.numel(), chunk=tc,
+          keep_fraction=f"{float(want.float().mean()):.5f}", mismatches=flips,
+          chunk_edge_positions=edges.numel(), edge_mismatches=flips_at)
+    check(flips == 0 and flips_at == 0,
+          f"row 9 m0: {flips} mask bits ({flips_at} at chunk edges) differ from the plain mask")
+
+
+def xlong_train_phase(dev, dtype_name, steps=XTRAIN_STEPS):
+    """RecBLR at the XLong configuration (batch 512, T 1,024, V 329,722,
+    dropout 0.2, CE, Adam), all at batch 512: launches of each of the
+    step's kernels in one step, the step against the plain step (whose CE
+    materializes the [512, V] logits, 675 MB), the plain step's time and
+    peak memory, and the kernel step's."""
+    from datamining_recblr_torch.data.synthetic import synthetic_splits
+    from datamining_recblr_torch.train.trainer import Trainer
+
+    prefix = "xlong-train"
+    counted = XLONG_COUNTED + ((E.embedding_grad,) if dtype_name == "bfloat16" else ())
+    cfg = Config(model="RecBLR", config_dict={
+        "MAX_ITEM_LIST_LENGTH": XT, "compute_dtype": dtype_name, "train_batch_size": XB,
+        "seed": SEED, "dropout_prob": DROPOUT, "hidden_size": D, "num_layers": 2, "expand": 2,
+        "d_conv": K})
+    model = get_model("RecBLR")(cfg, XV, XT, generator=torch.Generator().manual_seed(SEED))
+    check(_at_full_width(model) and model.use_chunked_layer() and model.use_last_layer_kernel(),
+          "RecBLR at XLong: not the chunked composition at full width")
+    check(model._use_fused_ce(model.n_items_padded, D, XB)
+          and not FCE.supports(model.n_items_padded, D),
+          "RecBLR at XLong: the loss does not take the vocab-chunked CE kernel")
+    trainer = Trainer(cfg, model)
+    train, _ = synthetic_splits(5000, XV, XT, 4096, seed=SEED)
+    # the xlong-synth histories are at most 1,000 long (the preset's max_len)
+    train.item_seq_len[:] = np.minimum(train.item_seq_len, XMAX_LEN)
+    train.item_seq[:, XMAX_LEN:] = 0
+    data = trainer.device_split(train)
+    perm = np.random.default_rng((SEED, 1)).permutation(len(train))
+    weight = torch.ones(XB, device=dev)
+
+    def batch_of(s):
+        idx = perm[(s * XB) % len(train):][:XB]
+        return trainer.gather_batch(data, torch.from_numpy(idx).to(dev), weight)
+
+    # launches: one step of the main path at batch 512
+    model.train()
+    model.zero_grad(set_to_none=True)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    model.calculate_loss(batch_of(0), step=7).backward()
+    torch.cuda.synchronize()
+    launches = tuple(fn.launches for fn in counted)
+    fwd_bwd_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    model.zero_grad(set_to_none=True)
+    phase(f"{prefix}-launches", dtype=dtype_name, batch=XB, T=XT, steps=1,
+          **{fn.__name__: n for fn, n in zip(counted, launches)})
+    check(launches == (1,) * len(counted),
+          f"RecBLR at XLong: expected one launch of each kernel, got {launches}")
+
+    # the step against the plain step
+    batch = batch_of(1)
+    tol = GRAD_RTOL if dtype_name == "float32" else BF16_RTOL
+    _, loss, want_loss, loss_err, errs = step_vs_plain(model, batch, counted,
+                                                       TRAINED["RecBLR"][3], 0.0, tol)
+    worst = max(errs, key=errs.get)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    TRAINED["RecBLR"][3](model, batch, 7).backward()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    model.zero_grad(set_to_none=True)
+    phase(f"{prefix}-step-vs-plain", dtype=dtype_name, batch=XB, T=XT, V=XV, p=DROPOUT,
+          loss=f"{loss:.6f}", plain_loss=f"{want_loss:.6f}", loss_rel_err=f"{loss_err:.3e}",
+          loss_tol="1e-4", grad_rel_err_max=f"{errs[worst]:.3e}", worst_param=worst,
+          grad_tol=f"max|err|/max|plain| <= {tol}", params=len(errs),
+          plain_fwd_bwd_ms=f"{plain_ms:.1f}", plain_peak_device_gb=f"{plain_peak:.3f}")
+    check(np.isfinite(loss), "RecBLR at XLong: train loss is not finite")
+    check(loss_err <= 1e-4, "RecBLR at XLong: train loss disagrees with the plain step")
+    check(all(e <= tol for e in errs.values()),
+          "RecBLR at XLong: gradients disagree with the plain step")
+
+    med, lo, hi, peak = time_steps(trainer, batch_of, steps)
+    phase(f"{prefix}-time", dtype=dtype_name, batch=XB, T=XT, V=XV, steps=steps,
+          median_ms_per_step=f"{med:.3f}", examples_per_s=f"{XB / med * 1e3:.1f}",
+          positions_per_s=f"{XB * XT / med * 1e3:.4g}", min_ms=f"{lo:.3f}", max_ms=f"{hi:.3f}",
+          peak_device_gb=f"{peak:.3f}", fwd_bwd_peak_device_gb=f"{fwd_bwd_peak:.3f}")
+    train_profile(trainer, batch_of, dtype_name, prefix, steps=3)
+    return {"launches": dict(zip((fn.__name__ for fn in counted), launches)), "ms": med,
+            "peak_gb": peak}
+
+
+def chunked_bound_ms(b, t, p, act_bytes):
+    # K1's operations; x read and out written once, the params, the record
+    # [B, T / chunk, 8, C] fp32 written
+    bound, flops, _ = k1_bound_ms(b, t, p, act_bytes)
+    nbytes = (2 * b * t * D * act_bytes + _params_bytes(p)
+              + b * (t // FLC.pick_chunk(t)) * FLC.REC_ROWS * C * 4)
+    return _bound(flops, nbytes)
+
+
+def chunked_bwd_bound_ms(b, t, p, act_bytes):
+    # the forward recomputed and two gradient products per forward product
+    # (K1's backward work); x, dout and dx, the record read, the params read
+    # and their grads written
+    nbytes = (3 * b * t * D * act_bytes + b * (t // FLC.pick_chunk(t)) * FLC.REC_ROWS * C * 4
+              + 2 * _params_bytes(p))
+    return _bound(_bwd_flops_k1(b, t), nbytes)
+
+
+def emb_grad_bound_ms(n, v, g_bytes, id_bytes=8):
+    # ids and the [N, D] cotangents read once, the [V, D] fp32 sum written
+    # once; one add per cotangent element
+    return _bound(n * D, n * id_bytes + n * D * g_bytes + v * D * 4)
+
+
+def xlong_kernel_times(dev):
+    """The new kernels at the XLong step's shapes, in the configuration's
+    bf16: row 9 forward (keeping the record) and backward at B 512, T 1,024,
+    p = 0.2; row 14 forward and backward at N 512, V 329,728 with bf16 x
+    and bf16 products; row 16 at N 524,288; each beside its bound, its
+    plain version (a backward's: autograd's backward of the plain forward,
+    its graph built once) and one PyTorch call of the same function where
+    there is one (row 14: ``F.cross_entropy`` on materialized logits and
+    ``autograd.grad`` through it; row 16: one ``index_add_`` into fp32
+    zeros).  K2 and its backward (recompute branch) at the same shape, for
+    the record of their T = 1,024 times."""
+    gen = torch.Generator().manual_seed(SEED + 22)
+    p1 = layer_params(gen, dev, prologue=True)
+    p2 = layer_params(gen, dev, prologue=False)
+    x = torch.randn((XB, XT, D), generator=gen).to(dev, torch.bfloat16)
+    d1 = torch.randn((XB, XT, D), generator=gen).to(dev, torch.bfloat16)
+    d2 = torch.randn((XB, D), generator=gen).to(dev, torch.bfloat16)
+    lens = torch.randint(2, XMAX_LEN + 1, (XB,), generator=gen).to(dev)
+    seed = 4242
+    args = (True, True, True, DROPOUT, seed)
+    _, rec = FLC.fused_recurrent_layer_chunked_train(x, p1, *args)
+    times = {
+        "fused_recurrent_layer_chunked": time_ms(
+            lambda: FLC.fused_recurrent_layer_chunked_train(x, p1, *args), reps=10),
+        "fused_recurrent_layer_chunked_bwd": time_ms(
+            lambda: FLC.fused_recurrent_layer_chunked_bwd(x, d1, rec, p1, *args), reps=10),
+        "fused_recurrent_layer_last": time_ms(lambda: FL.fused_recurrent_layer_last_train(
+            x, lens, p2, True, True, DROPOUT, seed), reps=10),
+        "fused_recurrent_layer_last_bwd": time_ms(lambda: FL.fused_recurrent_layer_last_bwd(
+            x, lens, d2, p2, True, True, DROPOUT, seed), reps=10),
+    }
+    plain, lib = {}, {}
+    for name, fn, pp, dout in (
+        ("fused_recurrent_layer_chunked", lambda a, q: FLC.fused_recurrent_layer_chunked_plain(
+            a, q, *args)[0], p1, d1),
+        ("fused_recurrent_layer_last", lambda a, q: FL.fused_recurrent_layer_last_plain(
+            a, lens, q, True, True, DROPOUT, seed), p2, d2),
+    ):
+        # the plain versions walk T in Python: two calls each, no warm-up
+        with torch.no_grad():
+            plain[name] = time_ms(lambda: fn(x, pp), reps=2, warmup=0)
+        xl = x.clone().requires_grad_()
+        ql = {k: v.clone().requires_grad_() for k, v in pp.items()}
+        out = fn(xl, ql)
+        inputs = [xl, *ql.values()]
+        plain[name + "_bwd"] = time_ms(lambda: torch.autograd.grad(out, inputs, dout,
+                                                                   retain_graph=True),
+                                       reps=2, warmup=0)
+        lib[name] = lib[name + "_bwd"] = None
+        del out, inputs, xl, ql
+
+    xc, table, tgt, dnll = _xlong_ce_inputs(gen, dev)
+    xc = xc.to(torch.bfloat16)
+    vp = table.shape[0]
+    _, lse = FCE.fused_softmax_ce_chunked_train(xc, table, tgt, None, XV, True)
+    times["fused_softmax_ce_chunked"] = time_ms(
+        lambda: FCE.fused_softmax_ce_chunked_train(xc, table, tgt, None, XV, True))
+    times["fused_softmax_ce_chunked_bwd"] = time_ms(lambda: FCE.fused_softmax_ce_chunked_bwd(
+        xc, table, tgt, dnll, None, XV, True, lse=lse))
+    with torch.no_grad():
+        plain["fused_softmax_ce_chunked"] = time_ms(
+            lambda: FCE.fused_softmax_ce_chunked_fwd_plain(xc, table, tgt, None, XV, True),
+            reps=5, warmup=1)
+    plain["fused_softmax_ce_chunked_bwd"] = time_ms(
+        lambda: FCE.fused_softmax_ce_chunked_bwd_plain(xc, table, tgt, dnll, None, XV, True,
+                                                       lse=lse), reps=5, warmup=1)
+    # the library yardstick: the same function on bf16-rounded operands, the
+    # padded columns at -1e30, checked against the plain version first
+    xr = xc.float()
+    tr = table.to(torch.bfloat16).float()
+    bias = torch.where(torch.arange(vp, device=dev) < XV, 0.0, FCE.NEG)
+    xl, tl = xr.clone().requires_grad_(), tr.clone().requires_grad_()
+    lib_out = F.cross_entropy(xl @ tl.T + bias, tgt, reduction="none")
+    want = FCE.fused_softmax_ce_chunked_fwd_plain(xc, table, tgt, None, XV, True)[0]
+    lib_err = float((lib_out.detach() - want).abs().max())
+    lib_ok = lib_err <= 1e-4 * float(want.abs().max())
+    phase("library-vs-plain", call="F.cross_entropy(x @ table.T - 1e30 beyond V)", N=XB, V=vp,
+          max_abs_err=f"{lib_err:.3e}", tol="1e-4*max|plain|", ok=lib_ok)
+    check(lib_ok, "F.cross_entropy does not compute the chunked plain CE's function")
+    with torch.no_grad():
+        lib["fused_softmax_ce_chunked"] = time_ms(lambda: F.cross_entropy(
+            xr @ tr.T + bias, tgt, reduction="none"))
+    lib["fused_softmax_ce_chunked_bwd"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, [xl, tl], dnll, retain_graph=True))
+    del lib_out, xl, tl, want
+
+    ids, g, _ = _xlong_emb_inputs(gen, dev)
+    flat_ids, flat_g = ids.reshape(-1), g.reshape(-1, D).float()
+    times["embedding_grad"] = time_ms(lambda: E.embedding_grad(ids, g, vp))
+    plain["embedding_grad"] = time_ms(lambda: E.embedding_grad_plain(ids, g, vp))
+    zeros = torch.zeros((vp, D), device=dev)
+    lib["embedding_grad"] = time_ms(lambda: zeros.zero_().index_add_(0, flat_ids, flat_g))
+
+    n_ids = ids.numel()
+    bounds = {
+        "fused_recurrent_layer_chunked": chunked_bound_ms(XB, XT, p1, 2),
+        "fused_recurrent_layer_chunked_bwd": chunked_bwd_bound_ms(XB, XT, p1, 2),
+        "fused_recurrent_layer_last": k2_bound_ms(lens.cpu(), p2, 2, t=XT),
+        "fused_recurrent_layer_last_bwd": k2_bwd_bound_ms(lens.cpu(), XT, p2, 2),
+        "fused_softmax_ce_chunked": ce_bound_ms(XB, vp, 2, train=True, mm_bf16=True),
+        "fused_softmax_ce_chunked_bwd": ce_bwd_bound_ms(XB, vp, 2, mm_bf16=True),
+        "embedding_grad": emb_grad_bound_ms(n_ids, vp, 2),
+    }
+    rows = {}
+    for name, ms in times.items():
+        bound, flops, by = bounds[name]
+        phase("kernel-time", kernel=name, shape="xlong", B=XB, T=XT, N=n_ids if name ==
+              "embedding_grad" else XB, V=vp, dtype="bfloat16", p=DROPOUT if "layer" in name
+              else 0.0, ms=f"{ms:.4f}", plain_ms=f"{plain[name]:.4f}",
+              library_ms=f"{lib[name]:.4f}" if lib[name] is not None else "none",
+              bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}", bound_by=by,
+              share_of_bound=f"{bound / ms:.4f}")
+        rows[name] = (ms, plain[name], bound, by, lib[name])
+    return rows
+
+
+
 KERNELS = (
     ("fused_recurrent_layer", "datamining_recblr_torch/csrc/fused_layer.cu",
      "datamining_recblr_tpu/ops/fused_layer.py:245"),
@@ -1652,6 +2156,19 @@ KERNELS = (
      "datamining_recblr_tpu/ops/fused_layer.py:419"),
     ("fused_recurrent_layer_last_bwd", "datamining_recblr_torch/csrc/fused_layer_last_bwd.cu",
      "datamining_recblr_tpu/ops/fused_layer.py:844"),
+)
+XLONG_KERNELS = (
+    ("fused_recurrent_layer_chunked", "datamining_recblr_torch/csrc/fused_layer_chunked.cu",
+     "datamining_recblr_tpu/ops/fused_layer_chunked.py:118"),
+    ("fused_recurrent_layer_chunked_bwd",
+     "datamining_recblr_torch/csrc/fused_layer_chunked_bwd.cu",
+     "datamining_recblr_tpu/ops/fused_layer_chunked.py:192"),
+    ("fused_softmax_ce_chunked", "datamining_recblr_torch/csrc/fused_ce_chunked.cu",
+     "datamining_recblr_tpu/ops/fused_ce.py:296"),
+    ("fused_softmax_ce_chunked_bwd", "datamining_recblr_torch/csrc/fused_ce_chunked.cu",
+     "datamining_recblr_tpu/ops/fused_ce.py:327"),
+    ("embedding_grad", "datamining_recblr_torch/csrc/emb_grad.cu",
+     "datamining_recblr_tpu/ops/embedding.py:62"),
 )
 SHORT_DTYPE = {"float32": "fp32", "bfloat16": "bf16"}
 ATTN_KERNELS = (
@@ -1694,10 +2211,14 @@ def main():
     attn_mask_bits(dev)
     b4r_errs = b4r_kernels_vs_plain(dev)
     b4r_mask_bits(dev)
+    xlong_errs = xlong_kernels_vs_plain(dev)
+    xlong_mask_bits(dev)
     serve = {(name, dt): serving(dev, name, dt)
              for name in SERVED for dt in ("float32", "bfloat16")}
+    xserve = serving(dev, "RecBLR", "bfloat16", xlong=True)
     train = {(name, dt): train_step_phase(dev, dt, name)
              for name in TRAINED for dt in ("float32", "bfloat16")}
+    xtrain = {dt: xlong_train_phase(dev, dt) for dt in ("float32", "bfloat16")}
     for name in TRAINED:
         fit_phase(dev, name)
     kernel_times(dev, p1, p2, lens)
@@ -1705,6 +2226,7 @@ def main():
     attn_kernel_times(dev)
     sas_rows = attn_training_kernel_times(dev)
     b4r_rows = b4r_training_kernel_times(dev)
+    xlong_rows = xlong_kernel_times(dev)
     # launches: each model's kernels in one training step of its main path
     # (fp32), the forwards' launches per recommend() beside them (RecBLR's;
     # the attention kernels' in SASRec's and BERT4Rec's)
@@ -1746,6 +2268,18 @@ def main():
             "launches": b4r_launches[name], "max_abs_err": b4r_errs[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
         })
+    # the long-context kernels: launches in one bf16 XLong step (the
+    # configuration's dtype, the only one that runs row 16)
+    for name, src, tpu in XLONG_KERNELS:
+        ms, plain, bound, by, lib = xlong_rows[name]
+        entry = {
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": xtrain["bfloat16"]["launches"][name], "max_abs_err": xlong_errs[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
+        }
+        if name == "fused_recurrent_layer_chunked":
+            entry["launches_per_recommend"] = xserve["launches"][0]
+        kernels.append(entry)
     serve_summary = {}
     for (name, dt), out in serve.items():
         tag = ("" if name == "RecBLR" else name.lower() + "_") + SHORT_DTYPE[dt]
@@ -1757,6 +2291,11 @@ def main():
         train_summary[f"{tag}_ms_per_step_{SHORT_DTYPE[dt]}"] = f"{out['ms']:.3f}"
         train_summary[f"{tag}_examples_per_s_{SHORT_DTYPE[dt]}"] = (
             f"{TRAIN_B / out['ms'] * 1e3:.1f}")
+    serve_summary["serve_xlong_p50_ms_bf16"] = f"{xserve[1] * 1e3:.3f}"
+    serve_summary["serve_xlong_users_per_s_bf16"] = f"{B / xserve[B]:.1f}"
+    for dt, out in xtrain.items():
+        train_summary[f"xlong_train_ms_per_step_{SHORT_DTYPE[dt]}"] = f"{out['ms']:.3f}"
+        train_summary[f"xlong_train_peak_gb_{SHORT_DTYPE[dt]}"] = f"{out['peak_gb']:.3f}"
     phase("summary", card=repr(smi), **serve_summary, **train_summary)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -193,6 +193,11 @@ __device__ void block_layernorm(float* v, int ld, int M, int D,
   }
 }
 
+// Rows per (row, chunk) of the chunked layer's record: row 0 the scan
+// state entering the chunk, rows 1 .. K-1 the previous chunk's last K-1
+// xb rows (pre-conv, after W_in), the rest zero.
+constexpr int REC_ROWS = MAX_K;
+
 inline size_t phase_a_smem_bytes(int D, int C) {
   return sizeof(float) * ((size_t)XR * D + (size_t)XR * C + (size_t)TT * C + (size_t)TT * 2 * C);
 }
@@ -205,7 +210,8 @@ template <typename Tin>
 __global__ void __launch_bounds__(THREADS)
 phase_a_kernel(const Tin* __restrict__ x, const int* __restrict__ lens, LayerParams p,
                Dropout dr, float* __restrict__ alpha_out, float* __restrict__ bx_out,
-               int T, int D, int C, int K, int use_conv, int prologue) {
+               int T, int D, int C, int K, int use_conv, int prologue,
+               float* __restrict__ tail_out = nullptr, int chunk = 0) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int t0 = blockIdx.y * TT;
@@ -237,6 +243,17 @@ phase_a_kernel(const Tin* __restrict__ x, const int* __restrict__ lens, LayerPar
   }
   block_matmul(xs, D, rows_h, D, p.w_in, 2 * C, C, nullptr, xb, C);
   __syncthreads();
+  if (tail_out != nullptr) {
+    // the chunked layer's record: the last K-1 xb rows of chunk j are rows
+    // 1 .. K-1 of chunk j + 1's REC_ROWS rows
+    const int nc = T / chunk;
+    for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+      const int r = i / C, c = i % C, t = t0 + r;
+      const int j = t / chunk, q = t % chunk - (chunk - (K - 1));
+      if (q >= 0 && j + 1 < nc)
+        tail_out[(((size_t)b * nc + j + 1) * REC_ROWS + 1 + q) * C + c] = xb[(r + H) * C + c];
+    }
+  }
 
   for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
     const int r = i / C, c = i % C;
@@ -396,6 +413,63 @@ scan_last_kernel(const float* __restrict__ alpha, float* __restrict__ bx,
     if (stash) bx[o] = h;
   }
   h_last[i] = h;
+}
+
+// Pass 1 of the chunked scan: one thread per (row, chunk, channel), with
+// T = nc * chunk.  The chunk's scan from a zero state, to its last
+// position: hend = that state, pend = the product of the chunk's gates
+// ([B, nc, C]); the true state there is hend + pend * (the state entering
+// the chunk).
+__global__ void __launch_bounds__(SCAN_THREADS)
+chunk_state_kernel(const float* __restrict__ alpha, const float* __restrict__ bx,
+                   float* __restrict__ hend, float* __restrict__ pend, int B, int T, int C,
+                   int chunk) {
+  const int nc = T / chunk;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * nc * C) return;
+  const int c = i % C, j = (i / C) % nc, b = i / (C * nc);
+  size_t o = ((size_t)b * T + (size_t)j * chunk) * C + c;
+  float h = 0.f, pr = 1.f;
+  for (int t = 0; t < chunk; ++t, o += C) {
+    const float a = alpha[o];
+    h = a * h + bx[o];
+    pr *= a;
+  }
+  hend[i] = h;
+  pend[i] = pr;
+}
+
+// Pass 2 of the chunked scan: one thread per (row, chunk, channel).  The
+// state entering the chunk is read from the record (rec_in, [B, nc,
+// REC_ROWS, C], row 0) or composed from the earlier chunks' (hend, pend)
+// and written to rec_out; then the chunk's scan from it, h over bx in
+// place, as scan_kernel's serial loop.
+__global__ void __launch_bounds__(SCAN_THREADS)
+chunk_scan_kernel(const float* __restrict__ alpha, float* __restrict__ bx_h,
+                  const float* __restrict__ hend, const float* __restrict__ pend,
+                  const float* __restrict__ rec_in, float* __restrict__ rec_out, int B, int T,
+                  int C, int chunk) {
+  const int nc = T / chunk;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * nc * C) return;
+  const int c = i % C, j = (i / C) % nc, b = i / (C * nc);
+  const size_t r0 = ((size_t)b * nc + j) * REC_ROWS * C + c;
+  float h;
+  if (rec_in != nullptr) {
+    h = rec_in[r0];
+  } else {
+    h = 0.f;
+    for (int jj = 0; jj < j; ++jj) {
+      const size_t k = ((size_t)b * nc + jj) * C + c;
+      h = hend[k] + pend[k] * h;
+    }
+    rec_out[r0] = h;
+  }
+  size_t o = ((size_t)b * T + (size_t)j * chunk) * C + c;
+  for (int t = 0; t < chunk; ++t, o += C) {
+    h = alpha[o] * h + bx_h[o];
+    bx_h[o] = h;
+  }
 }
 
 }  // namespace recblr

@@ -380,6 +380,56 @@ rev_scan_kernel(const float* __restrict__ alpha, float* __restrict__ ds,
   }
 }
 
+// The chunked layer's reverse scan, in two passes of one thread per (row,
+// chunk, channel), T = nc * chunk.  With cin the carry entering a chunk
+// from its right (alpha[t+1] * d_states[t+1] at its last position t, 0
+// for the last chunk), d_states[t] = dh[t] + cin within the chunk.
+// Pass 1: the chunk's walk from cin = 0 gives aend = the carry it passes
+// left (alpha[s] * d_states[s] at its first position s) and mend = the
+// product of its gates, so the carry it passes is aend + mend * cin.
+__global__ void __launch_bounds__(SCAN_THREADS)
+rev_chunk_state_kernel(const float* __restrict__ alpha, const float* __restrict__ ds,
+                       float* __restrict__ aend, float* __restrict__ mend, int B, int T, int C,
+                       int chunk) {
+  const int nc = T / chunk;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * nc * C) return;
+  const int c = i % C, j = (i / C) % nc, b = i / (C * nc);
+  size_t o = ((size_t)b * T + (size_t)j * chunk + chunk - 1) * C + c;
+  float cin = 0.f, pr = 1.f;
+  for (int t = chunk - 1; t >= 0; --t, o -= C) {
+    const float a = alpha[o];
+    cin = a * (ds[o] + cin);
+    pr *= a;
+  }
+  aend[i] = cin;
+  mend[i] = pr;
+}
+
+// Pass 2: the carry entering chunk j, composed from the later chunks'
+// (aend, mend), then the chunk's reverse walk: ds holds dh on entry and
+// d_states on exit.
+__global__ void __launch_bounds__(SCAN_THREADS)
+rev_chunk_scan_kernel(const float* __restrict__ alpha, float* __restrict__ ds,
+                      const float* __restrict__ aend, const float* __restrict__ mend, int B,
+                      int T, int C, int chunk) {
+  const int nc = T / chunk;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * nc * C) return;
+  const int c = i % C, j = (i / C) % nc, b = i / (C * nc);
+  float cin = 0.f;
+  for (int jj = nc - 1; jj > j; --jj) {
+    const size_t k = ((size_t)b * nc + jj) * C + c;
+    cin = aend[k] + mend[k] * cin;
+  }
+  size_t o = ((size_t)b * T + (size_t)j * chunk + chunk - 1) * C + c;
+  for (int t = chunk - 1; t >= 0; --t, o -= C) {
+    const float d = ds[o] + cin;
+    ds[o] = d;
+    cin = alpha[o] * d;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // C1': gate, lambda and conv backward
 // ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """Sequential-recommender model contract and its loss (counterpart of
 ``datamining_recblr_tpu/models/base.py``): ``forward(item_seq,
-item_seq_len, step) -> [B, H]``, the item embedding lookup, the
-vocab-padding rule, full-catalog scoring and the CE training loss (the
-whole-table CE kernel from 8,192 rows on the card, as the JAX package's
-gate), as an ``nn.Module`` that holds its parameters under the JAX
-parameter tree's names.  The BPR loss is not ported yet.
+item_seq_len, step) -> [B, H]``, the item embedding lookup (under bf16
+compute through ``ops/embedding.py``, whose backward is the table
+gradient kernel), the vocab-padding rule, full-catalog scoring and the CE
+training loss (on the card the whole-table CE kernel from 8,192 rows, or
+the vocab-chunked one for a table beyond it once the logits would take
+64 MiB, as the JAX package's gate), as an ``nn.Module`` that holds its
+parameters under the JAX parameter tree's names.  The BPR loss is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from datamining_recblr_torch.ops import fused_ce as FCE
+from datamining_recblr_torch.ops.embedding import embedding_lookup
 
 _DTYPES = {
     "float32": torch.float32,
@@ -98,17 +102,14 @@ class SequentialModel(nn.Module):
         raise NotImplementedError
 
     def embed(self, ids):
-        """Item-embedding lookup; under bf16 compute it gathers from a
-        bf16 copy of the table (``ops/embedding.py:41-53`` of the JAX
-        package), which rounds exactly as casting after the gather.
-        ``F.embedding`` and not ``table[ids]``: on the card its backward
-        sums the rows of repeated ids (PAD fills about half a training
-        batch) in parallel segments, where indexing's backward
-        serializes them."""
-        table = self.item_embedding
+        """Item-embedding lookup.  Under bf16 compute it is
+        ``embedding_lookup`` (the JAX package's ``models/base.py:108-115``):
+        a gather from a bf16 copy of the table, whose table gradient is
+        summed in fp32 by the ``embedding_grad`` kernel on the card.
+        Under fp32 it is the plain gather, ``F.embedding``."""
         if self.compute_dtype == torch.bfloat16:
-            table = table.to(torch.bfloat16)
-        return F.embedding(ids, table)
+            return embedding_lookup(self.item_embedding, ids)
+        return F.embedding(ids, self.item_embedding)
 
     def _mask_padded_vocab(self, logits, value=float("-inf")):
         if self.n_items_padded == self.n_items:
@@ -135,18 +136,24 @@ class SequentialModel(nn.Module):
         return (seq_output * emb).sum(-1)
 
     def _use_fused_ce(self, v: int, d: int, rows: int) -> bool:
-        """The whole-table CE kernel's gate (the JAX package's
-        ``_use_fused_ce`` on one device): on the card, when the [V, D]
-        table fits the kernel and the loss has at least ``MIN_ROWS`` rows,
-        below which the JAX package keeps its XLA CE."""
-        return self.device.type == "cuda" and FCE.supports(v, d) and rows >= FCE.MIN_ROWS
+        """The CE kernels' gate (the JAX package's ``_use_fused_ce`` on one
+        device): on the card, the whole-table kernel when the [V, D] table
+        fits it and the loss has at least ``MIN_ROWS`` rows, below which
+        the JAX package keeps its XLA CE; the vocab-chunked kernel for a
+        larger table once the [rows, V] fp32 logits would take
+        ``CHUNK_MIN_LOGITS_BYTES``."""
+        if self.device.type != "cuda":
+            return False
+        if FCE.supports(v, d):
+            return rows >= FCE.MIN_ROWS
+        return FCE.supports_chunked(v, d) and rows * v * 4 >= FCE.CHUNK_MIN_LOGITS_BYTES
 
     def calculate_loss(self, batch, step=None):
         """batch: item_seq [B, T], item_seq_len [B], pos_item [B] and an
         optional weight [B] (0 for padded rows).  CE over the whole
-        catalog, padded vocab columns at -1e30 (the fused CE kernel from
-        ``MIN_ROWS`` rows on the card); dropout on in training mode with
-        the global ``step``."""
+        catalog, padded vocab columns at -1e30 (on the card through a CE
+        kernel where ``_use_fused_ce`` says so); dropout on in training
+        mode with the global ``step``."""
         if self.loss_type != "CE":
             raise NotImplementedError(f"loss_type {self.loss_type!r} is not ported; CE is "
                                       "(BPR: ROADMAP.md queue A item 8)")

@@ -14,19 +14,22 @@ of (config seed, step, layer) alone (``ops/philox.py:step_seeds``), one
 per layer plus one for the input dropout, as the JAX model draws one
 seed per layer plus one for the prologue (``recblr.py:303-311``).
 
-Two compositions, chosen by configuration as in the JAX package:
+Two compositions, chosen by configuration as in the JAX package
+(``_use_fused_layer``, ``_use_chunked_layer``, ``recblr.py:204-237``):
 
-* fused (D <= 128, C <= 128, T <= 512, ``use_pallas_scan`` not
-  "never"): layer 0 .. N-2 run ``fused_recurrent_layer`` (layer 0 with
-  the input dropout and LN folded in), the top layer runs
-  ``fused_recurrent_layer_last``; both are differentiable through their
-  backward kernels.  A one-layer model applies the input dropout and LN
-  in plain PyTorch first, where the JAX package calls its standalone
-  ``fused_dropout_ln`` kernel (not ported yet).
-* unfused (everything else, including T > 512, where the JAX package
-  runs its sequence-chunked kernel, not ported yet): the per-op
-  composition of ``_gated_recurrent`` and ``_ffn``, differentiated by
-  autograd.
+* fused (D <= 128, C <= 128, ``use_pallas_scan`` not "never"; T <= 512,
+  or T > 512 with a chunk from ``pick_chunk(T)`` of at least max(8,
+  d_conv) and d_conv <= 8): layer 0 .. N-2 run ``fused_recurrent_layer``,
+  or beyond T = 512 the sequence-chunked ``fused_recurrent_layer_chunked``
+  (layer 0 with the input dropout and LN folded in); the top layer runs
+  ``fused_recurrent_layer_last`` up to T = 1,024, and beyond it the
+  chunked layer and a gather at each row's last position (length 0 reads
+  position 0).  All are differentiable through their backward kernels.
+  A one-layer model applies the input dropout and LN in plain PyTorch
+  first, where the JAX package calls its standalone ``fused_dropout_ln``
+  kernel (not ported yet).
+* unfused (everything else): the per-op composition of
+  ``_gated_recurrent`` and ``_ffn``, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -47,7 +50,14 @@ from datamining_recblr_torch.ops.fused_layer import (
     fused_recurrent_layer_last,
     supports,
 )
+from datamining_recblr_torch.ops.fused_layer_chunked import (
+    chunk_of,
+    fused_recurrent_layer_chunked,
+)
 from datamining_recblr_torch.ops.scan import linear_scan_serial
+
+MAX_WHOLE_T = 512  # the whole-sequence layer kernel's T (recblr.py:204-215)
+MAX_LAST_T = 1024  # the top layer's last-position kernel's T (recblr.py:336)
 
 
 def _softplus_inverse(x: float) -> float:
@@ -130,8 +140,24 @@ class RecBLR(SequentialModel):
         return (
             self.scan_impl != "xla"
             and supports(self.hidden_size, self.inner_hidden)
-            and self.max_seq_len <= 512
+            and self.max_seq_len <= MAX_WHOLE_T
         )
+
+    def use_chunked_layer(self) -> bool:
+        """The long-context composition (the JAX package's
+        ``_use_chunked_layer``): T > 512 in chunks of ``pick_chunk(T)``."""
+        return (
+            self.scan_impl != "xla"
+            and supports(self.hidden_size, self.inner_hidden)
+            and self.max_seq_len > MAX_WHOLE_T
+            and chunk_of(self.max_seq_len, self.d_conv) > 0
+        )
+
+    def use_last_layer_kernel(self) -> bool:
+        """Whether the top layer of the fused compositions runs
+        ``fused_recurrent_layer_last`` (T <= 1,024) or the chunked layer
+        and a gather."""
+        return self.max_seq_len <= MAX_LAST_T
 
     @staticmethod
     def flat_layer_params(layer, use_ffn):
@@ -209,22 +235,23 @@ class RecBLR(SequentialModel):
         x = self.embed(item_seq).to(self.compute_dtype)
         n_layers = len(self.layers)
         p_drop, seeds = self.dropout_seeds(step)
-        if self.use_fused_layer():
+        chunked = self.use_chunked_layer()
+        if self.use_fused_layer() or chunked:
             use_conv = not self.disable_conv1d
             use_ffn = not self.disable_ffn
+            layer_fn = fused_recurrent_layer_chunked if chunked else fused_recurrent_layer
             if n_layers < 2:
                 x = L.layer_norm(self.input_ln, L.dropout(x, p_drop, seeds[-1]))
             for li, layer in enumerate(self.layers):
                 flat = self.flat_layer_params(layer, use_ffn)
-                if li == n_layers - 1:
+                if li == n_layers - 1 and self.use_last_layer_kernel():
                     return fused_recurrent_layer_last(
                         x, item_seq_len, flat, use_conv, use_ffn, p_drop, seeds[li]
                     )
-                pro = li == 0
+                pro = li == 0 and n_layers >= 2
                 if pro:
                     flat.update(self.prologue_params())
-                x = fused_recurrent_layer(x, flat, use_conv, use_ffn, pro, p_drop,
-                                          seeds[li])
+                x = layer_fn(x, flat, use_conv, use_ffn, pro, p_drop, seeds[li])
             return L.gather_last(x, item_seq_len)
 
         x = L.layer_norm(self.input_ln, L.dropout(x, p_drop, seeds[-1]))

@@ -25,8 +25,10 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("fused_layer.cu", "fused_layer_last.cu", "fused_layer_bwd.cu",
            "fused_layer_last_bwd.cu", "ln_dropout.cu", "fused_block.cu",
            "fused_block_last.cu", "fused_block_bwd.cu", "fused_block_last_bwd.cu",
-           "fused_block_sel.cu", "fused_block_sel_bwd.cu", "fused_ce.cu")
-HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh")
+           "fused_block_sel.cu", "fused_block_sel_bwd.cu", "fused_ce.cu",
+           "fused_layer_chunked.cu", "fused_layer_chunked_bwd.cu", "fused_ce_chunked.cu",
+           "emb_grad.cu")
+HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh", "ce_common.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -86,6 +88,19 @@ _SIGNATURES = {
     "fused_ce.cu": {
         "recblr_ce_fwd": [_P] * 6 + [_I] * 6 + [_I, _P],
         "recblr_ce_bwd": [_P] * 7 + [_I] + [_P] * 2 + [_I] * 6 + [_I, _P],
+    },
+    "fused_layer_chunked.cu": {
+        "recblr_layer_chunked_fwd": [_P] * 8 + [_I] * 11 + _D1 + [_I, _P],
+    },
+    "fused_layer_chunked_bwd.cu": {
+        "recblr_layer_chunked_bwd": [_P] * 12 + [_I] + [_P] * 2 + [_I] * 11 + _D1 + [_I, _P],
+    },
+    "fused_ce_chunked.cu": {
+        "recblr_cce_fwd": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 6 + [_I, _P],
+        "recblr_cce_bwd": [_P] * 8 + [_I] + [_P] + [_I] * 6 + [_I, _P],
+    },
+    "emb_grad.cu": {
+        "recblr_emb_grad": [_P] * 10 + [_I] * 4 + [_I, _P],
     },
 }
 

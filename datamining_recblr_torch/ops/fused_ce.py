@@ -1,31 +1,43 @@
-"""Whole-table softmax cross-entropy, forward and backward: hand-written
-CUDA kernels for Hopper, each beside its plain PyTorch version.
+"""Softmax cross-entropy against the whole catalog, forward and backward:
+hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version.  Two paths, as in ``datamining_recblr_tpu/ops/fused_ce.py``:
 
-Counterpart of the whole-table path of
-``datamining_recblr_tpu/ops/fused_ce.py`` (``_ce_fwd_kernel`` via
-``_ce_fwd`` :127 and ``_ce_bwd_kernel`` via ``_ce_bwd`` :149), which the
-JAX package takes for a loss of ``MIN_ROWS`` rows or more (BERT4Rec's
-cloze loss: batch x mask budget = 81,920 rows at the bench shape):
+* whole-table (``supports``): ``_ce_fwd_kernel`` via ``_ce_fwd`` :127
+  and ``_ce_bwd_kernel`` via ``_ce_bwd`` :149, which the JAX package
+  takes for a loss of ``MIN_ROWS`` rows or more (BERT4Rec's cloze loss:
+  batch x mask budget = 81,920 rows at the bench shape);
+  ``csrc/fused_ce.cu``:
 
-    l     = x table^T + bias            fp32; columns >= valid_v at -1e30
-    nll   = logsumexp(l) - l[target]    exp as fastmath.exp
-    g     = (softmax(l) - onehot(target)) dnll
-    dx    = g table,  dtable = g^T x,  dbias = sum_rows g
+      l     = x table^T + bias            fp32; columns >= valid_v at -1e30
+      nll   = logsumexp(l) - l[target]    exp as fastmath.exp
+      g     = (softmax(l) - onehot(target)) dnll
+      dx    = g table,  dtable = g^T x,  dbias = sum_rows g
 
-With ``mm_bf16`` the logits take x and the table rounded to bf16 (fp32
-sums), dx takes g and the table rounded, dtable takes g and x unrounded
-(``fused_ce.py:114-122``).  The kernels (``csrc/fused_ce.cu``) compute the
-logits in their own bodies and never write the [N, V] logits to device
-memory; the forward keeps the per-row logsumexp for the backward.  The
-vocab-chunked path for tables beyond ``supports`` (queue B row 14) is not
-ported: the wrappers raise there on the card.
+  With ``mm_bf16`` the logits take x and the table rounded to bf16 (fp32
+  sums), dx takes g and the table rounded, dtable takes g and x unrounded
+  (``fused_ce.py:114-122``).
+* vocab-chunked, for tables beyond ``supports`` (XLong: V = 329,728):
+  ``_cce_fwd_kernel`` via ``_cce_fwd`` :413 and the kernels of
+  ``_cce_bwd`` :448; ``csrc/fused_ce_chunked.cu``.  The same function
+  with the JAX chunked path's own rounding points: the target logit is
+  x . table[t] + bias[t] with x unrounded (``:404-407``); g = softmax
+  dnll without the one-hot term, dx = g table - dnll table[t] with the
+  one-hot term unrounded, dtable = g^T x - dnll x at each target and
+  dbias = sum g - dnll at each target (``:525-531``).
+
+The kernels compute the logits in their own bodies and never write the
+[N, V] logits to device memory; the forward keeps the per-row logsumexp
+for the backward.  The table and the bias may be of any float type: they
+are upcast to fp32 first, and with grad enabled their gradients come back
+in their own types.
 
 On a CPU tensor ``fused_softmax_ce`` computes its plain version (its
 autograd runs the plain backward); on a CUDA tensor it launches its
 kernel or raises, and with grad enabled it runs a
 ``torch.autograd.Function`` whose backward is the backward kernel.
-``launches`` on ``fused_softmax_ce`` and ``fused_softmax_ce_bwd`` counts
-their kernel launches.
+``launches`` on ``fused_softmax_ce`` and ``fused_softmax_ce_bwd`` (the
+whole-table kernels) and on ``fused_softmax_ce_chunked`` and
+``fused_softmax_ce_chunked_bwd`` counts their kernel launches.
 """
 
 from __future__ import annotations
@@ -38,12 +50,21 @@ from datamining_recblr_torch.ops.fused_layer import _require_cuda, _stream
 NEG = -1e30
 # the JAX package's crossover below which its XLA CE is used (fused_ce.py:62)
 MIN_ROWS = 8192
+# the chunked kernel pays off once the [rows, V] fp32 logits the plain CE
+# would materialize take this many bytes (fused_ce.py:260)
+CHUNK_MIN_LOGITS_BYTES = 64 * 1024 * 1024
+MAX_D = 512  # the kernels' 16 x 16 tiles hold rows of up to 512 floats
 
 
 def supports(v: int, d: int) -> bool:
     """Whether the [V, D] table takes the whole-table kernel (the JAX
     package's VMEM-resident rule, ``fused_ce.py:65-66``)."""
-    return v * d * 4 <= 32 * 1024 * 1024 and d <= 512
+    return v * d * 4 <= 32 * 1024 * 1024 and d <= MAX_D
+
+
+def supports_chunked(v: int, d: int) -> bool:
+    """Whether the [V, D] table takes the vocab-chunked kernel: any V."""
+    return d <= MAX_D
 
 
 # ---------------------------------------------------------------------------
@@ -109,22 +130,101 @@ def _bias(bias, v, device):
 
 
 def fused_softmax_ce_plain(x, table, targets, bias=None, valid_v=None, mm_bf16=False):
-    """Plain PyTorch version of ``fused_softmax_ce`` (any device):
-    per-row nll [N] fp32, differentiable in x, table and bias; its
-    backward is ``fused_softmax_ce_bwd_plain``, which rounds where the
+    """Plain PyTorch version of the whole-table ``fused_softmax_ce`` (any
+    device): per-row nll [N] fp32, differentiable in x, table and bias;
+    its backward is ``fused_softmax_ce_bwd_plain``, which rounds where the
     kernel rounds."""
     v = table.shape[0]
     return _PlainCE.apply(x, table, _bias(bias, v, x.device), targets,
                           v if valid_v is None else int(valid_v), bool(mm_bf16))
 
 
+def _chunked_logits(x, table, bias, valid_v, mm_bf16):
+    """[N, V] fp32 logits with the masked columns folded into the bias at
+    -1e30 (the JAX package's ``_masked_bias``, ``fused_ce.py:385-391``)."""
+    v = table.shape[0]
+    b = bias.float()
+    if valid_v < v:
+        b = torch.where(torch.arange(v, device=b.device) < valid_v, b,
+                        torch.full((), NEG, device=b.device))
+    return _round(x.float(), mm_bf16) @ _round(table.float(), mm_bf16).t() + b
+
+
+def _target_rows(table, targets, mm_bf16):
+    """[N, D] fp32 table rows of the targets, rounded to bf16 with
+    ``mm_bf16`` (``fused_ce.py:_tgt_rows``)."""
+    return _round(table.float()[targets.long()], mm_bf16)
+
+
+def fused_softmax_ce_chunked_fwd_plain(x, table, targets, bias=None, valid_v=None,
+                                       mm_bf16=False):
+    """Plain PyTorch version of ``fused_softmax_ce_chunked_train``: (nll,
+    lse) [N] fp32, the target logit with x unrounded."""
+    v = table.shape[0]
+    bias = _bias(bias, v, x.device)
+    logits = _chunked_logits(x, table, bias, v if valid_v is None else int(valid_v), mm_bf16)
+    m = logits.amax(-1, keepdim=True)
+    lse = m[:, 0] + torch.log(fastmath.exp(logits - m).sum(-1))
+    tl = (x.float() * _target_rows(table, targets, mm_bf16)).sum(-1) \
+        + bias.float()[targets.long()]
+    return lse - tl, lse
+
+
+def fused_softmax_ce_chunked_bwd_plain(x, table, targets, dnll, bias=None, valid_v=None,
+                                       mm_bf16=False, lse=None):
+    """Plain PyTorch version of ``fused_softmax_ce_chunked_bwd``: (dx in
+    x's dtype, dtable fp32 [V, D], dbias fp32 [V]); ``lse`` is recomputed
+    when None."""
+    v = table.shape[0]
+    bias = _bias(bias, v, x.device)
+    valid_v = v if valid_v is None else int(valid_v)
+    if lse is None:
+        lse = fused_softmax_ce_chunked_fwd_plain(x, table, targets, bias, valid_v, mm_bf16)[1]
+    dn = dnll.float()
+    tgt = targets.long()
+    xf = x.float()
+    g = fastmath.exp(_chunked_logits(x, table, bias, valid_v, mm_bf16) - lse[:, None]) \
+        * dn[:, None]
+    dx = _round(g, mm_bf16) @ _round(table.float(), mm_bf16) \
+        - dn[:, None] * _target_rows(table, tgt, mm_bf16)
+    dtable = (g.t() @ xf).index_add(0, tgt, -(dn[:, None] * xf))
+    dbias = g.sum(0).index_add(0, tgt, -dn)
+    return dx.to(x.dtype), dtable, dbias
+
+
+class _PlainCCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, table, bias, targets, valid_v, mm_bf16):
+        nll, lse = fused_softmax_ce_chunked_fwd_plain(x, table, targets, bias, valid_v, mm_bf16)
+        ctx.save_for_backward(x, table, bias, targets, lse)
+        ctx.opts = (valid_v, mm_bf16)
+        return nll
+
+    @staticmethod
+    def backward(ctx, dnll):
+        x, table, bias, targets, lse = ctx.saved_tensors
+        dx, dtab, dbias = fused_softmax_ce_chunked_bwd_plain(x, table, targets, dnll, bias,
+                                                             *ctx.opts, lse=lse)
+        return dx, dtab.to(table.dtype), dbias.to(bias.dtype), None, None, None
+
+
+def fused_softmax_ce_chunked_plain(x, table, targets, bias=None, valid_v=None, mm_bf16=False):
+    """Plain PyTorch version of ``fused_softmax_ce_chunked`` (any device):
+    per-row nll [N] fp32, differentiable in x, table and bias; its backward
+    is ``fused_softmax_ce_chunked_bwd_plain``."""
+    v = table.shape[0]
+    return _PlainCCE.apply(x, table, _bias(bias, v, x.device), targets,
+                           v if valid_v is None else int(valid_v), bool(mm_bf16))
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _check(x, table, targets, bias, valid_v):
-    """Check the inputs against what the kernels take; return (targets
-    int32, bias, valid_v)."""
+def _check(x, table, targets, bias, valid_v, chunked):
+    """Check the inputs against what the kernels take; return (table
+    fp32, bias fp32, targets int32, valid_v).  The table and the bias are
+    upcast (differentiably) from any float type."""
     if x.dim() != 2 or table.dim() != 2 or x.shape[1] != table.shape[1] or x.shape[0] < 1:
         raise ValueError(f"x must be [N >= 1, D] and table [V, D], got {tuple(x.shape)} and "
                          f"{tuple(table.shape)}")
@@ -132,16 +232,17 @@ def _check(x, table, targets, bias, valid_v):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     n, d = x.shape
     v = table.shape[0]
-    if not supports(v, d):
-        raise ValueError(
-            f"table [{v}, {d}] is beyond the whole-table kernel (V*D*4 <= 32 MiB, D <= 512); "
-            "the JAX package runs its vocab-chunked kernel there (ROADMAP.md queue B row 14, "
-            "not ported)")
+    if chunked and not supports_chunked(v, d):
+        raise ValueError(f"D = {d} is beyond the CE kernels (D <= {MAX_D})")
+    if not chunked and not supports(v, d):
+        raise ValueError(f"table [{v}, {d}] is beyond the whole-table kernel (V*D*4 <= 32 MiB, "
+                         f"D <= {MAX_D}); fused_softmax_ce_chunked takes it")
     bias = _bias(bias, v, x.device)
     for name, t, shape in (("table", table, (v, d)), ("bias", bias, (v,))):
-        if t.dtype != torch.float32 or t.device != x.device or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be float32 {shape} on {x.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+        if not t.is_floating_point() or t.device != x.device or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a float {shape} tensor on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    table, bias = table.float(), bias.float()
     if not x.is_contiguous() or not table.is_contiguous() or not bias.is_contiguous():
         raise ValueError("x, table and bias must be contiguous")
     if targets.shape != (n,) or targets.device != x.device:
@@ -151,7 +252,15 @@ def _check(x, table, targets, bias, valid_v):
     valid_v = v if valid_v is None else int(valid_v)
     if not 0 <= valid_v <= v:
         raise ValueError(f"valid_v must be in [0, {v}], got {valid_v}")
-    return targets.to(torch.int32).contiguous(), bias, valid_v
+    return table, bias, targets.to(torch.int32).contiguous(), valid_v
+
+
+def _check_bwd_rows(x, dnll, lse):
+    n = x.shape[0]
+    for name, t in (("dnll", dnll), ("lse", lse)):
+        if t is None or t.shape != (n,) or t.device != x.device:
+            raise ValueError(f"{name} must be [{n}] on {x.device}")
+    return dnll.float().contiguous(), lse.float().contiguous()
 
 
 def _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
@@ -172,10 +281,10 @@ def _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
 
 
 def fused_softmax_ce_train(x, table, targets, bias=None, valid_v=None, mm_bf16=False):
-    """Forward on the card that keeps what the backward reads: (nll,
-    lse) [N] fp32."""
+    """Whole-table forward on the card that keeps what the backward
+    reads: (nll, lse) [N] fp32."""
     _require_cuda(x)
-    tgt32, bias, valid_v = _check(x, table, targets, bias, valid_v)
+    table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, False)
     return _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, True)
 
 
@@ -190,20 +299,16 @@ def _row_splits(n, v, d, device):
 
 def fused_softmax_ce_bwd(x, table, targets, dnll, bias=None, valid_v=None, mm_bf16=False, *,
                          lse):
-    """Backward of ``fused_softmax_ce`` on the card: (dx in x's dtype,
-    dtable [V, D] fp32, dbias [V] fp32).  ``dnll``: [N] cotangent; ``lse``:
-    [N] fp32 kept by ``fused_softmax_ce_train`` with the same arguments.
-    dtable and dbias are summed in a fixed order: the same bits from run
-    to run."""
+    """Backward of the whole-table ``fused_softmax_ce`` on the card: (dx in
+    x's dtype, dtable [V, D] fp32, dbias [V] fp32).  ``dnll``: [N]
+    cotangent; ``lse``: [N] fp32 kept by ``fused_softmax_ce_train`` with
+    the same arguments.  dtable and dbias are summed in a fixed order: the
+    same bits from run to run."""
     _require_cuda(x)
-    tgt32, bias, valid_v = _check(x, table, targets, bias, valid_v)
+    table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, False)
     n, d = x.shape
     v = table.shape[0]
-    for name, t in (("dnll", dnll), ("lse", lse)):
-        if t is None or t.shape != (n,) or t.device != x.device:
-            raise ValueError(f"{name} must be [{n}] on {x.device}")
-    dnll = dnll.float().contiguous()
-    lse = lse.float().contiguous()
+    dnll, lse = _check_bwd_rows(x, dnll, lse)
     r = _row_splits(n, v, d, x.device)
     dx = torch.empty_like(x)
     partial = torch.empty((r, v * d + v), device=x.device, dtype=torch.float32)
@@ -224,35 +329,127 @@ def fused_softmax_ce_bwd(x, table, targets, dnll, bias=None, valid_v=None, mm_bf
 fused_softmax_ce_bwd.launches = 0
 
 
+def _vocab_splits(n, v, d, device):
+    """The chunked kernels' vocab splits: about four blocks per SM over
+    the row blocks (64 rows for D <= 128, else 16), at most one per vocab
+    tile."""
+    tile = 64 if d <= 128 else 16
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-v // tile), -(-4 * sms // -(-n // tile))))
+
+
+def _launch_cfwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
+    """(nll, lse) [N] fp32 of the chunked forward; lse only when
+    ``train``."""
+    n, d = x.shape
+    v = table.shape[0]
+    s = _vocab_splits(n, v, d, x.device)
+    part = torch.empty((2, s, n), device=x.device, dtype=torch.float32)
+    nll = torch.empty((n,), device=x.device, dtype=torch.float32)
+    lse = torch.empty_like(nll) if train else None
+    lib = _cuda.library("fused_ce_chunked.cu")
+    with torch.cuda.device(x.device):
+        err = lib.recblr_cce_fwd(
+            x.data_ptr(), table.data_ptr(), bias.data_ptr(), tgt32.data_ptr(), part.data_ptr(), s,
+            nll.data_ptr(), None if lse is None else lse.data_ptr(), n, v, d, valid_v,
+            int(x.dtype == torch.bfloat16), int(bool(mm_bf16)), x.device.index, _stream(x),
+        )
+    _cuda.check(lib, err, "fused_softmax_ce_chunked")
+    fused_softmax_ce_chunked.launches += 1
+    return nll, lse
+
+
+def fused_softmax_ce_chunked_train(x, table, targets, bias=None, valid_v=None, mm_bf16=False):
+    """Vocab-chunked forward on the card that keeps what the backward
+    reads: (nll, lse) [N] fp32."""
+    _require_cuda(x)
+    table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, True)
+    return _launch_cfwd(x, table, bias, tgt32, valid_v, mm_bf16, True)
+
+
+def fused_softmax_ce_chunked_bwd(x, table, targets, dnll, bias=None, valid_v=None,
+                                 mm_bf16=False, *, lse):
+    """Backward of ``fused_softmax_ce_chunked`` on the card: (dx in x's
+    dtype, dtable [V, D] fp32, dbias [V] fp32), every sum in a fixed
+    order.  ``lse``: [N] fp32 kept by ``fused_softmax_ce_chunked_train``
+    with the same arguments."""
+    _require_cuda(x)
+    table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, True)
+    n, d = x.shape
+    v = table.shape[0]
+    dnll, lse = _check_bwd_rows(x, dnll, lse)
+    s = _vocab_splits(n, v, d, x.device)
+    dx = torch.empty_like(x)
+    dxp = torch.empty((s, n, d), device=x.device, dtype=torch.float32)
+    grads = torch.empty((v * d + v,), device=x.device, dtype=torch.float32)
+    lib = _cuda.library("fused_ce_chunked.cu")
+    with torch.cuda.device(x.device):
+        err = lib.recblr_cce_bwd(
+            x.data_ptr(), table.data_ptr(), bias.data_ptr(), tgt32.data_ptr(), dnll.data_ptr(),
+            lse.data_ptr(), dx.data_ptr(), dxp.data_ptr(), s, grads.data_ptr(), n, v, d,
+            valid_v, int(x.dtype == torch.bfloat16), int(bool(mm_bf16)), x.device.index,
+            _stream(x),
+        )
+    _cuda.check(lib, err, "fused_softmax_ce_chunked_bwd")
+    fused_softmax_ce_chunked_bwd.launches += 1
+    return dx, grads[: v * d].view(v, d), grads[v * d:]
+
+
+fused_softmax_ce_chunked_bwd.launches = 0
+
+
 class _CE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, table, bias, tgt32, valid_v, mm_bf16):
-        nll, lse = _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, True)
+    def forward(ctx, x, table, bias, tgt32, valid_v, mm_bf16, chunked):
+        launch = _launch_cfwd if chunked else _launch_fwd
+        nll, lse = launch(x, table, bias, tgt32, valid_v, mm_bf16, True)
         ctx.opts = (valid_v, mm_bf16)
+        ctx.chunked = chunked
         ctx.save_for_backward(x, table, bias, tgt32, lse)
         return nll
 
     @staticmethod
     def backward(ctx, dnll):
         x, table, bias, tgt32, lse = ctx.saved_tensors
-        dx, dtab, dbias = fused_softmax_ce_bwd(x, table, tgt32, dnll, bias, *ctx.opts, lse=lse)
-        return dx, dtab, dbias, None, None, None
+        bwd = fused_softmax_ce_chunked_bwd if ctx.chunked else fused_softmax_ce_bwd
+        dx, dtab, dbias = bwd(x, table, tgt32, dnll, bias, *ctx.opts, lse=lse)
+        return dx, dtab, dbias, None, None, None, None
+
+
+def _on_card(x, table, targets, bias, valid_v, mm_bf16, chunked):
+    _require_cuda(x)
+    table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, chunked)
+    if torch.is_grad_enabled() and (x.requires_grad or table.requires_grad
+                                    or bias.requires_grad):
+        return _CE.apply(x, table, bias, tgt32, valid_v, bool(mm_bf16), chunked)
+    launch = _launch_cfwd if chunked else _launch_fwd
+    return launch(x, table, bias, tgt32, valid_v, mm_bf16, False)[0]
+
+
+def fused_softmax_ce_chunked(x, table, targets, bias=None, valid_v=None, mm_bf16=False):
+    """``fused_softmax_ce`` through the vocab-chunked kernels at any V
+    (D <= 512): the path of tables beyond ``supports``, which a caller may
+    also take at a smaller V."""
+    if x.device.type == "cpu":
+        return fused_softmax_ce_chunked_plain(x, table, targets, bias, valid_v, mm_bf16)
+    return _on_card(x, table, targets, bias, valid_v, mm_bf16, True)
+
+
+fused_softmax_ce_chunked.launches = 0
 
 
 def fused_softmax_ce(x, table, targets, bias=None, valid_v=None, mm_bf16=False):
     """Per-row softmax cross-entropy nll [N] fp32 of ``x [N, D]`` (fp32 or
-    bf16) against the whole catalog ``table [V, D]`` (fp32) plus ``bias
-    [V]`` (fp32; zeros when None), columns >= ``valid_v`` (default V)
-    masked; differentiable in x, table and bias.  ``mm_bf16`` rounds the
-    products' operands to bf16."""
+    bf16) against the whole catalog ``table [V, D]`` plus ``bias [V]``
+    (zeros when None; both of any float type), columns >= ``valid_v``
+    (default V) masked; differentiable in x, table and bias.  ``mm_bf16``
+    rounds the products' operands to bf16.  The whole-table kernel takes
+    tables within ``supports``, ``fused_softmax_ce_chunked`` the others."""
+    if not supports(*table.shape):
+        return fused_softmax_ce_chunked(x, table, targets, bias, valid_v, mm_bf16)
     if x.device.type == "cpu":
         return fused_softmax_ce_plain(x, table, targets, bias, valid_v, mm_bf16)
-    _require_cuda(x)
-    tgt32, bias, valid_v = _check(x, table, targets, bias, valid_v)
-    if torch.is_grad_enabled() and (x.requires_grad or table.requires_grad
-                                    or bias.requires_grad):
-        return _CE.apply(x, table, bias, tgt32, valid_v, bool(mm_bf16))
-    return _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, False)[0]
+    return _on_card(x, table, targets, bias, valid_v, mm_bf16, False)
 
 
 fused_softmax_ce.launches = 0

@@ -797,11 +797,11 @@ def test_ce_wrapper_rejects_what_it_does_not_take(dev):
     x = torch.zeros((8, 64), device=dev)
     table = torch.zeros((20, 64), device=dev)
     tgt = torch.zeros(8, dtype=torch.long, device=dev)
-    with pytest.raises(ValueError, match="row 14"):
+    with pytest.raises(ValueError, match="D <= 512"):
         FCE.fused_softmax_ce(torch.zeros((8, 1024), device=dev),
                              torch.zeros((20, 1024), device=dev), tgt)
     with pytest.raises(ValueError, match="table"):
-        FCE.fused_softmax_ce(x, table.double(), tgt)
+        FCE.fused_softmax_ce(x, table.long(), tgt)
     with pytest.raises(ValueError, match="targets"):
         FCE.fused_softmax_ce(x, table, tgt[:4])
     with pytest.raises(ValueError, match="valid_v"):
@@ -931,3 +931,185 @@ def test_base_ce_takes_the_kernel_from_min_rows(dev):
         want = ce_loss(model._mask_padded_vocab(model._logits(out), value=-1e30),
                        batch["pos_item"])
     assert abs(float(loss.detach()) - float(want)) <= 1e-5 * abs(float(want))
+
+
+# ---------------------------------------------------------------------------
+# the long-context path: the chunked layer, the vocab-chunked CE and the
+# table gradient
+# ---------------------------------------------------------------------------
+
+def _assert_close_dtype(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_layer_kernels_match_plain_and_k1(dev, dtype, p_drop):
+    """Row 9 at T 1,024 (chunks of 128): the forward's output and record
+    against the plain version, its backward (from the kernel's record)
+    against autograd of the plain version, and both against K1 and K1's
+    backward on its recompute branch (the same function and masks)."""
+    from datamining_recblr_torch.ops import fused_layer_chunked as FLC
+
+    rng = np.random.default_rng(51)
+    dt = getattr(torch, dtype)
+    t = 1024
+    p = _params(rng, 64, 128, dev, prologue=True)
+    x = torch.from_numpy(rng.standard_normal((4, t, 64)).astype(np.float32)).to(dev, dt)
+    dout = torch.from_numpy(rng.standard_normal((4, t, 64)).astype(np.float32)).to(dev, dt)
+    args = (True, True, True, p_drop, 77)
+    before = (FLC.fused_recurrent_layer_chunked.launches,
+              FLC.fused_recurrent_layer_chunked_bwd.launches)
+    out, record = FLC.fused_recurrent_layer_chunked_train(x, p, *args)
+    dx, grads = FLC.fused_recurrent_layer_chunked_bwd(x, dout, record, p, *args)
+    assert (FLC.fused_recurrent_layer_chunked.launches - before[0],
+            FLC.fused_recurrent_layer_chunked_bwd.launches - before[1]) == (1, 1)
+    want, wrec = FLC.fused_recurrent_layer_chunked_plain(x, p, *args)
+    _assert_close_dtype(out, want, dtype)
+    torch.testing.assert_close(record, wrec, atol=1e-4, rtol=1e-4)
+    wout, wdx, wgrads = _plain_vjp(
+        lambda a, q: FLC.fused_recurrent_layer_chunked_plain(a, q, *args)[0], x, p, dout)
+    _assert_grads((out, dx, grads), (wout, wdx, wgrads), dtype)
+    k1, saved = FL.fused_recurrent_layer_train(x, p, *args)
+    assert saved is None  # beyond the stash policy: K1's backward recomputes
+    kdx, kgrads = FL.fused_recurrent_layer_bwd(x, dout, p, *args, saved=None)
+    _assert_grads((out, dx, grads), (k1, kdx, kgrads), dtype)
+    dx2, grads2 = FLC.fused_recurrent_layer_chunked_bwd(x, dout, record, p, *args)
+    assert torch.equal(dx2, dx) and all(torch.equal(grads2[k], v) for k, v in grads.items())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_recompute_branch_at_1024(dev, dtype):
+    """The top layer's kernels at T 1,024, beyond the stash policy: the
+    backward recomputes alpha and h, against autograd of the plain
+    version."""
+    rng = np.random.default_rng(52)
+    dt = getattr(torch, dtype)
+    t = 1024
+    p = _params(rng, 64, 128, dev)
+    x = torch.from_numpy(rng.standard_normal((4, t, 64)).astype(np.float32)).to(dev, dt)
+    lens = torch.tensor([1, t, 600, 0], device=dev)
+    dout = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32)).to(dev, dt)
+    out, saved = FL.fused_recurrent_layer_last_train(x, lens, p, True, True, 0.2, 5)
+    assert saved is None
+    dx, grads = FL.fused_recurrent_layer_last_bwd(x, lens, dout, p, True, True, 0.2, 5)
+    wout, wdx, wgrads = _plain_vjp(lambda a, q: FL.fused_recurrent_layer_last_plain(
+        a, lens, q, True, True, 0.2, 5), x, p, dout)
+    _assert_grads((out, dx, grads), (wout, wdx, wgrads), dtype)
+
+
+# (N, V, valid_v, D): the XLong loss (512 rows, 329,728 padded rows), more
+# row blocks than the vocab splits need at a small V, and D > 128
+CCE_SHAPES = [(512, 329_728, 329_722, 64), (1000, 300, 290, 64), (300, 97, 90, 200)]
+
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,v,valid_v,d", CCE_SHAPES)
+def test_chunked_ce_kernels_match_plain(dev, n, v, valid_v, d, dtype, mm_bf16):
+    """Row 14: nll, dx, dtable and dbias against the chunked plain version
+    by autograd (nll atol 1e-4 + rtol 1e-5; gradients within GRAD_RTOL of
+    the largest value, a bf16 dx one bf16 ulp on top); the backward gives
+    the same bits on a rerun."""
+    from datamining_recblr_torch.ops import fused_ce as FCE
+
+    rng = np.random.default_rng(53)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev, dt)
+    table = torch.from_numpy((0.3 * rng.standard_normal((v, d))).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(v).astype(np.float32)).to(dev)
+    tgt = torch.from_numpy(rng.integers(0, valid_v, n)).to(dev)
+    tgt[:3] = tgt[3]  # a repeated target
+    dnll = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
+    before = (FCE.fused_softmax_ce_chunked.launches, FCE.fused_softmax_ce_chunked_bwd.launches)
+    nll, lse = FCE.fused_softmax_ce_chunked_train(x, table, tgt, bias, valid_v, mm_bf16)
+    dx, dtab, dbias = FCE.fused_softmax_ce_chunked_bwd(x, table, tgt, dnll, bias, valid_v,
+                                                       mm_bf16, lse=lse)
+    assert (FCE.fused_softmax_ce_chunked.launches - before[0],
+            FCE.fused_softmax_ce_chunked_bwd.launches - before[1]) == (1, 1)
+    xl, tl, bl = (a.detach().clone().requires_grad_() for a in (x, table, bias))
+    want = FCE.fused_softmax_ce_chunked_plain(xl, tl, tgt, bl, valid_v, mm_bf16)
+    want.backward(dnll)
+    torch.testing.assert_close(nll, want.detach(), atol=1e-4, rtol=1e-5)
+    scale = float(xl.grad.float().abs().max())
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    assert bool(((dx.float() - xl.grad.float()).abs()
+                 <= rtol * xl.grad.float().abs() + GRAD_RTOL * scale).all()), "dx"
+    for name, g, w in (("dtable", dtab, tl.grad), ("dbias", dbias, bl.grad)):
+        assert float((g - w).abs().max()) <= GRAD_RTOL * float(w.abs().max()), name
+    dx2, dtab2, dbias2 = FCE.fused_softmax_ce_chunked_bwd(x, table, tgt, dnll, bias, valid_v,
+                                                          mm_bf16, lse=lse)
+    assert torch.equal(dx2, dx) and torch.equal(dtab2, dtab) and torch.equal(dbias2, dbias)
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["whole_table", "chunked"])
+def test_ce_takes_a_bf16_table_and_bias(dev, chunked):
+    """Both CE kernels take a bf16 table and bias, upcast inside, and
+    return their gradients in bf16: as the plain version's."""
+    from datamining_recblr_torch.ops import fused_ce as FCE
+
+    rng = np.random.default_rng(54)
+    x = torch.from_numpy(rng.standard_normal((600, 64)).astype(np.float32)).to(dev)
+    table = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.standard_normal(300).astype(np.float32)).to(dev, torch.bfloat16)
+    tgt = torch.from_numpy(rng.integers(0, 300, 600)).to(dev)
+    grads = []
+    pair = ((FCE.fused_softmax_ce_chunked, FCE.fused_softmax_ce_chunked_plain) if chunked
+            else (FCE.fused_softmax_ce, FCE.fused_softmax_ce_plain))
+    for fn in pair:
+        tl, bl = table.clone().requires_grad_(), bias.clone().requires_grad_()
+        nll = fn(x, tl, tgt, bl)
+        nll.sum().backward()
+        assert tl.grad.dtype == bl.grad.dtype == torch.bfloat16
+        grads.append((nll.detach(), tl.grad.float(), bl.grad.float()))
+    (nll, dt, db), (wnll, wdt, wdb) = grads
+    torch.testing.assert_close(nll, wnll, atol=1e-4, rtol=1e-5)
+    for g, w in ((dt, wdt), (db, wdb)):
+        assert bool(((g - w).abs() <= 2.0 ** -7 * w.abs() + GRAD_RTOL * w.abs().max()).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("v,n,d", [(329_728, 524_288, 64), (300, 5000, 48), (20, 100_000, 8)])
+def test_embedding_grad_kernel_matches_plain(dev, v, n, d, dtype):
+    """Row 16: the [V, D] fp32 table gradient within 1e-6 of its largest
+    value of the exact sum (fp64 ``index_add_``), and within 1e-4 of the
+    plain version's (``index_add_`` into fp32 zeros, whose atomic sums
+    round in any order), with id 0 at about half of the ids; the same bits
+    on a rerun."""
+    from datamining_recblr_torch.ops import embedding as E
+
+    rng = np.random.default_rng(55)
+    ids = rng.integers(0, v, n)
+    ids[rng.random(n) < 0.5] = 0
+    ids = torch.from_numpy(ids).to(dev)
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev,
+                                                                           getattr(torch, dtype))
+    before = E.embedding_grad.launches
+    got = E.embedding_grad(ids, g, v)
+    assert E.embedding_grad.launches == before + 1
+    want = E.embedding_grad_plain(ids, g, v)
+    exact = torch.zeros((v, d), device=dev, dtype=torch.float64).index_add_(0, ids, g.double())
+    scale = float(exact.abs().max())
+    assert float((got.double() - exact).abs().max()) <= 1e-6 * scale
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert torch.equal(E.embedding_grad(ids, g, v), got)
+
+
+def test_bf16_train_step_launches_the_table_gradient_kernel(dev):
+    """A bf16 RecBLR step's table gradient goes through row 16 once."""
+    from datamining_recblr_torch.ops import embedding as E
+
+    cfg = Config(model="RecBLR", config_dict={"hidden_size": 64, "num_layers": 2,
+                                               "MAX_ITEM_LIST_LENGTH": 40,
+                                               "compute_dtype": "bfloat16"})
+    model = get_model("RecBLR")(cfg, 300, 40, device=dev)
+    rng = np.random.default_rng(56)
+    seq = torch.from_numpy(rng.integers(0, 300, (64, 40))).to(dev)
+    batch = {"item_seq": seq, "item_seq_len": torch.full((64,), 40, device=dev),
+             "pos_item": torch.from_numpy(rng.integers(1, 300, 64)).to(dev)}
+    model.train()
+    before = E.embedding_grad.launches
+    model.calculate_loss(batch, step=1).backward()
+    assert E.embedding_grad.launches == before + 1
+    assert model.item_embedding.grad.dtype == torch.float32

@@ -109,3 +109,85 @@ def test_cpu_calls_do_not_count_launches_and_other_devices_raise():
     with pytest.raises(ValueError, match="no kernel"):
         FCE.fused_softmax_ce(torch.zeros((4, 24), device="meta"), torch.from_numpy(table),
                              tgt[:4])
+
+
+# ---------------------------------------------------------------------------
+# the vocab-chunked path (queue B row 14) and tables of any float type
+# ---------------------------------------------------------------------------
+
+def test_chunked_gate_matches_jax():
+    for shape in [(329_728, 64), (3417, 64), (1000, 512), (1000, 513)]:
+        assert FCE.supports_chunked(*shape) == JCE.supports_chunked(*shape)
+    assert FCE.CHUNK_MIN_LOGITS_BYTES == JCE.CHUNK_MIN_LOGITS_BYTES == 64 * 1024 * 1024
+
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("n", [24, 600], ids=["one_row_block", "two_row_blocks"])
+def test_chunked_ce_matches_jax(n, mm_bf16):
+    """The chunked plain forward's nll and lse against ``_cce_fwd``, its
+    plain backward's dx, dtable and dbias against ``_cce_bwd`` (one row
+    block at N 24, the two-kernel backward at N 600 > ``_BN_CAP``), and
+    ``fused_softmax_ce_chunked``'s autograd against ``jax.grad`` of
+    ``fused_softmax_ce(vocab_block=16)``: V 37 (a padded tail in 16-wide
+    chunks), valid_v 33, a bias, the target logits at x unrounded."""
+    v, valid = 37, 33
+    rng, x, table, bias, dnll = _case(41 + n + mm_bf16, n=n, v=v)
+    tgt = rng.integers(0, valid, n).astype(np.int32)
+    jx, jt, jb, jtg = (jnp.asarray(a) for a in (x, table, bias, tgt))
+    wnll, wlse = JCE._cce_fwd(jx, jt, jb, jtg, valid, mm_bf16, 16)
+    wdx, wdt, wdb = JCE._cce_bwd(jx, jt, jb, jtg, wlse, jnp.asarray(dnll), valid, mm_bf16, 16)
+    tx, tt, tb = (torch.from_numpy(a) for a in (x, table, bias))
+    ttg = torch.from_numpy(tgt).long()
+    nll, lse = FCE.fused_softmax_ce_chunked_fwd_plain(tx, tt, ttg, tb, valid, mm_bf16)
+    np.testing.assert_allclose(nll.numpy(), np.asarray(wnll), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(wlse), rtol=0, atol=1e-5)
+    dx, dt, db = FCE.fused_softmax_ce_chunked_bwd_plain(tx, tt, ttg, torch.from_numpy(dnll), tb,
+                                                        valid, mm_bf16, lse=lse)
+    tol = 4e-5 if mm_bf16 else 1e-5
+    _close(dx, wdx, tol)
+    _close(dt, wdt, tol)
+    _close(db, wdb, tol)
+
+    def jloss(a, t, b):
+        out = JCE.fused_softmax_ce(a, t, jtg, bias=b, valid_v=valid, mm_bf16=mm_bf16,
+                                   vocab_block=16)
+        return jnp.sum(out * dnll)
+
+    grads = jax.grad(jloss, argnums=(0, 1, 2))(jx, jt, jb)
+    ax, at, ab = (torch.from_numpy(a).requires_grad_() for a in (x, table, bias))
+    got = FCE.fused_softmax_ce_chunked(ax, at, ttg, bias=ab, valid_v=valid, mm_bf16=mm_bf16)
+    (got * torch.from_numpy(dnll)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(wnll), rtol=0, atol=1e-5)
+    for mine, want in zip((ax.grad, at.grad, ab.grad), grads):
+        _close(mine, want, tol)
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["whole_table", "chunked"])
+def test_bf16_table_and_bias(chunked):
+    """A bf16 table and bias on both paths: upcast inside, nll as JAX's, and
+    the table and bias gradients returned in bf16, within one bf16 ulp of
+    JAX's (both round the same fp32 sum once, up to its order)."""
+    rng, x, table, bias, dnll = _case(53, n=24, v=37)
+    tgt = rng.integers(0, 37, 24).astype(np.int32)
+    tab16 = torch.from_numpy(table).to(torch.bfloat16)
+    bias16 = torch.from_numpy(bias).to(torch.bfloat16)
+    jt = jnp.asarray(tab16.float().numpy()).astype(jnp.bfloat16)
+    jb = jnp.asarray(bias16.float().numpy()).astype(jnp.bfloat16)
+
+    def jloss(t, b):
+        nll = JCE.fused_softmax_ce(jnp.asarray(x), t, jnp.asarray(tgt), bias=b,
+                                   vocab_block=16 if chunked else None)
+        return jnp.sum(nll * dnll), nll
+
+    (_, want), (wdt, wdb) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(jt, jb)
+    assert wdt.dtype == wdb.dtype == jnp.bfloat16
+    at, ab = tab16.clone().requires_grad_(), bias16.clone().requires_grad_()
+    ce = FCE.fused_softmax_ce_chunked if chunked else FCE.fused_softmax_ce
+    got = ce(torch.from_numpy(x), at, torch.from_numpy(tgt).long(), bias=ab)
+    (got * torch.from_numpy(dnll)).sum().backward()
+    assert at.grad.dtype == ab.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    for mine, w in ((at.grad, wdt), (ab.grad, wdb)):
+        w32 = np.asarray(w.astype(jnp.float32))
+        err = np.abs(mine.float().numpy() - w32)
+        assert (err <= 2.0 ** -8 * np.abs(w32) + 1e-6).all()

@@ -29,6 +29,8 @@ MODULES = [
     "datamining_recblr_torch.ops.fused_layer",
     "datamining_recblr_torch.ops.fused_block",
     "datamining_recblr_torch.ops.fused_ce",
+    "datamining_recblr_torch.ops.fused_layer_chunked",
+    "datamining_recblr_torch.ops.embedding",
     "datamining_recblr_torch.ops.philox",
     "datamining_recblr_torch.ops.topk",
     "datamining_recblr_torch.models.base",
@@ -133,3 +135,14 @@ def test_kernel_sources_ship_with_the_package():
     for name in (*_cuda.SOURCES, *_cuda.HEADERS):
         assert (_cuda.SRC_DIR / name).is_file()
     assert set(_cuda._SIGNATURES) == set(_cuda.SOURCES)
+
+
+def test_the_long_context_kernels_are_built():
+    """The kernels of the long-context path and of the table gradient are
+    among the sources the build compiles."""
+    from datamining_recblr_torch.ops import _cuda
+
+    assert {"fused_layer_chunked.cu", "fused_layer_chunked_bwd.cu", "fused_ce_chunked.cu",
+            "emb_grad.cu"} <= set(_cuda.SOURCES)
+    assert "ce_common.cuh" in _cuda.HEADERS
+    assert len(_cuda.SOURCES) == 16
