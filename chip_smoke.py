@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's nineteen CUDA kernels from the sixteen sources of
+Builds the port's twenty-five CUDA kernels from the nineteen sources of
 ``datamining_recblr_torch/csrc`` (both fused recurrent layers of RecBLR,
 forward and backward; the attention baselines' LN prologue and both
 transformer layers, forward and backward; BERT4Rec's selected-positions
 top layer and the whole-table softmax CE, forward and backward; the
 sequence-chunked recurrent layer and the vocab-chunked CE, forward and
-backward, and the embedding-table gradient) and, phase by phase:
+backward, and the embedding-table gradient; a one-layer RecBLR's input
+dropout and LN, the linear scan and the standalone BD-LRU, forward and
+backward) and, phase by phase:
 
 * holds each kernel against its plain PyTorch version at B 256, T 200:
   the RecBLR forwards at dropout 0 (serving), then every RecBLR kernel's
@@ -27,13 +29,18 @@ backward, and the embedding-table gradient) and, phase by phase:
   recompute branch, at B 512, T 1,024; the chunked CE at N 512, V 329,728;
   the table gradient at N 524,288; a bf16 table and bias through both CE
   paths) and the chunked layer's mask across chunk edges
-  (``xlong-mask-bits``);
+  (``xlong-mask-bits``); then the kernels of RecBLR's paths outside the
+  whole-layer kernels at those paths' shapes, forward and backward
+  (``dropout-ln-*`` at B 2,048, T 200, D 64; ``scan-*`` at B 2,048,
+  T 200, C 256; ``bdlru-*`` at B 512, T 1,020, C 128);
 * serves RecBLR, SASRec and BERT4Rec at full width (hidden 64, 2 layers,
   T 200, V 3,417; 2 heads and an FFN of 256 for the baselines) through
   ``Recommender.recommend`` against the same model through the plain
   versions, with one launch of each of the model's kernels per call,
   and times it; then RecBLR at XLong (T 1,024, V 329,722, bf16:
-  ``serve-xlong-*``);
+  ``serve-xlong-*``), and RecBLR on its three paths outside the
+  whole-layer kernels (``serve-onelayer-*``, ``serve-wide-*``,
+  ``serve-longodd-*``);
 * trains RecBLR (dropout 0.2), SASRec (dropout 0.5 / 0.5) and BERT4Rec
   (cloze, mask_ratio 0.2, dropout 0.2 / 0.2) at the bench.py shape (batch
   2,048, CE, Adam, fp32 and bf16 compute): one launch of each of the
@@ -41,7 +48,11 @@ backward, and the embedding-table gradient) and, phase by phase:
   step against the same step through the plain versions, the step time
   and a profile; then RecBLR at XLong (``xlong-train-*``: batch 512, T
   1,024, V 329,722, fp32 and bf16; the step against the plain step at
-  that batch);
+  that batch); then RecBLR on the paths outside the whole-layer kernels,
+  fp32 and bf16: one layer (``onelayer-train-*``: bench.py's shape with
+  num_layers 1, and H&M's T 50 and dropout 0.4 as a further step check),
+  C 256 (``wide-train-*``: expand 4) and T 1,020, which no chunk divides
+  (``longodd-train-*``: the XLong widths, batch 512);
 * runs ``Trainer.fit`` and ``evaluate(load_best=True)`` for the three on
   a small Markov dataset: the loss falls and valid NDCG@10 is above 0;
 * times every kernel beside its bound, its plain version and, where one
@@ -54,6 +65,7 @@ Exits non-zero without a CUDA card.
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -72,7 +84,9 @@ from datamining_recblr_torch.ops import embedding as E
 from datamining_recblr_torch.ops import fused_block as FB
 from datamining_recblr_torch.ops import fused_ce as FCE
 from datamining_recblr_torch.ops import fused_layer as FL
+from datamining_recblr_torch.ops import fused_bdlru as FBD
 from datamining_recblr_torch.ops import fused_layer_chunked as FLC
+from datamining_recblr_torch.ops import scan as SC
 from datamining_recblr_torch.serve import Recommender
 
 SEED = 0
@@ -93,6 +107,11 @@ ATTN_BF16_ABS = 2.0 ** -9
 # gradients: max |kernel - plain| over max |plain|; fp32 FMA sums in
 # another order than cuBLAS and autograd, over up to B*T = 409,600 terms
 GRAD_RTOL = 1e-4
+# a bf16 step's item-embedding gradient against the plain bf16 step's: its
+# largest rows are items seen once in the batch, each row one bf16
+# cotangent of the layers' backward, so a bf16 ulp (2^-8 of the value)
+# that the two compositions round differently shows there undivided
+ITEM_BF16_RTOL = 2.0 ** -6
 DROPOUT = 0.2  # RecBLR's dropout_prob
 TRAIN_B = 2048  # bench.py's training batch
 TRAIN_STEPS = 20
@@ -124,6 +143,41 @@ XTRAIN_STEPS = 10
 XLONG_COUNTED = (FLC.fused_recurrent_layer_chunked, FL.fused_recurrent_layer_last,
                  FCE.fused_softmax_ce_chunked, FCE.fused_softmax_ce_chunked_bwd,
                  FL.fused_recurrent_layer_last_bwd, FLC.fused_recurrent_layer_chunked_bwd)
+# RecBLR outside the whole-layer kernels, each path at full width (hidden
+# 64, d_conv 4, FFN 256, dropout 0.2, CE, Adam):
+#   onelayer  bench.py's shape with num_layers 1 (full_exp.py's 1layer
+#             ablation): row 5, then K2 (C 128)
+#   wide      bench.py's shape with expand 4 (C 256): the unfused
+#             composition, row 7 forward and reverse in each layer
+#   longodd   the XLong widths at T 1,020, which no chunk divides: the
+#             unfused composition, row 8 in each layer, rows 14 and 16
+# each with the kernels a training step launches and how often, those a
+# recommend() launches and the dtypes it serves in (longodd in the XLong
+# configuration's bf16); "hm" is H&M's one layer (configs/config_hm.yaml:
+# T 50, dropout 0.4), a further step check of the onelayer path
+WIDE_C, LT = 256, 1020
+HM_T, HM_DROPOUT = 50, 0.4
+SLICE_PATHS = {
+    "onelayer": dict(
+        cfg={"num_layers": 1}, t=T, v=N_ITEMS, batch=TRAIN_B,
+        counted=(FL.fused_dropout_ln, FL.fused_recurrent_layer_last, FL.fused_dropout_ln_bwd,
+                 FL.fused_recurrent_layer_last_bwd), per_step=(1, 1, 1, 1),
+        served=(FL.fused_dropout_ln, FL.fused_recurrent_layer_last), per_call=1,
+        serve_dtypes=("float32", "bfloat16")),
+    "hm": dict(
+        cfg={"num_layers": 1, "dropout_prob": HM_DROPOUT}, t=HM_T, v=N_ITEMS, batch=TRAIN_B,
+        counted=(FL.fused_dropout_ln, FL.fused_recurrent_layer_last, FL.fused_dropout_ln_bwd,
+                 FL.fused_recurrent_layer_last_bwd), per_step=(1, 1, 1, 1)),
+    "wide": dict(
+        cfg={"expand": WIDE_C // D}, t=T, v=N_ITEMS, batch=TRAIN_B,
+        counted=(SC.linear_scan, SC.linear_scan_reverse), per_step=(2, 2),
+        served=(SC.linear_scan,), per_call=2, serve_dtypes=("float32", "bfloat16")),
+    "longodd": dict(
+        cfg={}, t=LT, v=XV, batch=XB,
+        counted=(FBD.fused_bdlru, FBD.fused_bdlru_bwd, FCE.fused_softmax_ce_chunked,
+                 FCE.fused_softmax_ce_chunked_bwd), per_step=(2, 2, 1, 1),
+        served=(FBD.fused_bdlru,), per_call=2, serve_dtypes=("bfloat16",)),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -1288,21 +1342,30 @@ def _at_full_width(model):
         model.hidden_size, model.inner_hidden, len(model.layers)) == (D, C, 2)
 
 
-def serving(dev, name, dtype_name, xlong=False):
+def serving(dev, name, dtype_name, xlong=False, path=None):
     """``Recommender.recommend`` at B users against the same model through
     the plain versions, with one launch of each of the model's kernels per
     call, and its time; with ``xlong`` RecBLR at the XLong shape (T 1,024,
-    V 329,722: the chunked layer and the last-position layer)."""
+    V 329,722: the chunked layer and the last-position layer); with
+    ``path`` RecBLR on that path outside the whole-layer kernels
+    (``SLICE_PATHS``: its kernels' launches per call as given there)."""
     from datamining_recblr_torch.eval.metrics import mask_scores
     from datamining_recblr_torch.ops.topk import topk_scores
 
-    prefix, counted, plain_output = SERVED_XLONG if xlong else SERVED[name]
-    t, n_items = (XT, XV) if xlong else (T, N_ITEMS)
-    cfg = Config(model=name, config_dict={"MAX_ITEM_LIST_LENGTH": t,
-                                          "compute_dtype": dtype_name})
+    if path is not None:
+        spec = SLICE_PATHS[path]
+        prefix, counted, plain_output = f"serve-{path}", spec["served"], plain_path_output
+        t, n_items, per_call = spec["t"], spec["v"], spec["per_call"]
+        cfg = slice_config(path, dtype_name)
+    else:
+        prefix, counted, plain_output = SERVED_XLONG if xlong else SERVED[name]
+        t, n_items, per_call = (XT, XV, 1) if xlong else (T, N_ITEMS, 1)
+        cfg = Config(model=name, config_dict={"MAX_ITEM_LIST_LENGTH": t,
+                                              "compute_dtype": dtype_name})
     model = get_model(name)(cfg, n_items, t, generator=torch.Generator().manual_seed(SEED))
     check(model.device.type == "cuda", f"{name}: model not on the card")
-    check(_at_full_width(model), f"{name}: model is not at full width on the fused path")
+    check(on_slice_path(model, path) if path is not None else _at_full_width(model),
+          f"{name}: model is not at full width on its path")
     check(not xlong or (model.use_chunked_layer() and model.use_last_layer_kernel()),
           f"{name}: not the chunked composition at T {t}")
     rec = Recommender(model, top_k=TOP_K)
@@ -1315,8 +1378,8 @@ def serving(dev, name, dtype_name, xlong=False):
     launches = tuple(fn.launches for fn in counted)
     phase(f"{prefix}-launches", dtype=dtype_name, calls=1,
           **{fn.__name__: n for fn, n in zip(counted, launches)})
-    check(launches == (1,) * len(counted),
-          f"{name}: expected one launch of each kernel, got {launches}")
+    check(launches == (per_call,) * len(counted),
+          f"{name}: expected {per_call} launch(es) of each kernel, got {launches}")
 
     # reference: the same model through the plain versions on the card
     seq = np.zeros((B, t), np.int64)
@@ -2147,6 +2210,495 @@ def xlong_kernel_times(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# RecBLR outside the whole-layer kernels: LN(dropout(x)) (row 5), the linear
+# scan (row 7) and the standalone BD-LRU (row 8)
+# ---------------------------------------------------------------------------
+
+def _bwd_rows(dx, wdx, grads, wgrads, dt):
+    rows = {"dx": _grad_err_ok(dx, wdx, dt, True)}
+    rows.update({k: _grad_err_ok(v, wgrads[k], dt, False) for k, v in grads.items()})
+    return rows
+
+
+def _max_err(pairs):
+    return max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+
+
+def dropout_ln_kernels_vs_plain(dev):
+    """Row 5 at the onelayer path's shape (B 2,048, T 200, D 64), fp32 and
+    bf16, p 0, 0.2 and H&M's 0.4: the output, dx, dscale and dbias against
+    autograd of the plain version.  Returns the largest fp32 |kernel -
+    plain| of the forward and of the backward."""
+    gen = torch.Generator().manual_seed(SEED + 30)
+    x = (2 * torch.randn((TRAIN_B, T, D), generator=gen)).to(dev)
+    d3 = torch.randn((TRAIN_B, T, D), generator=gen).to(dev)
+    q = {"s": (1 + 0.1 * torch.randn(D, generator=gen)).to(dev),
+         "b": (0.1 * torch.randn(D, generator=gen)).to(dev)}
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for pd in (0.0, DROPOUT, HM_DROPOUT):
+            xd, dout = x.to(dt), d3.to(dt)
+            seed = 8642 + int(pd * 10)
+            out = FL.fused_dropout_ln(xd, q["s"], q["b"], pd, seed)
+            dx, ds, db = FL.fused_dropout_ln_bwd(xd, dout, q["s"], q["b"], pd, seed)
+            wout, wdx, wg = _plain_vjp(lambda a, p: FL.fused_dropout_ln_plain(
+                a, p["s"], p["b"], pd, seed), xd, q, dout)
+            torch.cuda.synchronize()
+            ok_out = (torch.allclose(out, wout, **FP32_TOL) if dt == torch.float32
+                      else _bf16_ok(out, wout))
+            rows = _bwd_rows(dx, wdx, {"s": ds, "b": db}, wg, dt)
+            ok = ok_out and all(o for _, o in rows.values())
+            phase("dropout-ln-kernel-vs-plain", kernel="fused_dropout_ln_bwd",
+                  dtype=str(dt).split(".")[-1], p=pd, shape=f"B{TRAIN_B}xT{T}xD{D}",
+                  out_max_abs_err=f"{float((out.float() - wout.float()).abs().max()):.3e}",
+                  rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
+                  tol=f"out as kernel-vs-plain; max|err|/max|plain| <= {GRAD_RTOL}"
+                      + (" (bf16 dx: + 2^-7*|plain|)" if dt == torch.bfloat16 else ""),
+                  ok=ok)
+            check(ok, f"fused_dropout_ln {dt} p={pd}: kernel disagrees with its plain version")
+            if dt == torch.float32:
+                errs["fused_dropout_ln"] = max(errs.get("fused_dropout_ln", 0.0),
+                                               _max_err([(out, wout)]))
+                errs["fused_dropout_ln_bwd"] = max(
+                    errs.get("fused_dropout_ln_bwd", 0.0),
+                    _max_err([(dx, wdx), (ds, wg["s"]), (db, wg["b"])]))
+    return errs
+
+
+def dropout_ln_mask_bits(dev):
+    """Row 5's mask bit for bit against the plain Philox mask of
+    ``layers.dropout(x)`` at B 2,048, T 200, D 64: the backward's dx =
+    LN'(dv) * m0 is 0 exactly where m0 drops; the forward's bits enter
+    every value dropout-ln-kernel-vs-plain compares at p > 0."""
+    gen = torch.Generator().manual_seed(SEED + 31)
+    x = torch.randn((TRAIN_B, T, D), generator=gen).to(dev)
+    dout = torch.randn((TRAIN_B, T, D), generator=gen).to(dev)
+    seed = 97531
+    dx, _, _ = FL.fused_dropout_ln_bwd(x, dout, torch.ones(D, device=dev),
+                                       torch.zeros(D, device=dev), DROPOUT, seed)
+    want = philox.dropout_mask(seed, philox.M0, TRAIN_B, T, D, DROPOUT, dev) > 0
+    flips = int(((dx != 0) != want).sum())
+    phase("dropout-ln-mask-bits", mask="m0 (row 5, the input of the LN)", elements=want.numel(),
+          keep_fraction=f"{float(want.float().mean()):.5f}", mismatches=flips)
+    check(flips == 0, f"row 5 m0: {flips} mask bits differ from the plain Philox mask")
+
+
+def scan_kernels_vs_plain(dev):
+    """Row 7 at the wide path's shape (B 2,048, T 200, C 256) and at C 200:
+    the forward and the reverse mode against the serial scans (fp32, atol
+    and rtol 1e-4), and the gradients of ``linear_scan`` (the reverse kernel
+    on shift_left(gates)) against autograd of the serial scan.  Returns the
+    largest |kernel - plain| of each."""
+    gen = torch.Generator().manual_seed(SEED + 32)
+    errs = {}
+    for c in (WIDE_C, 200):
+        g = (0.3 + 0.699 * torch.rand((TRAIN_B, T, c), generator=gen)).to(dev)
+        x = torch.randn((TRAIN_B, T, c), generator=gen).to(dev)
+        dh = torch.randn((TRAIN_B, T, c), generator=gen).to(dev)
+        h = SC.linear_scan(g, x)
+        r = SC.linear_scan_reverse(g, x)
+        gl, xl = g.clone().requires_grad_(), x.clone().requires_grad_()
+        SC.linear_scan(gl, xl).backward(dh)
+        with torch.no_grad():
+            wh, wr = SC.linear_scan_serial(g, x), SC.linear_scan_reverse_serial(g, x)
+        gp, xp = g.clone().requires_grad_(), x.clone().requires_grad_()
+        wgg, wgx = torch.autograd.grad(SC.linear_scan_serial(gp, xp), [gp, xp], dh)
+        torch.cuda.synchronize()
+        rows = {"d_gates": _grad_err_ok(gl.grad, wgg, torch.float32, False),
+                "d_tokens": _grad_err_ok(xl.grad, wgx, torch.float32, False)}
+        ok = (torch.allclose(h, wh, **FP32_TOL) and torch.allclose(r, wr, **FP32_TOL)
+              and all(o for _, o in rows.values()))
+        phase("scan-kernel-vs-plain", kernel="linear_scan, linear_scan_reverse",
+              dtype="float32", shape=f"B{TRAIN_B}xT{T}xC{c}",
+              fwd_max_abs_err=f"{_max_err([(h, wh)]):.3e}",
+              reverse_max_abs_err=f"{_max_err([(r, wr)]):.3e}",
+              grad_rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
+              tol=f"atol {FP32_TOL['atol']} rtol {FP32_TOL['rtol']}; grads max|err|/max|plain| "
+                  f"<= {GRAD_RTOL}", ok=ok)
+        check(ok, f"linear_scan C={c}: kernel disagrees with the serial scan")
+        errs["linear_scan"] = max(errs.get("linear_scan", 0.0), _max_err([(h, wh)]))
+        errs["linear_scan_reverse"] = max(errs.get("linear_scan_reverse", 0.0),
+                                          _max_err([(r, wr), (gl.grad, wgg), (xl.grad, wgx)]))
+        del g, x, dh, h, r, gl, xl, wh, wr, gp, xp, wgg, wgx
+    return errs
+
+
+def bdlru_params(gen, dev, c=C):
+    def r(*s, std=0.05):
+        return (std * torch.randn(s, generator=gen)).to(dev)
+
+    return {"wc": r(K, c, std=0.5), "bc": r(c, std=0.5), "wg": r(c, 2 * c), "bg": r(2 * c),
+            "lam": torch.linspace(-2.2, -6.9, c).to(dev)}
+
+
+def bdlru_kernels_vs_plain(dev):
+    """Row 8 at the longodd path's shape (B 512, T 1,020, C 128, K 4), fp32
+    and bf16, with and without the conv: h, dx and the five weight grads
+    against autograd of the plain version (the serial scan over 1,020
+    steps).  Returns the largest fp32 |kernel - plain| of each."""
+    gen = torch.Generator().manual_seed(SEED + 33)
+    p = bdlru_params(gen, dev)
+    x = torch.randn((XB, LT, C), generator=gen).to(dev)
+    d3 = torch.randn((XB, LT, C), generator=gen).to(dev)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for use_conv in (True, False):
+            xd, dh = x.to(dt), d3.to(dt)
+            out = FBD.fused_bdlru(xd, *p.values(), use_conv)
+            dx, *grads = FBD.fused_bdlru_bwd(xd, dh, *p.values(), use_conv)
+            grads = dict(zip(p, grads))
+            # without the conv the plain version does not read its weights:
+            # their gradients are 0
+            used = p if use_conv else {k: p[k] for k in ("wg", "bg", "lam")}
+            wout, wdx, wg = _plain_vjp(lambda a, q: FBD.fused_bdlru_plain(
+                a, *dict(p, **q).values(), use_conv), xd, used, dh)
+            torch.cuda.synchronize()
+            for k in set(p) - set(used):
+                wg[k] = torch.zeros_like(p[k])
+            ok_out = (torch.allclose(out, wout, **FP32_TOL) if dt == torch.float32
+                      else _bf16_ok(out, wout))
+            rows = _bwd_rows(dx, wdx, grads, wg, dt)
+            ok = ok_out and all(o for _, o in rows.values())
+            phase("bdlru-kernel-vs-plain", kernel="fused_bdlru_bwd", dtype=str(dt).split(".")[-1],
+                  use_conv=use_conv, shape=f"B{XB}xT{LT}xC{C}xK{K}",
+                  out_max_abs_err=f"{float((out.float() - wout.float()).abs().max()):.3e}",
+                  rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
+                  tol=f"out as kernel-vs-plain; max|err|/max|plain| <= {GRAD_RTOL}"
+                      + (" (bf16 dx: + 2^-7*|plain|)" if dt == torch.bfloat16 else ""),
+                  ok=ok)
+            check(ok, f"fused_bdlru {dt} use_conv={use_conv}: kernel disagrees with its plain "
+                      "version")
+            if dt == torch.float32:
+                errs["fused_bdlru"] = max(errs.get("fused_bdlru", 0.0), _max_err([(out, wout)]))
+                errs["fused_bdlru_bwd"] = max(
+                    errs.get("fused_bdlru_bwd", 0.0),
+                    _max_err([(dx, wdx)] + [(v, wg[k]) for k, v in grads.items()]))
+            del out, dx, grads, wout, wdx, wg
+    return errs
+
+
+# the wrappers of RecBLR's paths outside the whole-layer kernels and their
+# plain versions, as models/recblr.py imports them
+PLAIN_TWINS = {"fused_dropout_ln": FL.fused_dropout_ln_plain,
+               "fused_recurrent_layer_last": FL.fused_recurrent_layer_last_plain,
+               "linear_scan": SC.linear_scan_serial, "fused_bdlru": FBD.fused_bdlru_plain}
+
+
+def plain_path_output(model, seq, lens, step=None, embed=None):
+    """RecBLR's own forward with each kernel wrapper of these paths swapped
+    for its plain version and the plain embedding gather, or ``embed(ids)``
+    (the same dropout seeds, so the same masks)."""
+    from datamining_recblr_torch.models import recblr as RB
+
+    kernels = {n: getattr(RB, n) for n in PLAIN_TWINS}
+    try:
+        for n, f in PLAIN_TWINS.items():
+            setattr(RB, n, f)
+        model.embed = embed or (lambda ids: plain_embed(model, ids))
+        return model(seq, lens, step=step)
+    finally:
+        for n, f in kernels.items():
+            setattr(RB, n, f)
+        del model.embed
+
+
+def slice_config(path, dtype_name):
+    spec = SLICE_PATHS[path]
+    return Config(model="RecBLR", config_dict={
+        "MAX_ITEM_LIST_LENGTH": spec["t"], "compute_dtype": dtype_name,
+        "train_batch_size": spec["batch"], "seed": SEED, "dropout_prob": DROPOUT,
+        "hidden_size": D, "num_layers": 2, "expand": C // D, "d_conv": K, **spec["cfg"]})
+
+
+def on_slice_path(model, path):
+    """The model is at full width on ``path``'s composition."""
+    width = (model.hidden_size, model.d_conv, model.max_seq_len) == (
+        D, K, SLICE_PATHS[path]["t"])
+    if path in ("onelayer", "hm"):
+        return width and model.use_fused_layer() and len(model.layers) == 1 and (
+            model.inner_hidden == C)
+    unfused = not (model.use_fused_layer() or model.use_chunked_layer())
+    if path == "wide":
+        return width and unfused and model.inner_hidden == WIDE_C and not model.use_fused_bdlru()
+    return width and unfused and model.inner_hidden == C and model.use_fused_bdlru()
+
+
+def _slice_data(trainer, path):
+    """The path's training split on the card: the bench data at T 200 (50
+    for H&M), or PR 6's XLong data (histories of 2 .. 1,000) at T 1,020."""
+    from datamining_recblr_torch.data.synthetic import synthetic_splits
+
+    spec = SLICE_PATHS[path]
+    if path == "longodd":
+        train, _ = synthetic_splits(5000, XV, LT, 4096, seed=SEED)
+        train.item_seq_len[:] = np.minimum(train.item_seq_len, XMAX_LEN)
+        train.item_seq[:, XMAX_LEN:] = 0
+    else:
+        train, _ = synthetic_splits(6040, N_ITEMS, spec["t"], 8192, seed=SEED)
+    return train, trainer.device_split(train)
+
+
+def _capturing(embed, store):
+    """``embed`` that keeps its ids and the cotangent of its output in
+    ``store``."""
+    def f(ids):
+        e = embed(ids)
+        store["ids"] = ids
+        e.register_hook(lambda g: store.update(g=g.detach().clone()))
+        return e
+    return f
+
+
+def item_grad_parts(model, batch, step):
+    """Where a bf16 step's item-embedding gradient leaves the plain bf16
+    step's.  Each part is a max |difference| over the plain gradient's
+    largest value: ``total``; ``rows``, the cotangents at the embedding
+    output (the layers' backward), each step's summed into the table in
+    fp64; ``table_sum``, the ``embedding_grad`` kernel's sum of the step's
+    own cotangents against that fp64 sum (``plain_table_sum``: autograd's
+    fp32 sum); ``ce``, the rest, the CE's table gradient (row 14 and the
+    plain CE, each on its step's output).  ``rows_rel``: max |cotangent
+    difference| over the largest plain cotangent."""
+    v = model.item_embedding.shape[0]
+    got, want = {}, {}
+    model.train()
+    model.zero_grad(set_to_none=True)
+    model.embed = _capturing(model.embed, got)
+    try:
+        model.calculate_loss(batch, step=step).backward()
+    finally:
+        del model.embed
+    g_k = model.item_embedding.grad.detach().clone()
+    model.zero_grad(set_to_none=True)
+    plain_out = functools.partial(
+        plain_path_output, embed=_capturing(lambda ids: plain_embed(model, ids), want))
+    plain_ce_loss(plain_out)(model, batch, step).backward()
+    g_p = model.item_embedding.grad.detach().clone()
+    model.zero_grad(set_to_none=True)
+
+    def sum64(part):
+        d = part["g"].shape[-1]
+        return torch.zeros((v, d), dtype=torch.float64, device=g_p.device).index_add_(
+            0, part["ids"].reshape(-1).long(), part["g"].reshape(-1, d).double())
+
+    s_k, s_p = sum64(got), sum64(want)
+    e_k = E.embedding_grad(got["ids"], got["g"], v)
+    e_p = E.embedding_grad_plain(want["ids"], want["g"], v)
+    top = float(g_p.abs().max())
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / top
+
+    parts = {"total": rel(g_k, g_p), "rows": rel(s_k, s_p), "table_sum": rel(e_k, s_k),
+             "plain_table_sum": rel(e_p, s_p), "ce": rel(g_k - e_k, g_p - e_p),
+             "rows_rel": float((got["g"].float() - want["g"].float()).abs().max()
+                               / want["g"].float().abs().max())}
+    return parts, top
+
+
+def slice_train_phase(dev, path, dtype_name, timed=True):
+    """RecBLR on one path outside the whole-layer kernels at full width:
+    one step of the main path with every count at 0 before it (launches,
+    and the step against the same step through the plain versions), then
+    the step time and a profile.  A bf16 step's gradients are held within
+    2^-7 of each gradient's largest value, the item embedding's within
+    ITEM_BF16_RTOL; on the longodd path the item embedding's is taken
+    apart (``item_grad_parts``) at this step and at the next batch and
+    step."""
+    from datamining_recblr_torch.train.trainer import Trainer
+
+    spec = SLICE_PATHS[path]
+    prefix = f"{path}-train"
+    counted = spec["counted"]
+    expected = spec["per_step"]
+    if dtype_name == "bfloat16":
+        counted, expected = counted + (E.embedding_grad,), expected + (1,)
+    cfg = slice_config(path, dtype_name)
+    model = get_model("RecBLR")(cfg, spec["v"], spec["t"],
+                                generator=torch.Generator().manual_seed(SEED))
+    check(on_slice_path(model, path), f"RecBLR {path}: not that path at full width")
+    trainer = Trainer(cfg, model)
+    train, data = _slice_data(trainer, path)
+    b = spec["batch"]
+    perm = np.random.default_rng((SEED, 2)).permutation(len(train))
+    weight = torch.ones(b, device=dev)
+
+    def batch_of(s):
+        idx = perm[(s * b) % len(train):][:b]
+        return trainer.gather_batch(data, torch.from_numpy(idx).to(dev), weight)
+
+    tol = GRAD_RTOL if dtype_name == "float32" else BF16_RTOL
+    plain_loss = plain_ce_loss(plain_path_output)
+    batch = batch_of(0)
+    launches, loss, want_loss, loss_err, errs = step_vs_plain(model, batch, counted, plain_loss,
+                                                              0.0, tol)
+    bf16 = dtype_name == "bfloat16"
+    tols = {k: ITEM_BF16_RTOL if bf16 and k == "item_embedding" else tol for k in errs}
+    worst = max(errs, key=lambda k: errs[k] / tols[k])
+    phase(f"{prefix}-step-vs-plain", dtype=dtype_name, batch=b, T=spec["t"], V=spec["v"],
+          C=model.inner_hidden, layers=len(model.layers), p=model.dropout_prob,
+          loss=f"{loss:.6f}", plain_loss=f"{want_loss:.6f}", loss_rel_err=f"{loss_err:.3e}",
+          loss_tol="1e-4", grad_rel_err_max=f"{max(errs.values()):.3e}", worst_param=worst,
+          worst_rel_err=f"{errs[worst]:.3e}", worst_tol=f"{tols[worst]:.3e}",
+          item_embedding_rel_err=f"{errs['item_embedding']:.3e}",
+          grad_tol=f"max|err|/max|plain| <= {tol}"
+          + (f", item_embedding {ITEM_BF16_RTOL}" if bf16 else ""), params=len(errs))
+    check(np.isfinite(loss), f"RecBLR {path}: train loss is not finite")
+    check(loss_err <= 1e-4, f"RecBLR {path}: train loss disagrees with the plain step")
+    check(all(errs[k] <= tols[k] for k in errs),
+          f"RecBLR {path}: gradients disagree with the plain step")
+    if bf16 and path == "longodd":
+        for s, bt in ((7, batch), (8, batch_of(1))):
+            parts, top = item_grad_parts(model, bt, s)
+            phase(f"{prefix}-item-grad", dtype=dtype_name, step=s, plain_max=f"{top:.4e}",
+                  **{k: f"{v:.3e}" for k, v in parts.items()}, tol=ITEM_BF16_RTOL)
+            check(all(np.isfinite(v) for v in parts.values())
+                  and parts["total"] <= ITEM_BF16_RTOL,
+                  f"RecBLR {path}: the item-embedding gradient at step {s} disagrees")
+    phase(f"{prefix}-launches", dtype=dtype_name, steps=1,
+          **{fn.__name__: n for fn, n in zip(counted, launches)})
+    check(launches == expected, f"RecBLR {path}: expected launches {expected}, got {launches}")
+    out = {"launches": dict(zip((fn.__name__ for fn in counted), launches))}
+    if not timed:
+        return out
+    steps = XTRAIN_STEPS if path == "longodd" else TRAIN_STEPS
+    med, lo, hi, peak = time_steps(trainer, batch_of, steps)
+    phase(f"{prefix}-time", dtype=dtype_name, batch=b, T=spec["t"], steps=steps,
+          median_ms_per_step=f"{med:.3f}", examples_per_s=f"{b / med * 1e3:.1f}",
+          min_ms=f"{lo:.3f}", max_ms=f"{hi:.3f}", peak_device_gb=f"{peak:.3f}")
+    train_profile(trainer, batch_of, dtype_name, prefix, steps=3 if path == "longodd" else 5)
+    out.update(ms=med, examples_per_s=b / med * 1e3, peak_gb=peak)
+    return out
+
+
+def dropout_ln_bound_ms(b, t, act_bytes):
+    # x read and out written once, scale and bias [D]; about 8 operations
+    # per element (mask, mean, centre, square-sum, scale, shift)
+    return _bound(8 * b * t * D, 2 * b * t * D * act_bytes + 2 * D * 4)
+
+
+def dropout_ln_bwd_bound_ms(b, t, act_bytes):
+    # x, dout read and dx written once, scale read, dscale and dbias
+    # written; about 16 operations per element (the LN recomputed and its
+    # backward)
+    return _bound(16 * b * t * D, 3 * b * t * D * act_bytes + 3 * D * 4)
+
+
+def scan_bound_ms(b, t, c):
+    # gates and tokens read, h written once (fp32); one multiply-add each
+    return _bound(2 * b * t * c, 3 * b * t * c * 4)
+
+
+def bdlru_bound_ms(b, t, c, p, act_bytes):
+    # per position the gate product (2 C x 2C), the conv (2 K C) and the
+    # scan (2 C); x read and h written once, the params read
+    flops = b * t * (2 * c * 2 * c + 2 * K * c + 2 * c)
+    return _bound(flops, 2 * b * t * c * act_bytes + _params_bytes(p))
+
+
+def bdlru_bwd_bound_ms(b, t, c, p, act_bytes):
+    # the gate product recomputed and its two gradient products, the conv
+    # and its two gradients, both scans; x, dh read and dx written, the
+    # params read and their grads written
+    flops = b * t * (3 * 2 * c * 2 * c + 6 * K * c + 4 * c)
+    return _bound(flops, 3 * b * t * c * act_bytes + 2 * _params_bytes(p))
+
+
+def slice_kernel_times(dev):
+    """Rows 5, 7 and 8 at their paths' shapes, fp32 (row 8 also bf16, the
+    longodd path's dtype): row 5 at B 2,048, T 200, D 64, p 0.2; row 7 at
+    B 2,048, T 200, C 256; row 8 at B 512, T 1,020, C 128, each beside its
+    bound, its plain version (a backward's: autograd's backward of the
+    plain forward, its graph built once) and, for row 5, one PyTorch call
+    of the same function: ``F.layer_norm`` on the dropped input and
+    ``autograd.grad`` through it, checked first against the plain version.
+    Rows 7 and 8 have no single-call library equivalent."""
+    gen = torch.Generator().manual_seed(SEED + 34)
+    rows = {}
+
+    def emit(name, ms, plain_ms, bnd, lib, **shape):
+        bound, flops, by = bnd
+        phase("kernel-time", kernel=name, **shape, ms=f"{ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}" if plain_ms is not None else "not measured",
+              library_ms=f"{lib:.4f}" if lib is not None else "none", bound_ms=f"{bound:.5f}",
+              gflop=f"{flops / 1e9:.3f}", bound_by=by, share_of_bound=f"{bound / ms:.4f}")
+        if shape.get("dtype", "float32") == "float32":
+            rows[name] = (ms, plain_ms, bound, by, lib)
+
+    # row 5
+    x = (2 * torch.randn((TRAIN_B, T, D), generator=gen)).to(dev)
+    d3 = torch.randn((TRAIN_B, T, D), generator=gen).to(dev)
+    s = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev)
+    bias = (0.1 * torch.randn(D, generator=gen)).to(dev)
+    seed = 4242
+    ms = time_ms(lambda: FL.fused_dropout_ln(x, s, bias, DROPOUT, seed))
+    ms_bwd = time_ms(lambda: FL.fused_dropout_ln_bwd(x, d3, s, bias, DROPOUT, seed))
+    with torch.no_grad():
+        plain = time_ms(lambda: FL.fused_dropout_ln_plain(x, s, bias, DROPOUT, seed), reps=5,
+                        warmup=1)
+    xl, sl, bl = (a.clone().requires_grad_() for a in (x, s, bias))
+    out = FL.fused_dropout_ln_plain(xl, sl, bl, DROPOUT, seed)
+    plain_bwd = time_ms(lambda: torch.autograd.grad(out, [xl, sl, bl], d3, retain_graph=True),
+                        reps=5, warmup=1)
+    xdrop = x * philox.dropout_mask(seed, philox.M0, TRAIN_B, T, D, DROPOUT, dev)
+    xdl = xdrop.clone().requires_grad_()
+    lib_out = F.layer_norm(xdl, (D,), sl, bl, L.LN_EPS)
+    lib_err = float((lib_out.detach() - out.detach()).abs().max())
+    lib_ok = lib_err <= 1e-4 * float(out.detach().abs().max())
+    phase("library-vs-plain", call="F.layer_norm(dropout(x))", B=TRAIN_B, T=T,
+          max_abs_err=f"{lib_err:.3e}", tol="1e-4*max|plain|", ok=lib_ok)
+    check(lib_ok, "F.layer_norm on the dropped input does not compute row 5's function")
+    with torch.no_grad():
+        lib = time_ms(lambda: F.layer_norm(xdrop, (D,), s, bias, L.LN_EPS))
+    lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, [xdl, sl, bl], d3, retain_graph=True))
+    shape = dict(B=TRAIN_B, T=T, D=D, dtype="float32", p=DROPOUT)
+    emit("fused_dropout_ln", ms, plain, dropout_ln_bound_ms(TRAIN_B, T, 4), lib, **shape)
+    emit("fused_dropout_ln_bwd", ms_bwd, plain_bwd, dropout_ln_bwd_bound_ms(TRAIN_B, T, 4),
+         lib_bwd, **shape)
+    del x, d3, xl, out, xdrop, xdl, lib_out
+
+    # row 7
+    g = (0.3 + 0.699 * torch.rand((TRAIN_B, T, WIDE_C), generator=gen)).to(dev)
+    xs = torch.randn((TRAIN_B, T, WIDE_C), generator=gen).to(dev)
+    shape = dict(B=TRAIN_B, T=T, C=WIDE_C, dtype="float32")
+    for name, fn, plain_fn in (("linear_scan", SC.linear_scan, SC.linear_scan_serial),
+                               ("linear_scan_reverse", SC.linear_scan_reverse,
+                                SC.linear_scan_reverse_serial)):
+        ms = time_ms(lambda: fn(g, xs))
+        plain = time_ms(lambda: plain_fn(g, xs), reps=5, warmup=1)
+        emit(name, ms, plain, scan_bound_ms(TRAIN_B, T, WIDE_C), None, **shape)
+    del g, xs
+
+    # row 8
+    p = bdlru_params(gen, dev)
+    x = torch.randn((XB, LT, C), generator=gen).to(dev)
+    d3 = torch.randn((XB, LT, C), generator=gen).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        xd, dh = x.to(dt), d3.to(dt)
+        act = xd.element_size()
+        shape = dict(B=XB, T=LT, C=C, K=K, dtype=str(dt).split(".")[-1])
+        ms = time_ms(lambda: FBD.fused_bdlru(xd, *p.values()), reps=10)
+        ms_bwd = time_ms(lambda: FBD.fused_bdlru_bwd(xd, dh, *p.values()), reps=10)
+        if dt == torch.float32:
+            # the plain version walks T in Python: two calls each, no warm-up
+            with torch.no_grad():
+                plain = time_ms(lambda: FBD.fused_bdlru_plain(xd, *p.values()), reps=2,
+                                warmup=0)
+            xl = xd.clone().requires_grad_()
+            ql = [v.clone().requires_grad_() for v in p.values()]
+            out = FBD.fused_bdlru_plain(xl, *ql)
+            plain_bwd = time_ms(lambda: torch.autograd.grad(out, [xl, *ql], dh,
+                                                            retain_graph=True), reps=2, warmup=0)
+            del out, xl, ql
+        else:
+            plain = plain_bwd = None
+        emit("fused_bdlru", ms, plain, bdlru_bound_ms(XB, LT, C, p, act), None, **shape)
+        emit("fused_bdlru_bwd", ms_bwd, plain_bwd, bdlru_bwd_bound_ms(XB, LT, C, p, act), None,
+             **shape)
+    return rows
+
+
 KERNELS = (
     ("fused_recurrent_layer", "datamining_recblr_torch/csrc/fused_layer.cu",
      "datamining_recblr_tpu/ops/fused_layer.py:245"),
@@ -2185,6 +2737,20 @@ ATTN_KERNELS = (
     ("fused_transformer_layer_last_bwd", "datamining_recblr_torch/csrc/fused_block_last_bwd.cu",
      "datamining_recblr_tpu/ops/fused_block.py:655"),
 )
+SLICE_KERNELS = (  # name, source, TPU kernel, the path whose step counts its launches
+    ("fused_dropout_ln", "datamining_recblr_torch/csrc/ln_dropout.cu",
+     "datamining_recblr_tpu/ops/fused_layer.py:1217", "onelayer"),
+    ("fused_dropout_ln_bwd", "datamining_recblr_torch/csrc/ln_dropout.cu",
+     "datamining_recblr_tpu/ops/fused_layer.py:1242", "onelayer"),
+    ("linear_scan", "datamining_recblr_torch/csrc/linear_scan.cu",
+     "datamining_recblr_tpu/ops/pallas_scan.py:110", "wide"),
+    ("linear_scan_reverse", "datamining_recblr_torch/csrc/linear_scan.cu",
+     "datamining_recblr_tpu/ops/pallas_scan.py:110", "wide"),
+    ("fused_bdlru", "datamining_recblr_torch/csrc/fused_bdlru.cu",
+     "datamining_recblr_tpu/ops/fused_bdlru.py:253", "longodd"),
+    ("fused_bdlru_bwd", "datamining_recblr_torch/csrc/fused_bdlru_bwd.cu",
+     "datamining_recblr_tpu/ops/fused_bdlru.py:280", "longodd"),
+)
 B4R_KERNELS = (
     ("fused_transformer_layer_sel", "datamining_recblr_torch/csrc/fused_block_sel.cu",
      "datamining_recblr_tpu/ops/fused_block.py:968"),
@@ -2213,12 +2779,22 @@ def main():
     b4r_mask_bits(dev)
     xlong_errs = xlong_kernels_vs_plain(dev)
     xlong_mask_bits(dev)
+    slice_errs = dropout_ln_kernels_vs_plain(dev)
+    dropout_ln_mask_bits(dev)
+    slice_errs.update(scan_kernels_vs_plain(dev))
+    slice_errs.update(bdlru_kernels_vs_plain(dev))
     serve = {(name, dt): serving(dev, name, dt)
              for name in SERVED for dt in ("float32", "bfloat16")}
     xserve = serving(dev, "RecBLR", "bfloat16", xlong=True)
     train = {(name, dt): train_step_phase(dev, dt, name)
              for name in TRAINED for dt in ("float32", "bfloat16")}
     xtrain = {dt: xlong_train_phase(dev, dt) for dt in ("float32", "bfloat16")}
+    served = [path for path, spec in SLICE_PATHS.items() if "served" in spec]
+    sserve = {(path, dt): serving(dev, "RecBLR", dt, path=path)
+              for path in served for dt in SLICE_PATHS[path]["serve_dtypes"]}
+    strain = {(path, dt): slice_train_phase(dev, path, dt)
+              for path in served for dt in ("float32", "bfloat16")}
+    slice_train_phase(dev, "hm", "float32", timed=False)
     for name in TRAINED:
         fit_phase(dev, name)
     kernel_times(dev, p1, p2, lens)
@@ -2227,6 +2803,7 @@ def main():
     sas_rows = attn_training_kernel_times(dev)
     b4r_rows = b4r_training_kernel_times(dev)
     xlong_rows = xlong_kernel_times(dev)
+    slice_rows = slice_kernel_times(dev)
     # launches: each model's kernels in one training step of its main path
     # (fp32), the forwards' launches per recommend() beside them (RecBLR's;
     # the attention kernels' in SASRec's and BERT4Rec's)
@@ -2280,6 +2857,21 @@ def main():
         if name == "fused_recurrent_layer_chunked":
             entry["launches_per_recommend"] = xserve["launches"][0]
         kernels.append(entry)
+    # the kernels outside the whole-layer ones: launches in one step of their
+    # path (row 8's in the longodd path's configured bf16, rows 5 and 7 fp32)
+    for name, src, tpu, path in SLICE_KERNELS:
+        ms, plain, bound, by, lib = slice_rows[name]
+        dt = "bfloat16" if path == "longodd" else "float32"
+        entry = {
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": strain[path, dt]["launches"][name], "max_abs_err": slice_errs[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
+        }
+        names = [fn.__name__ for fn in SLICE_PATHS[path]["served"]]
+        if name in names:
+            entry["launches_per_recommend"] = sserve[
+                path, SLICE_PATHS[path]["serve_dtypes"][0]]["launches"][names.index(name)]
+        kernels.append(entry)
     serve_summary = {}
     for (name, dt), out in serve.items():
         tag = ("" if name == "RecBLR" else name.lower() + "_") + SHORT_DTYPE[dt]
@@ -2296,6 +2888,14 @@ def main():
     for dt, out in xtrain.items():
         train_summary[f"xlong_train_ms_per_step_{SHORT_DTYPE[dt]}"] = f"{out['ms']:.3f}"
         train_summary[f"xlong_train_peak_gb_{SHORT_DTYPE[dt]}"] = f"{out['peak_gb']:.3f}"
+    for (path, dt), out in sserve.items():
+        serve_summary[f"serve_{path}_p50_ms_{SHORT_DTYPE[dt]}"] = f"{out[1] * 1e3:.3f}"
+        serve_summary[f"serve_{path}_users_per_s_{SHORT_DTYPE[dt]}"] = f"{B / out[B]:.1f}"
+    for (path, dt), out in strain.items():
+        train_summary[f"{path}_train_ms_per_step_{SHORT_DTYPE[dt]}"] = f"{out['ms']:.3f}"
+        train_summary[f"{path}_train_examples_per_s_{SHORT_DTYPE[dt]}"] = (
+            f"{out['examples_per_s']:.1f}")
+    check(len(kernels) == 25, f"the kernels JSON lists {len(kernels)} kernels, not 25")
     phase("summary", card=repr(smi), **serve_summary, **train_summary)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,18 @@ inline LayerParams unpack_params(const void* const* p) {
   return q;
 }
 
+// The standalone BD-LRU's parameters (fused_bdlru.cu): wc, bc, wg, bg,
+// lam in that order; the layer's other pointers stay null.
+inline LayerParams unpack_bdlru_params(const void* const* p) {
+  LayerParams q = {};
+  q.wc = static_cast<const float*>(p[0]);
+  q.bc = static_cast<const float*>(p[1]);
+  q.wg = static_cast<const float*>(p[2]);
+  q.bg = static_cast<const float*>(p[3]);
+  q.lam = static_cast<const float*>(p[4]);
+  return q;
+}
+
 // Mask ids of the Philox counter: m0 prologue, m1 after W_out (the
 // transformer layer's W_o), m2 FFN inner (RecBLR only), m3 FFN out (the
 // order of the TPU kernel's draws); ATTN_PROB + h the transformer layer's
@@ -198,15 +210,21 @@ __device__ void block_layernorm(float* v, int ld, int M, int D,
 // xb rows (pre-conv, after W_in), the rest zero.
 constexpr int REC_ROWS = MAX_K;
 
-inline size_t phase_a_smem_bytes(int D, int C) {
-  return sizeof(float) * ((size_t)XR * D + (size_t)XR * C + (size_t)TT * C + (size_t)TT * 2 * C);
+// Rows of xb the XB kernels hold: the tile and the conv's K-1 halo, for
+// any K (the layer kernels hold XR rows, K <= MAX_K).
+inline __host__ __device__ int xb_rows(int K) { return TT + K - 1; }
+
+inline size_t phase_a_smem_bytes(int D, int C, int xr = XR) {
+  return sizeof(float) * ((size_t)XR * D + (size_t)xr * C + (size_t)TT * C + (size_t)TT * 2 * C);
 }
 
 // Phase A.  Block (b, tile): positions t0 .. t_end-1 of row b.  Writes
 // alpha and beta*xc [B, T, C] fp32.  With `lens`, tiles at or beyond
 // row b's valid length are skipped: the last-position layer reads the
-// scan only below it.
-template <typename Tin>
+// scan only below it.  XB: x is xb itself, [B, T, C] (the standalone
+// BD-LRU of fused_bdlru.cu: no in-projection, no prologue; D = 0), with
+// xb_rows(K) rows of xb for any K.
+template <typename Tin, bool XB = false>
 __global__ void __launch_bounds__(THREADS)
 phase_a_kernel(const Tin* __restrict__ x, const int* __restrict__ lens, LayerParams p,
                Dropout dr, float* __restrict__ alpha_out, float* __restrict__ bx_out,
@@ -223,35 +241,43 @@ phase_a_kernel(const Tin* __restrict__ x, const int* __restrict__ lens, LayerPar
   const int rows_h = rows + H;
   float* xs = smem;             // [XR, D]   x rows t0-H .. t_end-1
   float* xb = xs + XR * D;      // [XR, C]   x @ W_in[:, :C] on those rows
-  float* xc = xb + XR * C;      // [TT, C]   silu(conv(xb))
+  float* xc = xb + (XB ? xb_rows(K) : XR) * C;  // [TT, C]   silu(conv(xb))
   float* g = xc + TT * C;       // [TT, 2C]  gates pre-activation
 
-  for (int i = threadIdx.x; i < rows_h * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    const int t = t0 - H + r;
-    float v = 0.f;
-    if (t >= 0) {
-      v = load_act(x, ((size_t)b * T + t) * D + d);
-      if (prologue) v *= drop_mask(dr, M0, b, t, d);
+  if (XB) {
+    for (int i = threadIdx.x; i < rows_h * C; i += blockDim.x) {
+      const int t = t0 - H + i / C;
+      xb[i] = t >= 0 ? load_act(x, ((size_t)b * T + t) * C + i % C) : 0.f;
     }
-    xs[i] = v;
-  }
-  __syncthreads();
-  if (prologue) {
-    block_layernorm(xs, D, rows_h, D, p.pl_s, p.pl_b);
     __syncthreads();
-  }
-  block_matmul(xs, D, rows_h, D, p.w_in, 2 * C, C, nullptr, xb, C);
-  __syncthreads();
-  if (tail_out != nullptr) {
-    // the chunked layer's record: the last K-1 xb rows of chunk j are rows
-    // 1 .. K-1 of chunk j + 1's REC_ROWS rows
-    const int nc = T / chunk;
-    for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-      const int r = i / C, c = i % C, t = t0 + r;
-      const int j = t / chunk, q = t % chunk - (chunk - (K - 1));
-      if (q >= 0 && j + 1 < nc)
-        tail_out[(((size_t)b * nc + j + 1) * REC_ROWS + 1 + q) * C + c] = xb[(r + H) * C + c];
+  } else {
+    for (int i = threadIdx.x; i < rows_h * D; i += blockDim.x) {
+      const int r = i / D, d = i % D;
+      const int t = t0 - H + r;
+      float v = 0.f;
+      if (t >= 0) {
+        v = load_act(x, ((size_t)b * T + t) * D + d);
+        if (prologue) v *= drop_mask(dr, M0, b, t, d);
+      }
+      xs[i] = v;
+    }
+    __syncthreads();
+    if (prologue) {
+      block_layernorm(xs, D, rows_h, D, p.pl_s, p.pl_b);
+      __syncthreads();
+    }
+    block_matmul(xs, D, rows_h, D, p.w_in, 2 * C, C, nullptr, xb, C);
+    __syncthreads();
+    if (tail_out != nullptr) {
+      // the chunked layer's record: the last K-1 xb rows of chunk j are rows
+      // 1 .. K-1 of chunk j + 1's REC_ROWS rows
+      const int nc = T / chunk;
+      for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+        const int r = i / C, c = i % C, t = t0 + r;
+        const int j = t / chunk, q = t % chunk - (chunk - (K - 1));
+        if (q >= 0 && j + 1 < nc)
+          tail_out[(((size_t)b * nc + j + 1) * REC_ROWS + 1 + q) * C + c] = xb[(r + H) * C + c];
+      }
     }
   }
 
@@ -380,18 +406,47 @@ tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
   }
 }
 
-// Forward scan of the full layer, in place: bx_h holds beta*xc on entry
-// and h on exit.  One thread per (row, channel), serial over T.
+// The linear scan, in either direction, any C.  Forward h_t = g_t
+// h_{t-1} + x_t from t = 0; REV h_t = g'_t h_{t+1} + x_t from t = T-1,
+// with g'_t = g_t, or with `shift` g'_t = g_{t+1} and g'_{T-1} = 1 (the
+// VJP's shift_left(gates), for a caller that holds the unshifted gates).
+// h starts from 0.  One thread per (row, channel), serial over T;
+// neighbouring threads read neighbouring channels.  Gates fp32; tokens
+// and h fp32 or bf16, the sum fp32.  x and h may be the same array (the
+// layers scan beta*xc into h in place, and reverse-scan dh into d_states):
+// the steps go in groups of SCAN_GROUP, and a group reads all its gates
+// and tokens before it writes any h, so SCAN_GROUP loads are in flight
+// whether or not the arrays alias.
+constexpr int SCAN_GROUP = 4;
+
+template <bool REV, typename Tx, typename Th>
 __global__ void __launch_bounds__(SCAN_THREADS)
-scan_kernel(const float* __restrict__ alpha, float* __restrict__ bx_h, int B, int T, int C) {
+linear_scan_kernel(const float* __restrict__ g, const Tx* x, Th* h, int B, int T, int C,
+                   int shift) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * C) return;
   const int b = i / C, c = i % C;
-  size_t o = (size_t)b * T * C + c;
-  float h = 0.f;
-  for (int t = 0; t < T; ++t, o += C) {
-    h = alpha[o] * h + bx_h[o];
-    bx_h[o] = h;
+  const size_t row = (size_t)b * T * C + c;
+  float acc = 0.f;
+  for (int s0 = 0; s0 < T; s0 += SCAN_GROUP) {
+    float gv[SCAN_GROUP], xv[SCAN_GROUP];
+#pragma unroll
+    for (int k = 0; k < SCAN_GROUP; ++k) {
+      const int t = REV ? T - 1 - (s0 + k) : s0 + k;
+      if (s0 + k < T) {
+        const size_t o = row + (size_t)t * C;
+        gv[k] = !(REV && shift) ? g[o] : t + 1 < T ? g[o + C] : 1.f;
+        xv[k] = load_act(x, o);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SCAN_GROUP; ++k) {
+      const int t = REV ? T - 1 - (s0 + k) : s0 + k;
+      if (s0 + k < T) {
+        acc = gv[k] * acc + xv[k];
+        store_act(h, row + (size_t)t * C, acc);
+      }
+    }
   }
 }
 
@@ -443,7 +498,7 @@ chunk_state_kernel(const float* __restrict__ alpha, const float* __restrict__ bx
 // state entering the chunk is read from the record (rec_in, [B, nc,
 // REC_ROWS, C], row 0) or composed from the earlier chunks' (hend, pend)
 // and written to rec_out; then the chunk's scan from it, h over bx in
-// place, as scan_kernel's serial loop.
+// place, as linear_scan_kernel's serial loop.
 __global__ void __launch_bounds__(SCAN_THREADS)
 chunk_scan_kernel(const float* __restrict__ alpha, float* __restrict__ bx_h,
                   const float* __restrict__ hend, const float* __restrict__ pend,

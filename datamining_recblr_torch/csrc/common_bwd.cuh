@@ -347,27 +347,17 @@ tail_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
 // B': reverse scan
 // ---------------------------------------------------------------------------
 
-// Without lens: ds holds dh [B, T, C] and becomes d_states.  With lens
-// (last-position layer): d_states[n-1] = dhl[b], d_states[t] =
-// alpha[t+1] * d_states[t+1] below it; positions at or beyond the length
-// are not touched.
+// The full layer's reverse scan is linear_scan_kernel<true> with `shift`
+// (common.cuh), dh into d_states in place.  The last-position layer's:
+// d_states[n-1] = dhl[b], d_states[t] = alpha[t+1] * d_states[t+1] below
+// it; positions at or beyond the length are not touched.
 __global__ void __launch_bounds__(SCAN_THREADS)
-rev_scan_kernel(const float* __restrict__ alpha, float* __restrict__ ds,
-                const int* __restrict__ lens, const float* __restrict__ dhl, int B, int T,
-                int C) {
+rev_scan_last_kernel(const float* __restrict__ alpha, float* __restrict__ ds,
+                     const int* __restrict__ lens, const float* __restrict__ dhl, int B, int T,
+                     int C) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * C) return;
   const int b = i / C, c = i % C;
-  if (lens == nullptr) {
-    size_t o = ((size_t)b * T + T - 1) * C + c;
-    float acc = 0.f;
-    for (int t = T - 1; t >= 0; --t, o -= C) {
-      const float a_next = t + 1 < T ? alpha[o + C] : 1.f;
-      acc = a_next * acc + ds[o];
-      ds[o] = acc;
-    }
-    return;
-  }
   const int n = valid_len(lens[b], T);
   if (n == 0) return;
   size_t o = ((size_t)b * T + n - 1) * C + c;
@@ -434,14 +424,16 @@ rev_chunk_scan_kernel(const float* __restrict__ alpha, float* __restrict__ ds,
 // C1': gate, lambda and conv backward
 // ---------------------------------------------------------------------------
 
-inline size_t gate_bwd_smem_bytes(int D, int C) {
-  return sizeof(float) * ((size_t)XR * D + (size_t)XR * C + (size_t)TT * 6 * C);
+inline size_t gate_bwd_smem_bytes(int D, int C, int xr = XR) {
+  return sizeof(float) * ((size_t)XR * D + (size_t)xr * C + (size_t)TT * 6 * C);
 }
 
 // Item (b, tile); with lens, positions at or beyond row b's length are
 // skipped (their d_states are zero).  ds_du holds d_states on entry and
-// du (dxc without the conv) on exit, at the positions processed.
-template <typename Tin>
+// du (dxc without the conv) on exit, at the positions processed.  XB:
+// x is xb itself, [B, T, C] (fused_bdlru_bwd.cu; D = 0, no prologue),
+// with xb_rows(K) rows of xb for any K.
+template <typename Tin, bool XB = false>
 __global__ void __launch_bounds__(THREADS)
 gate_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
                 const float* __restrict__ h, float* __restrict__ ds_du, LayerParams p,
@@ -450,7 +442,7 @@ gate_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
   extern __shared__ float smem[];
   float* xs = smem;              // [XR, D]   x rows t0-H .. t_end-1
   float* xb = xs + XR * D;       // [XR, C]   x @ W_in[:, :C]
-  float* u = xb + XR * C;        // [TT, C]   conv output
+  float* u = xb + (XB ? xb_rows(K) : XR) * C;  // [TT, C]   conv output
   float* xc = u + TT * C;        // [TT, C]   silu(u)
   float* g = xc + TT * C;        // [TT, 2C]  gates pre-activation -> dg
   float* dsb = g + TT * 2 * C;   // [TT, C]   d_states -> dxc -> du
@@ -465,22 +457,29 @@ gate_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
     if (t0 >= t_end) continue;
     const int rows = t_end - t0, rows_h = rows + H;
     __syncthreads();
-    for (int i = threadIdx.x; i < rows_h * D; i += blockDim.x) {
-      const int r = i / D, d = i % D;
-      const int t = t0 - H + r;
-      float v = 0.f;
-      if (t >= 0) {
-        v = load_act(x, ((size_t)b * T + t) * D + d);
-        if (prologue) v *= drop_mask(dr, M0, b, t, d);
+    if (XB) {
+      for (int i = threadIdx.x; i < rows_h * C; i += blockDim.x) {
+        const int t = t0 - H + i / C;
+        xb[i] = t >= 0 ? load_act(x, ((size_t)b * T + t) * C + i % C) : 0.f;
       }
-      xs[i] = v;
-    }
-    __syncthreads();
-    if (prologue) {
-      block_layernorm(xs, D, rows_h, D, p.pl_s, p.pl_b);
+    } else {
+      for (int i = threadIdx.x; i < rows_h * D; i += blockDim.x) {
+        const int r = i / D, d = i % D;
+        const int t = t0 - H + r;
+        float v = 0.f;
+        if (t >= 0) {
+          v = load_act(x, ((size_t)b * T + t) * D + d);
+          if (prologue) v *= drop_mask(dr, M0, b, t, d);
+        }
+        xs[i] = v;
+      }
       __syncthreads();
+      if (prologue) {
+        block_layernorm(xs, D, rows_h, D, p.pl_s, p.pl_b);
+        __syncthreads();
+      }
+      block_matmul(xs, D, rows_h, D, p.w_in, 2 * C, C, nullptr, xb, C);
     }
-    block_matmul(xs, D, rows_h, D, p.w_in, 2 * C, C, nullptr, xb, C);
     __syncthreads();
     for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
       const int r = i / C, c = i % C;

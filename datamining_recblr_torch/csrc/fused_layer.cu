@@ -35,8 +35,9 @@ cudaError_t layer_fwd(const Tin* x, Tin* out, LayerParams p, Dropout dr, float* 
       x, nullptr, p, dr, alpha, bxh, T, D, C, K, use_conv, prologue);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  scan_kernel<<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(
-      alpha, bxh, B, T, C);
+  linear_scan_kernel<false, float, float>
+      <<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(alpha, bxh, bxh, B,
+                                                                              T, C, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const size_t sc = tail_smem_bytes(D, C, use_ffn ? F : 0);

@@ -38,8 +38,9 @@ cudaError_t layer_bwd(const Tin* x, const Tin* dout, LayerParams p, LayerParamsT
     phase_a_kernel<Tin><<<dim3(B, tiles), THREADS, sa, stream>>>(
         x, nullptr, p, dr, alpha, h, T, D, C, K, use_conv, prologue);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    scan_kernel<<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(
-        alpha, h, B, T, C);
+    linear_scan_kernel<false, float, float>
+        <<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(alpha, h, h, B,
+                                                                                T, C, 0);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   int dev = 0, max_smem = 0;
@@ -59,8 +60,9 @@ cudaError_t layer_bwd(const Tin* x, const Tin* dout, LayerParams p, LayerParamsT
       prologue);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  rev_scan_kernel<<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(
-      alpha, ds, nullptr, nullptr, B, T, C);
+  linear_scan_kernel<true, float, float>
+      <<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(alpha, ds, ds, B,
+                                                                              T, C, 1);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const int items_c = B * tiles;

@@ -62,7 +62,7 @@ cudaError_t layer_last_bwd(const Tin* x, const int* lens, const Tin* dout, Layer
       0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  rev_scan_kernel<<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(
+  rev_scan_last_kernel<<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(
       alpha, ds, lens, dhl, B, T, C);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 

@@ -1,11 +1,16 @@
-// dropout(LN(x + pos)) over D for Hopper, forward and backward: the
-// embedding prologue of SASRec and BERT4Rec.
+// dropout(LN(x + pos)) and LN(dropout(x)) over D for Hopper, forward and
+// backward: the embedding prologue of SASRec and BERT4Rec, and the input
+// dropout and LN of a one-layer RecBLR.
 //
 // Replaces the TPU kernels datamining_recblr_tpu/ops/fused_layer.py:
 // _ln_dropout_fwd_kernel (reached through _ln_dropout_fwd /
-// fused_ln_dropout) and _ln_dropout_bwd_kernel (through _ln_dropout_bwd).
-// pos [T, D] is added in fp32 before the LN, as the TPU kernel does; the
-// dropout is the Philox mask M0 of the call's seed (common.cuh).
+// fused_ln_dropout) and _ln_dropout_bwd_kernel (through _ln_dropout_bwd);
+// with PRE (the dropout before the LN, no pos), _dropout_ln_fwd_kernel
+// (through _dropout_ln_fwd / fused_dropout_ln) and _dropout_ln_bwd_kernel
+// (through _dropout_ln_bwd).  pos [T, D] is added in fp32 before the LN,
+// as the TPU kernel does; the dropout is the Philox mask M0 of the call's
+// seed (common.cuh), which under PRE keys the input element (row,
+// position, channel), the bits of the plain dropout of x.
 //
 // Forward: a few operations per element against a read of x and a write
 // of out (2 B T D x 4 bytes in fp32, 26.2 MB at B 256, T 200, D 64):
@@ -22,8 +27,9 @@
 // position t over batch chunk c in a fixed order into its own partial
 // row; reduce_partials_kernel sums dpos over the chunks and
 // colsum_kernel dscale and dbias over the (chunk, position) rows, both
-// in a fixed order, so two runs give the same bits.  Left for later:
-// 16-byte loads, and dscale / dbias summed in the same pass as dpos.
+// in a fixed order, so two runs give the same bits (PRE has no dpos).
+// Left for later: 16-byte loads, and dscale / dbias summed in the same
+// pass as dpos.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "common_bwd.cuh"
@@ -36,7 +42,16 @@ constexpr int LN_THREADS = 256;
 constexpr int LN_WARPS = LN_THREADS / 32;
 constexpr int PER_LANE = 16;  // D <= 32 * PER_LANE = 512
 
-template <typename Tin>
+// The input of the LN at (row b, position t, channel d): x + pos, or
+// under PRE x times the M0 mask.
+template <bool PRE, typename Tin>
+__device__ __forceinline__ float ln_input(const Tin* x, const float* pos, const Dropout& dr,
+                                          size_t o, int b, int t, int d, int D) {
+  if (PRE) return load_act(x, o + d) * drop_mask(dr, M0, b, t, d);
+  return load_act(x, o + d) + __ldg(pos + (size_t)t * D + d);
+}
+
+template <typename Tin, bool PRE>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_pos_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
               const float* __restrict__ s, const float* __restrict__ bias, Dropout dr,
@@ -46,13 +61,12 @@ ln_pos_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
   if (row >= rows) return;
   const size_t o = (size_t)row * D;
   const int b = row / T, t = row % T;
-  const float* pr = pos + (size_t)t * D;
   float v[PER_LANE];
   float sum = 0.f;
 #pragma unroll
   for (int k = 0; k < PER_LANE; ++k) {
     const int d = lane + 32 * k;
-    v[k] = d < D ? load_act(x, o + d) + __ldg(pr + d) : 0.f;
+    v[k] = d < D ? ln_input<PRE>(x, pos, dr, o, b, t, d, D) : 0.f;
     sum += v[k];
   }
   const float mu = warp_sum(sum) / D;
@@ -67,16 +81,18 @@ ln_pos_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
 #pragma unroll
   for (int k = 0; k < PER_LANE; ++k) {
     const int d = lane + 32 * k;
-    if (d < D)
-      store_act(out, o + d,
-                ((v[k] - mu) * inv * __ldg(s + d) + __ldg(bias + d)) * drop_mask(dr, M0, b, t, d));
+    if (d < D) {
+      const float y = (v[k] - mu) * inv * __ldg(s + d) + __ldg(bias + d);
+      store_act(out, o + d, PRE ? y : y * drop_mask(dr, M0, b, t, d));
+    }
   }
 }
 
 // Block (t, c): position t of batch rows c, c + chunks, ...; warp w takes
 // every LN_WARPS-th of them.  Writes dx, and the block's sums of dv
-// (pos_part[c, t, :]) and of dy * vhat, dy (sb_part[c * T + t, :]).
-template <typename Tin>
+// (pos_part[c, t, :], not under PRE) and of dy * vhat, dy
+// (sb_part[c * T + t, :]).
+template <typename Tin, bool PRE>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_pos_bwd_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
                   const Tin* __restrict__ dout, const float* __restrict__ s, Dropout dr,
@@ -85,19 +101,25 @@ ln_pos_bwd_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
   __shared__ float acc[3 * 32 * PER_LANE];  // dpos, dscale, dbias of the block
   const int t = blockIdx.x, c = blockIdx.y;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const float* pr = pos + (size_t)t * D;
   float dp[PER_LANE], ds[PER_LANE], db[PER_LANE];
 #pragma unroll
   for (int k = 0; k < PER_LANE; ++k) dp[k] = ds[k] = db[k] = 0.f;
   for (int b = c + chunks * warp; b < B; b += chunks * LN_WARPS) {
     const size_t o = ((size_t)b * T + t) * D;
-    float v[PER_LANE], dy[PER_LANE];
+    float v[PER_LANE], dy[PER_LANE], m[PER_LANE];
     float sum = 0.f;
 #pragma unroll
     for (int k = 0; k < PER_LANE; ++k) {
       const int d = lane + 32 * k;
-      v[k] = d < D ? load_act(x, o + d) + __ldg(pr + d) : 0.f;
-      dy[k] = d < D ? load_act(dout, o + d) * drop_mask(dr, M0, b, t, d) : 0.f;
+      // the mask multiplies the LN input under PRE, the output otherwise
+      m[k] = d < D ? drop_mask(dr, M0, b, t, d) : 0.f;
+      if (PRE) {
+        v[k] = d < D ? load_act(x, o + d) * m[k] : 0.f;
+        dy[k] = d < D ? load_act(dout, o + d) : 0.f;
+      } else {
+        v[k] = d < D ? load_act(x, o + d) + __ldg(pos + (size_t)t * D + d) : 0.f;
+        dy[k] = d < D ? load_act(dout, o + d) * m[k] : 0.f;
+      }
       sum += v[k];
     }
     const float mu = warp_sum(sum) / D;
@@ -129,7 +151,7 @@ ln_pos_bwd_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
       const int d = lane + 32 * k;
       if (d < D) {
         const float dv = inv * (dy[k] * __ldg(s + d) - m1 - v[k] * m2);
-        store_act(dx, o + d, dv);
+        store_act(dx, o + d, PRE ? dv * m[k] : dv);
         dp[k] += dv;
       }
     }
@@ -150,7 +172,7 @@ ln_pos_bwd_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
     __syncthreads();
   }
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    pos_part[((size_t)c * T + t) * D + d] = acc[d];
+    if (!PRE) pos_part[((size_t)c * T + t) * D + d] = acc[d];
     sb_part[((size_t)c * T + t) * 2 * D + d] = acc[32 * PER_LANE + d];
     sb_part[((size_t)c * T + t) * 2 * D + D + d] = acc[64 * PER_LANE + d];
   }
@@ -172,25 +194,29 @@ colsum_kernel(const float* __restrict__ a, int rows, int cols, float* __restrict
   if (threadIdx.x == 0) out[blockIdx.x] = sh[0];
 }
 
-template <typename Tin>
+template <bool PRE, typename Tin>
 cudaError_t ln_pos_fwd(const Tin* x, const float* pos, const float* s, const float* b, Dropout dr,
                        Tin* out, int B, int T, int D, cudaStream_t stream) {
   const int rows = B * T;
-  ln_pos_kernel<Tin><<<(rows + LN_WARPS - 1) / LN_WARPS, LN_THREADS, 0, stream>>>(
+  ln_pos_kernel<Tin, PRE><<<(rows + LN_WARPS - 1) / LN_WARPS, LN_THREADS, 0, stream>>>(
       x, pos, s, b, dr, out, rows, T, D);
   return cudaGetLastError();
 }
 
-template <typename Tin>
+// PRE: no pos, pos_part or dpos.
+template <bool PRE, typename Tin>
 cudaError_t ln_pos_bwd(const Tin* x, const float* pos, const Tin* dout, const float* s,
                        Dropout dr, Tin* dx, float* pos_part, float* sb_part, float* dpos,
                        float* dsb, int B, int T, int D, int chunks, cudaStream_t stream) {
-  ln_pos_bwd_kernel<Tin><<<dim3(T, chunks), LN_THREADS, 0, stream>>>(
+  ln_pos_bwd_kernel<Tin, PRE><<<dim3(T, chunks), LN_THREADS, 0, stream>>>(
       x, pos, dout, s, dr, dx, pos_part, sb_part, B, T, D, chunks);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  reduce_partials_kernel<<<(T * D + 255) / 256, 256, 0, stream>>>(pos_part, chunks, T * D, dpos);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (!PRE) {
+    reduce_partials_kernel<<<(T * D + 255) / 256, 256, 0, stream>>>(pos_part, chunks, T * D,
+                                                                    dpos);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
   colsum_kernel<<<2 * D, LN_THREADS, 0, stream>>>(sb_part, chunks * T, 2 * D, dsb);
   return cudaGetLastError();
 }
@@ -215,10 +241,10 @@ int recblr_ln_pos_fwd(const void* x, const void* pos, const void* scale, const v
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   if (bf16)
-    return ln_pos_fwd(static_cast<const __nv_bfloat16*>(x), p, s, b, dr,
-                      static_cast<__nv_bfloat16*>(out), B, T, D, st);
-  return ln_pos_fwd(static_cast<const float*>(x), p, s, b, dr, static_cast<float*>(out), B, T,
-                    D, st);
+    return ln_pos_fwd<false>(static_cast<const __nv_bfloat16*>(x), p, s, b, dr,
+                             static_cast<__nv_bfloat16*>(out), B, T, D, st);
+  return ln_pos_fwd<false>(static_cast<const float*>(x), p, s, b, dr, static_cast<float*>(out),
+                           B, T, D, st);
 }
 
 // x, dout, dx: [B, T, D] fp32 (bf16 == 0) or bf16; pos [T, D], scale [D]
@@ -242,11 +268,55 @@ int recblr_ln_pos_bwd(const void* x, const void* pos, const void* dout, const vo
   float* dp = static_cast<float*>(dpos);
   float* dsbp = static_cast<float*>(dsb);
   if (bf16)
-    return ln_pos_bwd(static_cast<const __nv_bfloat16*>(x), p,
-                      static_cast<const __nv_bfloat16*>(dout), s, dr,
-                      static_cast<__nv_bfloat16*>(dx), pp, sp, dp, dsbp, B, T, D, chunks, st);
-  return ln_pos_bwd(static_cast<const float*>(x), p, static_cast<const float*>(dout), s, dr,
-                    static_cast<float*>(dx), pp, sp, dp, dsbp, B, T, D, chunks, st);
+    return ln_pos_bwd<false>(static_cast<const __nv_bfloat16*>(x), p,
+                             static_cast<const __nv_bfloat16*>(dout), s, dr,
+                             static_cast<__nv_bfloat16*>(dx), pp, sp, dp, dsbp, B, T, D, chunks,
+                             st);
+  return ln_pos_bwd<false>(static_cast<const float*>(x), p, static_cast<const float*>(dout), s,
+                           dr, static_cast<float*>(dx), pp, sp, dp, dsbp, B, T, D, chunks, st);
+}
+
+// LN(dropout(x)): x, out: [B, T, D] fp32 (bf16 == 0) or bf16, D <= 512;
+// scale, bias: [D] fp32; the dropout of x (common.cuh Dropout, mask M0);
+// device: the card that holds them.
+int recblr_dropout_ln_fwd(const void* x, const void* scale, const void* bias, void* out, int B,
+                          int T, int D, int bf16, int drop, unsigned long long seed,
+                          unsigned thresh, float drop_scale, int device, void* stream) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout dr = make_dropout(drop, seed, thresh, drop_scale);
+  const float* s = static_cast<const float*>(scale);
+  const float* b = static_cast<const float*>(bias);
+  if (bf16)
+    return ln_pos_fwd<true>(static_cast<const __nv_bfloat16*>(x), nullptr, s, b, dr,
+                            static_cast<__nv_bfloat16*>(out), B, T, D, st);
+  return ln_pos_fwd<true>(static_cast<const float*>(x), nullptr, s, b, dr,
+                          static_cast<float*>(out), B, T, D, st);
+}
+
+// Its backward: x, dout, dx: [B, T, D] fp32 (bf16 == 0) or bf16; scale
+// [D] fp32; sb_part: [chunks * T, 2D] fp32 scratch; dsb: [2D] (dscale then
+// dbias) fp32 out; the forward's dropout; device: the card.
+int recblr_dropout_ln_bwd(const void* x, const void* dout, const void* scale, void* dx,
+                          void* sb_part, void* dsb, int B, int T, int D, int chunks, int bf16,
+                          int drop, unsigned long long seed, unsigned thresh, float drop_scale,
+                          int device, void* stream) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dropout dr = make_dropout(drop, seed, thresh, drop_scale);
+  const float* s = static_cast<const float*>(scale);
+  float* sp = static_cast<float*>(sb_part);
+  float* dsbp = static_cast<float*>(dsb);
+  if (bf16)
+    return ln_pos_bwd<true>(static_cast<const __nv_bfloat16*>(x), nullptr,
+                            static_cast<const __nv_bfloat16*>(dout), s, dr,
+                            static_cast<__nv_bfloat16*>(dx), nullptr, sp, nullptr, dsbp, B, T, D,
+                            chunks, st);
+  return ln_pos_bwd<true>(static_cast<const float*>(x), nullptr,
+                          static_cast<const float*>(dout), s, dr, static_cast<float*>(dx),
+                          nullptr, sp, nullptr, dsbp, B, T, D, chunks, st);
 }
 
 const char* recblr_error_string(int err) {

@@ -24,12 +24,18 @@ Two compositions, chosen by configuration as in the JAX package
   (layer 0 with the input dropout and LN folded in); the top layer runs
   ``fused_recurrent_layer_last`` up to T = 1,024, and beyond it the
   chunked layer and a gather at each row's last position (length 0 reads
-  position 0).  All are differentiable through their backward kernels.
-  A one-layer model applies the input dropout and LN in plain PyTorch
-  first, where the JAX package calls its standalone ``fused_dropout_ln``
-  kernel (not ported yet).
-* unfused (everything else): the per-op composition of
-  ``_gated_recurrent`` and ``_ffn``, differentiated by autograd.
+  position 0).  A one-layer model runs ``fused_dropout_ln`` (the input
+  dropout and LN) and then the top layer, as the JAX package does
+  (``recblr.py:328-346``).  All are differentiable through their backward
+  kernels.
+* unfused (everything else: C > 128, T > 512 with no chunk, d_conv > 8):
+  the per-op composition of ``_gated_recurrent`` and ``_ffn`` in plain
+  PyTorch, differentiated by autograd, around one kernel a layer as in
+  ``recblr.py:122-176``: with C <= 128 ``fused_bdlru`` (conv, gates and
+  scan, forward and backward), beyond it ``linear_scan`` (the scan, its
+  backward the kernel's reverse mode), and with ``use_pallas_scan:
+  never`` the serial plain scan.  On a CPU tensor the kernels' plain
+  versions run.
 """
 
 from __future__ import annotations
@@ -43,9 +49,11 @@ from torch import nn
 from datamining_recblr_torch.models import layers as L
 from datamining_recblr_torch.models.base import SequentialModel
 from datamining_recblr_torch.ops.conv import causal_depthwise_conv
-from datamining_recblr_torch.ops.fused_bdlru import softplus
 from datamining_recblr_torch.ops import philox
+from datamining_recblr_torch.ops.fused_bdlru import fused_bdlru, softplus
+from datamining_recblr_torch.ops.fused_bdlru import supports as bdlru_supports
 from datamining_recblr_torch.ops.fused_layer import (
+    fused_dropout_ln,
     fused_recurrent_layer,
     fused_recurrent_layer_last,
     supports,
@@ -54,7 +62,7 @@ from datamining_recblr_torch.ops.fused_layer_chunked import (
     chunk_of,
     fused_recurrent_layer_chunked,
 )
-from datamining_recblr_torch.ops.scan import linear_scan_serial
+from datamining_recblr_torch.ops.scan import linear_scan, linear_scan_serial
 
 MAX_WHOLE_T = 512  # the whole-sequence layer kernel's T (recblr.py:204-215)
 MAX_LAST_T = 1024  # the top layer's last-position kernel's T (recblr.py:336)
@@ -153,6 +161,11 @@ class RecBLR(SequentialModel):
             and chunk_of(self.max_seq_len, self.d_conv) > 0
         )
 
+    def use_fused_bdlru(self) -> bool:
+        """Whether the unfused composition runs ``fused_bdlru`` (C <= 128)
+        rather than ``linear_scan`` or, with "never", the serial scan."""
+        return self.scan_impl != "xla" and bdlru_supports(self.inner_hidden)
+
     def use_last_layer_kernel(self) -> bool:
         """Whether the top layer of the fused compositions runs
         ``fused_recurrent_layer_last`` (T <= 1,024) or the chunked layer
@@ -199,17 +212,26 @@ class RecBLR(SequentialModel):
         position -> [B, 1, D]."""
         xz = x @ p["w_in"].to(x.dtype)
         xb, z = xz.chunk(2, dim=-1)
-        if not self.disable_conv1d:
-            xb = F.silu(causal_depthwise_conv(
-                xb, p["conv_w"].to(xb.dtype), p["conv_b"].to(xb.dtype)
-            ))
-        # gates and scan in fp32
-        xb32 = xb.float()
-        g = xb32 @ p["w_gates"].float() + p["b_gates"].float()
-        rec, inp = g.chunk(2, dim=-1)
-        alpha = torch.exp(-softplus(p["Lambda"].float()) * torch.sigmoid(rec))
-        beta = torch.sqrt(1.0 - alpha.square() + 1e-8) * torch.sigmoid(inp)
-        h = linear_scan_serial(alpha, beta * xb32).to(x.dtype)
+        if self.use_fused_bdlru():
+            # conv, gates and scan in one kernel: xb and h in the compute
+            # dtype, fp32 inside
+            f32 = lambda a: a.float().contiguous()  # noqa: E731
+            h = fused_bdlru(xb.contiguous(), f32(p["conv_w"]), f32(p["conv_b"]),
+                            f32(p["w_gates"]), f32(p["b_gates"]), f32(p["Lambda"]),
+                            not self.disable_conv1d)
+        else:
+            if not self.disable_conv1d:
+                xb = F.silu(causal_depthwise_conv(
+                    xb, p["conv_w"].to(xb.dtype), p["conv_b"].to(xb.dtype)
+                ))
+            # gates and scan in fp32
+            xb32 = xb.float()
+            g = xb32 @ p["w_gates"].float() + p["b_gates"].float()
+            rec, inp = g.chunk(2, dim=-1)
+            alpha = torch.exp(-softplus(p["Lambda"].float()) * torch.sigmoid(rec))
+            beta = torch.sqrt(1.0 - alpha.square() + 1e-8) * torch.sigmoid(inp)
+            scan = linear_scan if self.scan_impl != "xla" else linear_scan_serial
+            h = scan(alpha.contiguous(), (beta * xb32).contiguous()).to(x.dtype)
         if lens is not None:
             rows = torch.arange(x.shape[0], device=x.device)
             idx = _last_index(lens, x.shape[1])
@@ -241,7 +263,10 @@ class RecBLR(SequentialModel):
             use_ffn = not self.disable_ffn
             layer_fn = fused_recurrent_layer_chunked if chunked else fused_recurrent_layer
             if n_layers < 2:
-                x = L.layer_norm(self.input_ln, L.dropout(x, p_drop, seeds[-1]))
+                # the top layer kernel has no prologue: the input dropout
+                # and LN run first, as one kernel
+                pro = self.prologue_params()
+                x = fused_dropout_ln(x, pro["pl_s"], pro["pl_b"], p_drop, seeds[-1])
             for li, layer in enumerate(self.layers):
                 flat = self.flat_layer_params(layer, use_ffn)
                 if li == n_layers - 1 and self.use_last_layer_kernel():

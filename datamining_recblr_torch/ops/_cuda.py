@@ -6,7 +6,9 @@ sources build in parallel, one ``nvcc`` each.  Builds go to
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
 named by a hash of the sources and flags, so a changed source is
 rebuilt and an unchanged one is reused.  Nothing here runs at import
-time: the first kernel launch builds what it needs.
+time: the first kernel launch builds what it needs.  The helpers at the
+end are shared by every kernel wrapper (the device check, the stream,
+the rows of the weight-grad partials, whether autograd must see a call).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -27,7 +31,7 @@ SOURCES = ("fused_layer.cu", "fused_layer_last.cu", "fused_layer_bwd.cu",
            "fused_block_last.cu", "fused_block_bwd.cu", "fused_block_last_bwd.cu",
            "fused_block_sel.cu", "fused_block_sel_bwd.cu", "fused_ce.cu",
            "fused_layer_chunked.cu", "fused_layer_chunked_bwd.cu", "fused_ce_chunked.cu",
-           "emb_grad.cu")
+           "emb_grad.cu", "linear_scan.cu", "fused_bdlru.cu", "fused_bdlru_bwd.cu")
 HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh", "ce_common.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -63,6 +67,8 @@ _SIGNATURES = {
     "ln_dropout.cu": {
         "recblr_ln_pos_fwd": [_P] * 5 + [_I] * 4 + _D1 + [_I, _P],
         "recblr_ln_pos_bwd": [_P] * 10 + [_I] * 5 + _D1 + [_I, _P],
+        "recblr_dropout_ln_fwd": [_P] * 4 + [_I] * 4 + _D1 + [_I, _P],
+        "recblr_dropout_ln_bwd": [_P] * 6 + [_I] * 5 + _D1 + [_I, _P],
     },
     "fused_block.cu": {
         "recblr_block_fwd": [_P] * 6 + [_I] * 7 + [_F, _I] + _D1 * 2 + [_I, _P],
@@ -101,6 +107,15 @@ _SIGNATURES = {
     },
     "emb_grad.cu": {
         "recblr_emb_grad": [_P] * 10 + [_I] * 4 + [_I, _P],
+    },
+    "linear_scan.cu": {
+        "recblr_linear_scan": [_P] * 3 + [_I] * 4 + [_I, _P],
+    },
+    "fused_bdlru.cu": {
+        "recblr_bdlru_fwd": [_P] * 5 + [_I] * 6 + [_I, _P],
+    },
+    "fused_bdlru_bwd.cu": {
+        "recblr_bdlru_bwd": [_P] * 7 + [_I] + [_P] * 2 + [_I] * 6 + [_I, _P],
     },
 }
 
@@ -180,6 +195,29 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.recblr_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def require_cuda(x) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}; use cpu or cuda")
+
+
+def stream(x) -> int:
+    """The handle of PyTorch's current stream on x's card."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def grad_blocks(device) -> int:
+    """Rows of a backward's weight-grad partials: the blocks of its
+    grid-stride phases, two per SM."""
+    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def needs_grad(x, tensors) -> bool:
+    """Whether autograd must see a call on x and ``tensors`` (None
+    entries are skipped)."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(v is not None and v.requires_grad for v in tensors))
 
 
 def pointer_array(tensors) -> ctypes.Array:

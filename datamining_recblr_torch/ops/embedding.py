@@ -23,7 +23,6 @@ from __future__ import annotations
 import torch
 
 from datamining_recblr_torch.ops import _cuda
-from datamining_recblr_torch.ops.fused_layer import _require_cuda, _stream
 
 MAX_D = 512  # the kernel's lanes hold rows of up to 512 floats
 _SORT_BLOCK = 2048  # ids per block of the kernel's radix sort
@@ -44,7 +43,7 @@ def embedding_grad(ids, g, v: int):
     in a fixed order."""
     if g.device.type == "cpu":
         return embedding_grad_plain(ids, g, v)
-    _require_cuda(g)
+    _cuda.require_cuda(g)
     v = int(v)
     d = g.shape[-1]
     if g.dtype not in (torch.float32, torch.bfloat16):
@@ -76,7 +75,7 @@ def embedding_grad(ids, g, v: int):
             flat_ids.data_ptr(), flat_g.data_ptr(), out.data_ptr(), sort[0].data_ptr(),
             sort[1].data_ptr(), sort[2].data_ptr(), sort[3].data_ptr(), hist.data_ptr(),
             seg.data_ptr(), part.data_ptr(), n, v, d, int(g.dtype == torch.bfloat16),
-            g.device.index, _stream(g),
+            g.device.index, _cuda.stream(g),
         )
     _cuda.check(lib, err, "embedding_grad")
     embedding_grad.launches += 1

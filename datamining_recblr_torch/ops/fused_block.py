@@ -76,12 +76,8 @@ from datamining_recblr_torch.ops import _cuda, fastmath, philox
 from datamining_recblr_torch.ops.fused_layer import (
     _check_dout,
     _dropout_args,
-    _grad_blocks,
     _lens32,
     _ln,
-    _needs_grad,
-    _require_cuda,
-    _stream,
 )
 
 MASK_VALUE = -10000.0
@@ -342,7 +338,7 @@ def _grad_buffers(x, dims):
     """The zeroed [G, P] weight-grad partials, the [P] grads and G."""
     b, t, d, inner = dims
     size = sum(int(torch.Size(s).numel()) for s in _shapes(d, inner).values())
-    g = _grad_blocks(x.device)
+    g = _cuda.grad_blocks(x.device)
     partial = torch.zeros((g, size), device=x.device, dtype=torch.float32)
     grads = torch.empty((size,), device=x.device, dtype=torch.float32)
     return partial, grads, g
@@ -378,7 +374,7 @@ def _launch_fwd(x, lens32, plist, dims, causal, n_heads, act, hidden_p, attn_p, 
             qkv.data_ptr(), None if ctx is None else ctx.data_ptr(), b, t, d, n_heads,
             inner, int(bool(causal)), _ACT_IDS[act], 1.0 / math.sqrt(d // n_heads),
             int(x.dtype == torch.bfloat16), *_drop_args(hidden_p, attn_p, seed),
-            x.device.index, _stream(x),
+            x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_transformer_layer")
     fused_transformer_layer.launches += 1
@@ -399,7 +395,7 @@ def _launch_last_fwd(x, lens32, plist, dims, n_heads, act, hidden_p, attn_p, see
             x.data_ptr(), lens32.data_ptr(), out.data_ptr(), _cuda.pointer_array(plist),
             kv.data_ptr(), None if ctx is None else ctx.data_ptr(), b, t, d, n_heads, inner,
             _ACT_IDS[act], 1.0 / math.sqrt(d // n_heads), int(x.dtype == torch.bfloat16),
-            *_drop_args(hidden_p, attn_p, seed), x.device.index, _stream(x),
+            *_drop_args(hidden_p, attn_p, seed), x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_transformer_layer_last")
     fused_transformer_layer_last.launches += 1
@@ -434,7 +430,7 @@ def _launch_sel_fwd(x, lens32, sel32, plist, dims, n_heads, act, hidden_p, attn_
             _cuda.pointer_array(plist), kv.data_ptr(), None if q is None else q.data_ptr(),
             None if ctx is None else ctx.data_ptr(), b, t, d, s, n_heads, inner, _ACT_IDS[act],
             1.0 / math.sqrt(d // n_heads), int(x.dtype == torch.bfloat16),
-            *_drop_args(hidden_p, attn_p, seed), x.device.index, _stream(x),
+            *_drop_args(hidden_p, attn_p, seed), x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_transformer_layer_sel")
     fused_transformer_layer_sel.launches += 1
@@ -445,7 +441,7 @@ def fused_transformer_layer_sel_train(x, lens, sel_idx, params, n_heads, act="ge
                                       hidden_dropout_p=0.0, attn_dropout_p=0.0, seed=0):
     """Selected-positions layer forward on the card that keeps what the
     backward reads: (out, (kv [B, T, 2D], q [B, S, D], ctx [B, S, D]) fp32)."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, n_heads, act)
     out, kv, q, ctx = _launch_sel_fwd(x, _lens32(lens, x), _sel32(sel_idx, x), plist, dims,
                                       n_heads, act, hidden_dropout_p, attn_dropout_p, seed, True)
@@ -456,7 +452,7 @@ def fused_transformer_layer_train(x, lens, params, causal, n_heads, act="gelu",
                                   hidden_dropout_p=0.0, attn_dropout_p=0.0, seed=0):
     """Layer forward on the card that keeps what the backward reads:
     (out, (qkv [B, T, 3D], ctx [B, T, D]) fp32)."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, n_heads, act)
     out, qkv, ctx = _launch_fwd(x, _lens32(lens, x), plist, dims, causal, n_heads, act,
                                 hidden_dropout_p, attn_dropout_p, seed, True)
@@ -467,7 +463,7 @@ def fused_transformer_layer_last_train(x, lens, params, n_heads, act="gelu",
                                        hidden_dropout_p=0.0, attn_dropout_p=0.0, seed=0):
     """Last-query layer forward on the card that keeps what the backward
     reads: (out, (kv [B, T, 2D], ctx [B, D]) fp32)."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, n_heads, act)
     out, kv, ctx = _launch_last_fwd(x, _lens32(lens, x), plist, dims, n_heads, act,
                                     hidden_dropout_p, attn_dropout_p, seed, True)
@@ -481,7 +477,7 @@ def fused_transformer_layer_bwd(x, lens, dout, params, causal, n_heads, act="gel
     bidirectional: (dx [B, T, D] in x's dtype, {param name: fp32 grad}).
     ``saved``: (qkv, ctx) kept by ``fused_transformer_layer_train`` with
     the same arguments."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, n_heads, act)
     b, t, d, inner = dims
     lens32 = _lens32(lens, x)
@@ -500,7 +496,7 @@ def fused_transformer_layer_bwd(x, lens, dout, params, causal, n_heads, act="gel
             partial.data_ptr(), g, grads.data_ptr(), dx.data_ptr(), b, t, d, n_heads, inner,
             int(bool(causal)), _ACT_IDS[act], 1.0 / math.sqrt(d // n_heads),
             int(x.dtype == torch.bfloat16), *_drop_args(hidden_dropout_p, attn_dropout_p, seed),
-            x.device.index, _stream(x),
+            x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_transformer_layer_bwd")
     fused_transformer_layer_bwd.launches += 1
@@ -514,7 +510,7 @@ def fused_transformer_layer_last_bwd(x, lens, dout, params, n_heads, act="gelu",
     [B, T, D] in x's dtype, dense: K and V reach every position, the
     query and the residual only ``lens - 1``; {param name: fp32 grad}).
     ``saved``: (kv, ctx) kept by ``fused_transformer_layer_last_train``."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, n_heads, act)
     b, t, d, inner = dims
     lens32 = _lens32(lens, x)
@@ -532,7 +528,7 @@ def fused_transformer_layer_last_bwd(x, lens, dout, params, n_heads, act="gelu",
             kv.data_ptr(), ctx.data_ptr(), dctx.data_ptr(), dxr.data_ptr(), dkv.data_ptr(),
             partial.data_ptr(), g, grads.data_ptr(), dx.data_ptr(), b, t, d, n_heads, inner,
             _ACT_IDS[act], 1.0 / math.sqrt(d // n_heads), int(x.dtype == torch.bfloat16),
-            *_drop_args(hidden_dropout_p, attn_dropout_p, seed), x.device.index, _stream(x),
+            *_drop_args(hidden_dropout_p, attn_dropout_p, seed), x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_transformer_layer_last_bwd")
     fused_transformer_layer_last_bwd.launches += 1
@@ -547,7 +543,7 @@ def fused_transformer_layer_sel_bwd(x, lens, sel_idx, dout, params, n_heads, act
     and the residual only the selected ones, the cotangents of repeated
     positions added; {param name: fp32 grad}).  ``saved``: (kv, q, ctx)
     kept by ``fused_transformer_layer_sel_train`` with the same arguments."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, n_heads, act)
     b, t, d, inner = dims
     lens32 = _lens32(lens, x)
@@ -569,7 +565,7 @@ def fused_transformer_layer_sel_bwd(x, lens, sel_idx, dout, params, n_heads, act
             dctx.data_ptr(), dxq.data_ptr(), dq.data_ptr(), dkv.data_ptr(), partial.data_ptr(),
             g, grads.data_ptr(), dx.data_ptr(), b, t, d, s, n_heads, inner, _ACT_IDS[act],
             1.0 / math.sqrt(d // n_heads), int(x.dtype == torch.bfloat16),
-            *_drop_args(hidden_dropout_p, attn_dropout_p, seed), x.device.index, _stream(x),
+            *_drop_args(hidden_dropout_p, attn_dropout_p, seed), x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_transformer_layer_sel_bwd")
     fused_transformer_layer_sel_bwd.launches += 1
@@ -654,10 +650,10 @@ def fused_transformer_layer(x, lens, params, causal, n_heads, act="gelu",
     if x.device.type == "cpu":
         return fused_transformer_layer_plain(x, lens, params, causal, n_heads, act,
                                              hidden_dropout_p, attn_dropout_p, seed)
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, n_heads, act)
     lens32 = _lens32(lens, x)
-    if _needs_grad(x, plist):
+    if _cuda.needs_grad(x, plist):
         opts = (bool(causal), n_heads, act, float(hidden_dropout_p), float(attn_dropout_p),
                 int(seed))
         return _Block.apply(x, lens32, opts, *plist)
@@ -677,10 +673,10 @@ def fused_transformer_layer_last(x, lens, params, n_heads, act="gelu",
     if x.device.type == "cpu":
         return fused_transformer_layer_last_plain(x, lens, params, n_heads, act,
                                                   hidden_dropout_p, attn_dropout_p, seed)
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, n_heads, act)
     lens32 = _lens32(lens, x)
-    if _needs_grad(x, plist):
+    if _cuda.needs_grad(x, plist):
         opts = (n_heads, act, float(hidden_dropout_p), float(attn_dropout_p), int(seed))
         return _BlockLast.apply(x, lens32, opts, *plist)
     out, _, _ = _launch_last_fwd(x, lens32, plist, dims, n_heads, act, hidden_dropout_p,
@@ -701,11 +697,11 @@ def fused_transformer_layer_sel(x, lens, sel_idx, params, n_heads, act="gelu",
     if x.device.type == "cpu":
         return fused_transformer_layer_sel_plain(x, lens, sel_idx, params, n_heads, act,
                                                  hidden_dropout_p, attn_dropout_p, seed)
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, n_heads, act)
     lens32 = _lens32(lens, x)
     sel32 = _sel32(sel_idx, x)
-    if _needs_grad(x, plist):
+    if _cuda.needs_grad(x, plist):
         opts = (n_heads, act, float(hidden_dropout_p), float(attn_dropout_p), int(seed))
         return _BlockSel.apply(x, lens32, sel32, opts, *plist)
     out, _, _, _ = _launch_sel_fwd(x, lens32, sel32, plist, dims, n_heads, act,

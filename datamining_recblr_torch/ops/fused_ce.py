@@ -45,7 +45,6 @@ from __future__ import annotations
 import torch
 
 from datamining_recblr_torch.ops import _cuda, fastmath
-from datamining_recblr_torch.ops.fused_layer import _require_cuda, _stream
 
 NEG = -1e30
 # the JAX package's crossover below which its XLA CE is used (fused_ce.py:62)
@@ -273,7 +272,7 @@ def _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
         err = lib.recblr_ce_fwd(
             x.data_ptr(), table.data_ptr(), bias.data_ptr(), tgt32.data_ptr(), nll.data_ptr(),
             None if lse is None else lse.data_ptr(), n, table.shape[0], d, valid_v,
-            int(x.dtype == torch.bfloat16), int(bool(mm_bf16)), x.device.index, _stream(x),
+            int(x.dtype == torch.bfloat16), int(bool(mm_bf16)), x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_softmax_ce")
     fused_softmax_ce.launches += 1
@@ -283,7 +282,7 @@ def _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
 def fused_softmax_ce_train(x, table, targets, bias=None, valid_v=None, mm_bf16=False):
     """Whole-table forward on the card that keeps what the backward
     reads: (nll, lse) [N] fp32."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, False)
     return _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, True)
 
@@ -304,7 +303,7 @@ def fused_softmax_ce_bwd(x, table, targets, dnll, bias=None, valid_v=None, mm_bf
     cotangent; ``lse``: [N] fp32 kept by ``fused_softmax_ce_train`` with
     the same arguments.  dtable and dbias are summed in a fixed order: the
     same bits from run to run."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, False)
     n, d = x.shape
     v = table.shape[0]
@@ -319,7 +318,7 @@ def fused_softmax_ce_bwd(x, table, targets, dnll, bias=None, valid_v=None, mm_bf
             x.data_ptr(), table.data_ptr(), bias.data_ptr(), tgt32.data_ptr(), dnll.data_ptr(),
             lse.data_ptr(), dx.data_ptr(), r, partial.data_ptr(), grads.data_ptr(), n, v, d,
             valid_v, int(x.dtype == torch.bfloat16), int(bool(mm_bf16)), x.device.index,
-            _stream(x),
+            _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_softmax_ce_bwd")
     fused_softmax_ce_bwd.launches += 1
@@ -352,7 +351,7 @@ def _launch_cfwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
         err = lib.recblr_cce_fwd(
             x.data_ptr(), table.data_ptr(), bias.data_ptr(), tgt32.data_ptr(), part.data_ptr(), s,
             nll.data_ptr(), None if lse is None else lse.data_ptr(), n, v, d, valid_v,
-            int(x.dtype == torch.bfloat16), int(bool(mm_bf16)), x.device.index, _stream(x),
+            int(x.dtype == torch.bfloat16), int(bool(mm_bf16)), x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_softmax_ce_chunked")
     fused_softmax_ce_chunked.launches += 1
@@ -362,7 +361,7 @@ def _launch_cfwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
 def fused_softmax_ce_chunked_train(x, table, targets, bias=None, valid_v=None, mm_bf16=False):
     """Vocab-chunked forward on the card that keeps what the backward
     reads: (nll, lse) [N] fp32."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, True)
     return _launch_cfwd(x, table, bias, tgt32, valid_v, mm_bf16, True)
 
@@ -373,7 +372,7 @@ def fused_softmax_ce_chunked_bwd(x, table, targets, dnll, bias=None, valid_v=Non
     dtype, dtable [V, D] fp32, dbias [V] fp32), every sum in a fixed
     order.  ``lse``: [N] fp32 kept by ``fused_softmax_ce_chunked_train``
     with the same arguments."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, True)
     n, d = x.shape
     v = table.shape[0]
@@ -388,7 +387,7 @@ def fused_softmax_ce_chunked_bwd(x, table, targets, dnll, bias=None, valid_v=Non
             x.data_ptr(), table.data_ptr(), bias.data_ptr(), tgt32.data_ptr(), dnll.data_ptr(),
             lse.data_ptr(), dx.data_ptr(), dxp.data_ptr(), s, grads.data_ptr(), n, v, d,
             valid_v, int(x.dtype == torch.bfloat16), int(bool(mm_bf16)), x.device.index,
-            _stream(x),
+            _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_softmax_ce_chunked_bwd")
     fused_softmax_ce_chunked_bwd.launches += 1
@@ -417,7 +416,7 @@ class _CE(torch.autograd.Function):
 
 
 def _on_card(x, table, targets, bias, valid_v, mm_bf16, chunked):
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, chunked)
     if torch.is_grad_enabled() and (x.requires_grad or table.requires_grad
                                     or bias.requires_grad):

@@ -51,11 +51,8 @@ from datamining_recblr_torch.ops.fused_layer import (
     _grad_tuple,
     _ln,
     _masks,
-    _needs_grad,
     _param_dict,
     _param_list,
-    _require_cuda,
-    _stream,
     _unflatten_grads,
 )
 from datamining_recblr_torch.ops.scan import linear_scan_serial
@@ -217,7 +214,7 @@ def _launch_fwd(x, plist, dims, tc, use_conv, use_ffn, prologue, dropout_p, seed
             x.data_ptr(), out.data_ptr(), ptrs, alpha.data_ptr(), bxh.data_ptr(),
             hend.data_ptr(), pend.data_ptr(), record.data_ptr(), b, t, d, c, k, f, tc,
             int(use_conv), int(use_ffn), int(prologue), int(x.dtype == torch.bfloat16),
-            *_dropout_args(dropout_p, seed), x.device.index, _stream(x),
+            *_dropout_args(dropout_p, seed), x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_recurrent_layer_chunked")
     fused_recurrent_layer_chunked.launches += 1
@@ -227,7 +224,7 @@ def _launch_fwd(x, plist, dims, tc, use_conv, use_ffn, prologue, dropout_p, seed
 def fused_recurrent_layer_chunked_train(x, params, use_conv=True, use_ffn=True, prologue=False,
                                         dropout_p=0.0, seed=0, chunk=0):
     """The chunked forward on the card: (out, record)."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, use_ffn, prologue)
     tc = _chunk_or_raise(dims[1], dims[4], chunk)
     return _launch_fwd(x, plist, dims, tc, use_conv, use_ffn, prologue, dropout_p, seed)
@@ -238,7 +235,7 @@ def fused_recurrent_layer_chunked_bwd(x, dout, record, params, use_conv=True, us
     """Backward of ``fused_recurrent_layer_chunked`` on the card: (dx in
     x's dtype, {param name: fp32 grad}) from x, dout and the forward's
     record, the weight grads summed in a fixed order."""
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, use_ffn, prologue)
     b, t, d, c, k, f = dims
     tc = _chunk_or_raise(t, k, chunk)
@@ -265,7 +262,7 @@ def fused_recurrent_layer_chunked_bwd(x, dout, record, params, use_conv=True, us
             mend.data_ptr(), partial.data_ptr(), g, grads.data_ptr(), dx.data_ptr(),
             b, t, d, c, k, f, tc, int(use_conv), int(use_ffn), int(prologue),
             int(x.dtype == torch.bfloat16), *_dropout_args(dropout_p, seed),
-            x.device.index, _stream(x),
+            x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_recurrent_layer_chunked_bwd")
     fused_recurrent_layer_chunked_bwd.launches += 1
@@ -302,10 +299,10 @@ def fused_recurrent_layer_chunked(x, params, use_conv=True, use_ffn=True, prolog
     if x.device.type == "cpu":
         return fused_recurrent_layer_chunked_plain(x, params, use_conv, use_ffn, prologue,
                                                    dropout_p, seed, chunk)[0]
-    _require_cuda(x)
+    _cuda.require_cuda(x)
     plist, dims = _param_list(x, params, use_ffn, prologue)
     tc = _chunk_or_raise(dims[1], dims[4], chunk)
-    if _needs_grad(x, plist):
+    if _cuda.needs_grad(x, plist):
         opts = (use_conv, use_ffn, prologue, float(dropout_p), int(seed), tc)
         return _LayerChunked.apply(x, opts, *plist)
     return _launch_fwd(x, plist, dims, tc, use_conv, use_ffn, prologue, dropout_p, seed)[0]

@@ -1113,3 +1113,205 @@ def test_bf16_train_step_launches_the_table_gradient_kernel(dev):
     model.calculate_loss(batch, step=1).backward()
     assert E.embedding_grad.launches == before + 1
     assert model.item_embedding.grad.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# outside the whole-layer kernels: LN(dropout(x)) of a one-layer RecBLR, the
+# linear scan (C > 128) and the standalone BD-LRU (C <= 128, T > 512 with no
+# chunk)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 48, 512])
+def test_dropout_ln_kernels_match_plain(dev, d, dtype, p_drop):
+    rng = np.random.default_rng(60)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy((2 * rng.standard_normal((6, 50, d))).astype(np.float32)).to(dev, dt)
+    dout = torch.from_numpy(rng.standard_normal((6, 50, d)).astype(np.float32)).to(dev, dt)
+    q = {"s": torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(dev),
+         "b": torch.from_numpy((0.1 * rng.standard_normal(d)).astype(np.float32)).to(dev)}
+    before = (FL.fused_dropout_ln.launches, FL.fused_dropout_ln_bwd.launches)
+    out = FL.fused_dropout_ln(x, q["s"], q["b"], p_drop, 4321)
+    dx, ds, db = FL.fused_dropout_ln_bwd(x, dout, q["s"], q["b"], p_drop, 4321)
+    assert (FL.fused_dropout_ln.launches, FL.fused_dropout_ln_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.dtype == dx.dtype == dt and ds.dtype == db.dtype == torch.float32
+    want = _plain_vjp(lambda a, p: FL.fused_dropout_ln_plain(a, p["s"], p["b"], p_drop, 4321),
+                      x, q, dout)
+    _assert_grads((out, dx, {"s": ds, "b": db}), want, dtype)
+
+
+def test_dropout_ln_mask_bits_match_plain(dev):
+    """dx = LN'(dv) * m0: zero exactly where the mask of layers.dropout(x)
+    drops, so the backward replays the forward's bits at the same
+    coordinates."""
+    from datamining_recblr_torch.ops import philox
+
+    rng = np.random.default_rng(61)
+    x = torch.from_numpy(rng.standard_normal((7, 50, 64)).astype(np.float32)).to(dev)
+    dout = torch.from_numpy(rng.standard_normal((7, 50, 64)).astype(np.float32)).to(dev)
+    ones, zeros = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    dx, _, _ = FL.fused_dropout_ln_bwd(x, dout, ones, zeros, 0.4, 31337)
+    want = philox.dropout_mask(31337, philox.M0, 7, 50, 64, 0.4, dev) > 0
+    assert torch.equal(dx != 0, want)
+
+
+@pytest.mark.parametrize("c", [256, 200])
+def test_linear_scan_kernels_match_plain(dev, c):
+    from datamining_recblr_torch.ops import scan as SC
+
+    rng = np.random.default_rng(62)
+    g = torch.from_numpy(rng.uniform(0.3, 0.999, (5, 45, c)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((5, 45, c)).astype(np.float32)).to(dev)
+    dh = torch.from_numpy(rng.standard_normal((5, 45, c)).astype(np.float32)).to(dev)
+    before = (SC.linear_scan.launches, SC.linear_scan_reverse.launches)
+    h = SC.linear_scan(g, x)
+    r = SC.linear_scan_reverse(g, x)
+    assert (SC.linear_scan.launches, SC.linear_scan_reverse.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(h, SC.linear_scan_serial(g, x), **TOL["float32"])
+    torch.testing.assert_close(r, SC.linear_scan_reverse_serial(g, x), **TOL["float32"])
+    gl, xl = g.clone().requires_grad_(), x.clone().requires_grad_()
+    SC.linear_scan(gl, xl).backward(dh)
+    assert SC.linear_scan_reverse.launches == before[1] + 2
+    want = torch.autograd.grad(SC.linear_scan_serial(g.requires_grad_(), x.requires_grad_()),
+                               [g, x], dh)
+    for got, w in zip((gl.grad, xl.grad), want):
+        assert float((got - w).abs().max()) <= GRAD_RTOL * float(w.abs().max())
+
+
+def _bdlru_params(rng, c, dev, k=K):
+    def r(*s, std=0.3):
+        return torch.from_numpy((std * rng.standard_normal(s)).astype(np.float32)).to(dev)
+
+    return {"wc": r(k, c), "bc": r(c), "wg": r(c, 2 * c, std=0.1), "bg": r(2 * c, std=0.1),
+            "lam": torch.linspace(-6.9, 12.0, c, device=dev)}
+
+
+@pytest.mark.parametrize("use_conv", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [128, 96])
+def test_bdlru_kernels_match_plain(dev, c, dtype, use_conv):
+    """Output, dx and the five weight grads against autograd of the plain
+    version; T 77 ends in a partial tile; without the conv dwc and dbc are
+    0 on both sides."""
+    from datamining_recblr_torch.ops import fused_bdlru as FBD
+
+    rng = np.random.default_rng(63)
+    dt = getattr(torch, dtype)
+    p = _bdlru_params(rng, c, dev)
+    x = torch.from_numpy(rng.standard_normal((5, 77, c)).astype(np.float32)).to(dev, dt)
+    dh = torch.from_numpy(rng.standard_normal((5, 77, c)).astype(np.float32)).to(dev, dt)
+    names = list(p)
+    before = (FBD.fused_bdlru.launches, FBD.fused_bdlru_bwd.launches)
+    out = FBD.fused_bdlru(x, *p.values(), use_conv)
+    dx, *grads = FBD.fused_bdlru_bwd(x, dh, *p.values(), use_conv)
+    assert (FBD.fused_bdlru.launches, FBD.fused_bdlru_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.dtype == dx.dtype == dt
+    want = _plain_vjp(lambda a, q: FBD.fused_bdlru_plain(a, *q.values(), use_conv), x, p, dh)
+    _assert_grads((out, dx, dict(zip(names, grads))), want, dtype)
+    if not use_conv:
+        assert not grads[0].any() and not grads[1].any()
+
+
+@pytest.mark.parametrize("k", [9, 16])
+def test_bdlru_kernels_take_more_taps_than_the_layer_kernels(dev, k):
+    """d_conv beyond the whole-layer kernels' 8 (the model's unfused
+    composition at T > 512): the standalone BD-LRU sizes its halo to K."""
+    from datamining_recblr_torch.ops import fused_bdlru as FBD
+
+    rng = np.random.default_rng(66)
+    p = _bdlru_params(rng, 128, dev, k=k)
+    x = torch.from_numpy(rng.standard_normal((3, 70, 128)).astype(np.float32)).to(dev)
+    dh = torch.from_numpy(rng.standard_normal((3, 70, 128)).astype(np.float32)).to(dev)
+    out = FBD.fused_bdlru(x, *p.values())
+    dx, *grads = FBD.fused_bdlru_bwd(x, dh, *p.values())
+    want = _plain_vjp(lambda a, q: FBD.fused_bdlru_plain(a, *q.values()), x, p, dh)
+    _assert_grads((out, dx, dict(zip(p, grads))), want, "float32")
+
+
+def test_slice_wrappers_return_a_gradient_path(dev):
+    """With grad enabled, the three new wrappers' outputs carry their
+    backward kernels (the fault repaired for the attention wrappers)."""
+    from datamining_recblr_torch.ops import fused_bdlru as FBD
+    from datamining_recblr_torch.ops import scan as SC
+
+    rng = np.random.default_rng(64)
+    x = torch.from_numpy(rng.standard_normal((3, 20, 64)).astype(np.float32)).to(dev)
+    x.requires_grad_()
+    s = torch.ones(64, device=dev, requires_grad=True)
+    b = torch.zeros(64, device=dev, requires_grad=True)
+    p = {k: v.requires_grad_() for k, v in _bdlru_params(rng, 64, dev).items()}
+    g = torch.full((3, 20, 64), 0.9, device=dev, requires_grad=True)
+    before = (FL.fused_dropout_ln_bwd.launches, SC.linear_scan_reverse.launches,
+              FBD.fused_bdlru_bwd.launches)
+    for out in (FL.fused_dropout_ln(x, s, b, 0.2, 5), SC.linear_scan(g, x),
+                FBD.fused_bdlru(x, *p.values())):
+        assert out.grad_fn is not None
+        x.grad = None
+        out.square().sum().backward()
+        assert x.grad is not None and x.grad.abs().sum() > 0
+    assert s.grad is not None and g.grad is not None and p["wg"].grad is not None
+    assert (FL.fused_dropout_ln_bwd.launches, SC.linear_scan_reverse.launches,
+            FBD.fused_bdlru_bwd.launches) == tuple(n + 1 for n in before)
+
+
+# (config, T, batch, {wrapper: launches a step}): a one-layer model at H&M's
+# length and dropout (row 5 then K2); C 256 (row 7 a layer); C 128 at T 515
+# (row 8 a layer)
+SLICE_STEPS = {
+    "one_layer_hm": ({"num_layers": 1, "dropout_prob": 0.4}, 50, 64,
+                     ("fused_dropout_ln", "fused_dropout_ln_bwd", "fused_recurrent_layer_last",
+                      "fused_recurrent_layer_last_bwd"), 1),
+    "wide": ({"expand": 4, "dropout_prob": 0.2}, 40, 32,
+             ("linear_scan", "linear_scan_reverse"), 2),
+    "long_odd": ({"dropout_prob": 0.2}, 515, 8, ("fused_bdlru", "fused_bdlru_bwd"), 2),
+    "long_odd_k9": ({"dropout_prob": 0.2, "d_conv": 9}, 515, 8,
+                    ("fused_bdlru", "fused_bdlru_bwd"), 2),
+}
+
+
+@pytest.mark.parametrize("case", list(SLICE_STEPS))
+def test_slice_train_step_through_kernels_matches_plain(dev, case, monkeypatch):
+    """One CE step of RecBLR (hidden 64, fp32) on each path outside the
+    whole-layer kernels: the launches of its kernels, and the loss and
+    every parameter gradient as the same step with each wrapper swapped
+    for its plain version (same seeds, same masks)."""
+    from datamining_recblr_torch.models import recblr as RB
+    from datamining_recblr_torch.models.base import ce_loss
+    from datamining_recblr_torch.ops import fused_bdlru as FBD
+    from datamining_recblr_torch.ops import scan as SC
+
+    overrides, t, b, names, per_step = SLICE_STEPS[case]
+    cfg = Config(model="RecBLR", config_dict={"hidden_size": 64, "num_layers": 2,
+                                               "MAX_ITEM_LIST_LENGTH": t, **overrides})
+    model = get_model("RecBLR")(cfg, 300, t, device=dev)
+    assert model.use_fused_layer() == (case == "one_layer_hm")
+    rng = np.random.default_rng(65)
+    lens = torch.from_numpy(rng.integers(1, t + 1, b).astype(np.int32)).to(dev)
+    seq = torch.from_numpy(rng.integers(1, 300, (b, t))).to(dev)
+    seq = torch.where(torch.arange(t, device=dev)[None] < lens[:, None], seq, 0)
+    batch = {"item_seq": seq, "item_seq_len": lens,
+             "pos_item": torch.from_numpy(rng.integers(1, 300, b)).to(dev)}
+    fns = {n: getattr(mod, n) for mod in (FL, SC, FBD) for n in names if hasattr(mod, n)}
+    before = {n: f.launches for n, f in fns.items()}
+    model.train()
+    loss = model.calculate_loss(batch, step=11)
+    loss.backward()
+    launches = {n: f.launches - before[n] for n, f in fns.items()}
+    assert launches == dict.fromkeys(names, per_step)
+    got = {k: v.grad.clone() for k, v in model.named_parameters()}
+    model.zero_grad()
+    for n, plain in (("fused_dropout_ln", FL.fused_dropout_ln_plain),
+                     ("fused_recurrent_layer_last", FL.fused_recurrent_layer_last_plain),
+                     ("linear_scan", SC.linear_scan_serial),
+                     ("fused_bdlru", FBD.fused_bdlru_plain)):
+        monkeypatch.setattr(RB, n, plain)
+    out = model(seq, lens, step=11)
+    want = ce_loss(model._mask_padded_vocab(model._logits(out), value=-1e30), batch["pos_item"])
+    want.backward()
+    assert abs(float(loss.detach()) - float(want.detach())) <= 1e-4 * abs(float(want.detach()))
+    for k, v in model.named_parameters():
+        assert float((got[k] - v.grad).abs().max()) <= GRAD_RTOL * float(v.grad.abs().max()), k

@@ -179,3 +179,101 @@ def test_top_layer_beyond_1024_is_the_chunked_layer_and_a_gather():
         model.scan_impl = "xla"
         want = model(tseq, tlens)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# outside the whole-layer kernels: the one-layer input LN, and the unfused
+# composition's kernels (linear_scan beyond C = 128, fused_bdlru below it)
+# ---------------------------------------------------------------------------
+
+# (config, T, rows): one layer at H&M's length (fused_dropout_ln, then the
+# top layer); C 144 > 128 at a narrow D (linear_scan); C 32 at a T beyond
+# 512 that no chunk divides (fused_bdlru)
+SLICE_CASES = {
+    "one_layer_t50": ({"num_layers": 1, "hidden_size": 16}, 50, 5),
+    "wide_c144": ({"hidden_size": 16, "expand": 9}, 12, 5),
+    "long_odd_t515": ({"hidden_size": 16}, 515, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(SLICE_CASES))
+def test_slice_paths_match_jax(case):
+    """Output, CE loss and every parameter gradient at dropout 0: the
+    port's kernels' plain versions against the JAX package's
+    ``use_pallas_scan: always`` (``fused_dropout_ln``, ``linear_scan_pallas``
+    and ``fused_bdlru`` in interpret mode).  Tolerance
+    ``tests/test_fused_bdlru.py:92``: rtol 2e-4 / atol 2e-5, the gradients'
+    atol 2e-5 of each gradient's largest value."""
+    overrides, t, b = SLICE_CASES[case]
+    n_items = 60
+    cfg = {"MAX_ITEM_LIST_LENGTH": t, "dropout_prob": 0.0, "use_pallas_scan": "always",
+           **overrides}
+    jmodel = j_get_model("RecBLR")(JConfig(model="RecBLR", config_dict=cfg), n_items, t)
+    jparams = jmodel.init_params(jax.random.PRNGKey(7))
+    model = get_model("RecBLR")(Config(model="RecBLR", config_dict=cfg), n_items, t,
+                                device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams)))
+    assert model.use_fused_layer() == jmodel._use_fused_layer() == (case == "one_layer_t50")
+    assert not model.use_chunked_layer() and not jmodel._use_chunked_layer()
+    seq, lens, pos = _long_batch(np.random.default_rng(8), b, t, n_items)
+    # jitted: the interpret-mode kernels trace once instead of op by op
+    want_out = jax.jit(lambda p: jmodel.forward(p, seq, lens, deterministic=True))(jparams)
+    jbatch = {"item_seq": seq, "item_seq_len": lens, "pos_item": pos}
+    want, wgrads = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.calculate_loss(p, jbatch, jax.random.PRNGKey(5))))(jparams)
+    tbatch = {k: torch.from_numpy(v).long() for k, v in jbatch.items()}
+    with torch.no_grad():
+        got_out = model(tbatch["item_seq"], tbatch["item_seq_len"])
+    np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out), rtol=2e-4, atol=2e-5)
+    model.train()
+    loss = model.calculate_loss(tbatch, step=0)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=2e-4, atol=2e-5)
+    flat = params_from_jax(jax.tree.map(np.asarray, wgrads))
+    for name, p in model.named_parameters():
+        w = np.asarray(flat[name])
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=2e-4,
+                                   atol=2e-5 * float(np.abs(w).max()) + 1e-9, err_msg=name)
+
+
+@pytest.mark.parametrize("overrides,impl,t,want", [
+    ({"num_layers": 1}, "always", 12, "fused_dropout_ln"),
+    ({"hidden_size": 16, "expand": 9}, "always", 12, "linear_scan"),
+    ({"hidden_size": 16, "expand": 9}, "auto", 12, "linear_scan"),
+    ({"hidden_size": 16}, "always", 515, "fused_bdlru"),
+    ({"hidden_size": 16, "d_conv": 9}, "always", 1000, "fused_bdlru"),
+    ({"hidden_size": 16}, "never", 515, "linear_scan_serial"),
+    ({"hidden_size": 16, "expand": 9}, "never", 12, "linear_scan_serial"),
+])
+def test_slice_dispatch_matches_jax(monkeypatch, overrides, impl, t, want):
+    """Which of the wrappers a forward calls, once a layer (the input LN
+    once), where the JAX package's ``_gated_recurrent`` and ``forward``
+    (``recblr.py:122-176,328-332``) call ``fused_bdlru``,
+    ``linear_scan(impl="pallas")`` or ``fused_dropout_ln``; "never" runs
+    the serial scan."""
+    from datamining_recblr_torch.models import recblr as RB
+
+    cfg = {"MAX_ITEM_LIST_LENGTH": t, "use_pallas_scan": impl, **overrides}
+    jm = j_get_model("RecBLR")(JConfig(model="RecBLR", config_dict=cfg), 60, t)
+    model = get_model("RecBLR")(Config(model="RecBLR", config_dict=cfg), 60, t, device="cpu")
+    names = ("fused_dropout_ln", "fused_bdlru", "linear_scan", "linear_scan_serial")
+    calls = dict.fromkeys(names, 0)
+    for n in names:
+        def counted(*a, _n=n, _f=getattr(RB, n)):
+            calls[_n] += 1
+            return _f(*a)
+        monkeypatch.setattr(RB, n, counted)
+    seq, lens, _ = _long_batch(np.random.default_rng(9), 3, t, 60)
+    with torch.no_grad():
+        model(torch.from_numpy(seq).long(), torch.from_numpy(lens))
+    unfused = not (jm._use_fused_layer() or jm._use_chunked_layer())
+    expect = dict.fromkeys(names, 0)
+    if not unfused:
+        assert model.use_fused_layer() and len(model.layers) == 1
+    elif impl == "never":
+        expect["linear_scan_serial"] = len(model.layers)
+    else:
+        # the JAX choice (scan_impl "pallas" off the TPU): fused iff C <= 128
+        expect["fused_bdlru" if jm.inner_hidden <= 128 else "linear_scan"] = len(model.layers)
+    expect["fused_dropout_ln"] = int(not unfused)
+    assert calls == expect and calls[want] >= 1

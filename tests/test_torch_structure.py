@@ -31,6 +31,8 @@ MODULES = [
     "datamining_recblr_torch.ops.fused_ce",
     "datamining_recblr_torch.ops.fused_layer_chunked",
     "datamining_recblr_torch.ops.embedding",
+    "datamining_recblr_torch.ops.scan",
+    "datamining_recblr_torch.ops.fused_bdlru",
     "datamining_recblr_torch.ops.philox",
     "datamining_recblr_torch.ops.topk",
     "datamining_recblr_torch.models.base",
@@ -145,4 +147,15 @@ def test_the_long_context_kernels_are_built():
     assert {"fused_layer_chunked.cu", "fused_layer_chunked_bwd.cu", "fused_ce_chunked.cu",
             "emb_grad.cu"} <= set(_cuda.SOURCES)
     assert "ce_common.cuh" in _cuda.HEADERS
-    assert len(_cuda.SOURCES) == 16
+    assert len(_cuda.SOURCES) == 19
+
+
+def test_the_kernels_outside_the_whole_layer_kernels_are_built():
+    """The one-layer input LN (in ln_dropout.cu), the linear scan and the
+    standalone BD-LRU, forward and backward, are among the build's
+    sources and entry points."""
+    from datamining_recblr_torch.ops import _cuda
+
+    assert {"linear_scan.cu", "fused_bdlru.cu", "fused_bdlru_bwd.cu"} <= set(_cuda.SOURCES)
+    assert {"recblr_dropout_ln_fwd", "recblr_dropout_ln_bwd"} <= set(
+        _cuda._SIGNATURES["ln_dropout.cu"])

@@ -200,6 +200,40 @@ def test_fit_trajectory_matches_jax(impl, tmp_path):
         assert abs(test[k] - jtest[k]) <= 1e-3, k
 
 
+def test_one_layer_fit_trajectory_matches_jax_and_falls(tmp_path):
+    """A one-layer RecBLR (the paper's ``1layer`` ablation, H&M's depth):
+    ``fused_dropout_ln`` and then the top layer.  Three epochs of
+    ``Trainer.fit`` at dropout 0 follow the JAX package's ("always": its
+    ``fused_dropout_ln`` and top-layer kernels in interpret mode), and the
+    epoch loss falls, at dropout 0 and at H&M's 0.4."""
+    gen = dict(n_users=60, n_items=30, min_len=5, max_len=14, markov_weight=0.9,
+               n_clusters=4, seed=5)
+    jdata = j_build(j_generate(**gen), max_seq_len=T)
+    data = build_from_dataframe(generate_synthetic_interactions(**gen), max_seq_len=T)
+    losses = {}
+    for p_drop in (0.0, 0.4):
+        cfg = _cfg("always", num_layers=1, dropout_prob=p_drop, epochs=3, train_batch_size=32,
+                   eval_batch_size=64, stopping_step=10,
+                   checkpoint_dir=str(tmp_path / f"saved{p_drop}"), dataset="syn")
+        jmodel = j_get_model("RecBLR")(JConfig(model="RecBLR", config_dict=cfg),
+                                       jdata.n_items, T)
+        jparams = jmodel.init_params(jax.random.PRNGKey(3))
+        start = params_from_jax(jax.tree.map(np.asarray, jparams))
+        model = get_model("RecBLR")(Config(model="RecBLR", config_dict=cfg), data.n_items, T,
+                                    device="cpu")
+        assert model.use_fused_layer() and len(model.layers) == 1
+        trainer = Trainer(Config(model="RecBLR", config_dict=cfg), model, params=start)
+        trainer.fit(data)
+        losses[p_drop] = [r["train_loss"] for r in trainer.metrics.epoch_records()]
+        if p_drop == 0.0:
+            jtrainer = JTrainer(JConfig(model="RecBLR", config_dict=cfg), jmodel, params=jparams)
+            jtrainer.fit(jdata)
+            want = [r["train_loss"] for r in jtrainer.metrics.epoch_records()]
+            np.testing.assert_allclose(losses[p_drop], want, rtol=2e-4, atol=5e-5)
+    for p_drop, got in losses.items():
+        assert len(got) == 3 and got[-1] < got[0], (p_drop, got)
+
+
 def _fit_setup(tmp_path, epochs, compact=False, monkeypatch=None):
     from datamining_recblr_torch.data import dataset as DS
 
