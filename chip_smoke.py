@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's twenty-five CUDA kernels from the nineteen sources of
-``datamining_recblr_torch/csrc`` (both fused recurrent layers of RecBLR,
-forward and backward; the attention baselines' LN prologue and both
-transformer layers, forward and backward; BERT4Rec's selected-positions
-top layer and the whole-table softmax CE, forward and backward; the
-sequence-chunked recurrent layer and the vocab-chunked CE, forward and
-backward, and the embedding-table gradient; a one-layer RecBLR's input
-dropout and LN, the linear scan and the standalone BD-LRU, forward and
-backward) and, phase by phase:
+Builds the port's twenty-seven CUDA kernels from the twenty-one sources
+of ``datamining_recblr_torch/csrc`` (both fused recurrent layers of
+RecBLR, forward and backward; the attention baselines' LN prologue and
+both transformer layers, forward and backward; BERT4Rec's
+selected-positions top layer and the whole-table softmax CE, forward and
+backward; the sequence-chunked recurrent layer and the vocab-chunked CE,
+forward and backward, and the embedding-table gradient; a one-layer
+RecBLR's input dropout and LN, the linear scan and the standalone BD-LRU,
+forward and backward; the masked-softmax attention of the baselines'
+per-op composition, forward and backward) and, phase by phase:
 
 * holds each kernel against its plain PyTorch version at B 256, T 200:
   the RecBLR forwards at dropout 0 (serving), then every RecBLR kernel's
@@ -32,7 +33,11 @@ backward) and, phase by phase:
   (``xlong-mask-bits``); then the kernels of RecBLR's paths outside the
   whole-layer kernels at those paths' shapes, forward and backward
   (``dropout-ln-*`` at B 2,048, T 200, D 64; ``scan-*`` at B 2,048,
-  T 200, C 256; ``bdlru-*`` at B 512, T 1,020, C 128);
+  T 200, C 256; ``bdlru-*`` at B 512, T 1,020, C 128); then the
+  attention kernel (queue B row 15) forward and backward at the d256
+  shape (B 2,048, 2 heads of 128, T 200) and at T 2,048, fp32 and bf16,
+  causal and bidirectional, p = 0 and 0.2 (``attention-kernel-vs-plain``),
+  and its probability masks bit for bit (``attention-mask-bits``);
 * serves RecBLR, SASRec and BERT4Rec at full width (hidden 64, 2 layers,
   T 200, V 3,417; 2 heads and an FFN of 256 for the baselines) through
   ``Recommender.recommend`` against the same model through the plain
@@ -53,10 +58,24 @@ backward) and, phase by phase:
   num_layers 1, and H&M's T 50 and dropout 0.4 as a further step check),
   C 256 (``wide-train-*``: expand 4) and T 1,020, which no chunk divides
   (``longodd-train-*``: the XLong widths, batch 512);
+* steps RecBLR at the bench shape with d_conv 9 through the whole-layer
+  kernels against its plain step (``dconv9-train-step-vs-plain``);
+* serves and trains SASRec and BERT4Rec at hidden 256 (``d256``: 2
+  heads, FFN 1,024, T 200, batch 2,048, fp32 and bf16), a width the
+  whole-layer kernels do not take, on the per-op composition through the
+  attention kernel, the LN prologue, the whole-table CE (BERT4Rec) and,
+  in bf16, the table gradient: ``serve-sasrec-d256-*``,
+  ``serve-bert4rec-d256-*``, ``sasrec-d256-train-*`` and
+  ``bert4rec-d256-train-*`` (launches, each request and step against the
+  same model with every kernel swapped for its plain version, time,
+  profile, peak memory); then SASRec at T 2,048 (``long``: hidden 64, one
+  request of 8 users and one step at batch 32 against the plain
+  versions, untimed);
 * runs ``Trainer.fit`` and ``evaluate(load_best=True)`` for the three on
   a small Markov dataset: the loss falls and valid NDCG@10 is above 0;
 * times every kernel beside its bound, its plain version and, where one
-  PyTorch call computes the same function, that call.
+  PyTorch call computes the same function, that call (row 15 beside
+  ``F.scaled_dot_product_attention`` with the same additive mask).
 
 Each phase prints one line; any failure exits non-zero.  The line before
 the last is the kernels' JSON record, the last line the device JSON.
@@ -65,6 +84,7 @@ Exits non-zero without a CUDA card.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import re
@@ -79,7 +99,9 @@ import torch.nn.functional as F
 from datamining_recblr_torch.config import Config
 from datamining_recblr_torch.models import get_model
 from datamining_recblr_torch.models import layers as L
+from datamining_recblr_torch.models import recblr as RB
 from datamining_recblr_torch.ops import _cuda, philox
+from datamining_recblr_torch.ops import attention as A
 from datamining_recblr_torch.ops import embedding as E
 from datamining_recblr_torch.ops import fused_block as FB
 from datamining_recblr_torch.ops import fused_ce as FCE
@@ -1348,29 +1370,42 @@ def serving(dev, name, dtype_name, xlong=False, path=None):
     call, and its time; with ``xlong`` RecBLR at the XLong shape (T 1,024,
     V 329,722: the chunked layer and the last-position layer); with
     ``path`` RecBLR on that path outside the whole-layer kernels
-    (``SLICE_PATHS``: its kernels' launches per call as given there)."""
+    (``SLICE_PATHS``: its kernels' launches per call as given there) or
+    SASRec or BERT4Rec on a path of the per-op composition
+    (``BASELINE_PATHS``: its users, and whether it is timed)."""
     from datamining_recblr_torch.eval.metrics import mask_scores
     from datamining_recblr_torch.ops.topk import topk_scores
 
-    if path is not None:
+    users, timed = B, True
+    if path in SLICE_PATHS:
         spec = SLICE_PATHS[path]
         prefix, counted, plain_output = f"serve-{path}", spec["served"], plain_path_output
-        t, n_items, per_call = spec["t"], spec["v"], spec["per_call"]
+        t, n_items = spec["t"], spec["v"]
+        expected = (spec["per_call"],) * len(counted)
         cfg = slice_config(path, dtype_name)
+        on_path = functools.partial(on_slice_path, path=path)
+    elif path is not None:
+        spec = BASELINE_PATHS[path]
+        prefix, (counted, expected) = f"serve-{name.lower()}-{path}", PATH_SERVED
+        plain_output, t, n_items = plain_per_op_output, spec["t"], N_ITEMS
+        users, timed = spec["users"], spec["timed"]
+        cfg = path_config(name, path, dtype_name)
+        on_path = functools.partial(on_baseline_path, path=path)
     else:
         prefix, counted, plain_output = SERVED_XLONG if xlong else SERVED[name]
-        t, n_items, per_call = (XT, XV, 1) if xlong else (T, N_ITEMS, 1)
+        t, n_items = (XT, XV) if xlong else (T, N_ITEMS)
+        expected = (1,) * len(counted)
         cfg = Config(model=name, config_dict={"MAX_ITEM_LIST_LENGTH": t,
                                               "compute_dtype": dtype_name})
+        on_path = _at_full_width
     model = get_model(name)(cfg, n_items, t, generator=torch.Generator().manual_seed(SEED))
     check(model.device.type == "cuda", f"{name}: model not on the card")
-    check(on_slice_path(model, path) if path is not None else _at_full_width(model),
-          f"{name}: model is not at full width on its path")
+    check(on_path(model), f"{name}: model is not at full width on its path")
     check(not xlong or (model.use_chunked_layer() and model.use_last_layer_kernel()),
           f"{name}: not the chunked composition at T {t}")
     rec = Recommender(model, top_k=TOP_K)
     rng = np.random.default_rng(SEED)
-    seqs = requests(rng, B, t, n_items)
+    seqs = requests(rng, users, t, n_items)
 
     for fn in counted:
         fn.launches = 0
@@ -1378,13 +1413,12 @@ def serving(dev, name, dtype_name, xlong=False, path=None):
     launches = tuple(fn.launches for fn in counted)
     phase(f"{prefix}-launches", dtype=dtype_name, calls=1,
           **{fn.__name__: n for fn, n in zip(counted, launches)})
-    check(launches == (per_call,) * len(counted),
-          f"{name}: expected {per_call} launch(es) of each kernel, got {launches}")
+    check(launches == expected, f"{name}: expected launches {expected}, got {launches}")
 
     # reference: the same model through the plain versions on the card
-    seq = np.zeros((B, t), np.int64)
-    lens = np.zeros((B,), np.int32)
-    hist = np.zeros((B, model.n_items_padded), bool)
+    seq = np.zeros((users, t), np.int64)
+    lens = np.zeros((users,), np.int32)
+    hist = np.zeros((users, model.n_items_padded), bool)
     for i, items in enumerate(seqs):
         w = np.asarray(items, np.int64)[-t:]
         seq[i, : len(w)] = w
@@ -1401,7 +1435,8 @@ def serving(dev, name, dtype_name, xlong=False, path=None):
     ref_ids = ref_ids.cpu().numpy()
     scale = float(np.abs(ref_vals).max())
     tol = 1e-4 if dtype_name == "float32" else scale / 32
-    check(ids.shape == (B, TOP_K) and np.isfinite(vals).all(), f"{name}: bad serving output")
+    check(ids.shape == (users, TOP_K) and np.isfinite(vals).all(),
+          f"{name}: bad serving output")
     err = float(np.abs(vals - ref_vals).max())
     ties = 0
     for i, j in zip(*np.nonzero(ids != ref_ids)):
@@ -1409,7 +1444,7 @@ def serving(dev, name, dtype_name, xlong=False, path=None):
         check(abs(ref[i, ids[i, j]] - ref_vals[i, j]) <= tol,
               f"{name} row {i}: id {ids[i, j]} is not a near-tie of the reference")
     excluded = all(not set(ids[i].tolist()) & set(map(int, s)) for i, s in enumerate(seqs))
-    phase(f"{prefix}-vs-plain", dtype=dtype_name, users=B, top_k=TOP_K,
+    phase(f"{prefix}-vs-plain", dtype=dtype_name, users=users, top_k=TOP_K,
           max_abs_score_err=f"{err:.3e}", tol=f"{tol:.3e}", id_mismatches_near_ties=ties,
           history_excluded=excluded)
     check(err <= tol, f"{name}: serving scores disagree with the plain model")
@@ -1420,6 +1455,8 @@ def serving(dev, name, dtype_name, xlong=False, path=None):
     # timings as bench.py's serve_main takes them: host clock around
     # recommend(), median over repeats, after a first call
     out = {"launches": launches}
+    if not timed:
+        return out
     for b, reps in ((1, 50), (B, 20)):
         batch = requests(rng, b, t, n_items)
         rec.recommend(batch)
@@ -2379,28 +2416,34 @@ def bdlru_kernels_vs_plain(dev):
 
 
 # the wrappers of RecBLR's paths outside the whole-layer kernels and their
-# plain versions, as models/recblr.py imports them
-PLAIN_TWINS = {"fused_dropout_ln": FL.fused_dropout_ln_plain,
-               "fused_recurrent_layer_last": FL.fused_recurrent_layer_last_plain,
-               "linear_scan": SC.linear_scan_serial, "fused_bdlru": FBD.fused_bdlru_plain}
+# plain versions, where models/recblr.py reaches them
+PLAIN_TWINS = ((RB, "fused_dropout_ln", FL.fused_dropout_ln_plain),
+               (RB, "fused_recurrent_layer_last", FL.fused_recurrent_layer_last_plain),
+               (RB, "linear_scan", SC.linear_scan_serial),
+               (RB, "fused_bdlru", FBD.fused_bdlru_plain))
+
+
+@contextlib.contextmanager
+def plain_kernels(model, twins, embed=None):
+    """The model with each kernel wrapper of ``twins`` (module, name, plain
+    version) swapped for its plain version and the plain embedding
+    gather, or ``embed(ids)`` (the same dropout seeds, so the same masks)."""
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in twins]
+    try:
+        for mod, n, f in twins:
+            setattr(mod, n, f)
+        model.embed = embed or (lambda ids: plain_embed(model, ids))
+        yield
+    finally:
+        for mod, n, f in saved:
+            setattr(mod, n, f)
+        del model.embed
 
 
 def plain_path_output(model, seq, lens, step=None, embed=None):
-    """RecBLR's own forward with each kernel wrapper of these paths swapped
-    for its plain version and the plain embedding gather, or ``embed(ids)``
-    (the same dropout seeds, so the same masks)."""
-    from datamining_recblr_torch.models import recblr as RB
-
-    kernels = {n: getattr(RB, n) for n in PLAIN_TWINS}
-    try:
-        for n, f in PLAIN_TWINS.items():
-            setattr(RB, n, f)
-        model.embed = embed or (lambda ids: plain_embed(model, ids))
+    """RecBLR's own forward through the plain versions of these paths."""
+    with plain_kernels(model, PLAIN_TWINS, embed):
         return model(seq, lens, step=step)
-    finally:
-        for n, f in kernels.items():
-            setattr(RB, n, f)
-        del model.embed
 
 
 def slice_config(path, dtype_name):
@@ -2699,6 +2742,333 @@ def slice_kernel_times(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the attention baselines beyond the whole-layer kernels: queue B row 15
+# ---------------------------------------------------------------------------
+
+# [B, H, T, dh] of row 15 on the d256 path (batch 2,048, 2 heads of 128, T
+# 200) and on the long one (2 heads of 32, T 2,048; a batch of 4 here)
+ROW15_SHAPES = {"d256": (TRAIN_B, 2, T, 128), "long": (4, 2, 2048, 32)}
+ROW15_DROPOUT = 0.2
+
+
+def _row15_inputs(gen, shape, dev, dt):
+    b, h, t, dh = shape
+    q, k, v, dout = (torch.randn(shape, generator=gen).to(dev, dt) for _ in range(4))
+    lens = torch.randint(1, t + 1, (b,), generator=gen)
+    lens[:3] = torch.tensor([0, 1, t])
+    return q, k, v, dout, lens.to(dev)
+
+
+def _row15_err(got, want, dtype):
+    """(max |kernel - plain|, ok): fp32 within 1e-4 of the largest plain
+    value (a row of lens 0 sits at -10000, where an fp32 ulp is 2^-10);
+    bf16 within one bf16 ulp of the value plus 1e-4 of the largest."""
+    g, w = got.float(), want.float()
+    top = float(w.abs().max())
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    ok = bool(torch.isfinite(g).all()) and bool(((g - w).abs() <= rtol * w.abs()
+                                                 + 1e-4 * top).all())
+    return float((g - w).abs().max()), ok
+
+
+def attention_kernels_vs_plain(dev):
+    """Row 15 forward and backward (dq, dk, dv) against autograd of the
+    plain version at the d256 shape and at T 2,048 (B 4), fp32 and bf16,
+    causal and bidirectional, p = 0 and 0.2, rows of lens 0, 1 and T."""
+    gen = torch.Generator().manual_seed(SEED + 40)
+    errs = {"fused_attention": 0.0, "fused_attention_bwd": 0.0}
+    for shape_name, shape in ROW15_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, dout, lens = _row15_inputs(gen, shape, dev, dt)
+            for causal in (True, False):
+                for p in (0.0, ROW15_DROPOUT):
+                    args = (4242, causal, p)
+                    out, saved = A.fused_attention_train(q, k, v, lens, *args)
+                    grads = A.fused_attention_bwd(q, k, v, lens, dout, *args, saved=saved)
+                    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+                    want = A.fused_attention_plain(*leaves, lens, *args)
+                    wgrads = torch.autograd.grad(want, leaves, dout)
+                    torch.cuda.synchronize()
+                    fwd = _row15_err(out, want.detach(), dt)
+                    bwd = [_row15_err(g, w, dt) for g, w in zip(grads, wgrads)]
+                    ok = fwd[1] and all(e[1] for e in bwd)
+                    phase("attention-kernel-vs-plain", shape=shape_name,
+                          B_H_T_dh="x".join(map(str, shape)), dtype=str(dt).split(".")[-1],
+                          causal=causal, p=p, out_max_abs_err=f"{fwd[0]:.3e}",
+                          dq_dk_dv_max_abs_err="/".join(f"{e[0]:.3e}" for e in bwd),
+                          tol="1e-4*max|plain|" + (" + 1 bf16 ulp" if dt != torch.float32
+                                                    else ""), ok=ok)
+                    check(ok, f"row 15 {shape_name} {dt} causal={causal} p={p}: the kernels "
+                          "disagree with the plain version")
+                    if dt == torch.float32:
+                        errs["fused_attention"] = max(errs["fused_attention"], fwd[0])
+                        errs["fused_attention_bwd"] = max(errs["fused_attention_bwd"],
+                                                          *(e[0] for e in bwd))
+                    del out, saved, grads, leaves, want, wgrads
+    return errs
+
+
+def attention_mask_bits(dev):
+    """Each head's probability mask as row 15's forward draws it, bit for
+    bit against the plain Philox mask: T = dh = 128 keys and v the
+    identity, so out[b, h, i, j] = p_ij m_ij with every p_ij > 0 where the
+    key is kept (lens T, one row of lens 0), causal and bidirectional."""
+    gen = torch.Generator().manual_seed(SEED + 41)
+    b, h, t, seed = B, 2, 128, 97531
+    q, k = (torch.randn((b, h, t, t), generator=gen).to(dev) for _ in range(2))
+    v = torch.eye(t, device=dev).expand(b, h, t, t).contiguous()
+    lens = torch.full((b,), t, device=dev)
+    lens[3] = 0
+    masks = A.prob_masks(seed, ROW15_DROPOUT, b, h, t, dev) > 0
+    for causal in (False, True):
+        out = A.fused_attention(q, k, v, lens, seed, causal, ROW15_DROPOUT)
+        want = masks.clone()
+        if causal:
+            want[lens > 0] &= torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+        flips = int(((out != 0) != want).sum())
+        phase("attention-mask-bits", mask="probabilities (4 + h)", causal=causal,
+              elements=want.numel(), keep_fraction=f"{float(want.float().mean()):.5f}",
+              mismatches=flips)
+        check(flips == 0, f"row 15 causal={causal}: {flips} mask bits differ from the plain "
+              "Philox mask")
+
+
+# the d256 path: SASRec and BERT4Rec at hidden 256, the top of BERT4Rec's
+# own d sweep (Sun et al., CIKM 2019: d 16 .. 256 on ML-1M at T 200, FFN
+# 4d), which fused_block.supports rejects: 2 heads of 128, FFN 1,024, 2
+# layers, gelu, T 200, V 3,417, batch 2,048 (dropout and cloze as the bench
+# shape's).  The long path: SASRec at hidden 64, 2 heads, FFN 256 and T
+# 2,048 (beyond the whole-layer kernels' T 1,024), one step at batch 32 and
+# one request of 8 users, untimed.  Each with the kernels a step launches
+# and how often (under bf16 row 16 once more), and those a recommend()
+# launches
+BASELINE_PATHS = {
+    "d256": dict(cfg={"hidden_size": 256, "n_heads": 2, "inner_size": 1024}, t=T,
+                 batch=TRAIN_B, users=B, timed=True),
+    "long": dict(cfg={"hidden_size": D, "n_heads": 2, "inner_size": 4 * D}, t=2048, batch=32,
+                 users=8, timed=False),
+}
+PATH_COUNTED = {
+    "SASRec": ((FL.fused_ln_dropout, A.fused_attention, FL.fused_ln_dropout_bwd,
+                A.fused_attention_bwd), (1, 2, 1, 2)),
+    "BERT4Rec": ((FL.fused_ln_dropout, A.fused_attention, FCE.fused_softmax_ce,
+                  FL.fused_ln_dropout_bwd, A.fused_attention_bwd, FCE.fused_softmax_ce_bwd),
+                 (1, 2, 1, 1, 2, 1)),
+}
+PATH_SERVED = ((FL.fused_ln_dropout, A.fused_attention), (1, 2))
+# fp32 gradients of a per-op step against its plain step: only rows 6, 13
+# and 15 differ between the two, each an fp32 sum in another order
+PATH_GRAD_RTOL = 1e-5
+# the per-op composition's kernel wrappers and their plain versions, where
+# the models reach them
+PATH_TWINS = ((L, "fused_attention", A.fused_attention_plain),
+              (L, "fused_ln_dropout", FL.fused_ln_dropout_plain),
+              (FCE, "fused_softmax_ce", FCE.fused_softmax_ce_plain))
+
+
+def plain_per_op_output(model, seq, lens, step=None):
+    with plain_kernels(model, PATH_TWINS):
+        return model(seq, lens, step=step)
+
+
+def plain_per_op_loss(model, batch, step):
+    with plain_kernels(model, PATH_TWINS):
+        return model.calculate_loss(batch, step=step)
+
+
+def path_config(name, path, dtype_name):
+    spec = BASELINE_PATHS[path]
+    return Config(model=name, config_dict={
+        "MAX_ITEM_LIST_LENGTH": spec["t"], "compute_dtype": dtype_name,
+        "train_batch_size": spec["batch"], "seed": SEED, "n_layers": 2, "hidden_act": "gelu",
+        **TRAINED[name][2], **spec["cfg"]})
+
+
+def on_baseline_path(model, path):
+    """The model is on the per-op composition at the path's full width."""
+    spec = BASELINE_PATHS[path]
+    width = (model.hidden_size, model.n_heads, model.inner_size, len(model.encoder),
+             model.hidden_act, model.max_seq_len) == (
+        spec["cfg"]["hidden_size"], 2, spec["cfg"]["inner_size"], 2, "gelu", spec["t"])
+    return width and L._use_fused_attention() and not FB.supports(
+        model.hidden_size, model.n_heads, model.inner_size, model.max_seq_len, model.hidden_act)
+
+
+def path_train_phase(dev, name, path, dtype_name):
+    """SASRec or BERT4Rec on a path of the per-op composition: one step of
+    the main path with every count at 0 before it (launches, and the step
+    against the same step through the plain versions: fp32 gradients
+    within 1e-5 of their largest value, bf16 as the other bf16 steps),
+    then, on a timed path, the step time, peak memory and a profile."""
+    from datamining_recblr_torch.data.synthetic import synthetic_splits
+    from datamining_recblr_torch.train.trainer import Trainer
+
+    spec = BASELINE_PATHS[path]
+    prefix = f"{name.lower()}-{path}-train"
+    counted, expected = PATH_COUNTED[name]
+    if dtype_name == "bfloat16":
+        counted, expected = counted + (E.embedding_grad,), expected + (1,)
+    cfg = path_config(name, path, dtype_name)
+    model = get_model(name)(cfg, N_ITEMS, spec["t"], generator=torch.Generator().manual_seed(SEED))
+    check(on_baseline_path(model, path), f"{name} {path}: not the per-op path at full width")
+    trainer = Trainer(cfg, model)
+    b = spec["batch"]
+    train, _ = synthetic_splits(6040, N_ITEMS, spec["t"], max(8192, 4 * b), seed=SEED)
+    data = trainer.device_split(train)
+    perm = np.random.default_rng((SEED, 3)).permutation(len(train))
+    weight = torch.ones(b, device=dev)
+
+    def batch_of(s):
+        idx = perm[(s * b) % len(train):][:b]
+        return trainer.gather_batch(data, torch.from_numpy(idx).to(dev), weight)
+
+    bf16 = dtype_name == "bfloat16"
+    tol = BF16_RTOL if bf16 else PATH_GRAD_RTOL
+    launches, loss, want_loss, loss_err, errs = step_vs_plain(
+        model, batch_of(0), counted, plain_per_op_loss, 1e-6, tol)
+    tols = {k: ITEM_BF16_RTOL if bf16 and k == "item_embedding" else tol for k in errs}
+    worst = max(errs, key=lambda k: errs[k] / tols[k])
+    phase(f"{prefix}-step-vs-plain", dtype=dtype_name, batch=b, T=spec["t"],
+          D=model.hidden_size, p=repr((model.hidden_dropout_prob, model.attn_dropout_prob)),
+          loss=f"{loss:.6f}", plain_loss=f"{want_loss:.6f}", loss_rel_err=f"{loss_err:.3e}",
+          loss_tol="1e-4", grad_rel_err_max=f"{max(errs.values()):.3e}", worst_param=worst,
+          worst_rel_err=f"{errs[worst]:.3e}", worst_tol=f"{tols[worst]:.3e}",
+          grad_tol=f"max|err|/max|plain| <= {tol} (at least 1e-6*max over all grads)"
+          + (f", item_embedding {ITEM_BF16_RTOL}" if bf16 else ""), params=len(errs))
+    check(np.isfinite(loss), f"{name} {path}: train loss is not finite")
+    check(loss_err <= 1e-4, f"{name} {path}: train loss disagrees with the plain step")
+    check(all(errs[k] <= tols[k] for k in errs),
+          f"{name} {path}: gradients disagree with the plain step")
+    phase(f"{prefix}-launches", dtype=dtype_name, steps=1,
+          **{fn.__name__: n for fn, n in zip(counted, launches)})
+    check(launches == expected, f"{name} {path}: expected launches {expected}, got {launches}")
+    out = {"launches": dict(zip((fn.__name__ for fn in counted), launches))}
+    if not spec["timed"]:
+        return out
+    med, lo, hi, peak = time_steps(trainer, batch_of, TRAIN_STEPS)
+    phase(f"{prefix}-time", dtype=dtype_name, batch=b, T=spec["t"], steps=TRAIN_STEPS,
+          median_ms_per_step=f"{med:.3f}", examples_per_s=f"{b / med * 1e3:.1f}",
+          min_ms=f"{lo:.3f}", max_ms=f"{hi:.3f}", peak_device_gb=f"{peak:.3f}")
+    train_profile(trainer, batch_of, dtype_name, prefix)
+    out.update(ms=med, examples_per_s=b / med * 1e3, peak_gb=peak)
+    return out
+
+
+def dconv_train_phase(dev):
+    """RecBLR at the bench shape with d_conv 9 (above the 8 taps the layer
+    kernels held before): the whole-layer composition, one launch of each
+    of its four kernels, and the step against the plain step (fp32, the
+    bench step's tolerance)."""
+    from datamining_recblr_torch.data.synthetic import synthetic_splits
+    from datamining_recblr_torch.train.trainer import Trainer
+
+    cfg = _train_config("RecBLR", "float32", d_conv=9)
+    model = get_model("RecBLR")(cfg, N_ITEMS, T, generator=torch.Generator().manual_seed(SEED))
+    check(model.use_fused_layer() and model.d_conv == 9, "RecBLR d_conv 9: not the fused path")
+    trainer = Trainer(cfg, model)
+    train, _ = synthetic_splits(6040, N_ITEMS, T, TRAIN_B, seed=SEED)
+    data = trainer.device_split(train)
+    idx = torch.arange(TRAIN_B, device=dev)
+    batch = trainer.gather_batch(data, idx, torch.ones(TRAIN_B, device=dev))
+    launches, loss, want_loss, loss_err, errs = step_vs_plain(
+        model, batch, LAUNCH_COUNTED, plain_ce_loss(plain_seq_output), 0.0, GRAD_RTOL)
+    worst = max(errs, key=errs.get)
+    phase("dconv9-train-step-vs-plain", dtype="float32", batch=TRAIN_B, T=T, d_conv=9,
+          loss=f"{loss:.6f}", plain_loss=f"{want_loss:.6f}", loss_rel_err=f"{loss_err:.3e}",
+          grad_rel_err_max=f"{errs[worst]:.3e}", worst_param=worst,
+          grad_tol=f"max|err|/max|plain| <= {GRAD_RTOL}",
+          **{fn.__name__: n for fn, n in zip(LAUNCH_COUNTED, launches)})
+    check(launches == (1,) * len(LAUNCH_COUNTED), f"RecBLR d_conv 9: launches {launches}")
+    check(loss_err <= 1e-4 and all(e <= GRAD_RTOL for e in errs.values()),
+          "RecBLR d_conv 9: the step disagrees with the plain step")
+
+
+def _row15_pairs(lens, t, causal):
+    """Per-head (query, key) pairs this data can weigh: keys below the
+    length (every key on a row of lens 0), and not after the query when
+    causal."""
+    n = _kept_keys(lens, t).double()
+    if causal:
+        pairs = torch.where(lens.clamp(0, t) == 0, n * t, n * (n + 1) / 2 + (t - n) * n)
+    else:
+        pairs = n * t
+    return float(pairs.sum())
+
+
+def row15_bound_ms(lens, shape, causal, act_bytes):
+    # QK^T and P.V, 2 dh FLOP each per kept pair; q, k, v read and out
+    # written once
+    b, h, t, dh = shape
+    return _bound(4 * dh * h * _row15_pairs(lens, t, causal), 4 * b * h * t * dh * act_bytes)
+
+
+def row15_bwd_bound_ms(lens, shape, causal, act_bytes):
+    # S again, dP, dV, dQ and dK, 2 dh FLOP each per kept pair; q, k, v,
+    # dout and the fp32 output read, the lse read, dq, dk, dv written
+    b, h, t, dh = shape
+    nbytes = b * h * t * (dh * (7 * act_bytes + 4) + 4)
+    return _bound(10 * dh * h * _row15_pairs(lens, t, causal), nbytes)
+
+
+def row15_kernel_times(dev):
+    """Row 15 at the d256 shape, fp32, causal (SASRec) and bidirectional
+    (BERT4Rec), p = 0 (and the causal forward at p 0.5, SASRec's rate):
+    each beside its bound, its plain version (the backward's: autograd of
+    the plain forward, its graph built once) and one PyTorch call of the
+    same function, ``F.scaled_dot_product_attention`` with the same
+    additive mask, first checked against the plain version."""
+    gen = torch.Generator().manual_seed(SEED + 42)
+    shape = ROW15_SHAPES["d256"]
+    t = shape[2]
+    q, k, v, dout, _ = _row15_inputs(gen, shape, dev, torch.float32)
+    # the bench data's lengths, 2 .. T
+    lens = torch.randint(2, t + 1, (shape[0],), generator=gen).to(dev)
+    rows = {}
+    for causal in (True, False):
+        args = (lens, 4242, causal, 0.0)
+        mask = FB.attention_mask(lens, t, causal, dev)[:, None]
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        want = A.fused_attention_plain(*leaves, *args)
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        lib_err = float((lib_out - want).detach().abs().max())
+        lib_ok = lib_err <= 1e-4 * float(want.detach().abs().max())
+        phase("library-vs-plain", call="F.scaled_dot_product_attention(attn_mask=-10000 mask)",
+              B_H_T_dh="x".join(map(str, shape)), causal=causal, max_abs_err=f"{lib_err:.3e}",
+              tol="1e-4*max|plain|", ok=lib_ok)
+        check(lib_ok, "scaled_dot_product_attention does not compute row 15's function")
+        _, saved = A.fused_attention_train(q, k, v, *args)
+        with torch.no_grad():
+            ms = time_ms(lambda: A.fused_attention(q, k, v, *args))
+            plain = time_ms(lambda: A.fused_attention_plain(q, k, v, *args), reps=5, warmup=1)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        ms_bwd = time_ms(lambda: A.fused_attention_bwd(q, k, v, lens, dout, 4242, causal, 0.0,
+                                                       saved=saved))
+        plain_bwd = time_ms(lambda: torch.autograd.grad(want, leaves, dout, retain_graph=True),
+                            reps=5, warmup=1)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True))
+        bwd_lens = lens.cpu()
+        for name, t_ms, t_plain, t_lib, bnd in (
+                ("fused_attention", ms, plain, lib, row15_bound_ms(bwd_lens, shape, causal, 4)),
+                ("fused_attention_bwd", ms_bwd, plain_bwd, lib_bwd,
+                 row15_bwd_bound_ms(bwd_lens, shape, causal, 4))):
+            bound, flops, by = bnd
+            phase("kernel-time", kernel=name, B_H_T_dh="x".join(map(str, shape)), causal=causal,
+                  dtype="float32", p=0.0, ms=f"{t_ms:.4f}", plain_ms=f"{t_plain:.4f}",
+                  library_ms=f"{t_lib:.4f}", bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}",
+                  bound_by=by, share_of_bound=f"{bound / t_ms:.4f}")
+            if causal:
+                rows[name] = (t_ms, t_plain, bound, by, t_lib)
+        if causal:
+            with torch.no_grad():
+                ms_p = time_ms(lambda: A.fused_attention(q, k, v, lens, 4242, True, SAS_DROPOUT))
+            phase("kernel-time", kernel="fused_attention", B_H_T_dh="x".join(map(str, shape)),
+                  causal=True, dtype="float32", p=SAS_DROPOUT, ms=f"{ms_p:.4f}")
+        del leaves, want, lib_out, saved
+    return rows
+
+
+
 KERNELS = (
     ("fused_recurrent_layer", "datamining_recblr_torch/csrc/fused_layer.cu",
      "datamining_recblr_tpu/ops/fused_layer.py:245"),
@@ -2751,6 +3121,12 @@ SLICE_KERNELS = (  # name, source, TPU kernel, the path whose step counts its la
     ("fused_bdlru_bwd", "datamining_recblr_torch/csrc/fused_bdlru_bwd.cu",
      "datamining_recblr_tpu/ops/fused_bdlru.py:280", "longodd"),
 )
+ROW15_KERNELS = (
+    ("fused_attention", "datamining_recblr_torch/csrc/attention.cu",
+     "datamining_recblr_tpu/ops/attention.py:167"),
+    ("fused_attention_bwd", "datamining_recblr_torch/csrc/attention_bwd.cu",
+     "datamining_recblr_tpu/ops/attention.py:191"),
+)
 B4R_KERNELS = (
     ("fused_transformer_layer_sel", "datamining_recblr_torch/csrc/fused_block_sel.cu",
      "datamining_recblr_tpu/ops/fused_block.py:968"),
@@ -2783,6 +3159,8 @@ def main():
     dropout_ln_mask_bits(dev)
     slice_errs.update(scan_kernels_vs_plain(dev))
     slice_errs.update(bdlru_kernels_vs_plain(dev))
+    row15_errs = attention_kernels_vs_plain(dev)
+    attention_mask_bits(dev)
     serve = {(name, dt): serving(dev, name, dt)
              for name in SERVED for dt in ("float32", "bfloat16")}
     xserve = serving(dev, "RecBLR", "bfloat16", xlong=True)
@@ -2795,6 +3173,14 @@ def main():
     strain = {(path, dt): slice_train_phase(dev, path, dt)
               for path in served for dt in ("float32", "bfloat16")}
     slice_train_phase(dev, "hm", "float32", timed=False)
+    dconv_train_phase(dev)
+    baselines = ("SASRec", "BERT4Rec")
+    pserve = {(name, dt): serving(dev, name, dt, path="d256")
+              for name in baselines for dt in ("float32", "bfloat16")}
+    ptrain = {(name, dt): path_train_phase(dev, name, "d256", dt)
+              for name in baselines for dt in ("float32", "bfloat16")}
+    serving(dev, "SASRec", "float32", path="long")
+    path_train_phase(dev, "SASRec", "long", "float32")
     for name in TRAINED:
         fit_phase(dev, name)
     kernel_times(dev, p1, p2, lens)
@@ -2804,6 +3190,7 @@ def main():
     b4r_rows = b4r_training_kernel_times(dev)
     xlong_rows = xlong_kernel_times(dev)
     slice_rows = slice_kernel_times(dev)
+    row15_rows = row15_kernel_times(dev)
     # launches: each model's kernels in one training step of its main path
     # (fp32), the forwards' launches per recommend() beside them (RecBLR's;
     # the attention kernels' in SASRec's and BERT4Rec's)
@@ -2872,6 +3259,20 @@ def main():
             entry["launches_per_recommend"] = sserve[
                 path, SLICE_PATHS[path]["serve_dtypes"][0]]["launches"][names.index(name)]
         kernels.append(entry)
+    # row 15: launches in one fp32 step of SASRec's d256 path, per
+    # recommend() in SASRec's and BERT4Rec's
+    for name, src, tpu in ROW15_KERNELS:
+        ms, plain, bound, by, lib = row15_rows[name]
+        entry = {
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": ptrain["SASRec", "float32"]["launches"][name],
+            "max_abs_err": row15_errs[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
+        }
+        if name == "fused_attention":
+            entry["launches_per_recommend"] = {m: pserve[m, "float32"]["launches"][1]
+                                               for m in baselines}
+        kernels.append(entry)
     serve_summary = {}
     for (name, dt), out in serve.items():
         tag = ("" if name == "RecBLR" else name.lower() + "_") + SHORT_DTYPE[dt]
@@ -2895,7 +3296,17 @@ def main():
         train_summary[f"{path}_train_ms_per_step_{SHORT_DTYPE[dt]}"] = f"{out['ms']:.3f}"
         train_summary[f"{path}_train_examples_per_s_{SHORT_DTYPE[dt]}"] = (
             f"{out['examples_per_s']:.1f}")
-    check(len(kernels) == 25, f"the kernels JSON lists {len(kernels)} kernels, not 25")
+    for (name, dt), out in pserve.items():
+        tag = f"{name.lower()}_d256_{SHORT_DTYPE[dt]}"
+        serve_summary[f"serve_p50_ms_{tag}"] = f"{out[1] * 1e3:.3f}"
+        serve_summary[f"serve_users_per_s_{tag}"] = f"{B / out[B]:.1f}"
+    for (name, dt), out in ptrain.items():
+        tag = f"{name.lower()}_d256_train"
+        train_summary[f"{tag}_ms_per_step_{SHORT_DTYPE[dt]}"] = f"{out['ms']:.3f}"
+        train_summary[f"{tag}_examples_per_s_{SHORT_DTYPE[dt]}"] = (
+            f"{out['examples_per_s']:.1f}")
+        train_summary[f"{tag}_peak_gb_{SHORT_DTYPE[dt]}"] = f"{out['peak_gb']:.3f}"
+    check(len(kernels) == 27, f"the kernels JSON lists {len(kernels)} kernels, not 27")
     phase("summary", card=repr(smi), **serve_summary, **train_summary)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

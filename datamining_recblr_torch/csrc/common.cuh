@@ -30,12 +30,9 @@ constexpr float LN_EPS = 1e-12f;    // LayerNorm eps of the reference model
 constexpr float GATE_EPS = 1e-8f;   // beta = sqrt(1 - a^2 + eps) * sigmoid(i)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TT = 32;              // positions per block in phases A and C
-constexpr int MAX_K = 8;            // conv taps the halo is sized for
 constexpr int THREADS = 256;        // threads per block in phases A and C
 constexpr int SCAN_THREADS = 128;
 constexpr int RM = 8;               // output rows per thread in block_matmul
-// rows of x / xb held by phase A: the tile plus the halo, rounded up to RM
-constexpr int XR = (TT + MAX_K - 1 + RM - 1) / RM * RM;
 
 // Parameter pointers in the order of the host-side array (all fp32).
 struct LayerParams {
@@ -207,23 +204,30 @@ __device__ void block_layernorm(float* v, int ld, int M, int D,
 
 // Rows per (row, chunk) of the chunked layer's record: row 0 the scan
 // state entering the chunk, rows 1 .. K-1 the previous chunk's last K-1
-// xb rows (pre-conv, after W_in), the rest zero.
-constexpr int REC_ROWS = MAX_K;
+// xb rows (pre-conv, after W_in), the rest zero.  The chunked layer takes
+// K <= 8, the JAX package's bound (fused_layer_chunked.py:380).
+constexpr int REC_ROWS = 8;
 
-// Rows of xb the XB kernels hold: the tile and the conv's K-1 halo, for
-// any K (the layer kernels hold XR rows, K <= MAX_K).
+// The conv halo is sized at run time.  Phase A and the gate backward hold
+// the tile's TT + K - 1 rows of x (xs_rows: rounded up to RM, since
+// block_matmul reads whole groups of RM rows) and of xb (xb_rows).  The
+// layer kernels and the standalone BD-LRU take K <= 64
+// (ops/fused_layer.py, ops/fused_bdlru.py MAX_K); the largest sum there
+// is the gate backward's at D = C = 128, K = 64: (96 + 95 + 6 * 32) rows
+// * 128 * 4 bytes = 196,096 bytes, within the 227 KB a block may hold.
+inline __host__ __device__ int xs_rows(int K) { return (TT + K - 1 + RM - 1) / RM * RM; }
 inline __host__ __device__ int xb_rows(int K) { return TT + K - 1; }
 
-inline size_t phase_a_smem_bytes(int D, int C, int xr = XR) {
-  return sizeof(float) * ((size_t)XR * D + (size_t)xr * C + (size_t)TT * C + (size_t)TT * 2 * C);
+inline size_t phase_a_smem_bytes(int D, int C, int K) {
+  return sizeof(float) * ((size_t)xs_rows(K) * D + (size_t)xb_rows(K) * C + (size_t)TT * C +
+                          (size_t)TT * 2 * C);
 }
 
 // Phase A.  Block (b, tile): positions t0 .. t_end-1 of row b.  Writes
 // alpha and beta*xc [B, T, C] fp32.  With `lens`, tiles at or beyond
 // row b's valid length are skipped: the last-position layer reads the
 // scan only below it.  XB: x is xb itself, [B, T, C] (the standalone
-// BD-LRU of fused_bdlru.cu: no in-projection, no prologue; D = 0), with
-// xb_rows(K) rows of xb for any K.
+// BD-LRU of fused_bdlru.cu: no in-projection, no prologue; D = 0).
 template <typename Tin, bool XB = false>
 __global__ void __launch_bounds__(THREADS)
 phase_a_kernel(const Tin* __restrict__ x, const int* __restrict__ lens, LayerParams p,
@@ -239,9 +243,9 @@ phase_a_kernel(const Tin* __restrict__ x, const int* __restrict__ lens, LayerPar
   const int H = use_conv ? K - 1 : 0;
   const int rows = t_end - t0;
   const int rows_h = rows + H;
-  float* xs = smem;             // [XR, D]   x rows t0-H .. t_end-1
-  float* xb = xs + XR * D;      // [XR, C]   x @ W_in[:, :C] on those rows
-  float* xc = xb + (XB ? xb_rows(K) : XR) * C;  // [TT, C]   silu(conv(xb))
+  float* xs = smem;               // [xs_rows(K), D]  x rows t0-H .. t_end-1
+  float* xb = xs + xs_rows(K) * D;  // [xb_rows(K), C]  x @ W_in[:, :C] on those rows
+  float* xc = xb + xb_rows(K) * C;  // [TT, C]   silu(conv(xb))
   float* g = xc + TT * C;       // [TT, 2C]  gates pre-activation
 
   if (XB) {

@@ -424,15 +424,14 @@ rev_chunk_scan_kernel(const float* __restrict__ alpha, float* __restrict__ ds,
 // C1': gate, lambda and conv backward
 // ---------------------------------------------------------------------------
 
-inline size_t gate_bwd_smem_bytes(int D, int C, int xr = XR) {
-  return sizeof(float) * ((size_t)XR * D + (size_t)xr * C + (size_t)TT * 6 * C);
+inline size_t gate_bwd_smem_bytes(int D, int C, int K) {
+  return sizeof(float) * ((size_t)xs_rows(K) * D + (size_t)xb_rows(K) * C + (size_t)TT * 6 * C);
 }
 
 // Item (b, tile); with lens, positions at or beyond row b's length are
 // skipped (their d_states are zero).  ds_du holds d_states on entry and
 // du (dxc without the conv) on exit, at the positions processed.  XB:
-// x is xb itself, [B, T, C] (fused_bdlru_bwd.cu; D = 0, no prologue),
-// with xb_rows(K) rows of xb for any K.
+// x is xb itself, [B, T, C] (fused_bdlru_bwd.cu; D = 0, no prologue).
 template <typename Tin, bool XB = false>
 __global__ void __launch_bounds__(THREADS)
 gate_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
@@ -440,9 +439,9 @@ gate_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
                 LayerParamsT q, Dropout dr, float* __restrict__ partial, GradLayout gl,
                 int B, int T, int D, int C, int K, int use_conv, int prologue) {
   extern __shared__ float smem[];
-  float* xs = smem;              // [XR, D]   x rows t0-H .. t_end-1
-  float* xb = xs + XR * D;       // [XR, C]   x @ W_in[:, :C]
-  float* u = xb + (XB ? xb_rows(K) : XR) * C;  // [TT, C]   conv output
+  float* xs = smem;                 // [xs_rows(K), D]  x rows t0-H .. t_end-1
+  float* xb = xs + xs_rows(K) * D;  // [xb_rows(K), C]  x @ W_in[:, :C]
+  float* u = xb + xb_rows(K) * C;   // [TT, C]   conv output
   float* xc = u + TT * C;        // [TT, C]   silu(u)
   float* g = xc + TT * C;        // [TT, 2C]  gates pre-activation -> dg
   float* dsb = g + TT * 2 * C;   // [TT, C]   d_states -> dxc -> du

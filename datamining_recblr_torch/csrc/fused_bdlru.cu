@@ -4,12 +4,12 @@
 // Replaces the TPU kernel datamining_recblr_tpu/ops/fused_bdlru.py:
 // _fwd_kernel (reached through _fused_fwd / fused_bdlru), which the JAX
 // model runs in every layer where C <= 128 and the whole-layer kernels
-// do not (T beyond 512 with no chunk, d_conv beyond 8).  It is the
+// do not (T beyond 512 with no chunk, or with d_conv beyond 8 there).  It is the
 // recurrent layer kernel's (fused_layer.cu) phases A and B without the
 // in-projection and the tail:
 //   A  phase_a_kernel<Tin, XB = true> (common.cuh), per (row, tile of 32
-//      positions): xb rows with the conv's K-1 halo (sized to K, where the
-//      layer kernels hold K <= 8) -> conv + SiLU -> xc @ W_g + b_g ->
+//      positions): xb rows with the conv's K-1 halo (sized to K at run
+//      time, as in the layer kernels) -> conv + SiLU -> xc @ W_g + b_g ->
 //      alpha, beta*xc [B, T, C] fp32 to scratch
 //   B  linear_scan_kernel: one thread per (row, channel), serial over T,
 //      writing h in x's dtype
@@ -34,7 +34,7 @@ template <typename Tin>
 cudaError_t bdlru_fwd(const Tin* x, LayerParams p, float* alpha, float* bx, Tin* h, int B, int T,
                       int C, int K, int use_conv, cudaStream_t stream) {
   const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(0, C, xb_rows(K));
+  const size_t sa = phase_a_smem_bytes(0, C, K);
   cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<Tin, true>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
   if (e != cudaSuccess) return e;
@@ -51,9 +51,8 @@ cudaError_t bdlru_fwd(const Tin* x, LayerParams p, float* alpha, float* bx, Tin*
 
 extern "C" {
 
-// x, h: [B, T, C] fp32 (bf16 == 0) or bf16, C <= 128; params: wc [K, C] (K
-// up to what xb_rows(K) rows fit in shared memory),
-// bc [C], wg [C, 2C], bg [2C], lam [C] fp32 device pointers; alpha, bx:
+// x, h: [B, T, C] fp32 (bf16 == 0) or bf16, C <= 128; params: wc [K, C]
+// (K <= 64, common.cuh xs_rows), bc [C], wg [C, 2C], bg [2C], lam [C] fp32 device pointers; alpha, bx:
 // [B, T, C] fp32 scratch; device: the card that holds them.
 int recblr_bdlru_fwd(const void* x, const void* const* params, void* alpha, void* bx, void* h,
                      int B, int T, int C, int K, int use_conv, int bf16, int device,

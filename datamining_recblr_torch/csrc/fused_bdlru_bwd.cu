@@ -59,7 +59,7 @@ cudaError_t bdlru_bwd(const Tin* x, const Tin* dh, LayerParams p, LayerParamsT q
   cudaError_t e;
   const Dropout off = make_dropout(0, 0, 0, 1.f);
   const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(0, C, xb_rows(K));
+  const size_t sa = phase_a_smem_bytes(0, C, K);
   if ((e = set_smem(phase_a_kernel<Tin, true>, sa)) != cudaSuccess) return e;
   phase_a_kernel<Tin, true><<<dim3(B, tiles), THREADS, sa, stream>>>(
       x, nullptr, p, off, alpha, h, T, 0, C, K, use_conv, 0);
@@ -74,7 +74,7 @@ cudaError_t bdlru_bwd(const Tin* x, const Tin* dh, LayerParams p, LayerParamsT q
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const GradLayout gl = grad_layout(0, C, K, 0);
-  const size_t s2 = gate_bwd_smem_bytes(0, C, xb_rows(K));
+  const size_t s2 = gate_bwd_smem_bytes(0, C, K);
   if ((e = set_smem(gate_bwd_kernel<Tin, true>, s2)) != cudaSuccess) return e;
   gate_bwd_kernel<Tin, true><<<min(G, B * tiles), THREADS, s2, stream>>>(
       x, nullptr, h, ds, p, q, off, partial, gl, B, T, 0, C, K, use_conv, 0);

@@ -27,7 +27,7 @@ cudaError_t layer_fwd(const Tin* x, Tin* out, LayerParams p, Dropout dr, float* 
                       float* bxh, int B, int T, int D, int C, int K, int F, int use_conv,
                       int use_ffn, int prologue, cudaStream_t stream) {
   const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(D, C);
+  const size_t sa = phase_a_smem_bytes(D, C, K);
   cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<Tin>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
   if (e != cudaSuccess) return e;

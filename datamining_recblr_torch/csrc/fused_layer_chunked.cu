@@ -45,7 +45,7 @@ cudaError_t layer_chunked_fwd(const Tin* x, Tin* out, LayerParams p, Dropout dr,
                               int D, int C, int K, int F, int chunk, int use_conv, int use_ffn,
                               int prologue, cudaStream_t stream) {
   const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(D, C);
+  const size_t sa = phase_a_smem_bytes(D, C, K);
   cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<Tin>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
   if (e != cudaSuccess) return e;
@@ -78,7 +78,7 @@ extern "C" {
 // pointers (common.cuh LayerParams order, null where unused); alpha, bxh:
 // [B, T, C] fp32 scratch; hend, pend: [B, T / chunk, C] fp32 scratch; rec:
 // [B, T / chunk, REC_ROWS, C] fp32 zeros, the record on return; chunk
-// divides T and K <= min(chunk, MAX_K); drop, seed, thresh, scale: the
+// divides T and K <= min(chunk, 8); drop, seed, thresh, scale: the
 // dropout masks (common.cuh Dropout); device: the card that holds them.
 int recblr_layer_chunked_fwd(const void* x, void* out, const void* const* params, void* alpha,
                              void* bxh, void* hend, void* pend, void* rec, int B, int T, int D,

@@ -42,7 +42,7 @@ cudaError_t layer_chunked_bwd(const Tin* x, const Tin* dout, LayerParams p, Laye
                               cudaStream_t stream) {
   cudaError_t e;
   const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(D, C);
+  const size_t sa = phase_a_smem_bytes(D, C, K);
   if ((e = set_smem(phase_a_kernel<Tin>, sa)) != cudaSuccess) return e;
   phase_a_kernel<Tin><<<dim3(B, tiles), THREADS, sa, stream>>>(
       x, nullptr, p, dr, alpha, h, T, D, C, K, use_conv, prologue);
@@ -78,7 +78,7 @@ cudaError_t layer_chunked_bwd(const Tin* x, const Tin* dout, LayerParams p, Laye
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const int items_c = B * tiles;
-  const size_t s2 = gate_bwd_smem_bytes(D, C);
+  const size_t s2 = gate_bwd_smem_bytes(D, C, K);
   if ((e = set_smem(gate_bwd_kernel<Tin>, s2)) != cudaSuccess) return e;
   gate_bwd_kernel<Tin><<<min(G, items_c), THREADS, s2, stream>>>(
       x, nullptr, h, ds, p, q, dr, partial, gl, B, T, D, C, K, use_conv, prologue);

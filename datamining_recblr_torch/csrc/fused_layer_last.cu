@@ -31,7 +31,7 @@ cudaError_t layer_last_fwd(const Tin* x, const int* lens, Tin* out, LayerParams 
                            int D, int C, int K, int F, int use_conv, int use_ffn, int stash,
                            cudaStream_t stream) {
   const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(D, C);
+  const size_t sa = phase_a_smem_bytes(D, C, K);
   cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<Tin>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
   if (e != cudaSuccess) return e;

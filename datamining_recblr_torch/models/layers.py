@@ -17,6 +17,7 @@ from torch import nn
 
 from datamining_recblr_torch.ops import fused_block as FB
 from datamining_recblr_torch.ops import philox
+from datamining_recblr_torch.ops.attention import fused_attention, prob_masks
 from datamining_recblr_torch.ops.fused_layer import MAX_LN_D, fused_ln_dropout
 
 LN_EPS = 1e-12
@@ -152,9 +153,14 @@ def prologue_ln_dropout(ln_params, x, dropout_p=0.0, pos=None, seed=0):
     return dropout(layer_norm(ln_params, x), dropout_p, seed, philox.M0)
 
 
-def _multi_head_attention(p, x, attn_mask, n_heads, hidden_dropout, attn_dropout, seed):
-    """Unfused attention block: LN(dropout_m1(attn(x) W_o + b_o) + x), each
-    head's probabilities under the mask ``philox.prob_mask_id(h)``."""
+def _multi_head_attention(p, x, attn_mask, n_heads, hidden_dropout, attn_dropout, seed,
+                          lens=None, causal=None):
+    """Per-op attention block: LN(dropout_m1(attn(x) W_o + b_o) + x), each
+    head's probabilities under the mask ``philox.prob_mask_id(h)``.  With
+    ``lens`` and ``causal`` given and the fused composition chosen, the
+    masked softmax, its dropout and P.V run in ``fused_attention`` (the
+    JAX package's ``layers.py:224-241``); otherwise the softmax
+    composition under the additive ``attn_mask`` [B, 1, T, T]."""
     b, t, h = x.shape
     dh = h // n_heads
 
@@ -162,15 +168,20 @@ def _multi_head_attention(p, x, attn_mask, n_heads, hidden_dropout, attn_dropout
         return y.reshape(b, t, n_heads, dh).transpose(1, 2)
 
     q, k, v = (split_heads(dense(p[n], x)) for n in ("q", "k", "v"))
-    scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(dh) + attn_mask
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    if attn_dropout:
-        m = torch.stack([philox.dropout_mask(seed, philox.prob_mask_id(i), b, t, t,
-                                             attn_dropout, x.device)
-                         for i in range(n_heads)], dim=1)
-        probs = (probs * m).to(x.dtype)
-    dt = torch.promote_types(probs.dtype, v.dtype)
-    ctx = (probs.to(dt) @ v.to(dt)).to(x.dtype).transpose(1, 2).reshape(b, t, h)
+    if lens is not None and causal is not None and _use_fused_attention():
+        # q, k and v in dense's dtype: under bf16 compute with fp32
+        # parameters that is fp32 (JAX promotes a bf16 x against an fp32
+        # weight), bf16 only with bf16 parameters; ctx comes back in it
+        ctx = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), lens, seed,
+                              bool(causal), attn_dropout)
+    else:
+        scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(dh) + attn_mask
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        if attn_dropout:
+            probs = (probs * prob_masks(seed, attn_dropout, b, n_heads, t, x.device)).to(x.dtype)
+        dt = torch.promote_types(probs.dtype, v.dtype)
+        ctx = probs.to(dt) @ v.to(dt)
+    ctx = ctx.to(x.dtype).transpose(1, 2).reshape(b, t, h)
     out = dropout(dense(p["attn_out"], ctx), hidden_dropout, seed, philox.M1)
     return layer_norm(p["attn_ln"], out + x)
 
@@ -206,13 +217,14 @@ def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu
     and [B, D] comes back, with ``select`` (int [B, S] positions) the top
     layer runs ``fused_transformer_layer_sel`` and [B, S, D] comes back;
     the caller must not gather again.  ``select`` needs a bidirectional
-    stack (the selected-positions layer has no causal mask).  On a
-    CUDA tensor a shape that ``supports`` rejects raises: the JAX package
-    runs its fused attention kernel there (queue B row 15, not ported).
-    Otherwise the unfused composition runs and returns [B, T, D];
-    ``attn_mask`` is its [B, 1, T, T] additive mask, or a function that
-    builds it (called only then).  Both compositions draw the same Philox
-    masks at the same coordinates, in the JAX package's order (the
+    stack (the selected-positions layer has no causal mask).  Where
+    ``supports`` rejects the shape, each layer runs the per-op
+    composition with ``fused_attention`` for the masked softmax (the JAX
+    package's ``layers.py:297-302,363-381``) and [B, T, D] comes back.
+    Without the fused composition the per-op one runs the softmax
+    composition instead; ``attn_mask`` is its [B, 1, T, T] additive mask,
+    or a function that builds it (called only then).  All draw the same
+    Philox masks at the same coordinates, in the JAX package's order (the
     probabilities, after W_o, after the FFN)."""
     if seeds is None:
         hidden_dropout = attn_dropout = 0.0
@@ -236,18 +248,12 @@ def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu
                 x = FB.fused_transformer_layer(x, lens, fp, bool(causal), n_heads, hidden_act,
                                                *drop)
             return x
-        if x.device.type == "cuda":
-            raise NotImplementedError(
-                f"the fused transformer layer does not take D={h}, heads={n_heads}, "
-                f"inner={inner}, T={t}, act={hidden_act}; the JAX package runs its "
-                "fused_attention kernel there, which is not ported yet (ROADMAP.md "
-                "queue B row 15)")
-    if callable(attn_mask):
+    elif callable(attn_mask):
         attn_mask = attn_mask()
     act = activation(hidden_act)
     for p, seed in zip(layers, seeds):
         x = _multi_head_attention(p, x, attn_mask, n_heads, hidden_dropout, attn_dropout,
-                                  seed)
+                                  seed, lens, causal)
         y = dropout(dense(p["ffn_2"], act(dense(p["ffn_1"], x))), hidden_dropout, seed,
                     philox.M3)
         x = layer_norm(p["ffn_ln"], y + x)

@@ -18,9 +18,10 @@ Two compositions, chosen by configuration as in the JAX package
 (``_use_fused_layer``, ``_use_chunked_layer``, ``recblr.py:204-237``):
 
 * fused (D <= 128, C <= 128, ``use_pallas_scan`` not "never"; T <= 512,
-  or T > 512 with a chunk from ``pick_chunk(T)`` of at least max(8,
-  d_conv) and d_conv <= 8): layer 0 .. N-2 run ``fused_recurrent_layer``,
-  or beyond T = 512 the sequence-chunked ``fused_recurrent_layer_chunked``
+  where the kernels take d_conv up to min(T, 64) and raise beyond, or
+  T > 512 with a chunk from ``pick_chunk(T)`` of at least max(8, d_conv)
+  and d_conv <= 8): layer 0 .. N-2 run ``fused_recurrent_layer``, or
+  beyond T = 512 the sequence-chunked ``fused_recurrent_layer_chunked``
   (layer 0 with the input dropout and LN folded in); the top layer runs
   ``fused_recurrent_layer_last`` up to T = 1,024, and beyond it the
   chunked layer and a gather at each row's last position (length 0 reads
@@ -28,10 +29,11 @@ Two compositions, chosen by configuration as in the JAX package
   dropout and LN) and then the top layer, as the JAX package does
   (``recblr.py:328-346``).  All are differentiable through their backward
   kernels.
-* unfused (everything else: C > 128, T > 512 with no chunk, d_conv > 8):
-  the per-op composition of ``_gated_recurrent`` and ``_ffn`` in plain
-  PyTorch, differentiated by autograd, around one kernel a layer as in
-  ``recblr.py:122-176``: with C <= 128 ``fused_bdlru`` (conv, gates and
+* unfused (everything else: C > 128, T > 512 with no chunk or with
+  d_conv > 8): the per-op composition of ``_gated_recurrent`` and
+  ``_ffn`` in plain PyTorch, differentiated by autograd, around one
+  kernel a layer as in ``recblr.py:122-176``: with C <= 128
+  ``fused_bdlru`` (conv, gates and
   scan, forward and backward), beyond it ``linear_scan`` (the scan, its
   backward the kernel's reverse mode), and with ``use_pallas_scan:
   never`` the serial plain scan.  On a CPU tensor the kernels' plain

@@ -31,8 +31,10 @@ SOURCES = ("fused_layer.cu", "fused_layer_last.cu", "fused_layer_bwd.cu",
            "fused_block_last.cu", "fused_block_bwd.cu", "fused_block_last_bwd.cu",
            "fused_block_sel.cu", "fused_block_sel_bwd.cu", "fused_ce.cu",
            "fused_layer_chunked.cu", "fused_layer_chunked_bwd.cu", "fused_ce_chunked.cu",
-           "emb_grad.cu", "linear_scan.cu", "fused_bdlru.cu", "fused_bdlru_bwd.cu")
-HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh", "ce_common.cuh")
+           "emb_grad.cu", "linear_scan.cu", "fused_bdlru.cu", "fused_bdlru_bwd.cu",
+           "attention.cu", "attention_bwd.cu")
+HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh", "ce_common.cuh",
+           "attention.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -116,6 +118,12 @@ _SIGNATURES = {
     },
     "fused_bdlru_bwd.cu": {
         "recblr_bdlru_bwd": [_P] * 7 + [_I] + [_P] * 2 + [_I] * 6 + [_I, _P],
+    },
+    "attention.cu": {
+        "recblr_attn_fwd": [_P] * 7 + [_I] * 5 + [_F, _I] + _D1 + [_I, _P],
+    },
+    "attention_bwd.cu": {
+        "recblr_attn_bwd": [_P] * 11 + [_I] * 5 + [_F, _I] + _D1 + [_I, _P],
     },
 }
 

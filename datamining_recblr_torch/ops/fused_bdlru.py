@@ -34,7 +34,7 @@ EPS = 1e-8
 LANE = 128  # the TPU kernel keeps C on one 128-lane tile; the card's, in shared memory
 # conv taps the kernels take: they hold the tile's 32 + K - 1 rows of xb in
 # shared memory (csrc/common.cuh xb_rows), within its 227 KB up to K ~230
-# at C 128; the whole-layer kernels take K <= 8
+# at C 128; the whole-layer kernels take the same bound
 MAX_K = 64
 
 

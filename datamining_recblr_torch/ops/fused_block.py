@@ -149,6 +149,18 @@ def _pad_mask(lens, t, device):
     return torch.where(keep, 0.0, MASK_VALUE).to(torch.float32)[:, None, :]
 
 
+def attention_mask(lens, t, causal, device=None):
+    """The additive mask over [query, key]: -10000 where col >= lens and,
+    with causal, where col > row; [B, 1, T] without causal, [B, T, T]
+    with it."""
+    amask = _pad_mask(lens, t, device)
+    if causal:
+        pos = torch.arange(t, device=device)
+        amask = torch.minimum(amask, torch.where(pos[None, :] <= pos[:, None], 0.0,
+                                                 MASK_VALUE)[None])
+    return amask
+
+
 def _attention(q, k, v, amask, n_heads, rb, prob_masks=None):
     """Per-head masked softmax attention; q [B, Q, D], k and v [B, T, D],
     amask broadcast to [B, Q, T], prob_masks (dropout) one [B, Q, T] per
@@ -217,12 +229,7 @@ def fused_transformer_layer_plain(x, lens, params, causal, n_heads, act="gelu",
     m1, m3, probs = _layer_masks(hidden_dropout_p, attn_dropout_p, seed, n_heads, b, t, d,
                                  x.device)
     q, k, v = (_mm(xf, p[f"w_{n}"], rb) + p[f"b_{n}"] for n in "qkv")
-    amask = _pad_mask(lens, t, x.device)
-    if causal:
-        pos = torch.arange(t, device=x.device)
-        amask = torch.minimum(amask, torch.where(pos[None, :] <= pos[:, None], 0.0,
-                                                 MASK_VALUE)[None])
-    ctx = _attention(q, k, v, amask, n_heads, rb, probs)
+    ctx = _attention(q, k, v, attention_mask(lens, t, causal, x.device), n_heads, rb, probs)
     return _tail(ctx, xf, p, act, rb, m1, m3).to(x.dtype)
 
 
@@ -302,8 +309,8 @@ def _param_list(x, params, n_heads, act):
         raise ValueError(
             f"unsupported shape B={b} T={t} D={d} heads={n_heads} inner={inner} "
             f"act={act}: the kernels take D <= 128, D % heads == 0, inner <= 2048, "
-            f"T <= 1024 and act in {SUPPORTED_ACTS}; the JAX package runs its "
-            f"fused_attention kernel there (ROADMAP.md queue B row 15, not ported)"
+            f"T <= 1024 and act in {SUPPORTED_ACTS}; the models run the per-op "
+            f"composition with ops/attention.py fused_attention there (queue B row 15)"
         )
     plist = []
     for name, shape in _shapes(d, inner).items():

@@ -74,7 +74,9 @@ _TRANSPOSED = ("w_in", "w_out", "w1", "w2", "wg")
 
 MAX_D = 128
 MAX_C = 128
-MAX_K = 8      # conv halo rows the kernels hold (csrc/common.cuh MAX_K)
+# conv taps the kernels take: the halo rows are sized to K at run time
+# (csrc/common.cuh xs_rows), up to the standalone BD-LRU's bound
+MAX_K = 64
 MAX_FFN = 512  # FFN width the kernels' shared memory holds
 MAX_B = 65535  # grid dimension that carries the batch
 

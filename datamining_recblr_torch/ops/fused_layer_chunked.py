@@ -40,7 +40,6 @@ from datamining_recblr_torch.ops import _cuda, fastmath
 from datamining_recblr_torch.ops.conv import causal_depthwise_conv
 from datamining_recblr_torch.ops.fused_bdlru import _gate_math
 from datamining_recblr_torch.ops.fused_layer import (
-    MAX_K,
     PARAM_ORDER,
     _bwd_buffers,
     _check_dout,
@@ -57,7 +56,11 @@ from datamining_recblr_torch.ops.fused_layer import (
 )
 from datamining_recblr_torch.ops.scan import linear_scan_serial
 
-REC_ROWS = MAX_K  # record rows per (row, chunk): csrc/common.cuh REC_ROWS
+# conv taps the chunked layer takes, the JAX package's bound
+# (fused_layer_chunked.py:380), and the record's rows per (row, chunk)
+# (csrc/common.cuh REC_ROWS)
+MAX_K = 8
+REC_ROWS = MAX_K
 CHUNK_TARGET = 128
 
 

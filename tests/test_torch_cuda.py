@@ -425,9 +425,9 @@ def test_attention_wrappers_reject_what_they_do_not_take(dev):
          FL.fused_ln_dropout_plain(xr, xr[0], p["ln1_s"], p["ln1_b"], 0.2, 5)),
     ):
         torch.testing.assert_close(got, want, **TOL["float32"])
-    with pytest.raises(ValueError, match="row 15"):
+    with pytest.raises(ValueError, match="fused_attention there"):
         FB.fused_transformer_layer(x, lens, p, True, 3)  # D % heads != 0
-    with pytest.raises(ValueError, match="row 15"):
+    with pytest.raises(ValueError, match="fused_attention there"):
         FB.fused_transformer_layer_last(x, lens, p, 2, act="mish")
     with pytest.raises(ValueError, match="contiguous"):
         FB.fused_transformer_layer(x.transpose(0, 1), lens, p, True, 2)
@@ -1315,3 +1315,190 @@ def test_slice_train_step_through_kernels_matches_plain(dev, case, monkeypatch):
     assert abs(float(loss.detach()) - float(want.detach())) <= 1e-4 * abs(float(want.detach()))
     for k, v in model.named_parameters():
         assert float((got[k] - v.grad).abs().max()) <= GRAD_RTOL * float(v.grad.abs().max()), k
+
+
+# ---------------------------------------------------------------------------
+# d_conv above 8 in the whole-layer kernels: the halo is sized to K
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [9, 16, 64])
+def test_layer_kernels_take_up_to_64_taps(dev, k):
+    """K1 and K2, forward and backward, with K conv taps against autograd
+    of their plain versions (T 70 >= K, ending in a partial tile)."""
+    rng = np.random.default_rng(80 + k)
+    p = _params(rng, 64, 128, dev, prologue=True)
+    p["wc"] = torch.from_numpy((0.1 * rng.standard_normal((k, 128))).astype(np.float32)).to(dev)
+    t = 70
+    x = torch.from_numpy(rng.standard_normal((3, t, 64)).astype(np.float32)).to(dev)
+    dout = torch.from_numpy(rng.standard_normal((3, t, 64)).astype(np.float32)).to(dev)
+    flags = (True, True, True, 0.2, 7)
+    out, saved = FL.fused_recurrent_layer_train(x, p, *flags)
+    dx, grads = FL.fused_recurrent_layer_bwd(x, dout, p, *flags, saved=saved)
+    want = _plain_vjp(lambda a, q: FL.fused_recurrent_layer_plain(a, q, *flags), x, p, dout)
+    _assert_grads((out, dx, grads), want, "float32")
+    lens = torch.tensor([1, t, 40], device=dev)
+    q = {n: v for n, v in p.items() if n not in ("pl_s", "pl_b")}
+    last = (True, True, 0.2, 7)
+    out, saved = FL.fused_recurrent_layer_last_train(x, lens, q, *last)
+    dx, grads = FL.fused_recurrent_layer_last_bwd(x, lens, dout[:, 0], q, *last, saved=saved)
+    want = _plain_vjp(lambda a, r: FL.fused_recurrent_layer_last_plain(a, lens, r, *last), x, q,
+                      dout[:, 0])
+    _assert_grads((out, dx, grads), want, "float32")
+
+
+def test_layer_kernels_name_the_tap_bound(dev):
+    rng = np.random.default_rng(90)
+    p = _params(rng, 64, 128, dev)
+    p["wc"] = torch.zeros((65, 128), device=dev)
+    x = torch.zeros((2, 80, 64), device=dev)
+    with pytest.raises(ValueError, match="K <= min\\(T, 64\\)"):
+        FL.fused_recurrent_layer(x, p)
+    with pytest.raises(ValueError, match="K <= min\\(T, 64\\)"):
+        FL.fused_recurrent_layer_last(x, torch.tensor([3, 80], device=dev), p)
+
+
+# ---------------------------------------------------------------------------
+# queue B row 15: the masked-softmax attention (ops/attention.py)
+# ---------------------------------------------------------------------------
+
+# [B, H, T, dh]: d256, the attention baselines at hidden 256 (2 heads, T
+# 200, batch 2,048); long, SASRec at hidden 64 (2 heads) and T 2,048
+ATTN_SHAPES = {"d256": (2048, 2, 200, 128), "long": (4, 2, 2048, 32)}
+
+
+def _attn_inputs(rng, shape, dev, dt):
+    b, h, t, dh = shape
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dt)
+                     for _ in range(4))
+    lens = rng.integers(1, t + 1, b)
+    lens[:3] = [0, 1, t]
+    return q, k, v, dout, torch.from_numpy(lens).to(dev)
+
+
+def _assert_row15(got, want, dtype, what):
+    """fp32: within 1e-4 of the largest plain value (a row of lens 0 sits
+    at -10000, where an fp32 ulp is 2^-10: ``_assert_attn_grads``); bf16:
+    one bf16 ulp of the value plus 1e-4 of the largest value (both sides
+    compute in fp32 and round once)."""
+    g, w = got.detach().float(), want.detach().float()
+    assert bool(torch.isfinite(g).all()), what
+    top = float(w.abs().max())
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    assert bool(((g - w).abs() <= rtol * w.abs() + 1e-4 * top).all()), what
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(ATTN_SHAPES))
+def test_attention_kernels_match_plain(dev, shape, dtype, causal, p_drop):
+    """Forward and backward (dq, dk, dv) against autograd of the plain
+    version, rows of lens 0, 1 and T among the batch."""
+    from datamining_recblr_torch.ops import attention as A
+
+    rng = np.random.default_rng(70)
+    dt = getattr(torch, dtype)
+    q, k, v, dout, lens = _attn_inputs(rng, ATTN_SHAPES[shape], dev, dt)
+    args = (4242, causal, p_drop)
+    before = (A.fused_attention.launches, A.fused_attention_bwd.launches)
+    out, saved = A.fused_attention_train(q, k, v, lens, *args)
+    grads = A.fused_attention_bwd(q, k, v, lens, dout, *args, saved=saved)
+    assert (A.fused_attention.launches, A.fused_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.dtype == dt and all(g.dtype == dt for g in grads)
+    with torch.no_grad():
+        torch.testing.assert_close(A.fused_attention(q, k, v, lens, *args), out, atol=0, rtol=0)
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    want = A.fused_attention_plain(*leaves, lens, *args)
+    wgrads = torch.autograd.grad(want, leaves, dout)
+    for what, g, w in zip(("out", "dq", "dk", "dv"), (out, *grads), (want, *wgrads)):
+        _assert_row15(g, w, dtype, what)
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_row15_mask_bits_match_plain(dev, dh):
+    """Each head's probability mask as the forward draws it, bit for bit:
+    T = dh keys and v the identity, so out[b, h, i, j] = p_ij m_ij, with
+    every p_ij > 0 where the key is kept (lens T, and a row of lens 0)."""
+    from datamining_recblr_torch.ops import attention as A
+    from datamining_recblr_torch.ops import philox
+
+    rng = np.random.default_rng(71)
+    b, h, t, seed, pd = 16, 2, dh, 24680, 0.2
+    q, k = (torch.from_numpy(rng.standard_normal((b, h, t, dh)).astype(np.float32)).to(dev)
+            for _ in range(2))
+    v = torch.eye(t, device=dev).expand(b, h, t, dh).contiguous()
+    lens = torch.full((b,), t, device=dev)
+    lens[3] = 0
+    masks = A.prob_masks(seed, pd, b, h, t, dev) > 0
+    for causal in (False, True):
+        out = A.fused_attention(q, k, v, lens, seed, causal, pd)
+        want = masks.clone()
+        if causal:
+            keep = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+            want[lens > 0] &= keep
+        assert torch.equal(out != 0, want), causal
+    assert torch.equal(masks[:, 1], philox.dropout_mask(seed, philox.prob_mask_id(1), b, t, t,
+                                                        pd, dev) > 0)
+
+
+def test_attention_wrappers_raise_rather_than_fall_back(dev):
+    from datamining_recblr_torch.ops import attention as A
+
+    q = torch.zeros((2, 2, 16, 264), device=dev)
+    lens = torch.tensor([3, 16], device=dev)
+    with pytest.raises(ValueError, match="dh <= 256"):
+        A.fused_attention(q, q, q, lens)
+    q = torch.zeros((2, 2, 16, 32), device=dev)
+    with pytest.raises(ValueError, match="q must be contiguous"):
+        A.fused_attention(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, lens)
+    with pytest.raises(ValueError, match="k must be"):
+        A.fused_attention(q, q.half(), q, lens)
+    with pytest.raises(ValueError, match="lens"):
+        A.fused_attention(q, q, q, lens.cpu())
+    out = A.fused_attention(q.requires_grad_(), q, q, lens)
+    assert out.grad_fn is not None
+
+
+@pytest.mark.parametrize("name", ["SASRec", "BERT4Rec"])
+def test_rejected_shape_train_step_goes_through_row_15(dev, name, monkeypatch):
+    """A shape ``fused_block.supports`` rejects (hidden 144) trains on the
+    card: one forward launch of row 15 a layer and one backward, and the
+    loss and every gradient equal the same step with the plain attention
+    (1e-4 of each gradient's largest value, at least 1e-6 of the largest
+    of all: b_k's is zero up to rounding)."""
+    from datamining_recblr_torch.models import layers as L
+    from datamining_recblr_torch.ops import attention as A
+
+    t = 30
+    cfg = Config(model=name, config_dict={
+        "MAX_ITEM_LIST_LENGTH": t, "hidden_size": 144, "inner_size": 288, "n_heads": 2,
+        "n_layers": 2, "hidden_dropout_prob": 0.2, "attn_dropout_prob": 0.2, "mask_ratio": 0.2})
+    model = get_model(name)(cfg, 300, t, generator=torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(72)
+    lens = rng.integers(1, t + 1, 64)
+    lens[:2] = [1, t]
+    seq = np.where(np.arange(t)[None] < lens[:, None], rng.integers(1, 300, (64, t)), 0)
+    batch = {"item_seq": torch.from_numpy(seq).to(dev),
+             "item_seq_len": torch.from_numpy(lens).to(dev),
+             "pos_item": torch.from_numpy(rng.integers(1, 300, 64)).to(dev),
+             "weight": torch.ones(64, device=dev)}
+    model.train()
+    got = {}
+    for kernel in (True, False):
+        if not kernel:
+            monkeypatch.setattr(L, "fused_attention", A.fused_attention_plain)
+        before = (A.fused_attention.launches, A.fused_attention_bwd.launches)
+        model.zero_grad(set_to_none=True)
+        loss = model.calculate_loss(batch, step=5)
+        loss.backward()
+        launches = (A.fused_attention.launches - before[0],
+                    A.fused_attention_bwd.launches - before[1])
+        assert launches == ((2, 2) if kernel else (0, 0))
+        got[kernel] = (float(loss.detach()), {k: v.grad.clone() for k, v in
+                                              model.named_parameters()})
+    assert abs(got[True][0] - got[False][0]) <= 1e-5 * abs(got[False][0])
+    top = max(float(w.abs().max()) for w in got[False][1].values())
+    for pname, g in got[True][1].items():
+        w = got[False][1][pname]
+        assert float((g - w).abs().max()) <= max(1e-4 * float(w.abs().max()), 1e-6 * top), pname

@@ -277,3 +277,46 @@ def test_slice_dispatch_matches_jax(monkeypatch, overrides, impl, t, want):
         expect["fused_bdlru" if jm.inner_hidden <= 128 else "linear_scan"] = len(model.layers)
     expect["fused_dropout_ln"] = int(not unfused)
     assert calls == expect and calls[want] >= 1
+
+
+@pytest.mark.parametrize("d_conv", [9, 16])
+def test_more_conv_taps_take_the_whole_layer_kernels(monkeypatch, d_conv):
+    """d_conv above 8 at T 24: the JAX package runs its whole-layer kernels
+    (``_use_fused_layer`` has no d_conv bound), and so does the port, whose
+    kernels size the conv halo at run time (up to 64 taps).  One
+    ``Trainer.train_step`` from the JAX parameters goes through
+    ``fused_recurrent_layer`` and ``fused_recurrent_layer_last`` once each
+    and gives the JAX loss and gradients at dropout 0 (tolerances as
+    ``test_slice_paths_match_jax``)."""
+    from datamining_recblr_torch.models import recblr as RB
+    from datamining_recblr_torch.train.trainer import Trainer
+
+    t, n_items = 24, 60
+    cfg = {"hidden_size": 16, "num_layers": 2, "MAX_ITEM_LIST_LENGTH": t, "d_conv": d_conv,
+           "dropout_prob": 0.0, "use_pallas_scan": "always"}
+    jmodel = j_get_model("RecBLR")(JConfig(model="RecBLR", config_dict=cfg), n_items, t)
+    jparams = jmodel.init_params(jax.random.PRNGKey(11))
+    model = get_model("RecBLR")(Config(model="RecBLR", config_dict=cfg), n_items, t,
+                                device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams)))
+    assert model.use_fused_layer() and jmodel._use_fused_layer()
+    assert model.layers[0]["grl"]["conv_w"].shape == (d_conv, model.inner_hidden)
+    calls = dict.fromkeys(("fused_recurrent_layer", "fused_recurrent_layer_last"), 0)
+    for n in calls:
+        def counted(*a, _n=n, _f=getattr(RB, n), **kw):
+            calls[_n] += 1
+            return _f(*a, **kw)
+        monkeypatch.setattr(RB, n, counted)
+    seq, lens, pos = _long_batch(np.random.default_rng(12), 5, t, n_items)
+    jbatch = {"item_seq": seq, "item_seq_len": lens, "pos_item": pos}
+    want, wgrads = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.calculate_loss(p, jbatch, jax.random.PRNGKey(5))))(jparams)
+    trainer = Trainer(Config(model="RecBLR", config_dict=cfg), model)
+    loss = trainer.train_step({k: torch.from_numpy(v).long() for k, v in jbatch.items()}, 0)
+    assert calls == {"fused_recurrent_layer": 1, "fused_recurrent_layer_last": 1}
+    np.testing.assert_allclose(float(loss), float(want), rtol=2e-4, atol=2e-5)
+    flat = params_from_jax(jax.tree.map(np.asarray, wgrads))
+    for name, p in model.named_parameters():
+        w = np.asarray(flat[name])
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=2e-4,
+                                   atol=2e-5 * float(np.abs(w).max()) + 1e-9, err_msg=name)

@@ -147,7 +147,7 @@ def test_the_long_context_kernels_are_built():
     assert {"fused_layer_chunked.cu", "fused_layer_chunked_bwd.cu", "fused_ce_chunked.cu",
             "emb_grad.cu"} <= set(_cuda.SOURCES)
     assert "ce_common.cuh" in _cuda.HEADERS
-    assert len(_cuda.SOURCES) == 19
+    assert len(_cuda.SOURCES) == 21
 
 
 def test_the_kernels_outside_the_whole_layer_kernels_are_built():
@@ -159,3 +159,14 @@ def test_the_kernels_outside_the_whole_layer_kernels_are_built():
     assert {"linear_scan.cu", "fused_bdlru.cu", "fused_bdlru_bwd.cu"} <= set(_cuda.SOURCES)
     assert {"recblr_dropout_ln_fwd", "recblr_dropout_ln_bwd"} <= set(
         _cuda._SIGNATURES["ln_dropout.cu"])
+
+
+def test_the_attention_kernels_are_built():
+    """Queue B row 15, the masked-softmax attention, forward and backward,
+    is among the build's sources and entry points."""
+    from datamining_recblr_torch.ops import _cuda
+
+    assert {"attention.cu", "attention_bwd.cu"} <= set(_cuda.SOURCES)
+    assert "attention.cuh" in _cuda.HEADERS
+    assert set(_cuda._SIGNATURES["attention.cu"]) == {"recblr_attn_fwd"}
+    assert set(_cuda._SIGNATURES["attention_bwd.cu"]) == {"recblr_attn_bwd"}
