@@ -75,7 +75,10 @@ per-op composition, forward and backward) and, phase by phase:
   a small Markov dataset: the loss falls and valid NDCG@10 is above 0;
 * times every kernel beside its bound, its plain version and, where one
   PyTorch call computes the same function, that call (row 15 beside
-  ``F.scaled_dot_product_attention`` with the same additive mask).
+  ``F.scaled_dot_product_attention`` with the same additive mask), and
+  the transformer-layer backward by phase (``kernel-time-phase``: T', A',
+  P' and the reduction at the bench shape, causal and bidirectional,
+  fp32 and bf16).
 
 Each phase prints one line; any failure exits non-zero.  The line before
 the last is the kernels' JSON record, the last line the device JSON.
@@ -1712,6 +1715,52 @@ def attn_training_kernel_times(dev):
     return rows
 
 
+# row 10's backward by phase: the kernels recblr_block_bwd launches
+ROW10_BWD_PHASES = (("T'", "attn_tail_bwd_kernel"), ("A'", "attn_bwd_kernel"),
+                    ("P'", "proj_bwd_kernel"), ("reduce", "reduce_partials_kernel"))
+
+
+def row10_bwd_phase_times(dev, calls=10):
+    """Row 10's backward at the bench shape (B 2,048, T 200, p 0.5 as
+    SASRec's; causal as SASRec's layers, bidirectional as BERT4Rec's layer
+    0; fp32 and bf16): its CUDA-event time beside each phase's device time
+    per call, from torch.profiler over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    p = block_params(gen, dev)
+    x = torch.randn((TRAIN_B, T, D), generator=gen).to(dev)
+    lens = torch.randint(2, T + 1, (TRAIN_B,), generator=gen).to(dev)
+    d3 = torch.randn((TRAIN_B, T, D), generator=gen).to(dev)
+    drop = (SAS_DROPOUT, SAS_DROPOUT, 4242)
+    for causal in (True, False):
+        for dt in (torch.float32, torch.bfloat16):
+            xd, dd = x.to(dt), d3.to(dt)
+            _, saved = FB.fused_transformer_layer_train(xd, lens, p, causal, HEADS, "gelu", *drop)
+
+            def call():
+                return FB.fused_transformer_layer_bwd(xd, lens, dd, p, causal, HEADS, "gelu",
+                                                      *drop, saved=saved)
+
+            ms = time_ms(call)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    call()
+                torch.cuda.synchronize()
+            dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA}
+            parts = {}
+            for label, kernel in ROW10_BWD_PHASES:
+                us = sum(v for k, v in dev_us.items() if kernel in k)
+                parts[label] = f"{us / calls / 1e3:.4f}" if us else "not measured"
+            phase("kernel-time-phase", kernel="fused_transformer_layer_bwd", B=TRAIN_B, T=T,
+                  causal=causal, dtype=str(dt).replace("torch.", ""), p=SAS_DROPOUT,
+                  ms=f"{ms:.4f}", **{f"{k}_ms": v for k, v in parts.items()},
+                  device_ms=f"{sum(dev_us.values()) / calls / 1e3:.4f}")
+            del saved
+
+
 def b4r_training_kernel_times(dev):
     """The four new kernels of BERT4Rec's training step at its shapes, fp32:
     the selected-positions layer at B 2,048, T 200, S 40, p = 0.2 (the
@@ -3187,6 +3236,7 @@ def main():
     rows = training_kernel_times(dev)
     attn_kernel_times(dev)
     sas_rows = attn_training_kernel_times(dev)
+    row10_bwd_phase_times(dev)
     b4r_rows = b4r_training_kernel_times(dev)
     xlong_rows = xlong_kernel_times(dev)
     slice_rows = slice_kernel_times(dev)

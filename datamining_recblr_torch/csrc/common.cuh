@@ -111,6 +111,16 @@ __device__ __forceinline__ float drop_mask(const Dropout& dr, int m, int b, int 
   return bits < dr.thresh ? dr.scale : 0.f;
 }
 
+// drop_mask of channels 4g .. 4g+3 at once: the four words of one Philox
+// call (the same bits drop_mask draws channel by channel).
+__device__ __forceinline__ float4 drop_mask4(const Dropout& dr, int m, int b, int t, int g) {
+  if (!dr.on) return make_float4(1.f, 1.f, 1.f, 1.f);
+  const uint4 w = philox4x32_10(make_uint4((unsigned)g, (unsigned)t, (unsigned)b, (unsigned)m),
+                                dr.k0, dr.k1);
+  auto keep = [&](unsigned bits) { return bits < dr.thresh ? dr.scale : 0.f; };
+  return make_float4(keep(w.x), keep(w.y), keep(w.z), keep(w.w));
+}
+
 __device__ __forceinline__ float load_act(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float load_act(const __nv_bfloat16* p, size_t i) {
   return __bfloat162float(p[i]);

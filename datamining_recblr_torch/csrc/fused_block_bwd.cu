@@ -8,24 +8,33 @@
 // It reads the q/k/v projections and the context that a training forward
 // (fused_block.cu) kept, replays the Philox masks, and runs
 //   T'  the tail backward (attn_bwd.cuh) -> dxr, dctx and the tail grads;
-//   A'  per (row, head): for each tile of QT queries, the [QT, T] scores
-//       against every key recomputed and softmaxed as the forward does,
-//       dpd = dctx_h v_h^T, ds, then dq = ds k (written), dk += ds^T q and
+//   A'  per (row, head): for each tile of 32 queries, the scores and dpd
+//       against the keys the tile can weigh, the softmax as the forward
+//       computes it, ds, then dq = ds k (written), dk += ds^T q and
 //       dv += (p m)^T dctx_h, summed over the query tiles in shared memory
-//       (in the block's own slice of device memory when T dh does not fit)
-//       and written once: every element has one writer, no atomics;
+//       (in the block's own rows of dqkv when T dh does not fit) and
+//       written once: every element has one writer, no atomics;
 //   P'  the projection backward (attn_bwd.cuh) -> dx and the Q/K/V grads;
 // then the reduction of the weight-grad partials in a fixed order.
 //
 // What bounds it: the backward recomputes the tail forward and has two
 // gradient products for every forward product, about twice the forward's
-// fp32 FMA work (QK^T and P.V three times), so at the training shape
-// (B 2,048, T 200, D 64, 2 heads, FFN 256) it is bound by fp32 operations.
-// The design keeps every product's operands in shared memory or the
-// read-only cache and moves only dctx, dxr and dq/dk/dv [B, T, .] fp32
-// through device memory between phases.  Left for later PRs: tensor cores
-// (wgmma) for the products, K and V staged in shared memory (A' reads
-// them with a stride of 3D floats), and one fused pass over T' and A'.
+// fp32 FMA work, so at the training shape (B 2,048, T 200, D 64, 2 heads,
+// FFN 256) it is bound by fp32 operations (no tensor cores: TF32 would
+// round operands the plain version keeps, and bf16 gradients stay fp32).
+// What the design does about it: every product of T', A' and P' is the
+// register-tiled smem_mm (gemm_tile.cuh) over operands staged once in
+// shared memory; T' and P' take 64 rows an item, so the weight-grad
+// partials go through device memory half as often (attn_bwd.cuh gives
+// the traffic).  A' walks only the keys the data lets a query tile weigh
+// (below min(lens, last query + 1) causal, below lens bidirectional, all
+// T at lens 0): ~34% of the query-key pairs at lengths 2..200 causal,
+// ~50% bidirectional.  It stages each head's K and V with 16-byte loads
+// (all keys at once where they fit, T 200 at dh 32; key tiles of 64
+// otherwise), and draws one Philox call per four keys, in the pass that
+// forms dp and p m.  Left for later PRs: tensor cores (a bf16 wgmma path
+// has to settle the bf16 rounding policy first), cp.async staging, and T'
+// with two blocks an SM.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "attn_bwd.cuh"
@@ -34,94 +43,203 @@ using namespace recblr;
 
 namespace {
 
-inline size_t attn_bwd_smem_bytes(int QT, int T, int dh, bool kv_smem) {
-  return sizeof(float) *
-         ((size_t)QT * (2 * dh + 2 * T + 1) + (kv_smem ? 2 * (size_t)T * dh : 0));
+// A' tiles: QT queries a step; KT keys a key tile (KT >= T: all keys of
+// the row staged once); dk and dv summed in shared memory (kv_smem) or in
+// the block's own rows of dqkv.
+constexpr int ATTN_BWD_THREADS = 512;  // A' threads: 16 warps, the one block of an SM
+
+struct AttnBwdTiles {
+  int QT, KT, kv_smem;
+};
+
+inline size_t attn_bwd_smem_bytes(int T, int dh, const AttnBwdTiles& c) {
+  const size_t LDH = ld_of(dh), LS = pad8(T) + 4;
+  return sizeof(float) * (3 * c.QT * LDH + 2 * (size_t)c.KT * LDH + 2 * c.QT * LS +
+                          (c.kv_smem ? 2 * (size_t)pad8(T) * LDH : 0)) +
+         (size_t)c.QT * LS;  // keep bytes
 }
 
-// Block (b, h).  qkv, dqkv: [B, T, 3D] fp32; dctx: [B, T, D] fp32.
+// The largest query tile (32, 16, 8) that fits, all keys resident and dk,
+// dv in shared memory where they fit, then key tiles of 64, then dk, dv in
+// device memory.
+inline AttnBwdTiles attn_bwd_tiles(int T, int dh) {
+  for (int QT = 32; QT >= 8; QT /= 2) {
+    const AttnBwdTiles opts[3] = {{QT, pad8(T), 1}, {QT, 64, 1}, {QT, 64, 0}};
+    for (const AttnBwdTiles& c : opts)
+      if (attn_bwd_smem_bytes(T, dh, c) <= (size_t)MAX_SMEM_BYTES) return c;
+  }
+  return {8, 64, 0};
+}
+
+// Block (b, h).  qkv, dqkv: [B, T, 3D] fp32; dctx: [B, T, D] fp32.  For
+// each tile of QT queries: S = q k^T and dpd = dctx_h v^T against the keys
+// the tile can weigh (below min(n, last query + 1) when causal, below n
+// bidirectional; all T where n is 0, whose row averages every key at
+// -10000), in key tiles of KT with k and v staged by 16-byte loads; the
+// softmax and ds = p (dp - sum_j dp p) scale, dp = dpd m, a row a warp,
+// one Philox call per four keys; then dq = ds k (written), dk += ds^T q,
+// dv += (p m)^T dctx_h in the same key tiles.  Keys past those a tile
+// weighs have p = 0 exactly, so skipping them changes no sum.
 template <bool RB>
-__global__ void __launch_bounds__(ATT_THREADS)
+__global__ void __launch_bounds__(ATTN_BWD_THREADS, 1)
 attn_bwd_kernel(const float* __restrict__ qkv, const int* __restrict__ lens,
                 const float* __restrict__ dctx, Dropout dra, float* __restrict__ dqkv, int T,
-                int D, int H, int QT, int causal, float scale, int kv_smem) {
-  extern __shared__ float smem[];
+                int D, int H, AttnBwdTiles tl, int causal, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int QT = tl.QT, KT = tl.KT;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int dh = D / H;
+  const int dh = D / H, dhp = pad8(dh), LDH = ld_of(dh), LS = pad8(T) + 4;
+  const bool resident = KT >= T;
   const int n = lens[b];
+  const int kall = n <= 0 ? T : min(n, T);  // keys a query of the row can weigh
   const int ld = 3 * D;
   const int lane = threadIdx.x % 32;
   const float* qkv_b = qkv + (size_t)b * T * ld;
   float* dqkv_b = dqkv + (size_t)b * T * ld;
-  float* qs = smem;            // [QT, dh] queries of the tile
-  float* dcs = qs + QT * dh;   // [QT, dh] their dctx
-  float* ps = dcs + QT * dh;   // [QT, T]  probabilities -> p * m
-  float* gs = ps + QT * T;     // [QT, T]  dpd -> dp -> ds
-  float* dk;                   // [T, dh]  dk, dv accumulators (row stride ldk)
+  float* qs = smem;                // [QT, LDH] queries of the tile (rounded)
+  float* dos = qs + QT * LDH;      // [QT, LDH] their dctx
+  float* dqs = dos + QT * LDH;     // [QT, LDH] their dq
+  float* ks = dqs + QT * LDH;      // [KT, LDH] keys (rounded)
+  float* vs = ks + KT * LDH;       // [KT, LDH] values (rounded)
+  float* ps = vs + KT * LDH;       // [QT, LS]  scores -> p -> p m (rounded)
+  float* gs = ps + QT * LS;        // [QT, LS]  dpd -> dp -> ds
+  float* dk;                       // dk, dv accumulators (row stride ldk)
   float* dv;
   int ldk;
-  if (kv_smem) {
-    dk = gs + QT * T;
-    dv = dk + T * dh;
-    ldk = dh;
+  unsigned char* mk;               // [QT, LS]  keep bytes of the tile
+  if (tl.kv_smem) {
+    dk = gs + QT * LS;
+    dv = dk + pad8(T) * LDH;
+    ldk = LDH;
+    mk = reinterpret_cast<unsigned char*>(dv + pad8(T) * LDH);
   } else {
     dk = dqkv_b + D + h * dh;
     dv = dqkv_b + 2 * D + h * dh;
     ldk = ld;
+    mk = reinterpret_cast<unsigned char*>(gs + QT * LS);
   }
+  // rows k0 .. k0 + rows - 1 of k (and v) into ks (vs), zero up to a
+  // multiple of 8 rows and dhp columns
+  auto stage_kv = [&](int k0, int rows, bool with_v) {
+    const float* kp = qkv_b + (size_t)k0 * ld + D + h * dh;
+    stage<RB>(ks, LDH, kp, ld, rows, dh, pad8(rows), dhp);
+    if (with_v) stage<RB>(vs, LDH, kp + D, ld, rows, dh, pad8(rows), dhp);
+  };
   for (int i = threadIdx.x; i < T * dh; i += blockDim.x) {
     const int j = i / dh, c = i % dh;
     dk[(size_t)j * ldk + c] = 0.f;
     dv[(size_t)j * ldk + c] = 0.f;
   }
+  if (resident) stage_kv(0, kall, true);
   for (int i0 = 0; i0 < T; i0 += QT) {
     const int rows = min(QT, T - i0);
+    const int nk = causal && n > 0 ? min(kall, i0 + rows) : kall;  // keys the tile weighs
+    const int nkp = pad8(nk);
     __syncthreads();  // the previous tile's reads are done, the zeros written
-    for (int i = threadIdx.x; i < QT * dh; i += blockDim.x) {
-      const int r = i / dh, c = i % dh;
-      const bool in = r < rows;
-      qs[i] = in ? qkv_b[(size_t)(i0 + r) * ld + h * dh + c] : 0.f;
-      dcs[i] = in ? dctx[((size_t)b * T + i0 + r) * D + h * dh + c] : 0.f;
+    stage<RB>(qs, LDH, qkv_b + (size_t)i0 * ld + h * dh, ld, rows, dh, QT, dhp);
+    stage<false>(dos, LDH, dctx + ((size_t)b * T + i0) * D + h * dh, D, rows, dh, QT, dhp);
+    for (int i = threadIdx.x; i < QT * dhp; i += blockDim.x) dqs[(i / dhp) * LDH + i % dhp] = 0.f;
+    // scores and dpd, key tile by key tile
+    for (int k0 = 0; k0 < nk; k0 += KT) {
+      const int kn = min(KT, nk - k0);
+      if (!resident) {
+        __syncthreads();
+        stage_kv(k0, kn, true);
+      }
+      __syncthreads();
+      const float* kp = resident ? ks + k0 * LDH : ks;
+      const float* vp = resident ? vs + k0 * LDH : vs;
+      smem_mm<2, 4, false, true>(qs, LDH, kp, LDH, QT, pad8(kn), dhp,
+                                 [&](int m, int j, float v) { ps[m * LS + k0 + j] = v; });
+      smem_mm<2, 4, false, true>(dos, LDH, vp, LDH, QT, pad8(kn), dhp,
+                                 [&](int m, int j, float v) { gs[m * LS + k0 + j] = v; });
     }
     __syncthreads();
-    // the forward's scores and probabilities
-    tile_mm<8, true, RB, false>(qs, dh, rows, dh, qkv_b + D + h * dh, ld, T, nullptr, ps, T);
-    // dpd = dctx_h v_h^T
-    tile_mm_r<8, true, false, RB, false>(dcs, dh, rows, dh, qkv_b + 2 * D + h * dh, ld, T,
-                                         nullptr, gs, T);
-    __syncthreads();
-    masked_softmax_rows(ps, T, rows, T, n, causal, i0, scale);
-    __syncthreads();
-    // ds = p (dp - sum_j dp p) * scale with dp = dpd * m; ps becomes p * m
-    for (int r = threadIdx.x / 32; r < rows; r += blockDim.x / 32) {
-      float* pr = ps + (size_t)r * T;
-      float* gr = gs + (size_t)r * T;
+    // softmax(dot scale + mask), as softmax_row (attn_common.cuh) computes
+    // it; then dp = dpd m, ds = p (dp - sum_j dp p) scale and p m, with the
+    // mask of four keys from one Philox call
+    for (int r = threadIdx.x / 32; r < QT; r += blockDim.x / 32) {
+      float* pr = ps + (size_t)r * LS;
+      float* gr = gs + (size_t)r * LS;
+      unsigned char* mr = mk + (size_t)r * LS;
+      if (r >= rows) {  // no query: zeros
+        for (int j = lane; j < nkp; j += 32) pr[j] = gr[j] = 0.f;
+        continue;
+      }
+      const int qpos = i0 + r;
+      float mx = __int_as_float(0xff800000);  // -inf
+      for (int j = lane; j < nk; j += 32) {
+        const bool keep = j < n && (!causal || j <= qpos);
+        const float v = __fadd_rn(__fmul_rn(pr[j], scale), keep ? 0.f : MASK_VALUE);
+        pr[j] = v;
+        mx = fmaxf(mx, v);
+      }
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < nk; j += 32) {
+        const float e = exp_t(__fsub_rn(pr[j], mx));
+        pr[j] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
       float acc = 0.f;
-      for (int j = lane; j < T; j += 32) {
-        const float dp = gr[j] * drop_mask(dra, ATTN_PROB + h, b, i0 + r, j);
-        gr[j] = dp;
-        acc += dp * pr[j];
+      for (int g4 = lane; 4 * g4 < nk; g4 += 32) {
+        const float4 m4 = drop_mask4(dra, ATTN_PROB + h, b, qpos, g4);
+        const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = 4 * g4 + q;
+          if (j >= nk) break;
+          const float p = __fdiv_rn(pr[j], sum);
+          const float dp = gr[j] * mv[q];
+          pr[j] = p;
+          gr[j] = dp;
+          mr[j] = mv[q] != 0.f;
+          acc += dp * p;
+        }
       }
       acc = warp_sum(acc);
-      for (int j = lane; j < T; j += 32) {
-        gr[j] = pr[j] * (gr[j] - acc) * scale;
-        pr[j] *= drop_mask(dra, ATTN_PROB + h, b, i0 + r, j);
+      const float mscale = dra.on ? dra.scale : 1.f;
+      for (int j = lane; j < nkp; j += 32) {
+        if (j < nk) {
+          const float p = pr[j];
+          gr[j] = p * (gr[j] - acc) * scale;
+          pr[j] = mm_op<RB>(mr[j] ? p * mscale : 0.f);
+        } else {
+          pr[j] = gr[j] = 0.f;
+        }
       }
     }
+    // dq = ds k; dk += ds^T q; dv += (p m)^T dctx_h, key tile by key tile
+    for (int k0 = 0; k0 < nk; k0 += KT) {
+      const int kn = min(KT, nk - k0), knp = pad8(kn);
+      if (!resident) {
+        __syncthreads();
+        stage_kv(k0, kn, false);
+      }
+      __syncthreads();
+      const float* kp = resident ? ks + k0 * LDH : ks;
+      smem_mm<1, 4, false, false>(gs + k0, LS, kp, LDH, QT, dhp, knp,
+                                  [&](int m, int c, float v) { dqs[m * LDH + c] += v; });
+      smem_mm<4, 4, true, false>(gs + k0, LS, qs, LDH, knp, dhp, QT, [&](int j, int c, float v) {
+        if (j < kn && c < dh) dk[(size_t)(k0 + j) * ldk + c] += v;
+      });
+      smem_mm<4, 4, true, false>(ps + k0, LS, dos, LDH, knp, dhp, QT, [&](int j, int c, float v) {
+        if (j < kn && c < dh) dv[(size_t)(k0 + j) * ldk + c] += v;
+      });
+    }
     __syncthreads();
-    // dq = ds k_h
-    tile_mm_r<8, false, false, RB, false>(gs, T, rows, T, qkv_b + D + h * dh, ld, dh, nullptr,
-                                          dqkv_b + (size_t)i0 * ld + h * dh, ld);
-    // dk += ds^T q_h; dv += (p m)^T dctx_h
-    block_grad_matmul<false, RB>(gs, T, qs, dh, rows, T, dh, dk, ldk);
-    block_grad_matmul<RB, false>(ps, T, dcs, dh, rows, T, dh, dv, ldk);
+    for (int i = threadIdx.x; i < rows * dh; i += blockDim.x) {
+      const int r = i / dh, c = i % dh;
+      dqkv_b[(size_t)(i0 + r) * ld + h * dh + c] = dqs[r * LDH + c];
+    }
   }
-  if (kv_smem) {
+  if (tl.kv_smem) {
     __syncthreads();
     for (int i = threadIdx.x; i < T * dh; i += blockDim.x) {
       const int j = i / dh, c = i % dh;
-      dqkv_b[(size_t)j * ld + D + h * dh + c] = dk[i];
-      dqkv_b[(size_t)j * ld + 2 * D + h * dh + c] = dv[i];
+      dqkv_b[(size_t)j * ld + D + h * dh + c] = dk[j * LDH + c];
+      dqkv_b[(size_t)j * ld + 2 * D + h * dh + c] = dv[j * LDH + c];
     }
   }
 }
@@ -137,29 +255,21 @@ cudaError_t block_bwd(const Tin* x, const int* lens, const Tin* dout, BlockParam
   const BlockGradLayout gl = block_grad_layout(D, I);
   const int N = B * T;
 
-  const size_t s1 = attn_tail_bwd_smem_bytes(D);
-  if ((e = set_smem(attn_tail_bwd_kernel<Tin, ROWS_ALL>, s1)) != cudaSuccess) return e;
-  attn_tail_bwd_kernel<Tin, ROWS_ALL><<<min(G, (N + TR - 1) / TR), ATT_THREADS, s1, stream>>>(
-      x, nullptr, ctx, dout, p, drh, dxr, dctx, partial, gl, N, T, D, I, act, nullptr, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = launch_tail_bwd<Tin, ROWS_ALL>(x, nullptr, ctx, dout, p, drh, dxr, dctx, partial, G,
+                                          gl, N, T, D, I, act, nullptr, 0, stream)) !=
+      cudaSuccess)
+    return e;
 
-  // the query tile: dk and dv in shared memory while two blocks fit an
-  // SM (the training shape), else in device memory with a tile that fits
-  const int dh = D / H;
-  int QT = 32;
-  const int kv_smem = attn_bwd_smem_bytes(QT, T, dh, true) <= 110 * 1024;
-  while (QT > 8 && attn_bwd_smem_bytes(QT, T, dh, kv_smem) > 200 * 1024) QT /= 2;
-  const size_t s2 = attn_bwd_smem_bytes(QT, T, dh, kv_smem);
+  const AttnBwdTiles tl = attn_bwd_tiles(T, D / H);
+  const size_t s2 = attn_bwd_smem_bytes(T, D / H, tl);
   if ((e = set_smem(attn_bwd_kernel<RB>, s2)) != cudaSuccess) return e;
-  attn_bwd_kernel<RB><<<B * H, ATT_THREADS, s2, stream>>>(qkv, lens, dctx, dra, dqkv, T, D, H,
-                                                          QT, causal, scale, kv_smem);
+  attn_bwd_kernel<RB><<<B * H, ATTN_BWD_THREADS, s2, stream>>>(qkv, lens, dctx, dra, dqkv, T, D,
+                                                               H, tl, causal, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  const size_t s3 = proj_bwd_smem_bytes(D, 3);
-  if ((e = set_smem(proj_bwd_kernel<Tin, ROWS_ALL>, s3)) != cudaSuccess) return e;
-  proj_bwd_kernel<Tin, ROWS_ALL><<<min(G, (N + PR - 1) / PR), ATT_THREADS, s3, stream>>>(
-      x, nullptr, dqkv, dxr, dx, p, partial, gl, N, T, D, nullptr, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = launch_proj_bwd<Tin, ROWS_ALL>(x, nullptr, dqkv, dxr, dx, p, partial, G, gl, N, T, D,
+                                          nullptr, 0, stream)) != cudaSuccess)
+    return e;
 
   reduce_partials_kernel<<<(gl.total + 255) / 256, 256, 0, stream>>>(partial, G, gl.total,
                                                                       grads);

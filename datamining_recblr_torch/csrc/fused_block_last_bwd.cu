@@ -135,11 +135,9 @@ cudaError_t block_last_bwd(const Tin* x, const int* lens, const Tin* dout, Block
   cudaError_t e;
   const BlockGradLayout gl = block_grad_layout(D, I);
 
-  const size_t s1 = attn_tail_bwd_smem_bytes(D);
-  if ((e = set_smem(attn_tail_bwd_kernel<Tin, ROWS_LAST>, s1)) != cudaSuccess) return e;
-  attn_tail_bwd_kernel<Tin, ROWS_LAST><<<min(G, (B + TR - 1) / TR), ATT_THREADS, s1, stream>>>(
-      x, lens, ctx, dout, p, drh, dxr, dctx, partial, gl, B, T, D, I, act, nullptr, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = launch_tail_bwd<Tin, ROWS_LAST>(x, lens, ctx, dout, p, drh, dxr, dctx, partial, G, gl,
+                                           B, T, D, I, act, nullptr, 0, stream)) != cudaSuccess)
+    return e;
 
   const size_t s2 = last_attn_bwd_smem_bytes(T, D);
   if ((e = set_smem(last_attn_bwd_kernel<Tin>, s2)) != cudaSuccess) return e;
@@ -147,12 +145,9 @@ cudaError_t block_last_bwd(const Tin* x, const int* lens, const Tin* dout, Block
       x, lens, kv, dctx, p, dra, dkv, dxr, partial, gl, B, T, D, H, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  const int N = B * T;
-  const size_t s3 = proj_bwd_smem_bytes(D, 2);
-  if ((e = set_smem(proj_bwd_kernel<Tin, ROWS_LAST>, s3)) != cudaSuccess) return e;
-  proj_bwd_kernel<Tin, ROWS_LAST><<<min(G, (N + PR - 1) / PR), ATT_THREADS, s3, stream>>>(
-      x, lens, dkv, dxr, dx, p, partial, gl, N, T, D, nullptr, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = launch_proj_bwd<Tin, ROWS_LAST>(x, lens, dkv, dxr, dx, p, partial, G, gl, B * T, T, D,
+                                           nullptr, 0, stream)) != cudaSuccess)
+    return e;
 
   reduce_partials_kernel<<<(gl.total + 255) / 256, 256, 0, stream>>>(partial, G, gl.total,
                                                                       grads);

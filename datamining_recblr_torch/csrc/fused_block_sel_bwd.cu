@@ -136,6 +136,8 @@ sel_attn_bwd_kernel(const float* __restrict__ kv, const float* __restrict__ q,
   }
 }
 
+constexpr int TR = 32;  // selected rows per Q' item
+
 inline size_t sel_q_bwd_smem_bytes(int D) { return sizeof(float) * 2 * (size_t)TR * D; }
 
 // Q': items of TR of the B*S selected rows.  W_q grad += xq^T dq, b_q grad
@@ -183,11 +185,9 @@ cudaError_t block_sel_bwd(const Tin* x, const int* lens, const int* sel, const T
   const BlockGradLayout gl = block_grad_layout(D, I);
   const int NS = B * S;
 
-  const size_t s1 = attn_tail_bwd_smem_bytes(D);
-  if ((e = set_smem(attn_tail_bwd_kernel<Tin, ROWS_SEL>, s1)) != cudaSuccess) return e;
-  attn_tail_bwd_kernel<Tin, ROWS_SEL><<<min(G, (NS + TR - 1) / TR), ATT_THREADS, s1, stream>>>(
-      x, lens, ctx, dout, p, drh, dxr, dctx, partial, gl, NS, T, D, I, act, sel, S);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = launch_tail_bwd<Tin, ROWS_SEL>(x, lens, ctx, dout, p, drh, dxr, dctx, partial, G, gl,
+                                          NS, T, D, I, act, sel, S, stream)) != cudaSuccess)
+    return e;
 
   // dk and dv in shared memory while two blocks fit an SM (the training
   // shape), else in device memory with a tile that fits
@@ -208,12 +208,9 @@ cudaError_t block_sel_bwd(const Tin* x, const int* lens, const int* sel, const T
       x, sel, dq, p, dxr, partial, gl, NS, T, D, S);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  const int N = B * T;
-  const size_t s4 = proj_bwd_smem_bytes(D, 2);
-  if ((e = set_smem(proj_bwd_kernel<Tin, ROWS_SEL>, s4)) != cudaSuccess) return e;
-  proj_bwd_kernel<Tin, ROWS_SEL><<<min(G, (N + PR - 1) / PR), ATT_THREADS, s4, stream>>>(
-      x, lens, dkv, dxr, dx, p, partial, gl, N, T, D, sel, S);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = launch_proj_bwd<Tin, ROWS_SEL>(x, lens, dkv, dxr, dx, p, partial, G, gl, B * T, T, D,
+                                          sel, S, stream)) != cudaSuccess)
+    return e;
 
   reduce_partials_kernel<<<(gl.total + 255) / 256, 256, 0, stream>>>(partial, G, gl.total,
                                                                       grads);

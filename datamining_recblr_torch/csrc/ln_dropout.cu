@@ -23,16 +23,20 @@
 // B 2,048 in fp32), also bound by bytes.  The LN statistics are
 // recomputed from x (no stash), the mask is drawn again.  dpos [T, D] is
 // the batch sum of the LN input's gradient and dscale, dbias [D] sums
-// over every (row, position), all without atomics: block (t, c) sums
-// position t over batch chunk c in a fixed order into its own partial
-// row; reduce_partials_kernel sums dpos over the chunks and
-// colsum_kernel dscale and dbias over the (chunk, position) rows, both
-// in a fixed order, so two runs give the same bits (PRE has no dpos).
-// Left for later: 16-byte loads, and dscale / dbias summed in the same
-// pass as dpos.
+// over every (row, position), all without atomics.  A row is a segment of
+// the fewest lanes (a power of two) whose groups of four channels cover D
+// (16 lanes at D 64, one group each; 32 lanes of up to four groups at
+// D 512), so no register slot idles where D fills the groups.  Each lane
+// loads its four channels with one 16-byte load (8 bytes in bf16) and
+// takes their mask from one Philox call; a warp holds 32 / lanes rows,
+// each segment walks its position over a chunk of batch rows with two
+// rows in flight.  dpos, dscale and dbias are summed in the same pass into
+// fixed-order partials (per chunk and position; per chunk and tile of
+// positions), which one small launch adds up in order with coalesced
+// reads, so two runs give the same bits (PRE has no dpos).
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
-#include "common_bwd.cuh"
+#include "common.cuh"
 
 using namespace recblr;
 
@@ -88,110 +92,235 @@ ln_pos_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
   }
 }
 
-// Block (t, c): position t of batch rows c, c + chunks, ...; warp w takes
-// every LN_WARPS-th of them.  Writes dx, and the block's sums of dv
-// (pos_part[c, t, :], not under PRE) and of dy * vhat, dy
-// (sb_part[c * T + t, :]).
-template <typename Tin, bool PRE>
+// Four consecutive channels d .. d+3 of a row (16-byte loads in fp32,
+// 8-byte in bf16, where D % 4 == 0 makes them aligned), zero beyond D.
+__device__ __forceinline__ void load4(const float* p, size_t o, int d, int D, float (&v)[4]) {
+  if (D % 4 == 0 && d < D) {
+    const float4 q = *reinterpret_cast<const float4*>(p + o + d);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = d + i < D ? p[o + d + i] : 0.f;
+  }
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, size_t o, int d, int D,
+                                      float (&v)[4]) {
+  if (D % 4 == 0 && d < D) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p + o + d);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = d + i < D ? __bfloat162float(p[o + d + i]) : 0.f;
+  }
+}
+__device__ __forceinline__ void store4(float* p, size_t o, int d, int D, const float (&v)[4]) {
+  if (D % 4 == 0 && d < D) {
+    *reinterpret_cast<float4*>(p + o + d) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (d + i < D) p[o + d + i] = v[i];
+  }
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, size_t o, int d, int D,
+                                       const float (&v)[4]) {
+  if (D % 4 == 0 && d < D) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const unsigned*>(&a);
+    q.y = *reinterpret_cast<const unsigned*>(&b);
+    *reinterpret_cast<uint2*>(p + o + d) = q;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (d + i < D) p[o + d + i] = __float2bfloat16(v[i]);
+  }
+}
+
+// The sum over the `lpr` lanes of a row's segment (a power of two).
+__device__ __forceinline__ float seg_sum(float v, int lpr) {
+  for (int o = lpr / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The row segment of the backward: `lpr` lanes (a power of two, at most
+// 32) cover a row's D channels in NG groups of four a lane (group
+// g = lane + k * lpr holds channels 4g .. 4g+3), so no register slot is
+// idle where D fills the groups.
+inline int ln_bwd_groups(int D) { return D <= 128 ? 1 : D <= 256 ? 2 : 4; }
+inline int ln_bwd_lanes(int D) {
+  const int groups = (D + 3) / 4;
+  int l = 1;
+  while (l < groups && l < 32) l *= 2;
+  return l;
+}
+
+// Block (tile, c): positions tile * P .. tile * P + P - 1 (P = LN_THREADS
+// / lpr, one row segment each) over the batch rows of chunk c, b = c * bc
+// .. c * bc + bc - 1, two rows in flight a segment (one at D > 256).  Writes dx, and in the
+// same pass the chunk's sums for each position of dv (pos_part[c, t, :],
+// not under PRE) and the block's sums over its positions of dy * vhat and
+// dy (sb_part[c * tiles + tile, :], segments added in order): one fixed
+// order, no atomics.
+template <typename Tin, bool PRE, int NG>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_pos_bwd_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
                   const Tin* __restrict__ dout, const float* __restrict__ s, Dropout dr,
                   Tin* __restrict__ dx, float* __restrict__ pos_part,
-                  float* __restrict__ sb_part, int B, int T, int D, int chunks) {
-  __shared__ float acc[3 * 32 * PER_LANE];  // dpos, dscale, dbias of the block
-  const int t = blockIdx.x, c = blockIdx.y;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  float dp[PER_LANE], ds[PER_LANE], db[PER_LANE];
+                  float* __restrict__ sb_part, int B, int T, int D, int bc, int lpr) {
+  __shared__ __align__(16) float red[8 * 2 * 4 * 32 * 4];  // [segments, 2D]
+  const int segs = LN_THREADS / lpr;
+  const int seg = threadIdx.x / lpr, sl = threadIdx.x % lpr;
+  const int t = blockIdx.x * segs + seg;
+  const bool on_t = t < T;
+  const int c = blockIdx.y;
+  const int b0 = c * bc, b1 = min(B, b0 + bc);
+  float sc[NG][4], ps[NG][4], dp[NG][4], ds[NG][4], db[NG][4];
 #pragma unroll
-  for (int k = 0; k < PER_LANE; ++k) dp[k] = ds[k] = db[k] = 0.f;
-  for (int b = c + chunks * warp; b < B; b += chunks * LN_WARPS) {
-    const size_t o = ((size_t)b * T + t) * D;
-    float v[PER_LANE], dy[PER_LANE], m[PER_LANE];
-    float sum = 0.f;
+  for (int k = 0; k < NG; ++k) {
+    const int d = 4 * (sl + k * lpr);
+    load4(s, 0, d, D, sc[k]);
+    if (PRE || !on_t) {
 #pragma unroll
-    for (int k = 0; k < PER_LANE; ++k) {
-      const int d = lane + 32 * k;
+      for (int i = 0; i < 4; ++i) ps[k][i] = 0.f;
+    } else {
+      load4(pos, (size_t)t * D, d, D, ps[k]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dp[k][i] = ds[k][i] = db[k][i] = 0.f;
+  }
+  constexpr int R = NG >= 4 ? 1 : 2;  // rows in flight
+  for (int bb = b0; bb < b1; bb += R) {
+    float v[R][NG][4], dy[R][NG][4], m[R][NG][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int b = bb + r;
+      const bool live = on_t && b < b1;
+      const size_t o = ((size_t)b * T + t) * D;
+#pragma unroll
+      for (int k = 0; k < NG; ++k) {
+        const int g = sl + k * lpr;
+        const int d = 4 * g;
+        if (live && d < D) {
+          load4(x, o, d, D, v[r][k]);
+          load4(dout, o, d, D, dy[r][k]);
+          const float4 mk = drop_mask4(dr, M0, b, t, g);
+          m[r][k][0] = mk.x, m[r][k][1] = mk.y, m[r][k][2] = mk.z, m[r][k][3] = mk.w;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[r][k][i] = dy[r][k][i] = m[r][k][i] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int b = bb + r;
+      const bool live = on_t && b < b1;
       // the mask multiplies the LN input under PRE, the output otherwise
-      m[k] = d < D ? drop_mask(dr, M0, b, t, d) : 0.f;
-      if (PRE) {
-        v[k] = d < D ? load_act(x, o + d) * m[k] : 0.f;
-        dy[k] = d < D ? load_act(dout, o + d) : 0.f;
-      } else {
-        v[k] = d < D ? load_act(x, o + d) + __ldg(pos + (size_t)t * D + d) : 0.f;
-        dy[k] = d < D ? load_act(dout, o + d) * m[k] : 0.f;
-      }
-      sum += v[k];
-    }
-    const float mu = warp_sum(sum) / D;
-    float sq = 0.f;
+      float sum = 0.f;
 #pragma unroll
-    for (int k = 0; k < PER_LANE; ++k) {
-      const int d = lane + 32 * k;
-      v[k] -= mu;
-      if (d < D) sq += v[k] * v[k];
-    }
-    const float inv = rsqrtf(warp_sum(sq) / D + LN_EPS);
-    float s1 = 0.f, s2 = 0.f;
+      for (int k = 0; k < NG; ++k)
 #pragma unroll
-    for (int k = 0; k < PER_LANE; ++k) {
-      const int d = lane + 32 * k;
-      v[k] *= inv;  // vhat
-      if (d < D) {
-        const float g = dy[k] * __ldg(s + d);
-        ds[k] += dy[k] * v[k];
-        db[k] += dy[k];
-        s1 += g;
-        s2 += g * v[k];
-      }
-    }
-    const float m1 = warp_sum(s1) / D;
-    const float m2 = warp_sum(s2) / D;
+        for (int i = 0; i < 4; ++i) {
+          if (PRE) {
+            v[r][k][i] *= m[r][k][i];
+          } else {
+            v[r][k][i] += ps[k][i];
+            dy[r][k][i] *= m[r][k][i];
+          }
+          sum += v[r][k][i];
+        }
+      const float mu = seg_sum(sum, lpr) / D;
+      float sq = 0.f;
 #pragma unroll
-    for (int k = 0; k < PER_LANE; ++k) {
-      const int d = lane + 32 * k;
-      if (d < D) {
-        const float dv = inv * (dy[k] * __ldg(s + d) - m1 - v[k] * m2);
-        store_act(dx, o + d, PRE ? dv * m[k] : dv);
-        dp[k] += dv;
+      for (int k = 0; k < NG; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool in = 4 * (sl + k * lpr) + i < D;
+          v[r][k][i] = in ? v[r][k][i] - mu : 0.f;
+          sq += v[r][k][i] * v[r][k][i];
+        }
+      const float inv = rsqrtf(seg_sum(sq, lpr) / D + LN_EPS);
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < NG; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[r][k][i] *= inv;  // vhat
+          const float g = dy[r][k][i] * sc[k][i];
+          ds[k][i] += dy[r][k][i] * v[r][k][i];
+          db[k][i] += dy[r][k][i];
+          s1 += g;
+          s2 += g * v[r][k][i];
+        }
+      const float m1 = seg_sum(s1, lpr) / D;
+      const float m2 = seg_sum(s2, lpr) / D;
+      const size_t o = ((size_t)b * T + t) * D;
+#pragma unroll
+      for (int k = 0; k < NG; ++k) {
+        float out[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float dv = inv * (dy[r][k][i] * sc[k][i] - m1 - v[r][k][i] * m2);
+          dp[k][i] += live ? dv : 0.f;
+          out[i] = PRE ? dv * m[r][k][i] : dv;
+        }
+        const int d = 4 * (sl + k * lpr);
+        if (live && d < D) store4(dx, o, d, D, out);
       }
     }
   }
-  // the warps' sums, added in warp order
-  for (int i = threadIdx.x; i < 3 * 32 * PER_LANE; i += blockDim.x) acc[i] = 0.f;
+  // dpos of this chunk at position t; dscale, dbias summed over the
+  // block's positions in segment order
+  const int D2 = 2 * D;
+#pragma unroll
+  for (int k = 0; k < NG; ++k) {
+    const int d = 4 * (sl + k * lpr);
+    if (!PRE && on_t) store4(pos_part, ((size_t)c * T + t) * D, d, D, dp[k]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (d + i < D) {
+        red[seg * D2 + d + i] = on_t ? ds[k][i] : 0.f;
+        red[seg * D2 + D + d + i] = on_t ? db[k][i] : 0.f;
+      }
+    }
+  }
   __syncthreads();
-  for (int w = 0; w < LN_WARPS; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int k = 0; k < PER_LANE; ++k) {
-        const int d = lane + 32 * k;
-        acc[d] += dp[k];
-        acc[32 * PER_LANE + d] += ds[k];
-        acc[64 * PER_LANE + d] += db[k];
-      }
-    }
-    __syncthreads();
-  }
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    if (!PRE) pos_part[((size_t)c * T + t) * D + d] = acc[d];
-    sb_part[((size_t)c * T + t) * 2 * D + d] = acc[32 * PER_LANE + d];
-    sb_part[((size_t)c * T + t) * 2 * D + D + d] = acc[64 * PER_LANE + d];
+  for (int j = threadIdx.x; j < D2; j += blockDim.x) {
+    float acc = 0.f;
+    for (int q = 0; q < segs; ++q) acc += red[q * D2 + j];
+    sb_part[((size_t)c * gridDim.x + blockIdx.x) * D2 + j] = acc;
   }
 }
 
-// out[j] = sum over r < rows of a[r * cols + j]: one block per column,
-// each thread a fixed stride of rows, then a fixed tree.
-__global__ void __launch_bounds__(LN_THREADS)
-colsum_kernel(const float* __restrict__ a, int rows, int cols, float* __restrict__ out) {
-  __shared__ float sh[LN_THREADS];
-  float sum = 0.f;
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) sum += a[(size_t)r * cols + blockIdx.x];
-  sh[threadIdx.x] = sum;
+// out[j] = sum over r < R, in order, of a[r * C + j] for j < C: 32
+// columns a block, eight row lanes each summing every eighth row, then
+// the eight added in order.  Blocks [0, nb1) take (a1, R1, C1, o1), the
+// rest (a2, R2, C2, o2): the backward's dpos and its dscale, dbias in one
+// launch.
+__global__ void __launch_bounds__(256)
+sum_rows_kernel(const float* __restrict__ a1, int R1, int C1, float* __restrict__ o1, int nb1,
+                const float* __restrict__ a2, int R2, int C2, float* __restrict__ o2) {
+  __shared__ float sh[8][32];
+  const bool first = (int)blockIdx.x < nb1;
+  const float* a = first ? a1 : a2;
+  const int R = first ? R1 : R2, C = first ? C1 : C2;
+  float* o = first ? o1 : o2;
+  const int col = (first ? blockIdx.x : blockIdx.x - nb1) * 32 + threadIdx.x % 32;
+  const int rl = threadIdx.x / 32;
+  float acc = 0.f;
+  if (col < C)
+    for (int r = rl; r < R; r += 8) acc += a[(size_t)r * C + col];
+  sh[rl][threadIdx.x % 32] = acc;
   __syncthreads();
-  for (int o = LN_THREADS / 2; o > 0; o >>= 1) {
-    if (threadIdx.x < o) sh[threadIdx.x] += sh[threadIdx.x + o];
-    __syncthreads();
+  if (rl == 0 && col < C) {
+    float t = 0.f;
+    for (int k = 0; k < 8; ++k) t += sh[k][threadIdx.x];
+    o[col] = t;
   }
-  if (threadIdx.x == 0) out[blockIdx.x] = sh[0];
 }
 
 template <bool PRE, typename Tin>
@@ -203,22 +332,40 @@ cudaError_t ln_pos_fwd(const Tin* x, const float* pos, const float* s, const flo
   return cudaGetLastError();
 }
 
-// PRE: no pos, pos_part or dpos.
+// PRE: no pos, pos_part or dpos.  chunks: the batch chunks of the grid
+// (pos_part [chunks, T, D]; sb_part at least [chunks * T, 2D]).
+template <bool PRE, int NG, typename Tin>
+cudaError_t ln_pos_bwd_ng(const Tin* x, const float* pos, const Tin* dout, const float* s,
+                          Dropout dr, Tin* dx, float* pos_part, float* sb_part, float* dpos,
+                          float* dsb, int B, int T, int D, int chunks, cudaStream_t stream) {
+  const int lpr = ln_bwd_lanes(D);
+  const int tiles = (T + LN_THREADS / lpr - 1) / (LN_THREADS / lpr);
+  const int bc = (B + chunks - 1) / chunks;
+  ln_pos_bwd_kernel<Tin, PRE, NG><<<dim3(tiles, chunks), LN_THREADS, 0, stream>>>(
+      x, pos, dout, s, dr, dx, pos_part, sb_part, B, T, D, bc, lpr);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int nb1 = PRE ? 0 : (T * D + 31) / 32;
+  sum_rows_kernel<<<nb1 + (2 * D + 31) / 32, 256, 0, stream>>>(
+      pos_part, chunks, T * D, dpos, nb1, sb_part, chunks * tiles, 2 * D, dsb);
+  return cudaGetLastError();
+}
+
 template <bool PRE, typename Tin>
 cudaError_t ln_pos_bwd(const Tin* x, const float* pos, const Tin* dout, const float* s,
                        Dropout dr, Tin* dx, float* pos_part, float* sb_part, float* dpos,
                        float* dsb, int B, int T, int D, int chunks, cudaStream_t stream) {
-  ln_pos_bwd_kernel<Tin, PRE><<<dim3(T, chunks), LN_THREADS, 0, stream>>>(
-      x, pos, dout, s, dr, dx, pos_part, sb_part, B, T, D, chunks);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  if (!PRE) {
-    reduce_partials_kernel<<<(T * D + 255) / 256, 256, 0, stream>>>(pos_part, chunks, T * D,
-                                                                    dpos);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  switch (ln_bwd_groups(D)) {
+    case 1:
+      return ln_pos_bwd_ng<PRE, 1>(x, pos, dout, s, dr, dx, pos_part, sb_part, dpos, dsb, B, T,
+                                   D, chunks, stream);
+    case 2:
+      return ln_pos_bwd_ng<PRE, 2>(x, pos, dout, s, dr, dx, pos_part, sb_part, dpos, dsb, B, T,
+                                   D, chunks, stream);
+    default:
+      return ln_pos_bwd_ng<PRE, 4>(x, pos, dout, s, dr, dx, pos_part, sb_part, dpos, dsb, B, T,
+                                   D, chunks, stream);
   }
-  colsum_kernel<<<2 * D, LN_THREADS, 0, stream>>>(sb_part, chunks * T, 2 * D, dsb);
-  return cudaGetLastError();
 }
 
 }  // namespace

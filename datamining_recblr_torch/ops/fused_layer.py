@@ -620,9 +620,10 @@ def _launch_ln_fwd(x, pos, scale, bias, dropout_p, seed):
 
 
 def _ln_bwd_chunks(b: int) -> int:
-    """Batch chunks of the prologue backward's grid: each block sums dpos
-    over the rows of one chunk at one position."""
-    return max(1, min(16, b // 128))
+    """Batch chunks of the LN backwards' grid (csrc/ln_dropout.cu): each
+    block walks the rows of one chunk (32 or more) at a tile of positions,
+    so B 2,048 gives 64 chunks and enough blocks to fill the card."""
+    return max(1, min(64, b // 32))
 
 
 def fused_ln_dropout_bwd(x, pos, dout, scale, bias, dropout_p=0.0, seed=0):

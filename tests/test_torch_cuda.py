@@ -519,6 +519,54 @@ def test_block_bwd_kernel_matches_plain(dev, d, heads, inner, causal, dtype, p_d
     assert torch.equal(dx2, dx) and all(torch.equal(grads2[k], grads[k]) for k in grads)
 
 
+# (D, heads, inner, T, lens): shapes the backward's tiles (64-row items,
+# 32-query and 64-key tiles) do not divide: T 200 with lengths that end
+# inside a key tile, T 1,024 (the largest `supports` takes, keys in tiles
+# and dk, dv in device memory) and D 128 (one head of 128, two of 64)
+UNTILED_SHAPES = [
+    (64, 2, 256, 200, [0, 1, 200, 71, 130, 193]),
+    (64, 2, 256, 1024, [0, 1, 1024, 600]),
+    (128, 1, 320, 90, [0, 1, 90, 37, 65]),
+    (128, 2, 512, 200, [0, 1, 200, 129]),
+]
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,heads,inner,t,lens", UNTILED_SHAPES)
+def test_block_bwd_kernel_at_shapes_the_tiles_do_not_divide(dev, d, heads, inner, t, lens,
+                                                          causal, dtype, p_drop):
+    """As test_block_bwd_kernel_matches_plain, with x on a 1/8 grid and the
+    Q/K projections on a 1/32 grid, so that every score is exact in fp32
+    whatever the order of its sum: the lens-0 row scores at -10000, where
+    an fp32 ulp is 2^-10, and a last-bit difference there moves its
+    gradients beyond GRAD_RTOL at these widths, on any implementation."""
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(19)
+    p = _block_params(rng, d, inner, dev)
+    for name in ("w_q", "b_q", "w_k", "b_k"):
+        p[name] = torch.round(p[name] * 32.0) / 32.0
+    dt = getattr(torch, dtype)
+    b = len(lens)
+    x = torch.from_numpy(np.round(rng.standard_normal((b, t, d)) * 8.0).astype(np.float32) / 8.0)
+    x = x.to(dev, dt)
+    dout = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).to(dev, dt)
+    lens = torch.tensor(lens, device=dev)
+    flags = (causal, heads, "gelu", p_drop, p_drop, 97)
+    before = FB.fused_transformer_layer_bwd.launches
+    out, saved = FB.fused_transformer_layer_train(x, lens, p, *flags)
+    dx, grads = FB.fused_transformer_layer_bwd(x, lens, dout, p, *flags, saved=saved)
+    assert FB.fused_transformer_layer_bwd.launches == before + 1
+    assert dx.dtype == dt and dx.shape == x.shape
+    want = _plain_vjp(lambda a, q: FB.fused_transformer_layer_plain(a, lens, q, *flags),
+                      x, p, dout)
+    _assert_attn_grads((out, dx, grads), want, dtype)
+    dx2, grads2 = FB.fused_transformer_layer_bwd(x, lens, dout, p, *flags, saved=saved)
+    assert torch.equal(dx2, dx) and all(torch.equal(grads2[k], grads[k]) for k in grads)
+
+
 @pytest.mark.parametrize("p_drop", [0.0, 0.5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d,heads,inner", BLOCK_SHAPES)
@@ -542,11 +590,14 @@ def test_block_last_bwd_kernel_matches_plain(dev, d, heads, inner, dtype, p_drop
     _assert_attn_grads((out, dx, grads), want, dtype)
     # rows that select nothing still attend to every key: dx is not 0 there
     assert dx[0].abs().sum() > 0 and dx[5].abs().sum() > 0
+    # deterministic: the same call gives the same bits
+    dx2, grads2 = FB.fused_transformer_layer_last_bwd(x, lens, dout, p, *flags, saved=saved)
+    assert torch.equal(dx2, dx) and all(torch.equal(grads2[k], grads[k]) for k in grads)
 
 
 @pytest.mark.parametrize("p_drop", [0.0, 0.5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 48, 512])
+@pytest.mark.parametrize("d", [64, 48, 512, 16, 128])
 def test_ln_prologue_bwd_kernel_matches_plain(dev, d, dtype, p_drop):
     rng = np.random.default_rng(18)
     t = 45
@@ -563,6 +614,41 @@ def test_ln_prologue_bwd_kernel_matches_plain(dev, d, dtype, p_drop):
     want = _plain_vjp(lambda a, q: FL.fused_ln_dropout_plain(a, q["pos"], q["s"], q["b"],
                                                              p_drop, 7), x, p, dout)
     _assert_grads((out, dx, {"pos": dpos, "s": ds, "b": db}), want, dtype)
+    again = FL.fused_ln_dropout_bwd(x, p["pos"], dout, p["s"], p["b"], p_drop, 7)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, dpos, ds, db)))
+
+
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 64, 128, 30])
+def test_ln_bwd_kernels_at_a_batch_no_row_group_divides(dev, d, pre, dtype):
+    """Rows 6 (pre False) and 5 (pre True) at B 301 (nine chunks of 34
+    rows, the last of 29, walked two rows at a time) and T 23 (no whole
+    tile of positions), D 30 without 16-byte rows among the widths; the
+    same bits on a rerun."""
+    rng = np.random.default_rng(19 + d)
+    b, t = 301, 23
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy((2 * rng.standard_normal((b, t, d)) + 1).astype(np.float32)).to(dev, dt)
+    dout = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).to(dev, dt)
+    p = {name: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+         for name, shape in (("pos", (t, d)), ("s", (d,)), ("b", (d,)))}
+    if pre:
+        del p["pos"]
+        got = FL.fused_dropout_ln_bwd(x, dout, p["s"], p["b"], 0.3, 11)
+        out = FL.fused_dropout_ln(x, p["s"], p["b"], 0.3, 11)
+        want = _plain_vjp(lambda a, q: FL.fused_dropout_ln_plain(a, q["s"], q["b"], 0.3, 11),
+                          x, p, dout)
+        again = FL.fused_dropout_ln_bwd(x, dout, p["s"], p["b"], 0.3, 11)
+        _assert_grads((out, got[0], {"s": got[1], "b": got[2]}), want, dtype)
+    else:
+        got = FL.fused_ln_dropout_bwd(x, p["pos"], dout, p["s"], p["b"], 0.3, 11)
+        out = FL.fused_ln_dropout(x, p["pos"], p["s"], p["b"], 0.3, 11)
+        want = _plain_vjp(lambda a, q: FL.fused_ln_dropout_plain(a, q["pos"], q["s"], q["b"],
+                                                                 0.3, 11), x, p, dout)
+        again = FL.fused_ln_dropout_bwd(x, p["pos"], dout, p["s"], p["b"], 0.3, 11)
+        _assert_grads((out, got[0], {"pos": got[1], "s": got[2], "b": got[3]}), want, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 def test_attention_mask_bits_match_plain(dev):
@@ -1140,6 +1226,8 @@ def test_dropout_ln_kernels_match_plain(dev, d, dtype, p_drop):
     want = _plain_vjp(lambda a, p: FL.fused_dropout_ln_plain(a, p["s"], p["b"], p_drop, 4321),
                       x, q, dout)
     _assert_grads((out, dx, {"s": ds, "b": db}), want, dtype)
+    again = FL.fused_dropout_ln_bwd(x, dout, q["s"], q["b"], p_drop, 4321)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, ds, db)))
 
 
 def test_dropout_ln_mask_bits_match_plain(dev):

@@ -303,6 +303,52 @@ def test_bf16_rounding_passes_gradients_unrounded():
 
 
 # ---------------------------------------------------------------------------
+# the same gradients at the backward kernels' real widths (the bench
+# shape's D 64, 2 heads, FFN 256), a small B and T with lengths 0, 1 and
+# T: the function csrc/fused_block_bwd.cu and csrc/ln_dropout.cu compute
+# ---------------------------------------------------------------------------
+
+WB, WT, WD, WHEADS, WINNER = 3, 16, 64, 2, 256
+WLENS = np.array([0, 1, WT], np.int32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_layer_grads_match_jax_at_kernel_widths(causal):
+    """x and the Q/K projections on a 1/8 grid, so q, k and every score
+    are exact in fp32 on both sides: the lens-0 row scores at -10000,
+    where an fp32 ulp is 2^-10, and a last-bit difference in a score
+    moves that row's gradients beyond this tolerance at this width."""
+    rng = np.random.default_rng(61 + causal)
+    p = _params(rng, WD, WINNER)
+    for name in ("w_q", "b_q", "w_k", "b_k"):
+        p[name] = np.round(p[name] * 8.0) / 8.0
+    x = np.round(rng.standard_normal((WB, WT, WD)) * 8.0).astype(np.float32) / 8.0
+    dout = rng.standard_normal((WB, WT, WD)).astype(np.float32)
+    lens = torch.from_numpy(WLENS)
+    got = _torch_grads(lambda a, q: FB.fused_transformer_layer(a, lens, q, causal, WHEADS),
+                       torch.from_numpy(x), _torch(p), torch.from_numpy(dout))
+    want = _jax_grads(lambda a, q: JFB.fused_transformer_layer(
+        a, jnp.asarray(WLENS), SEED, q, causal, WHEADS, 0.0, 0.0, "gelu"), jnp.asarray(x),
+        _jax(p), dout)
+    _check_grads(got, want)
+
+
+def test_ln_prologue_grads_match_jax_at_kernel_widths():
+    rng = np.random.default_rng(67)
+    x = (2.0 * rng.standard_normal((WB, WT, WD)) + 0.5).astype(np.float32)
+    pos = rng.standard_normal((WT, WD)).astype(np.float32)
+    s = (1.0 + 0.1 * rng.standard_normal(WD)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(WD)).astype(np.float32)
+    dout = rng.standard_normal((WB, WT, WD)).astype(np.float32)
+    args = [torch.from_numpy(a).requires_grad_() for a in (x, pos, s, b)]
+    (FL.fused_ln_dropout(*args) * torch.from_numpy(dout)).sum().backward()
+    want = jax.grad(lambda *a: jnp.sum(j_ln_dropout(a[0], a[1], SEED, a[2], a[3], 0.0) * dout),
+                    argnums=(0, 1, 2, 3))(*map(jnp.asarray, (x, pos, s, b)))
+    _check_grads({n: a.grad for n, a in zip(("x", "pos", "s", "b"), args)},
+                 dict(zip(("x", "pos", "s", "b"), want)))
+
+
+# ---------------------------------------------------------------------------
 # the selected-positions layer (BERT4Rec's cloze positions): repeated
 # positions (the padded cloze slots all select position 0) and a lens-0 row
 # ---------------------------------------------------------------------------
