@@ -70,7 +70,11 @@ per-op composition, forward and backward) and, phase by phase:
   same model with every kernel swapped for its plain version, time,
   profile, peak memory); then SASRec at T 2,048 (``long``: hidden 64, one
   request of 8 users and one step at batch 32 against the plain
-  versions, untimed);
+  versions, untimed); then both at hidden 528 (``h528``: 2 heads of 264,
+  FFN 2,112, T 200, bf16, untimed: one request of 8 users and one step at
+  batch 32 against the plain versions, with no launch of the per-op
+  kernels, whose widths it exceeds, and one of the table gradient, in
+  two column slices);
 * runs ``Trainer.fit`` and ``evaluate(load_best=True)`` for the three on
   a small Markov dataset: the loss falls and valid NDCG@10 is above 0;
 * times every kernel beside its bound, its plain version and, where one
@@ -78,7 +82,8 @@ per-op composition, forward and backward) and, phase by phase:
   ``F.scaled_dot_product_attention`` with the same additive mask), and
   the transformer-layer backward by phase (``kernel-time-phase``: T', A',
   P' and the reduction at the bench shape, causal and bidirectional,
-  fp32 and bf16).
+  fp32 and bf16) and the chunked CE's backward by pass (pass a, the
+  reduction, pass b at the XLong loss, on the tensor cores).
 
 Each phase prints one line; any failure exits non-zero.  The line before
 the last is the kernels' JSON record, the last line the device JSON.
@@ -122,6 +127,7 @@ N_ITEMS, TOP_K = 3417, 10
 # cores, bf16 on the tensor cores (dense) and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 FP32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_RTOL = 2.0 ** -7  # one bf16 ulp of the value, at most
@@ -269,12 +275,14 @@ def _params_bytes(p):
     return sum(v.numel() * v.element_size() for v in p.values())
 
 
-def _bound(flops, nbytes, bf16_flops=0):
+def _bound(flops, nbytes, bf16_flops=0, tf32_flops=0):
     """(bound ms, FLOPs, what bounds it); ``flops`` at the fp32 peak,
-    ``bf16_flops`` (products of bf16 operands) at the bf16 peak."""
-    t_ops = flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+    ``bf16_flops`` (products of bf16 operands) at the bf16 peak,
+    ``tf32_flops`` (products of TF32 operands) at the TF32 peak."""
+    t_ops = (flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+             + tf32_flops / PEAK_TF32_FLOPS)
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3, flops + bf16_flops,
+    return (max(t_ops, t_bytes) * 1e3, flops + bf16_flops + tf32_flops,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -415,12 +423,16 @@ def ce_bound_ms(n, v, act_bytes, train=False, mm_bf16=False):
 
 def ce_bwd_bound_ms(n, v, act_bytes, mm_bf16=False):
     # the logits, dx = g table and dtable = g^T x (3 x 2NVD; with mm_bf16
-    # the logits and dx take bf16 operands, dtable fp32 x and g); x,
+    # the logits and dx take bf16 operands, dtable fp32 g and x); x,
     # targets, dnll, lse, the table and the bias read, dx, dtable and dbias
-    # written
+    # written.  With mm_bf16 dtable is priced as the products that keep g
+    # and x unrounded on the tensor cores: g split in two TF32 terms
+    # against a bf16 x (exact in TF32), three products for an fp32 x
     nbytes = 2 * n * D * act_bytes + 3 * n * 4 + 2 * v * (D + 1) * 4
     mm = 2 * n * v * D
-    return _bound(mm, nbytes, 2 * mm) if mm_bf16 else _bound(3 * mm, nbytes)
+    if mm_bf16:
+        return _bound(0, nbytes, 2 * mm, (2 if act_bytes == 2 else 3) * mm)
+    return _bound(3 * mm, nbytes)
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -1389,7 +1401,7 @@ def serving(dev, name, dtype_name, xlong=False, path=None):
         on_path = functools.partial(on_slice_path, path=path)
     elif path is not None:
         spec = BASELINE_PATHS[path]
-        prefix, (counted, expected) = f"serve-{name.lower()}-{path}", PATH_SERVED
+        prefix, counted = f"serve-{name.lower()}-{path}", PATH_SERVED
         plain_output, t, n_items = plain_per_op_output, spec["t"], N_ITEMS
         users, timed = spec["users"], spec["timed"]
         cfg = path_config(name, path, dtype_name)
@@ -1402,6 +1414,8 @@ def serving(dev, name, dtype_name, xlong=False, path=None):
                                               "compute_dtype": dtype_name})
         on_path = _at_full_width
     model = get_model(name)(cfg, n_items, t, generator=torch.Generator().manual_seed(SEED))
+    if path in BASELINE_PATHS:
+        expected = per_op_launches(model, counted)
     check(model.device.type == "cuda", f"{name}: model not on the card")
     check(on_path(model), f"{name}: model is not at full width on its path")
     check(not xlong or (model.use_chunked_layer() and model.use_last_layer_kernel()),
@@ -1960,7 +1974,7 @@ def xlong_kernels_vs_plain(dev):
 
     # row 14 at the XLong loss
     xc, table, tgt, dnll = _xlong_ce_inputs(gen, dev)
-    for dt, mm in ((torch.float32, False), (torch.bfloat16, True)):
+    for dt, mm in ((torch.float32, False), (torch.float32, True), (torch.bfloat16, True)):
         dname = str(dt).split(".")[-1]
         xd = xc.to(dt)
         nll, lse = FCE.fused_softmax_ce_chunked_train(xd, table, tgt, None, XV, mm)
@@ -1977,16 +1991,19 @@ def xlong_kernels_vs_plain(dev):
                 "dbias": _grad_err_ok(dbias, gb, dt, False)}
         ok = ok_nll and all(o for _, o in rows.values())
         phase("xlong-kernel-vs-plain", kernel="fused_softmax_ce_chunked_bwd", dtype=dname,
-              mm_bf16=mm, shape=f"N{XB}xV{table.shape[0]}xD{D}", valid_v=XV,
+              mm_bf16=mm, path="tensor cores" if FCE.chunked_bwd_uses_mma(D, mm) else "fp32 FMA",
+              shape=f"N{XB}xV{table.shape[0]}xD{D}", valid_v=XV,
               nll_max_abs_err=f"{nll_err:.3e}", nll_tol="1e-4 + 1e-5*|plain|",
               rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
               tol=f"max|err|/max|plain| <= {GRAD_RTOL}"
                   + (" (bf16 dx: + 2^-7*|plain|)" if mm else ""), ok=ok)
         check(ok, f"fused_softmax_ce_chunked {dname}: kernel disagrees with its plain version")
-        if dt == torch.float32:
+        if dt == torch.float32 and not mm:
             errs["fused_softmax_ce_chunked"] = nll_err
-            errs["fused_softmax_ce_chunked_bwd"] = max(
-                float((a - w).abs().max()) for a, w in ((dx, gx), (dtab, gt), (dbias, gb)))
+        errs["fused_softmax_ce_chunked_bwd"] = max(
+            [errs.get("fused_softmax_ce_chunked_bwd", 0.0)]
+            + [float((a.float() - w.float()).abs().max())
+               for a, w in ((dx, gx), (dtab, gt), (dbias, gb))])
         del want, gx, gt, gb, xl, tl, bl, dx, dtab, dbias
 
     # C2: a bf16 table and bias through both CE paths (autograd)
@@ -2153,6 +2170,46 @@ def xlong_train_phase(dev, dtype_name, steps=XTRAIN_STEPS):
     train_profile(trainer, batch_of, dtype_name, prefix, steps=3)
     return {"launches": dict(zip((fn.__name__ for fn in counted), launches)), "ms": med,
             "peak_gb": peak}
+
+
+# row 14's backward on the tensor cores by pass: (a) logits, g and dx
+# partials, the ordered sum of the partials, (b) logits, g, dtable and dbias
+ROW14_BWD_PHASES = (("a", "cce_dx_mma_kernel"), ("reduce", "cce_dx_reduce_kernel"),
+                    ("b", "cce_dtab_mma_kernel"))
+
+
+def row14_bwd_phase_times(dev, calls=10):
+    """Row 14's backward at the XLong loss (N 512, V 329,728, D 64, bf16 x,
+    bf16 products, the tensor-core path): its CUDA-event time beside each
+    pass's device time per call, from torch.profiler over ``calls``
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(SEED + 22)
+    x, table, tgt, dnll = _xlong_ce_inputs(gen, dev)
+    x = x.to(torch.bfloat16)
+    check(FCE.chunked_bwd_uses_mma(D, True), "row 14's XLong backward is not the mma path")
+    _, lse = FCE.fused_softmax_ce_chunked_train(x, table, tgt, None, XV, True)
+
+    def call():
+        return FCE.fused_softmax_ce_chunked_bwd(x, table, tgt, dnll, None, XV, True, lse=lse)
+
+    ms = time_ms(call)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+    parts = {}
+    for label, kernel in ROW14_BWD_PHASES:
+        us = sum(v for k, v in dev_us.items() if kernel in k)
+        parts[label] = f"{us / calls / 1e3:.4f}" if us else "not measured"
+    phase("kernel-time-phase", kernel="fused_softmax_ce_chunked_bwd", shape="xlong", N=XB,
+          V=table.shape[0], D=D, dtype="bfloat16", mm_bf16=True, ms=f"{ms:.4f}",
+          **{f"{k}_ms": v for k, v in parts.items()},
+          device_ms=f"{sum(dev_us.values()) / calls / 1e3:.4f}")
 
 
 def chunked_bound_ms(b, t, p, act_bytes):
@@ -2889,23 +2946,43 @@ def attention_mask_bits(dev):
 # layers, gelu, T 200, V 3,417, batch 2,048 (dropout and cloze as the bench
 # shape's).  The long path: SASRec at hidden 64, 2 heads, FFN 256 and T
 # 2,048 (beyond the whole-layer kernels' T 1,024), one step at batch 32 and
-# one request of 8 users, untimed.  Each with the kernels a step launches
-# and how often (under bf16 row 16 once more), and those a recommend()
-# launches
+# one request of 8 users, untimed.  Each with the kernels a step can
+# launch and those a recommend() can launch (how often: per_op_launches;
+# under bf16 row 16 once more)
 BASELINE_PATHS = {
     "d256": dict(cfg={"hidden_size": 256, "n_heads": 2, "inner_size": 1024}, t=T,
                  batch=TRAIN_B, users=B, timed=True),
     "long": dict(cfg={"hidden_size": D, "n_heads": 2, "inner_size": 4 * D}, t=2048, batch=32,
                  users=8, timed=False),
+    # heads of 264 (above row 15's 256), a prologue above the LN kernel's
+    # 512 and an item table above the CE kernels' D 512: the per-op
+    # composition without a kernel of its own, in bf16 the table gradient
+    # (row 16) in two slices
+    "h528": dict(cfg={"hidden_size": 528, "n_heads": 2, "inner_size": 2112}, t=T, batch=32,
+                 users=8, timed=False),
 }
 PATH_COUNTED = {
-    "SASRec": ((FL.fused_ln_dropout, A.fused_attention, FL.fused_ln_dropout_bwd,
-                A.fused_attention_bwd), (1, 2, 1, 2)),
-    "BERT4Rec": ((FL.fused_ln_dropout, A.fused_attention, FCE.fused_softmax_ce,
-                  FL.fused_ln_dropout_bwd, A.fused_attention_bwd, FCE.fused_softmax_ce_bwd),
-                 (1, 2, 1, 1, 2, 1)),
+    "SASRec": (FL.fused_ln_dropout, A.fused_attention, FL.fused_ln_dropout_bwd,
+               A.fused_attention_bwd),
+    "BERT4Rec": (FL.fused_ln_dropout, A.fused_attention, FCE.fused_softmax_ce,
+                 FL.fused_ln_dropout_bwd, A.fused_attention_bwd, FCE.fused_softmax_ce_bwd),
 }
-PATH_SERVED = ((FL.fused_ln_dropout, A.fused_attention), (1, 2))
+PATH_SERVED = (FL.fused_ln_dropout, A.fused_attention)
+
+
+def per_op_launches(model, counted):
+    """How often one step or request of ``model`` on the per-op
+    composition launches each of ``counted``, by the gates the models
+    take: row 6 once where the width is at most ``MAX_LN_D``, row 15 once
+    a layer where ``attention.supports`` the head width, row 13 once where
+    ``fused_ce.supports`` the item table."""
+    h = model.hidden_size
+    ln = int(h <= FL.MAX_LN_D)
+    attn = len(model.encoder) * int(A.supports(h // model.n_heads))
+    ce = int(FCE.supports(model.n_items, h))
+    per = {FL.fused_ln_dropout: ln, FL.fused_ln_dropout_bwd: ln, A.fused_attention: attn,
+           A.fused_attention_bwd: attn, FCE.fused_softmax_ce: ce, FCE.fused_softmax_ce_bwd: ce}
+    return tuple(per[fn] for fn in counted)
 # fp32 gradients of a per-op step against its plain step: only rows 6, 13
 # and 15 differ between the two, each an fp32 sum in another order
 PATH_GRAD_RTOL = 1e-5
@@ -2955,11 +3032,12 @@ def path_train_phase(dev, name, path, dtype_name):
 
     spec = BASELINE_PATHS[path]
     prefix = f"{name.lower()}-{path}-train"
-    counted, expected = PATH_COUNTED[name]
-    if dtype_name == "bfloat16":
-        counted, expected = counted + (E.embedding_grad,), expected + (1,)
     cfg = path_config(name, path, dtype_name)
     model = get_model(name)(cfg, N_ITEMS, spec["t"], generator=torch.Generator().manual_seed(SEED))
+    counted = PATH_COUNTED[name]
+    expected = per_op_launches(model, counted)
+    if dtype_name == "bfloat16":
+        counted, expected = counted + (E.embedding_grad,), expected + (1,)
     check(on_baseline_path(model, path), f"{name} {path}: not the per-op path at full width")
     trainer = Trainer(cfg, model)
     b = spec["batch"]
@@ -3230,6 +3308,9 @@ def main():
               for name in baselines for dt in ("float32", "bfloat16")}
     serving(dev, "SASRec", "float32", path="long")
     path_train_phase(dev, "SASRec", "long", "float32")
+    for name in baselines:
+        serving(dev, name, "bfloat16", path="h528")
+        path_train_phase(dev, name, "h528", "bfloat16")
     for name in TRAINED:
         fit_phase(dev, name)
     kernel_times(dev, p1, p2, lens)
@@ -3239,6 +3320,7 @@ def main():
     row10_bwd_phase_times(dev)
     b4r_rows = b4r_training_kernel_times(dev)
     xlong_rows = xlong_kernel_times(dev)
+    row14_bwd_phase_times(dev)
     slice_rows = slice_kernel_times(dev)
     row15_rows = row15_kernel_times(dev)
     # launches: each model's kernels in one training step of its main path

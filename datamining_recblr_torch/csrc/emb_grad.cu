@@ -27,6 +27,9 @@
 //   rows    one warp per id: an empty segment writes zeros, a segment over
 //           several pieces adds its partials in a fixed order (16
 //           interleaved sums).
+//   slices  above 512 columns the pieces and rows walk D in slices of at
+//           most 512 (one sort serves them all); each column's sum is the
+//           same as in a single pass.
 // Every row of out is written exactly once and every sum runs in a fixed
 // order, so a rerun gives the same bits.  The sums are compensated (Kahan):
 // PAD's row adds some 262,000 cotangents, where a plain fp32 sum in any
@@ -51,6 +54,7 @@ constexpr int PIECE = 128;                             // sorted entries per pie
 constexpr int PIECE_THREADS = 256;                     // 8 pieces per block
 constexpr int BATCH = 4;                               // rows loaded ahead in a piece
 constexpr int CHAINS = 16;                             // partial sums in flight per row
+constexpr int MAX_SLICE = 512;                         // columns a lane set holds (DPL <= 16)
 
 // acc += v, compensated: c carries the low-order bits acc lost (Kahan).
 __device__ __forceinline__ void kahan_add(float& acc, float& c, float v) {
@@ -161,6 +165,7 @@ __global__ void seg_bounds_kernel(const int* __restrict__ keys, int N, int* __re
 // One warp per piece of PIECE sorted entries: sums each run of one id in
 // order; writes a run whose segment lies inside the piece to out, and the
 // piece's first and last runs otherwise to part_first / part_last [NP, D].
+// g and out have rows of ld elements, of which this call sums D columns.
 // The piece's keys and rows are staged in shared memory, and the cotangent
 // rows are loaded BATCH entries ahead of their adds, so that a warp waits
 // on memory once per batch, not once per entry.  Lane l holds dims l + 32 j,
@@ -170,7 +175,7 @@ __global__ void __launch_bounds__(PIECE_THREADS)
 piece_sum_kernel(const int* __restrict__ keys, const int* __restrict__ vals,
                  const Tg* __restrict__ g, const int* __restrict__ seg,
                  float* __restrict__ part_first, float* __restrict__ part_last,
-                 float* __restrict__ out, int NP, int V, int D) {
+                 float* __restrict__ out, int NP, int V, int D, int ld) {
   __shared__ int sk[PIECE_THREADS / 32][PIECE], sv[PIECE_THREADS / 32][PIECE];
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   const int p = blockIdx.x * (PIECE_THREADS / 32) + w;
@@ -187,7 +192,7 @@ piece_sum_kernel(const int* __restrict__ keys, const int* __restrict__ vals,
   auto flush = [&](int v, bool first_run, bool last_run) {
     const int s = seg[v], e = seg[v + 1];
     const bool inside = s >= k0 && e <= k0 + n;
-    float* dst = inside ? out + (size_t)v * D
+    float* dst = inside ? out + (size_t)v * ld
                         : first_run ? part_first + (size_t)p * D : nullptr;
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
@@ -205,7 +210,7 @@ piece_sum_kernel(const int* __restrict__ keys, const int* __restrict__ vals,
     float buf[BATCH][DPL];
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
-      const size_t row = (size_t)sv[w][kb + u < n ? kb + u : kb] * D;
+      const size_t row = (size_t)sv[w][kb + u < n ? kb + u : kb] * ld;
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
         const int d = j * 32 + lane;
@@ -238,12 +243,12 @@ piece_sum_kernel(const int* __restrict__ keys, const int* __restrict__ vals,
 // some 2,000 pieces).
 __global__ void row_fix_kernel(const int* __restrict__ seg, const float* __restrict__ part_first,
                                const float* __restrict__ part_last, float* __restrict__ out,
-                               int V, int D) {
+                               int V, int D, int ld) {
   const int lane = threadIdx.x % 32;
   const int v = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (v >= V) return;
   const int s = seg[v], e = seg[v + 1];
-  float* dst = out + (size_t)v * D;
+  float* dst = out + (size_t)v * ld;
   if (s == e) {
     for (int d = lane; d < D; d += 32) dst[d] = 0.f;
     return;
@@ -297,28 +302,36 @@ cudaError_t emb_grad(const int* ids, const Tg* g, float* out, int* keys_a, int* 
   seg_bounds_kernel<<<(V + 1 + 255) / 256, 256, 0, stream>>>(kin, N, seg, V);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const int NP = (N + PIECE - 1) / PIECE;
-  float* part_first = part;
-  float* part_last = part + (size_t)NP * D;
   const dim3 pg((NP + PIECE_THREADS / 32 - 1) / (PIECE_THREADS / 32));
-  const int dpl = (D + 31) / 32;
-  if (dpl <= 1)
-    piece_sum_kernel<Tg, 1><<<pg, PIECE_THREADS, 0, stream>>>(kin, vin, g, seg, part_first,
-                                                              part_last, out, NP, V, D);
-  else if (dpl <= 2)
-    piece_sum_kernel<Tg, 2><<<pg, PIECE_THREADS, 0, stream>>>(kin, vin, g, seg, part_first,
-                                                              part_last, out, NP, V, D);
-  else if (dpl <= 4)
-    piece_sum_kernel<Tg, 4><<<pg, PIECE_THREADS, 0, stream>>>(kin, vin, g, seg, part_first,
-                                                              part_last, out, NP, V, D);
-  else if (dpl <= 8)
-    piece_sum_kernel<Tg, 8><<<pg, PIECE_THREADS, 0, stream>>>(kin, vin, g, seg, part_first,
-                                                              part_last, out, NP, V, D);
-  else
-    piece_sum_kernel<Tg, 16><<<pg, PIECE_THREADS, 0, stream>>>(kin, vin, g, seg, part_first,
-                                                               part_last, out, NP, V, D);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  row_fix_kernel<<<(V + 7) / 8, 256, 0, stream>>>(seg, part_first, part_last, out, V, D);
-  return cudaGetLastError();
+  // one slice of at most MAX_SLICE columns at a time; the partials are
+  // reused, in stream order
+  for (int d0 = 0; d0 < D; d0 += MAX_SLICE) {
+    const int W = min(MAX_SLICE, D - d0);
+    float* part_first = part;
+    float* part_last = part + (size_t)NP * W;
+    const Tg* gs = g + d0;
+    float* os = out + d0;
+    const int dpl = (W + 31) / 32;
+    if (dpl <= 1)
+      piece_sum_kernel<Tg, 1><<<pg, PIECE_THREADS, 0, stream>>>(kin, vin, gs, seg, part_first,
+                                                                part_last, os, NP, V, W, D);
+    else if (dpl <= 2)
+      piece_sum_kernel<Tg, 2><<<pg, PIECE_THREADS, 0, stream>>>(kin, vin, gs, seg, part_first,
+                                                                part_last, os, NP, V, W, D);
+    else if (dpl <= 4)
+      piece_sum_kernel<Tg, 4><<<pg, PIECE_THREADS, 0, stream>>>(kin, vin, gs, seg, part_first,
+                                                                part_last, os, NP, V, W, D);
+    else if (dpl <= 8)
+      piece_sum_kernel<Tg, 8><<<pg, PIECE_THREADS, 0, stream>>>(kin, vin, gs, seg, part_first,
+                                                                part_last, os, NP, V, W, D);
+    else
+      piece_sum_kernel<Tg, 16><<<pg, PIECE_THREADS, 0, stream>>>(kin, vin, gs, seg, part_first,
+                                                                 part_last, os, NP, V, W, D);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    row_fix_kernel<<<(V + 7) / 8, 256, 0, stream>>>(seg, part_first, part_last, os, V, W, D);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -328,7 +341,7 @@ extern "C" {
 // ids: [N] int32; g: [N, D] fp32 (bf16 == 0) or bf16; out: [V, D] fp32,
 // every row written; keys_a, vals_a, keys_b, vals_b: [N] int32 scratch;
 // hist: [256 * ceil(N / 2048)] int32 scratch; seg: [V + 1] int32 scratch;
-// part: [2, ceil(N / 128), D] fp32 scratch; D <= 512; device: the card.
+// part: [2, ceil(N / 128), min(D, 512)] fp32 scratch; device: the card.
 int recblr_emb_grad(const void* ids, const void* g, void* out, void* keys_a, void* vals_a,
                     void* keys_b, void* vals_b, void* hist, void* seg, void* part, int N, int V,
                     int D, int bf16, int device, void* stream) {

@@ -18,6 +18,7 @@ from torch import nn
 from datamining_recblr_torch.ops import fused_block as FB
 from datamining_recblr_torch.ops import philox
 from datamining_recblr_torch.ops.attention import fused_attention, prob_masks
+from datamining_recblr_torch.ops.attention import supports as attention_supports
 from datamining_recblr_torch.ops.fused_layer import MAX_LN_D, fused_ln_dropout
 
 LN_EPS = 1e-12
@@ -153,14 +154,23 @@ def prologue_ln_dropout(ln_params, x, dropout_p=0.0, pos=None, seed=0):
     return dropout(layer_norm(ln_params, x), dropout_p, seed, philox.M0)
 
 
+def _per_op_fused(lens, causal, dh):
+    """Whether the per-op composition runs the masked softmax in
+    ``fused_attention``: the fused composition is chosen, ``lens`` and
+    ``causal`` are given and the kernels take heads of width ``dh``."""
+    return (lens is not None and causal is not None and _use_fused_attention()
+            and attention_supports(dh))
+
+
 def _multi_head_attention(p, x, attn_mask, n_heads, hidden_dropout, attn_dropout, seed,
                           lens=None, causal=None):
     """Per-op attention block: LN(dropout_m1(attn(x) W_o + b_o) + x), each
     head's probabilities under the mask ``philox.prob_mask_id(h)``.  With
-    ``lens`` and ``causal`` given and the fused composition chosen, the
-    masked softmax, its dropout and P.V run in ``fused_attention`` (the
-    JAX package's ``layers.py:224-241``); otherwise the softmax
-    composition under the additive ``attn_mask`` [B, 1, T, T]."""
+    ``lens`` and ``causal`` given, the fused composition chosen and heads
+    that ``attention.supports`` (dh <= 256), the masked softmax, its
+    dropout and P.V run in ``fused_attention`` (the JAX package's
+    ``layers.py:224-241``); otherwise the softmax composition under the
+    additive ``attn_mask`` [B, 1, T, T]."""
     b, t, h = x.shape
     dh = h // n_heads
 
@@ -168,7 +178,7 @@ def _multi_head_attention(p, x, attn_mask, n_heads, hidden_dropout, attn_dropout
         return y.reshape(b, t, n_heads, dh).transpose(1, 2)
 
     q, k, v = (split_heads(dense(p[n], x)) for n in ("q", "k", "v"))
-    if lens is not None and causal is not None and _use_fused_attention():
+    if _per_op_fused(lens, causal, dh):
         # q, k and v in dense's dtype: under bf16 compute with fp32
         # parameters that is fp32 (JAX promotes a bf16 x against an fp32
         # weight), bf16 only with bf16 parameters; ctx comes back in it
@@ -221,7 +231,8 @@ def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu
     ``supports`` rejects the shape, each layer runs the per-op
     composition with ``fused_attention`` for the masked softmax (the JAX
     package's ``layers.py:297-302,363-381``) and [B, T, D] comes back.
-    Without the fused composition the per-op one runs the softmax
+    Without the fused composition, or with heads wider than
+    ``attention.supports`` takes, the per-op one runs the softmax
     composition instead; ``attn_mask`` is its [B, 1, T, T] additive mask,
     or a function that builds it (called only then).  All draw the same
     Philox masks at the same coordinates, in the JAX package's order (the
@@ -248,7 +259,7 @@ def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu
                 x = FB.fused_transformer_layer(x, lens, fp, bool(causal), n_heads, hidden_act,
                                                *drop)
             return x
-    elif callable(attn_mask):
+    if not _per_op_fused(lens, causal, x.shape[-1] // n_heads) and callable(attn_mask):
         attn_mask = attn_mask()
     act = activation(hidden_act)
     for p, seed in zip(layers, seeds):

@@ -34,7 +34,7 @@ SOURCES = ("fused_layer.cu", "fused_layer_last.cu", "fused_layer_bwd.cu",
            "emb_grad.cu", "linear_scan.cu", "fused_bdlru.cu", "fused_bdlru_bwd.cu",
            "attention.cu", "attention_bwd.cu")
 HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh", "ce_common.cuh",
-           "attention.cuh", "gemm_tile.cuh")
+           "attention.cuh", "gemm_tile.cuh", "mma_tile.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -51,6 +51,12 @@ MAX_DH = 256  # head width the kernels' shared memory holds
 _GRID_MAX = 2**31 - 1
 
 
+def supports(dh: int) -> bool:
+    """Whether heads of width ``dh`` take the kernels: 1 <= dh <= MAX_DH.
+    Wider heads run the models' softmax composition (``models/layers.py``)."""
+    return 1 <= dh <= MAX_DH
+
+
 def scale_of(dh: int) -> float:
     """1 / sqrt(dh) rounded to fp32 as the JAX kernel computes it
     (``1.0 / jnp.sqrt(jnp.float32(dh))``)."""

@@ -9,9 +9,10 @@ table's dtype (``:171-180``).  The JAX package computes that sum three
 ways: one-hot matmuls below ``_SCATTER_MIN_V`` = 9,000 rows, a scatter-add
 from there on, and the Pallas kernel ``_emb_grad_kernel`` (via
 ``_bwd_pallas`` :85), kept for the record.  Here one kernel serves every
-V: ``embedding_grad`` (``csrc/emb_grad.cu``), a stable counting sort of
-the ids followed by segment sums in a fixed order, so the gradient has
-the same bits from run to run.
+V and D: ``embedding_grad`` (``csrc/emb_grad.cu``), a stable counting
+sort of the ids followed by segment sums in a fixed order (in slices of
+at most ``MAX_SLICE`` columns beyond that width), so the gradient has the
+same bits from run to run.
 
 ``embedding_grad`` on a CPU tensor computes its plain version
 (``embedding_grad_plain``); on a CUDA tensor it launches its kernel or
@@ -24,7 +25,7 @@ import torch
 
 from datamining_recblr_torch.ops import _cuda
 
-MAX_D = 512  # the kernel's lanes hold rows of up to 512 floats
+MAX_SLICE = 512  # columns the kernel's lanes sum at a time
 _SORT_BLOCK = 2048  # ids per block of the kernel's radix sort
 _PIECE = 128  # sorted entries per segment-sum piece
 
@@ -39,8 +40,8 @@ def embedding_grad_plain(ids, g, v: int):
 
 def embedding_grad(ids, g, v: int):
     """[V, D] fp32 table gradient of ``ids`` [...] (in [0, V)) and their
-    cotangent rows ``g`` [..., D] (fp32 or bf16, D <= 512), each row's sum
-    in a fixed order."""
+    cotangent rows ``g`` [..., D] (fp32 or bf16, any D >= 1), each row's
+    sum in a fixed order."""
     if g.device.type == "cpu":
         return embedding_grad_plain(ids, g, v)
     _cuda.require_cuda(g)
@@ -53,9 +54,8 @@ def embedding_grad(ids, g, v: int):
                          "and lie on one card")
     if ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"ids must be an integer tensor, got {ids.dtype}")
-    if not 1 <= d <= MAX_D or v < 1:
-        raise ValueError(f"unsupported shape V={v} D={d}: the kernel takes V >= 1, "
-                         f"1 <= D <= {MAX_D}")
+    if d < 1 or v < 1:
+        raise ValueError(f"unsupported shape V={v} D={d}: the kernel takes V >= 1, D >= 1")
     flat_ids = ids.reshape(-1).to(torch.int32).contiguous()
     flat_g = g.reshape(-1, d).contiguous()
     n = flat_ids.numel()
@@ -67,7 +67,8 @@ def embedding_grad(ids, g, v: int):
     sort = torch.empty((4, n), **kw)
     hist = torch.empty((256 * -(-n // _SORT_BLOCK),), **kw)
     seg = torch.empty((v + 1,), **kw)
-    part = torch.empty((2, -(-n // _PIECE), d), device=g.device, dtype=torch.float32)
+    part = torch.empty((2, -(-n // _PIECE), min(d, MAX_SLICE)), device=g.device,
+                       dtype=torch.float32)
     out = torch.empty((v, d), device=g.device, dtype=torch.float32)
     lib = _cuda.library("emb_grad.cu")
     with torch.cuda.device(g.device):

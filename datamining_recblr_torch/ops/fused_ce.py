@@ -18,7 +18,9 @@ version.  Two paths, as in ``datamining_recblr_tpu/ops/fused_ce.py``:
   (``fused_ce.py:114-122``).
 * vocab-chunked, for tables beyond ``supports`` (XLong: V = 329,728):
   ``_cce_fwd_kernel`` via ``_cce_fwd`` :413 and the kernels of
-  ``_cce_bwd`` :448; ``csrc/fused_ce_chunked.cu``.  The same function
+  ``_cce_bwd`` :448; ``csrc/fused_ce_chunked.cu``, whose backward runs
+  its products on the tensor cores with ``mm_bf16`` at D <= 128
+  (``chunked_bwd_uses_mma``).  The same function
   with the JAX chunked path's own rounding points: the target logit is
   x . table[t] + bias[t] with x unrounded (``:404-407``); g = softmax
   dnll without the one-hot term, dx = g table - dnll table[t] with the
@@ -37,7 +39,8 @@ kernel or raises, and with grad enabled it runs a
 ``torch.autograd.Function`` whose backward is the backward kernel.
 ``launches`` on ``fused_softmax_ce`` and ``fused_softmax_ce_bwd`` (the
 whole-table kernels) and on ``fused_softmax_ce_chunked`` and
-``fused_softmax_ce_chunked_bwd`` counts their kernel launches.
+``fused_softmax_ce_chunked_bwd`` counts their kernel launches, and
+``mma_launches`` on the last those of its tensor-core path.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ MIN_ROWS = 8192
 # would materialize take this many bytes (fused_ce.py:260)
 CHUNK_MIN_LOGITS_BYTES = 64 * 1024 * 1024
 MAX_D = 512  # the kernels' 16 x 16 tiles hold rows of up to 512 floats
+MMA_MAX_D = 128  # the chunked backward's tensor-core kernels hold rows of up to 128
 
 
 def supports(v: int, d: int) -> bool:
@@ -64,6 +68,13 @@ def supports(v: int, d: int) -> bool:
 def supports_chunked(v: int, d: int) -> bool:
     """Whether the [V, D] table takes the vocab-chunked kernel: any V."""
     return d <= MAX_D
+
+
+def chunked_bwd_uses_mma(d: int, mm_bf16: bool) -> bool:
+    """Whether the chunked backward runs its products on the tensor cores
+    (``csrc/fused_ce_chunked.cu`` passes (a) and (b)): with ``mm_bf16`` at
+    D <= 128; otherwise it takes the fp32 FMA kernels."""
+    return bool(mm_bf16) and d <= MMA_MAX_D
 
 
 # ---------------------------------------------------------------------------
@@ -370,13 +381,17 @@ def fused_softmax_ce_chunked_bwd(x, table, targets, dnll, bias=None, valid_v=Non
                                  mm_bf16=False, *, lse):
     """Backward of ``fused_softmax_ce_chunked`` on the card: (dx in x's
     dtype, dtable [V, D] fp32, dbias [V] fp32), every sum in a fixed
-    order.  ``lse``: [N] fp32 kept by ``fused_softmax_ce_chunked_train``
-    with the same arguments."""
+    order; on the tensor cores where ``chunked_bwd_uses_mma``.  ``lse``:
+    [N] fp32 kept by ``fused_softmax_ce_chunked_train`` with the same
+    arguments."""
     _cuda.require_cuda(x)
     table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, True)
     n, d = x.shape
     v = table.shape[0]
     dnll, lse = _check_bwd_rows(x, dnll, lse)
+    mma = chunked_bwd_uses_mma(d, mm_bf16)  # the C side dispatches on the same two facts
+    if mma and table.data_ptr() % 16:
+        table = table.clone()  # the tensor-core kernels copy it in 16-byte pieces
     s = _vocab_splits(n, v, d, x.device)
     dx = torch.empty_like(x)
     dxp = torch.empty((s, n, d), device=x.device, dtype=torch.float32)
@@ -391,10 +406,12 @@ def fused_softmax_ce_chunked_bwd(x, table, targets, dnll, bias=None, valid_v=Non
         )
     _cuda.check(lib, err, "fused_softmax_ce_chunked_bwd")
     fused_softmax_ce_chunked_bwd.launches += 1
+    fused_softmax_ce_chunked_bwd.mma_launches += int(mma)
     return dx, grads[: v * d].view(v, d), grads[v * d:]
 
 
 fused_softmax_ce_chunked_bwd.launches = 0
+fused_softmax_ce_chunked_bwd.mma_launches = 0  # those of them on the tensor cores
 
 
 class _CE(torch.autograd.Function):

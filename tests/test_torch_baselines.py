@@ -489,7 +489,16 @@ WIDE = {
     "hidden144": ({"hidden_size": 144, "n_heads": 2, "inner_size": 288}, 12),
     "ffn2080": ({"hidden_size": 16, "n_heads": 2, "inner_size": 2080}, 12),
     "t1030": ({"hidden_size": 16, "n_heads": 2, "inner_size": 32}, 1030),
+    # heads of 264, wider than the port's attention kernels take: the port
+    # runs the softmax composition, the JAX package its kernel
+    "hidden528": ({"hidden_size": 528, "n_heads": 2, "inner_size": 2112}, 12),
 }
+# hidden 528's outputs and scores are held within 1e-4 of their largest
+# value: with the JAX kernel or its XLA composition alike, the two
+# packages differ there by up to 6.6e-5 of it (BERT4Rec's encode, the row
+# with no history, whose keys all sit at -10,000 in fp32; elsewhere 3e-5),
+# fp32 sums in another order over 528- and 2,112-wide products
+WIDE_REL = {"hidden528": 1e-4}
 
 
 @pytest.fixture
@@ -534,6 +543,7 @@ def test_rejected_shapes_serve_as_jax(name, case, fused_both):
     tseq, tlens = torch.from_numpy(seq).long(), torch.from_numpy(lens)
     fwd = jax.jit(lambda p, s, n: (jmodel.forward(p, s, n), jmodel.full_sort_scores(p, s, n)))
     want, want_scores = fwd(jparams, jnp.asarray(seq), jnp.asarray(lens))
+    rel = WIDE_REL.get(case)
     with torch.no_grad():
         out = model(tseq, tlens)
         scores = model.full_sort_scores(tseq, tlens)
@@ -541,30 +551,38 @@ def test_rejected_shapes_serve_as_jax(name, case, fused_both):
             enc, selected = model.encode(tseq)
             jenc, _ = jax.jit(lambda p, s: jmodel.encode(p, s))(jparams, jnp.asarray(seq))
             assert not selected and enc.shape == jenc.shape == (len(lens), t, model.hidden_size)
-            np.testing.assert_allclose(enc.numpy(), np.asarray(jenc), atol=5e-5, rtol=0)
-    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=5e-5, rtol=0)
-    np.testing.assert_allclose(scores.numpy(), np.asarray(want_scores), atol=1e-4, rtol=0)
-    if t > 100:
+            atol = 5e-5 if rel is None else rel * float(np.abs(np.asarray(jenc)).max())
+            np.testing.assert_allclose(enc.numpy(), np.asarray(jenc), atol=atol, rtol=0)
+    want_scores = np.asarray(want_scores)
+    top = float(np.abs(want_scores[np.isfinite(want_scores)]).max())
+    atol_out = 5e-5 if rel is None else rel * float(np.abs(np.asarray(want)).max())
+    atol_scores = 1e-4 if rel is None else rel * top
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=atol_out, rtol=0)
+    np.testing.assert_allclose(scores.numpy(), want_scores, atol=atol_scores, rtol=0)
+    # the JAX Recommender cannot serve BERT4Rec at hidden 528: its history
+    # mask spans the catalog padded to 2,048 rows (D > 512), BERT4Rec's
+    # scores only the 50 items; the card test holds the port's recommend()
+    if t > 100 or (name, case) == ("BERT4Rec", "hidden528"):
         return
     seqs = _sequences()
     jids, jvals = JRecommender(jmodel, jparams, top_k=TOP_K).recommend(seqs)
     ids, vals = Recommender(model, top_k=TOP_K).recommend(seqs)
     jids, jvals = np.asarray(jids), np.asarray(jvals)
-    np.testing.assert_allclose(vals, jvals, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(vals, jvals, atol=atol_scores, rtol=0)
     for i, j in zip(*np.nonzero(ids != jids)):
         row = dict(zip(jids[i].tolist(), jvals[i].tolist()))
-        assert abs(row.get(int(ids[i, j]), jvals[i, -1]) - jvals[i, j]) <= 1e-4
+        assert abs(row.get(int(ids[i, j]), jvals[i, -1]) - jvals[i, j]) <= atol_scores
 
 
-@pytest.mark.parametrize("case", ["hidden144", "ffn2080"])
+@pytest.mark.parametrize("case", ["hidden144", "ffn2080", "hidden528"])
 @pytest.mark.parametrize("name", MODELS)
 def test_rejected_shapes_train_as_jax(name, case, fused_both):
     """The loss and every parameter gradient at dropout 0: SASRec's CE,
     BERT4Rec's cloze loss with the JAX model's draw injected.  At hidden
-    144 the gradients are held at 1e-4 of each one's largest value: there
-    the two packages' softmax compositions (no kernel on either side)
-    already differ by up to 3.5e-5 of it, fp32 sums in another order over
-    144-wide products."""
+    144 and 528 the gradients are held at 1e-4 of each one's largest
+    value: at 144 the two packages' softmax compositions (no kernel on
+    either side) already differ by up to 3.5e-5 of it, fp32 sums in
+    another order over 144-wide products."""
     extra = {"hidden_dropout_prob": 0.0, "attn_dropout_prob": 0.0, "mask_ratio": 0.4}
     jmodel, jparams, model, t = _wide_pair(name, case, seed=23, **extra)
     seq, lens = _wide_batch(t, 24)
@@ -585,7 +603,7 @@ def test_rejected_shapes_train_as_jax(name, case, fused_both):
         lambda p: jmodel.calculate_loss(p, jbatch, key)))(jparams)
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-5)
-    _check_model_grads(model, jgrads, rel=1e-4 if case == "hidden144" else 1e-5)
+    _check_model_grads(model, jgrads, rel=1e-5 if case == "ffn2080" else 1e-4)
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -618,3 +636,32 @@ def test_rejected_shapes_compositions_agree_at_dropout(name, monkeypatch):
     with torch.no_grad():
         off = model.calculate_loss(batch, step=13)
     assert abs(float(off) - got[True][0]) > 1e-3
+
+
+@pytest.mark.parametrize("dh,fused", [(256, True), (264, False)])
+def test_head_width_gate(dh, fused, monkeypatch):
+    """``attention.supports`` takes heads up to 256: a layer of 2 heads of
+    256 runs ``fused_attention``, one of 264 the softmax composition under
+    the additive mask (which ``transformer_encoder_apply`` then builds)."""
+    from datamining_recblr_torch.ops import attention as A
+
+    assert A.supports(dh) == fused and not A.supports(0)
+    monkeypatch.setattr(L, "FORCE_FUSED_ATTENTION", True)
+    calls = []
+    monkeypatch.setattr(L, "fused_attention",
+                        lambda *a, **k: calls.append(1) or A.fused_attention_plain(*a, **k))
+    h, t = 2 * dh, 5
+    layers = L.transformer_encoder_init(torch.Generator().manual_seed(0), 1, 2, h, 64)
+    x = torch.randn((2, t, h), generator=torch.Generator().manual_seed(1))
+    lens = torch.tensor([3, t])
+    seq = torch.where(torch.arange(t)[None] < lens[:, None], 1, 0)
+    built = []
+
+    def mask():
+        built.append(1)
+        return L.attention_mask(seq)
+
+    out = L.transformer_encoder_apply(layers, x, mask, n_heads=2, lens=lens, causal=True)
+    assert (len(calls), len(built)) == ((1, 0) if fused else (0, 1))
+    want = L.transformer_encoder_apply(layers, x, L.attention_mask(seq), n_heads=2)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)

@@ -1084,19 +1084,26 @@ def test_k2_recompute_branch_at_1024(dev, dtype):
     _assert_grads((out, dx, grads), (wout, wdx, wgrads), dtype)
 
 
-# (N, V, valid_v, D): the XLong loss (512 rows, 329,728 padded rows), more
-# row blocks than the vocab splits need at a small V, and D > 128
-CCE_SHAPES = [(512, 329_728, 329_722, 64), (1000, 300, 290, 64), (300, 97, 90, 200)]
+# (N, V, valid_v, D, edge): the XLong loss (512 rows, 329,728 padded
+# rows), more row blocks than the vocab splits need at a small V, D > 128
+# (the fp32 FMA backward also with mm_bf16), and shapes the tensor-core
+# tiles do not divide: D 16 and 72 (not a multiple of 16), N 257 (128-row
+# blocks and 64-row chunks), V 1,000 with 997 valid (64-row tiles).  With
+# ``edge`` every target lies in one 64-row vocab tile and every seventh row
+# has dnll 0.
+CCE_SHAPES = [(512, 329_728, 329_722, 64, False), (1000, 300, 290, 64, False),
+              (300, 97, 90, 200, False), (257, 1000, 997, 16, True), (257, 1000, 997, 72, True)]
 
 
 @pytest.mark.parametrize("mm_bf16", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,v,valid_v,d", CCE_SHAPES)
-def test_chunked_ce_kernels_match_plain(dev, n, v, valid_v, d, dtype, mm_bf16):
+@pytest.mark.parametrize("n,v,valid_v,d,edge", CCE_SHAPES)
+def test_chunked_ce_kernels_match_plain(dev, n, v, valid_v, d, edge, dtype, mm_bf16):
     """Row 14: nll, dx, dtable and dbias against the chunked plain version
     by autograd (nll atol 1e-4 + rtol 1e-5; gradients within GRAD_RTOL of
-    the largest value, a bf16 dx one bf16 ulp on top); the backward gives
-    the same bits on a rerun."""
+    the largest value, a bf16 dx one bf16 ulp on top); the backward takes
+    the tensor-core kernels exactly with mm_bf16 at D <= 128 and gives the
+    same bits on a rerun."""
     from datamining_recblr_torch.ops import fused_ce as FCE
 
     rng = np.random.default_rng(53)
@@ -1104,15 +1111,20 @@ def test_chunked_ce_kernels_match_plain(dev, n, v, valid_v, d, dtype, mm_bf16):
     x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev, dt)
     table = torch.from_numpy((0.3 * rng.standard_normal((v, d))).astype(np.float32)).to(dev)
     bias = torch.from_numpy(rng.standard_normal(v).astype(np.float32)).to(dev)
-    tgt = torch.from_numpy(rng.integers(0, valid_v, n)).to(dev)
+    tgt = torch.from_numpy(rng.integers(128, 192, n) if edge
+                           else rng.integers(0, valid_v, n)).to(dev)
     tgt[:3] = tgt[3]  # a repeated target
     dnll = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
-    before = (FCE.fused_softmax_ce_chunked.launches, FCE.fused_softmax_ce_chunked_bwd.launches)
+    if edge:
+        dnll[::7] = 0.0
+    bwd = FCE.fused_softmax_ce_chunked_bwd
+    before = (FCE.fused_softmax_ce_chunked.launches, bwd.launches, bwd.mma_launches)
     nll, lse = FCE.fused_softmax_ce_chunked_train(x, table, tgt, bias, valid_v, mm_bf16)
-    dx, dtab, dbias = FCE.fused_softmax_ce_chunked_bwd(x, table, tgt, dnll, bias, valid_v,
-                                                       mm_bf16, lse=lse)
-    assert (FCE.fused_softmax_ce_chunked.launches - before[0],
-            FCE.fused_softmax_ce_chunked_bwd.launches - before[1]) == (1, 1)
+    dx, dtab, dbias = bwd(x, table, tgt, dnll, bias, valid_v, mm_bf16, lse=lse)
+    mma = mm_bf16 and d <= 128
+    assert FCE.chunked_bwd_uses_mma(d, mm_bf16) == mma
+    assert (FCE.fused_softmax_ce_chunked.launches - before[0], bwd.launches - before[1],
+            bwd.mma_launches - before[2]) == (1, 1, int(mma))
     xl, tl, bl = (a.detach().clone().requires_grad_() for a in (x, table, bias))
     want = FCE.fused_softmax_ce_chunked_plain(xl, tl, tgt, bl, valid_v, mm_bf16)
     want.backward(dnll)
@@ -1156,13 +1168,15 @@ def test_ce_takes_a_bf16_table_and_bias(dev, chunked):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("v,n,d", [(329_728, 524_288, 64), (300, 5000, 48), (20, 100_000, 8)])
+@pytest.mark.parametrize("v,n,d", [(329_728, 524_288, 64), (300, 5000, 48), (20, 100_000, 8),
+                                   (300, 5000, 520)])
 def test_embedding_grad_kernel_matches_plain(dev, v, n, d, dtype):
     """Row 16: the [V, D] fp32 table gradient within 1e-6 of its largest
     value of the exact sum (fp64 ``index_add_``), and within 1e-4 of the
     plain version's (``index_add_`` into fp32 zeros, whose atomic sums
     round in any order), with id 0 at about half of the ids; the same bits
-    on a rerun."""
+    on a rerun.  D 520 walks the columns in slices of 512 and 8, one
+    launch all the same."""
     from datamining_recblr_torch.ops import embedding as E
 
     rng = np.random.default_rng(55)
@@ -1199,6 +1213,41 @@ def test_bf16_train_step_launches_the_table_gradient_kernel(dev):
     model.calculate_loss(batch, step=1).backward()
     assert E.embedding_grad.launches == before + 1
     assert model.item_embedding.grad.dtype == torch.float32
+
+
+def test_bf16_train_step_at_hidden_520_sums_the_table_gradient_on_the_card(dev, monkeypatch):
+    """A bf16 RecBLR step at hidden 520 (above the 512 columns row 16 sums
+    at a time): one launch of ``embedding_grad``, the loss and every
+    gradient as the same step with the plain gather (whose table gradient
+    is autograd's fp32 sum): within GRAD_RTOL of each one's largest
+    value."""
+    import torch.nn.functional as F
+
+    from datamining_recblr_torch.ops import embedding as E
+
+    cfg = Config(model="RecBLR", config_dict={"hidden_size": 520, "num_layers": 2,
+                                               "MAX_ITEM_LIST_LENGTH": 20,
+                                               "compute_dtype": "bfloat16"})
+    model = get_model("RecBLR")(cfg, 300, 20, device=dev)
+    rng = np.random.default_rng(57)
+    seq = torch.from_numpy(rng.integers(0, 300, (32, 20))).to(dev)
+    batch = {"item_seq": seq, "item_seq_len": torch.full((32,), 20, device=dev),
+             "pos_item": torch.from_numpy(rng.integers(1, 300, 32)).to(dev)}
+    model.train()
+    before = E.embedding_grad.launches
+    loss = model.calculate_loss(batch, step=1)
+    loss.backward()
+    assert E.embedding_grad.launches == before + 1
+    got = {k: v.grad.clone() for k, v in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    monkeypatch.setattr(model, "embed", lambda ids: F.embedding(ids, model.item_embedding).to(
+        torch.bfloat16))
+    want = model.calculate_loss(batch, step=1)
+    want.backward()
+    assert E.embedding_grad.launches == before + 1
+    assert abs(float(loss.detach()) - float(want.detach())) <= 1e-5 * abs(float(want.detach()))
+    for k, v in model.named_parameters():
+        assert float((got[k] - v.grad).abs().max()) <= GRAD_RTOL * float(v.grad.abs().max()), k
 
 
 # ---------------------------------------------------------------------------
@@ -1590,3 +1639,54 @@ def test_rejected_shape_train_step_goes_through_row_15(dev, name, monkeypatch):
     for pname, g in got[True][1].items():
         w = got[False][1][pname]
         assert float((g - w).abs().max()) <= max(1e-4 * float(w.abs().max()), 1e-6 * top), pname
+
+
+@pytest.mark.parametrize("name", ["SASRec", "BERT4Rec"])
+def test_heads_wider_than_256_train_and_serve_on_the_card(dev, name):
+    """Hidden 528 with 2 heads (dh 264, beyond row 15) on the card: no
+    launch of the attention kernels, and one train step's loss and every
+    gradient, and one recommend(), as the same model on the CPU
+    (``test_torch_baselines.py`` holds that one against the JAX package):
+    the loss within 1e-5, each gradient within GRAD_RTOL of its largest
+    value (at least 1e-6 of the largest of all: b_k's is zero up to
+    rounding), scores within 1e-4."""
+    from datamining_recblr_torch.ops import attention as A
+
+    t = 20
+    cfg = Config(model=name, config_dict={
+        "MAX_ITEM_LIST_LENGTH": t, "hidden_size": 528, "inner_size": 2112, "n_heads": 2,
+        "n_layers": 2, "hidden_dropout_prob": 0.2, "attn_dropout_prob": 0.2, "mask_ratio": 0.2})
+    cpu = get_model(name)(cfg, 300, t, device="cpu")
+    card = get_model(name)(cfg, 300, t, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(73)
+    lens = rng.integers(1, t + 1, 32)
+    lens[:2] = [1, t]
+    seq = np.where(np.arange(t)[None] < lens[:, None], rng.integers(1, 300, (32, t)), 0)
+    pos = rng.integers(1, 300, 32)
+    requests = [rng.integers(1, 300, k).tolist() for k in (0, 1, 5, t, t + 7)]
+    got = {}
+    for model in (card, cpu):
+        d = model.device
+        batch = {"item_seq": torch.from_numpy(seq).to(d),
+                 "item_seq_len": torch.from_numpy(lens).to(d),
+                 "pos_item": torch.from_numpy(pos).to(d),
+                 "weight": torch.ones(32, device=d)}
+        before = (A.fused_attention.launches, A.fused_attention_bwd.launches)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss = model.calculate_loss(batch, step=5)
+        loss.backward()
+        model.eval()
+        ids, vals = Recommender(model, top_k=10).recommend(requests)
+        assert (A.fused_attention.launches, A.fused_attention_bwd.launches) == before
+        got[d.type] = (float(loss.detach()), {k: v.grad.cpu() for k, v in
+                                              model.named_parameters()}, ids, vals)
+    (loss, grads, ids, vals), (wloss, wgrads, wids, wvals) = got["cuda"], got["cpu"]
+    assert np.isfinite(loss) and abs(loss - wloss) <= 1e-5 * abs(wloss)
+    top = max(float(w.abs().max()) for w in wgrads.values())
+    for pname, g in grads.items():
+        w = wgrads[pname]
+        assert float((g - w).abs().max()) <= max(GRAD_RTOL * float(w.abs().max()),
+                                                 1e-6 * top), pname
+    assert np.isfinite(vals).all() and float(np.abs(vals - wvals).max()) <= 1e-4

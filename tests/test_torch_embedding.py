@@ -71,6 +71,22 @@ def test_lookup_and_its_vjp_match_jax(v, n):
     _close(tt.grad, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32_g", "bf16_g"])
+def test_grad_plain_beyond_512_columns_matches_jax_vjp(dtype):
+    """At D 520, above the 512 columns the kernel sums at a time (it walks
+    D in slices there): ``embedding_grad_plain`` of fp32 or bf16 cotangent
+    rows against the JAX ``embedding_lookup`` VJP, which has no bound on
+    D, given the same bf16-representable values."""
+    v, d = 300, 520
+    ids, g = _ids_and_g(11, v, d, 1200)
+    table = jnp.zeros((v, d), jnp.float32)
+    _, vjp = jax.vjp(lambda t: JE.embedding_lookup(t, jnp.asarray(ids)), table)
+    (want,) = vjp(jnp.asarray(g).astype(jnp.bfloat16))
+    got = E.embedding_grad_plain(torch.from_numpy(ids), torch.from_numpy(g).to(dtype), v)
+    assert got.dtype == torch.float32 and got.shape == (v, d)
+    _close(got, want)
+
+
 def test_bf16_embed_sums_the_table_gradient_in_fp32():
     """The model's bf16 ``embed``, given the cotangent the JAX model's
     ``embed(...).astype(bf16)`` gets, returns the fp32 table gradient

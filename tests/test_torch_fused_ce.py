@@ -191,3 +191,46 @@ def test_bf16_table_and_bias(chunked):
         w32 = np.asarray(w.astype(jnp.float32))
         err = np.abs(mine.float().numpy() - w32)
         assert (err <= 2.0 ** -8 * np.abs(w32) + 1e-6).all()
+
+
+def _tf32(a):
+    """fp32 rounded to TF32 (10 mantissa bits, nearest, ties away from
+    zero): the low 13 bits cleared after adding half of their range, as
+    ``cvt.rna.tf32.f32``."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_split_of_g_keeps_the_chunked_dtable():
+    """The tensor-core backward's dtable (``csrc/fused_ce_chunked.cu`` pass
+    (b)) takes g = hi + lo, hi = tf32(g), lo = tf32(g - hi), against a bf16
+    x, which TF32 holds exactly: hi^T x + lo^T x (fp32 sums) lands within
+    1e-6 of the largest value of the fp32 g^T x of the chunked plain
+    version, while hi^T x alone (g rounded once) does not."""
+    _, x, table, bias, dnll = _case(81, n=300, v=97, d=24)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    t = torch.from_numpy(table)
+    b = torch.from_numpy(bias)
+    lse = FCE.fused_softmax_ce_chunked_fwd_plain(xb, t, torch.zeros(300, dtype=torch.long), b,
+                                                 90, True)[1]
+    g = (FCE.fastmath.exp(FCE._chunked_logits(xb, t, b, 90, True) - lse[:, None])
+         * torch.from_numpy(dnll)[:, None]).numpy()
+    xf = xb.float().numpy()
+    assert np.array_equal(_tf32(xf), xf)
+    hi = _tf32(g)
+    lo = _tf32(g - hi)
+    assert np.array_equal(_tf32(lo), lo) and np.abs(g - hi - lo).max() <= 2.0 ** -22 * np.abs(g).max()
+    want = g.T.astype(np.float64) @ xf.astype(np.float64)
+    ref = g.T @ xf  # the plain version's fp32 product
+    got = hi.T @ xf + lo.T @ xf
+    scale = float(np.abs(want).max())
+    assert float(np.abs(ref - want).max()) <= 1e-6 * scale
+    assert float(np.abs(got - ref).max()) <= 1e-6 * scale
+    assert float(np.abs(hi.T @ xf - ref).max()) > 1e-6 * scale
+
+
+@pytest.mark.parametrize("d,mm_bf16,mma", [(64, True, True), (128, True, True),
+                                           (129, True, False), (200, True, False),
+                                           (64, False, False), (16, False, False)])
+def test_chunked_bwd_takes_the_tensor_cores_with_bf16_products_up_to_d_128(d, mm_bf16, mma):
+    assert FCE.chunked_bwd_uses_mma(d, mm_bf16) == mma
