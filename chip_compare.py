@@ -9,9 +9,10 @@ inside a directory ``.gitignore`` lists (e.g. ``build/parent``).  Each turn
 runs in its own process from its tree's root: it builds that tree's
 kernels and prints ``chip_smoke.py``'s kernel-time lines (every kernel
 beside its bound, its plain version and its library call; the
-transformer-layer backward and the chunked CE backward by phase where the
-tree has those phases), the SASRec and BERT4Rec training steps at the
-bench shape, fp32 and bf16, and RecBLR's XLong training step in bf16
+transformer-layer backward and both CE backwards by phase, and row 13's
+backward in bf16 and at D 256, where the tree has those functions), the
+SASRec and BERT4Rec training steps at the bench shape, fp32 and bf16,
+RecBLR's XLong training step in bf16 and BERT4Rec's d256 step in fp32
 (each step against the plain step, launches, time, profile).  Comparing the
 turns of one call keeps both versions on one card at one power limit.
 At the end, one ``[compare]`` line a timed function (kernel-time rows and
@@ -45,6 +46,9 @@ def one(tree, label):
     if hasattr(cs, "row10_bwd_phase_times"):
         cs.row10_bwd_phase_times(dev)
     cs.b4r_training_kernel_times(dev)
+    if hasattr(cs, "row13_bwd_phase_times"):
+        cs.row13_kernel_times(dev)
+        cs.row13_bwd_phase_times(dev)
     cs.xlong_kernel_times(dev)
     if hasattr(cs, "row14_bwd_phase_times"):
         cs.row14_bwd_phase_times(dev)
@@ -54,6 +58,7 @@ def one(tree, label):
         for dt in ("float32", "bfloat16"):
             cs.train_step_phase(dev, dt, name)
     cs.xlong_train_phase(dev, "bfloat16")
+    cs.path_train_phase(dev, "BERT4Rec", "d256", "float32")
 
 
 def timed(line):

@@ -1,7 +1,8 @@
 // Tensor-core tile helpers for Hopper (sm_90a) through mma.sync: the
 // warp-level products m16n8k16 (bf16 operands, fp32 sums) and m16n8k8
 // (TF32 operands, fp32 sums), their fragment loads (ldmatrix for bf16 tiles
-// in shared memory), the two-term TF32 split, and cp.async copies.
+// in shared memory), the two-term TF32 split and the 3xTF32 product of
+// split operands, and cp.async copies.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "mma.m16n8k8" with .tf32).  In a warp, lane = 4 gid + t (gid = lane / 4,
@@ -92,6 +93,29 @@ __device__ __forceinline__ uint32_t tf32_round(float v) {
 __device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) {
   hi = tf32_round(v);
   lo = tf32_round(v - __uint_as_float(hi));
+}
+
+// c += a b at fp32 accuracy from TF32 products of the split operands a = ah
+// + al, b = bh + bl: al bh + ah bl + ah bh (the lo lo term and what the
+// splits leave are below 2^-21 of |a| |b|).  Without BL (b exact in TF32,
+// bl = 0) the ah bl product is skipped.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float bh0, float bh1,
+                                           float bl0, float bl1, bool BL = true) {
+  mma_tf32_1688(c, al, __float_as_uint(bh0), __float_as_uint(bh1));
+  if (BL) mma_tf32_1688(c, ah, __float_as_uint(bl0), __float_as_uint(bl1));
+  mma_tf32_1688(c, ah, __float_as_uint(bh0), __float_as_uint(bh1));
+}
+
+// The split TF32 A fragments (16 x 8, hi and lo) of a product whose depth
+// runs over the 8 columns of the C fragment c: depth k = t is column 2t, k =
+// t + 4 column 2t + 1, so the B operand's rows are read in that order too.
+__device__ __forceinline__ void split_c_as_a(const float (&c)[4], uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+  tf32_split(c[0], hi[0], lo[0]);
+  tf32_split(c[2], hi[1], lo[1]);
+  tf32_split(c[1], hi[2], lo[2]);
+  tf32_split(c[3], hi[3], lo[3]);
 }
 
 // 16 bytes from global to shared memory, asynchronously; the bytes past

@@ -96,6 +96,7 @@ _SIGNATURES = {
     "fused_ce.cu": {
         "recblr_ce_fwd": [_P] * 6 + [_I] * 6 + [_I, _P],
         "recblr_ce_bwd": [_P] * 7 + [_I] + [_P] * 2 + [_I] * 6 + [_I, _P],
+        "recblr_ce_bwd_splits": [_I] * 5,
     },
     "fused_layer_chunked.cu": {
         "recblr_layer_chunked_fwd": [_P] * 8 + [_I] * 11 + _D1 + [_I, _P],

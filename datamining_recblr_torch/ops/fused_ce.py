@@ -15,7 +15,9 @@ version.  Two paths, as in ``datamining_recblr_tpu/ops/fused_ce.py``:
 
   With ``mm_bf16`` the logits take x and the table rounded to bf16 (fp32
   sums), dx takes g and the table rounded, dtable takes g and x unrounded
-  (``fused_ce.py:114-122``).
+  (``fused_ce.py:114-122``).  The backward runs its products on the
+  tensor cores at D <= 256 in both precisions (``bwd_uses_mma``: 3xTF32
+  in fp32, bf16 products with ``mm_bf16``), the fp32 FMA kernels above.
 * vocab-chunked, for tables beyond ``supports`` (XLong: V = 329,728):
   ``_cce_fwd_kernel`` via ``_cce_fwd`` :413 and the kernels of
   ``_cce_bwd`` :448; ``csrc/fused_ce_chunked.cu``, whose backward runs
@@ -40,7 +42,7 @@ kernel or raises, and with grad enabled it runs a
 ``launches`` on ``fused_softmax_ce`` and ``fused_softmax_ce_bwd`` (the
 whole-table kernels) and on ``fused_softmax_ce_chunked`` and
 ``fused_softmax_ce_chunked_bwd`` counts their kernel launches, and
-``mma_launches`` on the last those of its tensor-core path.
+``mma_launches`` on the two backwards those of their tensor-core paths.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ MIN_ROWS = 8192
 CHUNK_MIN_LOGITS_BYTES = 64 * 1024 * 1024
 MAX_D = 512  # the kernels' 16 x 16 tiles hold rows of up to 512 floats
 MMA_MAX_D = 128  # the chunked backward's tensor-core kernels hold rows of up to 128
+BWD_MMA_MAX_D = 256  # the whole-table backward's tensor-core kernels: rows of up to 256
 
 
 def supports(v: int, d: int) -> bool:
@@ -75,6 +78,14 @@ def chunked_bwd_uses_mma(d: int, mm_bf16: bool) -> bool:
     (``csrc/fused_ce_chunked.cu`` passes (a) and (b)): with ``mm_bf16`` at
     D <= 128; otherwise it takes the fp32 FMA kernels."""
     return bool(mm_bf16) and d <= MMA_MAX_D
+
+
+def bwd_uses_mma(d: int, mm_bf16: bool) -> bool:
+    """Whether the whole-table backward runs its products on the tensor
+    cores (``csrc/fused_ce.cu`` passes (a) and (b)): at D <= 256 in both
+    precisions (``mm_bf16`` picks bf16 products or 3xTF32); above, the fp32
+    FMA kernels."""
+    return d <= BWD_MMA_MAX_D
 
 
 # ---------------------------------------------------------------------------
@@ -298,32 +309,32 @@ def fused_softmax_ce_train(x, table, targets, bias=None, valid_v=None, mm_bf16=F
     return _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, True)
 
 
-def _row_splits(n, v, d, device):
-    """The dtable pass's row splits: about four blocks per SM over the
-    vocab tiles (64 columns for D <= 128, else 16), at most one per
-    row block."""
-    tile = 64 if d <= 128 else 16
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-n // tile), -(-4 * sms // -(-v // tile))))
-
-
 def fused_softmax_ce_bwd(x, table, targets, dnll, bias=None, valid_v=None, mm_bf16=False, *,
                          lse):
     """Backward of the whole-table ``fused_softmax_ce`` on the card: (dx in
     x's dtype, dtable [V, D] fp32, dbias [V] fp32).  ``dnll``: [N]
     cotangent; ``lse``: [N] fp32 kept by ``fused_softmax_ce_train`` with
     the same arguments.  dtable and dbias are summed in a fixed order: the
-    same bits from run to run."""
+    same bits from run to run; on the tensor cores where
+    ``bwd_uses_mma``."""
     _cuda.require_cuda(x)
     table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, False)
     n, d = x.shape
     v = table.shape[0]
     dnll, lse = _check_bwd_rows(x, dnll, lse)
-    r = _row_splits(n, v, d, x.device)
+    mma = bwd_uses_mma(d, mm_bf16)  # the C side dispatches on the same fact
+    if mma and table.data_ptr() % 16:
+        table = table.clone()  # the tensor-core kernels copy it and x in 16-byte pieces
+    if mma and x.data_ptr() % 16:
+        x = x.clone()
+    lib = _cuda.library("fused_ce.cu")
+    # the dtable pass's row splits, from the kernel's occupancy on this card
+    r = lib.recblr_ce_bwd_splits(n, v, d, int(bool(mm_bf16)), x.device.index)
+    if r < 1:
+        _cuda.check(lib, -r, "fused_softmax_ce_bwd")
     dx = torch.empty_like(x)
     partial = torch.empty((r, v * d + v), device=x.device, dtype=torch.float32)
     grads = torch.empty((v * d + v,), device=x.device, dtype=torch.float32)
-    lib = _cuda.library("fused_ce.cu")
     with torch.cuda.device(x.device):
         err = lib.recblr_ce_bwd(
             x.data_ptr(), table.data_ptr(), bias.data_ptr(), tgt32.data_ptr(), dnll.data_ptr(),
@@ -333,10 +344,12 @@ def fused_softmax_ce_bwd(x, table, targets, dnll, bias=None, valid_v=None, mm_bf
         )
     _cuda.check(lib, err, "fused_softmax_ce_bwd")
     fused_softmax_ce_bwd.launches += 1
+    fused_softmax_ce_bwd.mma_launches += int(mma)
     return dx, grads[: v * d].view(v, d), grads[v * d:]
 
 
 fused_softmax_ce_bwd.launches = 0
+fused_softmax_ce_bwd.mma_launches = 0  # those of them on the tensor cores
 
 
 def _vocab_splits(n, v, d, device):
@@ -391,7 +404,9 @@ def fused_softmax_ce_chunked_bwd(x, table, targets, dnll, bias=None, valid_v=Non
     dnll, lse = _check_bwd_rows(x, dnll, lse)
     mma = chunked_bwd_uses_mma(d, mm_bf16)  # the C side dispatches on the same two facts
     if mma and table.data_ptr() % 16:
-        table = table.clone()  # the tensor-core kernels copy it in 16-byte pieces
+        table = table.clone()  # the tensor-core kernels copy it and x in 16-byte pieces
+    if mma and x.data_ptr() % 16:
+        x = x.clone()
     s = _vocab_splits(n, v, d, x.device)
     dx = torch.empty_like(x)
     dxp = torch.empty((s, n, d), device=x.device, dtype=torch.float32)

@@ -831,10 +831,13 @@ def test_block_sel_equals_the_full_layer_gathered(dev):
     torch.testing.assert_close(got, want, **TOL["float32"])
 
 
-# (N, V, valid_v, D): BERT4Rec's width with N no multiple of the 64-row
-# block and masked columns, a narrow D no multiple of 16, a wide D that
-# takes the 16 x 16 tiles, and a catalog smaller than one tile
-CE_SHAPES = [(1000, 300, 290, 64), (517, 211, 211, 48), (300, 97, 90, 200), (70, 40, 40, 64)]
+# (N, V, valid_v, D): BERT4Rec's width with N no multiple of the 128-row
+# block and masked columns, a narrow D no multiple of 16, a D no multiple of
+# 8, D 200 and 256 (the backward's widest tensor-core tiles, 16 table rows),
+# a catalog smaller than one tile, and D 300, whose backward stays on the
+# fp32 FMA kernels (16 x 16 tiles)
+CE_SHAPES = [(1000, 300, 290, 64), (517, 211, 211, 48), (300, 97, 90, 200), (70, 40, 40, 64),
+             (300, 97, 90, 36), (257, 300, 290, 256), (129, 70, 66, 300)]
 
 
 @pytest.mark.parametrize("mm_bf16", [False, True])
@@ -844,7 +847,8 @@ def test_ce_kernels_match_plain(dev, n, v, valid_v, d, dtype, mm_bf16):
     """nll, dx, dtable and dbias against the plain version by autograd
     (nll atol 1e-4 + rtol 1e-5: an fp32 logsumexp in another order;
     gradients within GRAD_RTOL of the largest value, a bf16 dx one bf16
-    ulp on top); the backward gives the same bits on a rerun."""
+    ulp on top); the backward takes the tensor-core kernels exactly at
+    D <= 256 and gives the same bits on a rerun."""
     from datamining_recblr_torch.ops import fused_ce as FCE
 
     rng = np.random.default_rng(23)
@@ -855,12 +859,14 @@ def test_ce_kernels_match_plain(dev, n, v, valid_v, d, dtype, mm_bf16):
     tgt = torch.from_numpy(rng.integers(0, valid_v, n)).to(dev)
     dnll = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
     args = (tgt, bias, valid_v, mm_bf16)
-    before = (FCE.fused_softmax_ce.launches, FCE.fused_softmax_ce_bwd.launches)
+    bwd = FCE.fused_softmax_ce_bwd
+    before = (FCE.fused_softmax_ce.launches, bwd.launches, bwd.mma_launches)
     nll, lse = FCE.fused_softmax_ce_train(x, table, *args)
-    dx, dtab, dbias = FCE.fused_softmax_ce_bwd(x, table, tgt, dnll, bias, valid_v, mm_bf16,
-                                               lse=lse)
-    assert (FCE.fused_softmax_ce.launches - before[0],
-            FCE.fused_softmax_ce_bwd.launches - before[1]) == (1, 1)
+    dx, dtab, dbias = bwd(x, table, tgt, dnll, bias, valid_v, mm_bf16, lse=lse)
+    mma = d <= 256
+    assert FCE.bwd_uses_mma(d, mm_bf16) == mma
+    assert (FCE.fused_softmax_ce.launches - before[0], bwd.launches - before[1],
+            bwd.mma_launches - before[2]) == (1, 1, int(mma))
     assert nll.shape == (n,) and dx.dtype == dt and dtab.shape == (v, d)
     xl, tl, bl = (a.detach().clone().requires_grad_() for a in (x, table, bias))
     want = FCE.fused_softmax_ce_plain(xl, tl, tgt, bl, valid_v, mm_bf16)

@@ -234,3 +234,81 @@ def test_tf32_split_of_g_keeps_the_chunked_dtable():
                                            (64, False, False), (16, False, False)])
 def test_chunked_bwd_takes_the_tensor_cores_with_bf16_products_up_to_d_128(d, mm_bf16, mma):
     assert FCE.chunked_bwd_uses_mma(d, mm_bf16) == mma
+
+
+# ---------------------------------------------------------------------------
+# the whole-table backward on the tensor cores (queue B row 13)
+# ---------------------------------------------------------------------------
+
+def _split(a):
+    """The two-term TF32 split of ``csrc/mma_tile.cuh`` ``tf32_split``."""
+    hi = _tf32(a)
+    return hi, _tf32(np.asarray(a, np.float32) - hi)
+
+
+def _3xtf32(a, b):
+    """a @ b as the 3xTF32 backward computes it: hi hi + hi lo + lo hi,
+    each product of TF32 values exact in fp32, fp32 sums."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+@pytest.mark.parametrize("product", ["logits", "dx", "dtable"])
+def test_3xtf32_keeps_the_whole_table_products_at_fp32(product):
+    """The fp32 backward's products on the tensor cores (``csrc/fused_ce.cu``
+    without mm_bf16): the logits x table^T, dx = g table and dtable = g^T x
+    with g = (softmax - onehot) dnll of the whole-table plain version, each
+    operand split in two TF32 terms.  hi hi + hi lo + lo hi lands within
+    1e-6 of the largest value of the plain fp32 product, one TF32 product
+    (hi hi) does not."""
+    rng, x, table, bias, dnll = _case(91, n=300, v=97, d=24, x_scale=2.0)
+    tgt = rng.integers(0, 90, 300)
+    tx, tt, tb = (torch.from_numpy(a) for a in (x, table, bias))
+    logits = FCE._logits(tx, tt, tb, 90, False)
+    e = FCE.fastmath.exp(logits - logits.amax(-1, keepdim=True))
+    g = ((e / e.sum(-1, keepdim=True) - FCE._onehot(torch.from_numpy(tgt), 97).float())
+         * torch.from_numpy(dnll)[:, None]).numpy()
+    a, b = {"logits": (x, table.T), "dx": (g, table), "dtable": (g.T, x)}[product]
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    ref = a @ b  # the plain version's fp32 product
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    scale = float(np.abs(want).max())
+    assert float(np.abs(ref - want).max()) <= 1e-6 * scale
+    assert float(np.abs(_3xtf32(a, b) - ref).max()) <= 1e-6 * scale
+    assert float(np.abs(_tf32(a) @ _tf32(b) - ref).max()) > 1e-6 * scale
+
+
+def test_bf16_dx_rounds_g_with_its_one_hot_term():
+    """With mm_bf16 the whole-table dx is round(g) round(table) with the
+    one-hot term inside g before the rounding (JAX ``_ce_bwd``'s
+    ``_make_mm``), unlike the chunked path, which subtracts dnll table[t]
+    unrounded.  The plain backward, which the card's kernel is held to,
+    agrees with ``_ce_bwd`` in dx, dtable and dbias, and the chunked
+    rounding point lands measurably away from it."""
+    rng, x, table, bias, dnll = _case(97, n=64, v=53, d=24, x_scale=2.0)
+    tgt = rng.integers(0, 53, 64).astype(np.int32)
+    dnll = (1.0 + dnll).astype(np.float32)
+    wdx, wdt, wdb = JCE._ce_bwd(jnp.asarray(x), jnp.asarray(table), jnp.asarray(bias),
+                                jnp.asarray(tgt), jnp.asarray(dnll), 53, True)
+    tx, tt, tb = (torch.from_numpy(a) for a in (x, table, bias))
+    ttg, tdn = torch.from_numpy(tgt).long(), torch.from_numpy(dnll)
+    dx, dt, db = FCE.fused_softmax_ce_bwd_plain(tx, tt, ttg, tdn, tb, mm_bf16=True)
+    _close(dx, wdx, 4e-5)
+    _close(dt, wdt, 1e-5)
+    _close(db, wdb, 1e-5)
+    logits = FCE._logits(tx, tt, tb, 53, True)
+    p = torch.softmax(logits, -1)
+    rt = FCE._round(tt, True)
+    onehot = FCE._onehot(ttg, 53).float()
+    g = (p - onehot) * tdn[:, None]
+    torch.testing.assert_close(dx, FCE._round(g, True) @ rt, atol=1e-5, rtol=0)
+    chunked = FCE._round(p * tdn[:, None], True) @ rt - tdn[:, None] * rt[ttg]
+    scale = float(np.abs(np.asarray(wdx)).max())
+    assert float(np.abs(chunked.numpy() - np.asarray(wdx)).max()) > 1e-3 * scale
+
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("d", [16, 64, 128, 200, 256, 257, 512])
+def test_whole_table_bwd_takes_the_tensor_cores_up_to_d_256(d, mm_bf16):
+    assert FCE.bwd_uses_mma(d, mm_bf16) == (d <= 256)
