@@ -9,15 +9,15 @@ inside a directory ``.gitignore`` lists (e.g. ``build/parent``).  Each turn
 runs in its own process from its tree's root: it builds that tree's
 kernels and prints ``chip_smoke.py``'s kernel-time lines (every kernel
 beside its bound, its plain version and its library call; the
-transformer-layer backward and both CE backwards by phase, and row 13's
-backward in bf16 and at D 256, where the tree has those functions), the
-SASRec and BERT4Rec training steps at the bench shape, fp32 and bf16,
-RecBLR's XLong training step in bf16 and BERT4Rec's d256 step in fp32
-(each step against the plain step, launches, time, profile).  Comparing the
-turns of one call keeps both versions on one card at one power limit.
-At the end, one ``[compare]`` line a timed function (kernel-time rows and
-train-time medians): its parent and change turns and the ratio of their
-means, change over parent.
+transformer-layer forward and backward and both CE backwards by phase,
+row 10's forward in bf16 and row 13's backward in bf16 and at D 256, where
+the tree has those functions), the SASRec and BERT4Rec training steps at
+the bench shape, fp32 and bf16, RecBLR's XLong training step in bf16 and
+BERT4Rec's d256 step in fp32 (each step against the plain step, launches,
+time, profile).  Comparing the turns of one call keeps both versions on
+one card at one power limit.  At the end, one ``[compare]`` line a timed
+function (kernel-time rows and train-time medians): its parent and change
+turns and the ratio of their means, change over parent.
 """
 
 import os
@@ -43,6 +43,9 @@ def one(tree, label):
     cs.training_kernel_times(dev)
     cs.attn_kernel_times(dev)
     cs.attn_training_kernel_times(dev)
+    if hasattr(cs, "row10_fwd_phase_times"):
+        cs.row10_fwd_kernel_times(dev)
+        cs.row10_fwd_phase_times(dev)
     if hasattr(cs, "row10_bwd_phase_times"):
         cs.row10_bwd_phase_times(dev)
     cs.b4r_training_kernel_times(dev)

@@ -79,11 +79,15 @@ per-op composition, forward and backward) and, phase by phase:
   a small Markov dataset: the loss falls and valid NDCG@10 is above 0;
 * times every kernel beside its bound, its plain version and, where one
   PyTorch call computes the same function, that call (row 15 beside
-  ``F.scaled_dot_product_attention`` with the same additive mask), and
-  the transformer-layer backward by phase (``kernel-time-phase``: T', A',
-  P' and the reduction at the bench shape, causal and bidirectional,
-  fp32 and bf16) and the chunked CE's backward by pass (pass a, the
-  reduction, pass b at the XLong loss, on the tensor cores).
+  ``F.scaled_dot_product_attention`` with the same additive mask; the
+  transformer-layer forward also in bf16 at B 2,048 and 256, beside a bf16
+  ``TransformerEncoderLayer``; the forwards whose products run on the
+  tensor cores beside their FMA-priced bound too), and the
+  transformer-layer forward and backward by phase (``kernel-time-phase``:
+  the projection, the attention and the tail; T', A', P' and the
+  reduction; at the bench shape, causal and bidirectional, fp32 and bf16)
+  and the chunked CE's backward by pass (pass a, the reduction, pass b at
+  the XLong loss, on the tensor cores).
 
 Each phase prints one line; any failure exits non-zero.  The line before
 the last is the kernels' JSON record, the last line the device JSON.
@@ -320,12 +324,24 @@ def _kept_keys(lens, t):
     return torch.where(n == 0, torch.full_like(n, t), n)
 
 
-def block_bound_ms(lens, t, causal, p, act_bytes, stash=False):
+def _mma_bound(mma, fma, nbytes, act_bytes, priced_fma=False):
+    """_bound of a forward whose products ``mma`` run on the tensor cores
+    (bf16 operands for a bf16 input, else 3xTF32: three TF32 products
+    each) and ``fma`` on the fp32 pipe; ``priced_fma``: every product at
+    the fp32 FMA peak (the FMA-priced bound, kept beside the new one)."""
+    if priced_fma:
+        return _bound(mma + fma, nbytes)
+    if act_bytes == 2:
+        return _bound(fma, nbytes, mma)
+    return _bound(fma, nbytes, 0, 3 * mma)
+
+
+def block_bound_ms(lens, t, causal, p, act_bytes, stash=False, priced_fma=False):
     # QKV, W_o and the FFN at every position; QK^T and P.V (4D per pair
     # over all heads) only for the query-key pairs whose probability this
     # data can make non-zero: keys below the length, and not after the
-    # query when causal.  A training forward also writes q/k/v and the
-    # context (4D fp32 per position).
+    # query when causal; all on the tensor cores.  A training forward also
+    # writes q/k/v and the context (4D fp32 per position).
     n = _kept_keys(lens, t).double()
     if causal:
         pairs = torch.where(lens.clamp(0, t) == 0, n * t, n * (n + 1) / 2 + (t - n) * n)
@@ -334,14 +350,20 @@ def block_bound_ms(lens, t, causal, p, act_bytes, stash=False):
     b = lens.numel()
     flops = b * t * (8 * D * D + 4 * D * INNER) + 4 * D * float(pairs.sum())
     nbytes = b * t * D * (2 * act_bytes + (16 if stash else 0)) + b * 4 + _params_bytes(p)
-    return _bound(flops, nbytes)
+    return _mma_bound(flops, 0, nbytes, act_bytes, priced_fma)
+
+
+def _fma_field(fma, name):
+    """The FMA-priced bound of a forward whose products moved to the tensor
+    cores, as a kernel-time field (none for the other kernels)."""
+    return {"fma_bound_ms": f"{fma[name][0]:.5f}"} if name in fma else {}
 
 
 def block_bwd_bound_ms(lens, t, causal, p, act_bytes):
     # about twice the forward's products (two gradient products per
     # forward product); x, dout and dx, the kept q/k/v and context read
     # once, the params read and their grads written
-    flops = 2 * block_bound_ms(lens, t, causal, p, act_bytes)[1]
+    flops = 2 * block_bound_ms(lens, t, causal, p, act_bytes, priced_fma=True)[1]
     b = lens.numel()
     nbytes = b * t * D * (3 * act_bytes + 16) + b * 4 + 2 * _params_bytes(p)
     return _bound(flops, nbytes)
@@ -353,24 +375,26 @@ def _last_positions(lens, t):
     return torch.where((lens >= 1) & (lens <= t), lens, torch.full_like(lens, t)).double()
 
 
-def block_last_bound_ms(lens, t, p, act_bytes, stash=False):
+def block_last_bound_ms(lens, t, p, act_bytes, stash=False, priced_fma=False):
     # per row: the query, W_o and the FFN once; K and V projections and
-    # QK^T, P.V at the positions its one query weighs.  A training forward
-    # also writes k/v there (2D fp32) and the [B, D] context.
+    # QK^T, P.V at the positions its one query weighs; the projections,
+    # W_o and the FFN on the tensor cores, QK^T and P.V on the fp32 pipe.
+    # A training forward also writes k/v there (2D fp32) and the [B, D]
+    # context.
     n = float(_last_positions(lens, t).sum())
     b = lens.numel()
-    flops = b * (4 * D * D + 4 * D * INNER) + n * (4 * D * D + 4 * D)
+    mma = b * (4 * D * D + 4 * D * INNER) + n * 4 * D * D
     nbytes = n * D * act_bytes + b * D * act_bytes + b * 4 + _params_bytes(p)
     if stash:
         nbytes += n * 2 * D * 4 + b * D * 4
-    return _bound(flops, nbytes)
+    return _mma_bound(mma, n * 4 * D, nbytes, act_bytes, priced_fma)
 
 
 def block_last_bwd_bound_ms(lens, t, p, act_bytes):
     # twice the forward's products; x and the kept k/v at the weighed
     # positions, dout and the context per row read, dx [B, T, D] written
     # in full, the params read and their grads written
-    flops = 2 * block_last_bound_ms(lens, t, p, act_bytes)[1]
+    flops = 2 * block_last_bound_ms(lens, t, p, act_bytes, priced_fma=True)[1]
     n = float(_last_positions(lens, t).sum())
     b = lens.numel()
     nbytes = (n * D * (act_bytes + 8) + b * t * D * act_bytes + b * D * (act_bytes + 4)
@@ -385,27 +409,28 @@ def ln_bwd_bound_ms(b, act_bytes):
     return _bound(16 * b * T * D, nbytes)
 
 
-def sel_bound_ms(lens, s, p, act_bytes, stash=False):
+def sel_bound_ms(lens, s, p, act_bytes, stash=False, priced_fma=False):
     # per row: K and V at the keys its queries can weigh (below the length;
     # all T at length 0); per selected query its projection, QK^T and P.V
-    # over those keys (4D per key over all heads), W_o and the FFN.  x read
-    # at the weighed keys, the [B, S, D] output written; a training forward
+    # over those keys (4D per key over all heads), W_o and the FFN; QK^T
+    # and P.V on the fp32 pipe, the rest on the tensor cores.  x read at
+    # the weighed keys, the [B, S, D] output written; a training forward
     # also writes k/v there and the [B, S, D] fp32 queries and context.
     n = _kept_keys(lens, T).double()
     keys = float(n.sum())
     b = lens.numel()
-    flops = keys * 4 * D * D + b * s * (4 * D * D + 4 * D * INNER) + s * 4 * D * keys
+    mma = keys * 4 * D * D + b * s * (4 * D * D + 4 * D * INNER)
     nbytes = keys * D * act_bytes + b * s * (D * act_bytes + 4) + b * 4 + _params_bytes(p)
     if stash:
         nbytes += keys * 2 * D * 4 + 2 * b * s * D * 4
-    return _bound(flops, nbytes)
+    return _mma_bound(mma, s * 4 * D * keys, nbytes, act_bytes, priced_fma)
 
 
 def sel_bwd_bound_ms(lens, s, p, act_bytes):
     # twice the forward's products; x and the kept k/v at the weighed keys,
     # dout and the kept queries and context read, dx [B, T, D] written in
     # full, the params read and their grads written
-    flops = 2 * sel_bound_ms(lens, s, p, act_bytes)[1]
+    flops = 2 * sel_bound_ms(lens, s, p, act_bytes, priced_fma=True)[1]
     keys = float(_kept_keys(lens, T).double().sum())
     b = lens.numel()
     nbytes = (keys * D * (act_bytes + 8) + b * T * D * act_bytes
@@ -1687,6 +1712,10 @@ def attn_kernel_times(dev):
              lambda: FB.fused_transformer_layer_last_plain(x, lens, p, HEADS),
              block_last_bound_ms(lens.cpu(), T, p, 4)),
         )
+        fma = {"fused_transformer_layer": block_bound_ms(lens.cpu(), T, True, p, 4,
+                                                         priced_fma=True),
+               "fused_transformer_layer_last": block_last_bound_ms(lens.cpu(), T, p, 4,
+                                                                   priced_fma=True)}
         for name, kernel, plain, (bound, flops, by) in cases:
             ms = time_ms(kernel)
             plain_ms = time_ms(plain, reps=10)
@@ -1695,7 +1724,7 @@ def attn_kernel_times(dev):
                   plain_ms=f"{plain_ms:.4f}",
                   library_ms=f"{lib:.4f}" if lib is not None else "none",
                   bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}", bound_by=by,
-                  share_of_bound=f"{bound / ms:.4f}")
+                  share_of_bound=f"{bound / ms:.4f}", **_fma_field(fma, name))
             rows[(name, b)] = (ms, plain_ms, bound, by, lib)
     return rows
 
@@ -1796,6 +1825,10 @@ def attn_training_kernel_times(dev):
         "fused_transformer_layer_bwd": block_bwd_bound_ms(lc, T, True, p, 4),
         "fused_transformer_layer_last_bwd": block_last_bwd_bound_ms(lc, T, p, 4),
     }
+    fma = {"fused_transformer_layer": block_bound_ms(lc, T, True, p, 4, stash=True,
+                                                     priced_fma=True),
+           "fused_transformer_layer_last": block_last_bound_ms(lc, T, p, 4, stash=True,
+                                                               priced_fma=True)}
     rows = {}
     for name, ms in times.items():
         bound, flops, by = bounds[name]
@@ -1804,7 +1837,7 @@ def attn_training_kernel_times(dev):
               ms=f"{ms:.4f}", plain_ms=f"{plain[name]:.4f}",
               library_ms=f"{lib_ms:.4f}" if lib_ms is not None else "none",
               bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}", bound_by=by,
-              share_of_bound=f"{bound / ms:.4f}")
+              share_of_bound=f"{bound / ms:.4f}", **_fma_field(fma, name))
         rows[name] = (ms, plain[name], bound, by, lib_ms)
     return rows
 
@@ -1819,8 +1852,6 @@ def row10_bwd_phase_times(dev, calls=10):
     SASRec's; causal as SASRec's layers, bidirectional as BERT4Rec's layer
     0; fp32 and bf16): its CUDA-event time beside each phase's device time
     per call, from torch.profiler over ``calls`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
     gen = torch.Generator().manual_seed(SEED + 7)
     p = block_params(gen, dev)
     x = torch.randn((TRAIN_B, T, D), generator=gen).to(dev)
@@ -1836,23 +1867,105 @@ def row10_bwd_phase_times(dev, calls=10):
                 return FB.fused_transformer_layer_bwd(xd, lens, dd, p, causal, HEADS, "gelu",
                                                       *drop, saved=saved)
 
-            ms = time_ms(call)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    call()
-                torch.cuda.synchronize()
-            dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA}
-            parts = {}
-            for label, kernel in ROW10_BWD_PHASES:
-                us = sum(v for k, v in dev_us.items() if kernel in k)
-                parts[label] = f"{us / calls / 1e3:.4f}" if us else "not measured"
             phase("kernel-time-phase", kernel="fused_transformer_layer_bwd", B=TRAIN_B, T=T,
                   causal=causal, dtype=str(dt).replace("torch.", ""), p=SAS_DROPOUT,
-                  ms=f"{ms:.4f}", **{f"{k}_ms": v for k, v in parts.items()},
-                  device_ms=f"{sum(dev_us.values()) / calls / 1e3:.4f}")
+                  **_phase_times(call, ROW10_BWD_PHASES, calls))
             del saved
+
+
+def _phase_times(call, phases, calls):
+    """kernel-time-phase fields of ``call``: its CUDA-event ms and, from
+    torch.profiler over ``calls`` calls, each phase's device ms per call
+    (the kernels whose names hold the phase's) and the device total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(call)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+    fields = {"ms": f"{ms:.4f}"}
+    for label, kernel in phases:
+        us = sum(v for k, v in dev_us.items() if kernel in k)
+        fields[f"{label}_ms"] = f"{us / calls / 1e3:.4f}" if us else "not measured"
+    fields["device_ms"] = f"{sum(dev_us.values()) / calls / 1e3:.4f}"
+    return fields
+
+
+# row 10's forward by phase: the projection, attention, the layer's tail
+ROW10_FWD_PHASES = (("P", "proj_kernel"), ("A", "attn_kernel"), ("C", "tail_kernel"))
+
+
+def row10_fwd_phase_times(dev, calls=10):
+    """Row 10's forward at the bench training shape (B 2,048, T 200, p 0.5,
+    the forward that keeps what the backward reads; causal as SASRec's
+    layers, bidirectional as BERT4Rec's layer 0; fp32 and bf16): its
+    CUDA-event time beside each phase's device time per call, from
+    torch.profiler over ``calls`` calls."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    p = block_params(gen, dev)
+    x = torch.randn((TRAIN_B, T, D), generator=gen).to(dev)
+    lens = torch.randint(2, T + 1, (TRAIN_B,), generator=gen).to(dev)
+    drop = (SAS_DROPOUT, SAS_DROPOUT, 4242)
+    for causal in (True, False):
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            phase("kernel-time-phase", kernel="fused_transformer_layer", B=TRAIN_B, T=T,
+                  causal=causal, dtype=str(dt).replace("torch.", ""), p=SAS_DROPOUT,
+                  **_phase_times(lambda: FB.fused_transformer_layer_train(
+                      xd, lens, p, causal, HEADS, "gelu", *drop), ROW10_FWD_PHASES, calls))
+
+
+def row10_fwd_kernel_times(dev):
+    """Row 10's forward beyond its fp32 rows (``attn_training_kernel_times``
+    at B 2,048, ``attn_kernel_times`` at B 256): bf16 x at the bench
+    training shape (B 2,048, T 200, causal, p 0.5, the forward that keeps
+    what the backward reads) and at serving B 256 (p 0), each beside its
+    bound (bf16 products at the bf16 tensor-core peak; the FMA-priced bound
+    beside it), its plain version and one PyTorch call:
+    torch.nn.TransformerEncoderLayer in bf16 (module and x in bf16, dropout
+    0), checked first against the plain bf16 layer within 2^-4 of its
+    largest value (the module rounds its activations to bf16 after every
+    operation, the plain layer only the products' operands)."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    p = block_params(gen, dev)
+    layer = library_layer(p, dev).to(torch.bfloat16)
+    rows = {}
+    for b, drop, shape in ((TRAIN_B, SAS_DROPOUT, "train"), (B, 0.0, "serve")):
+        x = torch.randn((b, T, D), generator=gen).to(dev, torch.bfloat16)
+        lens = (torch.randint(2, T + 1, (b,), generator=gen) if drop
+                else serving_lens(gen, b)).to(dev)
+        args = (x, lens, p, True, HEADS, "gelu", drop, drop, 4242)
+        mask = _attn_mask(lens, T, causal=True).to(torch.bfloat16)
+        with torch.no_grad():
+            want = FB.fused_transformer_layer_plain(x, lens, p, True, HEADS)
+            lib_err = float((layer(x, src_mask=mask).float() - want.float()).abs().max())
+            tol = 2.0 ** -4 * float(want.float().abs().max())
+            phase("library-vs-plain", call="torch.nn.TransformerEncoderLayer bf16", B=b, T=T,
+                  causal=True, max_abs_err=f"{lib_err:.3e}", tol=f"{tol:.3e}",
+                  ok=lib_err <= tol)
+            check(lib_err <= tol, "the bf16 TransformerEncoderLayer does not compute the "
+                                  "plain bf16 layer's function")
+            lib_ms = time_ms(lambda: layer(x, src_mask=mask))
+            kernel = ((lambda: FB.fused_transformer_layer_train(*args)) if drop
+                      else (lambda: FB.fused_transformer_layer(*args)))
+            ms = time_ms(kernel)
+            plain_ms = time_ms(lambda: FB.fused_transformer_layer_plain(*args), reps=5,
+                               warmup=1)
+        lc = lens.cpu()
+        bound, flops, by = block_bound_ms(lc, T, True, p, 2, stash=bool(drop))
+        fma = {"fused_transformer_layer": block_bound_ms(lc, T, True, p, 2, stash=bool(drop),
+                                                         priced_fma=True)}
+        phase("kernel-time", kernel="fused_transformer_layer", shape=shape, B=b, T=T,
+              dtype="bfloat16", p=drop, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}",
+              bound_by=by, share_of_bound=f"{bound / ms:.4f}",
+              **_fma_field(fma, "fused_transformer_layer"))
+        rows[shape] = (ms, plain_ms, bound, by, lib_ms)
+    return rows
 
 
 def b4r_training_kernel_times(dev):
@@ -1932,6 +2045,8 @@ def b4r_training_kernel_times(dev):
         "fused_softmax_ce": ce_bound_ms(n, N_ITEMS, 4, train=True),
         "fused_softmax_ce_bwd": ce_bwd_bound_ms(n, N_ITEMS, 4),
     }
+    fma = {"fused_transformer_layer_sel": sel_bound_ms(lc, MASK_LEN, p, 4, stash=True,
+                                                        priced_fma=True)}
     rows = {}
     for name, ms in times.items():
         bound, flops, by = bounds[name]
@@ -1941,7 +2056,7 @@ def b4r_training_kernel_times(dev):
               plain_ms=f"{plain[name]:.4f}",
               library_ms=f"{lib_ms:.4f}" if lib_ms is not None else "none",
               bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}", bound_by=by,
-              share_of_bound=f"{bound / ms:.4f}")
+              share_of_bound=f"{bound / ms:.4f}", **_fma_field(fma, name))
         rows[name] = (ms, plain[name], bound, by, lib_ms)
     return rows
 
@@ -3500,6 +3615,8 @@ def main():
     rows = training_kernel_times(dev)
     attn_kernel_times(dev)
     sas_rows = attn_training_kernel_times(dev)
+    row10_fwd_kernel_times(dev)
+    row10_fwd_phase_times(dev)
     row10_bwd_phase_times(dev)
     b4r_rows = b4r_training_kernel_times(dev)
     row13_kernel_times(dev)

@@ -1,13 +1,16 @@
 // Shared device code of the transformer-layer kernels (fused_block.cu,
 // fused_block_last.cu, fused_block_sel.cu and, through attn_bwd.cuh, their
-// backwards): the parameter struct, a small shared-memory matmul, the
-// masked softmax, the activations and the layer's tail after attention.
+// backwards): the parameter struct, a small shared-memory FMA matmul (the
+// backwards', and the last-query and selected-positions forwards' attention
+// loops), the masked softmax, the activations, and the forwards' projection
+// phase and tail after attention on the tensor cores (mma_smem.cuh).
 //
 // All math is fp32.  With bf16 input (RB = true) every matmul operand of
 // the forward is rounded to bf16 as it is read and the products are
 // summed in fp32, as the TPU kernels' _make_mm / _bmm do; softmax and LN
-// stay fp32.  The backwards read the forward's operands rounded the same
-// way and keep every gradient operand fp32.
+// stay fp32.  In fp32 the tensor-core products are 3xTF32.  The backwards
+// read the forward's operands rounded the same way and keep every gradient
+// operand fp32.
 //
 // Dropout: Philox masks (common.cuh drop_mask) M1 after W_o and M3 after
 // the FFN at the hidden rate, ATTN_PROB + h on head h's probabilities at
@@ -16,14 +19,16 @@
 
 #include <type_traits>
 
+#include "attention.cuh"
 #include "common.cuh"
+#include "mma_smem.cuh"
 
 namespace recblr {
 
 constexpr float MASK_VALUE = -10000.0f;  // additive mask of the reference model
 constexpr int ATT_THREADS = 256;         // threads per block
-constexpr int PROJ_ROWS = 32;            // positions per block of the projection phase
-constexpr int FC = 256;                  // FFN columns per chunk held in shared memory
+constexpr int PROJ_ROWS = 128;           // positions per block of the projection phase
+constexpr int FC = 128;                  // FFN columns per chunk held in shared memory
 
 // Parameter pointers in the order of the host-side array (all fp32;
 // ops/fused_block.py PARAM_NAMES).
@@ -203,78 +208,197 @@ __device__ void drop_probs(float* probs, int ld, int M, int T, const Dropout& dr
   }
 }
 
-// Projection phase.  Block (b, tile): positions t0 .. t0+PROJ_ROWS-1 of
-// row b.  For each j < nproj: out[b, t, j*D : (j+1)*D] = x[b, t] @ w[j] + bias[j].
+// Projection phase on the tensor cores (mma_smem.cuh).  Block i: rows
+// r0 = i PROJ_ROWS .. of x viewed as [B * T, D].  For each j < nproj:
+// out[r, j*D : (j+1)*D] = x[r] @ w[j] + bias[j], W_j staged in shared
+// memory by cp.async and the x tile read once for all nproj products.  In
+// fp32 the rows of a sequence that keeps no key (lens <= 0) are FMA sums in
+// depth order instead: all its scores sit at -10000, where an fp32 ulp is
+// 2^-10, so a last-bit difference in q or k can move a probability by 0.1%,
+// and 3xTF32's error is several times an FMA sum's.
 struct ProjParams {
   const float* w[3];
   const float* b[3];
 };
 
-template <typename Tin>
-__global__ void __launch_bounds__(ATT_THREADS)
-proj_kernel(const Tin* __restrict__ x, ProjParams pp, int nproj, float* __restrict__ out,
-            int T, int D) {
-  extern __shared__ float smem[];
-  constexpr bool RB = IS_BF16<Tin>;
-  const int b = blockIdx.x;
-  const int t0 = blockIdx.y * PROJ_ROWS;
-  const int rows = min(PROJ_ROWS, T - t0);
-  float* xs = smem;  // [PROJ_ROWS, D]
-  for (int i = threadIdx.x; i < PROJ_ROWS * D; i += blockDim.x) {
-    const int r = i / D;
-    xs[i] = r < rows ? load_act(x, ((size_t)b * T + t0) * D + i) : 0.f;
-  }
-  __syncthreads();
-  const int ld = nproj * D;
-  float* o = out + ((size_t)b * T + t0) * ld;
-  for (int j = 0; j < nproj; ++j)
-    tile_mm<8, false, RB, false>(xs, D, rows, D, pp.w[j], D, D, pp.b[j], o + j * D, ld);
+template <bool RB>
+inline size_t proj_smem_bytes(int D) {
+  return sizeof(float) * ((size_t)PROJ_ROWS * ld_k<RB>(pad16(D)) + (size_t)pad16(D) * ld_n<RB>(D));
 }
 
-inline size_t proj_smem_bytes(int D) { return sizeof(float) * (size_t)PROJ_ROWS * D; }
+template <typename Tin>
+__global__ void __launch_bounds__(ATT_THREADS)
+proj_kernel(const Tin* __restrict__ x, const int* __restrict__ lens, ProjParams pp, int nproj,
+            float* __restrict__ out, long long nrows, int T, int D) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int keeps_none[PROJ_ROWS];  // the row's sequence keeps no key
+  constexpr bool RB = IS_BF16<Tin>;
+  const long long r0 = (long long)blockIdx.x * PROJ_ROWS;
+  const int rows = (int)min((long long)PROJ_ROWS, nrows - r0);
+  int mine = 0;
+  for (int m = threadIdx.x; m < PROJ_ROWS; m += blockDim.x) {
+    keeps_none[m] = !RB && m < rows && lens[(r0 + m) / T] <= 0;
+    mine |= keeps_none[m];
+  }
+  const bool fma_rows = __syncthreads_or(mine);
+  const int D16 = pad16(D), lx = ld_k<RB>(D16), lw = ld_n<RB>(D);
+  float* xs = smem;                // [PROJ_ROWS][lx] x rows, zero beyond rows and D
+  float* ws = xs + PROJ_ROWS * lx;  // [D16][lw] W_j
+  if constexpr (RB) {
+    for (int i = threadIdx.x; i < PROJ_ROWS * D16; i += blockDim.x) {
+      const int r = i / D16, c = i % D16;
+      xs[r * lx + c] = r < rows && c < D ? load_act(x, (size_t)(r0 + r) * D + c) : 0.f;
+    }
+  } else {
+    stage<false>(xs, lx, x + (size_t)r0 * D, D, rows, D, PROJ_ROWS, D16);
+  }
+  const int ld = nproj * D;
+  float* o = out + (size_t)r0 * ld;
+  for (int j = 0; j < nproj; ++j) {
+    if (j > 0) __syncthreads();  // every warp is done with W_{j-1}
+    stage<false>(ws, lw, pp.w[j], D, D, D, D16, pad8(D));
+    __syncthreads();
+    const float* bias = pp.b[j];
+    mma_mm<RB, false, 2, 4>(xs, lx, ws, lw, rows, D, D16, [&](int m, int n, float v) {
+      if (!keeps_none[m]) o[(size_t)m * ld + j * D + n] = v + __ldg(bias + n);
+    });
+    if (fma_rows)
+      for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+        const int m = i / D, n = i % D;
+        if (!keeps_none[m]) continue;
+        float acc = 0.f;
+        for (int k = 0; k < D; ++k) acc = fmaf(xs[m * lx + k], ws[k * lw + n], acc);
+        o[(size_t)m * ld + j * D + n] = acc + __ldg(bias + n);
+      }
+  }
+}
+
+// x [B * T, D] -> out [B * T, nproj * D] fp32 (proj_kernel), one launch.
+template <typename Tin>
+cudaError_t launch_proj(const Tin* x, const int* lens, const ProjParams& pp, int nproj,
+                        float* out, long long nrows, int T, int D, cudaStream_t stream) {
+  const size_t sm = proj_smem_bytes<IS_BF16<Tin>>(D);
+  cudaError_t e = cudaFuncSetAttribute(proj_kernel<Tin>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  if (e != cudaSuccess) return e;
+  proj_kernel<Tin><<<(unsigned)((nrows + PROJ_ROWS - 1) / PROJ_ROWS), ATT_THREADS, sm, stream>>>(
+      x, lens, pp, nproj, out, nrows, T, D);
+  return cudaGetLastError();
+}
+
+// The shared-memory buffers of the layer's tail (block_tail), each of
+// pad16(M) rows: xs (the layer input), cs (the attention context), ys and
+// fs at row stride ld = ld_k<RB>(pad16(D)); as (an FFN chunk) and, in
+// fp32, al (its tf32_split lo terms) at la = ld_k<RB>(FC); ws,
+// tail_ws_floats<RB>(D) floats, where the weights are staged.  The caller
+// zeroes the columns of cs and ys from D to pad16(D): the depth padding the
+// products read.  In fp32 the tail splits each product's A operand once
+// (mma_smem.cuh split_tf32) into buffers it no longer needs: cs into cs and
+// fs, then ys into cs and xs.
+struct TailBufs {
+  float *xs, *cs, *ys, *fs, *as, *al, *ws;
+  int ld, la;
+};
+
+template <bool RB>
+__host__ __device__ inline int tail_ws_floats(int D) {
+  const int a = pad16(D) * ld_n<RB>(FC), b = FC * ld_n<RB>(pad16(D));  // W1 and W2 chunks
+  return a > b ? a : b;
+}
+
+// v[m, d] = (v[m, d] + bias[d]) * mask(m, d) + res[m, d] for m < M, d < D,
+// the hidden dropout mask `id` at row m's coordinates: one Philox call
+// for four channels (drop_mask4).
+template <typename Coord>
+__device__ void drop_residual(float* v, const float* res, int ld, int M, int D,
+                              const float* bias, const Dropout& drh, int id, Coord coord) {
+  const int G = (D + 3) / 4;
+  for (int i = threadIdx.x; i < M * G; i += blockDim.x) {
+    const int r = i / G, g = i % G;
+    int b, t;
+    coord(r, b, t);
+    const float4 mk = drop_mask4(drh, id, b, t, g);
+    const float m4[4] = {mk.x, mk.y, mk.z, mk.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int d = 4 * g + q;
+      if (d >= D) break;
+      float* e = v + r * ld + d;
+      const float z = bias ? *e + __ldg(bias + d) : *e;
+      *e = z * m4[q] + res[r * ld + d];
+    }
+  }
+}
 
 // The layer after attention, on rows i < M held in shared memory:
 //   ys = LN1(m1 * (cs @ W_o + b_o) + xs)
 //   fs = LN2(m3 * (act(ys @ W1 + b1) @ W2 + b2) + ys)
-// with the FFN in chunks of FC columns through as [., FC]; coord(i, b, t)
-// gives row i's mask coordinates.  R: the row blocking of the matmuls
-// (the arrays hold ceil(M / R) * R rows).
-template <int R, bool RB, typename Coord>
-__device__ void block_tail(const float* cs, const float* xs, float* ys, float* as, float* fs,
-                           int M, int D, int I, int act, const BlockParams& p,
-                           const Dropout& drh, Coord coord) {
-  tile_mm<R, false, RB, false>(cs, D, M, D, p.w_o, D, D, p.b_o, ys, D);
+// every product on the tensor cores (mma_mm) with its weights staged in
+// ws: W_o whole, W1 and W2 in chunks of FC FFN columns through as.
+// coord(i, b, t) gives row i's mask coordinates.
+template <bool RB, typename Coord>
+__device__ void block_tail(const TailBufs& s, int M, int D, int I, int act,
+                           const BlockParams& p, const Dropout& drh, Coord coord) {
+  constexpr bool AS = !RB;  // fp32: A operands split once
+  const int D16 = pad16(D), lw = ld_n<RB>(D16), l1 = ld_n<RB>(FC);
+  __syncthreads();  // cs is complete and ws free
+  stage<false>(s.ws, lw, p.w_o, D, D, D, D16, pad8(D));
+  if constexpr (AS) split_tf32(s.cs, s.cs, s.fs, s.ld, M, D16);
   __syncthreads();
-  for (int i = threadIdx.x; i < M * D; i += blockDim.x) {
-    int b, t;
-    coord(i / D, b, t);
-    ys[i] = ys[i] * drop_mask(drh, M1, b, t, i % D) + xs[i];
+  mma_mm<RB, false, 2, 1, AS>(s.cs, s.ld, s.ws, lw, M, D, D16, [&](int m, int n, float v) {
+    s.ys[m * s.ld + n] = v + __ldg(p.b_o + n);
+  }, s.fs);
+  __syncthreads();
+  const int fc0 = min(FC, I);  // W1's first chunk lands during LN1
+  stage<false>(s.ws, l1, p.w1, I, D, fc0, D16, pad8(fc0), false);
+  drop_residual(s.ys, s.xs, s.ld, M, D, nullptr, drh, M1, coord);
+  __syncthreads();
+  block_layernorm(s.ys, s.ld, M, D, p.ln1_s, p.ln1_b);
+  if constexpr (AS) {
+    __syncthreads();
+    split_tf32(s.ys, s.cs, s.xs, s.ld, M, D16);
   }
-  __syncthreads();
-  block_layernorm(ys, D, M, D, p.ln1_s, p.ln1_b);
-  __syncthreads();
+  const float* a1 = AS ? s.cs : s.ys;  // W1's A operand (fp32: its hi terms)
   for (int c0 = 0; c0 < I; c0 += FC) {
     const int fc = min(FC, I - c0);
-    tile_mm<R, false, RB, false>(ys, D, M, D, p.w1 + c0, I, fc, p.b1 + c0, as, FC);
-    __syncthreads();
-    for (int i = threadIdx.x; i < M * fc; i += blockDim.x) {
-      const int r = i / fc, f = i % fc;
-      as[r * FC + f] = act_fwd(act, as[r * FC + f]);
+    if (c0 > 0) {
+      __syncthreads();  // ws and as free
+      stage<false>(s.ws, l1, p.w1 + c0, I, D, fc, D16, pad8(fc));
+    } else {
+      cp_async_wait_all();
     }
+    if (fc % 16)  // W2's depth padding
+      for (int i = threadIdx.x; i < M * 16; i += blockDim.x) {
+        const int c = fc + i % 16;
+        if (c < pad16(fc)) {
+          s.as[(i / 16) * s.la + c] = 0.f;
+          if constexpr (AS) s.al[(i / 16) * s.la + c] = 0.f;
+        }
+      }
+    __syncthreads();  // W1's chunk landed, A complete
+    mma_mm<RB, false, 2, 2, AS>(a1, s.ld, s.ws, l1, M, fc, D16, [&](int m, int n, float v) {
+      const float a = act_fwd(act, v + __ldg(p.b1 + c0 + n));
+      if constexpr (AS) {
+        uint32_t h, l;
+        tf32_split(a, h, l);
+        s.as[m * s.la + n] = __uint_as_float(h);
+        s.al[m * s.la + n] = __uint_as_float(l);
+      } else {
+        s.as[m * s.la + n] = a;
+      }
+    }, s.xs);
     __syncthreads();
-    if (c0 == 0)
-      tile_mm<R, false, RB, false>(as, FC, M, fc, p.w2, D, D, nullptr, fs, D);
-    else
-      tile_mm<R, false, RB, true>(as, FC, M, fc, p.w2 + (size_t)c0 * D, D, D, nullptr, fs, D);
+    stage<false>(s.ws, lw, p.w2 + (size_t)c0 * D, D, fc, D, pad16(fc), pad8(D));
     __syncthreads();
-  }
-  for (int i = threadIdx.x; i < M * D; i += blockDim.x) {
-    int b, t;
-    coord(i / D, b, t);
-    fs[i] = (fs[i] + p.b2[i % D]) * drop_mask(drh, M3, b, t, i % D) + ys[i];
+    mma_mm<RB, false, 2, 1, AS>(s.as, s.la, s.ws, lw, M, D, pad16(fc), [&](int m, int n, float v) {
+      float* f = s.fs + m * s.ld + n;
+      *f = c0 == 0 ? v : *f + v;
+    }, s.al);
   }
   __syncthreads();
-  block_layernorm(fs, D, M, D, p.ln2_s, p.ln2_b);
+  drop_residual(s.fs, s.ys, s.ld, M, D, p.b2, drh, M3, coord);
+  __syncthreads();
+  block_layernorm(s.fs, s.ld, M, D, p.ln2_s, p.ln2_b);
   __syncthreads();
 }
 

@@ -32,9 +32,15 @@ using namespace recblr;
 namespace {
 
 constexpr int LR = 4;  // batch rows per block of phase B
+constexpr int LR16 = 16;  // the rows of the tensor-core tiles, LR padded
 
-inline size_t last_smem_bytes(int T, int D) {
-  return sizeof(float) * (size_t)LR * (5 * D + T + FC);
+// Shared memory of phase B in floats: xs, qs, cs, ys, fs [LR16][ld]; ss
+// [LR][T]; as [LR16][la] and, in fp32, al [LR16][la]; ws, where the weights
+// are staged.
+template <bool RB>
+inline size_t last_smem_floats(int T, int D) {
+  return (size_t)LR16 * (5 * ld_k<RB>(pad16(D)) + (RB ? 1 : 2) * ld_k<RB>(FC)) +
+         (size_t)LR * T + tail_ws_floats<RB>(D);
 }
 
 template <typename Tin>
@@ -43,42 +49,45 @@ last_attn_tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
                       const float* __restrict__ kv, Tin* __restrict__ out,
                       float* __restrict__ ctx, BlockParams p, Dropout drh, Dropout dra, int B,
                       int T, int D, int H, int I, int act, float scale) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   constexpr bool RB = IS_BF16<Tin>;
   const int b0 = blockIdx.x * LR;
   const int rows = min(LR, B - b0);
-  const int dh = D / H;
-  const int ld = 2 * D;
-  float* xs = smem;           // [LR, D]  selected input rows (0 where none)
-  float* qs = xs + LR * D;    // [LR, D]  queries
-  float* cs = qs + LR * D;    // [LR, D]  attention context, all heads
-  float* ys = cs + LR * D;    // [LR, D]  W_o output, then r1
-  float* fs = ys + LR * D;    // [LR, D]  FFN output, then the layer output
-  float* ss = fs + LR * D;    // [LR, T]  one head's scores, then probabilities
-  float* as = ss + LR * T;    // [LR, FC] FFN chunk
+  const int dh = D / H, D16 = pad16(D);
+  const int ld2 = 2 * D, ld = ld_k<RB>(D16), la = ld_k<RB>(FC);
+  float* xs = smem;            // [LR16][ld]  selected input rows (0 where none)
+  float* qs = xs + LR16 * ld;  // [LR16][ld]  queries
+  float* cs = qs + LR16 * ld;  // [LR16][ld]  attention context, all heads
+  float* ys = cs + LR16 * ld;  // [LR16][ld]  W_o output, then r1
+  float* fs = ys + LR16 * ld;  // [LR16][ld]  FFN output, then the layer output
+  float* ss = fs + LR16 * ld;  // [LR][T]     one head's scores, then probabilities
+  float* as = ss + LR * T;     // [LR16][la]  FFN chunk (fp32: hi terms)
+  float* al = as + (RB ? 0 : LR16 * la);  // [LR16][la] fp32: its lo terms
+  float* ws = al + LR16 * la;  // the staged weights
   auto coord = [&](int r, int& rb, int& rt) {
     rb = b0 + r;
     rt = last_pos(lens[b0 + r], T);
   };
 
-  for (int i = threadIdx.x; i < LR * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    float v = 0.f;
-    if (r < rows) {
-      const int n = valid_len(lens[b0 + r], T);
-      if (n > 0) v = load_act(x, ((size_t)(b0 + r) * T + n - 1) * D + d);
-    }
-    xs[i] = v;
-  }
+  for (int i = threadIdx.x; i < ws - smem; i += blockDim.x) smem[i] = 0.f;
   __syncthreads();
-  tile_mm<LR, false, RB, false>(xs, D, rows, D, p.w_q, D, D, p.b_q, qs, D);
+  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+    const int r = i / D, d = i % D;
+    const int n = valid_len(lens[b0 + r], T);
+    if (n > 0) xs[r * ld + d] = load_act(x, ((size_t)(b0 + r) * T + n - 1) * D + d);
+  }
+  stage<false>(ws, ld_n<RB>(D16), p.w_q, D, D, D, D16, pad8(D));
+  __syncthreads();
+  mma_mm<RB, false, 1, 2>(xs, ld, ws, ld_n<RB>(D16), rows, D, D16, [&](int m, int n, float v) {
+    qs[m * ld + n] = v + __ldg(p.b_q + n);
+  });
   __syncthreads();
   for (int h = 0; h < H; ++h) {
     // scores of row r: q_r,h . k_j,h of the row's own keys
     for (int i = threadIdx.x; i < rows * T; i += blockDim.x) {
       const int r = i / T, j = i % T;
-      const float* k = kv + ((size_t)(b0 + r) * T + j) * ld + h * dh;
-      const float* q = qs + r * D + h * dh;
+      const float* k = kv + ((size_t)(b0 + r) * T + j) * ld2 + h * dh;
+      const float* q = qs + r * ld + h * dh;
       float acc = 0.f;
       for (int d = 0; d < dh; ++d) acc = fmaf(mm_op<RB>(q[d]), mm_op<RB>(__ldg(k + d)), acc);
       ss[i] = acc;
@@ -93,33 +102,31 @@ last_attn_tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
     __syncthreads();
     for (int i = threadIdx.x; i < rows * dh; i += blockDim.x) {
       const int r = i / dh, d = i % dh;
-      const float* v = kv + (size_t)(b0 + r) * T * ld + D + h * dh + d;
+      const float* v = kv + (size_t)(b0 + r) * T * ld2 + D + h * dh + d;
       const float* pr = ss + r * T;
       float acc = 0.f;
-      for (int j = 0; j < T; ++j) acc = fmaf(mm_op<RB>(pr[j]), mm_op<RB>(__ldg(v + (size_t)j * ld)), acc);
-      cs[r * D + h * dh + d] = acc;
+      for (int j = 0; j < T; ++j) acc = fmaf(mm_op<RB>(pr[j]), mm_op<RB>(__ldg(v + (size_t)j * ld2)), acc);
+      cs[r * ld + h * dh + d] = acc;
     }
     __syncthreads();
   }
   if (ctx != nullptr)
-    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) ctx[(size_t)b0 * D + i] = cs[i];
-  block_tail<LR, RB>(cs, xs, ys, as, fs, rows, D, I, act, p, drh, coord);
+    for (int i = threadIdx.x; i < rows * D; i += blockDim.x)
+      ctx[(size_t)b0 * D + i] = cs[(i / D) * ld + i % D];
+  block_tail<RB>(TailBufs{xs, cs, ys, fs, as, al, ws, ld, la}, rows, D, I, act, p, drh, coord);
   for (int i = threadIdx.x; i < rows * D; i += blockDim.x)
-    store_act(out, (size_t)b0 * D + i, fs[i]);
+    store_act(out, (size_t)b0 * D + i, fs[(i / D) * ld + i % D]);
 }
 
 template <typename Tin>
 cudaError_t block_last_fwd(const Tin* x, const int* lens, Tin* out, BlockParams p, float* kv,
                            float* ctx, Dropout drh, Dropout dra, int B, int T, int D, int H,
                            int I, int act, float scale, cudaStream_t stream) {
-  const size_t sa = proj_smem_bytes(D);
   ProjParams pp = {{p.w_k, p.w_v, nullptr}, {p.b_k, p.b_v, nullptr}};
-  proj_kernel<Tin><<<dim3(B, (T + PROJ_ROWS - 1) / PROJ_ROWS), ATT_THREADS, sa, stream>>>(
-      x, pp, 2, kv, T, D);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_proj(x, lens, pp, 2, kv, (long long)B * T, T, D, stream);
   if (e != cudaSuccess) return e;
 
-  const size_t sb = last_smem_bytes(T, D);
+  const size_t sb = sizeof(float) * last_smem_floats<IS_BF16<Tin>>(T, D);
   e = cudaFuncSetAttribute(last_attn_tail_kernel<Tin>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sb);
   if (e != cudaSuccess) return e;

@@ -259,16 +259,6 @@ __device__ __forceinline__ float mma_col_bias(const float* bias, int col, int V,
   return col < valid_v ? __ldg(bias + col) : (col < V ? CE_NEG : -INFINITY);
 }
 
-// acc += c in fp32 (round to nearest).  A tensor core's fp32 sum rounds
-// toward zero, a bias that grows with every product added in the same
-// accumulator; so each tile's product is summed in a fresh one and added
-// here, and the long sums over the vocab (dx) and the rows (dtable) round
-// as fp32 FMA sums do.
-__device__ __forceinline__ void add_tile(float (&acc)[4], const float (&c)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += c[e];
-}
-
 // s += a b (m16n8k16, bf16 operands) through a fresh accumulator: the
 // logits' sum over D rounds as an fp32 sum does, so g, and its rounding to
 // bf16, departs from the plain version's as little as an FMA sum's would.

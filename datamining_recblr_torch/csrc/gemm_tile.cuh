@@ -14,6 +14,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "mma_tile.cuh"  // cp_async_wait_all
 
 namespace recblr {
 
@@ -171,20 +172,19 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // dst[r * ldd + c] = src(r, c) for r < rows, c < cols, rounded to bf16
 // when RB; zero for r < rows_pad, c < cols_pad outside that (the padding
 // a product reads; cols_pad a multiple of 4).  src(r, c) = src[r * lds +
 // c] in device memory.  Every thread's copies are in flight at once
 // (cp.async, 16 bytes each where rows are 16-byte aligned); the caller
-// synchronises the block before reading dst.
+// synchronises the block before reading dst.  With wait = false (RB
+// false) the copies stay in flight: the caller waits (cp_async_wait_all)
+// before that synchronisation.
 template <bool RB>
 __device__ __forceinline__ void stage(float* __restrict__ dst, int ldd,
                                       const float* __restrict__ src, size_t lds, int rows,
-                                      int cols, int rows_pad, int cols_pad) {
+                                      int cols, int rows_pad, int cols_pad, bool wait = true) {
   const bool vec = cols % 4 == 0 && lds % 4 == 0 &&
                    (reinterpret_cast<size_t>(src) & 15) == 0;
   const int w = vec ? 4 : 1, cw = cols_pad / w;
@@ -200,7 +200,7 @@ __device__ __forceinline__ void stage(float* __restrict__ dst, int ldd,
       for (int q = 0; q < w; ++q) d[q] = 0.f;
     }
   }
-  cp_async_wait_all();
+  if (wait) cp_async_wait_all();
   if (RB) {  // each thread rounds what it copied
     for (int i = threadIdx.x; i < rows_pad * cw; i += blockDim.x) {
       const int r = i / cw, c = (i % cw) * w;

@@ -2,7 +2,7 @@
 // warp-level products m16n8k16 (bf16 operands, fp32 sums) and m16n8k8
 // (TF32 operands, fp32 sums), their fragment loads (ldmatrix for bf16 tiles
 // in shared memory), the two-term TF32 split and the 3xTF32 product of
-// split operands, and cp.async copies.
+// split operands, the fp32 sum of a product tile, and cp.async copies.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "mma.m16n8k8" with .tf32).  In a warp, lane = 4 gid + t (gid = lane / 4,
@@ -105,6 +105,15 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4
   mma_tf32_1688(c, al, __float_as_uint(bh0), __float_as_uint(bh1));
   if (BL) mma_tf32_1688(c, ah, __float_as_uint(bl0), __float_as_uint(bl1));
   mma_tf32_1688(c, ah, __float_as_uint(bh0), __float_as_uint(bh1));
+}
+
+// acc += c in fp32 (round to nearest).  A tensor core's fp32 sum rounds
+// toward zero, a bias that grows with every product added in the same
+// accumulator; so each tile's product is summed in a fresh one and added
+// here, and long sums round as fp32 FMA sums do.
+__device__ __forceinline__ void add_tile(float (&acc)[4], const float (&c)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += c[e];
 }
 
 // The split TF32 A fragments (16 x 8, hi and lo) of a product whose depth

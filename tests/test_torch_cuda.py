@@ -325,8 +325,9 @@ def _block_params(rng, d, inner, dev):
 
 
 # (D, heads, inner): the serving widths, then a narrow one with 3 heads of
-# 16 and an FFN of more than one 256-column chunk
-BLOCK_SHAPES = [(64, 2, 256), (48, 3, 320)]
+# 16 and an FFN of more than one 256-column chunk, then heads of 15 (no
+# multiple of 8: zero-padded to 16 in the forward's tensor-core tiles)
+BLOCK_SHAPES = [(64, 2, 256), (48, 3, 320), (45, 3, 320)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -383,11 +384,52 @@ def test_block_kernels_at_the_largest_supported_shape(dev, dtype):
     x = x.to(dev, getattr(torch, dtype))
     lens = torch.tensor([0, 1000], device=dev)
     for causal in (True, False):
+        before = FB.fused_transformer_layer.launches
         got = FB.fused_transformer_layer(x, lens, p, causal, heads)
+        assert FB.fused_transformer_layer.launches == before + 1
         _assert_attn_close(got, FB.fused_transformer_layer_plain(x, lens, p, causal, heads),
                            dtype)
+    before = FB.fused_transformer_layer_last.launches
     got = FB.fused_transformer_layer_last(x, lens, p, heads)
+    assert FB.fused_transformer_layer_last.launches == before + 1
     _assert_attn_close(got, FB.fused_transformer_layer_last_plain(x, lens, p, heads), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,heads,inner", [(64, 2, 256), (128, 1, 512)])
+def test_block_forwards_at_t_1024(dev, d, heads, inner, dtype):
+    """The three forwards at T 1,024 (the longest `supports` takes) with
+    lengths 0, 1, 17 and T: the full layer's query tiles visit 1, 17 or up
+    to T keys, and all T on the lens-0 row; at dropout 0.2 the masks of the
+    visited keys match the plain version's.  One head of 128 takes the
+    smallest key chunk (64 keys) and the tail's widest tiles.  One launch a
+    call each."""
+    from datamining_recblr_torch.ops import fused_block as FB
+
+    rng = np.random.default_rng(24)
+    t = 1024
+    p = _block_params(rng, d, inner, dev)
+    x = torch.from_numpy(rng.standard_normal((4, t, d)).astype(np.float32))
+    x = x.to(dev, getattr(torch, dtype))
+    lens = torch.tensor([0, 1, 17, t], device=dev)
+    sel = _sel_idx(rng, 4, t, 24, dev)
+    for drop in (("gelu",), ("gelu", 0.2, 0.2, 77)):
+        for causal in (True, False):
+            before = FB.fused_transformer_layer.launches
+            got = FB.fused_transformer_layer(x, lens, p, causal, heads, *drop)
+            assert FB.fused_transformer_layer.launches == before + 1
+            _assert_attn_close(
+                got, FB.fused_transformer_layer_plain(x, lens, p, causal, heads, *drop), dtype)
+        before = FB.fused_transformer_layer_last.launches
+        got = FB.fused_transformer_layer_last(x, lens, p, heads, *drop)
+        assert FB.fused_transformer_layer_last.launches == before + 1
+        _assert_attn_close(got, FB.fused_transformer_layer_last_plain(x, lens, p, heads, *drop),
+                           dtype)
+        before = FB.fused_transformer_layer_sel.launches
+        got = FB.fused_transformer_layer_sel(x, lens, sel, p, heads, *drop)
+        assert FB.fused_transformer_layer_sel.launches == before + 1
+        _assert_attn_close(
+            got, FB.fused_transformer_layer_sel_plain(x, lens, sel, p, heads, *drop), dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -8,6 +8,8 @@ Tolerance atol 2e-5 in fp32, the JAX package's own
 top of it, since every matmul operand is rounded on both sides and fp32
 sums in another order can round a value to the neighbouring bf16."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 
 from datamining_recblr_tpu.ops import fused_block as JFB
 from datamining_recblr_tpu.ops.fused_layer import fused_ln_dropout as j_ln_dropout
+from datamining_recblr_torch.ops import fastmath
 from datamining_recblr_torch.ops import fused_block as FB
 from datamining_recblr_torch.ops import fused_layer as FL
 
@@ -434,3 +437,185 @@ def test_encoder_select_refuses_a_causal_stack():
         ML.transformer_encoder_apply([_layer_tree(_torch(p))], x, None, n_heads=HEADS,
                                      lens=torch.from_numpy(LENS), causal=True,
                                      select=torch.from_numpy(SEL))
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel's key skipping (csrc/fused_block.cu) and its products
+# on the tensor cores (csrc/mma_smem.cuh)
+# ---------------------------------------------------------------------------
+
+# the seeded shapes of tests/test_torch_cuda.py test_block_kernel_matches_plain
+KERNEL_SHAPES = [(64, 2, 256), (48, 3, 320), (45, 3, 320)]
+KT, KLENS = 45, [0, 1, 45, 17, 32, 40]
+
+
+def _kernel_inputs(d, inner, dtype):
+    """The inputs of test_block_kernel_matches_plain: weights and x from
+    default_rng(10), std 0.1 (x standard normal)."""
+    rng = np.random.default_rng(10)
+
+    def r(*s, std=0.1):
+        return (std * rng.standard_normal(s)).astype(np.float32)
+
+    p = {}
+    for n in "qkvo":
+        p[f"w_{n}"], p[f"b_{n}"] = r(d, d), r(d)
+    p.update(ln1_s=1.0 + r(d), ln1_b=r(d), w1=r(d, inner), b1=r(inner), w2=r(inner, d),
+             b2=r(d), ln2_s=1.0 + r(d), ln2_b=r(d))
+    x = rng.standard_normal((len(KLENS), KT, d)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    if dtype == "bfloat16":
+        xt = xt.to(torch.bfloat16)
+        return p, xt, jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16)
+    return p, xt, jnp.asarray(x)
+
+
+def _key_end(n, t, causal, q1):
+    """csrc/attention.cuh row_keys / key_end: the end of the keys the query
+    tile ending at q1 visits; all t where the row keeps no key."""
+    if n < 1:
+        return t
+    return min(n, t, q1) if causal else min(n, t)
+
+
+def _visit(lens, t, causal, qt, rule=_key_end):
+    """[B, T, T] bool: key j is visited by query i's tile of qt rows."""
+    v = torch.zeros((len(lens), t, t), dtype=torch.bool)
+    for b, n in enumerate(lens):
+        for q0 in range(0, t, qt):
+            q1 = min(q0 + qt, t)
+            v[b, q0:q1, :rule(n, t, causal, q1)] = True
+    return v
+
+
+def _ordered_layer(x, lens, p, causal, heads, visit, act="gelu"):
+    """fused_transformer_layer_plain (dropout 0) with every sum over keys
+    taken key by key, left to right, in fp32 (the softmax's and P.V's),
+    over the keys ``visit`` marks: a key outside it adds nothing.  The
+    scores are the plain version's, computed over all T keys."""
+    xf = x.float()
+    rb = x.dtype == torch.bfloat16
+    b, t, d = x.shape
+    dh = d // heads
+    rnd = (lambda a: a.to(torch.bfloat16).float()) if rb else (lambda a: a)
+    q, k, v = (FB._mm(xf, p[f"w_{n}"], rb) + p[f"b_{n}"] for n in "qkv")
+    amask = FB.attention_mask(lens, t, causal).expand(b, t, t)
+    ctx = []
+    for h in range(heads):
+        sl = slice(h * dh, (h + 1) * dh)
+        s = FB._mm(q[..., sl], k[..., sl].transpose(1, 2), rb) * (1.0 / math.sqrt(dh))
+        s = torch.where(visit, s + amask, -torch.inf)
+        e = fastmath.exp(s - s.amax(-1, keepdim=True))
+        den = torch.zeros((b, t, 1))
+        for j in range(t):
+            den = den + e[..., j:j + 1]
+        pr, vh = rnd(e / den), rnd(v[..., sl])
+        acc = torch.zeros((b, t, dh))
+        for j in range(t):
+            acc = acc + pr[..., j:j + 1] * vh[:, j:j + 1, :]
+        ctx.append(acc)
+    return FB._tail(torch.cat(ctx, -1), xf, p, act, rb).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,heads,inner", KERNEL_SHAPES)
+def test_skipped_key_tiles_change_no_bit(d, heads, inner, causal, dtype):
+    """The forward kernel visits, per (row, query tile), only the keys below
+    key_end.  On a row with lens >= 1 every key beyond it is masked for the
+    whole tile and its exp underflows to exactly 0 in fp32: the plain
+    version's probabilities there, and at every other masked key of such a
+    row (the kernel computes no exp for those), are 0.0, and the layer with
+    the sums over
+    keys taken in a fixed order is the same to the bit over the visited keys
+    as over all T, for the kernel's query tiles of 32 and 16.  A lens-0 row
+    averages all T keys at -10000: there every probability is positive and
+    stopping at the causal bound changes the layer.  The ordered layer is
+    the plain layer up to the order of its sums (fp32 ATOL) and the JAX
+    layer within 1e-4 of the largest value (at these widths the JAX kernel
+    in interpret mode is itself 4.6e-5 from the plain layer); in bf16 both
+    within one bf16 ulp of the value and 2^-9 of the largest, the card
+    tests' bound, since a sum in another order can send a rounded operand
+    to the other bf16 neighbour."""
+    p, x, jx = _kernel_inputs(d, inner, dtype)
+    lens = torch.tensor(KLENS)
+    tp = _torch(p)
+    rb = dtype == "bfloat16"
+    everything = torch.ones((len(KLENS), KT, KT), dtype=torch.bool)
+    full = _ordered_layer(x, lens, tp, causal, heads, everything)
+    for qt in (32, 16):
+        visit = _visit(KLENS, KT, causal, qt)
+        assert not visit[1:].all()  # rows with lens >= 1 skip keys
+        assert torch.equal(_ordered_layer(x, lens, tp, causal, heads, visit), full)
+        # the plain version's own probabilities at the skipped keys
+        q, k = (FB._mm(x.float(), tp[f"w_{n}"], rb) + tp[f"b_{n}"] for n in "qk")
+        amask = FB.attention_mask(lens, KT, causal)
+        dh = d // heads
+        for h in range(heads):
+            sl = slice(h * dh, (h + 1) * dh)
+            s = FB._mm(q[..., sl], k[..., sl].transpose(1, 2), rb) * (1.0 / math.sqrt(dh)) + amask
+            e = fastmath.exp(s - s.amax(-1, keepdim=True))
+            pr = e / e.sum(-1, keepdim=True)
+            assert bool((pr[~visit] == 0).all())
+            # every masked key of a row that keeps one: the kernel skips its exp too
+            assert bool((pr[1:][(amask.expand(-1, KT, -1) != 0)[1:]] == 0).all())
+            assert bool((pr[0] > 0).all())  # lens 0: every key weighs
+    # lens 0 needs all T keys: the causal bound of a row that keeps a key is wrong there
+    causal_bound = _visit(KLENS, KT, True, 32,
+                          rule=lambda n, t, c, q1: min(max(n, 1), t, q1))
+    assert not torch.equal(_ordered_layer(x, lens, tp, causal, heads, causal_bound)[0], full[0])
+    # the ordered layer against the plain and the JAX layer
+    plain = FB.fused_transformer_layer_plain(x, lens, tp, causal, heads).float().numpy()
+    want = np.asarray(JFB.fused_transformer_layer(
+        jx, jnp.asarray(KLENS, jnp.int32), SEED, _jax(p), causal, heads, 0.0, 0.0, "gelu",
+        rb).astype(jnp.float32))
+    for ref, fp32_atol in ((plain, ATOL), (want, 1e-4 * float(np.abs(want).max()))):
+        atol = 2.0 ** -9 * float(np.abs(ref).max()) if rb else fp32_atol
+        np.testing.assert_allclose(full.float().numpy(), ref, rtol=BF16_RTOL if rb else 0.0,
+                                   atol=atol)
+
+
+def _tf32(a):
+    """fp32 rounded to TF32 (10 mantissa bits, nearest, ties away from
+    zero), as ``cvt.rna.tf32.f32``."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mma_3xtf32(a, b, kt=8):
+    """a @ b as ``csrc/mma_smem.cuh`` mma_mm computes it in fp32: both
+    operands split by tf32_split (hi = tf32(v), lo = tf32(v - hi)); per
+    k-tile of 8 a fresh accumulator of lo hi + hi lo + hi hi (products of
+    TF32 values, exact in fp32, summed and rounded once), added to the
+    running sum in fp32."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], kt):
+        sl = slice(k0, k0 + kt)
+        tile = sum(u[:, sl].astype(np.float64) @ w[sl].astype(np.float64)
+                   for u, w in ((al, bh), (ah, bl), (ah, bh)))
+        acc = (acc + tile.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("k", [64, 200, 256])
+def test_3xtf32_with_a_fresh_accumulator_per_k_tile_keeps_fp32(k):
+    """The forward's fp32 products on the tensor cores at the depths of the
+    bench shape: x W (64), P.V over 200 keys, the FFN's second product
+    (256).  3xTF32 with a fresh accumulator per 8-deep k-tile lands within
+    1e-6 of the largest fp64 value, as the plain fp32 product does; one
+    TF32 product (hi hi) does not."""
+    rng = np.random.default_rng(k)
+    if k == 200:  # probabilities against values
+        e = np.exp(rng.standard_normal((96, k)))
+        a = (e / e.sum(-1, keepdims=True)).astype(np.float32)
+    else:
+        a = rng.standard_normal((96, k)).astype(np.float32)
+    b = (0.1 * rng.standard_normal((k, 64))).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    scale = float(np.abs(want).max())
+    assert float(np.abs(a @ b - want).max()) <= 1e-6 * scale
+    assert float(np.abs(_mma_3xtf32(a, b) - want).max()) <= 1e-6 * scale
+    assert float(np.abs(_tf32(a) @ _tf32(b) - want).max()) > 1e-6 * scale
