@@ -504,7 +504,32 @@ def environment():
         spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", log)]
         phase("ptxas", source=src, kernels=len(regs), max_registers=max(regs, default=0),
               spill_store_bytes=sum(spills))
+        if src in ("attention.cu", "attention_bwd.cu"):
+            ptxas_kernels(src, log)
     return smi
+
+
+ROW15_KERNEL_NAMES = ("attn_fwd_mma_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
+                      "attn_fwd_kernel", "dkdv_kernel", "dq_kernel", "delta_kernel")
+
+
+def ptxas_kernels(src, log):
+    """One ptxas-kernel line per kernel of a source: its registers and
+    spill bytes as ptxas reports them (template arguments: the input type
+    and the tiles)."""
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'")[0]
+        m = re.search(r"(" + "|".join(ROW15_KERNEL_NAMES) + r")I(f|13__nv_bfloat16)(\w*?)EE",
+                      name)
+        regs = re.search(r"Used (\d+) registers", part)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        if m and regs:
+            phase("ptxas-kernel", source=src, kernel=m.group(1),
+                  dtype="float32" if m.group(2) == "f" else "bfloat16",
+                  tiles=re.sub(r"Li(\d+)E?", r"\1,", m.group(3)).rstrip(",") or "-",
+                  registers=int(regs.group(1)),
+                  spill_store_bytes=int(spills.group(1)) if spills else "not reported",
+                  spill_load_bytes=int(spills.group(2)) if spills else "not reported")
 
 
 def _bf16_ok(got, want):
@@ -3188,28 +3213,36 @@ def attention_kernels_vs_plain(dev):
             for causal in (True, False):
                 for p in (0.0, ROW15_DROPOUT):
                     args = (4242, causal, p)
+                    mma = (A.fused_attention.mma_launches, A.fused_attention_bwd.mma_launches)
                     out, saved = A.fused_attention_train(q, k, v, lens, *args)
                     grads = A.fused_attention_bwd(q, k, v, lens, dout, *args, saved=saved)
+                    mma = (A.fused_attention.mma_launches - mma[0],
+                           A.fused_attention_bwd.mma_launches - mma[1])
+                    again = A.fused_attention_bwd(q, k, v, lens, dout, *args, saved=saved)
+                    same = all(torch.equal(g, a) for g, a in zip(grads, again))
                     leaves = [a.clone().requires_grad_() for a in (q, k, v)]
                     want = A.fused_attention_plain(*leaves, lens, *args)
                     wgrads = torch.autograd.grad(want, leaves, dout)
                     torch.cuda.synchronize()
                     fwd = _row15_err(out, want.detach(), dt)
                     bwd = [_row15_err(g, w, dt) for g, w in zip(grads, wgrads)]
-                    ok = fwd[1] and all(e[1] for e in bwd)
+                    ok = fwd[1] and all(e[1] for e in bwd) and same and mma == (1, 1)
                     phase("attention-kernel-vs-plain", shape=shape_name,
                           B_H_T_dh="x".join(map(str, shape)), dtype=str(dt).split(".")[-1],
                           causal=causal, p=p, out_max_abs_err=f"{fwd[0]:.3e}",
                           dq_dk_dv_max_abs_err="/".join(f"{e[0]:.3e}" for e in bwd),
                           tol="1e-4*max|plain|" + (" + 1 bf16 ulp" if dt != torch.float32
-                                                    else ""), ok=ok)
+                                                    else ""),
+                          mma_launches_fwd_bwd="/".join(map(str, mma)),
+                          rerun_bit_equal=same, ok=ok)
                     check(ok, f"row 15 {shape_name} {dt} causal={causal} p={p}: the kernels "
-                          "disagree with the plain version")
+                          "disagree with the plain version, miss the tensor cores or give "
+                          "other bits on a rerun")
                     if dt == torch.float32:
                         errs["fused_attention"] = max(errs["fused_attention"], fwd[0])
                         errs["fused_attention_bwd"] = max(errs["fused_attention_bwd"],
                                                           *(e[0] for e in bwd))
-                    del out, saved, grads, leaves, want, wgrads
+                    del out, saved, grads, again, leaves, want, wgrads
     return errs
 
 
@@ -3421,77 +3454,169 @@ def _row15_pairs(lens, t, causal):
     return float(pairs.sum())
 
 
-def row15_bound_ms(lens, shape, causal, act_bytes):
-    # QK^T and P.V, 2 dh FLOP each per kept pair; q, k, v read and out
-    # written once
+def row15_bound_ms(lens, shape, causal, act_bytes, priced_fma=False):
+    # QK^T and P.V, 2 dh FLOP each per kept pair, on the tensor cores (dh
+    # <= 128): fp32 3xTF32 (three TF32 products each); bf16 QK^T bf16
+    # products, P.V two TF32 products (P split, V exact in TF32); with
+    # ``priced_fma`` every product at the fp32 FMA peak.  q, k, v read and
+    # out written once.
     b, h, t, dh = shape
-    return _bound(4 * dh * h * _row15_pairs(lens, t, causal), 4 * b * h * t * dh * act_bytes)
+    mm = 2 * dh * h * _row15_pairs(lens, t, causal)
+    nbytes = 4 * b * h * t * dh * act_bytes
+    if priced_fma:
+        return _bound(2 * mm, nbytes)
+    if act_bytes == 2:
+        return _bound(0, nbytes, mm, 2 * mm)
+    return _bound(0, nbytes, 0, 6 * mm)
 
 
-def row15_bwd_bound_ms(lens, shape, causal, act_bytes):
-    # S again, dP, dV, dQ and dK, 2 dh FLOP each per kept pair; q, k, v,
-    # dout and the fp32 output read, the lse read, dq, dk, dv written
+def row15_bwd_bound_ms(lens, shape, causal, act_bytes, priced_fma=False):
+    # S again and dP (bf16 products in bf16), dV, dK and dQ (P or dS split
+    # against an operand: two TF32 products in bf16), 2 dh FLOP each per
+    # kept pair; fp32 3xTF32 throughout; with ``priced_fma`` at the fp32
+    # FMA peak.  q, k, v, dout and the fp32 output read, the lse read, dq,
+    # dk, dv written.
     b, h, t, dh = shape
+    mm = 2 * dh * h * _row15_pairs(lens, t, causal)
     nbytes = b * h * t * (dh * (7 * act_bytes + 4) + 4)
-    return _bound(10 * dh * h * _row15_pairs(lens, t, causal), nbytes)
+    if priced_fma:
+        return _bound(5 * mm, nbytes)
+    if act_bytes == 2:
+        return _bound(0, nbytes, 2 * mm, 6 * mm)
+    return _bound(0, nbytes, 0, 15 * mm)
 
 
 def row15_kernel_times(dev):
-    """Row 15 at the d256 shape, fp32, causal (SASRec) and bidirectional
-    (BERT4Rec), p = 0 (and the causal forward at p 0.5, SASRec's rate):
-    each beside its bound, its plain version (the backward's: autograd of
-    the plain forward, its graph built once) and one PyTorch call of the
-    same function, ``F.scaled_dot_product_attention`` with the same
-    additive mask, first checked against the plain version."""
+    """Row 15 at the d256 shape, causal (SASRec) and bidirectional
+    (BERT4Rec), p = 0 (and the causal forward at p 0.5, SASRec's rate), fp32
+    and bf16: each beside its bound (the tensor cores' products at their
+    rate, the FMA-priced bound beside it), its plain version (the
+    backward's: autograd of the plain forward, its graph built once) and
+    one PyTorch call of the same function, ``F.scaled_dot_product_attention``
+    with the same additive mask (in bf16 for bf16 q: the mask and the call
+    in bf16), first checked against the plain version: fp32 within 1e-4 of
+    its largest value; bf16 within 2^-5 of it (the library rounds the
+    probabilities to bf16 before P V, the kernel keeps them fp32)."""
     gen = torch.Generator().manual_seed(SEED + 42)
     shape = ROW15_SHAPES["d256"]
     t = shape[2]
-    q, k, v, dout, _ = _row15_inputs(gen, shape, dev, torch.float32)
+    q32, k32, v32, dout32, _ = _row15_inputs(gen, shape, dev, torch.float32)
     # the bench data's lengths, 2 .. T
     lens = torch.randint(2, t + 1, (shape[0],), generator=gen).to(dev)
+    bwd_lens = lens.cpu()
     rows = {}
-    for causal in (True, False):
-        args = (lens, 4242, causal, 0.0)
-        mask = FB.attention_mask(lens, t, causal, dev)[:, None]
-        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
-        want = A.fused_attention_plain(*leaves, *args)
-        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
-        lib_err = float((lib_out - want).detach().abs().max())
-        lib_ok = lib_err <= 1e-4 * float(want.detach().abs().max())
-        phase("library-vs-plain", call="F.scaled_dot_product_attention(attn_mask=-10000 mask)",
-              B_H_T_dh="x".join(map(str, shape)), causal=causal, max_abs_err=f"{lib_err:.3e}",
-              tol="1e-4*max|plain|", ok=lib_ok)
-        check(lib_ok, "scaled_dot_product_attention does not compute row 15's function")
-        _, saved = A.fused_attention_train(q, k, v, *args)
-        with torch.no_grad():
-            ms = time_ms(lambda: A.fused_attention(q, k, v, *args))
-            plain = time_ms(lambda: A.fused_attention_plain(q, k, v, *args), reps=5, warmup=1)
-            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-        ms_bwd = time_ms(lambda: A.fused_attention_bwd(q, k, v, lens, dout, 4242, causal, 0.0,
-                                                       saved=saved))
-        plain_bwd = time_ms(lambda: torch.autograd.grad(want, leaves, dout, retain_graph=True),
-                            reps=5, warmup=1)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True))
-        bwd_lens = lens.cpu()
-        for name, t_ms, t_plain, t_lib, bnd in (
-                ("fused_attention", ms, plain, lib, row15_bound_ms(bwd_lens, shape, causal, 4)),
-                ("fused_attention_bwd", ms_bwd, plain_bwd, lib_bwd,
-                 row15_bwd_bound_ms(bwd_lens, shape, causal, 4))):
-            bound, flops, by = bnd
-            phase("kernel-time", kernel=name, B_H_T_dh="x".join(map(str, shape)), causal=causal,
-                  dtype="float32", p=0.0, ms=f"{t_ms:.4f}", plain_ms=f"{t_plain:.4f}",
-                  library_ms=f"{t_lib:.4f}", bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}",
-                  bound_by=by, share_of_bound=f"{bound / t_ms:.4f}")
-            if causal:
-                rows[name] = (t_ms, t_plain, bound, by, t_lib)
-        if causal:
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        q, k, v, dout = (a.to(dt) for a in (q32, k32, v32, dout32))
+        for causal in (True, False):
+            args = (lens, 4242, causal, 0.0)
+            mask = FB.attention_mask(lens, t, causal, dev)[:, None].to(dt)
+            leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+            want = A.fused_attention_plain(*leaves, *args)
+            lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            lib_err = float((lib_out.float() - want.float()).detach().abs().max())
+            tol = (2.0 ** -5 if dt == torch.bfloat16 else 1e-4) * float(
+                want.detach().float().abs().max())
+            phase("library-vs-plain",
+                  call="F.scaled_dot_product_attention(attn_mask=-10000 mask)",
+                  B_H_T_dh="x".join(map(str, shape)), causal=causal, dtype=dname,
+                  max_abs_err=f"{lib_err:.3e}", tol=f"{tol:.3e}", ok=lib_err <= tol)
+            check(lib_err <= tol, "scaled_dot_product_attention does not compute row 15's "
+                                  "function")
+            _, saved = A.fused_attention_train(q, k, v, *args)
             with torch.no_grad():
-                ms_p = time_ms(lambda: A.fused_attention(q, k, v, lens, 4242, True, SAS_DROPOUT))
-            phase("kernel-time", kernel="fused_attention", B_H_T_dh="x".join(map(str, shape)),
-                  causal=True, dtype="float32", p=SAS_DROPOUT, ms=f"{ms_p:.4f}")
-        del leaves, want, lib_out, saved
+                ms = time_ms(lambda: A.fused_attention(q, k, v, *args))
+                plain = time_ms(lambda: A.fused_attention_plain(q, k, v, *args), reps=5,
+                                warmup=1)
+                lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            ms_bwd = time_ms(lambda: A.fused_attention_bwd(q, k, v, lens, dout, 4242, causal,
+                                                           0.0, saved=saved))
+            plain_bwd = time_ms(lambda: torch.autograd.grad(want, leaves, dout,
+                                                            retain_graph=True),
+                                reps=5, warmup=1)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dout,
+                                                          retain_graph=True))
+            size = q.element_size()
+            for name, t_ms, t_plain, t_lib, bnd, fma in (
+                    ("fused_attention", ms, plain, lib,
+                     row15_bound_ms(bwd_lens, shape, causal, size),
+                     row15_bound_ms(bwd_lens, shape, causal, size, priced_fma=True)),
+                    ("fused_attention_bwd", ms_bwd, plain_bwd, lib_bwd,
+                     row15_bwd_bound_ms(bwd_lens, shape, causal, size),
+                     row15_bwd_bound_ms(bwd_lens, shape, causal, size, priced_fma=True))):
+                bound, flops, by = bnd
+                phase("kernel-time", kernel=name, B_H_T_dh="x".join(map(str, shape)),
+                      causal=causal, dtype=dname, p=0.0, ms=f"{t_ms:.4f}",
+                      plain_ms=f"{t_plain:.4f}", library_ms=f"{t_lib:.4f}",
+                      bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}", bound_by=by,
+                      share_of_bound=f"{bound / t_ms:.4f}", fma_bound_ms=f"{fma[0]:.5f}")
+                if causal and dt == torch.float32:
+                    rows[name] = (t_ms, t_plain, bound, by, t_lib)
+            if causal:
+                with torch.no_grad():
+                    ms_p = time_ms(lambda: A.fused_attention(q, k, v, lens, 4242, True,
+                                                             SAS_DROPOUT))
+                phase("kernel-time", kernel="fused_attention",
+                      B_H_T_dh="x".join(map(str, shape)), causal=True, dtype=dname,
+                      p=SAS_DROPOUT, ms=f"{ms_p:.4f}")
+            del leaves, want, lib_out, saved
     return rows
 
+
+# row 15 by launch: the training forward, and the backward's three
+ROW15_PHASES = {"fused_attention": (("fwd", "attn_fwd_mma_kernel"),),
+                "fused_attention_bwd": (("delta", "delta_kernel"), ("dkdv", "dkdv_mma_kernel"),
+                                        ("dq", "dq_mma_kernel"))}
+
+
+def row15_phase_times(dev, calls=10):
+    """Row 15 at the d256 shape (lengths 2 .. T, p 0.2), causal and
+    bidirectional, fp32 and bf16: the training forward's and the backward's
+    CUDA-event time beside each launch's device time per call, from
+    torch.profiler over ``calls`` calls; the blocks an SM holds of each
+    tensor-core kernel at dh 128; and the kernels that
+    ``F.scaled_dot_product_attention``'s forward and backward launch (the
+    library call of the kernel-time rows), by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(SEED + 43)
+    shape = ROW15_SHAPES["d256"]
+    b, h, t, dh = shape
+    q32, k32, v32, dout32, _ = _row15_inputs(gen, shape, dev, torch.float32)
+    lens = torch.randint(2, t + 1, (b,), generator=gen).to(dev)
+    fwd_lib = _cuda.library("attention.cu")
+    bwd_lib = _cuda.library("attention_bwd.cu")
+    for bf16 in (0, 1):
+        phase("occupancy", kernel="row 15", dh=dh, dtype="bfloat16" if bf16 else "float32",
+              blocks_per_sm_fwd=fwd_lib.recblr_attn_fwd_blocks_per_sm(dh, bf16, dev.index),
+              blocks_per_sm_dkdv=bwd_lib.recblr_attn_bwd_blocks_per_sm(dh, bf16, 0, dev.index),
+              blocks_per_sm_dq=bwd_lib.recblr_attn_bwd_blocks_per_sm(dh, bf16, 1, dev.index))
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (a.to(dt) for a in (q32, k32, v32, dout32))
+        for causal in (True, False):
+            args = (lens, 4242, causal, ROW15_DROPOUT)
+            _, saved = A.fused_attention_train(q, k, v, *args)
+            for name, call in (
+                    ("fused_attention", lambda: A.fused_attention_train(q, k, v, *args)),
+                    ("fused_attention_bwd", lambda: A.fused_attention_bwd(
+                        q, k, v, lens, dout, *args[1:], saved=saved))):
+                phase("kernel-time-phase", kernel=name, B_H_T_dh="x".join(map(str, shape)),
+                      causal=causal, dtype=str(dt).split(".")[-1], p=ROW15_DROPOUT,
+                      **_phase_times(call, ROW15_PHASES[name], calls))
+            del saved
+    q, k, v = (a.clone().requires_grad_() for a in (q32, k32, v32))
+    mask = FB.attention_mask(lens, t, True, dev)[:, None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            torch.autograd.grad(out, [q, k, v], dout32)
+        torch.cuda.synchronize()
+    dev_us = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    for us, key in dev_us[:4]:
+        phase("library-kernels", call="F.scaled_dot_product_attention fwd + bwd, fp32, causal",
+              kernel=repr(key[:120]), device_ms_per_call=f"{us / calls / 1e3:.4f}")
 
 
 KERNELS = (
@@ -3625,6 +3750,7 @@ def main():
     row14_bwd_phase_times(dev)
     slice_rows = slice_kernel_times(dev)
     row15_rows = row15_kernel_times(dev)
+    row15_phase_times(dev)
     # launches: each model's kernels in one training step of its main path
     # (fp32), the forwards' launches per recommend() beside them (RecBLR's;
     # the attention kernels' in SASRec's and BERT4Rec's)

@@ -122,9 +122,11 @@ _SIGNATURES = {
     },
     "attention.cu": {
         "recblr_attn_fwd": [_P] * 7 + [_I] * 5 + [_F, _I] + _D1 + [_I, _P],
+        "recblr_attn_fwd_blocks_per_sm": [_I] * 3,
     },
     "attention_bwd.cu": {
         "recblr_attn_bwd": [_P] * 11 + [_I] * 5 + [_F, _I] + _D1 + [_I, _P],
+        "recblr_attn_bwd_blocks_per_sm": [_I] * 4,
     },
 }
 

@@ -19,6 +19,10 @@ Two kernels:
 * its backward, ``fused_attention_bwd``, replaces ``_bwd_kernel`` (:94,
   via ``_attn_bwd`` :184); ``csrc/attention_bwd.cu``.
 
+Up to dh 128 (``uses_mma``) both run their products on the tensor cores
+(3xTF32 in fp32; bf16 products for q k^T and dO v^T in bf16, the fp32
+probabilities and dS never rounded); wider heads take fp32 FMA kernels.
+
 q, k and v are [B, H, T, dh], fp32 or bf16 (all one dtype), dh <= 256;
 ``lens`` [B] holds each row's count of keys.  Arithmetic is fp32 and the
 output has q's dtype.  A row with lens 0 keeps no key and softmaxes over
@@ -36,7 +40,7 @@ why both give the same gradients).
 On a CPU tensor a wrapper computes its plain version (autograd gives the
 plain backward); on a CUDA tensor it launches its kernel or raises.
 ``launches`` on each of the two public functions counts its kernel
-launches.
+launches, ``mma_launches`` those of its tensor-core kernels.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from datamining_recblr_torch.ops.fused_block import attention_mask
 from datamining_recblr_torch.ops.fused_layer import _check_dout, _dropout_args, _lens32
 
 MAX_DH = 256  # head width the kernels' shared memory holds
+MMA_MAX_DH = 128  # head width the tensor-core kernels take
 _GRID_MAX = 2**31 - 1
 
 
@@ -55,6 +60,13 @@ def supports(dh: int) -> bool:
     """Whether heads of width ``dh`` take the kernels: 1 <= dh <= MAX_DH.
     Wider heads run the models' softmax composition (``models/layers.py``)."""
     return 1 <= dh <= MAX_DH
+
+
+def uses_mma(dh: int) -> bool:
+    """Whether heads of width ``dh`` take the tensor-core kernels
+    (``csrc/attention{,_bwd}.cu`` dispatch on the same fact): dh <= 128;
+    wider ones the fp32 FMA kernels."""
+    return dh <= MMA_MAX_DH
 
 
 def scale_of(dh: int) -> float:
@@ -144,6 +156,7 @@ def _launch_fwd(q, k, v, lens32, seed, causal, dropout_p, train):
         )
     _cuda.check(lib, err, "fused_attention")
     fused_attention.launches += 1
+    fused_attention.mma_launches += int(uses_mma(dh))
     return out, o32, lse
 
 
@@ -178,10 +191,12 @@ def fused_attention_bwd(q, k, v, lens, dout, seed=0, causal=False, dropout_p=0.0
         )
     _cuda.check(lib, err, "fused_attention_bwd")
     fused_attention_bwd.launches += 1
+    fused_attention_bwd.mma_launches += int(uses_mma(dh))
     return dq, dk, dv
 
 
 fused_attention_bwd.launches = 0
+fused_attention_bwd.mma_launches = 0  # those of them on the tensor cores
 
 
 # ---------------------------------------------------------------------------
@@ -221,3 +236,4 @@ def fused_attention(q, k, v, lens, seed=0, causal=False, dropout_p=0.0):
 
 
 fused_attention.launches = 0
+fused_attention.mma_launches = 0  # those of them on the tensor cores

@@ -1560,16 +1560,24 @@ def _attn_inputs(rng, shape, dev, dt):
     return q, k, v, dout, torch.from_numpy(lens).to(dev)
 
 
-def _assert_row15(got, want, dtype, what):
+def _assert_row15(got, want, dtype, what, floor=0.0):
     """fp32: within 1e-4 of the largest plain value (a row of lens 0 sits
     at -10000, where an fp32 ulp is 2^-10: ``_assert_attn_grads``); bf16:
     one bf16 ulp of the value plus 1e-4 of the largest value (both sides
-    compute in fp32 and round once)."""
+    compute in fp32 and round once).  ``floor``: the least absolute
+    tolerance (a gradient that is 0 up to rounding)."""
     g, w = got.detach().float(), want.detach().float()
     assert bool(torch.isfinite(g).all()), what
     top = float(w.abs().max())
     rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
-    assert bool(((g - w).abs() <= rtol * w.abs() + 1e-4 * top).all()), what
+    assert bool(((g - w).abs() <= rtol * w.abs() + max(1e-4 * top, floor)).all()), what
+
+
+def _row15_counts(A):
+    """Launches of row 15's forward and backward, and of their tensor-core
+    kernels."""
+    return (A.fused_attention.launches, A.fused_attention.mma_launches,
+            A.fused_attention_bwd.launches, A.fused_attention_bwd.mma_launches)
 
 
 @pytest.mark.parametrize("p_drop", [0.0, 0.2])
@@ -1585,11 +1593,10 @@ def test_attention_kernels_match_plain(dev, shape, dtype, causal, p_drop):
     dt = getattr(torch, dtype)
     q, k, v, dout, lens = _attn_inputs(rng, ATTN_SHAPES[shape], dev, dt)
     args = (4242, causal, p_drop)
-    before = (A.fused_attention.launches, A.fused_attention_bwd.launches)
+    before = _row15_counts(A)
     out, saved = A.fused_attention_train(q, k, v, lens, *args)
     grads = A.fused_attention_bwd(q, k, v, lens, dout, *args, saved=saved)
-    assert (A.fused_attention.launches, A.fused_attention_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert _row15_counts(A) == tuple(n + 1 for n in before)  # dh 128, 32: the tensor cores
     assert out.dtype == dt and all(g.dtype == dt for g in grads)
     with torch.no_grad():
         torch.testing.assert_close(A.fused_attention(q, k, v, lens, *args), out, atol=0, rtol=0)
@@ -1600,7 +1607,45 @@ def test_attention_kernels_match_plain(dev, shape, dtype, causal, p_drop):
         _assert_row15(g, w, dtype, what)
 
 
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("t", [1, 17, 200, 2048])
+@pytest.mark.parametrize("dh", [8, 15, 32, 72, 128, 200, 256])
+def test_row15_kernels_at_every_tile_shape(dev, dh, t):
+    """Forward and backward (dq, dk, dv) against autograd of the plain
+    version where the tiles meet their edges: T ragged against 64-row tiles
+    and chunks of 8 and 16 rows, T 1, odd and narrow dh, and the FMA
+    kernels' widths above 128; rows of lens 0, 1 and T in every batch,
+    causal and bidirectional, p 0 and 0.2, fp32 and bf16.  The tensor-core
+    kernels run up to dh 128 (``mma_launches``), and a rerun's dq, dk, dv
+    are the same bits.  Bound: ``_assert_row15``, at least 1e-6 of the
+    call's largest gradient (at T 1, dq and dk are 0 up to rounding)."""
+    from datamining_recblr_torch.ops import attention as A
+
+    assert A.uses_mma(dh) == (dh <= 128)
+    mma = int(A.uses_mma(dh))
+    rng = np.random.default_rng(dh * 10000 + t)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q, k, v, dout, lens = _attn_inputs(rng, (4 if t == 2048 else 6, 2, t, dh), dev, dt)
+        for causal in (True, False):
+            for p_drop in (0.0, 0.2):
+                args = (4242, causal, p_drop)
+                what = f"{dtype} causal={causal} p={p_drop}"
+                before = _row15_counts(A)
+                out, saved = A.fused_attention_train(q, k, v, lens, *args)
+                grads = A.fused_attention_bwd(q, k, v, lens, dout, *args, saved=saved)
+                assert _row15_counts(A) == (before[0] + 1, before[1] + mma, before[2] + 1,
+                                            before[3] + mma), what
+                again = A.fused_attention_bwd(q, k, v, lens, dout, *args, saved=saved)
+                assert all(torch.equal(g, a) for g, a in zip(grads, again)), what
+                leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+                want = A.fused_attention_plain(*leaves, lens, *args)
+                wgrads = torch.autograd.grad(want, leaves, dout)
+                floor = 1e-6 * max(float(w.abs().max()) for w in wgrads)
+                for name, g, w in zip(("out", "dq", "dk", "dv"), (out, *grads), (want, *wgrads)):
+                    _assert_row15(g, w, dtype, f"{name} {what}", floor)
+
+
+@pytest.mark.parametrize("dh", [8, 15, 32, 64, 72, 128, 200, 256])
 def test_row15_mask_bits_match_plain(dev, dh):
     """Each head's probability mask as the forward draws it, bit for bit:
     T = dh keys and v the identity, so out[b, h, i, j] = p_ij m_ij, with

@@ -163,10 +163,13 @@ def test_the_kernels_outside_the_whole_layer_kernels_are_built():
 
 def test_the_attention_kernels_are_built():
     """Queue B row 15, the masked-softmax attention, forward and backward,
-    is among the build's sources and entry points."""
+    is among the build's sources and entry points (with the queries of
+    blocks an SM that chip_smoke.py reports for its tensor-core kernels)."""
     from datamining_recblr_torch.ops import _cuda
 
     assert {"attention.cu", "attention_bwd.cu"} <= set(_cuda.SOURCES)
     assert "attention.cuh" in _cuda.HEADERS
-    assert set(_cuda._SIGNATURES["attention.cu"]) == {"recblr_attn_fwd"}
-    assert set(_cuda._SIGNATURES["attention_bwd.cu"]) == {"recblr_attn_bwd"}
+    assert set(_cuda._SIGNATURES["attention.cu"]) == {"recblr_attn_fwd",
+                                                      "recblr_attn_fwd_blocks_per_sm"}
+    assert set(_cuda._SIGNATURES["attention_bwd.cu"]) == {"recblr_attn_bwd",
+                                                          "recblr_attn_bwd_blocks_per_sm"}
