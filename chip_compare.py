@@ -11,10 +11,11 @@ kernels and prints ``chip_smoke.py``'s kernel-time lines (every kernel
 beside its bound, its plain version and its library call; the
 transformer-layer forward and backward and both CE backwards by phase,
 row 10's forward in bf16, row 13's backward in bf16 and at D 256 and row
-15 by launch, where the tree has those functions), the SASRec and BERT4Rec
-training steps at the bench shape, fp32 and bf16, RecBLR's XLong training
-step in bf16 and SASRec's and BERT4Rec's d256 steps in fp32 (each step
-against the plain step, launches, time, profile).  Comparing the turns of one call keeps both versions on
+15 by launch, rows 2, 4 and 9's backwards by phase, where the tree has
+those functions), the RecBLR, SASRec and BERT4Rec training steps at the
+bench shape, fp32 and bf16, RecBLR's XLong training step in bf16 and its
+longodd step in fp32, and SASRec's and BERT4Rec's d256 steps in fp32 (each
+step against the plain step, launches, time, profile).  Comparing the turns of one call keeps both versions on
 one card at one power limit.  At the end, one ``[compare]`` line a timed
 function (kernel-time rows and train-time medians): its parent and change
 turns and the ratio of their means, change over parent.
@@ -59,10 +60,13 @@ def one(tree, label):
     cs.row15_kernel_times(dev)
     if hasattr(cs, "row15_phase_times"):
         cs.row15_phase_times(dev)
-    for name in ("SASRec", "BERT4Rec"):
+    if hasattr(cs, "recblr_bwd_phase_times"):
+        cs.recblr_bwd_phase_times(dev)
+    for name in ("RecBLR", "SASRec", "BERT4Rec"):
         for dt in ("float32", "bfloat16"):
             cs.train_step_phase(dev, dt, name)
     cs.xlong_train_phase(dev, "bfloat16")
+    cs.slice_train_phase(dev, "longodd", "float32")
     cs.path_train_phase(dev, "SASRec", "d256", "float32")
     cs.path_train_phase(dev, "BERT4Rec", "d256", "float32")
 

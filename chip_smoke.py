@@ -354,7 +354,7 @@ def block_bound_ms(lens, t, causal, p, act_bytes, stash=False, priced_fma=False)
 
 
 def _fma_field(fma, name):
-    """The FMA-priced bound of a forward whose products moved to the tensor
+    """The FMA-priced bound of a kernel whose products moved to the tensor
     cores, as a kernel-time field (none for the other kernels)."""
     return {"fma_bound_ms": f"{fma[name][0]:.5f}"} if name in fma else {}
 
@@ -504,29 +504,38 @@ def environment():
         spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", log)]
         phase("ptxas", source=src, kernels=len(regs), max_registers=max(regs, default=0),
               spill_store_bytes=sum(spills))
-        if src in ("attention.cu", "attention_bwd.cu"):
+        if src in PTXAS_KERNEL_SOURCES:
             ptxas_kernels(src, log)
     return smi
 
 
-ROW15_KERNEL_NAMES = ("attn_fwd_mma_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
-                      "attn_fwd_kernel", "dkdv_kernel", "dq_kernel", "delta_kernel")
+# the kernels of row 15 and the RecBLR layer backwards' tensor-core phases,
+# and the sources whose ptxas output is read kernel by kernel
+PTXAS_KERNEL_NAMES = ("attn_fwd_mma_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
+                      "attn_fwd_kernel", "dkdv_kernel", "dq_kernel", "delta_kernel",
+                      "tail_bwd_mma_kernel", "gate_bwd_mma_kernel", "inproj_bwd_mma_kernel")
+PTXAS_KERNEL_SOURCES = ("attention.cu", "attention_bwd.cu", "fused_layer_bwd.cu",
+                        "fused_layer_last_bwd.cu", "fused_layer_chunked_bwd.cu",
+                        "fused_bdlru_bwd.cu")
 
 
 def ptxas_kernels(src, log):
     """One ptxas-kernel line per kernel of a source: its registers and
-    spill bytes as ptxas reports them (template arguments: the input type
-    and the tiles)."""
+    spill bytes as ptxas reports them (template arguments after the input
+    type: row 15's tiles, the RecBLR kernels' LAST / XB flags)."""
     for part in log.split("Compiling entry function '")[1:]:
         name = part.split("'")[0]
-        m = re.search(r"(" + "|".join(ROW15_KERNEL_NAMES) + r")I(f|13__nv_bfloat16)(\w*?)EE",
+        m = re.search(r"(" + "|".join(PTXAS_KERNEL_NAMES) + r")I(f|13__nv_bfloat16)(\w*?)EE",
                       name)
         regs = re.search(r"Used (\d+) registers", part)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
         if m and regs:
+            args = re.sub(r"Li(\d+)E?", r"\1,", m.group(3))
+            args = re.sub(r"Lb([01])E?", lambda b: ("true" if b.group(1) == "1" else "false")
+                          + ",", args)
             phase("ptxas-kernel", source=src, kernel=m.group(1),
                   dtype="float32" if m.group(2) == "f" else "bfloat16",
-                  tiles=re.sub(r"Li(\d+)E?", r"\1,", m.group(3)).rstrip(",") or "-",
+                  template_args=args.rstrip(",") or "-",
                   registers=int(regs.group(1)),
                   spill_store_bytes=int(spills.group(1)) if spills else "not reported",
                   spill_load_bytes=int(spills.group(2)) if spills else "not reported")
@@ -605,8 +614,8 @@ def train_lens(gen, b):
 
 def training_kernels_vs_plain(dev):
     """Each kernel's output and every gradient against its plain version
-    by autograd, fp32 and bf16, p = 0 and p = 0.2, at B = 256, T = 200.
-    Returns the largest fp32 |kernel - plain| of each forward (output)
+    by autograd, fp32 and bf16, p = 0 and p = 0.2, at B = 256, T = 200; a
+    rerun of each backward gives the same bits.  Returns the largest fp32 |kernel - plain| of each forward (output)
     and backward (dx and every grad)."""
     gen = torch.Generator().manual_seed(SEED + 2)
     p1 = layer_params(gen, dev, prologue=True)
@@ -627,16 +636,23 @@ def training_kernels_vs_plain(dev):
                                                                seed)
             dx2, g2 = FL.fused_recurrent_layer_last_bwd(xd, lens, dout2, p2, True, True, p,
                                                         seed, saved=saved2)
+            rerun1 = FL.fused_recurrent_layer_bwd(xd, dout1, p1, True, True, True, p, seed,
+                                                  saved=saved1)
+            rerun2 = FL.fused_recurrent_layer_last_bwd(xd, lens, dout2, p2, True, True, p, seed,
+                                                       saved=saved2)
             want1 = _plain_vjp(lambda a, q: FL.fused_recurrent_layer_plain(
                 a, q, True, True, True, p, seed), xd, p1, dout1)
             want2 = _plain_vjp(lambda a, q: FL.fused_recurrent_layer_last_plain(
                 a, lens, q, True, True, p, seed), xd, p2, dout2)
             torch.cuda.synchronize()
             tag = dict(dtype=str(dt).split(".")[-1], p=p)
-            for name, out, dx, grads, (wout, wdx, wgrads) in (
-                ("fused_recurrent_layer", out1, dx1, g1, want1),
-                ("fused_recurrent_layer_last", out2, dx2, g2, want2),
+            for name, out, dx, grads, (wout, wdx, wgrads), rerun in (
+                ("fused_recurrent_layer", out1, dx1, g1, want1, rerun1),
+                ("fused_recurrent_layer_last", out2, dx2, g2, want2, rerun2),
             ):
+                same = torch.equal(rerun[0], dx) and all(
+                    torch.equal(rerun[1][k], v) for k, v in grads.items())
+                check(same, f"{name} bwd {tag}: a rerun changed a bit")
                 ok_out = (torch.allclose(out, wout, **FP32_TOL) if dt == torch.float32
                           else _bf16_ok(out, wout))
                 check(bool(torch.isfinite(dx).all()), f"{name} bwd {tag}: non-finite dx")
@@ -650,7 +666,7 @@ def training_kernels_vs_plain(dev):
                       rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
                       tol=f"max|err|/max|plain| <= {GRAD_RTOL}"
                           + (" (bf16 dx: + 2^-7*|plain|)" if dt == torch.bfloat16 else ""),
-                      ok=ok)
+                      rerun_bits_equal=same, ok=ok)
                 check(ok, f"{name} bwd {tag}: kernel disagrees with its plain version")
                 if dt == torch.float32:
                     # max |kernel - plain|: the output, then dx and every grad
@@ -1391,30 +1407,41 @@ def fit_phase(dev, name="RecBLR"):
 
 
 def _bwd_flops_k1(b, t):
-    # recompute of the forward matmuls plus the two gradient products of
-    # each (3x), the conv recompute and its two gradients
+    """(products, the rest): the forward's products recomputed plus the
+    two gradient products of each (3x); the conv recomputed and its two
+    gradients."""
     fwd_mm = 2 * D * 2 * C + 2 * C * 2 * C + 2 * C * D + 4 * D * FF
-    return b * t * (3 * fwd_mm + 6 * K * C)
+    return b * t * 3 * fwd_mm, b * t * 6 * K * C
 
 
-def k1_bwd_bound_ms(b, t, p, act_bytes):
+def _bwd_bound(mm, fma, nbytes, priced_fma):
+    """_bound of a RecBLR layer backward: its products ``mm`` on the
+    tensor cores as 3xTF32 (three TF32 products each, fp32 math whatever
+    x's dtype), the rest ``fma`` on the fp32 pipe; ``priced_fma``: every
+    product at the fp32 FMA peak (the FMA-priced bound, kept beside it)."""
+    if priced_fma:
+        return _bound(mm + fma, nbytes)
+    return _bound(fma, nbytes, 0, 3 * mm)
+
+
+def k1_bwd_bound_ms(b, t, p, act_bytes, priced_fma=False):
     # x, dout and dx [B, T, D]; the stashed alpha and h [B, T, C] fp32
     nbytes = b * t * (3 * D * act_bytes + 2 * C * 4) + 2 * _params_bytes(p)
-    return _bound(_bwd_flops_k1(b, t), nbytes)
+    return _bwd_bound(*_bwd_flops_k1(b, t), nbytes, priced_fma)
 
 
-def k2_bwd_bound_ms(lens, t, p, act_bytes):
+def k2_bwd_bound_ms(lens, t, p, act_bytes, priced_fma=False):
     # per position below the length: in-projection (xb half) and gates
     # recomputed with their two gradients each, the conv and its
     # gradients; per row: the tail matmuls (z half, W_out, FFN) x3
     n = lens.where((lens >= 1) & (lens <= t), torch.zeros_like(lens))
     positions = int(n.sum())
     b = lens.numel()
-    per_pos = 3 * (2 * D * C + 2 * C * 2 * C) + 6 * K * C
-    per_row = 3 * (2 * D * C + 2 * C * D + 4 * D * FF)
+    mm = (positions * 3 * (2 * D * C + 2 * C * 2 * C)
+          + b * 3 * (2 * D * C + 2 * C * D + 4 * D * FF))
     nbytes = (positions * (D * act_bytes + 2 * C * 4) + b * t * D * act_bytes
               + b * D * act_bytes + b * 4 + 2 * _params_bytes(p))
-    return _bound(positions * per_pos + b * per_row, nbytes)
+    return _bwd_bound(mm, positions * 6 * K * C, nbytes, priced_fma)
 
 
 def training_kernel_times(dev):
@@ -1470,11 +1497,15 @@ def training_kernel_times(dev):
             "fused_recurrent_layer": k1_bound_ms(b, T, p1, 4),
             "fused_recurrent_layer_last": k2_bound_ms(lens.cpu(), p2, 4),
         }
+        fma = {"fused_recurrent_layer_bwd": k1_bwd_bound_ms(b, T, p1, 4, priced_fma=True),
+               "fused_recurrent_layer_last_bwd": k2_bwd_bound_ms(lens.cpu(), T, p2, 4,
+                                                                 priced_fma=True)}
         for name, ms in times.items():
             bound, flops, by = bounds[name]
             phase("kernel-time", kernel=name, B=b, T=T, dtype="float32", p=DROPOUT,
                   ms=f"{ms:.4f}", plain_ms=f"{plain[name]:.4f}", bound_ms=f"{bound:.5f}",
-                  gflop=f"{flops / 1e9:.3f}", bound_by=by, share_of_bound=f"{bound / ms:.4f}")
+                  gflop=f"{flops / 1e9:.3f}", bound_by=by, share_of_bound=f"{bound / ms:.4f}",
+                  **_fma_field(fma, name))
             rows[(name, b)] = (ms, plain[name], bound, by)
     return rows
 
@@ -1898,10 +1929,12 @@ def row10_bwd_phase_times(dev, calls=10):
             del saved
 
 
-def _phase_times(call, phases, calls):
+def _phase_times(call, phases, calls, require=()):
     """kernel-time-phase fields of ``call``: its CUDA-event ms and, from
     torch.profiler over ``calls`` calls, each phase's device ms per call
-    (the kernels whose names hold the phase's) and the device total."""
+    (the kernels whose names hold the phase's) and share of the device
+    total, and that total.  Fails unless a kernel whose name holds each
+    of ``require`` ran."""
     from torch.profiler import ProfilerActivity, profile
 
     ms = time_ms(call)
@@ -1912,11 +1945,16 @@ def _phase_times(call, phases, calls):
         torch.cuda.synchronize()
     dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA}
+    total = sum(dev_us.values())
     fields = {"ms": f"{ms:.4f}"}
     for label, kernel in phases:
         us = sum(v for k, v in dev_us.items() if kernel in k)
         fields[f"{label}_ms"] = f"{us / calls / 1e3:.4f}" if us else "not measured"
-    fields["device_ms"] = f"{sum(dev_us.values()) / calls / 1e3:.4f}"
+        if us:
+            fields[f"{label}_share"] = f"{us / total:.4f}"
+    fields["device_ms"] = f"{total / calls / 1e3:.4f}"
+    for name in require:
+        check(any(name in k for k in dev_us), f"no {name} in the profile of {phases}")
     return fields
 
 
@@ -2535,6 +2573,64 @@ def row14_bwd_phase_times(dev, calls=10):
           device_ms=f"{sum(dev_us.values()) / calls / 1e3:.4f}")
 
 
+# rows 2, 4 and 9's backwards by phase: the kernels their entry points
+# launch (names as substrings, the parent's FMA kernels included)
+RECBLR_BWD_PHASES = {
+    "fused_recurrent_layer_bwd": (
+        ("A'", "tail_bwd"), ("B'", "linear_scan"), ("C1'", "gate_bwd"), ("C2'", "inproj_bwd"),
+        ("reduce", "reduce_partials")),
+    "fused_recurrent_layer_last_bwd": (
+        ("A'", "tail_bwd"), ("B'", "rev_scan_last"), ("C1'", "gate_bwd"),
+        ("C2'", "inproj_bwd"), ("reduce", "reduce_partials")),
+    "fused_recurrent_layer_chunked_bwd": (
+        ("A", "phase_a"), ("B", "::chunk_scan"), ("A'", "tail_bwd"), ("B'", "rev_chunk"),
+        ("C1'", "gate_bwd"), ("C2'", "inproj_bwd"), ("reduce", "reduce_partials")),
+}
+# the three phase kernels whose products run on the tensor cores
+RECBLR_MMA_KERNELS = ("tail_bwd_mma_kernel", "gate_bwd_mma_kernel", "inproj_bwd_mma_kernel")
+
+
+def recblr_bwd_phase_times(dev, calls=10):
+    """Rows 2 and 4 at the bench training shape (B 2,048, T 200, p 0.2,
+    with the forward's stash; fp32 and bf16) and row 9 at XLong (B 512,
+    T 1,024, bf16) by phase: the CUDA-event time of a call beside each
+    phase's device ms per call and its share of the device total, from
+    torch.profiler.  Fails unless A', C1' and C2' ran their tensor-core
+    kernels."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    p1 = layer_params(gen, dev, prologue=True)
+    p2 = layer_params(gen, dev, prologue=False)
+    x = torch.randn((TRAIN_B, T, D), generator=gen).to(dev)
+    lens = torch.randint(2, T + 1, (TRAIN_B,), generator=gen).to(dev)
+    d1 = torch.randn((TRAIN_B, T, D), generator=gen).to(dev)
+    d2 = torch.randn((TRAIN_B, D), generator=gen).to(dev)
+    seed = 4242
+    for dt in (torch.float32, torch.bfloat16):
+        xd, dd1, dd2 = x.to(dt), d1.to(dt), d2.to(dt)
+        _, s1 = FL.fused_recurrent_layer_train(xd, p1, True, True, True, DROPOUT, seed)
+        _, s2 = FL.fused_recurrent_layer_last_train(xd, lens, p2, True, True, DROPOUT, seed)
+        calls_of = {
+            "fused_recurrent_layer_bwd": lambda: FL.fused_recurrent_layer_bwd(
+                xd, dd1, p1, True, True, True, DROPOUT, seed, saved=s1),
+            "fused_recurrent_layer_last_bwd": lambda: FL.fused_recurrent_layer_last_bwd(
+                xd, lens, dd2, p2, True, True, DROPOUT, seed, saved=s2),
+        }
+        for name, call in calls_of.items():
+            phase("kernel-time-phase", kernel=name, B=TRAIN_B, T=T,
+                  dtype=str(dt).replace("torch.", ""), p=DROPOUT,
+                  **_phase_times(call, RECBLR_BWD_PHASES[name], calls, RECBLR_MMA_KERNELS))
+        del s1, s2
+    del x, d1, d2
+    x = torch.randn((XB, XT, D), generator=gen).to(dev, torch.bfloat16)
+    d1 = torch.randn((XB, XT, D), generator=gen).to(dev, torch.bfloat16)
+    args = (True, True, True, DROPOUT, seed)
+    _, rec = FLC.fused_recurrent_layer_chunked_train(x, p1, *args)
+    name = "fused_recurrent_layer_chunked_bwd"
+    phase("kernel-time-phase", kernel=name, shape="xlong", B=XB, T=XT, dtype="bfloat16",
+          p=DROPOUT, **_phase_times(lambda: FLC.fused_recurrent_layer_chunked_bwd(
+              x, d1, rec, p1, *args), RECBLR_BWD_PHASES[name], calls, RECBLR_MMA_KERNELS))
+
+
 def chunked_bound_ms(b, t, p, act_bytes):
     # K1's operations; x read and out written once, the params, the record
     # [B, T / chunk, 8, C] fp32 written
@@ -2544,13 +2640,13 @@ def chunked_bound_ms(b, t, p, act_bytes):
     return _bound(flops, nbytes)
 
 
-def chunked_bwd_bound_ms(b, t, p, act_bytes):
+def chunked_bwd_bound_ms(b, t, p, act_bytes, priced_fma=False):
     # the forward recomputed and two gradient products per forward product
     # (K1's backward work); x, dout and dx, the record read, the params read
     # and their grads written
     nbytes = (3 * b * t * D * act_bytes + b * (t // FLC.pick_chunk(t)) * FLC.REC_ROWS * C * 4
               + 2 * _params_bytes(p))
-    return _bound(_bwd_flops_k1(b, t), nbytes)
+    return _bwd_bound(*_bwd_flops_k1(b, t), nbytes, priced_fma)
 
 
 def emb_grad_bound_ms(n, v, g_bytes, id_bytes=8):
@@ -2662,6 +2758,10 @@ def xlong_kernel_times(dev):
         "fused_softmax_ce_chunked_bwd": ce_bwd_bound_ms(XB, vp, 2, mm_bf16=True),
         "embedding_grad": emb_grad_bound_ms(n_ids, vp, 2),
     }
+    fma = {"fused_recurrent_layer_chunked_bwd": chunked_bwd_bound_ms(XB, XT, p1, 2,
+                                                                     priced_fma=True),
+           "fused_recurrent_layer_last_bwd": k2_bwd_bound_ms(lens.cpu(), XT, p2, 2,
+                                                             priced_fma=True)}
     rows = {}
     for name, ms in times.items():
         bound, flops, by = bounds[name]
@@ -2670,7 +2770,7 @@ def xlong_kernel_times(dev):
               else 0.0, ms=f"{ms:.4f}", plain_ms=f"{plain[name]:.4f}",
               library_ms=f"{lib[name]:.4f}" if lib[name] is not None else "none",
               bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}", bound_by=by,
-              share_of_bound=f"{bound / ms:.4f}")
+              share_of_bound=f"{bound / ms:.4f}", **_fma_field(fma, name))
         rows[name] = (ms, plain[name], bound, by, lib[name])
     return rows
 
@@ -3069,12 +3169,12 @@ def bdlru_bound_ms(b, t, c, p, act_bytes):
     return _bound(flops, 2 * b * t * c * act_bytes + _params_bytes(p))
 
 
-def bdlru_bwd_bound_ms(b, t, c, p, act_bytes):
-    # the gate product recomputed and its two gradient products, the conv
-    # and its two gradients, both scans; x, dh read and dx written, the
-    # params read and their grads written
-    flops = b * t * (3 * 2 * c * 2 * c + 6 * K * c + 4 * c)
-    return _bound(flops, 3 * b * t * c * act_bytes + 2 * _params_bytes(p))
+def bdlru_bwd_bound_ms(b, t, c, p, act_bytes, priced_fma=False):
+    # the gate product recomputed and its two gradient products (on the
+    # tensor cores), the conv and its two gradients, both scans; x, dh read
+    # and dx written, the params read and their grads written
+    return _bwd_bound(b * t * 3 * 2 * c * 2 * c, b * t * (6 * K * c + 4 * c),
+                      3 * b * t * c * act_bytes + 2 * _params_bytes(p), priced_fma)
 
 
 def slice_kernel_times(dev):
@@ -3089,12 +3189,13 @@ def slice_kernel_times(dev):
     gen = torch.Generator().manual_seed(SEED + 34)
     rows = {}
 
-    def emit(name, ms, plain_ms, bnd, lib, **shape):
+    def emit(name, ms, plain_ms, bnd, lib, fma=None, **shape):
         bound, flops, by = bnd
         phase("kernel-time", kernel=name, **shape, ms=f"{ms:.4f}",
               plain_ms=f"{plain_ms:.4f}" if plain_ms is not None else "not measured",
               library_ms=f"{lib:.4f}" if lib is not None else "none", bound_ms=f"{bound:.5f}",
-              gflop=f"{flops / 1e9:.3f}", bound_by=by, share_of_bound=f"{bound / ms:.4f}")
+              gflop=f"{flops / 1e9:.3f}", bound_by=by, share_of_bound=f"{bound / ms:.4f}",
+              **_fma_field({name: fma} if fma else {}, name))
         if shape.get("dtype", "float32") == "float32":
             rows[name] = (ms, plain_ms, bound, by, lib)
 
@@ -3167,7 +3268,7 @@ def slice_kernel_times(dev):
             plain = plain_bwd = None
         emit("fused_bdlru", ms, plain, bdlru_bound_ms(XB, LT, C, p, act), None, **shape)
         emit("fused_bdlru_bwd", ms_bwd, plain_bwd, bdlru_bwd_bound_ms(XB, LT, C, p, act), None,
-             **shape)
+             fma=bdlru_bwd_bound_ms(XB, LT, C, p, act, priced_fma=True), **shape)
     return rows
 
 
@@ -3748,6 +3849,7 @@ def main():
     row13_bwd_phase_times(dev)
     xlong_rows = xlong_kernel_times(dev)
     row14_bwd_phase_times(dev)
+    recblr_bwd_phase_times(dev)
     slice_rows = slice_kernel_times(dev)
     row15_rows = row15_kernel_times(dev)
     row15_phase_times(dev)

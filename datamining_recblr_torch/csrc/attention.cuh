@@ -189,19 +189,6 @@ __device__ __forceinline__ void copy_rows(Tin* dst, int ld, const Tin* src, int 
   }
 }
 
-// mma_tile.cuh tf32_split (hi = tf32(v), lo = tf32(v - hi), rounded to
-// nearest, ties away from zero) on the integer pipe: the same bits for
-// every finite v as cvt.rna.tf32.f32, without the conversion unit, which
-// the fp32 kernels would otherwise keep busy with two conversions a value.
-__device__ __forceinline__ uint32_t tf32_bits(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split_i(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_bits(v);
-  lo = tf32_bits(v - __uint_as_float(hi));
-}
-
 // mma_tile.cuh split_c_as_a with split_i.
 __device__ __forceinline__ void split_c_i(const float (&c)[4], uint32_t (&hi)[4],
                                           uint32_t (&lo)[4]) {

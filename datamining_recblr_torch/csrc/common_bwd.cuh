@@ -1,5 +1,6 @@
 // Shared device code of the RecBLR recurrent-layer backward kernels
-// (fused_layer_bwd.cu, fused_layer_last_bwd.cu).
+// (fused_layer_bwd.cu, fused_layer_last_bwd.cu, and through them
+// fused_layer_chunked_bwd.cu and fused_bdlru_bwd.cu).
 //
 // The backward reads the forward's alpha and h (kept by a training
 // forward, or recomputed by phase A and the scan of common.cuh), replays
@@ -17,6 +18,13 @@
 //   C2' per (row, tile): dxb from du (the conv's right halo t+1..t+K-1
 //       read from that scratch), the W_in grad, dx = dv1 + [dxb, dz] @
 //       W_in^T, and the prologue LN backward.
+// Every matrix product of A', C1' and C2' runs on the tensor cores at
+// fp32 accuracy (mm_tc: mma.sync m16n8k8, 3xTF32, a fresh accumulator per
+// 8-deep k-tile), the data-grad products with the weights read from device
+// memory, the weight grads with the item's rows as the depth.  The LN, the
+// gate and decay math, SiLU, the conv and the dropout replay stay fp32 on
+// the CUDA cores.  Shared-memory rows are ld_of(width) floats apart, so a
+// warp's fragment loads of a row-major operand hit 32 distinct banks.
 // Weight grads are summed without atomics: a fixed grid of blocks walks
 // the items in a fixed order, each block adding into its own fp32 slice
 // of `partial` [G, P]; reduce_partials_kernel then sums the G slices in
@@ -24,8 +32,15 @@
 #pragma once
 
 #include "common.cuh"
+#include "gemm_tile.cuh"  // ld_of
+#include "mma_tile.cuh"
 
 namespace recblr {
+
+// Threads a block of A' and C1': 16 warps, the one block an SM their shared
+// memory allows.  C2', with a third of their shared memory, runs two blocks
+// of THREADS an SM.
+constexpr int BWD_THREADS = 512;
 
 // Transposed weights (the wrapper passes them after LayerParams), so
 // that the backward's products with W^T read weights row-wise.
@@ -81,6 +96,176 @@ __device__ void block_grad_matmul(const float* __restrict__ a, int lda,
     for (int m = 0; m < M; ++m)
       acc = fmaf(mm_op<RA>(a[m * lda + k]), mm_op<RB>(b[m * ldb + n]), acc);
     g[(size_t)k * ldg + n] += acc;
+  }
+}
+
+template <bool G>
+__device__ __forceinline__ float ld_op(const float* p, int i) {
+  if constexpr (G) return __ldg(p + i);
+  return p[i];
+}
+
+// C(m, n) = sum_{k < K} A(m, k) B(k, n) for m < M, n < N on the tensor
+// cores, delivered a warp tile at a time as tile_epi(m0, n0, acc) (the C
+// fragments of the 16 MT x 8 NT tile at (m0, n0)).  Both operands are
+// split into their two TF32 terms as they are read (split_i) and
+// multiplied as 3xTF32 m16n8k8 products (mma_3xtf32), each 8-deep k-tile
+// in a fresh accumulator added in fp32 (add_tile: the tensor cores' own
+// sum truncates), so the result keeps fp32 accuracy.  A lives in shared
+// memory: A(m, k) = a[m * lda + k], or with AT a[k * lda + m] (a weight
+// grad, whose depth is the item's rows).  B(k, n) = b[k * ldb + n], in
+// shared memory, or with BG in device memory (the layer's weights, read
+// through the read-only cache, the next k-tiles' in flight while the
+// current one is multiplied).  Nothing outside m < M, k < K, n < N is
+// read: a ragged edge reads as zero, so zero operands give exact zeros.
+// A warp takes output tiles of 16 MT rows by 8 NT columns in turn and
+// keeps a tile's sums in registers over the whole depth.
+template <bool AT, bool BG, int MT, int NT, typename TileEpi>
+__device__ __forceinline__ void mm_tc_tiles(const float* __restrict__ a, int lda,
+                                            const float* __restrict__ b, int ldb, int M, int N,
+                                            int K, TileEpi tile_epi) {
+  // k-tiles of B in flight: weights come from L2, whose latency is several
+  // k-tiles' work; shared memory needs none ahead
+  constexpr int PF = BG ? 4 : 1;
+  const int lane = threadIdx.x % 32, gid = lane / 4, t = lane % 4;
+  const int gm = (M + 16 * MT - 1) / (16 * MT), gn = (N + 8 * NT - 1) / (8 * NT);
+  for (int w = threadIdx.x / 32; w < gm * gn; w += blockDim.x / 32) {
+    const int m0 = (w / gn) * 16 * MT, n0 = (w % gn) * 8 * NT;
+    // the lane's B values of the k-tile at k0: rows k0 + t, k0 + t + 4 of
+    // its column in each 8-column tile
+    auto load_b = [&](int k0, float (&v)[NT][2]) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + 8 * j + gid;
+        v[j][0] = n < N && k0 + t < K ? ld_op<BG>(b, (k0 + t) * ldb + n) : 0.f;
+        v[j][1] = n < N && k0 + t + 4 < K ? ld_op<BG>(b, (k0 + t + 4) * ldb + n) : 0.f;
+      }
+    };
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    float bq[PF][NT][2];  // a ring of the next PF k-tiles of B
+#pragma unroll
+    for (int s = 0; s < PF; ++s) load_b(8 * s, bq[s]);
+    for (int k0 = 0; k0 < K; k0 += 8 * PF) {
+#pragma unroll
+      for (int s = 0; s < PF; ++s) {
+        const int ka = k0 + 8 * s + t, kb = ka + 4;
+        if (ka - t >= K) break;
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int r0 = m0 + 16 * i + gid, r1 = r0 + 8;
+          auto av = [&](int r, int k) {
+            if (r >= M || k >= K) return 0.f;
+            return AT ? a[k * lda + r] : a[r * lda + k];
+          };
+          split_i(av(r0, ka), ah[i][0], al[i][0]);
+          split_i(av(r1, ka), ah[i][1], al[i][1]);
+          split_i(av(r0, kb), ah[i][2], al[i][2]);
+          split_i(av(r1, kb), ah[i][3], al[i][3]);
+        }
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          split_i(bq[s][j][0], bh[j][0], bl[j][0]);
+          split_i(bq[s][j][1], bh[j][1], bl[j][1]);
+        }
+        load_b(k0 + 8 * (s + PF), bq[s]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            if (m0 + 16 * i < M && n0 + 8 * j < N) {
+              float c[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_3xtf32(c, ah[i], al[i], __uint_as_float(bh[j][0]), __uint_as_float(bh[j][1]),
+                         __uint_as_float(bl[j][0]), __uint_as_float(bl[j][1]));
+              add_tile(acc[i][j], c);
+            }
+      }
+    }
+    tile_epi(m0, n0, acc);
+  }
+}
+
+// The (m, n) of element e of C tile (i, j) of a lane's tile at (m0, n0).
+__device__ __forceinline__ int frag_m(int m0, int i, int e) {
+  return m0 + 16 * i + threadIdx.x % 32 / 4 + (e >= 2 ? 8 : 0);
+}
+__device__ __forceinline__ int frag_n(int n0, int j, int e) {
+  return n0 + 8 * j + 2 * (threadIdx.x % 4) + (e & 1);
+}
+
+// A data grad or a forward product: A in shared memory, B a weight in
+// device memory, each C(m, n) delivered as epi(m, n, C(m, n)).
+template <int MT, int NT, typename Epi>
+__device__ __forceinline__ void mm_tc(const float* __restrict__ a, int lda,
+                                      const float* __restrict__ w, int ldw, int M, int N, int K,
+                                      Epi epi) {
+  mm_tc_tiles<false, true, MT, NT>(a, lda, w, ldw, M, N, K,
+                                   [&](int m0, int n0, const float (&acc)[MT][NT][4]) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = frag_m(m0, i, e), n = frag_n(n0, j, e);
+          if (m < M && n < N) epi(m, n, acc[i][j][e]);
+        }
+  });
+}
+
+// A weight grad: g[m * ldg + n] += C(m, n), with A^T read from shared memory
+// and B in shared memory.  A lane reads all its tile's old values before it
+// writes any, so a tile costs one round trip to L2, not one an element.
+template <int MT, int NT>
+__device__ __forceinline__ void mm_tc_add(const float* __restrict__ a, int lda,
+                                          const float* __restrict__ b, int ldb, int M, int N,
+                                          int K, float* __restrict__ g, int ldg) {
+  mm_tc_tiles<true, false, MT, NT>(a, lda, b, ldb, M, N, K,
+                                   [&](int m0, int n0, const float (&acc)[MT][NT][4]) {
+    float old[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = frag_m(m0, i, e), n = frag_n(n0, j, e);
+          old[i][j][e] = m < M && n < N ? g[m * ldg + n] : 0.f;
+        }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = frag_m(m0, i, e), n = frag_n(n0, j, e);
+          if (m < M && n < N) g[m * ldg + n] = old[i][j][e] + acc[i][j][e];
+        }
+  });
+}
+
+// f(r, ch, mask) for r < rows, ch < W, with mask the scaled keep-mask of
+// mask id at (row(r), pos(r), ch): one Philox call per four channels
+// (drop_mask4), the same bits as drop_mask draws channel by channel.
+template <typename Row, typename Pos, typename F>
+__device__ __forceinline__ void masked_rows(const Dropout& dr, int id, int rows, int W, Row row,
+                                            Pos pos, F f) {
+  const int W4 = (W + 3) / 4;
+#pragma unroll 2
+  for (int i = threadIdx.x; i < rows * W4; i += blockDim.x) {
+    const int r = i / W4, c = (i % W4) * 4;
+    const float4 m = drop_mask4(dr, id, row(r), pos(r), c / 4);
+    f(r, c, m.x);
+    if (c + 1 < W) f(r, c + 1, m.y);
+    if (c + 2 < W) f(r, c + 2, m.z);
+    if (c + 3 < W) f(r, c + 3, m.w);
   }
 }
 
@@ -149,37 +334,40 @@ __device__ void block_layernorm_bwd(float* dy, int ld, const float* vhat, int ld
 // ---------------------------------------------------------------------------
 
 inline size_t tail_bwd_smem_bytes(int rt, int D, int C, int F) {
-  const int fc = F > C ? F : C;
-  return sizeof(float) * ((size_t)rt * (6 * D + 3 * C + fc + F) + 2 * (size_t)rt);
+  const int lD = ld_of(D), lC = ld_of(C), lF = ld_of(F), lFC = ld_of(F > C ? F : C);
+  return sizeof(float) * ((size_t)rt * (6 * lD + 3 * lC + lFC + lF) + 2 * (size_t)rt);
 }
 
 // LAST = false: item w is (row b, positions t0 .. t0+rt-1); dxr, dh, dz
 // are [B, T, .].  LAST = true: item w is batch rows t0 .. t0+rt-1, each
 // at its last valid position (x_last = h_last = 0 where none is
 // selected); dxr [B, D] (dv1 plus the z half of dx), dh [B, C]; dz is
-// contracted here with W_in[:, C:].
+// contracted here with W_in[:, C:].  Products on the tensor cores
+// (mm_tc): the forward's four (z, W_out, W1, W2), the three data grads
+// (W2^T, W1^T, W_out^T) and the three weight grads (W2, W1, W_out); with
+// LAST also dz's W_in grad and dz W_in[:, C:]^T.
 template <typename Tin, bool LAST>
-__global__ void __launch_bounds__(THREADS)
-tail_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
-                const Tin* __restrict__ dout, const float* __restrict__ h, LayerParams p,
-                LayerParamsT q, Dropout dr, float* __restrict__ dxr, float* __restrict__ dh,
-                float* __restrict__ dz, float* __restrict__ partial, GradLayout gl, int rt,
-                int B, int T, int D, int C, int F, int use_ffn, int prologue) {
+__global__ void __launch_bounds__(BWD_THREADS)
+tail_bwd_mma_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
+                    const Tin* __restrict__ dout, const float* __restrict__ h, LayerParams p,
+                    LayerParamsT q, Dropout dr, float* __restrict__ dxr, float* __restrict__ dh,
+                    float* __restrict__ dz, float* __restrict__ partial, GradLayout gl, int rt,
+                    int B, int T, int D, int C, int F, int use_ffn, int prologue) {
   extern __shared__ float smem[];
-  const int FC = F > C ? F : C;
-  float* xs = smem;            // [rt, D]  layer input (post-prologue)
-  float* zs = xs + rt * D;     // [rt, C]  z (LAST: later dz)
-  float* hs = zs + rt * C;     // [rt, C]  h
-  float* yin = hs + rt * C;    // [rt, C]  silu(z) * h
-  float* v1 = yin + rt * C;    // [rt, D]  LN1 input, then vhat1
-  float* r1 = v1 + rt * D;     // [rt, D]  LN1 output
-  float* f1 = r1 + rt * D;     // [rt, F]  f1; later dyin [rt, C]
-  float* a1 = f1 + rt * FC;    // [rt, F]  a1 * m2; later da1 -> df1
-  float* v2 = a1 + rt * F;     // [rt, D]  LN2 input -> vhat2; later df2
-  float* g = v2 + rt * D;      // [rt, D]  dout -> dv2 (LAST: later dx_z)
-  float* dr1 = g + rt * D;     // [rt, D]  dr1 -> dv1 -> dy
-  float* inv1 = dr1 + rt * D;  // [rt]
-  float* inv2 = inv1 + rt;     // [rt]
+  const int lD = ld_of(D), lC = ld_of(C), lF = ld_of(F), lFC = ld_of(F > C ? F : C);
+  float* xs = smem;             // [rt, lD]  layer input (post-prologue)
+  float* zs = xs + rt * lD;     // [rt, lC]  z (LAST: later dz)
+  float* hs = zs + rt * lC;     // [rt, lC]  h
+  float* yin = hs + rt * lC;    // [rt, lC]  silu(z) * h
+  float* v1 = yin + rt * lC;    // [rt, lD]  LN1 input, then vhat1
+  float* r1 = v1 + rt * lD;     // [rt, lD]  LN1 output
+  float* f1 = r1 + rt * lD;     // [rt, lFC] f1; later dyin [rt, C]
+  float* a1 = f1 + rt * lFC;    // [rt, lF]  a1 * m2; later da1 -> df1
+  float* v2 = a1 + rt * lF;     // [rt, lD]  LN2 input -> vhat2; later df2
+  float* g = v2 + rt * lD;      // [rt, lD]  dout -> dv2 (LAST: later dx_z)
+  float* dr1 = g + rt * lD;     // [rt, lD]  dr1 -> dv1 -> dy
+  float* inv1 = dr1 + rt * lD;  // [rt]
+  float* inv2 = inv1 + rt;      // [rt]
   float* gp = partial + (size_t)blockIdx.x * gl.total;
   const int tiles = LAST ? (B + rt - 1) / rt : (T + rt - 1) / rt;
   const int work = LAST ? tiles : B * tiles;
@@ -197,22 +385,21 @@ tail_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
     auto mrow = [&](int r) { return LAST ? t0 + r : b; };
     auto mpos = [&](int r) { return LAST ? 0 : t0 + r; };
     __syncthreads();  // the previous item's reads of shared memory are done
-    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-      const int r = i / D, d = i % D;
-      float v, gv;
-      if (LAST) {
+    if (LAST) {
+      for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+        const int r = i / D, d = i % D;
         const int n = valid_len(lens[t0 + r], T);
-        v = n > 0 ? load_act(x, ((size_t)(t0 + r) * T + n - 1) * D + d) : 0.f;
-        gv = load_act(dout, (size_t)(t0 + r) * D + d);
-      } else {
-        const size_t o = ((size_t)b * T + t0 + r) * D + d;
-        v = load_act(x, o);
-        if (prologue) v *= drop_mask(dr, M0, b, t0 + r, d);
-        gv = load_act(dout, o);
+        xs[r * lD + d] = n > 0 ? load_act(x, ((size_t)(t0 + r) * T + n - 1) * D + d) : 0.f;
+        g[r * lD + d] = load_act(dout, (size_t)(t0 + r) * D + d);
       }
-      xs[i] = v;
-      g[i] = gv;
+    } else {
+      masked_rows(prologue ? dr : Dropout{}, M0, rows, D, mrow, mpos, [&](int r, int d, float m) {
+        const size_t o = ((size_t)b * T + t0 + r) * D + d;
+        xs[r * lD + d] = load_act(x, o) * m;
+        g[r * lD + d] = load_act(dout, o);
+      });
     }
+#pragma unroll 4
     for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
       const int r = i / C, c = i % C;
       float hv;
@@ -222,122 +409,136 @@ tail_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
       } else {
         hv = h[((size_t)b * T + t0 + r) * C + c];
       }
-      hs[i] = hv;
+      hs[r * lC + c] = hv;
     }
     __syncthreads();
     if (prologue) {
-      block_layernorm(xs, D, rows, D, p.pl_s, p.pl_b);
+      block_layernorm(xs, lD, rows, D, p.pl_s, p.pl_b);
       __syncthreads();
     }
 
     // --- the tail forward, with the replayed masks ---------------------
-    block_matmul(xs, D, rows, D, p.w_in + C, 2 * C, C, nullptr, zs, C);
+    mm_tc<2, 1>(xs, lD, p.w_in + C, 2 * C, rows, C, D,
+                [&](int m, int n, float v) { zs[m * lC + n] = v; });
     __syncthreads();
-    for (int i = threadIdx.x; i < rows * C; i += blockDim.x) yin[i] = silu_t(zs[i]) * hs[i];
-    __syncthreads();
-    block_matmul(yin, C, rows, C, p.w_out, D, D, nullptr, v1, D);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-      const int r = i / D, d = i % D;
-      v1[i] = v1[i] * drop_mask(dr, M1, mrow(r), mpos(r), d) + xs[i];
+    for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+      const int o = (i / C) * lC + i % C;
+      yin[o] = silu_t(zs[o]) * hs[o];
     }
     __syncthreads();
-    block_layernorm_save(v1, D, rows, D, inv1, p.ln1_s, p.ln1_b, r1, D);
+    mm_tc<1, 1>(yin, lC, p.w_out, D, rows, D, C,
+                [&](int m, int n, float v) { v1[m * lD + n] = v; });
+    __syncthreads();
+    masked_rows(dr, M1, rows, D, mrow, mpos, [&](int r, int d, float m) {
+      const int o = r * lD + d;
+      v1[o] = v1[o] * m + xs[o];
+    });
+    __syncthreads();
+    block_layernorm_save(v1, lD, rows, D, inv1, p.ln1_s, p.ln1_b, r1, lD);
     __syncthreads();
 
     if (use_ffn) {
-      block_matmul(r1, D, rows, D, p.w1, F, F, p.b1, f1, F);
+      mm_tc<2, 2>(r1, lD, p.w1, F, rows, F, D, [&](int m, int n, float v) {
+        f1[m * lFC + n] = v + __ldg(p.b1 + n);
+      });
       __syncthreads();
-      for (int i = threadIdx.x; i < rows * F; i += blockDim.x) {
-        const int r = i / F, f = i % F;
-        a1[i] = silu_t(f1[i]) * drop_mask(dr, M2, mrow(r), mpos(r), f);
-      }
+      masked_rows(dr, M2, rows, F, mrow, mpos, [&](int r, int f, float m) {
+        a1[r * lF + f] = silu_t(f1[r * lFC + f]) * m;
+      });
       __syncthreads();
-      block_matmul(a1, F, rows, F, p.w2, D, D, p.b2, v2, D);
+      mm_tc<1, 1>(a1, lF, p.w2, D, rows, D, F, [&](int m, int n, float v) {
+        v2[m * lD + n] = v + __ldg(p.b2 + n);
+      });
       __syncthreads();
-      for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-        const int r = i / D, d = i % D;
-        v2[i] = v2[i] * drop_mask(dr, M3, mrow(r), mpos(r), d) + r1[i];
-      }
+      masked_rows(dr, M3, rows, D, mrow, mpos, [&](int r, int d, float m) {
+        const int o = r * lD + d;
+        v2[o] = v2[o] * m + r1[o];
+      });
       __syncthreads();
-      block_layernorm_save(v2, D, rows, D, inv2, nullptr, nullptr, nullptr, 0);
+      block_layernorm_save(v2, lD, rows, D, inv2, nullptr, nullptr, nullptr, 0);
       __syncthreads();
 
       // --- LN2 and FFN backward ---------------------------------------
-      block_colsum(g, D, v2, D, rows, D, gp + gl.off[G_LN2_S]);
-      block_colsum(g, D, nullptr, 0, rows, D, gp + gl.off[G_LN2_B]);
+      block_colsum(g, lD, v2, lD, rows, D, gp + gl.off[G_LN2_S]);
+      block_colsum(g, lD, nullptr, 0, rows, D, gp + gl.off[G_LN2_B]);
       __syncthreads();
-      block_layernorm_bwd(g, D, v2, D, inv2, rows, D, p.ln2_s);  // g = dv2
+      block_layernorm_bwd(g, lD, v2, lD, inv2, rows, D, p.ln2_s);  // g = dv2
+      __syncthreads();
+      masked_rows(dr, M3, rows, D, mrow, mpos, [&](int r, int d, float m) {
+        v2[r * lD + d] = g[r * lD + d] * m;  // df2
+      });
+      __syncthreads();
+      mm_tc_add<2, 2>(a1, lF, v2, lD, F, D, rows, gp + gl.off[G_W2], D);
+      block_colsum(v2, lD, nullptr, 0, rows, D, gp + gl.off[G_B2]);
+      __syncthreads();
+      mm_tc<2, 2>(v2, lD, q.w2T, F, rows, F, D,  // da1 (before m2)
+                  [&](int m, int n, float v) { a1[m * lF + n] = v; });
+      __syncthreads();
+      masked_rows(dr, M2, rows, F, mrow, mpos, [&](int r, int f, float m) {
+        const float fv = f1[r * lFC + f], sf = sigmoid_t(fv);
+        a1[r * lF + f] *= m * sf * (1.f + fv * (1.f - sf));
+      });
+      __syncthreads();
+      mm_tc_add<2, 2>(r1, lD, a1, lF, D, F, rows, gp + gl.off[G_W1], F);
+      block_colsum(a1, lF, nullptr, 0, rows, F, gp + gl.off[G_B1]);
+      mm_tc<1, 1>(a1, lF, q.w1T, D, rows, D, F,
+                  [&](int m, int n, float v) { dr1[m * lD + n] = v; });
       __syncthreads();
       for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-        const int r = i / D, d = i % D;
-        v2[i] = g[i] * drop_mask(dr, M3, mrow(r), mpos(r), d);  // df2
+        const int o = (i / D) * lD + i % D;
+        dr1[o] += g[o];
       }
-      __syncthreads();
-      block_grad_matmul(a1, F, v2, D, rows, F, D, gp + gl.off[G_W2], D);
-      block_colsum(v2, D, nullptr, 0, rows, D, gp + gl.off[G_B2]);
-      __syncthreads();
-      block_matmul(v2, D, rows, D, q.w2T, F, F, nullptr, a1, F);  // da1 (before m2)
-      __syncthreads();
-      for (int i = threadIdx.x; i < rows * F; i += blockDim.x) {
-        const int r = i / F, f = i % F;
-        const float sf = sigmoid_t(f1[i]);
-        a1[i] = a1[i] * drop_mask(dr, M2, mrow(r), mpos(r), f) * sf * (1.f + f1[i] * (1.f - sf));
-      }
-      __syncthreads();
-      block_grad_matmul(r1, D, a1, F, rows, D, F, gp + gl.off[G_W1], F);
-      block_colsum(a1, F, nullptr, 0, rows, F, gp + gl.off[G_B1]);
-      __syncthreads();
-      block_matmul(a1, F, rows, F, q.w1T, D, D, nullptr, dr1, D);
-      __syncthreads();
-      for (int i = threadIdx.x; i < rows * D; i += blockDim.x) dr1[i] += g[i];
     } else {
-      for (int i = threadIdx.x; i < rows * D; i += blockDim.x) dr1[i] = g[i];
+      for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+        const int o = (i / D) * lD + i % D;
+        dr1[o] = g[o];
+      }
     }
     __syncthreads();
 
     // --- LN1, W_out and the z / h split --------------------------------
-    block_colsum(dr1, D, v1, D, rows, D, gp + gl.off[G_LN1_S]);
-    block_colsum(dr1, D, nullptr, 0, rows, D, gp + gl.off[G_LN1_B]);
+    block_colsum(dr1, lD, v1, lD, rows, D, gp + gl.off[G_LN1_S]);
+    block_colsum(dr1, lD, nullptr, 0, rows, D, gp + gl.off[G_LN1_B]);
     __syncthreads();
-    block_layernorm_bwd(dr1, D, v1, D, inv1, rows, D, p.ln1_s);  // dr1 = dv1
+    block_layernorm_bwd(dr1, lD, v1, lD, inv1, rows, D, p.ln1_s);  // dr1 = dv1
     __syncthreads();
-    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-      const int r = i / D, d = i % D;
-      const float dv = dr1[i];
+    masked_rows(dr, M1, rows, D, mrow, mpos, [&](int r, int d, float m) {
+      const int o = r * lD + d;
+      const float dv = dr1[o];
       dxr[LAST ? (size_t)(t0 + r) * D + d : ((size_t)b * T + t0 + r) * D + d] = dv;
-      dr1[i] = dv * drop_mask(dr, M1, mrow(r), mpos(r), d);  // dy
-    }
+      dr1[o] = dv * m;  // dy
+    });
     __syncthreads();
-    block_grad_matmul(yin, C, dr1, D, rows, C, D, gp + gl.off[G_W_OUT], D);
-    __syncthreads();
-    block_matmul(dr1, D, rows, D, q.w_outT, C, C, nullptr, f1, C);  // dyin
+    mm_tc_add<2, 2>(yin, lC, dr1, lD, C, D, rows, gp + gl.off[G_W_OUT], D);
+    mm_tc<2, 1>(dr1, lD, q.w_outT, C, rows, C, D,  // dyin
+                [&](int m, int n, float v) { f1[m * lFC + n] = v; });
     __syncthreads();
     for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-      const int r = i / C, c = i % C;
-      const float z = zs[i], sz = sigmoid_t(z);
-      const float dyv = f1[i];
-      const float dgate = dyv * hs[i];
+      const int r = i / C, c = i % C, o = r * lC + c;
+      const float z = zs[o], sz = sigmoid_t(z);
+      const float dyv = f1[r * lFC + c];
+      const float dgate = dyv * hs[o];
       const float dhv = dyv * (z * sz);
       const float dzv = dgate * sz * (1.f + z * (1.f - sz));
       if (LAST) {
         dh[(size_t)(t0 + r) * C + c] = dhv;
-        zs[i] = dzv;
+        zs[o] = dzv;
       } else {
-        const size_t o = ((size_t)b * T + t0 + r) * C + c;
-        dh[o] = dhv;
-        dz[o] = dzv;
+        const size_t og = ((size_t)b * T + t0 + r) * C + c;
+        dh[og] = dhv;
+        dz[og] = dzv;
       }
     }
     if (LAST) {
       // dz lives at the last position only: its W_in grad and dx here
       __syncthreads();
-      block_grad_matmul(xs, D, zs, C, rows, D, C, gp + gl.off[G_W_IN] + C, 2 * C);
-      block_matmul(zs, C, rows, C, q.w_inT + (size_t)C * D, D, D, nullptr, g, D);
+      mm_tc_add<2, 2>(xs, lD, zs, lC, D, C, rows, gp + gl.off[G_W_IN] + C, 2 * C);
+      mm_tc<1, 1>(zs, lC, q.w_inT + (size_t)C * D, D, rows, D, C,
+                  [&](int m, int n, float v) { g[m * lD + n] = v; });
       __syncthreads();
       for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
         const int r = i / D, d = i % D;
-        dxr[(size_t)(t0 + r) * D + d] += g[i];
+        dxr[(size_t)(t0 + r) * D + d] += g[r * lD + d];
       }
     }
   }
@@ -425,27 +626,34 @@ rev_chunk_scan_kernel(const float* __restrict__ alpha, float* __restrict__ ds,
 // ---------------------------------------------------------------------------
 
 inline size_t gate_bwd_smem_bytes(int D, int C, int K) {
-  return sizeof(float) * ((size_t)xs_rows(K) * D + (size_t)xb_rows(K) * C + (size_t)TT * 6 * C);
+  const int lD = ld_of(D), lC = ld_of(C), lG = ld_of(2 * C);
+  return sizeof(float) * ((size_t)xs_rows(K) * lD + (size_t)xb_rows(K) * lC +
+                          (size_t)TT * (5 * lC + lG));
 }
 
 // Item (b, tile); with lens, positions at or beyond row b's length are
 // skipped (their d_states are zero).  ds_du holds d_states on entry and
 // du (dxc without the conv) on exit, at the positions processed.  XB:
 // x is xb itself, [B, T, C] (fused_bdlru_bwd.cu; D = 0, no prologue).
+// Products on the tensor cores (mm_tc): xb = LN(x) W_in[:, :C] over the
+// tile and its conv halo, the gates xc W_g, dxc = dg W_g^T and the weight
+// grad xc^T dg.
 template <typename Tin, bool XB = false>
-__global__ void __launch_bounds__(THREADS)
-gate_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
-                const float* __restrict__ h, float* __restrict__ ds_du, LayerParams p,
-                LayerParamsT q, Dropout dr, float* __restrict__ partial, GradLayout gl,
-                int B, int T, int D, int C, int K, int use_conv, int prologue) {
+__global__ void __launch_bounds__(BWD_THREADS)
+gate_bwd_mma_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
+                    const float* __restrict__ h, float* __restrict__ ds_du, LayerParams p,
+                    LayerParamsT q, Dropout dr, float* __restrict__ partial, GradLayout gl,
+                    int B, int T, int D, int C, int K, int use_conv, int prologue) {
   extern __shared__ float smem[];
-  float* xs = smem;                 // [xs_rows(K), D]  x rows t0-H .. t_end-1
-  float* xb = xs + xs_rows(K) * D;  // [xb_rows(K), C]  x @ W_in[:, :C]
-  float* u = xb + xb_rows(K) * C;   // [TT, C]   conv output
-  float* xc = u + TT * C;        // [TT, C]   silu(u)
-  float* g = xc + TT * C;        // [TT, 2C]  gates pre-activation -> dg
-  float* dsb = g + TT * 2 * C;   // [TT, C]   d_states -> dxc -> du
-  float* lt = dsb + TT * C;      // [TT, C]   per-position lambda terms
+  const int lD = ld_of(D), lC = ld_of(C), lG = ld_of(2 * C);
+  float* xs = smem;                  // [xs_rows(K), lD]  x rows t0-H .. t_end-1
+  float* xb = xs + xs_rows(K) * lD;  // [xb_rows(K), lC]  x @ W_in[:, :C]
+  float* u = xb + xb_rows(K) * lC;   // [TT, lC]  conv output
+  float* xc = u + TT * lC;           // [TT, lC]  silu(u)
+  float* g = xc + TT * lC;           // [TT, lG]  gates pre-activation -> dg
+  float* dsb = g + TT * lG;          // [TT, lC]  d_states -> dxc -> du
+  float* lt = dsb + TT * lC;         // [TT, lC]  per-position lambda terms
+  float* hp = lt + TT * lC;          // [TT, lC]  h[t - 1]
   float* gp = partial + (size_t)blockIdx.x * gl.total;
   const int tiles = (T + TT - 1) / TT;
   const int H = use_conv ? K - 1 : 0;
@@ -456,97 +664,102 @@ gate_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
     if (t0 >= t_end) continue;
     const int rows = t_end - t0, rows_h = rows + H;
     __syncthreads();
+    // d_states and h[t - 1] of the tile land while xb and the gates are
+    // computed
+    const float* hrow = h + ((size_t)b * T + t0) * C;
+    stage<false>(dsb, lC, ds_du + ((size_t)b * T + t0) * C, C, rows, C, rows, C, false);
+    if (t0 > 0) {
+      stage<false>(hp, lC, hrow - C, C, rows, C, rows, C, false);
+    } else {
+      for (int c = threadIdx.x; c < C; c += blockDim.x) hp[c] = 0.f;
+      stage<false>(hp + lC, lC, hrow, C, rows - 1, C, rows - 1, C, false);
+    }
     if (XB) {
       for (int i = threadIdx.x; i < rows_h * C; i += blockDim.x) {
-        const int t = t0 - H + i / C;
-        xb[i] = t >= 0 ? load_act(x, ((size_t)b * T + t) * C + i % C) : 0.f;
+        const int r = i / C, c = i % C, t = t0 - H + r;
+        xb[r * lC + c] = t >= 0 ? load_act(x, ((size_t)b * T + t) * C + c) : 0.f;
       }
     } else {
-      for (int i = threadIdx.x; i < rows_h * D; i += blockDim.x) {
-        const int r = i / D, d = i % D;
-        const int t = t0 - H + r;
-        float v = 0.f;
-        if (t >= 0) {
-          v = load_act(x, ((size_t)b * T + t) * D + d);
-          if (prologue) v *= drop_mask(dr, M0, b, t, d);
-        }
-        xs[i] = v;
-      }
+      masked_rows(prologue ? dr : Dropout{}, M0, rows_h, D, [&](int) { return b; },
+                  [&](int r) { return t0 - H + r; }, [&](int r, int d, float m) {
+                    const int t = t0 - H + r;
+                    xs[r * lD + d] = t >= 0 ? load_act(x, ((size_t)b * T + t) * D + d) * m : 0.f;
+                  });
       __syncthreads();
       if (prologue) {
-        block_layernorm(xs, D, rows_h, D, p.pl_s, p.pl_b);
+        block_layernorm(xs, lD, rows_h, D, p.pl_s, p.pl_b);
         __syncthreads();
       }
-      block_matmul(xs, D, rows_h, D, p.w_in, 2 * C, C, nullptr, xb, C);
+      mm_tc<2, 2>(xs, lD, p.w_in, 2 * C, rows_h, C, D,
+                  [&](int m, int n, float v) { xb[m * lC + n] = v; });
     }
     __syncthreads();
     for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-      const int r = i / C, c = i % C;
+      const int r = i / C, c = i % C, o = r * lC + c;
       if (use_conv) {
         const int rr = r + H;
-        float uv = xb[rr * C + c] * p.wc[(K - 1) * C + c] + p.bc[c];
+        float uv = xb[rr * lC + c] * p.wc[(K - 1) * C + c] + p.bc[c];
         for (int j = 1; j < K; ++j) {
-          const float xv = (t0 + r - j >= 0) ? xb[(rr - j) * C + c] : 0.f;
+          const float xv = (t0 + r - j >= 0) ? xb[(rr - j) * lC + c] : 0.f;
           uv += xv * p.wc[(K - 1 - j) * C + c];
         }
-        u[i] = uv;
-        xc[i] = silu_t(uv);
+        u[o] = uv;
+        xc[o] = silu_t(uv);
       } else {
-        xc[i] = xb[r * C + c];
+        xc[o] = xb[o];
       }
     }
     __syncthreads();
-    block_matmul(xc, C, rows, C, p.wg, 2 * C, 2 * C, p.bg, g, 2 * C);
-    for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-      const int r = i / C, c = i % C;
-      dsb[i] = ds_du[((size_t)b * T + t0 + r) * C + c];
-    }
+    mm_tc<2, 2>(xc, lC, p.wg, 2 * C, rows, 2 * C, C, [&](int m, int n, float v) {
+      g[m * lG + n] = v + __ldg(p.bg + n);
+    });
+    cp_async_wait_all();
     __syncthreads();
     for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-      const int r = i / C, c = i % C;
-      const int t = t0 + r;
-      const float sr = sigmoid_t(g[r * 2 * C + c]);
-      const float si = sigmoid_t(g[r * 2 * C + C + c]);
+      const int r = i / C, c = i % C, o = r * lC + c;
+      const float sr = sigmoid_t(g[r * lG + c]);
+      const float si = sigmoid_t(g[r * lG + C + c]);
       const float spl = softplus_t(p.lam[c]);
       const float a = exp_t(-spl * sr);
       const float s = sqrtf(1.f - a * a + GATE_EPS);
       const float beta = s * si;
-      const float hp = t > 0 ? h[((size_t)b * T + t - 1) * C + c] : 0.f;
-      const float d = dsb[i];
-      const float d_beta = d * xc[i];
-      const float d_a = hp * d - d_beta * si * a / s;
+      const float d = dsb[o];
+      const float d_beta = d * xc[o];
+      const float d_a = hp[o] * d - d_beta * si * a / s;
       const float d_r = -d_a * a * spl * sr * (1.f - sr);
-      g[r * 2 * C + c] = d_r;
-      g[r * 2 * C + C + c] = d_beta * s * si * (1.f - si);
-      lt[i] = -d_a * a * sr * sigmoid_t(p.lam[c]);
-      dsb[i] = d * beta;
+      g[r * lG + c] = d_r;
+      g[r * lG + C + c] = d_beta * s * si * (1.f - si);
+      lt[o] = -d_a * a * sr * sigmoid_t(p.lam[c]);
+      dsb[o] = d * beta;
     }
     __syncthreads();
-    block_colsum(lt, C, nullptr, 0, rows, C, gp + gl.off[G_LAM]);
-    block_grad_matmul(xc, C, g, 2 * C, rows, C, 2 * C, gp + gl.off[G_WG], 2 * C);
-    block_colsum(g, 2 * C, nullptr, 0, rows, 2 * C, gp + gl.off[G_BG]);
-    __syncthreads();
-    block_matmul<true>(g, 2 * C, rows, 2 * C, q.wgT, C, C, nullptr, dsb, C);  // dxc
+    // the weight grads read dg; dxc = dg W_g^T is added to d * beta in dsb
+    block_colsum(lt, lC, nullptr, 0, rows, C, gp + gl.off[G_LAM]);
+    block_colsum(g, lG, nullptr, 0, rows, 2 * C, gp + gl.off[G_BG]);
+    mm_tc_add<2, 2>(xc, lC, g, lG, C, 2 * C, rows, gp + gl.off[G_WG], 2 * C);
+    mm_tc<2, 1>(g, lG, q.wgT, C, rows, C, 2 * C,
+                [&](int m, int n, float v) { dsb[m * lC + n] += v; });
     __syncthreads();
     if (use_conv) {
       for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-        const float su = sigmoid_t(u[i]);
-        dsb[i] *= su * (1.f + u[i] * (1.f - su));  // du
+        const int o = (i / C) * lC + i % C;
+        const float su = sigmoid_t(u[o]);
+        dsb[o] *= su * (1.f + u[o] * (1.f - su));  // du
       }
       __syncthreads();
-      block_colsum(dsb, C, nullptr, 0, rows, C, gp + gl.off[G_BC]);
+      block_colsum(dsb, lC, nullptr, 0, rows, C, gp + gl.off[G_BC]);
       for (int idx = threadIdx.x; idx < K * C; idx += blockDim.x) {
         const int k = idx / C, c = idx % C;
         const int j = K - 1 - k;  // tap k multiplies xb[t - j]
         float s = 0.f;
         for (int r = 0; r < rows; ++r)
-          if (t0 + r - j >= 0) s += xb[(r + H - j) * C + c] * dsb[r * C + c];
+          if (t0 + r - j >= 0) s += xb[(r + H - j) * lC + c] * dsb[r * lC + c];
         gp[gl.off[G_WC] + idx] += s;
       }
     }
     for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
       const int r = i / C, c = i % C;
-      ds_du[((size_t)b * T + t0 + r) * C + c] = dsb[i];
+      ds_du[((size_t)b * T + t0 + r) * C + c] = dsb[r * lC + c];
     }
   }
 }
@@ -556,27 +769,30 @@ gate_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
 // ---------------------------------------------------------------------------
 
 inline size_t inproj_bwd_smem_bytes(int D, int C) {
-  return sizeof(float) * ((size_t)TT * (3 * D + 2 * C) + TT);
+  const int lD = ld_of(D), lZ = ld_of(2 * C);
+  return sizeof(float) * ((size_t)TT * (3 * lD + lZ) + TT);
 }
 
 // Item (b, tile).  Without lens: dxz = [dxb, dz] over 2C channels and
 // dx = dxr + dxz @ W_in^T.  With lens: dxz = dxb over C channels, dx =
 // dxb @ W_in[:, :C]^T plus dxr[b] at position n-1, and dx = 0 at and
-// beyond the row's length.
+// beyond the row's length.  Both products (the W_in grad x^T dxz and dx)
+// on the tensor cores (mm_tc).
 template <typename Tin>
-__global__ void __launch_bounds__(THREADS)
-inproj_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
-                  const float* __restrict__ du, const float* __restrict__ dz,
-                  const float* __restrict__ dxr, Tin* __restrict__ dx, LayerParams p,
-                  LayerParamsT q, Dropout dr, float* __restrict__ partial, GradLayout gl,
-                  int B, int T, int D, int C, int K, int use_conv, int prologue) {
+__global__ void __launch_bounds__(THREADS, 2)
+inproj_bwd_mma_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
+                      const float* __restrict__ du, const float* __restrict__ dz,
+                      const float* __restrict__ dxr, Tin* __restrict__ dx, LayerParams p,
+                      LayerParamsT q, Dropout dr, float* __restrict__ partial, GradLayout gl,
+                      int B, int T, int D, int C, int K, int use_conv, int prologue) {
   extern __shared__ float smem[];
   const int NW = dz ? 2 * C : C;
-  float* xs = smem;            // [TT, D]   layer input (post-prologue)
-  float* v0 = xs + TT * D;     // [TT, D]   prologue vhat
-  float* dxs = v0 + TT * D;    // [TT, D]   dx
-  float* dxz = dxs + TT * D;   // [TT, NW]  [dxb, dz]
-  float* inv0 = dxz + TT * 2 * C;
+  const int lD = ld_of(D), lZ = ld_of(2 * C);
+  float* xs = smem;            // [TT, lD]  layer input (post-prologue)
+  float* v0 = xs + TT * lD;    // [TT, lD]  prologue vhat
+  float* dxs = v0 + TT * lD;   // [TT, lD]  dx
+  float* dxz = dxs + TT * lD;  // [TT, lZ]  [dxb, dz]
+  float* inv0 = dxz + TT * lZ;
   float* gp = partial + (size_t)blockIdx.x * gl.total;
   const int tiles = (T + TT - 1) / TT;
   for (int w = blockIdx.x; w < B * tiles; w += gridDim.x) {
@@ -590,15 +806,12 @@ inproj_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
       store_act(dx, ((size_t)b * T + t0 + r) * D + d, 0.f);
     }
     if (rv == 0) continue;
-    for (int i = threadIdx.x; i < rv * D; i += blockDim.x) {
-      const int r = i / D, d = i % D;
-      float v = load_act(x, ((size_t)b * T + t0 + r) * D + d);
-      if (prologue) {
-        v0[i] = v * drop_mask(dr, M0, b, t0 + r, d);
-      } else {
-        xs[i] = v;
-      }
-    }
+    auto row_b = [&](int) { return b; };
+    auto pos_t = [&](int r) { return t0 + r; };
+    masked_rows(prologue ? dr : Dropout{}, M0, rv, D, row_b, pos_t, [&](int r, int d, float m) {
+      (prologue ? v0 : xs)[r * lD + d] = load_act(x, ((size_t)b * T + t0 + r) * D + d) * m;
+    });
+#pragma unroll 2
     for (int i = threadIdx.x; i < rv * C; i += blockDim.x) {
       const int r = i / C, c = i % C;
       const int t = t0 + r;
@@ -612,38 +825,37 @@ inproj_bwd_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
       } else {
         s = du[o];
       }
-      dxz[r * NW + c] = s;
-      if (dz) dxz[r * NW + C + c] = dz[o];
+      dxz[r * lZ + c] = s;
+      if (dz) dxz[r * lZ + C + c] = dz[o];
     }
     __syncthreads();
     if (prologue) {
-      block_layernorm_save(v0, D, rv, D, inv0, p.pl_s, p.pl_b, xs, D);
+      block_layernorm_save(v0, lD, rv, D, inv0, p.pl_s, p.pl_b, xs, lD);
       __syncthreads();
     }
-    block_grad_matmul(xs, D, dxz, NW, rv, D, NW, gp + gl.off[G_W_IN], 2 * C);
-    block_matmul(dxz, NW, rv, NW, q.w_inT, D, D, nullptr, dxs, D);
+    mm_tc_add<2, 2>(xs, lD, dxz, lZ, D, NW, rv, gp + gl.off[G_W_IN], 2 * C);
+    mm_tc<2, 1>(dxz, lZ, q.w_inT, D, rv, D, NW,
+                [&](int m, int n, float v) { dxs[m * lD + n] = v; });
     __syncthreads();
     for (int i = threadIdx.x; i < rv * D; i += blockDim.x) {
       const int r = i / D, d = i % D;
       const int t = t0 + r;
       if (lens == nullptr)
-        dxs[i] += dxr[((size_t)b * T + t) * D + d];
+        dxs[r * lD + d] += dxr[((size_t)b * T + t) * D + d];
       else if (t == n - 1)
-        dxs[i] += dxr[(size_t)b * D + d];
+        dxs[r * lD + d] += dxr[(size_t)b * D + d];
     }
     __syncthreads();
     if (prologue) {
-      block_colsum(dxs, D, v0, D, rv, D, gp + gl.off[G_PL_S]);
-      block_colsum(dxs, D, nullptr, 0, rv, D, gp + gl.off[G_PL_B]);
+      block_colsum(dxs, lD, v0, lD, rv, D, gp + gl.off[G_PL_S]);
+      block_colsum(dxs, lD, nullptr, 0, rv, D, gp + gl.off[G_PL_B]);
       __syncthreads();
-      block_layernorm_bwd(dxs, D, v0, D, inv0, rv, D, p.pl_s);
+      block_layernorm_bwd(dxs, lD, v0, lD, inv0, rv, D, p.pl_s);
       __syncthreads();
     }
-    for (int i = threadIdx.x; i < rv * D; i += blockDim.x) {
-      const int r = i / D, d = i % D;
-      const float m = prologue ? drop_mask(dr, M0, b, t0 + r, d) : 1.f;
-      store_act(dx, ((size_t)b * T + t0 + r) * D + d, dxs[i] * m);
-    }
+    masked_rows(prologue ? dr : Dropout{}, M0, rv, D, row_b, pos_t, [&](int r, int d, float m) {
+      store_act(dx, ((size_t)b * T + t0 + r) * D + d, dxs[r * lD + d] * m);
+    });
   }
 }
 

@@ -10,7 +10,7 @@
 //       [B, T, C] fp32, recomputed (nothing is kept by the forward)
 //   B'  linear_scan_kernel in reverse on shift_left(alpha): d_states =
 //       reverse_scan(shift_left(alpha), dh)
-//   C1' gate_bwd_kernel<Tin, XB = true>: the gates recomputed from xb,
+//   C1' gate_bwd_mma_kernel<Tin, XB = true>: the gates recomputed from xb,
 //       then d_beta, d_alpha, d_r, d_i, the W_g, b_g and lambda grads, du
 //       = (dg @ W_g^T + d_states * beta) * silu'(u), the conv grads;
 //       du over d_states
@@ -24,8 +24,9 @@
 //
 // What bounds it: the gate product recomputed and its two gradient
 // products, 12 C^2 FLOP per position (~104 GFLOP at B 512, T 1,020,
-// C 128: ~1.5 ms at the fp32 peak), so fp32 operations, as the layer
-// backward's gate phase, whose shared-memory design it reuses.
+// C 128), so operations, as the layer backward's gate phase, whose
+// design it reuses: those products on the tensor cores as 3xTF32
+// (common_bwd.cuh mm_tc, ~0.63 ms at 495 TFLOP/s).
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "common_bwd.cuh"
@@ -75,8 +76,8 @@ cudaError_t bdlru_bwd(const Tin* x, const Tin* dh, LayerParams p, LayerParamsT q
 
   const GradLayout gl = grad_layout(0, C, K, 0);
   const size_t s2 = gate_bwd_smem_bytes(0, C, K);
-  if ((e = set_smem(gate_bwd_kernel<Tin, true>, s2)) != cudaSuccess) return e;
-  gate_bwd_kernel<Tin, true><<<min(G, B * tiles), THREADS, s2, stream>>>(
+  if ((e = set_smem(gate_bwd_mma_kernel<Tin, true>, s2)) != cudaSuccess) return e;
+  gate_bwd_mma_kernel<Tin, true><<<min(G, B * tiles), BWD_THREADS, s2, stream>>>(
       x, nullptr, h, ds, p, q, off, partial, gl, B, T, 0, C, K, use_conv, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 

@@ -9,13 +9,14 @@
 // per-block weight-grad partials in a fixed order (no atomics).
 //
 // What bounds it: the forward tail is recomputed and every matmul of the
-// layer has two gradient products, about 3x the forward's fp32 FMA work
-// (~544 kFLOP per position at D 64, C 128, FFN 256) against a few kB of
-// [B, T, .] scratch traffic per position, so it is bound by fp32
-// operations.  The design keeps each item's operands in shared memory,
-// reads W^T from transposed copies so every product streams weights
-// row-wise, and writes only dh, dz, the dv1 residual and du through
-// device memory between phases.
+// layer has two gradient products, about 3x the forward's work (~544 kFLOP
+// per position at D 64, C 128, FFN 256) against a few kB of [B, T, .]
+// scratch traffic per position, so it is bound by operations.  Every
+// product of A', C1' and C2' runs on the tensor cores as 3xTF32 (three
+// TF32 products a product at 495 TFLOP/s, keeping fp32 accuracy), each
+// item's activations in shared memory, the weights read from device
+// memory through the read-only cache; only dh, dz, the dv1 residual and
+// du go through device memory between phases.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "common_bwd.cuh"
@@ -53,9 +54,9 @@ cudaError_t layer_bwd(const Tin* x, const Tin* dout, LayerParams p, LayerParamsT
 
   const int rt = tail_bwd_rows(D, C, Fu, max_smem);
   const size_t s1 = tail_bwd_smem_bytes(rt, D, C, Fu);
-  if ((e = set_smem(tail_bwd_kernel<Tin, false>, s1)) != cudaSuccess) return e;
+  if ((e = set_smem(tail_bwd_mma_kernel<Tin, false>, s1)) != cudaSuccess) return e;
   const int items_a = B * ((T + rt - 1) / rt);
-  tail_bwd_kernel<Tin, false><<<min(G, items_a), THREADS, s1, stream>>>(
+  tail_bwd_mma_kernel<Tin, false><<<min(G, items_a), BWD_THREADS, s1, stream>>>(
       x, nullptr, dout, h, p, q, dr, dxr, ds, dz, partial, gl, rt, B, T, D, C, Fu, use_ffn,
       prologue);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -67,14 +68,14 @@ cudaError_t layer_bwd(const Tin* x, const Tin* dout, LayerParams p, LayerParamsT
 
   const int items_c = B * tiles;
   const size_t s2 = gate_bwd_smem_bytes(D, C, K);
-  if ((e = set_smem(gate_bwd_kernel<Tin>, s2)) != cudaSuccess) return e;
-  gate_bwd_kernel<Tin><<<min(G, items_c), THREADS, s2, stream>>>(
+  if ((e = set_smem(gate_bwd_mma_kernel<Tin>, s2)) != cudaSuccess) return e;
+  gate_bwd_mma_kernel<Tin><<<min(G, items_c), BWD_THREADS, s2, stream>>>(
       x, nullptr, h, ds, p, q, dr, partial, gl, B, T, D, C, K, use_conv, prologue);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const size_t s3 = inproj_bwd_smem_bytes(D, C);
-  if ((e = set_smem(inproj_bwd_kernel<Tin>, s3)) != cudaSuccess) return e;
-  inproj_bwd_kernel<Tin><<<min(G, items_c), THREADS, s3, stream>>>(
+  if ((e = set_smem(inproj_bwd_mma_kernel<Tin>, s3)) != cudaSuccess) return e;
+  inproj_bwd_mma_kernel<Tin><<<min(G, items_c), THREADS, s3, stream>>>(
       x, nullptr, ds, dz, dxr, dx, p, q, dr, partial, gl, B, T, D, C, K, use_conv, prologue);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 

@@ -23,8 +23,9 @@
 //         dx (common_bwd.cuh, the conv's right halo read across chunk
 //         edges from du);
 // then one reduction of the per-block weight-grad partials in a fixed
-// order (no atomics).  What bounds it: as K1's backward, fp32 operations
-// (~544 kFLOP per position at D 64, C 128, FFN 256).
+// order (no atomics).  What bounds it: as K1's backward,
+// operations (~544 kFLOP per position at D 64, C 128, FFN 256), whose
+// products run on the tensor cores as 3xTF32 in A', C1' and C2'.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "common_bwd.cuh"
@@ -63,9 +64,9 @@ cudaError_t layer_chunked_bwd(const Tin* x, const Tin* dout, LayerParams p, Laye
 
   const int rt = tail_bwd_rows(D, C, Fu, max_smem);
   const size_t s1 = tail_bwd_smem_bytes(rt, D, C, Fu);
-  if ((e = set_smem(tail_bwd_kernel<Tin, false>, s1)) != cudaSuccess) return e;
+  if ((e = set_smem(tail_bwd_mma_kernel<Tin, false>, s1)) != cudaSuccess) return e;
   const int items_a = B * ((T + rt - 1) / rt);
-  tail_bwd_kernel<Tin, false><<<min(G, items_a), THREADS, s1, stream>>>(
+  tail_bwd_mma_kernel<Tin, false><<<min(G, items_a), BWD_THREADS, s1, stream>>>(
       x, nullptr, dout, h, p, q, dr, dxr, ds, dz, partial, gl, rt, B, T, D, C, Fu, use_ffn,
       prologue);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -79,14 +80,14 @@ cudaError_t layer_chunked_bwd(const Tin* x, const Tin* dout, LayerParams p, Laye
 
   const int items_c = B * tiles;
   const size_t s2 = gate_bwd_smem_bytes(D, C, K);
-  if ((e = set_smem(gate_bwd_kernel<Tin>, s2)) != cudaSuccess) return e;
-  gate_bwd_kernel<Tin><<<min(G, items_c), THREADS, s2, stream>>>(
+  if ((e = set_smem(gate_bwd_mma_kernel<Tin>, s2)) != cudaSuccess) return e;
+  gate_bwd_mma_kernel<Tin><<<min(G, items_c), BWD_THREADS, s2, stream>>>(
       x, nullptr, h, ds, p, q, dr, partial, gl, B, T, D, C, K, use_conv, prologue);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const size_t s3 = inproj_bwd_smem_bytes(D, C);
-  if ((e = set_smem(inproj_bwd_kernel<Tin>, s3)) != cudaSuccess) return e;
-  inproj_bwd_kernel<Tin><<<min(G, items_c), THREADS, s3, stream>>>(
+  if ((e = set_smem(inproj_bwd_mma_kernel<Tin>, s3)) != cudaSuccess) return e;
+  inproj_bwd_mma_kernel<Tin><<<min(G, items_c), THREADS, s3, stream>>>(
       x, nullptr, ds, dz, dxr, dx, p, q, dr, partial, gl, B, T, D, C, K, use_conv, prologue);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 

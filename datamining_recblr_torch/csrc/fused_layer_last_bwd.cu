@@ -14,10 +14,11 @@
 // the LN and FFN grads still take its tail on zeros, as the TPU kernel's
 // one-hot does.
 //
-// What bounds it: fp32 operations below each row's length (~250 kFLOP
-// per position: the gates and the xb half of the in-projection
-// recomputed, their two gradient products each, the conv), as for the
-// forward; the per-row tail is small.  Weight grads are per-block partials reduced in a fixed order.
+// What bounds it: operations below each row's length (~250 kFLOP per
+// position: the gates and the xb half of the in-projection recomputed,
+// their two gradient products each, the conv); the per-row tail is small.
+// The products run on the tensor cores as 3xTF32 (common_bwd.cuh mm_tc).
+// Weight grads are per-block partials reduced in a fixed order.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "common_bwd.cuh"
@@ -55,9 +56,9 @@ cudaError_t layer_last_bwd(const Tin* x, const int* lens, const Tin* dout, Layer
 
   const int rt = tail_bwd_rows(D, C, Fu, max_smem);
   const size_t s1 = tail_bwd_smem_bytes(rt, D, C, Fu);
-  if ((e = set_smem(tail_bwd_kernel<Tin, true>, s1)) != cudaSuccess) return e;
+  if ((e = set_smem(tail_bwd_mma_kernel<Tin, true>, s1)) != cudaSuccess) return e;
   const int items_a = (B + rt - 1) / rt;
-  tail_bwd_kernel<Tin, true><<<min(G, items_a), THREADS, s1, stream>>>(
+  tail_bwd_mma_kernel<Tin, true><<<min(G, items_a), BWD_THREADS, s1, stream>>>(
       x, lens, dout, h, p, q, dr, dxr, dhl, nullptr, partial, gl, rt, B, T, D, C, Fu, use_ffn,
       0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -68,14 +69,14 @@ cudaError_t layer_last_bwd(const Tin* x, const int* lens, const Tin* dout, Layer
 
   const int items_c = B * tiles;
   const size_t s2 = gate_bwd_smem_bytes(D, C, K);
-  if ((e = set_smem(gate_bwd_kernel<Tin>, s2)) != cudaSuccess) return e;
-  gate_bwd_kernel<Tin><<<min(G, items_c), THREADS, s2, stream>>>(
+  if ((e = set_smem(gate_bwd_mma_kernel<Tin>, s2)) != cudaSuccess) return e;
+  gate_bwd_mma_kernel<Tin><<<min(G, items_c), BWD_THREADS, s2, stream>>>(
       x, lens, h, ds, p, q, dr, partial, gl, B, T, D, C, K, use_conv, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const size_t s3 = inproj_bwd_smem_bytes(D, C);
-  if ((e = set_smem(inproj_bwd_kernel<Tin>, s3)) != cudaSuccess) return e;
-  inproj_bwd_kernel<Tin><<<min(G, items_c), THREADS, s3, stream>>>(
+  if ((e = set_smem(inproj_bwd_mma_kernel<Tin>, s3)) != cudaSuccess) return e;
+  inproj_bwd_mma_kernel<Tin><<<min(G, items_c), THREADS, s3, stream>>>(
       x, lens, ds, nullptr, dxr, dx, p, q, dr, partial, gl, B, T, D, C, K, use_conv, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 

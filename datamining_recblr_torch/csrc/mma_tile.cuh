@@ -95,6 +95,19 @@ __device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) 
   lo = tf32_round(v - __uint_as_float(hi));
 }
 
+// tf32_split (hi = tf32(v), lo = tf32(v - hi), rounded to nearest, ties
+// away from zero) on the integer pipe: the same bits for every finite v as
+// cvt.rna.tf32.f32, without the conversion unit, which the fp32 kernels
+// would otherwise keep busy with two conversions a value.
+__device__ __forceinline__ uint32_t tf32_bits(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_i(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_bits(v);
+  lo = tf32_bits(v - __uint_as_float(hi));
+}
+
 // c += a b at fp32 accuracy from TF32 products of the split operands a = ah
 // + al, b = bh + bl: al bh + ah bl + ah bh (the lo lo term and what the
 // splits leave are below 2^-21 of |a| |b|).  Without BL (b exact in TF32,

@@ -1543,6 +1543,86 @@ def test_layer_kernels_name_the_tap_bound(dev):
 
 
 # ---------------------------------------------------------------------------
+# rows 2 and 4 on the tensor cores: widths, taps and lengths the tiles meet
+# ---------------------------------------------------------------------------
+
+def _odd_params(rng, d, c, f, k, dev):
+    p = _params(rng, d, c, dev, prologue=True)
+
+    def r(*s):
+        return torch.from_numpy((0.1 * rng.standard_normal(s)).astype(np.float32)).to(dev)
+
+    p.update(wc=r(k, c), w1=r(d, f), b1=r(f), w2=r(f, d))
+    return p
+
+
+# (D, C, FFN, d_conv K, T): widths no multiple of 16 with 9 and 64 taps, T
+# 45 (ending in a ragged item) and 200 (the bench length), and the bench
+# widths at T 45
+ODD_BWD_SHAPES = [(50, 70, 100, 9, 45), (50, 70, 100, 64, 200), (48, 96, 100, 9, 200),
+                  (64, 128, 256, 4, 45)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,c,f,k,t", ODD_BWD_SHAPES)
+def test_tensor_core_backwards_at_odd_widths_taps_and_lengths(dev, d, c, f, k, t, dtype):
+    """Rows 2 and 4, their products on the tensor cores (3xTF32), against
+    autograd of their plain versions at p 0.2 (``_assert_grads``: GRAD_RTOL,
+    a bf16 dx within one bf16 ulp on top); row 4 with rows of lengths 0, 1,
+    T, above T and one ending inside an item.  A rerun of each backward
+    gives the same bits."""
+    rng = np.random.default_rng(100 + d + k + t)
+    p = _odd_params(rng, d, c, f, k, dev)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((5, t, d)).astype(np.float32)).to(dev, dt)
+    dout = torch.from_numpy(rng.standard_normal((5, t, d)).astype(np.float32)).to(dev, dt)
+    flags = (True, True, True, 0.2, 123)
+    out, saved = FL.fused_recurrent_layer_train(x, p, *flags)
+    dx, grads = FL.fused_recurrent_layer_bwd(x, dout, p, *flags, saved=saved)
+    want = _plain_vjp(lambda a, q: FL.fused_recurrent_layer_plain(a, q, *flags), x, p, dout)
+    _assert_grads((out, dx, grads), want, dtype)
+    dx2, grads2 = FL.fused_recurrent_layer_bwd(x, dout, p, *flags, saved=saved)
+    assert torch.equal(dx2, dx) and all(torch.equal(grads2[n], g) for n, g in grads.items())
+
+    q = {n: v for n, v in p.items() if n not in ("pl_s", "pl_b")}
+    lens = torch.tensor([0, 1, t, t + 3, 17], device=dev)  # 0 and t + 3 select nothing
+    last = (True, True, 0.2, 123)
+    d2 = dout[:, 0].contiguous()
+    out, saved = FL.fused_recurrent_layer_last_train(x, lens, q, *last)
+    dx, grads = FL.fused_recurrent_layer_last_bwd(x, lens, d2, q, *last, saved=saved)
+    want = _plain_vjp(lambda a, r: FL.fused_recurrent_layer_last_plain(a, lens, r, *last), x, q,
+                      d2)
+    _assert_grads((out, dx, grads), want, dtype)
+    assert not dx[0].any() and not dx[3].any()
+    assert not dx[1, 1:].any() and not dx[4, 17:].any()
+    dx2, grads2 = FL.fused_recurrent_layer_last_bwd(x, lens, d2, q, *last, saved=saved)
+    assert torch.equal(dx2, dx) and all(torch.equal(grads2[n], g) for n, g in grads.items())
+
+
+def test_bench_shape_backwards_run_the_tensor_core_kernels(dev):
+    """At the bench widths (D 64, C 128, FFN 256, T 200) rows 2 and 4 run
+    A', C1' and C2' as the tensor-core kernels, by the names torch.profiler
+    records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(110)
+    p = _params(rng, 64, 128, dev, prologue=True)
+    q = {n: v for n, v in p.items() if n not in ("pl_s", "pl_b")}
+    x = torch.from_numpy(rng.standard_normal((8, 200, 64)).astype(np.float32)).to(dev)
+    dout = torch.from_numpy(rng.standard_normal((8, 200, 64)).astype(np.float32)).to(dev)
+    lens = torch.tensor([200, 1, 150, 77, 200, 3, 64, 199], device=dev)
+    for call in (lambda: FL.fused_recurrent_layer_bwd(x, dout, p, True, True, True, 0.2, 5),
+                 lambda: FL.fused_recurrent_layer_last_bwd(x, lens, dout[:, 0].contiguous(), q,
+                                                           True, True, 0.2, 5)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        for kernel in ("tail_bwd_mma_kernel", "gate_bwd_mma_kernel", "inproj_bwd_mma_kernel"):
+            assert any(kernel in n for n in names), kernel
+
+
+# ---------------------------------------------------------------------------
 # queue B row 15: the masked-softmax attention (ops/attention.py)
 # ---------------------------------------------------------------------------
 

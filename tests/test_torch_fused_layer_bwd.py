@@ -144,3 +144,109 @@ def test_stash_policy_follows_the_jax_package():
     for b, t, c in [(2048, 200, 128), (8, 256, 128), (8, 257, 128), (4096, 256, 128)]:
         # the port keeps two [B, T, C] fp32 arrays (alpha and h)
         assert FL.stash_policy(b, t, c) == _stash_policy(t, 2 * b * t * c * 4)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' weight grads on the tensor cores, emulated in numpy
+# ---------------------------------------------------------------------------
+
+ITEM_ROWS = 32  # positions an item of A', C1' and C2' (csrc/common.cuh TT)
+
+
+def _tf32(a):
+    """fp32 rounded to TF32 (10 mantissa bits, nearest, ties away from
+    zero), as ``csrc/mma_tile.cuh`` tf32_bits."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _item_grad(a, b):
+    """One item's weight grad a^T b as ``csrc/common_bwd.cuh`` mm_tc takes
+    it: A read transposed, the depth the item's rows (a ragged item padded
+    with zero rows to a multiple of 8); both operands split into TF32 terms
+    (hi = tf32(v), lo = tf32(v - hi)); per 8-deep k-tile a fresh
+    accumulator of lo hi + hi lo + hi hi (exact products, summed and
+    rounded to fp32 once), added to the running sum in fp32."""
+    pad = -a.shape[0] % 8
+    a = np.pad(np.asarray(a, np.float32), ((0, pad), (0, 0)))
+    b = np.pad(np.asarray(b, np.float32), ((0, pad), (0, 0)))
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    acc = np.zeros((a.shape[1], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[0], 8):
+        sl = slice(k0, k0 + 8)
+        tile = sum(u[sl].T.astype(np.float64) @ w[sl].astype(np.float64)
+                   for u, w in ((al, bh), (ah, bl), (ah, bh)))
+        acc = (acc + tile.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+def _weight_grad_scheme(a, b, blocks):
+    """sum over every position of a^T b ([B, T, M] and [B, T, N]) as the
+    backward kernels sum a weight grad: items of (row, ITEM_ROWS
+    positions), block g of ``blocks`` walking items g, g + blocks, ... and
+    adding each item's grad into its fp32 partial, then the partials added
+    in block order (reduce_partials_kernel)."""
+    b_, t = a.shape[:2]
+    tiles = -(-t // ITEM_ROWS)
+    partial = np.zeros((blocks, a.shape[2], b.shape[2]), np.float32)
+    for w in range(b_ * tiles):
+        row, t0 = w // tiles, (w % tiles) * ITEM_ROWS
+        g = w % blocks
+        item = _item_grad(a[row, t0:t0 + ITEM_ROWS], b[row, t0:t0 + ITEM_ROWS])
+        partial[g] = (partial[g] + item).astype(np.float32)
+    out = np.zeros(partial.shape[1:], np.float32)
+    for g in range(blocks):
+        out = (out + partial[g]).astype(np.float32)
+    return out
+
+
+def _layer_operands(x, p):
+    """The operands of the W_in grad (x, d xz: C2') and of the W_out grad
+    (silu(z) h, dy: A') of the plain layer at p = 0 without the prologue,
+    from autograd through the plain version's own steps."""
+    from datamining_recblr_torch.ops import fastmath
+
+    pt = {k: torch.from_numpy(v) for k, v in p.items()}
+    xt = torch.from_numpy(x)
+    c = p["w_in"].shape[1] // 2
+    xz = (xt @ pt["w_in"]).requires_grad_()
+    yin = fastmath.silu(xz[..., c:]) * FL._bdlru(xz[..., :c], pt, True)
+    y = yin @ pt["w_out"]
+    out = FL._ffn_tail(FL._ln(y + xt, pt["ln1_s"], pt["ln1_b"]), pt)
+    torch.testing.assert_close(out, FL.fused_recurrent_layer_plain(xt, pt), atol=0, rtol=0)
+    return out, xz, yin, y
+
+
+@pytest.mark.parametrize("weight", ["w_in", "w_out"])
+@pytest.mark.parametrize("b,t,d,c", [(3, 45, 48, 96), (2, 200, 64, 128), (4, 70, 50, 70)])
+def test_tensor_core_weight_grads_keep_fp32(weight, b, t, d, c):
+    """The weight grads of rows 2 and 4 on the tensor cores (3xTF32 with
+    the item's rows as the depth, ragged rows zero, a fresh accumulator
+    per 8-deep k-tile, per-block partials reduced in order): within 1e-6
+    of the largest value from the fp64 sum, as an fp32 sum is, where one
+    TF32 product is not; and the JAX package's gradient of the same
+    weight within the backward tests' tolerance.  Widths 48, 50, 70 and
+    96 are no multiple of 16, T 45 and 70 end in a ragged item."""
+    rng = np.random.default_rng(40 + t + d)
+    p = _params(rng, d, c)
+    x = (2.0 * rng.standard_normal((b, t, d))).astype(np.float32)
+    dout = rng.standard_normal((b, t, d)).astype(np.float32)
+    out, xz, yin, y = _layer_operands(x, p)
+    if weight == "w_in":
+        dxz, = torch.autograd.grad(out, xz, torch.from_numpy(dout))
+        a, g = x, dxz.numpy()
+    else:
+        dy, = torch.autograd.grad(out, y, torch.from_numpy(dout))
+        a, g = yin.detach().numpy(), dy.numpy()
+    got = _weight_grad_scheme(a, g, blocks=5)
+    exact = np.einsum("btm,btn->mn", a.astype(np.float64), g.astype(np.float64))
+    scale = float(np.abs(exact).max())
+    assert float(np.abs(got - exact).max()) <= 1e-6 * scale
+    tf32 = np.einsum("btm,btn->mn", _tf32(a).astype(np.float64), _tf32(g).astype(np.float64))
+    assert float(np.abs(tf32 - exact).max()) > 1e-6 * scale
+    _, vjp = jax.vjp(lambda pp: j_layer(jnp.asarray(x), SEED, pp, True, True, 0.0, False),
+                     {k: jnp.asarray(v) for k, v in p.items()})
+    want = np.asarray(vjp(jnp.asarray(dout))[0][weight])
+    np.testing.assert_allclose(got, want, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL_REL * float(np.abs(want).max()))
