@@ -11,14 +11,18 @@ kernels and prints ``chip_smoke.py``'s kernel-time lines (every kernel
 beside its bound, its plain version and its library call; the
 transformer-layer forward and backward and both CE backwards by phase,
 row 10's forward in bf16, row 13's backward in bf16 and at D 256 and row
-15 by launch, rows 2, 4 and 9's backwards by phase, where the tree has
-those functions), the RecBLR, SASRec and BERT4Rec training steps at the
-bench shape, fp32 and bf16, RecBLR's XLong training step in bf16 and its
-longodd step in fp32, and SASRec's and BERT4Rec's d256 steps in fp32 (each
-step against the plain step, launches, time, profile).  Comparing the turns of one call keeps both versions on
+15 by launch, rows 2, 4 and 9's backwards and rows 1, 3, 8 and 9's
+forwards by phase, where the tree has those functions), RecBLR's
+``recommend`` at XLong (V 329,722, bf16: its median at 256 users and its
+p50 for one) and the top-k designs at its catalog (``topk_times``,
+where the tree has it), the RecBLR, SASRec and BERT4Rec training steps at the bench
+shape, fp32 and bf16, RecBLR's XLong training step in bf16 and its longodd
+step in fp32, and SASRec's and BERT4Rec's d256 steps in fp32 (each step
+against the plain step, launches, time, profile).  Comparing the turns of one call keeps both versions on
 one card at one power limit.  At the end, one ``[compare]`` line a timed
-function (kernel-time rows and train-time medians): its parent and change
-turns and the ratio of their means, change over parent.
+function (kernel-time rows, train-time medians and the serve-xlong-time
+medians): its parent and change turns and the ratio of their means,
+change over parent.
 """
 
 import os
@@ -62,6 +66,11 @@ def one(tree, label):
         cs.row15_phase_times(dev)
     if hasattr(cs, "recblr_bwd_phase_times"):
         cs.recblr_bwd_phase_times(dev)
+    if hasattr(cs, "recblr_fwd_phase_times"):
+        cs.recblr_fwd_phase_times(dev)
+    cs.serving(dev, "RecBLR", "bfloat16", xlong=True)
+    if hasattr(cs, "topk_times"):
+        cs.topk_times(dev)
     for name in ("RecBLR", "SASRec", "BERT4Rec"):
         for dt in ("float32", "bfloat16"):
             cs.train_step_phase(dev, dt, name)
@@ -72,15 +81,22 @@ def one(tree, label):
 
 
 def timed(line):
-    """(key, ms) of a kernel-time or train-time line, else None."""
+    """[(key, ms)] of a kernel-time, train-time, serve-xlong-time or topk-time
+    line."""
     fields = dict(re.findall(r"(\w+)=(\S+)", line))
     if line.startswith("[kernel-time] "):
         keys = ("kernel", "shape", "B", "dtype", "causal", "p")
-        return " ".join(f"{k}={fields[k]}" for k in keys if k in fields), float(fields["ms"])
+        return [(" ".join(f"{k}={fields[k]}" for k in keys if k in fields), float(fields["ms"]))]
     m = re.match(r"\[([\w-]*train-time)\] ", line)
     if m:
-        return f"{m.group(1)} dtype={fields['dtype']}", float(fields["median_ms_per_step"])
-    return None
+        return [(f"{m.group(1)} dtype={fields['dtype']}", float(fields["median_ms_per_step"]))]
+    if line.startswith("[topk-time] "):
+        return [(f"topk-time {k} scores={fields['scores']}", float(fields[k]))
+                for k in fields if k.endswith("_ms")]
+    if line.startswith("[serve-xlong-time] "):
+        return [(f"serve-xlong-time {k} dtype={fields['dtype']}", float(fields[k]))
+                for k in ("median_ms_batch256", "p50_ms_1_user")]
+    return []
 
 
 def main():
@@ -101,9 +117,8 @@ def main():
               flush=True)
         rc = rc or r.returncode
         for line in r.stdout.splitlines():
-            kv = timed(line)
-            if kv:
-                ms.setdefault(kv[0], {"parent": [], "change": []})[label].append(kv[1])
+            for key, v in timed(line):
+                ms.setdefault(key, {"parent": [], "change": []})[label].append(v)
     for key, sides in ms.items():
         if sides["parent"] and sides["change"]:
             ratio = (sum(sides["change"]) / len(sides["change"])) / (

@@ -87,11 +87,16 @@ per-op composition, forward and backward) and, phase by phase:
   the projection, the attention and the tail; T', A', P' and the
   reduction; at the bench shape, causal and bidirectional, fp32 and bf16)
   and the chunked CE's backward by pass (pass a, the reduction, pass b at
-  the XLong loss, on the tensor cores).
+  the XLong loss, on the tensor cores), and rows 1, 3, 8 and 9's forwards
+  by phase (``recblr_fwd_phase_times``: phase A, the scan and the tail,
+  from torch.profiler beside the call's CUDA-event time).
 
-Each phase prints one line; any failure exits non-zero.  The line before
-the last is the kernels' JSON record, the last line the device JSON.
-Exits non-zero without a CUDA card.
+A rerun of each RecBLR layer kernel, forward and backward, gives the same
+bits, and each RecBLR training and serving profile fails unless phase A
+(and, off the longodd path, the tail) ran its tensor-core kernel
+(``FWD_MMA_REQUIRED``).  Each phase prints one line; any failure exits
+non-zero.  The line before the last is the kernels' JSON record, the last
+line the device JSON.  Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -215,6 +220,17 @@ SLICE_PATHS = {
 }
 
 
+# phase A and the tail of the RecBLR layer forwards on the tensor cores
+# (csrc/layer_fwd.cuh), and the RecBLR profiles that must show them: every
+# path through the whole-layer kernels runs both; longodd's unfused layers
+# run phase A alone (row 8), and the wide path (C 256) neither
+RECBLR_FWD_MMA = ("phase_a_mma_kernel", "tail_mma_kernel")
+FWD_MMA_REQUIRED = dict(
+    {prefix: RECBLR_FWD_MMA for prefix in ("train", "xlong-train", "onelayer-train", "serve",
+                                           "serve-xlong", "serve-onelayer")},
+    **{"longodd-train": RECBLR_FWD_MMA[:1], "serve-longodd": RECBLR_FWD_MMA[:1]})
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -290,24 +306,36 @@ def _bound(flops, nbytes, bf16_flops=0, tf32_flops=0):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_bound_ms(b, t, p, act_bytes):
-    per_pos = 2 * D * 2 * C + 2 * K * C + 2 * C * 2 * C + 2 * C + 2 * C * D + 4 * D * FF
-    flops = b * t * per_pos
+def _recblr_bound(mm, fma, nbytes, priced_fma=False):
+    """_bound of a RecBLR layer kernel: its products ``mm`` on the tensor
+    cores as 3xTF32 (three TF32 products each, fp32 math whatever x's
+    dtype), the rest ``fma`` on the fp32 pipe; ``priced_fma``: every
+    product at the fp32 FMA peak (the FMA-priced bound, kept beside it)."""
+    if priced_fma:
+        return _bound(mm + fma, nbytes)
+    return _bound(fma, nbytes, 0, 3 * mm)
+
+
+# a position's products in K1's forward (the in-projection, the gates,
+# W_out, the FFN) and the rest (the conv and the scan)
+K1_MM = 2 * D * 2 * C + 2 * C * 2 * C + 2 * C * D + 4 * D * FF
+K1_REST = 2 * K * C + 2 * C
+
+
+def k1_bound_ms(b, t, p, act_bytes, priced_fma=False):
     nbytes = 2 * b * t * D * act_bytes + _params_bytes(p)
-    return _bound(flops, nbytes)
+    return _recblr_bound(b * t * K1_MM, b * t * K1_REST, nbytes, priced_fma)
 
 
-def k2_bound_ms(lens, p, act_bytes, t=T):
+def k2_bound_ms(lens, p, act_bytes, t=T, priced_fma=False):
     # the output reads the scan at position len-1 only, so positions at
     # or beyond a row's length are work this data does not need
     n = lens.clamp(0, t).where((lens >= 1) & (lens <= t), torch.zeros_like(lens))
     positions = int(n.sum())
     b = lens.numel()
-    per_pos = 2 * D * C + 2 * K * C + 2 * C * 2 * C + 2 * C
-    per_row = 2 * D * C + 2 * C * D + 4 * D * FF
-    flops = positions * per_pos + b * per_row
+    mm = positions * (2 * D * C + 2 * C * 2 * C) + b * (2 * D * C + 2 * C * D + 4 * D * FF)
     nbytes = positions * D * act_bytes + b * 4 + b * D * act_bytes + _params_bytes(p)
-    return _bound(flops, nbytes)
+    return _recblr_bound(mm, positions * K1_REST, nbytes, priced_fma)
 
 
 def ln_bound_ms(b, act_bytes):
@@ -513,10 +541,12 @@ def environment():
 # and the sources whose ptxas output is read kernel by kernel
 PTXAS_KERNEL_NAMES = ("attn_fwd_mma_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
                       "attn_fwd_kernel", "dkdv_kernel", "dq_kernel", "delta_kernel",
-                      "tail_bwd_mma_kernel", "gate_bwd_mma_kernel", "inproj_bwd_mma_kernel")
-PTXAS_KERNEL_SOURCES = ("attention.cu", "attention_bwd.cu", "fused_layer_bwd.cu",
-                        "fused_layer_last_bwd.cu", "fused_layer_chunked_bwd.cu",
-                        "fused_bdlru_bwd.cu")
+                      "tail_bwd_mma_kernel", "gate_bwd_mma_kernel", "inproj_bwd_mma_kernel",
+                      "phase_a_mma_kernel", "tail_mma_kernel")
+PTXAS_KERNEL_SOURCES = ("attention.cu", "attention_bwd.cu", "fused_layer.cu",
+                        "fused_layer_last.cu", "fused_layer_chunked.cu", "fused_bdlru.cu",
+                        "fused_layer_bwd.cu", "fused_layer_last_bwd.cu",
+                        "fused_layer_chunked_bwd.cu", "fused_bdlru_bwd.cu")
 
 
 def ptxas_kernels(src, log):
@@ -630,10 +660,12 @@ def training_kernels_vs_plain(dev):
             xd, dout1, dout2 = x.to(dt), d1.to(dt), d2.to(dt)
             seed = 1234567 + int(p * 10)
             out1, saved1 = FL.fused_recurrent_layer_train(xd, p1, True, True, True, p, seed)
+            fwd_rerun1 = FL.fused_recurrent_layer_train(xd, p1, True, True, True, p, seed)
             dx1, g1 = FL.fused_recurrent_layer_bwd(xd, dout1, p1, True, True, True, p, seed,
                                                    saved=saved1)
             out2, saved2 = FL.fused_recurrent_layer_last_train(xd, lens, p2, True, True, p,
                                                                seed)
+            fwd_rerun2 = FL.fused_recurrent_layer_last_train(xd, lens, p2, True, True, p, seed)
             dx2, g2 = FL.fused_recurrent_layer_last_bwd(xd, lens, dout2, p2, True, True, p,
                                                         seed, saved=saved2)
             rerun1 = FL.fused_recurrent_layer_bwd(xd, dout1, p1, True, True, True, p, seed,
@@ -646,10 +678,18 @@ def training_kernels_vs_plain(dev):
                 a, lens, q, True, True, p, seed), xd, p2, dout2)
             torch.cuda.synchronize()
             tag = dict(dtype=str(dt).split(".")[-1], p=p)
+            # a forward rerun: the output and, for K1, the whole stash (K2's
+            # holds only the positions below each length)
+            fwd_same = {
+                "fused_recurrent_layer": torch.equal(fwd_rerun1[0], out1) and all(
+                    torch.equal(a, b) for a, b in zip(fwd_rerun1[1], saved1)),
+                "fused_recurrent_layer_last": torch.equal(fwd_rerun2[0], out2),
+            }
             for name, out, dx, grads, (wout, wdx, wgrads), rerun in (
                 ("fused_recurrent_layer", out1, dx1, g1, want1, rerun1),
                 ("fused_recurrent_layer_last", out2, dx2, g2, want2, rerun2),
             ):
+                check(fwd_same[name], f"{name} fwd {tag}: a rerun changed a bit")
                 same = torch.equal(rerun[0], dx) and all(
                     torch.equal(rerun[1][k], v) for k, v in grads.items())
                 check(same, f"{name} bwd {tag}: a rerun changed a bit")
@@ -666,7 +706,7 @@ def training_kernels_vs_plain(dev):
                       rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
                       tol=f"max|err|/max|plain| <= {GRAD_RTOL}"
                           + (" (bf16 dx: + 2^-7*|plain|)" if dt == torch.bfloat16 else ""),
-                      rerun_bits_equal=same, ok=ok)
+                      rerun_bits_equal=same, fwd_rerun_bits_equal=fwd_same[name], ok=ok)
                 check(ok, f"{name} bwd {tag}: kernel disagrees with its plain version")
                 if dt == torch.float32:
                     # max |kernel - plain|: the output, then dx and every grad
@@ -1367,6 +1407,8 @@ def train_profile(trainer, batch_of, dtype_name, prefix, steps=5):
           device_ms_per_step=f"{busy_us / steps / 1e3:.3f}" if kernels else "not measured",
           device_busy_share=f"{busy_us / wall_us:.3f}" if kernels else "not measured",
           top=repr([(e.key[:48], round(e.self_device_time_total / steps, 1)) for e in top]))
+    for name in FWD_MMA_REQUIRED.get(prefix, ()):
+        check(any(name in e.key for e in kernels), f"{prefix}: no {name} in the profile")
 
 
 def fit_phase(dev, name="RecBLR"):
@@ -1414,20 +1456,10 @@ def _bwd_flops_k1(b, t):
     return b * t * 3 * fwd_mm, b * t * 6 * K * C
 
 
-def _bwd_bound(mm, fma, nbytes, priced_fma):
-    """_bound of a RecBLR layer backward: its products ``mm`` on the
-    tensor cores as 3xTF32 (three TF32 products each, fp32 math whatever
-    x's dtype), the rest ``fma`` on the fp32 pipe; ``priced_fma``: every
-    product at the fp32 FMA peak (the FMA-priced bound, kept beside it)."""
-    if priced_fma:
-        return _bound(mm + fma, nbytes)
-    return _bound(fma, nbytes, 0, 3 * mm)
-
-
 def k1_bwd_bound_ms(b, t, p, act_bytes, priced_fma=False):
     # x, dout and dx [B, T, D]; the stashed alpha and h [B, T, C] fp32
     nbytes = b * t * (3 * D * act_bytes + 2 * C * 4) + 2 * _params_bytes(p)
-    return _bwd_bound(*_bwd_flops_k1(b, t), nbytes, priced_fma)
+    return _recblr_bound(*_bwd_flops_k1(b, t), nbytes, priced_fma)
 
 
 def k2_bwd_bound_ms(lens, t, p, act_bytes, priced_fma=False):
@@ -1441,7 +1473,7 @@ def k2_bwd_bound_ms(lens, t, p, act_bytes, priced_fma=False):
           + b * 3 * (2 * D * C + 2 * C * D + 4 * D * FF))
     nbytes = (positions * (D * act_bytes + 2 * C * 4) + b * t * D * act_bytes
               + b * D * act_bytes + b * 4 + 2 * _params_bytes(p))
-    return _bwd_bound(mm, positions * 6 * K * C, nbytes, priced_fma)
+    return _recblr_bound(mm, positions * 6 * K * C, nbytes, priced_fma)
 
 
 def training_kernel_times(dev):
@@ -1499,7 +1531,9 @@ def training_kernel_times(dev):
         }
         fma = {"fused_recurrent_layer_bwd": k1_bwd_bound_ms(b, T, p1, 4, priced_fma=True),
                "fused_recurrent_layer_last_bwd": k2_bwd_bound_ms(lens.cpu(), T, p2, 4,
-                                                                 priced_fma=True)}
+                                                                 priced_fma=True),
+               "fused_recurrent_layer": k1_bound_ms(b, T, p1, 4, priced_fma=True),
+               "fused_recurrent_layer_last": k2_bound_ms(lens.cpu(), p2, 4, priced_fma=True)}
         for name, ms in times.items():
             bound, flops, by = bounds[name]
             phase("kernel-time", kernel=name, B=b, T=T, dtype="float32", p=DROPOUT,
@@ -1651,6 +1685,40 @@ def serving(dev, name, dtype_name, xlong=False, path=None):
     return out
 
 
+def topk_times(dev, users=B):
+    """C6's top-k at XLong's catalog (``users`` rows of V 329,728 fp32
+    scores), CUDA-event medians of three designs: the port's
+    ``topk_scores`` (``torch.topk`` over 2k, then a stable re-sort of the
+    candidates), a stable descending sort of the whole row cut to k, and
+    ``torch.topk`` alone (no tie order: what ``recommend`` ran before C6).
+    Two inputs: scores as ``recommend`` gives them (random, each row's
+    history and the padded ids at -inf) and integer scores in [-3, 3]
+    (every row a run of ties longer than 2k: ``topk_scores``' full-row
+    fallback).  The two tie-ordered designs must give the same ids."""
+    from datamining_recblr_torch.ops.topk import _order_keys, topk_scores
+
+    def full_sort(s, k):
+        ids = _order_keys(s).sort(dim=-1, descending=True, stable=True).indices[:, :k]
+        return s.gather(-1, ids), ids
+
+    vp = -(-XV // 2048) * 2048
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    served = torch.randn((users, vp), generator=gen, device=dev)
+    served[:, XV:] = -torch.inf
+    hist = torch.randint(1, XV, (users, XMAX_LEN), generator=gen, device=dev)
+    served.scatter_(1, hist, -torch.inf)
+    tied = torch.randint(-3, 4, (users, vp), generator=gen, device=dev).float()
+    for name, s in (("served", served), ("ties", tied)):
+        ids = topk_scores(s, TOP_K)[1]
+        check(torch.equal(ids, full_sort(s, TOP_K)[1]),
+              f"topk_scores and the stable full sort disagree on {name} scores")
+        ms = {d: time_ms(lambda f=f: f(s, TOP_K))
+              for d, f in (("topk_resort", topk_scores), ("stable_sort", full_sort),
+                           ("torch_topk", lambda a, k: torch.topk(a, k, dim=-1)))}
+        phase("topk-time", scores=name, B=users, V=vp, k=TOP_K,
+              **{f"{d}_ms": f"{v:.4f}" for d, v in ms.items()})
+
+
 def serve_profile(rec, batch, prefix, dtype_name, calls=5):
     """Device time by kernel over a few recommend() calls (torch.profiler,
     CUPTI), and the device's busy share of the profiled wall time (the
@@ -1672,6 +1740,8 @@ def serve_profile(rec, batch, prefix, dtype_name, calls=5):
           device_ms_per_call=f"{busy_us / calls / 1e3:.3f}" if kernels else "not measured",
           device_busy_share=f"{busy_us / wall_us:.3f}" if kernels else "not measured",
           top=repr([(e.key[:48], round(e.self_device_time_total / calls, 1)) for e in top]))
+    for name in FWD_MMA_REQUIRED.get(prefix, ()):
+        check(any(name in e.key for e in kernels), f"{prefix}: no {name} in the profile")
 
 
 def kernel_times(dev, p1, p2, lens):
@@ -1684,13 +1754,15 @@ def kernel_times(dev, p1, p2, lens):
         k1p = time_ms(lambda: FL.fused_recurrent_layer_plain(x, p1, prologue=True), reps=10)
         k2 = time_ms(lambda: FL.fused_recurrent_layer_last(x, ln, p2))
         k2p = time_ms(lambda: FL.fused_recurrent_layer_last_plain(x, ln, p2), reps=10)
+        fma = {"fused_recurrent_layer": k1_bound_ms(b, T, p1, 4, priced_fma=True),
+               "fused_recurrent_layer_last": k2_bound_ms(ln.cpu(), p2, 4, priced_fma=True)}
         for name, ms, plain, (bound, flops, by) in (
             ("fused_recurrent_layer", k1, k1p, k1_bound_ms(b, T, p1, 4)),
             ("fused_recurrent_layer_last", k2, k2p, k2_bound_ms(ln.cpu(), p2, 4)),
         ):
             phase("kernel-time", kernel=name, B=b, T=T, dtype="float32", ms=f"{ms:.4f}",
                   plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}",
-                  bound_by=by, share_of_bound=f"{bound / ms:.4f}")
+                  bound_by=by, share_of_bound=f"{bound / ms:.4f}", **_fma_field(fma, name))
             rows[(name, b)] = (ms, plain, bound, by)
     return rows
 
@@ -2631,13 +2703,65 @@ def recblr_bwd_phase_times(dev, calls=10):
               x, d1, rec, p1, *args), RECBLR_BWD_PHASES[name], calls, RECBLR_MMA_KERNELS))
 
 
-def chunked_bound_ms(b, t, p, act_bytes):
+# rows 1, 3, 9 and 8's forwards by phase: the kernels their entry points
+# launch (names as substrings, the parent's FMA kernels included)
+RECBLR_FWD_PHASES = {
+    "fused_recurrent_layer": (("A", "phase_a"), ("scan", "linear_scan"), ("tail", "tail_")),
+    "fused_recurrent_layer_last": (("A", "phase_a"), ("scan", "scan_last"), ("tail", "tail_")),
+    "fused_recurrent_layer_chunked": (("A", "phase_a"), ("B1", "chunk_state"),
+                                      ("B2", "chunk_scan"), ("tail", "tail_")),
+    "fused_bdlru": (("A", "phase_a"), ("scan", "linear_scan")),
+}
+
+
+def recblr_fwd_phase_times(dev, calls=10):
+    """Rows 1 and 3 at the bench training shape (B 2,048, T 200, p 0.2,
+    the forward that keeps the stash; fp32 and bf16), row 9 at XLong (B
+    512, T 1,024, bf16) and row 8 at longodd (B 512, T 1,020, C 128, bf16)
+    by phase: the CUDA-event time of a call beside each phase's device ms
+    per call, its share and the device total, from torch.profiler.  Fails
+    unless phase A and the tail ran their tensor-core kernels (row 8:
+    phase A)."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    p1 = layer_params(gen, dev, prologue=True)
+    p2 = layer_params(gen, dev, prologue=False)
+    x = torch.randn((TRAIN_B, T, D), generator=gen).to(dev)
+    lens = torch.randint(2, T + 1, (TRAIN_B,), generator=gen).to(dev)
+    seed = 4242
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        calls_of = {
+            "fused_recurrent_layer": lambda: FL.fused_recurrent_layer_train(
+                xd, p1, True, True, True, DROPOUT, seed),
+            "fused_recurrent_layer_last": lambda: FL.fused_recurrent_layer_last_train(
+                xd, lens, p2, True, True, DROPOUT, seed),
+        }
+        for name, call in calls_of.items():
+            phase("kernel-time-phase", kernel=name, B=TRAIN_B, T=T,
+                  dtype=str(dt).replace("torch.", ""), p=DROPOUT,
+                  **_phase_times(call, RECBLR_FWD_PHASES[name], calls, RECBLR_FWD_MMA))
+    del x
+    x = torch.randn((XB, XT, D), generator=gen).to(dev, torch.bfloat16)
+    name = "fused_recurrent_layer_chunked"
+    phase("kernel-time-phase", kernel=name, shape="xlong", B=XB, T=XT, dtype="bfloat16",
+          p=DROPOUT, **_phase_times(lambda: FLC.fused_recurrent_layer_chunked_train(
+              x, p1, True, True, True, DROPOUT, seed), RECBLR_FWD_PHASES[name], calls,
+              RECBLR_FWD_MMA))
+    del x
+    pb = bdlru_params(gen, dev)
+    xb = torch.randn((XB, LT, C), generator=gen).to(dev, torch.bfloat16)
+    phase("kernel-time-phase", kernel="fused_bdlru", shape="longodd", B=XB, T=LT, C=C,
+          dtype="bfloat16", **_phase_times(lambda: FBD.fused_bdlru(xb, *pb.values()),
+                                           RECBLR_FWD_PHASES["fused_bdlru"], calls,
+                                           RECBLR_FWD_MMA[:1]))
+
+
+def chunked_bound_ms(b, t, p, act_bytes, priced_fma=False):
     # K1's operations; x read and out written once, the params, the record
     # [B, T / chunk, 8, C] fp32 written
-    bound, flops, _ = k1_bound_ms(b, t, p, act_bytes)
     nbytes = (2 * b * t * D * act_bytes + _params_bytes(p)
               + b * (t // FLC.pick_chunk(t)) * FLC.REC_ROWS * C * 4)
-    return _bound(flops, nbytes)
+    return _recblr_bound(b * t * K1_MM, b * t * K1_REST, nbytes, priced_fma)
 
 
 def chunked_bwd_bound_ms(b, t, p, act_bytes, priced_fma=False):
@@ -2646,7 +2770,7 @@ def chunked_bwd_bound_ms(b, t, p, act_bytes, priced_fma=False):
     # and their grads written
     nbytes = (3 * b * t * D * act_bytes + b * (t // FLC.pick_chunk(t)) * FLC.REC_ROWS * C * 4
               + 2 * _params_bytes(p))
-    return _bwd_bound(*_bwd_flops_k1(b, t), nbytes, priced_fma)
+    return _recblr_bound(*_bwd_flops_k1(b, t), nbytes, priced_fma)
 
 
 def emb_grad_bound_ms(n, v, g_bytes, id_bytes=8):
@@ -2761,7 +2885,9 @@ def xlong_kernel_times(dev):
     fma = {"fused_recurrent_layer_chunked_bwd": chunked_bwd_bound_ms(XB, XT, p1, 2,
                                                                      priced_fma=True),
            "fused_recurrent_layer_last_bwd": k2_bwd_bound_ms(lens.cpu(), XT, p2, 2,
-                                                             priced_fma=True)}
+                                                             priced_fma=True),
+           "fused_recurrent_layer_chunked": chunked_bound_ms(XB, XT, p1, 2, priced_fma=True),
+           "fused_recurrent_layer_last": k2_bound_ms(lens.cpu(), p2, 2, t=XT, priced_fma=True)}
     rows = {}
     for name, ms in times.items():
         bound, flops, by = bounds[name]
@@ -3162,19 +3288,20 @@ def scan_bound_ms(b, t, c):
     return _bound(2 * b * t * c, 3 * b * t * c * 4)
 
 
-def bdlru_bound_ms(b, t, c, p, act_bytes):
-    # per position the gate product (2 C x 2C), the conv (2 K C) and the
-    # scan (2 C); x read and h written once, the params read
-    flops = b * t * (2 * c * 2 * c + 2 * K * c + 2 * c)
-    return _bound(flops, 2 * b * t * c * act_bytes + _params_bytes(p))
+def bdlru_bound_ms(b, t, c, p, act_bytes, priced_fma=False):
+    # per position the gate product (2 C x 2C, on the tensor cores), the
+    # conv (2 K C) and the scan (2 C); x read and h written once, the
+    # params read
+    return _recblr_bound(b * t * 2 * c * 2 * c, b * t * (2 * K * c + 2 * c),
+                         2 * b * t * c * act_bytes + _params_bytes(p), priced_fma)
 
 
 def bdlru_bwd_bound_ms(b, t, c, p, act_bytes, priced_fma=False):
     # the gate product recomputed and its two gradient products (on the
     # tensor cores), the conv and its two gradients, both scans; x, dh read
     # and dx written, the params read and their grads written
-    return _bwd_bound(b * t * 3 * 2 * c * 2 * c, b * t * (6 * K * c + 4 * c),
-                      3 * b * t * c * act_bytes + 2 * _params_bytes(p), priced_fma)
+    return _recblr_bound(b * t * 3 * 2 * c * 2 * c, b * t * (6 * K * c + 4 * c),
+                         3 * b * t * c * act_bytes + 2 * _params_bytes(p), priced_fma)
 
 
 def slice_kernel_times(dev):
@@ -3266,7 +3393,8 @@ def slice_kernel_times(dev):
             del out, xl, ql
         else:
             plain = plain_bwd = None
-        emit("fused_bdlru", ms, plain, bdlru_bound_ms(XB, LT, C, p, act), None, **shape)
+        emit("fused_bdlru", ms, plain, bdlru_bound_ms(XB, LT, C, p, act), None,
+             fma=bdlru_bound_ms(XB, LT, C, p, act, priced_fma=True), **shape)
         emit("fused_bdlru_bwd", ms_bwd, plain_bwd, bdlru_bwd_bound_ms(XB, LT, C, p, act), None,
              fma=bdlru_bwd_bound_ms(XB, LT, C, p, act, priced_fma=True), **shape)
     return rows
@@ -3815,6 +3943,7 @@ def main():
     serve = {(name, dt): serving(dev, name, dt)
              for name in SERVED for dt in ("float32", "bfloat16")}
     xserve = serving(dev, "RecBLR", "bfloat16", xlong=True)
+    topk_times(dev)
     train = {(name, dt): train_step_phase(dev, dt, name)
              for name in TRAINED for dt in ("float32", "bfloat16")}
     xtrain = {dt: xlong_train_phase(dev, dt) for dt in ("float32", "bfloat16")}
@@ -3850,6 +3979,7 @@ def main():
     xlong_rows = xlong_kernel_times(dev)
     row14_bwd_phase_times(dev)
     recblr_bwd_phase_times(dev)
+    recblr_fwd_phase_times(dev)
     slice_rows = slice_kernel_times(dev)
     row15_rows = row15_kernel_times(dev)
     row15_phase_times(dev)

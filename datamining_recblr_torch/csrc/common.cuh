@@ -1,17 +1,18 @@
 // Shared device code of the RecBLR recurrent-layer kernels
-// (fused_layer.cu, fused_layer_last.cu and, through common_bwd.cuh,
-// their backwards).
+// (fused_layer.cu, fused_layer_last.cu, fused_layer_chunked.cu,
+// fused_bdlru.cu, their backwards, and what the other kernels borrow).
 //
-// Each layer forward runs in three hand-written phases, all fp32 inside:
+// Each layer forward runs in three hand-written phases:
 //   A  per (row, time tile): [prologue LN] -> xb = x @ W_in[:, :C] ->
 //      causal conv + SiLU -> gates matmul -> alpha, beta*xc to scratch
 //   B  the BD-LRU scan, one thread per (row, channel), serial over T
 //   C  per tile of positions: z = x @ W_in[:, C:] -> silu(z)*h @ W_out ->
 //      LN1 residual -> SiLU FFN -> LN2 residual
-// Matmuls are fp32 FMA from shared memory (no TF32), so the kernels
-// agree with the plain fp32 versions to rounding.  The work outside
-// the scan is per time step apart from the conv's (K-1)-step halo,
-// which phase A recomputes from x at the tile's left edge.
+// Phases A and C are layer_fwd.cuh's (their products on the tensor cores
+// at fp32 accuracy); the scans of phase B, the layer's parameters, the
+// Philox masks and the fp32 helpers are here.  The work outside the scan
+// is per time step apart from the conv's (K-1)-step halo, which phase A
+// recomputes from x at the tile's left edge.
 //
 // Dropout masks are counter-based Philox4x32-10 draws (ops/philox.py is
 // the plain version): the key is the call's 64-bit seed and the counter
@@ -29,10 +30,9 @@ namespace recblr {
 constexpr float LN_EPS = 1e-12f;    // LayerNorm eps of the reference model
 constexpr float GATE_EPS = 1e-8f;   // beta = sqrt(1 - a^2 + eps) * sigmoid(i)
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int TT = 32;              // positions per block in phases A and C
+constexpr int TT = 32;              // positions a tile of phase A and of the gate backward
 constexpr int THREADS = 256;        // threads per block in phases A and C
 constexpr int SCAN_THREADS = 128;
-constexpr int RM = 8;               // output rows per thread in block_matmul
 
 // Parameter pointers in the order of the host-side array (all fp32).
 struct LayerParams {
@@ -157,41 +157,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// out[m, n] = sum_k a[m, k] * w[k, n] (+ bias[n]) for m < M, n < N
-// (ACC: out[m, n] += that sum).  a lives in shared memory with row
-// stride lda and must have ceil(M / RM) * RM readable rows; w is global
-// with row stride ldw.  Each thread keeps RM accumulators for one
-// column, so a warp reads one broadcast value of `a` and 32 consecutive
-// weights per step.
-template <bool ACC = false>
-__device__ void block_matmul(const float* __restrict__ a, int lda, int M, int K,
-                             const float* __restrict__ w, int ldw, int N,
-                             const float* __restrict__ bias,
-                             float* __restrict__ out, int ldo) {
-  const int mblocks = (M + RM - 1) / RM;
-  for (int idx = threadIdx.x; idx < mblocks * N; idx += blockDim.x) {
-    const int n = idx % N;
-    const int m0 = (idx / N) * RM;
-    float acc[RM];
-#pragma unroll
-    for (int r = 0; r < RM; ++r) acc[r] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float wv = __ldg(w + (size_t)k * ldw + n);
-#pragma unroll
-      for (int r = 0; r < RM; ++r) acc[r] = fmaf(a[(m0 + r) * lda + k], wv, acc[r]);
-    }
-    const float b = bias ? __ldg(bias + n) : 0.f;
-#pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      if (m0 + r >= M) continue;
-      if (ACC)
-        out[(m0 + r) * ldo + n] += acc[r] + b;
-      else
-        out[(m0 + r) * ldo + n] = acc[r] + b;
-    }
-  }
-}
-
 // v[m, :D] <- LN(v[m, :D]) * s + b for m < M, one warp per row.
 __device__ void block_layernorm(float* v, int ld, int M, int D,
                                 const float* __restrict__ s,
@@ -218,207 +183,11 @@ __device__ void block_layernorm(float* v, int ld, int M, int D,
 // K <= 8, the JAX package's bound (fused_layer_chunked.py:380).
 constexpr int REC_ROWS = 8;
 
-// The conv halo is sized at run time.  Phase A and the gate backward hold
-// the tile's TT + K - 1 rows of x (xs_rows: rounded up to RM, since
-// block_matmul reads whole groups of RM rows) and of xb (xb_rows).  The
-// layer kernels and the standalone BD-LRU take K <= 64
-// (ops/fused_layer.py, ops/fused_bdlru.py MAX_K); the largest sum there
-// is the gate backward's at D = C = 128, K = 64: (96 + 95 + 6 * 32) rows
-// * 128 * 4 bytes = 196,096 bytes, within the 227 KB a block may hold.
-inline __host__ __device__ int xs_rows(int K) { return (TT + K - 1 + RM - 1) / RM * RM; }
+// Rows of x and of xb a phase-A or gate-backward tile holds: its TT
+// positions and the conv's K - 1 halo rows, sized at run time.  The layer
+// kernels and the standalone BD-LRU take K <= 64 (ops/fused_layer.py,
+// ops/fused_bdlru.py MAX_K).
 inline __host__ __device__ int xb_rows(int K) { return TT + K - 1; }
-
-inline size_t phase_a_smem_bytes(int D, int C, int K) {
-  return sizeof(float) * ((size_t)xs_rows(K) * D + (size_t)xb_rows(K) * C + (size_t)TT * C +
-                          (size_t)TT * 2 * C);
-}
-
-// Phase A.  Block (b, tile): positions t0 .. t_end-1 of row b.  Writes
-// alpha and beta*xc [B, T, C] fp32.  With `lens`, tiles at or beyond
-// row b's valid length are skipped: the last-position layer reads the
-// scan only below it.  XB: x is xb itself, [B, T, C] (the standalone
-// BD-LRU of fused_bdlru.cu: no in-projection, no prologue; D = 0).
-template <typename Tin, bool XB = false>
-__global__ void __launch_bounds__(THREADS)
-phase_a_kernel(const Tin* __restrict__ x, const int* __restrict__ lens, LayerParams p,
-               Dropout dr, float* __restrict__ alpha_out, float* __restrict__ bx_out,
-               int T, int D, int C, int K, int use_conv, int prologue,
-               float* __restrict__ tail_out = nullptr, int chunk = 0) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int t0 = blockIdx.y * TT;
-  int t_end = min(t0 + TT, T);
-  if (lens != nullptr) t_end = min(t_end, valid_len(lens[b], T));
-  if (t0 >= t_end) return;
-  const int H = use_conv ? K - 1 : 0;
-  const int rows = t_end - t0;
-  const int rows_h = rows + H;
-  float* xs = smem;               // [xs_rows(K), D]  x rows t0-H .. t_end-1
-  float* xb = xs + xs_rows(K) * D;  // [xb_rows(K), C]  x @ W_in[:, :C] on those rows
-  float* xc = xb + xb_rows(K) * C;  // [TT, C]   silu(conv(xb))
-  float* g = xc + TT * C;       // [TT, 2C]  gates pre-activation
-
-  if (XB) {
-    for (int i = threadIdx.x; i < rows_h * C; i += blockDim.x) {
-      const int t = t0 - H + i / C;
-      xb[i] = t >= 0 ? load_act(x, ((size_t)b * T + t) * C + i % C) : 0.f;
-    }
-    __syncthreads();
-  } else {
-    for (int i = threadIdx.x; i < rows_h * D; i += blockDim.x) {
-      const int r = i / D, d = i % D;
-      const int t = t0 - H + r;
-      float v = 0.f;
-      if (t >= 0) {
-        v = load_act(x, ((size_t)b * T + t) * D + d);
-        if (prologue) v *= drop_mask(dr, M0, b, t, d);
-      }
-      xs[i] = v;
-    }
-    __syncthreads();
-    if (prologue) {
-      block_layernorm(xs, D, rows_h, D, p.pl_s, p.pl_b);
-      __syncthreads();
-    }
-    block_matmul(xs, D, rows_h, D, p.w_in, 2 * C, C, nullptr, xb, C);
-    __syncthreads();
-    if (tail_out != nullptr) {
-      // the chunked layer's record: the last K-1 xb rows of chunk j are rows
-      // 1 .. K-1 of chunk j + 1's REC_ROWS rows
-      const int nc = T / chunk;
-      for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-        const int r = i / C, c = i % C, t = t0 + r;
-        const int j = t / chunk, q = t % chunk - (chunk - (K - 1));
-        if (q >= 0 && j + 1 < nc)
-          tail_out[(((size_t)b * nc + j + 1) * REC_ROWS + 1 + q) * C + c] = xb[(r + H) * C + c];
-      }
-    }
-  }
-
-  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const int r = i / C, c = i % C;
-    float v;
-    if (use_conv) {
-      // u[t] = x[t]*wc[K-1] + bc + sum_{j>=1} x[t-j]*wc[K-1-j], zero history
-      const int rr = r + H;
-      float u = xb[rr * C + c] * p.wc[(K - 1) * C + c] + p.bc[c];
-      for (int j = 1; j < K; ++j) {
-        const float xv = (t0 + r - j >= 0) ? xb[(rr - j) * C + c] : 0.f;
-        u += xv * p.wc[(K - 1 - j) * C + c];
-      }
-      v = silu_t(u);
-    } else {
-      v = xb[r * C + c];
-    }
-    xc[i] = v;
-  }
-  __syncthreads();
-  block_matmul(xc, C, rows, C, p.wg, 2 * C, 2 * C, p.bg, g, 2 * C);
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const int r = i / C, c = i % C;
-    const float sr = sigmoid_t(g[r * 2 * C + c]);
-    const float si = sigmoid_t(g[r * 2 * C + C + c]);
-    const float a = exp_t(-softplus_t(p.lam[c]) * sr);
-    const float beta = sqrtf(1.f - a * a + GATE_EPS) * si;
-    const size_t o = ((size_t)b * T + t0 + r) * C + c;
-    alpha_out[o] = a;
-    bx_out[o] = beta * xc[i];
-  }
-}
-
-inline size_t tail_smem_bytes(int D, int C, int F) {
-  return sizeof(float) * (size_t)TT * (2 * D + C + F);
-}
-
-// Phase C.  LAST = false: block (b, tile) covers positions t0.. of row
-// b, h is [B, T, C], out is [B, T, D].  LAST = true: block (tile) covers
-// batch rows b0.., each at its last valid position (x_last = 0 and
-// h_last = 0 where nothing is selected), h is [B, C], out is [B, D].
-template <typename Tin, bool LAST>
-__global__ void __launch_bounds__(THREADS)
-tail_kernel(const Tin* __restrict__ x, const int* __restrict__ lens,
-            const float* __restrict__ h, Tin* __restrict__ out, LayerParams p, Dropout dr,
-            int B, int T, int D, int C, int F, int use_ffn, int prologue) {
-  extern __shared__ float smem[];
-  float* xs = smem;            // [TT, D]  layer input (post-prologue); later f2
-  float* zs = xs + TT * D;     // [TT, C]  z, then silu(z) * h
-  float* ys = zs + TT * C;     // [TT, D]  y, then r1 = LN1(y + x)
-  float* a1 = ys + TT * D;     // [TT, F]  silu(r1 @ W1 + b1)
-  int b = blockIdx.x, t0 = 0, rows;
-  if (LAST) {
-    t0 = blockIdx.x * TT;  // first batch row of the tile
-    rows = min(TT, B - t0);
-  } else {
-    t0 = blockIdx.y * TT;
-    rows = min(TT, T - t0);
-  }
-
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    float v;
-    if (LAST) {
-      const int n = valid_len(lens[t0 + r], T);
-      v = n > 0 ? load_act(x, ((size_t)(t0 + r) * T + n - 1) * D + d) : 0.f;
-    } else {
-      v = load_act(x, ((size_t)b * T + t0 + r) * D + d);
-      if (prologue) v *= drop_mask(dr, M0, b, t0 + r, d);
-    }
-    xs[i] = v;
-  }
-  __syncthreads();
-  if (prologue) {
-    block_layernorm(xs, D, rows, D, p.pl_s, p.pl_b);
-    __syncthreads();
-  }
-  block_matmul(xs, D, rows, D, p.w_in + C, 2 * C, C, nullptr, zs, C);
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const int r = i / C, c = i % C;
-    const size_t ho = LAST ? (size_t)(t0 + r) * C + c : ((size_t)b * T + t0 + r) * C + c;
-    zs[i] = silu_t(zs[i]) * h[ho];
-  }
-  __syncthreads();
-  block_matmul(zs, C, rows, C, p.w_out, D, D, nullptr, ys, D);
-  __syncthreads();
-  // the masks of the last-position layer are [B, 1, .]: row t0 + r, position 0
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    const float m = LAST ? drop_mask(dr, M1, t0 + r, 0, d) : drop_mask(dr, M1, b, t0 + r, d);
-    ys[i] = ys[i] * m + xs[i];
-  }
-  __syncthreads();
-  block_layernorm(ys, D, rows, D, p.ln1_s, p.ln1_b);
-  __syncthreads();
-  const float* res = ys;
-  if (use_ffn) {
-    block_matmul(ys, D, rows, D, p.w1, F, F, p.b1, a1, F);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * F; i += blockDim.x) {
-      const int r = i / F, f = i % F;
-      const float m = LAST ? drop_mask(dr, M2, t0 + r, 0, f) : drop_mask(dr, M2, b, t0 + r, f);
-      a1[i] = silu_t(a1[i]) * m;
-    }
-    __syncthreads();
-    block_matmul(a1, F, rows, F, p.w2, D, D, p.b2, xs, D);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-      const int r = i / D, d = i % D;
-      const float m = LAST ? drop_mask(dr, M3, t0 + r, 0, d) : drop_mask(dr, M3, b, t0 + r, d);
-      xs[i] = xs[i] * m + ys[i];
-    }
-    __syncthreads();
-    block_layernorm(xs, D, rows, D, p.ln2_s, p.ln2_b);
-    __syncthreads();
-    res = xs;
-  }
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    const size_t o = LAST ? (size_t)(t0 + r) * D + d : ((size_t)b * T + t0 + r) * D + d;
-    store_act(out, o, res[i]);
-  }
-}
 
 // The linear scan, in either direction, any C.  Forward h_t = g_t
 // h_{t-1} + x_t from t = 0; REV h_t = g'_t h_{t+1} + x_t from t = T-1,

@@ -7,7 +7,7 @@
 // do not (T beyond 512 with no chunk, or with d_conv beyond 8 there).  It is the
 // recurrent layer kernel's (fused_layer.cu) phases A and B without the
 // in-projection and the tail:
-//   A  phase_a_kernel<Tin, XB = true> (common.cuh), per (row, tile of 32
+//   A  phase_a_mma_kernel<Tin, XB = true> (layer_fwd.cuh), per (row, tile of 32
 //      positions): xb rows with the conv's K-1 halo (sized to K at run
 //      time, as in the layer kernels) -> conv + SiLU -> xc @ W_g + b_g ->
 //      alpha, beta*xc [B, T, C] fp32 to scratch
@@ -17,14 +17,15 @@
 // parameters fp32, as the TPU kernel.
 //
 // What bounds it: the gate product, 4 C^2 FLOP per position (34.2 GFLOP
-// at B 512, T 1,020, C 128: 0.51 ms at the fp32 peak) against 2 C
-// activations per position of traffic, so fp32 operations.  The product
-// runs as fp32 FMA from shared memory (block_matmul, no tensor cores),
-// with W_g read from L1/L2; only alpha and beta*xc (8 C bytes a
-// position) go through device memory between the two phases.
+// at B 512, T 1,020, C 128: 0.21 ms as 3xTF32 at 495 TFLOP/s) against
+// 2 C activations per position of traffic, so operations.  The product
+// runs on the tensor cores as 3xTF32, xc split once into shared memory,
+// W_g read from L1/L2 (layer_fwd.cuh mm_planes); only alpha and beta*xc
+// (8 C bytes a position) go through device memory between the two
+// phases.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
-#include "common.cuh"
+#include "layer_fwd.cuh"
 
 using namespace recblr;
 
@@ -33,14 +34,9 @@ namespace {
 template <typename Tin>
 cudaError_t bdlru_fwd(const Tin* x, LayerParams p, float* alpha, float* bx, Tin* h, int B, int T,
                       int C, int K, int use_conv, cudaStream_t stream) {
-  const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(0, C, K);
-  cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<Tin, true>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
+  cudaError_t e = launch_phase_a<Tin, true>(x, nullptr, p, make_dropout(0, 0, 0, 1.f), alpha,
+                                            bx, B, T, 0, C, K, use_conv, 0, stream);
   if (e != cudaSuccess) return e;
-  phase_a_kernel<Tin, true><<<dim3(B, tiles), THREADS, sa, stream>>>(
-      x, nullptr, p, make_dropout(0, 0, 0, 1.f), alpha, bx, T, 0, C, K, use_conv, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   linear_scan_kernel<false, float, Tin>
       <<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(alpha, bx, h, B,
                                                                                 T, C, 0);

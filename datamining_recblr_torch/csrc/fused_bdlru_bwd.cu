@@ -6,7 +6,8 @@
 // fused_bdlru).  It recomputes the forward from x, then runs the
 // recurrent layer backward's middle (common_bwd.cuh) without the
 // in-projection and the tail:
-//   A   phase_a_kernel<Tin, XB = true> and linear_scan_kernel: alpha and h
+//   A   phase_a_mma_kernel<Tin, XB = true> (layer_fwd.cuh) and
+//       linear_scan_kernel: alpha and h
 //       [B, T, C] fp32, recomputed (nothing is kept by the forward)
 //   B'  linear_scan_kernel in reverse on shift_left(alpha): d_states =
 //       reverse_scan(shift_left(alpha), dh)
@@ -30,6 +31,7 @@
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "common_bwd.cuh"
+#include "layer_fwd.cuh"
 
 using namespace recblr;
 
@@ -60,11 +62,9 @@ cudaError_t bdlru_bwd(const Tin* x, const Tin* dh, LayerParams p, LayerParamsT q
   cudaError_t e;
   const Dropout off = make_dropout(0, 0, 0, 1.f);
   const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(0, C, K);
-  if ((e = set_smem(phase_a_kernel<Tin, true>, sa)) != cudaSuccess) return e;
-  phase_a_kernel<Tin, true><<<dim3(B, tiles), THREADS, sa, stream>>>(
-      x, nullptr, p, off, alpha, h, T, 0, C, K, use_conv, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  e = launch_phase_a<Tin, true>(x, nullptr, p, off, alpha, h, B, T, 0, C, K, use_conv, 0,
+                                stream);
+  if (e != cudaSuccess) return e;
   const int sblocks = (B * C + SCAN_THREADS - 1) / SCAN_THREADS;
   linear_scan_kernel<false, float, float><<<sblocks, SCAN_THREADS, 0, stream>>>(alpha, h, h, B, T,
                                                                                 C, 0);

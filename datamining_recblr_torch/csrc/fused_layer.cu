@@ -3,20 +3,20 @@
 // Replaces the TPU kernel datamining_recblr_tpu/ops/fused_layer.py:
 // _fwd_kernel (reached through _layer_fwd / fused_recurrent_layer), with
 // the embedding LN prologue as a flag.  At the serving shape (D 64,
-// C 128, FFN 256) one position costs ~180 kFLOP of fp32 matmul against
-// ~256 bytes of activation traffic, so the layer is bound by fp32
-// operations, not bytes.  The design keeps every matmul operand in
-// shared memory and the weights in L1/L2, and spreads the per-position
-// phases over (row, time tile) blocks so that a batch of rows fills the
-// SMs; only the scan, which is serial in T, runs one thread per
-// (row, channel).  Phase A/B scratch (alpha, beta*xc, then h in place)
+// C 128, FFN 256) one position costs ~180 kFLOP of products against
+// ~1 KB of activation and scratch traffic, so the layer is bound by
+// operations, not bytes.  Every product runs on the tensor cores as
+// 3xTF32 (layer_fwd.cuh): phase A over (row, time tile) blocks with its
+// activations split once into shared memory, the tail over 128 positions
+// a block with each warp's rows in registers; only the scan, which is
+// serial in T, runs one thread per (row, channel).  Phase A/B scratch (alpha, beta*xc, then h in place)
 // goes through device memory, allocated by the caller; a training
 // forward keeps alpha and h there for the backward (fused_layer_bwd.cu).
 // With dropout the masks m0 (prologue), m1, m2, m3 are Philox draws
 // (common.cuh); at p = 0 no mask is drawn.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
-#include "common.cuh"
+#include "layer_fwd.cuh"
 
 using namespace recblr;
 
@@ -26,27 +26,17 @@ template <typename Tin>
 cudaError_t layer_fwd(const Tin* x, Tin* out, LayerParams p, Dropout dr, float* alpha,
                       float* bxh, int B, int T, int D, int C, int K, int F, int use_conv,
                       int use_ffn, int prologue, cudaStream_t stream) {
-  const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(D, C, K);
-  cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<Tin>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
+  cudaError_t e = launch_phase_a(x, nullptr, p, dr, alpha, bxh, B, T, D, C, K, use_conv,
+                                 prologue, stream);
   if (e != cudaSuccess) return e;
-  phase_a_kernel<Tin><<<dim3(B, tiles), THREADS, sa, stream>>>(
-      x, nullptr, p, dr, alpha, bxh, T, D, C, K, use_conv, prologue);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   linear_scan_kernel<false, float, float>
       <<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(alpha, bxh, bxh, B,
                                                                               T, C, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  const size_t sc = tail_smem_bytes(D, C, use_ffn ? F : 0);
-  e = cudaFuncSetAttribute(tail_kernel<Tin, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sc);
-  if (e != cudaSuccess) return e;
-  tail_kernel<Tin, false><<<dim3(B, tiles), THREADS, sc, stream>>>(
-      x, nullptr, bxh, out, p, dr, B, T, D, C, F, use_ffn, prologue);
-  return cudaGetLastError();
+  return launch_tail<Tin, false>(x, nullptr, bxh, out, p, dr, B, T, D, C, F, use_ffn, prologue,
+                                 stream);
 }
 
 }  // namespace

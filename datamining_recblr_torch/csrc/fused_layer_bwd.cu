@@ -20,6 +20,7 @@
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "common_bwd.cuh"
+#include "layer_fwd.cuh"
 
 using namespace recblr;
 
@@ -34,11 +35,8 @@ cudaError_t layer_bwd(const Tin* x, const Tin* dout, LayerParams p, LayerParamsT
   cudaError_t e;
   const int tiles = (T + TT - 1) / TT;
   if (recompute) {
-    const size_t sa = phase_a_smem_bytes(D, C, K);
-    if ((e = set_smem(phase_a_kernel<Tin>, sa)) != cudaSuccess) return e;
-    phase_a_kernel<Tin><<<dim3(B, tiles), THREADS, sa, stream>>>(
-        x, nullptr, p, dr, alpha, h, T, D, C, K, use_conv, prologue);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    e = launch_phase_a(x, nullptr, p, dr, alpha, h, B, T, D, C, K, use_conv, prologue, stream);
+    if (e != cudaSuccess) return e;
     linear_scan_kernel<false, float, float>
         <<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(alpha, h, h, B,
                                                                                 T, C, 0);

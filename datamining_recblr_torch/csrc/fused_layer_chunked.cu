@@ -16,11 +16,11 @@
 // per (row, chunk) at d_conv 4, C 128) are written only so that the record
 // is the JAX carry, which the plain backward reads.
 //
-// What bounds it: as K1, fp32 operations (~180 kFLOP per position at D 64,
+// What bounds it: as K1, operations (~180 kFLOP per position at D 64,
 // C 128, FFN 256 against ~256 bytes of activations).  The TPU grid walks
 // the chunks in order, carrying the state in scratch; a GPU grid runs in
 // no order, so the design splits the recurrence instead of the grid:
-//   A     phase A of common.cuh over (row, time tile) blocks, which also
+//   A     phase A of layer_fwd.cuh over (row, time tile) blocks, which also
 //         writes the record's conv tails;
 //   B1    chunk_state_kernel: every chunk's scan from a zero state at once,
 //         one thread per (row, chunk, channel): its end state and the
@@ -28,12 +28,12 @@
 //   B2    chunk_scan_kernel: each chunk composes its entering state from
 //         the earlier chunks' (end state, product), writes it to the
 //         record, and scans the chunk from it (h over beta*xc in place);
-//   C     the tail of common.cuh over (row, time tile) blocks.
+//   C     the tail of layer_fwd.cuh over 128 positions a block.
 // At B 512, T 1,024 the scan runs as 524,288 threads of 128 steps where
 // K1's runs as 65,536 threads of 1,024.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
-#include "common.cuh"
+#include "layer_fwd.cuh"
 
 using namespace recblr;
 
@@ -44,14 +44,9 @@ cudaError_t layer_chunked_fwd(const Tin* x, Tin* out, LayerParams p, Dropout dr,
                               float* bxh, float* hend, float* pend, float* rec, int B, int T,
                               int D, int C, int K, int F, int chunk, int use_conv, int use_ffn,
                               int prologue, cudaStream_t stream) {
-  const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(D, C, K);
-  cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<Tin>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
+  cudaError_t e = launch_phase_a(x, nullptr, p, dr, alpha, bxh, B, T, D, C, K, use_conv,
+                                 prologue, stream, rec, chunk);
   if (e != cudaSuccess) return e;
-  phase_a_kernel<Tin><<<dim3(B, tiles), THREADS, sa, stream>>>(
-      x, nullptr, p, dr, alpha, bxh, T, D, C, K, use_conv, prologue, rec, chunk);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const int n = B * (T / chunk) * C;
   const int blocks = (n + SCAN_THREADS - 1) / SCAN_THREADS;
@@ -61,13 +56,8 @@ cudaError_t layer_chunked_fwd(const Tin* x, Tin* out, LayerParams p, Dropout dr,
                                                         T, C, chunk);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  const size_t sc = tail_smem_bytes(D, C, use_ffn ? F : 0);
-  e = cudaFuncSetAttribute(tail_kernel<Tin, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sc);
-  if (e != cudaSuccess) return e;
-  tail_kernel<Tin, false><<<dim3(B, tiles), THREADS, sc, stream>>>(
-      x, nullptr, bxh, out, p, dr, B, T, D, C, F, use_ffn, prologue);
-  return cudaGetLastError();
+  return launch_tail<Tin, false>(x, nullptr, bxh, out, p, dr, B, T, D, C, F, use_ffn, prologue,
+                                 stream);
 }
 
 }  // namespace

@@ -29,6 +29,7 @@
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "common_bwd.cuh"
+#include "layer_fwd.cuh"
 
 using namespace recblr;
 
@@ -43,11 +44,8 @@ cudaError_t layer_chunked_bwd(const Tin* x, const Tin* dout, LayerParams p, Laye
                               cudaStream_t stream) {
   cudaError_t e;
   const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(D, C, K);
-  if ((e = set_smem(phase_a_kernel<Tin>, sa)) != cudaSuccess) return e;
-  phase_a_kernel<Tin><<<dim3(B, tiles), THREADS, sa, stream>>>(
-      x, nullptr, p, dr, alpha, h, T, D, C, K, use_conv, prologue);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  e = launch_phase_a(x, nullptr, p, dr, alpha, h, B, T, D, C, K, use_conv, prologue, stream);
+  if (e != cudaSuccess) return e;
   const int n = B * (T / chunk) * C;
   const int sblocks = (n + SCAN_THREADS - 1) / SCAN_THREADS;
   chunk_scan_kernel<<<sblocks, SCAN_THREADS, 0, stream>>>(alpha, h, nullptr, nullptr, rec,

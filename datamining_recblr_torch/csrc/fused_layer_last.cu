@@ -5,13 +5,14 @@
 // _last_fwd_kernel (reached through _layer_last_fwd /
 // fused_recurrent_layer_last).  Only the xb half of the in-projection,
 // the conv, the gates and the scan run over the sequence (~82 kFLOP of
-// fp32 matmul per position at the serving shape); z, the
-// out-projection, LN1 and the FFN run once per row.  Like the full
-// layer it is bound by fp32 operations.  What the design does about
-// that: the per-position phase skips every time tile at or beyond the
-// row's valid length, and the scan stops there, because the output
-// reads the state at position len-1 alone; the per-row tail batches 32
-// rows a block so each weight load serves 32 rows.  A row whose length
+// products per position at the serving shape); z, the out-projection,
+// LN1 and the FFN run once per row.  Like the full layer it is bound by
+// operations, its products on the tensor cores as 3xTF32
+// (layer_fwd.cuh).  What the design does about that: the per-position
+// phase skips every time tile at or beyond the row's valid length, and
+// the scan stops there, because the output reads the state at position
+// len-1 alone; the per-row tail batches 128 rows a block so each weight
+// chunk staged serves 128 rows.  A row whose length
 // is 0 (or above T) selects nothing: x_last = 0 and h_last = 0, as the
 // TPU kernel's one-hot `pos == lens-1` gives.  The dropout masks m1,
 // m2, m3 are [B, 1, .] Philox draws (row b, position 0); a training
@@ -19,7 +20,7 @@
 // (fused_layer_last_bwd.cu).
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
-#include "common.cuh"
+#include "layer_fwd.cuh"
 
 using namespace recblr;
 
@@ -30,26 +31,14 @@ cudaError_t layer_last_fwd(const Tin* x, const int* lens, Tin* out, LayerParams 
                            Dropout dr, float* alpha, float* bx, float* h_last, int B, int T,
                            int D, int C, int K, int F, int use_conv, int use_ffn, int stash,
                            cudaStream_t stream) {
-  const int tiles = (T + TT - 1) / TT;
-  const size_t sa = phase_a_smem_bytes(D, C, K);
-  cudaError_t e = cudaFuncSetAttribute(phase_a_kernel<Tin>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
+  cudaError_t e = launch_phase_a(x, lens, p, dr, alpha, bx, B, T, D, C, K, use_conv, 0, stream);
   if (e != cudaSuccess) return e;
-  phase_a_kernel<Tin><<<dim3(B, tiles), THREADS, sa, stream>>>(
-      x, lens, p, dr, alpha, bx, T, D, C, K, use_conv, 0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   scan_last_kernel<<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(
       alpha, bx, lens, h_last, B, T, C, stash);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  const size_t sc = tail_smem_bytes(D, C, use_ffn ? F : 0);
-  e = cudaFuncSetAttribute(tail_kernel<Tin, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sc);
-  if (e != cudaSuccess) return e;
-  tail_kernel<Tin, true><<<(B + TT - 1) / TT, THREADS, sc, stream>>>(
-      x, lens, h_last, out, p, dr, B, T, D, C, F, use_ffn, 0);
-  return cudaGetLastError();
+  return launch_tail<Tin, true>(x, lens, h_last, out, p, dr, B, T, D, C, F, use_ffn, 0, stream);
 }
 
 }  // namespace

@@ -22,6 +22,7 @@
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "common_bwd.cuh"
+#include "layer_fwd.cuh"
 
 using namespace recblr;
 
@@ -36,11 +37,8 @@ cudaError_t layer_last_bwd(const Tin* x, const int* lens, const Tin* dout, Layer
   cudaError_t e;
   const int tiles = (T + TT - 1) / TT;
   if (recompute) {
-    const size_t sa = phase_a_smem_bytes(D, C, K);
-    if ((e = set_smem(phase_a_kernel<Tin>, sa)) != cudaSuccess) return e;
-    phase_a_kernel<Tin><<<dim3(B, tiles), THREADS, sa, stream>>>(
-        x, lens, p, dr, alpha, h, T, D, C, K, use_conv, 0);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    e = launch_phase_a(x, lens, p, dr, alpha, h, B, T, D, C, K, use_conv, 0, stream);
+    if (e != cudaSuccess) return e;
     // h_last goes to dhl, which phase A' overwrites
     scan_last_kernel<<<(B * C + SCAN_THREADS - 1) / SCAN_THREADS, SCAN_THREADS, 0, stream>>>(
         alpha, h, lens, dhl, B, T, C, 1);

@@ -2,7 +2,9 @@
 // warp-level products m16n8k16 (bf16 operands, fp32 sums) and m16n8k8
 // (TF32 operands, fp32 sums), their fragment loads (ldmatrix for bf16 tiles
 // in shared memory), the two-term TF32 split and the 3xTF32 product of
-// split operands, the fp32 sum of a product tile, and cp.async copies.
+// split operands, the fp32 sum of a product tile, cp.async copies, and the
+// 3xTF32 products with guarded loads of the RecBLR layer kernels
+// (mm_tc_tiles, mm_tc, mm_tc_add: common_bwd.cuh's backward phases).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
 // "mma.m16n8k8" with .tf32).  In a warp, lane = 4 gid + t (gid = lane / 4,
@@ -151,6 +153,158 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <bool G>
+__device__ __forceinline__ float ld_op(const float* p, int i) {
+  if constexpr (G) return __ldg(p + i);
+  return p[i];
+}
+
+// C(m, n) = sum_{k < K} A(m, k) B(k, n) for m < M, n < N on the tensor
+// cores, delivered a warp tile at a time as tile_epi(m0, n0, acc) (the C
+// fragments of the 16 MT x 8 NT tile at (m0, n0)).  Both operands are
+// split into their two TF32 terms as they are read (split_i) and
+// multiplied as 3xTF32 m16n8k8 products (mma_3xtf32), each 8-deep k-tile
+// in a fresh accumulator added in fp32 (add_tile: the tensor cores' own
+// sum truncates), so the result keeps fp32 accuracy.  A lives in shared
+// memory: A(m, k) = a[m * lda + k], or with AT a[k * lda + m] (a weight
+// grad, whose depth is the item's rows).  B(k, n) = b[k * ldb + n], in
+// shared memory, or with BG in device memory (the layer's weights, read
+// through the read-only cache, the next k-tiles' in flight while the
+// current one is multiplied).  Nothing outside m < M, k < K, n < N is
+// read: a ragged edge reads as zero, so zero operands give exact zeros.
+// A warp takes output tiles of 16 MT rows by 8 NT columns in turn and
+// keeps a tile's sums in registers over the whole depth.
+template <bool AT, bool BG, int MT, int NT, typename TileEpi>
+__device__ __forceinline__ void mm_tc_tiles(const float* __restrict__ a, int lda,
+                                            const float* __restrict__ b, int ldb, int M, int N,
+                                            int K, TileEpi tile_epi) {
+  // k-tiles of B in flight: weights come from L2, whose latency is several
+  // k-tiles' work; shared memory needs none ahead
+  constexpr int PF = BG ? 4 : 1;
+  const int lane = threadIdx.x % 32, gid = lane / 4, t = lane % 4;
+  const int gm = (M + 16 * MT - 1) / (16 * MT), gn = (N + 8 * NT - 1) / (8 * NT);
+  for (int w = threadIdx.x / 32; w < gm * gn; w += blockDim.x / 32) {
+    const int m0 = (w / gn) * 16 * MT, n0 = (w % gn) * 8 * NT;
+    // the lane's B values of the k-tile at k0: rows k0 + t, k0 + t + 4 of
+    // its column in each 8-column tile
+    auto load_b = [&](int k0, float (&v)[NT][2]) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + 8 * j + gid;
+        v[j][0] = n < N && k0 + t < K ? ld_op<BG>(b, (k0 + t) * ldb + n) : 0.f;
+        v[j][1] = n < N && k0 + t + 4 < K ? ld_op<BG>(b, (k0 + t + 4) * ldb + n) : 0.f;
+      }
+    };
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    float bq[PF][NT][2];  // a ring of the next PF k-tiles of B
+#pragma unroll
+    for (int s = 0; s < PF; ++s) load_b(8 * s, bq[s]);
+    for (int k0 = 0; k0 < K; k0 += 8 * PF) {
+#pragma unroll
+      for (int s = 0; s < PF; ++s) {
+        const int ka = k0 + 8 * s + t, kb = ka + 4;
+        if (ka - t >= K) break;
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int r0 = m0 + 16 * i + gid, r1 = r0 + 8;
+          auto av = [&](int r, int k) {
+            if (r >= M || k >= K) return 0.f;
+            return AT ? a[k * lda + r] : a[r * lda + k];
+          };
+          split_i(av(r0, ka), ah[i][0], al[i][0]);
+          split_i(av(r1, ka), ah[i][1], al[i][1]);
+          split_i(av(r0, kb), ah[i][2], al[i][2]);
+          split_i(av(r1, kb), ah[i][3], al[i][3]);
+        }
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          split_i(bq[s][j][0], bh[j][0], bl[j][0]);
+          split_i(bq[s][j][1], bh[j][1], bl[j][1]);
+        }
+        load_b(k0 + 8 * (s + PF), bq[s]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            if (m0 + 16 * i < M && n0 + 8 * j < N) {
+              float c[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_3xtf32(c, ah[i], al[i], __uint_as_float(bh[j][0]), __uint_as_float(bh[j][1]),
+                         __uint_as_float(bl[j][0]), __uint_as_float(bl[j][1]));
+              add_tile(acc[i][j], c);
+            }
+      }
+    }
+    tile_epi(m0, n0, acc);
+  }
+}
+
+// The (m, n) of element e of C tile (i, j) of a lane's tile at (m0, n0).
+__device__ __forceinline__ int frag_m(int m0, int i, int e) {
+  return m0 + 16 * i + threadIdx.x % 32 / 4 + (e >= 2 ? 8 : 0);
+}
+__device__ __forceinline__ int frag_n(int n0, int j, int e) {
+  return n0 + 8 * j + 2 * (threadIdx.x % 4) + (e & 1);
+}
+
+// A data grad or a forward product: A in shared memory, B a weight in
+// device memory, each C(m, n) delivered as epi(m, n, C(m, n)).
+template <int MT, int NT, typename Epi>
+__device__ __forceinline__ void mm_tc(const float* __restrict__ a, int lda,
+                                      const float* __restrict__ w, int ldw, int M, int N, int K,
+                                      Epi epi) {
+  mm_tc_tiles<false, true, MT, NT>(a, lda, w, ldw, M, N, K,
+                                   [&](int m0, int n0, const float (&acc)[MT][NT][4]) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = frag_m(m0, i, e), n = frag_n(n0, j, e);
+          if (m < M && n < N) epi(m, n, acc[i][j][e]);
+        }
+  });
+}
+
+// A weight grad: g[m * ldg + n] += C(m, n), with A^T read from shared memory
+// and B in shared memory.  A lane reads all its tile's old values before it
+// writes any, so a tile costs one round trip to L2, not one an element.
+template <int MT, int NT>
+__device__ __forceinline__ void mm_tc_add(const float* __restrict__ a, int lda,
+                                          const float* __restrict__ b, int ldb, int M, int N,
+                                          int K, float* __restrict__ g, int ldg) {
+  mm_tc_tiles<true, false, MT, NT>(a, lda, b, ldb, M, N, K,
+                                   [&](int m0, int n0, const float (&acc)[MT][NT][4]) {
+    float old[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = frag_m(m0, i, e), n = frag_n(n0, j, e);
+          old[i][j][e] = m < M && n < N ? g[m * ldg + n] : 0.f;
+        }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = frag_m(m0, i, e), n = frag_n(n0, j, e);
+          if (m < M && n < N) g[m * ldg + n] = old[i][j][e] + acc[i][j][e];
+        }
+  });
 }
 
 }  // namespace recblr

@@ -1623,6 +1623,209 @@ def test_bench_shape_backwards_run_the_tensor_core_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# serving's top-k on the card: ties go to the lower item id
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("v,k", [(329_728, 10), (3_417, 10), (60, 7)])
+def test_topk_breaks_ties_by_index_on_the_card(dev, v, k):
+    """``topk_scores`` on CUDA scores with many ties (integer scores, one
+    value at every seventh column, a row of -inf but for three columns):
+    the ids of a stable descending sort, as jax.lax.top_k gives."""
+    from datamining_recblr_torch.ops.topk import topk_scores
+
+    rng = np.random.default_rng(180 + v)
+    s = rng.integers(-3, 4, (6, v)).astype(np.float32)
+    s[1] = 0.0
+    s[1, ::7] = 1.0
+    s[2] = -np.inf
+    s[2, [v - 1, 5, v // 2]] = 2.0
+    want = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    vals, ids = topk_scores(torch.from_numpy(s).to(dev), k)
+    np.testing.assert_array_equal(ids.cpu().numpy(), want)
+    np.testing.assert_array_equal(vals.cpu().numpy(), np.take_along_axis(s, want, 1))
+
+
+# ---------------------------------------------------------------------------
+# rows 1, 3, 8 and 9 forwards on the tensor cores (csrc/layer_fwd.cuh)
+# ---------------------------------------------------------------------------
+
+# (D, C, FFN, d_conv K, T): widths above 64, where the tail takes its
+# 16-tile instantiation (one block an SM): the wrappers' largest widths
+# with 64 taps and the largest FFN (phase A's largest shared memory), and
+# D 96 at T 45
+WIDE_FWD_SHAPES = [(128, 128, 512, 64, 200), (96, 128, 200, 9, 45)]
+
+
+@pytest.mark.parametrize("p_drop", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,c,f,k,t", ODD_BWD_SHAPES + WIDE_FWD_SHAPES)
+def test_tensor_core_forwards_at_odd_widths_taps_and_lengths(dev, d, c, f, k, t, dtype, p_drop):
+    """Rows 1 and 3, their products on the tensor cores (3xTF32), against
+    their plain versions at TOL, at widths no multiple of 16, 9 and 64
+    taps, T 45 and 200, and at D 96 and 128; row 3 with rows of lengths 0,
+    1, T, above T and one ending inside a tile.  A rerun gives the same bits, the stash
+    (alpha, h) included."""
+    rng = np.random.default_rng(130 + d + k + t)
+    p = _odd_params(rng, d, c, f, k, dev)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((5, t, d)).astype(np.float32)).to(dev, dt)
+    flags = (True, True, True, p_drop, 321)
+    before = FL.fused_recurrent_layer.launches
+    out, saved = FL.fused_recurrent_layer_train(x, p, *flags)
+    assert FL.fused_recurrent_layer.launches == before + 1
+    want = FL.fused_recurrent_layer_plain(x, p, *flags)
+    assert out.dtype == dt and out.shape == x.shape
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    out2, saved2 = FL.fused_recurrent_layer_train(x, p, *flags)
+    assert torch.equal(out2, out) and all(torch.equal(a, b) for a, b in zip(saved2, saved))
+
+    q = {n: v for n, v in p.items() if n not in ("pl_s", "pl_b")}
+    lens = torch.tensor([0, 1, t, t + 3, 17], device=dev)  # 0 and t + 3 select nothing
+    last = (True, True, p_drop, 321)
+    before = FL.fused_recurrent_layer_last.launches
+    out, saved = FL.fused_recurrent_layer_last_train(x, lens, q, *last)
+    assert FL.fused_recurrent_layer_last.launches == before + 1
+    want = FL.fused_recurrent_layer_last_plain(x, lens, q, *last)
+    assert out.dtype == dt and out.shape == (5, d)
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    out2, saved2 = FL.fused_recurrent_layer_last_train(x, lens, q, *last)
+    assert torch.equal(out2, out)
+    for a, b in zip(saved2, saved):  # the stash holds the positions below each length
+        for row, n in ((1, 1), (2, t), (4, 17)):
+            assert torch.equal(a[row, :n], b[row, :n])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bdlru_forward_at_64_taps(dev, dtype):
+    """Row 8's forward with 64 taps (a halo of 63 rows, T 130 ending inside
+    a tile) against its plain version at TOL; a rerun gives the same bits."""
+    from datamining_recblr_torch.ops import fused_bdlru as FBD
+
+    rng = np.random.default_rng(140)
+    p = _bdlru_params(rng, 128, dev, k=64)
+    x = torch.from_numpy(rng.standard_normal((3, 130, 128)).astype(np.float32))
+    x = x.to(dev, getattr(torch, dtype))
+    before = FBD.fused_bdlru.launches
+    out = FBD.fused_bdlru(x, *p.values())
+    assert FBD.fused_bdlru.launches == before + 1
+    want = FBD.fused_bdlru_plain(x, *p.values())
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    assert torch.equal(FBD.fused_bdlru(x, *p.values()), out)
+
+
+# (D, C, FFN, d_conv K, T): XLong's widths at T 1,024 (chunks of 128),
+# widths no multiple of 16 at T 520 (chunks of 104) with 8 taps, and the
+# wrappers' largest widths and FFN (the tail's 16-tile instantiation)
+CHUNKED_FWD_SHAPES = [(64, 128, 256, 4, 1024), (50, 70, 100, 8, 520), (128, 128, 512, 8, 1024)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,c,f,k,t", CHUNKED_FWD_SHAPES)
+def test_chunked_forward_output_and_record(dev, d, c, f, k, t, dtype):
+    """Row 9's forward at p 0.2: the output against the plain version at
+    TOL, its record (entering states, conv tails) against the plain record
+    at atol / rtol 1e-4; a rerun gives the same bits."""
+    from datamining_recblr_torch.ops import fused_layer_chunked as FLC
+
+    rng = np.random.default_rng(150 + d + t)
+    p = _odd_params(rng, d, c, f, k, dev)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((2, t, d)).astype(np.float32)).to(dev, dt)
+    args = (True, True, True, 0.2, 91)
+    out, record = FLC.fused_recurrent_layer_chunked_train(x, p, *args)
+    want, wrec = FLC.fused_recurrent_layer_chunked_plain(x, p, *args)
+    _assert_close_dtype(out, want, dtype)
+    torch.testing.assert_close(record, wrec, atol=1e-4, rtol=1e-4)
+    out2, record2 = FLC.fused_recurrent_layer_chunked_train(x, p, *args)
+    assert torch.equal(out2, out) and torch.equal(record2, record)
+
+
+def test_bench_shape_forwards_run_the_tensor_core_kernels(dev):
+    """At the bench widths rows 1, 3 and 9 run phase A and the tail as the
+    tensor-core kernels, and row 8 runs phase A so, by the names
+    torch.profiler records; the FMA kernels they replace run nowhere."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from datamining_recblr_torch.ops import fused_bdlru as FBD
+    from datamining_recblr_torch.ops import fused_layer_chunked as FLC
+
+    rng = np.random.default_rng(160)
+    p = _params(rng, 64, 128, dev, prologue=True)
+    q = {n: v for n, v in p.items() if n not in ("pl_s", "pl_b")}
+    x = torch.from_numpy(rng.standard_normal((8, 200, 64)).astype(np.float32)).to(dev)
+    xl = torch.from_numpy(rng.standard_normal((2, 1024, 64)).astype(np.float32)).to(dev)
+    xb = torch.from_numpy(rng.standard_normal((2, 1020, 128)).astype(np.float32)).to(dev)
+    lens = torch.tensor([200, 1, 150, 77, 200, 3, 64, 199], device=dev)
+    pb = _bdlru_params(rng, 128, dev)
+    for call, kernels in (
+            (lambda: FL.fused_recurrent_layer_train(x, p, True, True, True, 0.2, 5),
+             ("phase_a_mma_kernel", "tail_mma_kernel")),
+            (lambda: FL.fused_recurrent_layer_last_train(x, lens, q, True, True, 0.2, 5),
+             ("phase_a_mma_kernel", "tail_mma_kernel")),
+            (lambda: FLC.fused_recurrent_layer_chunked_train(xl, p, True, True, True, 0.2, 5),
+             ("phase_a_mma_kernel", "tail_mma_kernel")),
+            (lambda: FBD.fused_bdlru(xb, *pb.values()), ("phase_a_mma_kernel",))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        for kernel in kernels:
+            assert any(kernel in n for n in names), kernel
+        assert not any("phase_a_kernel" in n or "tail_kernel" in n for n in names), names
+
+
+# sha256 (first 16 hex digits) of dx and every weight grad of rows 2 and 4
+# from _bwd_bits's input, as the commit before the forward's redesign
+# (fcce0fd) computed them on an NVIDIA H100 80GB HBM3: the backward phases
+# A', C1' and C2' keep their bits now that their product helpers live in
+# mma_tile.cuh
+PARENT_BWD_BITS = {
+    "float32": {"row2": "948132ea11b0e536", "row4": "47e69b317cf6f40d"},
+    "bfloat16": {"row2": "794dbae4ae57fe79", "row4": "c9cd5d0584663b89"},
+}
+
+
+def _bwd_bits(dev, dtype):
+    """{row: digest} of rows 2 and 4's backwards on one fixed input, with
+    alpha and h given (no recompute), so only A', C1', C2', the reverse
+    scans and the reduction produce the bits."""
+    import hashlib
+
+    rng = np.random.default_rng(170)
+    d, c, f, k, t, b = 50, 70, 100, 9, 45, 5
+    p = _odd_params(rng, d, c, f, k, dev)
+    q = {n: v for n, v in p.items() if n not in ("pl_s", "pl_b")}
+    dt = getattr(torch, dtype)
+
+    def r(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+
+    x, dout = r(b, t, d).to(dt), r(b, t, d).to(dt)
+    alpha = torch.from_numpy(rng.uniform(0.3, 0.99, (b, t, c)).astype(np.float32)).to(dev)
+    h = r(b, t, c)
+    lens = torch.tensor([0, 1, t, t + 3, 17], device=dev)
+    got = {
+        "row2": FL.fused_recurrent_layer_bwd(x, dout, p, True, True, True, 0.2, 11,
+                                             saved=(alpha, h)),
+        "row4": FL.fused_recurrent_layer_last_bwd(x, lens, dout[:, 0].contiguous(), q, True,
+                                                  True, 0.2, 11, saved=(alpha, h.clone())),
+    }
+    bits = {}
+    for row, (dx, grads) in got.items():
+        digest = hashlib.sha256(dx.float().cpu().numpy().tobytes())
+        for name in FL.PARAM_ORDER:
+            if name in grads:
+                digest.update(grads[name].cpu().numpy().tobytes())
+        bits[row] = digest.hexdigest()[:16]
+    return bits
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_phases_keep_the_parents_bits(dev, dtype):
+    assert _bwd_bits(dev, dtype) == PARENT_BWD_BITS[dtype]
+
+
+# ---------------------------------------------------------------------------
 # queue B row 15: the masked-softmax attention (ops/attention.py)
 # ---------------------------------------------------------------------------
 

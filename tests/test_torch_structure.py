@@ -139,6 +139,17 @@ def test_kernel_sources_ship_with_the_package():
     assert set(_cuda._SIGNATURES) == set(_cuda.SOURCES)
 
 
+def test_an_edit_of_the_forward_phases_rebuilds_every_source():
+    """Phase A and the tail of the RecBLR layer forwards live in a header
+    (csrc/layer_fwd.cuh) that the build hashes into every library."""
+    from datamining_recblr_torch.ops import _cuda
+
+    assert "layer_fwd.cuh" in _cuda.HEADERS
+    for src in ("fused_layer.cu", "fused_layer_last.cu", "fused_layer_chunked.cu",
+                "fused_bdlru.cu"):
+        assert '#include "layer_fwd.cuh"' in (_cuda.SRC_DIR / src).read_text()
+
+
 def test_the_long_context_kernels_are_built():
     """The kernels of the long-context path and of the table gradient are
     among the sources the build compiles."""
