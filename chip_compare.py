@@ -12,7 +12,10 @@ beside its bound, its plain version and its library call; the
 transformer-layer forward and backward and both CE backwards by phase,
 row 10's forward in bf16, row 13's backward in bf16 and at D 256 and row
 15 by launch, rows 2, 4 and 9's backwards and rows 1, 3, 8 and 9's
-forwards by phase, where the tree has those functions), RecBLR's
+forwards by phase, where the tree has those functions; row 13's forward in
+bf16 and at D 256, row 14's at the longodd loss in fp32 and by kernel, and
+rows 5, 7, 8 and 9's forwards at B 256, in a tree without those functions
+through this checkout's ``chip_smoke.py`` on the tree's kernels), RecBLR's
 ``recommend`` at XLong (V 329,722, bf16: its median at 256 users and its
 p50 for one) and the top-k designs at its catalog (``topk_times``,
 where the tree has it), the RecBLR, SASRec and BERT4Rec training steps at the bench
@@ -30,6 +33,18 @@ import re
 import subprocess
 import sys
 import time
+
+
+def _this_smoke():
+    """This checkout's chip_smoke.py as a module of its own, bound to the
+    package already imported (the tree's)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_this", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def one(tree, label):
@@ -57,6 +72,11 @@ def one(tree, label):
     if hasattr(cs, "row13_bwd_phase_times"):
         cs.row13_kernel_times(dev)
         cs.row13_bwd_phase_times(dev)
+    # the CE forwards in bf16, at D 256 and at longodd's fp32 loss, and the
+    # served forwards at B 256: the tree's own functions, or in a tree that
+    # predates them (a parent) this checkout's, run on that tree's kernels
+    for name in ("ce_fwd_kernel_times", "served_kernel_times"):
+        (getattr(cs, name, None) or getattr(_this_smoke(), name))(dev)
     cs.xlong_kernel_times(dev)
     if hasattr(cs, "row14_bwd_phase_times"):
         cs.row14_bwd_phase_times(dev)

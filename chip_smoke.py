@@ -89,12 +89,17 @@ per-op composition, forward and backward) and, phase by phase:
   and the chunked CE's backward by pass (pass a, the reduction, pass b at
   the XLong loss, on the tensor cores), and rows 1, 3, 8 and 9's forwards
   by phase (``recblr_fwd_phase_times``: phase A, the scan and the tail,
-  from torch.profiler beside the call's CUDA-event time).
+  from torch.profiler beside the call's CUDA-event time); then the CE
+  forwards in bf16, at D 256 and at the longodd loss, row 14's by kernel
+  (``ce_fwd_kernel_times``), and the forwards that serving launches
+  outside the whole-layer kernels at B 256 (``served_kernel_times``).
 
 A rerun of each RecBLR layer kernel, forward and backward, gives the same
 bits, and each RecBLR training and serving profile fails unless phase A
-(and, off the longodd path, the tail) ran its tensor-core kernel
-(``FWD_MMA_REQUIRED``).  Each phase prints one line; any failure exits
+(and, off the longodd path, the tail) ran its tensor-core kernel, each
+XLong and longodd training profile unless row 14's forward did, and each
+fp32 BERT4Rec training profile unless row 13's forward did
+(``fwd_mma_required``).  Each phase prints one line; any failure exits
 non-zero.  The line before the last is the kernels' JSON record, the last
 line the device JSON.  Exits non-zero without a CUDA card.
 """
@@ -223,12 +228,25 @@ SLICE_PATHS = {
 # phase A and the tail of the RecBLR layer forwards on the tensor cores
 # (csrc/layer_fwd.cuh), and the RecBLR profiles that must show them: every
 # path through the whole-layer kernels runs both; longodd's unfused layers
-# run phase A alone (row 8), and the wide path (C 256) neither
+# run phase A alone (row 8), and the wide path (C 256) neither.  The CE
+# forwards on the tensor cores (csrc/ce_mma.cuh): row 14's in the XLong and
+# longodd steps (D 64, both dtypes), row 13's in BERT4Rec's fp32 steps (D 64
+# and, on the d256 path, 256; its bf16 forward keeps the FMA kernel,
+# ``FCE.fwd_uses_mma``)
 RECBLR_FWD_MMA = ("phase_a_mma_kernel", "tail_mma_kernel")
+CE_FWD_MMA, CCE_FWD_MMA = "ce_fwd_mma_kernel", "cce_fwd_mma_kernel"
 FWD_MMA_REQUIRED = dict(
-    {prefix: RECBLR_FWD_MMA for prefix in ("train", "xlong-train", "onelayer-train", "serve",
-                                           "serve-xlong", "serve-onelayer")},
-    **{"longodd-train": RECBLR_FWD_MMA[:1], "serve-longodd": RECBLR_FWD_MMA[:1]})
+    {prefix: RECBLR_FWD_MMA for prefix in ("train", "onelayer-train", "serve", "serve-xlong",
+                                           "serve-onelayer")},
+    **{"xlong-train": RECBLR_FWD_MMA + (CCE_FWD_MMA,),
+       "longodd-train": (RECBLR_FWD_MMA[0], CCE_FWD_MMA), "serve-longodd": RECBLR_FWD_MMA[:1]})
+FP32_FWD_MMA_REQUIRED = {"bert4rec-train": (CE_FWD_MMA,), "bert4rec-d256-train": (CE_FWD_MMA,)}
+
+
+def fwd_mma_required(prefix, dtype_name):
+    """The tensor-core forward kernels a profile of ``prefix`` must show."""
+    extra = FP32_FWD_MMA_REQUIRED.get(prefix, ()) if dtype_name == "float32" else ()
+    return FWD_MMA_REQUIRED.get(prefix, ()) + extra
 
 
 class SmokeFailure(RuntimeError):
@@ -466,12 +484,18 @@ def sel_bwd_bound_ms(lens, s, p, act_bytes):
     return _bound(flops, nbytes)
 
 
-def ce_bound_ms(n, v, act_bytes, train=False, mm_bf16=False, d=D):
-    # the [N, V] logits (2NVD; bf16 operands with mm_bf16); x, the table,
-    # the bias and the targets read once, nll (and in training lse) written
+def ce_bound_ms(n, v, act_bytes, train=False, mm_bf16=False, d=D, priced_fma=False):
+    # the [N, V] logits (2NVD); x, the table, the bias and the targets read
+    # once, nll (and in training lse) written.  Priced as the least the
+    # tensor cores need at the plain version's accuracy, as the backward's:
+    # bf16 operands with mm_bf16, otherwise three TF32 products of the split
+    # operands; ``priced_fma``: every product at the fp32 FMA peak (the
+    # FMA-priced bound, kept beside it)
     nbytes = n * d * act_bytes + v * (d + 1) * 4 + n * 4 * (3 if train else 2)
     mm = 2 * n * v * d
-    return _bound(0, nbytes, mm) if mm_bf16 else _bound(mm, nbytes)
+    if priced_fma:
+        return _bound(mm, nbytes)
+    return _bound(0, nbytes, mm) if mm_bf16 else _bound(0, nbytes, 0, 3 * mm)
 
 
 def ce_bwd_bound_ms(n, v, act_bytes, mm_bf16=False, d=D):
@@ -537,25 +561,29 @@ def environment():
     return smi
 
 
-# the kernels of row 15 and the RecBLR layer backwards' tensor-core phases,
-# and the sources whose ptxas output is read kernel by kernel
+# the kernels of row 15, the RecBLR layers' and the CEs' tensor-core
+# phases, and the sources whose ptxas output is read kernel by kernel
 PTXAS_KERNEL_NAMES = ("attn_fwd_mma_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
                       "attn_fwd_kernel", "dkdv_kernel", "dq_kernel", "delta_kernel",
                       "tail_bwd_mma_kernel", "gate_bwd_mma_kernel", "inproj_bwd_mma_kernel",
-                      "phase_a_mma_kernel", "tail_mma_kernel")
+                      "phase_a_mma_kernel", "tail_mma_kernel", "cce_fwd_mma_kernel",
+                      "ce_fwd_mma_kernel", "cce_dx_mma_kernel", "ce_dx_mma_kernel",
+                      "cce_dtab_mma_kernel", "ce_dtab_mma_kernel")
 PTXAS_KERNEL_SOURCES = ("attention.cu", "attention_bwd.cu", "fused_layer.cu",
                         "fused_layer_last.cu", "fused_layer_chunked.cu", "fused_bdlru.cu",
                         "fused_layer_bwd.cu", "fused_layer_last_bwd.cu",
-                        "fused_layer_chunked_bwd.cu", "fused_bdlru_bwd.cu")
+                        "fused_layer_chunked_bwd.cu", "fused_bdlru_bwd.cu", "fused_ce.cu",
+                        "fused_ce_chunked.cu")
 
 
 def ptxas_kernels(src, log):
     """One ptxas-kernel line per kernel of a source: its registers and
     spill bytes as ptxas reports them (template arguments after the input
-    type: row 15's tiles, the RecBLR kernels' LAST / XB flags)."""
+    type, where the kernel takes one: row 15's tiles, the RecBLR kernels'
+    LAST / XB flags, the CE kernels' mm_bf16 and padded width)."""
     for part in log.split("Compiling entry function '")[1:]:
         name = part.split("'")[0]
-        m = re.search(r"(" + "|".join(PTXAS_KERNEL_NAMES) + r")I(f|13__nv_bfloat16)(\w*?)EE",
+        m = re.search(r"(" + "|".join(PTXAS_KERNEL_NAMES) + r")I(f|13__nv_bfloat16)?(\w*?)EE",
                       name)
         regs = re.search(r"Used (\d+) registers", part)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
@@ -564,7 +592,7 @@ def ptxas_kernels(src, log):
             args = re.sub(r"Lb([01])E?", lambda b: ("true" if b.group(1) == "1" else "false")
                           + ",", args)
             phase("ptxas-kernel", source=src, kernel=m.group(1),
-                  dtype="float32" if m.group(2) == "f" else "bfloat16",
+                  dtype={"f": "float32", None: "-"}.get(m.group(2), "bfloat16"),
                   template_args=args.rstrip(",") or "-",
                   registers=int(regs.group(1)),
                   spill_store_bytes=int(spills.group(1)) if spills else "not reported",
@@ -1067,19 +1095,23 @@ def ce_kernel_vs_plain(x, table, bias, tgt, dnll, ties=False):
     dx, dtable and dbias within GRAD_RTOL of the largest value (a bf16 dx
     one bf16 ulp on top, and with ``ties`` the rounding ties of g on top of
     that: ``bf16_tie_allowance``, its count of values beyond the plain
-    bound printed); the backward takes the tensor cores exactly where
-    ``bwd_uses_mma`` says and gives the same bits on a rerun.  Returns the
-    largest |kernel - plain| of nll and of the gradients."""
+    bound printed); the forward and the backward take the tensor cores
+    exactly where ``fwd_uses_mma`` and ``bwd_uses_mma`` say and give the
+    same bits (nll and lse; dx, dtable and dbias) on a rerun.  Returns the largest |kernel -
+    plain| of nll and of the gradients."""
     dt = x.dtype
     mm = dt == torch.bfloat16
     n, d = x.shape
-    bwd = FCE.fused_softmax_ce_bwd
-    before = bwd.mma_launches
-    nll, lse = FCE.fused_softmax_ce_train(x, table, tgt, bias, None, mm)
+    fwd, bwd = FCE.fused_softmax_ce_train, FCE.fused_softmax_ce_bwd
+    before = (fwd.mma_launches, bwd.mma_launches)
+    nll, lse = fwd(x, table, tgt, bias, None, mm)
+    fwd_mma = fwd.mma_launches - before[0]
     dx, dtab, dbias = bwd(x, table, tgt, dnll, bias, None, mm, lse=lse)
-    mma = bwd.mma_launches - before
+    mma = bwd.mma_launches - before[1]
+    fwd_same = all(torch.equal(a, b) for a, b in zip(fwd(x, table, tgt, bias, None, mm),
+                                                    (nll, lse)))
     again = bwd(x, table, tgt, dnll, bias, None, mm, lse=lse)
-    same = all(torch.equal(a, b) for a, b in zip(again, (dx, dtab, dbias)))
+    same = fwd_same and all(torch.equal(a, b) for a, b in zip(again, (dx, dtab, dbias)))
     del again
     xl, tl, bl = (a.detach().clone().requires_grad_() for a in (x, table, bias))
     want = FCE.fused_softmax_ce_plain(xl, tl, tgt, bl, None, mm)
@@ -1099,17 +1131,19 @@ def ce_kernel_vs_plain(x, table, bias, tgt, dnll, ties=False):
                         tie_window="2^-17*D/64*p*dnll")
         del err, bound, allow
     ok = ok_nll and same and all(o for _, o in rows.values())
-    ok = ok and mma == int(FCE.bwd_uses_mma(d, mm))
+    ok = (ok and mma == int(FCE.bwd_uses_mma(d, mm))
+          and fwd_mma == int(FCE.fwd_uses_mma(d, mm)))
     dname = str(dt).split(".")[-1]
     phase("b4r-kernel-vs-plain", kernel="fused_softmax_ce_bwd", dtype=dname, mm_bf16=mm,
-          shape=f"N{n}xV{table.shape[0]}xD{d}", mma_launches=mma, rerun_bit_equal=same,
+          shape=f"N{n}xV{table.shape[0]}xD{d}", fwd_mma_launches=fwd_mma, mma_launches=mma,
+          rerun_bit_equal=same,
           nll_max_abs_err=f"{nll_err:.3e}", nll_tol="1e-4 + 1e-5*|plain|",
           rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
           tol=f"max|err|/max|plain| <= {GRAD_RTOL}"
               + (" (bf16 dx: + 2^-7*|plain|" + (" + rounding ties of g)" if ties_out else ")")
                  if mm else ""), **ties_out, ok=ok)
     check(ok, f"fused_softmax_ce {dname} D {d}: kernel disagrees with its plain version, "
-              "takes the other path or changes on a rerun")
+              "takes another path than its gate or changes on a rerun")
     bwd_err = max(float((a.float() - w.float()).abs().max())
                   for a, w in ((dx, gx), (dtab, gt), (dbias, gb)))
     return nll_err, bwd_err
@@ -1407,7 +1441,7 @@ def train_profile(trainer, batch_of, dtype_name, prefix, steps=5):
           device_ms_per_step=f"{busy_us / steps / 1e3:.3f}" if kernels else "not measured",
           device_busy_share=f"{busy_us / wall_us:.3f}" if kernels else "not measured",
           top=repr([(e.key[:48], round(e.self_device_time_total / steps, 1)) for e in top]))
-    for name in FWD_MMA_REQUIRED.get(prefix, ()):
+    for name in fwd_mma_required(prefix, dtype_name):
         check(any(name in e.key for e in kernels), f"{prefix}: no {name} in the profile")
 
 
@@ -1740,7 +1774,7 @@ def serve_profile(rec, batch, prefix, dtype_name, calls=5):
           device_ms_per_call=f"{busy_us / calls / 1e3:.3f}" if kernels else "not measured",
           device_busy_share=f"{busy_us / wall_us:.3f}" if kernels else "not measured",
           top=repr([(e.key[:48], round(e.self_device_time_total / calls, 1)) for e in top]))
-    for name in FWD_MMA_REQUIRED.get(prefix, ()):
+    for name in fwd_mma_required(prefix, dtype_name):
         check(any(name in e.key for e in kernels), f"{prefix}: no {name} in the profile")
 
 
@@ -2181,7 +2215,8 @@ def b4r_training_kernel_times(dev):
         "fused_softmax_ce_bwd": ce_bwd_bound_ms(n, N_ITEMS, 4),
     }
     fma = {"fused_transformer_layer_sel": sel_bound_ms(lc, MASK_LEN, p, 4, stash=True,
-                                                        priced_fma=True)}
+                                                        priced_fma=True),
+           "fused_softmax_ce": ce_bound_ms(n, N_ITEMS, 4, train=True, priced_fma=True)}
     rows = {}
     for name, ms in times.items():
         bound, flops, by = bounds[name]
@@ -2299,6 +2334,166 @@ def row13_bwd_phase_times(dev, calls=10):
                   device_ms=f"{sum(dev_us.values()) / calls / 1e3:.4f}", row_splits=splits)
 
 
+def ce_fwd_kernel_times(dev, calls=10):
+    """The CE forwards beyond the fp32 row of ``b4r_training_kernel_times``
+    and the bf16 row of ``xlong_kernel_times``: row 13 at the cloze loss (N
+    81,920, V 3,417, with a bias) in bf16 (bf16 x and products) at D 64, and
+    at the d256 path's D 256 in fp32 and bf16; row 14 at the longodd step's
+    loss in fp32 (N 512, V 329,728, 329,722 valid, D 64, no bias).  Each
+    beside its bound (tensor-core priced, the FMA-priced one beside), its
+    plain version and one PyTorch call, ``F.cross_entropy`` of the logits
+    (row 13 in bf16 of the bf16 product, cuBLAS rounding those logits to
+    bf16; row 14 with the columns beyond valid_v at -1e30), checked first
+    against the plain nll as ``row13_kernel_times`` checks it.  Then row
+    14's forward by kernel at XLong (bf16) and longodd (fp32): the split
+    partials and ``cce_lse_kernel``, from torch.profiler over ``calls``
+    calls.  Uses only the wrappers' public calls, so it times a parent's
+    kernels too (``chip_compare.py``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+    n = TRAIN_B * MASK_LEN
+
+    def emit(name, ms, plain_ms, lib_ms, bnd, fma, **shape):
+        bound, flops, by = bnd
+        phase("kernel-time", kernel=name, **shape, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}",
+              bound_by=by, share_of_bound=f"{bound / ms:.4f}", fma_bound_ms=f"{fma[0]:.5f}")
+
+    def library(logits_fn, tgt, want, tol, **shape):
+        with torch.no_grad():
+            lib_out = F.cross_entropy(logits_fn(), tgt, reduction="none")
+            lib_err = float((lib_out - want).abs().max())
+            phase("library-vs-plain", call="F.cross_entropy(logits)", **shape,
+                  max_abs_err=f"{lib_err:.3e}", tol=f"{tol:.3e}", ok=lib_err <= tol)
+            check(lib_err <= tol, f"F.cross_entropy {shape} does not compute the plain CE")
+            return time_ms(lambda: F.cross_entropy(logits_fn(), tgt, reduction="none"))
+
+    xc = None
+    for d, dt in ROW13_CASES:
+        if xc is None or xc.shape[1] != d:
+            xc, table, bias, tgt, _ = ce_inputs(gen, dev, n, d)
+        mm = dt == torch.bfloat16
+        x = xc.to(dt)
+        dname = str(dt).split(".")[-1]
+        ms = time_ms(lambda: FCE.fused_softmax_ce_train(x, table, tgt, bias, None, mm))
+        with torch.no_grad():
+            plain_ms = time_ms(lambda: FCE.fused_softmax_ce_plain(x, table, tgt, bias, None, mm),
+                               reps=5, warmup=1)
+            want = FCE.fused_softmax_ce_plain(x, table, tgt, bias, None, mm)
+            lib_tab = table.bfloat16() if mm else table
+            top = float((x @ lib_tab.T + bias).abs().max())
+        tol = 2.0 ** -8 * top if mm else 1e-4 * float(want.abs().max())
+        shape = dict(shape="b4r" if d == D else "d256", B=TRAIN_B, N=n, V=N_ITEMS, D=d,
+                     dtype=dname)
+        lib_ms = library(lambda: x @ lib_tab.T + bias, tgt, want, tol, **shape)
+        emit("fused_softmax_ce", ms, plain_ms, lib_ms,
+             ce_bound_ms(n, N_ITEMS, x.element_size(), train=True, mm_bf16=mm, d=d),
+             ce_bound_ms(n, N_ITEMS, x.element_size(), train=True, mm_bf16=mm, d=d,
+                         priced_fma=True), **shape, mm_bf16=mm)
+        del want
+    del xc, table, bias, tgt
+
+    xc, table, tgt, _ = _xlong_ce_inputs(gen, dev)
+    vp = table.shape[0]
+    mask = torch.where(torch.arange(vp, device=dev) < XV, 0.0, FCE.NEG)
+    shape = dict(shape="longodd", B=XB, T=LT, N=XB, V=vp, dtype="float32")
+    ms = time_ms(lambda: FCE.fused_softmax_ce_chunked_train(xc, table, tgt, None, XV, False))
+    with torch.no_grad():
+        plain_ms = time_ms(lambda: FCE.fused_softmax_ce_chunked_fwd_plain(
+            xc, table, tgt, None, XV, False), reps=5, warmup=1)
+        want = FCE.fused_softmax_ce_chunked_fwd_plain(xc, table, tgt, None, XV, False)[0]
+    lib_ms = library(lambda: xc @ table.T + mask, tgt, want, 1e-4 * float(want.abs().max()),
+                     **shape)
+    emit("fused_softmax_ce_chunked", ms, plain_ms, lib_ms,
+         ce_bound_ms(XB, vp, 4, train=True), ce_bound_ms(XB, vp, 4, train=True, priced_fma=True),
+         **shape, mm_bf16=False)
+
+    for label, x, mm in (("xlong", xc.to(torch.bfloat16), True), ("longodd", xc, False)):
+        def call():
+            return FCE.fused_softmax_ce_chunked_train(x, table, tgt, None, XV, mm)
+
+        ms = time_ms(call)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+        parts = {}
+        for part, kernel in (("partials", "cce_fwd"), ("lse", "cce_lse_kernel")):
+            us = sum(v for k, v in dev_us.items() if kernel in k)
+            parts[part] = f"{us / calls / 1e3:.4f}" if us else "not measured"
+        phase("kernel-time-phase", kernel="fused_softmax_ce_chunked", shape=label, N=XB, V=vp,
+              D=D, dtype=str(x.dtype).split(".")[-1], mm_bf16=mm, ms=f"{ms:.4f}",
+              **{f"{k}_ms": v for k, v in parts.items()},
+              device_ms=f"{sum(dev_us.values()) / calls / 1e3:.4f}",
+              kernels=repr(sorted(k[:40] for k in dev_us)))
+
+
+def served_kernel_times(dev):
+    """The forwards that a ``recommend()`` of B 256 users launches outside
+    the whole-layer kernels, at p 0: row 5 (onelayer: T 200, D 64, fp32),
+    row 7 (wide: T 200, C 256), row 8 (longodd: T 1,020, C 128, in the
+    path's serving bf16) and row 9 (XLong: T 1,024, bf16, with the
+    prologue), each beside its bound, its plain version (rows 8 and 9 walk
+    T in Python: two calls each, no warm-up) and, for row 5,
+    ``F.layer_norm``, checked first against the plain version."""
+    gen = torch.Generator().manual_seed(SEED + 35)
+
+    def emit(name, ms, plain_ms, bnd, lib=None, fma=None, **shape):
+        bound, flops, by = bnd
+        phase("kernel-time", kernel=name, **shape, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              library_ms=f"{lib:.4f}" if lib is not None else "none", bound_ms=f"{bound:.5f}",
+              gflop=f"{flops / 1e9:.3f}", bound_by=by, share_of_bound=f"{bound / ms:.4f}",
+              **({"fma_bound_ms": f"{fma[0]:.5f}"} if fma else {}))
+
+    with torch.no_grad():
+        x = (2 * torch.randn((B, T, D), generator=gen)).to(dev)
+        sc = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev)
+        bias = (0.1 * torch.randn(D, generator=gen)).to(dev)
+        ms = time_ms(lambda: FL.fused_dropout_ln(x, sc, bias, 0.0, 0))
+        plain = time_ms(lambda: FL.fused_dropout_ln_plain(x, sc, bias, 0.0, 0), reps=5, warmup=1)
+        want = FL.fused_dropout_ln_plain(x, sc, bias, 0.0, 0)
+        lib_err = float((F.layer_norm(x, (D,), sc, bias, L.LN_EPS) - want).abs().max())
+        lib_ok = lib_err <= 1e-4 * float(want.abs().max())
+        phase("library-vs-plain", call="F.layer_norm(x)", B=B, T=T, max_abs_err=f"{lib_err:.3e}",
+              tol="1e-4*max|plain|", ok=lib_ok)
+        check(lib_ok, "F.layer_norm does not compute row 5's function at p 0")
+        lib = time_ms(lambda: F.layer_norm(x, (D,), sc, bias, L.LN_EPS))
+        emit("fused_dropout_ln", ms, plain, dropout_ln_bound_ms(B, T, 4), lib, shape="onelayer",
+             B=B, T=T, D=D, dtype="float32", p=0.0)
+        del x, want
+
+        g = (0.3 + 0.699 * torch.rand((B, T, WIDE_C), generator=gen)).to(dev)
+        xs = torch.randn((B, T, WIDE_C), generator=gen).to(dev)
+        ms = time_ms(lambda: SC.linear_scan(g, xs))
+        plain = time_ms(lambda: SC.linear_scan_serial(g, xs), reps=5, warmup=1)
+        emit("linear_scan", ms, plain, scan_bound_ms(B, T, WIDE_C), shape="wide", B=B, T=T,
+             C=WIDE_C, dtype="float32")
+        del g, xs
+
+        p = bdlru_params(gen, dev)
+        xb = torch.randn((B, LT, C), generator=gen).to(dev, torch.bfloat16)
+        ms = time_ms(lambda: FBD.fused_bdlru(xb, *p.values()), reps=10)
+        plain = time_ms(lambda: FBD.fused_bdlru_plain(xb, *p.values()), reps=2, warmup=0)
+        emit("fused_bdlru", ms, plain, bdlru_bound_ms(B, LT, C, p, 2),
+             fma=bdlru_bound_ms(B, LT, C, p, 2, priced_fma=True), shape="longodd", B=B, T=LT,
+             C=C, K=K, dtype="bfloat16")
+        del xb
+
+        p1 = layer_params(gen, dev, prologue=True)
+        xx = torch.randn((B, XT, D), generator=gen).to(dev, torch.bfloat16)
+        args = (True, True, True, 0.0, 0)
+        ms = time_ms(lambda: FLC.fused_recurrent_layer_chunked(xx, p1, *args), reps=10)
+        plain = time_ms(lambda: FLC.fused_recurrent_layer_chunked_plain(xx, p1, *args), reps=2,
+                        warmup=0)
+        emit("fused_recurrent_layer_chunked", ms, plain, chunked_bound_ms(B, XT, p1, 2),
+             fma=chunked_bound_ms(B, XT, p1, 2, priced_fma=True), shape="xlong", B=B, T=XT,
+             dtype="bfloat16", p=0.0)
+
+
 # ---------------------------------------------------------------------------
 # the XLong configuration: the chunked layer, the vocab-chunked CE and the
 # table gradient
@@ -2410,7 +2605,12 @@ def xlong_kernels_vs_plain(dev):
     for dt, mm in ((torch.float32, False), (torch.float32, True), (torch.bfloat16, True)):
         dname = str(dt).split(".")[-1]
         xd = xc.to(dt)
-        nll, lse = FCE.fused_softmax_ce_chunked_train(xd, table, tgt, None, XV, mm)
+        fwd = FCE.fused_softmax_ce_chunked_train
+        before = fwd.mma_launches
+        nll, lse = fwd(xd, table, tgt, None, XV, mm)
+        fwd_mma = fwd.mma_launches - before
+        fwd_same = all(torch.equal(a, b) for a, b in zip(fwd(xd, table, tgt, None, XV, mm),
+                                                        (nll, lse)))
         dx, dtab, dbias = FCE.fused_softmax_ce_chunked_bwd(xd, table, tgt, dnll, None, XV, mm,
                                                            lse=lse)
         bias = torch.zeros((table.shape[0],), device=dev)
@@ -2422,15 +2622,18 @@ def xlong_kernels_vs_plain(dev):
         ok_nll = bool(((nll - want.detach()).abs() <= 1e-4 + 1e-5 * want.detach().abs()).all())
         rows = {"dx": _grad_err_ok(dx, gx, dt, True), "dtable": _grad_err_ok(dtab, gt, dt, False),
                 "dbias": _grad_err_ok(dbias, gb, dt, False)}
-        ok = ok_nll and all(o for _, o in rows.values())
+        ok = (ok_nll and fwd_same and all(o for _, o in rows.values())
+              and fwd_mma == int(FCE.chunked_fwd_uses_mma(D, mm)))
         phase("xlong-kernel-vs-plain", kernel="fused_softmax_ce_chunked_bwd", dtype=dname,
               mm_bf16=mm, path="tensor cores" if FCE.chunked_bwd_uses_mma(D, mm) else "fp32 FMA",
+              fwd_mma_launches=fwd_mma, fwd_rerun_bit_equal=fwd_same,
               shape=f"N{XB}xV{table.shape[0]}xD{D}", valid_v=XV,
               nll_max_abs_err=f"{nll_err:.3e}", nll_tol="1e-4 + 1e-5*|plain|",
               rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
               tol=f"max|err|/max|plain| <= {GRAD_RTOL}"
                   + (" (bf16 dx: + 2^-7*|plain|)" if mm else ""), ok=ok)
-        check(ok, f"fused_softmax_ce_chunked {dname}: kernel disagrees with its plain version")
+        check(ok, f"fused_softmax_ce_chunked {dname}: kernel disagrees with its plain version, "
+                  "or its forward takes another path than its gate or changes on a rerun")
         if dt == torch.float32 and not mm:
             errs["fused_softmax_ce_chunked"] = nll_err
         errs["fused_softmax_ce_chunked_bwd"] = max(
@@ -2887,7 +3090,9 @@ def xlong_kernel_times(dev):
            "fused_recurrent_layer_last_bwd": k2_bwd_bound_ms(lens.cpu(), XT, p2, 2,
                                                              priced_fma=True),
            "fused_recurrent_layer_chunked": chunked_bound_ms(XB, XT, p1, 2, priced_fma=True),
-           "fused_recurrent_layer_last": k2_bound_ms(lens.cpu(), p2, 2, t=XT, priced_fma=True)}
+           "fused_recurrent_layer_last": k2_bound_ms(lens.cpu(), p2, 2, t=XT, priced_fma=True),
+           "fused_softmax_ce_chunked": ce_bound_ms(XB, vp, 2, train=True, mm_bf16=True,
+                                                   priced_fma=True)}
     rows = {}
     for name, ms in times.items():
         bound, flops, by = bounds[name]
@@ -3976,11 +4181,13 @@ def main():
     b4r_rows = b4r_training_kernel_times(dev)
     row13_kernel_times(dev)
     row13_bwd_phase_times(dev)
+    ce_fwd_kernel_times(dev)
     xlong_rows = xlong_kernel_times(dev)
     row14_bwd_phase_times(dev)
     recblr_bwd_phase_times(dev)
     recblr_fwd_phase_times(dev)
     slice_rows = slice_kernel_times(dev)
+    served_kernel_times(dev)
     row15_rows = row15_kernel_times(dev)
     row15_phase_times(dev)
     # launches: each model's kernels in one training step of its main path

@@ -17,14 +17,24 @@
 // that the [N, V] logits (1.12 GB fp32) never reach HBM; here too every
 // logit lives in registers only.
 //
-// The forward, and the backward at D > 256, compute the products as fp32
-// FMA on the CUDA cores (ce_common.cuh's 16 x 16 thread tiles):
+// The fp32 forward at D <= 256 (ce_fwd_mma_kernel) runs its logits on the
+// tensor cores as 3xTF32 through ce_mma.cuh's ce_fwd_mma_tiles: a block per
+// 128 rows over every table tile, 16 rows a warp, as pass (a) below minus
+// its dx product, each k-tile in a fresh accumulator; an online (max, sum
+// of exp) a lane, the four lanes of a row merged in a fixed butterfly; nll
+// = lse - l[target] from the same logits, and in training the lse the
+// backward reads.  The bound is one logit-sized 3xTF32 product: 0.217 ms at
+// the cloze loss.
+// The bf16 forward (mm_bf16), and the forward and the backward at D
+// 257-512, compute the products as fp32 FMA on the CUDA cores
+// (ce_common.cuh's 16 x 16 thread tiles):
 //   fwd   a block per BM rows holds its x rows in shared memory and streams
 //         the table in [BV, D] tiles; each thread computes an RT x RT block
 //         of logits and keeps an online logsumexp per row (running max,
 //         rescaled sum); the 16 lanes of a row combine theirs with
-//         shuffles.  It writes nll and, in training, the lse the backward
-//         reads.  RT = 4 (64 x 64 tiles) for D <= 128, else RT = 1.
+//         shuffles.  RT = 4 (64 x 64 tiles) for D <= 128, else RT = 1.  Its
+//         lse is the one the bf16 backward needs (the second point of
+//         accuracy below).
 //   dx, dtab (D 257-512, RT = 1) as the passes below, one logit a thread.
 //
 // The backward at D <= 256 runs its four products (the logits once per
@@ -72,17 +82,25 @@
 //     dx's values out of the smoke's bound at the cloze loss.  Pass (a)
 //     therefore recomputes each logit whose g lies that near a boundary
 //     (near_bf16_tie, some 0.4% of them at D 64, 1.6% at D 256) as the
-//     FMA forward sums it, so round(g) is the FMA backward's.
+//     FMA forward sums it, so round(g) is the FMA backward's.  g also
+//     takes the forward's lse, so the bf16 forward keeps the FMA kernel: a
+//     tensor-core lse (bf16 products, ce_fwd_mma_tiles<true, DP>, which row
+//     14 runs) moves every g of a row by exp(its error), and where one
+//     logit carries most of a row's mass that error is the logit's own;
+//     the smoke's bf16 dx at the cloze loss then left its bound, with or
+//     without the row's largest logits summed again as FMA chains.
 // Every sum runs in a fixed order (the mma accumulation order within a
-// block, the splits in order, dbias's four lanes in a fixed butterfly): the
-// same bits from run to run, no atomics.  Left for later PRs: the forward
-// on the tensor cores, D 257-512 on them, wgmma.
+// block, the splits in order, the four lanes of a row and dbias's in a
+// fixed butterfly): the same bits from run to run, no atomics.  Left for
+// later PRs: the bf16 forward on the tensor cores (with an lse the bf16
+// backward's rounding of g agrees with), D 257-512 on them, wgmma.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include <cstdint>
 #include <type_traits>
 
 #include "ce_common.cuh"
+#include "ce_mma.cuh"
 #include "mma_tile.cuh"
 
 using namespace recblr;
@@ -235,38 +253,37 @@ constexpr int MMA_BM = 128;       // rows of a pass (a) block, 16 a warp
 constexpr int MMA_VB = 128;       // vocab rows of a pass (b) block, 16 a warp
 constexpr int MMA_MAX_D = 256;
 
-// D padded to DP = 64, 128 or 256 columns (zeros beyond D).  Pass (a)'s
-// table tile and pass (b)'s row chunk hold 4,096 elements: 64, 32 or 16
-// rows.  fp32 rows take a stride of DP + 4 floats (the TF32 fragment loads
-// of a warp hit 32 distinct banks), bf16 rows DP + 8 (the 8 rows of an
-// ldmatrix matrix hit 8 distinct 16-byte bank groups).  The kernels ask for
+// Pass (a)'s table tile and pass (b)'s row chunk hold MmaTile<DP>::ROWS
+// rows (ce_mma.cuh: D padded to DP = 64, 128 or 256).  The kernels ask for
 // two blocks an SM at DP 64 (128 registers a thread), one wider.
-inline int mma_dp(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
+
+// The fp32 forward (D <= 256, 3xTF32).  Block: rows n0 .. n0 + 127, warp w
+// rows n0 + 16 w .. + 15, over every table tile (ce_mma.cuh
+// ce_fwd_mma_tiles); nll, lse: [N] fp32 (lse may be null).
 template <int DP>
-struct MmaTile {
-  static constexpr int ROWS = 4096 / DP;
-  static constexpr int XS = DP + 4;
-  static constexpr int BS = DP + 8;
-};
-
-__device__ __forceinline__ float ld_x(const void* x, int xbf, size_t i) {
-  return xbf ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i])
-             : static_cast<const float*>(x)[i];
-}
-
-// The bias of vocab row col: -1e30 at col >= valid_v, -inf beyond V (g 0).
-__device__ __forceinline__ float mma_col_bias(const float* bias, int col, int V, int valid_v) {
-  return col < valid_v ? __ldg(bias + col) : (col < V ? CE_NEG : -INFINITY);
-}
-
-// s += a b (m16n8k16, bf16 operands) through a fresh accumulator: the
-// logits' sum over D rounds as an fp32 sum does, so g, and its rounding to
-// bf16, departs from the plain version's as little as an FMA sum's would.
-__device__ __forceinline__ void mma_bf16_add(float (&s)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_bf16_16816(c, a, b0, b1);
-  add_tile(s, c);
+__global__ void __launch_bounds__(CE_MMA_THREADS, DP == 64 ? 2 : 1)
+ce_fwd_mma_kernel(const void* __restrict__ x, int xbf, const float* __restrict__ tab,
+                  const float* __restrict__ bias, const int* __restrict__ tgt,
+                  float* __restrict__ nll, float* __restrict__ lse_out, int N, int V, int D,
+                  int valid_v) {
+  extern __shared__ __align__(16) float smem[];
+  const int n0 = blockIdx.x * CE_MMA_BM;
+  const int r0 = n0 + 16 * (threadIdx.x / 32) + threadIdx.x % 32 / 4;
+  const int row[2] = {r0, r0 + 8};
+  const int tg[2] = {r0 < N ? tgt[r0] : -1, r0 + 8 < N ? tgt[r0 + 8] : -1};
+  float m[2], s[2], tl[2];
+  const int ntiles = (V + MmaTile<DP>::ROWS - 1) / MmaTile<DP>::ROWS;
+  ce_fwd_mma_tiles<false, DP>(x, xbf, tab, bias, tg, N, V, D, valid_v, n0, 0, ntiles, smem, m, s,
+                              tl);
+  ce_quad_merge(m, s, tl);
+  if (threadIdx.x % 4 != 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (row[h] < N) {
+      const float L = m[h] + logf(s[h]);
+      nll[row[h]] = L - tl[h];
+      if (lse_out != nullptr) lse_out[row[h]] = L;
+    }
 }
 
 // Whether g = (p - onehot) dnll, computed from a tensor-core logit, may
@@ -707,21 +724,6 @@ int ce_mma_splits(int N, int V, int device) {
   return best;
 }
 
-// f(MM, DP) for mm_bf16 and mma_dp(D), each as a std::integral_constant.
-template <typename F>
-auto mma_dispatch(int mm_bf16, int D, F f) {
-  using B1 = std::true_type;
-  using B0 = std::false_type;
-  const int dp = mma_dp(D);
-  if (mm_bf16)
-    return dp == 64    ? f(B1{}, std::integral_constant<int, 64>{})
-           : dp == 128 ? f(B1{}, std::integral_constant<int, 128>{})
-                       : f(B1{}, std::integral_constant<int, 256>{});
-  return dp == 64    ? f(B0{}, std::integral_constant<int, 64>{})
-         : dp == 128 ? f(B0{}, std::integral_constant<int, 128>{})
-                     : f(B0{}, std::integral_constant<int, 256>{});
-}
-
 template <bool MM, int DP>
 cudaError_t ce_bwd_mma(const void* x, int xbf, const float* tab, const float* bias,
                        const int* tgt, const float* dnll, const float* lse, void* dx, int R,
@@ -779,14 +781,37 @@ cudaError_t ce_bwd(const Tin* x, const float* tab, const float* bias, const int*
   return cudaGetLastError();
 }
 
-// The instantiation for x's type, mm_bf16 and the tile size of D.
+template <int DP>
+cudaError_t ce_fwd_mma(const void* x, int xbf, const float* tab, const float* bias,
+                       const int* tgt, float* nll, float* lse, int N, int V, int D, int valid_v,
+                       cudaStream_t stream) {
+  const size_t sm = ce_fwd_mma_smem<false, DP>();
+  cudaError_t e = ce_set_smem(ce_fwd_mma_kernel<DP>, sm);
+  if (e != cudaSuccess) return e;
+  ce_fwd_mma_kernel<DP><<<(N + CE_MMA_BM - 1) / CE_MMA_BM, CE_MMA_THREADS, sm, stream>>>(
+      x, xbf, tab, bias, tgt, nll, lse, N, V, D, valid_v);
+  return cudaGetLastError();
+}
+
+// Without mm_bf16, D <= MMA_MAX_D takes the tensor-core kernel (3xTF32); with
+// mm_bf16, or at a wider D, the fp32 FMA kernel with 16 x 16 tiles (RT = 4
+// for D <= 128, else 1): its lse is the one the bf16 backward's rounding of
+// g needs (the header's second point of accuracy).
 template <typename Tin>
 cudaError_t ce_fwd_any(const Tin* x, const float* tab, const float* bias, const int* tgt,
                        float* nll, float* lse, int N, int V, int D, int valid_v, int mm_bf16,
                        cudaStream_t s) {
-  if (D <= 128)
-    return mm_bf16 ? ce_fwd<Tin, true, 4>(x, tab, bias, tgt, nll, lse, N, V, D, valid_v, s)
-                   : ce_fwd<Tin, false, 4>(x, tab, bias, tgt, nll, lse, N, V, D, valid_v, s);
+  if (!mm_bf16 && D <= MMA_MAX_D) {
+    // the table tiles are copied in 16-byte pieces
+    if (reinterpret_cast<uintptr_t>(tab) % 16 != 0) return cudaErrorInvalidValue;
+    const int xbf = std::is_same<Tin, __nv_bfloat16>::value;
+    return mma_dispatch(0, D, [&](auto, auto dp) {
+      return ce_fwd_mma<decltype(dp)::value>(x, xbf, tab, bias, tgt, nll, lse, N, V, D, valid_v,
+                                             s);
+    });
+  }
+  if (D <= 128)  // with mm_bf16 only
+    return ce_fwd<Tin, true, 4>(x, tab, bias, tgt, nll, lse, N, V, D, valid_v, s);
   return mm_bf16 ? ce_fwd<Tin, true, 1>(x, tab, bias, tgt, nll, lse, N, V, D, valid_v, s)
                  : ce_fwd<Tin, false, 1>(x, tab, bias, tgt, nll, lse, N, V, D, valid_v, s);
 }
@@ -821,7 +846,8 @@ extern "C" {
 // x: [N, D] fp32 (bf16 == 0) or bf16; table: [V, D] and bias: [V] fp32;
 // tgt: [N] int32; nll: [N] fp32 out; lse: [N] fp32 out, or null; valid_v:
 // columns at or beyond it are masked; mm_bf16: round x and the table to
-// bf16 for the logits; device: the card that holds them.
+// bf16 for the logits; device: the card that holds them.  D <= 256 without
+// mm_bf16 needs a 16-byte aligned table.
 int recblr_ce_fwd(const void* x, const void* table, const void* bias, const void* tgt,
                   void* nll, void* lse, int N, int V, int D, int valid_v, int bf16, int mm_bf16,
                   int device, void* stream) {

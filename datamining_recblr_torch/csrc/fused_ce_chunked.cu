@@ -19,13 +19,26 @@
 // N = 512 rows make only 8 row blocks of 64, so a row-parallel grid would
 // fill 8 of the 132 SMs; the grid splits the vocab instead.
 //
-// The forward, and the backward without mm_bf16 or at D > 128, compute the
-// products as fp32 FMA on the CUDA cores (ce_common.cuh's 16 x 16 thread
-// tiles), bound by fp32 operations:
+// The forward at D <= 128 (cce_fwd_mma_kernel) runs its logits on the
+// tensor cores in both precisions through ce_mma.cuh's ce_fwd_mma_tiles
+// (bf16 products with mm_bf16, the XLong path; else 3xTF32, longodd's fp32
+// step), each k-tile in a fresh accumulator: block (128 rows, vocab split)
+// over its split's MmaTile<DP>::ROWS-row table tiles, each copied a tile
+// ahead by cp.async and converted once; an online (max, sum of exp) a lane,
+// the four lanes of a row merged in a fixed butterfly, the split's partial
+// written to part; cce_lse_kernel merges the splits in a fixed order, adds
+// the target logit (x unrounded, the chunked path's own rounding point)
+// and writes nll and lse.  N = 512 makes 4 row blocks, so the vocab splits
+// fill the card.  The bound is one logit-sized product, bf16 or 3xTF32, or
+// the table's bytes: 0.026 ms (bytes) at XLong in bf16, 0.131 at longodd's
+// fp32.  The forward at D > 128 keeps the fp32 FMA kernel below.
+//
+// The backward without mm_bf16 or at D > 128, and the forward at D > 128,
+// compute the products as fp32 FMA on the CUDA cores (ce_common.cuh's
+// 16 x 16 thread tiles), bound by fp32 operations:
 //   fwd     block (row block, vocab split) keeps an online logsumexp per
 //           row over its split's table tiles and writes (max, sum);
-//           cce_lse_kernel merges the splits in a fixed order, adds the
-//           target logit and writes nll and lse.
+//           cce_lse_kernel merges the splits as above.
 //   dx      the same grid: g of its tiles and dx += g table in registers,
 //           written to the split's own [N, D] slice; cce_dx_reduce_kernel
 //           sums the slices in order and subtracts dnll table[t].
@@ -60,14 +73,15 @@
 // Every sum runs in a fixed order (the mma accumulation order within a
 // block, the dx splits in order, one writer per dtable and dbias column,
 // dbias's four lanes in a fixed butterfly): the same bits from run to
-// run.  Left for later PRs: the fp32 path (mm_bf16 off) as 3xTF32, D > 128
-// and the forward on the tensor cores.
+// run.  Left for later PRs: the fp32 backward (mm_bf16 off) as 3xTF32, and
+// D > 128 on the tensor cores.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include <cstdint>
 #include <type_traits>
 
 #include "ce_common.cuh"
+#include "ce_mma.cuh"
 #include "mma_tile.cuh"
 
 using namespace recblr;
@@ -506,6 +520,56 @@ cce_dtab_mma_kernel(const Tin* __restrict__ x, const float* __restrict__ tab,
     }
 }
 
+// The forward on the tensor cores (D <= 128).  Block (row block rb, vocab
+// split sp): rows rb * 128 .. over the MmaTile<DP>::ROWS-row table tiles
+// sp * tps .. (sp + 1) * tps - 1 (ce_mma.cuh ce_fwd_mma_tiles); writes the
+// rows' (max, sum of exp) to part_m, part_s [S, N] for cce_lse_kernel.
+template <bool MM, int DP>
+__global__ void __launch_bounds__(CE_MMA_THREADS, DP == 64 ? 2 : 1)
+cce_fwd_mma_kernel(const void* __restrict__ x, int xbf, const float* __restrict__ tab,
+                   const float* __restrict__ bias, float* __restrict__ part_m,
+                   float* __restrict__ part_s, int N, int V, int D, int valid_v, int tps) {
+  extern __shared__ __align__(16) float smem[];
+  const int n0 = blockIdx.x * CE_MMA_BM, sp = blockIdx.y;
+  const int r0 = n0 + 16 * (threadIdx.x / 32) + threadIdx.x % 32 / 4;
+  const int row[2] = {r0, r0 + 8};
+  const int none[2] = {-1, -1};  // the target logit comes with x unrounded, in cce_lse_kernel
+  const int ntiles = (V + MmaTile<DP>::ROWS - 1) / MmaTile<DP>::ROWS;
+  const int vt0 = sp * tps, vt_end = min(ntiles, vt0 + tps);
+  float m[2], s[2], tl[2];
+  ce_fwd_mma_tiles<MM, DP>(x, xbf, tab, bias, none, N, V, D, valid_v, n0, vt0, vt_end, smem, m,
+                           s, tl);
+  ce_quad_merge(m, s, tl);
+  if (threadIdx.x % 4 != 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (row[h] < N) {
+      part_m[(size_t)sp * N + row[h]] = m[h];
+      part_s[(size_t)sp * N + row[h]] = s[h];
+    }
+}
+
+template <typename Tin, bool MM, int DP>
+cudaError_t cce_fwd_mma(const Tin* x, const float* tab, const float* bias, const int* tgt,
+                        float* part, int S, float* nll, float* lse, int N, int V, int D,
+                        int valid_v, cudaStream_t stream) {
+  constexpr int BV = MmaTile<DP>::ROWS;
+  const int tps = ((V + BV - 1) / BV + S - 1) / S;
+  const size_t sm = ce_fwd_mma_smem<MM, DP>();
+  cudaError_t e = ce_set_smem(cce_fwd_mma_kernel<MM, DP>, sm);
+  if (e != cudaSuccess) return e;
+  float* part_m = part;
+  float* part_s = part + (size_t)S * N;
+  const int xbf = std::is_same<Tin, __nv_bfloat16>::value;
+  cce_fwd_mma_kernel<MM, DP><<<dim3((N + CE_MMA_BM - 1) / CE_MMA_BM, S), CE_MMA_THREADS, sm,
+                               stream>>>(x, xbf, tab, bias, part_m, part_s, N, V, D, valid_v,
+                                         tps);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  cce_lse_kernel<Tin, MM><<<(N + 7) / 8, 256, 0, stream>>>(x, tab, bias, tgt, part_m, part_s, S,
+                                                          nll, lse, N, D);
+  return cudaGetLastError();
+}
+
 template <typename Tin, int KS>
 cudaError_t cce_bwd_mma(const Tin* x, const float* tab, const float* bias, const int* tgt,
                         const float* dnll, const float* lse, Tin* dx, float* dxp, int S,
@@ -576,16 +640,21 @@ cudaError_t cce_bwd(const Tin* x, const float* tab, const float* bias, const int
   return cudaGetLastError();
 }
 
-// The instantiation for mm_bf16 and the tile size of D.
+// D <= MMA_MAX_D takes the tensor-core kernel in both precisions (mm_bf16:
+// bf16 products; else 3xTF32), a wider D the fp32 FMA kernel with 16 x 16
+// tiles (RT = 1).
 template <typename Tin>
 cudaError_t cce_fwd_any(const Tin* x, const float* tab, const float* bias, const int* tgt,
                         float* part, int S, float* nll, float* lse, int N, int V, int D,
                         int valid_v, int mm_bf16, cudaStream_t s) {
-  if (D <= 128)
-    return mm_bf16
-               ? cce_fwd<Tin, true, 4>(x, tab, bias, tgt, part, S, nll, lse, N, V, D, valid_v, s)
-               : cce_fwd<Tin, false, 4>(x, tab, bias, tgt, part, S, nll, lse, N, V, D, valid_v,
-                                        s);
+  if (D <= MMA_MAX_D) {
+    // the table tiles are copied in 16-byte pieces
+    if (reinterpret_cast<uintptr_t>(tab) % 16 != 0) return cudaErrorInvalidValue;
+    return mma_dispatch<MMA_MAX_D>(mm_bf16, D, [&](auto mm, auto dp) {
+      return cce_fwd_mma<Tin, decltype(mm)::value, decltype(dp)::value>(
+          x, tab, bias, tgt, part, S, nll, lse, N, V, D, valid_v, s);
+    });
+  }
   return mm_bf16
              ? cce_fwd<Tin, true, 1>(x, tab, bias, tgt, part, S, nll, lse, N, V, D, valid_v, s)
              : cce_fwd<Tin, false, 1>(x, tab, bias, tgt, part, S, nll, lse, N, V, D, valid_v, s);
@@ -634,7 +703,8 @@ extern "C" {
 // tgt: [N] int32; part: [2, S, N] fp32 scratch for the S vocab splits;
 // nll: [N] fp32 out; lse: [N] fp32 out, or null; valid_v: columns at or
 // beyond it are masked; mm_bf16: round x and the table to bf16 for the
-// logits; device: the card that holds them.
+// logits; device: the card that holds them.  D <= 128 needs a 16-byte
+// aligned table.
 int recblr_cce_fwd(const void* x, const void* table, const void* bias, const void* tgt,
                    void* part, int S, void* nll, void* lse, int N, int V, int D, int valid_v,
                    int bf16, int mm_bf16, int device, void* stream) {

@@ -34,6 +34,7 @@ SOURCES = ("fused_layer.cu", "fused_layer_last.cu", "fused_layer_bwd.cu",
            "emb_grad.cu", "linear_scan.cu", "fused_bdlru.cu", "fused_bdlru_bwd.cu",
            "attention.cu", "attention_bwd.cu")
 HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh", "ce_common.cuh",
+           "ce_mma.cuh",
            "attention.cuh", "gemm_tile.cuh", "mma_tile.cuh", "mma_smem.cuh", "layer_fwd.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -16,13 +16,16 @@ version.  Two paths, as in ``datamining_recblr_tpu/ops/fused_ce.py``:
   With ``mm_bf16`` the logits take x and the table rounded to bf16 (fp32
   sums), dx takes g and the table rounded, dtable takes g and x unrounded
   (``fused_ce.py:114-122``).  The backward runs its products on the
-  tensor cores at D <= 256 in both precisions (``bwd_uses_mma``: 3xTF32
-  in fp32, bf16 products with ``mm_bf16``), the fp32 FMA kernels above.
+  tensor cores at D <= 256 in both precisions (``bwd_uses_mma``: 3xTF32 in
+  fp32, bf16 products with ``mm_bf16``), the fp32 FMA kernels above; the
+  forward its logits there in fp32 (``fwd_uses_mma``: 3xTF32), the FMA
+  kernel with ``mm_bf16`` and above D 256.
 * vocab-chunked, for tables beyond ``supports`` (XLong: V = 329,728):
   ``_cce_fwd_kernel`` via ``_cce_fwd`` :413 and the kernels of
-  ``_cce_bwd`` :448; ``csrc/fused_ce_chunked.cu``, whose backward runs
-  its products on the tensor cores with ``mm_bf16`` at D <= 128
-  (``chunked_bwd_uses_mma``).  The same function
+  ``_cce_bwd`` :448; ``csrc/fused_ce_chunked.cu``, whose forward runs its
+  logits on the tensor cores at D <= 128 in both precisions
+  (``chunked_fwd_uses_mma``) and whose backward runs its products there
+  with ``mm_bf16`` at D <= 128 (``chunked_bwd_uses_mma``).  The same function
   with the JAX chunked path's own rounding points: the target logit is
   x . table[t] + bias[t] with x unrounded (``:404-407``); g = softmax
   dnll without the one-hot term, dx = g table - dnll table[t] with the
@@ -41,8 +44,10 @@ kernel or raises, and with grad enabled it runs a
 ``torch.autograd.Function`` whose backward is the backward kernel.
 ``launches`` on ``fused_softmax_ce`` and ``fused_softmax_ce_bwd`` (the
 whole-table kernels) and on ``fused_softmax_ce_chunked`` and
-``fused_softmax_ce_chunked_bwd`` counts their kernel launches, and
-``mma_launches`` on the two backwards those of their tensor-core paths.
+``fused_softmax_ce_chunked_bwd`` counts their kernel launches (a forward's
+from any entry point), and ``mma_launches`` on the two backwards and on
+``fused_softmax_ce_train`` and ``fused_softmax_ce_chunked_train`` (the
+forwards', from any entry point) those of their tensor-core paths.
 """
 
 from __future__ import annotations
@@ -58,8 +63,8 @@ MIN_ROWS = 8192
 # would materialize take this many bytes (fused_ce.py:260)
 CHUNK_MIN_LOGITS_BYTES = 64 * 1024 * 1024
 MAX_D = 512  # the kernels' 16 x 16 tiles hold rows of up to 512 floats
-MMA_MAX_D = 128  # the chunked backward's tensor-core kernels hold rows of up to 128
-BWD_MMA_MAX_D = 256  # the whole-table backward's tensor-core kernels: rows of up to 256
+MMA_MAX_D = 128  # the chunked kernels' tensor-core tiles hold rows of up to 128
+BWD_MMA_MAX_D = 256  # the whole-table kernels' tensor-core tiles: rows of up to 256
 
 
 def supports(v: int, d: int) -> bool:
@@ -71,6 +76,14 @@ def supports(v: int, d: int) -> bool:
 def supports_chunked(v: int, d: int) -> bool:
     """Whether the [V, D] table takes the vocab-chunked kernel: any V."""
     return d <= MAX_D
+
+
+def chunked_fwd_uses_mma(d: int, mm_bf16: bool) -> bool:
+    """Whether the chunked forward runs its logits on the tensor cores
+    (``csrc/fused_ce_chunked.cu`` ``cce_fwd_mma_kernel``): at D <= 128 in
+    both precisions (bf16 products with ``mm_bf16``, else 3xTF32); above,
+    the fp32 FMA kernel."""
+    return d <= MMA_MAX_D
 
 
 def chunked_bwd_uses_mma(d: int, mm_bf16: bool) -> bool:
@@ -86,6 +99,16 @@ def bwd_uses_mma(d: int, mm_bf16: bool) -> bool:
     precisions (``mm_bf16`` picks bf16 products or 3xTF32); above, the fp32
     FMA kernels."""
     return d <= BWD_MMA_MAX_D
+
+
+def fwd_uses_mma(d: int, mm_bf16: bool) -> bool:
+    """Whether the whole-table forward runs its logits on the tensor cores
+    (``csrc/fused_ce.cu`` ``ce_fwd_mma_kernel``, 3xTF32): without
+    ``mm_bf16``, where the backward does (D <= 256).  With ``mm_bf16`` it
+    keeps the FMA kernel: the bf16 backward rounds g against FMA-order
+    logits and this forward's lse, and a tensor-core lse put the bf16 dx of
+    the cloze loss beyond the card check's bound."""
+    return not mm_bf16 and bwd_uses_mma(d, mm_bf16)
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +310,9 @@ def _check_bwd_rows(x, dnll, lse):
 def _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
     """(nll, lse) [N] fp32; lse only when ``train``."""
     n, d = x.shape
+    mma = fwd_uses_mma(d, mm_bf16)  # the C side dispatches on the same facts
+    if mma and table.data_ptr() % 16:
+        table = table.clone()  # the tensor-core kernel copies it in 16-byte pieces
     lib = _cuda.library("fused_ce.cu")
     nll = torch.empty((n,), device=x.device, dtype=torch.float32)
     lse = torch.empty_like(nll) if train else None
@@ -298,6 +324,7 @@ def _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
         )
     _cuda.check(lib, err, "fused_softmax_ce")
     fused_softmax_ce.launches += 1
+    fused_softmax_ce_train.mma_launches += int(mma)
     return nll, lse
 
 
@@ -307,6 +334,11 @@ def fused_softmax_ce_train(x, table, targets, bias=None, valid_v=None, mm_bf16=F
     _cuda.require_cuda(x)
     table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, False)
     return _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, True)
+
+
+# the whole-table forward's launches on the tensor cores, from any entry
+# point (``fused_softmax_ce.launches`` counts them all)
+fused_softmax_ce_train.mma_launches = 0
 
 
 def fused_softmax_ce_bwd(x, table, targets, dnll, bias=None, valid_v=None, mm_bf16=False, *,
@@ -366,6 +398,9 @@ def _launch_cfwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
     ``train``."""
     n, d = x.shape
     v = table.shape[0]
+    mma = chunked_fwd_uses_mma(d, mm_bf16)  # the C side dispatches on the same fact
+    if mma and table.data_ptr() % 16:
+        table = table.clone()  # the tensor-core kernel copies it in 16-byte pieces
     s = _vocab_splits(n, v, d, x.device)
     part = torch.empty((2, s, n), device=x.device, dtype=torch.float32)
     nll = torch.empty((n,), device=x.device, dtype=torch.float32)
@@ -379,6 +414,7 @@ def _launch_cfwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
         )
     _cuda.check(lib, err, "fused_softmax_ce_chunked")
     fused_softmax_ce_chunked.launches += 1
+    fused_softmax_ce_chunked_train.mma_launches += int(mma)
     return nll, lse
 
 
@@ -388,6 +424,11 @@ def fused_softmax_ce_chunked_train(x, table, targets, bias=None, valid_v=None, m
     _cuda.require_cuda(x)
     table, bias, tgt32, valid_v = _check(x, table, targets, bias, valid_v, True)
     return _launch_cfwd(x, table, bias, tgt32, valid_v, mm_bf16, True)
+
+
+# the chunked forward's launches on the tensor cores, from any entry point
+# (``fused_softmax_ce_chunked.launches`` counts them all)
+fused_softmax_ce_chunked_train.mma_launches = 0
 
 
 def fused_softmax_ce_chunked_bwd(x, table, targets, dnll, bias=None, valid_v=None,

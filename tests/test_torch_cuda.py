@@ -925,6 +925,92 @@ def test_ce_kernels_match_plain(dev, n, v, valid_v, d, dtype, mm_bf16):
     assert torch.equal(dx2, dx) and torch.equal(dtab2, dtab) and torch.equal(dbias2, dbias)
 
 
+# (N, V, valid_v, D) of the forwards: N no multiple of the 128-row block, V
+# no multiple of the 64-, 32- or 16-row table tile, masked columns; row 13
+# at D 50, 64, 128, 200 and 256 (its tensor-core widths), row 14 at D 64,
+# 100 and 128 with many vocab splits
+CE_FWD_SHAPES = [(1000, 300, 290, 50), (1000, 300, 290, 64), (517, 211, 200, 128),
+                 (300, 97, 90, 200), (257, 300, 290, 256)]
+CCE_FWD_SHAPES = [(300, 5000, 4990, 64), (257, 3001, 2990, 100), (129, 4000, 3999, 128)]
+
+
+def _ce_fwd_case(rng, n, v, valid_v, d, dtype, table_dtype, dev):
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev, dtype)
+    table = torch.from_numpy((0.3 * rng.standard_normal((v, d))).astype(np.float32)).to(
+        dev, table_dtype)
+    bias = torch.from_numpy(rng.standard_normal(v).astype(np.float32)).to(dev, table_dtype)
+    tgt = torch.from_numpy(rng.integers(0, valid_v, n)).to(dev)
+    tgt[::5] = valid_v - 1  # targets in the last tile
+    return x, table, bias, tgt
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunked,n,v,valid_v,d",
+                         [(False, *s) for s in CE_FWD_SHAPES] + [(True, *s) for s in CCE_FWD_SHAPES])
+def test_ce_forward_kernels_match_plain(dev, chunked, n, v, valid_v, d, dtype, mm_bf16,
+                                        table_dtype):
+    """Rows 13 and 14 forward: nll and lse against the plain version (atol
+    1e-4 + rtol 1e-5: an fp32 logsumexp in another order), with a bias (in
+    the table's dtype), masked columns and targets in the last tile; the
+    tensor-core kernel runs exactly where the gate says (row 13:
+    ``fwd_uses_mma``, at D <= 256 without ``mm_bf16``; row 14:
+    ``chunked_fwd_uses_mma``, at D <= 128, with more than one vocab split),
+    and a rerun gives the same bits."""
+    from datamining_recblr_torch.ops import fused_ce as FCE
+
+    rng = np.random.default_rng(57 + d)
+    x, table, bias, tgt = _ce_fwd_case(rng, n, v, valid_v, d, getattr(torch, dtype),
+                                       getattr(torch, table_dtype), dev)
+    if chunked:
+        train, counted = FCE.fused_softmax_ce_chunked_train, FCE.fused_softmax_ce_chunked
+        mma = FCE.chunked_fwd_uses_mma(d, mm_bf16)
+        assert FCE._vocab_splits(n, v, d, x.device) > 1
+        want = FCE.fused_softmax_ce_chunked_fwd_plain(x, table, tgt, bias, valid_v, mm_bf16)
+    else:
+        train, counted = FCE.fused_softmax_ce_train, FCE.fused_softmax_ce
+        mma = FCE.fwd_uses_mma(d, mm_bf16)
+        want = FCE._plain_fwd(x, table, bias.float(), tgt, valid_v, mm_bf16)
+    assert mma == (chunked or not mm_bf16)
+    before = (counted.launches, train.mma_launches)
+    nll, lse = train(x, table, tgt, bias, valid_v, mm_bf16)
+    assert (counted.launches - before[0], train.mma_launches - before[1]) == (1, int(mma))
+    assert nll.shape == lse.shape == (n,) and nll.dtype == lse.dtype == torch.float32
+    torch.testing.assert_close(nll, want[0], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, want[1], atol=1e-4, rtol=1e-5)
+    nll2, lse2 = train(x, table, tgt, bias, valid_v, mm_bf16)
+    assert torch.equal(nll2, nll) and torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("chunked,d,mm_bf16,mma",
+                         [(False, 256, False, True), (False, 256, True, False),
+                          (False, 300, False, False), (False, 300, True, False),
+                          (True, 128, False, True), (True, 128, True, True),
+                          (True, 200, False, False), (True, 200, True, False)])
+def test_ce_forwards_count_mma_launches_by_their_gates(dev, chunked, d, mm_bf16, mma):
+    """Beyond its tensor-core width a forward runs the fp32 FMA kernel and
+    counts no launch on the tensor cores: row 13 at D 300 and with
+    ``mm_bf16``, row 14 at D 200; both agree with the plain version there
+    too."""
+    from datamining_recblr_torch.ops import fused_ce as FCE
+
+    rng = np.random.default_rng(58)
+    x, table, bias, tgt = _ce_fwd_case(rng, 200, 150, 141, d, torch.float32, torch.float32,
+                                       dev)
+    train = FCE.fused_softmax_ce_chunked_train if chunked else FCE.fused_softmax_ce_train
+    gate = FCE.chunked_fwd_uses_mma if chunked else FCE.fwd_uses_mma
+    assert gate(d, mm_bf16) == mma
+    before = train.mma_launches
+    nll, lse = train(x, table, tgt, bias, 141, mm_bf16)
+    assert train.mma_launches - before == int(mma)
+    plain = FCE.fused_softmax_ce_chunked_fwd_plain if chunked else FCE._plain_fwd
+    want = (plain(x, table, tgt, bias, 141, mm_bf16) if chunked
+            else plain(x, table, bias, tgt, 141, mm_bf16))
+    torch.testing.assert_close(nll, want[0], atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, want[1], atol=1e-4, rtol=1e-5)
+
+
 def test_ce_wrapper_rejects_what_it_does_not_take(dev):
     from datamining_recblr_torch.ops import fused_ce as FCE
 

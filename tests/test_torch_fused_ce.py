@@ -312,3 +312,83 @@ def test_bf16_dx_rounds_g_with_its_one_hot_term():
 @pytest.mark.parametrize("d", [16, 64, 128, 200, 256, 257, 512])
 def test_whole_table_bwd_takes_the_tensor_cores_up_to_d_256(d, mm_bf16):
     assert FCE.bwd_uses_mma(d, mm_bf16) == (d <= 256)
+
+
+# ---------------------------------------------------------------------------
+# the forwards on the tensor cores (rows 13 and 14)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("d", [64, 128, 129, 256, 257])
+def test_forward_gates(d, mm_bf16):
+    """Row 14's forward takes the tensor cores at D <= 128 in both
+    precisions; row 13's without ``mm_bf16`` where its backward does, at D
+    <= 256, and with ``mm_bf16`` none (the FMA kernel keeps the lse that
+    its bf16 backward's rounding of g needs)."""
+    assert FCE.chunked_fwd_uses_mma(d, mm_bf16) == (d <= 128)
+    assert FCE.fwd_uses_mma(d, mm_bf16) == (not mm_bf16 and d <= 256)
+    assert FCE.fwd_uses_mma(d, False) == FCE.bwd_uses_mma(d, False)
+
+
+class _FakeLib:
+    """Stands in for a kernel library: records the forward's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def recblr_ce_fwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+    recblr_cce_fwd = recblr_ce_fwd
+
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+@pytest.mark.parametrize("d", [64, 128, 129, 256, 257])
+@pytest.mark.parametrize("chunked", [False, True], ids=["whole_table", "chunked"])
+def test_forward_counts_mma_launches_where_its_gate_says(monkeypatch, chunked, d, mm_bf16):
+    """Each forward's wrapper counts a launch on the tensor cores exactly
+    where its gate sends it there (the C side dispatches on the same fact),
+    and hands the kernel a 16-byte aligned table there (a copy of one that
+    is not); the library is a stand-in that launches nothing."""
+    import contextlib
+
+    from datamining_recblr_torch.ops import _cuda
+
+    lib = _FakeLib()
+    monkeypatch.setattr(_cuda, "library", lambda name: lib)
+    monkeypatch.setattr(_cuda, "stream", lambda x: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(FCE, "_vocab_splits", lambda n, v, d, dev: 2)
+    train = FCE.fused_softmax_ce_chunked_train if chunked else FCE.fused_softmax_ce_train
+    counted = FCE.fused_softmax_ce_chunked if chunked else FCE.fused_softmax_ce
+    monkeypatch.setattr(train, "mma_launches", 0)
+    monkeypatch.setattr(counted, "launches", 0)
+    x = torch.zeros((5, d))
+    table = torch.zeros((9 * d + 1,))[1:].view(9, d)  # 4 bytes past an aligned start
+    launch = FCE._launch_cfwd if chunked else FCE._launch_fwd
+    launch(x, table, torch.zeros(9), torch.zeros(5, dtype=torch.int32), 9, mm_bf16, True)
+    mma = FCE.chunked_fwd_uses_mma(d, mm_bf16) if chunked else FCE.fwd_uses_mma(d, mm_bf16)
+    assert (counted.launches, train.mma_launches) == (1, int(mma))
+    table_ptr = lib.calls[0][1]
+    assert (table_ptr % 16 == 0) == mma
+
+
+def test_cpu_calls_count_no_mma_launches():
+    """On the CPU both CE paths run their plain versions, forward and
+    backward: no wrapper counts a launch on the tensor cores, and the two
+    training forwards, which only launch kernels, raise."""
+    _, x, table, bias, dnll = _case(17)
+    tgt = torch.zeros(x.shape[0], dtype=torch.long)
+    counters = (FCE.fused_softmax_ce_train, FCE.fused_softmax_ce_chunked_train,
+                FCE.fused_softmax_ce_bwd, FCE.fused_softmax_ce_chunked_bwd)
+    before = [f.mma_launches for f in counters]
+    for ce in (FCE.fused_softmax_ce, FCE.fused_softmax_ce_chunked):
+        tx = torch.from_numpy(x).requires_grad_()
+        (ce(tx, torch.from_numpy(table), tgt, torch.from_numpy(bias))
+         * torch.from_numpy(dnll)).sum().backward()
+        assert tx.grad is not None
+    for train in (FCE.fused_softmax_ce_train, FCE.fused_softmax_ce_chunked_train):
+        with pytest.raises(ValueError, match="no kernel"):
+            train(torch.from_numpy(x), torch.from_numpy(table), tgt)
+    assert [f.mma_launches for f in counters] == before
