@@ -14,8 +14,10 @@ row 10's forward in bf16, row 13's backward in bf16 and at D 256 and row
 15 by launch, rows 2, 4 and 9's backwards and rows 1, 3, 8 and 9's
 forwards by phase, where the tree has those functions; row 13's forward in
 bf16 and at D 256, row 14's at the longodd loss in fp32 and by kernel, and
-rows 5, 7, 8 and 9's forwards at B 256, in a tree without those functions
-through this checkout's ``chip_smoke.py`` on the tree's kernels), RecBLR's
+rows 5, 7, 8 and 9's forwards at B 256, rows 6 and 5's forwards at B 2,048 and 256 in fp32
+and bf16, and row 16 at the bench step and by sub-kernel at XLong and
+there, in a tree without those functions through this checkout's
+``chip_smoke.py`` on the tree's kernels), RecBLR's
 ``recommend`` at XLong (V 329,722, bf16: its median at 256 users and its
 p50 for one) and the top-k designs at its catalog (``topk_times``,
 where the tree has it), the RecBLR, SASRec and BERT4Rec training steps at the bench
@@ -23,8 +25,8 @@ shape, fp32 and bf16, RecBLR's XLong training step in bf16 and its longodd
 step in fp32, and SASRec's and BERT4Rec's d256 steps in fp32 (each step
 against the plain step, launches, time, profile).  Comparing the turns of one call keeps both versions on
 one card at one power limit.  At the end, one ``[compare]`` line a timed
-function (kernel-time rows, train-time medians and the serve-xlong-time
-medians): its parent and change turns and the ratio of their means,
+function (kernel-time rows, row 16's kernel-time-phase fields, train-time
+medians and the serve-xlong-time medians): its parent and change turns and the ratio of their means,
 change over parent.
 """
 
@@ -75,9 +77,10 @@ def one(tree, label):
     # the CE forwards in bf16, at D 256 and at longodd's fp32 loss, and the
     # served forwards at B 256: the tree's own functions, or in a tree that
     # predates them (a parent) this checkout's, run on that tree's kernels
-    for name in ("ce_fwd_kernel_times", "served_kernel_times"):
+    for name in ("ce_fwd_kernel_times", "served_kernel_times", "ln_fwd_kernel_times"):
         (getattr(cs, name, None) or getattr(_this_smoke(), name))(dev)
     cs.xlong_kernel_times(dev)
+    (getattr(cs, "row16_times", None) or _this_smoke().row16_times)(dev)
     if hasattr(cs, "row14_bwd_phase_times"):
         cs.row14_bwd_phase_times(dev)
     cs.slice_kernel_times(dev)
@@ -102,7 +105,7 @@ def one(tree, label):
 
 def timed(line):
     """[(key, ms)] of a kernel-time, train-time, serve-xlong-time or topk-time
-    line."""
+    line, or of row 16's kernel-time-phase line (each of its ms fields)."""
     fields = dict(re.findall(r"(\w+)=(\S+)", line))
     if line.startswith("[kernel-time] "):
         keys = ("kernel", "shape", "B", "dtype", "causal", "p")
@@ -113,6 +116,9 @@ def timed(line):
     if line.startswith("[topk-time] "):
         return [(f"topk-time {k} scores={fields['scores']}", float(fields[k]))
                 for k in fields if k.endswith("_ms")]
+    if line.startswith("[kernel-time-phase] kernel=embedding_grad "):
+        return [(f"kernel-time-phase embedding_grad shape={fields['shape']} {k}", float(fields[k]))
+                for k in fields if k.endswith("_ms") and re.fullmatch(r"[\d.]+", fields[k])]
     if line.startswith("[serve-xlong-time] "):
         return [(f"serve-xlong-time {k} dtype={fields['dtype']}", float(fields[k]))
                 for k in ("median_ms_batch256", "p50_ms_1_user")]
@@ -141,10 +147,11 @@ def main():
                 ms.setdefault(key, {"parent": [], "change": []})[label].append(v)
     for key, sides in ms.items():
         if sides["parent"] and sides["change"]:
-            ratio = (sum(sides["change"]) / len(sides["change"])) / (
-                sum(sides["parent"]) / len(sides["parent"]))
+            parent = sum(sides["parent"]) / len(sides["parent"])
+            ratio = (f"{sum(sides['change']) / len(sides['change']) / parent:.4f}" if parent
+                     else "none")
             print(f"[compare] {key} parent_ms={sides['parent']} change_ms={sides['change']} "
-                  f"ratio={ratio:.4f}", flush=True)
+                  f"ratio={ratio}", flush=True)
     return rc
 
 

@@ -91,8 +91,12 @@ per-op composition, forward and backward) and, phase by phase:
   by phase (``recblr_fwd_phase_times``: phase A, the scan and the tail,
   from torch.profiler beside the call's CUDA-event time); then the CE
   forwards in bf16, at D 256 and at the longodd loss, row 14's by kernel
-  (``ce_fwd_kernel_times``), and the forwards that serving launches
-  outside the whole-layer kernels at B 256 (``served_kernel_times``).
+  (``ce_fwd_kernel_times``), the forwards that serving launches
+  outside the whole-layer kernels at B 256 (``served_kernel_times``),
+  the table gradient at the bench step, checked as at XLong, and by
+  sub-kernel at both (``row16_times``: the sort, the piece, group and row
+  sums, the wrapper's share), and rows 6 and 5's forwards at B 2,048 and
+  256, fp32 and bf16 (``ln_fwd_kernel_times``).
 
 A rerun of each RecBLR layer kernel, forward and backward, gives the same
 bits, and each RecBLR training and serving profile fails unless phase A
@@ -568,12 +572,14 @@ PTXAS_KERNEL_NAMES = ("attn_fwd_mma_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
                       "tail_bwd_mma_kernel", "gate_bwd_mma_kernel", "inproj_bwd_mma_kernel",
                       "phase_a_mma_kernel", "tail_mma_kernel", "cce_fwd_mma_kernel",
                       "ce_fwd_mma_kernel", "cce_dx_mma_kernel", "ce_dx_mma_kernel",
-                      "cce_dtab_mma_kernel", "ce_dtab_mma_kernel")
+                      "cce_dtab_mma_kernel", "ce_dtab_mma_kernel", "radix_hist_kernel",
+                      "radix_scatter_kernel", "piece_sum_kernel", "group_sum_kernel",
+                      "row_sum_kernel", "ln_pos_kernel", "ln_pos_bwd_kernel")
 PTXAS_KERNEL_SOURCES = ("attention.cu", "attention_bwd.cu", "fused_layer.cu",
                         "fused_layer_last.cu", "fused_layer_chunked.cu", "fused_bdlru.cu",
                         "fused_layer_bwd.cu", "fused_layer_last_bwd.cu",
                         "fused_layer_chunked_bwd.cu", "fused_bdlru_bwd.cu", "fused_ce.cu",
-                        "fused_ce_chunked.cu")
+                        "fused_ce_chunked.cu", "emb_grad.cu", "ln_dropout.cu")
 
 
 def ptxas_kernels(src, log):
@@ -1420,20 +1426,44 @@ def train_step_phase(dev, dtype_name, name="RecBLR", steps=TRAIN_STEPS):
             "grad_err": errs[worst]}
 
 
-def train_profile(trainer, batch_of, dtype_name, prefix, steps=5):
-    """Device time by kernel over a few train steps (torch.profiler)."""
+def profiled(run, need=()):
+    """(the device events of ``run()`` from torch.profiler, ``run()``'s
+    value; ``run`` ends in a synchronize).  A capture on the card has come
+    back without some or all of its device events, so one that holds none,
+    or no kernel whose name holds each of ``need``, is taken again, up to
+    three captures; the last is returned either way and the caller's check
+    of ``need`` stands."""
     from torch.profiler import ProfilerActivity, profile
 
-    batches = [batch_of(100 + s) for s in range(steps)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for s, b in enumerate(batches):
-            trainer.train_step(b, 100 + s)
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            value = run()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events and all(any(n in e.key for e in events) for n in need):
+            break
+    return events, value
+
+
+def _timed_loop(step, count):
+    """A ``run`` for ``profiled``: ``count`` calls of ``step(i)``, then the
+    wall microseconds they took to finish on the card."""
+    def run():
+        t0 = time.perf_counter()
+        for i in range(count):
+            step(i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6
+    return run
+
+
+def train_profile(trainer, batch_of, dtype_name, prefix, steps=5):
+    """Device time by kernel over a few train steps (torch.profiler)."""
+    batches = [batch_of(100 + s) for s in range(steps)]
+    kernels, wall_us = profiled(
+        _timed_loop(lambda s: trainer.train_step(batches[s], 100 + s), steps),
+        fwd_mma_required(prefix, dtype_name))
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     phase(f"{prefix}-profile", dtype=dtype_name, steps=steps,
@@ -1757,16 +1787,8 @@ def serve_profile(rec, batch, prefix, dtype_name, calls=5):
     """Device time by kernel over a few recommend() calls (torch.profiler,
     CUPTI), and the device's busy share of the profiled wall time (the
     profiler's own host overhead is inside that wall time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            rec.recommend(batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels, wall_us = profiled(_timed_loop(lambda _: rec.recommend(batch), calls),
+                                fwd_mma_required(prefix, dtype_name))
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     phase(f"{prefix}-profile", dtype=dtype_name, users=len(batch), calls=calls,
@@ -2041,16 +2063,9 @@ def _phase_times(call, phases, calls, require=()):
     (the kernels whose names hold the phase's) and share of the device
     total, and that total.  Fails unless a kernel whose name holds each
     of ``require`` ran."""
-    from torch.profiler import ProfilerActivity, profile
-
     ms = time_ms(call)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA}
+    events, _ = profiled(_timed_loop(lambda _: call(), calls), require)
+    dev_us = {e.key: e.self_device_time_total for e in events}
     total = sum(dev_us.values())
     fields = {"ms": f"{ms:.4f}"}
     for label, kernel in phases:
@@ -2522,6 +2537,50 @@ def _xlong_emb_inputs(gen, dev):
     return ids, g, vp
 
 
+def _bench_emb_inputs(gen, dev):
+    """Row 16's inputs at the bench step: the int32 ids of the 2,048 rows
+    ``train_step_phase`` batches first from ``synthetic_splits`` at T 200
+    (lengths uniform in 2 .. 200, PAD after them), the catalog padded as
+    the model pads it, and bf16 cotangents."""
+    from datamining_recblr_torch.data.synthetic import synthetic_splits
+
+    train, _ = synthetic_splits(6040, N_ITEMS, T, 8192, seed=SEED)
+    perm = np.random.default_rng((SEED, 0)).permutation(len(train))
+    ids = torch.from_numpy(np.ascontiguousarray(train.item_seq[perm[:TRAIN_B]])).to(dev)
+    model = get_model("RecBLR")(_train_config("RecBLR", "bfloat16"), N_ITEMS, T,
+                                generator=torch.Generator().manual_seed(SEED))
+    g = torch.randn((TRAIN_B, T, D), generator=gen).to(dev, torch.bfloat16)
+    return ids, g, model.n_items_padded
+
+
+def emb_grad_check(name, ids, g, vp):
+    """Row 16 against the exact sum (fp64 ``index_add_``) within 1e-6 of
+    its largest value, against its plain version (fp32 atomics) within
+    1e-4 of it, and against itself: the same bits on a rerun.  Returns
+    the largest distance from the plain version."""
+    got = E.embedding_grad(ids, g, vp)
+    again = E.embedding_grad(ids, g, vp)
+    want = E.embedding_grad_plain(ids, g, vp)
+    exact = torch.zeros((vp, D), device=g.device, dtype=torch.float64).index_add_(
+        0, ids.reshape(-1), g.reshape(-1, D).double())
+    torch.cuda.synchronize()
+    scale = float(exact.abs().max())
+    err = float((got - want).abs().max())
+    err_exact = float((got.double() - exact).abs().max())
+    plain_exact = float((want.double() - exact).abs().max())
+    same = torch.equal(got, again)
+    ok = err_exact <= 1e-6 * scale and err <= 1e-4 * scale and same
+    phase(name, kernel="embedding_grad", shape=f"N{ids.numel()}xV{vp}xD{D}",
+          ids_dtype=str(ids.dtype).split(".")[-1], g_dtype="bfloat16",
+          pad_share=f"{float((ids == 0).float().mean()):.3f}",
+          max_abs_err=f"{err:.3e}", max_abs_err_vs_fp64=f"{err_exact:.3e}",
+          plain_max_abs_err_vs_fp64=f"{plain_exact:.3e}", max_abs_fp64=f"{scale:.3f}",
+          tol="1e-6*max|fp64| against the fp64 sum, 1e-4*max against the plain (fp32 atomic) one",
+          same_bits_on_rerun=same, ok=ok)
+    check(ok, "embedding_grad disagrees with the exact sum, its plain version or itself")
+    return err
+
+
 def xlong_kernels_vs_plain(dev):
     """The new kernels against their plain versions at the XLong shapes:
     row 9 (forward: output and record; backward: dx and every grad against
@@ -2668,27 +2727,7 @@ def xlong_kernels_vs_plain(dev):
         check(ok, f"fused_softmax_ce {name}: a bf16 table or bias disagrees with the plain CE")
 
     # row 16 at the XLong step
-    ids, g, vp = _xlong_emb_inputs(gen, dev)
-    got = E.embedding_grad(ids, g, vp)
-    again = E.embedding_grad(ids, g, vp)
-    want = E.embedding_grad_plain(ids, g, vp)
-    exact = torch.zeros((vp, D), device=dev, dtype=torch.float64).index_add_(
-        0, ids.reshape(-1), g.reshape(-1, D).double())
-    torch.cuda.synchronize()
-    scale = float(exact.abs().max())
-    err = float((got - want).abs().max())
-    err_exact = float((got.double() - exact).abs().max())
-    plain_exact = float((want.double() - exact).abs().max())
-    same = torch.equal(got, again)
-    ok = err_exact <= 1e-6 * scale and err <= 1e-4 * scale and same
-    phase("xlong-kernel-vs-plain", kernel="embedding_grad", shape=f"N{ids.numel()}xV{vp}xD{D}",
-          g_dtype="bfloat16", pad_share=f"{float((ids == 0).float().mean()):.3f}",
-          max_abs_err=f"{err:.3e}", max_abs_err_vs_fp64=f"{err_exact:.3e}",
-          plain_max_abs_err_vs_fp64=f"{plain_exact:.3e}", max_abs_fp64=f"{scale:.3f}",
-          tol="1e-6*max|fp64| against the fp64 sum, 1e-4*max against the plain (fp32 atomic) one",
-          same_bits_on_rerun=same, ok=ok)
-    check(ok, "embedding_grad disagrees with the exact sum, its plain version or itself")
-    errs["embedding_grad"] = err
+    errs["embedding_grad"] = emb_grad_check("xlong-kernel-vs-plain", *_xlong_emb_inputs(gen, dev))
     return errs
 
 
@@ -3105,6 +3144,115 @@ def xlong_kernel_times(dev):
         rows[name] = (ms, plain[name], bound, by, lib[name])
     return rows
 
+
+
+# embedding_grad's launches by sub-kernel (names as substrings, the
+# parent's kernels included): the sort passes with the scratch memset,
+# the segment bounds, the piece sums, the group sums, the row sums
+ROW16_PHASES = (("sort", ("radix_", "exclusive_scan", "Memset")), ("bounds", ("seg_bounds",)),
+                ("pieces", ("piece_sum",)), ("groups", ("group_sum",)),
+                ("rows", ("row_fix", "row_sum")))
+
+
+def row16_times(dev, calls=10):
+    """Row 16 at the bench step (the ids ``train_step_phase`` batches,
+    N 409,600, V 3,417, bf16 g): first the same check as at XLong
+    (``emb-grad-kernel-vs-plain``), then its kernel-time line beside its
+    bound, its plain version and ``index_add_`` into fp32 zeros; then at
+    XLong and at the bench step, ``kernel-time-phase``: the CUDA-event ms
+    of a call and, from torch.profiler over ``calls`` calls, the device ms
+    per call of each group of ``ROW16_PHASES``, of the rest (``other``:
+    any kernel outside them, such as an id cast), the device total, the
+    kernels a call launches, the wrapper's share (event minus device ms)
+    and each kernel's device ms (``by_kernel``)."""
+    gen = torch.Generator().manual_seed(SEED + 36)
+    ids, g, vp = _bench_emb_inputs(gen, dev)
+    emb_grad_check("emb-grad-kernel-vs-plain", ids, g, vp)
+    flat_ids, flat_g = ids.reshape(-1).long(), g.reshape(-1, D).float()
+    ms = time_ms(lambda: E.embedding_grad(ids, g, vp))
+    plain = time_ms(lambda: E.embedding_grad_plain(ids, g, vp))
+    zeros = torch.zeros((vp, D), device=dev)
+    lib = time_ms(lambda: zeros.zero_().index_add_(0, flat_ids, flat_g))
+    bound, flops, by = emb_grad_bound_ms(ids.numel(), vp, 2, ids.element_size())
+    phase("kernel-time", kernel="embedding_grad", shape="bench", B=TRAIN_B, T=T, N=ids.numel(),
+          V=vp, dtype="bfloat16", p=0.0, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+          library_ms=f"{lib:.4f}", bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}",
+          bound_by=by, share_of_bound=f"{bound / ms:.4f}")
+    del zeros, flat_ids, flat_g
+    for label, (ids, g, vp) in (("xlong", _xlong_emb_inputs(gen, dev)), ("bench", (ids, g, vp))):
+        ms = time_ms(lambda: E.embedding_grad(ids, g, vp))
+        events, _ = profiled(_timed_loop(lambda _: E.embedding_grad(ids, g, vp), calls))
+        dev_us = {e.key: (e.self_device_time_total, e.count) for e in events}
+        if not dev_us:
+            phase("kernel-time-phase", kernel="embedding_grad", shape=label, ms=f"{ms:.4f}",
+                  device_ms="not measured (no device events in three profiles)")
+            continue
+        total = sum(us for us, _ in dev_us.values())
+        fields, seen = {}, set()
+        for name, keys in ROW16_PHASES:
+            hit = [k for k in dev_us if any(s in k for s in keys)]
+            seen.update(hit)
+            us = sum(dev_us[k][0] for k in hit)
+            fields[f"{name}_ms"] = f"{us / calls / 1e3:.4f}" if hit else "none"
+        other = sum(us for k, (us, _) in dev_us.items() if k not in seen)
+        by_name = {}
+        for k, (us, _) in dev_us.items():
+            by_name[_kernel_name(k)] = by_name.get(_kernel_name(k), 0.0) + us
+        device_ms = total / calls / 1e3
+        phase("kernel-time-phase", kernel="embedding_grad", shape=label, N=ids.numel(), V=vp,
+              D=D, ids_dtype=str(ids.dtype).split(".")[-1], dtype="bfloat16", ms=f"{ms:.4f}",
+              **fields, other_ms=f"{other / calls / 1e3:.4f}", device_ms=f"{device_ms:.4f}",
+              wrapper_ms=f"{ms - device_ms:.4f}",
+              launches_per_call=f"{sum(n for _, n in dev_us.values()) / calls:.1f}",
+              by_kernel="|".join(f"{name}:{us / calls / 1e3:.4f}"
+                                 for name, us in sorted(by_name.items())))
+
+
+def _kernel_name(key):
+    """A profiler key's kernel name without its namespace, template
+    arguments and parameters."""
+    key = re.sub(r"^void |\(anonymous namespace\)::|\w+::", "", key)
+    return re.split(r"[<(]", key, maxsplit=1)[0].strip() or key[:40]
+
+
+def ln_fwd_kernel_times(dev):
+    """Rows 6 and 5's forwards (``fused_ln_dropout``, ``fused_dropout_ln``)
+    at T 200, D 64, fp32 and bf16: at B 2,048 with the training rates
+    (SASRec's 0.5, RecBLR's 0.2) and at B 256 with p 0 (serving), each
+    beside its bound, its plain version and ``F.layer_norm`` of the same LN
+    input without the dropout, in x's dtype (``shape=ln-fwd``)."""
+    gen = torch.Generator().manual_seed(SEED + 37)
+    pos = (0.5 * torch.randn((T, D), generator=gen)).to(dev)
+    s = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev)
+    bias = (0.1 * torch.randn(D, generator=gen)).to(dev)
+    with torch.no_grad():
+        for b, p6, p5 in ((TRAIN_B, SAS_DROPOUT, DROPOUT), (B, 0.0, 0.0)):
+            x32 = torch.randn((b, T, D), generator=gen).to(dev)
+            for dt in (torch.float32, torch.bfloat16):
+                x = x32.to(dt)
+                act = x.element_size()
+                pl, sl, bl = pos.to(dt), s.to(dt), bias.to(dt)
+                for name, p, kernel, plain, lib, bnd in (
+                    ("fused_ln_dropout", p6,
+                     lambda: FL.fused_ln_dropout(x, pos, s, bias, p6, 7),
+                     lambda: FL.fused_ln_dropout_plain(x, pos, s, bias, p6, 7),
+                     lambda: F.layer_norm(x + pl, (D,), sl, bl, L.LN_EPS), ln_bound_ms(b, act)),
+                    ("fused_dropout_ln", p5,
+                     lambda: FL.fused_dropout_ln(x, s, bias, p5, 7),
+                     lambda: FL.fused_dropout_ln_plain(x, s, bias, p5, 7),
+                     lambda: F.layer_norm(x, (D,), sl, bl, L.LN_EPS),
+                     dropout_ln_bound_ms(b, T, act)),
+                ):
+                    ms = time_ms(kernel)
+                    plain_ms = time_ms(plain, reps=5, warmup=1)
+                    lib_ms = time_ms(lib)
+                    bound, flops, by = bnd
+                    phase("kernel-time", kernel=name, shape="ln-fwd", B=b, T=T, D=D,
+                          dtype=str(dt).split(".")[-1], p=p, ms=f"{ms:.4f}",
+                          plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+                          bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}", bound_by=by,
+                          share_of_bound=f"{bound / ms:.4f}")
+            del x32, x
 
 
 # ---------------------------------------------------------------------------
@@ -4183,11 +4331,13 @@ def main():
     row13_bwd_phase_times(dev)
     ce_fwd_kernel_times(dev)
     xlong_rows = xlong_kernel_times(dev)
+    row16_times(dev)
     row14_bwd_phase_times(dev)
     recblr_bwd_phase_times(dev)
     recblr_fwd_phase_times(dev)
     slice_rows = slice_kernel_times(dev)
     served_kernel_times(dev)
+    ln_fwd_kernel_times(dev)
     row15_rows = row15_kernel_times(dev)
     row15_phase_times(dev)
     # launches: each model's kernels in one training step of its main path

@@ -13,11 +13,15 @@
 // position, channel), the bits of the plain dropout of x.
 //
 // Forward: a few operations per element against a read of x and a write
-// of out (2 B T D x 4 bytes in fp32, 26.2 MB at B 256, T 200, D 64):
-// bound by bytes.  One warp per (row, position) with up to 16 values a
-// lane, mean and centred variance from the registers with warp shuffles,
-// one write; pos, scale and bias stay in L1/L2.  No shared memory, so
-// many warps per SM hide the memory latency.
+// of out (2 B T D x 4 bytes in fp32, 210 MB at B 2,048, T 200, D 64):
+// bound by bytes.  A row is a segment of the fewest lanes (a power of
+// two) whose groups of four channels cover D (16 lanes at D 64, so a warp
+// holds two rows; 32 lanes of up to four groups at D 512), each segment
+// two rows in flight (one at D > 256).  A lane loads its four channels
+// with one 16-byte load (8 bytes in bf16) and takes their mask from one
+// Philox call, the four words of which are the per-channel draws' bits;
+// mean and centred variance over the segment with shuffles, one store a
+// group.  pos, scale and bias stay in L1/L2.  No shared memory.
 //
 // Backward: x, dout and dx once each (3 B T D x 4 bytes, 315 MB at
 // B 2,048 in fp32), also bound by bytes.  The LN statistics are
@@ -25,9 +29,8 @@
 // the batch sum of the LN input's gradient and dscale, dbias [D] sums
 // over every (row, position), all without atomics.  A row is a segment of
 // the fewest lanes (a power of two) whose groups of four channels cover D
-// (16 lanes at D 64, one group each; 32 lanes of up to four groups at
-// D 512), so no register slot idles where D fills the groups.  Each lane
-// loads its four channels with one 16-byte load (8 bytes in bf16) and
+// (the forward's segment), so no register slot idles where D fills the
+// groups.  Each lane loads its four channels with one 16-byte load and
 // takes their mask from one Philox call; a warp holds 32 / lanes rows,
 // each segment walks its position over a chunk of batch rows with two
 // rows in flight.  dpos, dscale and dbias are summed in the same pass into
@@ -43,54 +46,6 @@ using namespace recblr;
 namespace {
 
 constexpr int LN_THREADS = 256;
-constexpr int LN_WARPS = LN_THREADS / 32;
-constexpr int PER_LANE = 16;  // D <= 32 * PER_LANE = 512
-
-// The input of the LN at (row b, position t, channel d): x + pos, or
-// under PRE x times the M0 mask.
-template <bool PRE, typename Tin>
-__device__ __forceinline__ float ln_input(const Tin* x, const float* pos, const Dropout& dr,
-                                          size_t o, int b, int t, int d, int D) {
-  if (PRE) return load_act(x, o + d) * drop_mask(dr, M0, b, t, d);
-  return load_act(x, o + d) + __ldg(pos + (size_t)t * D + d);
-}
-
-template <typename Tin, bool PRE>
-__global__ void __launch_bounds__(LN_THREADS)
-ln_pos_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
-              const float* __restrict__ s, const float* __restrict__ bias, Dropout dr,
-              Tin* __restrict__ out, int rows, int T, int D) {
-  const int row = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) / 32);
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const size_t o = (size_t)row * D;
-  const int b = row / T, t = row % T;
-  float v[PER_LANE];
-  float sum = 0.f;
-#pragma unroll
-  for (int k = 0; k < PER_LANE; ++k) {
-    const int d = lane + 32 * k;
-    v[k] = d < D ? ln_input<PRE>(x, pos, dr, o, b, t, d, D) : 0.f;
-    sum += v[k];
-  }
-  const float mu = warp_sum(sum) / D;
-  float sq = 0.f;
-#pragma unroll
-  for (int k = 0; k < PER_LANE; ++k) {
-    const int d = lane + 32 * k;
-    const float c = v[k] - mu;
-    if (d < D) sq += c * c;
-  }
-  const float inv = rsqrtf(warp_sum(sq) / D + LN_EPS);
-#pragma unroll
-  for (int k = 0; k < PER_LANE; ++k) {
-    const int d = lane + 32 * k;
-    if (d < D) {
-      const float y = (v[k] - mu) * inv * __ldg(s + d) + __ldg(bias + d);
-      store_act(out, o + d, PRE ? y : y * drop_mask(dr, M0, b, t, d));
-    }
-  }
-}
 
 // Four consecutive channels d .. d+3 of a row (16-byte loads in fp32,
 // 8-byte in bf16, where D % 4 == 0 makes them aligned), zero beyond D.
@@ -146,16 +101,97 @@ __device__ __forceinline__ float seg_sum(float v, int lpr) {
   return v;
 }
 
-// The row segment of the backward: `lpr` lanes (a power of two, at most
+// The row segment of both passes: `lpr` lanes (a power of two, at most
 // 32) cover a row's D channels in NG groups of four a lane (group
 // g = lane + k * lpr holds channels 4g .. 4g+3), so no register slot is
 // idle where D fills the groups.
-inline int ln_bwd_groups(int D) { return D <= 128 ? 1 : D <= 256 ? 2 : 4; }
-inline int ln_bwd_lanes(int D) {
+inline int ln_groups(int D) { return D <= 128 ? 1 : D <= 256 ? 2 : 4; }
+inline int ln_lanes(int D) {
   const int groups = (D + 3) / 4;
   int l = 1;
   while (l < groups && l < 32) l *= 2;
   return l;
+}
+
+// Forward, one row segment per R consecutive (row, position) pairs (R = 2
+// rows in flight, one at D > 256): x (and pos) by groups of four channels,
+// one Philox call a group for the M0 mask (before the LN under PRE, after
+// it otherwise), mean and centred variance over the segment, one store a
+// group.  scale and bias stay in registers for the segment's rows.
+template <typename Tin, bool PRE, int NG>
+__global__ void __launch_bounds__(LN_THREADS)
+ln_pos_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
+              const float* __restrict__ s, const float* __restrict__ bias, Dropout dr,
+              Tin* __restrict__ out, int rows, int T, int D, int lpr) {
+  constexpr int R = NG >= 4 ? 1 : 2;
+  const int segs = LN_THREADS / lpr;
+  const int sl = threadIdx.x % lpr;
+  const int r0 = (blockIdx.x * segs + threadIdx.x / lpr) * R;
+  int bt[R][2];  // (row, position) of each row, one 32-bit division each
+#pragma unroll
+  for (int r = 0; r < R; ++r) bt[r][0] = (r0 + r) / T, bt[r][1] = (r0 + r) - bt[r][0] * T;
+  float sc[NG][4], bi[NG][4], v[R][NG][4];
+#pragma unroll
+  for (int k = 0; k < NG; ++k) {
+    const int d = 4 * (sl + k * lpr);
+    load4(s, 0, d, D, sc[k]);
+    load4(bias, 0, d, D, bi[k]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = r0 + r, b = bt[r][0], t = bt[r][1];
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      const int g = sl + k * lpr;
+      if (row < rows && 4 * g < D) {
+        load4(x, (size_t)row * D, 4 * g, D, v[r][k]);
+        if (PRE) {
+          const float4 m = drop_mask4(dr, M0, b, t, g);
+          v[r][k][0] *= m.x, v[r][k][1] *= m.y, v[r][k][2] *= m.z, v[r][k][3] *= m.w;
+        } else {
+          float p[4];
+          load4(pos, (size_t)t * D, 4 * g, D, p);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[r][k][i] += p[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[r][k][i] = 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = r0 + r, b = bt[r][0], t = bt[r][1];
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < NG; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum += v[r][k][i];
+    const float mu = seg_sum(sum, lpr) / D;
+    float sq = 0.f;
+#pragma unroll
+    for (int k = 0; k < NG; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[r][k][i] = 4 * (sl + k * lpr) + i < D ? v[r][k][i] - mu : 0.f;
+        sq += v[r][k][i] * v[r][k][i];
+      }
+    const float inv = rsqrtf(seg_sum(sq, lpr) / D + LN_EPS);
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      const int g = sl + k * lpr;
+      if (row >= rows || 4 * g >= D) continue;
+      float y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[i] = v[r][k][i] * inv * sc[k][i] + bi[k][i];
+      if (!PRE) {
+        const float4 m = drop_mask4(dr, M0, b, t, g);
+        y[0] *= m.x, y[1] *= m.y, y[2] *= m.z, y[3] *= m.w;
+      }
+      store4(out, (size_t)row * D, 4 * g, D, y);
+    }
+  }
 }
 
 // Block (tile, c): positions tile * P .. tile * P + P - 1 (P = LN_THREADS
@@ -323,13 +359,27 @@ sum_rows_kernel(const float* __restrict__ a1, int R1, int C1, float* __restrict_
   }
 }
 
+template <bool PRE, int NG, typename Tin>
+cudaError_t ln_pos_fwd_ng(const Tin* x, const float* pos, const float* s, const float* b,
+                          Dropout dr, Tin* out, int B, int T, int D, cudaStream_t stream) {
+  const int rows = B * T, lpr = ln_lanes(D);
+  const int per_block = LN_THREADS / lpr * (NG >= 4 ? 1 : 2);
+  ln_pos_kernel<Tin, PRE, NG><<<(rows + per_block - 1) / per_block, LN_THREADS, 0, stream>>>(
+      x, pos, s, b, dr, out, rows, T, D, lpr);
+  return cudaGetLastError();
+}
+
 template <bool PRE, typename Tin>
 cudaError_t ln_pos_fwd(const Tin* x, const float* pos, const float* s, const float* b, Dropout dr,
                        Tin* out, int B, int T, int D, cudaStream_t stream) {
-  const int rows = B * T;
-  ln_pos_kernel<Tin, PRE><<<(rows + LN_WARPS - 1) / LN_WARPS, LN_THREADS, 0, stream>>>(
-      x, pos, s, b, dr, out, rows, T, D);
-  return cudaGetLastError();
+  switch (ln_groups(D)) {
+    case 1:
+      return ln_pos_fwd_ng<PRE, 1>(x, pos, s, b, dr, out, B, T, D, stream);
+    case 2:
+      return ln_pos_fwd_ng<PRE, 2>(x, pos, s, b, dr, out, B, T, D, stream);
+    default:
+      return ln_pos_fwd_ng<PRE, 4>(x, pos, s, b, dr, out, B, T, D, stream);
+  }
 }
 
 // PRE: no pos, pos_part or dpos.  chunks: the batch chunks of the grid
@@ -338,7 +388,7 @@ template <bool PRE, int NG, typename Tin>
 cudaError_t ln_pos_bwd_ng(const Tin* x, const float* pos, const Tin* dout, const float* s,
                           Dropout dr, Tin* dx, float* pos_part, float* sb_part, float* dpos,
                           float* dsb, int B, int T, int D, int chunks, cudaStream_t stream) {
-  const int lpr = ln_bwd_lanes(D);
+  const int lpr = ln_lanes(D);
   const int tiles = (T + LN_THREADS / lpr - 1) / (LN_THREADS / lpr);
   const int bc = (B + chunks - 1) / chunks;
   ln_pos_bwd_kernel<Tin, PRE, NG><<<dim3(tiles, chunks), LN_THREADS, 0, stream>>>(
@@ -355,7 +405,7 @@ template <bool PRE, typename Tin>
 cudaError_t ln_pos_bwd(const Tin* x, const float* pos, const Tin* dout, const float* s,
                        Dropout dr, Tin* dx, float* pos_part, float* sb_part, float* dpos,
                        float* dsb, int B, int T, int D, int chunks, cudaStream_t stream) {
-  switch (ln_bwd_groups(D)) {
+  switch (ln_groups(D)) {
     case 1:
       return ln_pos_bwd_ng<PRE, 1>(x, pos, dout, s, dr, dx, pos_part, sb_part, dpos, dsb, B, T,
                                    D, chunks, stream);

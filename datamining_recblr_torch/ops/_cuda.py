@@ -110,7 +110,7 @@ _SIGNATURES = {
         "recblr_cce_bwd": [_P] * 8 + [_I] + [_P] + [_I] * 6 + [_I, _P],
     },
     "emb_grad.cu": {
-        "recblr_emb_grad": [_P] * 10 + [_I] * 4 + [_I, _P],
+        "recblr_emb_grad": [_P, _I, _P, _I, _P, _P, ctypes.c_int64] + [_I] * 3 + [_I, _P],
     },
     "linear_scan.cu": {
         "recblr_linear_scan": [_P] * 3 + [_I] * 4 + [_I, _P],
@@ -215,8 +215,9 @@ def require_cuda(x) -> None:
 
 
 def stream(x) -> int:
-    """The handle of PyTorch's current stream on x's card."""
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The handle of PyTorch's current stream on x's card, read without
+    building a ``torch.cuda.Stream`` object (host time every launch pays)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def grad_blocks(device) -> int:

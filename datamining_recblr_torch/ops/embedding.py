@@ -9,10 +9,14 @@ table's dtype (``:171-180``).  The JAX package computes that sum three
 ways: one-hot matmuls below ``_SCATTER_MIN_V`` = 9,000 rows, a scatter-add
 from there on, and the Pallas kernel ``_emb_grad_kernel`` (via
 ``_bwd_pallas`` :85), kept for the record.  Here one kernel serves every
-V and D: ``embedding_grad`` (``csrc/emb_grad.cu``), a stable counting
+V and D: ``embedding_grad`` (``csrc/emb_grad.cu``), a stable radix
 sort of the ids followed by segment sums in a fixed order (in slices of
 at most ``MAX_SLICE`` columns beyond that width), so the gradient has the
 same bits from run to run.
+
+The kernel's host-side plan (``sort_plan``: radix passes and digit
+width; ``scratch_bytes``: its one scratch buffer) mirrors ``make_plan``
+in the source; the kernel refuses a smaller buffer.
 
 ``embedding_grad`` on a CPU tensor computes its plain version
 (``embedding_grad_plain``); on a CUDA tensor it launches its kernel or
@@ -21,13 +25,43 @@ raises.  ``launches`` on it counts its kernel launches.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from datamining_recblr_torch.ops import _cuda
 
 MAX_SLICE = 512  # columns the kernel's lanes sum at a time
-_SORT_BLOCK = 2048  # ids per block of the kernel's radix sort
-_PIECE = 128  # sorted entries per segment-sum piece
+MAX_DIGIT_BITS = 10  # the widest digit of a radix pass
+SORT_TILE = 2048  # ids per block of the radix sort
+PIECE = 32  # sorted entries per segment-sum piece
+GROUP = 64  # pieces per group of a long segment
+
+
+def sort_plan(v: int) -> tuple[int, int]:
+    """(passes, digit width) of the kernel's radix sort of keys in [0, V]
+    (ids outside [0, V) sort as V): the fewest passes of at most
+    ``MAX_DIGIT_BITS`` bits, the bits shared out evenly."""
+    bits = int(v).bit_length()
+    passes = -(-bits // MAX_DIGIT_BITS)
+    return passes, -(-bits // passes)
+
+
+@functools.lru_cache(maxsize=64)
+def scratch_bytes(n: int, v: int, d: int) -> int:
+    """Bytes of the kernel's scratch for N ids, V rows and D columns: the
+    sorted keys and values twice, the radix counts and totals of each
+    pass, the per-tile counts of ids outside [0, V) and their total, each
+    id's segment start and end; then, 16-byte aligned, the fp32 partial
+    rows of one slice of columns: each piece's first and last run, each
+    group's two sums."""
+    passes, width = sort_plan(v)
+    tiles = -(-n // SORT_TILE)
+    pieces = -(-n // PIECE)
+    groups = -(-pieces // GROUP)
+    ints = 4 * n + passes * (1 << width) * (tiles + 1) + tiles + 1 + 2 * v
+    ints = -(-ints // 4) * 4
+    return 4 * (ints + (2 * pieces + 2 * groups) * min(d, MAX_SLICE))
 
 
 def embedding_grad_plain(ids, g, v: int):
@@ -56,28 +90,23 @@ def embedding_grad(ids, g, v: int):
         raise TypeError(f"ids must be an integer tensor, got {ids.dtype}")
     if d < 1 or v < 1:
         raise ValueError(f"unsupported shape V={v} D={d}: the kernel takes V >= 1, D >= 1")
-    flat_ids = ids.reshape(-1).to(torch.int32).contiguous()
+    flat_ids = ids.reshape(-1).contiguous()
     flat_g = g.reshape(-1, d).contiguous()
     n = flat_ids.numel()
     if n == 0:
         return torch.zeros((v, d), device=g.device, dtype=torch.float32)
-    if n >= 2**31:
-        raise ValueError(f"{n} ids: the kernel takes fewer than 2^31")
-    kw = dict(device=g.device, dtype=torch.int32)
-    sort = torch.empty((4, n), **kw)
-    hist = torch.empty((256 * -(-n // _SORT_BLOCK),), **kw)
-    seg = torch.empty((v + 1,), **kw)
-    part = torch.empty((2, -(-n // _PIECE), min(d, MAX_SLICE)), device=g.device,
-                       dtype=torch.float32)
+    if n >= 2**31 - SORT_TILE:
+        raise ValueError(f"{n} ids: the kernel takes fewer than 2^31 - {SORT_TILE}")
+    nbytes = scratch_bytes(n, v, d)
+    scratch = torch.empty((nbytes // 4,), device=g.device, dtype=torch.int32)
     out = torch.empty((v, d), device=g.device, dtype=torch.float32)
     lib = _cuda.library("emb_grad.cu")
-    with torch.cuda.device(g.device):
-        err = lib.recblr_emb_grad(
-            flat_ids.data_ptr(), flat_g.data_ptr(), out.data_ptr(), sort[0].data_ptr(),
-            sort[1].data_ptr(), sort[2].data_ptr(), sort[3].data_ptr(), hist.data_ptr(),
-            seg.data_ptr(), part.data_ptr(), n, v, d, int(g.dtype == torch.bfloat16),
-            g.device.index, _cuda.stream(g),
-        )
+    # the library selects the card itself and takes PyTorch's stream on it
+    err = lib.recblr_emb_grad(
+        flat_ids.data_ptr(), int(flat_ids.dtype == torch.int64), flat_g.data_ptr(),
+        int(g.dtype == torch.bfloat16), out.data_ptr(), scratch.data_ptr(), nbytes, n, v, d,
+        g.device.index, _cuda.stream(g),
+    )
     _cuda.check(lib, err, "embedding_grad")
     embedding_grad.launches += 1
     return out

@@ -433,7 +433,7 @@ def test_block_forwards_at_t_1024(dev, d, heads, inner, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 48, 512])
+@pytest.mark.parametrize("d", [64, 48, 512, 30, 33])
 def test_ln_prologue_kernel_matches_plain(dev, d, dtype):
     rng = np.random.default_rng(12)
     t = 45
@@ -1301,33 +1301,103 @@ def test_ce_takes_a_bf16_table_and_bias(dev, chunked):
         assert bool(((g - w).abs() <= 2.0 ** -7 * w.abs() + GRAD_RTOL * w.abs().max()).all())
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("v,n,d", [(329_728, 524_288, 64), (300, 5000, 48), (20, 100_000, 8),
-                                   (300, 5000, 520)])
-def test_embedding_grad_kernel_matches_plain(dev, v, n, d, dtype):
-    """Row 16: the [V, D] fp32 table gradient within 1e-6 of its largest
-    value of the exact sum (fp64 ``index_add_``), and within 1e-4 of the
-    plain version's (``index_add_`` into fp32 zeros, whose atomic sums
-    round in any order), with id 0 at about half of the ids; the same bits
-    on a rerun.  D 520 walks the columns in slices of 512 and 8, one
-    launch all the same."""
+def _assert_embedding_grad(ids, g, v):
+    """Row 16 on ``ids`` and ``g``: one launch; within 1e-6 of its largest
+    value of the exact sum (fp64 ``index_add_`` over the ids in [0, V)),
+    and within 1e-4 of the plain version's (``index_add_`` into fp32 zeros,
+    whose atomic sums round in any order); the same bits on a rerun."""
     from datamining_recblr_torch.ops import embedding as E
 
+    before = E.embedding_grad.launches
+    got = E.embedding_grad(ids, g, v)
+    assert E.embedding_grad.launches == before + 1
+    flat = ids.reshape(-1)
+    ok = (flat >= 0) & (flat < v)
+    g2 = g.reshape(flat.numel(), -1)
+    want = E.embedding_grad_plain(flat[ok], g2[ok], v)
+    exact = torch.zeros(want.shape, device=g.device, dtype=torch.float64).index_add_(
+        0, flat[ok], g2[ok].double())
+    scale = float(exact.abs().max())
+    assert float((got.double() - exact).abs().max()) <= 1e-6 * scale
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert torch.equal(E.embedding_grad(ids, g, v), got)
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("v,n,d", [(329_728, 524_288, 64), (300, 5000, 48), (20, 100_000, 8),
+                                   (300, 5000, 520), (1023, 60_000, 64), (1024, 60_000, 64),
+                                   (2**20 - 1, 300_000, 16), (2**20, 300_000, 16)])
+def test_embedding_grad_kernel_matches_plain(dev, v, n, d, dtype):
+    """Row 16 (``_assert_embedding_grad``) with id 0 at about half of the
+    ids: at XLong (PAD's segment over ~8,200 pieces, ~130 groups); D 520
+    walks the columns in slices of 512 and 8, one launch all the same; V
+    at and just past the edges of the radix passes (one pass of 10 bits up
+    to 1,023, two of 6 from 1,024, two of 10 up to 2^20 - 1, three of 7
+    from 2^20), with int64 ids."""
     rng = np.random.default_rng(55)
     ids = rng.integers(0, v, n)
     ids[rng.random(n) < 0.5] = 0
     ids = torch.from_numpy(ids).to(dev)
     g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev,
                                                                            getattr(torch, dtype))
-    before = E.embedding_grad.launches
-    got = E.embedding_grad(ids, g, v)
-    assert E.embedding_grad.launches == before + 1
-    want = E.embedding_grad_plain(ids, g, v)
-    exact = torch.zeros((v, d), device=dev, dtype=torch.float64).index_add_(0, ids, g.double())
-    scale = float(exact.abs().max())
-    assert float((got.double() - exact).abs().max()) <= 1e-6 * scale
-    assert float((got - want).abs().max()) <= 1e-4 * scale
-    assert torch.equal(E.embedding_grad(ids, g, v), got)
+    _assert_embedding_grad(ids, g, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["one_id", "one_id_last", "outside", "int32_bench"])
+def test_embedding_grad_kernel_matches_plain_on_skewed_ids(dev, case, dtype):
+    """Row 16 (``_assert_embedding_grad``) where every id is equal (one
+    segment over all 8,200 pieces, at id 0 and at V - 1), where a fifth of
+    the ids lie outside [0, V) (left out) and PAD at a third, and on the
+    bench step's int32 ids of shape [2,048, 200] with its lengths (PAD after
+    each, about half)."""
+    rng = np.random.default_rng(56)
+    d = 64
+    if case == "one_id" or case == "one_id_last":
+        v, n = 3417, 262_144
+        ids = np.full(n, 0 if case == "one_id" else v - 1)
+    elif case == "outside":
+        v, n = 5000, 200_000
+        ids = rng.integers(-10, v + 10, n)
+        ids[rng.random(n) < 0.2] = v + rng.integers(0, 3)
+        ids[rng.random(n) < 0.33] = 0
+    else:
+        v, t = 3417, 200
+        lens = rng.integers(2, t + 1, (2048, 1))
+        ids = np.where(np.arange(t)[None] < lens, rng.integers(1, v, (2048, t)), 0)
+        ids = ids.astype(np.int32)
+    ids = torch.from_numpy(ids).to(dev)
+    g = torch.from_numpy(rng.standard_normal(tuple(ids.shape) + (d,)).astype(np.float32)).to(
+        dev, getattr(torch, dtype))
+    _assert_embedding_grad(ids, g, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["edges", "pad_half", "d520"])
+def test_embedding_grad_kernel_sums_in_the_schedule_order(dev, case, dtype):
+    """Row 16's bits equal those of its order of sums emulated in numpy
+    (``tests/emb_grad_schedule.py``: compensated fp32 sums of the sorted
+    pieces, the group sums and the row sums): segments on and just off
+    piece and group edges; PAD at half of 60,000 ids; D 520 (two column
+    slices)."""
+    from emb_grad_schedule import edge_ids, schedule_sum
+
+    from datamining_recblr_torch.ops import embedding as E
+
+    rng = np.random.default_rng(57)
+    v, d = (300, 8) if case == "edges" else (9216, 8) if case == "pad_half" else (300, 520)
+    if case == "edges":
+        ids = edge_ids(rng, v)
+    else:
+        n = 60_000 if case == "pad_half" else 8000
+        ids = rng.integers(1, v, n)
+        ids[rng.random(n) < 0.5] = 0
+    g = torch.from_numpy(rng.standard_normal((ids.size, d)).astype(np.float32)).to(
+        getattr(torch, dtype))
+    want = schedule_sum(ids, g.float().numpy(), v)
+    got = E.embedding_grad(torch.from_numpy(ids).to(dev), g.to(dev), v)
+    assert torch.equal(got.cpu(), torch.from_numpy(want))
 
 
 def test_bf16_train_step_launches_the_table_gradient_kernel(dev):
@@ -1392,7 +1462,7 @@ def test_bf16_train_step_at_hidden_520_sums_the_table_gradient_on_the_card(dev, 
 
 @pytest.mark.parametrize("p_drop", [0.0, 0.2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 48, 512])
+@pytest.mark.parametrize("d", [64, 48, 512, 30, 33])
 def test_dropout_ln_kernels_match_plain(dev, d, dtype, p_drop):
     rng = np.random.default_rng(60)
     dt = getattr(torch, dtype)
@@ -1426,6 +1496,54 @@ def test_dropout_ln_mask_bits_match_plain(dev):
     dx, _, _ = FL.fused_dropout_ln_bwd(x, dout, ones, zeros, 0.4, 31337)
     want = philox.dropout_mask(31337, philox.M0, 7, 50, 64, 0.4, dev) > 0
     assert torch.equal(dx != 0, want)
+
+
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("p_drop", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [30, 33, 64, 512])
+def test_ln_forwards_at_a_row_count_no_row_group_divides(dev, d, dtype, p_drop, pre):
+    """Rows 6 (pre False) and 5 (pre True) forward at B 7, T 45 (315 rows:
+    an odd count, so the last segment of two rows holds one), D 30 and 33
+    (no 16-byte rows), 64 and 512 (four groups a lane): one launch, the
+    plain version's values, the same bits on a rerun."""
+    rng = np.random.default_rng(63 + d)
+    b, t = 7, 45
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy((2 * rng.standard_normal((b, t, d)) + 1).astype(np.float32)).to(dev, dt)
+    pos, s, bias = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                    for shape in ((t, d), (d,), (d,)))
+    fn, args, plain = ((FL.fused_dropout_ln, (x, s, bias, p_drop, 12), FL.fused_dropout_ln_plain)
+                       if pre else (FL.fused_ln_dropout, (x, pos, s, bias, p_drop, 12),
+                                    FL.fused_ln_dropout_plain))
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1 and got.dtype == dt and got.shape == x.shape
+    _assert_attn_close(got, plain(*args), dtype)
+    assert torch.equal(fn(*args), got)
+
+
+@pytest.mark.parametrize("pre", [False, True])
+@pytest.mark.parametrize("d", [30, 33, 64, 512])
+def test_ln_forward_mask_bits_match_plain(dev, d, pre):
+    """The forwards' M0 mask bit for bit against the plain Philox mask at
+    B 5, T 41: the prologue with scale 0 and bias 1 returns its mask; LN
+    of dropout(ones) is above 0 exactly where the mask keeps (and 0 on a
+    row the mask keeps or drops whole)."""
+    from datamining_recblr_torch.ops import philox
+
+    b, t, p_drop, seed = 5, 41, 0.4, 777
+    ones, zeros = torch.ones(d, device=dev), torch.zeros(d, device=dev)
+    want = philox.dropout_mask(seed, philox.M0, b, t, d, p_drop, dev) > 0
+    if pre:
+        out = FL.fused_dropout_ln(torch.ones((b, t, d), device=dev), ones, zeros, p_drop, seed)
+        whole = want.all(-1, keepdim=True) | ~want.any(-1, keepdim=True)
+        assert torch.equal((out > 0) | (whole & want), want)
+        assert not bool((out[whole.expand_as(out)] != 0).any())
+    else:
+        out = FL.fused_ln_dropout(torch.randn((b, t, d), device=dev), zeros.expand(t, d)
+                                  .contiguous(), zeros, ones, p_drop, seed)
+        assert torch.equal(out != 0, want)
 
 
 @pytest.mark.parametrize("c", [256, 200])
