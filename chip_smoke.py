@@ -77,6 +77,16 @@ per-op composition, forward and backward) and, phase by phase:
   two column slices);
 * runs ``Trainer.fit`` and ``evaluate(load_best=True)`` for the three on
   a small Markov dataset: the loss falls and valid NDCG@10 is above 0;
+* runs the experiment path at ml1m-synth's full size (the stat-matched
+  log of seed 2020 written as an ``.inter`` file, ``build_dataset`` from
+  the reference config, ``run_experiment`` for one epoch): RecBLR CE fp32
+  with full-sort evaluation (``experiment-ml1m-R``: valid NDCG@10 at least
+  0.15), RecBLR BPR bf16 with uni100 (``experiment-ml1m-R-bpr-uni100``:
+  valid hit@10 above 0.198, twice chance) and BERT4Rec BPR fp32 with pop100
+  (``experiment-ml1m-B-bpr-pop100``: uni100 hit@10 above 0.198, the pop100
+  metrics against a plain recomputation), each with the dataset's summary,
+  the test from the best checkpoint and every kernel launch of its path
+  counted (one a train step or eval batch);
 * times every kernel beside its bound, its plain version and, where one
   PyTorch call computes the same function, that call (row 15 beside
   ``F.scaled_dot_product_attention`` with the same additive mask; the
@@ -1510,6 +1520,167 @@ def fit_phase(dev, name="RecBLR"):
     check(losses[-1] < losses[0], f"{prefix}: the epoch loss did not fall")
     check(best > 0 and test["ndcg@10"] > 0, f"{prefix}: NDCG@10 is not above 0")
     check(reloaded, f"{prefix}: no best checkpoint was written")
+
+
+# the experiment path (``python -m datamining_recblr_torch.run`` /
+# ``.parity``) at ml1m-synth's full size: the stat-matched log of
+# generator seed 2020 written as an .inter file, ``build_dataset`` from the
+# reference config (the root config.yaml's keys), then ``run_experiment``
+# for one epoch.  Each run names its model, its overrides, the metric and
+# floor its first valid evaluation must pass (">=" or ">"), and the
+# kernels it counts with their launches per train step and per eval batch
+# (under BPR ``embedding_grad`` also sums the scores' gathers: the table's,
+# and BERT4Rec's output bias's)
+EXP_PRESET, EXP_GEN_SEED = "ml1m-synth", 2020
+EXP_SUMMARY = {"users": 6040, "items": 3416, "inters": 999_611, "train": 981_491}
+EXPERIMENTS = {
+    "experiment-ml1m-R": dict(
+        model="RecBLR", cfg={"compute_dtype": "float32"}, metric="ndcg@10", floor=0.15,
+        strict=False, counted=LAUNCH_COUNTED, per_step=(1, 1, 1, 1), per_eval=(1, 1, 0, 0)),
+    # twice the chance of hit@10 among 101 candidates (10/101)
+    "experiment-ml1m-R-bpr-uni100": dict(
+        model="RecBLR", cfg={"compute_dtype": "bfloat16", "loss_type": "BPR",
+                             "eval_args": {"mode": "uni100"}},
+        metric="hit@10", floor=0.198, strict=True, counted=LAUNCH_COUNTED + (E.embedding_grad,),
+        per_step=(1, 1, 1, 1, 2), per_eval=(1, 1, 0, 0, 0)),
+    # one epoch of BERT4Rec (BPR or CE alike) ranks the target among
+    # popularity-drawn negatives at chance (PERF.md, PR 19): its floor is
+    # held on uni100 ("learned"), and the run's own pop100 metrics against
+    # a plain recomputation from the full-sort scores
+    "experiment-ml1m-B-bpr-pop100": dict(
+        model="BERT4Rec", cfg={"compute_dtype": "float32", "loss_type": "BPR",
+                               "eval_args": {"mode": "pop100"}},
+        metric="hit@10", floor=0.198, strict=True, floor_mode="uni100",
+        counted=(FL.fused_ln_dropout, FB.fused_transformer_layer, FB.fused_transformer_layer_sel,
+                 FL.fused_ln_dropout_bwd, FB.fused_transformer_layer_bwd,
+                 FB.fused_transformer_layer_sel_bwd, FB.fused_transformer_layer_last,
+                 E.embedding_grad),
+        per_step=(1, 1, 1, 1, 1, 1, 0, 2), per_eval=(1, 1, 0, 0, 0, 0, 1, 0)),
+}
+
+
+def plain_sampled_metrics(evaluator, split):
+    """hit@10 and ndcg@10 of ``evaluator``'s sampled mode, recomputed
+    plainly: the same candidates (its generator, batch by batch), their
+    scores read from the model's full-sort scores, the target's rank one
+    plus the negatives scoring strictly above it."""
+    from datamining_recblr_torch.data.batching import iter_batches
+
+    model, dev = evaluator.model, evaluator.model.device
+    rng = np.random.default_rng(evaluator.seed)
+    hits = ndcg = weight = 0.0
+    model.eval()
+    with torch.no_grad():
+        for batch in iter_batches(split, evaluator.batch_size):
+            cands = torch.from_numpy(evaluator.candidates(rng, batch["pos_item"])).to(dev)
+            scores = model.full_sort_scores(torch.from_numpy(batch["item_seq"]).to(dev),
+                                            torch.from_numpy(batch["item_seq_len"]).to(dev))
+            s = scores.gather(1, cands.long())
+            rank = 1 + (s[:, 1:] > s[:, :1]).sum(1).double().cpu().numpy()
+            w = batch["weight"]
+            hits += float((w * (rank <= 10)).sum())
+            ndcg += float((w * np.where(rank <= 10, 1.0 / np.log2(rank + 1.0), 0.0)).sum())
+            weight += float(w.sum())
+    return {"hit@10": hits / weight, "ndcg@10": ndcg / weight}
+
+
+def experiment_phases(dev):
+    """The three ``EXPERIMENTS`` runs on one written ml1m-synth: the
+    dataset's summary, one epoch's loss, time and examples/s, the valid
+    and test metrics (test from the best checkpoint), the launches of
+    each counted kernel against one per train step and eval batch as
+    its path runs it, and the card in the environment report.  Returns
+    {name: {"launches": {kernel: n}, "train_s", "examples_per_s",
+    "eval_s", metric: value}}."""
+    import os
+    import tempfile
+
+    from datamining_recblr_torch.data.dataset import build_dataset
+    from datamining_recblr_torch.data.synthetic import write_stat_matched_dataset
+    from datamining_recblr_torch.drivers import run_experiment
+    from datamining_recblr_torch.eval.evaluator import Evaluator
+    from datamining_recblr_torch.run import build_config
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_stat_matched_dataset(os.path.join(tmp, "dataset"), EXP_PRESET, seed=EXP_GEN_SEED)
+        t_write = time.perf_counter() - t0
+        data = None
+        for name, spec in EXPERIMENTS.items():
+            cfg = build_config(spec["model"], EXP_PRESET, ["reference"], dict(
+                spec["cfg"], epochs=1, data_path=os.path.join(tmp, "dataset"),
+                checkpoint_dir=os.path.join(tmp, "saved", name), log_dir=os.path.join(tmp, "log"),
+                metrics_file=os.path.join(tmp, f"{name}.jsonl")))
+            if data is None:
+                t0 = time.perf_counter()
+                data = build_dataset(cfg)
+                t_build = time.perf_counter() - t0
+                got = {"users": data.n_users - 1, "items": data.n_items - 1,
+                       "inters": data.n_interactions, "train": len(data.train)}
+                phase("experiment-data", preset=EXP_PRESET, gen_seed=EXP_GEN_SEED,
+                      summary=repr(data.summary()), write_s=f"{t_write:.1f}",
+                      build_s=f"{t_build:.1f}", compact=data.train.compact)
+                check(got == EXP_SUMMARY, f"{EXP_PRESET}: {got}, not {EXP_SUMMARY}")
+            for fn in spec["counted"]:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            result = run_experiment(cfg, data=data, plot_dir=os.path.join(tmp, "plot"))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in spec["counted"]}
+            trainer = result["trainer"]
+            steps = -(-len(data.train) // int(cfg["train_batch_size"]))
+            batches = sum(-(-len(split) // int(cfg["eval_batch_size"]))
+                          for split in (data.valid, data.test))
+            want = {fn.__name__: steps * a + batches * b
+                    for fn, a, b in zip(spec["counted"], spec["per_step"], spec["per_eval"])}
+            rec = result["metrics"].epoch_records()[0]
+            flops = [r["flops"] for r in result["metrics"].records if r["event"] == "flops"]
+            valid, test = rec.get(f"valid_{spec['metric']}"), result["test_result"]
+            extra = {}
+            if "floor_mode" in spec:
+                # the trained model (after its one epoch, the best) in the floor's
+                # mode, and the run's mode recomputed plainly
+                ev = trainer.evaluator
+                plain = plain_sampled_metrics(ev, data.valid)
+                own = ev.evaluate(data.valid)
+                floor_cfg = build_config(spec["model"], EXP_PRESET, ["reference"],
+                                         {"eval_args": {"mode": spec["floor_mode"]}})
+                valid = Evaluator(trainer.model, floor_cfg).evaluate(data.valid)[spec["metric"]]
+                extra = {f"valid_{spec['floor_mode']}_{spec['metric']}": f"{valid:.4f}",
+                         "plain_valid": repr({k: round(v, 4) for k, v in plain.items()}),
+                         "chance_hit10": f"{10 / (1 + ev.n_negatives):.4f}"}
+                check(all(abs(own[k] - v) <= 1e-3 for k, v in plain.items()),
+                      f"{name}: {cfg['eval_args']['mode']} metrics {own} disagree with the "
+                      f"plain recomputation {plain}")
+            env = result["environment"]
+            reloaded = bool(trainer.ckpt_path) and trainer.ckpt_path.startswith(tmp)
+            phase(name, model=spec["model"], dtype=cfg["compute_dtype"], loss=cfg["loss_type"],
+                  eval_mode=cfg["eval_args"]["mode"], epochs=len(result["metrics"].epoch_records()),
+                  train_loss=f"{rec['train_loss']:.4f}", train_s=f"{rec['train_time']:.2f}",
+                  steps=steps, examples_per_s=f"{len(data.train) / rec['train_time']:.1f}",
+                  eval_s=f"{rec['eval_time']:.2f}", wall_s=f"{wall:.1f}",
+                  forward_flops=flops[0] if flops else None,
+                  valid=repr({k: round(v, 4) for k, v in sorted(result["best_valid_result"].items())}),
+                  test=repr({k: round(v, 4) for k, v in sorted(test.items())}),
+                  best_epoch=trainer.best_epoch, checkpoint_reloaded=reloaded,
+                  launches=repr(launches), card=repr(env["nvidia_smi"]),
+                  peak_device_gb=rec.get("device_mem_gb"), **extra)
+            check(np.isfinite(rec["train_loss"]), f"{name}: the epoch loss is not finite")
+            check(valid is not None and (valid > spec["floor"] if spec["strict"]
+                                         else valid >= spec["floor"]),
+                  f"{name}: valid {spec.get('floor_mode', cfg['eval_args']['mode'])} "
+                  f"{spec['metric']} {valid} is not "
+                  f"{'above' if spec['strict'] else 'at least'} {spec['floor']}")
+            check(reloaded and trainer.best_epoch == 0, f"{name}: the test did not run from "
+                  "the best checkpoint")
+            check(launches == want, f"{name}: launches {launches}, expected {want}")
+            check(env["backend"] == "cuda" and env["nvidia_smi"], f"{name}: environment {env}")
+            out[name] = {"launches": launches, "train_s": rec["train_time"],
+                         "examples_per_s": len(data.train) / rec["train_time"],
+                         "eval_s": rec["eval_time"], spec["metric"]: valid}
+    return out
 
 
 def _bwd_flops_k1(b, t):
@@ -4319,6 +4490,7 @@ def main():
         path_train_phase(dev, name, "h528", "bfloat16")
     for name in TRAINED:
         fit_phase(dev, name)
+    experiments = experiment_phases(dev)
     kernel_times(dev, p1, p2, lens)
     rows = training_kernel_times(dev)
     attn_kernel_times(dev)
@@ -4455,6 +4627,18 @@ def main():
         train_summary[f"{tag}_examples_per_s_{SHORT_DTYPE[dt]}"] = (
             f"{out['examples_per_s']:.1f}")
         train_summary[f"{tag}_peak_gb_{SHORT_DTYPE[dt]}"] = f"{out['peak_gb']:.3f}"
+    # the experiment path's launches (one epoch and its evaluations) of
+    # each kernel it runs, by run
+    for entry in kernels:
+        runs = {name: out["launches"][entry["name"]] for name, out in experiments.items()
+                if entry["name"] in out["launches"]}
+        if runs:
+            entry["launches_experiment"] = runs
+    for name, out in experiments.items():
+        tag = name.removeprefix("experiment-").replace("-", "_")
+        train_summary[f"{tag}_train_s"] = f"{out['train_s']:.2f}"
+        train_summary[f"{tag}_examples_per_s"] = f"{out['examples_per_s']:.1f}"
+        train_summary[f"{tag}_eval_s"] = f"{out['eval_s']:.2f}"
     check(len(kernels) == 27, f"the kernels JSON lists {len(kernels)} kernels, not 27")
     phase("summary", card=repr(smi), **serve_summary, **train_summary)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,6 +18,7 @@ builder reproduces the JAX builder's arrays exactly:
 
 from __future__ import annotations
 
+import os
 import re
 from dataclasses import dataclass, field
 
@@ -150,6 +151,15 @@ class SeqData:
             f"valid={len(self.valid)} test={len(self.test)} L={self.max_seq_len}"
         )
 
+    def item_popularity(self) -> np.ndarray:
+        """Per-item interaction counts over the training portion, indexed
+        by item id (PAD = 0 at index 0): the popN sampling distribution."""
+        counts = np.zeros(self.n_items, np.int64)
+        for items in self.user_train_items:
+            if len(items):
+                counts += np.bincount(items, minlength=self.n_items)
+        return counts
+
 
 def compact_from_streams(flat: np.ndarray, lens_u: np.ndarray,
                          max_seq_len: int) -> SplitArrays:
@@ -254,4 +264,31 @@ def build_from_dataframe(frame: dict, max_seq_len: int, user_field: str = "user_
         test=_samples_to_arrays(test_samples, max_seq_len),
         user_token2id=u_t2i, item_token2id=i_t2i, user_id2token=u_i2t,
         item_id2token=i_i2t, user_train_items=user_train_items,
+    )
+
+
+def build_dataset(config) -> SeqData:
+    """The dataset a config names, from ``<data_path>/<name>/<name>.inter``
+    (RecBole's directory layout), split and augmented by
+    ``build_from_dataframe``.
+
+    The JAX package builds with its native loader when
+    ``use_native_loader`` is on (the default) and with Python otherwise;
+    the two give the same arrays.  The port has no native loader yet, so
+    it builds with Python whatever ``use_native_loader`` says, and the
+    arrays are those of either."""
+    from datamining_recblr_torch.data.atomic import read_atomic_file
+
+    name = config["dataset"]
+    path = os.path.join(config["data_path"], name, f"{name}.inter")
+    load_col = config["load_col"] or {}
+    frame = read_atomic_file(path, columns=load_col.get("inter"))
+    return build_from_dataframe(
+        frame,
+        max_seq_len=config["MAX_ITEM_LIST_LENGTH"],
+        user_field=config["USER_ID_FIELD"],
+        item_field=config["ITEM_ID_FIELD"],
+        time_field=config["TIME_FIELD"],
+        user_interval=config["user_inter_num_interval"],
+        item_interval=config["item_inter_num_interval"],
     )

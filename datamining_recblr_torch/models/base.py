@@ -5,9 +5,9 @@ compute through ``ops/embedding.py``, whose backward is the table
 gradient kernel), the vocab-padding rule, full-catalog scoring and the CE
 training loss (on the card the whole-table CE kernel from 8,192 rows, or
 the vocab-chunked one for a table beyond it once the logits would take
-64 MiB, as the JAX package's gate), as an ``nn.Module`` that holds its
-parameters under the JAX parameter tree's names.  The BPR loss is not
-ported yet.
+64 MiB, as the JAX package's gate) or the BPR loss against one sampled
+negative a row, as an ``nn.Module`` that holds its parameters under the
+JAX parameter tree's names.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from datamining_recblr_torch.ops import fused_ce as FCE
-from datamining_recblr_torch.ops.embedding import embedding_lookup
+from datamining_recblr_torch.ops.embedding import embedding_lookup, gather_rows
 
 _DTYPES = {
     "float32": torch.float32,
@@ -31,6 +31,8 @@ _DTYPES = {
 # block width (ops/fused_ce.py:65-66, 244).  The port keeps the same rule
 # so that padded shapes, and so interop, match.
 _CE_BV = 2048
+
+BPR_GAMMA = 1e-10  # RecBole's BPRLoss gamma: -log(gamma + sigmoid(pos - neg))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -58,6 +60,12 @@ def ce_loss(logits, targets, weights=None):
     logz = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets.long()[:, None])[:, 0]
     return weighted_mean(logz - tgt, weights)
+
+
+def bpr_loss(pos_score, neg_score, weights=None):
+    """RecBole's BPRLoss: ``-log(1e-10 + sigmoid(pos - neg))``, the (weighted)
+    mean over rows."""
+    return weighted_mean(-torch.log(BPR_GAMMA + torch.sigmoid(pos_score - neg_score)), weights)
 
 
 def weighted_mean(nll, weights=None):
@@ -131,8 +139,11 @@ class SequentialModel(nn.Module):
         return seq_output.float() @ table.float().T
 
     def item_scores(self, seq_output, item_ids):
-        """Dot-product score of seq_output[b] with item ids [B]."""
-        emb = self.item_embedding[item_ids].to(seq_output.dtype)
+        """Dot-product score of seq_output [..., H] with the items
+        ``item_ids`` [K, ...] (K sets of ids, seq_output broadcast over
+        K): the table rows gathered in its dtype, then rounded to the
+        compute dtype; their table gradient is ``embedding_grad``'s."""
+        emb = gather_rows(self.item_embedding, item_ids).to(seq_output.dtype)
         return (seq_output * emb).sum(-1)
 
     def _use_fused_ce(self, v: int, d: int, rows: int) -> bool:
@@ -149,16 +160,20 @@ class SequentialModel(nn.Module):
         return FCE.supports_chunked(v, d) and rows * v * 4 >= FCE.CHUNK_MIN_LOGITS_BYTES
 
     def calculate_loss(self, batch, step=None):
-        """batch: item_seq [B, T], item_seq_len [B], pos_item [B] and an
-        optional weight [B] (0 for padded rows).  CE over the whole
-        catalog, padded vocab columns at -1e30 (on the card through a CE
-        kernel where ``_use_fused_ce`` says so); dropout on in training
+        """batch: item_seq [B, T], item_seq_len [B], pos_item [B], under BPR
+        neg_item [B], and an optional weight [B] (0 for padded rows).  CE
+        over the whole catalog, padded vocab columns at -1e30 (on the card
+        through a CE kernel where ``_use_fused_ce`` says so), or BPR of the
+        positive's score against the negative's; dropout on in training
         mode with the global ``step``."""
-        if self.loss_type != "CE":
-            raise NotImplementedError(f"loss_type {self.loss_type!r} is not ported; CE is "
-                                      "(BPR: ROADMAP.md queue A item 8)")
+        if self.loss_type not in ("CE", "BPR"):
+            raise ValueError(f"unknown loss_type {self.loss_type!r} (CE / BPR)")
         seq_output = self.forward(batch["item_seq"], batch["item_seq_len"], step=step)
         weights = batch.get("weight")
+        if self.loss_type == "BPR":
+            ids = torch.stack([batch["pos_item"].long(), batch["neg_item"].long()])
+            pos, neg = self.item_scores(seq_output, ids)  # one gather, one table gradient
+            return bpr_loss(pos, neg, weights)
         table = self.item_embedding
         if self._use_fused_ce(*table.shape, rows=seq_output.shape[0]):
             nll = FCE.fused_softmax_ce(seq_output, table, batch["pos_item"],

@@ -23,6 +23,11 @@ the unfused composition returns [B, T, D] and is gathered), the output
 head, and CE over the table without the mask token's row plus the output
 bias (the whole-table CE kernel from 8,192 rows on the card), weighted by
 the valid slots times the row weight and divided by max(sum w, 1).
+Under BPR the loss at those slots is ``-log(1e-14 + sigmoid(pos - neg))``
+of the target's score against one negative's (scores with the output
+bias), summed with those weights over max(sum w, 1), as the JAX package
+computes it; the negatives are uniform in [1, n_items), a Philox draw
+under one more ``step_seeds`` seed (``neg_draw``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,9 @@ from datamining_recblr_torch.models.base import ce_loss, weighted_mean
 from datamining_recblr_torch.models.sasrec import SASRec
 from datamining_recblr_torch.ops import fused_ce as FCE
 from datamining_recblr_torch.ops import philox
+from datamining_recblr_torch.ops.embedding import gather_rows
+
+BPR_GAMMA = 1e-14  # BERT4Rec's own BPR: -log(1e-14 + sigmoid(pos - neg))
 
 
 class BERT4Rec(SASRec):
@@ -98,6 +106,17 @@ class BERT4Rec(SASRec):
         from every mask and a function of (config seed, step) alone."""
         return philox.step_seeds(self.seed, step, len(self.encoder) + 2)[-1]
 
+    def neg_seed(self, step) -> int:
+        """The BPR negatives' seed: the ``step_seeds`` entry after the
+        cloze draw's."""
+        return philox.step_seeds(self.seed, step, len(self.encoder) + 3)[-1]
+
+    def neg_draw(self, b: int, s: int, step=None):
+        """[b, s] BPR negatives of one step (s = mask_len), uniform in
+        [1, n_items) (``step`` None draws step 0's)."""
+        return philox.uniform_ints(self.neg_seed(0 if step is None else step), b, s, 1,
+                                   self.n_items, self.item_embedding.device)
+
     def cloze_draw(self, item_seq, item_seq_len, step=None):
         """The cloze positions of one step (``step`` None draws step 0's):
         ``(masked_seq [B, T], order, sel_tgt [B, mask_len] long, sel_valid
@@ -129,8 +148,9 @@ class BERT4Rec(SASRec):
         sel_valid = torch.arange(mask_len, device=dev)[None, :] < n_masked[:, None]
         return masked_seq, order[:, :mask_len], sel_tgt[:, :mask_len], sel_valid
 
-    def cloze_loss(self, batch, cloze, step=None):
-        """The CE cloze loss of ``cloze = (masked_seq, order, sel_tgt,
+    def cloze_loss(self, batch, cloze, step=None, neg=None):
+        """The cloze loss (CE, or BPR against ``neg`` [B, mask_len], by
+        default ``neg_draw``'s) of ``cloze = (masked_seq, order, sel_tgt,
         sel_valid)`` (``cloze_draw``'s), with ``batch``'s optional row
         weight [B]; dropout on in training mode with ``step``."""
         masked_seq, order, sel_tgt, sel_valid = cloze
@@ -141,6 +161,13 @@ class BERT4Rec(SASRec):
         w = sel_valid.float()
         if batch.get("weight") is not None:
             w = w * batch["weight"].float()[:, None]
+        if self.loss_type == "BPR":
+            if neg is None:
+                neg = self.neg_draw(*sel_tgt.shape, step)
+            pos, neg = self.item_scores(out, torch.stack([sel_tgt, neg.to(sel_tgt.dtype)]))
+            diff = pos - neg
+            loss = -torch.log(BPR_GAMMA + torch.sigmoid(diff))
+            return (loss * w).sum() / w.sum().clamp_min(1.0)
         x = out.reshape(-1, h)
         tgt = sel_tgt.clamp_min(0).reshape(-1)
         if self._use_fused_ce(self.n_items, h, rows=x.shape[0]):
@@ -152,10 +179,10 @@ class BERT4Rec(SASRec):
 
     def calculate_loss(self, batch, step=None):
         """batch: item_seq [B, T], item_seq_len [B] and an optional weight
-        [B] (0 for padded rows).  The cloze CE loss of ``step``'s draw."""
-        if self.loss_type != "CE":
-            raise NotImplementedError(f"loss_type {self.loss_type!r} is not ported; CE is "
-                                      "(BPR: ROADMAP.md queue A item 8)")
+        [B] (0 for padded rows).  The cloze loss (CE or BPR) of ``step``'s
+        draws."""
+        if self.loss_type not in ("CE", "BPR"):
+            raise ValueError(f"unknown loss_type {self.loss_type!r} (CE / BPR)")
         cloze = self.cloze_draw(batch["item_seq"], batch["item_seq_len"], step)
         return self.cloze_loss(batch, cloze, step)
 
@@ -166,8 +193,10 @@ class BERT4Rec(SASRec):
                             F.gelu(L.dense(self.output_ffn, x), approximate="tanh"))
 
     def item_scores(self, seq_output, item_ids):
-        emb = self.item_embedding[item_ids].to(seq_output.dtype)
-        return (seq_output * emb).sum(-1) + self.output_bias[item_ids]
+        """``SequentialModel.item_scores`` plus the output bias (gathered
+        as a one-column table)."""
+        bias = gather_rows(self.output_bias[:, None], item_ids)[..., 0]
+        return super().item_scores(seq_output, item_ids) + bias
 
     def _logits(self, seq_output):
         """[..., n_items] fp32 scores: the table without the mask token's

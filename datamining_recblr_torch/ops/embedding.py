@@ -21,6 +21,8 @@ in the source; the kernel refuses a smaller buffer.
 ``embedding_grad`` on a CPU tensor computes its plain version
 (``embedding_grad_plain``); on a CUDA tensor it launches its kernel or
 raises.  ``launches`` on it counts its kernel launches.
+``gather_rows`` is the same lookup without the bf16 copy: the gradient
+of a plain gather of table rows.
 """
 
 from __future__ import annotations
@@ -117,19 +119,27 @@ embedding_grad.launches = 0
 
 class _Lookup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, dtype):
         ctx.save_for_backward(ids)
         ctx.rows, ctx.dtype = table.shape[0], table.dtype
-        return table.to(torch.bfloat16)[ids]
+        return table.to(dtype)[ids]
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return embedding_grad(ids, g, ctx.rows).to(ctx.dtype), None
+        return embedding_grad(ids, g, ctx.rows).to(ctx.dtype), None, None
 
 
 def embedding_lookup(table, ids):
     """``table [V, D]`` rows of ``ids`` [...] in bf16, differentiable in
     the table: its gradient is the fp32 ``embedding_grad`` of the
     cotangent, cast to the table's dtype."""
-    return _Lookup.apply(table, ids)
+    return _Lookup.apply(table, ids, torch.bfloat16)
+
+
+def gather_rows(table, ids):
+    """``table [V, D]`` rows of ``ids`` [...] in the table's dtype, the
+    plain gather's value, differentiable in the table through the same
+    fp32 ``embedding_grad`` (the BPR scores' gathers, where PyTorch's
+    indexing backward serializes on repeated ids)."""
+    return _Lookup.apply(table, ids, table.dtype)

@@ -114,12 +114,9 @@ def dropout_mask_at(seed: int, mask_id: int, pos, width: int, p: float):
     return _scaled(bits.reshape(*pos.shape, 4 * groups)[..., :width], p, pos.device)
 
 
-def cloze_draw(seed: int, b: int, t: int, ratio: float, device=None):
-    """BERT4Rec's cloze draw: bool [b, t], True with probability ``ratio``
-    at each (row, position), from word (position & 3) of Philox4x32-10 at
-    counter (position >> 2, row, 0, 0) under its own 64-bit ``seed`` (one
-    of ``step_seeds``, apart from every dropout seed), so it needs no mask
-    id and a resumed run replays it."""
+def _row_words(seed: int, b: int, t: int, device=None):
+    """int64 [b, t]: word (position & 3) of Philox4x32-10 at counter
+    (position >> 2, row, 0, 0) under the 64-bit ``seed``."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     kw = dict(device=device, dtype=torch.int64)
     groups = -(-t // 4)
@@ -127,8 +124,21 @@ def cloze_draw(seed: int, b: int, t: int, ratio: float, device=None):
     words = philox4x32_10(torch.arange(groups, **kw)[None, :],
                           torch.arange(b, **kw)[:, None], zero, zero,
                           seed & _MASK32, seed >> 32)
-    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(b, 4 * groups)[:, :t]
-    return bits < min(int(float(ratio) * 4294967296.0), 4294967295)
+    return torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(b, 4 * groups)[:, :t]
+
+
+def cloze_draw(seed: int, b: int, t: int, ratio: float, device=None):
+    """BERT4Rec's cloze draw: bool [b, t], True with probability ``ratio``
+    at each (row, position), from ``_row_words`` under its own 64-bit
+    ``seed`` (one of ``step_seeds``, apart from every dropout seed), so it
+    needs no mask id and a resumed run replays it."""
+    return _row_words(seed, b, t, device) < min(int(float(ratio) * 4294967296.0), 4294967295)
+
+
+def uniform_ints(seed: int, b: int, t: int, lo: int, hi: int, device=None):
+    """int64 [b, t] in [lo, hi): ``lo + (word * (hi - lo)) >> 32`` of
+    ``_row_words`` under its own ``seed`` (BERT4Rec's BPR negatives)."""
+    return lo + ((_row_words(seed, b, t, device) * (int(hi) - int(lo))) >> 32)
 
 
 def _scaled(bits, p, device):

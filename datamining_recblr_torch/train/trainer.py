@@ -1,13 +1,17 @@
-"""Training loop of the port (counterpart of the CE path of
+"""Training loop of the port (counterpart of
 ``datamining_recblr_tpu/train/trainer.py`` on one device): per-epoch
-validation, early stopping, best-checkpoint retention and reload.
+validation, early stopping, best-checkpoint retention and reload, CE or
+BPR, and a ``torch.profiler`` trace of one epoch (``profile_dir``).
 
 * The whole training split lives on the device; each step gathers its
   batch there from an index vector (a COMPACT split assembles its
   windows on the device), runs forward, backward and Adam, and keeps
   the loss on the device.
 * The epoch's permutation comes from ``np.random.default_rng((seed,
-  epoch))``; the last batch is padded with row 0 at weight 0; the epoch
+  epoch))``; under BPR each step's negatives follow from the same
+  generator, uniform in [1, n_items) with up to 4 rounds of resampling
+  where one hits the positive, so the port draws the JAX package's
+  negatives; the last batch is padded with row 0 at weight 0; the epoch
   loss is the sum of per-batch mean losses; dropout masks are seeded by
   (seed, global step, layer).  A resumed run replays the same
   trajectory.
@@ -18,6 +22,7 @@ validation, early stopping, best-checkpoint retention and reload.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -38,10 +43,9 @@ class Trainer:
     def __init__(self, config, model, params=None, metrics_logger=None):
         """``params``: a state_dict to start from (e.g.
         ``interop.params_from_jax``); None keeps the model's own."""
-        if model.loss_type != "CE":
-            raise NotImplementedError(f"loss_type {model.loss_type!r} is not ported; CE is")
         if config.get("mesh_shape"):
-            raise NotImplementedError("multi-device training is not ported")
+            raise NotImplementedError("multi-device training is not ported "
+                                      "(ROADMAP.md queue A item 9)")
         self.config = config
         self.model = model
         self.device = model.device
@@ -58,6 +62,7 @@ class Trainer:
         self.stopping_step = int(config["stopping_step"])
         self.eval_step = int(config.get("eval_step", 1))
         self.epochs = int(config["epochs"])
+        self.profile_dir = config.get("profile_dir")
         self.ckpt_path = None
         self.start_epoch = 0
         self.best_score = -np.inf if self.bigger else np.inf
@@ -96,6 +101,19 @@ class Trainer:
         return {k: torch.from_numpy(np.ascontiguousarray(getattr(train, k))).to(self.device)
                 for k in names}
 
+    def negatives(self, host_rng, pos):
+        """BPR negatives for the positives ``pos`` [B] (host): uniform in
+        [1, n_items), with up to 4 rounds of resampling where one equals
+        its positive (the JAX trainer's draws, in its order)."""
+        n_items = self.model.n_items
+        neg = host_rng.integers(1, n_items, size=len(pos)).astype(np.int32)
+        for _ in range(4):
+            coll = neg == pos
+            if not coll.any():
+                break
+            neg[coll] = host_rng.integers(1, n_items, int(coll.sum()))
+        return neg
+
     def gather_batch(self, data, idx, weight):
         """The batch of rows ``idx`` (a device index vector) of a
         ``device_split``, assembled on the device."""
@@ -131,6 +149,9 @@ class Trainer:
         train = data.train
         valid = valid_split if valid_split is not None else data.valid
         history_fn = history_fn_from_data(data) if self.config.get("mask_history") else None
+        if self.evaluator.pop_sampling and self.evaluator.pop_probs is None:
+            self.evaluator.set_item_popularity(data.item_popularity())
+        use_bpr = self.model.loss_type == "BPR"
         n = len(train)
         steps_per_epoch = batch_count(n, self.batch_size)
         seed = int(self.config["seed"])
@@ -143,7 +164,9 @@ class Trainer:
         cur_step = 0
         for epoch in range(self.start_epoch, self.epochs):
             t0 = time.time()
-            perm = np.random.default_rng((seed, epoch)).permutation(n)
+            host_rng = np.random.default_rng((seed, epoch))
+            perm = host_rng.permutation(n)
+            prof = self._start_profile() if epoch == self.start_epoch + 1 else None
             losses = []
             for s in range(steps_per_epoch):
                 chunk = perm[s * self.batch_size : (s + 1) * self.batch_size]
@@ -155,10 +178,15 @@ class Trainer:
                 idx = torch.from_numpy(chunk.astype(np.int64)).to(self.device)
                 batch = self.gather_batch(dev_data, idx,
                                           torch.from_numpy(weight).to(self.device))
+                if use_bpr:
+                    neg = self.negatives(host_rng, train.pos_item[chunk])
+                    batch["neg_item"] = torch.from_numpy(neg).to(self.device)
                 losses.append(self.train_step(batch, global_step))
                 global_step += 1
             # epoch loss = sum of per-batch mean losses (one device sync)
             epoch_loss = float(torch.stack(losses).sum())
+            if prof is not None:
+                self._stop_profile(prof, epoch)
             train_time = time.time() - t0
             record = {"epoch": epoch, "train_loss": epoch_loss, "train_time": train_time}
             if self.device.type == "cuda":
@@ -204,9 +232,32 @@ class Trainer:
         )
         return self.best_score, self.best_result
 
+    def _start_profile(self):
+        """A started ``torch.profiler`` capture (CPU, and the card's
+        kernels on a card) when ``profile_dir`` is set, else None."""
+        if not self.profile_dir:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof, epoch):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"trace_epoch{epoch}.json")
+        prof.export_chrome_trace(path)
+        self.logger.info(f"profiler trace written to {path}")
+
     # ------------------------------------------------------------------
     def evaluate(self, split, load_best=True, history_fn=None):
-        """Full-sort evaluation; with ``load_best`` on the best
+        """Evaluation in the config's mode; with ``load_best`` on the best
         checkpoint's parameters (the trainer's own are put back after)."""
         current = None
         if load_best and self.ckpt_path:

@@ -197,7 +197,9 @@ def _train_batch():
 def test_training_is_not_ported_yet(alias, name):
     """Both baselines train now: SASRec's CE and BERT4Rec's cloze loss
     reach every parameter, and ``forward`` in training mode with a step
-    runs with dropout; BPR is not ported for any model (queue A item 8)."""
+    runs with dropout.  BPR, once not ported, trains too: its loss is
+    finite and reaches the item table (held to the JAX package in
+    ``tests/test_torch_bpr.py``); an unknown loss type raises."""
     model = get_model(alias)(Config(model=name, config_dict=CFG), N_ITEMS, T, device="cpu")
     assert type(model).__name__ == name
     batch = _train_batch()
@@ -215,8 +217,15 @@ def test_training_is_not_ported_yet(alias, name):
         assert (out - model(batch["item_seq"], batch["item_seq_len"])).abs().max() > 1e-3
     bpr = get_model(alias)(Config(model=name, config_dict=dict(CFG, loss_type="BPR")), N_ITEMS,
                            T, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        bpr.calculate_loss(batch, step=0)
+    bpr.train()
+    bpr_batch = dict(batch, neg_item=torch.full((6,), 2, dtype=torch.long))
+    bpr_loss = bpr.calculate_loss(bpr_batch, step=0)
+    bpr_loss.backward()
+    assert torch.isfinite(bpr_loss) and bpr.item_embedding.grad.abs().sum() > 0
+    other = get_model(alias)(Config(model=name, config_dict=dict(CFG, loss_type="X")), N_ITEMS,
+                             T, device="cpu")
+    with pytest.raises(ValueError, match="unknown loss_type"):
+        other.calculate_loss(batch, step=0)
     model.train(False)
     assert model(batch["item_seq"], batch["item_seq_len"]).shape == (6, 16)
 

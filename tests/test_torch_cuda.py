@@ -2270,3 +2270,37 @@ def test_heads_wider_than_256_train_and_serve_on_the_card(dev, name):
         assert float((g - w).abs().max()) <= max(GRAD_RTOL * float(w.abs().max()),
                                                  1e-6 * top), pname
     assert np.isfinite(vals).all() and float(np.abs(vals - wvals).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["RecBLR", "BERT4Rec"])
+def test_bpr_gathers_take_the_table_gradient_kernel(dev, name, monkeypatch):
+    """The BPR scores' gathers (``ops/embedding.py:gather_rows``): on the
+    card their table gradient is ``embedding_grad``'s, the same values as
+    the plain gather's backward (fp32 sums in another order), one launch
+    for the table and, in BERT4Rec, one for the output bias."""
+    from datamining_recblr_torch.models import base as MB
+    from datamining_recblr_torch.models import bert4rec as MB4
+    from datamining_recblr_torch.ops import embedding as E
+
+    cfg = Config(model=name, config_dict={"hidden_size": 32, "MAX_ITEM_LIST_LENGTH": 20,
+                                          "inner_size": 64, "loss_type": "BPR",
+                                          "dropout_prob": 0.0, "hidden_dropout_prob": 0.0,
+                                          "attn_dropout_prob": 0.0})
+    model = get_model(name)(cfg, 300, 20, generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    batch = {"item_seq": torch.randint(1, 300, (64, 20), generator=gen).to(dev),
+             "item_seq_len": torch.full((64,), 20, device=dev),
+             "pos_item": torch.randint(1, 300, (64,), generator=gen).to(dev),
+             "neg_item": torch.randint(1, 300, (64,), generator=gen).to(dev)}
+    model.train()
+    E.embedding_grad.launches = 0
+    model.calculate_loss(batch, step=1).backward()
+    assert E.embedding_grad.launches == (1 if name == "RecBLR" else 2)
+    got = {k: p.grad.clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    for mod in (MB, MB4):
+        monkeypatch.setattr(mod, "gather_rows", lambda t, i: t[i])
+    model.calculate_loss(batch, step=1).backward()
+    for k, p in model.named_parameters():
+        want = p.grad
+        assert float((got[k] - want).abs().max()) <= 1e-5 * max(float(want.abs().max()), 1e-3), k

@@ -1,4 +1,5 @@
-"""The port's ranking metrics and full-sort evaluator against the JAX
+"""The port's ranking metrics and evaluator (full sort, and the sampled
+uniN / popN modes with the JAX package's negatives) against the JAX
 package's on the CPU.  Ranks are exact (ties: the smaller item index
 first); metric values from the same parameters agree within 1e-5."""
 
@@ -84,7 +85,40 @@ def test_full_sort_evaluator_matches_jax(impl, mask_history):
     assert format_result(got).startswith("hit@10: ")
 
 
-def test_sampled_evaluation_is_not_ported():
-    cfg = Config(model="RecBLR", config_dict={"eval_args": {"mode": "uni100"}})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Evaluator(None, cfg)
+@pytest.mark.parametrize("mode", ["uni100", "pop100"])
+@pytest.mark.parametrize("name", ["RecBLR", "BERT4Rec"])
+def test_sampled_evaluation_is_not_ported(name, mode):
+    """Once not ported, now held to the JAX package: the ``uniN`` and
+    ``popN`` modes draw the JAX evaluator's negatives (``default_rng(seed)``
+    per call, 4 collision rounds, the target at index 0, popularity from
+    the training split), so the metrics agree within 1e-5 for RecBLR and
+    for BERT4Rec with its output bias; an unknown mode still raises."""
+    gen = dict(n_users=60, n_items=150, min_len=4, max_len=14, seed=8)
+    jdata = j_build(j_generate(**gen), max_seq_len=10)
+    data = build_from_dataframe(generate_synthetic_interactions(**gen), max_seq_len=10)
+    cfg = {"hidden_size": 16, "num_layers": 2, "n_layers": 2, "n_heads": 2, "inner_size": 32,
+           "MAX_ITEM_LIST_LENGTH": 10, "eval_batch_size": 16, "metrics": METRICS,
+           "topk": [5, 10], "eval_args": {"mode": mode}, "seed": 11}
+    jmodel = j_get_model(name)(JConfig(model=name, config_dict=cfg), jdata.n_items, 10)
+    jparams = jmodel.init_params(jax.random.PRNGKey(2))
+    rng = np.random.default_rng(3)  # weights away from the init, so that ranks spread
+    jparams = jax.tree.map(
+        lambda a: a + (0.3 * rng.standard_normal(a.shape)).astype(np.float32), jparams)
+    jev = JEvaluator(jmodel, JConfig(model=name, config_dict=cfg))
+    model = get_model(name)(Config(model=name, config_dict=cfg), data.n_items, 10,
+                            device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams)))
+    ev = Evaluator(model, Config(model=name, config_dict=cfg))
+    assert (ev.n_negatives, ev.pop_sampling) == (jev.n_negatives, jev.pop_sampling)
+    if mode.startswith("pop"):
+        jev.set_item_popularity(jdata.item_popularity())
+        ev.set_item_popularity(data.item_popularity())
+        np.testing.assert_array_equal(ev.pop_probs, jev._pop_probs)
+    want = jev.evaluate(jparams, jdata.test)
+    got = ev.evaluate(data.test)
+    assert list(got) == sorted(want) and 0 < got["hit@10"] < 1
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-5, k
+    assert ev.evaluate(data.test) == got  # each call draws anew from the seed
+    with pytest.raises(ValueError, match="unsupported eval mode"):
+        Evaluator(model, Config(model=name, config_dict=dict(cfg, eval_args={"mode": "x5"})))

@@ -46,6 +46,14 @@ MODULES = [
     "datamining_recblr_torch.train.optim",
     "datamining_recblr_torch.train.trainer",
     "datamining_recblr_torch.utils.logging",
+    "datamining_recblr_torch.utils.env",
+    "datamining_recblr_torch.utils.flops",
+    "datamining_recblr_torch.utils.plotting",
+    "datamining_recblr_torch.config.presets",
+    "datamining_recblr_torch.drivers",
+    "datamining_recblr_torch.drivers.experiment",
+    "datamining_recblr_torch.run",
+    "datamining_recblr_torch.parity",
 ]
 FORBIDDEN = ("jax", "jaxlib", "datamining_recblr_tpu", "pandas", "yaml")
 
@@ -83,6 +91,22 @@ def test_training_on_the_cpu_imports_no_pandas_or_yaml(tmp_path):
         "t = Trainer(cfg, get_model('RecBLR')(cfg, data.n_items, 8, device='cpu'))\n"
         "t.fit(data)\n"
         "t.evaluate(data.test)\n"
+    )
+
+
+def test_an_experiment_on_the_cpu_imports_no_pandas_or_yaml(tmp_path):
+    """The written stat-matched log, ``build_dataset`` and one epoch of
+    ``run_experiment`` through ``python -m datamining_recblr_torch.run``
+    with the reference preset: no yaml reader, no pandas."""
+    _run_clean(
+        "import os\n"
+        "from datamining_recblr_torch.data.synthetic import write_stat_matched_dataset\n"
+        "from datamining_recblr_torch import run\n"
+        f"os.chdir({str(tmp_path)!r})\n"
+        "write_stat_matched_dataset('dataset', 'ml1m-synth', out_name='t', n_users=40, "
+        "n_items=30, n_inters=900, n_clusters=5)\n"
+        "run.main(['--config', 'reference', '-d', 't', '--epochs', '1', '--device', 'cpu', "
+        "'--set', 'hidden_size=8', '--set', 'MAX_ITEM_LIST_LENGTH=8'])\n"
     )
 
 

@@ -1,6 +1,7 @@
 """The port's training path against the JAX package on the CPU: the CE
-loss and every parameter gradient of the whole model, the Adam step, and
-a 2-epoch ``Trainer.fit`` trajectory from the same parameters.
+loss and every parameter gradient of the whole model, the Adam step and
+the other learners, and a 2-epoch ``Trainer.fit`` trajectory from the
+same parameters.
 
 Both sides at fp32 and dropout 0 (the packages' dropout masks come from
 different generators).  Fused composition: JAX with
@@ -158,9 +159,39 @@ def test_adam_matches_build_optimizer(weight_decay):
                                        rtol=1e-5, atol=1e-7)
 
 
-def test_unported_learner_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_optimizer(Config(model="RecBLR", config_dict={"learner": "sgd"}),
+@pytest.mark.parametrize("learner", ["adamw", "sgd", "adagrad", "rmsprop"])
+def test_unported_learner_raises(learner):
+    """Once not ported, now held to optax: five steps of each learner the
+    JAX package builds besides Adam, with its defaults (adagrad's 0.1
+    accumulator and eps inside the root, rmsprop's decay 0.9), stay
+    within 1e-6 of the largest parameter of optax's, with and without
+    weight decay (decoupled for adamw, none for the others, as
+    ``build_optimizer`` of the JAX package); an unknown learner still
+    raises."""
+    for weight_decay in (0.0, 0.01):
+        cfg = {"learning_rate": 1e-2, "weight_decay": weight_decay, "learner": learner}
+        rng = np.random.default_rng(4)
+        p0 = {"a": rng.standard_normal((5, 3)).astype(np.float32),
+              "b": rng.standard_normal((7,)).astype(np.float32)}
+        jopt = j_build_optimizer(JConfig(model="RecBLR", config_dict=cfg))
+        jp = {k: jnp.asarray(v) for k, v in p0.items()}
+        jstate = jopt.init(jp)
+        tp = {k: torch.from_numpy(v.copy()).requires_grad_() for k, v in p0.items()}
+        topt = build_optimizer(Config(model="RecBLR", config_dict=cfg), list(tp.values()))
+        for _ in range(5):
+            g = {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in p0.items()}
+            g["b"][0] = 0.0  # a zero gradient: adagrad's sum stays above 0 from its start
+            updates, jstate = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, jstate, jp)
+            jp = jax.tree.map(lambda a, u: a + u, jp, updates)
+            for k, v in tp.items():
+                v.grad = torch.from_numpy(g[k])
+            topt.step()
+            for k in p0:
+                want = np.asarray(jp[k])
+                err = np.abs(tp[k].detach().numpy() - want).max() / np.abs(want).max()
+                assert err <= 1e-6, (learner, weight_decay, k, err)
+    with pytest.raises(ValueError, match="unknown learner"):
+        build_optimizer(Config(model="RecBLR", config_dict={"learner": "lamb"}),
                         [torch.zeros(2, requires_grad=True)])
 
 
