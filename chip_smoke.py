@@ -87,6 +87,16 @@ per-op composition, forward and backward) and, phase by phase:
   metrics against a plain recomputation), each with the dataset's summary,
   the test from the best checkpoint and every kernel launch of its path
   counted (one a train step or eval batch);
+* runs the cold-start pipeline at amazon-beauty's size (beauty-synth of
+  seed 2020, the user split with 1,890 held-out users, RecBLR at the
+  reference config for one epoch): ``run_unseen_experiment`` in mode none,
+  then mode pre on the same split files (``cold-start-none``,
+  ``cold-start-pre``: held-out, evaluable users and items mapped, the
+  seconds of the similarity, the epoch and the held-out evaluation, the
+  seen- and unseen-user tests; rows 1-4 counted with the held-out batches,
+  mode none's unseen metrics against a plain recomputation, pre evaluating
+  at least as many users, the split reused unchanged, every HR@10 above
+  five times chance);
 * times every kernel beside its bound, its plain version and, where one
   PyTorch call computes the same function, that call (row 15 beside
   ``F.scaled_dot_product_attention`` with the same additive mask; the
@@ -1680,6 +1690,153 @@ def experiment_phases(dev):
             out[name] = {"launches": launches, "train_s": rec["train_time"],
                          "examples_per_s": len(data.train) / rec["train_time"],
                          "eval_s": rec["eval_time"], spec["metric"]: valid}
+    return out
+
+
+# the cold-start pipeline (``python -m datamining_recblr_torch.run_with_unseen``)
+# at amazon-beauty's size, the dataset of the reference's cold-start runs:
+# beauty-synth of generator seed 2020 written as an .inter file, the user
+# split (10% held out, reused by the second run), RecBLR at the reference
+# config (fp32) for COLD_EPOCHS epochs, then the held-out users in mode
+# none and in mode pre.  The split's dataset and its held-out users
+# (``cold`` below) are what the JAX pipeline gives on the same file
+COLD_PRESET, COLD_EPOCHS = "beauty-synth", 1
+COLD_SUMMARY = {"users": 16_755, "items": 9_702, "train": 96_674, "held_out": 1_890,
+                "evaluable": {"none": 1_139, "pre": 1_773}}
+
+
+def plain_unseen_metrics(model, split, batch_size):
+    """hit@10 and ndcg@10 of ``split`` recomputed plainly: each batch's
+    sequence output through the plain layer versions
+    (``plain_seq_output``), its scores against the item table, PAD
+    masked, the target's rank one plus the items scoring above it plus
+    the items of a smaller id scoring the same."""
+    dev = model.device
+    model.eval()
+    hits = ndcg = 0.0
+    table = model.item_embedding.float()[: model.n_items]
+    with torch.no_grad():
+        for start in range(0, len(split), batch_size):
+            rows = slice(start, start + batch_size)
+            seq = torch.from_numpy(split.item_seq[rows]).to(dev)
+            lens = torch.from_numpy(split.item_seq_len[rows]).to(dev)
+            tgt = torch.from_numpy(split.pos_item[rows]).to(dev).long()
+            scores = plain_seq_output(model, seq, lens).float() @ table.T
+            scores[:, 0] = float("-inf")
+            s_t = scores.gather(1, tgt[:, None])
+            ids = torch.arange(scores.shape[1], device=dev)[None, :]
+            rank = 1 + ((scores > s_t) | ((scores == s_t) & (ids < tgt[:, None]))).sum(1)
+            rank = rank.double().cpu().numpy()
+            hits += float((rank <= 10).sum())
+            ndcg += float(np.where(rank <= 10, 1.0 / np.log2(rank + 1.0), 0.0).sum())
+    return {"hit@10": hits / len(split), "ndcg@10": ndcg / len(split)}
+
+
+def cold_start_phases(dev):
+    """``run_unseen_experiment`` in mode none, then mode pre, on one
+    written beauty-synth: the held-out and evaluable users, the unseen
+    items pre mapped, the seconds of the similarity, the epoch and the
+    held-out evaluation, the seen- and unseen-user tests, each kernel's
+    launches and the card.  Checks: rows 1-4 launch once a train step and
+    rows 1 and 3 once an eval batch, the held-out batches counted; mode
+    none's unseen metrics equal ``plain_unseen_metrics`` within 1e-3;
+    pre evaluates at least as many users as none and maps at least one
+    item; the second run reuses the split files unchanged; the seen and
+    both unseen HR@10 are finite and above five times a full sort's
+    chance, 10 / items.  Returns {mode: {"launches": {kernel: n},
+    "train_s", "unseen_eval_s", "similarity_s"}}."""
+    import os
+    import tempfile
+
+    from datamining_recblr_torch.data.synthetic import write_stat_matched_dataset
+    from datamining_recblr_torch.run import build_config
+    from datamining_recblr_torch.unseen import pipeline as UP
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_stat_matched_dataset(os.path.join(tmp, "dataset"), COLD_PRESET, seed=EXP_GEN_SEED)
+        t_write = time.perf_counter() - t0
+        ddir = os.path.join(tmp, "dataset", COLD_PRESET)
+        split_files = [os.path.join(ddir, f"{COLD_PRESET}_{s}.inter") for s in ("train", "test")]
+        split_bytes = None
+        for mode in ("none", "pre"):
+            cfg = build_config("RecBLR", COLD_PRESET, ["reference"], dict(
+                epochs=COLD_EPOCHS, data_path=os.path.join(tmp, "dataset"),
+                checkpoint_dir=os.path.join(tmp, "saved", mode), log_dir=os.path.join(tmp, "log"),
+                metrics_file=os.path.join(tmp, f"cold-{mode}.jsonl")))
+            for fn in LAUNCH_COUNTED:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = UP.run_unseen_experiment(mode=mode, config=cfg,
+                                           plot_dir=os.path.join(tmp, "plot"))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in LAUNCH_COUNTED}
+            exp = res["experiment"]
+            data, model, trainer = exp["data"], exp["model"], exp["trainer"]
+            stamps = [os.stat(f).st_mtime_ns for f in split_files]
+            now = [open(f, "rb").read() for f in split_files]
+            reused = split_bytes is not None and now == split_bytes[0] and (
+                stamps == split_bytes[1])
+            split_bytes = split_bytes or (now, stamps)
+
+            steps = COLD_EPOCHS * -(-len(data.train) // int(cfg["train_batch_size"]))
+            ebs = int(cfg["eval_batch_size"])
+            held = -(-res["n_evaluated"] // ebs)
+            batches = COLD_EPOCHS * -(-len(data.valid) // ebs) + -(-len(data.test) // ebs) + held
+            want = {fn.__name__: steps * a + batches * b
+                    for fn, a, b in zip(LAUNCH_COUNTED, (1, 1, 1, 1), (1, 1, 0, 0))}
+            epochs = exp["metrics"].epoch_records()
+            rec = [r for r in exp["metrics"].records if r["event"] == "unseen_test"][-1]
+            seen, unseen = res["seen_result"], res["unseen_result"]
+            floor = 5 * 10 / (data.n_items - 1)
+            got = {"users": data.n_users - 1, "items": data.n_items - 1, "train": len(data.train),
+                   "held_out": res["n_unseen_users"]}
+            extra = {}
+            if mode == "none":
+                _, test_df = UP.prepare_data_split(cfg)
+                split, _, _ = UP.build_unseen_split(test_df, data, "none", None,
+                                                    *(cfg[k] for k in ("USER_ID_FIELD",
+                                                                       "ITEM_ID_FIELD",
+                                                                       "TIME_FIELD")))
+                plain = plain_unseen_metrics(model, split, ebs)
+                extra["plain_unseen"] = repr({k: round(v, 5) for k, v in plain.items()})
+            env = exp["environment"]
+            phase(f"cold-start-{mode}", preset=COLD_PRESET, gen_seed=EXP_GEN_SEED,
+                  write_s=f"{t_write:.1f}", summary=repr(data.summary()),
+                  held_out_users=res["n_unseen_users"], evaluable_users=res["n_evaluated"],
+                  mapped_items=rec["n_mapped"], epochs=len(epochs), steps=steps,
+                  held_out_batches=held, similarity_s=f"{rec['similarity_s']:.2f}",
+                  train_s=f"{sum(r['train_time'] for r in epochs):.2f}",
+                  eval_s=f"{sum(r['eval_time'] for r in epochs):.2f}",
+                  unseen_eval_s=f"{rec['eval_s']:.3f}", wall_s=f"{wall:.1f}",
+                  train_loss=f"{epochs[-1]['train_loss']:.4f}",
+                  seen_test=repr({k: round(v, 4) for k, v in sorted(seen.items())}),
+                  unseen_test=repr({k: round(v, 5) for k, v in sorted(unseen.items())}),
+                  hit10_floor=f"{floor:.5f}", split_reused=reused, launches=repr(launches),
+                  card=repr(env["nvidia_smi"]), **extra)
+            check(got == {k: COLD_SUMMARY[k] for k in got}
+                  and res["n_evaluated"] == COLD_SUMMARY["evaluable"][mode],
+                  f"cold-start-{mode}: {got}, {res['n_evaluated']} evaluable, not {COLD_SUMMARY}")
+            check(launches == want, f"cold-start-{mode}: launches {launches}, expected {want}")
+            if mode == "none":
+                check(all(abs(unseen[k] - v) <= 1e-3 for k, v in plain.items()),
+                      f"cold-start-none: unseen {unseen} disagrees with the plain "
+                      f"recomputation {plain}")
+            else:
+                check(res["n_evaluated"] >= out["none"]["n_evaluated"] and rec["n_mapped"] > 0,
+                      f"cold-start-pre: {res['n_evaluated']} evaluable users (none: "
+                      f"{out['none']['n_evaluated']}), {rec['n_mapped']} items mapped")
+                check(reused, "cold-start-pre: the split files were not reused unchanged")
+            for name, result in (("seen", seen), ("unseen", unseen)):
+                check(np.isfinite(result["hit@10"]) and result["hit@10"] > floor,
+                      f"cold-start-{mode}: {name} HR@10 {result['hit@10']} is not above "
+                      f"{floor:.5f}")
+            check(env["backend"] == "cuda" and env["nvidia_smi"], f"cold-start-{mode}: {env}")
+            out[mode] = {"launches": launches, "n_evaluated": res["n_evaluated"],
+                         "train_s": sum(r["train_time"] for r in epochs),
+                         "unseen_eval_s": rec["eval_s"], "similarity_s": rec["similarity_s"]}
     return out
 
 
@@ -4491,6 +4648,7 @@ def main():
     for name in TRAINED:
         fit_phase(dev, name)
     experiments = experiment_phases(dev)
+    cold = cold_start_phases(dev)
     kernel_times(dev, p1, p2, lens)
     rows = training_kernel_times(dev)
     attn_kernel_times(dev)
@@ -4634,6 +4792,15 @@ def main():
                 if entry["name"] in out["launches"]}
         if runs:
             entry["launches_experiment"] = runs
+    # the cold-start pipeline's launches (an epoch, its evaluations and the
+    # held-out users'), by mode
+    for entry in kernels:
+        if entry["name"] in cold["none"]["launches"]:
+            entry["launches_cold_start"] = {mode: out["launches"][entry["name"]]
+                                            for mode, out in cold.items()}
+    for mode, out in cold.items():
+        for key in ("train_s", "unseen_eval_s", "similarity_s"):
+            train_summary[f"cold_start_{mode}_{key}"] = f"{out[key]:.3f}"
     for name, out in experiments.items():
         tag = name.removeprefix("experiment-").replace("-", "_")
         train_summary[f"{tag}_train_s"] = f"{out['train_s']:.2f}"

@@ -1,7 +1,10 @@
 """The repository's experiment configs as dicts, so a run needs no yaml
 reader (the card's machine has no PyYAML): ``REFERENCE`` holds the keys
 of the root ``config.yaml``, ``ML1M_PAPER``, ``BEAUTY_PAPER`` and
-``XLONG_PAPER`` those of ``configs/paper/config_{ml1m,beauty,xlong}_paper.yaml``.
+``XLONG_PAPER`` those of ``configs/paper/config_{ml1m,beauty,xlong}_paper.yaml``,
+and ``PER_DATASET`` those of the six per-dataset sweep configs
+``configs/config_<dataset>.yaml`` (the presets ``amazon-apps``,
+``amazon-beauty``, ``amazon-sports``, ``hm``, ``ml-1m``, ``yelp``).
 
 ``config_layers(spec)`` turns a ``--config`` argument into a
 ``Config``'s layers: a preset's name, or the path of the repository's
@@ -41,8 +44,27 @@ XLONG_PAPER = {**_RECBLR, "dataset": "xlong", "MAX_ITEM_LIST_LENGTH": 1024, **_F
                "compute_dtype": "bfloat16", "epochs": 100, **_TRAIN,
                "train_batch_size": 512, **_EVAL, "eval_batch_size": 1024}
 
+
+def _sweep(dataset, **over):
+    """A per-dataset sweep config: the reference model at T 200, 10 epochs."""
+    return {**_RECBLR, "dataset": dataset, "MAX_ITEM_LIST_LENGTH": 200, **_FIELDS,
+            "epochs": 10, **_TRAIN, **_EVAL, **over}
+
+
+PER_DATASET = {
+    "amazon-apps": _sweep("amazon-apps", user_inter_num_interval="[0,inf)",
+                          item_inter_num_interval="[0,inf)"),
+    "amazon-beauty": _sweep("amazon-beauty"),
+    "amazon-sports": _sweep("amazon-sports"),
+    # H&M: one layer, dropout 0.4, T 50, the MAP@12 protocol
+    "hm": _sweep("hm", num_layers=1, dropout_prob=0.4, MAX_ITEM_LIST_LENGTH=50, epochs=100,
+                 metrics=["MAP", "NDCG", "MRR"], valid_metric="MAP@12", topk=[10, 12]),
+    "ml-1m": _sweep("ml-1m"),
+    "yelp": _sweep("yelp"),
+}
+
 PRESETS = {"reference": REFERENCE, "ml1m-paper": ML1M_PAPER,
-           "beauty-paper": BEAUTY_PAPER, "xlong-paper": XLONG_PAPER}
+           "beauty-paper": BEAUTY_PAPER, "xlong-paper": XLONG_PAPER, **PER_DATASET}
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # the yaml file each preset mirrors, relative to the repository's root
 PRESET_FILES = {
@@ -50,6 +72,8 @@ PRESET_FILES = {
     os.path.join("configs", "paper", "config_ml1m_paper.yaml"): "ml1m-paper",
     os.path.join("configs", "paper", "config_beauty_paper.yaml"): "beauty-paper",
     os.path.join("configs", "paper", "config_xlong_paper.yaml"): "xlong-paper",
+    **{os.path.join("configs", f"config_{name.replace('-', '_')}.yaml"): name
+       for name in PER_DATASET},
 }
 
 

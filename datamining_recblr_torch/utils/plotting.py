@@ -1,7 +1,8 @@
-"""Training-curve CSV and plots (counterpart of ``generate_plots`` in
+"""Training-curve CSV and plots (counterpart of
 ``datamining_recblr_tpu/utils/plotting.py``), with ``csv`` in place of
-pandas: ``<prefix>_training_metrics.csv`` always, and the five plots
-under the JAX package's names where matplotlib is importable."""
+pandas: ``<prefix>_training_metrics.csv`` always, the five per-run plots
+and the cross-run comparison bars under the JAX package's names where
+matplotlib is importable."""
 
 from __future__ import annotations
 
@@ -58,6 +59,14 @@ def _plot_series(rows, columns, title, ylabel, path):
     plt.close(fig)
 
 
+def _have_matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def generate_plots(epoch_records: list[dict], prefix: str, out_dir: str = "plot"):
     """Write ``<prefix>_training_metrics.csv`` and, with matplotlib, the
     five per-run plots (``<prefix>train_loss_plot.png``, ...); without
@@ -70,9 +79,7 @@ def generate_plots(epoch_records: list[dict], prefix: str, out_dir: str = "plot"
         w = csv.writer(f, lineterminator="\n")
         w.writerow(columns)
         w.writerows([_cell(r.get(c)) for c in columns] for r in rows)
-    try:
-        import matplotlib  # noqa: F401
-    except ImportError:
+    if not _have_matplotlib():
         logging.getLogger("recblr_torch").info(
             "matplotlib is not installed: the plots were skipped, the CSV was written")
         return rows
@@ -85,4 +92,47 @@ def generate_plots(epoch_records: list[dict], prefix: str, out_dir: str = "plot"
                               ("mrr@", "MRR", "mrr_plot.png")):
         _plot_series(rows, [c for c in columns if c.startswith(stem)], title,
                      stem[:-1], join(file))
+    return rows
+
+
+# (column, file suffix, aggregate over a run's epochs): the bars of
+# ``generate_comparison_plots``
+_COMPARED = (("train_time", "train_time", "mean"), ("eval_time", "eval_time", "mean"),
+             ("device_mem_gb", "device_mem", "max"))
+
+
+def generate_comparison_plots(runs: dict[str, list[dict]], out_dir: str = "plot",
+                              prefix: str = "comparison") -> dict[str, list[dict]]:
+    """Bars across runs ({label: epoch records}) of the mean train and eval
+    time an epoch and the peak device memory, as
+    ``<prefix>_{train_time,eval_time,device_mem}.png``, each over the runs
+    that recorded the column; without matplotlib log one line and draw
+    nothing.  Returns {label: per-epoch rows}."""
+    rows = {name: records_to_rows(recs)[1] for name, recs in runs.items()}
+    if not _have_matplotlib():
+        logging.getLogger("recblr_torch").info(
+            "matplotlib is not installed: the comparison plots were skipped")
+        return rows
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(out_dir, exist_ok=True)
+    for metric, suffix, agg in _COMPARED:
+        names, vals = [], []
+        for name, table in rows.items():
+            seen = [r[metric] for r in table if _cell(r.get(metric)) != ""]
+            if seen:
+                names.append(name)
+                vals.append(float(max(seen) if agg == "max" else sum(seen) / len(seen)))
+        if not names:
+            continue
+        fig, ax = plt.subplots(figsize=(6, 4))
+        ax.bar(names, vals)
+        ax.set_ylabel(f"{agg} {metric} ({'GB' if metric.endswith('_gb') else 's'})")
+        ax.set_title(metric)
+        fig.tight_layout()
+        fig.savefig(os.path.join(out_dir, f"{prefix}_{suffix}.png"), dpi=110)
+        plt.close(fig)
     return rows

@@ -2304,3 +2304,33 @@ def test_bpr_gathers_take_the_table_gradient_kernel(dev, name, monkeypatch):
     for k, p in model.named_parameters():
         want = p.grad
         assert float((got[k] - want).abs().max()) <= 1e-5 * max(float(want.abs().max()), 1e-3), k
+
+
+def test_cold_start_counts_the_held_out_batches(dev, tmp_path):
+    """``run_unseen_experiment`` on the card at a small size, mode pre:
+    rows 1 and 3 launch once a train step and once an eval batch, the
+    held-out users' batches among them, rows 2 and 4 once a train step."""
+    from datamining_recblr_torch.data.synthetic import write_stat_matched_dataset
+    from datamining_recblr_torch.unseen.pipeline import run_unseen_experiment
+
+    write_stat_matched_dataset(str(tmp_path / "dataset"), "beauty-synth", out_name="cold",
+                               n_users=700, n_items=400, n_inters=7_000, n_clusters=10)
+    cfg = Config(model="RecBLR", config_dict={
+        "dataset": "cold", "data_path": str(tmp_path / "dataset"), "MAX_ITEM_LIST_LENGTH": 50,
+        "epochs": 1, "train_batch_size": 512, "eval_batch_size": 16,
+        "user_inter_num_interval": "[5,inf)", "item_inter_num_interval": "[5,inf)",
+        "checkpoint_dir": str(tmp_path / "saved"), "log_dir": str(tmp_path / "log")})
+    counted = (FL.fused_recurrent_layer, FL.fused_recurrent_layer_last,
+               FL.fused_recurrent_layer_bwd, FL.fused_recurrent_layer_last_bwd)
+    before = [fn.launches for fn in counted]
+    out = run_unseen_experiment(mode="pre", config=cfg, test_size=0.2,
+                                plot_dir=str(tmp_path / "plot"))
+    data = out["experiment"]["data"]
+    assert out["experiment"]["model"].device.type == "cuda"
+    steps = -(-len(data.train) // 512)
+    held = -(-out["n_evaluated"] // 16)
+    batches = -(-len(data.valid) // 16) + -(-len(data.test) // 16) + held
+    assert held >= 2
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [
+        steps + batches, steps + batches, steps, steps]
+    assert all(np.isfinite(v) for v in out["unseen_result"].values())

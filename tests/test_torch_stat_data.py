@@ -163,7 +163,10 @@ def test_build_dataset_matches_jax(preset, native, written):
 PRESET_YAML = {"reference": "config.yaml",
                "ml1m-paper": "configs/paper/config_ml1m_paper.yaml",
                "beauty-paper": "configs/paper/config_beauty_paper.yaml",
-               "xlong-paper": "configs/paper/config_xlong_paper.yaml"}
+               "xlong-paper": "configs/paper/config_xlong_paper.yaml",
+               **{name: f"configs/config_{name.replace('-', '_')}.yaml"
+                  for name in ("amazon-apps", "amazon-beauty", "amazon-sports", "hm", "ml-1m",
+                               "yelp")}}
 
 
 @pytest.mark.parametrize("name", list(PRESET_YAML))

@@ -1,6 +1,7 @@
 """Structure of the port: it imports no JAX and nothing of the JAX
-package, nor pandas or PyYAML (the card's machine has neither), its
-entry points default to the card, and a CPU run launches no kernel."""
+package, nor pandas, PyYAML or sklearn (the card's machine has none of
+them), its entry points default to the card, and a CPU run launches no
+kernel."""
 
 import os
 import subprocess
@@ -54,8 +55,18 @@ MODULES = [
     "datamining_recblr_torch.drivers.experiment",
     "datamining_recblr_torch.run",
     "datamining_recblr_torch.parity",
+    "datamining_recblr_torch.unseen",
+    "datamining_recblr_torch.unseen.features",
+    "datamining_recblr_torch.unseen.similarity",
+    "datamining_recblr_torch.unseen.pipeline",
+    "datamining_recblr_torch.run_with_unseen",
+    "datamining_recblr_torch.prepare_item_features",
+    "datamining_recblr_torch.full_exp",
+    "datamining_recblr_torch.run_bert4rec",
+    "datamining_recblr_torch.compare_plots",
+    "datamining_recblr_torch.trim",
 ]
-FORBIDDEN = ("jax", "jaxlib", "datamining_recblr_tpu", "pandas", "yaml")
+FORBIDDEN = ("jax", "jaxlib", "datamining_recblr_tpu", "pandas", "yaml", "sklearn")
 
 
 def _run_clean(code):
@@ -107,6 +118,27 @@ def test_an_experiment_on_the_cpu_imports_no_pandas_or_yaml(tmp_path):
         "n_items=30, n_inters=900, n_clusters=5)\n"
         "run.main(['--config', 'reference', '-d', 't', '--epochs', '1', '--device', 'cpu', "
         "'--set', 'hidden_size=8', '--set', 'MAX_ITEM_LIST_LENGTH=8'])\n"
+    )
+
+
+def test_a_cold_start_run_on_the_cpu_imports_no_pandas_yaml_or_sklearn(tmp_path):
+    """The written log, the user split, one epoch, the similarity and the
+    held-out users through ``python -m datamining_recblr_torch.full_exp
+    --exp unseen`` (both modes) with the reference preset's keys cut to a
+    small width."""
+    _run_clean(
+        "import os\n"
+        "from datamining_recblr_torch.config import presets\n"
+        "from datamining_recblr_torch.data.synthetic import write_stat_matched_dataset\n"
+        "from datamining_recblr_torch import full_exp\n"
+        f"os.chdir({str(tmp_path)!r})\n"
+        "write_stat_matched_dataset('dataset', 'beauty-synth', out_name='t', n_users=60, "
+        "n_items=50, n_inters=700, n_clusters=5)\n"
+        "presets.PRESETS['reference'].update(dataset='t', hidden_size=8, "
+        "MAX_ITEM_LIST_LENGTH=8)\n"
+        "out = full_exp.main(['--exp', 'unseen', '--config', 'reference', '--epochs', '1', "
+        "'--device', 'cpu'])\n"
+        "assert out['pre']['n_evaluated'] >= out['none']['n_evaluated'] > 0, out\n"
     )
 
 
