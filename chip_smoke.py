@@ -97,6 +97,20 @@ per-op composition, forward and backward) and, phase by phase:
   mode none's unseen metrics against a plain recomputation, pre evaluating
   at least as many users, the split reused unchanged, every HR@10 above
   five times chance);
+* runs the meshed path (``parallel/``): RecBLR at the bench shape (fp32,
+  p 0) through the meshed ``Trainer`` at {data: 1, model: 1} on an NCCL
+  group of one rank against the unmeshed trainer (``mesh-nccl-world1``:
+  3 losses, launches, both step times); then a {data: 2, model: 2} mesh
+  of four processes sharing the card over gloo (``mesh-gloo-*``): the
+  collectives the port calls on CUDA tensors, then RecBLR with the table
+  row-sharded (3 steps, one full-sort eval batch whose ranks, and 256
+  users' ``recommend`` ids through ``sharded_topk``, equal the
+  single-process ones), SASRec and BERT4Rec under ``auto`` (replicated
+  tables, 2 steps; BERT4Rec's CE through row 13), BPR with uni100
+  evaluation, and XLong (bf16, one step, the table row-sharded, the
+  vocab-parallel CE in row 14's place), each against the same case in
+  one process from the same seed on the same batches, with each rank's
+  launches and wall seconds (time-shared on one card: no scaling figure);
 * times every kernel beside its bound, its plain version and, where one
   PyTorch call computes the same function, that call (row 15 beside
   ``F.scaled_dot_product_attention`` with the same additive mask; the
@@ -4599,6 +4613,565 @@ B4R_KERNELS = (
 )
 
 
+# ---------------------------------------------------------------------------
+# the meshed path (parallel/) on the one card: NCCL at world size 1, then a
+# {data: 2, model: 2} mesh as four gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH = {"data": 2, "model": 2}
+MESH_STEPS = 3
+MESH_EVAL_B = 2048    # one full-sort eval batch of RecBLR (1,024 rows a data rank)
+MESH_USERS = 256      # recommend() requests through sharded_topk
+MESH_UNI_ROWS = 2048  # the BPR case's uni100 evaluation rows (eval batch 1,024)
+# each case: the model and its config (on top of the bench config at p 0),
+# the shape (T, V, global batch), the train steps, the kernels it counts
+# with their launches a rank makes a step, and what it checks after the
+# steps; the single-process reference runs the same config unmeshed from
+# the same seed on the same batches
+MESH_CASES = {
+    "recblr": dict(
+        model="RecBLR", cfg={"vocab_row_shard": "always"}, t=T, v=N_ITEMS, b=TRAIN_B,
+        steps=MESH_STEPS, counted=LAUNCH_COUNTED, per_step=(1, 1, 1, 1), after=(2, 2, 0, 0),
+        sharded=True, check=("eval", "serve")),
+    "sasrec": dict(
+        model="SASRec", cfg={}, t=T, v=N_ITEMS, b=TRAIN_B, steps=2, counted=SAS_COUNTED,
+        per_step=(1,) * 6, after=(0,) * 6, sharded=False, check=()),
+    "bert4rec": dict(
+        model="BERT4Rec", cfg={}, t=T, v=N_ITEMS, b=TRAIN_B, steps=2, counted=B4R_COUNTED,
+        per_step=(1,) * 8, after=(0,) * 8, sharded=False, check=()),
+    "bpr-uni100": dict(
+        model="RecBLR", cfg={"vocab_row_shard": "always", "loss_type": "BPR",
+                             "eval_args": {"mode": "uni100"}, "eval_batch_size": 1024},
+        t=T, v=N_ITEMS, b=TRAIN_B, steps=2, counted=LAUNCH_COUNTED + (E.embedding_grad,),
+        per_step=(1, 1, 1, 1, 1), after=(2, 2, 0, 0, 0), sharded=True, check=("sampled",)),
+    # XLong's own config (bf16, T 1,024, batch 512, V 329,722) under auto:
+    # 329,728 x 64 rows row-shard; the vocab-parallel CE takes row 14's place
+    "xlong": dict(
+        model="RecBLR", cfg={"compute_dtype": "bfloat16", "train_batch_size": XB}, t=XT, v=XV,
+        b=XB, steps=1, counted=XLONG_COUNTED + (E.embedding_grad,),
+        per_step=(1, 1, 0, 0, 1, 1, 1), after=(0,) * 7, sharded=True, check=("emb-grad",)),
+}
+MESH_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-4}
+# the first step's gradients (the sharded ones gathered) against the single
+# process's, as step_vs_plain: max |mesh - single| of each parameter within
+# this share of its largest single-process value, or within 1e-6 of the
+# largest gradient of all.  fp32 runs the same kernels on both sides; in
+# bf16 the single process's CE is row 14, which rounds its softmax
+# cotangent to bf16, and the mesh's the fp32 vocab-parallel CE, and a
+# bf16 value summed over the ranks is rounded once a rank (2^-8 of it
+# each, up to two a side).  A half batch, a missing shard or a gradient
+# divided by a rank's own weights is off by O(1) of the largest value.
+MESH_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the parameters after the steps: the share of each parameter's entries
+# whose update (final - initial) differs from the single process's by
+# more than half the learning rate (Adam moves an entry about lr a step,
+# so a sign flip or a missed update is about lr); the share of entries
+# whose near-zero gradient may flip sign on rounding is far below it
+MESH_PARAM_SHARE = {"float32": 1e-3, "bfloat16": 1e-2}
+# a meshed Trainer.fit (resident and stream input) against the unmeshed
+# fit: RecBLR at the bench widths (fp32, p 0, table row-sharded) on a
+# small synthetic log, EPOCHS epochs with validation, the best
+# checkpoint's test metrics; records at the CPU tests' trajectory
+# tolerance (rtol 2e-4, atol 5e-5)
+MESH_FIT = {"n_users": 600, "min_len": 5, "max_len": 40, "epochs": 2, "eval_batch_size": 1024}
+
+
+def _mesh_config(case, meshed):
+    spec = MESH_CASES[case]
+    extra = dict(spec["cfg"])
+    if spec["model"] == "RecBLR":
+        extra.setdefault("dropout_prob", 0.0)
+    else:
+        extra.update(hidden_dropout_prob=0.0, attn_dropout_prob=0.0)
+    if spec["t"] == XT:
+        extra.update(MAX_ITEM_LIST_LENGTH=XT, hidden_size=D, num_layers=2, expand=2, d_conv=K)
+    if meshed:
+        extra["mesh_shape"] = MESH
+    return _train_config(spec["model"], extra.pop("compute_dtype", "float32"), **extra)
+
+
+def _mesh_batches(case):
+    """The case's global training batches as numpy (the same in every
+    process): rows of ``synthetic_splits`` in a seeded order, the last 5
+    rows of each at weight 0 (all on the last data rank), BPR's negatives
+    drawn uniformly."""
+    from datamining_recblr_torch.data.synthetic import synthetic_splits
+
+    spec = MESH_CASES[case]
+    t, v, b = spec["t"], spec["v"], spec["b"]
+    n = b * spec["steps"] if t == XT else max(b * spec["steps"], 8 * MESH_UNI_ROWS)
+    train, valid = synthetic_splits(6040 if t == T else 5000, v, t, n, seed=SEED)
+    if t == XT:  # the xlong-synth histories are at most 1,000 long
+        for split in (train, valid):
+            split.item_seq_len[:] = np.minimum(split.item_seq_len, XMAX_LEN)
+            split.item_seq[:, XMAX_LEN:] = 0
+    rng = np.random.default_rng((SEED, 21))
+    perm = rng.permutation(len(train))
+    weight = np.ones(b, np.float32)
+    weight[-5:] = 0.0
+    batches = []
+    for s in range(spec["steps"]):
+        idx = perm[s * b:(s + 1) * b]
+        batch = {"item_seq": train.item_seq[idx], "item_seq_len": train.item_seq_len[idx],
+                 "pos_item": train.pos_item[idx], "weight": weight}
+        if spec["cfg"].get("loss_type") == "BPR":
+            batch["neg_item"] = rng.integers(1, v, b).astype(np.int32)
+        batches.append(batch)
+    return batches, valid
+
+
+def _mesh_eval_batch(n):
+    from datamining_recblr_torch.data.synthetic import synthetic_splits
+
+    split, _ = synthetic_splits(6040, N_ITEMS, T, n, seed=SEED + 5)
+    return {"item_seq": split.item_seq[:n], "item_seq_len": split.item_seq_len[:n],
+            "pos_item": split.pos_item[:n]}
+
+
+def _to(dev, batch, rows=slice(None)):
+    return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(dev) for k, v in batch.items()}
+
+
+def _eval_ranks(model, batch, dev):
+    """(ranks, scores) of one full-sort batch: this rank's columns on a
+    mesh, where the ranks are reduced over ``model``."""
+    from datamining_recblr_torch.eval.metrics import mask_scores, target_ranks
+
+    lo, _ = model.score_cols()
+    model.eval()
+    with torch.no_grad():
+        put = _to(dev, batch)
+        scores = mask_scores(model.full_sort_scores(put["item_seq"], put["item_seq_len"]),
+                             col0=lo)
+        ranks = target_ranks(scores, put["pos_item"], col0=lo, mesh=model.score_mesh())
+    return ranks.cpu(), scores.cpu()
+
+
+def _full_grads(model):
+    """Every parameter's gradient on the CPU, a sharded one gathered over
+    ``model`` (a collective on a mesh), the vocab-leading rows cut to an
+    unmeshed model's padding (as ``gather_state``)."""
+    from datamining_recblr_torch.parallel.collectives import all_gather
+    from datamining_recblr_torch.parallel.mesh import MODEL_AXIS
+
+    cut = {name: model.pad_vocab_rows(n, meshed=False) for name, n in model.vocab_rows().items()}
+    out = {}
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        g = all_gather(p.grad, model.mesh, MODEL_AXIS) if name in model.shards else p.grad
+        out[name] = (g[: cut[name]] if name in cut else g).detach().cpu().clone()
+    return out
+
+
+def _mesh_drive(dev, case, meshed, params=None):
+    """One case in this process (a rank of the mesh, or the single-process
+    reference): the steps' losses, the first step's gradients
+    (``_full_grads``), the parameters before (reference) and after the
+    steps (gathered on a mesh), the kernels' launches from just before
+    the first step to the end of the checks, the wall seconds (without
+    the copies of gradients and parameters), and the checks' outputs; the
+    reference evaluates with ``params`` (the meshed run's final
+    parameters) where given, so the checks hold the meshed evaluation and
+    serving to the single process's on the same parameters.  A rank of
+    the XLong case then holds row 16 against its plain version at its
+    shard and on its rows' ids (``emb_grad_check``), uncounted."""
+    from datamining_recblr_torch.eval.evaluator import Evaluator
+    from datamining_recblr_torch.parallel.input import process_local_rows
+    from datamining_recblr_torch.parallel.sharding import gather_state
+    from datamining_recblr_torch.train.trainer import Trainer
+
+    spec = MESH_CASES[case]
+    cfg = _mesh_config(case, meshed)
+    model = get_model(spec["model"])(cfg, spec["v"], spec["t"], device=dev,
+                                     generator=torch.Generator().manual_seed(SEED))
+    trainer = Trainer(cfg, model)
+    mesh = trainer.mesh
+    batches, valid = _mesh_batches(case)
+    lo, hi = process_local_rows(spec["b"], mesh)
+    out = {"shards": dict(model.shards), "lr": float(cfg["learning_rate"]),
+           "init": None if meshed else {k: v.detach().cpu().clone()
+                                        for k, v in model.state_dict().items()}}
+    for fn in spec["counted"]:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    copy_s = 0.0
+    out["losses"] = []
+    for s, bt in enumerate(batches):
+        out["losses"].append(float(trainer.train_step(_to(dev, bt, slice(lo, hi)), s)))
+        if s == 0:
+            t1 = time.perf_counter()
+            out["grads"] = _full_grads(model)
+            copy_s += time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["params"] = (gather_state(model)[0] if mesh is not None else
+                     {k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+    copy_s += time.perf_counter() - t1
+    if params is not None:
+        model.load_state_dict(params)
+    if "eval" in spec["check"]:
+        eb = _mesh_eval_batch(MESH_EVAL_B)
+        elo, ehi = process_local_rows(MESH_EVAL_B, mesh)
+        out["ranks"], out["scores"] = _eval_ranks(
+            model, {k: v[elo:ehi] for k, v in eb.items()}, dev)
+    if "serve" in spec["check"]:
+        users = requests(np.random.default_rng(SEED + 6), MESH_USERS)
+        out["ids"], out["vals"] = Recommender(model, top_k=TOP_K, mesh=mesh).recommend(users)
+    if "sampled" in spec["check"]:
+        out["sampled"] = Evaluator(model, cfg, mesh=mesh).evaluate(
+            valid.take(np.arange(MESH_UNI_ROWS)))
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0 - copy_s
+    out["launches"] = {fn.__name__: fn.launches for fn in spec["counted"]}
+    if "emb-grad" in spec["check"] and mesh is not None:
+        # the lookup's input to row 16 on this rank (models/base.py
+        # sharded_rows): the ids it holds as local rows, the others at
+        # local row 0 with a zero cotangent
+        ids = torch.from_numpy(batches[0]["item_seq"][lo:hi]).to(dev).long()
+        row0, row1 = model.shards["item_embedding"]
+        local = ids - row0
+        own = (local >= 0) & (local < row1 - row0)
+        gen = torch.Generator().manual_seed(SEED + 21 + dist_rank())
+        g = torch.randn((*ids.shape, D), generator=gen).to(dev, torch.bfloat16)
+        g = torch.where(own[..., None], g, torch.zeros((), device=dev, dtype=g.dtype))
+        out["emb_grad_err"] = emb_grad_check(
+            f"mesh-emb-grad-kernel-vs-plain-rank{dist_rank()}",
+            torch.where(own, local, torch.zeros_like(local)), g, row1 - row0)
+        out["emb_grad_own_share"] = float(own.float().mean())
+    return out
+
+
+def dist_rank():
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _mesh_fit(dev, ckpt_dir, mesh_input=None):
+    """``Trainer.fit`` as MESH_FIT says, then ``trainer.evaluate(test,
+    load_best=True)`` (on a mesh: rank 0 writes the gathered checkpoint,
+    every rank re-shards it); ``mesh_input`` None runs unmeshed.  Returns
+    the epoch records (train loss, valid score), the test metrics, the
+    best epoch, the launches and the wall seconds."""
+    from datamining_recblr_torch.data.dataset import build_from_dataframe
+    from datamining_recblr_torch.data.synthetic import generate_synthetic_interactions
+    from datamining_recblr_torch.train.trainer import Trainer
+
+    data = build_from_dataframe(generate_synthetic_interactions(
+        n_users=MESH_FIT["n_users"], n_items=N_ITEMS, min_len=MESH_FIT["min_len"],
+        max_len=MESH_FIT["max_len"], seed=SEED), max_seq_len=T)
+    extra = dict(dropout_prob=0.0, vocab_row_shard="always", epochs=MESH_FIT["epochs"],
+                 eval_batch_size=MESH_FIT["eval_batch_size"], checkpoint_dir=ckpt_dir)
+    if mesh_input is not None:
+        extra.update(mesh_shape=MESH, mesh_input=mesh_input)
+    cfg = _train_config("RecBLR", "float32", **extra)
+    model = get_model("RecBLR")(cfg, data.n_items, T, device=dev,
+                                generator=torch.Generator().manual_seed(SEED))
+    trainer = Trainer(cfg, model)
+    for fn in LAUNCH_COUNTED:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(data, checkpoint_path=f"{ckpt_dir}/fit-{mesh_input or 'single'}")
+    test = trainer.evaluate(data.test, load_best=True)
+    torch.cuda.synchronize()
+    return {"records": [(float(r["train_loss"]), float(r["valid_score"]))
+                        for r in trainer.metrics.epoch_records()],
+            "test": test, "best_epoch": trainer.best_epoch, "shards": dict(model.shards),
+            "launches": {fn.__name__: fn.launches for fn in LAUNCH_COUNTED},
+            "wall_s": time.perf_counter() - t0, "n_train": len(data.train),
+            "n_items": data.n_items}
+
+
+def _gloo_collectives(dev):
+    """The collectives the port calls, on CUDA tensors over the four gloo
+    ranks: all_reduce (sum, max) in fp32, bf16 and int64, all_gather in
+    int32, int64 and fp32, broadcast and barrier; True where each gave
+    the expected values."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    got = {}
+    for dt in (torch.float32, torch.bfloat16, torch.int64):
+        for op, want in (("sum", world * (world + 1) // 2), ("max", world)):
+            x = torch.full((5,), rank + 1, device=dev, dtype=dt)
+            dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
+            got[f"all_reduce_{op}_{str(dt)[6:]}"] = bool((x == want).all())
+    for dt in (torch.int32, torch.int64, torch.float32):
+        x = torch.full((3,), rank, device=dev, dtype=dt)
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        got[f"all_gather_{str(dt)[6:]}"] = bool(
+            (torch.cat(parts).cpu() == torch.arange(world).repeat_interleave(3).to(dt)).all())
+    x = torch.full((2,), float(rank), device=dev)
+    dist.broadcast(x, 1)
+    got["broadcast"] = bool((x == 1).all())
+    dist.barrier()
+    got["barrier"] = True
+    return got
+
+
+def _mesh_rank(rank, world, port, out_dir, device):
+    """One rank of the four-rank run (a process of ``mesh_phases``) on
+    ``device``: every case in order, then the fits, its results saved for
+    the parent."""
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        out = {"collectives": _gloo_collectives(dev)}
+        for case in MESH_CASES:
+            out[case] = _mesh_drive(dev, case, meshed=True)
+            if rank:  # the gathered tensors are the same on every rank
+                out[case].pop("grads")
+                out[case].pop("params")
+        for mode in ("resident", "stream"):
+            out[f"fit-{mode}"] = _mesh_fit(dev, out_dir, mode)
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def mesh_nccl_phase(dev, smi, steps=10):
+    """(a) RecBLR at the bench shape (fp32, p 0) through the meshed Trainer
+    at {data: 1, model: 1} on an NCCL group of one rank, against the
+    unmeshed Trainer from the same seed on the same batches: MESH_STEPS
+    losses (rel err <= 1e-6), each step's launches, and both step times."""
+    import torch.distributed as dist
+
+    from datamining_recblr_torch.data.synthetic import synthetic_splits
+    from datamining_recblr_torch.train.trainer import Trainer
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        train, _ = synthetic_splits(6040, N_ITEMS, T, 8192, seed=SEED)
+        perm = np.random.default_rng((SEED, 0)).permutation(len(train))
+        out = {}
+        for tag, extra in (("unmeshed", {}), ("meshed", {"mesh_shape": {"data": 1, "model": 1}})):
+            cfg = _train_config("RecBLR", "float32", dropout_prob=0.0, **extra)
+            model = get_model("RecBLR")(cfg, N_ITEMS, T,
+                                        generator=torch.Generator().manual_seed(SEED))
+            trainer = Trainer(cfg, model)
+            check((trainer.mesh is not None) == (tag == "meshed"), f"mesh-nccl: {tag} trainer")
+            data = trainer.device_split(train)
+            weight = torch.ones(TRAIN_B, device=dev)
+
+            def batch_of(s, trainer=trainer, data=data, weight=weight):
+                idx = perm[(s * TRAIN_B) % len(train):][:TRAIN_B]
+                return trainer.gather_batch(data, torch.from_numpy(idx).to(dev), weight)
+
+            for fn in LAUNCH_COUNTED:
+                fn.launches = 0
+            losses = [float(trainer.train_step(batch_of(s), s)) for s in range(MESH_STEPS)]
+            torch.cuda.synchronize()
+            launches = tuple(fn.launches for fn in LAUNCH_COUNTED)
+            med, lo, hi, _ = time_steps(trainer, batch_of, steps)
+            out[tag] = {"losses": losses, "launches": launches, "ms": med, "min": lo, "max": hi,
+                        "backend": dist.get_backend(trainer.mesh.group("data"))
+                        if trainer.mesh else None}
+    finally:
+        dist.destroy_process_group()
+    err = max(_rel(a, b) for a, b in zip(out["meshed"]["losses"], out["unmeshed"]["losses"]))
+    phase("mesh-nccl-world1", card=repr(smi), mesh=repr({"data": 1, "model": 1}),
+          backend=out["meshed"]["backend"], dtype="float32", batch=TRAIN_B, T=T, p=0.0,
+          losses=repr([f"{x:.7f}" for x in out["meshed"]["losses"]]),
+          unmeshed_losses=repr([f"{x:.7f}" for x in out["unmeshed"]["losses"]]),
+          loss_rel_err_max=f"{err:.3e}", loss_tol="1e-6",
+          bit_equal=out["meshed"]["losses"] == out["unmeshed"]["losses"],
+          launches=repr(dict(zip((fn.__name__ for fn in LAUNCH_COUNTED),
+                                 out["meshed"]["launches"]))),
+          meshed_ms_per_step=f"{out['meshed']['ms']:.3f}",
+          unmeshed_ms_per_step=f"{out['unmeshed']['ms']:.3f}",
+          meshed_min_max_ms=f"{out['meshed']['min']:.3f}/{out['meshed']['max']:.3f}",
+          unmeshed_min_max_ms=f"{out['unmeshed']['min']:.3f}/{out['unmeshed']['max']:.3f}",
+          timed_steps=steps)
+    check(out["meshed"]["backend"] == "nccl", "mesh-nccl: the mesh is not on NCCL")
+    check(err <= 1e-6, f"mesh-nccl: meshed losses {out['meshed']['losses']} against "
+          f"{out['unmeshed']['losses']}")
+    check(out["meshed"]["launches"] == (MESH_STEPS,) * 4,
+          f"mesh-nccl: launches {out['meshed']['launches']}")
+    return out
+
+
+def mesh_phases(dev, smi):
+    """The meshed path on the one card (``parallel/``): (a)
+    ``mesh_nccl_phase``; (b) the ``MESH_CASES`` on a {data: 2, model: 2}
+    mesh of four processes sharing the card over gloo, each held against
+    the same case in this process, unmeshed, from the same seed on the
+    same batches: the losses of every rank (equal on every rank, within
+    ``MESH_LOSS_RTOL`` of the reference), each rank's launches, the rows
+    each rank holds, the first step's gradients within ``MESH_GRAD_TOL``
+    and the parameters after the steps within ``MESH_PARAM_SHARE`` of the
+    reference's own, and the case's checks: RecBLR's full-sort ranks and
+    ``recommend`` ids (through ``sharded_topk``) equal to the reference's
+    from the meshed run's final parameters, the BPR case's uni100 metrics
+    within 1e-5, row 16 against its plain version at each XLong rank's
+    shard; then a meshed ``Trainer.fit`` with resident and with stream
+    input against the unmeshed fit (``MESH_FIT``).  Returns {"nccl": ...,
+    "gloo": {case: {"launches", "wall_s"}}}."""
+    import gc
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    nccl = mesh_nccl_phase(dev, smi)
+    _cuda.build()  # the ranks load the built libraries
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_mesh_rank, args=(4, _free_port(), tmp, str(dev)), nprocs=4, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(4)]
+    coll = ranks[0]["collectives"]
+    phase("mesh-gloo-collectives", ranks=4, device="cuda:0", **coll)
+    check(all(all(r["collectives"].values()) for r in ranks),
+          f"mesh-gloo: a collective on CUDA tensors failed: {[r['collectives'] for r in ranks]}")
+    gloo = {}
+    for case, spec in MESH_CASES.items():
+        cfg = _mesh_config(case, False)
+        dtype = cfg["compute_dtype"]
+        ref = _mesh_drive(dev, case, meshed=False, params=ranks[0][case]["params"])
+        got = [r[case] for r in ranks]
+        err = max(_rel(a, b) for g in got for a, b in zip(g["losses"], ref["losses"]))
+        launches = [g["launches"] for g in got]
+        want = {fn.__name__: spec["steps"] * a + b
+                for fn, a, b in zip(spec["counted"], spec["per_step"], spec["after"])}
+        grad_errs, worst_grad = _grad_errs(got[0]["grads"], ref["grads"], MESH_GRAD_TOL[dtype])
+        shares, worst_share = _param_shares(got[0]["params"], ref["params"], ref["init"],
+                                            ref["lr"])
+        extra = {"grad_err_max": f"{grad_errs[worst_grad]:.3e}", "grad_err_worst": worst_grad,
+                 "grad_tol": MESH_GRAD_TOL[dtype],
+                 "param_update_share_off": f"{shares[worst_share]:.3e}",
+                 "param_worst": worst_share, "param_share_tol": MESH_PARAM_SHARE[dtype]}
+        check(set(got[0]["grads"]) == set(ref["grads"]) and grad_errs[worst_grad] <= 1.0,
+              f"mesh-{case}: first-step gradients off the single process's: {grad_errs}")
+        check(shares[worst_share] <= MESH_PARAM_SHARE[dtype],
+              f"mesh-{case}: parameters after the steps off the single process's: {shares}")
+        if "emb-grad" in spec["check"]:
+            extra.update(emb_grad_err=repr([f"{g['emb_grad_err']:.3e}" for g in got]),
+                         emb_grad_own_share=repr([round(g["emb_grad_own_share"], 3)
+                                                  for g in got]))
+        if "eval" in spec["check"]:
+            # the reference ranks the global batch; rank r holds rows of its data index
+            full_ranks, full_scores = ref["ranks"], ref["scores"]
+            half = MESH_EVAL_B // 2
+            diff_ranks = diff_bits = 0
+            score_err = 0.0
+            for r, g in enumerate(got):
+                d, m = divmod(r, 2)
+                rows = slice(d * half, (d + 1) * half)
+                lo, hi = g["shards"]["item_embedding"]
+                mine = full_scores[rows, lo:hi]  # the reference pads no column
+                theirs = g["scores"][:, :mine.shape[1]]
+                diff_ranks += int((g["ranks"] != full_ranks[rows]).sum())
+                diff_bits += int((theirs.view(torch.int32) != mine.view(torch.int32)).sum())
+                fin = torch.isfinite(mine)
+                score_err = max(score_err, float((theirs - mine)[fin].abs().max()))
+            extra.update(eval_rows=MESH_EVAL_B, ranks_differing=diff_ranks,
+                         score_bits_differing=diff_bits, score_abs_err_max=f"{score_err:.3e}")
+            check(diff_ranks == 0, f"mesh-{case}: {diff_ranks} full-sort ranks differ from the "
+                  f"single-process ranks ({diff_bits} score bits differ, max {score_err:.3e})")
+        if "serve" in spec["check"]:
+            diff_ids = sum(int((g["ids"] != ref["ids"]).sum()) for g in got)
+            val_err = max(float(np.abs(g["vals"] - ref["vals"]).max()) for g in got)
+            extra.update(users=MESH_USERS, top_k=TOP_K, ids_differing=diff_ids,
+                         topk_value_abs_err=f"{val_err:.3e}")
+            check(diff_ids == 0, f"mesh-{case}: {diff_ids} recommended ids differ from the "
+                  "single-process recommend()")
+        if "sampled" in spec["check"]:
+            s_err = max(abs(g["sampled"][k] - v) for g in got for k, v in ref["sampled"].items())
+            extra.update(uni100=repr({k: round(v, 4) for k, v in sorted(ref["sampled"].items())}),
+                         uni100_abs_err_max=f"{s_err:.3e}")
+            check(s_err <= 1e-5, f"mesh-{case}: uni100 metrics differ by {s_err}")
+        phase(f"mesh-gloo-{case}", mesh=repr(MESH), backend="gloo", ranks=4,
+              model=spec["model"], dtype=dtype, batch=spec["b"], T=spec["t"], V=spec["v"],
+              vocab_row_shard=cfg.get("vocab_row_shard", "auto"),
+              shards=repr([g["shards"] for g in got[:2]]),
+              losses=repr([f"{x:.7f}" for x in got[0]["losses"]]),
+              single_losses=repr([f"{x:.7f}" for x in ref["losses"]]),
+              loss_rel_err_max=f"{err:.3e}", loss_tol=MESH_LOSS_RTOL[dtype],
+              launches_per_rank=repr(launches[0]), wall_s_time_shared_on_one_card=repr(
+                  [round(g["wall_s"], 2) for g in got]),
+              single_wall_s=f"{ref['wall_s']:.2f}", **extra)
+        check(all(g["losses"] == got[0]["losses"] for g in got),
+              f"mesh-{case}: the ranks report different losses")
+        check(err <= MESH_LOSS_RTOL[dtype], f"mesh-{case}: losses {got[0]['losses']} against "
+              f"the single-process {ref['losses']}")
+        check(all(x == want for x in launches), f"mesh-{case}: launches {launches}, "
+              f"expected {want} a rank")
+        check(bool(got[0]["shards"]) == spec["sharded"], f"mesh-{case}: shards {got[0]['shards']}")
+        gloo[case] = {"launches": launches[0], "wall_s": [g["wall_s"] for g in got]}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = _mesh_fit(dev, tmp)
+    for mode in ("resident", "stream"):
+        got = [r[f"fit-{mode}"] for r in ranks]
+        rec_err = max(abs(a - b) / (5e-5 + 2e-4 * abs(b)) for g in got
+                      for mine, theirs in zip(g["records"], ref["records"])
+                      for a, b in zip(mine, theirs))
+        test_err = max(abs(g["test"][k] - v) / (5e-5 + 2e-4 * abs(v)) for g in got
+                       for k, v in ref["test"].items())
+        phase(f"mesh-gloo-fit-{mode}", mesh=repr(MESH), backend="gloo", ranks=4,
+              model="RecBLR", dtype="float32", batch=TRAIN_B, T=T, V=ref["n_items"],
+              train_rows=ref["n_train"], epochs=MESH_FIT["epochs"],
+              shards=repr([g["shards"] for g in got[:2]]),
+              records=repr([(f"{a:.7f}", f"{b:.7f}") for a, b in got[0]["records"]]),
+              single_records=repr([(f"{a:.7f}", f"{b:.7f}") for a, b in ref["records"]]),
+              test=repr({k: round(v, 6) for k, v in sorted(got[0]["test"].items())}),
+              single_test=repr({k: round(v, 6) for k, v in sorted(ref["test"].items())}),
+              best_epoch=got[0]["best_epoch"], single_best_epoch=ref["best_epoch"],
+              err_over_tol=f"{max(rec_err, test_err):.3e}", tol="rtol 2e-4, atol 5e-5",
+              launches_per_rank=repr(got[0]["launches"]),
+              wall_s_time_shared_on_one_card=repr([round(g["wall_s"], 2) for g in got]),
+              single_wall_s=f"{ref['wall_s']:.2f}")
+        check(all(len(g["records"]) == len(ref["records"]) == MESH_FIT["epochs"] for g in got)
+              and rec_err <= 1.0 and test_err <= 1.0,
+              f"mesh-fit-{mode}: the meshed fit is off the single process's")
+        check(all(g["best_epoch"] == ref["best_epoch"] for g in got),
+              f"mesh-fit-{mode}: best epochs {[g['best_epoch'] for g in got]}")
+        check(all(all(g["launches"].values()) and g["shards"] for g in got),
+              f"mesh-fit-{mode}: launches {[g['launches'] for g in got]}")
+    phase("mesh-summary", spawn_s=f"{spawn_s:.1f}", card=repr(smi),
+          note="four ranks time-share one card: no time here is a multi-GPU time")
+    return {"nccl": nccl, "gloo": gloo}
+
+
+def _grad_errs(got, want, tol, floor=1e-6):
+    """{param: max |got - want| over tol times the larger of its largest
+    |want| and floor x the largest |want| of all / tol} (<= 1 within the
+    tolerance) and the worst parameter."""
+    top = max(float(w.abs().max()) for w in want.values())
+    errs = {k: float((got[k].double() - w.double()).abs().max())
+            / (tol * max(float(w.abs().max()), floor * top / tol, 1e-30))
+            for k, w in want.items() if k in got}
+    return errs, max(errs, key=errs.get)
+
+
+def _param_shares(got, want, init, lr):
+    """{param: share of its entries whose update from ``init`` differs
+    between ``got`` and ``want`` by more than lr / 2} and the worst."""
+    shares = {k: float(((got[k].double() - w.double()).abs() > 0.5 * lr).double().mean())
+              for k, w in want.items() if torch.is_floating_point(w)}
+    return shares, max(shares, key=shares.get)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a card", file=sys.stderr)
@@ -4649,6 +5222,7 @@ def main():
         fit_phase(dev, name)
     experiments = experiment_phases(dev)
     cold = cold_start_phases(dev)
+    mesh = mesh_phases(dev, smi)
     kernel_times(dev, p1, p2, lens)
     rows = training_kernel_times(dev)
     attn_kernel_times(dev)
@@ -4798,6 +5372,20 @@ def main():
         if entry["name"] in cold["none"]["launches"]:
             entry["launches_cold_start"] = {mode: out["launches"][entry["name"]]
                                             for mode, out in cold.items()}
+    # the meshed path's launches a rank: NCCL at world size 1 (its MESH_STEPS
+    # steps), then each four-rank gloo case that runs the kernel
+    nccl_launches = dict(zip((fn.__name__ for fn in LAUNCH_COUNTED),
+                             mesh["nccl"]["meshed"]["launches"]))
+    for entry in kernels:
+        runs = {f"gloo-{case}": out["launches"][entry["name"]]
+                for case, out in mesh["gloo"].items() if entry["name"] in out["launches"]}
+        if entry["name"] in nccl_launches:
+            runs = {"nccl-world1": nccl_launches[entry["name"]], **runs}
+        if runs:
+            entry["launches_mesh_per_rank"] = runs
+    for tag in ("meshed", "unmeshed"):
+        train_summary[f"mesh_nccl_world1_{tag}_ms_per_step_fp32"] = (
+            f"{mesh['nccl'][tag]['ms']:.3f}")
     for mode, out in cold.items():
         for key in ("train_s", "unseen_eval_s", "similarity_s"):
             train_summary[f"cold_start_{mode}_{key}"] = f"{out[key]:.3f}"

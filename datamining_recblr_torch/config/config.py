@@ -76,8 +76,8 @@ _GENERAL_DEFAULTS: dict[str, Any] = {
     "vocab_row_shard": "auto",    # auto (element-count policy) | always | never
     "mesh_input": "resident",     # resident: split replicated on device, index
                                   # vectors per step | stream: host batches per step
-    "multihost": False,           # call jax.distributed.initialize at program start
-    "multihost_args": None,       # kwargs for jax.distributed.initialize
+    "multihost": False,           # call torch.distributed.init_process_group at program start
+    "multihost_args": None,       # kwargs for torch.distributed.init_process_group
     "metrics_file": None,         # JSONL structured metrics sink
     "mask_history": False,        # RecBole sequential full-sort eval does NOT
                                   # mask training history (only PAD item 0)

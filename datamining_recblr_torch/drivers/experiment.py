@@ -2,7 +2,14 @@
 ``datamining_recblr_tpu/drivers/experiment.py``): config -> dataset ->
 model -> ``Trainer.fit`` with per-epoch validation -> test from the best
 checkpoint, with a per-run log file, the forward's FLOPs, the environment
-report and the training-curve CSV and plots."""
+report and the training-curve CSV and plots.
+
+With ``multihost`` the process is one rank of a mesh: it joins the
+process group first (``parallel.mesh.multihost_initialize`` with the
+config's ``multihost_args``; backend gloo on the CPU, else nccl by
+default) and runs on ``cuda:LOCAL_RANK`` unless ``device`` names
+another; ``mesh_shape`` lays the ranks out, and rank 0 writes the plots
+and the CSV."""
 
 from __future__ import annotations
 
@@ -10,10 +17,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from datamining_recblr_torch.data.dataset import SeqData, build_dataset
 from datamining_recblr_torch.eval.evaluator import format_result
 from datamining_recblr_torch.models import get_model
+from datamining_recblr_torch.parallel.mesh import local_device, multihost_initialize
 from datamining_recblr_torch.train.trainer import Trainer
 from datamining_recblr_torch.utils.env import environment_report, format_environment
 from datamining_recblr_torch.utils.flops import forward_flops
@@ -30,8 +39,14 @@ def run_experiment(config, data: SeqData | None = None, plot_prefix: str | None 
     ``interop.params_from_jax``'s).  Returns {config, data, model, trainer,
     best_valid_score, best_valid_result, test_result, metrics,
     environment, wall_time}, the JAX package's keys."""
+    rank0 = True
     if config.get("multihost"):
-        raise NotImplementedError("multi-host runs are not ported (ROADMAP.md queue A item 9)")
+        # before the first collective: the mesh needs every rank's process
+        device = torch.device(device) if device is not None else local_device()
+        args = dict(config.get("multihost_args") or {})
+        args.setdefault("backend", "gloo" if device.type == "cpu" else "nccl")
+        multihost_initialize(**args)
+        rank0 = dist.get_rank() == 0
     log_file = None
     if config.get("log_dir"):
         stamp = time.strftime("%b-%d-%Y_%H-%M-%S")
@@ -64,7 +79,7 @@ def run_experiment(config, data: SeqData | None = None, plot_prefix: str | None 
     env = environment_report()
     logger.info(format_environment(env))
 
-    if make_plots:
+    if make_plots and rank0:
         prefix = plot_prefix or f"{config['model']}_{config.get('dataset') or 'data'}"
         generate_plots(metrics.epoch_records(), prefix, plot_dir)
 

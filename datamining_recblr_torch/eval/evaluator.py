@@ -13,6 +13,14 @@
   where a negative equals the target; the candidates hold the target at
   index 0, so a tie ranks it first; BERT4Rec's scores add its output
   bias.  The draws are the JAX package's, in its order.
+
+On a mesh (``mesh``, with the model sharded by ``parallel.sharding``)
+each data rank scores rows [d B/D, (d+1) B/D) of every global batch
+(``eval_batch_size`` must divide by ``data``), the candidates still drawn
+for the global batch; a row-sharded table's scores stay sharded over
+``model`` (``target_ranks`` reduces over it), and the metric sums are
+summed over ``data`` at the end, so every rank returns the global
+metrics.
 """
 
 from __future__ import annotations
@@ -22,6 +30,9 @@ import torch
 
 from datamining_recblr_torch.data.batching import iter_batches
 from datamining_recblr_torch.eval.metrics import mask_scores, rank_metrics, target_ranks
+from datamining_recblr_torch.parallel.collectives import all_reduce
+from datamining_recblr_torch.parallel.mesh import DATA_AXIS
+from datamining_recblr_torch.parallel.sharding import shard_batch
 
 
 def history_fn_from_data(data):
@@ -40,11 +51,15 @@ def history_fn_from_data(data):
 
 
 class Evaluator:
-    def __init__(self, model, config):
+    def __init__(self, model, config, mesh=None):
         self.model = model
+        self.mesh = mesh
         self.metrics = [m.lower() for m in config["metrics"]]
         self.topk = [int(k) for k in config["topk"]]
         self.batch_size = int(config["eval_batch_size"])
+        if mesh is not None and self.batch_size % mesh.size(DATA_AXIS):
+            raise ValueError(f"eval_batch_size {self.batch_size} must divide by the data "
+                             f"mesh axis ({mesh.size(DATA_AXIS)})")
         self.seed = int(config.get("seed", 0) or 0)
         mode = str((config.get("eval_args") or {}).get("mode", "full"))
         self.n_negatives = None
@@ -88,16 +103,30 @@ class Evaluator:
         operands multiplied in fp32, plus BERT4Rec's output bias."""
         model = self.model
         seq_output = model(item_seq, item_seq_len)
-        emb = model.item_embedding[cands].to(seq_output.dtype)
+        emb = model.rows_of("item_embedding", cands).to(seq_output.dtype)
         scores = torch.einsum("bh,bnh->bn", seq_output.float(), emb.float())
         if hasattr(model, "mask_token"):
-            scores = scores + model.output_bias[cands]
+            scores = scores + model.rows_of("output_bias", cands)
         return scores
 
-    def _accumulate(self, sums, ranks, weight):
-        for key, (sv, wv) in rank_metrics(ranks, self.metrics, self.topk, weight).items():
-            cur = sums.get(key)
-            sums[key] = (sv, wv) if cur is None else (cur[0] + sv, cur[1] + wv)
+    def batch_sums(self, put, history=None):
+        """Metric sums of one batch on this rank: ``put`` holds item_seq,
+        item_seq_len, pos_item and weight tensors (and ``cands`` in the
+        sampled modes); ``history`` a [B, V] bool mask of the catalog's
+        columns."""
+        if "cands" in put:
+            scores = self.sampled_scores(put["item_seq"], put["item_seq_len"], put["cands"])
+            ranks = target_ranks(scores, torch.zeros_like(put["pos_item"]))
+            return rank_metrics(ranks, self.metrics, self.topk, put["weight"])
+        model = self.model
+        scores = model.full_sort_scores(put["item_seq"], put["item_seq_len"])
+        lo, hi = model.score_cols()
+        if history is not None:  # to this rank's columns; padded ones are -inf already
+            history = torch.nn.functional.pad(history, (0, max(0, hi - history.shape[-1])))
+            history = history[:, lo:hi]
+        scores = mask_scores(scores, history=history, col0=lo)
+        ranks = target_ranks(scores, put["pos_item"], col0=lo, mesh=model.score_mesh())
+        return rank_metrics(ranks, self.metrics, self.topk, put["weight"])
 
     def evaluate(self, split, history_fn=None) -> dict[str, float]:
         """{"metric@k": value} averaged over real rows, keys sorted, with the
@@ -110,29 +139,36 @@ class Evaluator:
         neg_rng = np.random.default_rng(self.seed) if self.n_negatives is not None else None
         with torch.no_grad():
             for batch in iter_batches(split, self.batch_size):
-                put = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
-                       for k in ("item_seq", "item_seq_len", "pos_item", "weight")}
-                if neg_rng is not None:
-                    cands = torch.from_numpy(self.candidates(neg_rng, batch["pos_item"])).to(dev)
-                    scores = self.sampled_scores(put["item_seq"], put["item_seq_len"], cands)
-                    ranks = target_ranks(scores, torch.zeros_like(put["pos_item"]))
-                    self._accumulate(sums, ranks, put["weight"])
-                    continue
-                scores = model.full_sort_scores(put["item_seq"], put["item_seq_len"])
+                if neg_rng is not None:  # drawn for the global batch
+                    batch["cands"] = self.candidates(neg_rng, batch["pos_item"])
+                keys = ("item_seq", "item_seq_len", "pos_item", "weight", "cands", "user_id")
+                mine = shard_batch({k: np.asarray(batch[k]) for k in keys if k in batch},
+                                   self.mesh)
+                user_id = mine.pop("user_id", None)
+                put = {k: torch.from_numpy(v).to(dev) for k, v in mine.items()}
                 hist = None
                 if history_fn is not None:
-                    hist = torch.from_numpy(history_fn(batch["user_id"])).to(dev)
-                    pad = scores.shape[-1] - hist.shape[-1]
-                    if pad:  # padded vocab columns are -inf already
-                        hist = torch.nn.functional.pad(hist, (0, pad))
-                scores = mask_scores(scores, history=hist)
-                self._accumulate(sums, target_ranks(scores, put["pos_item"]), put["weight"])
+                    hist = torch.from_numpy(history_fn(user_id)).to(dev)
+                for key, (sv, wv) in self.batch_sums(put, hist).items():
+                    cur = sums.get(key)
+                    sums[key] = (sv, wv) if cur is None else (cur[0] + sv, cur[1] + wv)
         model.train(was_training)
+        sums = sum_over_data(sums, self.mesh)
         out = {}
         for k, (sv, wv) in sorted(sums.items()):  # key order as the JAX package's
             w = float(wv)
             out[k] = float(sv) / w if w else 0.0
         return out
+
+
+def sum_over_data(sums: dict, mesh) -> dict:
+    """Metric sums {key: (sum, weight sum)} summed over the ``data`` ranks
+    in one all-reduce (unchanged off a mesh)."""
+    if mesh is None or not sums:
+        return sums
+    keys = sorted(sums)
+    flat = all_reduce(torch.stack([v for k in keys for v in sums[k]]), mesh, DATA_AXIS)
+    return {k: (flat[2 * i], flat[2 * i + 1]) for i, k in enumerate(keys)}
 
 
 def format_result(result: dict[str, float]) -> str:

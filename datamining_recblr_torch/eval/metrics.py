@@ -11,18 +11,31 @@ from __future__ import annotations
 
 import torch
 
+from datamining_recblr_torch.parallel.collectives import all_reduce
+from datamining_recblr_torch.parallel.mesh import MODEL_AXIS
 
-def target_ranks(scores, targets):
+
+def target_ranks(scores, targets, col0: int = 0, mesh=None):
     """1-based rank of ``targets[b]`` in descending ``scores[b]``:
     (# strictly greater) + (# equal with a smaller index) + 1.
-    scores: [B, V] float; targets: [B] int."""
+    scores: [B, V] float; targets: [B] int.
+
+    Written, as the JAX package's, as masked reductions over the item
+    axis: on a ``mesh`` ``scores`` are this rank's columns [col0, col0 +
+    V) of scores sharded over ``model``, and the target's score and the
+    two counts are each summed over the model ranks, so the ranks equal
+    the unsharded ones exactly, ties at a shard boundary included."""
     scores = scores.float()
-    idx = torch.arange(scores.shape[-1], device=scores.device)[None, :]
+    idx = col0 + torch.arange(scores.shape[-1], device=scores.device)[None, :]
     tgt = targets.long()[:, None]
-    tgt_score = scores.gather(-1, tgt)
-    greater = (scores > tgt_score).sum(-1)
-    eq_before = ((scores == tgt_score) & (idx < tgt)).sum(-1)
-    return greater + eq_before + 1
+    tgt_score = torch.where(idx == tgt, scores, torch.zeros((), device=scores.device)).sum(
+        -1, keepdim=True)
+    if mesh is not None:
+        tgt_score = all_reduce(tgt_score, mesh, MODEL_AXIS)
+    count = (scores > tgt_score).sum(-1) + ((scores == tgt_score) & (idx < tgt)).sum(-1)
+    if mesh is not None:
+        count = all_reduce(count, mesh, MODEL_AXIS)
+    return count + 1
 
 
 _METRIC_FNS = {
@@ -52,9 +65,10 @@ def rank_metrics(ranks, metrics, topk, weights=None):
     return out
 
 
-def mask_scores(scores, pad_value=float("-inf"), history=None):
-    """Mask PAD item 0 and optionally a [B, V] boolean history mask."""
-    idx = torch.arange(scores.shape[-1], device=scores.device)[None, :]
+def mask_scores(scores, pad_value=float("-inf"), history=None, col0: int = 0):
+    """Mask PAD item 0 and optionally a [B, V] boolean history mask (of the
+    same columns); ``col0`` is the first column's global index."""
+    idx = col0 + torch.arange(scores.shape[-1], device=scores.device)[None, :]
     fill = torch.full((), pad_value, dtype=scores.dtype, device=scores.device)
     scores = torch.where(idx == 0, fill, scores)
     if history is not None:

@@ -18,8 +18,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from datamining_recblr_torch.models.layers import normal_init
 from datamining_recblr_torch.ops import fused_ce as FCE
+from datamining_recblr_torch.ops import philox
 from datamining_recblr_torch.ops.embedding import embedding_lookup, gather_rows
+from datamining_recblr_torch.parallel.collectives import (
+    all_reduce,
+    copy_to_model,
+    reduce_from_model,
+)
+from datamining_recblr_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
 _DTYPES = {
     "float32": torch.float32,
@@ -52,29 +60,63 @@ def dtype_of(name) -> torch.dtype:
     return _DTYPES[str(name)]
 
 
-def ce_loss(logits, targets, weights=None):
+def ce_loss(logits, targets, weights=None, mesh=None):
     """Full-catalog softmax cross-entropy, mean over (weighted) rows
     (``nn.CrossEntropyLoss`` with mean reduction): logits over every item
     id including PAD = 0; a weighted mean divides by max(sum w, 1)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets.long()[:, None])[:, 0]
-    return weighted_mean(logz - tgt, weights)
+    return weighted_mean(logz - tgt, weights, mesh)
 
 
-def bpr_loss(pos_score, neg_score, weights=None):
+def bpr_loss(pos_score, neg_score, weights=None, mesh=None):
     """RecBole's BPRLoss: ``-log(1e-10 + sigmoid(pos - neg))``, the (weighted)
     mean over rows."""
-    return weighted_mean(-torch.log(BPR_GAMMA + torch.sigmoid(pos_score - neg_score)), weights)
+    return weighted_mean(-torch.log(BPR_GAMMA + torch.sigmoid(pos_score - neg_score)),
+                         weights, mesh)
 
 
-def weighted_mean(nll, weights=None):
+def weighted_mean(nll, weights=None, mesh=None):
     """The mean of per-row losses, or with weights sum(nll w) / max(sum w,
-    1)."""
+    1).  On a ``mesh`` the rows are this rank's part of the batch: the
+    sum is its own, the count or the weight sum the global one, so the
+    data ranks' results add up to the mean over the global batch."""
     if weights is None:
-        return nll.mean()
+        if mesh is None:
+            return nll.mean()
+        return nll.sum() / (nll.numel() * mesh.size(DATA_AXIS))
     w = weights.float()
-    return (nll * w).sum() / w.sum().clamp_min(1.0)
+    total = w.sum() if mesh is None else all_reduce(w.sum(), mesh, DATA_AXIS)
+    return (nll * w).sum() / total.clamp_min(1.0)
+
+
+def sharded_rows(shard, ids, lo: int, mesh, lookup):
+    """Rows ``ids`` [...] of a table whose rows [lo, lo + len(shard)) this
+    rank holds in ``shard``, as ``lookup(table, ids)`` of the whole
+    table: the ids it holds are looked up here, the others give zero, and
+    the sum over the model ranks puts each row together (its backward
+    the identity, so each rank's gradient lands on its own rows)."""
+    local = ids.long() - lo
+    own = (local >= 0) & (local < shard.shape[0])
+    rows = lookup(shard, torch.where(own, local, torch.zeros_like(local)))
+    rows = torch.where(own[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return reduce_from_model(rows, mesh)
+
+
+def vocab_parallel_nll(logits, targets, lo: int, mesh):
+    """Per-row softmax CE of logits sharded over ``model``: ``logits``
+    [N, Vs] are the columns [lo, lo + Vs) on this rank.  The max, the sum
+    of exponentials and the target's logit are each reduced over the
+    model ranks; the backward gives each rank its columns' gradient."""
+    logits = logits.float()
+    top = all_reduce(logits.detach().amax(-1), mesh, MODEL_AXIS, "max")
+    sumexp = reduce_from_model((logits - top[:, None]).exp().sum(-1), mesh)
+    local = targets.long() - lo
+    own = (local >= 0) & (local < logits.shape[1])
+    tgt = logits.gather(-1, torch.where(own, local, torch.zeros_like(local))[:, None])[:, 0]
+    tgt = reduce_from_model(torch.where(own, tgt, torch.zeros_like(tgt)), mesh)
+    return sumexp.log() + top - tgt
 
 
 class SequentialModel(nn.Module):
@@ -91,18 +133,79 @@ class SequentialModel(nn.Module):
         self.device = resolve_device(device)
         self.loss_type = str(config.get("loss_type", "CE"))
         self.seed = int(config.get("seed", 0) or 0)
+        # vocab-leading rows pad to the mesh's model-axis multiple, so the
+        # row-shard policy decides, never divisibility; _base_mult is an
+        # unmeshed model's padding, which checkpoints keep
         mesh_shape = config.get("mesh_shape") or {}
         self._vocab_mult = int(
             config.get("vocab_multiple") or mesh_shape.get("model", 1) or 1
         )
+        self._base_mult = int(config.get("vocab_multiple") or 1)
         hidden = int(config.get("hidden_size", 64) or 64)
         if not FCE.supports(self.n_items, hidden):
             self._vocab_mult = math.lcm(self._vocab_mult, _CE_BV)
+            self._base_mult = math.lcm(self._base_mult, _CE_BV)
         self.n_items_padded = self.pad_vocab_rows(self.n_items)
+        # set by parallel.sharding.shard_model on a mesh
+        self.mesh = None
+        self.shards: dict[str, tuple[int, int]] = {}  # name -> global rows held
+        self.seed_offset = 0
 
-    def pad_vocab_rows(self, n: int) -> int:
-        m = self._vocab_mult
+    def pad_vocab_rows(self, n: int, meshed: bool = True) -> int:
+        """``n`` rounded up to the model's padding (with ``meshed=False``
+        to an unmeshed model's)."""
+        m = self._vocab_mult if meshed else self._base_mult
         return -(-n // m) * m
+
+    def vocab_rows(self) -> dict[str, int]:
+        """The vocab-leading parameters and their rows before padding."""
+        return {"item_embedding": self.n_items}
+
+    def init_table(self, gen, n: int, d: int, dt):
+        """The [pad_vocab_rows(n), d] item table, row 0 (PAD) zero: the
+        rows an unmeshed model draws from ``gen``, then zero rows to the
+        mesh's padding, so a meshed model starts from the unmeshed one's
+        parameters."""
+        rows = self.pad_vocab_rows(n, meshed=False)
+        emb = normal_init(gen, (rows, d), dtype=dt)
+        emb[0] = 0.0  # padding_idx = 0
+        extra = self.pad_vocab_rows(n) - rows
+        return torch.cat([emb, emb.new_zeros((extra, d))]) if extra > 0 else emb
+
+    def step_seeds(self, step, n: int) -> list[int]:
+        """``n`` dropout seeds of a training step (``philox.step_seeds``),
+        each offset by ``seed_offset`` (a data index's, on a mesh)."""
+        return [(s + self.seed_offset) & 0xFFFFFFFFFFFFFFFF
+                for s in philox.step_seeds(self.seed, step, n)]
+
+    def data_row0(self, rows: int) -> int:
+        """The global index of this rank's first row of a batch of which it
+        holds ``rows`` (0 off a mesh)."""
+        return self.mesh.index(DATA_AXIS) * rows if self.mesh is not None else 0
+
+    def rows_of(self, name: str, ids, lookup=None):
+        """Rows ``ids`` [...] of the vocab-leading parameter ``name`` (a 1-D
+        one as one column, squeezed) by ``lookup`` (``gather_rows``, read
+        when called, by default); from a row-sharded one, each id read on
+        the rank that holds it."""
+        lookup = lookup or gather_rows
+        p = getattr(self, name)
+        table = p[:, None] if p.dim() == 1 else p
+        rng = self.shards.get(name)
+        rows = (lookup(table, ids) if rng is None
+                else sharded_rows(table, ids, rng[0], self.mesh, lookup))
+        return rows[..., 0] if p.dim() == 1 else rows
+
+    def score_cols(self) -> tuple[int, int]:
+        """The global item columns [lo, hi) of this rank's
+        ``full_sort_scores``."""
+        return self.shards.get("item_embedding", (0, self.n_items_padded))
+
+    def score_mesh(self):
+        """The mesh whose ``model`` axis shards this rank's scores over the
+        catalog (a row-sharded table), else None: the ranks and the top-k
+        of sharded scores are reduced over it."""
+        return self.mesh if "item_embedding" in self.shards else None
 
     def forward(self, item_seq, item_seq_len, step=None):
         """[B, H] sequence representation; dropout is on only in training
@@ -116,34 +219,51 @@ class SequentialModel(nn.Module):
         summed in fp32 by the ``embedding_grad`` kernel on the card.
         Under fp32 it is the plain gather, ``F.embedding``."""
         if self.compute_dtype == torch.bfloat16:
-            return embedding_lookup(self.item_embedding, ids)
-        return F.embedding(ids, self.item_embedding)
+            return self.rows_of("item_embedding", ids, embedding_lookup)
+        return self.rows_of("item_embedding", ids, lambda t, i: F.embedding(i, t))
 
-    def _mask_padded_vocab(self, logits, value=float("-inf")):
-        if self.n_items_padded == self.n_items:
+    def _mask_padded_vocab(self, logits, value=float("-inf"), col0: int = 0):
+        """Columns at global index >= n_items (``col0`` the first's) set to
+        ``value``."""
+        if col0 + logits.shape[-1] <= self.n_items:
             return logits
-        idx = torch.arange(logits.shape[-1], device=logits.device)[None, :]
+        idx = col0 + torch.arange(logits.shape[-1], device=logits.device)[None, :]
         return torch.where(idx < self.n_items, logits,
                            torch.full((), value, dtype=logits.dtype, device=logits.device))
 
     def full_sort_scores(self, item_seq, item_seq_len):
         """[B, n_items_padded] fp32 scores against the whole catalog
-        (BERT4Rec's ``_logits``: [B, n_items]); padded vocab columns are -inf.  The operands are rounded to the
-        compute dtype and multiplied in fp32, as the JAX package's
-        ``preferred_element_type=f32`` product."""
+        (BERT4Rec's: [B, n_items]); padded vocab columns are -inf.  The
+        operands are rounded to the compute dtype and multiplied in fp32,
+        as the JAX package's ``preferred_element_type=f32`` product.
+        On a mesh with a row-sharded table: the columns ``score_cols()``.
+        """
         seq_output = self.forward(item_seq, item_seq_len)
-        return self._mask_padded_vocab(self._logits(seq_output))
+        lo, hi = self.score_cols()
+        return self._mask_padded_vocab(self._logits(seq_output)[:, : hi - lo], col0=lo)
 
     def _logits(self, seq_output):
+        """fp32 logits against the table (this rank's rows of a sharded
+        one, the output entering through ``copy_to_model``)."""
         table = self.item_embedding.to(seq_output.dtype)
+        if self.score_mesh() is not None:
+            seq_output = copy_to_model(seq_output, self.mesh)
         return seq_output.float() @ table.float().T
+
+    def sharded_nll(self, x, targets):
+        """Per-row CE of ``x`` [N, D] against a row-sharded table:
+        ``vocab_parallel_nll`` of this rank's logits, the columns at or past
+        ``n_items`` at -1e30."""
+        lo = self.shards["item_embedding"][0]
+        logits = self._mask_padded_vocab(self._logits(x), value=-1e30, col0=lo)
+        return vocab_parallel_nll(logits, targets, lo, self.mesh)
 
     def item_scores(self, seq_output, item_ids):
         """Dot-product score of seq_output [..., H] with the items
         ``item_ids`` [K, ...] (K sets of ids, seq_output broadcast over
         K): the table rows gathered in its dtype, then rounded to the
         compute dtype; their table gradient is ``embedding_grad``'s."""
-        emb = gather_rows(self.item_embedding, item_ids).to(seq_output.dtype)
+        emb = self.rows_of("item_embedding", item_ids).to(seq_output.dtype)
         return (seq_output * emb).sum(-1)
 
     def _use_fused_ce(self, v: int, d: int, rows: int) -> bool:
@@ -152,8 +272,11 @@ class SequentialModel(nn.Module):
         fits it and the loss has at least ``MIN_ROWS`` rows, below which
         the JAX package keeps its XLA CE; the vocab-chunked kernel for a
         larger table once the [rows, V] fp32 logits would take
-        ``CHUNK_MIN_LOGITS_BYTES``."""
+        ``CHUNK_MIN_LOGITS_BYTES``.  On a mesh only against a replicated
+        table and bias, ``rows`` being this data rank's."""
         if self.device.type != "cuda":
+            return False
+        if self.mesh is not None and (self.shards or DATA_AXIS not in self.mesh.shape):
             return False
         if FCE.supports(v, d):
             return rows >= FCE.MIN_ROWS
@@ -173,15 +296,18 @@ class SequentialModel(nn.Module):
         if self.loss_type == "BPR":
             ids = torch.stack([batch["pos_item"].long(), batch["neg_item"].long()])
             pos, neg = self.item_scores(seq_output, ids)  # one gather, one table gradient
-            return bpr_loss(pos, neg, weights)
+            return bpr_loss(pos, neg, weights, self.mesh)
         table = self.item_embedding
-        if self._use_fused_ce(*table.shape, rows=seq_output.shape[0]):
+        if self.score_mesh() is not None:
+            nll = self.sharded_nll(seq_output, batch["pos_item"])
+        elif self._use_fused_ce(*table.shape, rows=seq_output.shape[0]):
             nll = FCE.fused_softmax_ce(seq_output, table, batch["pos_item"],
                                        valid_v=self.n_items,
                                        mm_bf16=self.compute_dtype == torch.bfloat16)
-            return weighted_mean(nll, weights)
-        logits = self._mask_padded_vocab(self._logits(seq_output), value=-1e30)
-        return ce_loss(logits, batch["pos_item"], weights)
+        else:
+            logits = self._mask_padded_vocab(self._logits(seq_output), value=-1e30)
+            return ce_loss(logits, batch["pos_item"], weights, self.mesh)
+        return weighted_mean(nll, weights, self.mesh)
 
 
 def get_model(name: str):

@@ -41,7 +41,7 @@ from datamining_recblr_torch.models.base import ce_loss, weighted_mean
 from datamining_recblr_torch.models.sasrec import SASRec
 from datamining_recblr_torch.ops import fused_ce as FCE
 from datamining_recblr_torch.ops import philox
-from datamining_recblr_torch.ops.embedding import gather_rows
+from datamining_recblr_torch.parallel.collectives import copy_to_model, gather_from_model
 
 BPR_GAMMA = 1e-14  # BERT4Rec's own BPR: -log(1e-14 + sigmoid(pos - neg))
 
@@ -54,8 +54,17 @@ class BERT4Rec(SASRec):
         super().__init__(config, n_items, max_seq_len, device=device, generator=generator)
         self.mask_token = self.n_items
 
-    def _table_rows(self):
-        return self.pad_vocab_rows(self.n_items + 1)  # + the mask token's row
+    def _table_items(self):
+        return self.n_items + 1  # + the mask token's row
+
+    def vocab_rows(self):
+        return {"item_embedding": self.n_items + 1, "output_bias": self.n_items}
+
+    def score_cols(self):
+        """The columns [lo, hi) of ``full_sort_scores`` on this rank: the
+        table's rows it holds, below ``n_items``."""
+        lo, hi = self.shards.get("item_embedding", (0, self.n_items))
+        return lo, max(lo, min(hi, self.n_items))
 
     def _init_params(self, gen):
         super()._init_params(gen)
@@ -115,7 +124,8 @@ class BERT4Rec(SASRec):
         """[b, s] BPR negatives of one step (s = mask_len), uniform in
         [1, n_items) (``step`` None draws step 0's)."""
         return philox.uniform_ints(self.neg_seed(0 if step is None else step), b, s, 1,
-                                   self.n_items, self.item_embedding.device)
+                                   self.n_items, self.item_embedding.device,
+                                   self.data_row0(b))
 
     def cloze_draw(self, item_seq, item_seq_len, step=None):
         """The cloze positions of one step (``step`` None draws step 0's):
@@ -134,7 +144,7 @@ class BERT4Rec(SASRec):
             want = real & (pos == item_seq_len.long()[:, None] - 1)
         else:
             want = real & philox.cloze_draw(self.cloze_seed(0 if step is None else step), b, t,
-                                            self.mask_ratio, dev)
+                                            self.mask_ratio, dev, self.data_row0(b))
         rank = torch.cumsum(want, dim=1)  # 1-based rank among the drawn positions
         cloze = want & (rank <= mask_len)
         masked_seq = torch.where(cloze, torch.full_like(item_seq, self.mask_token), item_seq)
@@ -167,15 +177,18 @@ class BERT4Rec(SASRec):
             pos, neg = self.item_scores(out, torch.stack([sel_tgt, neg.to(sel_tgt.dtype)]))
             diff = pos - neg
             loss = -torch.log(BPR_GAMMA + torch.sigmoid(diff))
-            return (loss * w).sum() / w.sum().clamp_min(1.0)
+            return weighted_mean(loss, w, self.mesh)
         x = out.reshape(-1, h)
         tgt = sel_tgt.clamp_min(0).reshape(-1)
-        if self._use_fused_ce(self.n_items, h, rows=x.shape[0]):
+        if self.score_mesh() is not None:
+            nll = self.sharded_nll(x, tgt)
+        elif self._use_fused_ce(self.n_items, h, rows=x.shape[0]):
             nll = FCE.fused_softmax_ce(x, self.item_embedding[: self.n_items], tgt,
                                        bias=self.output_bias[: self.n_items],
                                        mm_bf16=self.compute_dtype == torch.bfloat16)
-            return weighted_mean(nll, w.reshape(-1))
-        return ce_loss(self._logits(x), tgt, w.reshape(-1))
+        else:
+            return ce_loss(self._logits(x), tgt, w.reshape(-1), self.mesh)
+        return weighted_mean(nll, w.reshape(-1), self.mesh)
 
     def calculate_loss(self, batch, step=None):
         """batch: item_seq [B, T], item_seq_len [B] and an optional weight
@@ -195,12 +208,29 @@ class BERT4Rec(SASRec):
     def item_scores(self, seq_output, item_ids):
         """``SequentialModel.item_scores`` plus the output bias (gathered
         as a one-column table)."""
-        bias = gather_rows(self.output_bias[:, None], item_ids)[..., 0]
-        return super().item_scores(seq_output, item_ids) + bias
+        return super().item_scores(seq_output, item_ids) + self.rows_of("output_bias", item_ids)
 
     def _logits(self, seq_output):
         """[..., n_items] fp32 scores: the table without the mask token's
-        row, plus the output bias."""
-        table = self.item_embedding[: self.n_items].to(seq_output.dtype)
-        return (seq_output.float() @ table.float().T
-                + self.output_bias[: self.n_items].float())
+        row, plus the output bias.  Against a row-sharded table: this
+        rank's rows [lo, hi), the mask token's and padding rows among
+        them, the output entering through ``copy_to_model``."""
+        rng = self.shards.get("item_embedding")
+        if rng is None:
+            lo, hi = 0, self.n_items
+            table = self.item_embedding[:hi]
+        else:
+            (lo, hi), table = rng, self.item_embedding
+            seq_output = copy_to_model(seq_output, self.mesh)
+        table = table.to(seq_output.dtype)
+        return seq_output.float() @ table.float().T + self._bias_cols(lo, hi).float()
+
+    def _bias_cols(self, lo, hi):
+        """The output bias at the global columns [lo, hi) (zero past its
+        rows).  A sharded bias whose rows are not those columns (its rows
+        pad n_items, the table's n_items + 1) is gathered first."""
+        rng = self.shards.get("output_bias")
+        if rng == (lo, hi):
+            return self.output_bias
+        bias = self.output_bias if rng is None else gather_from_model(self.output_bias, self.mesh)
+        return F.pad(bias, (0, max(0, hi - bias.shape[0])))[lo:hi]

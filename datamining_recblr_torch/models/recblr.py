@@ -12,7 +12,8 @@ Dropout (``dropout_prob``) is on in training mode when ``forward`` gets
 the global step: the masks are Philox draws whose seeds are a function
 of (config seed, step, layer) alone (``ops/philox.py:step_seeds``), one
 per layer plus one for the input dropout, as the JAX model draws one
-seed per layer plus one for the prologue (``recblr.py:303-311``).
+seed per layer plus one for the prologue (``recblr.py:303-311``); on a
+mesh each is offset by the data index (``SequentialModel.step_seeds``).
 
 Two compositions, chosen by configuration as in the JAX package
 (``_use_fused_layer``, ``_use_chunked_layer``, ``recblr.py:204-237``):
@@ -113,9 +114,7 @@ class RecBLR(SequentialModel):
         """Parameter tree of the JAX ``init_params``, drawn from ``gen``."""
         d, h, k = self.hidden_size, self.inner_hidden, self.d_conv
         dt = self.param_dtype
-        emb = L.normal_init(gen, (self.n_items_padded, d), dtype=dt)
-        emb[0] = 0.0  # padding_idx = 0
-        self.item_embedding = nn.Parameter(emb)
+        self.item_embedding = nn.Parameter(self.init_table(gen, self.n_items, d, dt))
         self.input_ln = L.param_tree(L.layer_norm_init(d, dt))
         conv_bound = 1.0 / math.sqrt(k)
 
@@ -253,7 +252,7 @@ class RecBLR(SequentialModel):
         n = len(self.layers) + 1
         if not (self.training and step is not None and self.dropout_prob):
             return 0.0, [0] * n
-        return self.dropout_prob, philox.step_seeds(self.seed, step, n)
+        return self.dropout_prob, self.step_seeds(step, n)
 
     def forward(self, item_seq, item_seq_len, step=None):
         x = self.embed(item_seq).to(self.compute_dtype)

@@ -13,7 +13,8 @@ Dropout (``hidden_dropout_prob`` after the prologue, W_o and the FFN;
 ``attn_dropout_prob`` on the probabilities) is on in training mode when
 ``forward`` gets the global step: the masks are Philox draws whose seeds
 are a function of (config seed, step, layer) alone
-(``ops/philox.py:step_seeds``), one per layer plus one for the prologue.
+(``ops/philox.py:step_seeds``), one per layer plus one for the prologue,
+offset on a mesh by the data index (``SequentialModel.step_seeds``).
 
 Parameters carry the names and layouts of the JAX ``init_params``
 (``item_embedding``, ``position_embedding``, ``input_ln``,
@@ -28,7 +29,6 @@ from torch import nn
 
 from datamining_recblr_torch.models import layers as L
 from datamining_recblr_torch.models.base import SequentialModel
-from datamining_recblr_torch.ops import philox
 
 
 class SASRec(SequentialModel):
@@ -48,16 +48,15 @@ class SASRec(SequentialModel):
         self._init_params(generator)
         self.to(self.device)
 
-    def _table_rows(self):
-        return self.n_items_padded
+    def _table_items(self):
+        """The item table's rows before padding."""
+        return self.n_items
 
     def _init_params(self, gen):
         """The shared part of the JAX ``init_params`` trees, drawn from
         ``gen``."""
         d, dt = self.hidden_size, self.param_dtype
-        emb = L.normal_init(gen, (self._table_rows(), d), dtype=dt)
-        emb[0] = 0.0  # padding_idx = 0
-        self.item_embedding = nn.Parameter(emb)
+        self.item_embedding = nn.Parameter(self.init_table(gen, self._table_items(), d, dt))
         self.position_embedding = nn.Parameter(
             L.normal_init(gen, (self.max_seq_len, d), dtype=dt))
         self.input_ln = L.param_tree(L.layer_norm_init(d, dt))
@@ -72,7 +71,7 @@ class SASRec(SequentialModel):
         p = (self.hidden_dropout_prob, self.attn_dropout_prob)
         if not (self.training and step is not None and any(p)):
             return 0.0, 0.0, [0] * n
-        return (*p, philox.step_seeds(self.seed, step, n))
+        return (*p, self.step_seeds(step, n))
 
     def _encode(self, item_seq, last_only, step=None, select=None):
         """Embedding, prologue and encoder: [B, D] when the fused top layer

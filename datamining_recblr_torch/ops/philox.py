@@ -114,31 +114,36 @@ def dropout_mask_at(seed: int, mask_id: int, pos, width: int, p: float):
     return _scaled(bits.reshape(*pos.shape, 4 * groups)[..., :width], p, pos.device)
 
 
-def _row_words(seed: int, b: int, t: int, device=None):
+def _row_words(seed: int, b: int, t: int, device=None, row0: int = 0):
     """int64 [b, t]: word (position & 3) of Philox4x32-10 at counter
-    (position >> 2, row, 0, 0) under the 64-bit ``seed``."""
+    (position >> 2, row, 0, 0) under the 64-bit ``seed``, for the rows
+    row0 .. row0 + b - 1."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     kw = dict(device=device, dtype=torch.int64)
     groups = -(-t // 4)
     zero = torch.zeros((1, 1), **kw)
     words = philox4x32_10(torch.arange(groups, **kw)[None, :],
-                          torch.arange(b, **kw)[:, None], zero, zero,
+                          torch.arange(row0, row0 + b, **kw)[:, None], zero, zero,
                           seed & _MASK32, seed >> 32)
     return torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(b, 4 * groups)[:, :t]
 
 
-def cloze_draw(seed: int, b: int, t: int, ratio: float, device=None):
+def cloze_draw(seed: int, b: int, t: int, ratio: float, device=None, row0: int = 0):
     """BERT4Rec's cloze draw: bool [b, t], True with probability ``ratio``
     at each (row, position), from ``_row_words`` under its own 64-bit
     ``seed`` (one of ``step_seeds``, apart from every dropout seed), so it
-    needs no mask id and a resumed run replays it."""
-    return _row_words(seed, b, t, device) < min(int(float(ratio) * 4294967296.0), 4294967295)
+    needs no mask id and a resumed run replays it.  ``row0``: the global
+    index of the first row (a data rank's part of a batch draws the
+    global batch's bits)."""
+    words = _row_words(seed, b, t, device, row0)
+    return words < min(int(float(ratio) * 4294967296.0), 4294967295)
 
 
-def uniform_ints(seed: int, b: int, t: int, lo: int, hi: int, device=None):
+def uniform_ints(seed: int, b: int, t: int, lo: int, hi: int, device=None, row0: int = 0):
     """int64 [b, t] in [lo, hi): ``lo + (word * (hi - lo)) >> 32`` of
-    ``_row_words`` under its own ``seed`` (BERT4Rec's BPR negatives)."""
-    return lo + ((_row_words(seed, b, t, device) * (int(hi) - int(lo))) >> 32)
+    ``_row_words`` under its own ``seed`` (BERT4Rec's BPR negatives), for
+    the rows from ``row0``."""
+    return lo + ((_row_words(seed, b, t, device, row0) * (int(hi) - int(lo))) >> 32)
 
 
 def _scaled(bits, p, device):

@@ -10,6 +10,16 @@ ml1m-paper, beauty-paper, xlong-paper), the yaml file a preset mirrors
 (read as the preset, no yaml reader needed), or another yaml file;
 ``--set KEY=VALUE`` overrides a key (numbers, true/false and none
 parsed).  The run is on the card unless ``--device`` names another.
+
+A meshed run starts one process per rank with ``torch.distributed.run``:
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m datamining_recblr_torch.run --model R --dataset ml1m-synth \
+        --set "mesh_shape={'data': 2, 'model': 2}" --set multihost=True
+
+each rank on ``cuda:LOCAL_RANK``; ``--device`` names the card where the
+ranks share one (then ``--set "multihost_args={'backend': 'gloo'}"``, as
+NCCL takes one rank a card), or ``cpu`` (gloo).
 """
 
 from __future__ import annotations
@@ -80,7 +90,8 @@ def main(argv=None):
     ap.add_argument("--plot_prefix", default=None)
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                     help="override a config key (repeatable)")
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; cuda:LOCAL_RANK on a mesh) or cpu")
     args = ap.parse_args(argv)
 
     model_name = MODEL_NAMES.get(args.model, args.model)

@@ -6,7 +6,13 @@ One ``recommend`` call builds the [B, T] window batch on the host, runs
 fused kernels, then the fp32 scoring product), masks PAD, padded vocab
 and each user's history to -inf, and takes the top k.  The history mask
 is cut to the scores' width: BERT4Rec scores [B, n_items], the others
-[B, n_items_padded]."""
+[B, n_items_padded].
+
+With a ``mesh`` (every rank runs the same ``recommend``, as the JAX
+package's replicated request batch) the model goes on the mesh from its
+full parameters; a row-sharded table scores this rank's columns and
+``sharded_topk`` merges the model ranks' candidates, so every rank
+returns the unmeshed top-k."""
 
 from __future__ import annotations
 
@@ -16,16 +22,20 @@ import torch
 from datamining_recblr_torch.config import Config
 from datamining_recblr_torch.eval.metrics import mask_scores
 from datamining_recblr_torch.models import get_model
-from datamining_recblr_torch.ops.topk import topk_scores
+from datamining_recblr_torch.ops.topk import sharded_topk, topk_scores
+from datamining_recblr_torch.parallel.sharding import shard_model
 from datamining_recblr_torch.train.checkpoint import restore_checkpoint
 
 
 class Recommender:
-    def __init__(self, model, params=None, top_k: int = 10):
+    def __init__(self, model, params=None, top_k: int = 10, mesh=None):
         """``params``: a state_dict to load into ``model`` (None keeps the
-        model's own parameters)."""
+        model's own parameters; a full one on a ``mesh``)."""
         self.model = model
-        if params is not None:
+        self.mesh = mesh
+        if mesh is not None:
+            shard_model(model, mesh, params)
+        elif params is not None:
             model.load_state_dict(params)
         model.eval()
         self.top_k = int(top_k)
@@ -33,11 +43,11 @@ class Recommender:
     @classmethod
     def from_checkpoint(
         cls, checkpoint_path: str, config: Config, n_items: int,
-        max_seq_len: int, top_k: int = 10, device=None,
+        max_seq_len: int, top_k: int = 10, device=None, mesh=None,
     ) -> "Recommender":
         model = get_model(config["model"])(config, n_items, max_seq_len, device=device)
         state = restore_checkpoint(checkpoint_path)
-        return cls(model, state["params"], top_k=top_k)
+        return cls(model, state["params"], top_k=top_k, mesh=mesh)
 
     def recommend(self, sequences, exclude_history: bool = True):
         """sequences: list of per-user item-id lists (most recent last).
@@ -58,11 +68,15 @@ class Recommender:
             if exclude_history and len(items):
                 hist[i, np.asarray(items, np.int64)] = True
         dev = model.device
+        lo, hi = model.score_cols()
         with torch.inference_mode():
             scores = model.full_sort_scores(
                 torch.from_numpy(seq).to(dev), torch.from_numpy(lens).to(dev)
             )
-            history = torch.from_numpy(hist[:, : scores.shape[-1]]).to(dev)
-            scores = mask_scores(scores, history=history)
-            vals, ids = topk_scores(scores, self.top_k)
+            history = torch.from_numpy(hist[:, lo:hi]).to(dev)
+            scores = mask_scores(scores, history=history, col0=lo)
+            if model.score_mesh() is not None:
+                vals, ids = sharded_topk(scores, self.top_k, model.score_mesh(), lo)
+            else:
+                vals, ids = topk_scores(scores, self.top_k)
         return ids.to(torch.int32).cpu().numpy(), vals.cpu().numpy()

@@ -21,12 +21,18 @@ def _to_cpu(tree):
     return tree
 
 
+def checkpoint_file(path: str) -> str:
+    """The file ``save_checkpoint(path, ...)`` writes: ``path`` + ``.pt``,
+    absolute."""
+    path = os.path.abspath(path)
+    return path if path.endswith(".pt") else path + ".pt"
+
+
 def save_checkpoint(path: str, state: dict) -> str:
     """Save ``{"params": state_dict, "epoch": int, ...}`` (tensors moved
     to the CPU); returns the path written (``path`` + ``.pt``)."""
-    path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    out = path if path.endswith(".pt") else path + ".pt"
+    out = checkpoint_file(path)
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     torch.save(_to_cpu(state), out)
     return out
 

@@ -18,6 +18,14 @@ BPR, and a ``torch.profiler`` trace of one epoch (``profile_dir``).
 * The JAX trainer's epoch-scan super-steps and host-batch streaming
   exist only for a remote TPU's dispatch latency and are left out; the
   semantics above are theirs.
+* With ``mesh_shape`` (``{data: D, model: M}``, one process per rank,
+  ``torch.distributed`` initialized) the model goes on the mesh from
+  its full parameters (``parallel/sharding.py``); each step every rank
+  draws the global batch and its negatives and keeps its data index's
+  rows, from the split on its device (``mesh_input: resident``) or from
+  the host (``stream``); the gradients are summed over ``data`` and the
+  loss is the global one.  Rank 0 writes the gathered checkpoint, the
+  file an unmeshed run writes.  A ``seq`` axis is not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from datamining_recblr_torch.data.batching import batch_count
 from datamining_recblr_torch.eval.evaluator import (
@@ -34,7 +43,19 @@ from datamining_recblr_torch.eval.evaluator import (
     format_result,
     history_fn_from_data,
 )
-from datamining_recblr_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from datamining_recblr_torch.parallel.input import process_local_rows, shard_host_batch
+from datamining_recblr_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, make_mesh
+from datamining_recblr_torch.parallel.sharding import (
+    gather_state,
+    shard_model,
+    shard_optimizer_state,
+)
+from datamining_recblr_torch.parallel.steps import train_step
+from datamining_recblr_torch.train.checkpoint import (
+    checkpoint_file,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from datamining_recblr_torch.train.optim import build_optimizer
 from datamining_recblr_torch.utils.logging import MetricsLogger, init_logger
 
@@ -42,19 +63,33 @@ from datamining_recblr_torch.utils.logging import MetricsLogger, init_logger
 class Trainer:
     def __init__(self, config, model, params=None, metrics_logger=None):
         """``params``: a state_dict to start from (e.g.
-        ``interop.params_from_jax``); None keeps the model's own."""
-        if config.get("mesh_shape"):
-            raise NotImplementedError("multi-device training is not ported "
-                                      "(ROADMAP.md queue A item 9)")
+        ``interop.params_from_jax``, or a full one on a mesh); None keeps
+        the model's own."""
         self.config = config
         self.model = model
         self.device = model.device
-        if params is not None:
+        self.mesh = None
+        mesh_shape = config.get("mesh_shape")
+        if mesh_shape:
+            mesh_shape = {str(k): int(v) for k, v in dict(mesh_shape).items()}
+            if mesh_shape.get(SEQ_AXIS, 1) > 1:
+                raise NotImplementedError(
+                    "the seq mesh axis (sequence parallelism) is not ported "
+                    "(ROADMAP.md queue A item 9b)")
+            data = mesh_shape.get(DATA_AXIS, 1)
+            if int(config["train_batch_size"]) % data:
+                raise ValueError(f"train_batch_size {config['train_batch_size']} must divide "
+                                 f"by the data mesh axis ({data})")
+            # a model on such a mesh already (another Trainer's) keeps it
+            self.mesh = (model.mesh if model.mesh is not None
+                         and model.mesh.shape == mesh_shape else make_mesh(mesh_shape, model.device))
+            shard_model(model, self.mesh, params)
+        elif params is not None:
             model.load_state_dict(params)
         self.logger = init_logger()
         self.metrics = metrics_logger or MetricsLogger(config.get("metrics_file"))
         self.optimizer = build_optimizer(config, model.parameters())
-        self.evaluator = Evaluator(model, config)
+        self.evaluator = Evaluator(model, config, mesh=self.mesh)
 
         self.batch_size = int(config["train_batch_size"])
         self.valid_metric = str(config["valid_metric"]).lower()
@@ -74,20 +109,47 @@ class Trainer:
         return score > self.best_score if self.bigger else score < self.best_score
 
     def _checkpoint_state(self, epoch):
+        """The checkpoint's content; on a mesh the gathered state (a
+        collective)."""
+        if self.mesh is None:
+            params, opt_state = self.model.state_dict(), self.optimizer.state_dict()
+        else:
+            params, opt_state = gather_state(self.model, self.optimizer)
         return {
-            "params": self.model.state_dict(),
-            "opt_state": self.optimizer.state_dict(),
+            "params": params,
+            "opt_state": opt_state,
             "epoch": epoch,
             "best_score": float(self.best_score),
             "best_epoch": self.best_epoch,
         }
 
+    def _save(self, path, epoch) -> str:
+        """Write the checkpoint of ``epoch`` (on a mesh rank 0 writes, the
+        others wait for it); returns its file."""
+        state = self._checkpoint_state(epoch)
+        if self.mesh is None:
+            return save_checkpoint(path, state)
+        if dist.get_rank() == 0:
+            save_checkpoint(path, state)
+        dist.barrier()
+        return checkpoint_file(path)
+
+    def _load_params(self, params):
+        """Load a full state dict (a checkpoint's) into the model."""
+        if self.mesh is None:
+            self.model.load_state_dict(params)
+        else:
+            shard_model(self.model, self.mesh, params)
+
     def resume_from(self, path):
         """Restore params, optimizer and progress from a checkpoint and
         continue training at the following epoch."""
         state = restore_checkpoint(path)
-        self.model.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        self._load_params(state["params"])
+        opt_state = state["opt_state"]
+        if self.mesh is not None:
+            opt_state = shard_optimizer_state(self.model, opt_state)
+        self.optimizer.load_state_dict(opt_state)
         self.start_epoch = int(state["epoch"]) + 1
         self.best_score = float(state["best_score"])
         self.best_epoch = int(state["best_epoch"])
@@ -134,14 +196,9 @@ class Trainer:
                 "weight": weight}
 
     def train_step(self, batch, step):
-        """One forward, backward and Adam update; returns the loss as a
-        device scalar."""
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model.calculate_loss(batch, step=step)
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+        """One forward, backward and Adam update (``batch`` this rank's
+        rows on a mesh); returns the global loss as a device scalar."""
+        return train_step(self.model, self.optimizer, batch, step, self.mesh)
 
     def fit(self, data, valid_split=None, checkpoint_path=None):
         """data: SeqData (train on data.train, validate on data.valid
@@ -155,7 +212,13 @@ class Trainer:
         n = len(train)
         steps_per_epoch = batch_count(n, self.batch_size)
         seed = int(self.config["seed"])
-        dev_data = self.device_split(train)
+        mesh_input = str(self.config.get("mesh_input", "resident"))
+        if self.mesh is not None and mesh_input not in ("resident", "stream"):
+            raise ValueError(f"mesh_input must be resident|stream, got {mesh_input!r}")
+        stream = self.mesh is not None and mesh_input == "stream"
+        # this rank's rows of every global batch (all of them off a mesh)
+        lo, hi = process_local_rows(self.batch_size, self.mesh)
+        dev_data = None if stream else self.device_split(train)
         if checkpoint_path is None:
             checkpoint_path = (f"{self.config['checkpoint_dir']}/"
                                f"{self.config['model']}-{self.config.get('dataset') or 'data'}")
@@ -175,11 +238,17 @@ class Trainer:
                 if pad:
                     chunk = np.concatenate([chunk, np.zeros(pad, np.int64)])
                     weight[self.batch_size - pad :] = 0.0
-                idx = torch.from_numpy(chunk.astype(np.int64)).to(self.device)
-                batch = self.gather_batch(dev_data, idx,
-                                          torch.from_numpy(weight).to(self.device))
-                if use_bpr:
-                    neg = self.negatives(host_rng, train.pos_item[chunk])
+                rows = chunk[lo:hi]
+                if stream:
+                    batch = shard_host_batch(
+                        {"item_seq": train.windows(rows), "item_seq_len": train.item_seq_len[rows],
+                         "pos_item": train.pos_item[rows], "weight": weight[lo:hi]}, self.mesh)
+                else:
+                    idx = torch.from_numpy(rows.astype(np.int64)).to(self.device)
+                    batch = self.gather_batch(dev_data, idx,
+                                              torch.from_numpy(weight[lo:hi]).to(self.device))
+                if use_bpr:  # drawn for the global batch
+                    neg = self.negatives(host_rng, train.pos_item[chunk])[lo:hi]
                     batch["neg_item"] = torch.from_numpy(neg).to(self.device)
                 losses.append(self.train_step(batch, global_step))
                 global_step += 1
@@ -208,8 +277,7 @@ class Trainer:
                     self.best_epoch = epoch
                     self.best_result = result
                     cur_step = 0
-                    self.ckpt_path = save_checkpoint(checkpoint_path,
-                                                     self._checkpoint_state(epoch))
+                    self.ckpt_path = self._save(checkpoint_path, epoch)
                     line += " *best*"
                 else:
                     cur_step += 1
@@ -223,8 +291,7 @@ class Trainer:
 
         if valid is None or not len(valid):
             # no validation: keep the final params as "best"
-            self.ckpt_path = save_checkpoint(checkpoint_path,
-                                             self._checkpoint_state(self.epochs - 1))
+            self.ckpt_path = self._save(checkpoint_path, self.epochs - 1)
         self.metrics.log(
             "fit_done", best_epoch=self.best_epoch,
             best_score=float(self.best_score) if np.isfinite(self.best_score) else None,
@@ -262,7 +329,7 @@ class Trainer:
         current = None
         if load_best and self.ckpt_path:
             current = {k: v.clone() for k, v in self.model.state_dict().items()}
-            self.model.load_state_dict(restore_checkpoint(self.ckpt_path)["params"])
+            self._load_params(restore_checkpoint(self.ckpt_path)["params"])
         try:
             result = self.evaluator.evaluate(split, history_fn)
         finally:

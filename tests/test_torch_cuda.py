@@ -2274,12 +2274,12 @@ def test_heads_wider_than_256_train_and_serve_on_the_card(dev, name):
 
 @pytest.mark.parametrize("name", ["RecBLR", "BERT4Rec"])
 def test_bpr_gathers_take_the_table_gradient_kernel(dev, name, monkeypatch):
-    """The BPR scores' gathers (``ops/embedding.py:gather_rows``): on the
-    card their table gradient is ``embedding_grad``'s, the same values as
-    the plain gather's backward (fp32 sums in another order), one launch
-    for the table and, in BERT4Rec, one for the output bias."""
+    """The BPR scores' gathers (``ops/embedding.py:gather_rows``, through
+    ``SequentialModel.rows_of``): on the card their table gradient is
+    ``embedding_grad``'s, the same values as the plain gather's backward
+    (fp32 sums in another order), one launch for the table and, in
+    BERT4Rec, one for the output bias."""
     from datamining_recblr_torch.models import base as MB
-    from datamining_recblr_torch.models import bert4rec as MB4
     from datamining_recblr_torch.ops import embedding as E
 
     cfg = Config(model=name, config_dict={"hidden_size": 32, "MAX_ITEM_LIST_LENGTH": 20,
@@ -2298,9 +2298,9 @@ def test_bpr_gathers_take_the_table_gradient_kernel(dev, name, monkeypatch):
     assert E.embedding_grad.launches == (1 if name == "RecBLR" else 2)
     got = {k: p.grad.clone() for k, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    for mod in (MB, MB4):
-        monkeypatch.setattr(mod, "gather_rows", lambda t, i: t[i])
+    monkeypatch.setattr(MB, "gather_rows", lambda t, i: t[i])
     model.calculate_loss(batch, step=1).backward()
+    assert E.embedding_grad.launches == (1 if name == "RecBLR" else 2)  # none more
     for k, p in model.named_parameters():
         want = p.grad
         assert float((got[k] - want).abs().max()) <= 1e-5 * max(float(want.abs().max()), 1e-3), k

@@ -100,8 +100,13 @@ def test_run_experiment_matches_jax(small, tmp_path):
     assert got["environment"]["backend"] == "cpu"
 
 
-def test_multihost_is_not_ported(small):
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
+def test_multihost_is_not_ported(small, monkeypatch):
+    """Multi-host runs are ported now: without a launcher's environment
+    the process group cannot form, and the run raises rather than going
+    on as one process."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="RANK"):
         run_experiment(Config(model="RecBLR", config_dict={"multihost": True}), device="cpu")
 
 

@@ -65,6 +65,12 @@ MODULES = [
     "datamining_recblr_torch.run_bert4rec",
     "datamining_recblr_torch.compare_plots",
     "datamining_recblr_torch.trim",
+    "datamining_recblr_torch.parallel",
+    "datamining_recblr_torch.parallel.mesh",
+    "datamining_recblr_torch.parallel.sharding",
+    "datamining_recblr_torch.parallel.input",
+    "datamining_recblr_torch.parallel.collectives",
+    "datamining_recblr_torch.parallel.steps",
 ]
 FORBIDDEN = ("jax", "jaxlib", "datamining_recblr_tpu", "pandas", "yaml", "sklearn")
 
