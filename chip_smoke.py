@@ -3671,18 +3671,18 @@ def dropout_ln_mask_bits(dev):
     check(flips == 0, f"row 5 m0: {flips} mask bits differ from the plain Philox mask")
 
 
-def scan_kernels_vs_plain(dev):
-    """Row 7 at the wide path's shape (B 2,048, T 200, C 256) and at C 200:
-    the forward and the reverse mode against the serial scans (fp32, atol
-    and rtol 1e-4), and the gradients of ``linear_scan`` (the reverse kernel
-    on shift_left(gates)) against autograd of the serial scan.  Returns the
-    largest |kernel - plain| of each."""
+def scan_kernels_vs_plain(dev, shapes=((TRAIN_B, T, WIDE_C), (TRAIN_B, T, 200))):
+    """Row 7 at ``shapes`` (by default the wide path's, B 2,048, T 200, C
+    256, and C 200): the forward and the reverse mode against the serial
+    scans (fp32, atol and rtol 1e-4), and the gradients of ``linear_scan``
+    (the reverse kernel on shift_left(gates)) against autograd of the
+    serial scan.  Returns the largest |kernel - plain| of each."""
     gen = torch.Generator().manual_seed(SEED + 32)
     errs = {}
-    for c in (WIDE_C, 200):
-        g = (0.3 + 0.699 * torch.rand((TRAIN_B, T, c), generator=gen)).to(dev)
-        x = torch.randn((TRAIN_B, T, c), generator=gen).to(dev)
-        dh = torch.randn((TRAIN_B, T, c), generator=gen).to(dev)
+    for b, t, c in shapes:
+        g = (0.3 + 0.699 * torch.rand((b, t, c), generator=gen)).to(dev)
+        x = torch.randn((b, t, c), generator=gen).to(dev)
+        dh = torch.randn((b, t, c), generator=gen).to(dev)
         h = SC.linear_scan(g, x)
         r = SC.linear_scan_reverse(g, x)
         gl, xl = g.clone().requires_grad_(), x.clone().requires_grad_()
@@ -3697,7 +3697,7 @@ def scan_kernels_vs_plain(dev):
         ok = (torch.allclose(h, wh, **FP32_TOL) and torch.allclose(r, wr, **FP32_TOL)
               and all(o for _, o in rows.values()))
         phase("scan-kernel-vs-plain", kernel="linear_scan, linear_scan_reverse",
-              dtype="float32", shape=f"B{TRAIN_B}xT{T}xC{c}",
+              dtype="float32", shape=f"B{b}xT{t}xC{c}",
               fwd_max_abs_err=f"{_max_err([(h, wh)]):.3e}",
               reverse_max_abs_err=f"{_max_err([(r, wr)]):.3e}",
               grad_rel_err=repr({k: float(f"{e:.3e}") for k, (e, _) in rows.items()}),
@@ -4676,8 +4676,21 @@ MESH_PARAM_SHARE = {"float32": 1e-3, "bfloat16": 1e-2}
 MESH_FIT = {"n_users": 600, "min_len": 5, "max_len": 40, "epochs": 2, "eval_batch_size": 1024}
 
 
+def _spec(case):
+    return MESH_CASES[case] if case in MESH_CASES else SEQ_CASES[case]
+
+
+def _per_op(model):
+    """RecBLR ``model`` held to the per-op composition a ``seq`` axis runs
+    (``_gated_recurrent``, row 7 in each layer) at any shape: there an
+    empty request reads position T-1, where the fused kernels select
+    nothing."""
+    model.use_fused_layer = model.use_chunked_layer = model.use_fused_bdlru = lambda: False
+    return model
+
+
 def _mesh_config(case, meshed):
-    spec = MESH_CASES[case]
+    spec = _spec(case)
     extra = dict(spec["cfg"])
     if spec["model"] == "RecBLR":
         extra.setdefault("dropout_prob", 0.0)
@@ -4686,7 +4699,7 @@ def _mesh_config(case, meshed):
     if spec["t"] == XT:
         extra.update(MAX_ITEM_LIST_LENGTH=XT, hidden_size=D, num_layers=2, expand=2, d_conv=K)
     if meshed:
-        extra["mesh_shape"] = MESH
+        extra["mesh_shape"] = spec.get("mesh", MESH)
     return _train_config(spec["model"], extra.pop("compute_dtype", "float32"), **extra)
 
 
@@ -4697,7 +4710,7 @@ def _mesh_batches(case):
     drawn uniformly."""
     from datamining_recblr_torch.data.synthetic import synthetic_splits
 
-    spec = MESH_CASES[case]
+    spec = _spec(case)
     t, v, b = spec["t"], spec["v"], spec["b"]
     n = b * spec["steps"] if t == XT else max(b * spec["steps"], 8 * MESH_UNI_ROWS)
     train, valid = synthetic_splits(6040 if t == T else 5000, v, t, n, seed=SEED)
@@ -4764,7 +4777,7 @@ def _full_grads(model):
     return out
 
 
-def _mesh_drive(dev, case, meshed, params=None):
+def _mesh_drive(dev, case, meshed, params=None, per_op=False):
     """One case in this process (a rank of the mesh, or the single-process
     reference): the steps' losses, the first step's gradients
     (``_full_grads``), the parameters before (reference) and after the
@@ -4775,16 +4788,21 @@ def _mesh_drive(dev, case, meshed, params=None):
     parameters) where given, so the checks hold the meshed evaluation and
     serving to the single process's on the same parameters.  A rank of
     the XLong case then holds row 16 against its plain version at its
-    shard and on its rows' ids (``emb_grad_check``), uncounted."""
+    shard and on its rows' ids (``emb_grad_check``), uncounted; a seq
+    rank of it at the whole table on its time chunk's ids.  With
+    ``per_op`` the single process runs the seq axis's composition
+    (``_per_op``)."""
     from datamining_recblr_torch.eval.evaluator import Evaluator
-    from datamining_recblr_torch.parallel.input import process_local_rows
+    from datamining_recblr_torch.parallel.input import process_local_rows, seq_chunk
     from datamining_recblr_torch.parallel.sharding import gather_state
     from datamining_recblr_torch.train.trainer import Trainer
 
-    spec = MESH_CASES[case]
+    spec = _spec(case)
     cfg = _mesh_config(case, meshed)
     model = get_model(spec["model"])(cfg, spec["v"], spec["t"], device=dev,
                                      generator=torch.Generator().manual_seed(SEED))
+    if per_op:
+        _per_op(model)
     trainer = Trainer(cfg, model)
     mesh = trainer.mesh
     batches, valid = _mesh_batches(case)
@@ -4828,15 +4846,19 @@ def _mesh_drive(dev, case, meshed, params=None):
         # the lookup's input to row 16 on this rank (models/base.py
         # sharded_rows): the ids it holds as local rows, the others at
         # local row 0 with a zero cotangent
-        ids = torch.from_numpy(batches[0]["item_seq"][lo:hi]).to(dev).long()
-        row0, row1 = model.shards["item_embedding"]
+        ids = batches[0]["item_seq"][lo:hi]
+        if model.seq_shards() > 1:
+            ids = ids[:, slice(*seq_chunk(spec["t"], mesh))]
+        ids = torch.from_numpy(np.ascontiguousarray(ids)).to(dev).long()
+        row0, row1 = model.shards.get("item_embedding", (0, model.item_embedding.shape[0]))
         local = ids - row0
         own = (local >= 0) & (local < row1 - row0)
         gen = torch.Generator().manual_seed(SEED + 21 + dist_rank())
         g = torch.randn((*ids.shape, D), generator=gen).to(dev, torch.bfloat16)
         g = torch.where(own[..., None], g, torch.zeros((), device=dev, dtype=g.dtype))
+        tag = "mesh" if case in MESH_CASES else case
         out["emb_grad_err"] = emb_grad_check(
-            f"mesh-emb-grad-kernel-vs-plain-rank{dist_rank()}",
+            f"{tag}-emb-grad-kernel-vs-plain-rank{dist_rank()}",
             torch.where(own, local, torch.zeros_like(local)), g, row1 - row0)
         out["emb_grad_own_share"] = float(own.float().mean())
     return out
@@ -5050,73 +5072,13 @@ def mesh_phases(dev, smi):
         dtype = cfg["compute_dtype"]
         ref = _mesh_drive(dev, case, meshed=False, params=ranks[0][case]["params"])
         got = [r[case] for r in ranks]
-        err = max(_rel(a, b) for g in got for a, b in zip(g["losses"], ref["losses"]))
-        launches = [g["launches"] for g in got]
-        want = {fn.__name__: spec["steps"] * a + b
-                for fn, a, b in zip(spec["counted"], spec["per_step"], spec["after"])}
-        grad_errs, worst_grad = _grad_errs(got[0]["grads"], ref["grads"], MESH_GRAD_TOL[dtype])
-        shares, worst_share = _param_shares(got[0]["params"], ref["params"], ref["init"],
-                                            ref["lr"])
-        extra = {"grad_err_max": f"{grad_errs[worst_grad]:.3e}", "grad_err_worst": worst_grad,
-                 "grad_tol": MESH_GRAD_TOL[dtype],
-                 "param_update_share_off": f"{shares[worst_share]:.3e}",
-                 "param_worst": worst_share, "param_share_tol": MESH_PARAM_SHARE[dtype]}
-        check(set(got[0]["grads"]) == set(ref["grads"]) and grad_errs[worst_grad] <= 1.0,
-              f"mesh-{case}: first-step gradients off the single process's: {grad_errs}")
-        check(shares[worst_share] <= MESH_PARAM_SHARE[dtype],
-              f"mesh-{case}: parameters after the steps off the single process's: {shares}")
-        if "emb-grad" in spec["check"]:
-            extra.update(emb_grad_err=repr([f"{g['emb_grad_err']:.3e}" for g in got]),
-                         emb_grad_own_share=repr([round(g["emb_grad_own_share"], 3)
-                                                  for g in got]))
-        if "eval" in spec["check"]:
-            # the reference ranks the global batch; rank r holds rows of its data index
-            full_ranks, full_scores = ref["ranks"], ref["scores"]
-            half = MESH_EVAL_B // 2
-            diff_ranks = diff_bits = 0
-            score_err = 0.0
-            for r, g in enumerate(got):
-                d, m = divmod(r, 2)
-                rows = slice(d * half, (d + 1) * half)
-                lo, hi = g["shards"]["item_embedding"]
-                mine = full_scores[rows, lo:hi]  # the reference pads no column
-                theirs = g["scores"][:, :mine.shape[1]]
-                diff_ranks += int((g["ranks"] != full_ranks[rows]).sum())
-                diff_bits += int((theirs.view(torch.int32) != mine.view(torch.int32)).sum())
-                fin = torch.isfinite(mine)
-                score_err = max(score_err, float((theirs - mine)[fin].abs().max()))
-            extra.update(eval_rows=MESH_EVAL_B, ranks_differing=diff_ranks,
-                         score_bits_differing=diff_bits, score_abs_err_max=f"{score_err:.3e}")
-            check(diff_ranks == 0, f"mesh-{case}: {diff_ranks} full-sort ranks differ from the "
-                  f"single-process ranks ({diff_bits} score bits differ, max {score_err:.3e})")
-        if "serve" in spec["check"]:
-            diff_ids = sum(int((g["ids"] != ref["ids"]).sum()) for g in got)
-            val_err = max(float(np.abs(g["vals"] - ref["vals"]).max()) for g in got)
-            extra.update(users=MESH_USERS, top_k=TOP_K, ids_differing=diff_ids,
-                         topk_value_abs_err=f"{val_err:.3e}")
-            check(diff_ids == 0, f"mesh-{case}: {diff_ids} recommended ids differ from the "
-                  "single-process recommend()")
-        if "sampled" in spec["check"]:
-            s_err = max(abs(g["sampled"][k] - v) for g in got for k, v in ref["sampled"].items())
-            extra.update(uni100=repr({k: round(v, 4) for k, v in sorted(ref["sampled"].items())}),
-                         uni100_abs_err_max=f"{s_err:.3e}")
-            check(s_err <= 1e-5, f"mesh-{case}: uni100 metrics differ by {s_err}")
+        fields, checks, launches = _compare(f"mesh-{case}", spec, got, ref, dtype)
         phase(f"mesh-gloo-{case}", mesh=repr(MESH), backend="gloo", ranks=4,
               model=spec["model"], dtype=dtype, batch=spec["b"], T=spec["t"], V=spec["v"],
               vocab_row_shard=cfg.get("vocab_row_shard", "auto"),
-              shards=repr([g["shards"] for g in got[:2]]),
-              losses=repr([f"{x:.7f}" for x in got[0]["losses"]]),
-              single_losses=repr([f"{x:.7f}" for x in ref["losses"]]),
-              loss_rel_err_max=f"{err:.3e}", loss_tol=MESH_LOSS_RTOL[dtype],
-              launches_per_rank=repr(launches[0]), wall_s_time_shared_on_one_card=repr(
-                  [round(g["wall_s"], 2) for g in got]),
-              single_wall_s=f"{ref['wall_s']:.2f}", **extra)
-        check(all(g["losses"] == got[0]["losses"] for g in got),
-              f"mesh-{case}: the ranks report different losses")
-        check(err <= MESH_LOSS_RTOL[dtype], f"mesh-{case}: losses {got[0]['losses']} against "
-              f"the single-process {ref['losses']}")
-        check(all(x == want for x in launches), f"mesh-{case}: launches {launches}, "
-              f"expected {want} a rank")
+              shards=repr([g["shards"] for g in got[:2]]), **fields)
+        for ok, msg in checks:
+            check(ok, msg)
         check(bool(got[0]["shards"]) == spec["sharded"], f"mesh-{case}: shards {got[0]['shards']}")
         gloo[case] = {"launches": launches[0], "wall_s": [g["wall_s"] for g in got]}
     with tempfile.TemporaryDirectory() as tmp:
@@ -5151,6 +5113,262 @@ def mesh_phases(dev, smi):
     phase("mesh-summary", spawn_s=f"{spawn_s:.1f}", card=repr(smi),
           note="four ranks time-share one card: no time here is a multi-GPU time")
     return {"nccl": nccl, "gloo": gloo}
+
+
+# ---------------------------------------------------------------------------
+# the seq axis (ops/seq_parallel_scan.py, RecBLR's time axis sharded over
+# ranks): four gloo ranks sharing the card, after the meshed path
+# ---------------------------------------------------------------------------
+
+SEQ_SCAN = (XB, XT, C)  # XLong's recurrence: B 512, T 1,024, C 128, fp32
+SEQ_RANKS = 4
+# row 7 launches a layer a step: two local scans forward, their two
+# reverse scans backward (and two scans a layer a forward without grad)
+SEQ_COUNTED = (SC.linear_scan, SC.linear_scan_reverse)
+# each case on the mesh ``mesh`` against the same config in one process
+# from the same seed on the same batches (``_mesh_drive``), twice: in the
+# seq axis's per-op composition (``_per_op``; row 7, and XLong's rows 14
+# and 16), every check, and on the model's own kernels (the bench widths
+# rows 1-4, XLong rows 9, 3, 14 and 16), the steps: the bench widths on
+# {data: 2, seq: 2} and XLong's own config on {seq: 4}
+SEQ_CASES = {
+    "seq-recblr": dict(
+        model="RecBLR", mesh={"data": 2, "seq": 2}, cfg={}, t=T, v=N_ITEMS, b=TRAIN_B,
+        steps=MESH_STEPS, counted=SEQ_COUNTED, per_step=(4, 4), after=(8, 0),
+        check=("eval", "serve")),
+    "seq-xlong": dict(
+        model="RecBLR", mesh={"seq": SEQ_RANKS},
+        cfg={"compute_dtype": "bfloat16", "train_batch_size": XB, "dropout_prob": DROPOUT},
+        t=XT, v=XV, b=XB, steps=1,
+        counted=SEQ_COUNTED + (FCE.fused_softmax_ce_chunked, FCE.fused_softmax_ce_chunked_bwd,
+                               E.embedding_grad),
+        per_step=(4, 4, 1, 1, 1), after=(0,) * 5, check=("emb-grad",)),
+}
+
+
+def _seq_scan_rank(dev):
+    """(a) on this rank of {seq: 4}: ``seq_parallel_scan`` of its [512, 256,
+    128] chunk of XLong's recurrence (gates in [0.3, 0.999), fp32) and its
+    backward against a random cotangent, its row 7 launches and wall
+    seconds; then, uncounted, the whole T = 1,024 in this process through
+    one ``linear_scan`` and through the serial plain scan, and the
+    chunk's errors against each: the forward's max |err|, each
+    gradient's max |err| over the reference's largest value."""
+    from datamining_recblr_torch.ops.seq_parallel_scan import seq_parallel_scan
+    from datamining_recblr_torch.parallel.input import seq_chunk
+    from datamining_recblr_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"seq": SEQ_RANKS}, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    g = 0.3 + 0.699 * torch.rand(SEQ_SCAN, generator=gen, device=dev)
+    x = torch.randn(SEQ_SCAN, generator=gen, device=dev)
+    dh = torch.randn(SEQ_SCAN, generator=gen, device=dev)
+    t0, t1 = seq_chunk(SEQ_SCAN[1], mesh)
+    gl = g[:, t0:t1].contiguous().requires_grad_()
+    xl = x[:, t0:t1].contiguous().requires_grad_()
+    for fn in SEQ_COUNTED:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    h = seq_parallel_scan(gl, xl, mesh)
+    h.backward(dh[:, t0:t1])
+    torch.cuda.synchronize()
+    out = {"wall_s": time.perf_counter() - w0, "chunk": (t0, t1),
+           "launches": {fn.__name__: fn.launches for fn in SEQ_COUNTED}}
+    for name, scan in (("whole", SC.linear_scan), ("plain", SC.linear_scan_serial)):
+        gw, xw = g.clone().requires_grad_(), x.clone().requires_grad_()
+        hw = scan(gw, xw)
+        hw.backward(dh)
+        out[name] = {
+            "fwd": float((h.detach() - hw.detach()[:, t0:t1]).abs().max()),
+            "d_gates": float((gl.grad - gw.grad[:, t0:t1]).abs().max() / gw.grad.abs().max()),
+            "d_tokens": float((xl.grad - xw.grad[:, t0:t1]).abs().max() / xw.grad.abs().max())}
+        del gw, xw, hw
+    return out
+
+
+def _seq_rank(rank, world, port, out_dir, device):
+    """One rank of the four-rank run of ``seq_phases`` on ``device``: (a),
+    then each ``SEQ_CASES`` case, its results saved for the parent."""
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        out = {"seq-scan": _seq_scan_rank(dev)}
+        for case in SEQ_CASES:
+            out[case] = _mesh_drive(dev, case, meshed=True)
+            if rank:  # the gathered tensors are the same on every rank
+                out[case].pop("grads")
+                out[case].pop("params")
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def seq_phases(dev, smi):
+    """The ``seq`` axis on the one card, four gloo ranks sharing it: row 7
+    against its plain version at the chunk shape [512, 256, 128]; (a)
+    ``seq-scan``, ``seq_parallel_scan`` on {seq: 4} at XLong's recurrence
+    against one process (``_seq_scan_rank``); (b) ``seq-recblr``, RecBLR
+    at the bench widths on {data: 2, seq: 2} for ``MESH_STEPS`` steps,
+    one eval batch's full-sort ranks and 256 users' ``recommend`` ids; (c)
+    ``seq-xlong``, XLong's config on {seq: 4} for one step with row 16 at
+    each rank's ids.  (b) and (c) are held to one process in the seq
+    axis's composition by ``_compare`` (every check) and to one process
+    on the model's own kernels by ``_steps_vs_single`` (the losses and the
+    gradients held, the update share read).  No time here is a multi-GPU
+    time.  Returns {"errs": row 7's errors at the chunk shape,
+    "launches": {phase: {kernel: launches a rank}}}."""
+    import gc
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    errs = scan_kernels_vs_plain(dev, shapes=((XB, XT // SEQ_RANKS, C),))
+    _cuda.build()  # the ranks load the built libraries
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_seq_rank, args=(SEQ_RANKS, _free_port(), tmp, str(dev)), nprocs=SEQ_RANKS,
+                 join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(SEQ_RANKS)]
+    scans = [r["seq-scan"] for r in ranks]
+    tol = MESH_GRAD_TOL["float32"]
+    worst = {ref: {k: max(sc[ref][k] for sc in scans) for k in ("fwd", "d_gates", "d_tokens")}
+             for ref in ("whole", "plain")}
+    phase("seq-scan", mesh=repr({"seq": SEQ_RANKS}), backend="gloo", ranks=SEQ_RANKS,
+          card=repr(smi), shape=f"B{SEQ_SCAN[0]}xT{SEQ_SCAN[1]}xC{SEQ_SCAN[2]}",
+          chunks=repr([sc["chunk"] for sc in scans]),
+          launches_per_rank=repr([sc["launches"] for sc in scans]),
+          vs_one_linear_scan=repr({k: f"{v:.3e}" for k, v in worst["whole"].items()}),
+          vs_serial_plain=repr({k: f"{v:.3e}" for k, v in worst["plain"].items()}),
+          tol=f"fwd atol {FP32_TOL['atol']}; grads max|err|/max|ref| <= {tol}",
+          wall_s_time_shared_on_one_card=repr([round(sc["wall_s"], 3) for sc in scans]))
+    for ref, e in worst.items():
+        check(e["fwd"] <= FP32_TOL["atol"] and e["d_gates"] <= tol and e["d_tokens"] <= tol,
+              f"seq-scan: the chunks off the {ref} scan: {e}")
+    check(all(sc["launches"] == {"linear_scan": 2, "linear_scan_reverse": 2} for sc in scans),
+          f"seq-scan: launches {[sc['launches'] for sc in scans]}, expected 2 and 2 a rank")
+    launches = {"seq-scan": scans[0]["launches"]}
+    for case, spec in SEQ_CASES.items():
+        cfg = _mesh_config(case, False)
+        dtype = cfg["compute_dtype"]
+        got = [r[case] for r in ranks]
+        ref = _mesh_drive(dev, case, meshed=False, params=ranks[0][case]["params"],
+                          per_op=True)
+        fields, checks, case_launches = _compare(case, spec, got, ref, dtype)
+        own_fields, own_checks = _steps_vs_single(f"{case} (own path)", got,
+                                                  _mesh_drive(dev, case, meshed=False),
+                                                  dtype, prefix="own_path_")
+        phase(case, mesh=repr(spec["mesh"]), backend="gloo", ranks=SEQ_RANKS,
+              model=spec["model"], dtype=dtype, batch=spec["b"], T=spec["t"], V=spec["v"],
+              p=cfg["dropout_prob"], **fields, **own_fields)
+        # against the model's own kernels the steps hold to the loss and
+        # gradient tolerances; the update share is read, not held (a bf16
+        # per-op composition and the fused kernels round apart, and one
+        # Adam sign flip is 1/64 of an LN scale)
+        for ok, msg in checks + own_checks[:2]:
+            check(ok, msg)
+        launches[case] = case_launches[0]
+    phase("seq-summary", spawn_s=f"{spawn_s:.1f}", card=repr(smi),
+          note="four ranks time-share one card: no time here is a multi-GPU time")
+    return {"errs": errs, "launches": launches}
+
+
+def _steps_vs_single(name, got, ref, dtype, prefix=""):
+    """The steps of a four-rank case (``got``, by rank) against a single
+    process (``ref``): (fields, checks): the losses (equal on every rank,
+    within ``MESH_LOSS_RTOL``), the first step's gradients within
+    ``MESH_GRAD_TOL`` of the single process's own, and the share of the
+    parameters' entries whose update is off (``MESH_PARAM_SHARE``, the
+    third check); ``prefix`` the fields' and the messages' tag."""
+    err = max(_rel(a, b) for g in got for a, b in zip(g["losses"], ref["losses"]))
+    grad_errs, worst_grad = _grad_errs(got[0]["grads"], ref["grads"], MESH_GRAD_TOL[dtype])
+    shares, worst_share = _param_shares(got[0]["params"], ref["params"], ref["init"], ref["lr"])
+    fields = {
+        f"{prefix}single_losses": repr([f"{x:.7f}" for x in ref["losses"]]),
+        f"{prefix}loss_rel_err_max": f"{err:.3e}", f"{prefix}loss_tol": MESH_LOSS_RTOL[dtype],
+        f"{prefix}single_wall_s": f"{ref['wall_s']:.2f}",
+        f"{prefix}grad_err_max": f"{grad_errs[worst_grad]:.3e}",
+        f"{prefix}grad_err_worst": worst_grad, f"{prefix}grad_tol": MESH_GRAD_TOL[dtype],
+        f"{prefix}param_update_share_off": f"{shares[worst_share]:.3e}",
+        f"{prefix}param_worst": worst_share,
+        f"{prefix}param_share_tol": MESH_PARAM_SHARE[dtype]}
+    checks = [
+        (err <= MESH_LOSS_RTOL[dtype],
+         f"{name}: losses {got[0]['losses']} against the single-process {ref['losses']}"),
+        (set(got[0]["grads"]) == set(ref["grads"]) and grad_errs[worst_grad] <= 1.0,
+         f"{name}: first-step gradients off the single process's: {grad_errs}"),
+        (shares[worst_share] <= MESH_PARAM_SHARE[dtype],
+         f"{name}: parameters after the steps off the single process's: {shares}"),
+    ]
+    return fields, checks
+
+
+def _compare(name, spec, got, ref, dtype):
+    """A four-rank case (``got``, by rank) against its single process
+    (``ref``): ``_steps_vs_single``, each rank's launches (the spec's per
+    step and after), and the case's checks: full-sort ranks and
+    ``recommend`` ids equal to the single process's from the meshed run's
+    final parameters, uni100 metrics within 1e-5, row 16 at each rank's
+    ids.  Returns (the phase's fields, the checks, the launches by rank)."""
+    launches = [g["launches"] for g in got]
+    want = {fn.__name__: spec["steps"] * a + b
+            for fn, a, b in zip(spec["counted"], spec["per_step"], spec["after"])}
+    fields, checks = _steps_vs_single(name, got, ref, dtype)
+    fields = {"losses": repr([f"{x:.7f}" for x in got[0]["losses"]]), **fields,
+              "launches_per_rank": repr(launches[0]),
+              "wall_s_time_shared_on_one_card": repr([round(g["wall_s"], 2) for g in got])}
+    checks += [
+        (all(g["losses"] == got[0]["losses"] for g in got),
+         f"{name}: the ranks report different losses"),
+        (all(x == want for x in launches), f"{name}: launches {launches}, expected {want} a rank"),
+    ]
+    if "emb-grad" in spec["check"]:
+        fields.update(emb_grad_err=repr([f"{g['emb_grad_err']:.3e}" for g in got]),
+                      emb_grad_own_share=repr([round(g["emb_grad_own_share"], 3) for g in got]))
+    if "eval" in spec["check"]:
+        # the reference ranks the global batch; rank r holds the rows of its
+        # data index, r // (the ranks a data index)
+        full_ranks, full_scores = ref["ranks"], ref["scores"]
+        data = spec.get("mesh", MESH).get("data", 1)
+        rows_a = MESH_EVAL_B // data
+        diff_ranks = diff_bits = 0
+        score_err = 0.0
+        for r, g in enumerate(got):
+            d = r // (len(got) // data)
+            rows = slice(d * rows_a, (d + 1) * rows_a)
+            lo, hi = g["shards"].get("item_embedding", (0, full_scores.shape[1]))
+            mine = full_scores[rows, lo:hi]  # the reference pads no column
+            theirs = g["scores"][:, :mine.shape[1]]
+            diff_ranks += int((g["ranks"] != full_ranks[rows]).sum())
+            diff_bits += int((theirs.view(torch.int32) != mine.view(torch.int32)).sum())
+            fin = torch.isfinite(mine)
+            score_err = max(score_err, float((theirs - mine)[fin].abs().max()))
+        fields.update(eval_rows=MESH_EVAL_B, ranks_differing=diff_ranks,
+                      score_bits_differing=diff_bits, score_abs_err_max=f"{score_err:.3e}")
+        checks.append((diff_ranks == 0, f"{name}: {diff_ranks} full-sort ranks differ from the "
+                       f"single-process ranks ({diff_bits} score bits differ, max "
+                       f"{score_err:.3e})"))
+    if "serve" in spec["check"]:
+        diff_ids = sum(int((g["ids"] != ref["ids"]).sum()) for g in got)
+        val_err = max(float(np.abs(g["vals"] - ref["vals"]).max()) for g in got)
+        fields.update(users=MESH_USERS, top_k=TOP_K, ids_differing=diff_ids,
+                      topk_value_abs_err=f"{val_err:.3e}")
+        checks.append((diff_ids == 0, f"{name}: {diff_ids} recommended ids differ from the "
+                       "single-process recommend()"))
+    if "sampled" in spec["check"]:
+        s_err = max(abs(g["sampled"][k] - v) for g in got for k, v in ref["sampled"].items())
+        fields.update(uni100=repr({k: round(v, 4) for k, v in sorted(ref["sampled"].items())}),
+                      uni100_abs_err_max=f"{s_err:.3e}")
+        checks.append((s_err <= 1e-5, f"{name}: uni100 metrics differ by {s_err}"))
+    return fields, checks, launches
 
 
 def _grad_errs(got, want, tol, floor=1e-6):
@@ -5223,6 +5441,7 @@ def main():
     experiments = experiment_phases(dev)
     cold = cold_start_phases(dev)
     mesh = mesh_phases(dev, smi)
+    seq = seq_phases(dev, smi)
     kernel_times(dev, p1, p2, lens)
     rows = training_kernel_times(dev)
     attn_kernel_times(dev)
@@ -5383,6 +5602,15 @@ def main():
             runs = {"nccl-world1": nccl_launches[entry["name"]], **runs}
         if runs:
             entry["launches_mesh_per_rank"] = runs
+    # the seq axis's launches a rank: each seq phase that runs the kernel,
+    # and row 7's error at the chunk shape
+    for entry in kernels:
+        runs = {case: out[entry["name"]] for case, out in seq["launches"].items()
+                if entry["name"] in out}
+        if runs:
+            entry["launches_seq_per_rank"] = runs
+        if entry["name"] in seq["errs"]:
+            entry["max_abs_err"] = max(entry["max_abs_err"], seq["errs"][entry["name"]])
     for tag in ("meshed", "unmeshed"):
         train_summary[f"mesh_nccl_world1_{tag}_ms_per_step_fp32"] = (
             f"{mesh['nccl'][tag]['ms']:.3f}")

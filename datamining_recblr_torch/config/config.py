@@ -72,7 +72,8 @@ _GENERAL_DEFAULTS: dict[str, Any] = {
     "prng_impl": "rbg",           # rbg: fast TPU dropout; threefry2x32: portable
 
     "use_pallas_scan": "auto",    # auto | always | never
-    "mesh_shape": None,           # e.g. {"data": 4, "model": 2}; None = single device
+    "mesh_shape": None,           # e.g. {"data": 4, "model": 2} or {"data": 2, "seq": 4}
+                                  # (seq: RecBLR's time axis); None = single device
     "vocab_row_shard": "auto",    # auto (element-count policy) | always | never
     "mesh_input": "resident",     # resident: split replicated on device, index
                                   # vectors per step | stream: host batches per step

@@ -18,9 +18,11 @@ On a mesh (``mesh``, with the model sharded by ``parallel.sharding``)
 each data rank scores rows [d B/D, (d+1) B/D) of every global batch
 (``eval_batch_size`` must divide by ``data``), the candidates still drawn
 for the global batch; a row-sharded table's scores stay sharded over
-``model`` (``target_ranks`` reduces over it), and the metric sums are
-summed over ``data`` at the end, so every rank returns the global
-metrics.
+``model`` (``target_ranks`` reduces over it); the seq ranks of a data
+index each run their time chunk of its rows and hold the same scores;
+and the metric sums are summed over ``data`` alone at the end (a sum
+over ``seq`` would count each row S times), so every rank returns the
+global metrics.
 """
 
 from __future__ import annotations

@@ -27,7 +27,7 @@ from datamining_recblr_torch.parallel.collectives import (
     copy_to_model,
     reduce_from_model,
 )
-from datamining_recblr_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+from datamining_recblr_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
 
 _DTYPES = {
     "float32": torch.float32,
@@ -81,14 +81,19 @@ def weighted_mean(nll, weights=None, mesh=None):
     """The mean of per-row losses, or with weights sum(nll w) / max(sum w,
     1).  On a ``mesh`` the rows are this rank's part of the batch: the
     sum is its own, the count or the weight sum the global one, so the
-    data ranks' results add up to the mean over the global batch."""
+    data ranks' results add up to the mean over the global batch.  The S
+    ranks of a ``seq`` group hold the same rows, and each takes 1/S of
+    their mean (``parallel/collectives.py``: the sum over ``seq`` of the
+    gradients and of the loss counts them once)."""
     if weights is None:
         if mesh is None:
             return nll.mean()
-        return nll.sum() / (nll.numel() * mesh.size(DATA_AXIS))
+        return nll.sum() / (nll.numel() * mesh.size(DATA_AXIS) * mesh.size(SEQ_AXIS))
     w = weights.float()
-    total = w.sum() if mesh is None else all_reduce(w.sum(), mesh, DATA_AXIS)
-    return (nll * w).sum() / total.clamp_min(1.0)
+    if mesh is None:
+        return (nll * w).sum() / w.sum().clamp_min(1.0)
+    total = all_reduce(w.sum(), mesh, DATA_AXIS).clamp_min(1.0) * mesh.size(SEQ_AXIS)
+    return (nll * w).sum() / total
 
 
 def sharded_rows(shard, ids, lo: int, mesh, lookup):
@@ -273,10 +278,14 @@ class SequentialModel(nn.Module):
         the JAX package keeps its XLA CE; the vocab-chunked kernel for a
         larger table once the [rows, V] fp32 logits would take
         ``CHUNK_MIN_LOGITS_BYTES``.  On a mesh only against a replicated
-        table and bias, ``rows`` being this data rank's."""
+        table and bias, ``rows`` being this rank's (a data rank's; under
+        ``seq`` the selected rows, the same on each seq rank).  JAX also
+        keeps its XLA CE on a mesh without a ``data`` axis, where its
+        kernel has no axis to ``shard_map`` over; the port's runs on each
+        rank's rows whatever the axes."""
         if self.device.type != "cuda":
             return False
-        if self.mesh is not None and (self.shards or DATA_AXIS not in self.mesh.shape):
+        if self.mesh is not None and self.shards:
             return False
         if FCE.supports(v, d):
             return rows >= FCE.MIN_ROWS

@@ -58,16 +58,18 @@ def layer_norm(p, x, eps=LN_EPS):
     return (y * p["scale"] + p["bias"]).to(dtype)
 
 
-def dropout(x, rate, seed, mask_id=philox.M0):
+def dropout(x, rate, seed, mask_id=philox.M0, t0: int = 0):
     """Inverted dropout (torch semantics: kept units scaled by 1/(1-p))
     with the Philox mask of (seed, mask_id) over x's [B, T, W] (or
     [B, W]) coordinates, the masks the fused kernels draw
-    (``ops/philox.py``); the identity at rate 0."""
+    (``ops/philox.py``); the identity at rate 0.  ``t0``: the global
+    position of x's first step (a seq rank's time chunk), so a chunk
+    draws the whole sequence's masks at its positions."""
     if not rate:
         return x
     b, w = x.shape[0], x.shape[-1]
     t = x[0].numel() // w if b else 0
-    m = philox.dropout_mask(seed, mask_id, b, t, w, rate, x.device)
+    m = philox.dropout_mask(seed, mask_id, b, t, w, rate, x.device, t0)
     return (x * m.reshape(x.shape)).to(x.dtype)
 
 

@@ -11,9 +11,11 @@ Parameters carry the names and layouts of the JAX ``init_params``
 Dropout (``dropout_prob``) is on in training mode when ``forward`` gets
 the global step: the masks are Philox draws whose seeds are a function
 of (config seed, step, layer) alone (``ops/philox.py:step_seeds``), one
-per layer plus one for the input dropout, as the JAX model draws one
-seed per layer plus one for the prologue (``recblr.py:303-311``); on a
-mesh each is offset by the data index (``SequentialModel.step_seeds``).
+per layer plus one for the prologue, as the JAX model draws them
+(``recblr.py:303-311``); on a mesh each is offset by the data index
+(``SequentialModel.step_seeds``).  The input dropout takes layer 0's
+seed where layer 0's kernel takes the prologue (two layers or more),
+else the prologue's, in every composition, so all draw the same masks.
 
 Two compositions, chosen by configuration as in the JAX package
 (``_use_fused_layer``, ``_use_chunked_layer``, ``recblr.py:204-237``):
@@ -39,6 +41,17 @@ Two compositions, chosen by configuration as in the JAX package
   backward the kernel's reverse mode), and with ``use_pallas_scan:
   never`` the serial plain scan.  On a CPU tensor the kernels' plain
   versions run.
+
+On a mesh with a ``seq`` axis of S > 1 (sequence parallelism, the JAX
+package's ``_seq_shards() > 1``) the unfused composition runs whatever
+the shapes, on this rank's time chunk [t0, t0 + T/S): the causal conv
+takes the K-1 positions before the chunk from the earlier ranks
+(``conv_halo``), the recurrence is ``seq_parallel_scan`` (two local scans
+through ``linear_scan``, row 7 on the card, and a carry exchanged over
+``seq``), the dropout masks are drawn at the chunk's global positions,
+and the top layer reads h, z and the residual at each row's last
+position on the rank that holds it (``select_over_seq``); its tail then
+runs on [B, 1, D], the same on every seq rank.
 """
 
 from __future__ import annotations
@@ -66,6 +79,10 @@ from datamining_recblr_torch.ops.fused_layer_chunked import (
     fused_recurrent_layer_chunked,
 )
 from datamining_recblr_torch.ops.scan import linear_scan, linear_scan_serial
+from datamining_recblr_torch.ops.seq_parallel_scan import seq_parallel_scan
+from datamining_recblr_torch.parallel.collectives import conv_halo, select_over_seq
+from datamining_recblr_torch.parallel.input import seq_chunk
+from datamining_recblr_torch.parallel.mesh import SEQ_AXIS
 
 MAX_WHOLE_T = 512  # the whole-sequence layer kernel's T (recblr.py:204-215)
 MAX_LAST_T = 1024  # the top layer's last-position kernel's T (recblr.py:336)
@@ -91,6 +108,8 @@ def _last_index(lens, t):
 
 
 class RecBLR(SequentialModel):
+    SEQ_PARALLEL = True  # runs with its time axis sharded over ``seq``
+
     def __init__(self, config, n_items, max_seq_len, device=None, generator=None):
         super().__init__(config, n_items, max_seq_len, device=device)
         self.hidden_size = config["hidden_size"]
@@ -145,11 +164,17 @@ class RecBLR(SequentialModel):
         self.layers = nn.ModuleList(layers)
 
     # ------------------------------------------------------------------
+    def seq_shards(self) -> int:
+        """The size of the mesh's ``seq`` axis (1 off a mesh): above 1 the
+        time axis is sharded over it."""
+        return self.mesh.size(SEQ_AXIS) if self.mesh is not None else 1
+
     def use_fused_layer(self) -> bool:
         return (
             self.scan_impl != "xla"
             and supports(self.hidden_size, self.inner_hidden)
             and self.max_seq_len <= MAX_WHOLE_T
+            and self.seq_shards() == 1
         )
 
     def use_chunked_layer(self) -> bool:
@@ -160,12 +185,14 @@ class RecBLR(SequentialModel):
             and supports(self.hidden_size, self.inner_hidden)
             and self.max_seq_len > MAX_WHOLE_T
             and chunk_of(self.max_seq_len, self.d_conv) > 0
+            and self.seq_shards() == 1
         )
 
     def use_fused_bdlru(self) -> bool:
         """Whether the unfused composition runs ``fused_bdlru`` (C <= 128)
         rather than ``linear_scan`` or, with "never", the serial scan."""
-        return self.scan_impl != "xla" and bdlru_supports(self.inner_hidden)
+        return (self.scan_impl != "xla" and bdlru_supports(self.inner_hidden)
+                and self.seq_shards() == 1)
 
     def use_last_layer_kernel(self) -> bool:
         """Whether the top layer of the fused compositions runs
@@ -207,10 +234,21 @@ class RecBLR(SequentialModel):
         }
 
     # ------------------------------------------------------------------
-    def _gated_recurrent(self, p, x, lens=None):
-        """Gated BD-LRU block of the unfused composition.  With ``lens``
-        (top layer) the output projection runs only at each row's last
-        position -> [B, 1, D]."""
+    def _at(self, idx, *vs):
+        """Each [B, T', W] tensor of ``vs`` at row b's position ``idx[b]`` ->
+        [B, 1, W]; under ``seq`` the tensors are this rank's chunk and
+        ``idx`` global, read in one ``select_over_seq``."""
+        if self.seq_shards() > 1:
+            widths = [v.shape[-1] for v in vs]
+            return select_over_seq(torch.cat(vs, dim=-1), idx, self.mesh)[:, None].split(
+                widths, dim=-1)
+        rows = torch.arange(idx.shape[0], device=idx.device)
+        return tuple(v[rows, idx][:, None] for v in vs)
+
+    def _gated_recurrent(self, p, x, last=None):
+        """Gated BD-LRU block of the unfused composition.  With ``last``
+        (top layer: each row's last position, ``_last_index``) the output
+        projection runs only there -> [B, 1, D]."""
         xz = x @ p["w_in"].to(x.dtype)
         xb, z = xz.chunk(2, dim=-1)
         if self.use_fused_bdlru():
@@ -221,9 +259,11 @@ class RecBLR(SequentialModel):
                             f32(p["w_gates"]), f32(p["b_gates"]), f32(p["Lambda"]),
                             not self.disable_conv1d)
         else:
+            seq = self.seq_shards() > 1
             if not self.disable_conv1d:
+                halo = conv_halo(xb, self.d_conv, self.mesh) if seq else None
                 xb = F.silu(causal_depthwise_conv(
-                    xb, p["conv_w"].to(xb.dtype), p["conv_b"].to(xb.dtype)
+                    xb, p["conv_w"].to(xb.dtype), p["conv_b"].to(xb.dtype), halo
                 ))
             # gates and scan in fp32
             xb32 = xb.float()
@@ -231,19 +271,21 @@ class RecBLR(SequentialModel):
             rec, inp = g.chunk(2, dim=-1)
             alpha = torch.exp(-softplus(p["Lambda"].float()) * torch.sigmoid(rec))
             beta = torch.sqrt(1.0 - alpha.square() + 1e-8) * torch.sigmoid(inp)
-            scan = linear_scan if self.scan_impl != "xla" else linear_scan_serial
-            h = scan(alpha.contiguous(), (beta * xb32).contiguous()).to(x.dtype)
-        if lens is not None:
-            rows = torch.arange(x.shape[0], device=x.device)
-            idx = _last_index(lens, x.shape[1])
-            h = h[rows, idx][:, None]
-            z = z[rows, idx][:, None]
+            gates, tokens = alpha.contiguous(), (beta * xb32).contiguous()
+            if seq:
+                h = seq_parallel_scan(gates, tokens, self.mesh, impl=self.scan_impl)
+            else:
+                scan = linear_scan if self.scan_impl != "xla" else linear_scan_serial
+                h = scan(gates, tokens)
+            h = h.to(x.dtype)
+        if last is not None:
+            h, z = self._at(last, h, z)
         return (F.silu(z) * h) @ p["w_out"].to(x.dtype)
 
-    def _ffn(self, p, x, p_drop, seed):
+    def _ffn(self, p, x, p_drop, seed, t0=0):
         y = F.silu(L.dense(p["w1"], x))
-        y = L.dropout(y, p_drop, seed, philox.M2)
-        y = L.dropout(L.dense(p["w2"], y), p_drop, seed, philox.M3)
+        y = L.dropout(y, p_drop, seed, philox.M2, t0)
+        y = L.dropout(L.dense(p["w2"], y), p_drop, seed, philox.M3, t0)
         return L.layer_norm(p["ln"], y + x)
 
     def dropout_seeds(self, step):
@@ -254,7 +296,24 @@ class RecBLR(SequentialModel):
             return 0.0, [0] * n
         return self.dropout_prob, self.step_seeds(step, n)
 
+    def seq_input(self, item_seq):
+        """(this rank's chunk of ``item_seq``, its first global position,
+        the global T) under ``seq``: ``item_seq`` is a full window [B, T]
+        (T = ``max_seq_len``), cut here, or the chunk [B, T/S] already
+        (``parallel.sharding.shard_batch``'s)."""
+        t = self.max_seq_len
+        t0, t1 = seq_chunk(t, self.mesh)
+        if item_seq.shape[1] == t:
+            return item_seq[:, t0:t1], t0, t
+        if item_seq.shape[1] == t1 - t0:
+            return item_seq, t0, t
+        raise ValueError(f"item_seq of width {item_seq.shape[1]} on a seq mesh: expected the "
+                         f"window ({t}) or this rank's chunk of it ({t1 - t0})")
+
     def forward(self, item_seq, item_seq_len, step=None):
+        t0, t = 0, item_seq.shape[1]
+        if self.seq_shards() > 1:
+            item_seq, t0, t = self.seq_input(item_seq)
         x = self.embed(item_seq).to(self.compute_dtype)
         n_layers = len(self.layers)
         p_drop, seeds = self.dropout_seeds(step)
@@ -280,17 +339,22 @@ class RecBLR(SequentialModel):
                 x = layer_fn(x, flat, use_conv, use_ffn, pro, p_drop, seeds[li])
             return L.gather_last(x, item_seq_len)
 
-        x = L.layer_norm(self.input_ln, L.dropout(x, p_drop, seeds[-1]))
+        # the fused compositions' masks: the input dropout under layer 0's
+        # seed where its kernel takes the prologue (two layers or more);
+        # at global positions, t0 on a seq rank's chunk and 0 after the
+        # top layer's selection ([B, 1, D])
+        pro_seed = seeds[0] if n_layers >= 2 else seeds[-1]
+        x = L.layer_norm(self.input_ln, L.dropout(x, p_drop, pro_seed, philox.M0, t0))
+        if not n_layers:
+            return self._at((item_seq_len.long() - 1).clamp(0, t - 1), x)[0][:, 0]
         for li, layer in enumerate(self.layers):
-            last = li == n_layers - 1
-            h = self._gated_recurrent(
-                layer["grl"], x, lens=item_seq_len if last else None
-            )
-            if last:
-                rows = torch.arange(x.shape[0], device=x.device)
-                x = x[rows, _last_index(item_seq_len, x.shape[1])][:, None]
-            h = L.dropout(h, p_drop, seeds[li], philox.M1)
+            last = _last_index(item_seq_len, t) if li == n_layers - 1 else None
+            h = self._gated_recurrent(layer["grl"], x, last)
+            if last is not None:
+                (x,) = self._at(last, x)
+                t0 = 0
+            h = L.dropout(h, p_drop, seeds[li], philox.M1, t0)
             x = L.layer_norm(layer["ln"], h + x)
             if not self.disable_ffn:
-                x = self._ffn(layer["ffn"], x, p_drop, seeds[li])
-        return x[:, 0] if n_layers else L.gather_last(x, item_seq_len)
+                x = self._ffn(layer["ffn"], x, p_drop, seeds[li], t0)
+        return x[:, 0]

@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 
@@ -14,14 +15,19 @@ def _shift_right(x, j):
     return F.pad(x[:, : t - j], (0, 0, j, 0))
 
 
-def causal_depthwise_conv(x, weight, bias=None):
+def causal_depthwise_conv(x, weight, bias=None, halo=None):
     """y[:, t, c] = bias[c] + sum_k weight[k, c] * x[:, t - (K-1) + k, c].
 
     x: [B, T, C]; weight: [K, C], tap K-1 multiplies the current step;
-    bias: optional [C].  Steps before t = 0 are zero.  Returns [B, T, C].
+    bias: optional [C].  Steps before t = 0 are zero, or with ``halo``
+    [B, K-1, C] those K-1 steps (the left context of a time chunk,
+    ``parallel/collectives.py:conv_halo``).  Returns [B, T, C].
     The bias joins the current tap before the older ones, the order in
     which the CUDA layer kernels (and the TPU kernels) sum.
     """
+    if halo is not None:
+        y = causal_depthwise_conv(torch.cat([halo.to(x.dtype), x], dim=1), weight, bias)
+        return y[:, halo.shape[1]:]
     k = weight.shape[0]
     y = x * weight[k - 1]
     if bias is not None:

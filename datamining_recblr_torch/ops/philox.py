@@ -76,15 +76,16 @@ def keep_threshold(p: float) -> int:
 
 
 def dropout_bits(seed: int, mask_id: int, b: int, t: int, width: int,
-                 device=None):
+                 device=None, t0: int = 0):
     """uint32 draws as int64 [b, t, width] for rows 0..b-1, positions
-    0..t-1, channels 0..width-1 of mask ``mask_id``."""
+    t0..t0+t-1 (a time chunk's, under sequence parallelism), channels
+    0..width-1 of mask ``mask_id``."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     k0, k1 = seed & _MASK32, seed >> 32
     groups = -(-width // 4)
     kw = dict(device=device, dtype=torch.int64)
     c0 = torch.arange(groups, **kw)[None, None, :]
-    c1 = torch.arange(t, **kw)[None, :, None]
+    c1 = torch.arange(t0, t0 + t, **kw)[None, :, None]
     c2 = torch.arange(b, **kw)[:, None, None]
     c3 = torch.full((1, 1, 1), int(mask_id), **kw)
     words = philox4x32_10(c0, c1, c2, c3, k0, k1)
@@ -93,9 +94,10 @@ def dropout_bits(seed: int, mask_id: int, b: int, t: int, width: int,
 
 
 def dropout_mask(seed: int, mask_id: int, b: int, t: int, width: int, p: float,
-                 device=None):
-    """Scaled keep-mask [b, t, width] fp32: 1/(1-p) where kept, else 0."""
-    return _scaled(dropout_bits(seed, mask_id, b, t, width, device), p, device)
+                 device=None, t0: int = 0):
+    """Scaled keep-mask [b, t, width] fp32 at positions t0..t0+t-1:
+    1/(1-p) where kept, else 0."""
+    return _scaled(dropout_bits(seed, mask_id, b, t, width, device, t0), p, device)
 
 
 def dropout_mask_at(seed: int, mask_id: int, pos, width: int, p: float):

@@ -1,5 +1,6 @@
-"""Multi-device execution over a ``{data, model}`` mesh on
-``torch.distributed`` (counterpart of ``datamining_recblr_tpu/parallel``)."""
+"""Multi-device execution over a ``{data, model}`` or, for RecBLR, a
+``{data, seq}`` mesh on ``torch.distributed`` (counterpart of
+``datamining_recblr_tpu/parallel``)."""
 
 from datamining_recblr_torch.parallel.mesh import make_mesh  # noqa: F401
 from datamining_recblr_torch.parallel.sharding import (  # noqa: F401

@@ -12,22 +12,39 @@ them: GSPMD inserts them from the shardings).
   sum over ``model`` and this rank's rows backward (a small sharded
   vector that every rank reads at other rows: BERT4Rec's output bias
   where its shards are not the table's).
-* ``all_reduce_grads``: the gradient sum over ``data`` (one all-reduce
-  of the flattened gradients per dtype).
+* ``gather_over_seq``: the seq ranks' rows concatenated in seq order
+  forward, a sum over ``seq`` and this rank's rows backward (the scan's
+  (last state, product of gates) pairs, ``ops/seq_parallel_scan.py``).
+* ``conv_halo``: the K-1 positions before this rank's time chunk,
+  gathered from the earlier seq ranks (zeros before position 0); the
+  backward sends each position's gradient to the rank that holds it.
+* ``select_over_seq``: each row at a global time position, read on the
+  seq rank that holds it and summed over ``seq`` forward, a sum over
+  ``seq`` backward.
+* ``all_reduce_grads``: the gradient sum over ``data`` (and ``seq``):
+  one all-reduce of the flattened gradients per dtype and axis.
 * ``all_reduce`` / ``all_gather``: the plain collectives over one axis,
   outside autograd.
 
 Every collective takes part on every rank in the same order, as the
-ranks of one model group run the same tower on the same rows.
+ranks of one model group run the same tower on the same rows, and the
+ranks of one seq group the same layers on their chunks of those rows.
+
+Under ``seq`` everything after the top layer's selection (its tail, the
+head and the loss) is the same on every seq rank.  Each of them takes
+1/S of the loss (``models/base.py:weighted_mean``), so the backward of
+``select_over_seq`` sums the S shares into the whole cotangent, and the
+sum of the gradients over ``seq`` counts the replicated part once.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-from datamining_recblr_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+from datamining_recblr_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -100,10 +117,94 @@ def gather_from_model(x, mesh):
     return _GatherFromModel.apply(x, mesh)
 
 
-def all_reduce_grads(params, mesh, axis: str = DATA_AXIS):
-    """Sum each parameter's gradient over ``axis`` in place."""
-    group = mesh.group(axis)
-    if group is None:
+class _GatherOverSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis, ctx.rows = mesh, axis, x.shape[0]
+        return all_gather(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.index(ctx.axis) * ctx.rows
+        return all_reduce(g, ctx.mesh, ctx.axis)[lo : lo + ctx.rows], None, None
+
+
+class _ConvHalo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tail, k, mesh):
+        # tail [B, n, C]: this rank's last n = min(K-1, T/S) positions; the
+        # earlier ranks' tails, in order, end at this rank's first position
+        # and run contiguously over the K-1 positions before it
+        s, n = mesh.index(SEQ_AXIS), tail.shape[1]
+        ctx.mesh, ctx.k, ctx.n = mesh, k, n
+        before = all_gather(tail, mesh, SEQ_AXIS, dim=1)[:, : s * n]
+        halo = before[:, max(0, s * n - (k - 1)):]
+        return F.pad(halo, (0, 0, k - 1 - halo.shape[1], 0))
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, k, n = ctx.mesh, ctx.k, ctx.n
+        s = mesh.index(SEQ_AXIS)
+        full = g.new_zeros((g.shape[0], mesh.size(SEQ_AXIS) * n, g.shape[2]),
+                           dtype=torch.float32)
+        used = min(s * n, k - 1)
+        if used:
+            full[:, s * n - used : s * n] = g[:, k - 1 - used:]
+        full = all_reduce(full, mesh, SEQ_AXIS)
+        return full[:, s * n : (s + 1) * n].to(g.dtype), None, None
+
+
+class _SumOverSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_reduce(x, mesh, SEQ_AXIS)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the S seq ranks' shares of the cotangent, summed in fp32
+        return all_reduce(g.float(), ctx.mesh, SEQ_AXIS).to(g.dtype), None
+
+
+def gather_over_seq(x, mesh, axis: str = SEQ_AXIS):
+    """The seq ranks' ``x`` [n, ...] concatenated in seq order -> [S n, ...]."""
+    return _GatherOverSeq.apply(x, mesh, axis)
+
+
+def conv_halo(xb, k: int, mesh):
+    """The left context of a causal conv of width ``k`` over a time axis
+    sharded over ``seq``: ``xb`` [B, T/S, C] is this rank's chunk; returns
+    the K-1 positions before it [B, K-1, C], zeros before position 0.
+    Built from each rank's last min(K-1, T/S) positions, so it also holds
+    where the halo spans several chunks (T/S < K-1)."""
+    n = min(k - 1, xb.shape[1])
+    if n <= 0:
+        return xb[:, :0]
+    return _ConvHalo.apply(xb[:, xb.shape[1] - n:], k, mesh)
+
+
+def select_over_seq(v, idx, mesh):
+    """Row b of ``v`` at the global time position ``idx[b]``: ``v`` [B, T/S,
+    ...] this rank's chunk of a time axis sharded over ``seq``, ``idx`` [B]
+    -> [B, ...], the same on every seq rank.  The rank holding a position
+    reads it, the others give zeros, and the sum over ``seq`` puts the
+    rows together; the backward sums the cotangent over ``seq`` (the
+    ranks' 1/S shares of the loss, see above)."""
+    tc = v.shape[1]
+    local = idx.long() - mesh.index(SEQ_AXIS) * tc
+    own = (local >= 0) & (local < tc)
+    rows = v[torch.arange(v.shape[0], device=v.device),
+             torch.where(own, local, torch.zeros_like(local))]
+    own = own.view(-1, *[1] * (rows.dim() - 1))
+    rows = torch.where(own, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return _SumOverSeq.apply(rows, mesh)
+
+
+def all_reduce_grads(params, mesh, axes=(DATA_AXIS,)):
+    """Sum each parameter's gradient over each axis of ``axes`` in place
+    (an axis the mesh lacks is skipped)."""
+    groups = [g for g in (mesh.group(a) for a in axes) if g is not None]
+    if not groups:
         return
     by_dtype: dict[torch.dtype, list] = {}
     for p in params:
@@ -111,6 +212,7 @@ def all_reduce_grads(params, mesh, axis: str = DATA_AXIS):
             by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
     for grads in by_dtype.values():
         flat = _flatten_dense_tensors(grads)
-        dist.all_reduce(flat, group=group)
+        for group in groups:
+            dist.all_reduce(flat, group=group)
         for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
             g.copy_(r)

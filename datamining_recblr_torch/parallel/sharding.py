@@ -6,9 +6,11 @@ The policy is the JAX package's, copied: ``item_embedding`` and
 BERT4Rec's ``output_bias`` (at the table's width) row-shard over the
 ``model`` axis when the table has at least ``ROW_SHARD_MIN_ELEMS``
 elements (``vocab_row_shard: auto``), always or never with the config's
-"always" / "never"; every other parameter is replicated, and batches
-split over ``data``.  Models pad their vocab-leading rows to the
-model-axis multiple, so divisibility never decides.
+"always" / "never"; every other parameter is replicated (on a mesh with
+no ``model`` axis, e.g. ``{data, seq}``, all of them), and batches split
+over ``data``, their [B, T] sequences also over ``seq``.  Models pad
+their vocab-leading rows to the model-axis multiple, so divisibility
+never decides.
 
 Model rank m of M holds rows [m V/M, (m+1) V/M) of a sharded tensor of V
 rows.  ``shard_model`` slices a model's full state (from its seed, a
@@ -22,8 +24,8 @@ import torch
 from torch import nn
 
 from datamining_recblr_torch.parallel.collectives import all_gather
-from datamining_recblr_torch.parallel.input import process_local_rows
-from datamining_recblr_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+from datamining_recblr_torch.parallel.input import process_local_rows, seq_chunk
+from datamining_recblr_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
 
 _ROW_SHARDED = {"item_embedding"}
 _VOCAB_SHARDED = {"output_bias"}
@@ -97,13 +99,31 @@ def _shard_rows(mesh, t):
     return m * per, (m + 1) * per
 
 
+def check_seq_axis(model, shape: dict):
+    """Raise for a ``seq`` axis above 1 where the port does not shard the
+    time axis: a model other than RecBLR, or beside a ``model`` axis above
+    1 (the JAX package leaves both to GSPMD, unmeasured)."""
+    if int(shape.get(SEQ_AXIS, 1)) <= 1:
+        return
+    if not getattr(model, "SEQ_PARALLEL", False):
+        raise NotImplementedError(
+            f"a seq mesh axis with {type(model).__name__} is not ported (ROADMAP.md queue A "
+            "item 9c); only RecBLR shards its time axis")
+    if int(shape.get(MODEL_AXIS, 1)) > 1:
+        raise NotImplementedError(
+            "a seq mesh axis beside a model axis above 1 is not ported (ROADMAP.md queue A "
+            "item 9c)")
+
+
 def shard_model(model, mesh, state=None):
     """Put ``model`` on ``mesh``: its full state (``state``, a state dict
     whose vocab-leading tensors may have any padding, else the model's
     own parameters) with the sharded tensors cut to this rank's rows.
     The model's ``mesh``, ``shards`` (name -> (lo, hi) of the global rows
     held) and ``seed_offset`` (data index x 1000003, as the JAX package
-    offsets its kernels' dropout seeds per data shard) are set."""
+    offsets its kernels' dropout seeds per data shard; the seq ranks of a
+    data index share it and draw at their chunk's positions) are set."""
+    check_seq_axis(model, mesh.shape)
     if state is None:
         if model.mesh is mesh:
             return model
@@ -186,12 +206,22 @@ def _map_opt_state(model, opt_state, fn):
     return {"state": state, "param_groups": opt_state["param_groups"]}
 
 
+SEQ_KEYS = ("item_seq",)  # the batch's [B, T] sequences
+
+
 def shard_batch(batch: dict, mesh) -> dict:
-    """This rank's rows of a global batch: rows [d B/D, (d+1) B/D) of
-    every leading-axis array for data index d (the rows every model rank
-    of that index shares)."""
+    """This rank's part of a global batch (the counterpart of JAX's
+    ``_batch_spec``): rows [d B/D, (d+1) B/D) of every leading-axis array
+    for data index d (the rows every model and seq rank of that index
+    shares), and of the [B, T] sequences (``SEQ_KEYS``) the columns of
+    this rank's time chunk on a ``seq`` axis; [B] arrays are the same on
+    every seq rank."""
     out = {}
     for k, v in batch.items():
         lo, hi = process_local_rows(v.shape[0], mesh)
-        out[k] = v[lo:hi]
+        v = v[lo:hi]
+        if k in SEQ_KEYS and mesh is not None and mesh.size(SEQ_AXIS) > 1:
+            t0, t1 = seq_chunk(v.shape[1], mesh)
+            v = v[:, t0:t1]
+        out[k] = v
     return out

@@ -5,17 +5,19 @@ runs on and off a mesh.
 JAX jits one function over the mesh and lets GSPMD insert the
 collectives; here each rank runs the step on its rows and calls them:
 the model's vocab-parallel lookup and CE reduce over ``model``
-(``models/base.py``), the gradients are summed over ``data`` before the
-optimizer's step, and the loss comes back as the global value, the same
-on every rank.  The eval step is ``Evaluator``'s: each rank scores its
-rows and ``sum_over_data`` returns the global metric sums.  A meshed run
-starts from the unmeshed run's parameters, sliced by
-``sharding.shard_model`` (the Trainer's ``__init__``)."""
+(``models/base.py``), a ``seq`` axis's halo, carry and selection are
+exchanged inside RecBLR's forward (``models/recblr.py``), the gradients
+are summed over ``data`` and ``seq`` before the optimizer's step, and the
+loss comes back as the global value, the same on every rank.  The eval
+step is ``Evaluator``'s: each rank scores its rows and ``sum_over_data``
+returns the global metric sums.  A meshed run starts from the unmeshed
+run's parameters, sliced by ``sharding.shard_model`` (the Trainer's
+``__init__``)."""
 
 from __future__ import annotations
 
 from datamining_recblr_torch.parallel.collectives import all_reduce, all_reduce_grads
-from datamining_recblr_torch.parallel.mesh import DATA_AXIS
+from datamining_recblr_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS
 
 
 def train_step(model, optimizer, batch, step, mesh=None):
@@ -26,8 +28,8 @@ def train_step(model, optimizer, batch, step, mesh=None):
     loss = model.calculate_loss(batch, step=step)
     loss.backward()
     if mesh is not None:
-        all_reduce_grads(model.parameters(), mesh, DATA_AXIS)
-        loss = all_reduce(loss, mesh, DATA_AXIS)
+        all_reduce_grads(model.parameters(), mesh, (DATA_AXIS, SEQ_AXIS))
+        loss = all_reduce(all_reduce(loss, mesh, DATA_AXIS), mesh, SEQ_AXIS)
     optimizer.step()
     return loss.detach()
 

@@ -11,8 +11,9 @@ is cut to the scores' width: BERT4Rec scores [B, n_items], the others
 With a ``mesh`` (every rank runs the same ``recommend``, as the JAX
 package's replicated request batch) the model goes on the mesh from its
 full parameters; a row-sharded table scores this rank's columns and
-``sharded_topk`` merges the model ranks' candidates, so every rank
-returns the unmeshed top-k."""
+``sharded_topk`` merges the model ranks' candidates, and on a ``seq``
+axis each rank runs every request on its time chunk (RecBLR), so every
+rank returns the unmeshed top-k."""
 
 from __future__ import annotations
 

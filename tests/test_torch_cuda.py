@@ -1570,6 +1570,37 @@ def test_linear_scan_kernels_match_plain(dev, c):
         assert float((got - w).abs().max()) <= GRAD_RTOL * float(w.abs().max())
 
 
+def test_seq_parallel_scan_matches_one_launch(dev, tmp_path):
+    """``seq_parallel_scan`` over four simulated shards: four gloo ranks
+    sharing the card, each holding a [B, T/4, C] chunk, against one
+    ``linear_scan`` launch over the whole T (forward and both gradients);
+    each rank launches row 7 twice forward and twice in reverse."""
+    from torch_mesh_worker import launch
+
+    from datamining_recblr_torch.ops import scan as SC
+
+    rng = np.random.default_rng(64)
+    g, x, dh = (rng.uniform(0.3, 0.999, (5, 64, 160)).astype(np.float32),
+                rng.standard_normal((5, 64, 160)).astype(np.float32),
+                rng.standard_normal((5, 64, 160)).astype(np.float32))
+    ranks = launch({"cases": [("scan", "seq_scan", dict(gates=g, tokens=x, cot=dh,
+                                                        mesh_shape={"seq": 4},
+                                                        device="cuda"))]}, 4, tmp_path)
+    gt = torch.from_numpy(g).to(dev).requires_grad_()
+    xt = torch.from_numpy(x).to(dev).requires_grad_()
+    h = SC.linear_scan(gt, xt)
+    h.backward(torch.from_numpy(dh).to(dev))
+    for r, res in enumerate(ranks):
+        got = res["scan"]
+        t0, t1 = got["chunk"]
+        assert (t0, t1) == (16 * r, 16 * (r + 1))
+        assert got["launches"] == (2, 2)
+        torch.testing.assert_close(got["h"], h.detach()[:, t0:t1].cpu(), **TOL["float32"])
+        for mine, want in ((got["dg"], gt.grad), (got["dx"], xt.grad)):
+            want = want[:, t0:t1].cpu()
+            assert float((mine - want).abs().max()) <= GRAD_RTOL * float(want.abs().max())
+
+
 def _bdlru_params(rng, c, dev, k=K):
     def r(*s, std=0.3):
         return torch.from_numpy((std * rng.standard_normal(s)).astype(np.float32)).to(dev)

@@ -33,6 +33,7 @@ MODULES = [
     "datamining_recblr_torch.ops.fused_layer_chunked",
     "datamining_recblr_torch.ops.embedding",
     "datamining_recblr_torch.ops.scan",
+    "datamining_recblr_torch.ops.seq_parallel_scan",
     "datamining_recblr_torch.ops.fused_bdlru",
     "datamining_recblr_torch.ops.philox",
     "datamining_recblr_torch.ops.topk",

@@ -1,10 +1,12 @@
-"""Rank processes of the port's mesh tests (``tests/test_torch_parallel*.py``;
-not collected by pytest).  It imports torch and the port only, never JAX.
+"""Rank processes of the port's mesh tests (``tests/test_torch_parallel*.py``,
+``tests/test_torch_seq_parallel.py``; not collected by pytest).  It
+imports torch and the port only, never JAX.
 
 ``launch(job, world, tmp)`` starts ``world`` processes of this file, one
 per rank, joined in a gloo process group over localhost; each runs the
 job's cases in order and saves its results, which ``launch`` returns as
-a list indexed by rank.  A job is ``{"cases": [(name, fn, kwargs),
+a list indexed by rank (``start`` and ``wait`` split it, so the caller
+works while the ranks run).  A job is ``{"cases": [(name, fn, kwargs),
 ...]}`` with ``fn`` a function of this module, called as ``fn(**kwargs)``.
 
     python torch_mesh_worker.py <job.pt> <world> <port> <rank> <out.pt>
@@ -36,8 +38,8 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def launch(job: dict, world: int, tmp, timeout: float = 300) -> list:
-    """Run ``job`` on ``world`` gloo ranks; their results by rank."""
+def start(job: dict, world: int, tmp):
+    """Start ``job`` on ``world`` gloo ranks; ``wait`` takes their results."""
     tmp = Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     job_path = tmp / "job.pt"
@@ -49,6 +51,12 @@ def launch(job: dict, world: int, tmp, timeout: float = 300) -> list:
                                str(r), str(outs[r])], env=env, cwd=tmp,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(world)]
+    return procs, outs
+
+
+def wait(started, timeout: float = 300) -> list:
+    """The results by rank of a ``start``ed job (every rank ended)."""
+    procs, outs = started
     logs = []
     try:
         for p in procs:
@@ -61,6 +69,11 @@ def launch(job: dict, world: int, tmp, timeout: float = 300) -> list:
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
     return [torch.load(o, weights_only=False) for o in outs]
+
+
+def launch(job: dict, world: int, tmp, timeout: float = 300) -> list:
+    """Run ``job`` on ``world`` gloo ranks; their results by rank."""
+    return wait(start(job, world, tmp), timeout)
 
 
 def _model(name, cfg, n_items, t, mesh_shape=None):
@@ -81,12 +94,13 @@ def _full_grads(model, mesh):
 def step(name, cfg, n_items, t, params, batch, mesh_shape, cloze=None, steps=1,
          unfused=False):
     """``steps`` meshed ``Trainer.train_step``s from the full ``params`` on
-    the global ``batch`` (this rank takes its data rows, ``shard_batch``;
-    ``cloze`` a global BERT4Rec draw to use in place of the model's): the
-    full-sort metric sums of the batch from ``params`` (the trainer's
-    ``Evaluator.batch_sums`` summed over ``data``), the losses, the last
-    step's gradients put together, the rows held and the gathered
-    parameters."""
+    the global ``batch`` (this rank takes its part, ``shard_batch``: its
+    data rows and on a seq axis its time chunk; ``cloze`` a global
+    BERT4Rec draw to use in place of the model's): the full-sort metric
+    sums of the batch from ``params`` (the trainer's
+    ``Evaluator.batch_sums`` summed over ``data``), the eval forward of
+    the rank's rows, the losses, the first step's gradients put
+    together, the rows held and the gathered parameters."""
     from datamining_recblr_torch.eval.evaluator import sum_over_data
     from datamining_recblr_torch.parallel.sharding import gather_state, shard_batch
     from datamining_recblr_torch.train.trainer import Trainer
@@ -104,14 +118,19 @@ def step(name, cfg, n_items, t, params, batch, mesh_shape, cloze=None, steps=1,
     model.eval()
     with torch.no_grad():
         sums = sum_over_data(trainer.evaluator.batch_sums(local), mesh)
+        out = model(local["item_seq"], local["item_seq_len"])
     sums = {k: (float(a), float(b)) for k, (a, b) in sums.items()}
     if cloze is not None:
         mine = tuple(torch.as_tensor(a[lo:hi]) for a in cloze)
         model.cloze_draw = lambda *a, **k: mine
-    losses = [float(trainer.train_step(local, s)) for s in range(steps)]
-    return {"losses": losses, "eval_sums": sums, "grads": _full_grads(model, mesh),
+    losses, grads = [], None
+    for s in range(steps):
+        losses.append(float(trainer.train_step(local, s)))
+        if s == 0:
+            grads = _full_grads(model, mesh)
+    return {"losses": losses, "eval_sums": sums, "grads": grads, "forward": out,
             "shards": dict(model.shards), "params": gather_state(model)[0],
-            "coords": (mesh.index("data"), mesh.index("model"))}
+            "coords": (mesh.index("data"), mesh.index("model"), mesh.index("seq"))}
 
 
 def fit(cfg, data_args, t, ckpt, repeat=1, sampled=None, recommend=None, resume_epochs=None):
@@ -158,6 +177,38 @@ def fit(cfg, data_args, t, ckpt, repeat=1, sampled=None, recommend=None, resume_
                                           device="cpu", mesh=mesh)
         out["recommend_ckpt"] = rec.recommend(recommend)
     return out
+
+
+def seq_scan(gates, tokens, cot, mesh_shape, impl="auto", device="cpu"):
+    """``seq_parallel_scan`` of this rank's time chunk of the global
+    [B, T, C] ``gates`` and ``tokens`` (its data rows on a data axis):
+    the chunk of h, of its gradients against the cotangent ``cot``, the
+    chunk's (t0, t1), the scan's kernel launches on a card, and the
+    error a length that does not divide the axis raises."""
+    from datamining_recblr_torch.ops import scan as SC
+    from datamining_recblr_torch.ops.seq_parallel_scan import seq_parallel_scan
+    from datamining_recblr_torch.parallel.input import seq_chunk
+
+    mesh = make_mesh(mesh_shape, device)
+    t0, t1 = seq_chunk(tokens.shape[1], mesh)
+    lo, hi = process_local_rows(tokens.shape[0], mesh)
+
+    def mine(a):
+        return torch.as_tensor(a[lo:hi, t0:t1]).to(mesh.device).contiguous()
+
+    g, x = mine(gates).requires_grad_(), mine(tokens).requires_grad_()
+    before = (SC.linear_scan.launches, SC.linear_scan_reverse.launches)
+    h = seq_parallel_scan(g, x, mesh, impl=impl)
+    (h * mine(cot)).sum().backward()
+    try:
+        seq_chunk(tokens.shape[1] + 2, mesh)
+        error = None
+    except ValueError as e:
+        error = str(e)
+    return {"h": h.detach().cpu(), "dg": g.grad.cpu(), "dx": x.grad.cpu(), "chunk": (t0, t1),
+            "rows": (lo, hi), "divide_error": error,
+            "launches": (SC.linear_scan.launches - before[0],
+                         SC.linear_scan_reverse.launches - before[1])}
 
 
 def masks(name, cfg, n_items, t, batch, mesh_shape, step_idx):
