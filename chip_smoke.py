@@ -77,9 +77,18 @@ per-op composition, forward and backward) and, phase by phase:
   two column slices);
 * runs ``Trainer.fit`` and ``evaluate(load_best=True)`` for the three on
   a small Markov dataset: the loss falls and valid NDCG@10 is above 0;
+* serves and resumes a checkpoint the JAX package wrote
+  (``tests/fixtures/jax_checkpoint/``: RecBLR at the bench serving width,
+  pickled) through the port's reader, ``Recommender.from_checkpoint`` and
+  ``Trainer.resume_from`` (``jax-checkpoint``): the requests' ids equal
+  the JAX package's, the scores within 1e-4 of the largest, rows 1 and 3
+  launched, then the three recorded steps through rows 1-4, each loss
+  within 1e-4 relative of JAX's;
 * runs the experiment path at ml1m-synth's full size (the stat-matched
   log of seed 2020 written as an ``.inter`` file, ``build_dataset`` from
-  the reference config, ``run_experiment`` for one epoch): RecBLR CE fp32
+  the reference config through the native loader, held array for array
+  against the Python builder with both build times (``native-loader``),
+  ``run_experiment`` for one epoch): RecBLR CE fp32
   with full-sort evaluation (``experiment-ml1m-R``: valid NDCG@10 at least
   0.15), RecBLR BPR bf16 with uni100 (``experiment-ml1m-R-bpr-uni100``:
   valid hit@10 above 0.198, twice chance) and BERT4Rec BPR fp32 with pop100
@@ -1619,6 +1628,7 @@ def experiment_phases(dev):
     import os
     import tempfile
 
+    from datamining_recblr_torch.data import native
     from datamining_recblr_torch.data.dataset import build_dataset
     from datamining_recblr_torch.data.synthetic import write_stat_matched_dataset
     from datamining_recblr_torch.drivers import run_experiment
@@ -1638,14 +1648,20 @@ def experiment_phases(dev):
                 metrics_file=os.path.join(tmp, f"{name}.jsonl")))
             if data is None:
                 t0 = time.perf_counter()
+                native.build()
+                t_compile = time.perf_counter() - t0
+                t0 = time.perf_counter()
                 data = build_dataset(cfg)
                 t_build = time.perf_counter() - t0
                 got = {"users": data.n_users - 1, "items": data.n_items - 1,
                        "inters": data.n_interactions, "train": len(data.train)}
                 phase("experiment-data", preset=EXP_PRESET, gen_seed=EXP_GEN_SEED,
                       summary=repr(data.summary()), write_s=f"{t_write:.1f}",
-                      build_s=f"{t_build:.1f}", compact=data.train.compact)
+                      build_s=f"{t_build:.1f}", loader="native", compact=data.train.compact)
                 check(got == EXP_SUMMARY, f"{EXP_PRESET}: {got}, not {EXP_SUMMARY}")
+                native_loader_phase(data, t_compile, t_build, build_config(
+                    "RecBLR", EXP_PRESET, ["reference"], dict(
+                        data_path=os.path.join(tmp, "dataset"), use_native_loader=False)))
             for fn in spec["counted"]:
                 fn.launches = 0
             t0 = time.perf_counter()
@@ -1705,6 +1721,130 @@ def experiment_phases(dev):
                          "examples_per_s": len(data.train) / rec["train_time"],
                          "eval_s": rec["eval_time"], spec["metric"]: valid}
     return out
+
+
+def same_data(a, b) -> int:
+    """Check two SeqData equal array for array and token for token;
+    returns the number of arrays compared."""
+    n = 0
+    check((a.n_users, a.n_items, a.n_interactions) == (b.n_users, b.n_items, b.n_interactions)
+          and a.item_id2token == b.item_id2token and a.user_id2token == b.user_id2token,
+          f"native-loader: sizes or tokens differ: {a.summary()} / {b.summary()}")
+    for split in ("train", "valid", "test"):
+        x, y = getattr(a, split), getattr(b, split)
+        check(x.compact == y.compact, f"native-loader: {split} compact {x.compact}, {y.compact}")
+        keys = ("item_seq_len", "pos_item", "user_id") + (
+            ("flat_items", "flat_start") if x.compact else ("item_seq",))
+        for k in keys:
+            check(np.array_equal(getattr(x, k), getattr(y, k)),
+                  f"native-loader: {split}.{k} differs between the builders")
+            n += 1
+    check(len(a.user_train_items) == len(b.user_train_items)
+          and all(np.array_equal(u, v) for u, v in zip(a.user_train_items, b.user_train_items)),
+          "native-loader: the per-user train items differ")
+    return n + 1
+
+
+def native_loader_phase(data, compile_s, native_s, python_cfg):
+    """The experiment's dataset (``build_dataset``, the native loader by
+    default, compiled first in ``compile_s``) against the Python builder's
+    from the same file on the card's host: every array equal, both build
+    times."""
+    from datamining_recblr_torch.data import native
+    from datamining_recblr_torch.data.dataset import build_dataset
+
+    t0 = time.perf_counter()
+    py = build_dataset(python_cfg)
+    python_s = time.perf_counter() - t0
+    arrays = same_data(data, py)
+    phase("native-loader", preset=EXP_PRESET, summary=repr(data.summary()),
+          compile_s=f"{compile_s:.2f}", native_build_s=f"{native_s:.2f}",
+          python_build_s=f"{python_s:.2f}", arrays_equal=arrays,
+          library=native.lib_path().name)
+
+
+# a checkpoint the JAX package wrote (tests/fixtures/jax_checkpoint/, made by
+# tests/make_jax_checkpoint_fixture.py): RecBLR at the bench serving width
+# over about 500 items, one epoch of adam, pickled; its expected.npz holds
+# the JAX package's top-10 of its requests and the losses of three steps
+# after its resume_from.  Counted: rows 1-4, and the LN prologue and the
+# table gradient, which this fp32 RecBLR does not run
+JAX_FIXTURE = ("tests", "fixtures", "jax_checkpoint")
+JAXCK_COUNTED = LAUNCH_COUNTED + (FL.fused_ln_dropout, E.embedding_grad)
+JAXCK_SCORE_TOL, JAXCK_LOSS_RTOL = 1e-4, 1e-4
+
+
+def jax_checkpoint_phase(dev):
+    """The fixture's checkpoint read by the port's reader on the card's
+    machine (no JAX there), served through ``Recommender.from_checkpoint``
+    and resumed through ``Trainer.resume_from`` plus the three recorded
+    steps, through the kernels: ids equal JAX's, scores within
+    ``JAXCK_SCORE_TOL`` of the largest, rows 1 and 3 launched by the
+    request, each of rows 1-4 once a step, the losses within
+    ``JAXCK_LOSS_RTOL`` relative.  Returns {"recommend": launches,
+    "resume_steps": launches}."""
+    import os
+
+    from datamining_recblr_torch.train.checkpoint import restore_checkpoint
+    from datamining_recblr_torch.train.trainer import Trainer
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), *JAX_FIXTURE)
+    with open(os.path.join(here, "config.json")) as f:
+        meta = json.load(f)
+    e = dict(np.load(os.path.join(here, "expected.npz")))
+    ckpt = os.path.join(here, "recblr.pkl")
+    t0 = time.perf_counter()
+    state = restore_checkpoint(ckpt)
+    read_s = time.perf_counter() - t0
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "optax", "ml_dtypes"))
+    # the port's own dispatch (the fixture's "never" chose JAX's CPU path)
+    cfg = Config(model="RecBLR", config_dict=dict(meta["config"], epochs=2,
+                                                  use_pallas_scan="auto"))
+    n_items, t = meta["n_items"], meta["config"]["MAX_ITEM_LIST_LENGTH"]
+    users = [e["requests"][i, :n].tolist() for i, n in enumerate(e["request_lens"])]
+
+    for fn in JAXCK_COUNTED:
+        fn.launches = 0
+    rec = Recommender.from_checkpoint(ckpt, cfg, n_items, t, top_k=e["ids"].shape[1])
+    ids, vals = rec.recommend(users)
+    torch.cuda.synchronize()
+    served = {fn.__name__: fn.launches for fn in JAXCK_COUNTED}
+    diff_ids = int((ids != e["ids"]).sum())
+    score_err = float(np.abs(vals - e["scores"]).max() / np.abs(e["scores"]).max())
+
+    for fn in JAXCK_COUNTED:
+        fn.launches = 0
+    trainer = Trainer(cfg, get_model("RecBLR")(cfg, n_items, t))
+    trainer.resume_from(ckpt)
+    losses = []
+    for i, step in enumerate(e["steps"]):
+        batch = {k: torch.from_numpy(e[k][i]).to(dev)
+                 for k in ("item_seq", "item_seq_len", "pos_item", "weight")}
+        losses.append(float(trainer.train_step(batch, int(step))))
+    torch.cuda.synchronize()
+    stepped = {fn.__name__: fn.launches for fn in JAXCK_COUNTED}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, e["losses"].tolist()))
+    steps = len(e["steps"])
+    phase("jax-checkpoint", checkpoint="/".join(JAX_FIXTURE + ("recblr.pkl",)),
+          read_s=f"{read_s:.3f}", epoch=state["epoch"], params=len(state["params"]),
+          users=len(users), top_k=ids.shape[1], ids_differing=diff_ids,
+          score_rel_err=f"{score_err:.3e}", start_epoch=trainer.start_epoch,
+          losses=repr([f"{x:.7f}" for x in losses]),
+          jax_losses=repr([f"{x:.7f}" for x in e["losses"].tolist()]),
+          loss_rel_err=f"{loss_err:.3e}", launches_recommend=repr(served),
+          launches_steps=repr(stepped), foreign_modules=repr(foreign))
+    check(not foreign, f"jax-checkpoint: reading the pickle imported {foreign}")
+    check(diff_ids == 0, f"jax-checkpoint: {diff_ids} recommended ids differ from JAX's")
+    check(score_err <= JAXCK_SCORE_TOL, f"jax-checkpoint: scores {score_err:.3e} of the "
+          f"largest off JAX's (tolerance {JAXCK_SCORE_TOL})")
+    check(served["fused_recurrent_layer"] > 0 and served["fused_recurrent_layer_last"] > 0,
+          f"jax-checkpoint: recommend launched {served}")
+    check(trainer.start_epoch == state["epoch"] + 1, "jax-checkpoint: the resumed epoch")
+    check(all(stepped[fn.__name__] == steps for fn in LAUNCH_COUNTED),
+          f"jax-checkpoint: launches {stepped} in {steps} steps, one each a step expected")
+    check(loss_err <= JAXCK_LOSS_RTOL, f"jax-checkpoint: losses {losses} against JAX's "
+          f"{e['losses'].tolist()} ({loss_err:.3e} relative)")
+    return {"recommend": served, "resume_steps": stepped}
 
 
 # the cold-start pipeline (``python -m datamining_recblr_torch.run_with_unseen``)
@@ -5438,6 +5578,7 @@ def main():
         path_train_phase(dev, name, "h528", "bfloat16")
     for name in TRAINED:
         fit_phase(dev, name)
+    jaxck = jax_checkpoint_phase(dev)
     experiments = experiment_phases(dev)
     cold = cold_start_phases(dev)
     mesh = mesh_phases(dev, smi)
@@ -5585,6 +5726,11 @@ def main():
                 if entry["name"] in out["launches"]}
         if runs:
             entry["launches_experiment"] = runs
+    # the launches of the JAX checkpoint's recommend() and of its three
+    # resumed steps
+    for entry in kernels:
+        if entry["name"] in jaxck["recommend"]:
+            entry["launches_jax_checkpoint"] = {k: v[entry["name"]] for k, v in jaxck.items()}
     # the cold-start pipeline's launches (an epoch, its evaluations and the
     # held-out users'), by mode
     for entry in kernels:

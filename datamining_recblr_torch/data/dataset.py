@@ -269,22 +269,16 @@ def build_from_dataframe(frame: dict, max_seq_len: int, user_field: str = "user_
 
 def build_dataset(config) -> SeqData:
     """The dataset a config names, from ``<data_path>/<name>/<name>.inter``
-    (RecBole's directory layout), split and augmented by
-    ``build_from_dataframe``.
+    (RecBole's directory layout), split and augmented.
 
-    The JAX package builds with its native loader when
-    ``use_native_loader`` is on (the default) and with Python otherwise;
-    the two give the same arrays.  The port has no native loader yet, so
-    it builds with Python whatever ``use_native_loader`` says, and the
-    arrays are those of either."""
-    from datamining_recblr_torch.data.atomic import read_atomic_file
-
+    With ``use_native_loader`` on (the default, as in the JAX package)
+    the native loader (``data/native.py``) reads and builds it; off,
+    ``read_atomic_file`` and ``build_from_dataframe``.  The two give the
+    same arrays.  A native build that fails raises: there is no quiet
+    fallback to Python."""
     name = config["dataset"]
     path = os.path.join(config["data_path"], name, f"{name}.inter")
-    load_col = config["load_col"] or {}
-    frame = read_atomic_file(path, columns=load_col.get("inter"))
-    return build_from_dataframe(
-        frame,
+    kwargs = dict(
         max_seq_len=config["MAX_ITEM_LIST_LENGTH"],
         user_field=config["USER_ID_FIELD"],
         item_field=config["ITEM_ID_FIELD"],
@@ -292,3 +286,11 @@ def build_dataset(config) -> SeqData:
         user_interval=config["user_inter_num_interval"],
         item_interval=config["item_inter_num_interval"],
     )
+    if config.get("use_native_loader", True):
+        from datamining_recblr_torch.data import native
+
+        return native.build_dataset_from_file(path, **kwargs)
+    from datamining_recblr_torch.data.atomic import read_atomic_file
+
+    load_col = config["load_col"] or {}
+    return build_from_dataframe(read_atomic_file(path, columns=load_col.get("inter")), **kwargs)

@@ -4,7 +4,9 @@ The JAX ``init_params`` tree (nested dicts, lists for ``layers``) and
 the port's ``state_dict`` hold the same arrays under the same names:
 a state_dict key is the tree path joined by dots, a list index as its
 decimal string (``layers.0.grl.w_in``).  Conversion changes only dtype
-and device.  Arrays cross as NumPy, so this module needs no JAX.
+and device.  Arrays cross as NumPy, so this module needs no JAX; a
+bfloat16 array (``ml_dtypes``' dtype, which ``torch.from_numpy`` refuses)
+crosses as its 16-bit pattern, so every leaf arrives bit for bit.
 """
 
 from __future__ import annotations
@@ -13,9 +15,21 @@ import numpy as np
 import torch
 
 
+def to_tensor(leaf) -> torch.Tensor:
+    """A CPU tensor holding ``leaf``'s bits (an array-like or a tensor),
+    its own copy."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().clone()
+    a = np.array(leaf, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
-    """JAX parameter pytree (NumPy or array-like leaves) -> state_dict of
-    CPU tensors (``load_state_dict`` moves them to the model's device)."""
+    """JAX parameter pytree (NumPy, array-like or tensor leaves) ->
+    state_dict of CPU tensors (``load_state_dict`` moves them to the
+    model's device)."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -24,7 +38,7 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
         elif isinstance(node, (list, tuple)):
             items = ((str(i), v) for i, v in enumerate(node))
         else:
-            out[prefix] = torch.from_numpy(np.array(node, copy=True))
+            out[prefix] = to_tensor(node)
             return
         for k, v in items:
             walk(v, f"{prefix}.{k}" if prefix else str(k))

@@ -181,8 +181,10 @@ def gather_state(model, optimizer=None):
 
 
 def shard_optimizer_state(model, opt_state):
-    """A full optimizer state dict (``gather_state``'s) cut to this rank's
-    rows, for ``optimizer.load_state_dict``."""
+    """A full optimizer state dict (``gather_state``'s, or a JAX
+    checkpoint's mapped one at its run's padding) with its vocab-leading
+    tensors at the model's padding and cut to this rank's rows (all of
+    them off a mesh), for ``optimizer.load_state_dict``."""
     rows = model.vocab_rows()
 
     def local(name, t):

@@ -24,20 +24,21 @@ from datamining_recblr_torch.config import Config
 from datamining_recblr_torch.eval.metrics import mask_scores
 from datamining_recblr_torch.models import get_model
 from datamining_recblr_torch.ops.topk import sharded_topk, topk_scores
-from datamining_recblr_torch.parallel.sharding import shard_model
+from datamining_recblr_torch.parallel.sharding import full_rows, shard_model
 from datamining_recblr_torch.train.checkpoint import restore_checkpoint
 
 
 class Recommender:
     def __init__(self, model, params=None, top_k: int = 10, mesh=None):
         """``params``: a state_dict to load into ``model`` (None keeps the
-        model's own parameters; a full one on a ``mesh``)."""
+        model's own parameters; a full one on a ``mesh``), its
+        vocab-leading rows at any padding."""
         self.model = model
         self.mesh = mesh
         if mesh is not None:
             shard_model(model, mesh, params)
         elif params is not None:
-            model.load_state_dict(params)
+            model.load_state_dict(full_rows(model, params))
         model.eval()
         self.top_k = int(top_k)
 
@@ -46,6 +47,8 @@ class Recommender:
         cls, checkpoint_path: str, config: Config, n_items: int,
         max_seq_len: int, top_k: int = 10, device=None, mesh=None,
     ) -> "Recommender":
+        """A Recommender of the parameters of a checkpoint: the port's, or
+        one the JAX package wrote (``train.checkpoint.restore_checkpoint``)."""
         model = get_model(config["model"])(config, n_items, max_seq_len, device=device)
         state = restore_checkpoint(checkpoint_path)
         return cls(model, state["params"], top_k=top_k, mesh=mesh)

@@ -50,6 +50,7 @@ from datamining_recblr_torch.parallel.input import process_local_rows, shard_hos
 from datamining_recblr_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, make_mesh
 from datamining_recblr_torch.parallel.sharding import (
     check_seq_axis,
+    full_rows,
     gather_state,
     shard_model,
     shard_optimizer_state,
@@ -60,7 +61,11 @@ from datamining_recblr_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from datamining_recblr_torch.train.optim import build_optimizer
+from datamining_recblr_torch.train.optim import (
+    build_optimizer,
+    is_torch_state,
+    opt_state_from_jax,
+)
 from datamining_recblr_torch.utils.logging import MetricsLogger, init_logger
 
 
@@ -140,21 +145,25 @@ class Trainer:
         return checkpoint_file(path)
 
     def _load_params(self, params):
-        """Load a full state dict (a checkpoint's) into the model."""
+        """Load a full state dict (a checkpoint's, its vocab-leading rows
+        padded as its run padded them) into the model."""
         if self.mesh is None:
-            self.model.load_state_dict(params)
+            self.model.load_state_dict(full_rows(self.model, params))
         else:
             shard_model(self.model, self.mesh, params)
 
     def resume_from(self, path):
-        """Restore params, optimizer and progress from a checkpoint and
+        """Restore params, optimizer and progress from a checkpoint (the
+        port's, or one the JAX package wrote: its optax state mapped onto
+        this trainer's optimizer, which must be the same learner) and
         continue training at the following epoch."""
         state = restore_checkpoint(path)
         self._load_params(state["params"])
         opt_state = state["opt_state"]
-        if self.mesh is not None:
-            opt_state = shard_optimizer_state(self.model, opt_state)
-        self.optimizer.load_state_dict(opt_state)
+        if not is_torch_state(opt_state):
+            opt_state = opt_state_from_jax(self.model, self.optimizer, opt_state)
+        # this rank's rows (all of them off a mesh) at the model's padding
+        self.optimizer.load_state_dict(shard_optimizer_state(self.model, opt_state))
         self.start_epoch = int(state["epoch"]) + 1
         self.best_score = float(state["best_score"])
         self.best_epoch = int(state["best_epoch"])

@@ -1,7 +1,7 @@
 """The port's experiment data path against the JAX package on the CPU:
 the stat-matched generator (rows), the ``.inter`` writer (bytes) and
-``build_dataset`` (arrays, with the JAX package's native loader on and
-off), beauty-synth and ml1m-synth at full size and seed 2020, xlong-synth
+``build_dataset`` (arrays, with the native loaders, the port's and the
+JAX package's, on and off), beauty-synth and ml1m-synth at full size and seed 2020, xlong-synth
 at a reduced size that keeps its ``max_len`` and ``within_cluster``, and
 each generator option at a small size; and the config presets against
 the yaml files they mirror.  Every comparison is exact."""
@@ -138,8 +138,9 @@ def _same_split(a, b):
 @pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
 @pytest.mark.parametrize("preset", FULL)
 def test_build_dataset_matches_jax(preset, native, written):
-    """The port builds with Python whatever ``use_native_loader`` says;
-    its arrays equal the JAX package's from either of its loaders."""
+    """The port builds with its native loader (``data/native.py``) when
+    ``use_native_loader`` is on and with Python when it is off; its arrays
+    equal the JAX package's from the same loader."""
     if native:
         assert jnative.available()
     jdir, pdir = written[preset]

@@ -1,7 +1,8 @@
 """Structure of the port: it imports no JAX and nothing of the JAX
 package, nor pandas, PyYAML or sklearn (the card's machine has none of
-them), its entry points default to the card, and a CPU run launches no
-kernel."""
+them), nor optax, ml_dtypes or tensorstore (the orbax reader imports
+tensorstore where it reads), its entry points default to the card, and a
+CPU run launches no kernel."""
 
 import os
 import subprocess
@@ -45,6 +46,9 @@ MODULES = [
     "datamining_recblr_torch.eval.metrics",
     "datamining_recblr_torch.eval.evaluator",
     "datamining_recblr_torch.train.checkpoint",
+    "datamining_recblr_torch.train.jax_checkpoint",
+    "datamining_recblr_torch.convert_checkpoint",
+    "datamining_recblr_torch.data.native",
     "datamining_recblr_torch.train.optim",
     "datamining_recblr_torch.train.trainer",
     "datamining_recblr_torch.utils.logging",
@@ -73,7 +77,8 @@ MODULES = [
     "datamining_recblr_torch.parallel.collectives",
     "datamining_recblr_torch.parallel.steps",
 ]
-FORBIDDEN = ("jax", "jaxlib", "datamining_recblr_tpu", "pandas", "yaml", "sklearn")
+FORBIDDEN = ("jax", "jaxlib", "datamining_recblr_tpu", "pandas", "yaml", "sklearn", "optax",
+             "ml_dtypes", "tensorstore")
 
 
 def _run_clean(code):

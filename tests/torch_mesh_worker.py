@@ -179,6 +179,21 @@ def fit(cfg, data_args, t, ckpt, repeat=1, sampled=None, recommend=None, resume_
     return out
 
 
+def resume_opt_state(cfg, n_items, t, path):
+    """A meshed RecBLR ``Trainer.resume_from(path)`` (a JAX checkpoint): the
+    start epoch, the rows this rank holds and its Adam state of the
+    table."""
+    from datamining_recblr_torch.train.trainer import Trainer
+
+    config, model = _model("RecBLR", cfg, n_items, t)
+    trainer = Trainer(config, model)
+    trainer.resume_from(path)
+    names = [n for n, _ in model.named_parameters()]
+    state = trainer.optimizer.state_dict()["state"][names.index("item_embedding")]
+    return {"start_epoch": trainer.start_epoch, "shards": dict(model.shards),
+            "step": float(state["step"]), "exp_avg": state["exp_avg"].clone()}
+
+
 def seq_scan(gates, tokens, cot, mesh_shape, impl="auto", device="cpu"):
     """``seq_parallel_scan`` of this rank's time chunk of the global
     [B, T, C] ``gates`` and ``tokens`` (its data rows on a data axis):
