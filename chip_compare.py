@@ -2,6 +2,7 @@
 """Times two checkouts of this repository on one CUDA card, in turns.
 
     python3 chip_compare.py PARENT_DIR            # parent, this tree, this tree, parent
+    python3 chip_compare.py --bits PARENT_DIR     # the same turns, rows 15 and 6 only
     python3 chip_compare.py --one TREE LABEL      # one run (what each turn executes)
 
 PARENT_DIR is an unpacked ``git archive`` of the commit to compare with,
@@ -28,6 +29,14 @@ one card at one power limit.  At the end, one ``[compare]`` line a timed
 function (kernel-time rows, row 16's kernel-time-phase fields, train-time
 medians and the serve-xlong-time medians): its parent and change turns and the ratio of their means,
 change over parent.
+
+With ``--bits`` each turn runs only ``row15_row6_digests`` (rows 15 and 6
+as every caller before the seq axis calls them, hashed) and the times of
+rows 15 (``row15_kernel_times``) and 6 (``ln_fwd_kernel_times``, and its
+backward beside row 15's in ``attn_training_kernel_times``), this
+checkout's functions on each tree's kernels; at the end one
+``[compare-bits]`` line a digest, ``equal=True`` where every turn gave
+the same bits, and the exit code is 1 unless all are.
 """
 
 import os
@@ -49,7 +58,7 @@ def _this_smoke():
     return mod
 
 
-def one(tree, label):
+def one(tree, label, bits=False):
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -60,6 +69,13 @@ def one(tree, label):
     dev = torch.device("cuda", 0)
     print(f"=== {label} {tree}", flush=True)
     cs.environment()
+    if bits:
+        this = _this_smoke()
+        this.row15_row6_digests(dev)
+        this.row15_kernel_times(dev)
+        this.ln_fwd_kernel_times(dev)
+        this.attn_training_kernel_times(dev)
+        return
     p1, p2, lens, _ = cs.kernels_vs_plain(dev)
     cs.kernel_times(dev, p1, p2, lens)
     cs.training_kernel_times(dev)
@@ -127,16 +143,18 @@ def timed(line):
 
 def main():
     if sys.argv[1:2] == ["--one"]:
-        one(sys.argv[2], sys.argv[3])
+        one(sys.argv[2], sys.argv[3], bits=sys.argv[4:5] == ["--bits"])
         return 0
-    parent = sys.argv[1]
+    bits = sys.argv[1:2] == ["--bits"]
+    parent = sys.argv[2] if bits else sys.argv[1]
     here = os.path.dirname(os.path.abspath(__file__))
     rc = 0
-    ms = {}
+    ms, digests = {}, {}
     for i, (tree, label) in enumerate(((parent, "parent"), (here, "change"),
                                        (here, "change"), (parent, "parent")), 1):
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree, label],
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree, label]
+                           + (["--bits"] if bits else []),
                            stdout=subprocess.PIPE, text=True, timeout=1200)
         print(r.stdout, end="")
         print(f"=== turn {i} {label} rc={r.returncode} {time.perf_counter() - t0:.0f}s",
@@ -145,6 +163,9 @@ def main():
         for line in r.stdout.splitlines():
             for key, v in timed(line):
                 ms.setdefault(key, {"parent": [], "change": []})[label].append(v)
+            if line.startswith("[digest] "):
+                key, _, sha = line[len("[digest] "):].rpartition(" sha256=")
+                digests.setdefault(key, []).append(f"{label}:{sha}")
     for key, sides in ms.items():
         if sides["parent"] and sides["change"]:
             parent = sum(sides["parent"]) / len(sides["parent"])
@@ -152,6 +173,12 @@ def main():
                      else "none")
             print(f"[compare] {key} parent_ms={sides['parent']} change_ms={sides['change']} "
                   f"ratio={ratio}", flush=True)
+    for key, shas in digests.items():
+        equal = len(shas) == 4 and len({x.split(":")[1] for x in shas}) == 1
+        print(f"[compare-bits] {key} turns={shas} equal={equal}", flush=True)
+        rc = rc or int(not equal)
+    if bits and not digests:
+        rc = rc or 1
     return rc
 
 

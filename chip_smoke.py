@@ -120,6 +120,14 @@ per-op composition, forward and backward) and, phase by phase:
   vocab-parallel CE in row 14's place), each against the same case in
   one process from the same seed on the same batches, with each rank's
   launches and wall seconds (time-shared on one card: no scaling figure);
+* runs the ``seq`` axis as four gloo ranks sharing the card
+  (``seq_phases``): rows 7, 15 and 6 at a seq rank's chunk against their
+  plain versions (row 15 at Tq 100 of T 200, q0 0 and 100, the chunks' dk
+  and dv summed against the whole call's; row 6 at t0 100), then
+  ``seq_parallel_scan``, RecBLR on {data: 2, seq: 2}, XLong on {seq: 4},
+  SASRec and BERT4Rec on {data: 2, seq: 2} and RecBLR and BERT4Rec on
+  {model: 2, seq: 2} (table row-sharded), each against one process in
+  the seq axis's composition and on the model's own kernels;
 * times every kernel beside its bound, its plain version and, where one
   PyTorch call computes the same function, that call (row 15 beside
   ``F.scaled_dot_product_attention`` with the same additive mask; the
@@ -139,7 +147,9 @@ per-op composition, forward and backward) and, phase by phase:
   the table gradient at the bench step, checked as at XLong, and by
   sub-kernel at both (``row16_times``: the sort, the piece, group and row
   sums, the wrapper's share), and rows 6 and 5's forwards at B 2,048 and
-  256, fp32 and bf16 (``ln_fwd_kernel_times``).
+  256, fp32 and bf16 (``ln_fwd_kernel_times``), and rows 15 and 6 at the
+  seq cases' chunk beside the library call with the chunk's mask
+  (``chunk_kernel_times``, ``shape=chunk``).
 
 A rerun of each RecBLR layer kernel, forward and backward, gives the same
 bits, and each RecBLR training and serving profile fails unless phase A
@@ -403,11 +413,11 @@ def k2_bound_ms(lens, p, act_bytes, t=T, priced_fma=False):
     return _recblr_bound(mm, positions * K1_REST, nbytes, priced_fma)
 
 
-def ln_bound_ms(b, act_bytes):
-    # x read and out written once, pos [T, D] and scale, bias [D]; about 8
+def ln_bound_ms(b, act_bytes, t=T):
+    # x read and out written once, pos [t, D] and scale, bias [D]; about 8
     # operations per element (add, mean, centre, square-sum, scale, shift)
-    nbytes = 2 * b * T * D * act_bytes + T * D * 4 + 2 * D * 4
-    return _bound(8 * b * T * D, nbytes)
+    nbytes = 2 * b * t * D * act_bytes + t * D * 4 + 2 * D * 4
+    return _bound(8 * b * t * D, nbytes)
 
 
 def _kept_keys(lens, t):
@@ -495,11 +505,11 @@ def block_last_bwd_bound_ms(lens, t, p, act_bytes):
     return _bound(flops, nbytes)
 
 
-def ln_bwd_bound_ms(b, act_bytes):
+def ln_bwd_bound_ms(b, act_bytes, t=T):
     # x, dout read and dx written once; pos read and dpos written; about
     # 16 operations per element (the LN recomputed and its backward)
-    nbytes = 3 * b * T * D * act_bytes + 2 * T * D * 4 + 4 * D * 4
-    return _bound(16 * b * T * D, nbytes)
+    nbytes = 3 * b * t * D * act_bytes + 2 * t * D * 4 + 4 * D * 4
+    return _bound(16 * b * t * D, nbytes)
 
 
 def sel_bound_ms(lens, s, p, act_bytes, stash=False, priced_fma=False):
@@ -4335,6 +4345,265 @@ def attention_mask_bits(dev):
               "Philox mask")
 
 
+# a seq rank's query chunk of row 15 at the bench widths (hidden 64: 2 heads
+# of 32, T 200, B 2,048) on two seq ranks: Tq 100, the second chunk at q0 100
+ROW15_CHUNK = (TRAIN_B, 2, T, 32)
+ROW15_CHUNK_TQ = ROW15_CHUNK_Q0 = T // 2
+ROW15_CHUNK_DROPOUT = 0.1
+
+
+def row15_chunk_vs_plain(dev):
+    """Row 15 at a seq rank's query chunk (``ROW15_CHUNK``: Tq 100 of T 200,
+    q0 0 and 100), fp32 and bf16, causal and bidirectional, p 0 and 0.1,
+    rows of lens 0, 1 and T among random ones: the forward, dq and the
+    chunk's share of dk and dv against autograd of the plain version at
+    the same chunk (``_row15_err``), one tensor-core launch each, a rerun's
+    bits; and in fp32 the two chunks' dk and dv summed against the whole
+    call's kernel.  Returns the largest fp32 |kernel - plain| of each."""
+    gen = torch.Generator().manual_seed(SEED + 43)
+    errs = {"fused_attention": 0.0, "fused_attention_bwd": 0.0}
+    tq, shape = ROW15_CHUNK_TQ, ROW15_CHUNK
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        q, k, v, dout, lens = _row15_inputs(gen, shape, dev, dt)
+        for causal in (True, False):
+            for p in (0.0, ROW15_CHUNK_DROPOUT):
+                args = (4343, causal, p)
+                shares = [torch.zeros(k.shape, device=dev), torch.zeros(v.shape, device=dev)]
+                for q0 in (0, ROW15_CHUNK_Q0):
+                    qc, oc = (a[:, :, q0:q0 + tq].contiguous() for a in (q, dout))
+                    mma = (A.fused_attention.mma_launches, A.fused_attention_bwd.mma_launches)
+                    out, saved = A.fused_attention_train(qc, k, v, lens, *args, q0)
+                    grads = A.fused_attention_bwd(qc, k, v, lens, oc, *args, q0, saved=saved)
+                    mma = (A.fused_attention.mma_launches - mma[0],
+                           A.fused_attention_bwd.mma_launches - mma[1])
+                    again = A.fused_attention_bwd(qc, k, v, lens, oc, *args, q0, saved=saved)
+                    same = all(torch.equal(g, a) for g, a in zip(grads, again))
+                    leaves = [a.clone().requires_grad_() for a in (qc, k, v)]
+                    want = A.fused_attention_plain(*leaves, lens, *args, q0)
+                    wgrads = torch.autograd.grad(want, leaves, oc)
+                    torch.cuda.synchronize()
+                    fwd = _row15_err(out, want.detach(), dt)
+                    bwd = [_row15_err(g, w, dt) for g, w in zip(grads, wgrads)]
+                    ok = fwd[1] and all(e[1] for e in bwd) and same and mma == (1, 1)
+                    phase("attention-chunk-kernel-vs-plain", B_H_T_dh="x".join(map(str, shape)),
+                          Tq=tq, q0=q0, dtype=dname, causal=causal, p=p,
+                          out_max_abs_err=f"{fwd[0]:.3e}",
+                          dq_dk_dv_max_abs_err="/".join(f"{e[0]:.3e}" for e in bwd),
+                          tol="1e-4*max|plain|" + (" + 1 bf16 ulp" if dt != torch.float32
+                                                    else ""),
+                          mma_launches_fwd_bwd="/".join(map(str, mma)),
+                          rerun_bit_equal=same, ok=ok)
+                    check(ok, f"row 15 at the query chunk q0={q0} {dt} causal={causal} p={p}: "
+                          "the kernels disagree with the plain version, miss the tensor "
+                          "cores or give other bits on a rerun")
+                    if dt == torch.float32:
+                        errs["fused_attention"] = max(errs["fused_attention"], fwd[0])
+                        errs["fused_attention_bwd"] = max(errs["fused_attention_bwd"],
+                                                          *(e[0] for e in bwd))
+                    shares[0] += grads[1].float()
+                    shares[1] += grads[2].float()
+                    del out, saved, grads, again, leaves, want, wgrads
+                if dt == torch.float32:
+                    _, saved = A.fused_attention_train(q, k, v, lens, *args)
+                    _, dk, dv = A.fused_attention_bwd(q, k, v, lens, dout, *args, saved=saved)
+                    sums = [_row15_err(a, w, dt) for a, w in zip(shares, (dk, dv))]
+                    phase("attention-chunk-shares", B_H_T_dh="x".join(map(str, shape)),
+                          chunks=f"2x{tq}", causal=causal, p=p,
+                          dk_dv_sum_vs_whole_max_abs_err="/".join(f"{e[0]:.3e}" for e in sums),
+                          tol="1e-4*max|whole|", ok=all(e[1] for e in sums))
+                    check(all(e[1] for e in sums), f"row 15 causal={causal} p={p}: the chunks' "
+                          "dk and dv do not add up to the whole call's")
+                    del saved, dk, dv
+        del q, k, v, dout
+    return errs
+
+
+def row6_chunk_vs_plain(dev):
+    """Row 6 at a seq rank's chunk: B 2,048, positions 100 .. 199 of T 200
+    (t0 100, its rows of the positional table), D 64, fp32 and bf16, p 0
+    and 0.5 (SASRec's): the output, dx, dpos, dscale and dbias against
+    autograd of the plain version at the same t0, and the output against
+    the whole call's rows there, bit for bit.  Returns the largest fp32
+    |kernel - plain| of the forward and (over max |plain|) of the
+    backward."""
+    gen = torch.Generator().manual_seed(SEED + 44)
+    t0 = tc = T // 2
+    pos = (0.5 * torch.randn((T, D), generator=gen)).to(dev)
+    s = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev)
+    bias = (0.1 * torch.randn(D, generator=gen)).to(dev)
+    pc = pos[t0:].contiguous()
+    errs = {"fused_ln_dropout": 0.0, "fused_ln_dropout_bwd": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((TRAIN_B, T, D), generator=gen).to(dev, dt)
+        dout = torch.randn((TRAIN_B, tc, D), generator=gen).to(dev, dt)
+        xc = x[:, t0:].contiguous()
+        for p in (0.0, SAS_DROPOUT):
+            out = FL.fused_ln_dropout(xc, pc, s, bias, p, 7, t0)
+            bits = torch.equal(out, FL.fused_ln_dropout(x, pos, s, bias, p, 7)[:, t0:])
+            dx, *grads = FL.fused_ln_dropout_bwd(xc, pc, dout, s, bias, p, 7, t0)
+            leaves = [a.clone().requires_grad_() for a in (xc, pc, s, bias)]
+            want = FL.fused_ln_dropout_plain(*leaves, p, 7, t0)
+            wdx, *wgrads = torch.autograd.grad(want, leaves, dout)
+            torch.cuda.synchronize()
+            fwd = _row15_err(out, want.detach(), dt)
+            rows = _bwd_rows(dx, wdx, dict(zip(("dpos", "dscale", "dbias"), grads)),
+                             dict(zip(("dpos", "dscale", "dbias"), wgrads)), dt)
+            ok = fwd[1] and bits and all(r[1] for r in rows.values())
+            phase("ln-chunk-kernel-vs-plain", B=TRAIN_B, T=T, Tc=tc, t0=t0, D=D,
+                  dtype=str(dt).split(".")[-1], p=p, out_max_abs_err=f"{fwd[0]:.3e}",
+                  out_bit_equal_to_whole_rows=bits,
+                  grad_rel_err=repr({k: f"{v[0]:.3e}" for k, v in rows.items()}), ok=ok)
+            check(ok, f"row 6 at t0={t0} {dt} p={p}: the kernels disagree with the plain "
+                  "version or the whole call's rows")
+            if dt == torch.float32:
+                errs["fused_ln_dropout"] = max(errs["fused_ln_dropout"], fwd[0])
+                errs["fused_ln_dropout_bwd"] = max(errs["fused_ln_dropout_bwd"],
+                                                   *(r[0] for r in rows.values()))
+    return errs
+
+
+def chunk_kernel_times(dev):
+    """Rows 15 and 6 at a seq rank's chunk, the seq cases' shapes: row 15 at
+    ``ROW15_CHUNK`` (Tq 100 at q0 100, lengths 2 .. T), causal and
+    bidirectional, fp32 and bf16, p 0, forward and backward, each beside
+    its bound (the chunk's kept pairs and bytes), its plain version and
+    ``F.scaled_dot_product_attention`` with the chunk's [B, 1, Tq, T]
+    mask (autograd through it for the backward), checked first against the
+    plain version as ``row15_kernel_times`` does; row 6 at B 2,048,
+    positions 100 .. 199, D 64, fp32, p 0.5, forward and backward, beside
+    its bound, its plain version and add + ``F.layer_norm`` (autograd
+    through it for the backward) (``shape=chunk``)."""
+    gen = torch.Generator().manual_seed(SEED + 45)
+    shape, tq, q0 = ROW15_CHUNK, ROW15_CHUNK_TQ, ROW15_CHUNK_Q0
+    t = shape[2]
+    q32, k32, v32, _, _ = _row15_inputs(gen, shape, dev, torch.float32)
+    q32 = q32[:, :, q0:q0 + tq].contiguous()
+    dout32 = torch.randn(q32.shape, generator=gen).to(dev)
+    lens = torch.randint(2, t + 1, (shape[0],), generator=gen).to(dev)
+    blens = lens.cpu()
+    tag = "x".join(map(str, shape)) + f"_Tq{tq}_q0{q0}"
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        q, k, v, dout = (a.to(dt) for a in (q32, k32, v32, dout32))
+        for causal in (True, False):
+            args = (lens, 4242, causal, 0.0, q0)
+            mask = FB.attention_mask(lens, t, causal, dev, q0, tq)[:, None].to(dt)
+            leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+            want = A.fused_attention_plain(*leaves, *args)
+            lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            lib_err = float((lib_out.float() - want.float()).detach().abs().max())
+            tol = (2.0 ** -5 if dt == torch.bfloat16 else 1e-4) * float(
+                want.detach().float().abs().max())
+            phase("library-vs-plain", shape="chunk",
+                  call="F.scaled_dot_product_attention(attn_mask=the chunk's -10000 mask)",
+                  B_H_T_dh=tag, causal=causal, dtype=dname, max_abs_err=f"{lib_err:.3e}",
+                  tol=f"{tol:.3e}", ok=lib_err <= tol)
+            check(lib_err <= tol, "scaled_dot_product_attention does not compute row 15's "
+                                  "function at the chunk")
+            _, saved = A.fused_attention_train(q, k, v, *args)
+            with torch.no_grad():
+                ms = time_ms(lambda: A.fused_attention(q, k, v, *args))
+                plain = time_ms(lambda: A.fused_attention_plain(q, k, v, *args), reps=5,
+                                warmup=1)
+                lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            ms_bwd = time_ms(lambda: A.fused_attention_bwd(q, k, v, lens, dout, 4242, causal,
+                                                           0.0, q0, saved=saved))
+            plain_bwd = time_ms(lambda: torch.autograd.grad(want, leaves, dout,
+                                                            retain_graph=True),
+                                reps=5, warmup=1)
+            lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dout,
+                                                          retain_graph=True))
+            size = q.element_size()
+            for name, t_ms, t_plain, t_lib, bnd in (
+                    ("fused_attention", ms, plain, lib,
+                     row15_bound_ms(blens, shape, causal, size, tq=tq, q0=q0)),
+                    ("fused_attention_bwd", ms_bwd, plain_bwd, lib_bwd,
+                     row15_bwd_bound_ms(blens, shape, causal, size, tq=tq, q0=q0))):
+                bound, flops, by = bnd
+                phase("kernel-time", kernel=name, shape="chunk", B_H_T_dh=tag, causal=causal,
+                      dtype=dname, p=0.0, ms=f"{t_ms:.4f}", plain_ms=f"{t_plain:.4f}",
+                      library_ms=f"{t_lib:.4f}", bound_ms=f"{bound:.5f}",
+                      gflop=f"{flops / 1e9:.3f}", bound_by=by,
+                      share_of_bound=f"{bound / t_ms:.4f}")
+            del leaves, want, lib_out, saved
+    t0 = tc = T // 2
+    x = torch.randn((TRAIN_B, tc, D), generator=gen).to(dev)
+    d3 = torch.randn((TRAIN_B, tc, D), generator=gen).to(dev)
+    pos = (0.5 * torch.randn((tc, D), generator=gen)).to(dev)
+    s = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev)
+    bias = (0.1 * torch.randn(D, generator=gen)).to(dev)
+    leaves = [a.clone().requires_grad_() for a in (x, pos, s, bias)]
+    want = FL.fused_ln_dropout_plain(*leaves, SAS_DROPOUT, 7, t0)
+    lib_out = F.layer_norm(leaves[0] + leaves[1], (D,), leaves[2], leaves[3], L.LN_EPS)
+    with torch.no_grad():
+        fwd = (time_ms(lambda: FL.fused_ln_dropout(x, pos, s, bias, SAS_DROPOUT, 7, t0)),
+               time_ms(lambda: FL.fused_ln_dropout_plain(x, pos, s, bias, SAS_DROPOUT, 7, t0),
+                       reps=5, warmup=1),
+               time_ms(lambda: F.layer_norm(x + pos, (D,), s, bias, L.LN_EPS)))
+    bwd = (time_ms(lambda: FL.fused_ln_dropout_bwd(x, pos, d3, s, bias, SAS_DROPOUT, 7, t0)),
+           time_ms(lambda: torch.autograd.grad(want, leaves, d3, retain_graph=True), reps=5,
+                   warmup=1),
+           time_ms(lambda: torch.autograd.grad(lib_out, leaves, d3, retain_graph=True)))
+    for name, (t_ms, t_plain, t_lib), bnd in (
+            ("fused_ln_dropout", fwd, ln_bound_ms(TRAIN_B, 4, tc)),
+            ("fused_ln_dropout_bwd", bwd, ln_bwd_bound_ms(TRAIN_B, 4, tc))):
+        bound, flops, by = bnd
+        phase("kernel-time", kernel=name, shape="chunk", B=TRAIN_B, T=T, Tc=tc, t0=t0, D=D,
+              dtype="float32", p=SAS_DROPOUT, ms=f"{t_ms:.4f}", plain_ms=f"{t_plain:.4f}",
+              library_ms=f"{t_lib:.4f}", bound_ms=f"{bound:.5f}", gflop=f"{flops / 1e9:.3f}",
+              bound_by=by, share_of_bound=f"{bound / t_ms:.4f}")
+
+
+def row15_row6_digests(dev):
+    """The whole calls of rows 15 and 6 as every caller before the seq
+    axis makes them (no query chunk, no t0), hashed: row 15 at the d256
+    shape (B 2,048, 2 heads of 128, T 200, lengths 0, 1, T and random),
+    fp32 and bf16, causal and bidirectional, p 0 and 0.2, the training
+    forward's output, fp32 output and lse and the backward's dq, dk and
+    dv; row 6 at B 2,048, T 200, D 64, fp32 and bf16, p 0 and 0.5, the
+    output, dx, dpos, dscale and dbias.  One ``[digest]`` line each;
+    ``chip_compare.py --bits`` holds a tree's digests to another's (a
+    parent's: the same bits where the change keeps them)."""
+    import hashlib
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for a in ts:
+            h.update(a.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    gen = torch.Generator().manual_seed(SEED + 46)
+    shape = ROW15_SHAPES["d256"]
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        q, k, v, dout, lens = _row15_inputs(gen, shape, dev, dt)
+        for causal in (True, False):
+            for p in (0.0, ROW15_DROPOUT):
+                args = (4242, causal, p)
+                out, saved = A.fused_attention_train(q, k, v, lens, *args)
+                grads = A.fused_attention_bwd(q, k, v, lens, dout, *args, saved=saved)
+                phase("digest", kernel="fused_attention", B_H_T_dh="x".join(map(str, shape)),
+                      dtype=dname, causal=causal, p=p, sha256=digest(out, *saved))
+                phase("digest", kernel="fused_attention_bwd",
+                      B_H_T_dh="x".join(map(str, shape)), dtype=dname, causal=causal, p=p,
+                      sha256=digest(*grads))
+                del out, saved, grads
+        del q, k, v, dout
+    pos = (0.5 * torch.randn((T, D), generator=gen)).to(dev)
+    s = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev)
+    bias = (0.1 * torch.randn(D, generator=gen)).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn((TRAIN_B, T, D), generator=gen).to(dev, dt)
+        dout = torch.randn((TRAIN_B, T, D), generator=gen).to(dev, dt)
+        for p in (0.0, SAS_DROPOUT):
+            out = FL.fused_ln_dropout(x, pos, s, bias, p, 7)
+            grads = FL.fused_ln_dropout_bwd(x, pos, dout, s, bias, p, 7)
+            for name, ts in (("fused_ln_dropout", (out,)), ("fused_ln_dropout_bwd", grads)):
+                phase("digest", kernel=name, B=TRAIN_B, T=T, D=D,
+                      dtype=str(dt).split(".")[-1], p=p, sha256=digest(*ts))
+
+
 # the d256 path: SASRec and BERT4Rec at hidden 256, the top of BERT4Rec's
 # own d sweep (Sun et al., CIKM 2019: d 16 .. 256 on ML-1M at T 200, FFN
 # 4d), which fused_block.supports rejects: 2 heads of 128, FFN 1,024, 2
@@ -4506,27 +4775,32 @@ def dconv_train_phase(dev):
           "RecBLR d_conv 9: the step disagrees with the plain step")
 
 
-def _row15_pairs(lens, t, causal):
+def _row15_pairs(lens, t, causal, tq=None, q0=0):
     """Per-head (query, key) pairs this data can weigh: keys below the
     length (every key on a row of lens 0), and not after the query when
-    causal."""
+    causal; the queries q0 .. q0 + tq - 1 (a seq rank's chunk; all T by
+    default)."""
     n = _kept_keys(lens, t).double()
+    tq = t if tq is None else tq
     if causal:
-        pairs = torch.where(lens.clamp(0, t) == 0, n * t, n * (n + 1) / 2 + (t - n) * n)
+        rows = torch.arange(q0 + 1, q0 + tq + 1, dtype=torch.float64)
+        upto = torch.minimum(n[:, None], rows[None, :]).sum(1)
+        pairs = torch.where(lens.clamp(0, t) == 0, n * tq, upto)
     else:
-        pairs = n * t
+        pairs = n * tq
     return float(pairs.sum())
 
 
-def row15_bound_ms(lens, shape, causal, act_bytes, priced_fma=False):
+def row15_bound_ms(lens, shape, causal, act_bytes, priced_fma=False, tq=None, q0=0):
     # QK^T and P.V, 2 dh FLOP each per kept pair, on the tensor cores (dh
     # <= 128): fp32 3xTF32 (three TF32 products each); bf16 QK^T bf16
     # products, P.V two TF32 products (P split, V exact in TF32); with
     # ``priced_fma`` every product at the fp32 FMA peak.  q, k, v read and
-    # out written once.
+    # out written once (q and out at the tq queries of a chunk).
     b, h, t, dh = shape
-    mm = 2 * dh * h * _row15_pairs(lens, t, causal)
-    nbytes = 4 * b * h * t * dh * act_bytes
+    tq = t if tq is None else tq
+    mm = 2 * dh * h * _row15_pairs(lens, t, causal, tq, q0)
+    nbytes = 2 * b * h * (tq + t) * dh * act_bytes
     if priced_fma:
         return _bound(2 * mm, nbytes)
     if act_bytes == 2:
@@ -4534,15 +4808,17 @@ def row15_bound_ms(lens, shape, causal, act_bytes, priced_fma=False):
     return _bound(0, nbytes, 0, 6 * mm)
 
 
-def row15_bwd_bound_ms(lens, shape, causal, act_bytes, priced_fma=False):
+def row15_bwd_bound_ms(lens, shape, causal, act_bytes, priced_fma=False, tq=None, q0=0):
     # S again and dP (bf16 products in bf16), dV, dK and dQ (P or dS split
     # against an operand: two TF32 products in bf16), 2 dh FLOP each per
     # kept pair; fp32 3xTF32 throughout; with ``priced_fma`` at the fp32
     # FMA peak.  q, k, v, dout and the fp32 output read, the lse read, dq,
-    # dk, dv written.
+    # dk, dv written (q, dout, the output, the lse and dq at the tq
+    # queries of a chunk, k, v, dk and dv at all T keys).
     b, h, t, dh = shape
-    mm = 2 * dh * h * _row15_pairs(lens, t, causal)
-    nbytes = b * h * t * (dh * (7 * act_bytes + 4) + 4)
+    tq = t if tq is None else tq
+    mm = 2 * dh * h * _row15_pairs(lens, t, causal, tq, q0)
+    nbytes = b * h * (tq * (dh * (3 * act_bytes + 4) + 4) + 4 * t * dh * act_bytes)
     if priced_fma:
         return _bound(5 * mm, nbytes)
     if act_bytes == 2:
@@ -4820,13 +5096,25 @@ def _spec(case):
     return MESH_CASES[case] if case in MESH_CASES else SEQ_CASES[case]
 
 
+@contextlib.contextmanager
 def _per_op(model):
-    """RecBLR ``model`` held to the per-op composition a ``seq`` axis runs
-    (``_gated_recurrent``, row 7 in each layer) at any shape: there an
-    empty request reads position T-1, where the fused kernels select
-    nothing."""
-    model.use_fused_layer = model.use_chunked_layer = model.use_fused_bdlru = lambda: False
-    return model
+    """``model`` held to the per-op composition a ``seq`` axis runs, at any
+    shape, while the context is open: RecBLR's ``_gated_recurrent`` (row 7
+    in each layer; there an empty request reads position T-1, where the
+    fused kernels select nothing), the attention models' per-op layers with
+    row 15 for the masked softmax (``fused_block.supports`` refuses every
+    shape; an empty request reads position 0, where the fused top layer
+    reads another)."""
+    if isinstance(model, RB.RecBLR):
+        model.use_fused_layer = model.use_chunked_layer = model.use_fused_bdlru = lambda: False
+        yield model
+        return
+    keep = FB.supports
+    FB.supports = lambda *a, **k: False
+    try:
+        yield model
+    finally:
+        FB.supports = keep
 
 
 def _mesh_config(case, meshed):
@@ -4932,19 +5220,24 @@ def _mesh_drive(dev, case, meshed, params=None, per_op=False):
     rank of it at the whole table on its time chunk's ids.  With
     ``per_op`` the single process runs the seq axis's composition
     (``_per_op``)."""
+    spec = _spec(case)
+    cfg = _mesh_config(case, meshed)
+    model = get_model(spec["model"])(cfg, spec["v"], spec["t"], device=dev,
+                                     generator=torch.Generator().manual_seed(SEED))
+    with _per_op(model) if per_op else contextlib.nullcontext():
+        return _drive(dev, case, spec, cfg, model, params)
+
+
+def _drive(dev, case, spec, cfg, model, params):
+    """``_mesh_drive``'s run of ``model``."""
     from datamining_recblr_torch.eval.evaluator import Evaluator
     from datamining_recblr_torch.parallel.input import process_local_rows, seq_chunk
     from datamining_recblr_torch.parallel.sharding import gather_state
     from datamining_recblr_torch.train.trainer import Trainer
 
-    spec = _spec(case)
-    cfg = _mesh_config(case, meshed)
-    model = get_model(spec["model"])(cfg, spec["v"], spec["t"], device=dev,
-                                     generator=torch.Generator().manual_seed(SEED))
-    if per_op:
-        _per_op(model)
     trainer = Trainer(cfg, model)
     mesh = trainer.mesh
+    meshed = mesh is not None
     batches, valid = _mesh_batches(case)
     lo, hi = process_local_rows(spec["b"], mesh)
     out = {"shards": dict(model.shards), "lr": float(cfg["learning_rate"]),
@@ -5256,8 +5549,9 @@ def mesh_phases(dev, smi):
 
 
 # ---------------------------------------------------------------------------
-# the seq axis (ops/seq_parallel_scan.py, RecBLR's time axis sharded over
-# ranks): four gloo ranks sharing the card, after the meshed path
+# the seq axis (every model's time axis sharded over ranks: RecBLR's
+# ops/seq_parallel_scan.py, the attention models' K / V gathers and row 15
+# at a query chunk): four gloo ranks sharing the card, after the meshed path
 # ---------------------------------------------------------------------------
 
 SEQ_SCAN = (XB, XT, C)  # XLong's recurrence: B 512, T 1,024, C 128, fp32
@@ -5265,12 +5559,21 @@ SEQ_RANKS = 4
 # row 7 launches a layer a step: two local scans forward, their two
 # reverse scans backward (and two scans a layer a forward without grad)
 SEQ_COUNTED = (SC.linear_scan, SC.linear_scan_reverse)
+# the attention models' seq path a step: the prologue (row 6) once and row 15
+# once a layer (two layers), forward and backward; a forward without grad
+# (an eval batch, a recommend() call) row 6 once and row 15 twice
+SEQ_ATTN_COUNTED = (FL.fused_ln_dropout, A.fused_attention, FL.fused_ln_dropout_bwd,
+                    A.fused_attention_bwd)
 # each case on the mesh ``mesh`` against the same config in one process
 # from the same seed on the same batches (``_mesh_drive``), twice: in the
 # seq axis's per-op composition (``_per_op``; row 7, and XLong's rows 14
-# and 16), every check, and on the model's own kernels (the bench widths
-# rows 1-4, XLong rows 9, 3, 14 and 16), the steps: the bench widths on
-# {data: 2, seq: 2} and XLong's own config on {seq: 4}
+# and 16; the attention models' rows 6 and 15, and BERT4Rec's row 13 on a
+# replicated table), every check, and on the model's own kernels (the
+# bench widths rows 1-4, XLong rows 9, 3, 14 and 16, the attention models'
+# rows 6 and 10-13), the steps: the bench widths on {data: 2, seq: 2}
+# (RecBLR, SASRec, BERT4Rec) and on {model: 2, seq: 2} with the table
+# row-sharded (RecBLR, BERT4Rec: the vocab-parallel CE), and XLong's own
+# config on {seq: 4}
 SEQ_CASES = {
     "seq-recblr": dict(
         model="RecBLR", mesh={"data": 2, "seq": 2}, cfg={}, t=T, v=N_ITEMS, b=TRAIN_B,
@@ -5283,6 +5586,22 @@ SEQ_CASES = {
         counted=SEQ_COUNTED + (FCE.fused_softmax_ce_chunked, FCE.fused_softmax_ce_chunked_bwd,
                                E.embedding_grad),
         per_step=(4, 4, 1, 1, 1), after=(0,) * 5, check=("emb-grad",)),
+    "seq-sasrec": dict(
+        model="SASRec", mesh={"data": 2, "seq": 2}, cfg={}, t=T, v=N_ITEMS, b=TRAIN_B,
+        steps=2, counted=SEQ_ATTN_COUNTED, per_step=(1, 2, 1, 2), after=(2, 4, 0, 0),
+        check=("eval", "serve")),
+    "seq-bert4rec": dict(
+        model="BERT4Rec", mesh={"data": 2, "seq": 2}, cfg={}, t=T, v=N_ITEMS, b=TRAIN_B,
+        steps=2, counted=SEQ_ATTN_COUNTED + (FCE.fused_softmax_ce, FCE.fused_softmax_ce_bwd),
+        per_step=(1, 2, 1, 2, 1, 1), after=(2, 4, 0, 0, 0, 0), check=("eval", "serve")),
+    "seq-model-recblr": dict(
+        model="RecBLR", mesh={"model": 2, "seq": 2}, cfg={"vocab_row_shard": "always"}, t=T,
+        v=N_ITEMS, b=TRAIN_B, steps=2, counted=SEQ_COUNTED, per_step=(4, 4), after=(8, 0),
+        check=("eval", "serve")),
+    "seq-model-bert4rec": dict(
+        model="BERT4Rec", mesh={"model": 2, "seq": 2}, cfg={"vocab_row_shard": "always"},
+        t=T, v=N_ITEMS, b=TRAIN_B, steps=2, counted=SEQ_ATTN_COUNTED, per_step=(1, 2, 1, 2),
+        after=(2, 4, 0, 0), check=("eval", "serve")),
 }
 
 
@@ -5351,24 +5670,31 @@ def _seq_rank(rank, world, port, out_dir, device):
 
 def seq_phases(dev, smi):
     """The ``seq`` axis on the one card, four gloo ranks sharing it: row 7
-    against its plain version at the chunk shape [512, 256, 128]; (a)
-    ``seq-scan``, ``seq_parallel_scan`` on {seq: 4} at XLong's recurrence
-    against one process (``_seq_scan_rank``); (b) ``seq-recblr``, RecBLR
-    at the bench widths on {data: 2, seq: 2} for ``MESH_STEPS`` steps,
-    one eval batch's full-sort ranks and 256 users' ``recommend`` ids; (c)
-    ``seq-xlong``, XLong's config on {seq: 4} for one step with row 16 at
-    each rank's ids.  (b) and (c) are held to one process in the seq
-    axis's composition by ``_compare`` (every check) and to one process
-    on the model's own kernels by ``_steps_vs_single`` (the losses and the
+    against its plain version at the chunk shape [512, 256, 128], row 15
+    at a query chunk and row 6 at a t0 (``row15_chunk_vs_plain``,
+    ``row6_chunk_vs_plain``); (a) ``seq-scan``, ``seq_parallel_scan`` on
+    {seq: 4} at XLong's recurrence against one process
+    (``_seq_scan_rank``); (b) ``seq-recblr``, RecBLR at the bench widths
+    on {data: 2, seq: 2} for ``MESH_STEPS`` steps, one eval batch's
+    full-sort ranks and 256 users' ``recommend`` ids; (c) ``seq-xlong``,
+    XLong's config on {seq: 4} for one step with row 16 at each rank's
+    ids; (d) ``seq-sasrec`` and ``seq-bert4rec`` at the bench widths on
+    {data: 2, seq: 2}, ``seq-model-recblr`` and ``seq-model-bert4rec`` on
+    {model: 2, seq: 2} with the table row-sharded, two steps each and
+    (b)'s checks.  Each case is held to one process in the seq axis's
+    composition by ``_compare`` (every check) and to one process on the
+    model's own kernels by ``_steps_vs_single`` (the losses and the
     gradients held, the update share read).  No time here is a multi-GPU
-    time.  Returns {"errs": row 7's errors at the chunk shape,
-    "launches": {phase: {kernel: launches a rank}}}."""
+    time.  Returns {"errs": rows 7, 15 and 6's errors at the chunk
+    shapes, "launches": {phase: {kernel: launches a rank}}}."""
     import gc
     import tempfile
 
     import torch.multiprocessing as mp
 
     errs = scan_kernels_vs_plain(dev, shapes=((XB, XT // SEQ_RANKS, C),))
+    errs.update(row15_chunk_vs_plain(dev))
+    errs.update(row6_chunk_vs_plain(dev))
     _cuda.build()  # the ranks load the built libraries
     gc.collect()
     torch.cuda.empty_cache()
@@ -5406,9 +5732,10 @@ def seq_phases(dev, smi):
         own_fields, own_checks = _steps_vs_single(f"{case} (own path)", got,
                                                   _mesh_drive(dev, case, meshed=False),
                                                   dtype, prefix="own_path_")
+        p = cfg["dropout_prob"] if spec["model"] == "RecBLR" else cfg["hidden_dropout_prob"]
         phase(case, mesh=repr(spec["mesh"]), backend="gloo", ranks=SEQ_RANKS,
               model=spec["model"], dtype=dtype, batch=spec["b"], T=spec["t"], V=spec["v"],
-              p=cfg["dropout_prob"], **fields, **own_fields)
+              p=p, **fields, **own_fields)
         # against the model's own kernels the steps hold to the loss and
         # gradient tolerances; the update share is read, not held (a bf16
         # per-op composition and the fused kernels round apart, and one
@@ -5604,6 +5931,7 @@ def main():
     ln_fwd_kernel_times(dev)
     row15_rows = row15_kernel_times(dev)
     row15_phase_times(dev)
+    chunk_kernel_times(dev)
     # launches: each model's kernels in one training step of its main path
     # (fp32), the forwards' launches per recommend() beside them (RecBLR's;
     # the attention kernels' in SASRec's and BERT4Rec's)

@@ -7,6 +7,13 @@
 //     s = q k^T / sqrt(dh) + mask;  p = softmax(s);  out = (p * m_h) v
 // q, k, v, out: [B, H, T, dh]; m_h the dropout mask of head h.
 //
+// A query chunk (the seq mesh axis: one rank's queries against the keys of
+// the whole sequence): q and out [B, H, Tq, dh], k and v [B, H, T, dh],
+// query row r at global position qoff + r.  The causal mask, the last key
+// a tile visits and the dropout mask's Philox position take that global
+// position, so a chunk computes the rows qoff .. qoff + Tq - 1 of the
+// whole call, bit for bit.  Tq = T and qoff = 0 is the whole call.
+//
 // The TPU kernel holds a whole [T, T] score tile of a (row block, head) in
 // VMEM.  A Hopper block has 227 KB, 16 MB short of that tile at T 2,048,
 // so this kernel takes one block per (row, head, tile of queries) and
@@ -64,18 +71,19 @@ __global__ void __launch_bounds__(MMA_THREADS, 3)
 attn_fwd_mma_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
                     const Tin* __restrict__ v, const int* __restrict__ lens,
                     Tin* __restrict__ out, float* __restrict__ o32, float* __restrict__ lse,
-                    int H, int T, int dh, int causal, float scale, Dropout dr) {
+                    int H, int Tq, int T, int qoff, int dh, int causal, float scale, Dropout dr) {
   constexpr int KC = FWD_KC<Tin>, NC = KC / 8;
   extern __shared__ __align__(16) float smem[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
   const int dh16 = pad16(dh), ld = row_ld<Tin>(dh16), nt = (dh + 7) / 8;
   Tin* qs = reinterpret_cast<Tin*>(sm);  // [64][ld]  the block's queries
-  const int tiles = (T + MMA_ROWS - 1) / MMA_ROWS;
+  const int tiles = (Tq + MMA_ROWS - 1) / MMA_ROWS;
   const int bh = blockIdx.x / tiles, q0 = (blockIdx.x % tiles) * MMA_ROWS;
   const int b = bh / H, h = bh % H;
-  const size_t base = (size_t)bh * T * dh;
+  const size_t base = (size_t)bh * T * dh, qbase = (size_t)bh * Tq * dh;
   const int lane = threadIdx.x & 31, gid = lane >> 2, t = lane & 3;
   const int i0 = q0 + (threadIdx.x >> 5) * 16 + gid;  // the query of row gid
+  const int g0 = qoff + i0;                           // and its global position
   const RowKeys rk = row_keys(lens[b], T);
   const Tin* qw = qs + (threadIdx.x >> 5) * 16 * ld;
   float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f}, acc[NT][4];
@@ -83,8 +91,8 @@ attn_fwd_mma_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  walk<Tin, KC>(sm, qs, nullptr, q + base, nullptr, q0, k + base, v + base, 0,
-                key_end(rk, causal, min(q0 + MMA_ROWS, T)), T, dh,
+  walk<Tin, KC>(sm, qs, nullptr, q + qbase, nullptr, q0, k + base, v + base, 0,
+                key_end(rk, causal, qoff + min(q0 + MMA_ROWS, Tq)), Tq, T, dh,
                 [&](int c0, const Chunk<Tin>& kc, const Chunk<Tin>& vc) {
     float s[NC][4];
 #pragma unroll
@@ -99,7 +107,7 @@ attn_fwd_mma_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
     for (int j = 0; j < NC; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[j][e] = masked_score(__fmul_rn(s[j][e], scale), i0 + (e & 2 ? 8 : 0),
+        s[j][e] = masked_score(__fmul_rn(s[j][e], scale), g0 + (e & 2 ? 8 : 0),
                                c0 + 8 * j + 2 * t + (e & 1), rk, causal, T);
     // online softmax of rows gid (r = 0) and gid + 8 (r = 1), each over
     // the quad of lanes that holds it
@@ -134,7 +142,7 @@ attn_fwd_mma_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
         float m[4];
-        masks_q_rows(dr, h, b, i0, c0 + 8 * j, m);
+        masks_q_rows(dr, h, b, g0, c0 + 8 * j, m);
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] *= m[e];
       }
@@ -145,9 +153,9 @@ attn_fwd_mma_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + 8 * r;
-    if (i >= T) continue;
+    if (i >= Tq) continue;
     const float inv = 1.f / lrow[r];
-    const size_t row = base + (size_t)i * dh;
+    const size_t row = qbase + (size_t)i * dh;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -158,21 +166,21 @@ attn_fwd_mma_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k,
         store_act(out, row + d, o);
         if (o32 != nullptr) o32[row + d] = o;
       }
-    if (lse != nullptr && t == 0) lse[(size_t)bh * T + i] = mrow[r] * LOG2E + log2f(lrow[r]);
+    if (lse != nullptr && t == 0) lse[(size_t)bh * Tq + i] = mrow[r] * LOG2E + log2f(lrow[r]);
   }
 }
 
 template <typename Tin, int NT>
 cudaError_t launch_mma(const Tin* q, const Tin* k, const Tin* v, const int* lens, Tin* out,
-                       float* o32, float* lse, int B, int H, int T, int dh, int causal,
-                       float scale, Dropout dr, cudaStream_t stream) {
+                       float* o32, float* lse, int B, int H, int Tq, int T, int qoff, int dh,
+                       int causal, float scale, Dropout dr, cudaStream_t stream) {
   const size_t smem = fwd_mma_smem<Tin>(pad16(dh));
   cudaError_t e = cudaFuncSetAttribute(attn_fwd_mma_kernel<Tin, NT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const unsigned blocks = (unsigned)B * H * ((T + MMA_ROWS - 1) / MMA_ROWS);
+  const unsigned blocks = (unsigned)B * H * ((Tq + MMA_ROWS - 1) / MMA_ROWS);
   attn_fwd_mma_kernel<Tin, NT><<<blocks, MMA_THREADS, smem, stream>>>(
-      q, k, v, lens, out, o32, lse, H, T, dh, causal, scale, dr);
+      q, k, v, lens, out, o32, lse, H, Tq, T, qoff, dh, causal, scale, dr);
   return cudaGetLastError();
 }
 
@@ -182,8 +190,8 @@ template <typename Tin, int QT, int NJ>
 __global__ void __launch_bounds__(ATTN_THREADS)
 attn_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* __restrict__ v,
                 const int* __restrict__ lens, Tin* __restrict__ out, float* __restrict__ o32,
-                float* __restrict__ lse, int H, int T, int dh, int causal, float scale,
-                Dropout dr) {
+                float* __restrict__ lse, int H, int Tq, int T, int qoff, int dh, int causal,
+                float scale, Dropout dr) {
   constexpr int KT = QT;
   constexpr int RA = QT / 16;  // query rows of a thread: ty * RA + a
   constexpr int CB = KT / 16;  // keys of a thread in a tile: tx + 16 c
@@ -194,17 +202,17 @@ attn_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin*
   float* qs = smem;          // [QT, LD]  the query tile
   float* kv = qs + QT * LD;  // [KT, LD]  a key tile, then its value tile
   float* ps = kv + KT * LD;  // [QT, PL]  the tile's weights (dropped)
-  const int tiles = (T + QT - 1) / QT;
+  const int tiles = (Tq + QT - 1) / QT;
   const int bh = blockIdx.x / tiles;
   const int q0 = (blockIdx.x % tiles) * QT;
-  const int q1 = min(q0 + QT, T);
+  const int q1 = min(q0 + QT, Tq);
   const int b = bh / H, h = bh % H;
-  const size_t base = (size_t)bh * T * dh;
+  const size_t base = (size_t)bh * T * dh, qbase = (size_t)bh * Tq * dh;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const RowKeys rk = row_keys(lens[b], T);
-  const int kend = key_end(rk, causal, q1);
+  const int kend = key_end(rk, causal, qoff + q1);
 
-  load_rows<Tin, W>(q + base, q0, q1 - q0, QT, dh, LD, qs);
+  load_rows<Tin, W>(q + qbase, q0, q1 - q0, QT, dh, LD, qs);
   float m[RA], l[RA], acc[RA][NJ];
 #pragma unroll
   for (int a = 0; a < RA; ++a) {
@@ -239,7 +247,7 @@ attn_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin*
     // threads that hold it (one half-warp)
 #pragma unroll
     for (int a = 0; a < RA; ++a) {
-      const int i = q0 + ty * RA + a;
+      const int i = qoff + q0 + ty * RA + a;
       float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < CB; ++c) {
@@ -270,7 +278,7 @@ attn_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin*
     if (dr.on) {
       for (int g = threadIdx.x; g < QT * (KT / 4); g += blockDim.x) {
         const int r = g / (KT / 4), c4 = (g % (KT / 4)) * 4;
-        const uint4 w = prob_mask_words(dr, h, b, q0 + r, (k0 + c4) >> 2);
+        const uint4 w = prob_mask_words(dr, h, b, qoff + q0 + r, (k0 + c4) >> 2);
         float* row = ps + r * PL + c4;
 #pragma unroll
         for (int u = 0; u < 4; ++u) row[u] *= mask_of(dr, w, u);
@@ -294,9 +302,9 @@ attn_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin*
 #pragma unroll
   for (int a = 0; a < RA; ++a) {
     const int i = q0 + ty * RA + a;
-    if (i >= T) continue;
+    if (i >= Tq) continue;
     const float inv = 1.f / l[a];
-    const size_t row = base + (size_t)i * dh;
+    const size_t row = qbase + (size_t)i * dh;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int dd = tx + 16 * j;
@@ -305,22 +313,22 @@ attn_fwd_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin*
       store_act(out, row + dd, o);
       if (o32 != nullptr) o32[row + dd] = o;
     }
-    if (lse != nullptr && tx == 0) lse[(size_t)bh * T + i] = m[a] * LOG2E + log2f(l[a]);
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * Tq + i] = m[a] * LOG2E + log2f(l[a]);
   }
 }
 
 template <typename Tin, int QT, int NJ>
 cudaError_t launch(const Tin* q, const Tin* k, const Tin* v, const int* lens, Tin* out,
-                   float* o32, float* lse, int B, int H, int T, int dh, int causal, float scale,
-                   Dropout dr, cudaStream_t stream) {
+                   float* o32, float* lse, int B, int H, int Tq, int T, int qoff, int dh,
+                   int causal, float scale, Dropout dr, cudaStream_t stream) {
   constexpr int LD = NJ * 16 + 1;
   const size_t smem = sizeof(float) * ((size_t)2 * QT * LD + (size_t)QT * (QT + 1));
   cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<Tin, QT, NJ>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const unsigned blocks = (unsigned)B * H * ((T + QT - 1) / QT);
+  const unsigned blocks = (unsigned)B * H * ((Tq + QT - 1) / QT);
   attn_fwd_kernel<Tin, QT, NJ><<<blocks, ATTN_THREADS, smem, stream>>>(
-      q, k, v, lens, out, o32, lse, H, T, dh, causal, scale, dr);
+      q, k, v, lens, out, o32, lse, H, Tq, T, qoff, dh, causal, scale, dr);
   return cudaGetLastError();
 }
 
@@ -328,15 +336,19 @@ cudaError_t launch(const Tin* q, const Tin* k, const Tin* v, const int* lens, Ti
 // FMA kernel (32 queries and keys a tile) beyond.
 template <typename Tin>
 cudaError_t attn_fwd(const Tin* q, const Tin* k, const Tin* v, const int* lens, Tin* out,
-                     float* o32, float* lse, int B, int H, int T, int dh, int causal, float scale,
-                     Dropout dr, cudaStream_t s) {
+                     float* o32, float* lse, int B, int H, int Tq, int T, int qoff, int dh,
+                     int causal, float scale, Dropout dr, cudaStream_t s) {
   if (dh <= 32)
-    return launch_mma<Tin, 4>(q, k, v, lens, out, o32, lse, B, H, T, dh, causal, scale, dr, s);
+    return launch_mma<Tin, 4>(q, k, v, lens, out, o32, lse, B, H, Tq, T, qoff, dh, causal,
+                              scale, dr, s);
   if (dh <= 64)
-    return launch_mma<Tin, 8>(q, k, v, lens, out, o32, lse, B, H, T, dh, causal, scale, dr, s);
+    return launch_mma<Tin, 8>(q, k, v, lens, out, o32, lse, B, H, Tq, T, qoff, dh, causal,
+                              scale, dr, s);
   if (dh <= MMA_MAX_DH)
-    return launch_mma<Tin, 16>(q, k, v, lens, out, o32, lse, B, H, T, dh, causal, scale, dr, s);
-  return launch<Tin, 32, 16>(q, k, v, lens, out, o32, lse, B, H, T, dh, causal, scale, dr, s);
+    return launch_mma<Tin, 16>(q, k, v, lens, out, o32, lse, B, H, Tq, T, qoff, dh, causal,
+                               scale, dr, s);
+  return launch<Tin, 32, 16>(q, k, v, lens, out, o32, lse, B, H, Tq, T, qoff, dh, causal, scale,
+                             dr, s);
 }
 
 // Blocks of the tensor-core kernel (dh <= 128) that fit on one SM.
@@ -357,16 +369,17 @@ int fwd_blocks_per_sm(int dh) {
 
 extern "C" {
 
-// q, k, v, out: [B, H, T, dh] fp32 (bf16 == 0) or bf16, contiguous, dh <=
-// 256; lens: [B] int32; o32: [B, H, T, dh] fp32 or null (the fp32 output
-// a bf16 training call keeps); lse: [B, H, T] fp32 or null (a training
-// call's log2-sum-exp); scale: 1 / sqrt(dh) in fp32; drop, seed, thresh,
-// dscale: the probabilities' dropout (common.cuh Dropout); device: the
-// card that holds them.
+// q, out: [B, H, Tq, dh] and k, v: [B, H, T, dh] fp32 (bf16 == 0) or
+// bf16, contiguous, dh <= 256, query row r at global position qoff + r
+// (qoff + Tq <= T); lens: [B] int32; o32: [B, H, Tq, dh] fp32 or null
+// (the fp32 output a bf16 training call keeps); lse: [B, H, Tq] fp32 or
+// null (a training call's log2-sum-exp); scale: 1 / sqrt(dh) in fp32;
+// drop, seed, thresh, dscale: the probabilities' dropout (common.cuh
+// Dropout); device: the card that holds them.
 int recblr_attn_fwd(const void* q, const void* k, const void* v, const void* lens, void* out,
-                    void* o32, void* lse, int B, int H, int T, int dh, int causal, float scale,
-                    int bf16, int drop, unsigned long long seed, unsigned thresh, float dscale,
-                    int device, void* stream) {
+                    void* o32, void* lse, int B, int H, int Tq, int T, int qoff, int dh,
+                    int causal, float scale, int bf16, int drop, unsigned long long seed,
+                    unsigned thresh, float dscale, int device, void* stream) {
   // this library has its own (static) CUDA runtime: select the tensors' card
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
@@ -378,12 +391,12 @@ int recblr_attn_fwd(const void* q, const void* k, const void* v, const void* len
   if (bf16) {
     using T16 = __nv_bfloat16;
     return attn_fwd(static_cast<const T16*>(q), static_cast<const T16*>(k),
-                    static_cast<const T16*>(v), ln, static_cast<T16*>(out), o, ls, B, H, T, dh,
-                    causal, scale, dr, s);
+                    static_cast<const T16*>(v), ln, static_cast<T16*>(out), o, ls, B, H, Tq, T,
+                    qoff, dh, causal, scale, dr, s);
   }
   return attn_fwd(static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), ln, static_cast<float*>(out), o, ls, B, H, T, dh,
-                  causal, scale, dr, s);
+                  static_cast<const float*>(v), ln, static_cast<float*>(out), o, ls, B, H, Tq, T,
+                  qoff, dh, causal, scale, dr, s);
 }
 
 // Blocks an SM holds of the forward's tensor-core kernel at head width dh

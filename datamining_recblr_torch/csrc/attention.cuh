@@ -221,20 +221,22 @@ __host__ __device__ inline size_t walk_bytes(int n, int rows, int ld) {
 }
 
 // The walk of a block (shared memory sm, walk_bytes): its own rows own0 ..
-// of ga (and gb, unless b is null) staged once into a (and b), and chunks
-// of C rows of two walked [*, dh] matrices x and y (rows w0 + C c below
-// wend) in two buffers, chunk c + 1 copied while body(c0, xc, yc) reads
-// chunk c (c0 its first walked row), each split once it landed.
+// of ga (and gb, unless b is null; [own_n, dh]) staged once into a (and b),
+// and chunks of C rows of two walked [wn, dh] matrices x and y (rows w0 +
+// C c below wend) in two buffers, chunk c + 1 copied while body(c0, xc, yc)
+// reads chunk c (c0 its first walked row), each split once it landed.
+// own_n and wn differ on a query chunk: the queries of one seq rank
+// against the keys of the whole sequence.
 template <typename Tin, int C, typename Body>
 __device__ __forceinline__ void walk(unsigned char* sm, Tin* a, Tin* b, const Tin* ga,
                                      const Tin* gb, int own0, const Tin* x, const Tin* y,
-                                     int w0, int wend, int T, int dh, Body body) {
+                                     int w0, int wend, int own_n, int wn, int dh, Body body) {
   const int dh16 = pad16(dh), ld = row_ld<Tin>(dh16);
   const size_t cb = chunk_bytes<Tin>(C, ld);
   unsigned char* bufs = sm + (b ? 2 : 1) * sizeof(Tin) * (size_t)ld * MMA_ROWS;
   auto chunk = [&](int c, int o) { return chunk_at<Tin>(bufs + ((c & 1) * 2 + o) * cb, C, ld); };
   auto fetch = [&](int c) {
-    const int c0 = w0 + c * C, rows = min(C, T - c0);
+    const int c0 = w0 + c * C, rows = min(C, wn - c0);
     copy_rows(chunk(c, 0).v, ld, x + (size_t)c0 * dh, rows, C, dh, dh16);
     copy_rows(chunk(c, 1).v, ld, y + (size_t)c0 * dh, rows, C, dh, dh16);
     cp_async_commit();
@@ -243,7 +245,7 @@ __device__ __forceinline__ void walk(unsigned char* sm, Tin* a, Tin* b, const Ti
     split_chunk(chunk(c, 0), ld, C, dh16);
     split_chunk(chunk(c, 1), ld, C, dh16);
   };
-  const int own = min(MMA_ROWS, T - own0), nch = (wend - w0 + C - 1) / C;
+  const int own = min(MMA_ROWS, own_n - own0), nch = (wend - w0 + C - 1) / C;
   copy_rows(a, ld, ga + (size_t)own0 * dh, own, MMA_ROWS, dh, dh16);
   if (b) copy_rows(b, ld, gb + (size_t)own0 * dh, own, MMA_ROWS, dh, dh16);
   fetch(0);

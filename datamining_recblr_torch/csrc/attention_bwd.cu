@@ -24,6 +24,12 @@
 // visited; a row whose lens is 0 attends to all T keys, its raw scores
 // the forward's FMA sums (attention.cuh).
 //
+// A query chunk (attention.cu): q, dout, dq, o32, lse and delta hold Tq
+// queries at global positions qoff .., k, v, dk and dv all T keys.  dq is
+// the chunk's rows of the whole call's; dk and dv are the chunk's share of
+// the whole call's, the sums over its queries alone, which the seq ranks'
+// collective adds up.  Tq = T and qoff = 0 is the whole call.
+//
 // What bounds it: 10 dh FLOP per kept (query, key) pair (S again, dP,
 // dV, dQ, dK).  Up to dh 128 every product runs on the tensor cores
 // (attention.cuh's scheme): the S and dP (or S^T and dP^T) tiles are C
@@ -100,18 +106,19 @@ __device__ __forceinline__ void transposed_scores(const float* ks, const float* 
 
 // P (dropped) and dS of query i and the thread's keys j0 .. j0 + RA - 1,
 // from their raw products st, dpt; ls, dl the query's lse and delta.
+// i is the query's global position; `valid` false for a padding row.
 template <int RA>
-__device__ __forceinline__ void probs_and_ds(const float* st, const float* dpt, int i, int j0,
-                                             float ls, float dl, const RowKeys& rk, int causal,
-                                             int T, float scale, const Dropout& dr, int b,
-                                             int h, float* pd, float* ds) {
+__device__ __forceinline__ void probs_and_ds(const float* st, const float* dpt, int i, bool valid,
+                                             int j0, float ls, float dl, const RowKeys& rk,
+                                             int causal, int T, float scale, const Dropout& dr,
+                                             int b, int h, float* pd, float* ds) {
   uint4 w = make_uint4(0u, 0u, 0u, 0u);
-  if (dr.on && i < T) w = prob_mask_words(dr, h, b, i, j0 >> 2);
+  if (dr.on && valid) w = prob_mask_words(dr, h, b, i, j0 >> 2);
 #pragma unroll
   for (int a = 0; a < RA; ++a) {
     const int j = j0 + a;
     pd[a] = ds[a] = 0.f;
-    if (i >= T) continue;
+    if (!valid) continue;
     const float sc = masked_score(__fmul_rn(st[a], scale), i, j, rk, causal, T);
     if (sc == -INFINITY) continue;
     const float p = exp2f(sc * LOG2E - ls);
@@ -128,7 +135,8 @@ __global__ void __launch_bounds__(ATTN_THREADS)
 dkdv_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* __restrict__ v,
             const int* __restrict__ lens, const Tin* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta, Tin* __restrict__ dk,
-            Tin* __restrict__ dv, int H, int T, int dh, int causal, float scale, Dropout dr) {
+            Tin* __restrict__ dv, int H, int Tq, int T, int qoff, int dh, int causal, float scale,
+            Dropout dr) {
   constexpr int KT = QT;
   constexpr int RA = KT / 16;  // keys of a thread: ty * RA + a
   constexpr int CB = QT / 16;  // queries of a thread in a tile: tx + 16 c
@@ -149,10 +157,11 @@ dkdv_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* __r
   const int k0 = (blockIdx.x % tiles) * KT;
   const int kn = min(KT, T - k0);
   const int b = bh / H, h = bh % H;
-  const size_t base = (size_t)bh * T * dh;
+  const size_t base = (size_t)bh * T * dh, qbase = (size_t)bh * Tq * dh;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const RowKeys rk = row_keys(lens[b], T);
-  if (rk.any && k0 >= rk.n) {  // keys no query attends to
+  // keys no query (of the chunk) attends to
+  if (rk.any && (k0 >= rk.n || (causal && k0 >= qoff + Tq))) {
     for (int idx = threadIdx.x; idx < kn * dh; idx += blockDim.x) {
       store_act(dk, base + (size_t)k0 * dh + idx, 0.f);
       store_act(dv, base + (size_t)k0 * dh + idx, 0.f);
@@ -168,14 +177,14 @@ dkdv_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* __r
     for (int j = 0; j < NJ; ++j) adk[a][j] = adv[a][j] = 0.f;
 
   // a causal row of lens >= 1 reaches key j from queries i >= j only
-  for (int q0 = rk.any && causal ? k0 : 0; q0 < T; q0 += QT) {
-    const int qn = min(QT, T - q0);
+  for (int q0 = rk.any && causal ? max(k0 - qoff, 0) : 0; q0 < Tq; q0 += QT) {
+    const int qn = min(QT, Tq - q0);
     __syncthreads();  // the previous query tile is read
-    load_rows<Tin, W>(q + base, q0, qn, QT, dh, LD, qs);
-    load_rows<Tin, W>(dout + base, q0, qn, QT, dh, LD, dos);
+    load_rows<Tin, W>(q + qbase, q0, qn, QT, dh, LD, qs);
+    load_rows<Tin, W>(dout + qbase, q0, qn, QT, dh, LD, dos);
     for (int r = threadIdx.x; r < QT; r += blockDim.x) {
-      ls[r] = r < qn ? lse[(size_t)bh * T + q0 + r] : 0.f;
-      dl[r] = r < qn ? delta[(size_t)bh * T + q0 + r] : 0.f;
+      ls[r] = r < qn ? lse[(size_t)bh * Tq + q0 + r] : 0.f;
+      dl[r] = r < qn ? delta[(size_t)bh * Tq + q0 + r] : 0.f;
     }
     __syncthreads();
     float st[RA][CB], dpt[RA][CB];
@@ -189,8 +198,8 @@ dkdv_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* __r
         sa[a] = st[a][c];
         da[a] = dpt[a][c];
       }
-      probs_and_ds<RA>(sa, da, q0 + r, k0 + ty * RA, ls[r], dl[r], rk, causal, T, scale, dr, b,
-                       h, pd, ds);
+      probs_and_ds<RA>(sa, da, qoff + q0 + r, q0 + r < Tq, k0 + ty * RA, ls[r], dl[r], rk,
+                       causal, T, scale, dr, b, h, pd, ds);
 #pragma unroll
       for (int a = 0; a < RA; ++a) {
         pt[(ty * RA + a) * PL + r] = pd[a];
@@ -238,7 +247,7 @@ __global__ void __launch_bounds__(ATTN_THREADS)
 dq_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* __restrict__ v,
           const int* __restrict__ lens, const Tin* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta, Tin* __restrict__ dq,
-          int H, int T, int dh, int causal, float scale, Dropout dr) {
+          int H, int Tq, int T, int qoff, int dh, int causal, float scale, Dropout dr) {
   constexpr int KT = QT;
   constexpr int RA = QT / 16;  // rows of a thread: keys ty * RA + a in the tiles, then
                                // queries ty * RA + a in the dQ sum
@@ -254,21 +263,21 @@ dq_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* __res
   float* dss = vs + KT * LD;  // [QT, PL]  dS
   float* ls = dss + QT * PL;  // [QT]
   float* dl = ls + QT;        // [QT]
-  const int tiles = (T + QT - 1) / QT;
+  const int tiles = (Tq + QT - 1) / QT;
   const int bh = blockIdx.x / tiles;
   const int q0 = (blockIdx.x % tiles) * QT;
-  const int qn = min(QT, T - q0);
+  const int qn = min(QT, Tq - q0);
   const int b = bh / H, h = bh % H;
-  const size_t base = (size_t)bh * T * dh;
+  const size_t base = (size_t)bh * T * dh, qbase = (size_t)bh * Tq * dh;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const RowKeys rk = row_keys(lens[b], T);
-  const int kend = key_end(rk, causal, q0 + qn);
+  const int kend = key_end(rk, causal, qoff + q0 + qn);
 
-  load_rows<Tin, W>(q + base, q0, qn, QT, dh, LD, qs);
-  load_rows<Tin, W>(dout + base, q0, qn, QT, dh, LD, dos);
+  load_rows<Tin, W>(q + qbase, q0, qn, QT, dh, LD, qs);
+  load_rows<Tin, W>(dout + qbase, q0, qn, QT, dh, LD, dos);
   for (int r = threadIdx.x; r < QT; r += blockDim.x) {
-    ls[r] = r < qn ? lse[(size_t)bh * T + q0 + r] : 0.f;
-    dl[r] = r < qn ? delta[(size_t)bh * T + q0 + r] : 0.f;
+    ls[r] = r < qn ? lse[(size_t)bh * Tq + q0 + r] : 0.f;
+    dl[r] = r < qn ? delta[(size_t)bh * Tq + q0 + r] : 0.f;
   }
   float acc[RA][NJ];
 #pragma unroll
@@ -293,8 +302,8 @@ dq_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* __res
         sa[a] = st[a][c];
         da[a] = dpt[a][c];
       }
-      probs_and_ds<RA>(sa, da, q0 + r, k0 + ty * RA, ls[r], dl[r], rk, causal, T, scale, dr, b,
-                       h, pd, ds);
+      probs_and_ds<RA>(sa, da, qoff + q0 + r, r < qn, k0 + ty * RA, ls[r], dl[r], rk, causal,
+                       T, scale, dr, b, h, pd, ds);
 #pragma unroll
       for (int a = 0; a < RA; ++a) dss[r * PL + ty * RA + a] = ds[a];
     }
@@ -315,8 +324,8 @@ dq_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* __res
 #pragma unroll
   for (int a = 0; a < RA; ++a) {
     const int i = q0 + ty * RA + a;
-    if (i >= T) continue;
-    const size_t row = base + (size_t)i * dh;
+    if (i >= Tq) continue;
+    const size_t row = qbase + (size_t)i * dh;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int dd = tx + 16 * j;
@@ -404,8 +413,8 @@ __global__ void __launch_bounds__(PAIR_THREADS, 2)
 dkdv_mma_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* __restrict__ v,
                 const int* __restrict__ lens, const Tin* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                Tin* __restrict__ dk, Tin* __restrict__ dv, int H, int T, int dh, int causal,
-                float scale, Dropout dr) {
+                Tin* __restrict__ dk, Tin* __restrict__ dv, int H, int Tq, int T, int qoff,
+                int dh, int causal, float scale, Dropout dr) {
   constexpr int NH = NT / 2;
   extern __shared__ __align__(16) float smem[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
@@ -415,13 +424,14 @@ dkdv_mma_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin*
   const int tiles = (T + MMA_ROWS - 1) / MMA_ROWS;
   const int bh = blockIdx.x / tiles, k0 = (blockIdx.x % tiles) * MMA_ROWS;
   const int b = bh / H, h = bh % H;
-  const size_t base = (size_t)bh * T * dh;
+  const size_t base = (size_t)bh * T * dh, qbase = (size_t)bh * Tq * dh;
   const int lane = threadIdx.x & 31, gid = lane >> 2, t = lane & 3;
   const int pr = threadIdx.x >> 6, half = (threadIdx.x >> 5) & 1, w16 = pr * 16;
   const int n0 = half * NH, nt = (dh + 7) / 8 - n0;  // this warp's column tiles
   Swap& sw = reinterpret_cast<Swap*>(sm + bwd_mma_smem<Tin>(dh16))[-PAIR_THREADS / 64 + pr];
   const RowKeys rk = row_keys(lens[b], T);
-  if (rk.any && k0 >= rk.n) {  // keys no query attends to
+  // keys no query (of the chunk) attends to
+  if (rk.any && (k0 >= rk.n || (causal && k0 >= qoff + Tq))) {
     const int kn = min(MMA_ROWS, T - k0);
     for (int idx = threadIdx.x; idx < kn * dh; idx += blockDim.x) {
       store_act(dk, base + (size_t)k0 * dh + idx, 0.f);
@@ -437,28 +447,30 @@ dkdv_mma_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin*
   for (int n = 0; n < NH; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
-  // a causal row of lens >= 1 reaches key j from queries i >= j only
-  walk<Tin, BWD_C>(sm, ks, vs, k + base, v + base, k0, q + base, dout + base,
-                   rk.any && causal ? k0 : 0, T, T, dh,
+  // a causal row of lens >= 1 reaches key j from queries i >= j only (the
+  // chunk's local queries from k0 - qoff)
+  walk<Tin, BWD_C>(sm, ks, vs, k + base, v + base, k0, q + qbase, dout + qbase,
+                   rk.any && causal ? max(k0 - qoff, 0) : 0, Tq, T, Tq, dh,
        [&](int c0, const Chunk<Tin>& qc, const Chunk<Tin>& oc) {
          float st[4], dpm[4], m[4];
-         pair_products(sw, pr, half, kw, vw, qc, oc, q + base + (size_t)c0 * dh,
-                       min(BWD_C, T - c0), dh, rk.any, dr.on,
-                       [&](float(&mk)[4]) { masks_k_rows(dr, h, b, j0, c0, mk); }, st, dpm, m);
+         pair_products(sw, pr, half, kw, vw, qc, oc, q + qbase + (size_t)c0 * dh,
+                       min(BWD_C, Tq - c0), dh, rk.any, dr.on,
+                       [&](float(&mk)[4]) { masks_k_rows(dr, h, b, j0, qoff + c0, mk); }, st,
+                       dpm, m);
          float ls[2], dl[2];
 #pragma unroll
          for (int e = 0; e < 2; ++e) {
            const int i = c0 + 2 * t + e;
-           ls[e] = i < T ? lse[(size_t)bh * T + i] : 0.f;
-           dl[e] = i < T ? delta[(size_t)bh * T + i] : 0.f;
+           ls[e] = i < Tq ? lse[(size_t)bh * Tq + i] : 0.f;
+           dl[e] = i < Tq ? delta[(size_t)bh * Tq + i] : 0.f;
          }
          float pd[1][4], ds[1][4];
 #pragma unroll
          for (int e = 0; e < 4; ++e) {
            const int i = c0 + 2 * t + (e & 1), j = j0 + gid + (e & 2 ? 8 : 0);
-           const float sc = masked_score(__fmul_rn(st[e], scale), i, j, rk, causal, T);
+           const float sc = masked_score(__fmul_rn(st[e], scale), qoff + i, j, rk, causal, T);
            pd[0][e] = ds[0][e] = 0.f;
-           if (i < T && sc != -INFINITY) {
+           if (i < Tq && sc != -INFINITY) {
              const float p = exp2f(sc * LOG2E - ls[e & 1]);
              pd[0][e] = p * m[e];
              ds[0][e] = p * (dpm[e] - dl[e & 1]);
@@ -493,52 +505,54 @@ __global__ void __launch_bounds__(PAIR_THREADS, 2)
 dq_mma_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* __restrict__ v,
               const int* __restrict__ lens, const Tin* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              Tin* __restrict__ dq, int H, int T, int dh, int causal, float scale, Dropout dr) {
+              Tin* __restrict__ dq, int H, int Tq, int T, int qoff, int dh, int causal,
+              float scale, Dropout dr) {
   constexpr int NH = NT / 2;
   extern __shared__ __align__(16) float smem[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(smem);
   const int dh16 = pad16(dh), ld = row_ld<Tin>(dh16);
   Tin* qs = reinterpret_cast<Tin*>(sm);  // [64][ld]  the block's queries
   Tin* dos = qs + (size_t)ld * MMA_ROWS;  // [64][ld]  their output gradient
-  const int tiles = (T + MMA_ROWS - 1) / MMA_ROWS;
+  const int tiles = (Tq + MMA_ROWS - 1) / MMA_ROWS;
   const int bh = blockIdx.x / tiles, q0 = (blockIdx.x % tiles) * MMA_ROWS;
   const int b = bh / H, h = bh % H;
-  const size_t base = (size_t)bh * T * dh;
+  const size_t base = (size_t)bh * T * dh, qbase = (size_t)bh * Tq * dh;
   const int lane = threadIdx.x & 31, gid = lane >> 2, t = lane & 3;
   const int pr = threadIdx.x >> 6, half = (threadIdx.x >> 5) & 1, w16 = pr * 16;
   const int n0 = half * NH, nt = (dh + 7) / 8 - n0;
   Swap& sw = reinterpret_cast<Swap*>(sm + bwd_mma_smem<Tin>(dh16))[-PAIR_THREADS / 64 + pr];
   const int i0 = q0 + w16 + gid;  // the query of row gid
+  const int g0 = qoff + i0;       // and its global position
   const RowKeys rk = row_keys(lens[b], T);
-  const int kend = key_end(rk, causal, min(q0 + MMA_ROWS, T));
+  const int kend = key_end(rk, causal, qoff + min(q0 + MMA_ROWS, Tq));
   const Tin* qw = qs + w16 * ld;
   const Tin* dow = dos + w16 * ld;
   float ls[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + 8 * r;
-    ls[r] = i < T ? lse[(size_t)bh * T + i] : 0.f;
-    dl[r] = i < T ? delta[(size_t)bh * T + i] : 0.f;
+    ls[r] = i < Tq ? lse[(size_t)bh * Tq + i] : 0.f;
+    dl[r] = i < Tq ? delta[(size_t)bh * Tq + i] : 0.f;
   }
   float acc[NH][4];
 #pragma unroll
   for (int n = 0; n < NH; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  walk<Tin, BWD_C>(sm, qs, dos, q + base, dout + base, q0, k + base, v + base, 0, kend, T,
-                   dh,
+  walk<Tin, BWD_C>(sm, qs, dos, q + qbase, dout + qbase, q0, k + base, v + base, 0, kend, Tq,
+                   T, dh,
        [&](int c0, const Chunk<Tin>& kc, const Chunk<Tin>& vc) {
          float s[4], dpm[4], m[4];
          pair_products(sw, pr, half, qw, dow, kc, vc, k + base + (size_t)c0 * dh,
                        min(BWD_C, T - c0), dh, rk.any, dr.on,
-                       [&](float(&mk)[4]) { masks_q_rows(dr, h, b, i0, c0, mk); }, s, dpm, m);
+                       [&](float(&mk)[4]) { masks_q_rows(dr, h, b, g0, c0, mk); }, s, dpm, m);
          float ds[1][4];
 #pragma unroll
          for (int e = 0; e < 4; ++e) {
            const int i = i0 + (e & 2 ? 8 : 0), j = c0 + 2 * t + (e & 1);
-           const float sc = masked_score(__fmul_rn(s[e], scale), i, j, rk, causal, T);
+           const float sc = masked_score(__fmul_rn(s[e], scale), qoff + i, j, rk, causal, T);
            ds[0][e] = 0.f;
-           if (i < T && sc != -INFINITY) {
+           if (i < Tq && sc != -INFINITY) {
              const float p = exp2f(sc * LOG2E - ls[e >> 1]);
              ds[0][e] = p * (dpm[e] - dl[e >> 1]);
            }
@@ -548,8 +562,8 @@ dq_mma_kernel(const Tin* __restrict__ q, const Tin* __restrict__ k, const Tin* _
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + 8 * r;
-    if (i >= T) continue;
-    const size_t row = base + (size_t)i * dh;
+    if (i >= Tq) continue;
+    const size_t row = qbase + (size_t)i * dh;
 #pragma unroll
     for (int n = 0; n < NH; ++n)
 #pragma unroll
@@ -565,49 +579,55 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The shape of one call: Tq queries at global positions qoff .., T keys.
+struct Shape {
+  int B, H, Tq, T, qoff, dh;
+};
+
 template <typename Tin, int QT, int NJ>
 cudaError_t launch(const Tin* q, const Tin* k, const Tin* v, const int* lens, const float* o32,
                    const float* lse, const Tin* dout, float* delta, Tin* dq, Tin* dk, Tin* dv,
-                   int B, int H, int T, int dh, int causal, float scale, Dropout dr,
-                   cudaStream_t stream) {
+                   Shape z, int causal, float scale, Dropout dr, cudaStream_t stream) {
   constexpr int LD = NJ * 16 + 1;
-  const int rows = B * H * T;
+  const int rows = z.B * z.H * z.Tq;
   delta_kernel<Tin><<<(unsigned)(((size_t)rows * 32 + 255) / 256), 256, 0, stream>>>(
-      dout, o32, delta, rows, dh);
+      dout, o32, delta, rows, z.dh);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const unsigned blocks = (unsigned)B * H * ((T + QT - 1) / QT);
   const size_t s_kv = sizeof(float) * ((size_t)4 * QT * LD + (size_t)2 * QT * (QT + 1) + 2 * QT);
   if ((e = set_smem(dkdv_kernel<Tin, QT, NJ>, s_kv)) != cudaSuccess) return e;
-  dkdv_kernel<Tin, QT, NJ><<<blocks, ATTN_THREADS, s_kv, stream>>>(
-      q, k, v, lens, dout, lse, delta, dk, dv, H, T, dh, causal, scale, dr);
+  dkdv_kernel<Tin, QT, NJ><<<(unsigned)z.B * z.H * ((z.T + QT - 1) / QT), ATTN_THREADS, s_kv,
+                             stream>>>(q, k, v, lens, dout, lse, delta, dk, dv, z.H, z.Tq, z.T,
+                                       z.qoff, z.dh, causal, scale, dr);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const size_t s_q = sizeof(float) * ((size_t)4 * QT * LD + (size_t)QT * (QT + 1) + 2 * QT);
   if ((e = set_smem(dq_kernel<Tin, QT, NJ>, s_q)) != cudaSuccess) return e;
-  dq_kernel<Tin, QT, NJ><<<blocks, ATTN_THREADS, s_q, stream>>>(
-      q, k, v, lens, dout, lse, delta, dq, H, T, dh, causal, scale, dr);
+  dq_kernel<Tin, QT, NJ><<<(unsigned)z.B * z.H * ((z.Tq + QT - 1) / QT), ATTN_THREADS, s_q,
+                           stream>>>(q, k, v, lens, dout, lse, delta, dq, z.H, z.Tq, z.T, z.qoff,
+                                     z.dh, causal, scale, dr);
   return cudaGetLastError();
 }
 
 template <typename Tin, int NT>
 cudaError_t launch_mma(const Tin* q, const Tin* k, const Tin* v, const int* lens,
                        const float* o32, const float* lse, const Tin* dout, float* delta, Tin* dq,
-                       Tin* dk, Tin* dv, int B, int H, int T, int dh, int causal, float scale,
-                       Dropout dr, cudaStream_t stream) {
-  const int rows = B * H * T;
+                       Tin* dk, Tin* dv, Shape z, int causal, float scale, Dropout dr,
+                       cudaStream_t stream) {
+  const int rows = z.B * z.H * z.Tq;
   delta_kernel<Tin><<<(unsigned)(((size_t)rows * 32 + 255) / 256), 256, 0, stream>>>(
-      dout, o32, delta, rows, dh);
+      dout, o32, delta, rows, z.dh);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const unsigned blocks = (unsigned)B * H * ((T + MMA_ROWS - 1) / MMA_ROWS);
-  const size_t smem = bwd_mma_smem<Tin>(pad16(dh));
+  const size_t smem = bwd_mma_smem<Tin>(pad16(z.dh));
   if ((e = set_smem(dkdv_mma_kernel<Tin, NT>, smem)) != cudaSuccess) return e;
-  dkdv_mma_kernel<Tin, NT><<<blocks, PAIR_THREADS, smem, stream>>>(
-      q, k, v, lens, dout, lse, delta, dk, dv, H, T, dh, causal, scale, dr);
+  dkdv_mma_kernel<Tin, NT><<<(unsigned)z.B * z.H * ((z.T + MMA_ROWS - 1) / MMA_ROWS),
+                             PAIR_THREADS, smem, stream>>>(
+      q, k, v, lens, dout, lse, delta, dk, dv, z.H, z.Tq, z.T, z.qoff, z.dh, causal, scale, dr);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if ((e = set_smem(dq_mma_kernel<Tin, NT>, smem)) != cudaSuccess) return e;
-  dq_mma_kernel<Tin, NT><<<blocks, PAIR_THREADS, smem, stream>>>(
-      q, k, v, lens, dout, lse, delta, dq, H, T, dh, causal, scale, dr);
+  dq_mma_kernel<Tin, NT><<<(unsigned)z.B * z.H * ((z.Tq + MMA_ROWS - 1) / MMA_ROWS),
+                           PAIR_THREADS, smem, stream>>>(
+      q, k, v, lens, dout, lse, delta, dq, z.H, z.Tq, z.T, z.qoff, z.dh, causal, scale, dr);
   return cudaGetLastError();
 }
 
@@ -616,19 +636,18 @@ cudaError_t launch_mma(const Tin* q, const Tin* k, const Tin* v, const int* lens
 template <typename Tin>
 cudaError_t attn_bwd(const Tin* q, const Tin* k, const Tin* v, const int* lens, const float* o32,
                      const float* lse, const Tin* dout, float* delta, Tin* dq, Tin* dk, Tin* dv,
-                     int B, int H, int T, int dh, int causal, float scale, Dropout dr,
-                     cudaStream_t s) {
-  if (dh <= 32)
-    return launch_mma<Tin, 4>(q, k, v, lens, o32, lse, dout, delta, dq, dk, dv, B, H, T, dh,
-                              causal, scale, dr, s);
-  if (dh <= 64)
-    return launch_mma<Tin, 8>(q, k, v, lens, o32, lse, dout, delta, dq, dk, dv, B, H, T, dh,
-                              causal, scale, dr, s);
-  if (dh <= MMA_MAX_DH)
-    return launch_mma<Tin, 16>(q, k, v, lens, o32, lse, dout, delta, dq, dk, dv, B, H, T, dh,
-                               causal, scale, dr, s);
-  return launch<Tin, 32, 16>(q, k, v, lens, o32, lse, dout, delta, dq, dk, dv, B, H, T, dh,
-                             causal, scale, dr, s);
+                     Shape z, int causal, float scale, Dropout dr, cudaStream_t s) {
+  if (z.dh <= 32)
+    return launch_mma<Tin, 4>(q, k, v, lens, o32, lse, dout, delta, dq, dk, dv, z, causal, scale,
+                              dr, s);
+  if (z.dh <= 64)
+    return launch_mma<Tin, 8>(q, k, v, lens, o32, lse, dout, delta, dq, dk, dv, z, causal, scale,
+                              dr, s);
+  if (z.dh <= MMA_MAX_DH)
+    return launch_mma<Tin, 16>(q, k, v, lens, o32, lse, dout, delta, dq, dk, dv, z, causal,
+                               scale, dr, s);
+  return launch<Tin, 32, 16>(q, k, v, lens, o32, lse, dout, delta, dq, dk, dv, z, causal, scale,
+                             dr, s);
 }
 
 // Blocks of the tensor-core dK/dV kernel (which == 0) or dQ kernel (1) at
@@ -656,16 +675,17 @@ int bwd_blocks_per_sm(int dh, int which) {
 
 extern "C" {
 
-// q, k, v, dout, dq, dk, dv: [B, H, T, dh] fp32 (bf16 == 0) or bf16,
-// contiguous, dh <= 256; lens: [B] int32; o32: [B, H, T, dh] fp32, the
-// forward's output; lse: [B, H, T] fp32, the forward's log2-sum-exp;
-// delta: [B, H, T] fp32 scratch; scale, drop, seed, thresh, dscale: as
-// the forward's; device: the card that holds them.
+// q, dout, dq: [B, H, Tq, dh] and k, v, dk, dv: [B, H, T, dh] fp32 (bf16
+// == 0) or bf16, contiguous, dh <= 256, query row r at global position
+// qoff + r (qoff + Tq <= T); lens: [B] int32; o32: [B, H, Tq, dh] fp32,
+// the forward's output; lse: [B, H, Tq] fp32, the forward's
+// log2-sum-exp; delta: [B, H, Tq] fp32 scratch; scale, drop, seed,
+// thresh, dscale: as the forward's; device: the card that holds them.
 int recblr_attn_bwd(const void* q, const void* k, const void* v, const void* lens,
                     const void* o32, const void* lse, const void* dout, void* delta, void* dq,
-                    void* dk, void* dv, int B, int H, int T, int dh, int causal, float scale,
-                    int bf16, int drop, unsigned long long seed, unsigned thresh, float dscale,
-                    int device, void* stream) {
+                    void* dk, void* dv, int B, int H, int Tq, int T, int qoff, int dh, int causal,
+                    float scale, int bf16, int drop, unsigned long long seed, unsigned thresh,
+                    float dscale, int device, void* stream) {
   // this library has its own (static) CUDA runtime: select the tensors' card
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
@@ -675,17 +695,18 @@ int recblr_attn_bwd(const void* q, const void* k, const void* v, const void* len
   const float* o = static_cast<const float*>(o32);
   const float* ls = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  const Shape z{B, H, Tq, T, qoff, dh};
   if (bf16) {
     using T16 = __nv_bfloat16;
     return attn_bwd(static_cast<const T16*>(q), static_cast<const T16*>(k),
                     static_cast<const T16*>(v), ln, o, ls, static_cast<const T16*>(dout), dl,
-                    static_cast<T16*>(dq), static_cast<T16*>(dk), static_cast<T16*>(dv), B, H, T,
-                    dh, causal, scale, dr, s);
+                    static_cast<T16*>(dq), static_cast<T16*>(dk), static_cast<T16*>(dv), z,
+                    causal, scale, dr, s);
   }
   return attn_bwd(static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), ln, o, ls, static_cast<const float*>(dout), dl,
-                  static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), B, H,
-                  T, dh, causal, scale, dr, s);
+                  static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), z,
+                  causal, scale, dr, s);
 }
 
 // Blocks an SM holds of the backward's tensor-core dK/dV kernel (which ==

@@ -38,6 +38,12 @@
 // positions), which one small launch adds up in order with coalesced
 // reads, so two runs give the same bits (PRE has no dpos).
 //
+// A time chunk (the seq mesh axis: one rank's positions t0 .. t0 + T - 1
+// of the sequence): x, out and pos hold the chunk's T positions and the
+// mask is drawn at the global ones, so the chunk computes the whole
+// call's rows there, bit for bit; dpos is the chunk's rows.  t0 = 0 is the
+// whole call.
+//
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "common.cuh"
 
@@ -122,7 +128,7 @@ template <typename Tin, bool PRE, int NG>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_pos_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
               const float* __restrict__ s, const float* __restrict__ bias, Dropout dr,
-              Tin* __restrict__ out, int rows, int T, int D, int lpr) {
+              Tin* __restrict__ out, int rows, int T, int D, int lpr, int t0) {
   constexpr int R = NG >= 4 ? 1 : 2;
   const int segs = LN_THREADS / lpr;
   const int sl = threadIdx.x % lpr;
@@ -146,7 +152,7 @@ ln_pos_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
       if (row < rows && 4 * g < D) {
         load4(x, (size_t)row * D, 4 * g, D, v[r][k]);
         if (PRE) {
-          const float4 m = drop_mask4(dr, M0, b, t, g);
+          const float4 m = drop_mask4(dr, M0, b, t0 + t, g);
           v[r][k][0] *= m.x, v[r][k][1] *= m.y, v[r][k][2] *= m.z, v[r][k][3] *= m.w;
         } else {
           float p[4];
@@ -186,7 +192,7 @@ ln_pos_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
 #pragma unroll
       for (int i = 0; i < 4; ++i) y[i] = v[r][k][i] * inv * sc[k][i] + bi[k][i];
       if (!PRE) {
-        const float4 m = drop_mask4(dr, M0, b, t, g);
+        const float4 m = drop_mask4(dr, M0, b, t0 + t, g);
         y[0] *= m.x, y[1] *= m.y, y[2] *= m.z, y[3] *= m.w;
       }
       store4(out, (size_t)row * D, 4 * g, D, y);
@@ -206,7 +212,7 @@ __global__ void __launch_bounds__(LN_THREADS)
 ln_pos_bwd_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
                   const Tin* __restrict__ dout, const float* __restrict__ s, Dropout dr,
                   Tin* __restrict__ dx, float* __restrict__ pos_part,
-                  float* __restrict__ sb_part, int B, int T, int D, int bc, int lpr) {
+                  float* __restrict__ sb_part, int B, int T, int D, int bc, int lpr, int t0) {
   __shared__ __align__(16) float red[8 * 2 * 4 * 32 * 4];  // [segments, 2D]
   const int segs = LN_THREADS / lpr;
   const int seg = threadIdx.x / lpr, sl = threadIdx.x % lpr;
@@ -243,7 +249,7 @@ ln_pos_bwd_kernel(const Tin* __restrict__ x, const float* __restrict__ pos,
         if (live && d < D) {
           load4(x, o, d, D, v[r][k]);
           load4(dout, o, d, D, dy[r][k]);
-          const float4 mk = drop_mask4(dr, M0, b, t, g);
+          const float4 mk = drop_mask4(dr, M0, b, t0 + t, g);
           m[r][k][0] = mk.x, m[r][k][1] = mk.y, m[r][k][2] = mk.z, m[r][k][3] = mk.w;
         } else {
 #pragma unroll
@@ -361,24 +367,25 @@ sum_rows_kernel(const float* __restrict__ a1, int R1, int C1, float* __restrict_
 
 template <bool PRE, int NG, typename Tin>
 cudaError_t ln_pos_fwd_ng(const Tin* x, const float* pos, const float* s, const float* b,
-                          Dropout dr, Tin* out, int B, int T, int D, cudaStream_t stream) {
+                          Dropout dr, Tin* out, int B, int T, int D, int t0,
+                          cudaStream_t stream) {
   const int rows = B * T, lpr = ln_lanes(D);
   const int per_block = LN_THREADS / lpr * (NG >= 4 ? 1 : 2);
   ln_pos_kernel<Tin, PRE, NG><<<(rows + per_block - 1) / per_block, LN_THREADS, 0, stream>>>(
-      x, pos, s, b, dr, out, rows, T, D, lpr);
+      x, pos, s, b, dr, out, rows, T, D, lpr, t0);
   return cudaGetLastError();
 }
 
 template <bool PRE, typename Tin>
 cudaError_t ln_pos_fwd(const Tin* x, const float* pos, const float* s, const float* b, Dropout dr,
-                       Tin* out, int B, int T, int D, cudaStream_t stream) {
+                       Tin* out, int B, int T, int D, int t0, cudaStream_t stream) {
   switch (ln_groups(D)) {
     case 1:
-      return ln_pos_fwd_ng<PRE, 1>(x, pos, s, b, dr, out, B, T, D, stream);
+      return ln_pos_fwd_ng<PRE, 1>(x, pos, s, b, dr, out, B, T, D, t0, stream);
     case 2:
-      return ln_pos_fwd_ng<PRE, 2>(x, pos, s, b, dr, out, B, T, D, stream);
+      return ln_pos_fwd_ng<PRE, 2>(x, pos, s, b, dr, out, B, T, D, t0, stream);
     default:
-      return ln_pos_fwd_ng<PRE, 4>(x, pos, s, b, dr, out, B, T, D, stream);
+      return ln_pos_fwd_ng<PRE, 4>(x, pos, s, b, dr, out, B, T, D, t0, stream);
   }
 }
 
@@ -387,12 +394,13 @@ cudaError_t ln_pos_fwd(const Tin* x, const float* pos, const float* s, const flo
 template <bool PRE, int NG, typename Tin>
 cudaError_t ln_pos_bwd_ng(const Tin* x, const float* pos, const Tin* dout, const float* s,
                           Dropout dr, Tin* dx, float* pos_part, float* sb_part, float* dpos,
-                          float* dsb, int B, int T, int D, int chunks, cudaStream_t stream) {
+                          float* dsb, int B, int T, int D, int chunks, int t0,
+                          cudaStream_t stream) {
   const int lpr = ln_lanes(D);
   const int tiles = (T + LN_THREADS / lpr - 1) / (LN_THREADS / lpr);
   const int bc = (B + chunks - 1) / chunks;
   ln_pos_bwd_kernel<Tin, PRE, NG><<<dim3(tiles, chunks), LN_THREADS, 0, stream>>>(
-      x, pos, dout, s, dr, dx, pos_part, sb_part, B, T, D, bc, lpr);
+      x, pos, dout, s, dr, dx, pos_part, sb_part, B, T, D, bc, lpr, t0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int nb1 = PRE ? 0 : (T * D + 31) / 32;
@@ -404,17 +412,18 @@ cudaError_t ln_pos_bwd_ng(const Tin* x, const float* pos, const Tin* dout, const
 template <bool PRE, typename Tin>
 cudaError_t ln_pos_bwd(const Tin* x, const float* pos, const Tin* dout, const float* s,
                        Dropout dr, Tin* dx, float* pos_part, float* sb_part, float* dpos,
-                       float* dsb, int B, int T, int D, int chunks, cudaStream_t stream) {
+                       float* dsb, int B, int T, int D, int chunks, int t0,
+                       cudaStream_t stream) {
   switch (ln_groups(D)) {
     case 1:
       return ln_pos_bwd_ng<PRE, 1>(x, pos, dout, s, dr, dx, pos_part, sb_part, dpos, dsb, B, T,
-                                   D, chunks, stream);
+                                   D, chunks, t0, stream);
     case 2:
       return ln_pos_bwd_ng<PRE, 2>(x, pos, dout, s, dr, dx, pos_part, sb_part, dpos, dsb, B, T,
-                                   D, chunks, stream);
+                                   D, chunks, t0, stream);
     default:
       return ln_pos_bwd_ng<PRE, 4>(x, pos, dout, s, dr, dx, pos_part, sb_part, dpos, dsb, B, T,
-                                   D, chunks, stream);
+                                   D, chunks, t0, stream);
   }
 }
 
@@ -422,11 +431,12 @@ cudaError_t ln_pos_bwd(const Tin* x, const float* pos, const Tin* dout, const fl
 
 extern "C" {
 
-// x, out: [B, T, D] fp32 (bf16 == 0) or bf16, D <= 512; pos: [T, D],
+// x, out: [B, T, D] fp32 (bf16 == 0) or bf16, D <= 512, at positions t0
+// .. t0 + T - 1 of the sequence; pos: [T, D] (the table's rows there),
 // scale, bias: [D] fp32; drop, seed, thresh, drop_scale: the dropout
 // (common.cuh Dropout); device: the card that holds them.
 int recblr_ln_pos_fwd(const void* x, const void* pos, const void* scale, const void* bias,
-                      void* out, int B, int T, int D, int bf16, int drop,
+                      void* out, int B, int T, int D, int t0, int bf16, int drop,
                       unsigned long long seed, unsigned thresh, float drop_scale, int device,
                       void* stream) {
   // this library has its own (static) CUDA runtime: select the tensors' card
@@ -439,18 +449,18 @@ int recblr_ln_pos_fwd(const void* x, const void* pos, const void* scale, const v
   const float* b = static_cast<const float*>(bias);
   if (bf16)
     return ln_pos_fwd<false>(static_cast<const __nv_bfloat16*>(x), p, s, b, dr,
-                             static_cast<__nv_bfloat16*>(out), B, T, D, st);
+                             static_cast<__nv_bfloat16*>(out), B, T, D, t0, st);
   return ln_pos_fwd<false>(static_cast<const float*>(x), p, s, b, dr, static_cast<float*>(out),
-                           B, T, D, st);
+                           B, T, D, t0, st);
 }
 
-// x, dout, dx: [B, T, D] fp32 (bf16 == 0) or bf16; pos [T, D], scale [D]
-// fp32 (bias is not read); pos_part: [chunks, T, D] and sb_part:
-// [chunks * T, 2D] fp32 scratch; dpos: [T, D] and dsb: [2D] (dscale then
-// dbias) fp32 out; the forward's dropout; device: the card.
+// x, dout, dx: [B, T, D] fp32 (bf16 == 0) or bf16 at positions t0 ..;
+// pos [T, D], scale [D] fp32 (bias is not read); pos_part: [chunks, T, D]
+// and sb_part: [chunks * T, 2D] fp32 scratch; dpos: [T, D] and dsb: [2D]
+// (dscale then dbias) fp32 out; the forward's dropout; device: the card.
 int recblr_ln_pos_bwd(const void* x, const void* pos, const void* dout, const void* scale,
                       const void* bias, void* dx, void* pos_part, void* sb_part, void* dpos,
-                      void* dsb, int B, int T, int D, int chunks, int bf16, int drop,
+                      void* dsb, int B, int T, int D, int chunks, int t0, int bf16, int drop,
                       unsigned long long seed, unsigned thresh, float drop_scale, int device,
                       void* stream) {
   (void)bias;
@@ -468,9 +478,10 @@ int recblr_ln_pos_bwd(const void* x, const void* pos, const void* dout, const vo
     return ln_pos_bwd<false>(static_cast<const __nv_bfloat16*>(x), p,
                              static_cast<const __nv_bfloat16*>(dout), s, dr,
                              static_cast<__nv_bfloat16*>(dx), pp, sp, dp, dsbp, B, T, D, chunks,
-                             st);
+                             t0, st);
   return ln_pos_bwd<false>(static_cast<const float*>(x), p, static_cast<const float*>(dout), s,
-                           dr, static_cast<float*>(dx), pp, sp, dp, dsbp, B, T, D, chunks, st);
+                           dr, static_cast<float*>(dx), pp, sp, dp, dsbp, B, T, D, chunks, t0,
+                           st);
 }
 
 // LN(dropout(x)): x, out: [B, T, D] fp32 (bf16 == 0) or bf16, D <= 512;
@@ -487,9 +498,9 @@ int recblr_dropout_ln_fwd(const void* x, const void* scale, const void* bias, vo
   const float* b = static_cast<const float*>(bias);
   if (bf16)
     return ln_pos_fwd<true>(static_cast<const __nv_bfloat16*>(x), nullptr, s, b, dr,
-                            static_cast<__nv_bfloat16*>(out), B, T, D, st);
+                            static_cast<__nv_bfloat16*>(out), B, T, D, 0, st);
   return ln_pos_fwd<true>(static_cast<const float*>(x), nullptr, s, b, dr,
-                          static_cast<float*>(out), B, T, D, st);
+                          static_cast<float*>(out), B, T, D, 0, st);
 }
 
 // Its backward: x, dout, dx: [B, T, D] fp32 (bf16 == 0) or bf16; scale
@@ -510,10 +521,10 @@ int recblr_dropout_ln_bwd(const void* x, const void* dout, const void* scale, vo
     return ln_pos_bwd<true>(static_cast<const __nv_bfloat16*>(x), nullptr,
                             static_cast<const __nv_bfloat16*>(dout), s, dr,
                             static_cast<__nv_bfloat16*>(dx), nullptr, sp, nullptr, dsbp, B, T, D,
-                            chunks, st);
+                            chunks, 0, st);
   return ln_pos_bwd<true>(static_cast<const float*>(x), nullptr,
                           static_cast<const float*>(dout), s, dr, static_cast<float*>(dx),
-                          nullptr, sp, nullptr, dsbp, B, T, D, chunks, st);
+                          nullptr, sp, nullptr, dsbp, B, T, D, chunks, 0, st);
 }
 
 const char* recblr_error_string(int err) {

@@ -18,15 +18,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from datamining_recblr_torch.models.layers import normal_init
+from datamining_recblr_torch.models.layers import normal_init, seq_size
 from datamining_recblr_torch.ops import fused_ce as FCE
 from datamining_recblr_torch.ops import philox
 from datamining_recblr_torch.ops.embedding import embedding_lookup, gather_rows
 from datamining_recblr_torch.parallel.collectives import (
+    all_gather,
     all_reduce,
     copy_to_model,
     reduce_from_model,
 )
+from datamining_recblr_torch.parallel.input import seq_chunk
 from datamining_recblr_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
 
 _DTYPES = {
@@ -182,6 +184,34 @@ class SequentialModel(nn.Module):
         each offset by ``seed_offset`` (a data index's, on a mesh)."""
         return [(s + self.seed_offset) & 0xFFFFFFFFFFFFFFFF
                 for s in philox.step_seeds(self.seed, step, n)]
+
+    def seq_shards(self) -> int:
+        """The size of the mesh's ``seq`` axis (1 off a mesh): above 1 the
+        time axis is sharded over it, each seq rank running its chunk."""
+        return seq_size(self.mesh)
+
+    def seq_input(self, item_seq):
+        """(this rank's chunk of ``item_seq``, its first global position,
+        the global T) under ``seq``: ``item_seq`` is a full window [B, T]
+        (T = ``max_seq_len``), cut here, or the chunk [B, T/S] already
+        (``parallel.sharding.shard_batch``'s)."""
+        t = self.max_seq_len
+        t0, t1 = seq_chunk(t, self.mesh)
+        if item_seq.shape[1] == t:
+            return item_seq[:, t0:t1], t0, t
+        if item_seq.shape[1] == t1 - t0:
+            return item_seq, t0, t
+        raise ValueError(f"item_seq of width {item_seq.shape[1]} on a seq mesh: expected the "
+                         f"window ({t}) or this rank's chunk of it ({t1 - t0})")
+
+    def seq_window(self, item_seq):
+        """The full window [B, T] under ``seq``: ``item_seq`` itself, or this
+        rank's chunk gathered over ``seq`` (the attention models' lens and
+        BERT4Rec's cloze draw and mask token read the whole row)."""
+        if item_seq.shape[1] == self.max_seq_len:
+            return item_seq
+        self.seq_input(item_seq)  # raises for a width that is neither
+        return all_gather(item_seq, self.mesh, SEQ_AXIS, dim=1)
 
     def data_row0(self, rows: int) -> int:
         """The global index of this rank's first row of a batch of which it

@@ -28,6 +28,14 @@ of the target's score against one negative's (scores with the output
 bias), summed with those weights over max(sum w, 1), as the JAX package
 computes it; the negatives are uniform in [1, n_items), a Philox draw
 under one more ``step_seeds`` seed (``neg_draw``).
+
+On a mesh with a ``seq`` axis of S > 1 the request's mask token and the
+cloze draw are made on the full window (the draw caps each row's budget
+by rank across the whole row), each seq rank runs the encoder on its
+chunk (``SASRec``'s), and the positions read (each row's last, or the
+cloze positions ``order``) are selected over ``seq``
+(``select_over_seq``) before the output head, so the head and the loss
+run on rows every seq rank holds alike.
 """
 
 from __future__ import annotations
@@ -41,7 +49,11 @@ from datamining_recblr_torch.models.base import ce_loss, weighted_mean
 from datamining_recblr_torch.models.sasrec import SASRec
 from datamining_recblr_torch.ops import fused_ce as FCE
 from datamining_recblr_torch.ops import philox
-from datamining_recblr_torch.parallel.collectives import copy_to_model, gather_from_model
+from datamining_recblr_torch.parallel.collectives import (
+    copy_to_model,
+    gather_from_model,
+    select_over_seq,
+)
 
 BPR_GAMMA = 1e-14  # BERT4Rec's own BPR: -log(1e-14 + sigmoid(pos - neg))
 
@@ -91,7 +103,12 @@ class BERT4Rec(SASRec):
         back and the caller gathers.  ``select`` with S >= T is dropped
         (it saves nothing and would make the shapes ambiguous).  The head
         is positionwise, so applying it after the selection computes the
-        same values.  Dropout is on in training mode with a ``step``."""
+        same values.  Under ``seq`` ``select`` is required: the positions
+        are read over ``seq`` from each rank's chunk, then the head runs.
+        Dropout is on in training mode with a ``step``."""
+        if self.seq_shards() > 1:
+            x = self._encode(item_seq, False, step=step)
+            return self.output_head(select_over_seq(x, select, self.mesh)), True
         t = item_seq.shape[1]
         if select is not None and select.shape[1] >= t:
             select = None
@@ -100,6 +117,11 @@ class BERT4Rec(SASRec):
         return self.output_head(x), selected
 
     def forward(self, item_seq, item_seq_len, step=None):
+        if self.seq_shards() > 1:
+            masked = self.reconstruct_test_seq(self.seq_window(item_seq), item_seq_len)
+            out, _ = self.encode(masked, select=self.last_position(item_seq_len)[:, None],
+                                 step=step)
+            return out[:, 0]
         out, selected = self.encode(self.reconstruct_test_seq(item_seq, item_seq_len),
                                     last_only=True, step=step)
         return out if selected else L.gather_last(out, item_seq_len)
@@ -196,7 +218,10 @@ class BERT4Rec(SASRec):
         draws."""
         if self.loss_type not in ("CE", "BPR"):
             raise ValueError(f"unknown loss_type {self.loss_type!r} (CE / BPR)")
-        cloze = self.cloze_draw(batch["item_seq"], batch["item_seq_len"], step)
+        item_seq = batch["item_seq"]
+        if self.seq_shards() > 1:
+            item_seq = self.seq_window(item_seq)
+        cloze = self.cloze_draw(item_seq, batch["item_seq_len"], step)
         return self.cloze_loss(batch, cloze, step)
 
     # ------------------------------------------------------------------

@@ -20,6 +20,8 @@ from datamining_recblr_torch.ops import philox
 from datamining_recblr_torch.ops.attention import fused_attention, prob_masks
 from datamining_recblr_torch.ops.attention import supports as attention_supports
 from datamining_recblr_torch.ops.fused_layer import MAX_LN_D, fused_ln_dropout
+from datamining_recblr_torch.parallel.collectives import gather_over_seq
+from datamining_recblr_torch.parallel.mesh import SEQ_AXIS
 
 LN_EPS = 1e-12
 INIT_STD = 0.02
@@ -139,21 +141,22 @@ def _use_fused_attention():
     return True if FORCE_FUSED_ATTENTION is None else bool(FORCE_FUSED_ATTENTION)
 
 
-def prologue_ln_dropout(ln_params, x, dropout_p=0.0, pos=None, seed=0):
+def prologue_ln_dropout(ln_params, x, dropout_p=0.0, pos=None, seed=0, t0: int = 0):
     """dropout(LN(x + pos)), the attention baselines' embedding prologue
-    (``pos`` the [T, D] positional table), with the M0 mask of ``seed``.
-    The fused composition (D <= 512) runs ``fused_ln_dropout`` and adds pos
-    in fp32; the unfused one adds ``pos`` in x's dtype first, as the JAX
-    package does."""
+    (``pos`` the [T, D] positional table, or a seq rank's rows of it), with
+    the M0 mask of ``seed`` drawn at positions t0 ...  The fused
+    composition (D <= 512) runs ``fused_ln_dropout`` and adds pos in fp32;
+    the unfused one adds ``pos`` in x's dtype first, as the JAX package
+    does."""
     if _use_fused_attention() and x.shape[-1] <= MAX_LN_D:
         if pos is None:
             pos = torch.zeros(x.shape[1:], device=x.device)
         return fused_ln_dropout(x, pos.float().contiguous(),
                                 ln_params["scale"].float().contiguous(),
-                                ln_params["bias"].float().contiguous(), dropout_p, seed)
+                                ln_params["bias"].float().contiguous(), dropout_p, seed, t0)
     if pos is not None:
         x = x + pos.to(x.dtype)
-    return dropout(layer_norm(ln_params, x), dropout_p, seed, philox.M0)
+    return dropout(layer_norm(ln_params, x), dropout_p, seed, philox.M0, t0)
 
 
 def _per_op_fused(lens, causal, dh):
@@ -164,15 +167,25 @@ def _per_op_fused(lens, causal, dh):
             and attention_supports(dh))
 
 
+def seq_size(mesh) -> int:
+    """The size of ``mesh``'s ``seq`` axis (1 off a mesh)."""
+    return mesh.size(SEQ_AXIS) if mesh is not None else 1
+
+
 def _multi_head_attention(p, x, attn_mask, n_heads, hidden_dropout, attn_dropout, seed,
-                          lens=None, causal=None):
+                          lens=None, causal=None, mesh=None, t0=0):
     """Per-op attention block: LN(dropout_m1(attn(x) W_o + b_o) + x), each
     head's probabilities under the mask ``philox.prob_mask_id(h)``.  With
     ``lens`` and ``causal`` given, the fused composition chosen and heads
     that ``attention.supports`` (dh <= 256), the masked softmax, its
     dropout and P.V run in ``fused_attention`` (the JAX package's
     ``layers.py:224-241``); otherwise the softmax composition under the
-    additive ``attn_mask`` [B, 1, T, T]."""
+    additive ``attn_mask`` [B, 1, T, T].  Under ``seq`` (``mesh``) x is
+    this rank's chunk [B, T/S, D] at positions t0 ..: q, k and v are
+    projected on it, K and V gathered over ``seq`` (the whole sequence's
+    keys), the queries attend at their global positions and the masks are
+    drawn there (``attn_mask`` then holds the chunk's rows, [B, 1, T/S,
+    T])."""
     b, t, h = x.shape
     dh = h // n_heads
 
@@ -180,21 +193,24 @@ def _multi_head_attention(p, x, attn_mask, n_heads, hidden_dropout, attn_dropout
         return y.reshape(b, t, n_heads, dh).transpose(1, 2)
 
     q, k, v = (split_heads(dense(p[n], x)) for n in ("q", "k", "v"))
+    if seq_size(mesh) > 1:
+        k, v = (gather_over_seq(a.contiguous(), mesh, dim=2) for a in (k, v))
     if _per_op_fused(lens, causal, dh):
         # q, k and v in dense's dtype: under bf16 compute with fp32
         # parameters that is fp32 (JAX promotes a bf16 x against an fp32
         # weight), bf16 only with bf16 parameters; ctx comes back in it
         ctx = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), lens, seed,
-                              bool(causal), attn_dropout)
+                              bool(causal), attn_dropout, t0)
     else:
         scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(dh) + attn_mask
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         if attn_dropout:
-            probs = (probs * prob_masks(seed, attn_dropout, b, n_heads, t, x.device)).to(x.dtype)
+            masks = prob_masks(seed, attn_dropout, b, n_heads, k.shape[2], x.device, t0, t)
+            probs = (probs * masks).to(x.dtype)
         dt = torch.promote_types(probs.dtype, v.dtype)
         ctx = probs.to(dt) @ v.to(dt)
     ctx = ctx.to(x.dtype).transpose(1, 2).reshape(b, t, h)
-    out = dropout(dense(p["attn_out"], ctx), hidden_dropout, seed, philox.M1)
+    out = dropout(dense(p["attn_out"], ctx), hidden_dropout, seed, philox.M1, t0)
     return layer_norm(p["attn_ln"], out + x)
 
 
@@ -218,7 +234,7 @@ def flat_block_params(layer):
 
 def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu",
                               hidden_dropout=0.0, attn_dropout=0.0, seeds=None, lens=None,
-                              causal=None, last_only=False, select=None):
+                              causal=None, last_only=False, select=None, mesh=None, t0=0):
     """The post-LN transformer stack; ``seeds`` holds one dropout seed per
     layer (None: dropout off).
 
@@ -238,14 +254,23 @@ def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu
     composition instead; ``attn_mask`` is its [B, 1, T, T] additive mask,
     or a function that builds it (called only then).  All draw the same
     Philox masks at the same coordinates, in the JAX package's order (the
-    probabilities, after W_o, after the FFN)."""
+    probabilities, after W_o, after the FFN).
+
+    Under a ``seq`` axis of ``mesh`` above 1, x is this rank's time chunk
+    [B, T/S, D] at positions t0 .. (``lens`` the whole rows' key counts):
+    the whole-layer kernels, which need the whole T, are skipped, each
+    layer runs the per-op composition on the chunk against the keys
+    gathered over ``seq`` (``_multi_head_attention``), every mask is drawn
+    at the global positions, and the chunk [B, T/S, D] comes back
+    (``last_only`` and ``select`` are the caller's, ``select_over_seq``)."""
+    seq = seq_size(mesh) > 1
     if seeds is None:
         hidden_dropout = attn_dropout = 0.0
         seeds = [0] * len(layers)
     if select is not None and causal:
         raise ValueError("select= requires a bidirectional stack; the selected-positions "
                          "layer has no causal mask")
-    if lens is not None and causal is not None and _use_fused_attention():
+    if lens is not None and causal is not None and _use_fused_attention() and not seq:
         b, t, h = x.shape
         inner = layers[0]["ffn_1"]["w"].shape[1]
         if FB.supports(h, n_heads, inner, t, hidden_act):
@@ -266,9 +291,9 @@ def transformer_encoder_apply(layers, x, attn_mask, *, n_heads, hidden_act="gelu
     act = activation(hidden_act)
     for p, seed in zip(layers, seeds):
         x = _multi_head_attention(p, x, attn_mask, n_heads, hidden_dropout, attn_dropout,
-                                  seed, lens, causal)
+                                  seed, lens, causal, mesh, t0)
         y = dropout(dense(p["ffn_2"], act(dense(p["ffn_1"], x))), hidden_dropout, seed,
-                    philox.M3)
+                    philox.M3, t0)
         x = layer_norm(p["ffn_ln"], y + x)
     return x
 

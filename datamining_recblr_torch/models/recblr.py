@@ -81,8 +81,6 @@ from datamining_recblr_torch.ops.fused_layer_chunked import (
 from datamining_recblr_torch.ops.scan import linear_scan, linear_scan_serial
 from datamining_recblr_torch.ops.seq_parallel_scan import seq_parallel_scan
 from datamining_recblr_torch.parallel.collectives import conv_halo, select_over_seq
-from datamining_recblr_torch.parallel.input import seq_chunk
-from datamining_recblr_torch.parallel.mesh import SEQ_AXIS
 
 MAX_WHOLE_T = 512  # the whole-sequence layer kernel's T (recblr.py:204-215)
 MAX_LAST_T = 1024  # the top layer's last-position kernel's T (recblr.py:336)
@@ -108,8 +106,6 @@ def _last_index(lens, t):
 
 
 class RecBLR(SequentialModel):
-    SEQ_PARALLEL = True  # runs with its time axis sharded over ``seq``
-
     def __init__(self, config, n_items, max_seq_len, device=None, generator=None):
         super().__init__(config, n_items, max_seq_len, device=device)
         self.hidden_size = config["hidden_size"]
@@ -164,11 +160,6 @@ class RecBLR(SequentialModel):
         self.layers = nn.ModuleList(layers)
 
     # ------------------------------------------------------------------
-    def seq_shards(self) -> int:
-        """The size of the mesh's ``seq`` axis (1 off a mesh): above 1 the
-        time axis is sharded over it."""
-        return self.mesh.size(SEQ_AXIS) if self.mesh is not None else 1
-
     def use_fused_layer(self) -> bool:
         return (
             self.scan_impl != "xla"
@@ -295,20 +286,6 @@ class RecBLR(SequentialModel):
         if not (self.training and step is not None and self.dropout_prob):
             return 0.0, [0] * n
         return self.dropout_prob, self.step_seeds(step, n)
-
-    def seq_input(self, item_seq):
-        """(this rank's chunk of ``item_seq``, its first global position,
-        the global T) under ``seq``: ``item_seq`` is a full window [B, T]
-        (T = ``max_seq_len``), cut here, or the chunk [B, T/S] already
-        (``parallel.sharding.shard_batch``'s)."""
-        t = self.max_seq_len
-        t0, t1 = seq_chunk(t, self.mesh)
-        if item_seq.shape[1] == t:
-            return item_seq[:, t0:t1], t0, t
-        if item_seq.shape[1] == t1 - t0:
-            return item_seq, t0, t
-        raise ValueError(f"item_seq of width {item_seq.shape[1]} on a seq mesh: expected the "
-                         f"window ({t}) or this rank's chunk of it ({t1 - t0})")
 
     def forward(self, item_seq, item_seq_len, step=None):
         t0, t = 0, item_seq.shape[1]

@@ -68,8 +68,8 @@ _SIGNATURES = {
         + _D1 + [_I, _P],
     },
     "ln_dropout.cu": {
-        "recblr_ln_pos_fwd": [_P] * 5 + [_I] * 4 + _D1 + [_I, _P],
-        "recblr_ln_pos_bwd": [_P] * 10 + [_I] * 5 + _D1 + [_I, _P],
+        "recblr_ln_pos_fwd": [_P] * 5 + [_I] * 5 + _D1 + [_I, _P],
+        "recblr_ln_pos_bwd": [_P] * 10 + [_I] * 6 + _D1 + [_I, _P],
         "recblr_dropout_ln_fwd": [_P] * 4 + [_I] * 4 + _D1 + [_I, _P],
         "recblr_dropout_ln_bwd": [_P] * 6 + [_I] * 5 + _D1 + [_I, _P],
     },
@@ -122,11 +122,11 @@ _SIGNATURES = {
         "recblr_bdlru_bwd": [_P] * 7 + [_I] + [_P] * 2 + [_I] * 6 + [_I, _P],
     },
     "attention.cu": {
-        "recblr_attn_fwd": [_P] * 7 + [_I] * 5 + [_F, _I] + _D1 + [_I, _P],
+        "recblr_attn_fwd": [_P] * 7 + [_I] * 7 + [_F, _I] + _D1 + [_I, _P],
         "recblr_attn_fwd_blocks_per_sm": [_I] * 3,
     },
     "attention_bwd.cu": {
-        "recblr_attn_bwd": [_P] * 11 + [_I] * 5 + [_F, _I] + _D1 + [_I, _P],
+        "recblr_attn_bwd": [_P] * 11 + [_I] * 7 + [_F, _I] + _D1 + [_I, _P],
         "recblr_attn_bwd_blocks_per_sm": [_I] * 4,
     },
 }

@@ -24,7 +24,13 @@ Up to dh 128 (``uses_mma``) both run their products on the tensor cores
 probabilities and dS never rounded); wider heads take fp32 FMA kernels.
 
 q, k and v are [B, H, T, dh], fp32 or bf16 (all one dtype), dh <= 256;
-``lens`` [B] holds each row's count of keys.  Arithmetic is fp32 and the
+``lens`` [B] holds each row's count of keys.  A query chunk (``q0``, the
+``seq`` mesh axis: one rank's queries against the whole sequence's keys,
+gathered over ``seq``) gives q [B, H, Tq, dh] with Tq dividing T and q0 +
+Tq <= T: query row r stands at position q0 + r for the causal mask, the
+keys a tile visits and the dropout mask, so the forward computes the
+whole call's rows q0 .. q0 + Tq - 1 and the backward the chunk's dq and
+its share of dk and dv (the sums over its queries).  Arithmetic is fp32 and the
 output has q's dtype.  A row with lens 0 keeps no key and softmaxes over
 all T of them.  Dropout draws the Philox mask ``philox.prob_mask_id(h)``
 of the call's seed with the key as the channel and the query as the
@@ -75,24 +81,27 @@ def scale_of(dh: int) -> float:
     return float(1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32)))
 
 
-def prob_masks(seed, p, b, h, t, device=None):
-    """The probabilities' scaled keep-masks [B, H, T, T]: head h's is
-    ``philox.prob_mask_id(h)`` with the query as the position."""
-    return torch.stack([philox.dropout_mask(seed, philox.prob_mask_id(i), b, t, t, p, device)
-                        for i in range(h)], dim=1)
+def prob_masks(seed, p, b, h, t, device=None, t0: int = 0, tq: int | None = None):
+    """The probabilities' scaled keep-masks [B, H, Tq, T]: head h's is
+    ``philox.prob_mask_id(h)`` with the query as the position, the query
+    rows at positions t0 .. t0 + Tq - 1 (by default all T)."""
+    tq = t if tq is None else tq
+    return torch.stack([philox.dropout_mask(seed, philox.prob_mask_id(i), b, tq, t, p, device,
+                                            t0) for i in range(h)], dim=1)
 
 
-def fused_attention_plain(q, k, v, lens, seed=0, causal=False, dropout_p=0.0):
+def fused_attention_plain(q, k, v, lens, seed=0, causal=False, dropout_p=0.0, q0=0):
     """Plain PyTorch version of ``fused_attention`` (any device;
     differentiable in q, k and v, and its autograd gradient is the plain
     version of ``fused_attention_bwd``)."""
-    b, h, t, dh = q.shape
+    b, h, tq, dh = q.shape
+    t = k.shape[2]
     s = (q.float() @ k.float().transpose(-1, -2)) * scale_of(dh)
-    s = s + attention_mask(lens, t, causal, q.device)[:, None]
+    s = s + attention_mask(lens, t, causal, q.device, q0, tq)[:, None]
     e = fastmath.exp(s - s.amax(-1, keepdim=True).detach())
     p = e / e.sum(-1, keepdim=True)
     if dropout_p:
-        p = p * prob_masks(seed, dropout_p, b, h, t, q.device)
+        p = p * prob_masks(seed, dropout_p, b, h, t, q.device, q0, tq)
     return (p @ v.float()).to(q.dtype)
 
 
@@ -100,34 +109,40 @@ def fused_attention_plain(q, k, v, lens, seed=0, causal=False, dropout_p=0.0):
 # argument checks
 # ---------------------------------------------------------------------------
 
-def _check(q, k, v):
-    """Check q, k and v against what the kernels take; return (B, H, T, dh)."""
+def _check(q, k, v, q0=0):
+    """Check q, k, v and the query chunk's ``q0`` against what the kernels
+    take; return (B, H, Tq, T, dh)."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, T, dh], got {tuple(q.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    for name, a in (("q", q), ("k", k), ("v", v)):
-        if a.shape != q.shape or a.dtype != q.dtype or a.device != q.device:
-            raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)} on {q.device}, got "
+    b, h, tq, dh = q.shape
+    kv_shape = (b, h, k.shape[2] if k.dim() == 4 else -1, dh)
+    for name, a, shape in (("q", q, q.shape), ("k", k, kv_shape), ("v", v, kv_shape)):
+        if tuple(a.shape) != tuple(shape) or a.dtype != q.dtype or a.device != q.device:
+            raise ValueError(f"{name} must be {q.dtype} {tuple(shape)} on {q.device}, got "
                              f"{a.dtype} {tuple(a.shape)} on {a.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    b, h, t, dh = q.shape
-    if not (1 <= dh <= MAX_DH and min(b, h, t) >= 1 and b * h * t <= _GRID_MAX):
+    t = k.shape[2]
+    if not (1 <= dh <= MAX_DH and min(b, h, tq) >= 1 and b * h * t <= _GRID_MAX):
         raise ValueError(f"unsupported shape B={b} H={h} T={t} dh={dh}: the kernels take "
                          f"1 <= dh <= {MAX_DH} and B, H, T >= 1")
-    return b, h, t, dh
+    if t % tq or not 0 <= q0 <= t - tq:
+        raise ValueError(f"a query chunk of {tq} rows at q0={q0} must divide T={t} and end "
+                         "within it")
+    return b, h, tq, t, dh
 
 
 def _check_saved(saved, q):
-    b, h, t, dh = q.shape
+    b, h, tq, dh = q.shape
     if saved is None or len(saved) != 2:
         raise ValueError("saved must be what the training forward returned")
-    for a, shape in zip(saved, ((b, h, t, dh), (b, h, t))):
+    for a, shape in zip(saved, ((b, h, tq, dh), (b, h, tq))):
         if a.dtype != torch.float32 or tuple(a.shape) != shape or a.device != q.device \
                 or not a.is_contiguous():
-            raise ValueError(f"saved tensors must be contiguous float32 {(b, h, t, dh)} and "
-                             f"{(b, h, t)} on {q.device}")
+            raise ValueError(f"saved tensors must be contiguous float32 {(b, h, tq, dh)} and "
+                             f"{(b, h, tq)} on {q.device}")
     return saved
 
 
@@ -135,23 +150,23 @@ def _check_saved(saved, q):
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _launch_fwd(q, k, v, lens32, seed, causal, dropout_p, train):
+def _launch_fwd(q, k, v, lens32, seed, causal, dropout_p, train, q0=0):
     """The forward; returns (out, o32, lse): with ``train`` the fp32 output
-    (``out`` itself for fp32 q) and the [B, H, T] log2-sum-exp, else
+    (``out`` itself for fp32 q) and the [B, H, Tq] log2-sum-exp, else
     None for both."""
-    b, h, t, dh = q.shape
+    b, h, tq, dh = q.shape
     bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
     o32 = lse = None
     if train:
         o32 = torch.empty(q.shape, device=q.device, dtype=torch.float32) if bf16 else out
-        lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
+        lse = torch.empty((b, h, tq), device=q.device, dtype=torch.float32)
     lib = _cuda.library("attention.cu")
     with torch.cuda.device(q.device):
         err = lib.recblr_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens32.data_ptr(), out.data_ptr(),
             o32.data_ptr() if bf16 and train else None, None if lse is None else lse.data_ptr(),
-            b, h, t, dh, int(bool(causal)), scale_of(dh), int(bf16),
+            b, h, tq, k.shape[2], int(q0), dh, int(bool(causal)), scale_of(dh), int(bf16),
             *_dropout_args(dropout_p, seed), q.device.index, _cuda.stream(q),
         )
     _cuda.check(lib, err, "fused_attention")
@@ -160,32 +175,33 @@ def _launch_fwd(q, k, v, lens32, seed, causal, dropout_p, train):
     return out, o32, lse
 
 
-def fused_attention_train(q, k, v, lens, seed=0, causal=False, dropout_p=0.0):
+def fused_attention_train(q, k, v, lens, seed=0, causal=False, dropout_p=0.0, q0=0):
     """Forward on the card that keeps what the backward reads:
-    (out, (o32 [B, H, T, dh], lse [B, H, T]) fp32)."""
+    (out, (o32 [B, H, Tq, dh], lse [B, H, Tq]) fp32)."""
     _cuda.require_cuda(q)
-    _check(q, k, v)
-    out, o32, lse = _launch_fwd(q, k, v, _lens32(lens, q), seed, causal, dropout_p, True)
+    _check(q, k, v, q0)
+    out, o32, lse = _launch_fwd(q, k, v, _lens32(lens, q), seed, causal, dropout_p, True, q0)
     return out, (o32, lse)
 
 
-def fused_attention_bwd(q, k, v, lens, dout, seed=0, causal=False, dropout_p=0.0, *, saved):
+def fused_attention_bwd(q, k, v, lens, dout, seed=0, causal=False, dropout_p=0.0, q0=0, *,
+                        saved):
     """Backward of ``fused_attention`` on the card: (dq, dk, dv) in q's
-    dtype.  ``saved``: (o32, lse) kept by ``fused_attention_train`` with
-    the same arguments."""
+    dtype (dk and dv over all T keys: a chunk's share).  ``saved``: (o32,
+    lse) kept by ``fused_attention_train`` with the same arguments."""
     _cuda.require_cuda(q)
-    b, h, t, dh = _check(q, k, v)
+    b, h, tq, t, dh = _check(q, k, v, q0)
     lens32 = _lens32(lens, q)
     dout = _check_dout(dout, q.shape, q)
     o32, lse = _check_saved(saved, q)
-    delta = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((b, h, tq), device=q.device, dtype=torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _cuda.library("attention_bwd.cu")
     with torch.cuda.device(q.device):
         err = lib.recblr_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens32.data_ptr(), o32.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, h, t, dh, int(bool(causal)), scale_of(dh),
+            dv.data_ptr(), b, h, tq, t, int(q0), dh, int(bool(causal)), scale_of(dh),
             int(q.dtype == torch.bfloat16), *_dropout_args(dropout_p, seed), q.device.index,
             _cuda.stream(q),
         )
@@ -218,20 +234,22 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def fused_attention(q, k, v, lens, seed=0, causal=False, dropout_p=0.0):
-    """Masked softmax attention, differentiable in q, k and v.  q, k, v:
-    [B, H, T, dh] (one dtype, fp32 or bf16); lens: int [B] key counts
-    (keys at col >= lens are masked); causal adds the lower-triangular
-    mask; the probabilities' dropout rate and the 64-bit seed of its
-    masks.  Returns [B, H, T, dh] in q's dtype."""
+def fused_attention(q, k, v, lens, seed=0, causal=False, dropout_p=0.0, q0=0):
+    """Masked softmax attention, differentiable in q, k and v.  q: [B, H,
+    Tq, dh], k, v: [B, H, T, dh] (one dtype, fp32 or bf16; Tq = T, or a
+    chunk of queries at positions q0 .. q0 + Tq - 1 with Tq dividing T);
+    lens: int [B] key counts (keys at col >= lens are masked); causal
+    adds the lower-triangular mask; the probabilities' dropout rate and
+    the 64-bit seed of its masks.  Returns [B, H, Tq, dh] in q's dtype."""
     if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v, lens, seed, causal, dropout_p)
+        return fused_attention_plain(q, k, v, lens, seed, causal, dropout_p, q0)
     _cuda.require_cuda(q)
-    _check(q, k, v)
+    _check(q, k, v, q0)
     lens32 = _lens32(lens, q)
     if _cuda.needs_grad(q, (k, v)):
-        return _Attention.apply(q, k, v, lens32, (int(seed), bool(causal), float(dropout_p)))
-    out, _, _ = _launch_fwd(q, k, v, lens32, seed, causal, dropout_p, False)
+        return _Attention.apply(q, k, v, lens32,
+                                (int(seed), bool(causal), float(dropout_p), int(q0)))
+    out, _, _ = _launch_fwd(q, k, v, lens32, seed, causal, dropout_p, False, q0)
     return out
 
 

@@ -149,14 +149,16 @@ def _pad_mask(lens, t, device):
     return torch.where(keep, 0.0, MASK_VALUE).to(torch.float32)[:, None, :]
 
 
-def attention_mask(lens, t, causal, device=None):
+def attention_mask(lens, t, causal, device=None, q0: int = 0, tq: int | None = None):
     """The additive mask over [query, key]: -10000 where col >= lens and,
-    with causal, where col > row; [B, 1, T] without causal, [B, T, T]
-    with it."""
+    with causal, where col > row; [B, 1, T] without causal, [B, Tq, T]
+    with it.  The query rows are the positions q0 .. q0 + Tq - 1 (a seq
+    rank's chunk; by default all T)."""
     amask = _pad_mask(lens, t, device)
     if causal:
-        pos = torch.arange(t, device=device)
-        amask = torch.minimum(amask, torch.where(pos[None, :] <= pos[:, None], 0.0,
+        rows = torch.arange(q0, q0 + (t if tq is None else tq), device=device)
+        cols = torch.arange(t, device=device)
+        amask = torch.minimum(amask, torch.where(cols[None, :] <= rows[:, None], 0.0,
                                                  MASK_VALUE)[None])
     return amask
 

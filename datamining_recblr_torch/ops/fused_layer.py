@@ -570,15 +570,15 @@ fused_recurrent_layer_last.launches = 0
 MAX_LN_D = 512  # the prologue is fused for D <= 512 (models/layers.py)
 
 
-def fused_ln_dropout_plain(x, pos, scale, bias, dropout_p=0.0, seed=0):
+def fused_ln_dropout_plain(x, pos, scale, bias, dropout_p=0.0, seed=0, t0=0):
     """Plain PyTorch version of ``fused_ln_dropout``: LN(x + pos) over D,
-    pos [T, D] added in fp32, times the M0 mask, returned in x's dtype
-    (differentiable; its autograd gradient is the plain version of
-    ``fused_ln_dropout_bwd``)."""
+    pos [T, D] added in fp32, times the M0 mask at positions t0 .. t0 + T
+    - 1, returned in x's dtype (differentiable; its autograd gradient is
+    the plain version of ``fused_ln_dropout_bwd``)."""
     out = _ln(x.float() + pos.float(), scale, bias)
     if dropout_p:
         b, t, d = x.shape
-        out = out * philox.dropout_mask(seed, philox.M0, b, t, d, dropout_p, x.device)
+        out = out * philox.dropout_mask(seed, philox.M0, b, t, d, dropout_p, x.device, t0)
     return out.to(x.dtype)
 
 
@@ -604,14 +604,14 @@ def _ln_checks(x, pos, scale, bias):
     return b, t, d
 
 
-def _launch_ln_fwd(x, pos, scale, bias, dropout_p, seed):
+def _launch_ln_fwd(x, pos, scale, bias, dropout_p, seed, t0=0):
     b, t, d = _ln_checks(x, pos, scale, bias)
     lib = _cuda.library("ln_dropout.cu")
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.recblr_ln_pos_fwd(
             x.data_ptr(), pos.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, t, d, int(x.dtype == torch.bfloat16),
+            out.data_ptr(), b, t, d, int(t0), int(x.dtype == torch.bfloat16),
             *_dropout_args(dropout_p, seed), x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_ln_dropout")
@@ -626,10 +626,11 @@ def _ln_bwd_chunks(b: int) -> int:
     return max(1, min(64, b // 32))
 
 
-def fused_ln_dropout_bwd(x, pos, dout, scale, bias, dropout_p=0.0, seed=0):
+def fused_ln_dropout_bwd(x, pos, dout, scale, bias, dropout_p=0.0, seed=0, t0=0):
     """Backward of ``fused_ln_dropout`` on the card: (dx in x's dtype,
     dpos [T, D], dscale [D], dbias [D]; fp32), dpos the batch sum of the
-    LN input's gradient, every sum in a fixed order."""
+    LN input's gradient (a chunk's rows at ``t0``), every sum in a fixed
+    order."""
     _cuda.require_cuda(x)
     b, t, d = _ln_checks(x, pos, scale, bias)
     dout = _check_dout(dout, (b, t, d), x)
@@ -644,7 +645,7 @@ def fused_ln_dropout_bwd(x, pos, dout, scale, bias, dropout_p=0.0, seed=0):
         err = lib.recblr_ln_pos_bwd(
             x.data_ptr(), pos.data_ptr(), dout.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), dx.data_ptr(), pos_part.data_ptr(), sb_part.data_ptr(),
-            dpos.data_ptr(), dsb.data_ptr(), b, t, d, chunks,
+            dpos.data_ptr(), dsb.data_ptr(), b, t, d, chunks, int(t0),
             int(x.dtype == torch.bfloat16), *_dropout_args(dropout_p, seed),
             x.device.index, _cuda.stream(x),
         )
@@ -667,16 +668,18 @@ class _LnDropout(torch.autograd.Function):
         return dx, dpos, dscale, dbias, None
 
 
-def fused_ln_dropout(x, pos, scale, bias, dropout_p=0.0, seed=0):
+def fused_ln_dropout(x, pos, scale, bias, dropout_p=0.0, seed=0, t0=0):
     """dropout(LN(x + pos)) with eps 1e-12, the embedding prologue of SASRec
     and BERT4Rec (``fused_layer.py:fused_ln_dropout`` of the JAX package),
     differentiable in x, pos, scale and bias.  x: [B, T, D] fp32 or bf16;
     pos [T, D], scale and bias [D] fp32; the M0 mask of ``seed`` at rate
-    ``dropout_p``.  Returns [B, T, D] in x's dtype."""
+    ``dropout_p``, drawn at positions t0 .. t0 + T - 1 (a seq rank's time
+    chunk, whose rows of the positional table ``pos`` holds).  Returns
+    [B, T, D] in x's dtype."""
     if x.device.type == "cpu":
-        return fused_ln_dropout_plain(x, pos, scale, bias, dropout_p, seed)
+        return fused_ln_dropout_plain(x, pos, scale, bias, dropout_p, seed, t0)
     _cuda.require_cuda(x)
-    opts = (float(dropout_p), int(seed))
+    opts = (float(dropout_p), int(seed), int(t0))
     if _cuda.needs_grad(x, [pos, scale, bias]):
         return _LnDropout.apply(x, pos, scale, bias, opts)
     return _launch_ln_fwd(x, pos, scale, bias, *opts)

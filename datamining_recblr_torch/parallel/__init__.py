@@ -1,5 +1,5 @@
-"""Multi-device execution over a ``{data, model}`` or, for RecBLR, a
-``{data, seq}`` mesh on ``torch.distributed`` (counterpart of
+"""Multi-device execution over a ``{data, model}``, ``{data, seq}`` or
+``{data, model, seq}`` mesh on ``torch.distributed`` (counterpart of
 ``datamining_recblr_tpu/parallel``)."""
 
 from datamining_recblr_torch.parallel.mesh import make_mesh  # noqa: F401

@@ -12,15 +12,17 @@ them: GSPMD inserts them from the shardings).
   sum over ``model`` and this rank's rows backward (a small sharded
   vector that every rank reads at other rows: BERT4Rec's output bias
   where its shards are not the table's).
-* ``gather_over_seq``: the seq ranks' rows concatenated in seq order
-  forward, a sum over ``seq`` and this rank's rows backward (the scan's
-  (last state, product of gates) pairs, ``ops/seq_parallel_scan.py``).
+* ``gather_over_seq``: the seq ranks' slices concatenated in seq order
+  along one dim forward, a sum over ``seq`` (in fp32) and this rank's
+  slice backward (the scan's (last state, product of gates) pairs,
+  ``ops/seq_parallel_scan.py``, along dim 0; the attention models' K and V
+  along their time axis, ``models/layers.py``).
 * ``conv_halo``: the K-1 positions before this rank's time chunk,
   gathered from the earlier seq ranks (zeros before position 0); the
   backward sends each position's gradient to the rank that holds it.
-* ``select_over_seq``: each row at a global time position, read on the
-  seq rank that holds it and summed over ``seq`` forward, a sum over
-  ``seq`` backward.
+* ``select_over_seq``: each row at one or several global time positions,
+  read on the seq rank that holds each and summed over ``seq`` forward, a
+  sum over ``seq`` backward.
 * ``all_reduce_grads``: the gradient sum over ``data`` (and ``seq``):
   one all-reduce of the flattened gradients per dtype and axis.
 * ``all_reduce`` / ``all_gather``: the plain collectives over one axis,
@@ -119,14 +121,15 @@ def gather_from_model(x, mesh):
 
 class _GatherOverSeq(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis, ctx.rows = mesh, axis, x.shape[0]
-        return all_gather(x, mesh, axis)
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.rows = mesh, axis, dim, x.shape[dim]
+        return all_gather(x, mesh, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
         lo = ctx.mesh.index(ctx.axis) * ctx.rows
-        return all_reduce(g, ctx.mesh, ctx.axis)[lo : lo + ctx.rows], None, None
+        full = all_reduce(g.float(), ctx.mesh, ctx.axis).to(g.dtype)
+        return full.narrow(ctx.dim, lo, ctx.rows), None, None, None
 
 
 class _ConvHalo(torch.autograd.Function):
@@ -166,9 +169,10 @@ class _SumOverSeq(torch.autograd.Function):
         return all_reduce(g.float(), ctx.mesh, SEQ_AXIS).to(g.dtype), None
 
 
-def gather_over_seq(x, mesh, axis: str = SEQ_AXIS):
-    """The seq ranks' ``x`` [n, ...] concatenated in seq order -> [S n, ...]."""
-    return _GatherOverSeq.apply(x, mesh, axis)
+def gather_over_seq(x, mesh, axis: str = SEQ_AXIS, dim: int = 0):
+    """The seq ranks' ``x`` concatenated in seq order along ``dim``: [n, ...]
+    -> [S n, ...] at dim 0."""
+    return _GatherOverSeq.apply(x, mesh, axis, dim)
 
 
 def conv_halo(xb, k: int, mesh):
@@ -184,18 +188,19 @@ def conv_halo(xb, k: int, mesh):
 
 
 def select_over_seq(v, idx, mesh):
-    """Row b of ``v`` at the global time position ``idx[b]``: ``v`` [B, T/S,
+    """Row b of ``v`` at the global time positions ``idx[b]``: ``v`` [B, T/S,
     ...] this rank's chunk of a time axis sharded over ``seq``, ``idx`` [B]
-    -> [B, ...], the same on every seq rank.  The rank holding a position
-    reads it, the others give zeros, and the sum over ``seq`` puts the
-    rows together; the backward sums the cotangent over ``seq`` (the
-    ranks' 1/S shares of the loss, see above)."""
+    -> [B, ...] or [B, S'] -> [B, S', ...] (BERT4Rec's cloze positions,
+    spread over the chunks), the same on every seq rank.  The rank
+    holding a position reads it, the others give zeros, and the sum over
+    ``seq`` puts the rows together; the backward sums the cotangent over
+    ``seq`` (the ranks' 1/S shares of the loss, see above)."""
     tc = v.shape[1]
     local = idx.long() - mesh.index(SEQ_AXIS) * tc
     own = (local >= 0) & (local < tc)
-    rows = v[torch.arange(v.shape[0], device=v.device),
-             torch.where(own, local, torch.zeros_like(local))]
-    own = own.view(-1, *[1] * (rows.dim() - 1))
+    rows_b = torch.arange(v.shape[0], device=v.device).view(-1, *[1] * (idx.dim() - 1))
+    rows = v[rows_b, torch.where(own, local, torch.zeros_like(local))]
+    own = own.view(*own.shape, *[1] * (rows.dim() - own.dim()))
     rows = torch.where(own, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
     return _SumOverSeq.apply(rows, mesh)
 

@@ -6,7 +6,7 @@ negatives and the sampled candidates come from generators seeded by the
 config alone) and keeps the rows of its data index,
 ``process_local_rows``, which the model and seq ranks of that index
 share; so the global batch is the unmeshed batch whatever the mesh.  A
-seq rank takes the rows' whole windows and RecBLR cuts its time chunk,
+seq rank takes the rows' whole windows and the model cuts its time chunk,
 ``seq_chunk``.
 
 Two placements (the Trainer's ``mesh_input``):

@@ -2,13 +2,15 @@
 ``datamining_recblr_tpu/parallel/mesh.py``) on ``torch.distributed``.
 
 One process runs per mesh position; a ``{data: D, model: M}`` mesh has
-D x M ranks, rank r at data index r // M and model index r % M, and a
+D x M ranks, rank r at data index r // M and model index r % M, a
 ``{data: D, seq: S}`` mesh rank r at data index r // S and seq index
-r % S (the row-major order of JAX's ``np.array(devices).reshape(sizes)``).
-The towers run data-parallel over ``data``; the item table and the
-full-catalog logits are row / vocab sharded over ``model``; RecBLR's
-time axis is sharded over ``seq`` (each seq rank runs its chunk of the
-data index's rows, ``models/recblr.py``).  Each
+r % S, and a ``{data: D, model: M, seq: S}`` one rank r at (r // (M S),
+r // S % M, r % S) (the row-major order of JAX's
+``np.array(devices).reshape(sizes)``).  The towers run data-parallel
+over ``data``; the item table and the full-catalog logits are row /
+vocab sharded over ``model``; every model's time axis is sharded over
+``seq`` (each seq rank runs its chunk of the data index's rows,
+``models/recblr.py``, ``models/sasrec.py``).  Each
 rank's ``Mesh`` holds a ``DeviceMesh`` with one process group per axis,
 its coordinates and its device.  Where JAX has GSPMD insert the
 collectives, the port calls them itself (``parallel/collectives.py``).
@@ -24,7 +26,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-SEQ_AXIS = "seq"  # sequence (time) parallelism for long-context RecBLR
+SEQ_AXIS = "seq"  # sequence (time) parallelism
 
 
 class Mesh:

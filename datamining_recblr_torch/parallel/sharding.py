@@ -8,7 +8,8 @@ BERT4Rec's ``output_bias`` (at the table's width) row-shard over the
 elements (``vocab_row_shard: auto``), always or never with the config's
 "always" / "never"; every other parameter is replicated (on a mesh with
 no ``model`` axis, e.g. ``{data, seq}``, all of them), and batches split
-over ``data``, their [B, T] sequences also over ``seq``.  Models pad
+over ``data``, their [B, T] sequences also over ``seq`` (beside
+``model`` too).  Models pad
 their vocab-leading rows to the model-axis multiple, so divisibility
 never decides.
 
@@ -100,19 +101,12 @@ def _shard_rows(mesh, t):
 
 
 def check_seq_axis(model, shape: dict):
-    """Raise for a ``seq`` axis above 1 where the port does not shard the
-    time axis: a model other than RecBLR, or beside a ``model`` axis above
-    1 (the JAX package leaves both to GSPMD, unmeasured)."""
-    if int(shape.get(SEQ_AXIS, 1)) <= 1:
-        return
-    if not getattr(model, "SEQ_PARALLEL", False):
-        raise NotImplementedError(
-            f"a seq mesh axis with {type(model).__name__} is not ported (ROADMAP.md queue A "
-            "item 9c); only RecBLR shards its time axis")
-    if int(shape.get(MODEL_AXIS, 1)) > 1:
-        raise NotImplementedError(
-            "a seq mesh axis beside a model axis above 1 is not ported (ROADMAP.md queue A "
-            "item 9c)")
+    """Raise ValueError for a ``seq`` axis that does not divide the model's
+    time axis (every model shards it, beside ``data`` and ``model`` too)."""
+    seq = int(shape.get(SEQ_AXIS, 1))
+    if model.max_seq_len % seq:
+        raise ValueError(f"MAX_ITEM_LIST_LENGTH {model.max_seq_len} must divide by the seq "
+                         f"mesh axis ({seq})")
 
 
 def shard_model(model, mesh, state=None):

@@ -5,8 +5,9 @@ runs on and off a mesh.
 JAX jits one function over the mesh and lets GSPMD insert the
 collectives; here each rank runs the step on its rows and calls them:
 the model's vocab-parallel lookup and CE reduce over ``model``
-(``models/base.py``), a ``seq`` axis's halo, carry and selection are
-exchanged inside RecBLR's forward (``models/recblr.py``), the gradients
+(``models/base.py``), a ``seq`` axis's exchanges run inside the forward
+(RecBLR's halo, carry and selection, ``models/recblr.py``; the attention
+models' K and V gathers and selection, ``models/sasrec.py``), the gradients
 are summed over ``data`` and ``seq`` before the optimizer's step, and the
 loss comes back as the global value, the same on every rank.  The eval
 step is ``Evaluator``'s: each rank scores its rows and ``sum_over_data``

@@ -19,8 +19,9 @@ A meshed run starts one process per rank with ``torch.distributed.run``:
 
 each rank on ``cuda:LOCAL_RANK``; ``--device`` names the card where the
 ranks share one (then ``--set "multihost_args={'backend': 'gloo'}"``, as
-NCCL takes one rank a card), or ``cpu`` (gloo).  RecBLR also shards its
-time axis over a ``seq`` axis: ``--set "mesh_shape={'data': 2, 'seq': 2}"``
+NCCL takes one rank a card), or ``cpu`` (gloo).  Every model also shards
+its time axis over a ``seq`` axis, beside ``data`` and ``model``: ``--set
+"mesh_shape={'data': 2, 'seq': 2}"`` or ``"{'model': 2, 'seq': 2}"``
 (MAX_ITEM_LIST_LENGTH must divide by it).
 """
 

@@ -12,8 +12,8 @@ With a ``mesh`` (every rank runs the same ``recommend``, as the JAX
 package's replicated request batch) the model goes on the mesh from its
 full parameters; a row-sharded table scores this rank's columns and
 ``sharded_topk`` merges the model ranks' candidates, and on a ``seq``
-axis each rank runs every request on its time chunk (RecBLR), so every
-rank returns the unmeshed top-k."""
+axis each rank runs every request on its time chunk, so every rank
+returns the unmeshed top-k."""
 
 from __future__ import annotations
 

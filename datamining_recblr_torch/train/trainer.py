@@ -18,8 +18,9 @@ BPR, and a ``torch.profiler`` trace of one epoch (``profile_dir``).
 * The JAX trainer's epoch-scan super-steps and host-batch streaming
   exist only for a remote TPU's dispatch latency and are left out; the
   semantics above are theirs.
-* With ``mesh_shape`` (``{data: D, model: M}`` or, for RecBLR, ``{data:
-  D, seq: S}``; one process per rank, ``torch.distributed`` initialized)
+* With ``mesh_shape`` (``{data: D, model: M}``, ``{data: D, seq: S}`` or
+  ``{data: D, model: M, seq: S}``, any model; one process per rank,
+  ``torch.distributed`` initialized)
   the model goes on the mesh from its full parameters
   (``parallel/sharding.py``); each step every rank draws the global
   batch and its negatives and keeps its data index's rows, from the
@@ -27,8 +28,7 @@ BPR, and a ``torch.profiler`` trace of one epoch (``profile_dir``).
   (``stream``), and a seq rank runs its chunk of their time axis; the
   gradients are summed over ``data`` and ``seq`` and the loss is the
   global one.  Rank 0 writes the gathered checkpoint, the file an
-  unmeshed run writes.  A ``seq`` axis with SASRec or BERT4Rec, or
-  beside a ``model`` axis, raises (ROADMAP.md queue A item 9c).
+  unmeshed run writes.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ from datamining_recblr_torch.eval.evaluator import (
     history_fn_from_data,
 )
 from datamining_recblr_torch.parallel.input import process_local_rows, shard_host_batch
-from datamining_recblr_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS, make_mesh
+from datamining_recblr_torch.parallel.mesh import DATA_AXIS, make_mesh
 from datamining_recblr_torch.parallel.sharding import (
     check_seq_axis,
     full_rows,
@@ -86,10 +86,6 @@ class Trainer:
             if int(config["train_batch_size"]) % data:
                 raise ValueError(f"train_batch_size {config['train_batch_size']} must divide "
                                  f"by the data mesh axis ({data})")
-            seq = mesh_shape.get(SEQ_AXIS, 1)
-            if model.max_seq_len % seq:
-                raise ValueError(f"MAX_ITEM_LIST_LENGTH {model.max_seq_len} must divide by "
-                                 f"the seq mesh axis ({seq})")
             # a model on such a mesh already (another Trainer's) keeps it
             self.mesh = (model.mesh if model.mesh is not None
                          and model.mesh.shape == mesh_shape else make_mesh(mesh_shape, model.device))

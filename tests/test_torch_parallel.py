@@ -128,15 +128,14 @@ def _cfg(**over):
 
 
 def test_mesh_errors():
-    """A seq axis with SASRec names the queue item that ports it, and
-    RecBLR's asks for its ranks; sizes that do not divide the data axis
-    and a mesh without its ranks raise."""
+    """A seq axis, RecBLR's or SASRec's, asks for its ranks; sizes that do
+    not divide the data axis and a mesh without its ranks raise."""
     cfg = _cfg(mesh_shape={"data": 1, "seq": 2})
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         Trainer(cfg, get_model("RecBLR")(cfg, 20, 8, device="cpu"))
     cfg = Config(model="SASRec", config_dict={"hidden_size": 8, "MAX_ITEM_LIST_LENGTH": 8,
                                               "mesh_shape": {"data": 1, "seq": 2}})
-    with pytest.raises(NotImplementedError, match="9c"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         Trainer(cfg, get_model("SASRec")(cfg, 20, 8, device="cpu"))
     cfg = _cfg(mesh_shape={"data": 3})
     with pytest.raises(ValueError, match="train_batch_size 128 must divide"):

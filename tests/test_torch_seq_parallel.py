@@ -27,8 +27,9 @@ on four of its eight virtual CPU devices.
 * ``Trainer.fit`` on ``{data: 2, seq: 2}`` against the unmeshed fit (rtol
   2e-4, atol 5e-5), its checkpoint, resume, uni20 evaluation and
   ``Recommender`` ids.
-* What still raises: a ``seq`` axis with SASRec or beside ``model`` > 1
-  (ROADMAP.md item 9c), and a T that does not divide ``seq``."""
+* What the seq axis does not take: a T that does not divide ``seq``
+  (SASRec, BERT4Rec and ``seq`` beside ``model`` are
+  ``tests/test_torch_seq_attention.py``'s)."""
 
 import jax
 import jax.numpy as jnp
@@ -375,20 +376,20 @@ def _cfg(**over):
 
 
 def test_what_the_seq_axis_does_not_take():
-    """SASRec and BERT4Rec under seq, and seq beside model > 1, name item
-    9c; a T that does not divide seq raises; RecBLR's {data: 1, seq: 2}
-    passes the checks and asks for its two ranks."""
+    """A T that does not divide seq raises; SASRec and BERT4Rec under seq,
+    and seq beside model > 1, pass the checks and ask for their ranks, as
+    RecBLR's {data: 1, seq: 2} does."""
+    cfg = _cfg(mesh_shape={"data": 1, "seq": 3})
+    with pytest.raises(ValueError, match="MAX_ITEM_LIST_LENGTH 8 must divide"):
+        Trainer(cfg, get_model("RecBLR")(cfg, 20, 8, device="cpu"))
     for name in ("SASRec", "BERT4Rec"):
         cfg = Config(model=name, config_dict={"hidden_size": 8, "MAX_ITEM_LIST_LENGTH": 8,
                                               "train_batch_size": 128,
                                               "mesh_shape": {"data": 2, "seq": 2}})
-        with pytest.raises(NotImplementedError, match="9c"):
+        with pytest.raises(ValueError, match="needs 4 devices"):
             Trainer(cfg, get_model(name)(cfg, 20, 8, device="cpu"))
     cfg = _cfg(mesh_shape={"model": 2, "seq": 2})
-    with pytest.raises(NotImplementedError, match="9c"):
-        Trainer(cfg, get_model("RecBLR")(cfg, 20, 8, device="cpu"))
-    cfg = _cfg(mesh_shape={"data": 1, "seq": 3})
-    with pytest.raises(ValueError, match="MAX_ITEM_LIST_LENGTH 8 must divide"):
+    with pytest.raises(ValueError, match="needs 4 devices"):
         Trainer(cfg, get_model("RecBLR")(cfg, 20, 8, device="cpu"))
     cfg = _cfg(mesh_shape={"data": 1, "seq": 2})
     with pytest.raises(ValueError, match="needs 2 devices"):

@@ -1,5 +1,6 @@
 """Rank processes of the port's mesh tests (``tests/test_torch_parallel*.py``,
-``tests/test_torch_seq_parallel.py``; not collected by pytest).  It
+``tests/test_torch_seq_parallel.py``, ``tests/test_torch_seq_attention.py``;
+not collected by pytest).  It
 imports torch and the port only, never JAX.
 
 ``launch(job, world, tmp)`` starts ``world`` processes of this file, one
@@ -96,7 +97,8 @@ def step(name, cfg, n_items, t, params, batch, mesh_shape, cloze=None, steps=1,
     """``steps`` meshed ``Trainer.train_step``s from the full ``params`` on
     the global ``batch`` (this rank takes its part, ``shard_batch``: its
     data rows and on a seq axis its time chunk; ``cloze`` a global
-    BERT4Rec draw to use in place of the model's): the full-sort metric
+    BERT4Rec draw to use in place of the model's, or a list of them, one
+    a step): the full-sort metric
     sums of the batch from ``params`` (the trainer's
     ``Evaluator.batch_sums`` summed over ``data``), the eval forward of
     the rank's rows, the losses, the first step's gradients put
@@ -120,11 +122,12 @@ def step(name, cfg, n_items, t, params, batch, mesh_shape, cloze=None, steps=1,
         sums = sum_over_data(trainer.evaluator.batch_sums(local), mesh)
         out = model(local["item_seq"], local["item_seq_len"])
     sums = {k: (float(a), float(b)) for k, (a, b) in sums.items()}
-    if cloze is not None:
-        mine = tuple(torch.as_tensor(a[lo:hi]) for a in cloze)
-        model.cloze_draw = lambda *a, **k: mine
+    draws = cloze if isinstance(cloze, list) else [cloze] * steps
     losses, grads = [], None
     for s in range(steps):
+        if draws[s] is not None:
+            mine = tuple(torch.as_tensor(a[lo:hi]) for a in draws[s])
+            model.cloze_draw = lambda *a, mine=mine, **k: mine
         losses.append(float(trainer.train_step(local, s)))
         if s == 0:
             grads = _full_grads(model, mesh)
@@ -177,6 +180,16 @@ def fit(cfg, data_args, t, ckpt, repeat=1, sampled=None, recommend=None, resume_
                                           device="cpu", mesh=mesh)
         out["recommend_ckpt"] = rec.recommend(recommend)
     return out
+
+
+def recommend(name, cfg, n_items, t, params, users, mesh_shape, top_k=5):
+    """``Recommender.recommend(users)`` of a model of ``params`` put on the
+    mesh ``mesh_shape``: (ids, scores)."""
+    from datamining_recblr_torch.serve import Recommender
+
+    _, model = _model(name, cfg, n_items, t, mesh_shape)
+    mesh = make_mesh(mesh_shape, "cpu")
+    return Recommender(model, params, top_k=top_k, mesh=mesh).recommend(users)
 
 
 def resume_opt_state(cfg, n_items, t, path):
