@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's twenty-seven CUDA kernels from the twenty-one sources
+Builds the port's thirty-two CUDA kernels from the twenty-five sources
 of ``datamining_recblr_torch/csrc`` (both fused recurrent layers of
 RecBLR, forward and backward; the attention baselines' LN prologue and
 both transformer layers, forward and backward; BERT4Rec's
@@ -12,7 +12,8 @@ backward; the sequence-chunked recurrent layer and the vocab-chunked CE,
 forward and backward, and the embedding-table gradient; a one-layer
 RecBLR's input dropout and LN, the linear scan and the standalone BD-LRU,
 forward and backward; the masked-softmax attention of the baselines'
-per-op composition, forward and backward) and, phase by phase:
+per-op composition, forward and backward; the four probes' five kernels
+of queue B row 17) and, phase by phase:
 
 * holds each kernel against its plain PyTorch version at B 256, T 200:
   the RecBLR forwards at dropout 0 (serving), then every RecBLR kernel's
@@ -149,7 +150,16 @@ per-op composition, forward and backward) and, phase by phase:
   sums, the wrapper's share), and rows 6 and 5's forwards at B 2,048 and
   256, fp32 and bf16 (``ln_fwd_kernel_times``), and rows 15 and 6 at the
   seq cases' chunk beside the library call with the chunk's mask
-  (``chunk_kernel_times``, ``shape=chunk``).
+  (``chunk_kernel_times``, ``shape=chunk``);
+* runs the probes (``probes/``, queue B row 17a-17d): their five kernels
+  against their plain versions at the JAX probes' defaults
+  (``probe-vs-plain``: unit_overlap's five modes, vpu_ops' fourteen
+  chains, the flat and two-level scans, the bf16 product at every block
+  height), then the four entry points as a user runs them (``probe-time``,
+  each kernel's launches counted from 0), unit_overlap again at an nv that
+  brings vpu_only within 2x of mm_only, and each kernel beside its bound,
+  its plain version and, for the bf16 product, ``torch.mm``
+  (``probe-kernel-time``).
 
 A rerun of each RecBLR layer kernel, forward and backward, gives the same
 bits, and each RecBLR training and serving profile fails unless phase A
@@ -188,6 +198,11 @@ from datamining_recblr_torch.ops import fused_layer as FL
 from datamining_recblr_torch.ops import fused_bdlru as FBD
 from datamining_recblr_torch.ops import fused_layer_chunked as FLC
 from datamining_recblr_torch.ops import scan as SC
+from datamining_recblr_torch.probes import _bench as PB
+from datamining_recblr_torch.probes import ce_mxu as PCE
+from datamining_recblr_torch.probes import scan_chunked as PSC
+from datamining_recblr_torch.probes import unit_overlap as PUO
+from datamining_recblr_torch.probes import vpu_ops as PVO
 from datamining_recblr_torch.serve import Recommender
 
 SEED = 0
@@ -605,7 +620,7 @@ def environment():
     phase("tf32", matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     t0 = time.perf_counter()
-    per_source = _cuda.build()
+    per_source = _cuda.build(_cuda.SOURCES + _cuda.PROBE_SOURCES)
     phase("build", seconds=f"{time.perf_counter() - t0:.1f}",
           **{k: f"{v:.1f}s" for k, v in per_source.items()})
     for src, log in _cuda.BUILD_LOGS.items():
@@ -627,12 +642,14 @@ PTXAS_KERNEL_NAMES = ("attn_fwd_mma_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
                       "ce_fwd_mma_kernel", "cce_dx_mma_kernel", "ce_dx_mma_kernel",
                       "cce_dtab_mma_kernel", "ce_dtab_mma_kernel", "radix_hist_kernel",
                       "radix_scatter_kernel", "piece_sum_kernel", "group_sum_kernel",
-                      "row_sum_kernel", "ln_pos_kernel", "ln_pos_bwd_kernel")
+                      "row_sum_kernel", "ln_pos_kernel", "ln_pos_bwd_kernel",
+                      "unit_overlap_kernel")
 PTXAS_KERNEL_SOURCES = ("attention.cu", "attention_bwd.cu", "fused_layer.cu",
                         "fused_layer_last.cu", "fused_layer_chunked.cu", "fused_bdlru.cu",
                         "fused_layer_bwd.cu", "fused_layer_last_bwd.cu",
                         "fused_layer_chunked_bwd.cu", "fused_bdlru_bwd.cu", "fused_ce.cu",
-                        "fused_ce_chunked.cu", "emb_grad.cu", "ln_dropout.cu")
+                        "fused_ce_chunked.cu", "emb_grad.cu", "ln_dropout.cu",
+                        "probe_unit_overlap.cu")
 
 
 def ptxas_kernels(src, log):
@@ -4555,6 +4572,206 @@ def chunk_kernel_times(dev):
               bound_by=by, share_of_bound=f"{bound / t_ms:.4f}")
 
 
+# ---------------------------------------------------------------------------
+# queue B row 17a-17d: the probes (probes/) at the JAX probes' defaults
+# ---------------------------------------------------------------------------
+
+# each probe kernel's wrapper, whose launches the probes' entry points count
+PROBE_COUNTED = {"unit_overlap": PUO.run, "vpu_ops": PVO.vpu_chain, "scan_flat": PSC.scan_flat,
+                 "scan_chunk": PSC.scan_chunk, "ce_mm": PCE.mm}
+UO_GRID, UO_NM, UO_NV = 64, 16, 48   # unit_overlap's defaults
+CE_N, CE_V = 81_920, 3_456           # ce_mxu's defaults
+# the bf16 product: products of bf16 values are exact in fp32, sums of 64
+# in another order
+MXU_TOL = dict(atol=1e-5, rtol=1e-5)
+# the scans: one 200-step recurrence in three orders (fmaf in the kernels,
+# a multiply and an add in the plain versions), |h| up to about 30
+SCAN_RTOL = 1e-5
+
+
+def _finite_err(got, want):
+    """(max |got - want| over want's finite entries, whether both hold
+    their infinities and NaNs at the same places with the same signs)."""
+    fin = torch.isfinite(want)
+    same = bool(torch.equal(fin, torch.isfinite(got))) and bool(
+        torch.equal(got[~fin].nan_to_num(), want[~fin].nan_to_num()))
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    return err, same
+
+
+def probe_kernels_vs_plain(dev):
+    """Rows 17a-17d against their plain versions at the JAX probes'
+    default shapes (``probe-vs-plain``): unit_overlap's five modes (grid
+    64, nm 16, nv 48), vpu_ops' fourteen chains ([8, 512, 128], 64 steps),
+    both scans (B 2,048, T 200, C 128) and the bf16 product at every block
+    height (N 81,920, V 3,456).  Returns the largest |kernel - plain| of
+    each kernel."""
+    errs = {}
+    x, x2, w, a, b = PUO.inputs(UO_GRID, dev)
+    for mode in PUO.MODES:
+        got = PUO.run(x, x2, w, a, b, mode, UO_NM, UO_NV, UO_GRID)
+        want = PUO.run_plain(x, x2, w, a, b, mode, UO_NM, UO_NV)
+        err = _max_err([(got, want)])
+        ok = bool(torch.allclose(got, want, **FP32_TOL))
+        phase("probe-vs-plain", kernel="unit_overlap", mode=mode,
+              shape=f"{UO_GRID * PUO.ROWS}x{PUO.C}", nm=UO_NM, nv=UO_NV,
+              max_abs_err=f"{err:.3e}", tol=f"atol {FP32_TOL['atol']} rtol {FP32_TOL['rtol']}",
+              ok=ok)
+        check(ok, f"unit_overlap {mode}: kernel disagrees with its plain version")
+        errs["unit_overlap"] = max(errs.get("unit_overlap", 0.0), err)
+    del x, x2, got, want
+    x = PVO.inputs(dev)
+    op_errs = {}
+    for name in PVO.OPS:
+        got = PVO.vpu_chain(x, name, PVO.REPEAT)
+        want = PVO.vpu_chain_plain(x, name, PVO.REPEAT)
+        err, same = _finite_err(got, want)
+        fin = torch.isfinite(want)
+        ok = same and bool(torch.allclose(got[fin], want[fin], **FP32_TOL))
+        check(ok, f"vpu_ops {name}: kernel disagrees with its plain version (err {err:.3e})")
+        op_errs[name] = err
+    phase("probe-vs-plain", kernel="vpu_ops", shape="x".join(map(str, PVO.SHAPE)),
+          repeat=PVO.REPEAT, max_abs_err=repr({k: float(f"{e:.3e}") for k, e in op_errs.items()}),
+          tol=f"atol {FP32_TOL['atol']} rtol {FP32_TOL['rtol']} on finite values, the same "
+              "infinities", ok=True)
+    errs["vpu_ops"] = max(op_errs.values())
+    g, x = PSC.inputs(dev)
+    for name, kern, plain in (("scan_flat", PSC.scan_flat, PSC.scan_flat_plain),
+                              ("scan_chunk", PSC.scan_chunk, PSC.scan_chunk_plain)):
+        got, want = kern(g, x), plain(g, x)
+        err = _max_err([(got, want)])
+        rel = err / float(want.abs().max())
+        ok = rel <= SCAN_RTOL
+        phase("probe-vs-plain", kernel=name, shape=f"B{PSC.B}xT{PSC.T}xC{PSC.C}",
+              max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}", tol=f"max|err|/max|h| <= {SCAN_RTOL}",
+              ok=ok)
+        check(ok, f"{name}: kernel disagrees with its plain version")
+        errs[name] = err
+        del got, want
+    del g, x
+    x, table, _, _ = PCE.inputs(CE_N, CE_V, dev)
+    want = PCE.mm_plain(x, table)
+    for bn in PCE.BNS:
+        got = PCE.mm(x, table, bn)
+        err = _max_err([(got, want)])
+        ok = bool(torch.allclose(got, want, **MXU_TOL))
+        phase("probe-vs-plain", kernel="ce_mm", shape=f"N{CE_N}xV{CE_V}xD{PCE.D}", bn=bn,
+              max_abs_err=f"{err:.3e}", tol=f"atol {MXU_TOL['atol']} rtol {MXU_TOL['rtol']}",
+              ok=ok)
+        check(ok, f"ce_mm bn={bn}: kernel disagrees with its plain version")
+        errs["ce_mm"] = max(errs.get("ce_mm", 0.0), err)
+        del got
+    del x, table, want
+    return errs
+
+
+def probe_bounds():
+    """(bound ms, what bounds it) of each probe kernel at its default
+    shape: unit_overlap's mm_only as 3xTF32 products (x read, out written),
+    the vpu_ops mul chain (a multiply and a multiply-add an element-step at
+    the fp32 peak; the block read and written), each scan (g and x read, h
+    written), the bf16 product (its [N, V] fp32 output written)."""
+    rows = UO_GRID * PUO.ROWS
+    n = int(np.prod(PVO.SHAPE))
+    uo = _bound(0, (2 * rows * PUO.C + PUO.C * PUO.C) * 4, 0,
+                3 * 2 * rows * PUO.C * PUO.C * UO_NM)
+    vo = _bound(3 * n * PVO.REPEAT, 2 * n * 4)
+    sc = scan_bound_ms(PSC.B, PSC.T, PSC.C)
+    ce = _bound(0, (CE_N * CE_V + (CE_N + CE_V) * PCE.D) * 4, 2 * CE_N * CE_V * PCE.D)
+    return {name: (bd[0], bd[2]) for name, bd in (("unit_overlap", uo), ("vpu_ops", vo),
+                                                    ("scan_flat", sc), ("scan_chunk", sc),
+                                                    ("ce_mm", ce))}
+
+
+def probe_phases(dev):
+    """The probes' entry points at their defaults, as a user runs them
+    (``probe-time``): each prints its JAX probe's lines; then unit_overlap
+    again at an nv that brings vpu_only within 2x of mm_only, the only
+    point where its overlap fraction says anything.  Every probe kernel's
+    count is set to 0 just before and read just after (``probe-launches``).
+    Then the plain versions are timed (``probe-kernel-time``) beside each
+    kernel's time from those runs, its bound and, for the bf16 product, the
+    library's (``torch.mm``, from ce_mxu's torch-mm line).  Returns each
+    kernel's row for the kernels JSON."""
+    for fn in PROBE_COUNTED.values():
+        fn.launches = 0
+    uo = PUO.main([])
+    nv, bal = UO_NV, uo
+    for _ in range(3):
+        ratio = bal["ms"]["vpu_only"] / bal["ms"]["mm_only"]
+        if bal is not uo and 0.5 <= ratio <= 2.0:
+            break
+        nv = max(4, 4 * round(nv / ratio / 4))
+        bal = PUO.main(["--nv", str(nv)])
+    ratio = bal["ms"]["vpu_only"] / bal["ms"]["mm_only"]
+    phase("probe-time", probe="unit_overlap", balanced_nv=nv, vpu_over_mm=f"{ratio:.3f}",
+          overlap_il=f"{bal['overlap_il']:.3f}", ok=0.5 <= ratio <= 2.0)
+    check(0.5 <= ratio <= 2.0, f"unit_overlap: no nv brought vpu_only within 2x of mm_only "
+                               f"(last nv {nv}, ratio {ratio:.3f})")
+    vo = PVO.main([])
+    sc = PSC.main([])
+    ce = PCE.main([])
+    launches = {name: fn.launches for name, fn in PROBE_COUNTED.items()}
+    phase("probe-launches", **launches)
+    for name, count in launches.items():
+        check(count > 0, f"{name}: the probe's entry point launched its kernel no time")
+    # a vpu_ops call is host-bound (the wrapper's Python and the launch):
+    # its device time by op, from torch.profiler over 20 calls each, per
+    # kernel the profile holds (a capture can come back short of events)
+    x = PVO.inputs(dev)
+    dev_us, captured = {}, {}
+    for name in PVO.OPS:
+        events, _ = profiled(_timed_loop(lambda _, f=PVO.make_fn(name): f(x), 20),
+                             ("vpu_op_kernel",))
+        kern = [e for e in events if "vpu_op_kernel" in e.key]
+        count = sum(e.count for e in kern)
+        us = sum(e.self_device_time_total for e in kern)
+        dev_us[name] = round(us / count, 3) if count else "not measured"
+        captured[name] = count
+    phase("probe-device-time", probe="vpu_ops", us_per_call=repr(dev_us),
+          kernels_captured=repr(captured))
+    del x
+    x, x2, w, a, b = PUO.inputs(UO_GRID, dev)
+    plain = {"unit_overlap": PB.time_chain(
+        lambda xv: PUO.run_plain(xv, x2, w, a, b, "mm_only", UO_NM, UO_NV), x, dev, 5, 1)}
+    del x, x2
+    x = PVO.inputs(dev)
+    plain["vpu_ops"] = PB.time_chain(lambda v: PVO.vpu_chain_plain(v, "mul", PVO.REPEAT), x,
+                                     dev, 20, 1)
+    g, x = PSC.inputs(dev)
+    plain["scan_flat"] = PB.time_calls(lambda: PSC.scan_flat_plain(g, x), dev, 5)
+    plain["scan_chunk"] = PB.time_calls(lambda: PSC.scan_chunk_plain(g, x), dev, 5)
+    del g, x
+    x, table, _, _ = PCE.inputs(CE_N, CE_V, dev)
+    plain["ce_mm"] = PB.time_calls(lambda: PCE.mm_plain(x, table), dev, 5)
+    del x, table
+    bn0 = PCE.DEFAULT_BNS[0]
+    ms = {"unit_overlap": uo["ms"]["mm_only"], "vpu_ops": vo["ms"]["mul"],
+          "scan_flat": sc["ms"]["flat"], "scan_chunk": sc["ms"]["chunk"],
+          "ce_mm": ce[f"cuda-mm bn={bn0}"]}
+    extra = {
+        "unit_overlap": {"mode": "mm_only", "modes_ms": uo["ms"], "overlap_il": uo["overlap_il"],
+                         "balanced": {"nv": nv, "modes_ms": bal["ms"],
+                                      "overlap_il": bal["overlap_il"]}},
+        "vpu_ops": {"op": "mul", "ops_ms": vo["ms"], "ops_device_us": dev_us},
+        "scan_flat": {"row7_linear_scan_ms": sc["ms"]["serial"]},
+        "scan_chunk": {"row7_linear_scan_ms": sc["ms"]["serial"]},
+        "ce_mm": {"bn": bn0, "bn_ms": {k: v for k, v in ce.items() if k.startswith("cuda-mm")},
+                  "library_trio_ms": ce["torch-mm"][1], "fused_ce_ms": ce["fused-ce"],
+                  "fused_ce_tile": PCE.ROW13_TILE},
+    }
+    library = {"ce_mm": ce["torch-mm"][0]}
+    rows = {}
+    for name, (bound, by) in probe_bounds().items():
+        rows[name] = {"launches": launches[name], "ms": ms[name], "plain_ms": plain[name],
+                      "bound_ms": bound, "bound_by": by, "library_ms": library.get(name),
+                      "extra": extra[name]}
+        phase("probe-kernel-time", kernel=name, ms=f"{ms[name]:.4f}",
+              plain_ms=f"{plain[name]:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+              library_ms=library.get(name), launches=launches[name])
+    return rows
+
+
 def row15_row6_digests(dev):
     """The whole calls of rows 15 and 6 as every caller before the seq
     axis makes them (no query chunk, no t0), hashed: row 15 at the d256
@@ -5016,6 +5233,18 @@ ROW15_KERNELS = (
      "datamining_recblr_tpu/ops/attention.py:167"),
     ("fused_attention_bwd", "datamining_recblr_torch/csrc/attention_bwd.cu",
      "datamining_recblr_tpu/ops/attention.py:191"),
+)
+# queue B row 17a-17d: the probes' kernels (probes/), name, source, TPU
+# kernel (the function that reaches its pallas_call)
+PROBE_KERNELS = (
+    ("unit_overlap", "datamining_recblr_torch/csrc/probe_unit_overlap.cu",
+     "benchmarks/unit_overlap.py:114"),
+    ("vpu_ops", "datamining_recblr_torch/csrc/probe_vpu_ops.cu", "benchmarks/vpu_ops.py:40"),
+    ("scan_flat", "datamining_recblr_torch/csrc/probe_scan_chunked.cu",
+     "benchmarks/scan_chunked.py:79"),
+    ("scan_chunk", "datamining_recblr_torch/csrc/probe_scan_chunked.cu",
+     "benchmarks/scan_chunked.py:79"),
+    ("ce_mm", "datamining_recblr_torch/csrc/probe_ce_mxu.cu", "benchmarks/ce_mxu.py:106"),
 )
 B4R_KERNELS = (
     ("fused_transformer_layer_sel", "datamining_recblr_torch/csrc/fused_block_sel.cu",
@@ -5879,6 +6108,7 @@ def main():
     slice_errs.update(bdlru_kernels_vs_plain(dev))
     row15_errs = attention_kernels_vs_plain(dev)
     attention_mask_bits(dev)
+    probe_errs = probe_kernels_vs_plain(dev)
     serve = {(name, dt): serving(dev, name, dt)
              for name in SERVED for dt in ("float32", "bfloat16")}
     xserve = serving(dev, "RecBLR", "bfloat16", xlong=True)
@@ -5932,6 +6162,7 @@ def main():
     row15_rows = row15_kernel_times(dev)
     row15_phase_times(dev)
     chunk_kernel_times(dev)
+    probe_rows = probe_phases(dev)
     # launches: each model's kernels in one training step of its main path
     # (fp32), the forwards' launches per recommend() beside them (RecBLR's;
     # the attention kernels' in SASRec's and BERT4Rec's)
@@ -6014,6 +6245,15 @@ def main():
             entry["launches_per_recommend"] = {m: pserve[m, "float32"]["launches"][1]
                                                for m in baselines}
         kernels.append(entry)
+    # row 17a-17d: launches in the probes' entry-point runs (probe_phases)
+    for name, src, tpu in PROBE_KERNELS:
+        r = probe_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": r["launches"], "max_abs_err": probe_errs[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], **r["extra"],
+        })
     serve_summary = {}
     for (name, dt), out in serve.items():
         tag = ("" if name == "RecBLR" else name.lower() + "_") + SHORT_DTYPE[dt]
@@ -6096,7 +6336,7 @@ def main():
         train_summary[f"{tag}_train_s"] = f"{out['train_s']:.2f}"
         train_summary[f"{tag}_examples_per_s"] = f"{out['examples_per_s']:.1f}"
         train_summary[f"{tag}_eval_s"] = f"{out['eval_s']:.2f}"
-    check(len(kernels) == 27, f"the kernels JSON lists {len(kernels)} kernels, not 27")
+    check(len(kernels) == 32, f"the kernels JSON lists {len(kernels)} kernels, not 32")
     phase("summary", card=repr(smi), **serve_summary, **train_summary)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

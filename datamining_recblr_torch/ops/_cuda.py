@@ -2,7 +2,8 @@
 
 Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``; all
-sources build in parallel, one ``nvcc`` each.  Builds go to
+sources build in parallel, one ``nvcc`` each: ``SOURCES``, the model
+paths', and ``PROBE_SOURCES``, the probes', when asked for.  Builds go to
 ``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
 named by a hash of the sources and flags, so a changed source is
 rebuilt and an unchanged one is reused.  Nothing here runs at import
@@ -33,6 +34,10 @@ SOURCES = ("fused_layer.cu", "fused_layer_last.cu", "fused_layer_bwd.cu",
            "fused_layer_chunked.cu", "fused_layer_chunked_bwd.cu", "fused_ce_chunked.cu",
            "emb_grad.cu", "linear_scan.cu", "fused_bdlru.cu", "fused_bdlru_bwd.cu",
            "attention.cu", "attention_bwd.cu")
+# the probes' kernels (probes/, queue B row 17): built at a probe's first
+# use, apart from the model paths' sources
+PROBE_SOURCES = ("probe_unit_overlap.cu", "probe_vpu_ops.cu", "probe_scan_chunked.cu",
+                 "probe_ce_mxu.cu")
 HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh", "ce_common.cuh",
            "ce_mma.cuh",
            "attention.cuh", "gemm_tile.cuh", "mma_tile.cuh", "mma_smem.cuh", "layer_fwd.cuh")
@@ -128,6 +133,18 @@ _SIGNATURES = {
     "attention_bwd.cu": {
         "recblr_attn_bwd": [_P] * 11 + [_I] * 7 + [_F, _I] + _D1 + [_I, _P],
         "recblr_attn_bwd_blocks_per_sm": [_I] * 4,
+    },
+    "probe_unit_overlap.cu": {
+        "recblr_probe_unit_overlap": [_P] * 6 + [_I] * 4 + [_I, _P],
+    },
+    "probe_vpu_ops.cu": {
+        "recblr_probe_vpu_op": [_P] * 2 + [_I] * 3 + [_I, _P],
+    },
+    "probe_scan_chunked.cu": {
+        "recblr_probe_scan": [_P] * 3 + [_I] * 4 + [_I, _P],
+    },
+    "probe_ce_mxu.cu": {
+        "recblr_probe_ce_mm": [_P] * 3 + [_I] * 4 + [_I, _P],
     },
 }
 

@@ -76,6 +76,11 @@ MODULES = [
     "datamining_recblr_torch.parallel.input",
     "datamining_recblr_torch.parallel.collectives",
     "datamining_recblr_torch.parallel.steps",
+    "datamining_recblr_torch.probes",
+    "datamining_recblr_torch.probes.unit_overlap",
+    "datamining_recblr_torch.probes.vpu_ops",
+    "datamining_recblr_torch.probes.scan_chunked",
+    "datamining_recblr_torch.probes.ce_mxu",
 ]
 FORBIDDEN = ("jax", "jaxlib", "datamining_recblr_tpu", "pandas", "yaml", "sklearn", "optax",
              "ml_dtypes", "tensorstore")
@@ -83,13 +88,15 @@ FORBIDDEN = ("jax", "jaxlib", "datamining_recblr_tpu", "pandas", "yaml", "sklear
 
 def _run_clean(code):
     """Run ``code`` in a fresh interpreter, then fail if it imported any
-    FORBIDDEN package."""
+    FORBIDDEN package.  One torch thread, as every mesh launch of the tests
+    runs: beside other test workers a default thread pool a core oversubscribes
+    the machine and a run of a few seconds takes minutes."""
     code += (
         "\nimport sys\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True,
                    timeout=120)
 
@@ -202,9 +209,9 @@ def test_unknown_model_is_not_ported():
 def test_kernel_sources_ship_with_the_package():
     from datamining_recblr_torch.ops import _cuda
 
-    for name in (*_cuda.SOURCES, *_cuda.HEADERS):
+    for name in (*_cuda.SOURCES, *_cuda.PROBE_SOURCES, *_cuda.HEADERS):
         assert (_cuda.SRC_DIR / name).is_file()
-    assert set(_cuda._SIGNATURES) == set(_cuda.SOURCES)
+    assert set(_cuda._SIGNATURES) == set(_cuda.SOURCES) | set(_cuda.PROBE_SOURCES)
 
 
 def test_an_edit_of_the_forward_phases_rebuilds_every_source():
