@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's thirty-two CUDA kernels from the twenty-five sources
+Builds the port's thirty-five CUDA kernels from the twenty-seven sources
 of ``datamining_recblr_torch/csrc`` (both fused recurrent layers of
 RecBLR, forward and backward; the attention baselines' LN prologue and
 both transformer layers, forward and backward; BERT4Rec's
@@ -12,7 +12,7 @@ backward; the sequence-chunked recurrent layer and the vocab-chunked CE,
 forward and backward, and the embedding-table gradient; a one-layer
 RecBLR's input dropout and LN, the linear scan and the standalone BD-LRU,
 forward and backward; the masked-softmax attention of the baselines'
-per-op composition, forward and backward; the four probes' five kernels
+per-op composition, forward and backward; the six probes' eight kernels
 of queue B row 17) and, phase by phase:
 
 * holds each kernel against its plain PyTorch version at B 256, T 200:
@@ -151,15 +151,17 @@ of queue B row 17) and, phase by phase:
   256, fp32 and bf16 (``ln_fwd_kernel_times``), and rows 15 and 6 at the
   seq cases' chunk beside the library call with the chunk's mask
   (``chunk_kernel_times``, ``shape=chunk``);
-* runs the probes (``probes/``, queue B row 17a-17d): their five kernels
+* runs the probes (``probes/``, queue B row 17): their eight kernels
   against their plain versions at the JAX probes' defaults
   (``probe-vs-plain``: unit_overlap's five modes, vpu_ops' fourteen
   chains, the flat and two-level scans, the bf16 product at every block
-  height), then the four entry points as a user runs them (``probe-time``,
-  each kernel's launches counted from 0), unit_overlap again at an nv that
-  brings vpu_only within 2x of mm_only, and each kernel beside its bound,
-  its plain version and, for the bf16 product, ``torch.mm``
-  (``probe-kernel-time``).
+  height, the embedding gather in bf16 and fp32 and both mask kernels,
+  bit for bit), then the six entry points as a user runs them
+  (``probe-time``, each kernel's launches counted from 0), unit_overlap
+  again at an nv that brings vpu_only within 2x of mm_only and
+  mask_replay_check again at the XLong layer's sizes, and each kernel
+  beside its bound, its plain version and, for the bf16 product and the
+  gather, ``torch.mm`` and ``tab[ids]`` (``probe-kernel-time``).
 
 A rerun of each RecBLR layer kernel, forward and backward, gives the same
 bits, and each RecBLR training and serving profile fails unless phase A
@@ -200,6 +202,8 @@ from datamining_recblr_torch.ops import fused_layer_chunked as FLC
 from datamining_recblr_torch.ops import scan as SC
 from datamining_recblr_torch.probes import _bench as PB
 from datamining_recblr_torch.probes import ce_mxu as PCE
+from datamining_recblr_torch.probes import emb_gather as PEG
+from datamining_recblr_torch.probes import mask_replay_check as PMR
 from datamining_recblr_torch.probes import scan_chunked as PSC
 from datamining_recblr_torch.probes import unit_overlap as PUO
 from datamining_recblr_torch.probes import vpu_ops as PVO
@@ -330,7 +334,13 @@ def check(ok, msg):
         raise SmokeFailure(msg)
 
 
+_START = time.perf_counter()
+
+
 def phase(name, **fields):
+    """One log line; ``at_s``: seconds since the script started, so a
+    phase's share of the run is the difference between its lines'."""
+    fields["at_s"] = f"{time.perf_counter() - _START:.1f}"
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -4573,14 +4583,29 @@ def chunk_kernel_times(dev):
 
 
 # ---------------------------------------------------------------------------
-# queue B row 17a-17d: the probes (probes/) at the JAX probes' defaults
+# queue B row 17: the probes (probes/) at the JAX probes' defaults
 # ---------------------------------------------------------------------------
 
 # each probe kernel's wrapper, whose launches the probes' entry points count
 PROBE_COUNTED = {"unit_overlap": PUO.run, "vpu_ops": PVO.vpu_chain, "scan_flat": PSC.scan_flat,
-                 "scan_chunk": PSC.scan_chunk, "ce_mm": PCE.mm}
+                 "scan_chunk": PSC.scan_chunk, "ce_mm": PCE.mm, "emb_gather": PEG.gather,
+                 "mask_forward": PMR.masks_forward, "mask_reversed": PMR.masks_reversed}
 UO_GRID, UO_NM, UO_NV = 64, 16, 48   # unit_overlap's defaults
 CE_N, CE_V = 81_920, 3_456           # ce_mxu's defaults
+# mask_replay_check's sizes: the JAX probe's defaults, and the chunked
+# layer's at XLong (B 512 in blocks of 8 rows, T 1,024 in chunks of 128,
+# D 64, FFN 256)
+MASK_SIZES = {"default": dict(nb=PMR.NB, nc=PMR.NC, bt=PMR.BT, tc=PMR.TC, d=PMR.D,
+                              ff=4 * PMR.D),
+              "xlong": dict(nb=64, nc=8, bt=8, tc=128, d=64, ff=256)}
+# a mask's drop fraction against 1 - keep (65,536 draws of m0 at the
+# default sizes: sigma 0.0016)
+DROP_TOL = 0.01
+# 32-bit integer operations a second on each of two pipes, the ALU pipe
+# (LOP3, IADD3, ISETP, FSEL) and the FMA-heavy one (IMAD, IMUL): 64 lanes
+# an SM each, against the 128 fp32 lanes behind PEAK_FP32_FLOPS (an FMA
+# counting two)
+PEAK_INT32_OPS = PEAK_FP32_FLOPS / 4
 # the bf16 product: products of bf16 values are exact in fp32, sums of 64
 # in another order
 MXU_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -4600,12 +4625,15 @@ def _finite_err(got, want):
 
 
 def probe_kernels_vs_plain(dev):
-    """Rows 17a-17d against their plain versions at the JAX probes'
+    """Rows 17a-17f against their plain versions at the JAX probes'
     default shapes (``probe-vs-plain``): unit_overlap's five modes (grid
     64, nm 16, nv 48), vpu_ops' fourteen chains ([8, 512, 128], 64 steps),
-    both scans (B 2,048, T 200, C 128) and the bf16 product at every block
-    height (N 81,920, V 3,456).  Returns the largest |kernel - plain| of
-    each kernel."""
+    both scans (B 2,048, T 200, C 128), the bf16 product at every block
+    height (N 81,920, V 3,456), the gather (N 409,600, V 3,417, D 64, bf16
+    and fp32, bit for bit) and both mask kernels at the default and the
+    XLong sizes (bit for bit against the plain masks and each other, each
+    mask's drop fraction within DROP_TOL of 1 - keep).  Returns the
+    largest |kernel - plain| of each kernel."""
     errs = {}
     x, x2, w, a, b = PUO.inputs(UO_GRID, dev)
     for mode in PUO.MODES:
@@ -4662,7 +4690,53 @@ def probe_kernels_vs_plain(dev):
         errs["ce_mm"] = max(errs.get("ce_mm", 0.0), err)
         del got
     del x, table, want
+    for dt in ("bfloat16", "float32"):
+        ids, tab = PEG.inputs(dev, dtype=PEG.DTYPES[dt])
+        got, want = PEG.gather(ids, tab), PEG.gather_plain(ids, tab)
+        ok = bool(torch.equal(got, want))
+        phase("probe-vs-plain", kernel="emb_gather", shape=f"N{PEG.N}xV{PEG.V}xD{PEG.D}",
+              dtype=dt, bn=PEG.BN, max_abs_err=f"{_max_err([(got, want)]):.3e}",
+              tol="bit for bit", ok=ok)
+        check(ok, f"emb_gather {dt}: kernel disagrees with tab[ids]")
+        errs["emb_gather"] = 0.0
+        del ids, tab, got, want
+    for shape, sizes in MASK_SIZES.items():
+        plain = PMR.masks_plain(PMR.SEED, PMR.KP, device=dev, **sizes)
+        fwd = PMR.masks_forward(PMR.SEED, PMR.KP, device=dev, **sizes)
+        rev = PMR.masks_reversed(PMR.SEED, PMR.KP, device=dev, **sizes)
+        drops = [PMR.drop_fraction(m) for m in fwd]
+        for name, got in (("mask_forward", fwd), ("mask_reversed", rev)):
+            ok = all(bool(torch.equal(a, b)) for a, b in zip(got, plain))
+            phase("probe-vs-plain", kernel=name, shape=shape,
+                  sizes="x".join(str(sizes[k]) for k in sizes),
+                  max_abs_err=f"{_max_err(list(zip(got, plain))):.3e}", tol="bit for bit",
+                  ok=ok)
+            check(ok, f"{name} {shape}: kernel disagrees with the plain masks")
+            errs[name] = 0.0
+        same = all(bool(torch.equal(a, b)) for a, b in zip(fwd, rev))
+        ok = all(abs(f - (1 - PMR.KP)) <= DROP_TOL for f in drops)
+        phase("probe-vs-plain", kernel="mask_forward=mask_reversed", shape=shape,
+              bitwise_equal=same, drop_fractions=repr([round(f, 4) for f in drops]),
+              tol=f"|drop - {1 - PMR.KP:.1f}| <= {DROP_TOL}", ok=same and ok)
+        check(same, f"mask_forward and mask_reversed drew different masks ({shape})")
+        check(ok, f"a mask's drop fraction is off {1 - PMR.KP:.1f} ({shape}): {drops}")
+        del plain, fwd, rev
     return errs
+
+
+def mask_bound(nb, nc, bt, tc, d, ff):
+    """(bound ms, integer operations, what bounds it) of the four masks:
+    each element written once as fp32, against the integer work the draw
+    needs on each pipe at ``PEAK_INT32_OPS``: one Philox4x32-10 call per
+    4 elements, ten rounds of two wide multiplies (mul.hi and mul.lo of
+    one product, the FMA-heavy pipe) and two three-input xors (the ALU
+    pipe), then a compare and a select an element (the ALU pipe): 5 and 7
+    operations an element.  The key schedule depends on the seed alone."""
+    elems = nb * bt * nc * tc * sum(PMR.widths(d, ff))
+    alu, fma = elems * (20 // 4 + 2), elems * 20 // 4
+    t_ops, t_bytes = max(alu, fma) / PEAK_INT32_OPS, elems * 4 / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, alu + fma,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def probe_bounds():
@@ -4670,7 +4744,9 @@ def probe_bounds():
     shape: unit_overlap's mm_only as 3xTF32 products (x read, out written),
     the vpu_ops mul chain (a multiply and a multiply-add an element-step at
     the fp32 peak; the block read and written), each scan (g and x read, h
-    written), the bf16 product (its [N, V] fp32 output written)."""
+    written), the bf16 product (its [N, V] fp32 output written), the bf16
+    gather (the int32 ids and the table read, the rows written) and the
+    masks (``mask_bound``)."""
     rows = UO_GRID * PUO.ROWS
     n = int(np.prod(PVO.SHAPE))
     uo = _bound(0, (2 * rows * PUO.C + PUO.C * PUO.C) * 4, 0,
@@ -4678,21 +4754,34 @@ def probe_bounds():
     vo = _bound(3 * n * PVO.REPEAT, 2 * n * 4)
     sc = scan_bound_ms(PSC.B, PSC.T, PSC.C)
     ce = _bound(0, (CE_N * CE_V + (CE_N + CE_V) * PCE.D) * 4, 2 * CE_N * CE_V * PCE.D)
+    eg = _bound(0, PEG.N * 4 + (PEG.N + PEG.V) * PEG.D * 2)
+    mk = mask_bound(**MASK_SIZES["default"])
     return {name: (bd[0], bd[2]) for name, bd in (("unit_overlap", uo), ("vpu_ops", vo),
                                                     ("scan_flat", sc), ("scan_chunk", sc),
-                                                    ("ce_mm", ce))}
+                                                    ("ce_mm", ce), ("emb_gather", eg),
+                                                    ("mask_forward", mk),
+                                                    ("mask_reversed", mk))}
+
+
+def _mask_argv(sizes):
+    return [w for k, v in sizes.items() for w in (f"--{k}", str(v))]
 
 
 def probe_phases(dev):
     """The probes' entry points at their defaults, as a user runs them
     (``probe-time``): each prints its JAX probe's lines; then unit_overlap
     again at an nv that brings vpu_only within 2x of mm_only, the only
-    point where its overlap fraction says anything.  Every probe kernel's
-    count is set to 0 just before and read just after (``probe-launches``).
-    Then the plain versions are timed (``probe-kernel-time``) beside each
-    kernel's time from those runs, its bound and, for the bf16 product, the
-    library's (``torch.mm``, from ce_mxu's torch-mm line).  Returns each
-    kernel's row for the kernels JSON."""
+    point where its overlap fraction says anything, and mask_replay_check
+    again at the XLong layer's sizes.  Every probe kernel's count is set to
+    0 just before and read just after (``probe-launches``).  Then the plain
+    versions are timed (``probe-kernel-time``) beside each kernel's time,
+    its bound and, for the bf16 product and the gather, the library's
+    (``torch.mm``, from ce_mxu's torch-mm line; ``tab[ids]``, the gather's
+    plain version too, with ``index_select`` and ``F.embedding`` beside
+    it): rows 17a-17d from their runs' own timers, 17e and 17f as medians
+    of 20 CUDA-event timings (``time_ms``), the masks also at XLong, and
+    the gathers' and default-shape masks' device time (torch.profiler).
+    Returns each kernel's row for the kernels JSON."""
     for fn in PROBE_COUNTED.values():
         fn.launches = 0
     uo = PUO.main([])
@@ -4711,10 +4800,20 @@ def probe_phases(dev):
     vo = PVO.main([])
     sc = PSC.main([])
     ce = PCE.main([])
+    eg = PEG.main([])
+    mr = {shape: PMR.main(_mask_argv(sizes)) for shape, sizes in MASK_SIZES.items()}
     launches = {name: fn.launches for name, fn in PROBE_COUNTED.items()}
     phase("probe-launches", **launches)
     for name, count in launches.items():
         check(count > 0, f"{name}: the probe's entry point launched its kernel no time")
+    check(eg["ok"], "emb_gather: the entry point's gather disagrees with tab[ids]")
+    for shape, out in mr.items():
+        ok = out["ok"] and all(abs(f - (1 - PMR.KP)) <= DROP_TOL for f in out["drop"])
+        phase("probe-time", probe="mask_replay_check", shape=shape, bitwise_equal=out["ok"],
+              drop_fractions=repr([round(f, 4) for f in out["drop"]]),
+              forward_ms=f"{out['ms']['forward']:.4f}",
+              reversed_ms=f"{out['ms']['reversed']:.4f}", ok=ok)
+        check(ok, f"mask_replay_check {shape}: the orders differ or a drop fraction is off")
     # a vpu_ops call is host-bound (the wrapper's Python and the launch):
     # its device time by op, from torch.profiler over 20 calls each, per
     # kernel the profile holds (a capture can come back short of events)
@@ -4749,6 +4848,65 @@ def probe_phases(dev):
     ms = {"unit_overlap": uo["ms"]["mm_only"], "vpu_ops": vo["ms"]["mul"],
           "scan_flat": sc["ms"]["flat"], "scan_chunk": sc["ms"]["chunk"],
           "ce_mm": ce[f"cuda-mm bn={bn0}"]}
+    # 17e: the gather at the default bn and others, in bf16 and fp32;
+    # tab[ids] is both its plain version and the library's call, with
+    # PyTorch's two other gathers beside it, each equal to it first
+    ids, tab = PEG.inputs(dev)
+    ms["emb_gather"] = time_ms(lambda: PEG.gather(ids, tab))
+    plain["emb_gather"] = time_ms(lambda: PEG.gather_plain(ids, tab))
+    others = {"index_select": lambda t: torch.index_select(t, 0, ids),
+              "embedding": lambda t: F.embedding(ids, t)}
+    for name, fn in others.items():
+        check(bool(torch.equal(fn(tab), PEG.gather_plain(ids, tab))),
+              f"{name} disagrees with tab[ids]")
+    others_ms = {name: time_ms(lambda fn=fn: fn(tab)) for name, fn in others.items()}
+    bn_ms = {bn: time_ms(lambda bn=bn: PEG.gather(ids, tab, bn)) for bn in (1024, 256)}
+    tab32 = tab.float()
+    f32 = (time_ms(lambda: PEG.gather(ids, tab32)), time_ms(lambda: PEG.gather_plain(ids, tab32)),
+           _bound(0, PEG.N * 4 + (PEG.N + PEG.V) * PEG.D * 4)[0])
+    del tab32
+    # 17f: both mask kernels at both sizes beside the plain masks
+    mask_ms, mask_plain = {}, {}
+    for shape, sizes in MASK_SIZES.items():
+        for name, fn in (("mask_forward", PMR.masks_forward),
+                         ("mask_reversed", PMR.masks_reversed)):
+            mask_ms[name, shape] = time_ms(lambda fn=fn: fn(PMR.SEED, PMR.KP, device=dev,
+                                                             **sizes))
+        mask_plain[shape] = time_ms(lambda: PMR.masks_plain(PMR.SEED, PMR.KP, device=dev,
+                                                            **sizes), reps=5, warmup=1)
+    for name in ("mask_forward", "mask_reversed"):
+        ms[name] = mask_ms[name, "default"]
+        plain[name] = mask_plain["default"]
+    # the default-shape calls are microseconds of device work: their device
+    # time from torch.profiler over 20 calls each; PyTorch's gathers by all
+    # the device work of a call (every kernel a call launches)
+    dev_us = {}
+    for name, kern, call in (
+            ("emb_gather", "gather_kernel", lambda _: PEG.gather(ids, tab)),
+            ("mask_forward", "masks_forward_kernel",
+             lambda _: PMR.masks_forward(PMR.SEED, PMR.KP, device=dev)),
+            ("mask_reversed", "masks_reversed_kernel",
+             lambda _: PMR.masks_reversed(PMR.SEED, PMR.KP, device=dev))):
+        events, _ = profiled(_timed_loop(call, 20), (kern,))
+        found = [e for e in events if kern in e.key]
+        count = sum(e.count for e in found)
+        dev_us[name] = (round(sum(e.self_device_time_total for e in found) / count, 3) if count
+                        else "not measured")
+    # a library call's kernels are each launched once a call: its device
+    # time is the sum of their mean times, which a capture short of some
+    # launches leaves right (a capture has come back short: the counts of
+    # 20 calls are printed beside it)
+    lib_dev_us, lib_kernels = {}, {}
+    for name, fn in {"tab[ids]": lambda t: PEG.gather_plain(ids, t), **others}.items():
+        events, _ = profiled(_timed_loop(lambda _, fn=fn: fn(tab), 20))
+        lib_dev_us[name] = (round(sum(e.self_device_time_total / e.count for e in events), 3)
+                            if events else "not measured")
+        lib_kernels[name] = {e.key[:48]: e.count for e in events}
+    phase("probe-device-time", probe="emb_gather, mask_replay_check",
+          us_per_call=repr(dev_us), gather_library_us_per_call=repr(lib_dev_us),
+          gather_library_kernels=repr(lib_kernels))
+    del ids, tab
+    xbound = mask_bound(**MASK_SIZES["xlong"])
     extra = {
         "unit_overlap": {"mode": "mm_only", "modes_ms": uo["ms"], "overlap_il": uo["overlap_il"],
                          "balanced": {"nv": nv, "modes_ms": bal["ms"],
@@ -4759,15 +4917,37 @@ def probe_phases(dev):
         "ce_mm": {"bn": bn0, "bn_ms": {k: v for k, v in ce.items() if k.startswith("cuda-mm")},
                   "library_trio_ms": ce["torch-mm"][1], "fused_ce_ms": ce["fused-ce"],
                   "fused_ce_tile": PCE.ROW13_TILE},
+        "emb_gather": {"dtype": "bfloat16", "bn": PEG.BN, "bn_ms": bn_ms,
+                       "entry_point_ms": eg["ms"], "entry_point_library_ms": eg["library_ms"],
+                       "device_us": dev_us["emb_gather"], "library_device_us": lib_dev_us,
+                       "library_kernels": lib_kernels,
+                       "other_library_ms": others_ms,
+                       "float32": {"ms": f32[0], "library_ms": f32[1], "bound_ms": f32[2]}},
     }
-    library = {"ce_mm": ce["torch-mm"][0]}
+    for name in ("mask_forward", "mask_reversed"):
+        order = name.removeprefix("mask_")
+        extra[name] = {
+            "shape": MASK_SIZES["default"], "device_us": dev_us[name],
+            "entry_point_ms": mr["default"]["ms"][order],
+            "xlong": {"shape": MASK_SIZES["xlong"], "ms": mask_ms[name, "xlong"],
+                      "plain_ms": mask_plain["xlong"], "bound_ms": xbound[0],
+                      "bound_by": xbound[2], "entry_point_ms": mr["xlong"]["ms"][order]}}
+        x = extra[name]["xlong"]
+        phase("probe-kernel-time", kernel=name, shape="xlong", ms=f"{x['ms']:.4f}",
+              plain_ms=f"{x['plain_ms']:.4f}", bound_ms=f"{x['bound_ms']:.4f}",
+              bound_by=x["bound_by"], int_ops_needed=xbound[1])
+    phase("probe-kernel-time", kernel="emb_gather", dtype="float32", ms=f"{f32[0]:.4f}",
+          library_ms=f"{f32[1]:.4f}", bound_ms=f"{f32[2]:.5f}", bound_by="bytes",
+          bn_ms_bf16=repr({k: round(v, 4) for k, v in bn_ms.items()}),
+          other_library_ms_bf16=repr({k: round(v, 4) for k, v in others_ms.items()}))
+    library = {"ce_mm": ce["torch-mm"][0], "emb_gather": plain["emb_gather"]}
     rows = {}
     for name, (bound, by) in probe_bounds().items():
         rows[name] = {"launches": launches[name], "ms": ms[name], "plain_ms": plain[name],
                       "bound_ms": bound, "bound_by": by, "library_ms": library.get(name),
                       "extra": extra[name]}
         phase("probe-kernel-time", kernel=name, ms=f"{ms[name]:.4f}",
-              plain_ms=f"{plain[name]:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+              plain_ms=f"{plain[name]:.4f}", bound_ms=f"{bound:.5f}", bound_by=by,
               library_ms=library.get(name), launches=launches[name])
     return rows
 
@@ -5234,7 +5414,7 @@ ROW15_KERNELS = (
     ("fused_attention_bwd", "datamining_recblr_torch/csrc/attention_bwd.cu",
      "datamining_recblr_tpu/ops/attention.py:191"),
 )
-# queue B row 17a-17d: the probes' kernels (probes/), name, source, TPU
+# queue B row 17a-17f: the probes' kernels (probes/), name, source, TPU
 # kernel (the function that reaches its pallas_call)
 PROBE_KERNELS = (
     ("unit_overlap", "datamining_recblr_torch/csrc/probe_unit_overlap.cu",
@@ -5245,6 +5425,12 @@ PROBE_KERNELS = (
     ("scan_chunk", "datamining_recblr_torch/csrc/probe_scan_chunked.cu",
      "benchmarks/scan_chunked.py:79"),
     ("ce_mm", "datamining_recblr_torch/csrc/probe_ce_mxu.cu", "benchmarks/ce_mxu.py:106"),
+    ("emb_gather", "datamining_recblr_torch/csrc/probe_emb_gather.cu",
+     "benchmarks/emb_gather.py:36"),
+    ("mask_forward", "datamining_recblr_torch/csrc/probe_mask_replay_check.cu",
+     "benchmarks/mask_replay_check.py:56"),
+    ("mask_reversed", "datamining_recblr_torch/csrc/probe_mask_replay_check.cu",
+     "benchmarks/mask_replay_check.py:56"),
 )
 B4R_KERNELS = (
     ("fused_transformer_layer_sel", "datamining_recblr_torch/csrc/fused_block_sel.cu",
@@ -6245,7 +6431,7 @@ def main():
             entry["launches_per_recommend"] = {m: pserve[m, "float32"]["launches"][1]
                                                for m in baselines}
         kernels.append(entry)
-    # row 17a-17d: launches in the probes' entry-point runs (probe_phases)
+    # row 17: launches in the probes' entry-point runs (probe_phases)
     for name, src, tpu in PROBE_KERNELS:
         r = probe_rows[name]
         kernels.append({
@@ -6336,7 +6522,7 @@ def main():
         train_summary[f"{tag}_train_s"] = f"{out['train_s']:.2f}"
         train_summary[f"{tag}_examples_per_s"] = f"{out['examples_per_s']:.1f}"
         train_summary[f"{tag}_eval_s"] = f"{out['eval_s']:.2f}"
-    check(len(kernels) == 32, f"the kernels JSON lists {len(kernels)} kernels, not 32")
+    check(len(kernels) == 35, f"the kernels JSON lists {len(kernels)} kernels, not 35")
     phase("summary", card=repr(smi), **serve_summary, **train_summary)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

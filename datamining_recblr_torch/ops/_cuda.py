@@ -37,7 +37,7 @@ SOURCES = ("fused_layer.cu", "fused_layer_last.cu", "fused_layer_bwd.cu",
 # the probes' kernels (probes/, queue B row 17): built at a probe's first
 # use, apart from the model paths' sources
 PROBE_SOURCES = ("probe_unit_overlap.cu", "probe_vpu_ops.cu", "probe_scan_chunked.cu",
-                 "probe_ce_mxu.cu")
+                 "probe_ce_mxu.cu", "probe_emb_gather.cu", "probe_mask_replay_check.cu")
 HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh", "ce_common.cuh",
            "ce_mma.cuh",
            "attention.cuh", "gemm_tile.cuh", "mma_tile.cuh", "mma_smem.cuh", "layer_fwd.cuh")
@@ -145,6 +145,12 @@ _SIGNATURES = {
     },
     "probe_ce_mxu.cu": {
         "recblr_probe_ce_mm": [_P] * 3 + [_I] * 4 + [_I, _P],
+    },
+    "probe_emb_gather.cu": {
+        "recblr_probe_emb_gather": [_P, _I, _P, _P, ctypes.c_int64] + [_I] * 3 + [_I, _P],
+    },
+    "probe_mask_replay_check.cu": {
+        "recblr_probe_masks": [_I] + [_P] * 4 + [_I] * 6 + _D1[1:] + [_I, _P],
     },
 }
 

@@ -69,10 +69,28 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
+def threshold_of_keep(keep: float) -> int:
+    """Keep iff bits < this, from the keep probability itself (the TPU
+    kernel's rule, fused_layer.py:70-73)."""
+    return min(int(float(keep) * 4294967296.0), 4294967295)
+
+
+def scale_of_keep(keep: float) -> float:
+    """A kept element's value: 1/keep rounded once to fp32."""
+    return float(torch.tensor(1.0 / float(keep), dtype=torch.float32))
+
+
+def mask_of_bits(bits, keep: float):
+    """fp32 scaled keep-mask of the uint32 ``bits`` (an int64 tensor
+    holding them): ``scale_of_keep(keep)`` where bits <
+    ``threshold_of_keep(keep)``, else 0."""
+    scale = torch.tensor(scale_of_keep(keep), dtype=torch.float32, device=bits.device)
+    return torch.where(bits < threshold_of_keep(keep), scale, torch.zeros_like(scale))
+
+
 def keep_threshold(p: float) -> int:
-    """Keep iff bits < this (the TPU kernel's rule, fused_layer.py:70-73)."""
-    keep = 1.0 - float(p)
-    return min(int(keep * 4294967296.0), 4294967295)
+    """``threshold_of_keep`` at the dropout probability p."""
+    return threshold_of_keep(1.0 - float(p))
 
 
 def dropout_bits(seed: int, mask_id: int, b: int, t: int, width: int,
@@ -97,7 +115,7 @@ def dropout_mask(seed: int, mask_id: int, b: int, t: int, width: int, p: float,
                  device=None, t0: int = 0):
     """Scaled keep-mask [b, t, width] fp32 at positions t0..t0+t-1:
     1/(1-p) where kept, else 0."""
-    return _scaled(dropout_bits(seed, mask_id, b, t, width, device, t0), p, device)
+    return mask_of_bits(dropout_bits(seed, mask_id, b, t, width, device, t0), 1.0 - float(p))
 
 
 def dropout_mask_at(seed: int, mask_id: int, pos, width: int, p: float):
@@ -113,7 +131,7 @@ def dropout_mask_at(seed: int, mask_id: int, pos, width: int, p: float):
         torch.arange(groups, **kw), pos.to(torch.int64)[..., None], rows,
         torch.full((1,), int(mask_id), **kw), seed & _MASK32, seed >> 32)
     bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
-    return _scaled(bits.reshape(*pos.shape, 4 * groups)[..., :width], p, pos.device)
+    return mask_of_bits(bits.reshape(*pos.shape, 4 * groups)[..., :width], 1.0 - float(p))
 
 
 def _row_words(seed: int, b: int, t: int, device=None, row0: int = 0):
@@ -146,11 +164,6 @@ def uniform_ints(seed: int, b: int, t: int, lo: int, hi: int, device=None, row0:
     ``_row_words`` under its own ``seed`` (BERT4Rec's BPR negatives), for
     the rows from ``row0``."""
     return lo + ((_row_words(seed, b, t, device, row0) * (int(hi) - int(lo))) >> 32)
-
-
-def _scaled(bits, p, device):
-    scale = torch.tensor(1.0 / (1.0 - float(p)), dtype=torch.float32, device=device)
-    return torch.where(bits < keep_threshold(p), scale, torch.zeros_like(scale))
 
 
 def _splitmix64(z: int) -> int:

@@ -10,6 +10,11 @@ the counterparts of the JAX package's Pallas probes under ``benchmarks/``
   row 7's serial ``linear_scan``.
 * ``ce_mxu`` (row 17d): a bare bf16 product of the cloze CE's shape beside
   row 13 and ``torch.mm``.
+* ``emb_gather`` (row 17e): the bench step's embedding gather from a table
+  kept in L2, beside ``tab[ids]``.
+* ``mask_replay_check`` (row 17f): the chunked layer's four dropout masks
+  drawn in data order and in the backward's reverse chunk order, bit for
+  bit.
 
 Each runs as ``python -m datamining_recblr_torch.probes.<name>`` with the
 JAX probe's arguments, on the card by default (``--device cpu`` runs the

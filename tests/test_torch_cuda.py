@@ -2365,3 +2365,46 @@ def test_cold_start_counts_the_held_out_batches(dev, tmp_path):
     assert [fn.launches - b for fn, b in zip(counted, before)] == [
         steps + batches, steps + batches, steps, steps]
     assert all(np.isfinite(v) for v in out["unseen_result"].values())
+
+
+def test_probe_gather_kernel_equals_indexing(dev):
+    """Queue B row 17e's kernel against ``tab[ids]`` bit for bit, at an N
+    that is no multiple of the default 4,096 rows a block, with negative
+    ids, int32 and int64 ids, bf16 and fp32 tables, rows of 16-byte
+    vectors and of 2-byte ones, and a block height of a few rows."""
+    from datamining_recblr_torch.probes import emb_gather as EG
+
+    gen = torch.Generator().manual_seed(27)
+    n = 10_001
+    for d, dtype in ((64, torch.bfloat16), (64, torch.float32), (3, torch.bfloat16),
+                     (5, torch.float32)):
+        tab = torch.randn((3417, d), generator=gen).to(dtype).to(dev)
+        ids = torch.randint(-3417, 3417, (n,), generator=gen).to(dev)
+        for id_dtype in (torch.int32, torch.int64):
+            for bn in (EG.BN, 7):
+                before = EG.gather.launches
+                got = EG.gather(ids.to(id_dtype), tab, bn)
+                assert EG.gather.launches == before + 1
+                assert torch.equal(got, tab[ids.long()]), (d, dtype, id_dtype, bn)
+    torch.cuda.synchronize()
+
+
+def test_probe_mask_kernels_agree_at_the_xlong_shape(dev):
+    """Queue B row 17f's two kernels at the chunked layer's XLong shape (B
+    512, T 1,024 in chunks of 128, D 64, FFN 256): the forward-order and
+    the reversed-order masks bit for bit, and both against the plain
+    masks on every row."""
+    from datamining_recblr_torch.probes import mask_replay_check as MR
+
+    sizes = dict(nb=64, nc=8, bt=8, tc=128, d=64, ff=256)
+    before = (MR.masks_forward.launches, MR.masks_reversed.launches)
+    fwd = MR.masks_forward(MR.SEED, MR.KP, device=dev, **sizes)
+    rev = MR.masks_reversed(MR.SEED, MR.KP, device=dev, **sizes)
+    assert (MR.masks_forward.launches, MR.masks_reversed.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    plain = MR.masks_plain(MR.SEED, MR.KP, device=dev, **sizes)
+    for k, (a, b, p) in enumerate(zip(fwd, rev, plain)):
+        assert a.shape == (512, 1024, MR.widths(64, 256)[k])
+        assert torch.equal(a, b), k
+        assert torch.equal(a, p), k
+        assert abs(MR.drop_fraction(a) - (1 - MR.KP)) <= 0.01, k

@@ -9,7 +9,19 @@ imported by path, on inputs from a numpy seed at small sizes.
 * ``scan_chunked``: ``run`` flat and chunk at B 16, and the full outputs
   against ``_scan_body``, ``_scan_chunked`` and the serial oracle;
 * ``ce_mxu``: ``pallas_mm`` at N 512, V 384, and ``fused_ce_at_bn``'s
-  sums against the port's row-13 plain version.
+  sums against the port's row-13 plain version;
+* ``emb_gather``: ``pallas_gather`` at N 1,024, V 300, bn 256, bf16 and
+  fp32 tables;
+* ``mask_replay_check``: ``call`` with both kernels (interpret mode, whose
+  PRNG bits are zeros) against ``philox.mask_of_bits`` of zeros, and with
+  ``pltpu.prng_random_bits`` replaced by set bits (threshold - 1, the
+  threshold, 0, 2^32 - 1) at keep 0.8, 0.5 and 0.9 against the port's
+  threshold and scale; the port's plain masks, drawn chunk by chunk, in
+  both entry points against each other and ``philox.dropout_mask`` over
+  the whole sequence (the bits are the port's own Philox draws: the TPU's
+  cannot be had off the TPU);
+* ``sass_mix.py`` (the mask kernels' instructions by pipe): its parse,
+  loops and prices on a small disassembly in ``cuobjdump``'s form.
 
 Tolerances, each with its reason:
 * ``MM_TOL`` 2e-5: fp32 products summed in another order than XLA's over
@@ -27,7 +39,11 @@ Tolerances, each with its reason:
 * ``MXU_TOL`` 1e-6: bf16 products are exact in fp32, sums of 64 in
   another order;
 * ``CE_RTOL`` 1e-5: row 13's sums over 512 x 384 logits, its exp as
-  exp2(x log2 e) against XLA's exp inside the JAX kernels.
+  exp2(x log2 e) against XLA's exp inside the JAX kernels;
+* none for the gather and the masks: a gather copies bits, and a mask
+  is 0 or fp32(1/keep) by a comparison of integers, so both are held
+  bit for bit; ``DROP_TOL`` 0.01 on a mask's drop fraction against
+  1 - keep (65,536 draws of m0: sigma 0.0016).
 The wrappers take the plain versions on a CPU tensor and load no CUDA
 library there.
 """
@@ -43,9 +59,11 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
-from datamining_recblr_torch.ops import _cuda
-from datamining_recblr_torch.probes import ce_mxu, scan_chunked, unit_overlap, vpu_ops
+from datamining_recblr_torch.ops import _cuda, philox
+from datamining_recblr_torch.probes import (ce_mxu, emb_gather, mask_replay_check,
+                                            scan_chunked, unit_overlap, vpu_ops)
 
 ROOT = Path(__file__).resolve().parents[1]
 MM_TOL = 2e-5
@@ -54,6 +72,7 @@ SQUARE_RTOL = 1e-4
 SCAN_TOL = 1e-4
 MXU_TOL = 1e-6
 CE_RTOL = 1e-5
+DROP_TOL = 0.01
 
 
 def _jax_probe(name):
@@ -71,6 +90,14 @@ def _jax_probe(name):
 def interpret(monkeypatch):
     """The JAX probes' pallas_call in interpret mode for one test."""
     monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+
+
+@pytest.fixture
+def interpret_prng(monkeypatch):
+    """pallas_call in the interpret mode that takes ``pltpu.prng_*`` (its
+    random bits are zeros) for one test."""
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=pltpu.InterpretParams()))
 
 
 def _rel(got, want):
@@ -217,6 +244,178 @@ def test_mm_takes_the_heights_shared_memory_allows(ce_case):
 
 
 # ---------------------------------------------------------------------------
+# 17e emb_gather
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gather_matches_pallas_gather(dtype):
+    jp = _jax_probe("emb_gather")
+    ids, tab = emb_gather.inputs("cpu", 1024, 300, 64, emb_gather.DTYPES[dtype])
+    want = np.asarray(jp.pallas_gather(jnp.asarray(ids.numpy()),
+                                       jnp.asarray(tab.float().numpy(), getattr(jnp, dtype)),
+                                       bn=256))
+    got = emb_gather.gather(ids, tab, bn=256)
+    assert got.shape == (1024, 64) and got.dtype == tab.dtype
+    assert str(want.dtype) == dtype
+    assert np.array_equal(got.float().numpy(), want.astype(np.float32))
+
+
+def test_gather_checks_its_inputs():
+    ids, tab = emb_gather.inputs("cpu", 16, 10, 8)
+    with pytest.raises(ValueError, match="1-D int32 or int64"):
+        emb_gather.gather(ids.float(), tab)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        emb_gather.gather(ids, tab.half())
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        emb_gather.gather(ids, tab.t())
+    with pytest.raises(ValueError, match="positive number of rows"):
+        emb_gather.gather(ids, tab, bn=0)
+    assert torch.equal(emb_gather.gather(ids.long(), tab, bn=3), tab[ids.long()])
+
+
+# ---------------------------------------------------------------------------
+# 17f mask_replay_check
+# ---------------------------------------------------------------------------
+
+def _jax_masks(jp, kernel_name):
+    flip = kernel_name == "bwd_kernel"
+    return [np.asarray(a) for a in jp.call(getattr(jp, kernel_name), flip)]
+
+
+@pytest.mark.parametrize("kernel_name", ["fwd_kernel", "bwd_kernel"])
+def test_masks_match_call_on_zero_bits(kernel_name, interpret_prng):
+    """Off the TPU the JAX kernels' PRNG bits are zeros: every element is
+    kept at 1/0.8.  The port's mask function of zero bits gives the same
+    shapes, dtype and values."""
+    mr = mask_replay_check
+    jp = _jax_probe("mask_replay_check")
+    assert (jp.BT, jp.TC, jp.D, jp.NB, jp.NC, jp.KP) == (mr.BT, mr.TC, mr.D, mr.NB, mr.NC,
+                                                          mr.KP)
+    want = _jax_masks(jp, kernel_name)
+    assert [a.shape[2] for a in want] == list(mr.widths())
+    for a, w in zip(want, mr.widths()):
+        got = philox.mask_of_bits(torch.zeros((mr.NB * mr.BT, mr.NC * mr.TC, w),
+                                              dtype=torch.int64), mr.KP)
+        assert got.dtype == torch.float32 and a.dtype == np.float32
+        assert a.shape == tuple(got.shape)
+        assert np.array_equal(got.numpy(), a)
+        assert np.all(a == np.float32(1.25))
+
+
+def _set_bits(keep):
+    """A stand-in for ``pltpu.prng_random_bits``: channel c gets threshold
+    - 1, the threshold, 0 or 2^32 - 1 by c mod 4 (built from iota: a
+    Pallas kernel captures no array constant)."""
+    t = philox.threshold_of_keep(keep)
+
+    def bits(shape):
+        c = jax.lax.broadcasted_iota(jnp.uint32, shape, len(shape) - 1) % 4
+        u = jnp.uint32
+        v = jnp.where(c == 0, u(t - 1), jnp.where(c == 1, u(t), jnp.where(c == 2, u(0),
+                                                                          u(0xFFFFFFFF))))
+        return jax.lax.bitcast_convert_type(v, jnp.int32)
+
+    values = np.array([t - 1, t, 0, 0xFFFFFFFF], np.int64)
+    return bits, values
+
+
+@pytest.mark.parametrize("keep", [0.8, 0.5, 0.9])
+def test_threshold_and_scale_match_dropout_mask(keep, interpret_prng, monkeypatch):
+    """JAX's ``_dropout_mask`` (through ``call``'s forward kernel) on set
+    bits against the port's ``philox.mask_of_bits`` on the same bits:
+    bits at threshold - 1 kept at fp32(1/keep), at the threshold dropped."""
+    mr = mask_replay_check
+    jp = _jax_probe("mask_replay_check")
+    bits_fn, values = _set_bits(keep)
+    monkeypatch.setattr(pltpu, "prng_random_bits", bits_fn)
+    monkeypatch.setattr(jp, "KP", keep)
+    want = _jax_masks(jp, "fwd_kernel")
+    assert philox.threshold_of_keep(keep) == min(int(keep * 4294967296.0), 4294967295)
+    assert philox.scale_of_keep(keep) == float(np.float32(1.0 / keep))
+    for a, w in zip(want, mr.widths()):
+        bits = torch.from_numpy(np.resize(values, w)).expand(*a.shape[:2], w)
+        got = philox.mask_of_bits(bits, keep)
+        assert np.array_equal(got.numpy(), a)
+        assert a[0, 0, 0] == np.float32(1.0 / keep) and a[0, 0, 1] == 0.0
+        assert a[0, 0, 2] == np.float32(1.0 / keep) and a[0, 0, 3] == 0.0
+
+
+def test_plain_masks_drawn_by_chunk_equal_dropout_mask():
+    mr = mask_replay_check
+    fwd = mr.masks_forward(device="cpu")
+    rev = mr.masks_reversed(device="cpu")
+    rows, t = mr.NB * mr.BT, mr.NC * mr.TC
+    for k, (a, b, mid, w) in enumerate(zip(fwd, rev, mr.MASK_IDS, mr.widths())):
+        assert a.shape == (rows, t, w) and a.dtype == torch.float32
+        assert torch.equal(a, b), k
+        assert torch.equal(a, philox.dropout_mask(mr.SEED, mid, rows, t, w, 1 - mr.KP)), k
+        assert abs(mr.drop_fraction(a) - (1 - mr.KP)) <= DROP_TOL, k
+    assert not torch.equal(fwd[0], fwd[1])  # the mask id keys the draw
+
+
+def test_masks_check_their_arguments():
+    mr = mask_replay_check
+    with pytest.raises(ValueError, match="must be positive"):
+        mr.masks_plain(nc=0)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        mr.masks_forward(d=30, device="cpu")
+    with pytest.raises(ValueError, match="keep must be"):
+        mr.masks_reversed(keep=0.0, device="cpu")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        mr.masks_forward(device="meta")
+
+
+# a disassembly in cuobjdump's form: one kernel whose drawing loop (one
+# Philox round's worth, a 16-byte store) branches back by offset, then one
+# whose loops branch back by label, the inner one a scalar store
+_SASS = """
+		Function : _ZN12_GLOBAL__N_120masks_forward_kernelEN6recblr7DropoutENS_5MasksEiii
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   IMAD.WIDE.U32 R2, R0, -0x2daee0ad, RZ ;
+        /*0020*/                   LOP3.LUT R4, R3, R5, UR6, 0x96, !PT ;
+        /*0030*/                   ISETP.GE.U32.AND P0, PT, R4, c[0x0][0x220], PT ;
+        /*0040*/                   FSEL R8, RZ, c[0x0][0x224], P0 ;
+        /*0050*/                   ST.E.128 desc[UR4][R10.64], R8 ;
+        /*0060*/                   VIADD R0, R0, 0x200 ;
+        /*0070*/              @!P1 BRA 0x10 ;
+        /*0080*/                   EXIT ;
+        /*0090*/                   BRA 0x90;
+		Function : _ZN12_GLOBAL__N_121masks_reversed_kernelEN6recblr7DropoutENS_5MasksEiii
+        /*0000*/                   S2R R0, SR_TID.X ;
+.L_x_1:
+        /*0010*/                   UIADD3 UR4, UR4, 0x1, URZ ;
+.L_x_0:
+        /*0020*/                   IMAD.HI.U32 R2, R0, 0x5, RZ ;
+        /*0030*/                   MUFU.RCP R3, R2 ;
+        /*0040*/                   STG.E desc[UR4][R10.64], R8 ;
+        /*0050*/              @P0 BRA `(.L_x_0) ;
+        /*0060*/              @P1 BRA `(.L_x_1) ;
+        /*0070*/                   EXIT ;
+"""
+
+
+def test_sass_mix_counts_the_innermost_loops_by_pipe():
+    spec = importlib.util.spec_from_file_location("_sass_mix", ROOT / "sass_mix.py")
+    sm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sm)
+    funcs = sm.parse(_SASS)
+    fwd, rev = (next(f for f in funcs if k in f) for k in sm.KERNELS)
+    assert sm.innermost_loops(funcs[fwd]) == [(0x10, 0x70)]  # not the trap after EXIT
+    mix = sm.loop_mix(funcs[fwd], (0x10, 0x70), sm.ELEMS)
+    assert mix["elements_per_iteration"] == 4
+    assert mix["per_element"] == {"alu": 1.0, "control": 0.25, "fmaheavy": 0.25, "mem": 0.25}
+    ms = mix["ms_at_elems"]
+    assert ms["alu"] == pytest.approx(sm.ELEMS / (132 * 64 * 67e12 / (132 * 256)) * 1e3)
+    assert ms["bytes"] == pytest.approx(sm.ELEMS * 4 / 3.35e12 * 1e3)
+    assert mix["bound_by"] == "bytes" and mix["other_opcodes"] == []
+    assert sm.innermost_loops(funcs[rev]) == [(0x20, 0x50)]
+    mix = sm.loop_mix(funcs[rev], (0x20, 0x50), sm.ELEMS)
+    assert mix["elements_per_iteration"] == 1
+    assert mix["opcodes"] == {"IMAD": 1, "MUFU": 1, "STG": 1, "BRA": 1}
+    assert mix["per_element"] == {"control": 1.0, "fmaheavy": 1.0, "mem": 1.0, "xu": 1.0}
+    assert mix["ms_at_elems"]["xu"] == pytest.approx(4 * mix["ms_at_elems"]["fmaheavy"])
+
+# ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
@@ -241,7 +440,26 @@ def test_entry_points_run_the_plain_versions_on_the_cpu(monkeypatch, capsys):
     assert {s for s in _cuda._loaded if s in _cuda.PROBE_SOURCES} == before
 
 
-@pytest.mark.parametrize("module", [unit_overlap, vpu_ops, scan_chunked, ce_mxu])
+def test_gather_and_mask_entry_points_run_the_plain_versions_on_the_cpu(monkeypatch, capsys):
+    before = {s for s in _cuda._loaded if s in _cuda.PROBE_SOURCES}
+    counters = (emb_gather.gather, mask_replay_check.masks_forward,
+                mask_replay_check.masks_reversed)
+    launches = [f.launches for f in counters]
+    monkeypatch.setattr(emb_gather, "N", 4096)
+    res = emb_gather.main(["--device", "cpu", "--bn", "1000", "--dtype", "float32"])
+    assert res["ok"] and res["ms"] is not None and res["library_ms"] is not None
+    res = mask_replay_check.main(["--device", "cpu", "--nb", "1", "--nc", "2", "--tc", "8"])
+    assert res["ok"] and set(res["ms"]) == {"forward", "reversed"} and len(res["drop"]) == 4
+    text = capsys.readouterr().out
+    assert "plain gather correct: True" in text and "torch gather:" in text
+    assert "drop fraction: " in text and "masks bitwise equal: True" in text
+    assert text.count("cpu: plain versions, host times") == 2
+    assert [f.launches for f in counters] == launches
+    assert {s for s in _cuda._loaded if s in _cuda.PROBE_SOURCES} == before
+
+
+@pytest.mark.parametrize("module", [unit_overlap, vpu_ops, scan_chunked, ce_mxu, emb_gather,
+                                    mask_replay_check])
 def test_entry_points_raise_without_a_card(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):

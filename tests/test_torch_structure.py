@@ -81,6 +81,8 @@ MODULES = [
     "datamining_recblr_torch.probes.vpu_ops",
     "datamining_recblr_torch.probes.scan_chunked",
     "datamining_recblr_torch.probes.ce_mxu",
+    "datamining_recblr_torch.probes.emb_gather",
+    "datamining_recblr_torch.probes.mask_replay_check",
 ]
 FORBIDDEN = ("jax", "jaxlib", "datamining_recblr_tpu", "pandas", "yaml", "sklearn", "optax",
              "ml_dtypes", "tensorstore")
@@ -101,7 +103,7 @@ def _run_clean(code):
                    timeout=120)
 
 
-@pytest.mark.parametrize("module", MODULES + ["chip_smoke"])
+@pytest.mark.parametrize("module", MODULES + ["chip_smoke", "sass_mix"])
 def test_imports_no_jax(module):
     _run_clean(f"import importlib\nimportlib.import_module({module!r})")
 
