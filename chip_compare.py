@@ -3,6 +3,7 @@
 
     python3 chip_compare.py PARENT_DIR            # parent, this tree, this tree, parent
     python3 chip_compare.py --bits PARENT_DIR     # the same turns, rows 15 and 6 only
+    python3 chip_compare.py --probes PARENT_DIR   # the same turns, rows 17d and 17a only
     python3 chip_compare.py --one TREE LABEL      # one run (what each turn executes)
 
 PARENT_DIR is an unpacked ``git archive`` of the commit to compare with,
@@ -29,6 +30,12 @@ one card at one power limit.  At the end, one ``[compare]`` line a timed
 function (kernel-time rows, row 16's kernel-time-phase fields, train-time
 medians and the serve-xlong-time medians): its parent and change turns and the ratio of their means,
 change over parent.
+
+Every turn ends with rows 17d and 17a (``probe_kernel_times``: the bf16
+product at each JAX height the tree's probe takes beside ``torch.mm``, and
+unit_overlap's five modes), through this checkout's function where the
+tree lacks it; with ``--probes`` a turn builds only the probes' kernels
+and runs only those lines.
 
 With ``--bits`` each turn runs only ``row15_row6_digests`` (rows 15 and 6
 as every caller before the seq axis calls them, hashed) and the times of
@@ -58,7 +65,7 @@ def _this_smoke():
     return mod
 
 
-def one(tree, label, bits=False):
+def one(tree, label, bits=False, probes=False):
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -68,6 +75,15 @@ def one(tree, label, bits=False):
 
     dev = torch.device("cuda", 0)
     print(f"=== {label} {tree}", flush=True)
+    probe_times = getattr(cs, "probe_kernel_times", None) or _this_smoke().probe_kernel_times
+    if probes:
+        from datamining_recblr_torch.ops import _cuda
+
+        print(cs.PB.card(dev), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _cuda.build(_cuda.PROBE_SOURCES)
+        probe_times(dev)
+        return
     cs.environment()
     if bits:
         this = _this_smoke()
@@ -117,6 +133,7 @@ def one(tree, label, bits=False):
     cs.slice_train_phase(dev, "longodd", "float32")
     cs.path_train_phase(dev, "SASRec", "d256", "float32")
     cs.path_train_phase(dev, "BERT4Rec", "d256", "float32")
+    probe_times(dev)
 
 
 def timed(line):
@@ -124,7 +141,7 @@ def timed(line):
     line, or of row 16's kernel-time-phase line (each of its ms fields)."""
     fields = dict(re.findall(r"(\w+)=(\S+)", line))
     if line.startswith("[kernel-time] "):
-        keys = ("kernel", "shape", "B", "dtype", "causal", "p")
+        keys = ("kernel", "shape", "B", "dtype", "causal", "p", "bn", "mode", "nv")
         return [(" ".join(f"{k}={fields[k]}" for k in keys if k in fields), float(fields["ms"]))]
     m = re.match(r"\[([\w-]*train-time)\] ", line)
     if m:
@@ -143,10 +160,12 @@ def timed(line):
 
 def main():
     if sys.argv[1:2] == ["--one"]:
-        one(sys.argv[2], sys.argv[3], bits=sys.argv[4:5] == ["--bits"])
+        one(sys.argv[2], sys.argv[3], bits=sys.argv[4:5] == ["--bits"],
+            probes=sys.argv[4:5] == ["--probes"])
         return 0
     bits = sys.argv[1:2] == ["--bits"]
-    parent = sys.argv[2] if bits else sys.argv[1]
+    probes = sys.argv[1:2] == ["--probes"]
+    parent = sys.argv[2] if bits or probes else sys.argv[1]
     here = os.path.dirname(os.path.abspath(__file__))
     rc = 0
     ms, digests = {}, {}
@@ -154,7 +173,7 @@ def main():
                                        (here, "change"), (parent, "parent")), 1):
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree, label]
-                           + (["--bits"] if bits else []),
+                           + (["--bits"] if bits else []) + (["--probes"] if probes else []),
                            stdout=subprocess.PIPE, text=True, timeout=1200)
         print(r.stdout, end="")
         print(f"=== turn {i} {label} rc={r.returncode} {time.perf_counter() - t0:.0f}s",

@@ -156,12 +156,16 @@ of queue B row 17) and, phase by phase:
   (``probe-vs-plain``: unit_overlap's five modes, vpu_ops' fourteen
   chains, the flat and two-level scans, the bf16 product at every block
   height, the embedding gather in bf16 and fp32 and both mask kernels,
-  bit for bit), then the six entry points as a user runs them
-  (``probe-time``, each kernel's launches counted from 0), unit_overlap
-  again at an nv that brings vpu_only within 2x of mm_only and
-  mask_replay_check again at the XLong layer's sizes, and each kernel
-  beside its bound, its plain version and, for the bf16 product and the
-  gather, ``torch.mm`` and ``tab[ids]`` (``probe-kernel-time``).
+  bit for bit), the HGMMA and TMA instructions of the two kernels on
+  ``wgmma`` and TMA (``probe-sass``: rows 17d and 17a, from ``sass_mix.py``;
+  fails unless both run HGMMA and ce_mm stores by TMA), then the six entry
+  points as a user runs them (``probe-time``, each kernel's launches
+  counted from 0), unit_overlap again at an nv that brings vpu_only within
+  2x of mm_only and mask_replay_check again at the XLong layer's sizes,
+  and each kernel beside its bound, its plain version and, for the bf16
+  product and the gather, ``torch.mm`` and ``tab[ids]``
+  (``probe-kernel-time``; the bf16 product also beside a ``fill_`` of its
+  output, the card's rate for writing those bytes).
 
 A rerun of each RecBLR layer kernel, forward and backward, gives the same
 bits, and each RecBLR training and serving profile fails unless phase A
@@ -4724,6 +4728,48 @@ def probe_kernels_vs_plain(dev):
     return errs
 
 
+def probe_sass():
+    """The asynchronous units' instructions of rows 17d and 17a
+    (``probe-sass``, ``sass_mix.units``: HGMMA, UTMALDG, UTMASTG, UBLKCP
+    in the built libraries): fails unless ce_mm and every unit_overlap
+    mode with products (all but vpu_only) hold HGMMA, and ce_mm a TMA
+    store."""
+    import sass_mix
+
+    found = set()
+    for res in sass_mix.units():
+        c = res["counts"]
+        m = re.search(r"unit_overlap_kernelILi(\d)EE", res["function"])
+        mode = PUO.MODES[int(m.group(1))] if m else "-"
+        phase("probe-sass", kernel=res["kernel"], mode=mode, **c)
+        if mode != "vpu_only":
+            check(c["HGMMA"] > 0, f"{res['kernel']} {mode}: no HGMMA in its machine code")
+        if res["kernel"] == "ce_mm_kernel":
+            check(c["UTMASTG"] > 0, "ce_mm_kernel: no TMA store in its machine code")
+        found.add(res["kernel"])
+    check(found == set(sass_mix.UNIT_KERNELS.values()),
+          f"probe-sass found {sorted(found)}, not both kernels")
+
+
+def probe_kernel_times(dev):
+    """Rows 17d and 17a at the JAX probes' defaults, one ``kernel-time``
+    line each, as ``chip_compare.py`` turns read them: ce_mm at each JAX
+    height this tree's ``ce_mxu`` takes and bf16 ``torch.mm`` beside it
+    (``ce_mxu.measure``, 30 calls each), unit_overlap's five modes at nv
+    48 (``unit_overlap.measure``, 30 chained calls each)."""
+    bns = [bn for bn in (256, 512, 1024, 2048) if bn in PCE.BNS]
+    ce = PCE.measure(CE_N, CE_V, bns, dev)
+    shape = f"N{CE_N}xV{CE_V}xD{PCE.D}"
+    phase("kernel-time", kernel="torch.mm", shape=shape, ms=f"{ce['torch-mm'][0]:.4f}")
+    for bn in bns:
+        phase("kernel-time", kernel="ce_mm", shape=shape, bn=bn,
+              ms=f"{ce[f'cuda-mm bn={bn}']:.4f}")
+    ms = PUO.measure(UO_NM, UO_NV, UO_GRID, dev)
+    for mode in PUO.MODES:
+        phase("kernel-time", kernel="unit_overlap", shape=f"{UO_GRID * PUO.ROWS}x{PUO.C}",
+              mode=mode, nv=UO_NV, ms=f"{ms[mode]:.4f}")
+
+
 def mask_bound(nb, nc, bt, tc, d, ff):
     """(bound ms, integer operations, what bounds it) of the four masks:
     each element written once as fp32, against the integer work the draw
@@ -4818,16 +4864,16 @@ def probe_phases(dev):
     # its device time by op, from torch.profiler over 20 calls each, per
     # kernel the profile holds (a capture can come back short of events)
     x = PVO.inputs(dev)
-    dev_us, captured = {}, {}
+    vpu_dev_us, captured = {}, {}
     for name in PVO.OPS:
         events, _ = profiled(_timed_loop(lambda _, f=PVO.make_fn(name): f(x), 20),
                              ("vpu_op_kernel",))
         kern = [e for e in events if "vpu_op_kernel" in e.key]
         count = sum(e.count for e in kern)
         us = sum(e.self_device_time_total for e in kern)
-        dev_us[name] = round(us / count, 3) if count else "not measured"
+        vpu_dev_us[name] = round(us / count, 3) if count else "not measured"
         captured[name] = count
-    phase("probe-device-time", probe="vpu_ops", us_per_call=repr(dev_us),
+    phase("probe-device-time", probe="vpu_ops", us_per_call=repr(vpu_dev_us),
           kernels_captured=repr(captured))
     del x
     x, x2, w, a, b = PUO.inputs(UO_GRID, dev)
@@ -4843,7 +4889,9 @@ def probe_phases(dev):
     del g, x
     x, table, _, _ = PCE.inputs(CE_N, CE_V, dev)
     plain["ce_mm"] = PB.time_calls(lambda: PCE.mm_plain(x, table), dev, 5)
-    del x, table
+    out = torch.empty((CE_N, CE_V), device=dev)
+    ce_fill_ms = time_ms(lambda: out.fill_(1.0))
+    del x, table, out
     bn0 = PCE.DEFAULT_BNS[0]
     ms = {"unit_overlap": uo["ms"]["mm_only"], "vpu_ops": vo["ms"]["mul"],
           "scan_flat": sc["ms"]["flat"], "scan_chunk": sc["ms"]["chunk"],
@@ -4911,12 +4959,12 @@ def probe_phases(dev):
         "unit_overlap": {"mode": "mm_only", "modes_ms": uo["ms"], "overlap_il": uo["overlap_il"],
                          "balanced": {"nv": nv, "modes_ms": bal["ms"],
                                       "overlap_il": bal["overlap_il"]}},
-        "vpu_ops": {"op": "mul", "ops_ms": vo["ms"], "ops_device_us": dev_us},
+        "vpu_ops": {"op": "mul", "ops_ms": vo["ms"], "ops_device_us": vpu_dev_us},
         "scan_flat": {"row7_linear_scan_ms": sc["ms"]["serial"]},
         "scan_chunk": {"row7_linear_scan_ms": sc["ms"]["serial"]},
         "ce_mm": {"bn": bn0, "bn_ms": {k: v for k, v in ce.items() if k.startswith("cuda-mm")},
                   "library_trio_ms": ce["torch-mm"][1], "fused_ce_ms": ce["fused-ce"],
-                  "fused_ce_tile": PCE.ROW13_TILE},
+                  "fused_ce_tile": PCE.ROW13_TILE, "fill_ms": ce_fill_ms},
         "emb_gather": {"dtype": "bfloat16", "bn": PEG.BN, "bn_ms": bn_ms,
                        "entry_point_ms": eg["ms"], "entry_point_library_ms": eg["library_ms"],
                        "device_us": dev_us["emb_gather"], "library_device_us": lib_dev_us,
@@ -4949,6 +4997,12 @@ def probe_phases(dev):
         phase("probe-kernel-time", kernel=name, ms=f"{ms[name]:.4f}",
               plain_ms=f"{plain[name]:.4f}", bound_ms=f"{bound:.5f}", bound_by=by,
               library_ms=library.get(name), launches=launches[name])
+    # the bf16 product at every height beside the library and a fill_ of
+    # the same output (the card's rate for writing its bytes)
+    bn_ms = {k.split("=")[1]: round(v, 4) for k, v in extra["ce_mm"]["bn_ms"].items()}
+    phase("probe-kernel-time", kernel="ce_mm", bn_ms=repr(bn_ms),
+          library_ms=f"{library['ce_mm']:.4f}", fill_ms=f"{ce_fill_ms:.4f}",
+          bound_ms=f"{rows['ce_mm']['bound_ms']:.5f}")
     return rows
 
 
@@ -6295,6 +6349,7 @@ def main():
     row15_errs = attention_kernels_vs_plain(dev)
     attention_mask_bits(dev)
     probe_errs = probe_kernels_vs_plain(dev)
+    probe_sass()
     serve = {(name, dt): serving(dev, name, dt)
              for name in SERVED for dt in ("float32", "bfloat16")}
     xserve = serving(dev, "RecBLR", "bfloat16", xlong=True)

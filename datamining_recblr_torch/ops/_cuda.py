@@ -40,7 +40,8 @@ PROBE_SOURCES = ("probe_unit_overlap.cu", "probe_vpu_ops.cu", "probe_scan_chunke
                  "probe_ce_mxu.cu", "probe_emb_gather.cu", "probe_mask_replay_check.cu")
 HEADERS = ("common.cuh", "common_bwd.cuh", "attn_common.cuh", "attn_bwd.cuh", "ce_common.cuh",
            "ce_mma.cuh",
-           "attention.cuh", "gemm_tile.cuh", "mma_tile.cuh", "mma_smem.cuh", "layer_fwd.cuh")
+           "attention.cuh", "gemm_tile.cuh", "mma_tile.cuh", "mma_smem.cuh", "layer_fwd.cuh",
+           "wgmma.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -7,11 +7,13 @@ row 17d) at BERT4Rec's cloze loss: rows N 81,920, V 3,456, D 64.
              backward, x @ table^T, g @ table, g^T @ x (6 N D V); where
              this PyTorch has no fp32 output for bf16 products, bf16 output,
              and the line says so
-  cuda-mm    ``mm``: the kernel of ``csrc/probe_ce_mxu.cu`` (the JAX
+  cuda-mm    ``mm``: the kernels of ``csrc/probe_ce_mxu.cu`` (the JAX
              probe's ``pallas_mm``, ``_mm_kernel``): out = bf16(x)
-             bf16(table)^T in fp32, written to device memory, a block of
-             ``bn`` rows holding its x while the table streams past in
-             64-row tiles, on ``mma.sync``; bn in ``BNS``
+             bf16(table)^T in fp32, written to device memory; the table
+             rounded to bf16 once a call, then persistent blocks on
+             ``wgmma`` with the table's tiles brought in by TMA and the
+             output written by TMA stores, a table tile serving ``bn``
+             rows before the next; bn in ``BNS``
   fused-ce   ``fused_ce`` (the JAX probe's ``fused_ce_at_bn``): the port's
              row-13 forward and backward (``ops/fused_ce.py``, bf16
              products) at the probe's shape, valid_v 3,417; row 13 keeps
@@ -41,11 +43,10 @@ from datamining_recblr_torch.probes import _bench
 
 PEAK_TFLOPS = _bench.PEAK_BF16_FLOPS / 1e12
 D = 64
-# the block heights the card's shared memory takes: bn rows of x at 144
-# bytes (bf16 with padding) beside a 64-row table tile; 2,048 rows would
-# take 295 KB of the 227 KB a block may use
-BNS = (128, 256, 512, 1024)
-DEFAULT_BNS = (256, 512, 1024)
+# the block heights: the rows a block's walk covers under one table tile,
+# in whole 128-row tiles; the JAX probe's heights by default
+BNS = (128, 256, 512, 1024, 2048)
+DEFAULT_BNS = (256, 512, 1024, 2048)
 VALID_V = 3417
 # the kernel's block of a fused-ce line: row 13's tiles at D 64 in bf16
 ROW13_TILE = "fwd 64-row blocks x 64-row table tiles (FMA); bwd 128-row blocks, mma.sync"
@@ -57,24 +58,17 @@ def mm_plain(x, table):
     return x.to(torch.bfloat16).float() @ table.to(torch.bfloat16).float().t()
 
 
-def _vsplit(n, v, bn, device):
-    """The table's split across blocks: enough blocks for two a
-    multiprocessor, at most one a table tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-v // 64), -(-2 * sms // -(-n // bn))))
-
-
 def mm(x, table, bn):
     """[N, V] fp32 product of x [N, 64] and table [V, 64] (fp32, rounded
-    to bf16 inside): the kernel with row height ``bn`` on a CUDA tensor,
-    ``mm_plain`` on a CPU one."""
+    to bf16 inside): the kernels with block height ``bn`` on a CUDA
+    tensor, ``mm_plain`` on a CPU one."""
     if bn not in BNS:
-        raise ValueError(f"block height {bn} not taken; one of {BNS} (a block holds its rows "
-                         "of x in shared memory)")
+        raise ValueError(f"block height {bn} not taken; one of {BNS} (whole 128-row tiles)")
     if (x.dim() != 2 or table.dim() != 2 or x.shape[1] != D or table.shape[1] != D
-            or x.shape[0] < 1 or table.shape[0] < 2 or table.shape[0] % 2):
-        raise ValueError(f"x must be [N, {D}] and table [V, {D}] with V even, got "
-                         f"{tuple(x.shape)} and {tuple(table.shape)}")
+            or x.shape[0] < 1 or table.shape[0] < 4 or table.shape[0] % 4):
+        raise ValueError(f"x must be [N, {D}] and table [V, {D}] with V a multiple of 4 (the "
+                         f"TMA stores' 16-byte rows), got {tuple(x.shape)} and "
+                         f"{tuple(table.shape)}")
     for name, t in (("x", x), ("table", table)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"{name} must be contiguous float32 on {x.device}")
@@ -85,14 +79,16 @@ def mm(x, table, bn):
     if x.data_ptr() % 16 or table.data_ptr() % 16 or n * v >= 2**62:
         raise ValueError("x and table must start at 16-byte boundaries")
     lib = _cuda.library("probe_ce_mxu.cu")
-    out = torch.empty((n, v), device=x.device, dtype=torch.float32)
+    # the product, then the table rounded to bf16 (V x 64 x 2 bytes) as the
+    # kernel's scratch in the same allocation
+    buf = torch.empty(n * v + v * D // 2, device=x.device, dtype=torch.float32)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
-        err = lib.recblr_probe_ce_mm(x.data_ptr(), table.data_ptr(), out.data_ptr(), n, v, bn,
-                                     _vsplit(n, v, bn, x.device), x.device.index,
-                                     _cuda.stream(x))
+        err = lib.recblr_probe_ce_mm(x.data_ptr(), table.data_ptr(), buf.data_ptr(), n, v, bn,
+                                     sms, x.device.index, _cuda.stream(x))
     _cuda.check(lib, err, "ce_mxu mm")
     mm.launches += 1
-    return out
+    return buf[: n * v].view(n, v)
 
 
 mm.launches = 0

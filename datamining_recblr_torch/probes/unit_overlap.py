@@ -10,13 +10,16 @@ kernels' block: 8 rows x T 200):
   vpu_only   nv dependent steps v <- v * a + b, a tanh every 4th step
   serial     one chain: a product, then nv // nm steps, nm times
   indep_il   two independent chains (products on x, steps on x2),
-             written stage-interleaved; out = y + v
+             written stage-interleaved; out = y + v (the kernel spreads
+             v's steps evenly over the nm products, the plain version
+             keeps the JAX probe's max(nm, nv) stages: the same values)
   indep_seq  the same two chains written one after the other
 
 If ``indep_*`` comes near max(mm_only, vpu_only) the units overlap; near
 the sum, they take turns.  ``run`` is the kernel of
 ``csrc/probe_unit_overlap.cu`` on a CUDA tensor (the product as the port's
-3xTF32 ``mma.sync``, a warp's 16 rows chained in registers) and
+3xTF32 on asynchronous ``wgmma``, a warpgroup's 64 rows chained in
+registers, the interleaved chain's steps issued under its products) and
 ``run_plain``, the JAX kernel's arithmetic in PyTorch, on a CPU tensor.
 ``run.launches`` counts the kernel's launches.
 

@@ -2,9 +2,13 @@
 """Counts the instructions of the mask probe's two kernels' innermost
 loops (``csrc/probe_mask_replay_check.cu``, queue B row 17f), by the H100
 pipe that issues them, from the machine code (SASS) that ``nvcc`` built
-for ``sm_90a``, and prices the XLong layer's four masks on each pipe.
+for ``sm_90a``, and prices the XLong layer's four masks on each pipe;
+and counts the asynchronous units' instructions of the two kernels on
+``wgmma`` and TMA (rows 17d and 17a): warpgroup products (HGMMA) and TMA
+tensor loads and stores and bulk copies (UTMALDG, UTMASTG, UBLKCP).
 
     python3 sass_mix.py [--out sass_mix.json] [--dump masks.sass]
+    python3 sass_mix.py --units [--out units.json]
 
 It builds the source as the port does (``ops/_cuda.py``), disassembles
 the library with ``cuobjdump -sass`` (beside ``nvcc``), and finds in each
@@ -48,6 +52,9 @@ from pathlib import Path
 
 SOURCE = "probe_mask_replay_check.cu"
 KERNELS = ("masks_forward_kernel", "masks_reversed_kernel")
+# the kernels on wgmma and TMA, by source, and the opcodes counted in them
+UNIT_KERNELS = {"probe_ce_mxu.cu": "ce_mm_kernel", "probe_unit_overlap.cu": "unit_overlap_kernel"}
+UNIT_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")
 ELEMS = 512 * 1024 * (64 + 64 + 256 + 64)   # the XLong layer's four masks
 SMS = 132
 CLOCK_HZ = 67e12 / (SMS * 256)   # the fp32 peak's clock: 128 lanes, an FMA counting two
@@ -155,19 +162,51 @@ def loop_mix(insns, span, elems):
     return out
 
 
+def unit_counts(funcs, kernel):
+    """{function: {opcode: count}} of ``UNIT_OPCODES`` in every function
+    whose name holds ``kernel`` (each template instance apart)."""
+    return {name: {op: sum(1 for _, o, _, _ in insns if o == op) for op in UNIT_OPCODES}
+            for name, insns in funcs.items() if kernel in name}
+
+
+def disassemble(source):
+    """The SASS of one source's library, built first as the port builds it."""
+    from datamining_recblr_torch.ops import _cuda
+
+    _cuda.build((source,))
+    cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(_cuda._lib_path(source))], check=True,
+                          capture_output=True, text=True).stdout
+
+
+def units():
+    """[{source, kernel, function, counts}] for ``UNIT_KERNELS``."""
+    return [{"source": src, "kernel": kernel, "function": fname, "counts": counts}
+            for src, kernel in UNIT_KERNELS.items()
+            for fname, counts in unit_counts(parse(disassemble(src)), kernel).items()]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path)
     ap.add_argument("--dump", type=Path)
+    ap.add_argument("--units", action="store_true",
+                    help="count HGMMA and TMA instructions in the wgmma / TMA kernels")
     args = ap.parse_args(argv)
+
+    if args.units:
+        results = units()
+        for res in results:
+            print(json.dumps(res), flush=True)
+        if args.out:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps(results, indent=1) + "\n")
+        return 0
 
     from datamining_recblr_torch.ops import _cuda
 
-    _cuda.build((SOURCE,))
     lib = _cuda._lib_path(SOURCE)
-    cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True, capture_output=True,
-                          text=True).stdout
+    sass = disassemble(SOURCE)
     if args.dump:
         args.dump.parent.mkdir(parents=True, exist_ok=True)
         args.dump.write_text(sass)

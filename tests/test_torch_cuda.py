@@ -2408,3 +2408,43 @@ def test_probe_mask_kernels_agree_at_the_xlong_shape(dev):
         assert torch.equal(a, b), k
         assert torch.equal(a, p), k
         assert abs(MR.drop_fraction(a) - (1 - MR.KP)) <= 0.01, k
+
+
+def test_probe_ce_mm_kernel_matches_plain_on_ragged_shapes(dev):
+    """Queue B row 17d's wgmma / TMA kernel against ``mm_plain`` at every
+    block height, on shapes that are no multiple of its 128 x 128 tiles
+    (N 1,001, 37 and 129 rows; V 1,004, 4, 132 and 3,456), within the
+    smoke's MXU_TOL (atol = rtol = 1e-5: bf16 products are exact in fp32,
+    sums of 64 in another order); one launch a call, and a rerun gives
+    the same bits."""
+    from datamining_recblr_torch.probes import ce_mxu as CE
+
+    for n, v in ((1001, 1004), (37, 4), (129, 3456), (300, 132)):
+        x, table, _, _ = CE.inputs(n, v, dev)
+        want = CE.mm_plain(x, table)
+        for bn in CE.BNS:
+            before = CE.mm.launches
+            got = CE.mm(x, table, bn)
+            assert CE.mm.launches == before + 1
+            assert got.shape == (n, v) and got.is_contiguous()
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            assert torch.equal(CE.mm(x, table, bn), got), (n, v, bn)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("nm,nv", [(1, 12), (16, 48), (16, 5)])
+def test_probe_unit_overlap_kernel_matches_plain(dev, nm, nv):
+    """Queue B row 17a's wgmma chains against ``run_plain`` in all five
+    modes at grid 2 (3,200 rows, 50 warpgroup tiles), nm 1 and 16, with
+    more and fewer elementwise steps than products, within FP32_TOL (1e-4:
+    3xTF32 products in one fp32 accumulator, a few 1e-6 after 16)."""
+    from datamining_recblr_torch.probes import unit_overlap as UO
+
+    x, x2, w, a, b = UO.inputs(2, dev)
+    for mode in UO.MODES:
+        before = UO.run.launches
+        got = UO.run(x, x2, w, a, b, mode, nm, nv, 2)
+        assert UO.run.launches == before + 1
+        want = UO.run_plain(x, x2, w, a, b, mode, nm, nv)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=mode)
+    torch.cuda.synchronize()

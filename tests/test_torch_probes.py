@@ -21,7 +21,13 @@ imported by path, on inputs from a numpy seed at small sizes.
   the whole sequence (the bits are the port's own Philox draws: the TPU's
   cannot be had off the TPU);
 * ``sass_mix.py`` (the mask kernels' instructions by pipe): its parse,
-  loops and prices on a small disassembly in ``cuobjdump``'s form.
+  loops and prices on a small disassembly in ``cuobjdump``'s form; and its
+  count of HGMMA and TMA instructions in the ``wgmma`` / TMA kernels;
+* the 3xTF32 chain of ``csrc/probe_unit_overlap.cu`` emulated in numpy:
+  the accumulator's columns as the next product's depth (w's rows
+  permuted), 16 k-tiles x 3 TF32 products into one accumulator whose
+  every product step truncates to fp32, nm 16 products, against an fp64
+  chain.
 
 Tolerances, each with its reason:
 * ``MM_TOL`` 2e-5: fp32 products summed in another order than XLA's over
@@ -38,6 +44,8 @@ Tolerances, each with its reason:
   orders;
 * ``MXU_TOL`` 1e-6: bf16 products are exact in fp32, sums of 64 in
   another order;
+* ``FP32_TOL`` 1e-4 (atol and rtol, ``chip_smoke.py``'s): the emulated
+  3xTF32 chain in one truncating accumulator against fp64;
 * ``CE_RTOL`` 1e-5: row 13's sums over 512 x 384 logits, its exp as
   exp2(x log2 e) against XLA's exp inside the JAX kernels;
 * none for the gather and the masks: a gather copies bits, and a mask
@@ -71,6 +79,7 @@ OP_TOL = 2e-6
 SQUARE_RTOL = 1e-4
 SCAN_TOL = 1e-4
 MXU_TOL = 1e-6
+FP32_TOL = 1e-4
 CE_RTOL = 1e-5
 DROP_TOL = 0.01
 
@@ -216,10 +225,11 @@ def ce_case():
 def test_mm_matches_pallas_mm(ce_case):
     x, table, _, _ = ce_case
     jp = _jax_probe("ce_mxu")
-    want = np.asarray(jp.pallas_mm(jnp.asarray(x.numpy()), jnp.asarray(table.numpy()), 256))
-    got = ce_mxu.mm(x, table, 256)
-    assert got.shape == (512, 384) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=MXU_TOL, atol=MXU_TOL)
+    for bn in (256, 2048):
+        want = np.asarray(jp.pallas_mm(jnp.asarray(x.numpy()), jnp.asarray(table.numpy()), bn))
+        got = ce_mxu.mm(x, table, bn)
+        assert got.shape == (512, 384) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=MXU_TOL, atol=MXU_TOL)
 
 
 def test_fused_ce_sums_match_fused_ce_at_bn(ce_case):
@@ -235,10 +245,14 @@ def test_fused_ce_sums_match_fused_ce_at_bn(ce_case):
 
 def test_mm_takes_the_heights_shared_memory_allows(ce_case):
     x, table, _, _ = ce_case
-    with pytest.raises(ValueError, match="block height 2048"):
-        ce_mxu.mm(x, table, 2048)
-    with pytest.raises(ValueError, match="V even"):
-        ce_mxu.mm(x, table[:383].contiguous(), 256)
+    assert set(ce_mxu.DEFAULT_BNS) == {256, 512, 1024, 2048} <= set(ce_mxu.BNS)
+    assert ce_mxu.mm(x, table, 2048).shape == (512, 384)
+    for bn in (64, 3000, 4096):
+        with pytest.raises(ValueError, match=f"block height {bn}"):
+            ce_mxu.mm(x, table, bn)
+    for v in (383, 382):
+        with pytest.raises(ValueError, match="V a multiple of 4"):
+            ce_mxu.mm(x, table[:v].contiguous(), 256)
     with pytest.raises(ValueError, match=r"\[N, 64\]"):
         ce_mxu.mm(x[:, :32].contiguous(), table, 256)
 
@@ -414,6 +428,99 @@ def test_sass_mix_counts_the_innermost_loops_by_pipe():
     assert mix["opcodes"] == {"IMAD": 1, "MUFU": 1, "STG": 1, "BRA": 1}
     assert mix["per_element"] == {"control": 1.0, "fmaheavy": 1.0, "mem": 1.0, "xu": 1.0}
     assert mix["ms_at_elems"]["xu"] == pytest.approx(4 * mix["ms_at_elems"]["fmaheavy"])
+
+
+# the wgmma / TMA kernels as cuobjdump prints them: ce_mm's products, a
+# TMA load and a TMA store; unit_overlap's mm_only and vpu_only instances
+_SASS_UNITS = """
+		Function : _ZN48_GLOBAL__N__f4453b44_15_probe_ce_mxu_cu_8bb4081e12ce_mm_kernelE14CUtensorMap_stS0_S0_iii
+        /*2af0*/                   WARPGROUP.ARRIVE ;
+        /*2b30*/                   HGMMA.64x128x16.F32.BF16 R24, R88, gdesc[UR8], RZ, !UPT ;
+        /*2be0*/                   HGMMA.64x128x16.F32.BF16 R24, R92, gdesc[UR8], R24, gsb0 ;
+        /*2db0*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+        /*31f0*/                   UTMASTG.2D [UR12], [UR10] ;
+        /*3300*/              @!P0 UTMASTG.2D [UR12], [UR10] ;
+        /*3550*/                   UTMACMDFLUSH ;
+        /*3d40*/                   UTMALDG.2D [UR12], [UR10] ;
+        /*3d50*/                   EXIT ;
+		Function : _ZN48_GLOBAL__N__f4453b44_15_probe_ce_mxu_cu_8bb4081e18round_table_kernelEPK6float4P5uint2i
+        /*0000*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0010*/                   EXIT ;
+		Function : _ZN54_GLOBAL__N__4b2e3eed_21_probe_unit_overlap_cu_a6ece30719unit_overlap_kernelILi1EEEvPKfS2_S2_S2_S2_Pfiii
+        /*0000*/                   FFMA R4, R4, R5, R6 ;
+        /*0010*/                   EXIT ;
+		Function : _ZN54_GLOBAL__N__4b2e3eed_21_probe_unit_overlap_cu_a6ece30719unit_overlap_kernelILi0EEEvPKfS2_S2_S2_S2_Pfiii
+        /*0000*/                   HGMMA.64x128x8.F32.TF32 R24, R120, gdesc[UR8], RZ, !UPT ;
+        /*0010*/                   HGMMA.64x128x8.F32.TF32 R24, R124, gdesc[UR12], R24 ;
+        /*0020*/                   HGMMA.64x128x8.F32.TF32 R24, R124, gdesc[UR8], R24, gsb0 ;
+        /*0030*/                   EXIT ;
+"""
+
+
+def test_sass_mix_counts_hgmma_and_tma_by_kernel():
+    spec = importlib.util.spec_from_file_location("_sass_mix", ROOT / "sass_mix.py")
+    sm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sm)
+    funcs = sm.parse(_SASS_UNITS)
+    ce = sm.unit_counts(funcs, sm.UNIT_KERNELS["probe_ce_mxu.cu"])
+    assert list(ce.values()) == [{"HGMMA": 2, "UTMALDG": 1, "UTMASTG": 2, "UBLKCP": 0}]
+    uo = sm.unit_counts(funcs, sm.UNIT_KERNELS["probe_unit_overlap.cu"])
+    assert [c["HGMMA"] for c in uo.values()] == [0, 3]
+    assert all(c["UTMASTG"] == 0 for c in uo.values())
+
+
+# ---------------------------------------------------------------------------
+# 17a: the kernel's 3xTF32 chain in one accumulator, emulated
+# ---------------------------------------------------------------------------
+
+def _tf32(v):
+    """fp32 to TF32 bits, nearest, ties away from zero (``split_i``)."""
+    b = np.asarray(v, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(v):
+    hi = _tf32(v)
+    return hi, _tf32(np.float32(v) - hi)
+
+
+def _truncate(v64):
+    """fp64 to fp32 toward zero: the tensor cores' fp32 sum."""
+    f = v64.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v64)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _depth_row(k):
+    """``depth_row``: physical depth p of a k-tile holds w's row 2p (p < 4)
+    or 2(p - 4) + 1, the accumulator's column order."""
+    p = k % 8
+    return k - p + np.where(p < 4, 2 * p, 2 * (p - 4) + 1)
+
+
+def test_3xtf32_chain_in_one_accumulator_meets_fp32_tol():
+    """``probe_unit_overlap.cu`` ``mm_step`` on 64 rows, nm 16, as the card
+    sums it: y's columns enter as the next product's depth in the
+    permuted order, each 8-deep k-tile three TF32 products (al bh, ah bl,
+    ah bh) added one by one into the same fp32 accumulator, every addition
+    truncated; 16 products against an fp64 chain."""
+    x, _, w, _, _ = (t.numpy() for t in unit_overlap.inputs(1, "cpu"))
+    y, want = x[:64].copy(), x[:64].astype(np.float64)
+    perm = _depth_row(np.arange(unit_overlap.C))
+    wh, wl = _split(w[perm])
+    for _ in range(16):
+        ah, al = _split(y[:, perm])
+        acc = np.zeros_like(y, dtype=np.float32)
+        for kt in range(unit_overlap.C // 8):
+            k = slice(8 * kt, 8 * kt + 8)
+            for a, b in ((al, wh), (ah, wl), (ah, wh)):
+                acc = _truncate(acc.astype(np.float64) + a[:, k].astype(np.float64)
+                                @ b[k].astype(np.float64))
+        y = acc
+        want = want @ w.astype(np.float64)
+    np.testing.assert_allclose(y, want, rtol=FP32_TOL, atol=FP32_TOL)
+    assert np.abs(y - want).max() < 1e-5
 
 # ---------------------------------------------------------------------------
 # entry points
