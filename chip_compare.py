@@ -4,6 +4,8 @@
     python3 chip_compare.py PARENT_DIR            # parent, this tree, this tree, parent
     python3 chip_compare.py --bits PARENT_DIR     # the same turns, rows 15 and 6 only
     python3 chip_compare.py --probes PARENT_DIR   # the same turns, rows 17d and 17a only
+    python3 chip_compare.py --ce PARENT_DIR       # the same turns, row 13's forwards, 17f
+                                                  # and BERT4Rec's steps only
     python3 chip_compare.py --one TREE LABEL      # one run (what each turn executes)
 
 PARENT_DIR is an unpacked ``git archive`` of the commit to compare with,
@@ -37,6 +39,14 @@ unit_overlap's five modes), through this checkout's function where the
 tree lacks it; with ``--probes`` a turn builds only the probes' kernels
 and runs only those lines.
 
+With ``--ce`` each turn builds the kernels and runs only row 13's
+forwards (``ce_fwd_kernel_times``: bf16 at D 64, fp32 and bf16 at D 256,
+and row 14's beside them), row 17f's two mask kernels at the default and
+XLong sizes (``mask_kernel_times``), and BERT4Rec's training steps at the
+bench shape and on the d256 path, fp32 and bf16 (each against the plain
+step, launches, time, profile); a tree without those functions takes
+this checkout's.
+
 With ``--bits`` each turn runs only ``row15_row6_digests`` (rows 15 and 6
 as every caller before the seq axis calls them, hashed) and the times of
 rows 15 (``row15_kernel_times``) and 6 (``ln_fwd_kernel_times``, and its
@@ -65,7 +75,7 @@ def _this_smoke():
     return mod
 
 
-def one(tree, label, bits=False, probes=False):
+def one(tree, label, bits=False, probes=False, ce=False):
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -85,6 +95,13 @@ def one(tree, label, bits=False, probes=False):
         probe_times(dev)
         return
     cs.environment()
+    if ce:
+        for name in ("ce_fwd_kernel_times", "mask_kernel_times"):
+            (getattr(cs, name, None) or getattr(_this_smoke(), name))(dev)
+        for dt in ("float32", "bfloat16"):
+            cs.train_step_phase(dev, dt, "BERT4Rec")
+            cs.path_train_phase(dev, "BERT4Rec", "d256", dt)
+        return
     if bits:
         this = _this_smoke()
         this.row15_row6_digests(dev)
@@ -161,11 +178,11 @@ def timed(line):
 def main():
     if sys.argv[1:2] == ["--one"]:
         one(sys.argv[2], sys.argv[3], bits=sys.argv[4:5] == ["--bits"],
-            probes=sys.argv[4:5] == ["--probes"])
+            probes=sys.argv[4:5] == ["--probes"], ce=sys.argv[4:5] == ["--ce"])
         return 0
-    bits = sys.argv[1:2] == ["--bits"]
-    probes = sys.argv[1:2] == ["--probes"]
-    parent = sys.argv[2] if bits or probes else sys.argv[1]
+    mode = sys.argv[1] if sys.argv[1:2] in (["--bits"], ["--probes"], ["--ce"]) else None
+    bits = mode == "--bits"
+    parent = sys.argv[2] if mode else sys.argv[1]
     here = os.path.dirname(os.path.abspath(__file__))
     rc = 0
     ms, digests = {}, {}
@@ -173,7 +190,7 @@ def main():
                                        (here, "change"), (parent, "parent")), 1):
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree, label]
-                           + (["--bits"] if bits else []) + (["--probes"] if probes else []),
+                           + ([mode] if mode else []),
                            stdout=subprocess.PIPE, text=True, timeout=1200)
         print(r.stdout, end="")
         print(f"=== turn {i} {label} rc={r.returncode} {time.perf_counter() - t0:.0f}s",

@@ -311,22 +311,26 @@ SLICE_PATHS = {
 # run phase A alone (row 8), and the wide path (C 256) neither.  The CE
 # forwards on the tensor cores (csrc/ce_mma.cuh): row 14's in the XLong and
 # longodd steps (D 64, both dtypes), row 13's in BERT4Rec's fp32 steps (D 64
-# and, on the d256 path, 256; its bf16 forward keeps the FMA kernel,
-# ``FCE.fwd_uses_mma``)
+# and, on the d256 path, 256: 3xTF32) and in its d256 bf16 step (D 256,
+# bf16 products on wgmma); its bf16 forward at D 64 keeps the FMA kernel
+# (``FCE.fwd_uses_mma``)
 RECBLR_FWD_MMA = ("phase_a_mma_kernel", "tail_mma_kernel")
 CE_FWD_MMA, CCE_FWD_MMA = "ce_fwd_mma_kernel", "cce_fwd_mma_kernel"
+CE_FWD_WGMMA = "ce_fwd_wgmma_kernel"
 FWD_MMA_REQUIRED = dict(
     {prefix: RECBLR_FWD_MMA for prefix in ("train", "onelayer-train", "serve", "serve-xlong",
                                            "serve-onelayer")},
     **{"xlong-train": RECBLR_FWD_MMA + (CCE_FWD_MMA,),
        "longodd-train": (RECBLR_FWD_MMA[0], CCE_FWD_MMA), "serve-longodd": RECBLR_FWD_MMA[:1]})
-FP32_FWD_MMA_REQUIRED = {"bert4rec-train": (CE_FWD_MMA,), "bert4rec-d256-train": (CE_FWD_MMA,)}
+DTYPE_FWD_MMA_REQUIRED = {
+    "float32": {"bert4rec-train": (CE_FWD_MMA,), "bert4rec-d256-train": (CE_FWD_MMA,)},
+    "bfloat16": {"bert4rec-d256-train": (CE_FWD_WGMMA,)}}
 
 
 def fwd_mma_required(prefix, dtype_name):
     """The tensor-core forward kernels a profile of ``prefix`` must show."""
-    extra = FP32_FWD_MMA_REQUIRED.get(prefix, ()) if dtype_name == "float32" else ()
-    return FWD_MMA_REQUIRED.get(prefix, ()) + extra
+    return (FWD_MMA_REQUIRED.get(prefix, ())
+            + DTYPE_FWD_MMA_REQUIRED.get(dtype_name, {}).get(prefix, ()))
 
 
 class SmokeFailure(RuntimeError):
@@ -657,28 +661,30 @@ PTXAS_KERNEL_NAMES = ("attn_fwd_mma_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
                       "cce_dtab_mma_kernel", "ce_dtab_mma_kernel", "radix_hist_kernel",
                       "radix_scatter_kernel", "piece_sum_kernel", "group_sum_kernel",
                       "row_sum_kernel", "ln_pos_kernel", "ln_pos_bwd_kernel",
-                      "unit_overlap_kernel")
+                      "unit_overlap_kernel", "ce_fwd_wgmma_kernel", "masks_forward_kernel",
+                      "masks_reversed_kernel")
 PTXAS_KERNEL_SOURCES = ("attention.cu", "attention_bwd.cu", "fused_layer.cu",
                         "fused_layer_last.cu", "fused_layer_chunked.cu", "fused_bdlru.cu",
                         "fused_layer_bwd.cu", "fused_layer_last_bwd.cu",
                         "fused_layer_chunked_bwd.cu", "fused_bdlru_bwd.cu", "fused_ce.cu",
                         "fused_ce_chunked.cu", "emb_grad.cu", "ln_dropout.cu",
-                        "probe_unit_overlap.cu")
+                        "probe_unit_overlap.cu", "probe_mask_replay_check.cu")
 
 
 def ptxas_kernels(src, log):
     """One ptxas-kernel line per kernel of a source: its registers and
     spill bytes as ptxas reports them (template arguments after the input
     type, where the kernel takes one: row 15's tiles, the RecBLR kernels'
-    LAST / XB flags, the CE kernels' mm_bf16 and padded width)."""
+    LAST / XB flags, the CE kernels' mm_bf16 and padded width; "-" for a
+    kernel that is no template, as the mask kernels)."""
     for part in log.split("Compiling entry function '")[1:]:
         name = part.split("'")[0]
-        m = re.search(r"(" + "|".join(PTXAS_KERNEL_NAMES) + r")I(f|13__nv_bfloat16)?(\w*?)EE",
-                      name)
+        m = re.search(r"(" + "|".join(PTXAS_KERNEL_NAMES)
+                      + r")(?:I(f|13__nv_bfloat16)?(\w*?)EE|E)", name)
         regs = re.search(r"Used (\d+) registers", part)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
         if m and regs:
-            args = re.sub(r"Li(\d+)E?", r"\1,", m.group(3))
+            args = re.sub(r"Li(\d+)E?", r"\1,", m.group(3) or "")
             args = re.sub(r"Lb([01])E?", lambda b: ("true" if b.group(1) == "1" else "false")
                           + ",", args)
             phase("ptxas-kernel", source=src, kernel=m.group(1),
@@ -1076,7 +1082,8 @@ def b4r_kernels_vs_plain(dev):
     bias; bf16 x with bf16 products): nll, dx, dtable and dbias, and so at
     the d256 path's D 256 and, on the backward's FMA kernels, at D 300
     (N 4,096, fp32).  Returns the largest fp32 |kernel - plain| of each
-    forward and backward at the bench shape."""
+    forward and backward at the bench shape, and that of the nll of the
+    bf16 forward on wgmma at D 256 (``CE_WGMMA_ENTRY``)."""
     gen = torch.Generator().manual_seed(SEED + 10)
     p = block_params(gen, dev)
     x = torch.randn((B, T, D), generator=gen).to(dev)
@@ -1128,12 +1135,15 @@ def b4r_kernels_vs_plain(dev):
         if dt == torch.float32:
             errs["fused_softmax_ce"] = nll_err
             errs["fused_softmax_ce_bwd"] = bwd_err
-    # row 13 at the d256 path's width (tensor cores) and at D 300 (FMA)
+    # row 13 at the d256 path's width (tensor cores: 3xTF32 in fp32, the bf16
+    # forward on wgmma) and at D 300 (FMA)
     for d, nd in ((256, n), (300, 4096)):
         gen = torch.Generator().manual_seed(SEED + 13)
         xc, table, bias, tgt, dnll = ce_inputs(gen, dev, nd, d)
         for dt in ((torch.float32, torch.bfloat16) if d == 256 else (torch.float32,)):
-            ce_kernel_vs_plain(xc.to(dt), table, bias, tgt, dnll, ties=d > 128)
+            nll_err, _ = ce_kernel_vs_plain(xc.to(dt), table, bias, tgt, dnll, ties=d > 128)
+            if d == 256 and dt == torch.bfloat16:
+                errs[CE_WGMMA_ENTRY] = nll_err
         del xc, table, bias, tgt, dnll
     return errs
 
@@ -1157,7 +1167,8 @@ def ce_inputs(gen, dev, n, d):
 # before the tensor cores put the same 120 values of the cloze loss's dx
 # out of the plain bound there as the tensor-core kernel; none stays out
 # with this allowance, nor with a quarter of the window (NVIDIA H100 80GB
-# HBM3, 700 W).
+# HBM3, 700 W).  With the lse of the bf16 forward on wgmma 863 values lie
+# out of the plain bound there, none out of the allowance.
 TIE_WINDOW = 2.0 ** -17
 
 
@@ -2886,11 +2897,13 @@ def ce_fwd_kernel_times(dev, calls=10):
     14's forward by kernel at XLong (bf16) and longodd (fp32): the split
     partials and ``cce_lse_kernel``, from torch.profiler over ``calls``
     calls.  Uses only the wrappers' public calls, so it times a parent's
-    kernels too (``chip_compare.py``)."""
+    kernels too (``chip_compare.py``).  Returns row 13's rows by (D,
+    dtype): (ms, plain ms, bound ms, what bounds it, library ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator().manual_seed(SEED + 16)
     n = TRAIN_B * MASK_LEN
+    rows = {}
 
     def emit(name, ms, plain_ms, lib_ms, bnd, fma, **shape):
         bound, flops, by = bnd
@@ -2925,10 +2938,11 @@ def ce_fwd_kernel_times(dev, calls=10):
         shape = dict(shape="b4r" if d == D else "d256", B=TRAIN_B, N=n, V=N_ITEMS, D=d,
                      dtype=dname)
         lib_ms = library(lambda: x @ lib_tab.T + bias, tgt, want, tol, **shape)
-        emit("fused_softmax_ce", ms, plain_ms, lib_ms,
-             ce_bound_ms(n, N_ITEMS, x.element_size(), train=True, mm_bf16=mm, d=d),
+        bnd = ce_bound_ms(n, N_ITEMS, x.element_size(), train=True, mm_bf16=mm, d=d)
+        emit("fused_softmax_ce", ms, plain_ms, lib_ms, bnd,
              ce_bound_ms(n, N_ITEMS, x.element_size(), train=True, mm_bf16=mm, d=d,
                          priced_fma=True), **shape, mm_bf16=mm)
+        rows[d, dname] = (ms, plain_ms, bnd[0], bnd[2], lib_ms)
         del want
     del xc, table, bias, tgt
 
@@ -2968,6 +2982,7 @@ def ce_fwd_kernel_times(dev, calls=10):
               **{f"{k}_ms": v for k, v in parts.items()},
               device_ms=f"{sum(dev_us.values()) / calls / 1e3:.4f}",
               kernels=repr(sorted(k[:40] for k in dev_us)))
+    return rows
 
 
 def served_kernel_times(dev):
@@ -4729,11 +4744,15 @@ def probe_kernels_vs_plain(dev):
 
 
 def probe_sass():
-    """The asynchronous units' instructions of rows 17d and 17a
-    (``probe-sass``, ``sass_mix.units``: HGMMA, UTMALDG, UTMASTG, UBLKCP
-    in the built libraries): fails unless ce_mm and every unit_overlap
-    mode with products (all but vpu_only) hold HGMMA, and ce_mm a TMA
-    store."""
+    """The asynchronous units' instructions of rows 17d and 17a and of row
+    13's bf16 forward at D 129-256 (``probe-sass``, ``sass_mix.units``:
+    HGMMA, UTMALDG, UTMASTG, UBLKCP in the built libraries): fails unless
+    ce_mm, every unit_overlap mode with products (all but vpu_only) and
+    both instances of ce_fwd_wgmma_kernel hold HGMMA, ce_mm a TMA store and
+    ce_fwd_wgmma_kernel a TMA load.  Then the mask kernels' drawing loops
+    (``sass_mix.mask_mix``, the loop that holds Philox's IMAD.WIDE): their
+    IMAD.WIDE and LOP3 an element, instructions an element by pipe and the
+    XLong masks priced on each; fails unless both kernels have one."""
     import sass_mix
 
     found = set()
@@ -4746,9 +4765,22 @@ def probe_sass():
             check(c["HGMMA"] > 0, f"{res['kernel']} {mode}: no HGMMA in its machine code")
         if res["kernel"] == "ce_mm_kernel":
             check(c["UTMASTG"] > 0, "ce_mm_kernel: no TMA store in its machine code")
+        if res["kernel"] == CE_FWD_WGMMA:
+            check(c["UTMALDG"] > 0, f"{CE_FWD_WGMMA}: no TMA load in its machine code")
         found.add(res["kernel"])
     check(found == set(sass_mix.UNIT_KERNELS.values()),
-          f"probe-sass found {sorted(found)}, not both kernels")
+          f"probe-sass found {sorted(found)}, not every kernel on wgmma")
+    for res in sass_mix.mask_mix():
+        draws = [lp for lp in res["loops"] if lp.get("philox_per_element", {}).get("IMAD.WIDE")]
+        check(bool(draws), f"{res['kernel']}: no loop with Philox's wide multiplies")
+        for lp in draws:
+            phase("probe-sass", kernel=res["kernel"], loop=lp["span"][0],
+                  elements_per_iteration=lp["elements_per_iteration"],
+                  imad_wide_per_element=lp["philox_per_element"]["IMAD.WIDE"],
+                  lop3_per_element=lp["philox_per_element"]["LOP3"],
+                  per_element=repr({k: round(v, 3) for k, v in lp["per_element"].items()}),
+                  xlong_ms=repr({k: round(v, 4) for k, v in lp["ms_at_elems"].items()}),
+                  bound_by=lp["bound_by"])
 
 
 def probe_kernel_times(dev):
@@ -4768,6 +4800,26 @@ def probe_kernel_times(dev):
     for mode in PUO.MODES:
         phase("kernel-time", kernel="unit_overlap", shape=f"{UO_GRID * PUO.ROWS}x{PUO.C}",
               mode=mode, nv=UO_NV, ms=f"{ms[mode]:.4f}")
+
+
+def mask_kernel_times(dev, calls=20):
+    """Row 17f's two kernels at the default and the XLong sizes, one
+    ``kernel-time`` line each: the median of 20 single calls on CUDA
+    events (``time_ms``) beside the bound, and the mean of ``calls``
+    chained calls (``mode=chained``).  Uses only the probe's public calls,
+    so it times a parent's kernels too (``chip_compare.py --ce``)."""
+    for shape, sizes in MASK_SIZES.items():
+        bound, _, by = mask_bound(**sizes)
+        for name, fn in (("mask_forward", PMR.masks_forward),
+                         ("mask_reversed", PMR.masks_reversed)):
+            def call(fn=fn):
+                return fn(PMR.SEED, PMR.KP, device=dev, **sizes)
+
+            ms = time_ms(call)
+            phase("kernel-time", kernel=name, shape=shape, ms=f"{ms:.4f}",
+                  bound_ms=f"{bound:.5f}", bound_by=by, share_of_bound=f"{bound / ms:.4f}")
+            phase("kernel-time", kernel=name, shape=shape, mode="chained",
+                  ms=f"{PB.time_calls(call, dev, calls):.4f}")
 
 
 def mask_bound(nb, nc, bt, tc, d, ff):
@@ -5167,8 +5219,11 @@ def path_train_phase(dev, name, path, dtype_name):
 
     bf16 = dtype_name == "bfloat16"
     tol = BF16_RTOL if bf16 else PATH_GRAD_RTOL
+    fwd = FCE.fused_softmax_ce_train
+    fwd.mma_launches = 0
     launches, loss, want_loss, loss_err, errs = step_vs_plain(
         model, batch_of(0), counted, plain_per_op_loss, 1e-6, tol)
+    ce_mma = fwd.mma_launches
     tols = {k: ITEM_BF16_RTOL if bf16 and k == "item_embedding" else tol for k in errs}
     worst = max(errs, key=lambda k: errs[k] / tols[k])
     phase(f"{prefix}-step-vs-plain", dtype=dtype_name, batch=b, T=spec["t"],
@@ -5182,10 +5237,18 @@ def path_train_phase(dev, name, path, dtype_name):
     check(loss_err <= 1e-4, f"{name} {path}: train loss disagrees with the plain step")
     check(all(errs[k] <= tols[k] for k in errs),
           f"{name} {path}: gradients disagree with the plain step")
+    # row 13's forward on the tensor cores: 3xTF32 in fp32, wgmma in bf16
+    # above D 128 (``fused_ce.fwd_uses_mma``)
+    ce_fwd = dict(zip(counted, launches)).get(FCE.fused_softmax_ce, 0)
+    want_mma = ce_fwd * int(FCE.fwd_uses_mma(model.hidden_size, bf16))
     phase(f"{prefix}-launches", dtype=dtype_name, steps=1,
-          **{fn.__name__: n for fn, n in zip(counted, launches)})
+          **{fn.__name__: n for fn, n in zip(counted, launches)},
+          fused_softmax_ce_mma=ce_mma)
     check(launches == expected, f"{name} {path}: expected launches {expected}, got {launches}")
-    out = {"launches": dict(zip((fn.__name__ for fn in counted), launches))}
+    check(ce_mma == want_mma, f"{name} {path}: {ce_mma} CE forwards on the tensor cores, "
+                              f"not {want_mma}")
+    out = {"launches": dict(zip((fn.__name__ for fn in counted), launches)),
+           "ce_fwd_mma_launches": ce_mma}
     if not spec["timed"]:
         return out
     med, lo, hi, peak = time_steps(trainer, batch_of, TRAIN_STEPS)
@@ -5486,6 +5549,9 @@ PROBE_KERNELS = (
     ("mask_reversed", "datamining_recblr_torch/csrc/probe_mask_replay_check.cu",
      "benchmarks/mask_replay_check.py:56"),
 )
+# row 13's bf16 forward at D 129-256 (ce_fwd_wgmma_kernel): its own entry
+# of the kernels JSON, beside fused_softmax_ce's fp32 row at D 64
+CE_WGMMA_ENTRY = "fused_softmax_ce_wgmma"
 B4R_KERNELS = (
     ("fused_transformer_layer_sel", "datamining_recblr_torch/csrc/fused_block_sel.cu",
      "datamining_recblr_tpu/ops/fused_block.py:968"),
@@ -6391,7 +6457,7 @@ def main():
     b4r_rows = b4r_training_kernel_times(dev)
     row13_kernel_times(dev)
     row13_bwd_phase_times(dev)
-    ce_fwd_kernel_times(dev)
+    ce_fwd_rows = ce_fwd_kernel_times(dev)
     xlong_rows = xlong_kernel_times(dev)
     row16_times(dev)
     row14_bwd_phase_times(dev)
@@ -6445,6 +6511,17 @@ def main():
             "launches": b4r_launches[name], "max_abs_err": b4r_errs[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": lib,
         })
+    # row 13's bf16 forward on wgmma: launches in one bf16 step of
+    # BERT4Rec's d256 path, times at its cloze loss (N 81,920, D 256)
+    ms, plain, bound, by, lib = ce_fwd_rows[256, "bfloat16"]
+    kernels.append({
+        "name": CE_WGMMA_ENTRY, "route": "cuda",
+        "source": "datamining_recblr_torch/csrc/fused_ce.cu",
+        "replaces": "datamining_recblr_tpu/ops/fused_ce.py:84",
+        "launches": ptrain["BERT4Rec", "bfloat16"]["ce_fwd_mma_launches"],
+        "max_abs_err": b4r_errs[CE_WGMMA_ENTRY], "ms": ms, "plain_ms": plain, "bound_ms": bound,
+        "bound_by": by, "library_ms": lib, "kernel": CE_FWD_WGMMA, "shape": "d256 bf16",
+    })
     # the long-context kernels: launches in one bf16 XLong step (the
     # configuration's dtype, the only one that runs row 16)
     for name, src, tpu in XLONG_KERNELS:
@@ -6577,7 +6654,7 @@ def main():
         train_summary[f"{tag}_train_s"] = f"{out['train_s']:.2f}"
         train_summary[f"{tag}_examples_per_s"] = f"{out['examples_per_s']:.1f}"
         train_summary[f"{tag}_eval_s"] = f"{out['eval_s']:.2f}"
-    check(len(kernels) == 35, f"the kernels JSON lists {len(kernels)} kernels, not 35")
+    check(len(kernels) == 36, f"the kernels JSON lists {len(kernels)} kernels, not 36")
     phase("summary", card=repr(smi), **serve_summary, **train_summary)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

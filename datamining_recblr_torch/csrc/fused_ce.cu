@@ -25,16 +25,32 @@
 // = lse - l[target] from the same logits, and in training the lse the
 // backward reads.  The bound is one logit-sized 3xTF32 product: 0.217 ms at
 // the cloze loss.
-// The bf16 forward (mm_bf16), and the forward and the backward at D
+// The bf16 forward (mm_bf16) at D 129-256 (ce_fwd_wgmma_kernel) runs on
+// wgmma and TMA: the table rounded to bf16 once a call into the caller's
+// scratch ([V, 256], zeros beyond D); persistent blocks, one a
+// multiprocessor, walk the 128-row tiles round-robin; a producer warp
+// brings each [128, 256] table tile by TMA (four 64-column boxes, 128-byte
+// swizzle, a ring of three 64 KB stages, hinted to stay in L2) with its
+// column biases; two consumer warpgroups of 64 rows hold round(x) as wgmma
+// A fragments and run 16 m64n128k16 steps a tile, 8 into each of two fp32
+// accumulators added in fp32 (WG_KGROUP: the first point of accuracy
+// below), then the online (max, sum of exp) of ce_fwd_mma_tiles on the
+// accumulator's fragment layout, the four lanes of a row merged in the same
+// butterfly.  The two warpgroups' products and exps interleave on the SM;
+// the producer's warpgroup gives its registers to theirs (setmaxnreg).
+// Its bound is one logit-sized bf16 product (0.145 ms at the d256 cloze
+// loss); the table tiles are read from L2 once per row tile (1.1 GB at
+// that loss).
+// The bf16 forward at D <= 128, and the forward and the backward at D
 // 257-512, compute the products as fp32 FMA on the CUDA cores
 // (ce_common.cuh's 16 x 16 thread tiles):
 //   fwd   a block per BM rows holds its x rows in shared memory and streams
 //         the table in [BV, D] tiles; each thread computes an RT x RT block
 //         of logits and keeps an online logsumexp per row (running max,
 //         rescaled sum); the 16 lanes of a row combine theirs with
-//         shuffles.  RT = 4 (64 x 64 tiles) for D <= 128, else RT = 1.  Its
-//         lse is the one the bf16 backward needs (the second point of
-//         accuracy below).
+//         shuffles.  RT = 4 (64 x 64 tiles) for D <= 128, else RT = 1.  At
+//         D <= 128 in bf16 its lse is the one the bf16 backward needs (the
+//         second point of accuracy below).
 //   dx, dtab (D 257-512, RT = 1) as the passes below, one logit a thread.
 //
 // The backward at D <= 256 runs its four products (the logits once per
@@ -74,7 +90,12 @@
 //     every product added to one accumulator (dx over 3,417 vocab rows read
 //     2.8e-5 of its largest value, dtable 4e-5).  Every product is summed
 //     per tile in a fresh accumulator and added to the running sum in fp32
-//     (add_tile): 7e-6 and 4e-6, the FMA kernels' order of error.
+//     (add_tile): 7e-6 and 4e-6, the FMA kernels' order of error.  The
+//     wgmma forward sums 8 k16 steps (depth 128) in an accumulator and adds
+//     the two in fp32: a numpy model of the truncation puts one
+//     accumulator over all 16 steps beyond 1e-5 of JAX's nll at D 256, the
+//     two within it (tests/test_torch_fused_ce_fwd_scheme.py); on the card
+//     the smoke's nll read 1.5e-5 from the plain version's.
 //   - With mm_bf16, round(g) flips where g lies within its logit's error of
 //     a bf16 rounding boundary, a flip of up to one bf16 ulp of g times a
 //     table row in dx.  The tensor-core logits differ from an fp32 FMA sum
@@ -83,17 +104,24 @@
 //     therefore recomputes each logit whose g lies that near a boundary
 //     (near_bf16_tie, some 0.4% of them at D 64, 1.6% at D 256) as the
 //     FMA forward sums it, so round(g) is the FMA backward's.  g also
-//     takes the forward's lse, so the bf16 forward keeps the FMA kernel: a
-//     tensor-core lse (bf16 products, ce_fwd_mma_tiles<true, DP>, which row
-//     14 runs) moves every g of a row by exp(its error), and where one
-//     logit carries most of a row's mass that error is the logit's own;
-//     the smoke's bf16 dx at the cloze loss then left its bound, with or
-//     without the row's largest logits summed again as FMA chains.
+//     takes the forward's lse, so the bf16 forward at D <= 128 keeps the
+//     FMA kernel: a tensor-core lse (bf16 products, ce_fwd_mma_tiles<true,
+//     DP>, which row 14 runs) moves every g of a row by exp(its error), and
+//     where one logit carries most of a row's mass that error is the
+//     logit's own; the smoke's bf16 dx at the cloze loss (D 64, checked
+//     without an allowance for ties) then left its bound, with or without
+//     the row's largest logits summed again as FMA chains.  At D 129-256
+//     the check allows for the ties of g (chip_smoke.py TIE_WINDOW), so
+//     the bf16 forward runs on wgmma there: with its lse 863 of the cloze
+//     loss's dx values at D 256 lie beyond the plain bound (the FMA
+//     forward's lse: 120), every one of them within the allowance
+//     (NVIDIA H100 80GB HBM3, 700 W).
 // Every sum runs in a fixed order (the mma accumulation order within a
 // block, the splits in order, the four lanes of a row and dbias's in a
 // fixed butterfly): the same bits from run to run, no atomics.  Left for
-// later PRs: the bf16 forward on the tensor cores (with an lse the bf16
-// backward's rounding of g agrees with), D 257-512 on them, wgmma.
+// later PRs: the bf16 forward at D <= 128 on the tensor cores (with an lse
+// the bf16 backward's rounding of g agrees with), D 257-512 on them, wgmma
+// in the backward.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include <cstdint>
@@ -102,6 +130,7 @@
 #include "ce_common.cuh"
 #include "ce_mma.cuh"
 #include "mma_tile.cuh"
+#include "wgmma.cuh"
 
 using namespace recblr;
 
@@ -284,6 +313,192 @@ ce_fwd_mma_kernel(const void* __restrict__ x, int xbf, const float* __restrict__
       nll[row[h]] = L - tl[h];
       if (lse_out != nullptr) lse_out[row[h]] = L;
     }
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 forward at D 129-256 on wgmma and TMA
+// ---------------------------------------------------------------------------
+
+constexpr int WG_DP = 256;                      // D padded to 256 (zeros beyond D)
+constexpr int WG_BV = 128;                      // table rows a tile: the products' N
+constexpr int WG_BM = 128;                      // rows a block: two consumer warpgroups of 64
+constexpr int WG_CONS = 2;                      // consumer warpgroups
+constexpr int WG_STAGES = 3;                    // table tiles in flight
+constexpr int WG_BOX = 64;                      // bf16 columns of a 128-byte box
+constexpr int WG_THREADS = 128 * (WG_CONS + 1);  // and a producer warpgroup
+// registers a thread: the producer warpgroup gives back what the two
+// consumers take (168 each at launch, 65,536 / 384 threads)
+constexpr int WG_PRODUCER_REGS = 40, WG_CONSUMER_REGS = 232;
+constexpr uint32_t WG_BOX_BYTES = WG_BV * WG_BOX * 2;     // 16 KB
+constexpr uint32_t WG_TILE_BYTES = WG_BV * WG_DP * 2;     // 64 KB: four boxes
+constexpr uint32_t WG_BIAS0 = WG_STAGES * WG_TILE_BYTES;  // [stage][128] the tiles' column biases
+constexpr uint32_t WG_BAR0 = WG_BIAS0 + WG_STAGES * WG_BV * 4;
+constexpr size_t WG_SMEM = 1024 + WG_BAR0 + 8 * 2 * WG_STAGES;  // 1 KB of alignment slack
+constexpr int WG_KGROUP = 8;  // k16 steps an fp32 accumulator: two make a tile's depth
+
+// The table rounded to bf16 (nearest even) into [V, WG_DP] with zeros
+// beyond D, two columns a thread.
+__global__ void ce_round_table_kernel(const float* __restrict__ tab, uint32_t* __restrict__ out,
+                                      int V, int D) {
+  const long long n = (long long)V * (WG_DP / 2);
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int v = static_cast<int>(i / (WG_DP / 2)), c = 2 * static_cast<int>(i % (WG_DP / 2));
+    const float* row = tab + (size_t)v * D;
+    out[i] = pack_bf16(c < D ? __ldg(row + c) : 0.f, c + 1 < D ? __ldg(row + c + 1) : 0.f);
+  }
+}
+
+// The bf16 forward at 128 < D <= 256 (mm_bf16).  Persistent blocks walk
+// the 128-row tiles round-robin (tile rt, rt + grid, ...), each over every
+// table tile.  Warp 8, the producer (the first of warpgroup 2, which gives
+// its registers to the consumers), brings the rounded table's tiles
+// ([128 rows, 256] bf16, four 64-column boxes in the 128-byte swizzle) by
+// TMA into a ring of WG_STAGES stages, with each tile's column biases
+// (mma_col_bias) beside them; consumer warpgroup wg holds the rows rt 128
+// + 64 wg .. + 63 as the A fragments of round(x) (16 k16 steps, 64
+// registers) and runs wgmma m64n128k16 against each tile; then the online
+// (max, sum of exp) of each of its two rows per lane, as ce_fwd_mma_tiles,
+// and at the row tile's end the four lanes' butterfly (ce_quad_merge).
+// nll, lse: [N] fp32 (lse may be null).
+template <typename Tin>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_tab, const Tin* __restrict__ x,
+                    const float* __restrict__ bias, const int* __restrict__ tgt,
+                    float* __restrict__ nll, float* __restrict__ lse_out, int N, int V, int D,
+                    int valid_v) {
+  extern __shared__ uint8_t wg_raw[];
+  const uint32_t raw = smem_addr(wg_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzled tiles' 1 KB alignment
+  float* cbias = reinterpret_cast<float*>(wg_raw + (base - raw) + WG_BIAS0);
+  const uint32_t full0 = base + WG_BAR0, empty0 = full0 + 8 * WG_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 32);            // the producer's lanes, one with the bytes
+      mbar_init(empty0 + 8 * s, 4 * WG_CONS);  // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int ntiles = (V + WG_BV - 1) / WG_BV, nrt = (N + WG_BM - 1) / WG_BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 4 * WG_CONS) {
+    wg_setmaxnreg_dec<WG_PRODUCER_REGS>();
+    if (warp > 4 * WG_CONS) return;
+    // producer (the warpgroup's first warp): the table tiles of each row
+    // tile in order, kept in L2
+    const uint64_t keep = l2_evict_last();
+    int f = 0;
+    for (int rt = blockIdx.x; rt < nrt; rt += gridDim.x)
+      for (int vt = 0; vt < ntiles; ++vt, ++f) {
+        const int s = f % WG_STAGES, k = f / WG_STAGES;
+        const uint32_t full = full0 + 8 * s;
+        if (k > 0) mbar_wait(empty0 + 8 * s, (k - 1) & 1);
+        for (int c = lane; c < WG_BV; c += 32)
+          cbias[s * WG_BV + c] = mma_col_bias(bias, vt * WG_BV + c, V, valid_v);
+        if (lane == 0) {
+          mbar_expect_tx(full, WG_TILE_BYTES);
+          for (int b = 0; b < WG_DP / WG_BOX; ++b)
+            tma_load_2d(base + s * WG_TILE_BYTES + b * WG_BOX_BYTES, &tm_tab, WG_BOX * b,
+                        vt * WG_BV, full, keep);
+        } else {
+          mbar_arrive(full);
+        }
+      }
+    return;
+  }
+  wg_setmaxnreg_inc<WG_CONSUMER_REGS>();
+  const int gid = lane / 4, t4 = lane % 4;
+  const int wrow = 64 * (warp / 4) + 16 * (warp % 4) + gid;  // the lane's first row of 128
+  int u = 0;  // table tiles consumed
+  for (int rt = blockIdx.x; rt < nrt; rt += gridDim.x) {
+    const int r0 = rt * WG_BM + wrow, r1 = r0 + 8;
+    auto xv = [&](int r, int d) {
+      return (r < N && d < D) ? load_act(x, (size_t)r * D + d) : 0.f;
+    };
+    uint32_t a[WG_DP / 16][4];  // round(x) of rows r0, r1 (wgmma.cuh's bf16 A fragments)
+#pragma unroll
+    for (int kk = 0; kk < WG_DP / 16; ++kk) {
+      const int d = 16 * kk + 2 * t4;
+      a[kk][0] = pack_bf16(xv(r0, d), xv(r0, d + 1));
+      a[kk][1] = pack_bf16(xv(r1, d), xv(r1, d + 1));
+      a[kk][2] = pack_bf16(xv(r0, d + 8), xv(r0, d + 9));
+      a[kk][3] = pack_bf16(xv(r1, d + 8), xv(r1, d + 9));
+    }
+    const int tg[2] = {r0 < N ? tgt[r0] : -1, r1 < N ? tgt[r1] : -1};
+    float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.f, 0.f}, tl[2] = {0.f, 0.f};
+    for (int vt = 0; vt < ntiles; ++vt, ++u) {
+      const int st = u % WG_STAGES;
+      mbar_wait(full0 + 8 * st, (u / WG_STAGES) & 1);
+      const uint32_t tile = base + st * WG_TILE_BYTES;
+      auto desc = [&](int kk) {
+        return sw128_desc(tile + (kk / 4) * WG_BOX_BYTES + 32 * (kk % 4));
+      };
+      // acc[4 j + 2 h + q]: row r_h, column 8 j + 2 t4 + q of the tile; the
+      // first WG_KGROUP k16 steps into acc, the rest into part, each fresh
+      // (a tensor core's fp32 sum truncates), added in fp32
+      float acc[64], part[64];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_KGROUP; ++kk) wgmma_m64n128k16_bf16(acc, a[kk], desc(kk), kk > 0);
+#pragma unroll
+      for (int kk = WG_KGROUP; kk < WG_DP / 16; ++kk)
+        wgmma_m64n128k16_bf16(part, a[kk], desc(kk), kk > WG_KGROUP);
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      // the logits: the tile's column biases (-1e30 at masked columns,
+      // -inf beyond V), read before the stage is released
+      const float* cb = cbias + st * WG_BV + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < WG_BV / 8; ++j) {
+        const float2 b = *reinterpret_cast<const float2*>(cb + 8 * j);
+        acc[4 * j] += b.x;
+        acc[4 * j + 1] += b.y;
+        acc[4 * j + 2] += b.x;
+        acc[4 * j + 3] += b.y;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);
+      // the online (max, sum of exp) of each row, in column order
+      const int v0 = vt * WG_BV;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int tc = tg[h] - v0;  // the target's column in the tile
+        if ((unsigned)tc < (unsigned)WG_BV && ((tc >> 1) & 3) == t4) {
+#pragma unroll
+          for (int j = 0; j < WG_BV / 8; ++j)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              if (8 * j + 2 * t4 + q == tc) tl[h] = acc[4 * j + 2 * h + q];
+        }
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < WG_BV / 8; ++j)
+          tmax = fmaxf(tmax, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+        if (tmax > m[h]) {
+          s[h] *= exp_t(m[h] - tmax);  // 0 while m is -inf (s is 0 then)
+          m[h] = tmax;
+        }
+        if (m[h] == -INFINITY) continue;  // no column below V yet
+#pragma unroll
+        for (int j = 0; j < WG_BV / 8; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) s[h] += exp_t(acc[4 * j + 2 * h + q] - m[h]);
+      }
+    }
+    ce_quad_merge(m, s, tl);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = h ? r1 : r0;
+      if (t4 == 0 && row < N) {
+        const float L = m[h] + logf(s[h]);
+        nll[row] = L - tl[h];
+        if (lse_out != nullptr) lse_out[row] = L;
+      }
+    }
+  }
 }
 
 // Whether g = (p - onehot) dnll, computed from a tensor-core logit, may
@@ -793,17 +1008,49 @@ cudaError_t ce_fwd_mma(const void* x, int xbf, const float* tab, const float* bi
   return cudaGetLastError();
 }
 
-// Without mm_bf16, D <= MMA_MAX_D takes the tensor-core kernel (3xTF32); with
-// mm_bf16, or at a wider D, the fp32 FMA kernel with 16 x 16 tiles (RT = 4
-// for D <= 128, else 1): its lse is the one the bf16 backward's rounding of
-// g needs (the header's second point of accuracy).
+// The bf16 forward at 128 < D <= 256: the table rounded once into scratch
+// ([V, WG_DP] bf16, 16-byte aligned), then ce_fwd_wgmma_kernel on one
+// persistent block a multiprocessor (at most one a row tile).
 template <typename Tin>
-cudaError_t ce_fwd_any(const Tin* x, const float* tab, const float* bias, const int* tgt,
-                       float* nll, float* lse, int N, int V, int D, int valid_v, int mm_bf16,
-                       cudaStream_t s) {
-  if (!mm_bf16 && D <= MMA_MAX_D) {
-    // the table tiles are copied in 16-byte pieces
+cudaError_t ce_fwd_wgmma(const Tin* x, const float* tab, void* scratch, const float* bias,
+                         const int* tgt, float* nll, float* lse, int N, int V, int D,
+                         int valid_v, int device, cudaStream_t s) {
+  if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const long long blocks = ((long long)V * (WG_DP / 2) + 255) / 256;
+  ce_round_table_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      tab, static_cast<uint32_t*>(scratch), V, D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  CUtensorMap tm;
+  e = make_tensor_map_2d(&tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scratch, V, WG_DP, WG_DP * 2,
+                         WG_BV, WG_BOX);
+  if (e != cudaSuccess) return e;
+  if ((e = ce_set_smem(ce_fwd_wgmma_kernel<Tin>, WG_SMEM)) != cudaSuccess) return e;
+  int sms = 0;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return e;
+  const int nrt = (N + WG_BM - 1) / WG_BM;
+  ce_fwd_wgmma_kernel<Tin><<<min(nrt, sms), WG_THREADS, WG_SMEM, s>>>(tm, x, bias, tgt, nll, lse,
+                                                                      N, V, D, valid_v);
+  return cudaGetLastError();
+}
+
+// D <= MMA_MAX_D takes the tensor cores: without mm_bf16 ce_fwd_mma_kernel
+// (3xTF32), with mm_bf16 at D 129-256 ce_fwd_wgmma_kernel (bf16 products);
+// with mm_bf16 at D <= 128, or at a wider D, the fp32 FMA kernel with 16 x
+// 16 tiles (RT = 4 for D <= 128, else 1; the header's second point of
+// accuracy says why D <= 128 in bf16 stays there).
+template <typename Tin>
+cudaError_t ce_fwd_any(const Tin* x, const float* tab, void* scratch, const float* bias,
+                       const int* tgt, float* nll, float* lse, int N, int V, int D, int valid_v,
+                       int mm_bf16, int device, cudaStream_t s) {
+  if (D <= MMA_MAX_D && (!mm_bf16 || D > 128)) {
+    // ce_fwd_mma_kernel copies the table in 16-byte pieces; the wrapper
+    // hands both tensor-core forwards an aligned one (one gate, one rule)
     if (reinterpret_cast<uintptr_t>(tab) % 16 != 0) return cudaErrorInvalidValue;
+    if (mm_bf16)
+      return ce_fwd_wgmma(x, tab, scratch, bias, tgt, nll, lse, N, V, D, valid_v, device, s);
     const int xbf = std::is_same<Tin, __nv_bfloat16>::value;
     return mma_dispatch(0, D, [&](auto, auto dp) {
       return ce_fwd_mma<decltype(dp)::value>(x, xbf, tab, bias, tgt, nll, lse, N, V, D, valid_v,
@@ -844,13 +1091,15 @@ cudaError_t ce_bwd_any(const Tin* x, const float* tab, const float* bias, const 
 extern "C" {
 
 // x: [N, D] fp32 (bf16 == 0) or bf16; table: [V, D] and bias: [V] fp32;
-// tgt: [N] int32; nll: [N] fp32 out; lse: [N] fp32 out, or null; valid_v:
-// columns at or beyond it are masked; mm_bf16: round x and the table to
-// bf16 for the logits; device: the card that holds them.  D <= 256 without
-// mm_bf16 needs a 16-byte aligned table.
+// tgt: [N] int32; nll: [N] fp32 out; lse: [N] fp32 out, or null; scratch:
+// with mm_bf16 at 128 < D <= 256, [V, 256] bf16 (the rounded table, 16-byte
+// aligned), else unused; valid_v: columns at or beyond it are masked;
+// mm_bf16: round x and the table to bf16 for the logits; device: the card
+// that holds them.  The tensor-core forwards (D <= 256 without mm_bf16,
+// 129-256 with it) need a 16-byte aligned table.
 int recblr_ce_fwd(const void* x, const void* table, const void* bias, const void* tgt,
-                  void* nll, void* lse, int N, int V, int D, int valid_v, int bf16, int mm_bf16,
-                  int device, void* stream) {
+                  void* nll, void* lse, void* scratch, int N, int V, int D, int valid_v, int bf16,
+                  int mm_bf16, int device, void* stream) {
   // this library has its own (static) CUDA runtime: select the tensors' card
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
@@ -861,9 +1110,10 @@ int recblr_ce_fwd(const void* x, const void* table, const void* bias, const void
   float* n = static_cast<float*>(nll);
   float* l = static_cast<float*>(lse);
   if (bf16)
-    return ce_fwd_any(static_cast<const __nv_bfloat16*>(x), t, b, g, n, l, N, V, D, valid_v,
-                      mm_bf16, s);
-  return ce_fwd_any(static_cast<const float*>(x), t, b, g, n, l, N, V, D, valid_v, mm_bf16, s);
+    return ce_fwd_any(static_cast<const __nv_bfloat16*>(x), t, scratch, b, g, n, l, N, V, D,
+                      valid_v, mm_bf16, device, s);
+  return ce_fwd_any(static_cast<const float*>(x), t, scratch, b, g, n, l, N, V, D, valid_v,
+                    mm_bf16, device, s);
 }
 
 // The row splits R that recblr_ce_bwd takes for these sizes on the card:

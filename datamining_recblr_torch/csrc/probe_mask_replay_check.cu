@@ -17,11 +17,12 @@
 //                          ff, d) of rows i bt.., positions j tc.., one
 //                          Philox call (drop_mask4) per 4 channels, written
 //                          as 16-byte stores
-//   masks_reversed_kernel  one block per row block, walking the data
-//                          chunks serially, jd = nc - 1 .. 0, as the TPU
-//                          kernel's grid did; each element drawn alone
-//                          with drop_mask, channel by channel (four times
-//                          the Philox calls)
+//   masks_reversed_kernel  one block per (row block i, grid row y) drawing
+//                          the data chunk jd = nc - 1 - y: the TPU grid's
+//                          flipped index map; each element drawn alone
+//                          with drop_mask, four adjacent channels a thread
+//                          (four calls on one Philox counter, ch >> 2),
+//                          written as one 16-byte store
 //
 // Output: fp32 [nb bt, nc tc, width] each, 1/keep where kept, else 0.
 // What bounds it: the masks' bytes (1.8 MB at the probe's defaults, a few
@@ -31,8 +32,11 @@
 // (IMAD.WIDE, the FMA-heavy pipe) and two three-input xors (LOP3, the ALU
 // pipe), then a compare and a select an element (the ALU pipe), so 7 ALU
 // operations an element, 0.10 ms at XLong.  The forward kernel's index
-// math adds to that; the reversed kernel's Philox call an element
-// (drop_mask) adds four times the rounds.
+// math adds to that; the reversed kernel's four drop_mask calls a thread
+// add four times the rounds unless the compiler folds the four calls on
+// one counter into one (sass_mix.py counts the IMAD.WIDE an element).
+// Both kernels give every (row block, chunk) its own block: 512 at XLong,
+// nearly four a multiprocessor.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include "common.cuh"
@@ -42,7 +46,6 @@ using namespace recblr;
 namespace {
 
 constexpr int MF_THREADS = 512;
-constexpr int MR_THREADS = 1024;
 
 struct Masks {
   float* out[4];
@@ -67,21 +70,22 @@ masks_forward_kernel(Dropout dr, Masks m, int bt, int tc, int t_all) {
   }
 }
 
-__global__ void __launch_bounds__(MR_THREADS)
+__global__ void __launch_bounds__(MF_THREADS)
 masks_reversed_kernel(Dropout dr, Masks m, int bt, int tc, int nc) {
-  const int i = blockIdx.x, t_all = nc * tc;
+  const int i = blockIdx.x, jd = nc - 1 - blockIdx.y;  // the backward's flipped index map
+  const int t_all = nc * tc;
 #pragma unroll 1
-  for (int j = 0; j < nc; ++j) {
-    const int jd = nc - 1 - j;  // the data chunk (the backward's flipped index map)
-#pragma unroll 1
-    for (int k = 0; k < 4; ++k) {
-      const int w = m.width[k];
-      const int items = bt * tc * w;
-      for (int e = threadIdx.x; e < items; e += MR_THREADS) {
-        const int ch = e % w, rt = e / w;
-        const int b = i * bt + rt / tc, t = jd * tc + rt % tc;
-        m.out[k][((size_t)b * t_all + t) * w + ch] = drop_mask(dr, MASK_IDS[k], b, t, ch);
-      }
+  for (int k = 0; k < 4; ++k) {
+    const int g4 = m.width[k] >> 2;
+    const int items = bt * tc * g4;
+    float4* out = reinterpret_cast<float4*>(m.out[k]);
+    for (int e = threadIdx.x; e < items; e += MF_THREADS) {
+      const int g = e % g4, rt = e / g4, ch = 4 * g;
+      const int b = i * bt + rt / tc, t = jd * tc + rt % tc;
+      const int id = MASK_IDS[k];
+      out[((size_t)b * t_all + t) * g4 + g] =
+          make_float4(drop_mask(dr, id, b, t, ch), drop_mask(dr, id, b, t, ch + 1),
+                      drop_mask(dr, id, b, t, ch + 2), drop_mask(dr, id, b, t, ch + 3));
     }
   }
 }
@@ -112,7 +116,7 @@ int recblr_probe_masks(int reversed, void* m0, void* m1, void* m2, void* m3, int
   const Dropout dr = make_dropout(1, seed, thresh, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (reversed)
-    masks_reversed_kernel<<<nb, MR_THREADS, 0, st>>>(dr, m, bt, tc, nc);
+    masks_reversed_kernel<<<dim3(nb, nc), MF_THREADS, 0, st>>>(dr, m, bt, tc, nc);
   else
     masks_forward_kernel<<<dim3(nb, nc), MF_THREADS, 0, st>>>(dr, m, bt, tc, nc * tc);
   return cudaGetLastError();

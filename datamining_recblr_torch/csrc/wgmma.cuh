@@ -1,10 +1,13 @@
 // Hopper's asynchronous units for hand-written kernels (sm_90a): warpgroup
 // products (wgmma) with B read from shared memory through a matrix
-// descriptor and A from registers, the mbarrier, and the Tensor Memory
-// Accelerator (TMA) copies between device and shared memory described by a
-// tensor map.  Used by the probes' redesigned kernels (probe_ce_mxu.cu:
-// bf16 products, TMA loads and stores; probe_unit_overlap.cu: chained
-// 3xTF32 products); the layer kernels' phases can take the same pieces.
+// descriptor and A from registers, the warpgroups' register counts
+// (setmaxnreg), the mbarrier, and the Tensor Memory Accelerator (TMA)
+// copies between device and shared memory described by a tensor map.  Used
+// by the probes' redesigned kernels (probe_ce_mxu.cu: bf16 products, TMA
+// loads and stores; probe_unit_overlap.cu: chained 3xTF32 products) and by
+// row 13's bf16 forward (fused_ce.cu ce_fwd_wgmma_kernel: bf16 products,
+// TMA loads, setmaxnreg); the layer kernels' phases can take the same
+// pieces.
 //
 // Shared-memory operands use the 128-byte swizzle, K-major: a tile is rows
 // of 128 bytes (64 bf16 or 32 fp32 of the depth), eight rows an atom of
@@ -122,6 +125,21 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint3
 
 #undef RECBLR_WG_D64
 #undef RECBLR_WG_OUT64
+
+// The registers a thread of this warpgroup owns from here on: a producer
+// warpgroup gives some back (dec), the consumers take them (inc).  Every
+// warp of the warpgroup executes it; the kernel needs __launch_bounds__ so
+// that ptxas fixes the count each warp starts with, and the registers
+// taken can be no more than those given back.
+template <int N>
+__device__ __forceinline__ void wg_setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void wg_setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 
 // ---------------------------------------------------------------------------
 // mbarrier, proxy fences, named barriers

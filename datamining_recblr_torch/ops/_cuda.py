@@ -101,7 +101,7 @@ _SIGNATURES = {
         + [_I, _P],
     },
     "fused_ce.cu": {
-        "recblr_ce_fwd": [_P] * 6 + [_I] * 6 + [_I, _P],
+        "recblr_ce_fwd": [_P] * 7 + [_I] * 6 + [_I, _P],
         "recblr_ce_bwd": [_P] * 7 + [_I] + [_P] * 2 + [_I] * 6 + [_I, _P],
         "recblr_ce_bwd_splits": [_I] * 5,
     },

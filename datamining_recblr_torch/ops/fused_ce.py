@@ -18,8 +18,10 @@ version.  Two paths, as in ``datamining_recblr_tpu/ops/fused_ce.py``:
   (``fused_ce.py:114-122``).  The backward runs its products on the
   tensor cores at D <= 256 in both precisions (``bwd_uses_mma``: 3xTF32 in
   fp32, bf16 products with ``mm_bf16``), the fp32 FMA kernels above; the
-  forward its logits there in fp32 (``fwd_uses_mma``: 3xTF32), the FMA
-  kernel with ``mm_bf16`` and above D 256.
+  forward its logits there in fp32 (``fwd_uses_mma``: 3xTF32) and with
+  ``mm_bf16`` at D 129-256 (bf16 products on wgmma, the table rounded
+  once a call into a scratch the wrapper allocates), the FMA kernel with
+  ``mm_bf16`` at D <= 128 and above D 256.
 * vocab-chunked, for tables beyond ``supports`` (XLong: V = 329,728):
   ``_cce_fwd_kernel`` via ``_cce_fwd`` :413 and the kernels of
   ``_cce_bwd`` :448; ``csrc/fused_ce_chunked.cu``, whose forward runs its
@@ -65,6 +67,7 @@ CHUNK_MIN_LOGITS_BYTES = 64 * 1024 * 1024
 MAX_D = 512  # the kernels' 16 x 16 tiles hold rows of up to 512 floats
 MMA_MAX_D = 128  # the chunked kernels' tensor-core tiles hold rows of up to 128
 BWD_MMA_MAX_D = 256  # the whole-table kernels' tensor-core tiles: rows of up to 256
+WG_DP = 256  # the bf16 forward on wgmma pads the rounded table's rows to 256
 
 
 def supports(v: int, d: int) -> bool:
@@ -102,13 +105,15 @@ def bwd_uses_mma(d: int, mm_bf16: bool) -> bool:
 
 
 def fwd_uses_mma(d: int, mm_bf16: bool) -> bool:
-    """Whether the whole-table forward runs its logits on the tensor cores
-    (``csrc/fused_ce.cu`` ``ce_fwd_mma_kernel``, 3xTF32): without
-    ``mm_bf16``, where the backward does (D <= 256).  With ``mm_bf16`` it
-    keeps the FMA kernel: the bf16 backward rounds g against FMA-order
-    logits and this forward's lse, and a tensor-core lse put the bf16 dx of
-    the cloze loss beyond the card check's bound."""
-    return not mm_bf16 and bwd_uses_mma(d, mm_bf16)
+    """Whether the whole-table forward runs its logits on the tensor cores:
+    without ``mm_bf16`` where the backward does (D <= 256,
+    ``csrc/fused_ce.cu`` ``ce_fwd_mma_kernel``, 3xTF32); with ``mm_bf16`` at
+    D 129-256 (``ce_fwd_wgmma_kernel``, bf16 products on wgmma).  At D <=
+    128 in bf16 it keeps the FMA kernel: the bf16 backward rounds g against
+    FMA-order logits and this forward's lse, and a tensor-core lse put the
+    bf16 dx of the D 64 cloze loss beyond the card check's bound, which
+    allows for no rounding ties of g there (it does above D 128)."""
+    return d <= BWD_MMA_MAX_D and (not mm_bf16 or d > MMA_MAX_D)
 
 
 # ---------------------------------------------------------------------------
@@ -312,14 +317,18 @@ def _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
     n, d = x.shape
     mma = fwd_uses_mma(d, mm_bf16)  # the C side dispatches on the same facts
     if mma and table.data_ptr() % 16:
-        table = table.clone()  # the tensor-core kernel copies it in 16-byte pieces
+        table = table.clone()  # the tensor-core kernels take a 16-byte aligned table
+    # the bf16 forward on wgmma rounds the table once into [V, 256] bf16
+    scratch = (torch.empty((table.shape[0], WG_DP), device=x.device, dtype=torch.bfloat16)
+               if mma and mm_bf16 else None)
     lib = _cuda.library("fused_ce.cu")
     nll = torch.empty((n,), device=x.device, dtype=torch.float32)
     lse = torch.empty_like(nll) if train else None
     with torch.cuda.device(x.device):
         err = lib.recblr_ce_fwd(
             x.data_ptr(), table.data_ptr(), bias.data_ptr(), tgt32.data_ptr(), nll.data_ptr(),
-            None if lse is None else lse.data_ptr(), n, table.shape[0], d, valid_v,
+            None if lse is None else lse.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, table.shape[0], d, valid_v,
             int(x.dtype == torch.bfloat16), int(bool(mm_bf16)), x.device.index, _cuda.stream(x),
         )
     _cuda.check(lib, err, "fused_softmax_ce")

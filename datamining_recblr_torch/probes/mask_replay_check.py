@@ -16,8 +16,10 @@ and ``drop_mask``) to the same bits:
   masks_forward   the kernel of ``csrc/probe_mask_replay_check.cu`` with one
                   block per (row block, data chunk), one Philox call per 4
                   channels
-  masks_reversed  its kernel with one block per row block, walking the data
-                  chunks NC-1 .. 0, each element drawn alone
+  masks_reversed  its kernel with one block per (row block, grid row y)
+                  drawing the data chunk NC-1-y (the TPU grid's flipped
+                  index map), each element drawn alone, four adjacent
+                  channels a thread written as one 16-byte store
 
 each on the card (``.launches`` counts the kernel's launches) and, given
 the CPU, ``masks_plain``: ``philox.dropout_bits`` at each chunk's ``t0``

@@ -3,9 +3,11 @@
 loops (``csrc/probe_mask_replay_check.cu``, queue B row 17f), by the H100
 pipe that issues them, from the machine code (SASS) that ``nvcc`` built
 for ``sm_90a``, and prices the XLong layer's four masks on each pipe;
-and counts the asynchronous units' instructions of the two kernels on
-``wgmma`` and TMA (rows 17d and 17a): warpgroup products (HGMMA) and TMA
-tensor loads and stores and bulk copies (UTMALDG, UTMASTG, UBLKCP).
+and counts the asynchronous units' instructions of the kernels on
+``wgmma`` and TMA (rows 17d and 17a, and row 13's bf16 forward at D
+129-256, ``csrc/fused_ce.cu`` ``ce_fwd_wgmma_kernel``): warpgroup products
+(HGMMA) and TMA tensor loads and stores and bulk copies (UTMALDG, UTMASTG,
+UBLKCP).
 
     python3 sass_mix.py [--out sass_mix.json] [--dump masks.sass]
     python3 sass_mix.py --units [--out units.json]
@@ -19,7 +21,10 @@ or generic stores (STG, ST) write (a 16-byte store four, an 8-byte one
 two, any other one), so a loop unrolled by the compiler counts the same
 per element.  The compiler unswitches each kernel's loop on ``dr.on``:
 the loop that draws the masks holds the IMAD.WIDE and LOP3 of Philox, the
-other stores ones (``--dump`` writes the disassembly).  Classes (the
+other stores ones (``--dump`` writes the disassembly); each loop's
+``philox_per_element`` counts those two an element (one Philox call per
+4 elements: 5 IMAD.WIDE and 5 LOP3 an element, a call per element four
+times that).  Classes (the
 pipes of Nsight Compute's names):
 
   alu       integer and logic: LOP3, IADD3, ISETP, SEL, FSEL, SHF, LEA, MOV, ...
@@ -53,7 +58,8 @@ from pathlib import Path
 SOURCE = "probe_mask_replay_check.cu"
 KERNELS = ("masks_forward_kernel", "masks_reversed_kernel")
 # the kernels on wgmma and TMA, by source, and the opcodes counted in them
-UNIT_KERNELS = {"probe_ce_mxu.cu": "ce_mm_kernel", "probe_unit_overlap.cu": "unit_overlap_kernel"}
+UNIT_KERNELS = {"probe_ce_mxu.cu": "ce_mm_kernel", "probe_unit_overlap.cu": "unit_overlap_kernel",
+                "fused_ce.cu": "ce_fwd_wgmma_kernel"}
 UNIT_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")
 ELEMS = 512 * 1024 * (64 + 64 + 256 + 64)   # the XLong layer's four masks
 SMS = 132
@@ -154,6 +160,12 @@ def loop_mix(insns, span, elems):
         out["note"] = "no global or generic store in the loop"
         return out
     per_elem = {k: v / per_iter for k, v in sorted(counts.items())}
+    # the Philox round's two instructions, an element: its wide multiplies
+    # and its three-input xors
+    out["philox_per_element"] = {
+        "IMAD.WIDE": sum(1 for _, op, mods, _ in body
+                         if op == "IMAD" and mods.startswith(".WIDE")) / per_iter,
+        "LOP3": sum(1 for _, op, _, _ in body if op == "LOP3") / per_iter}
     ms = {k: elems * per_elem.get(k, 0.0) / (SMS * LANES[k] * CLOCK_HZ) * 1e3 for k in LANES}
     ms["issue"] = elems * issued / per_iter / (SMS * DISPATCH_LANES * CLOCK_HZ) * 1e3
     ms["bytes"] = elems * 4 / BYTES_PER_S * 1e3
@@ -186,6 +198,23 @@ def units():
             for fname, counts in unit_counts(parse(disassemble(src)), kernel).items()]
 
 
+def mask_mix(sass=None):
+    """[{source, kernel, function, instructions, elems, loops}] of the mask
+    kernels (``KERNELS``), each loop as ``loop_mix`` counts it; ``sass``:
+    the library's disassembly (built and disassembled when None)."""
+    funcs = parse(sass if sass is not None else disassemble(SOURCE))
+    results = []
+    for want in KERNELS:
+        found = [f for f in funcs if want in f]
+        if not found:
+            raise LookupError(f"sass_mix: no function holds {want!r} in {SOURCE}")
+        for fname in found:
+            loops = [loop_mix(funcs[fname], s, ELEMS) for s in innermost_loops(funcs[fname])]
+            results.append({"source": SOURCE, "kernel": want, "function": fname,
+                            "instructions": len(funcs[fname]), "elems": ELEMS, "loops": loops})
+    return results
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path)
@@ -203,26 +232,17 @@ def main(argv=None):
             args.out.write_text(json.dumps(results, indent=1) + "\n")
         return 0
 
-    from datamining_recblr_torch.ops import _cuda
-
-    lib = _cuda._lib_path(SOURCE)
     sass = disassemble(SOURCE)
     if args.dump:
         args.dump.parent.mkdir(parents=True, exist_ok=True)
         args.dump.write_text(sass)
-    funcs = parse(sass)
-    results = []
-    for want in KERNELS:
-        found = [f for f in funcs if want in f]
-        if not found:
-            print(f"sass_mix: no function holds {want!r} in {lib.name}", file=sys.stderr)
-            return 1
-        for fname in found:
-            loops = [loop_mix(funcs[fname], s, ELEMS) for s in innermost_loops(funcs[fname])]
-            res = {"source": SOURCE, "kernel": want, "function": fname,
-                   "instructions": len(funcs[fname]), "elems": ELEMS, "loops": loops}
-            print(json.dumps(res), flush=True)
-            results.append(res)
+    try:
+        results = mask_mix(sass)
+    except LookupError as e:
+        print(e, file=sys.stderr)
+        return 1
+    for res in results:
+        print(json.dumps(res), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(results, indent=1) + "\n")

@@ -926,11 +926,14 @@ def test_ce_kernels_match_plain(dev, n, v, valid_v, d, dtype, mm_bf16):
 
 
 # (N, V, valid_v, D) of the forwards: N no multiple of the 128-row block, V
-# no multiple of the 64-, 32- or 16-row table tile, masked columns; row 13
-# at D 50, 64, 128, 200 and 256 (its tensor-core widths), row 14 at D 64,
-# 100 and 128 with many vocab splits
+# no multiple of the 64-, 32-, 16- or (wgmma, bf16 at D 129-256) 128-row
+# table tile, masked columns; row 13 at D 50, 64, 128, 136, 200 and 256
+# (its tensor-core widths), and at D 256 with more 128-row tiles than the
+# card has multiprocessors (the wgmma kernel's persistent blocks take
+# several), row 14 at D 64, 100 and 128 with many vocab splits
 CE_FWD_SHAPES = [(1000, 300, 290, 50), (1000, 300, 290, 64), (517, 211, 200, 128),
-                 (300, 97, 90, 200), (257, 300, 290, 256)]
+                 (300, 131, 129, 136), (300, 97, 90, 200), (257, 300, 290, 256),
+                 (20_001, 389, 380, 256)]
 CCE_FWD_SHAPES = [(300, 5000, 4990, 64), (257, 3001, 2990, 100), (129, 4000, 3999, 128)]
 
 
@@ -955,9 +958,9 @@ def test_ce_forward_kernels_match_plain(dev, chunked, n, v, valid_v, d, dtype, m
     1e-4 + rtol 1e-5: an fp32 logsumexp in another order), with a bias (in
     the table's dtype), masked columns and targets in the last tile; the
     tensor-core kernel runs exactly where the gate says (row 13:
-    ``fwd_uses_mma``, at D <= 256 without ``mm_bf16``; row 14:
-    ``chunked_fwd_uses_mma``, at D <= 128, with more than one vocab split),
-    and a rerun gives the same bits."""
+    ``fwd_uses_mma``, at D <= 256 without ``mm_bf16`` and at D 129-256 with
+    it; row 14: ``chunked_fwd_uses_mma``, at D <= 128, with more than one
+    vocab split), and a rerun gives the same bits."""
     from datamining_recblr_torch.ops import fused_ce as FCE
 
     rng = np.random.default_rng(57 + d)
@@ -972,7 +975,7 @@ def test_ce_forward_kernels_match_plain(dev, chunked, n, v, valid_v, d, dtype, m
         train, counted = FCE.fused_softmax_ce_train, FCE.fused_softmax_ce
         mma = FCE.fwd_uses_mma(d, mm_bf16)
         want = FCE._plain_fwd(x, table, bias.float(), tgt, valid_v, mm_bf16)
-    assert mma == (chunked or not mm_bf16)
+    assert mma == (chunked or not mm_bf16 or d > 128)
     before = (counted.launches, train.mma_launches)
     nll, lse = train(x, table, tgt, bias, valid_v, mm_bf16)
     assert (counted.launches - before[0], train.mma_launches - before[1]) == (1, int(mma))
@@ -984,15 +987,16 @@ def test_ce_forward_kernels_match_plain(dev, chunked, n, v, valid_v, d, dtype, m
 
 
 @pytest.mark.parametrize("chunked,d,mm_bf16,mma",
-                         [(False, 256, False, True), (False, 256, True, False),
+                         [(False, 256, False, True), (False, 256, True, True),
+                          (False, 128, True, False),
                           (False, 300, False, False), (False, 300, True, False),
                           (True, 128, False, True), (True, 128, True, True),
                           (True, 200, False, False), (True, 200, True, False)])
 def test_ce_forwards_count_mma_launches_by_their_gates(dev, chunked, d, mm_bf16, mma):
     """Beyond its tensor-core width a forward runs the fp32 FMA kernel and
     counts no launch on the tensor cores: row 13 at D 300 and with
-    ``mm_bf16``, row 14 at D 200; both agree with the plain version there
-    too."""
+    ``mm_bf16`` at D <= 128 (at D 256 it runs on wgmma), row 14 at D 200;
+    both agree with the plain version there too."""
     from datamining_recblr_torch.ops import fused_ce as FCE
 
     rng = np.random.default_rng(58)
@@ -2408,6 +2412,27 @@ def test_probe_mask_kernels_agree_at_the_xlong_shape(dev):
         assert torch.equal(a, b), k
         assert torch.equal(a, p), k
         assert abs(MR.drop_fraction(a) - (1 - MR.KP)) <= 0.01, k
+
+
+@pytest.mark.parametrize("nb,nc,bt,tc,d,ff", [(3, 1, 5, 7, 4, 12), (2, 3, 3, 5, 12, 4),
+                                              (1, 3, 8, 16, 4, 4)])
+def test_probe_mask_reversed_kernel_on_ragged_shapes(dev, nb, nc, bt, tc, d, ff):
+    """Row 17f's reversed kernel (a block per row block and chunk, the
+    chunk index flipped, four channels a thread) at one and three chunks,
+    widths 4 and 12 and blocks no power of two: bit for bit the forward
+    kernel's masks and the plain ones (``ops/philox.py``)."""
+    from datamining_recblr_torch.probes import mask_replay_check as MR
+
+    sizes = dict(nb=nb, nc=nc, bt=bt, tc=tc, d=d, ff=ff)
+    before = MR.masks_reversed.launches
+    rev = MR.masks_reversed(MR.SEED, MR.KP, device=dev, **sizes)
+    assert MR.masks_reversed.launches == before + 1
+    fwd = MR.masks_forward(MR.SEED, MR.KP, device=dev, **sizes)
+    plain = MR.masks_plain(MR.SEED, MR.KP, device=dev, **sizes)
+    for k, (a, b, p) in enumerate(zip(rev, fwd, plain)):
+        assert a.shape == (nb * bt, nc * tc, MR.widths(d, ff)[k])
+        assert torch.equal(a, b), k
+        assert torch.equal(a, p), k
 
 
 def test_probe_ce_mm_kernel_matches_plain_on_ragged_shapes(dev):

@@ -323,10 +323,11 @@ def test_whole_table_bwd_takes_the_tensor_cores_up_to_d_256(d, mm_bf16):
 def test_forward_gates(d, mm_bf16):
     """Row 14's forward takes the tensor cores at D <= 128 in both
     precisions; row 13's without ``mm_bf16`` where its backward does, at D
-    <= 256, and with ``mm_bf16`` none (the FMA kernel keeps the lse that
-    its bf16 backward's rounding of g needs)."""
+    <= 256, and with ``mm_bf16`` at D 129-256 (wgmma); at D <= 128 in bf16
+    the FMA kernel keeps the lse that its bf16 backward's rounding of g
+    needs."""
     assert FCE.chunked_fwd_uses_mma(d, mm_bf16) == (d <= 128)
-    assert FCE.fwd_uses_mma(d, mm_bf16) == (not mm_bf16 and d <= 256)
+    assert FCE.fwd_uses_mma(d, mm_bf16) == (d <= 256 and (not mm_bf16 or d > 128))
     assert FCE.fwd_uses_mma(d, False) == FCE.bwd_uses_mma(d, False)
 
 
@@ -350,7 +351,9 @@ def test_forward_counts_mma_launches_where_its_gate_says(monkeypatch, chunked, d
     """Each forward's wrapper counts a launch on the tensor cores exactly
     where its gate sends it there (the C side dispatches on the same fact),
     and hands the kernel a 16-byte aligned table there (a copy of one that
-    is not); the library is a stand-in that launches nothing."""
+    is not); row 13's hands its bf16 forward on wgmma (``mm_bf16`` at D
+    129-256) a [V, 256] bf16 scratch for the rounded table, and no other
+    forward one; the library is a stand-in that launches nothing."""
     import contextlib
 
     from datamining_recblr_torch.ops import _cuda
@@ -372,6 +375,10 @@ def test_forward_counts_mma_launches_where_its_gate_says(monkeypatch, chunked, d
     assert (counted.launches, train.mma_launches) == (1, int(mma))
     table_ptr = lib.calls[0][1]
     assert (table_ptr % 16 == 0) == mma
+    if not chunked:
+        scratch = lib.calls[0][6]
+        assert (scratch is not None) == (mma and mm_bf16)
+        assert scratch is None or scratch % 16 == 0
 
 
 def test_cpu_calls_count_no_mma_launches():

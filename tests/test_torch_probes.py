@@ -422,9 +422,11 @@ def test_sass_mix_counts_the_innermost_loops_by_pipe():
     assert ms["alu"] == pytest.approx(sm.ELEMS / (132 * 64 * 67e12 / (132 * 256)) * 1e3)
     assert ms["bytes"] == pytest.approx(sm.ELEMS * 4 / 3.35e12 * 1e3)
     assert mix["bound_by"] == "bytes" and mix["other_opcodes"] == []
+    assert mix["philox_per_element"] == {"IMAD.WIDE": 0.25, "LOP3": 0.25}
     assert sm.innermost_loops(funcs[rev]) == [(0x20, 0x50)]
     mix = sm.loop_mix(funcs[rev], (0x20, 0x50), sm.ELEMS)
     assert mix["elements_per_iteration"] == 1
+    assert mix["philox_per_element"] == {"IMAD.WIDE": 0.0, "LOP3": 0.0}  # IMAD.HI is no wide one
     assert mix["opcodes"] == {"IMAD": 1, "MUFU": 1, "STG": 1, "BRA": 1}
     assert mix["per_element"] == {"control": 1.0, "fmaheavy": 1.0, "mem": 1.0, "xu": 1.0}
     assert mix["ms_at_elems"]["xu"] == pytest.approx(4 * mix["ms_at_elems"]["fmaheavy"])
@@ -467,6 +469,43 @@ def test_sass_mix_counts_hgmma_and_tma_by_kernel():
     uo = sm.unit_counts(funcs, sm.UNIT_KERNELS["probe_unit_overlap.cu"])
     assert [c["HGMMA"] for c in uo.values()] == [0, 3]
     assert all(c["UTMASTG"] == 0 for c in uo.values())
+
+
+def test_sass_mix_finds_each_mask_kernels_loops():
+    """``mask_mix`` lists every function of each mask kernel with its
+    loops, and refuses a disassembly that lacks one of them."""
+    spec = importlib.util.spec_from_file_location("_sass_mix", ROOT / "sass_mix.py")
+    sm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sm)
+    res = sm.mask_mix(_SASS)
+    assert [r["kernel"] for r in res] == list(sm.KERNELS)
+    assert [len(r["loops"]) for r in res] == [1, 1]
+    assert res[0]["loops"][0]["philox_per_element"]["IMAD.WIDE"] == 0.25
+    with pytest.raises(LookupError, match="masks_reversed_kernel"):
+        sm.mask_mix(_SASS.split("\t\tFunction : _ZN12_GLOBAL__N_121masks_reversed")[0])
+
+
+# row 13's bf16 forward on wgmma as cuobjdump prints an instance: the
+# products and the table's TMA loads, and the table-rounding kernel beside
+_SASS_CE = """
+		Function : _ZN12_GLOBAL__N_119ce_fwd_wgmma_kernelI13__nv_bfloat16EEv14CUtensorMap_stPKT_PKfPKiPfSA_iiii
+        /*0100*/                   UTMALDG.2D [UR8], [UR4] ;
+        /*0110*/                   UTMALDG.2D [UR16], [UR4] ;
+        /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, R152, gdesc[UR8], RZ, !UPT ;
+        /*0210*/                   HGMMA.64x128x16.F32.BF16 R88, R184, gdesc[UR12], RZ, gsb0 ;
+        /*0300*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_121ce_round_table_kernelEPKfPjii
+        /*0000*/                   LDG.E R4, desc[UR4][R2.64] ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_sass_mix_counts_the_ce_forward_units():
+    spec = importlib.util.spec_from_file_location("_sass_mix", ROOT / "sass_mix.py")
+    sm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sm)
+    ce = sm.unit_counts(sm.parse(_SASS_CE), sm.UNIT_KERNELS["fused_ce.cu"])
+    assert list(ce.values()) == [{"HGMMA": 2, "UTMALDG": 2, "UTMASTG": 0, "UBLKCP": 0}]
 
 
 # ---------------------------------------------------------------------------
