@@ -6,6 +6,8 @@
     python3 chip_compare.py --probes PARENT_DIR   # the same turns, rows 17d and 17a only
     python3 chip_compare.py --ce PARENT_DIR       # the same turns, row 13's forwards, 17f
                                                   # and BERT4Rec's steps only
+    python3 chip_compare.py --ce-seeds PARENT_DIR # parent, this tree: row 13's bf16 check
+                                                  # at the cloze loss on 8 seeds
     python3 chip_compare.py --one TREE LABEL      # one run (what each turn executes)
 
 PARENT_DIR is an unpacked ``git archive`` of the commit to compare with,
@@ -47,6 +49,25 @@ bench shape and on the d256 path, fp32 and bf16 (each against the plain
 step, launches, time, profile); a tree without those functions takes
 this checkout's.
 
+With ``--probes`` a turn also prints row 17c's two scans at the probe's
+shape (``scan_probe_times``: ``kernel-time`` lines and a ``[digest]`` of
+each output), and the exit code is 1 unless every turn gave the same
+bits.
+
+With ``--ce-seeds`` one turn a tree (the parent's, then this one's) runs
+row 13 in bf16 at BERT4Rec's cloze loss (N 81,920, V 3,417, D 64, with a
+bias; bf16 x and products) through the public wrappers on each of
+``CE_SEEDS``: the smoke's own inputs (``b4r_kernels_vs_plain``'s
+generator at SEED + 10, after the draws before its CE) and seven other
+generators of ``ce_inputs``.  For each it prints (``[ce-seeds]``) whether
+the forward ran on the tensor cores, nll's largest error and whether it
+is within 1e-4 + 1e-5 |plain|, and of dx the values beyond the plain
+bound of ``ce_kernel_vs_plain`` (one bf16 ulp of the value plus
+GRAD_RTOL of the largest), the vocab entries whose g lies in a rounding
+tie (``bf16_tie_allowance`` at ``TIE_WINDOW``) and the values beyond the
+bound plus that allowance; all from this checkout's ``chip_smoke.py`` on
+the tree's kernels.  At the end one ``[compare-ce-seeds]`` line a tree.
+
 With ``--bits`` each turn runs only ``row15_row6_digests`` (rows 15 and 6
 as every caller before the seq axis calls them, hashed) and the times of
 rows 15 (``row15_kernel_times``) and 6 (``ln_fwd_kernel_times``, and its
@@ -75,7 +96,53 @@ def _this_smoke():
     return mod
 
 
-def one(tree, label, bits=False, probes=False, ce=False):
+# the generators of the --ce-seeds check: the smoke's (b4r_kernels_vs_plain,
+# SEED + 10) and seven of ce_inputs alone
+CE_SEEDS = (("smoke", 10), ("ce", 101), ("ce", 102), ("ce", 103), ("ce", 104), ("ce", 105),
+            ("ce", 106), ("ce", 107))
+
+
+def ce_seed_checks(dev, label):
+    """Row 13 in bf16 at the cloze loss on each of CE_SEEDS (see the module
+    docstring): one ``[ce-seeds]`` line a seed."""
+    import torch
+
+    cs = _this_smoke()
+    fce = cs.FCE
+    n = cs.TRAIN_B * cs.MASK_LEN
+    for stream, seed in CE_SEEDS:
+        gen = torch.Generator().manual_seed(cs.SEED + seed if stream == "smoke" else seed)
+        if stream == "smoke":  # b4r_kernels_vs_plain's draws before its CE inputs
+            cs.block_params(gen, dev)
+            torch.randn((cs.B, cs.T, cs.D), generator=gen)
+            cs.serving_lens(gen, cs.B)
+            cs.b4r_sel_idx(gen, cs.B, cs.T, cs.MASK_LEN)
+            torch.randn((cs.B, cs.MASK_LEN, cs.D), generator=gen)
+        xc, table, bias, tgt, dnll = cs.ce_inputs(gen, dev, n, cs.D)
+        x = xc.bfloat16()
+        before = fce.fused_softmax_ce_train.mma_launches
+        nll, lse = fce.fused_softmax_ce_train(x, table, tgt, bias, None, True)
+        fwd_mma = fce.fused_softmax_ce_train.mma_launches - before
+        dx, _, _ = fce.fused_softmax_ce_bwd(x, table, tgt, dnll, bias, None, True, lse=lse)
+        xl = x.detach().clone().requires_grad_()
+        want = fce.fused_softmax_ce_plain(xl, table, tgt, bias, None, True)
+        (gx,) = torch.autograd.grad(want, [xl], dnll)
+        want = want.detach()
+        nll_err = float((nll - want).abs().max())
+        nll_ok = bool(((nll - want).abs() <= 1e-4 + 1e-5 * want.abs()).all())
+        err = (dx.float() - gx.float()).abs()
+        bound = cs.BF16_RTOL * gx.float().abs() + cs.GRAD_RTOL * float(gx.float().abs().max())
+        allow, n_amb = cs.bf16_tie_allowance(x, table, bias, tgt, dnll)
+        row = dict(tree=label, stream=stream, seed=seed, fwd_mma_launches=fwd_mma,
+                   nll_max_abs_err=f"{nll_err:.3e}", nll_ok=nll_ok,
+                   dx_beyond_plain_bound=int((err > bound).sum()), tie_entries=n_amb,
+                   dx_beyond_allowance=int((err > bound + allow).sum()),
+                   tie_window="2^-17*D/64*p*dnll")
+        print("[ce-seeds] " + " ".join(f"{k}={v}" for k, v in row.items()), flush=True)
+        del xc, table, bias, tgt, dnll, x, nll, lse, dx, xl, gx, err, bound, allow
+
+
+def one(tree, label, bits=False, probes=False, ce=False, ce_seeds=False):
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -93,6 +160,15 @@ def one(tree, label, bits=False, probes=False, ce=False):
         torch.backends.cuda.matmul.allow_tf32 = False
         _cuda.build(_cuda.PROBE_SOURCES)
         probe_times(dev)
+        _this_smoke().scan_probe_times(dev)
+        return
+    if ce_seeds:
+        from datamining_recblr_torch.ops import _cuda
+
+        print(cs.PB.card(dev), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _cuda.build(("fused_ce.cu",))
+        ce_seed_checks(dev, label)
         return
     cs.environment()
     if ce:
@@ -177,17 +253,21 @@ def timed(line):
 
 def main():
     if sys.argv[1:2] == ["--one"]:
-        one(sys.argv[2], sys.argv[3], bits=sys.argv[4:5] == ["--bits"],
-            probes=sys.argv[4:5] == ["--probes"], ce=sys.argv[4:5] == ["--ce"])
+        flag = sys.argv[4:5]
+        one(sys.argv[2], sys.argv[3], bits=flag == ["--bits"], probes=flag == ["--probes"],
+            ce=flag == ["--ce"], ce_seeds=flag == ["--ce-seeds"])
         return 0
-    mode = sys.argv[1] if sys.argv[1:2] in (["--bits"], ["--probes"], ["--ce"]) else None
+    modes = (["--bits"], ["--probes"], ["--ce"], ["--ce-seeds"])
+    mode = sys.argv[1] if sys.argv[1:2] in modes else None
     bits = mode == "--bits"
     parent = sys.argv[2] if mode else sys.argv[1]
     here = os.path.dirname(os.path.abspath(__file__))
     rc = 0
-    ms, digests = {}, {}
-    for i, (tree, label) in enumerate(((parent, "parent"), (here, "change"),
-                                       (here, "change"), (parent, "parent")), 1):
+    ms, digests, seeds = {}, {}, {}
+    turns = ((parent, "parent"), (here, "change"))
+    if mode != "--ce-seeds":
+        turns += ((here, "change"), (parent, "parent"))
+    for i, (tree, label) in enumerate(turns, 1):
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree, label]
                            + ([mode] if mode else []),
@@ -201,7 +281,12 @@ def main():
                 ms.setdefault(key, {"parent": [], "change": []})[label].append(v)
             if line.startswith("[digest] "):
                 key, _, sha = line[len("[digest] "):].rpartition(" sha256=")
-                digests.setdefault(key, []).append(f"{label}:{sha}")
+                digests.setdefault(key, []).append(f"{label}:{sha.split()[0]}")
+            if line.startswith("[ce-seeds] "):
+                f = dict(re.findall(r"(\w+)=(\S+)", line))
+                seeds.setdefault(label, []).append(
+                    f"{f['stream']}{f['seed']}:{f['dx_beyond_plain_bound']}/"
+                    f"{f['dx_beyond_allowance']}{'' if f['nll_ok'] == 'True' else '!nll'}")
     for key, sides in ms.items():
         if sides["parent"] and sides["change"]:
             parent = sum(sides["parent"]) / len(sides["parent"])
@@ -209,8 +294,11 @@ def main():
                      else "none")
             print(f"[compare] {key} parent_ms={sides['parent']} change_ms={sides['change']} "
                   f"ratio={ratio}", flush=True)
+    for label, counts in seeds.items():
+        print(f"[compare-ce-seeds] {label} seed:beyond_plain_bound/beyond_allowance={counts}",
+              flush=True)
     for key, shas in digests.items():
-        equal = len(shas) == 4 and len({x.split(":")[1] for x in shas}) == 1
+        equal = len(shas) == len(turns) and len({x.split(":")[1] for x in shas}) == 1
         print(f"[compare-bits] {key} turns={shas} equal={equal}", flush=True)
         rc = rc or int(not equal)
     if bits and not digests:

@@ -25,33 +25,37 @@
 // = lse - l[target] from the same logits, and in training the lse the
 // backward reads.  The bound is one logit-sized 3xTF32 product: 0.217 ms at
 // the cloze loss.
-// The bf16 forward (mm_bf16) at D 129-256 (ce_fwd_wgmma_kernel) runs on
+// The bf16 forward (mm_bf16) at D <= 256 (ce_fwd_wgmma_kernel) runs on
 // wgmma and TMA: the table rounded to bf16 once a call into the caller's
-// scratch ([V, 256], zeros beyond D); persistent blocks, one a
-// multiprocessor, walk the 128-row tiles round-robin; a producer warp
-// brings each [128, 256] table tile by TMA (four 64-column boxes, 128-byte
-// swizzle, a ring of three 64 KB stages, hinted to stay in L2) with its
-// column biases; two consumer warpgroups of 64 rows hold round(x) as wgmma
-// A fragments and run 16 m64n128k16 steps a tile, 8 into each of two fp32
-// accumulators added in fp32 (WG_KGROUP: the first point of accuracy
-// below), then the online (max, sum of exp) of ce_fwd_mma_tiles on the
-// accumulator's fragment layout, the four lanes of a row merged in the same
-// butterfly.  The two warpgroups' products and exps interleave on the SM;
-// the producer's warpgroup gives its registers to theirs (setmaxnreg).
-// Its bound is one logit-sized bf16 product (0.145 ms at the d256 cloze
-// loss); the table tiles are read from L2 once per row tile (1.1 GB at
-// that loss).
-// The bf16 forward at D <= 128, and the forward and the backward at D
-// 257-512, compute the products as fp32 FMA on the CUDA cores
-// (ce_common.cuh's 16 x 16 thread tiles):
-//   fwd   a block per BM rows holds its x rows in shared memory and streams
-//         the table in [BV, D] tiles; each thread computes an RT x RT block
-//         of logits and keeps an online logsumexp per row (running max,
+// scratch ([V, DP], D padded to DP = 64, 128 or 256 with zeros); persistent
+// blocks, one a multiprocessor, each over a contiguous run of 128-row
+// units; a producer warp brings each [128, DP] table tile by TMA (DP / 64
+// boxes of 64 columns, 128-byte swizzle, a ring of 128 KB at DP <= 128 and
+// 192 KB at 256, hinted to stay in L2) with its column biases; two
+// consumer warpgroups of 64 rows a unit hold round(x) as wgmma A fragments
+// and run DP / 16 m64n128k16 steps a tile, at most 8 into an fp32
+// accumulator (WG_KGROUP: at DP 256 two added in fp32, the first point of
+// accuracy below), then the online (max, sum of exp) of ce_fwd_mma_tiles on
+// the accumulator's fragment layout (a lane's two rows' sums interleaved,
+// each in column order; exp2 on the special-function unit alone,
+// exp_sfu), the four lanes of a row merged in the same butterfly.  At DP
+// 64 a warpgroup holds two units' rows against each tile (16 registers of
+// A fragments each), so the table is read from L2 once per 256 rows and
+// one unit's exps run while the other's products do.  The two warpgroups
+// take turns to issue a tile's products (two
+// named barriers), so that one's exps run while the other's products do,
+// and the producer's warpgroup gives its registers to theirs
+// (setmaxnreg).  The products' bound is one logit-sized bf16 product
+// (0.036 ms at the cloze loss, 0.145 at D 256); the N V exps take at least
+// 0.067 ms on the special-function units.
+// The forward and the backward at D 257-512 compute the products as fp32
+// FMA on the CUDA cores (ce_common.cuh's 16 x 16 thread tiles):
+//   fwd   a block per 16 rows holds its x rows in shared memory and streams
+//         the table in [16, D] tiles; each thread computes one logit a
+//         tile and keeps an online logsumexp per row (running max,
 //         rescaled sum); the 16 lanes of a row combine theirs with
-//         shuffles.  RT = 4 (64 x 64 tiles) for D <= 128, else RT = 1.  At
-//         D <= 128 in bf16 its lse is the one the bf16 backward needs (the
-//         second point of accuracy below).
-//   dx, dtab (D 257-512, RT = 1) as the passes below, one logit a thread.
+//         shuffles.
+//   dx, dtab as the passes below, one logit a thread.
 //
 // The backward at D <= 256 runs its four products (the logits once per
 // pass, dx = g table, dtable = g^T x) on the tensor cores through mma.sync
@@ -104,24 +108,18 @@
 //     therefore recomputes each logit whose g lies that near a boundary
 //     (near_bf16_tie, some 0.4% of them at D 64, 1.6% at D 256) as the
 //     FMA forward sums it, so round(g) is the FMA backward's.  g also
-//     takes the forward's lse, so the bf16 forward at D <= 128 keeps the
-//     FMA kernel: a tensor-core lse (bf16 products, ce_fwd_mma_tiles<true,
-//     DP>, which row 14 runs) moves every g of a row by exp(its error), and
-//     where one logit carries most of a row's mass that error is the
-//     logit's own; the smoke's bf16 dx at the cloze loss (D 64, checked
-//     without an allowance for ties) then left its bound, with or without
-//     the row's largest logits summed again as FMA chains.  At D 129-256
-//     the check allows for the ties of g (chip_smoke.py TIE_WINDOW), so
-//     the bf16 forward runs on wgmma there: with its lse 863 of the cloze
-//     loss's dx values at D 256 lie beyond the plain bound (the FMA
-//     forward's lse: 120), every one of them within the allowance
-//     (NVIDIA H100 80GB HBM3, 700 W).
+//     takes the forward's lse, which moves every g of a row by exp(its
+//     error); any fp32 sum of the logits (cuBLAS's, the FMA kernel's, the
+//     tensor cores') rounds some g of a row the other way, so the card
+//     check allows for the ties of g at every D (chip_smoke.py
+//     TIE_WINDOW).  At D 64 the FMA forward's lse put 0-5 of the cloze
+//     loss's dx values beyond the plain bound on eight inputs, the wgmma
+//     forward's 0-21, at D 256 120 and 863, none beyond the allowance
+//     (chip_compare.py --ce-seeds; NVIDIA H100 80GB HBM3, 700 W).
 // Every sum runs in a fixed order (the mma accumulation order within a
 // block, the splits in order, the four lanes of a row and dbias's in a
 // fixed butterfly): the same bits from run to run, no atomics.  Left for
-// later PRs: the bf16 forward at D <= 128 on the tensor cores (with an lse
-// the bf16 backward's rounding of g agrees with), D 257-512 on them, wgmma
-// in the backward.
+// later PRs: D 257-512 on the tensor cores, wgmma in the backward.
 //
 // C interface (loaded with ctypes): returns a cudaError_t, 0 on success.
 #include <cstdint>
@@ -316,90 +314,123 @@ ce_fwd_mma_kernel(const void* __restrict__ x, int xbf, const float* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 forward at D 129-256 on wgmma and TMA
+// the bf16 forward (D <= 256) on wgmma and TMA
 // ---------------------------------------------------------------------------
 
-constexpr int WG_DP = 256;                      // D padded to 256 (zeros beyond D)
-constexpr int WG_BV = 128;                      // table rows a tile: the products' N
-constexpr int WG_BM = 128;                      // rows a block: two consumer warpgroups of 64
-constexpr int WG_CONS = 2;                      // consumer warpgroups
-constexpr int WG_STAGES = 3;                    // table tiles in flight
-constexpr int WG_BOX = 64;                      // bf16 columns of a 128-byte box
+constexpr int WG_BV = 128;                       // table rows a tile: the products' N
+constexpr int WG_CONS = 2;                       // consumer warpgroups
+constexpr int WG_UNIT = 64 * WG_CONS;            // rows of a unit of work, 64 a consumer
+constexpr int WG_BOX = 64;                       // bf16 columns of a 128-byte box
 constexpr int WG_THREADS = 128 * (WG_CONS + 1);  // and a producer warpgroup
 // registers a thread: the producer warpgroup gives back what the two
 // consumers take (168 each at launch, 65,536 / 384 threads)
 constexpr int WG_PRODUCER_REGS = 40, WG_CONSUMER_REGS = 232;
-constexpr uint32_t WG_BOX_BYTES = WG_BV * WG_BOX * 2;     // 16 KB
-constexpr uint32_t WG_TILE_BYTES = WG_BV * WG_DP * 2;     // 64 KB: four boxes
-constexpr uint32_t WG_BIAS0 = WG_STAGES * WG_TILE_BYTES;  // [stage][128] the tiles' column biases
-constexpr uint32_t WG_BAR0 = WG_BIAS0 + WG_STAGES * WG_BV * 4;
-constexpr size_t WG_SMEM = 1024 + WG_BAR0 + 8 * 2 * WG_STAGES;  // 1 KB of alignment slack
-constexpr int WG_KGROUP = 8;  // k16 steps an fp32 accumulator: two make a tile's depth
+constexpr int WG_KGROUP = 8;  // k16 steps an fp32 accumulator at most (the header's first
+                              // point of accuracy)
 
-// The table rounded to bf16 (nearest even) into [V, WG_DP] with zeros
-// beyond D, two columns a thread.
+// The tiling at D padded to DP (64, 128 or 256, zeros beyond D): a table
+// tile is [128 rows, DP] bf16 in DP / 64 boxes, STAGES of them in flight
+// (128 KB at DP 64 and 128, 192 KB at 256); a consumer warpgroup holds RG
+// groups of 64 rows against each tile: two at DP 64, where one group's A
+// fragments take 16 registers, else one (64 registers at DP 256).  DP 256
+// sums its 16 k16 steps in two accumulators of 8, DP 128 and 64 theirs in
+// one.
+template <int DP>
+struct WgTile {
+  static constexpr int KSTEPS = DP / 16;
+  static constexpr int KGROUP = KSTEPS < WG_KGROUP ? KSTEPS : WG_KGROUP;
+  static constexpr int RG = DP == 64 ? 2 : 1;
+  static constexpr int STAGES = DP == 256 ? 3 : 8 * 64 / DP;
+  static constexpr uint32_t BOX_BYTES = WG_BV * WG_BOX * 2;      // 16 KB
+  static constexpr uint32_t TILE_BYTES = WG_BV * DP * 2;
+  static constexpr uint32_t BIAS0 = STAGES * TILE_BYTES;         // [stage][128] column biases
+  static constexpr uint32_t BAR0 = BIAS0 + STAGES * WG_BV * 4;
+  static constexpr size_t SMEM = 1024 + BAR0 + 8 * 2 * STAGES;  // 1 KB of alignment slack
+  static_assert(KSTEPS <= 2 * KGROUP && (KSTEPS == KGROUP || RG == 1), "accumulators");
+};
+
+// exp_t's exp2(x log2 e) on the special-function unit alone (ex2.approx.ftz,
+// without exp2f's steps around it for a subnormal result): exp_t's value
+// wherever that is a normal number, 0 where it would be below 2^-126, which
+// no row's sum of exps (at least 1, the max's) keeps.
+__device__ __forceinline__ float exp_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * LOG2E));
+  return y;
+}
+
+// The table rounded to bf16 (nearest even) into [V, DP] with zeros beyond
+// D, two columns a thread.
+template <int DP>
 __global__ void ce_round_table_kernel(const float* __restrict__ tab, uint32_t* __restrict__ out,
                                       int V, int D) {
-  const long long n = (long long)V * (WG_DP / 2);
+  const long long n = (long long)V * (DP / 2);
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
-    const int v = static_cast<int>(i / (WG_DP / 2)), c = 2 * static_cast<int>(i % (WG_DP / 2));
+    const int v = static_cast<int>(i / (DP / 2)), c = 2 * static_cast<int>(i % (DP / 2));
     const float* row = tab + (size_t)v * D;
     out[i] = pack_bf16(c < D ? __ldg(row + c) : 0.f, c + 1 < D ? __ldg(row + c + 1) : 0.f);
   }
 }
 
-// The bf16 forward at 128 < D <= 256 (mm_bf16).  Persistent blocks walk
-// the 128-row tiles round-robin (tile rt, rt + grid, ...), each over every
-// table tile.  Warp 8, the producer (the first of warpgroup 2, which gives
-// its registers to the consumers), brings the rounded table's tiles
-// ([128 rows, 256] bf16, four 64-column boxes in the 128-byte swizzle) by
-// TMA into a ring of WG_STAGES stages, with each tile's column biases
-// (mma_col_bias) beside them; consumer warpgroup wg holds the rows rt 128
-// + 64 wg .. + 63 as the A fragments of round(x) (16 k16 steps, 64
-// registers) and runs wgmma m64n128k16 against each tile; then the online
+// The bf16 forward (mm_bf16) at D <= 256.  The rows are cut into units of
+// 128; block b takes the units b U / grid .. (b + 1) U / grid - 1 (U units,
+// a persistent block a multiprocessor) and walks them RG at a time, a
+// round, each round over every table tile.  Warp 8, the producer (the
+// first of warpgroup 2, which gives its registers to the consumers),
+// brings the rounded table's tiles ([128 rows, DP] bf16 in 64-column boxes,
+// the 128-byte swizzle) by TMA into a ring of STAGES stages, with each
+// tile's column biases (mma_col_bias) beside them; consumer warpgroup wg
+// holds rows 64 wg .. + 63 of each unit of the round as the A fragments of
+// round(x) and runs wgmma m64n128k16 against each tile, a group of products
+// a unit, the two warpgroups taking turns to issue them, then the online
 // (max, sum of exp) of each of its two rows per lane, as ce_fwd_mma_tiles,
-// and at the row tile's end the four lanes' butterfly (ce_quad_merge).
-// nll, lse: [N] fp32 (lse may be null).
-template <typename Tin>
+// the first unit's while the second's products run; at the round's end
+// the four lanes' butterfly (ce_quad_merge).  A
+// round of one unit (the block's last, when it has an odd count) runs the
+// second group on zero rows.  nll, lse: [N] fp32 (lse may be null).
+template <typename Tin, int DP>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_tab, const Tin* __restrict__ x,
                     const float* __restrict__ bias, const int* __restrict__ tgt,
                     float* __restrict__ nll, float* __restrict__ lse_out, int N, int V, int D,
                     int valid_v) {
+  using W = WgTile<DP>;
   extern __shared__ uint8_t wg_raw[];
   const uint32_t raw = smem_addr(wg_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzled tiles' 1 KB alignment
-  float* cbias = reinterpret_cast<float*>(wg_raw + (base - raw) + WG_BIAS0);
-  const uint32_t full0 = base + WG_BAR0, empty0 = full0 + 8 * WG_STAGES;
+  float* cbias = reinterpret_cast<float*>(wg_raw + (base - raw) + W::BIAS0);
+  const uint32_t full0 = base + W::BAR0, empty0 = full0 + 8 * W::STAGES;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < WG_STAGES; ++s) {
+    for (int s = 0; s < W::STAGES; ++s) {
       mbar_init(full0 + 8 * s, 32);            // the producer's lanes, one with the bytes
       mbar_init(empty0 + 8 * s, 4 * WG_CONS);  // one arrival a consumer warp
     }
     mbar_init_fence();
   }
   __syncthreads();
-  const int ntiles = (V + WG_BV - 1) / WG_BV, nrt = (N + WG_BM - 1) / WG_BM;
+  const int ntiles = (V + WG_BV - 1) / WG_BV, nunits = (N + WG_UNIT - 1) / WG_UNIT;
+  const int u0 = (int)((long long)blockIdx.x * nunits / gridDim.x);
+  const int u1 = (int)((long long)(blockIdx.x + 1) * nunits / gridDim.x);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp >= 4 * WG_CONS) {
     wg_setmaxnreg_dec<WG_PRODUCER_REGS>();
     if (warp > 4 * WG_CONS) return;
-    // producer (the warpgroup's first warp): the table tiles of each row
-    // tile in order, kept in L2
+    // producer (the warpgroup's first warp): the table tiles of each round
+    // in order, kept in L2
     const uint64_t keep = l2_evict_last();
     int f = 0;
-    for (int rt = blockIdx.x; rt < nrt; rt += gridDim.x)
+    for (int u = u0; u < u1; u += W::RG)
       for (int vt = 0; vt < ntiles; ++vt, ++f) {
-        const int s = f % WG_STAGES, k = f / WG_STAGES;
+        const int s = f % W::STAGES, k = f / W::STAGES;
         const uint32_t full = full0 + 8 * s;
         if (k > 0) mbar_wait(empty0 + 8 * s, (k - 1) & 1);
         for (int c = lane; c < WG_BV; c += 32)
           cbias[s * WG_BV + c] = mma_col_bias(bias, vt * WG_BV + c, V, valid_v);
         if (lane == 0) {
-          mbar_expect_tx(full, WG_TILE_BYTES);
-          for (int b = 0; b < WG_DP / WG_BOX; ++b)
-            tma_load_2d(base + s * WG_TILE_BYTES + b * WG_BOX_BYTES, &tm_tab, WG_BOX * b,
+          mbar_expect_tx(full, W::TILE_BYTES);
+          for (int b = 0; b < DP / WG_BOX; ++b)
+            tma_load_2d(base + s * W::TILE_BYTES + b * W::BOX_BYTES, &tm_tab, WG_BOX * b,
                         vt * WG_BV, full, keep);
         } else {
           mbar_arrive(full);
@@ -408,97 +439,149 @@ ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_tab, const Tin* __res
     return;
   }
   wg_setmaxnreg_inc<WG_CONSUMER_REGS>();
+  // the two consumers take turns to issue a tile's products (named
+  // barriers 1 and 2: wg waits at 1 + wg, then lets the other go), so that
+  // one's exps run while the other's products do
+  const int wg = warp / 4;
+  if (wg == 1) named_barrier_arrive(1, 256);
   const int gid = lane / 4, t4 = lane % 4;
-  const int wrow = 64 * (warp / 4) + 16 * (warp % 4) + gid;  // the lane's first row of 128
-  int u = 0;  // table tiles consumed
-  for (int rt = blockIdx.x; rt < nrt; rt += gridDim.x) {
-    const int r0 = rt * WG_BM + wrow, r1 = r0 + 8;
-    auto xv = [&](int r, int d) {
-      return (r < N && d < D) ? load_act(x, (size_t)r * D + d) : 0.f;
-    };
-    uint32_t a[WG_DP / 16][4];  // round(x) of rows r0, r1 (wgmma.cuh's bf16 A fragments)
+  const int wrow = 64 * wg + 16 * (warp % 4) + gid;  // the lane's first row of a unit
+  const int rend = min(N, u1 * WG_UNIT);              // the block's rows end here
+  auto xv = [&](int r, int d) {
+    return (r < rend && d < D) ? load_act(x, (size_t)r * D + d) : 0.f;
+  };
+  int c = 0;  // table tiles consumed
+  for (int u = u0; u < u1; u += W::RG) {
+    const int nrg = min(W::RG, u1 - u);
+    int row[W::RG][2], tg[W::RG][2];
+    float m[W::RG][2], s[W::RG][2], tl[W::RG][2];
+    uint32_t a[W::RG][W::KSTEPS][4];  // round(x) of the rows (wgmma.cuh's bf16 A fragments)
 #pragma unroll
-    for (int kk = 0; kk < WG_DP / 16; ++kk) {
-      const int d = 16 * kk + 2 * t4;
-      a[kk][0] = pack_bf16(xv(r0, d), xv(r0, d + 1));
-      a[kk][1] = pack_bf16(xv(r1, d), xv(r1, d + 1));
-      a[kk][2] = pack_bf16(xv(r0, d + 8), xv(r0, d + 9));
-      a[kk][3] = pack_bf16(xv(r1, d + 8), xv(r1, d + 9));
-    }
-    const int tg[2] = {r0 < N ? tgt[r0] : -1, r1 < N ? tgt[r1] : -1};
-    float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.f, 0.f}, tl[2] = {0.f, 0.f};
-    for (int vt = 0; vt < ntiles; ++vt, ++u) {
-      const int st = u % WG_STAGES;
-      mbar_wait(full0 + 8 * st, (u / WG_STAGES) & 1);
-      const uint32_t tile = base + st * WG_TILE_BYTES;
-      auto desc = [&](int kk) {
-        return sw128_desc(tile + (kk / 4) * WG_BOX_BYTES + 32 * (kk % 4));
-      };
-      // acc[4 j + 2 h + q]: row r_h, column 8 j + 2 t4 + q of the tile; the
-      // first WG_KGROUP k16 steps into acc, the rest into part, each fresh
-      // (a tensor core's fp32 sum truncates), added in fp32
-      float acc[64], part[64];
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < WG_KGROUP; ++kk) wgmma_m64n128k16_bf16(acc, a[kk], desc(kk), kk > 0);
-#pragma unroll
-      for (int kk = WG_KGROUP; kk < WG_DP / 16; ++kk)
-        wgmma_m64n128k16_bf16(part, a[kk], desc(kk), kk > WG_KGROUP);
-      wg_commit();
-      wg_wait<0>();
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] += part[i];
-      // the logits: the tile's column biases (-1e30 at masked columns,
-      // -inf beyond V), read before the stage is released
-      const float* cb = cbias + st * WG_BV + 2 * t4;
-#pragma unroll
-      for (int j = 0; j < WG_BV / 8; ++j) {
-        const float2 b = *reinterpret_cast<const float2*>(cb + 8 * j);
-        acc[4 * j] += b.x;
-        acc[4 * j + 1] += b.y;
-        acc[4 * j + 2] += b.x;
-        acc[4 * j + 3] += b.y;
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty0 + 8 * st);
-      // the online (max, sum of exp) of each row, in column order
-      const int v0 = vt * WG_BV;
+    for (int g = 0; g < W::RG; ++g) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int tc = tg[h] - v0;  // the target's column in the tile
-        if ((unsigned)tc < (unsigned)WG_BV && ((tc >> 1) & 3) == t4) {
+        row[g][h] = (u + g) * WG_UNIT + wrow + 8 * h;
+        tg[g][h] = row[g][h] < rend ? tgt[row[g][h]] : -1;
+        m[g][h] = -INFINITY;
+        s[g][h] = 0.f;
+        tl[g][h] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < W::KSTEPS; ++kk) {
+        const int d = 16 * kk + 2 * t4;
+        a[g][kk][0] = pack_bf16(xv(row[g][0], d), xv(row[g][0], d + 1));
+        a[g][kk][1] = pack_bf16(xv(row[g][1], d), xv(row[g][1], d + 1));
+        a[g][kk][2] = pack_bf16(xv(row[g][0], d + 8), xv(row[g][0], d + 9));
+        a[g][kk][3] = pack_bf16(xv(row[g][1], d + 8), xv(row[g][1], d + 9));
+      }
+    }
+    for (int vt = 0; vt < ntiles; ++vt, ++c) {
+      const int st = c % W::STAGES;
+      mbar_wait(full0 + 8 * st, (c / W::STAGES) & 1);
+      const uint32_t tile = base + st * W::TILE_BYTES;
+      auto desc = [&](int kk) {
+        return sw128_desc(tile + (kk / 4) * W::BOX_BYTES + 32 * (kk % 4));
+      };
+      // acc[g][4 j + 2 h + q]: row row[g][h], column 8 j + 2 t4 + q of the
+      // tile; each accumulator fresh (a tensor core's fp32 sum truncates):
+      // at DP 256 the first WG_KGROUP k16 steps into acc, the rest into
+      // part, added in fp32
+      float acc[W::RG][64];
+      float part[W::KSTEPS > W::KGROUP ? 64 : 1];
+      named_barrier(1 + wg, 256);
+      wg_fence();
+#pragma unroll
+      for (int g = 0; g < W::RG; ++g) {
+#pragma unroll
+        for (int kk = 0; kk < W::KGROUP; ++kk)
+          wgmma_m64n128k16_bf16(acc[g], a[g][kk], desc(kk), kk > 0);
+        if constexpr (W::KSTEPS > W::KGROUP) {
+#pragma unroll
+          for (int kk = W::KGROUP; kk < W::KSTEPS; ++kk)
+            wgmma_m64n128k16_bf16(part, a[g][kk], desc(kk), kk > W::KGROUP);
+        }
+        wg_commit();
+      }
+      named_barrier_arrive(2 - wg, 256);
+      const float* cb = cbias + st * WG_BV + 2 * t4;
+      const int v0 = vt * WG_BV;
+#pragma unroll
+      for (int g = 0; g < W::RG; ++g) {
+        if (g + 1 < W::RG)
+          wg_wait<1>();  // this group's products are done, the next one's run on
+        else
+          wg_wait<0>();
+        if constexpr (W::KSTEPS > W::KGROUP) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) acc[g][i] += part[i];
+        }
+        // the logits: the tile's column biases (-1e30 at masked columns,
+        // -inf beyond V), read before the stage is released
+#pragma unroll
+        for (int j = 0; j < WG_BV / 8; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(cb + 8 * j);
+          acc[g][4 * j] += b.x;
+          acc[g][4 * j + 1] += b.y;
+          acc[g][4 * j + 2] += b.x;
+          acc[g][4 * j + 3] += b.y;
+        }
+        if (g + 1 == W::RG) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * st);
+        }
+        if (g >= nrg) continue;  // a round of one unit: no rows here
+        // the online (max, sum of exp) of each row, in column order; the
+        // two rows' chains interleaved
+        float mh[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tc = tg[g][h] - v0;  // the target's column in the tile
+          if ((unsigned)tc < (unsigned)WG_BV && ((tc >> 1) & 3) == t4) {
+#pragma unroll
+            for (int j = 0; j < WG_BV / 8; ++j)
+#pragma unroll
+              for (int q = 0; q < 2; ++q)
+                if (8 * j + 2 * t4 + q == tc) tl[g][h] = acc[g][4 * j + 2 * h + q];
+          }
+          float t[WG_BV / 8];  // the tile's max, as a tree (a max is exact in any order)
 #pragma unroll
           for (int j = 0; j < WG_BV / 8; ++j)
+            t[j] = fmaxf(acc[g][4 * j + 2 * h], acc[g][4 * j + 2 * h + 1]);
+          static_assert(WG_BV == 128, "a tree of 16");
 #pragma unroll
-            for (int q = 0; q < 2; ++q)
-              if (8 * j + 2 * t4 + q == tc) tl[h] = acc[4 * j + 2 * h + q];
+          for (int j = 0; j < 8; ++j) t[j] = fmaxf(t[j], t[j + 8]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) t[j] = fmaxf(t[j], t[j + 4]);
+          t[0] = fmaxf(fmaxf(t[0], t[2]), fmaxf(t[1], t[3]));
+          if (t[0] > m[g][h]) {
+            s[g][h] *= exp_sfu(m[g][h] - t[0]);  // 0 while m is -inf (s is 0 then)
+            m[g][h] = t[0];
+          }
+          // while no column lies below V, m and every logit are -inf: an
+          // exp of -inf adds 0
+          mh[h] = m[g][h] == -INFINITY ? 0.f : m[g][h];
         }
-        float tmax = -INFINITY;
 #pragma unroll
         for (int j = 0; j < WG_BV / 8; ++j)
-          tmax = fmaxf(tmax, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
-        if (tmax > m[h]) {
-          s[h] *= exp_t(m[h] - tmax);  // 0 while m is -inf (s is 0 then)
-          m[h] = tmax;
-        }
-        if (m[h] == -INFINITY) continue;  // no column below V yet
 #pragma unroll
-        for (int j = 0; j < WG_BV / 8; ++j)
+          for (int q = 0; q < 2; ++q)
 #pragma unroll
-          for (int q = 0; q < 2; ++q) s[h] += exp_t(acc[4 * j + 2 * h + q] - m[h]);
+            for (int h = 0; h < 2; ++h) s[g][h] += exp_sfu(acc[g][4 * j + 2 * h + q] - mh[h]);
       }
     }
-    ce_quad_merge(m, s, tl);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = h ? r1 : r0;
-      if (t4 == 0 && row < N) {
-        const float L = m[h] + logf(s[h]);
-        nll[row] = L - tl[h];
-        if (lse_out != nullptr) lse_out[row] = L;
-      }
+    for (int g = 0; g < W::RG; ++g) {
+      ce_quad_merge(m[g], s[g], tl[g]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (t4 == 0 && row[g][h] < rend) {
+          const float L = m[g][h] + logf(s[g][h]);
+          nll[row[g][h]] = L - tl[g][h];
+          if (lse_out != nullptr) lse_out[row[g][h]] = L;
+        }
     }
   }
+  if (wg == 0) named_barrier(1, 256);  // the other's last turn, so both barriers end even
 }
 
 // Whether g = (p - onehot) dnll, computed from a tensor-core logit, may
@@ -1008,57 +1091,56 @@ cudaError_t ce_fwd_mma(const void* x, int xbf, const float* tab, const float* bi
   return cudaGetLastError();
 }
 
-// The bf16 forward at 128 < D <= 256: the table rounded once into scratch
-// ([V, WG_DP] bf16, 16-byte aligned), then ce_fwd_wgmma_kernel on one
-// persistent block a multiprocessor (at most one a row tile).
-template <typename Tin>
+// The bf16 forward at D <= 256: the table rounded once into scratch ([V,
+// DP] bf16, 16-byte aligned), then ce_fwd_wgmma_kernel on one persistent
+// block a multiprocessor (at most one a unit of 128 rows).
+template <typename Tin, int DP>
 cudaError_t ce_fwd_wgmma(const Tin* x, const float* tab, void* scratch, const float* bias,
                          const int* tgt, float* nll, float* lse, int N, int V, int D,
                          int valid_v, int device, cudaStream_t s) {
+  using W = WgTile<DP>;
   if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return cudaErrorInvalidValue;
-  const long long blocks = ((long long)V * (WG_DP / 2) + 255) / 256;
-  ce_round_table_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+  const long long blocks = ((long long)V * (DP / 2) + 255) / 256;
+  ce_round_table_kernel<DP><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
       tab, static_cast<uint32_t*>(scratch), V, D);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   CUtensorMap tm;
-  e = make_tensor_map_2d(&tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scratch, V, WG_DP, WG_DP * 2,
-                         WG_BV, WG_BOX);
+  e = make_tensor_map_2d(&tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, scratch, V, DP, DP * 2, WG_BV,
+                         WG_BOX);
   if (e != cudaSuccess) return e;
-  if ((e = ce_set_smem(ce_fwd_wgmma_kernel<Tin>, WG_SMEM)) != cudaSuccess) return e;
+  if ((e = ce_set_smem(ce_fwd_wgmma_kernel<Tin, DP>, W::SMEM)) != cudaSuccess) return e;
   int sms = 0;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return e;
-  const int nrt = (N + WG_BM - 1) / WG_BM;
-  ce_fwd_wgmma_kernel<Tin><<<min(nrt, sms), WG_THREADS, WG_SMEM, s>>>(tm, x, bias, tgt, nll, lse,
-                                                                      N, V, D, valid_v);
+  const int nunits = (N + WG_UNIT - 1) / WG_UNIT;
+  ce_fwd_wgmma_kernel<Tin, DP><<<min(nunits, sms), WG_THREADS, W::SMEM, s>>>(
+      tm, x, bias, tgt, nll, lse, N, V, D, valid_v);
   return cudaGetLastError();
 }
 
-// D <= MMA_MAX_D takes the tensor cores: without mm_bf16 ce_fwd_mma_kernel
-// (3xTF32), with mm_bf16 at D 129-256 ce_fwd_wgmma_kernel (bf16 products);
-// with mm_bf16 at D <= 128, or at a wider D, the fp32 FMA kernel with 16 x
-// 16 tiles (RT = 4 for D <= 128, else 1; the header's second point of
-// accuracy says why D <= 128 in bf16 stays there).
+// D <= MMA_MAX_D takes the tensor cores: ce_fwd_wgmma_kernel with mm_bf16
+// (bf16 products), else ce_fwd_mma_kernel (3xTF32); a wider D the fp32 FMA
+// kernel with 16 x 16 tiles.
 template <typename Tin>
 cudaError_t ce_fwd_any(const Tin* x, const float* tab, void* scratch, const float* bias,
                        const int* tgt, float* nll, float* lse, int N, int V, int D, int valid_v,
                        int mm_bf16, int device, cudaStream_t s) {
-  if (D <= MMA_MAX_D && (!mm_bf16 || D > 128)) {
+  if (D <= MMA_MAX_D) {
     // ce_fwd_mma_kernel copies the table in 16-byte pieces; the wrapper
     // hands both tensor-core forwards an aligned one (one gate, one rule)
     if (reinterpret_cast<uintptr_t>(tab) % 16 != 0) return cudaErrorInvalidValue;
-    if (mm_bf16)
-      return ce_fwd_wgmma(x, tab, scratch, bias, tgt, nll, lse, N, V, D, valid_v, device, s);
     const int xbf = std::is_same<Tin, __nv_bfloat16>::value;
-    return mma_dispatch(0, D, [&](auto, auto dp) {
-      return ce_fwd_mma<decltype(dp)::value>(x, xbf, tab, bias, tgt, nll, lse, N, V, D, valid_v,
-                                             s);
+    return mma_dispatch(mm_bf16, D, [&](auto mm, auto dp) {
+      constexpr int DP = decltype(dp)::value;
+      if constexpr (decltype(mm)::value)
+        return ce_fwd_wgmma<Tin, DP>(x, tab, scratch, bias, tgt, nll, lse, N, V, D, valid_v,
+                                     device, s);
+      else
+        return ce_fwd_mma<DP>(x, xbf, tab, bias, tgt, nll, lse, N, V, D, valid_v, s);
     });
   }
-  if (D <= 128)  // with mm_bf16 only
-    return ce_fwd<Tin, true, 4>(x, tab, bias, tgt, nll, lse, N, V, D, valid_v, s);
   return mm_bf16 ? ce_fwd<Tin, true, 1>(x, tab, bias, tgt, nll, lse, N, V, D, valid_v, s)
                  : ce_fwd<Tin, false, 1>(x, tab, bias, tgt, nll, lse, N, V, D, valid_v, s);
 }
@@ -1092,11 +1174,11 @@ extern "C" {
 
 // x: [N, D] fp32 (bf16 == 0) or bf16; table: [V, D] and bias: [V] fp32;
 // tgt: [N] int32; nll: [N] fp32 out; lse: [N] fp32 out, or null; scratch:
-// with mm_bf16 at 128 < D <= 256, [V, 256] bf16 (the rounded table, 16-byte
-// aligned), else unused; valid_v: columns at or beyond it are masked;
-// mm_bf16: round x and the table to bf16 for the logits; device: the card
-// that holds them.  The tensor-core forwards (D <= 256 without mm_bf16,
-// 129-256 with it) need a 16-byte aligned table.
+// with mm_bf16 at D <= 256, [V, DP] bf16 (the rounded table, DP = 64, 128
+// or 256 by mma_dp, 16-byte aligned), else unused; valid_v: columns at or
+// beyond it are masked; mm_bf16: round x and the table to bf16 for the
+// logits; device: the card that holds them.  The tensor-core forwards (D
+// <= 256) need a 16-byte aligned table.
 int recblr_ce_fwd(const void* x, const void* table, const void* bias, const void* tgt,
                   void* nll, void* lse, void* scratch, int N, int V, int D, int valid_v, int bf16,
                   int mm_bf16, int device, void* stream) {

@@ -189,6 +189,12 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive at the named barrier without waiting: `threads` counts these
+// threads and those that wait at it with named_barrier.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // TMA: 2-D tensor copies and their completion
 // ---------------------------------------------------------------------------

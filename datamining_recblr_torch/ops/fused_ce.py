@@ -17,11 +17,11 @@ version.  Two paths, as in ``datamining_recblr_tpu/ops/fused_ce.py``:
   sums), dx takes g and the table rounded, dtable takes g and x unrounded
   (``fused_ce.py:114-122``).  The backward runs its products on the
   tensor cores at D <= 256 in both precisions (``bwd_uses_mma``: 3xTF32 in
-  fp32, bf16 products with ``mm_bf16``), the fp32 FMA kernels above; the
-  forward its logits there in fp32 (``fwd_uses_mma``: 3xTF32) and with
-  ``mm_bf16`` at D 129-256 (bf16 products on wgmma, the table rounded
-  once a call into a scratch the wrapper allocates), the FMA kernel with
-  ``mm_bf16`` at D <= 128 and above D 256.
+  fp32, bf16 products with ``mm_bf16``), the fp32 FMA kernels above; so
+  does the forward (``fwd_uses_mma``: 3xTF32 on ``mma.sync`` in fp32, with
+  ``mm_bf16`` bf16 products on wgmma, the table rounded once a call into
+  a [V, 64, 128 or 256] scratch the wrapper allocates), the FMA kernel
+  above D 256.
 * vocab-chunked, for tables beyond ``supports`` (XLong: V = 329,728):
   ``_cce_fwd_kernel`` via ``_cce_fwd`` :413 and the kernels of
   ``_cce_bwd`` :448; ``csrc/fused_ce_chunked.cu``, whose forward runs its
@@ -67,7 +67,6 @@ CHUNK_MIN_LOGITS_BYTES = 64 * 1024 * 1024
 MAX_D = 512  # the kernels' 16 x 16 tiles hold rows of up to 512 floats
 MMA_MAX_D = 128  # the chunked kernels' tensor-core tiles hold rows of up to 128
 BWD_MMA_MAX_D = 256  # the whole-table kernels' tensor-core tiles: rows of up to 256
-WG_DP = 256  # the bf16 forward on wgmma pads the rounded table's rows to 256
 
 
 def supports(v: int, d: int) -> bool:
@@ -106,14 +105,17 @@ def bwd_uses_mma(d: int, mm_bf16: bool) -> bool:
 
 def fwd_uses_mma(d: int, mm_bf16: bool) -> bool:
     """Whether the whole-table forward runs its logits on the tensor cores:
-    without ``mm_bf16`` where the backward does (D <= 256,
-    ``csrc/fused_ce.cu`` ``ce_fwd_mma_kernel``, 3xTF32); with ``mm_bf16`` at
-    D 129-256 (``ce_fwd_wgmma_kernel``, bf16 products on wgmma).  At D <=
-    128 in bf16 it keeps the FMA kernel: the bf16 backward rounds g against
-    FMA-order logits and this forward's lse, and a tensor-core lse put the
-    bf16 dx of the D 64 cloze loss beyond the card check's bound, which
-    allows for no rounding ties of g there (it does above D 128)."""
-    return d <= BWD_MMA_MAX_D and (not mm_bf16 or d > MMA_MAX_D)
+    where the backward does, at D <= 256 (``csrc/fused_ce.cu``
+    ``ce_fwd_mma_kernel``, 3xTF32, and with ``mm_bf16``
+    ``ce_fwd_wgmma_kernel``, bf16 products on wgmma); above, the fp32 FMA
+    kernel."""
+    return d <= BWD_MMA_MAX_D
+
+
+def mma_dp(d: int) -> int:
+    """D padded to the tensor-core kernels' width: 64, 128 or 256 (the
+    rounded table's row in the bf16 forward's scratch)."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
 
 
 # ---------------------------------------------------------------------------
@@ -318,8 +320,8 @@ def _launch_fwd(x, table, bias, tgt32, valid_v, mm_bf16, train):
     mma = fwd_uses_mma(d, mm_bf16)  # the C side dispatches on the same facts
     if mma and table.data_ptr() % 16:
         table = table.clone()  # the tensor-core kernels take a 16-byte aligned table
-    # the bf16 forward on wgmma rounds the table once into [V, 256] bf16
-    scratch = (torch.empty((table.shape[0], WG_DP), device=x.device, dtype=torch.bfloat16)
+    # the bf16 forward on wgmma rounds the table once into [V, DP] bf16
+    scratch = (torch.empty((table.shape[0], mma_dp(d)), device=x.device, dtype=torch.bfloat16)
                if mma and mm_bf16 else None)
     lib = _cuda.library("fused_ce.cu")
     nll = torch.empty((n,), device=x.device, dtype=torch.float32)

@@ -13,10 +13,12 @@ and ``_kernel_chunk`` (``_scan_chunked``) ran through ``run``'s
 
 at g, x [2,048, 200, 128] fp32.  ``scan_flat`` and ``scan_chunk`` are the
 kernels of ``csrc/probe_scan_chunked.cu`` on CUDA tensors (a block a row
-and 32 channels; flat: 8 rounds in shared memory, a barrier each; chunk:
-a warp a chunk, its 8 positions scanned serially in registers, the
-carries' 5 rounds in shared memory) and their plain versions on CPU
-tensors; each counts its launches (``.launches``).  The chunk's plain
+and 32 channels; flat: a warp per 32 positions held in registers, the 5
+rounds of d < 32 there and the rest through shared memory, each round's
+sums those of the flat scan above; chunk: a warp a chunk, its 8
+positions scanned serially in registers, the carries' 5 rounds in shared
+memory) and their plain versions on CPU tensors; each counts its
+launches (``.launches``).  The chunk's plain
 version scans within a chunk serially, as its kernel does; the JAX probe
 does that in 3 Hillis-Steele rounds, the same sums in another order.
 Row 7 (``ops/scan.py`` ``linear_scan``, one thread a (row, channel),
@@ -41,7 +43,7 @@ from datamining_recblr_torch.probes import _bench
 
 B, T, C = 2048, 200, 128
 CHUNK = 8
-FLAT_MAX_T = 454   # 4 T x 32 fp32 of shared memory within Hopper's 227 KB
+FLAT_MAX_T = 512   # 16 warps of 32 positions a thread
 CHUNK_MAX_T = 256  # T / 8 warps of 32 lanes a block
 WHICH = ("flat", "chunk", "serial")
 
@@ -111,7 +113,7 @@ def _launch(g, x, chunk):
 
 def scan_flat(g, x):
     """The flat Hillis-Steele scan of [B, T, C] fp32: the kernel on a CUDA
-    tensor (T <= 454, C a multiple of 32), the plain version on a CPU one."""
+    tensor (T <= 512, C a multiple of 32), the plain version on a CPU one."""
     _checks(g, x, FLAT_MAX_T, "flat")
     if x.device.type == "cpu":
         return scan_flat_plain(g, x)

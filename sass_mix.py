@@ -4,8 +4,8 @@ loops (``csrc/probe_mask_replay_check.cu``, queue B row 17f), by the H100
 pipe that issues them, from the machine code (SASS) that ``nvcc`` built
 for ``sm_90a``, and prices the XLong layer's four masks on each pipe;
 and counts the asynchronous units' instructions of the kernels on
-``wgmma`` and TMA (rows 17d and 17a, and row 13's bf16 forward at D
-129-256, ``csrc/fused_ce.cu`` ``ce_fwd_wgmma_kernel``): warpgroup products
+``wgmma`` and TMA (rows 17d and 17a, and row 13's bf16 forward at D <=
+256, ``csrc/fused_ce.cu`` ``ce_fwd_wgmma_kernel``): warpgroup products
 (HGMMA) and TMA tensor loads and stores and bulk copies (UTMALDG, UTMASTG,
 UBLKCP).
 

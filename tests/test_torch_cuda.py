@@ -926,14 +926,15 @@ def test_ce_kernels_match_plain(dev, n, v, valid_v, d, dtype, mm_bf16):
 
 
 # (N, V, valid_v, D) of the forwards: N no multiple of the 128-row block, V
-# no multiple of the 64-, 32-, 16- or (wgmma, bf16 at D 129-256) 128-row
-# table tile, masked columns; row 13 at D 50, 64, 128, 136, 200 and 256
-# (its tensor-core widths), and at D 256 with more 128-row tiles than the
-# card has multiprocessors (the wgmma kernel's persistent blocks take
-# several), row 14 at D 64, 100 and 128 with many vocab splits
+# no multiple of the 64-, 32-, 16- or (wgmma, bf16) 128-row table tile,
+# masked columns; row 13 at D 50, 64, 128, 136, 200 and 256 (its
+# tensor-core widths), and at D 50, 100 and 256 with more 128-row units
+# than the card has multiprocessors (the wgmma kernel's persistent blocks
+# take several; at D 50 some two rounds of two units, some a round of two
+# and one of one), row 14 at D 64, 100 and 128 with many vocab splits
 CE_FWD_SHAPES = [(1000, 300, 290, 50), (1000, 300, 290, 64), (517, 211, 200, 128),
                  (300, 131, 129, 136), (300, 97, 90, 200), (257, 300, 290, 256),
-                 (20_001, 389, 380, 256)]
+                 (20_001, 389, 380, 256), (40_001, 389, 380, 50), (20_001, 389, 380, 100)]
 CCE_FWD_SHAPES = [(300, 5000, 4990, 64), (257, 3001, 2990, 100), (129, 4000, 3999, 128)]
 
 
@@ -958,9 +959,9 @@ def test_ce_forward_kernels_match_plain(dev, chunked, n, v, valid_v, d, dtype, m
     1e-4 + rtol 1e-5: an fp32 logsumexp in another order), with a bias (in
     the table's dtype), masked columns and targets in the last tile; the
     tensor-core kernel runs exactly where the gate says (row 13:
-    ``fwd_uses_mma``, at D <= 256 without ``mm_bf16`` and at D 129-256 with
-    it; row 14: ``chunked_fwd_uses_mma``, at D <= 128, with more than one
-    vocab split), and a rerun gives the same bits."""
+    ``fwd_uses_mma``, at D <= 256, on wgmma with ``mm_bf16``; row 14:
+    ``chunked_fwd_uses_mma``, at D <= 128, with more than one vocab
+    split), and a rerun gives the same bits."""
     from datamining_recblr_torch.ops import fused_ce as FCE
 
     rng = np.random.default_rng(57 + d)
@@ -975,7 +976,7 @@ def test_ce_forward_kernels_match_plain(dev, chunked, n, v, valid_v, d, dtype, m
         train, counted = FCE.fused_softmax_ce_train, FCE.fused_softmax_ce
         mma = FCE.fwd_uses_mma(d, mm_bf16)
         want = FCE._plain_fwd(x, table, bias.float(), tgt, valid_v, mm_bf16)
-    assert mma == (chunked or not mm_bf16 or d > 128)
+    assert mma == (d <= (128 if chunked else 256))
     before = (counted.launches, train.mma_launches)
     nll, lse = train(x, table, tgt, bias, valid_v, mm_bf16)
     assert (counted.launches - before[0], train.mma_launches - before[1]) == (1, int(mma))
@@ -988,15 +989,15 @@ def test_ce_forward_kernels_match_plain(dev, chunked, n, v, valid_v, d, dtype, m
 
 @pytest.mark.parametrize("chunked,d,mm_bf16,mma",
                          [(False, 256, False, True), (False, 256, True, True),
-                          (False, 128, True, False),
+                          (False, 128, True, True),
                           (False, 300, False, False), (False, 300, True, False),
                           (True, 128, False, True), (True, 128, True, True),
                           (True, 200, False, False), (True, 200, True, False)])
 def test_ce_forwards_count_mma_launches_by_their_gates(dev, chunked, d, mm_bf16, mma):
     """Beyond its tensor-core width a forward runs the fp32 FMA kernel and
-    counts no launch on the tensor cores: row 13 at D 300 and with
-    ``mm_bf16`` at D <= 128 (at D 256 it runs on wgmma), row 14 at D 200;
-    both agree with the plain version there too."""
+    counts no launch on the tensor cores: row 13 at D 300 (with
+    ``mm_bf16`` at D 128 and 256 it runs on wgmma), row 14 at D 200; both
+    agree with the plain version there too."""
     from datamining_recblr_torch.ops import fused_ce as FCE
 
     rng = np.random.default_rng(58)
@@ -2454,6 +2455,30 @@ def test_probe_ce_mm_kernel_matches_plain_on_ragged_shapes(dev):
             assert got.shape == (n, v) and got.is_contiguous()
             torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
             assert torch.equal(CE.mm(x, table, bn), got), (n, v, bn)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("c", [32, 160])
+@pytest.mark.parametrize("t", [1, 2, 31, 33, 200, 454, 512])
+def test_probe_scan_flat_kernel_matches_plain(dev, t, c):
+    """Queue B row 17c's flat scan (a warp per 32 positions in registers)
+    against ``scan_flat_plain`` at T below, at and across a warp's 32
+    positions, at the probe's 200 and up to 512, with one and five
+    32-channel slices, within the smoke's SCAN_RTOL (1e-5 of the largest
+    |h|: fmaf against a multiply and an add); one launch a call, and a
+    rerun gives the same bits."""
+    from datamining_recblr_torch.probes import scan_chunked as SCP
+
+    rng = np.random.default_rng(17 + t + c)
+    g = torch.from_numpy(rng.uniform(0.9, 0.999, size=(3, t, c)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((3, t, c)).astype(np.float32)).to(dev)
+    before = SCP.scan_flat.launches
+    got = SCP.scan_flat(g, x)
+    assert SCP.scan_flat.launches == before + 1
+    want = SCP.scan_flat_plain(g, x)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(SCP.scan_flat(g, x), got)
     torch.cuda.synchronize()
 
 

@@ -322,13 +322,11 @@ def test_whole_table_bwd_takes_the_tensor_cores_up_to_d_256(d, mm_bf16):
 @pytest.mark.parametrize("d", [64, 128, 129, 256, 257])
 def test_forward_gates(d, mm_bf16):
     """Row 14's forward takes the tensor cores at D <= 128 in both
-    precisions; row 13's without ``mm_bf16`` where its backward does, at D
-    <= 256, and with ``mm_bf16`` at D 129-256 (wgmma); at D <= 128 in bf16
-    the FMA kernel keeps the lse that its bf16 backward's rounding of g
-    needs."""
+    precisions; row 13's where its backward does, at D <= 256 in both
+    (3xTF32 on mma.sync, bf16 products on wgmma with ``mm_bf16``)."""
     assert FCE.chunked_fwd_uses_mma(d, mm_bf16) == (d <= 128)
-    assert FCE.fwd_uses_mma(d, mm_bf16) == (d <= 256 and (not mm_bf16 or d > 128))
-    assert FCE.fwd_uses_mma(d, False) == FCE.bwd_uses_mma(d, False)
+    assert FCE.fwd_uses_mma(d, mm_bf16) == (d <= 256)
+    assert FCE.fwd_uses_mma(d, mm_bf16) == FCE.bwd_uses_mma(d, mm_bf16)
 
 
 class _FakeLib:
@@ -352,7 +350,7 @@ def test_forward_counts_mma_launches_where_its_gate_says(monkeypatch, chunked, d
     where its gate sends it there (the C side dispatches on the same fact),
     and hands the kernel a 16-byte aligned table there (a copy of one that
     is not); row 13's hands its bf16 forward on wgmma (``mm_bf16`` at D
-    129-256) a [V, 256] bf16 scratch for the rounded table, and no other
+    <= 256) a [V, DP] bf16 scratch for the rounded table, and no other
     forward one; the library is a stand-in that launches nothing."""
     import contextlib
 

@@ -2,7 +2,7 @@
 them (``csrc/ce_mma.cuh`` ``ce_fwd_mma_tiles``: row 13's
 ``ce_fwd_mma_kernel``, fp32 only, and row 14's ``cce_fwd_mma_kernel`` with
 ``cce_lse_kernel``, fp32 and bf16; ``csrc/fused_ce.cu``
-``ce_fwd_wgmma_kernel``, row 13's bf16 forward at D 129-256), emulated in
+``ce_fwd_wgmma_kernel``, row 13's bf16 forward at D <= 256), emulated in
 numpy on the CPU:
 
 * the logits: with ``mm_bf16`` x and the table rounded to bf16 and summed
@@ -16,10 +16,11 @@ numpy on the CPU:
   columns 8 j + 2 t4 and 8 j + 2 t4 + 1) over the table tiles of 4,096 / DP
   rows in order, the sum rescaled when a tile's max exceeds the running
   one; the four lanes merged in the kernel's butterfly (xor 1, then 2);
-* row 13's bf16 forward on wgmma: D padded to 256, 128-row table tiles
-  (the lanes' columns 8 j + 2 t4 (+1), j < 16), each k16 step's products
-  exact and added into its accumulator truncated to fp32, a fresh
-  accumulator every ``WG_KGROUP`` steps added in fp32;
+* row 13's bf16 forward on wgmma: D padded to 64, 128 or 256, 128-row
+  table tiles (the lanes' columns 8 j + 2 t4 (+1), j < 16), each k16
+  step's products exact and added into its accumulator truncated to fp32,
+  a fresh accumulator every ``WG_KGROUP`` steps added in fp32 (one
+  accumulator at DP 64 and 128);
 * row 13: nll = lse - l[target] from the tensor-core logits; row 14: the vocab
   splits' partials merged as ``cce_lse_kernel`` does (lane l of a warp the
   splits l, l + 32, ..., then a butterfly over the 32 lanes) and the target
@@ -166,9 +167,9 @@ def cce_fwd_scheme(x, table, bias, targets, valid_v, mm_bf16, splits):
 
 
 # row 13's bf16 forward on wgmma (``csrc/fused_ce.cu`` ce_fwd_wgmma_kernel):
-# D padded to 256, 16 k16 steps, 128-row table tiles, WG_KGROUP k16 steps
-# an accumulator
-WG_DP, WG_BV, WG_KGROUP = 256, 128, 8
+# D padded to DP (64, 128 or 256: 4, 8 or 16 k16 steps), 128-row table
+# tiles, at most WG_KGROUP k16 steps an accumulator
+WG_BV, WG_KGROUP = 128, 8
 
 
 def _truncate(v64):
@@ -181,17 +182,18 @@ def _truncate(v64):
 
 def _wgmma_logits(x, table, bias, valid_v, kgroup):
     """[N, V] fp32 logits as ce_fwd_wgmma_kernel forms them: round(x)
-    round(table)^T in k16 steps (each step's 16 products exact), every
-    step added into its accumulator and truncated to fp32 (the first step
-    of an accumulator into zero); an accumulator of ``kgroup`` steps, each
-    further one added to the first in fp32 (nearest); then the bias, -1e30
-    at columns >= valid_v."""
-    pad = ((0, 0), (0, WG_DP - x.shape[1]))
+    round(table)^T over D padded to DP in k16 steps (each step's 16
+    products exact), every step added into its accumulator and truncated
+    to fp32 (the first step of an accumulator into zero); an accumulator of
+    ``kgroup`` steps, each further one added to the first in fp32
+    (nearest); then the bias, -1e30 at columns >= valid_v."""
+    dp = _dp(x.shape[1])
+    pad = ((0, 0), (0, dp - x.shape[1]))
     xb, tb = _bf16(np.pad(x, pad)).astype(np.float64), _bf16(np.pad(table, pad)).astype(np.float64)
     acc = None
-    for g0 in range(0, WG_DP, 16 * kgroup):
+    for g0 in range(0, dp, 16 * kgroup):
         part = np.zeros((x.shape[0], table.shape[0]), np.float32)
-        for k0 in range(g0, g0 + 16 * kgroup, 16):
+        for k0 in range(g0, min(dp, g0 + 16 * kgroup), 16):
             part = _truncate(part.astype(np.float64) + xb[:, k0:k0 + 16] @ tb[:, k0:k0 + 16].T)
         acc = part if acc is None else (acc + part).astype(np.float32)
     logits = (acc + bias[None, :]).astype(np.float32)
@@ -200,11 +202,12 @@ def _wgmma_logits(x, table, bias, valid_v, kgroup):
 
 
 def ce_fwd_wgmma_scheme(x, table, bias, targets, valid_v, kgroup=WG_KGROUP):
-    """Row 13's bf16 forward at D 129-256: (nll, lse) [N] fp32, the online
+    """Row 13's bf16 forward at D <= 256: (nll, lse) [N] fp32, the online
     state of each lane over the 128-row tiles (columns 8 j + 2 t4 + q of a
-    tile, j < 16), the four lanes merged in the butterfly."""
+    tile, j < 16), the four lanes merged in the butterfly (the same for a
+    row whichever unit of rows and round of its block it falls in)."""
     logits = _wgmma_logits(x, table, bias, valid_v, kgroup)
-    m, s = _lane_states(logits, 0, -(-table.shape[0] // WG_BV), WG_DP, WG_BV)
+    m, s = _lane_states(logits, 0, -(-table.shape[0] // WG_BV), _dp(x.shape[1]), WG_BV)
     lse = (m + np.log(s)).astype(np.float32)
     tl = logits[np.arange(x.shape[0]), targets]
     return (lse - tl).astype(np.float32), lse
@@ -227,9 +230,8 @@ ROW14 = [(40, 300, 291, 64), (24, 150, 141, 100)]
 
 @pytest.mark.parametrize("n,v,valid_v,d", ROW13)
 def test_whole_table_forward_scheme_matches_jax(n, v, valid_v, d):
-    """Row 13 in fp32 on ``mma.sync`` (3xTF32; with ``mm_bf16`` at D 129-256
-    it runs on wgmma, below, and at D <= 128 the FMA kernel,
-    ``fused_ce.fwd_uses_mma``)."""
+    """Row 13 in fp32 on ``mma.sync`` (3xTF32; with ``mm_bf16`` it runs on
+    wgmma, below; ``fused_ce.fwd_uses_mma``)."""
     x, table, bias, tgt = _case(100 + d, n, v, d, valid_v)
     nll, lse = ce_fwd_scheme(x, table, bias, tgt, valid_v)
     jx, jt, jb, jtg = (jnp.asarray(a) for a in (x, table, bias, tgt))
@@ -254,14 +256,17 @@ def test_chunked_forward_scheme_matches_jax(n, v, valid_v, d, splits, mm_bf16):
 
 
 # (N, V, valid_v, D) of row 13's bf16 forward on wgmma: V no multiple of
-# its 128-row tile, masked columns, N no multiple of its 128-row block
-ROW13_WGMMA = [(40, 300, 291, 200), (37, 150, 141, 256), (130, 400, 390, 256)]
+# its 128-row tile, masked columns, N no multiple of its 128-row unit; D
+# padded to 256, and (one accumulator) to 64 and 128
+ROW13_WGMMA = [(40, 300, 291, 200), (37, 150, 141, 256), (130, 400, 390, 256),
+               (40, 300, 291, 50), (130, 400, 390, 64), (37, 150, 141, 128)]
 
 
 @pytest.mark.parametrize("n,v,valid_v,d", ROW13_WGMMA)
 def test_bf16_wgmma_forward_scheme_matches_jax(n, v, valid_v, d):
-    """Row 13 with ``mm_bf16`` at D 129-256, as ce_fwd_wgmma_kernel sums
-    it: a fresh accumulator every WG_KGROUP k16 steps."""
+    """Row 13 with ``mm_bf16``, as ce_fwd_wgmma_kernel sums it: a fresh
+    accumulator every WG_KGROUP k16 steps (at D 256 two, at D <= 128
+    one)."""
     x, table, bias, tgt = _case(300 + d + n, n, v, d, valid_v)
     nll, lse = ce_fwd_wgmma_scheme(x, table, bias, tgt, valid_v)
     jx, jt, jb, jtg = (jnp.asarray(a) for a in (x, table, bias, tgt))
@@ -285,8 +290,8 @@ def test_one_truncating_accumulator_differs_more():
         nll, lse = ce_fwd_wgmma_scheme(x, table, bias, tgt, 590, kgroup)
         return max(float(np.abs(nll - want).max()), float(np.abs(lse - want_lse).max()))
 
-    assert WG_KGROUP < WG_DP // 16
-    assert err(WG_DP // 16) > ATOL >= err(WG_KGROUP)
+    assert WG_KGROUP < 256 // 16
+    assert err(256 // 16) > ATOL >= err(WG_KGROUP)
 
 
 def test_one_tf32_product_is_not_enough():
